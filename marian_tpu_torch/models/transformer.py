@@ -1,0 +1,451 @@
+"""Transformer encoder-decoder inference as plain functions over a flat
+parameter dict, ported from the default-config part of
+``marian_tpu/models/transformer.py``.
+
+- Parameters keep Marian's flat names (``encoder_l1_self_Wq``, ``Wemb``,
+  ``decoder_ff_logit_out_b``, ...) and Marian's [in, out] weight layout,
+  applied as ``x @ W``; ``convert.params_from_numpy`` makes them tensors.
+- Pre/post-process strings follow Marian: 'a' residual add, 'n'
+  layer-norm; 'd' (dropout) is a no-op here, this slice only decodes.
+- A Python loop over layers stands in for the reference's --scan-layers.
+- Incremental decoding keeps fixed-size [B, H, L, Dh] self-attention
+  caches. With the fused decode kernel the beam reorder is folded into
+  the kernel's cache read (``beam_src``) and the kernel writes the next
+  cache into a second buffer per layer (ping-pong, no allocation per
+  step); without it the step writes its k/v into the cache in place.
+
+Not ported yet (ROADMAP A7): MoE, ULR, AAN/SSRU decoders, factors and
+lemma, multi-source, learned positions, tied layers, LSH, int8 weights,
+the sequence/tensor-parallel branches. ``config_from_options`` refuses
+them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..ops.attention import attention
+from ..ops.kernels.decode_attention import decode_attention
+from ..ops.ops import activation, affine, layer_norm
+
+Params = Dict[str, torch.Tensor]
+
+# decode-state keys with these suffixes are per-beam: the beam search
+# reorders them by backpointers unless the fused kernel does it
+BEAM_CARRIED_SUFFIXES = ("_self_k", "_self_v")
+
+_DTYPES = {"float32": torch.float32, "float16": torch.bfloat16,
+           "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Static model hyperparameters of the decode slice."""
+    src_vocab: int
+    trg_vocab: int
+    dim_emb: int = 512
+    heads: int = 8
+    dim_ffn: int = 2048
+    dec_dim_ffn: int = 0            # 0 → dim_ffn
+    ffn_depth: int = 2
+    dec_ffn_depth: int = 0          # 0 → ffn_depth
+    enc_depth: int = 6
+    dec_depth: int = 6
+    ffn_activation: str = "relu"
+    preprocess: str = ""
+    postprocess: str = "dan"
+    postprocess_emb: str = "d"
+    postprocess_top: str = ""
+    tied_embeddings: bool = False
+    tied_embeddings_src: bool = False
+    tied_embeddings_all: bool = True
+    no_projection: bool = False
+    flash_attention: str = "auto"           # not ported: auto raises at T>=1024
+    packed_attention: str = "auto"          # auto | on | off (CUDA kernel)
+    fused_decode_attention: str = "auto"    # auto | on | off (CUDA kernel)
+    compute_dtype: torch.dtype = torch.float32
+
+    @property
+    def dim_head(self) -> int:
+        return self.dim_emb // self.heads
+
+    @property
+    def dec_ffn(self) -> int:
+        return self.dec_dim_ffn or self.dim_ffn
+
+    @property
+    def dec_ffn_d(self) -> int:
+        return self.dec_ffn_depth or self.ffn_depth
+
+
+# option → value at which the feature is off; anything else is refused
+_UNPORTED = {
+    "transformer-decoder-autoreg": "self-attention",
+    "transformer-tied-layers": [],
+    "transformer-train-position-embeddings": False,
+    "transformer-moe-experts": 0,
+    "factors-dim-emb": 0,
+    "lemma-dim-emb": 0,
+    "ulr": False,
+    "output-approx-knn": [],
+    "sequence-parallel": "none",
+}
+
+
+def config_from_options(options, src_vocab: int,
+                        trg_vocab: int) -> TransformerConfig:
+    """Map Marian flags → TransformerConfig (the reference's
+    ``config_from_options`` for inference, default-config features)."""
+    g = options.get
+    for name, off in _UNPORTED.items():
+        val = g(name, None)
+        if val is None or val == off or (not isinstance(off, str)
+                                         and not val):
+            continue
+        raise NotImplementedError(
+            f"--{name} {val} is not ported to marian_tpu_torch yet "
+            f"(ROADMAP A7)")
+    precision = g("precision", ["float32"])
+    compute = precision[0] if isinstance(precision, list) else precision
+    return TransformerConfig(
+        src_vocab=int(src_vocab),
+        trg_vocab=int(trg_vocab),
+        dim_emb=int(g("dim-emb", 512)),
+        heads=int(g("transformer-heads", 8)),
+        dim_ffn=int(g("transformer-dim-ffn", 2048)),
+        dec_dim_ffn=int(g("transformer-decoder-dim-ffn", 0)),
+        ffn_depth=int(g("transformer-ffn-depth", 2)),
+        dec_ffn_depth=int(g("transformer-decoder-ffn-depth", 0)),
+        enc_depth=int(g("enc-depth", 6)),
+        dec_depth=int(g("dec-depth", 6)),
+        ffn_activation=str(g("transformer-ffn-activation", "relu")),
+        preprocess=str(g("transformer-preprocess", "")),
+        postprocess=str(g("transformer-postprocess", "dan")),
+        postprocess_emb=str(g("transformer-postprocess-emb", "d")),
+        postprocess_top=str(g("transformer-postprocess-top", "")),
+        tied_embeddings=bool(g("tied-embeddings", False)),
+        tied_embeddings_src=bool(g("tied-embeddings-src", False)),
+        tied_embeddings_all=bool(g("tied-embeddings-all", False)),
+        no_projection=bool(g("transformer-no-projection", False)),
+        flash_attention=str(g("transformer-flash-attention", "auto")),
+        packed_attention=str(g("transformer-packed-attention", "auto")),
+        fused_decode_attention=str(
+            g("transformer-fused-decode-attention", "auto")),
+        compute_dtype=_DTYPES.get(str(compute), torch.float32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Initialization (names follow the reference's init_params)
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: TransformerConfig, seed: int) -> Params:
+    """Glorot-uniform weights, zero biases, unit layer-norm scales, made
+    on the CPU from ``seed`` with an explicit torch.Generator (f32)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    d = cfg.dim_emb
+    p: Params = {}
+
+    def glorot(shape):
+        limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
+        return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+
+    def ln(prefix):
+        if "n" in cfg.preprocess or "n" in cfg.postprocess:
+            p[f"{prefix}_ln_scale"] = torch.ones(1, d)
+            p[f"{prefix}_ln_bias"] = torch.zeros(1, d)
+
+    def attn_block(prefix):
+        for n in ("q", "k", "v") + (() if cfg.no_projection else ("o",)):
+            p[f"{prefix}_W{n}"] = glorot((d, d))
+            p[f"{prefix}_b{n}"] = torch.zeros(1, d)
+        ln(f"{prefix}_Wo")
+
+    def ffn_block(prefix, dim_ffn, depth):
+        dims = [d] + [dim_ffn] * (depth - 1) + [d]
+        for i in range(depth):
+            p[f"{prefix}_W{i + 1}"] = glorot((dims[i], dims[i + 1]))
+            p[f"{prefix}_b{i + 1}"] = torch.zeros(1, dims[i + 1])
+        ln(f"{prefix}_ffn")
+
+    if cfg.tied_embeddings_all or cfg.tied_embeddings_src:
+        if cfg.src_vocab != cfg.trg_vocab:
+            raise ValueError("tied src embeddings require equal vocab sizes")
+        p["Wemb"] = glorot((cfg.trg_vocab, d))
+    else:
+        p["encoder_Wemb"] = glorot((cfg.src_vocab, d))
+        p["decoder_Wemb"] = glorot((cfg.trg_vocab, d))
+    for side in ("encoder", "decoder"):
+        if "n" in cfg.postprocess_emb:
+            p[f"{side}_emb_ln_scale"] = torch.ones(1, d)
+            p[f"{side}_emb_ln_bias"] = torch.zeros(1, d)
+    for l in range(1, cfg.enc_depth + 1):
+        attn_block(f"encoder_l{l}_self")
+        ffn_block(f"encoder_l{l}_ffn", cfg.dim_ffn, cfg.ffn_depth)
+    for l in range(1, cfg.dec_depth + 1):
+        attn_block(f"decoder_l{l}_self")
+        attn_block(f"decoder_l{l}_context")
+        ffn_block(f"decoder_l{l}_ffn", cfg.dec_ffn, cfg.dec_ffn_d)
+    if "n" in cfg.postprocess_top or "n" in cfg.preprocess:
+        for side in ("encoder", "decoder"):
+            p[f"{side}_top_ln_scale"] = torch.ones(1, d)
+            p[f"{side}_top_ln_bias"] = torch.zeros(1, d)
+    if not (cfg.tied_embeddings_all or cfg.tied_embeddings):
+        p["decoder_ff_logit_out_W"] = glorot((d, cfg.trg_vocab))
+    p["decoder_ff_logit_out_b"] = torch.zeros(1, cfg.trg_vocab)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def _pre_post(ops: str, x: torch.Tensor, residual: Optional[torch.Tensor],
+              prefix: str, params: Params) -> torch.Tensor:
+    """Apply a Marian process string ('d','a','n') to x."""
+    for op in ops:
+        if op == "a":
+            if residual is not None:
+                x = x + residual
+        elif op == "n":
+            x = layer_norm(x, params[f"{prefix}_ln_scale"],
+                           params[f"{prefix}_ln_bias"])
+        elif op != "d":
+            raise ValueError(f"Unknown process op '{op}'")
+    return x
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, heads, d // heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def fused_decode_active(cfg: TransformerConfig) -> bool:
+    """Whether the fused decode kernel handles the cached self-attention
+    step. 'auto' engages wherever a beam reorder exists to fold: on the
+    card the CUDA kernel runs, on the CPU its plain version, so both run
+    the same pending-backpointer contract."""
+    return cfg.fused_decode_attention != "off"
+
+
+def _mha(cfg: TransformerConfig, params: Params, prefix: str,
+         q_in: torch.Tensor, kv_in: Optional[torch.Tensor],
+         mask: Optional[torch.Tensor],
+         cache: Optional[Dict[str, torch.Tensor]] = None,
+         cache_pos: Optional[int] = None, static_kv: bool = False,
+         kv_mask: Optional[torch.Tensor] = None, causal: bool = False,
+         beam_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head attention with an optional decode cache.
+
+    cache (self-attention): 'k','v' [B,H,L,Dh] (+ 'spare_k','spare_v',
+    the fused kernel's second buffers); this step's k/v land at
+    cache_pos. static_kv (cross-attention): K/V precomputed in cache.
+    beam_src [rows]: pending beam backpointers for the fused kernel.
+    """
+    h = cfg.heads
+
+    def proj(x, n):
+        return _split_heads(affine(x, params[f"{prefix}_W{n}"],
+                                   params[f"{prefix}_b{n}"]), h)
+
+    q = proj(q_in, "q")
+    if static_kv:
+        k_, v_ = cache["k"], cache["v"]
+    else:
+        k_, v_ = proj(kv_in, "k"), proj(kv_in, "v")
+    out = None
+    if cache is not None and not static_kv:
+        use_fused = fused_decode_active(cfg) and (
+            beam_src is not None or cfg.fused_decode_attention == "on")
+        if use_fused:
+            # gather + insert + attention read in one kernel; it writes
+            # the next cache into the spare buffers, which swap roles
+            out, nk, nv = decode_attention(
+                q, k_, v_, cache["k"], cache["v"], cache_pos,
+                src_rows=beam_src, out_k=cache.get("spare_k"),
+                out_v=cache.get("spare_v"))
+            if "spare_k" in cache:
+                cache["spare_k"], cache["spare_v"] = cache["k"], cache["v"]
+            cache["k"], cache["v"] = nk, nv
+        else:
+            cache["k"][:, :, cache_pos] = k_[:, :, 0].to(cache["k"].dtype)
+            cache["v"][:, :, cache_pos] = v_[:, :, 0].to(cache["v"].dtype)
+            k_, v_ = cache["k"], cache["v"]
+    if out is None:
+        out, _ = attention(q, k_, v_, mask, kv_mask=kv_mask, causal=causal,
+                           flash=cfg.flash_attention,
+                           packed=cfg.packed_attention)
+    if cfg.no_projection:
+        return _merge_heads(out)
+    return affine(_merge_heads(out), params[f"{prefix}_Wo"],
+                  params[f"{prefix}_bo"])
+
+
+def _ffn(cfg: TransformerConfig, params: Params, prefix: str,
+         x: torch.Tensor, dim_ffn: int, depth: int) -> torch.Tensor:
+    act = activation(cfg.ffn_activation)
+    for i in range(depth):
+        x = affine(x, params[f"{prefix}_W{i + 1}"], params[f"{prefix}_b{i + 1}"])
+        if i < depth - 1:
+            x = act(x)
+    return x
+
+
+def sinusoidal_positions(length: int, dim: int, start: int = 0,
+                         device=None) -> torch.Tensor:
+    """Tensor2tensor-style timing signal in f32: first half sin, second
+    half cos (the reference's sinusoidal_positions_dynamic)."""
+    pos = (torch.arange(length, dtype=torch.float32, device=device)
+           + float(start))[:, None]
+    half = dim // 2
+    inv_freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                       device=device)
+                         * (math.log(10000.0) / max(half - 1, 1)))
+    angles = pos * inv_freq[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def _embed_words(cfg: TransformerConfig, params: Params, ids: torch.Tensor,
+                 side: str) -> torch.Tensor:
+    """Token embedding * sqrt(dim) (reference: transformer.h embFactor)."""
+    own = "encoder_Wemb" if side == "src" else "decoder_Wemb"
+    if cfg.tied_embeddings_all or (cfg.tied_embeddings_src and side == "src") \
+            or ("Wemb" in params and own not in params):
+        table = params["Wemb"]
+    else:
+        table = params[own]
+    x = table[ids].to(cfg.compute_dtype)
+    return x * math.sqrt(cfg.dim_emb)
+
+
+def _add_pos(cfg: TransformerConfig, x: torch.Tensor,
+             start_pos: int = 0) -> torch.Tensor:
+    return x + sinusoidal_positions(x.shape[-2], cfg.dim_emb, start_pos,
+                                    x.device).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+def encode(cfg: TransformerConfig, params: Params, src_ids: torch.Tensor,
+           src_mask: torch.Tensor) -> torch.Tensor:
+    """[B, Ts] ids + mask → [B, Ts, D] encoder states."""
+    x = _add_pos(cfg, _embed_words(cfg, params, src_ids, "src"))
+    x = _pre_post(cfg.postprocess_emb, x, None, "encoder_emb", params)
+    attn_mask = src_mask[:, None, None, :]
+    for l in range(1, cfg.enc_depth + 1):
+        lp = f"encoder_l{l}"
+        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_self_Wo", params)
+        out = _mha(cfg, params, f"{lp}_self", pre, pre, attn_mask,
+                   kv_mask=src_mask)
+        x = _pre_post(cfg.postprocess, out, x, f"{lp}_self_Wo", params)
+        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_ffn_ffn", params)
+        out = _ffn(cfg, params, f"{lp}_ffn", pre, cfg.dim_ffn, cfg.ffn_depth)
+        x = _pre_post(cfg.postprocess, out, x, f"{lp}_ffn_ffn", params)
+    return _pre_post(cfg.postprocess_top, x, None, "encoder_top", params)
+
+
+# ---------------------------------------------------------------------------
+# Output layer and incremental decoding
+# ---------------------------------------------------------------------------
+
+def output_logits(cfg: TransformerConfig, params: Params,
+                  x: torch.Tensor) -> torch.Tensor:
+    """[.., D] decoder states → [.., V] f32 logits (tied embeddings: the
+    table's transpose, a view, not a copy)."""
+    if cfg.tied_embeddings_all:
+        table = params["Wemb"]
+    elif cfg.tied_embeddings:
+        table = params["Wemb"] if "Wemb" in params else params["decoder_Wemb"]
+    else:
+        table = None
+    w = table.t() if table is not None else params["decoder_ff_logit_out_W"]
+    y = torch.matmul(x.float(), w.float())
+    b = params.get("decoder_ff_logit_out_b")
+    return y if b is None else y + b.float()
+
+
+def init_decode_state(cfg: TransformerConfig, params: Params,
+                      enc_out: torch.Tensor, src_mask: torch.Tensor,
+                      max_len: int) -> Dict[str, Any]:
+    """Precompute cross-attention K/V and allocate the fixed-size
+    self-attention caches (plus the fused kernel's second buffers on the
+    card)."""
+    b = enc_out.shape[0]
+    h, dh = cfg.heads, cfg.dim_head
+    state: Dict[str, Any] = {"pos": 0}
+    spares = enc_out.is_cuda and fused_decode_active(cfg)
+    for l in range(1, cfg.dec_depth + 1):
+        cname = f"decoder_l{l}_context"
+        state[f"l{l}_cross_k"] = _split_heads(affine(
+            enc_out, params[f"{cname}_Wk"], params[f"{cname}_bk"]), h)
+        state[f"l{l}_cross_v"] = _split_heads(affine(
+            enc_out, params[f"{cname}_Wv"], params[f"{cname}_bv"]), h)
+        kinds = ("self_k", "self_v") + (("spare_k", "spare_v") if spares
+                                        else ())
+        for kind in kinds:
+            state[f"l{l}_{kind}"] = torch.zeros(
+                (b, h, max_len, dh), dtype=cfg.compute_dtype,
+                device=enc_out.device)
+    return state
+
+
+def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
+                prev_ids: torch.Tensor, src_mask: torch.Tensor,
+                beam_src: Optional[torch.Tensor] = None):
+    """One decode step on [B, 1] previous ids → ([B, V] logits, new state).
+    ``state['pos']`` is the time index; the self-attention mask allows
+    positions <= pos. ``beam_src`` [B]: pending beam backpointers for the
+    fused kernel (the beam search passes them instead of reordering the
+    self-attention caches)."""
+    pos = state["pos"]
+    max_len = state["l1_self_k"].shape[2]
+    we = _embed_words(cfg, params, prev_ids, "trg")
+    if pos == 0:
+        # Marian's no-BOS decoder start: step 0 sees a zero embedding
+        we = torch.zeros_like(we)
+    x = _add_pos(cfg, we, pos)
+    x = _pre_post(cfg.postprocess_emb, x, None, "decoder_emb", params)
+    self_mask = (torch.arange(max_len, device=x.device) <= pos).to(
+        cfg.compute_dtype)[None, None, None, :]
+    cross_mask = src_mask[:, None, None, :]
+    new_state = dict(state)
+    for l in range(1, cfg.dec_depth + 1):
+        lp = f"decoder_l{l}"
+        cache = {"k": state[f"l{l}_self_k"], "v": state[f"l{l}_self_v"]}
+        if f"l{l}_spare_k" in state:
+            cache["spare_k"] = state[f"l{l}_spare_k"]
+            cache["spare_v"] = state[f"l{l}_spare_v"]
+        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_self_Wo", params)
+        out = _mha(cfg, params, f"{lp}_self", pre, pre, self_mask,
+                   cache=cache, cache_pos=pos, beam_src=beam_src)
+        new_state[f"l{l}_self_k"] = cache["k"]
+        new_state[f"l{l}_self_v"] = cache["v"]
+        if "spare_k" in cache:
+            new_state[f"l{l}_spare_k"] = cache["spare_k"]
+            new_state[f"l{l}_spare_v"] = cache["spare_v"]
+        x = _pre_post(cfg.postprocess, out, x, f"{lp}_self_Wo", params)
+
+        cname = f"{lp}_context"
+        pre = _pre_post(cfg.preprocess, x, None, f"{cname}_Wo", params)
+        out = _mha(cfg, params, cname, pre, None, cross_mask,
+                   cache={"k": state[f"l{l}_cross_k"],
+                          "v": state[f"l{l}_cross_v"]}, static_kv=True)
+        x = _pre_post(cfg.postprocess, out, x, f"{cname}_Wo", params)
+
+        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_ffn_ffn", params)
+        out = _ffn(cfg, params, f"{lp}_ffn", pre, cfg.dec_ffn, cfg.dec_ffn_d)
+        x = _pre_post(cfg.postprocess, out, x, f"{lp}_ffn_ffn", params)
+    x = _pre_post(cfg.postprocess_top, x, None, "decoder_top", params)
+    new_state["pos"] = pos + 1
+    return output_logits(cfg, params, x[:, 0, :]), new_state

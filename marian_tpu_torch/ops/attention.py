@@ -1,0 +1,78 @@
+"""Scaled dot-product attention and its dispatcher, ported from
+``marian_tpu/ops/attention.py``.
+
+Shapes are batch-major: q [B, H, Tq, Dh], k/v [B, H, Tk, Dh],
+mask [B, 1, Tq, Tk] (1 = attend).
+
+The dense path keeps the reference's op order (q scaled BEFORE the score
+product, ``(1 - mask) * NEG_INF`` added). The dispatcher keeps the
+reference's gates: the packed kernel is applicable without returned
+weights, with a structured mask and more than one query position. On
+the card ``packed="auto"`` engages it whenever the length is within the
+kernel's cap (the reference's head-pack test is TPU geometry and is
+dropped); on the CPU ``auto`` stays dense, ``on`` runs the kernel's plain
+version. Where the reference would pick its flash kernel the port raises:
+that kernel is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .kernels.packed_attention import max_t, packed_attention
+from .ops import NEG_INF
+
+# the reference's default flash crossover (marian_tpu/ops/auto_tuner.py
+# :: flash_threshold)
+FLASH_MIN_LEN = 1024
+
+
+def dense_attention_with_weights(q, k, v, mask=None, return_weights=True):
+    dh = q.shape[-1]
+    # 1/sqrt(dh) rounded in f32 as the reference computes it
+    scale = (1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
+             ).item()
+    scores = torch.matmul(q * scale, k.transpose(-1, -2)).float()
+    if mask is not None:
+        scores = scores + (1.0 - mask.to(scores.dtype)) * NEG_INF
+    weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(weights, v).to(q.dtype)
+    return out, (weights if return_weights else None)
+
+
+def attention(q, k, v, mask=None, kv_mask=None, causal: bool = False,
+              return_weights: bool = False, flash: str = "auto",
+              packed: str = "auto"):
+    """Attention dispatcher: dense vs the packed kernel; returns
+    (context, weights or None)."""
+    applicable = (not return_weights and q.shape[-2] > 1
+                  and (kv_mask is not None or causal or mask is None))
+    if applicable and flash != "off" and (
+            flash == "on" or max(q.shape[-2], k.shape[-2]) >= FLASH_MIN_LEN):
+        raise NotImplementedError(
+            f"attention at length {max(q.shape[-2], k.shape[-2])} would take "
+            f"the flash_attention kernel, which is not ported yet (ROADMAP "
+            f"B4); pass --transformer-flash-attention off for the dense path")
+    if applicable and packed != "off":
+        fits = max(q.shape[-2], k.shape[-2]) <= max_t(q.shape[-1])
+        if fits and (packed == "on" or q.is_cuda):
+            return packed_attention(q, k, v, kv_mask=kv_mask,
+                                    causal=causal), None
+    return dense_attention_with_weights(q, k, v, mask, return_weights)
+
+
+def causal_mask(length: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[1, 1, T, T] future mask."""
+    m = torch.tril(torch.ones((length, length), dtype=dtype, device=device))
+    return m[None, None, :, :]
+
+
+def combine_masks(*masks: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    out = None
+    for m in masks:
+        if m is None:
+            continue
+        out = m if out is None else out * m
+    return out
