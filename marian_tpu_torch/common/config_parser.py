@@ -1,14 +1,16 @@
-"""Marian-compatible configuration surface for the port's decoder: YAML
-config files + CLI overrides.
+"""Marian-compatible configuration surface for the port's decoder and
+trainer: YAML config files + CLI overrides.
 
-The translation-mode flags of ``marian_tpu/common/config_parser.py`` and
-the model flags a checkpoint's ``special:model.yml`` carries, with the
-same names and defaults; flags of the JAX package's serving, mesh and
-training machinery are left out. Precedence as in Marian: defaults <
+Two modes, as in ``marian_tpu/common/config_parser.py``: ``translation``
+(the decoder's flags) and ``training`` (the trainer's), each with the
+model flags a checkpoint's ``special:model.yml`` carries, under the same
+names and defaults as the reference; flags of the JAX package's serving
+and mesh machinery are left out. Precedence as in Marian: defaults <
 config file(s) < CLI flags. ``--cpu-threads N`` (N > 0) runs on the CPU.
 
 A flag that parses but whose feature this slice does not carry yet is
-refused at startup by ``translator.translator`` rather than ignored.
+refused at startup (``translator.translator``, ``training.train``)
+rather than ignored.
 """
 
 from __future__ import annotations
@@ -107,21 +109,99 @@ _TRANSLATION = [
     _f("cpu-threads", int, 0, "Use CPU with this many threads (inference)", "?"),
 ]
 
+# training-only model flags (reference: the training/model groups)
+_MODEL_TRAINING = [
+    _f("pretrained-model", str, None, "Initialize weights from this model"),
+    _f("max-length-crop", bool, False, "Crop instead of skipping over-long sentences"),
+    _f("fused-ce", str, "auto", "Fused output projection + cross-entropy kernels (CUDA): auto (on the card), on, off"),
+    _f("gradient-checkpointing", bool, False, "Rematerialization to save memory (not ported yet)"),
+    _f("task", str, None, "Predefined hyperparameter bundle (not ported yet)", "?"),
+]
+
+_TRAINING = [
+    _f("cost-type", str, "ce-sum", "ce-mean, ce-mean-words, ce-sum, perplexity"),
+    _f("unlikelihood-loss", bool, False, "Word-level weights as unlikelihood indicators (not ported yet)"),
+    _f("overwrite", bool, False, "Do not create checkpoints per save, overwrite model file"),
+    _f("no-reload", bool, False, "Do not load existing model file before training"),
+    _f("train-sets", str, [], "Paths to training corpora (source target)", "*"),
+    _f("vocabs", str, [], "Paths to vocabulary files; created if missing", "*"),
+    _f("after-epochs", int, 0, "Stop after this many epochs (0 = no limit)"),
+    _f("after-batches", int, 0, "Stop after this many updates (0 = no limit)"),
+    _f("after", str, "0e", "Stop after: e.g. 10e (epochs), 100Ku (updates), 1Gt (labels)"),
+    _f("disp-freq", str, "1000u", "Display information every N updates/labels"),
+    _f("disp-first", int, 0, "Display information for the first N updates"),
+    _f("disp-label-counts", bool, True, "Display label counts in progress"),
+    _f("save-freq", str, "10000u", "Save model every N updates/labels"),
+    _f("normalize-gradient", bool, False, "Additionally divide the gradient by the batch's target-word count"),
+    _f("check-gradient-nan", bool, False, "Skip the whole update when the gradient norm is non-finite"),
+    _f("dynamic-gradient-scaling", str, [], "Outlier gradient scaling (not ported yet)", "*"),
+    _f("optimizer-state-dtype", str, "float32", "Storage dtype of Adam's first moment (float32 only here)"),
+    _f("gradient-dtype", str, "float32", "Gradient dtype (float32 only here)"),
+    _f("async-save", bool, False, "Overlap checkpoint writes with training (not ported yet)"),
+    _f("shuffle", str, "data", "data, batches, none"),
+    _f("no-shuffle", bool, False, "Disable shuffling (= --shuffle none)"),
+    _f("no-restore-corpus", bool, False, "Do not restore corpus position on resume"),
+    _f("tsv", bool, False, "Tab-separated train sets (not ported yet)"),
+    _f("mini-batch", int, 64, "Minibatch size (sentences)"),
+    _f("mini-batch-words", int, 0, "Minibatch size in target labels (token budget)"),
+    _f("mini-batch-fit", bool, False, "Determine minibatch automatically (not ported yet)"),
+    _f("maxi-batch", int, 100, "Number of minibatches to preload and sort"),
+    _f("maxi-batch-sort", str, "trg", "Sorting within maxi-batch: trg, src, none"),
+    _f("data-threads", int, 8, "Host threads for data pipeline"),
+    _f("mini-batch-words-ref", int, 0, "Reference batch size in words for LR auto-adjustment"),
+    _f("mini-batch-warmup", str, "0", "Linear batch-size warmup period (not ported yet)"),
+    _f("optimizer", str, "adam", "adam, adagrad, sgd"),
+    _f("optimizer-params", float, [], "Optimizer hyperparameters (Adam: beta1 beta2 eps)", "*"),
+    _f("optimizer-delay", float, 1.0, "SGD update delay (gradient accumulation; 1 only here)"),
+    _f("dispatch-window", int, 1, "Updates per dispatch (1 only here)"),
+    _f("sync-sgd", bool, False, "Synchronous SGD (one device here)"),
+    _f("learn-rate", float, 0.0001, "Learning rate"),
+    _f("lr-report", bool, False, "Report learning rate in progress lines"),
+    _f("lr-decay", float, 0.0, "Decay factor (not ported yet)"),
+    _f("lr-decay-inv-sqrt", str, ["0"], "Inverse-sqrt decay with this warmup, e.g. 16000u", "+"),
+    _f("lr-warmup", str, "0", "Linear LR warmup period"),
+    _f("lr-warmup-start-rate", float, 0.0, "Warmup start LR"),
+    _f("lr-warmup-cycle", bool, False, "Cyclic warmup"),
+    _f("lr-warmup-at-reload", bool, False, "Repeat warmup after checkpoint reload (not ported yet)"),
+    _f("label-smoothing", float, 0.0, "Label smoothing epsilon"),
+    _f("clip-norm", float, 1.0, "Global gradient-norm clipping (0 = off)"),
+    _f("exponential-smoothing", float, 0.0, "EMA decay of parameters, e.g. 1e-4 (0 = off)"),
+    _f("guided-alignment", str, "none", "Path to alignments or 'none' (not ported yet)"),
+    _f("data-weighting", str, None, "Path to per-sentence/word weight file"),
+    _f("data-weighting-type", str, "sentence", "sentence or word"),
+    _f("embedding-vectors", str, [], "Pretrained embedding vectors (not ported yet)", "*"),
+    _f("embedding-fix-src", bool, False, "Fix source embeddings (not ported yet)"),
+    _f("embedding-fix-trg", bool, False, "Fix target embeddings (not ported yet)"),
+    _f("dropout-src", float, 0.0, "Source word dropout"),
+    _f("dropout-trg", float, 0.0, "Target word dropout"),
+    _f("transformer-dropout", float, 0.0, "Dropout between transformer layers"),
+    _f("transformer-dropout-attention", float, 0.0, "Attention-weight dropout"),
+    _f("transformer-dropout-ffn", float, 0.0, "FFN dropout"),
+    _f("devices", str, ["0"], "Device ids (one device here)", "+"),
+    _f("num-devices", int, 0, "Number of devices (one here)"),
+    _f("mesh", str, [], "Mesh axes (not ported yet)", "*"),
+    _f("valid-sets", str, [], "Validation corpora (not ported yet)", "*"),
+    _f("cpu-threads", int, 0, "Use CPU with this many threads", "?"),
+]
+
 FLAGS = _COMMON + _MODEL + _TRANSLATION
+MODES = {"translation": FLAGS,
+         "training": _COMMON + _MODEL + _MODEL_TRAINING + _TRAINING}
 
 # mode-suffixed duplicates → the canonical key runtime code reads
 _CANONICAL = {"max-length-factor-translate": "max-length-factor"}
 
 
 class ConfigParser:
-    """parseOptions equivalent for the decoder. Returns a fully-populated
-    Options."""
+    """parseOptions equivalent for one mode (translation or training).
+    Returns a fully-populated Options."""
 
-    def __init__(self):
-        self.flags = {f.name: f for f in FLAGS}
+    def __init__(self, mode: str = "translation"):
+        self.mode = mode
+        self.flags = {f.name: f for f in MODES[mode]}
 
     def _build_argparser(self) -> argparse.ArgumentParser:
-        p = argparse.ArgumentParser(prog="marian-tpu-torch (translation)",
+        p = argparse.ArgumentParser(prog=f"marian-tpu-torch ({self.mode})",
                                     add_help=True, allow_abbrev=False)
         for f in self.flags.values():
             kwargs: Dict[str, Any] = {"dest": f.name.replace("-", "_"),
@@ -196,12 +276,22 @@ def _as_list(v: Any) -> List[Any]:
     return [v]
 
 
-def parse_options(argv: Optional[Sequence[str]] = None) -> Options:
+def parse_options(argv: Optional[Sequence[str]] = None,
+                  mode: str = "translation") -> Options:
     """Module-level convenience mirroring ConfigParser::parseOptions, with
-    the reference's translation-mode validation."""
-    opts = ConfigParser().parse(argv)
+    the reference's validation of the mode."""
+    opts = ConfigParser(mode).parse(argv)
     if opts.get("dim-emb", 512) <= 0:
         raise ValueError("--dim-emb must be positive")
+    threads = opts.get("cpu-threads", 0)
+    if isinstance(threads, (str, bool)) or threads is None:
+        raise ValueError("--cpu-threads needs a thread count N > 0")
+    if mode == "training":
+        if len(opts.get("train-sets", [])) == 0:
+            raise ValueError("No training data given in --train-sets")
+        if opts.get("no-shuffle", False):
+            opts.set("shuffle", "none")
+        return opts
     if not opts.get("models", []) and not opts.get("model", None):
         raise ValueError("No model given in --models")
     w, m = opts.get("weights", []), opts.get("models", [])
@@ -209,7 +299,4 @@ def parse_options(argv: Optional[Sequence[str]] = None) -> Options:
         raise ValueError("--weights count must match --models count")
     if opts.get("beam-size", 12) < 1:
         raise ValueError("--beam-size must be >= 1")
-    threads = opts.get("cpu-threads", 0)
-    if isinstance(threads, (str, bool)) or threads is None:
-        raise ValueError("--cpu-threads needs a thread count N > 0")
     return opts

@@ -9,14 +9,16 @@ Conventions kept from upstream Marian (reference src/common/io.cpp):
   named ``special:model.yml`` holding the YAML text (NUL-terminated).
 
 Weights stay numpy here; ``convert.params_from_numpy`` makes tensors.
+``save_yaml``/``load_yaml`` keep the trainer's progress file.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
+import yaml
 
 SPECIAL_CONFIG_KEY = "special:model.yml"
 
@@ -54,4 +56,16 @@ def save_model(path: str, params: Dict[str, np.ndarray],
     tmp = path + ".tmp"
     with open(tmp, "wb") as fh:
         np.savez(fh, **arrays)
+    os.replace(tmp, path)
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    with open(path, "r", encoding="utf-8") as fh:
+        return yaml.safe_load(fh) or {}
+
+
+def save_yaml(path: str, data: Dict[str, Any]) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
+        yaml.safe_dump(data, fh, default_flow_style=False, sort_keys=False)
     os.replace(tmp, path)

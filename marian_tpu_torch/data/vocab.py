@@ -12,9 +12,10 @@ ported yet (ROADMAP); ``create_vocab`` refuses them.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 import yaml
 
@@ -67,6 +68,22 @@ class DefaultVocab:
             m[DEFAULT_UNK_STR] = UNK_ID
         if max_size:
             m = {w: i for w, i in m.items() if i < max_size}
+        return cls(m)
+
+    @classmethod
+    def build(cls, lines: Iterable[str], max_size: int = 0) -> "DefaultVocab":
+        """Frequency-sorted vocab from raw text (marian-vocab; ties by
+        word), as the reference builds a missing training vocab."""
+        counter: collections.Counter = collections.Counter()
+        for line in lines:
+            counter.update(line.split())
+        words = [w for w, _ in sorted(counter.items(),
+                                      key=lambda kv: (-kv[1], kv[0]))]
+        if max_size:
+            words = words[: max(0, max_size - 2)]
+        m = {DEFAULT_EOS_STR: EOS_ID, DEFAULT_UNK_STR: UNK_ID}
+        for j, w in enumerate(words):
+            m[w] = j + 2
         return cls(m)
 
     def save(self, path: str) -> None:

@@ -1,16 +1,25 @@
-"""EncoderDecoder: the model-level decode API (``encode_for_decode``,
-``start_state``, ``step``), ported from
-``marian_tpu/models/encoder_decoder.py`` for ``--type transformer``.
-Parameters are passed in on every call, as in the reference; they are
-already in the compute dtype (``convert.params_from_numpy``).
+"""EncoderDecoder: the model-level API, ported from
+``marian_tpu/models/encoder_decoder.py`` for ``--type transformer``:
+``loss`` (the teacher-forced training graph) and the decode API
+(``encode_for_decode``, ``start_state``, ``step``). Parameters are passed
+in on every call, as in the reference.
+
+The loss takes the fused CE (``ops/kernels/fused_ce.py``) under
+``--fused-ce``: ``auto`` engages it on the card, where the CUDA kernels
+run; on the CPU ``auto`` stays dense, as the reference's does off the
+TPU, and ``on`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
+import torch
 import yaml
 
+from ..layers.loss import RationalLoss, cross_entropy_loss, weighted_loss
+from ..ops.kernels.fused_ce import fused_softmax_xent
 from . import transformer as T
 
 
@@ -23,6 +32,56 @@ class EncoderDecoder:
                 f"--type {self.model_type} is not ported to marian_tpu_torch "
                 f"yet (this slice decodes --type transformer; ROADMAP A7)")
         self.cfg = T.config_from_options(options, src_vocab, trg_vocab)
+        self.label_smoothing = float(options.get("label-smoothing", 0.0)
+                                     or 0.0)
+        self.fused_ce_mode = str(options.get("fused-ce", "auto") or "auto")
+        if self.fused_ce_mode not in ("auto", "on", "off"):
+            raise ValueError(f"--fused-ce {self.fused_ce_mode}: auto, on or "
+                             f"off")
+
+    # -- training graph (reference: EncoderDecoder::build + costs.h) --------
+    def loss(self, params, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             train: bool = True):
+        """(summed CE, aux dict with ce_sum / labels) of one batch;
+        dropout masks come from ``generator``."""
+        cparams = T.cast_params(params, self.cfg.compute_dtype)
+        src_mask = batch["src_mask"]
+        enc_out = T.encode(self.cfg, cparams, batch["src_ids"], src_mask,
+                           train, generator)
+        table = self._fused_ce_table(cparams, enc_out.device)
+        hidden = T.decode_train(self.cfg, cparams, enc_out, src_mask,
+                                batch["trg_ids"], batch["trg_mask"], train,
+                                generator, return_hidden=table is not None)
+        if table is not None:
+            rl = self._fused_ce_loss(cparams, table, hidden, batch)
+        else:
+            rl = cross_entropy_loss(hidden, batch["trg_ids"],
+                                    batch["trg_mask"], self.label_smoothing,
+                                    batch.get("data_weights"))
+        return rl.loss_sum, {"ce_sum": rl.loss_sum, "labels": rl.labels}
+
+    def _fused_ce_table(self, cparams, device: torch.device):
+        """[V, E] output table when the fused CE applies, else None (dense
+        logits + layers/loss.py). On the card the kernels take every
+        hidden size, so ``auto`` and ``on`` never go dense there."""
+        if self.fused_ce_mode == "off" or (self.fused_ce_mode == "auto"
+                                           and device.type != "cuda"):
+            return None
+        return T._plain_output_table(self.cfg, cparams)
+
+    def _fused_ce_loss(self, cparams, table, hidden, batch) -> RationalLoss:
+        """Label-smoothed CE straight from the decoder's hidden states; the
+        logits exist only tile by tile inside the kernels."""
+        b, t, e = hidden.shape
+        bias = cparams.get("decoder_ff_logit_out_b")
+        bias = (bias.reshape(-1) if bias is not None
+                else torch.zeros(table.shape[0], device=hidden.device))
+        ce = fused_softmax_xent(hidden.reshape(b * t, e), table, bias,
+                                batch["trg_ids"].reshape(-1),
+                                self.label_smoothing)
+        return weighted_loss(ce.reshape(b, t), batch["trg_mask"],
+                             batch.get("data_weights"))
 
     @property
     def beam_carried_suffixes(self):
@@ -70,3 +129,19 @@ def apply_embedded_config(options, config_yaml: Optional[str]):
     keys = [k for k in emb
             if k.startswith(ARCH_KEY_PREFIXES) or k in ARCH_KEYS]
     return options.with_(**{k: emb[k] for k in keys})
+
+
+def batch_to_arrays(batch, device) -> Dict[str, torch.Tensor]:
+    """CorpusBatch → dict of tensors on ``device`` for ``loss``: int64 ids
+    and f32 masks per stream, plus data weights when present."""
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=device, dtype=dtype, non_blocking=True)
+
+    out = {"src_ids": put(batch.src.ids, torch.long),
+           "src_mask": put(batch.src.mask, torch.float32),
+           "trg_ids": put(batch.trg.ids, torch.long),
+           "trg_mask": put(batch.trg.mask, torch.float32)}
+    if batch.data_weights is not None:
+        out["data_weights"] = put(batch.data_weights, torch.float32)
+    return out

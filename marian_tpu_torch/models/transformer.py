@@ -1,12 +1,21 @@
-"""Transformer encoder-decoder inference as plain functions over a flat
-parameter dict, ported from the default-config part of
+"""Transformer encoder-decoder, training and inference, as plain functions
+over a flat parameter dict, ported from the default-config part of
 ``marian_tpu/models/transformer.py``.
 
 - Parameters keep Marian's flat names (``encoder_l1_self_Wq``, ``Wemb``,
   ``decoder_ff_logit_out_b``, ...) and Marian's [in, out] weight layout,
   applied as ``x @ W``; ``convert.params_from_numpy`` makes them tensors.
 - Pre/post-process strings follow Marian: 'a' residual add, 'n'
-  layer-norm; 'd' (dropout) is a no-op here, this slice only decodes.
+  layer-norm, 'd' dropout (``--transformer-dropout``) when training. FFN
+  dropout (``--transformer-dropout-ffn``), attention dropout
+  (``--transformer-dropout-attention``, which sends attention to the dense
+  path, as in the reference) and whole-word dropout (``--dropout-src``,
+  ``--dropout-trg``) also apply only when training. Every mask is drawn
+  from an explicit ``torch.Generator`` passed down from the trainer.
+- Training decodes with teacher forcing (``decode_train``): the gold
+  target embeddings shifted right, a causal self-attention with the target
+  mask as key mask, and cross-attention with the source mask as key mask:
+  the structured masks the packed attention kernel takes.
 - A Python loop over layers stands in for the reference's --scan-layers.
 - Incremental decoding keeps fixed-size [B, H, L, Dh] self-attention
   caches. With the fused decode kernel the beam reorder is folded into
@@ -30,7 +39,7 @@ import torch
 
 from ..ops.attention import attention
 from ..ops.kernels.decode_attention import decode_attention
-from ..ops.ops import activation, affine, layer_norm
+from ..ops.ops import activation, affine, dropout, layer_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -68,6 +77,11 @@ class TransformerConfig:
     packed_attention: str = "auto"          # auto | on | off (CUDA kernel)
     fused_decode_attention: str = "auto"    # auto | on | off (CUDA kernel)
     compute_dtype: torch.dtype = torch.float32
+    dropout: float = 0.0                    # between-layer (pre/post 'd')
+    attention_dropout: float = 0.0
+    ffn_dropout: float = 0.0
+    dropout_src: float = 0.0                # whole-word dropout
+    dropout_trg: float = 0.0
 
     @property
     def dim_head(self) -> int:
@@ -136,6 +150,12 @@ def config_from_options(options, src_vocab: int,
         fused_decode_attention=str(
             g("transformer-fused-decode-attention", "auto")),
         compute_dtype=_DTYPES.get(str(compute), torch.float32),
+        dropout=float(g("transformer-dropout", 0.0) or 0.0),
+        attention_dropout=float(g("transformer-dropout-attention", 0.0)
+                                or 0.0),
+        ffn_dropout=float(g("transformer-dropout-ffn", 0.0) or 0.0),
+        dropout_src=float(g("dropout-src", 0.0) or 0.0),
+        dropout_trg=float(g("dropout-trg", 0.0) or 0.0),
     )
 
 
@@ -204,17 +224,21 @@ def init_params(cfg: TransformerConfig, seed: int) -> Params:
 # Building blocks
 # ---------------------------------------------------------------------------
 
-def _pre_post(ops: str, x: torch.Tensor, residual: Optional[torch.Tensor],
-              prefix: str, params: Params) -> torch.Tensor:
+def _pre_post(cfg: TransformerConfig, ops: str, x: torch.Tensor,
+              residual: Optional[torch.Tensor], prefix: str, params: Params,
+              train: bool = False, generator=None) -> torch.Tensor:
     """Apply a Marian process string ('d','a','n') to x."""
     for op in ops:
-        if op == "a":
+        if op == "d":
+            if train:
+                x = dropout(x, cfg.dropout, generator)
+        elif op == "a":
             if residual is not None:
                 x = x + residual
         elif op == "n":
             x = layer_norm(x, params[f"{prefix}_ln_scale"],
                            params[f"{prefix}_ln_bias"])
-        elif op != "d":
+        else:
             raise ValueError(f"Unknown process op '{op}'")
     return x
 
@@ -243,7 +267,8 @@ def _mha(cfg: TransformerConfig, params: Params, prefix: str,
          cache: Optional[Dict[str, torch.Tensor]] = None,
          cache_pos: Optional[int] = None, static_kv: bool = False,
          kv_mask: Optional[torch.Tensor] = None, causal: bool = False,
-         beam_src: Optional[torch.Tensor] = None) -> torch.Tensor:
+         beam_src: Optional[torch.Tensor] = None, train: bool = False,
+         generator=None) -> torch.Tensor:
     """Multi-head attention with an optional decode cache.
 
     cache (self-attention): 'k','v' [B,H,L,Dh] (+ 'spare_k','spare_v',
@@ -283,7 +308,10 @@ def _mha(cfg: TransformerConfig, params: Params, prefix: str,
     if out is None:
         out, _ = attention(q, k_, v_, mask, kv_mask=kv_mask, causal=causal,
                            flash=cfg.flash_attention,
-                           packed=cfg.packed_attention)
+                           packed=cfg.packed_attention,
+                           dropout_rate=(cfg.attention_dropout if train
+                                         else 0.0),
+                           generator=generator)
     if cfg.no_projection:
         return _merge_heads(out)
     return affine(_merge_heads(out), params[f"{prefix}_Wo"],
@@ -291,12 +319,15 @@ def _mha(cfg: TransformerConfig, params: Params, prefix: str,
 
 
 def _ffn(cfg: TransformerConfig, params: Params, prefix: str,
-         x: torch.Tensor, dim_ffn: int, depth: int) -> torch.Tensor:
+         x: torch.Tensor, dim_ffn: int, depth: int, train: bool = False,
+         generator=None) -> torch.Tensor:
     act = activation(cfg.ffn_activation)
     for i in range(depth):
         x = affine(x, params[f"{prefix}_W{i + 1}"], params[f"{prefix}_b{i + 1}"])
         if i < depth - 1:
             x = act(x)
+            if train:
+                x = dropout(x, cfg.ffn_dropout, generator)
     return x
 
 
@@ -337,27 +368,121 @@ def _add_pos(cfg: TransformerConfig, x: torch.Tensor,
 # Encoder
 # ---------------------------------------------------------------------------
 
+def _word_dropout(x: torch.Tensor, rate: float, train: bool,
+                  generator) -> torch.Tensor:
+    """Whole-word dropout (reference: --dropout-src/--dropout-trg)."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = torch.empty(x.shape[:-1], dtype=torch.float32,
+                       device=x.device).bernoulli_(1.0 - rate,
+                                                   generator=generator)
+    return x * keep[..., None].to(x.dtype)
+
+
 def encode(cfg: TransformerConfig, params: Params, src_ids: torch.Tensor,
-           src_mask: torch.Tensor) -> torch.Tensor:
+           src_mask: torch.Tensor, train: bool = False,
+           generator=None) -> torch.Tensor:
     """[B, Ts] ids + mask → [B, Ts, D] encoder states."""
-    x = _add_pos(cfg, _embed_words(cfg, params, src_ids, "src"))
-    x = _pre_post(cfg.postprocess_emb, x, None, "encoder_emb", params)
+    x = _word_dropout(_embed_words(cfg, params, src_ids, "src"),
+                      cfg.dropout_src, train, generator)
+    x = _add_pos(cfg, x)
+    kw = {"train": train, "generator": generator}
+    x = _pre_post(cfg, cfg.postprocess_emb, x, None, "encoder_emb", params,
+                  **kw)
     attn_mask = src_mask[:, None, None, :]
     for l in range(1, cfg.enc_depth + 1):
         lp = f"encoder_l{l}"
-        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_self_Wo", params)
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_self_Wo",
+                        params, **kw)
         out = _mha(cfg, params, f"{lp}_self", pre, pre, attn_mask,
-                   kv_mask=src_mask)
-        x = _pre_post(cfg.postprocess, out, x, f"{lp}_self_Wo", params)
-        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_ffn_ffn", params)
-        out = _ffn(cfg, params, f"{lp}_ffn", pre, cfg.dim_ffn, cfg.ffn_depth)
-        x = _pre_post(cfg.postprocess, out, x, f"{lp}_ffn_ffn", params)
-    return _pre_post(cfg.postprocess_top, x, None, "encoder_top", params)
+                   kv_mask=src_mask, **kw)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_self_Wo", params,
+                      **kw)
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_ffn_ffn",
+                        params, **kw)
+        out = _ffn(cfg, params, f"{lp}_ffn", pre, cfg.dim_ffn, cfg.ffn_depth,
+                   **kw)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_ffn_ffn", params,
+                      **kw)
+    return _pre_post(cfg, cfg.postprocess_top, x, None, "encoder_top",
+                     params, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Decoder, teacher-forced (training)
+# ---------------------------------------------------------------------------
+
+def shift_right_embeddings(x: torch.Tensor) -> torch.Tensor:
+    """Target embeddings one step right, a zero vector at t=0: Marian's
+    decoder start (no BOS token)."""
+    return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1, :]
+
+
+def decode_train(cfg: TransformerConfig, params: Params,
+                 enc_out: torch.Tensor, src_mask: torch.Tensor,
+                 trg_ids: torch.Tensor, trg_mask: torch.Tensor,
+                 train: bool = True, generator=None,
+                 return_hidden: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder: [B, Tt] gold target ids → [B, Tt, V] f32
+    logits, or the pre-logits hidden states when ``return_hidden`` (the
+    fused CE computes the output projection itself)."""
+    kw = {"train": train, "generator": generator}
+    we = shift_right_embeddings(_embed_words(cfg, params, trg_ids, "trg"))
+    we = _word_dropout(we, cfg.dropout_trg, train, generator)
+    x = _add_pos(cfg, we)
+    x = _pre_post(cfg, cfg.postprocess_emb, x, None, "decoder_emb", params,
+                  **kw)
+    tt = trg_ids.shape[1]
+    causal = torch.tril(torch.ones((tt, tt), dtype=trg_mask.dtype,
+                                   device=trg_mask.device))
+    self_mask = causal[None, None] * trg_mask[:, None, None, :]
+    cross_mask = src_mask[:, None, None, :]
+    for l in range(1, cfg.dec_depth + 1):
+        lp = f"decoder_l{l}"
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_self_Wo",
+                        params, **kw)
+        out = _mha(cfg, params, f"{lp}_self", pre, pre, self_mask,
+                   kv_mask=trg_mask, causal=True, **kw)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_self_Wo", params,
+                      **kw)
+        cname = f"{lp}_context"
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{cname}_Wo", params,
+                        **kw)
+        out = _mha(cfg, params, cname, pre, enc_out, cross_mask,
+                   kv_mask=src_mask, **kw)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{cname}_Wo", params,
+                      **kw)
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_ffn_ffn",
+                        params, **kw)
+        out = _ffn(cfg, params, f"{lp}_ffn", pre, cfg.dec_ffn, cfg.dec_ffn_d,
+                   **kw)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_ffn_ffn", params,
+                      **kw)
+    x = _pre_post(cfg, cfg.postprocess_top, x, None, "decoder_top", params,
+                  **kw)
+    return x if return_hidden else output_logits(cfg, params, x)
+
+
+def cast_params(params: Params, dtype: torch.dtype) -> Params:
+    """Floating parameters in the compute dtype (the optimizer keeps f32;
+    a no-op at f32)."""
+    return {k: (v.to(dtype) if v.is_floating_point() else v)
+            for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
 # Output layer and incremental decoding
 # ---------------------------------------------------------------------------
+
+def _plain_output_table(cfg: TransformerConfig, params: Params):
+    """The [V, E] output table: the tied embedding, or the transpose of
+    the untied output weight (a view)."""
+    if cfg.tied_embeddings_all:
+        return params["Wemb"]
+    if cfg.tied_embeddings:
+        return params["Wemb"] if "Wemb" in params else params["decoder_Wemb"]
+    return params["decoder_ff_logit_out_W"].t()
+
 
 def output_logits(cfg: TransformerConfig, params: Params,
                   x: torch.Tensor) -> torch.Tensor:
@@ -415,7 +540,7 @@ def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
         # Marian's no-BOS decoder start: step 0 sees a zero embedding
         we = torch.zeros_like(we)
     x = _add_pos(cfg, we, pos)
-    x = _pre_post(cfg.postprocess_emb, x, None, "decoder_emb", params)
+    x = _pre_post(cfg, cfg.postprocess_emb, x, None, "decoder_emb", params)
     self_mask = (torch.arange(max_len, device=x.device) <= pos).to(
         cfg.compute_dtype)[None, None, None, :]
     cross_mask = src_mask[:, None, None, :]
@@ -426,7 +551,7 @@ def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
         if f"l{l}_spare_k" in state:
             cache["spare_k"] = state[f"l{l}_spare_k"]
             cache["spare_v"] = state[f"l{l}_spare_v"]
-        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_self_Wo", params)
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_self_Wo", params)
         out = _mha(cfg, params, f"{lp}_self", pre, pre, self_mask,
                    cache=cache, cache_pos=pos, beam_src=beam_src)
         new_state[f"l{l}_self_k"] = cache["k"]
@@ -434,18 +559,18 @@ def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
         if "spare_k" in cache:
             new_state[f"l{l}_spare_k"] = cache["spare_k"]
             new_state[f"l{l}_spare_v"] = cache["spare_v"]
-        x = _pre_post(cfg.postprocess, out, x, f"{lp}_self_Wo", params)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_self_Wo", params)
 
         cname = f"{lp}_context"
-        pre = _pre_post(cfg.preprocess, x, None, f"{cname}_Wo", params)
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{cname}_Wo", params)
         out = _mha(cfg, params, cname, pre, None, cross_mask,
                    cache={"k": state[f"l{l}_cross_k"],
                           "v": state[f"l{l}_cross_v"]}, static_kv=True)
-        x = _pre_post(cfg.postprocess, out, x, f"{cname}_Wo", params)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{cname}_Wo", params)
 
-        pre = _pre_post(cfg.preprocess, x, None, f"{lp}_ffn_ffn", params)
+        pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_ffn_ffn", params)
         out = _ffn(cfg, params, f"{lp}_ffn", pre, cfg.dec_ffn, cfg.dec_ffn_d)
-        x = _pre_post(cfg.postprocess, out, x, f"{lp}_ffn_ffn", params)
-    x = _pre_post(cfg.postprocess_top, x, None, "decoder_top", params)
+        x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_ffn_ffn", params)
+    x = _pre_post(cfg, cfg.postprocess_top, x, None, "decoder_top", params)
     new_state["pos"] = pos + 1
     return output_logits(cfg, params, x[:, 0, :]), new_state

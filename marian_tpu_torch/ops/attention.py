@@ -5,14 +5,17 @@ Shapes are batch-major: q [B, H, Tq, Dh], k/v [B, H, Tk, Dh],
 mask [B, 1, Tq, Tk] (1 = attend).
 
 The dense path keeps the reference's op order (q scaled BEFORE the score
-product, ``(1 - mask) * NEG_INF`` added). The dispatcher keeps the
-reference's gates: the packed kernel is applicable without returned
-weights, with a structured mask and more than one query position. On
-the card ``packed="auto"`` engages it whenever the length is within the
-kernel's cap (the reference's head-pack test is TPU geometry and is
-dropped); on the CPU ``auto`` stays dense, ``on`` runs the kernel's plain
-version. Where the reference would pick its flash kernel the port raises:
-that kernel is not ported yet.
+product, ``(1 - mask) * NEG_INF`` added, attention dropout on the
+weights). The dispatcher keeps the reference's gates: the packed kernel
+is applicable without returned weights, without active attention dropout,
+with a structured mask and more than one query position. On the card
+``packed="auto"`` engages it whenever the length is within the kernel's
+cap (the reference's head-pack test is TPU geometry and is dropped): the
+forward's cap, or the backward kernel's lower one when an input requires
+a gradient, past which the dense path runs, as the reference's does past
+its packed cap. On the CPU ``auto`` stays dense, ``on`` runs the kernel's
+plain version. Where the reference would pick its flash kernel the port
+raises: that kernel is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,15 +24,16 @@ from typing import Optional
 
 import torch
 
-from .kernels.packed_attention import max_t, packed_attention
-from .ops import NEG_INF
+from .kernels.packed_attention import max_t, max_t_bwd, packed_attention
+from .ops import NEG_INF, dropout
 
 # the reference's default flash crossover (marian_tpu/ops/auto_tuner.py
 # :: flash_threshold)
 FLASH_MIN_LEN = 1024
 
 
-def dense_attention_with_weights(q, k, v, mask=None, return_weights=True):
+def dense_attention_with_weights(q, k, v, mask=None, return_weights=True,
+                                 dropout_rate: float = 0.0, generator=None):
     dh = q.shape[-1]
     # 1/sqrt(dh) rounded in f32 as the reference computes it
     scale = (1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
@@ -38,16 +42,22 @@ def dense_attention_with_weights(q, k, v, mask=None, return_weights=True):
     if mask is not None:
         scores = scores + (1.0 - mask.to(scores.dtype)) * NEG_INF
     weights = torch.softmax(scores, dim=-1).to(q.dtype)
+    if dropout_rate > 0.0:
+        weights = dropout(weights, dropout_rate, generator)
     out = torch.matmul(weights, v).to(q.dtype)
     return out, (weights if return_weights else None)
 
 
 def attention(q, k, v, mask=None, kv_mask=None, causal: bool = False,
               return_weights: bool = False, flash: str = "auto",
-              packed: str = "auto"):
+              packed: str = "auto", dropout_rate: float = 0.0,
+              generator=None):
     """Attention dispatcher: dense vs the packed kernel; returns
-    (context, weights or None)."""
-    applicable = (not return_weights and q.shape[-2] > 1
+    (context, weights or None). ``dropout_rate`` > 0 is attention dropout
+    in training (the caller passes 0 otherwise), drawn from
+    ``generator``."""
+    applicable = (not return_weights and dropout_rate == 0.0
+                  and q.shape[-2] > 1
                   and (kv_mask is not None or causal or mask is None))
     if applicable and flash != "off" and (
             flash == "on" or max(q.shape[-2], k.shape[-2]) >= FLASH_MIN_LEN):
@@ -56,11 +66,15 @@ def attention(q, k, v, mask=None, kv_mask=None, causal: bool = False,
             f"the flash_attention kernel, which is not ported yet (ROADMAP "
             f"B4); pass --transformer-flash-attention off for the dense path")
     if applicable and packed != "off":
-        fits = max(q.shape[-2], k.shape[-2]) <= max_t(q.shape[-1])
+        grad = torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad)
+        cap = (max_t_bwd if grad else max_t)(q.shape[-1])
+        fits = max(q.shape[-2], k.shape[-2]) <= cap
         if fits and (packed == "on" or q.is_cuda):
             return packed_attention(q, k, v, kv_mask=kv_mask,
                                     causal=causal), None
-    return dense_attention_with_weights(q, k, v, mask, return_weights)
+    return dense_attention_with_weights(q, k, v, mask, return_weights,
+                                        dropout_rate, generator)
 
 
 def causal_mask(length: int, dtype=torch.float32, device=None) -> torch.Tensor:

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "marian_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("decode_attention", "packed_attention")
+SOURCES = ("decode_attention", "packed_attention", "fused_ce")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""Short-sequence attention forward, the port of
+"""Short-sequence attention, forward and backward, the port of
 ``marian_tpu/ops/pallas/packed_attention.py :: packed_attention``:
 
     softmax(scale * Q.K^T + (1 - kv_mask) * -1e9) V
@@ -10,9 +10,15 @@ masked row comes out uniform. Layout [B,H,T,Dh] as in the reference.
 
 On a CUDA tensor ``packed_attention`` launches the hand-written kernel
 ``csrc/packed_attention.cu`` or raises; on a CPU tensor it runs
-``packed_attention_reference``. Forward only: the backward comes with
-the training slice, and the wrapper refuses a CUDA ``q`` that requires
-grad. ``packed_attention.launches`` counts kernel launches.
+``packed_attention_reference``. When an input requires a gradient on the
+card, the call goes through an autograd Function (the reference's custom
+VJP): its forward is the same kernel and saves ``out``; its backward
+computes ``delta = rowsum(dO * out)`` in plain torch, as the reference
+does, and ``packed_attention_bwd`` launches the backward kernel, which
+recomputes P and returns dq, dk, dv (kv_mask gets none). On the CPU the
+gradient is autograd through the plain forward.
+``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -37,6 +43,22 @@ def max_t(dh: int) -> int:
     Hopper block may use (Tk = 428 at Dh = 64). The dispatcher sends
     longer sequences to the dense path."""
     return (_SMEM_FLOATS - _WARPS * dh) // (2 * dh + 3 + _WARPS)
+
+
+def _bwd_smem_floats(tq: int, tk: int, dh: int) -> int:
+    return 2 * tq * (dh + 1) + 2 * tk * (dh + 1) + tq * (tk + 1) + tk + tq
+
+
+def max_t_bwd(dh: int) -> int:
+    """Longest sequence (Tq = Tk = T) the backward kernel stages per
+    block: Q, dO, K, V as [T, Dh+1] f32 tiles plus a [T, T+1] P/dS tile
+    must fit the 227 KB a Hopper block may use (T = 143 at Dh = 64). The
+    dispatcher sends longer sequences that need a gradient to the dense
+    path."""
+    t = 1
+    while _bwd_smem_floats(t + 1, t + 1, dh) <= _SMEM_FLOATS:
+        t += 1
+    return t
 
 
 def _mask(kv_mask, b: int, tk: int, device) -> torch.Tensor:
@@ -65,6 +87,35 @@ def packed_attention_reference(q, k, v, kv_mask=None, causal: bool = False,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def packed_attention_bwd_reference(q, k, v, kv_mask, do, out,
+                                   causal: bool = False,
+                                   scale: Optional[float] = None):
+    """Plain PyTorch backward in the kernel's op order: P recomputed,
+    ``delta = rowsum(dO * out)``, ``ds = p * (dp - delta) * scale``;
+    returns (dq, dk, dv)."""
+    b, _, tq, dh = q.shape
+    tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    kvm = _mask(kv_mask, b, tk, q.device)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    s = s + (1.0 - kvm)[:, None, None, :] * NEG_INF
+    if causal:
+        live = (torch.arange(tq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("packed_attention").packed_attention
@@ -72,6 +123,59 @@ def _kernel():
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = _build.load("packed_attention").packed_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_operands(name, q, k, v):
+    b, h, _, dh = q.shape
+    tk = k.shape[2]
+    for what, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (b, h, tk, dh) or t.device != q.device \
+                or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {what} is {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, expected "
+                             f"{(b, h, tk, dh)} {q.dtype} on {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32/bfloat16, got {q.dtype}")
+
+
+def _launch_fwd(q, k, v, kvm, causal, scale):
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    out = torch.empty_like(q)
+    err = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
+        out.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "packed_attention")
+    packed_attention.launches += 1
+    return out
+
+
+class _PackedAttention(torch.autograd.Function):
+    """The card's differentiable call: forward kernel, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kvm, causal, scale):
+        out = _launch_fwd(q, k, v, kvm, causal, scale)
+        ctx.save_for_backward(q, k, v, kvm, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kvm, out = ctx.saved_tensors
+        dq, dk, dv = packed_attention_bwd(q, k, v, kvm, do, out, ctx.causal,
+                                          ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -86,31 +190,52 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = 1.0 / (dh ** 0.5)
     if not q.is_cuda:
         return packed_attention_reference(q, k, v, kv_mask, causal, scale)
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError("packed_attention on CUDA is forward-only: its "
-                           "backward comes with the training slice")
-    for name, t in (("k", k), ("v", v)):
-        if tuple(t.shape) != (b, h, tk, dh) or t.device != q.device \
-                or t.dtype != q.dtype:
-            raise ValueError(f"packed_attention: {name} is {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}, expected "
-                             f"{(b, h, tk, dh)} {q.dtype} on {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"packed_attention takes float32/bfloat16, got "
-                        f"{q.dtype}")
+    _check_operands("packed_attention", q, k, v)
     if tk > max_t(dh):
         raise ValueError(f"packed_attention: key length {tk} exceeds the "
                          f"kernel's cap {max_t(dh)} at Dh={dh}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     kvm = _mask(kv_mask, b, tk, q.device).contiguous()
-    out = torch.empty_like(q)
-    err = _kernel()(
+    grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if grad:
+        return _PackedAttention.apply(q, k, v, kvm, bool(causal),
+                                      float(scale))
+    return _launch_fwd(q, k, v, kvm, causal, scale)
+
+
+def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
+                         scale: Optional[float] = None):
+    """(dq, dk, dv) of ``packed_attention`` for the output gradient
+    ``do``: the backward kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    if not q.is_cuda:
+        return packed_attention_bwd_reference(q, k, v, kv_mask, do, out,
+                                              causal, scale)
+    _check_operands("packed_attention_bwd", q, k, v)
+    if _bwd_smem_floats(tq, tk, dh) > _SMEM_FLOATS:
+        raise ValueError(f"packed_attention_bwd: lengths {tq}x{tk} exceed "
+                         f"the backward kernel's cap {max_t_bwd(dh)} at "
+                         f"Dh={dh}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    do = do.to(q.dtype).contiguous()
+    kvm = _mask(kv_mask, b, tk, q.device).contiguous()
+    # delta outside the kernel, as the reference computes it
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
-        out.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
+        do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "packed_attention")
-    packed_attention.launches += 1
-    return out
+    _build.check(err, "packed_attention_bwd")
+    packed_attention_bwd.launches += 1
+    return dq, dk, dv
 
 
 packed_attention.launches = 0
+packed_attention_bwd.launches = 0

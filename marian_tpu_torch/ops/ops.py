@@ -2,14 +2,15 @@
 reference's op order kept (so f32 results agree to a few ulps):
 
 - layer_norm uses epsilon inside sqrt(var + eps), Marian's eps 1e-9;
-- masked softmax adds a large negative (NEG_INF) to masked logits.
-
-Dropout is absent: this slice only decodes.
+- masked softmax adds a large negative (NEG_INF) to masked logits;
+- dropout is inverted (kept values divided by keep_prob), with its bits
+  drawn from an explicit ``torch.Generator`` (the reference's PRNG keys);
+- cross_entropy is Marian's label-smoothed CE, computed in f32.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -76,3 +77,44 @@ def affine(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout; the keep mask comes from ``generator`` (on the
+    tensor's device). No generator or rate 0: identity."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty_like(x, dtype=torch.float32).bernoulli_(
+        keep, generator=generator)
+    return torch.where(mask > 0, x / keep, torch.zeros_like(x))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-position CE with Marian's label smoothing, in f32:
+    ce = (1-eps) * -logP(label) - eps * mean_v logP(v)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        smooth = -logp.mean(dim=-1)
+        nll = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    return nll
+
+
+def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """L2 norm over a dict of gradients, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree.values()))
+
+
+def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+    if max_norm <= 0:
+        return tree
+    if norm is None:
+        norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-8), max=1.0)
+    return {k: (g * scale).to(g.dtype) for k, g in tree.items()}

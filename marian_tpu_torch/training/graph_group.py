@@ -1,0 +1,151 @@
+"""The training-step engine on one device, ported from
+``marian_tpu/training/graph_group.py`` (reference
+src/training/graph_group_singleton.cpp) and the update tail of
+``marian_tpu/parallel/zero.py :: finalize_update``.
+
+One update: forward and backward of ``EncoderDecoder.loss`` by autograd,
+then cost-type normalisation of the gradient, --normalize-gradient,
+global-norm clipping (--clip-norm), the optimizer step, and
+--check-gradient-nan (a non-finite gradient norm skips the whole update,
+params and optimizer state untouched). Parameters are leaf tensors on
+the device and are updated in place.
+
+Not ported yet: meshes and ZeRO sharding, --optimizer-delay > 1,
+--dispatch-window, embedding freezing; the trainer refuses their flags.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..ops.ops import clip_by_global_norm, global_norm
+from ..optimizers.optimizers import (OptimizerConfig, apply_update,
+                                     init_state, smoothed_params)
+from ..optimizers.schedule import LRSchedule
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainOutput:
+    """Per-update metrics as device scalars: reading them with float()
+    waits for the update, so the training loop reads them only at its
+    display boundary."""
+    loss_sum: Any
+    labels: Any
+    grad_norm: Any
+    skipped: Any = None          # 0/1 under --check-gradient-nan
+
+
+def cost_denominator(cost_type: str, labels: torch.Tensor,
+                     rows: int) -> torch.Tensor:
+    """Gradient normaliser of a cost type (Marian's costScaleFactor):
+    label count for ce-mean-words / perplexity, rows for ce-mean, else 1."""
+    if cost_type in ("ce-mean-words", "perplexity"):
+        return torch.clamp(labels, min=1.0)
+    if cost_type == "ce-mean":
+        return torch.tensor(float(rows), device=labels.device)
+    return torch.ones((), device=labels.device)
+
+
+@torch.no_grad()
+def finalize_update(opt_cfg: OptimizerConfig, opt_state, params: Params,
+                    grads: Params, lr: float, labels: torch.Tensor,
+                    denom: torch.Tensor):
+    """The update tail (reference: parallel/zero.py :: finalize_update):
+    cost normalisation → --normalize-gradient → --clip-norm → optimizer
+    step → --check-gradient-nan. Returns (raw gradient norm, skipped)."""
+    if opt_cfg.normalize_gradient:
+        denom = denom * torch.clamp(labels, min=1.0)
+    grads = {k: g / denom for k, g in grads.items()}
+    gnorm = global_norm(grads)
+    if opt_cfg.check_gradient_nan and not bool(torch.isfinite(gnorm)):
+        return gnorm, torch.ones((), device=gnorm.device)
+    if opt_cfg.clip_norm > 0:
+        grads = clip_by_global_norm(grads, opt_cfg.clip_norm, gnorm)
+    apply_update(opt_cfg, opt_state, params, grads, lr, labels)
+    return gnorm, torch.zeros((), device=gnorm.device)
+
+
+class GraphGroup:
+    """Owns the parameters and the optimizer state on one device."""
+
+    def __init__(self, model, options, device: torch.device):
+        self.model = model
+        self.options = options
+        self.device = torch.device(device)
+        self.opt_cfg = OptimizerConfig.from_options(options)
+        self.schedule = LRSchedule.from_options(options)
+        self.cost_type = options.get("cost-type", "ce-sum")
+        self.params: Optional[Params] = None
+        self.opt_state: Optional[Dict[str, Any]] = None
+
+    # -- init / load --------------------------------------------------------
+    def initialize(self, init_params: Dict[str, Any]) -> None:
+        """Parameters from a flat dict of numpy arrays or tensors (f32
+        leaves on the device); fresh optimizer state unless one was
+        loaded."""
+        self.params = {}
+        for k, v in init_params.items():
+            t = v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
+            self.params[k] = t.detach().to(
+                device=self.device, dtype=torch.float32).clone(
+                ).requires_grad_(True)
+        if self.opt_state is None:
+            self.opt_state = init_state(self.opt_cfg, self.params)
+        else:
+            for k, v in init_state(self.opt_cfg, self.params).items():
+                self.opt_state.setdefault(k, v)
+
+    # -- one update ---------------------------------------------------------
+    def update(self, batch: Dict[str, torch.Tensor], step: int,
+               generator: Optional[torch.Generator] = None) -> TrainOutput:
+        """Forward, backward and optimizer step on one batch (tensors on
+        the device); ``step`` is the 1-based update number."""
+        total, aux = self.model.loss(self.params, batch, generator,
+                                     train=True)
+        total.backward()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                 for k, p in self.params.items()}
+        labels = aux["labels"].detach()
+        denom = cost_denominator(self.cost_type, labels,
+                                 int(batch["trg_ids"].shape[0]))
+        gnorm, skipped = finalize_update(
+            self.opt_cfg, self.opt_state, self.params, grads,
+            self.schedule(step), labels, denom)
+        for p in self.params.values():
+            p.grad = None          # frees the gradients before the next step
+        return TrainOutput(aux["ce_sum"].detach(), labels, gnorm,
+                           skipped if self.opt_cfg.check_gradient_nan
+                           else None)
+
+    # -- EMA access and checkpoint glue ---------------------------------------
+    def smoothed(self) -> Params:
+        return smoothed_params(self.opt_cfg, self.opt_state,
+                               self.export_params())
+
+    def export_params(self) -> Params:
+        return {k: p.detach() for k, p in self.params.items()}
+
+    def optimizer_arrays(self) -> Dict[str, np.ndarray]:
+        """Flat-named optimizer state as numpy, the reference's
+        ``.optimizer.npz`` layout ('t', 'm:<name>', 'v:<name>', ...)."""
+        flat = {"t": self.opt_state["t"].cpu().numpy()}
+        for part in ("m", "v", "gt", "avg"):
+            for k, v in self.opt_state.get(part, {}).items():
+                flat[f"{part}:{k}"] = v.detach().cpu().numpy()
+        return flat
+
+    def load_optimizer_arrays(self, flat: Dict[str, np.ndarray]) -> None:
+        st: Dict[str, Any] = {"t": torch.as_tensor(
+            np.asarray(flat["t"], dtype=np.float32)).to(self.device)}
+        for key, v in flat.items():
+            if ":" in key:
+                part, name = key.split(":", 1)
+                st.setdefault(part, {})[name] = torch.as_tensor(
+                    np.asarray(v, dtype=np.float32)).to(self.device)
+        self.opt_state = st

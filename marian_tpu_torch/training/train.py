@@ -1,0 +1,210 @@
+"""The trainer, trimmed from ``marian_tpu/training/train.py``
+(reference src/training/training.h :: Train<T>::run).
+
+Builds the vocabs (from the training data when a vocab file is missing),
+the corpus and batch generator, the model and the single-device
+GraphGroup; restores a checkpoint (params, optimizer state, progress and
+corpus position) unless --no-reload; runs the epoch loop with the display,
+save and stop triggers; saves at the end.
+
+Randomness is explicit and seeded from --seed: corpus and batch
+shuffling draw from numpy's RandomState as the reference does, and
+dropout draws from a ``torch.Generator`` on the training device that is
+re-seeded from (seed, update number) before every update, so a resumed
+run draws the same masks as an uninterrupted one (the reference folds
+its dropout key by the update number for the same reason).
+
+Runs on the card unless the CPU is asked for (--cpu-threads N, or
+device="cpu" from Python); without a card it raises.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Union
+
+import torch
+
+from ..common import io as mio
+from ..common import logging as log
+from ..data.batch_generator import BatchGenerator
+from ..data.corpus import Corpus
+from ..data.vocab import DefaultVocab, create_vocab
+from ..device import resolve_device
+from ..models import transformer as T
+from ..models.encoder_decoder import batch_to_arrays, create_model
+from .checkpoint import load_checkpoint, save_checkpoint
+from .graph_group import GraphGroup
+from .scheduler import Scheduler
+from .training_state import TrainingState
+
+# option → value at which the feature is off; set to anything else the
+# trainer refuses to start instead of ignoring it
+_UNPORTED = {
+    "optimizer-delay": 1.0,
+    "dispatch-window": 1,
+    "guided-alignment": "none",
+    "unlikelihood-loss": False,
+    "valid-sets": [],
+    "lr-decay": 0.0,
+    "lr-warmup-at-reload": False,
+    "mini-batch-fit": False,
+    "mini-batch-warmup": "0",
+    "async-save": False,
+    "tsv": False,
+    "right-left": False,
+    "embedding-vectors": [],
+    "embedding-fix-src": False,
+    "embedding-fix-trg": False,
+    "gradient-checkpointing": False,
+    "gradient-dtype": "float32",
+    "mesh": [],
+    "task": None,
+    "output-omit-bias": False,
+    "transformer-depth-scaling": False,
+}
+
+
+def _refuse_unported(options) -> None:
+    for name, off in _UNPORTED.items():
+        val = options.get(name, off)
+        if val in (off, None, False, [], ""):
+            continue
+        if isinstance(off, (int, float)) and not isinstance(off, bool) \
+                and float(val) == float(off):
+            continue
+        raise NotImplementedError(
+            f"--{name} {val} is not ported to marian_tpu_torch yet "
+            f"(ROADMAP: what the training slice left out)")
+    if len(options.get("devices", ["0"]) or ["0"]) > 1 \
+            or int(options.get("num-devices", 0) or 0) > 1:
+        raise NotImplementedError("multi-device training is not ported to "
+                                  "marian_tpu_torch yet (ROADMAP)")
+    precision = options.get("precision", ["float32"]) or ["float32"]
+    if any(str(p) != "float32" for p in precision):
+        raise NotImplementedError(
+            f"--precision {' '.join(map(str, precision))}: this slice "
+            f"trains in float32 only (bf16 is ROADMAP work)")
+    if str(options.get("type", "transformer")) != "transformer":
+        raise NotImplementedError(f"--type {options.get('type')}: this "
+                                  f"slice trains --type transformer")
+
+
+def _vocab(path: str, train_path: str, max_size: int) -> DefaultVocab:
+    """Load a vocab, or build it from the training file and save it when
+    the file does not exist (reference: Vocab::create)."""
+    if os.path.exists(path):
+        return create_vocab(path, max_size=max_size)
+    with open(train_path, "r", encoding="utf-8") as fh:
+        vocab = DefaultVocab.build(fh, max_size=max_size)
+    vocab.save(path)
+    log.info("Created vocabulary {} ({} entries) from {}", path, len(vocab),
+             train_path)
+    return vocab
+
+
+def dropout_seed(seed: int, update: int) -> int:
+    """Seed of the dropout generator for one update."""
+    return (int(seed) * 1_000_003 + int(update)) % (2**63 - 1)
+
+
+class Train:
+    """One training run. After ``run`` the attributes ``graph_group`` and
+    ``state`` describe it."""
+
+    def __init__(self, options,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.options = options
+        log.create_loggers(options)
+        _refuse_unported(options)
+        self.device = resolve_device(
+            device, int(options.get("cpu-threads", 0) or 0))
+        self.graph_group: Optional[GraphGroup] = None
+        self.state: Optional[TrainingState] = None
+
+    def run(self) -> None:
+        opts = self.options
+        seed = int(opts.get("seed", 0)) or 1234
+        train_sets = list(opts.get("train-sets"))
+        if len(train_sets) != 2:
+            raise NotImplementedError("this slice trains one source and one "
+                                      "target stream (--train-sets src trg)")
+        vocab_paths = list(opts.get("vocabs", [])) or \
+            [p + ".yml" for p in train_sets]
+        dim_vocabs = list(opts.get("dim-vocabs", [0, 0]))
+        vocabs = [_vocab(vp, tp, dim_vocabs[i] if i < len(dim_vocabs) else 0)
+                  for i, (vp, tp) in enumerate(zip(vocab_paths, train_sets))]
+        log.info("Vocabulary sizes: {}",
+                 " ".join(str(len(v)) for v in vocabs))
+        corpus = Corpus(train_sets, vocabs, opts)
+        model = create_model(opts, len(vocabs[0]), len(vocabs[1]))
+        gg = GraphGroup(model, opts, self.device)
+
+        model_path = opts.get("model", "model.npz")
+        state = TrainingState(seed=seed)
+        init_params = None
+        if os.path.exists(model_path) and not opts.get("no-reload", False):
+            log.info("Loading model from {}", model_path)
+            init_params, _, loaded = load_checkpoint(model_path, gg)
+            if loaded is not None:
+                state = loaded
+                if state.corpus and not opts.get("no-restore-corpus", False):
+                    corpus.restore(state.corpus)
+                    log.info("Restored corpus position: epoch {}, sent {}",
+                             state.corpus.get("epoch"),
+                             state.corpus.get("position"))
+        elif opts.get("pretrained-model", None):
+            init_params, _ = mio.load_model(opts.get("pretrained-model"))
+        if init_params is None:
+            init_params = T.init_params(model.cfg, seed)
+        gg.initialize(init_params)
+        n_params = sum(p.numel() for p in gg.params.values())
+        log.info("Model created on {}: {} parameters ({:.1f}M)", self.device,
+                 n_params, n_params / 1e6)
+        self.graph_group, self.state = gg, state
+
+        scheduler = Scheduler(opts, state)
+        config_yaml = opts.as_yaml()
+        generator = torch.Generator(device=self.device)
+        # resume point of the last APPLIED batch: the corpus runs a whole
+        # maxi window ahead of training
+        last_corpus_state = [corpus.state.as_dict()]
+
+        def do_save() -> None:
+            state.corpus = last_corpus_state[0]
+            smooth = gg.smoothed() if gg.opt_cfg.smoothing > 0 else None
+            save_checkpoint(model_path, gg.export_params(), config_yaml, gg,
+                            state, smooth_params=smooth)
+
+        log.info("Training started")
+        stop = False
+        while scheduler.keep_going() and not stop:
+            n_batches = 0
+            for batch in BatchGenerator(corpus, opts):
+                n_batches += 1
+                step = state.batches + 1
+                generator.manual_seed(dropout_seed(seed, step))
+                out = gg.update(batch_to_arrays(batch, self.device), step,
+                                generator)
+                if batch.corpus_state is not None:
+                    last_corpus_state[0] = batch.corpus_state
+                scheduler.update(out.loss_sum, batch.words, batch.size,
+                                 src_words=batch.src_words,
+                                 lr=gg.schedule(step))
+                if scheduler.should_save():
+                    do_save()
+                if not scheduler.keep_going():
+                    stop = True
+                    break
+            else:
+                if n_batches == 0:
+                    raise ValueError("an epoch of the training corpus gave "
+                                     "no batch (every sentence is longer "
+                                     "than --max-length?)")
+                scheduler.new_epoch()
+        log.info("Training finished")
+        do_save()
+
+
+def train_main(options) -> None:
+    Train(options).run()

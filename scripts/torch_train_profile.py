@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the time of one marian_tpu_torch training update goes, on the
+card.
+
+Builds the training setup chip_smoke.py drives (transformer-base 6+6,
+vocab 32,000, f32, dropout 0.1, 12,288 target words a batch, the
+synthetic corpus from --seed), runs two warm-up updates, times --updates
+untraced updates, then traces as many with torch.profiler and prints,
+per update: the wall time, the device's busy time (sum of kernel times)
+and idle share over the wall time, the device time by kernel class, and
+the kernels that took the most device time. Run from the root of a
+checkout on the machine with the card:
+
+    python3 scripts/torch_train_profile.py [--seed 17] [--updates 3]
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# kernel class ← first matching pattern over the kernel's name
+CLASSES = (
+    ("packed_attention backward (this port)", r"packed_attention_bwd_kernel"),
+    ("packed_attention forward (this port)", r"packed_attention_kernel"),
+    ("fused_ce dx (this port)", r"fce_dx_kernel"),
+    ("fused_ce dw/db (this port)", r"fce_dw_kernel"),
+    ("fused_ce forward (this port)", r"fce_fwd"),
+    ("f32 GEMM (cuBLAS/CUTLASS)", r"gemm|sgemm|cutlass|cublas"),
+    ("reductions", r"reduce|Reduce|norm"),
+    ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
+)
+
+
+def classify(name: str) -> str:
+    for label, pattern in CLASSES:
+        if re.search(pattern, name):
+            return label
+    return "other"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=17)
+    ap.add_argument("--updates", type=int, default=3)
+    ap.add_argument("--top", type=int, default=12)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_train_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from marian_tpu_torch.common.config_parser import parse_options
+    from marian_tpu_torch.data.batch_generator import BatchGenerator
+    from marian_tpu_torch.data.corpus import Corpus
+    from marian_tpu_torch.data.vocab import create_vocab
+    from marian_tpu_torch.device import resolve_device
+    from marian_tpu_torch.models import transformer as T
+    from marian_tpu_torch.models.encoder_decoder import (batch_to_arrays,
+                                                         create_model)
+    from marian_tpu_torch.ops.kernels import _build
+    from marian_tpu_torch.training.graph_group import GraphGroup
+    from marian_tpu_torch.training.train import dropout_seed
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device("cuda")
+    _build.build_all()
+    cs.write_model(args.seed)                         # the vocab file
+    cs.write_corpus(args.seed)
+    opts = parse_options(cs.train_argv("profile.npz", 0), mode="training")
+    vocab = create_vocab(str(cs.WORK / "vocab.yml"))
+    corpus = Corpus([str(cs.WORK / "train.src"), str(cs.WORK / "train.trg")],
+                    [vocab, vocab], opts)
+    n = 2 + 2 * args.updates
+    batches = []
+    for b in BatchGenerator(corpus, opts):
+        batches.append(b)
+        if len(batches) == n:
+            break
+    model = create_model(opts, len(vocab), len(vocab))
+    gg = GraphGroup(model, opts, dev)
+    gg.initialize(T.init_params(model.cfg, 1111))
+    gen = torch.Generator(device=dev)
+    step = [0]
+
+    def update(batch):
+        step[0] += 1
+        gen.manual_seed(dropout_seed(1111, step[0]))
+        return gg.update(batch_to_arrays(batch, dev), step[0], gen)
+
+    for b in batches[:2]:                              # warm-up
+        update(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[2:2 + args.updates]:
+        update(b)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / args.updates
+    traced_batches = batches[2 + args.updates:]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in traced_batches:
+            update(b)
+        torch.cuda.synchronize()
+        traced = (time.perf_counter() - t0) / len(traced_batches)
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / len(
+        traced_batches)
+    words = sum(b.words for b in traced_batches) / len(traced_batches)
+    print(f"update: transformer-base 6+6 f32, {words:.0f} target words; "
+          f"wall {wall * 1e3:.1f} ms untraced, {traced * 1e3:.1f} ms traced; "
+          f"device busy {busy:.1f} ms; idle share {1 - busy / 1e3 / wall:.3f} "
+          f"of the untraced wall")
+    by_class = {}
+    for e in events:
+        c = classify(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total
+    for c, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        ms = us / 1e3 / len(traced_batches)
+        print(f"  class {ms:9.2f} ms/update {100 * ms / busy:5.1f}%  {c}")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    for e in events[:args.top]:
+        ms = e.self_device_time_total / 1e3 / len(traced_batches)
+        print(f"  {ms:9.2f} ms/update {100 * ms / busy:5.1f}% "
+              f"x{e.count // len(traced_batches):<5d} {e.key[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,9 +7,14 @@ out):
 
 Shapes are small and odd on purpose: lengths that are not multiples of a
 warp, a cache and a key length whose block tiles need more than 48 KB of
-shared memory (the dynamic-limit path), bf16 operands. Tolerances: 2e-5
-for f32 outputs (f32 sums in another order), 2e-2 for bf16 outputs (one
-bf16 rounding of the result); new caches are exact copies.
+shared memory (the dynamic-limit path), bf16 operands, and for the fused
+CE token counts, vocabularies and hidden sizes that are not multiples of
+its 64 x 64 tiles or its 32-column chunks. Tolerances: 2e-5 for f32
+outputs (f32 sums in another order), 2e-2 for bf16 outputs (one bf16
+rounding of the result); new caches are exact copies. The packed
+backward's f32 gradients and the fused CE's outputs are held to 1e-5
+of the output's largest magnitude: each is a sum of hundreds to
+thousands of products, taken in another order than the plain version's.
 """
 
 import pytest
@@ -17,8 +22,10 @@ import torch
 
 from marian_tpu_torch.ops.kernels.decode_attention import (
     decode_attention, decode_attention_reference)
+from marian_tpu_torch.ops.kernels import fused_ce as fce
 from marian_tpu_torch.ops.kernels.packed_attention import (
-    packed_attention, packed_attention_reference)
+    packed_attention, packed_attention_bwd, packed_attention_bwd_reference,
+    packed_attention_reference)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +93,104 @@ def test_packed_attention_matches_plain(dev, b, h, tq, tk, dh, causal,
     ref = packed_attention_reference(q, k, v, kvm, causal=causal)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def _close_to_scale(got, ref, rel):
+    """|got - ref| <= rel * max|ref| (sums in another order)."""
+    got, ref = got.detach(), ref.detach()
+    scale = max(float(ref.abs().max()), 1.0)
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
+    (3, 2, 17, 17, 32, False), (2, 3, 33, 33, 64, True),
+    (2, 2, 20, 13, 64, False), (2, 8, 64, 64, 64, True),
+    (1, 2, 130, 130, 64, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_attention_bwd_matches_plain(dev, b, h, tq, tk, dh, causal,
+                                            dtype):
+    if causal and tq != tk:
+        pytest.skip("causal self-attention has Tq == Tk")
+    gen = torch.Generator().manual_seed(tq * tk + dh)
+    q = _randn(gen, dev, b, h, tq, dh, dtype=dtype)
+    k, v = (_randn(gen, dev, b, h, tk, dh, dtype=dtype) for _ in range(2))
+    do = _randn(gen, dev, b, h, tq, dh, dtype=dtype)
+    kvm = (torch.rand(b, tk, generator=gen) > 0.3).float()
+    kvm[:, 0] = 1.0
+    kvm[-1] = 0.0                                   # a fully-masked row
+    kvm = kvm.to(dev)
+    out = packed_attention(q, k, v, kvm, causal=causal)
+    before = packed_attention_bwd.launches
+    got = packed_attention_bwd(q, k, v, kvm, do, out, causal)
+    ref = packed_attention_bwd_reference(q, k, v, kvm, do, out, causal)
+    assert packed_attention_bwd.launches == before + 1
+    for g, r in zip(got, ref):
+        if dtype == torch.float32:
+            _close_to_scale(g, r, 1e-5)
+        else:
+            torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
+                                       atol=2e-2)
+
+
+def test_packed_attention_autograd_runs_both_kernels(dev):
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (_randn(gen, dev, 2, 2, 9, 16).requires_grad_(True)
+               for _ in range(3))
+    kvm = torch.ones(2, 9, device=dev)
+    fwd, bwd = packed_attention.launches, packed_attention_bwd.launches
+    out = packed_attention(q, k, v, kvm, causal=True)
+    do = torch.randn(out.shape, generator=gen).to(dev)
+    out.backward(do)
+    assert (packed_attention.launches, packed_attention_bwd.launches) == (
+        fwd + 1, bwd + 1)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    packed_attention_reference(qr, kr, vr, kvm, causal=True).backward(do)
+    for g, r in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
+        _close_to_scale(g, r, 1e-5)
+
+
+@pytest.mark.parametrize("n,v,e", [(70, 200, 48), (64, 64, 32),
+                                   (300, 1000, 512), (129, 3001, 96),
+                                   (200, 1000, 1024), (130, 515, 1500)])
+def test_fused_ce_kernels_match_plain(dev, n, v, e):
+    gen = torch.Generator().manual_seed(n + v + e)
+    x = _randn(gen, dev, n, e)
+    w = _randn(gen, dev, v, e) * (e ** -0.5)
+    b = _randn(gen, dev, v)
+    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    launches = (fce.fused_ce_stats.launches, fce.fused_ce_dx.launches,
+                fce.fused_ce_dw.launches)
+    got = fce.fused_ce_stats(x, w, b, labels)
+    ref = fce.fused_ce_stats_reference(x, w, b, labels)
+    for g, r in zip(got, ref):
+        _close_to_scale(g, r, 1e-5)
+    g_lse, g_lab, g_tot = (_randn(gen, dev, n) for _ in range(3))
+    dx = fce.fused_ce_dx(x, w, b, labels, ref[0], g_lse, g_lab, g_tot)
+    dw, db = fce.fused_ce_dw(x, w, b, labels, ref[0], g_lse, g_lab, g_tot)
+    rdx, rdw, rdb = fce.fused_ce_bwd_reference(x, w, b, labels, ref[0],
+                                               g_lse, g_lab, g_tot)
+    _close_to_scale(dx, rdx, 1e-5)
+    _close_to_scale(dw, rdw, 1e-5)
+    _close_to_scale(db, rdb, 1e-5)
+    assert (fce.fused_ce_stats.launches, fce.fused_ce_dx.launches,
+            fce.fused_ce_dw.launches) == tuple(c + 1 for c in launches)
+
+
+def test_fused_softmax_xent_gradients_match_dense(dev):
+    gen = torch.Generator().manual_seed(3)
+    n, v, e = 100, 333, 64
+    x = _randn(gen, dev, n, e).requires_grad_(True)
+    w = (_randn(gen, dev, v, e) * 0.125).requires_grad_(True)
+    b = _randn(gen, dev, v).requires_grad_(True)
+    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    ce = fce.fused_softmax_xent(x, w, b, labels, 0.1)
+    ce.sum().backward()
+    xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, b))
+    logits = xr @ wr.t() + br
+    ref = torch.nn.functional.cross_entropy(logits, labels, reduction="none",
+                                            label_smoothing=0.1)
+    ref.sum().backward()
+    _close_to_scale(ce, ref, 1e-5)
+    for g, r in ((x.grad, xr.grad), (w.grad, wr.grad), (b.grad, br.grad)):
+        _close_to_scale(g, r, 1e-5)

@@ -1,11 +1,15 @@
 """Rules of the port that hold without a card.
 
-- marian_tpu_torch/, chip_smoke.py and scripts/torch_decode_profile.py
-  import neither jax nor anything of marian_tpu (AST scan);
+- marian_tpu_torch/ (every subpackage: layers/, optimizers/, training/
+  included), chip_smoke.py and the port's scripts import neither
+  jax nor anything of marian_tpu (AST scan), and every CUDA source the
+  build lists exists and includes only CUDA and C headers (a plain C
+  interface: no PyTorch, Python or XLA headers);
 - the entry points run on CUDA unless the CPU is asked for, and raise
   without a card instead of falling back to the CPU;
 - a kernel wrapper given a CUDA tensor launches its kernel or raises; it
-  never runs its plain version.
+  never runs its plain version, and on the card the loss takes the fused
+  CE kernels at every hidden size.
 """
 
 import ast
@@ -15,9 +19,14 @@ import pytest
 import torch
 
 from marian_tpu_torch.common.config_parser import parse_options
+from marian_tpu_torch.common.options import Options
 from marian_tpu_torch.device import resolve_device
+from marian_tpu_torch.models import encoder_decoder as emod
+from marian_tpu_torch.models import transformer as tmod
 from marian_tpu_torch.ops import attention as tatt
+from marian_tpu_torch.ops.kernels import _build
 from marian_tpu_torch.ops.kernels import decode_attention as dmod
+from marian_tpu_torch.ops.kernels import fused_ce as fmod
 from marian_tpu_torch.ops.kernels import packed_attention as pmod
 from marian_tpu_torch.translator.translator import Translate
 
@@ -30,7 +39,9 @@ FORBIDDEN = ("jax", "jaxlib", "marian_tpu")
 def _port_files():
     files = sorted((ROOT / "marian_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "torch_decode_profile.py"]
+                    ROOT / "scripts" / "torch_decode_profile.py",
+                    ROOT / "scripts" / "torch_train_profile.py",
+                    ROOT / "scripts" / "torch_train_parity.py"]
 
 
 def _imported_modules(path):
@@ -50,6 +61,24 @@ def test_port_imports_no_jax_and_nothing_of_marian_tpu():
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
     assert bad == []
+    scanned = {p.relative_to(ROOT / "marian_tpu_torch").parts[0]
+               for p in files if "marian_tpu_torch" in p.parts}
+    assert {"layers", "optimizers", "training", "data", "models", "ops",
+            "cli"} <= scanned
+
+
+def test_cuda_sources_are_listed_and_plain_c():
+    listed = {f"{n}.cu" for n in _build.SOURCES}
+    on_disk = {p.name for p in _build.CSRC.glob("*.cu")}
+    assert listed == on_disk and {"packed_attention.cu", "fused_ce.cu",
+                                  "decode_attention.cu"} <= listed
+    for name in listed:
+        text = (_build.CSRC / name).read_text(encoding="utf-8")
+        includes = [l.split()[1] for l in text.splitlines()
+                    if l.startswith("#include")]
+        assert includes and all(i.strip("<>\"").startswith(
+            ("cuda", "math")) for i in includes), (name, includes)
+        assert "extern \"C\"" in text
 
 
 @pytest.fixture
@@ -125,8 +154,64 @@ def test_packed_attention_wrapper_raises_on_cuda_request(plain_forbidden):
     assert pmod.packed_attention.launches == before
 
 
-def test_packed_attention_refuses_grad_on_cuda():
+def test_packed_attention_refuses_grad_on_cuda(plain_forbidden,
+                                              monkeypatch):
+    """A CUDA q that requires grad goes through the autograd Function,
+    whose forward is the kernel: without a card the launch raises, and
+    neither direction falls back to its plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the kernel would run")
+    monkeypatch.setattr(pmod, "packed_attention_bwd_reference",
+                        lambda *a, **k: pytest.fail("plain backward ran"))
     q = _cuda_typed(1, 1, 3, 8).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    before = (pmod.packed_attention.launches,
+              pmod.packed_attention_bwd.launches)
+    with pytest.raises(RuntimeError):
         pmod.packed_attention(q, _cuda_typed(1, 1, 3, 8),
                               _cuda_typed(1, 1, 3, 8))
+    with pytest.raises(RuntimeError):
+        pmod.packed_attention_bwd(
+            _cuda_typed(1, 1, 3, 8), _cuda_typed(1, 1, 3, 8),
+            _cuda_typed(1, 1, 3, 8), None, _cuda_typed(1, 1, 3, 8),
+            _cuda_typed(1, 1, 3, 8))
+    assert (pmod.packed_attention.launches,
+            pmod.packed_attention_bwd.launches) == before
+
+
+def test_fused_ce_wrappers_raise_on_cuda_request(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the kernel would run")
+    for name in ("fused_ce_stats_reference", "fused_ce_bwd_reference"):
+        monkeypatch.setattr(fmod, name, lambda *a, **k: pytest.fail(
+            "a fused_ce wrapper ran its plain version on a CUDA tensor"))
+    x, w, b = _cuda_typed(5, 8), _cuda_typed(7, 8), _cuda_typed(7)
+    labels = torch.zeros(5, dtype=torch.long)
+    stats = [_cuda_typed(5) for _ in range(4)]
+    before = (fmod.fused_ce_stats.launches, fmod.fused_ce_dx.launches,
+              fmod.fused_ce_dw.launches)
+    with pytest.raises(RuntimeError):
+        fmod.fused_ce_stats(x, w, b, labels)
+    with pytest.raises(RuntimeError):
+        fmod.fused_ce_dx(x, w, b, labels, *stats)
+    with pytest.raises(RuntimeError):
+        fmod.fused_ce_dw(x, w, b, labels, *stats)
+    assert (fmod.fused_ce_stats.launches, fmod.fused_ce_dx.launches,
+            fmod.fused_ce_dw.launches) == before
+
+
+@pytest.mark.parametrize("mode", ["auto", "on"])
+def test_fused_ce_engages_on_card_at_every_width(mode):
+    """At transformer-big's E = 1024 the loss on a CUDA device takes the
+    fused CE's output table (the kernels), never the dense logits; on the
+    CPU ``auto`` stays dense, as the reference's does off the TPU."""
+    opts = Options({"type": "transformer", "dim-emb": 1024,
+                    "transformer-heads": 4, "transformer-dim-ffn": 64,
+                    "enc-depth": 1, "dec-depth": 1,
+                    "tied-embeddings-all": True, "fused-ce": mode})
+    model = emod.create_model(opts, 11, 11)
+    cparams = tmod.cast_params(tmod.init_params(model.cfg, 3),
+                               model.cfg.compute_dtype)
+    table = model._fused_ce_table(cparams, torch.device("cuda"))
+    assert table is not None and tuple(table.shape) == (11, 1024)
+    on_cpu = model._fused_ce_table(cparams, torch.device("cpu"))
+    assert (on_cpu is None) == (mode == "auto")

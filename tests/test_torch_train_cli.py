@@ -1,0 +1,152 @@
+"""The port's marian-train end to end on the golden corpus (tiny
+transformer, golden options), on the CPU:
+
+- ``python -m marian_tpu_torch.cli.marian_train --cpu-threads 2`` prints
+  Marian's cost lines and writes the checkpoint (model, optimizer state,
+  progress);
+- the model.npz it writes decodes to identical tokens through the JAX
+  package's marian-decoder and the port's: every hypothesis of the beam-4
+  n-best lists (a model this small mostly ranks the empty sentence first),
+  with the scores within rtol 1e-5 (f32 sums of per-step log-probs that
+  XLA's and PyTorch's CPU kernels round a few ulps apart);
+- a run stopped at an epoch boundary and resumed from its checkpoint
+  ends with the same parameters and the same cost lines as one
+  uninterrupted run: the checkpoint round-trips f32 exactly and both
+  runs do the same f32 operations, but PyTorch's multi-threaded CPU
+  reductions may split a sum differently between processes, so values
+  agree to rtol 1e-5 with an absolute floor of 1e-6 (weights are ~0.3;
+  Adam's normalised step turns a near-zero gradient's rounding noise into
+  a step of up to lr). The attention key
+  biases are left out: their gradient is exactly zero in exact
+  arithmetic (a softmax does not see a shift shared by all keys), so
+  both runs feed rounding noise to Adam, whose normalised step magnifies
+  it, and those biases cannot change any output;
+- without --cpu-threads and without a card it raises.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from marian_tpu.cli import marian_decoder as jax_decoder
+from marian_tpu_torch.cli import marian_decoder as torch_decoder
+from marian_tpu_torch.cli import marian_train
+from marian_tpu_torch.common.io import load_model
+from marian_tpu_torch.data.vocab import DefaultVocab
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+DATA = ROOT / "tests" / "golden" / "data"
+COST = re.compile(r"Ep\. (\d+) : Up\. (\d+) : Sen\. [\d,]+ : Cost ([\d.]+)")
+
+
+@pytest.fixture(scope="module")
+def work(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_train")
+    lines = [l for p in ("train.src", "train.trg")
+             for l in (DATA / p).read_text().splitlines()]
+    DefaultVocab.build(lines).save(str(d / "v.yml"))
+    (d / "in.txt").write_text("\n".join(
+        (DATA / "train.src").read_text().splitlines()[:8]) + "\n")
+    return d
+
+
+def train_args(d, model, *extra):
+    return ["--type", "transformer", "--train-sets", str(DATA / "train.src"),
+            str(DATA / "train.trg"), "--vocabs", str(d / "v.yml"),
+            str(d / "v.yml"), "--model", str(d / model), "--dim-emb", "32",
+            "--transformer-heads", "4", "--transformer-dim-ffn", "64",
+            "--enc-depth", "2", "--dec-depth", "2", "--tied-embeddings-all",
+            "--transformer-ffn-activation", "relu", "--learn-rate", "0.05",
+            "--optimizer-params", "0.9", "0.98", "1e-9", "--clip-norm", "1",
+            "--cost-type", "ce-mean-words", "--label-smoothing", "0.1",
+            "--mini-batch", "16", "--maxi-batch", "4", "--maxi-batch-sort",
+            "src", "--max-length", "24", "--seed", "1234", "--disp-freq",
+            "1", "--quiet", *extra]
+
+
+def costs(log):
+    return [(int(u), float(c)) for _, u, c in COST.findall(log.read_text())]
+
+
+def test_cli_prints_costs_and_writes_checkpoint(work):
+    log = work / "cli.log"
+    proc = subprocess.run(
+        [sys.executable, "-m", "marian_tpu_torch.cli.marian_train",
+         *train_args(work, "cli.npz", "--after-batches", "4",
+                     "--cpu-threads", "2", "--log", str(log))],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = costs(log)
+    assert [u for u, _ in got] == [1, 2, 3, 4]
+    assert all(np.isfinite(c) and c > 0 for _, c in got)
+    for suffix in ("", ".optimizer.npz", ".progress.yml"):
+        assert (work / f"cli.npz{suffix}").exists()
+    assert "batches: 4" in (work / "cli.npz.progress.yml").read_text()
+
+
+def test_trained_model_decodes_identically_in_both_packages(work, capsys):
+    marian_train.main(train_args(work, "dec.npz", "--after-batches", "40",
+                                 "--learn-rate", "0.01",
+                                 "--cpu-threads", "2"))
+    args = ["--models", str(work / "dec.npz"), "--vocabs",
+            str(work / "v.yml"), str(work / "v.yml"), "--input",
+            str(work / "in.txt"), "--beam-size", "4", "--n-best",
+            "--num-devices", "1", "--quiet"]
+    capsys.readouterr()
+    jax_decoder.main(args)
+    ref = [l.split(" ||| ") for l in capsys.readouterr().out.splitlines()]
+    torch_decoder.main(args + ["--cpu-threads", "1"])
+    got = [l.split(" ||| ") for l in capsys.readouterr().out.splitlines()]
+    assert [g[:2] for g in got] == [r[:2] for r in ref]
+    assert len(got) == 8 * 4 and sum(len(g[1].split()) for g in got) >= 16
+    np.testing.assert_allclose([float(g[2].split()[1]) for g in got],
+                               [float(r[2].split()[1]) for r in ref],
+                               rtol=1e-5)
+
+
+def test_resume_continues_the_uninterrupted_trajectory(work):
+    marian_train.main(train_args(work, "full.npz", "--after-batches", "8",
+                                 "--cpu-threads", "2", "--log",
+                                 str(work / "full.log")))
+    # 6 updates are one epoch of the golden corpus: stop there, resume
+    marian_train.main(train_args(work, "part.npz", "--after-batches", "6",
+                                 "--cpu-threads", "2"))
+    marian_train.main(train_args(work, "part.npz", "--after-batches", "8",
+                                 "--cpu-threads", "2", "--log",
+                                 str(work / "part.log")))
+    full, part = costs(work / "full.log"), costs(work / "part.log")
+    assert [u for u, _ in part] == [7, 8]
+    np.testing.assert_allclose([c for _, c in part],
+                               [c for u, c in full if u > 6], rtol=1e-5)
+    a, _ = load_model(str(work / "full.npz"))
+    b, _ = load_model(str(work / "part.npz"))
+    assert sorted(a) == sorted(b)
+    for k in a:
+        if not k.endswith("_bk"):
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+
+
+def test_train_entry_point_raises_without_card(work, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        marian_train.main(train_args(work, "none.npz", "--after-batches",
+                                     "1"))
+    assert not (work / "none.npz").exists()
+
+
+@pytest.mark.parametrize("flag", [["--optimizer-delay", "2"],
+                                  ["--dispatch-window", "4"],
+                                  ["--guided-alignment", "a.txt"],
+                                  ["--precision", "float16"]])
+def test_unported_training_flags_raise(work, flag):
+    with pytest.raises(NotImplementedError):
+        marian_train.main(train_args(work, "x.npz", "--cpu-threads", "1",
+                                     *flag))
