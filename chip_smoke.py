@@ -6,17 +6,24 @@ NVIDIA card. Run from the root of a checkout:
 
 It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
 at once), holds each kernel against its plain PyTorch version on the
-card, and drives the port's two main paths at transformer-base's full
-width on data made from --seed:
+card, and drives the port's main paths on data made from --seed:
 
-- marian-decoder: beam 6 on random weights; the same sentences are
-  decoded on the card and on the CPU;
-- marian-train: a synthetic 32,000-word parallel corpus, 2 updates
-  through ``marian_train.main`` (which write a checkpoint), then 20
-  counted updates through the trainer object ``main`` drives, resuming
-  from that checkpoint; the trained checkpoint is decoded on the card; a
-  2+2-layer cut trains 3 updates on the card and on the CPU, which must
-  agree leaf by leaf in gradients and parameter changes.
+- marian-decoder, transformer-base: beam 6 on random weights; the same
+  sentences are decoded on the card and on the CPU;
+- marian-train, transformer-base: a synthetic 32,000-word parallel
+  corpus, 2 updates through ``marian_train.main`` (which write a
+  checkpoint), then 20 counted updates through the trainer object
+  ``main`` drives, resuming from that checkpoint; the trained checkpoint
+  is decoded on the card; a 2+2-layer cut trains 3 updates on the card
+  and on the CPU, which must agree leaf by leaf in gradients and
+  parameter changes;
+- doc-level marian-train, transformer-big: documents of 1,023-2,047
+  words, 2 + 8 updates the same way, every attention through the flash
+  kernels; the trained checkpoint then decodes 4 documents at beam 6
+  with a 1,024-position cache (doc-level marian-decoder); a 2+2-layer,
+  dim-256 cut trains on documents past 1,024 tokens on the card and on
+  the CPU (held as above) and decodes one with a cache past 442
+  positions on both.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; a kernel's ``launches`` in the kernel line is the sum
@@ -49,6 +56,10 @@ BASE = {"type": "transformer", "dim-emb": 512, "transformer-heads": 8,
         "tied-embeddings-all": True, "transformer-ffn-activation": "relu",
         "precision": ["float32", "float32"], "max-length": 64}
 VOCAB, BATCH, SRC_LEN, BEAM, N_BATCHES = 32000, 64, 32, 6, 2
+# the doc-level card-vs-CPU cut's vocabulary (w2 .. w499 of the same
+# words): the card's f32 rounding noise in its gradient norms grows with
+# the vocabulary (scripts/torch_train_parity.py; PERF.md section 6)
+VOCAB_CUT = 500
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
 TOL = 2e-5
@@ -78,7 +89,30 @@ PARITY_LIMITS = {"loss": 1e-3, "grad": 3e-3, "grad_norm": 3e-4,
                  "update": 1e-4}
 # per update: 6 encoder self + 6 decoder causal self + 6 cross attentions
 PER_UPDATE = {"packed_attention": 18, "packed_attention_bwd": 18,
+              "flash_attention_fwd": 0, "flash_attention_dq": 0,
+              "flash_attention_dkv": 0,
               "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
+# doc-level training: bench.py's 'big' preset (bench.py:290-293) in its
+# MARIAN_BENCH_SEQLEN=2048 stage (bench.py:303-321): transformer-big
+# (dim 1024, ffn 4096, 16 heads), lines of 1,023-2,047 words, an 8,192-word
+# budget, max length 2,047 cropped; f32 and dropout 0.1 as above. The
+# trainer keeps its default length buckets (1,024, 1,536, 2,048).
+DOC_FLAGS = ["--dim-emb", "1024", "--transformer-heads", "16",
+             "--transformer-dim-ffn", "4096", "--max-length", "2047"]
+DOC_WORDS, DOC_LINES, DOC_WARM, DOC_COUNTED, DOC_DOCS = 8192, 200, 2, 8, 4
+# every attention of the update runs through flash (T >= 1024)
+DOC_PER_UPDATE = {"packed_attention": 0, "packed_attention_bwd": 0,
+                  "flash_attention_fwd": 18, "flash_attention_dq": 18,
+                  "flash_attention_dkv": 18,
+                  "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
+# the doc-level card-vs-CPU cut: 2+2 layers, dim 256, 4 heads (Dh 64)
+DOC_CUT_FLAGS = ["--dim-emb", "256", "--transformer-heads", "4",
+                 "--transformer-dim-ffn", "1024", "--enc-depth", "2",
+                 "--dec-depth", "2", "--max-length", "2047"]
+# bf16 flash outputs carry one bf16 rounding (2^-8 relative)
+BF16_REL_TOL = 1e-2
+# the flash lse (f32, of order log Tk) on rows with a live key, absolute
+LSE_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -112,14 +146,42 @@ def bound(nbytes: float, flops: float):
                                        else "operations")
 
 
-def close_to_scale(got, ref, what: str) -> float:
-    """max |got - ref|, checked against REL_TOL * max(1, max |ref|)."""
+def close_to_scale(got, ref, what: str, rel: float = REL_TOL) -> float:
+    """max |got - ref|, checked against rel * max(1, max |ref|)."""
     got, ref = got.detach().float(), ref.detach().float()
     err = float((got - ref).abs().max())
     scale = max(float(ref.abs().max()), 1.0)
-    check(err <= REL_TOL * scale, f"{what}: max |err| {err:.3g} > "
-          f"{REL_TOL} x scale {scale:.3g}")
+    check(err <= rel * scale, f"{what}: max |err| {err:.3g} > "
+          f"{rel} x scale {scale:.3g}")
     return err
+
+
+def lse_err(lse, ref, what: str) -> float:
+    """The flash forward's lse against the plain version's: rows with a
+    live key (lse of order log Tk) within LSE_TOL, fully masked rows
+    (-1e9) equal; returns the live rows' max |err|."""
+    from marian_tpu_torch.ops.ops import NEG_INF
+    live = ref > 0.5 * NEG_INF
+    check(bool(live.any()), f"{what}: no row has a live key")
+    err = float((lse[live] - ref[live]).abs().max())
+    check(err <= LSE_TOL, f"{what}: max |err| {err:.3g} > {LSE_TOL} on rows "
+          f"with a live key")
+    check(torch.equal(lse[~live], ref[~live]),
+          f"{what}: fully masked rows differ from the plain version")
+    return err
+
+
+def top_kernel(fn) -> str:
+    """The name of the device kernel that takes most of one call of
+    ``fn`` (which backend a library call picked), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not events:
+        return "not traced"
+    return max(events, key=lambda e: e.self_device_time_total).key[:80]
 
 
 def phase_card() -> str:
@@ -194,6 +256,50 @@ def phase_decode_kernel(gen) -> dict:
     print(f"kernel decode_attention R={r} H={h} L={L} Dh={dh} f32: kernel_ms "
           f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms(sdpa, attention only) "
           f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({nbytes / 1e6:.1f} MB)")
+    # document-length caches (past the old 442-position cap) at the doc
+    # decode's rows: 8 rows (4 documents padded) x beam 6, 16 heads
+    docs = 8
+    r2, h2 = docs * BEAM, 16
+    beams2 = (torch.arange(docs)[:, None] * BEAM
+              + torch.randint(0, BEAM, (docs, BEAM), generator=gen))
+    src2 = beams2.reshape(-1).to(torch.int32).to(dev)
+    for L2 in (1024, 2048):
+        q2, kn2, vn2 = (randn(r2, h2, 1, dh) for _ in range(3))
+        ck2, cv2 = randn(r2, h2, L2, dh), randn(r2, h2, L2, dh)
+        pos2 = torch.randint(0, L2, (r2,), generator=gen)
+        pos2[0], pos2[1], pos2[2] = 0, L2 - 1, 700
+        pos2 = pos2.to(torch.int32).to(dev)
+        out, nk, nv = decode_attention(q2, kn2, vn2, ck2, cv2, pos2,
+                                       src_rows=src2)
+        ro, rk, rv = decode_attention_reference(q2, kn2, vn2, ck2, cv2,
+                                                pos2, src2)
+        torch.cuda.synchronize()
+        e = (out - ro).abs().max().item()
+        check(e <= TOL, f"decode_attention L={L2} max |err| {e} > {TOL}")
+        check(torch.equal(nk, rk) and torch.equal(nv, rv),
+              f"decode_attention L={L2}: caches differ from the plain "
+              f"version")
+        err = max(err, e)
+        print(f"kernel decode_attention [beam rows, per-row pos] R={r2} "
+              f"H={h2} L={L2} Dh={dh}: max |err| {e:.3g}, caches exact")
+        if L2 == 1024:          # the doc decode's cache (0.5 x 2,048)
+            pos_t2 = torch.full((r2,), L2 - 1, dtype=torch.int32, device=dev)
+            bk2, bv2 = torch.empty_like(ck2), torch.empty_like(cv2)
+            ms2 = time_ms(lambda: decode_attention(
+                q2, kn2, vn2, ck2, cv2, pos_t2, src_rows=src2, out_k=bk2,
+                out_v=bv2))
+            plain2 = time_ms(lambda: decode_attention_reference(
+                q2, kn2, vn2, ck2, cv2, pos_t2, src2), iters=5)
+            uniq2 = int(torch.unique(src2).numel())
+            tile2 = h2 * L2 * dh * 4
+            nb2 = (2 * uniq2 * tile2 + 2 * r2 * tile2 + 4 * r2 * h2 * dh * 4
+                   + 2 * r2 * 4)
+            b2, _ = bound(nb2, 4 * r2 * h2 * L2 * dh)
+            print(f"kernel decode_attention R={r2} H={h2} L={L2} Dh={dh} "
+                  f"f32 (doc decode): kernel_ms {ms2:.4f} plain_ms "
+                  f"{plain2:.4f} bound_ms {b2:.4f} ({nb2 / 1e6:.1f} MB)")
+            del bk2, bv2
+        del q2, kn2, vn2, ck2, cv2, out, nk, nv, ro, rk, rv
     return {"name": "decode_attention", "route": "cuda",
             "source": "marian_tpu_torch/csrc/decode_attention.cu",
             "replaces": "marian_tpu/ops/pallas/decode_attention.py:117",
@@ -397,57 +503,267 @@ def phase_fused_ce_kernels(gen) -> list:
     return rows
 
 
+def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None):
+    """q, k, v, dO and a key mask [B, Tk] on the card. Rows at and past
+    ``live_rows`` mask every key (the batch generator's padding rows)
+    and get no output gradient, as in training; the live rows have
+    ragged lengths, the first row all Tk."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+    q, do = randn(b, h, tq, dh), randn(b, h, tq, dh)
+    k, v = randn(b, h, tk, dh), randn(b, h, tk, dh)
+    live_rows = b if live_rows is None else live_rows
+    lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
+    lens[0] = tk
+    lens[live_rows:] = 0
+    kvm = (torch.arange(tk)[None, :] < lens[:, None]).float().to(dev)
+    do[live_rows:] = 0.0
+    return q, k, v, do, kvm
+
+
+def phase_flash_kernels(gen) -> list:
+    """The three flash kernels against their plain versions at the doc
+    slice's shapes (B 8 with 4 padding rows, H 16, T 2,048, Dh 64: encoder
+    self, decoder causal, cross with Tk 1,536) and at ragged lengths,
+    other head sizes and bf16; then their times at the encoder shape."""
+    from marian_tpu_torch.ops.kernels import flash_attention as fa
+    b, h, t, dh = 8, 16, 2048, 64
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    cases = [("encoder self", b, h, t, t, dh, False, torch.float32, 4),
+             ("decoder causal", b, h, t, t, dh, True, torch.float32, 4),
+             ("cross", b, h, t, 1536, dh, False, torch.float32, 4),
+             ("ragged", 2, 4, 1000, 1100, dh, False, torch.float32, 1),
+             ("ragged causal", 2, 4, 1000, 1000, dh, True, torch.float32, 1),
+             ("Dh 32", 2, 4, 300, 333, 32, True, torch.float32, 1),
+             ("Dh 128", 2, 4, 300, 260, 128, False, torch.float32, 1),
+             ("Dh 16", 2, 4, 130, 130, 16, False, torch.float32, 1),
+             ("bf16", 2, 4, 1000, 1100, dh, False, torch.bfloat16, 1),
+             ("bf16 causal", 2, 4, 777, 777, dh, True, torch.bfloat16, 1)]
+    for name, b_, h_, tq, tk, d_, causal, dtype, live in cases:
+        q, k, v, do, kvm = flash_inputs(gen, b_, h_, tq, tk, d_, dtype, live)
+        out, lse = fa.flash_attention_fwd(q, k, v, kvm, causal)
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm, causal)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse,
+                                            causal)
+        torch.cuda.synchronize()
+        rel = REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+        what = (f"flash_attention [{name}] B={b_} H={h_} Tq={tq} Tk={tk} "
+                f"Dh={d_} {str(dtype)[6:]}")
+        e = {"fwd": max(close_to_scale(out, ref, f"{what} out", rel),
+                        lse_err(lse, ref_lse, f"{what} lse")),
+             "dq": 0.0, "dkv": 0.0}
+        # the plain backward fed the kernel's own out and lse, then the
+        # plain forward's: a wrong lse skews every gradient of the second
+        for src, fwd in (("kernel", (out, lse)), ("plain", (ref, ref_lse))):
+            rdq, rdk, rdv = fa.flash_attention_bwd_reference(
+                q, k, v, kvm, do, *fwd, causal)
+            e["dq"] = max(e["dq"], close_to_scale(
+                dq, rdq, f"{what} dq (plain from {src} out/lse)", rel))
+            e["dkv"] = max(e["dkv"], close_to_scale(
+                dk, rdk, f"{what} dk (plain from {src} out/lse)", rel),
+                close_to_scale(dv, rdv, f"{what} dv (plain from {src} "
+                               f"out/lse)", rel))
+            del rdq, rdk, rdv
+        check(bool(torch.isfinite(out.float()).all()
+                   and torch.isfinite(dq.float()).all()
+                   and torch.isfinite(dk.float()).all()),
+              f"{what}: non-finite values")
+        for part in errs:
+            errs[part] = max(errs[part], e[part])
+        print(f"kernel {what} causal={causal}: max |err| out/lse "
+              f"{e['fwd']:.3g} dq {e['dq']:.3g} dk/dv {e['dkv']:.3g} "
+              f"(tolerance {rel} x max |plain| of each output; lse "
+              f"{LSE_TOL} on rows with a live key, fully masked rows exact)")
+        del q, k, v, do, kvm, out, lse, ref, ref_lse, dq, dk, dv
+        torch.cuda.empty_cache()
+    # times at the encoder's shape, every key live (the bound below counts
+    # every (query, key) pair, which is what this data needs)
+    q, k, v, do, kvm = flash_inputs(gen, b, h, t, t, dh, live_rows=b)
+    kvm.fill_(1.0)
+    out, lse = fa.flash_attention_fwd(q, k, v, kvm)
+    # dq and dkv timed one launch each, on flash_attention_bwd's operands
+    scale = dh ** -0.5
+    operands = (q, k, v, kvm, do, lse, (do * out).sum(dim=-1))
+    grad, grad2 = torch.empty_like(q), torch.empty_like(q)
+    times = {
+        "fwd": (lambda: fa.flash_attention_fwd(q, k, v, kvm),
+                lambda: fa.flash_attention_reference(q, k, v, kvm)),
+        "dq": (lambda: fa.flash_attention_dq(operands, grad, False, scale),
+               lambda: fa.flash_attention_bwd_reference(q, k, v, kvm, do,
+                                                        out, lse)),
+        "dkv": (lambda: fa.flash_attention_dkv(operands, grad, grad2, False,
+                                               scale),
+                lambda: fa.flash_attention_bwd_reference(q, k, v, kvm, do,
+                                                         out, lse)),
+    }
+    mask = kvm.bool()[:, None, None, :]
+    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+    def lib_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask)
+    lib_out = lib_fwd()
+    lib_bwd = (lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                           retain_graph=True))
+    lib_ms = {"fwd": time_ms(lib_fwd, iters=5)}
+    lib_ms["dq"] = lib_ms["dkv"] = time_ms(lib_bwd, iters=5)
+    backend = f"{top_kernel(lib_fwd)} / {top_kernel(lib_bwd)}"
+    elems = b * h * t * dh * 4
+    stats = b * h * t * 4
+    pairs = b * h * t * t * dh
+    flops = {"fwd": 4 * pairs, "dq": 6 * pairs, "dkv": 8 * pairs}
+    nbytes = {"fwd": 4 * elems + stats + b * t * 4,
+              "dq": 5 * elems + 2 * stats + b * t * 4,
+              "dkv": 6 * elems + 2 * stats + b * t * 4}
+    rows = []
+    for part, line in (("fwd", 252), ("dq", 287), ("dkv", 309)):
+        ms = time_ms(times[part][0], iters=5)
+        plain_ms = time_ms(times[part][1], iters=3)
+        bound_ms, bound_by = bound(nbytes[part], flops[part])
+        print(f"kernel flash_attention_{part} B={b} H={h} T={t} Dh={dh} f32: "
+              f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+              f"(sdpa {'forward' if part == 'fwd' else 'backward'}; "
+              f"{backend}) {lib_ms[part]:.4f} bound_ms {bound_ms:.4f} "
+              f"({bound_by}; {flops[part] / 1e9:.0f} GFLOP, "
+              f"{flops[part] / ms / 1e9:.2f} TFLOP/s achieved)")
+        rows.append({"name": f"flash_attention_{part}", "route": "cuda",
+                     "source": "marian_tpu_torch/csrc/flash_attention.cu",
+                     "replaces": f"marian_tpu/ops/pallas/flash_attention.py:"
+                                 f"{line}",
+                     "max_abs_err": errs[part], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": lib_ms[part]})
+    del lib_out
+    return rows
+
+
 def write_vocab() -> None:
-    """The 32,000-word vocabulary w2 .. w31999 of the synthetic data."""
+    """The 32,000-word vocabulary w2 .. w31999 of the synthetic data
+    (vocab.yml), and its first VOCAB_CUT words (vocab_cut.yml)."""
     from marian_tpu_torch.data.vocab import DefaultVocab
     WORK.mkdir(parents=True, exist_ok=True)
-    vocab = DefaultVocab({"</s>": 0, "<unk>": 1,
-                          **{f"w{i}": i for i in range(2, VOCAB)}})
-    vocab.save(str(WORK / "vocab.yml"))
+    for name, size in (("vocab.yml", VOCAB), ("vocab_cut.yml", VOCAB_CUT)):
+        vocab = DefaultVocab({"</s>": 0, "<unk>": 1,
+                              **{f"w{i}": i for i in range(2, size)}})
+        vocab.save(str(WORK / name))
 
 
 def write_model(seed: int):
     """A 32,000-word vocab and transformer-base weights from ``seed``
-    (plus a 2+2-layer cut of them), written through the port's own io.
-    The output bias is drawn wide (std 2) so the random model's next-token
-    ranking has gaps far above f32 rounding: card and CPU then pick the
-    same beams."""
+    (plus a 2+2-layer cut of them), written through the port's own io;
+    and the doc-level cut's random weights (2+2 layers, dim 256, 4
+    heads). The output bias is drawn wide (std 2) so a random model's
+    next-token ranking has gaps far above f32 rounding: card and CPU then
+    pick the same beams."""
     from marian_tpu_torch.common import io as mio
     from marian_tpu_torch.common.options import Options
     from marian_tpu_torch.models import transformer as T
     write_vocab()
+
+    def random_weights(opts, seed, vocab=VOCAB):
+        cfg = T.config_from_options(opts, vocab, vocab)
+        params = T.init_params(cfg, seed)
+        gen = torch.Generator().manual_seed(seed + 1)
+        params["decoder_ff_logit_out_b"] = 2.0 * torch.randn(1, vocab,
+                                                             generator=gen)
+        return {k: v.numpy() for k, v in params.items()}
     opts = Options(BASE)
-    cfg = T.config_from_options(opts, VOCAB, VOCAB)
-    params = T.init_params(cfg, seed)
-    gen = torch.Generator().manual_seed(seed + 1)
-    params["decoder_ff_logit_out_b"] = 2.0 * torch.randn(1, VOCAB,
-                                                         generator=gen)
-    flat = {k: v.numpy() for k, v in params.items()}
+    flat = random_weights(opts, seed)
     mio.save_model(str(WORK / "base.npz"), flat, opts.as_yaml())
     small = {k: v for k, v in flat.items()
              if not k.startswith(("encoder_l", "decoder_l"))
              or k.split("_")[1] in ("l1", "l2")}
     mio.save_model(str(WORK / "base_2x2.npz"), small,
                    opts.with_(**{"enc-depth": 2, "dec-depth": 2}).as_yaml())
+    doc = opts.with_(**{"dim-emb": 256, "transformer-heads": 4,
+                        "transformer-dim-ffn": 1024, "enc-depth": 2,
+                        "dec-depth": 2, "max-length": 2048})
+    mio.save_model(str(WORK / "doc_cut.npz"),
+                   random_weights(doc, seed + 7, VOCAB_CUT), doc.as_yaml())
     rng = np.random.RandomState(seed)
     lines = [" ".join(f"w{i}" for i in rng.randint(2, VOCAB, SRC_LEN - 1))
              for _ in range(BATCH * N_BATCHES)]
     return lines
 
 
-def decoder_options(model: str, *extra: str):
+def decoder_options(model: str, *extra: str, vocab: str = "vocab.yml"):
     from marian_tpu_torch.common.config_parser import parse_options
     return parse_options(["--models", str(WORK / model), "--vocabs",
-                          str(WORK / "vocab.yml"), str(WORK / "vocab.yml"),
+                          str(WORK / vocab), str(WORK / vocab),
                           "--beam-size", str(BEAM), "--max-length", "64",
                           "--mini-batch", str(BATCH), "--quiet", *extra])
 
 
-def phase_main_path(lines) -> dict:
-    from marian_tpu_torch.ops.kernels.decode_attention import decode_attention
-    from marian_tpu_torch.ops.kernels.packed_attention import packed_attention
-    from marian_tpu_torch.cli import marian_decoder
+def kernel_counters():
+    """Every kernel wrapper of the port, by the name of its kernel."""
+    from marian_tpu_torch.ops.kernels import decode_attention as da
+    from marian_tpu_torch.ops.kernels import flash_attention as fa
+    from marian_tpu_torch.ops.kernels import fused_ce as fce
+    from marian_tpu_torch.ops.kernels import packed_attention as pa
+    return {"decode_attention": da.decode_attention,
+            "packed_attention": pa.packed_attention,
+            "packed_attention_bwd": pa.packed_attention_bwd,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_dq": fa.flash_attention_dq,
+            "flash_attention_dkv": fa.flash_attention_dkv,
+            "fused_ce_fwd": fce.fused_ce_stats,
+            "fused_ce_dx": fce.fused_ce_dx, "fused_ce_dw": fce.fused_ce_dw}
+
+
+def reset_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def decode_run(model: str, lines, *extra: str):
+    """The counted run of a decode main path: the decoder object
+    marian_decoder.main drives, built from the same flags (model loading
+    stays out of the timing), with every launch count set to 0 just
+    before it and read just after. Returns (translator, n-best fields,
+    seconds, counts)."""
     from marian_tpu_torch.translator.translator import Translate
+    tr = Translate(decoder_options(model, "--n-best", *extra))
+    check(tr.device.type == "cuda", f"decoder resolved {tr.device}")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = tr.run(lines, out)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    hyps = [l.split(" ||| ") for l in out.getvalue().splitlines()]
+    check(len(got) == len(lines) and len(hyps) == BEAM * len(lines)
+          and sorted({int(h[0]) for h in hyps}) == list(range(len(lines))),
+          f"{len(hyps)} n-best lines for {len(lines)} inputs x beam {BEAM}")
+    scores = np.array([float(h[2].split()[1]) for h in hyps])
+    check(bool(np.isfinite(scores).all()), "non-finite scores")
+    check(all(tr.trg_vocab.encode(h[1], add_eos=False).count(1) == 0
+              for h in hyps), "output words outside the vocabulary")
+    return tr, hyps, secs, counts
+
+
+def check_decode_counts(tr, counts, batches: int, encoder: str) -> None:
+    """decode_attention once per decoder layer and step; the encoder's
+    attention kernel (``encoder``) once per layer and batch; no other
+    kernel."""
+    steps = list(tr.search.steps)
+    cfg = tr.model.cfg
+    check(len(steps) == batches, f"{len(steps)} batches, expected {batches}")
+    want = {name: 0 for name in counts}
+    want["decode_attention"] = cfg.dec_depth * sum(steps)
+    want[encoder] = cfg.enc_depth * batches
+    check(counts == want, f"decode launches {counts}, expected {want}")
+
+
+def phase_main_path(lines) -> dict:
+    from marian_tpu_torch.cli import marian_decoder
     # warm-up, not counted: the command-line decoder on two sentences,
     # file in, file out
     (WORK / "warm.in").write_text("\n".join(lines[:2]) + "\n")
@@ -458,38 +774,9 @@ def phase_main_path(lines) -> dict:
                          str(WORK / "warm.out")])
     check(len((WORK / "warm.out").read_text().splitlines()) == 2,
           "command-line warm-up output")
-    # the counted run: the decoder object marian_decoder.main drives,
-    # built from the same flags, so model loading stays out of the timing
-    tr = Translate(decoder_options("base.npz", "--n-best"))
-    check(tr.device.type == "cuda", f"decoder resolved {tr.device}")
-    decode_attention.launches = 0
-    packed_attention.launches = 0
-    out = io.StringIO()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    got = tr.run(lines, out)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = {"decode_attention": decode_attention.launches,
-              "packed_attention": packed_attention.launches}
+    tr, _, secs, counts = decode_run("base.npz", lines)
+    check_decode_counts(tr, counts, N_BATCHES, "packed_attention")
     steps = list(tr.search.steps)
-    layers = tr.model.cfg.dec_depth
-    hyps = [l.split(" ||| ") for l in out.getvalue().splitlines()]
-    check(len(got) == len(lines) and len(hyps) == BEAM * len(lines)
-          and sorted({int(h[0]) for h in hyps}) == list(range(len(lines))),
-          f"{len(hyps)} n-best lines for {len(lines)} inputs x beam {BEAM}")
-    scores = np.array([float(h[2].split()[1]) for h in hyps])
-    check(bool(np.isfinite(scores).all()), "non-finite scores")
-    check(len(steps) == N_BATCHES, f"{len(steps)} batches, expected "
-          f"{N_BATCHES}")
-    check(counts["decode_attention"] == layers * sum(steps),
-          f"decode_attention launches {counts['decode_attention']} != "
-          f"{layers} layers x {sum(steps)} steps")
-    check(counts["packed_attention"] == tr.model.cfg.enc_depth * N_BATCHES,
-          f"packed_attention launches {counts['packed_attention']} != "
-          f"{tr.model.cfg.enc_depth} layers x {N_BATCHES} batches")
-    check(all(tr.trg_vocab.encode(h[1], add_eos=False).count(1) == 0
-              for h in hyps), "output words outside the vocabulary")
     print(f"main path: transformer-base 6+6, dim 512, ffn 2048, 8 heads, "
           f"vocab {VOCAB}, beam {BEAM}, {len(lines)} sentences x {SRC_LEN} "
           f"tokens in {N_BATCHES} batches of {BATCH}: steps {steps}, "
@@ -499,33 +786,34 @@ def phase_main_path(lines) -> dict:
     return counts
 
 
-def phase_card_vs_cpu(lines) -> None:
+def decode_card_vs_cpu(what: str, model: str, sents, *extra: str,
+                       vocab: str = "vocab.yml") -> None:
+    """The same sentences decoded on the card (kernels) and on the CPU
+    (plain versions): n-best tokens must be identical."""
     from marian_tpu_torch.translator.translator import Translate
-    sents = lines[:8]
     res = {}
-    for name, extra in (("cuda", ()), ("cpu", ("--cpu-threads", "8"))):
-        tr = Translate(decoder_options("base_2x2.npz", "--n-best", *extra))
+    for name, dev in (("cuda", ()), ("cpu", ("--cpu-threads", "8"))):
+        tr = Translate(decoder_options(model, "--n-best", *extra, *dev,
+                                       vocab=vocab))
         check(tr.device.type == name, f"{name} run resolved {tr.device}")
         t0 = time.perf_counter()
         res[name] = tr.run(sents, io.StringIO())
-        print(f"card vs cpu: {name} decode of {len(sents)} sentences, 2+2 "
-              f"layers, n-best {BEAM}: {time.perf_counter() - t0:.2f} s")
+        print(f"card vs cpu: {name} decode of {what}, n-best {BEAM}: "
+              f"{time.perf_counter() - t0:.2f} s; steps {tr.search.steps}")
+
     def split(out):
         hyps = [l.split(" ||| ") for s in out for l in s.splitlines()]
         return [h[:2] for h in hyps], [float(h[2].split()[1]) for h in hyps]
     (gt, gs), (ct, cs) = split(res["cuda"]), split(res["cpu"])
-    check(gt == ct, "n-best tokens differ between the card and the CPU")
-    print(f"card vs cpu: {len(gt)} n-best hypotheses identical; max |score "
-          f"diff| {np.max(np.abs(np.subtract(gs, cs))):.3g}")
+    check(gt == ct, f"{what}: n-best tokens differ between the card and the "
+          f"CPU")
+    print(f"card vs cpu: {what}: {len(gt)} n-best hypotheses identical; max "
+          f"|score diff| {np.max(np.abs(np.subtract(gs, cs))):.3g}")
 
 
-def kernel_counters():
-    from marian_tpu_torch.ops.kernels import fused_ce as fce
-    from marian_tpu_torch.ops.kernels import packed_attention as pa
-    return {"packed_attention": pa.packed_attention,
-            "packed_attention_bwd": pa.packed_attention_bwd,
-            "fused_ce_fwd": fce.fused_ce_stats,
-            "fused_ce_dx": fce.fused_ce_dx, "fused_ce_dw": fce.fused_ce_dw}
+def phase_card_vs_cpu(lines) -> None:
+    decode_card_vs_cpu(f"{len(lines[:8])} sentences, 2+2 layers",
+                       "base_2x2.npz", lines[:8])
 
 
 def write_corpus(seed: int) -> None:
@@ -534,40 +822,63 @@ def write_corpus(seed: int) -> None:
     rng = np.random.RandomState(seed + 2)
     for side in ("src", "trg"):
         lens = rng.randint(8, 64, TRAIN_LINES)
-        ids = rng.randint(2, VOCAB, int(lens.sum()))
-        words = np.char.add("w", ids.astype(str))
-        cuts = np.cumsum(lens)[:-1]
-        (WORK / f"train.{side}").write_text(
-            "\n".join(" ".join(l) for l in np.split(words, cuts)) + "\n")
+        write_lines(f"train.{side}", lens, rng)
 
 
-def train_argv(model: str, updates: int, *extra: str):
-    vocab = str(WORK / "vocab.yml")
-    return [*TRAIN_FLAGS, "--train-sets", str(WORK / "train.src"),
-            str(WORK / "train.trg"), "--vocabs", vocab, vocab, "--model",
+def write_lines(name: str, lens, rng, vocab: int = VOCAB) -> None:
+    ids = rng.randint(2, vocab, int(lens.sum()))
+    words = np.char.add("w", ids.astype(str))
+    cuts = np.cumsum(lens)[:-1]
+    (WORK / name).write_text(
+        "\n".join(" ".join(l) for l in np.split(words, cuts)) + "\n")
+
+
+def write_doc_corpus(seed: int, name: str, lines: int, lo: int, hi: int,
+                     trg_lo: int, trg_hi: int, vocab: int = VOCAB) -> None:
+    """A synthetic document-level corpus by bench.py's long-line rule
+    (bench.py:109-130): source lengths uniform in [lo, hi] words, target
+    lengths the source's times U(0.9, 1.1), clipped to [trg_lo, trg_hi]."""
+    rng = np.random.RandomState(seed)
+    n = rng.randint(lo, hi + 1, lines)
+    m = np.clip((n * rng.uniform(0.9, 1.1, lines)).astype(int), trg_lo,
+                trg_hi)
+    write_lines(f"{name}.src", n, rng, vocab)
+    write_lines(f"{name}.trg", m, rng, vocab)
+
+
+def train_argv(model: str, updates: int, *extra: str, corpus: str = "train",
+               vocab: str = "vocab.yml"):
+    vocab = str(WORK / vocab)
+    return [*TRAIN_FLAGS, "--train-sets", str(WORK / f"{corpus}.src"),
+            str(WORK / f"{corpus}.trg"), "--vocabs", vocab, vocab, "--model",
             str(WORK / model), "--mini-batch-words", str(TRAIN_WORDS),
             "--after-batches", str(updates), *extra]
 
 
-def phase_train_main_path(seed: int) -> dict:
+def doc_argv(model: str, updates: int, *extra: str):
+    return train_argv(model, updates, *DOC_FLAGS, "--mini-batch-words",
+                      str(DOC_WORDS), *extra, corpus="doc")
+
+
+def train_main_path(what: str, argv, model: str, warm: int, counted: int,
+                    per_update: dict) -> dict:
+    """``warm`` updates through ``marian_train.main`` (which write the
+    checkpoint), then ``counted`` updates through the trainer object
+    ``main`` drives, resuming from it, with every launch count set to 0
+    just before and read just after; prints the path's line and returns
+    the counts."""
     from marian_tpu_torch.cli import marian_train
     from marian_tpu_torch.common.config_parser import parse_options
     from marian_tpu_torch.training.graph_group import GraphGroup
     from marian_tpu_torch.training.train import Train
-    from marian_tpu_torch.translator.translator import Translate
-    write_corpus(seed)
-    for f in WORK.glob("train.npz*"):
+    for f in WORK.glob(f"{model}*"):
         f.unlink()
-    # warm-up, not counted: the command-line trainer, which writes the
-    # checkpoint the counted run resumes from
     t0 = time.perf_counter()
-    marian_train.main(train_argv("train.npz", WARM_UPDATES))
+    marian_train.main(argv(model, warm))
     warm_s = time.perf_counter() - t0
-    check((WORK / "train.npz.optimizer.npz").exists(), "warm-up checkpoint")
-    # the counted run: the trainer object marian_train.main drives
-    total = WARM_UPDATES + COUNTED_UPDATES
-    tr = Train(parse_options(train_argv("train.npz", total),
-                             mode="training"))
+    check((WORK / f"{model}.optimizer.npz").exists(), "warm-up checkpoint")
+    total = warm + counted
+    tr = Train(parse_options(argv(model, total), mode="training"))
     check(tr.device.type == "cuda", f"trainer resolved {tr.device}")
     # each update's outputs, recorded as the trainer makes them (device
     # scalars, read after the run), and the host clock from the first
@@ -581,28 +892,26 @@ def phase_train_main_path(seed: int) -> dict:
             clock["start"] = time.perf_counter()
         out = update(gg, batch, step, generator)
         outs.append((out.loss_sum, out.labels, batch["src_mask"].sum()))
-        if len(outs) == COUNTED_UPDATES:
+        if len(outs) == counted:
             torch.cuda.synchronize()
             clock["end"] = time.perf_counter()
         return out
 
-    counters = kernel_counters()
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     GraphGroup.update = recorded
     try:
         tr.run()
     finally:
         GraphGroup.update = update
-    counts = {name: fn.launches for name, fn in counters.items()}
+    counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     updates = len(outs)
-    check(updates == COUNTED_UPDATES and tr.state.batches == total,
+    check(updates == counted and tr.state.batches == total,
           f"counted run did {updates} updates, state at {tr.state.batches}")
-    for name, per in PER_UPDATE.items():
-        check(counts[name] == per * updates,
-              f"{name} launches {counts[name]} != {per} x {updates} updates")
+    want = {name: per_update.get(name, 0) * updates for name in counts}
+    check(counts == want, f"training launches {counts}, expected {want} "
+          f"({per_update} per update)")
     loss_sum, trg_tokens, src_tokens = (
         np.array([float(o[i]) for o in outs]) for i in range(3))
     costs = loss_sum / trg_tokens
@@ -611,16 +920,25 @@ def phase_train_main_path(seed: int) -> dict:
     check(all(bool(torch.isfinite(p).all()) for p in params.values()),
           "non-finite parameters after training")
     secs = clock["end"] - clock["start"]
-    print(f"train main path: transformer-base 6+6, dim 512, ffn 2048, 8 "
-          f"heads, vocab {VOCAB}, f32, dropout 0.1, {TRAIN_WORDS} target "
-          f"words a batch: warm-up {WARM_UPDATES} updates through "
+    print(f"train main path: {what}: warm-up {warm} updates through "
           f"marian_train.main in {warm_s:.2f} s; counted {updates} updates "
           f"in {secs:.3f} s, {1e3 * secs / updates:.2f} ms/update, "
           f"{src_tokens.sum() / secs:.1f} source tokens/s, "
           f"{trg_tokens.sum() / secs:.1f} target tokens/s; "
           f"peak memory {peak_gb:.2f} GB; mean CE first/last "
-          f"{costs[0]:.4f}/{costs[-1]:.4f}; launches {counts}")
+          f"{costs[0]:.4f}/{costs[-1]:.4f}; launches {counts}, per update "
+          f"{ {k: v // updates for k, v in counts.items() if v} }")
+    return counts
+
+
+def phase_train_main_path(seed: int) -> dict:
+    write_corpus(seed)
+    counts = train_main_path(
+        f"transformer-base 6+6, dim 512, ffn 2048, 8 heads, vocab {VOCAB}, "
+        f"f32, dropout 0.1, {TRAIN_WORDS} target words a batch", train_argv,
+        "train.npz", WARM_UPDATES, COUNTED_UPDATES, PER_UPDATE)
     # decode a few sentences on the card from the checkpoint just written
+    from marian_tpu_torch.translator.translator import Translate
     src = (WORK / "train.src").read_text().splitlines()[:8]
     trn = Translate(decoder_options("train.npz", "--n-best"))
     hyps = [l.split(" ||| ") for s in trn.run(src, io.StringIO())
@@ -634,13 +952,50 @@ def phase_train_main_path(seed: int) -> dict:
     return counts
 
 
-def parity_setup():
-    """The card-vs-CPU training cut: 2+2 layers of transformer-base
-    without dropout, 3 batches of about 2,048 target words, initial
-    parameters from seed 5, and a constant learning rate of 2e-4 (no
-    warm-up), so that the 3 Adam updates move every parameter by about
-    the rate; and 3 sets of random gradients (seed 6) for the update tail
-    alone. Returns (options, vocab size, batches, initial params, step
+def write_doc_train_corpus(seed: int) -> None:
+    """doc.src / doc.trg: DOC_LINES documents of 1,023-2,047 words."""
+    write_doc_corpus(seed + 3, "doc", DOC_LINES, 1023, 2047, 4, 2047)
+
+
+def phase_doc_train_main_path(seed: int) -> dict:
+    """The doc-level training main path: transformer-big on the
+    2,048-token corpus, every attention through flash."""
+    write_doc_train_corpus(seed)
+    return train_main_path(
+        f"doc-level transformer-big 6+6, dim 1024, ffn 4096, 16 heads, "
+        f"vocab {VOCAB}, f32, dropout 0.1, lines of 1,023-2,047 words, "
+        f"{DOC_WORDS} target words a batch", doc_argv, "doc.npz", DOC_WARM,
+        DOC_COUNTED, DOC_PER_UPDATE)
+
+
+def phase_doc_decode_main_path() -> dict:
+    """The doc-level decode main path: the trained doc checkpoint decodes
+    DOC_DOCS documents of its corpus at beam 6 with a cache of 0.5 x the
+    source width (1,024 at width 2,048): the encoder through the flash
+    forward, the cached self-attention through decode_attention."""
+    docs = (WORK / "doc.src").read_text().splitlines()[:DOC_DOCS]
+    tr, hyps, secs, counts = decode_run(
+        "doc.npz", docs, "--max-length", "2048",
+        "--max-length-factor-translate", "0.5")
+    check_decode_counts(tr, counts, 1, "flash_attention_fwd")
+    steps = list(tr.search.steps)
+    scores = np.array([float(h[2].split()[1]) for h in hyps])
+    print(f"doc decode main path: the trained doc-level transformer-big, "
+          f"{len(docs)} documents of {[len(d.split()) for d in docs]} words "
+          f"in 1 batch, beam {BEAM}, cache {tr.search.max_length_factor} x "
+          f"width: steps {steps}, {secs:.3f} s, {len(docs) / secs:.3f} "
+          f"sentences/s, {1e3 * secs / sum(steps):.3f} ms per decode step "
+          f"(whole run / steps); {len(hyps)} hypotheses, scores finite, "
+          f"best {scores.max():.3f}; launches {counts}")
+    return counts
+
+
+def parity_setup(argv, n_batches: int, corpus: str = "train",
+                 vocab: str = "vocab.yml"):
+    """A card-vs-CPU training cut from ``argv`` (the training flags),
+    ``n_batches`` batches of it, initial parameters from seed 5, and as
+    many sets of random gradients (seed 6) for the update tail alone.
+    Returns (options, vocab size, batches, initial params, step
     gradients)."""
     from marian_tpu_torch.common.config_parser import parse_options
     from marian_tpu_torch.data.batch_generator import BatchGenerator
@@ -648,19 +1003,14 @@ def parity_setup():
     from marian_tpu_torch.data.vocab import create_vocab
     from marian_tpu_torch.models import transformer as T
     from marian_tpu_torch.models.encoder_decoder import create_model
-    opts = parse_options(train_argv("cut.npz", 3, "--enc-depth", "2",
-                                    "--dec-depth", "2",
-                                    "--transformer-dropout", "0",
-                                    "--mini-batch-words", "2048",
-                                    "--lr-warmup", "0"),
-                         mode="training")
-    vocab = create_vocab(str(WORK / "vocab.yml"))
+    opts = parse_options(argv, mode="training")
+    vocab = create_vocab(str(WORK / vocab))
     batches = []
-    for batch in BatchGenerator(Corpus([str(WORK / "train.src"),
-                                        str(WORK / "train.trg")],
+    for batch in BatchGenerator(Corpus([str(WORK / f"{corpus}.src"),
+                                        str(WORK / f"{corpus}.trg")],
                                        [vocab, vocab], opts), opts):
         batches.append(batch)
-        if len(batches) == 3:
+        if len(batches) == n_batches:
             break
     model = create_model(opts, len(vocab), len(vocab))
     init = T.init_params(model.cfg, 5)
@@ -668,6 +1018,32 @@ def parity_setup():
     step_grads = [{k: torch.randn(torch.as_tensor(v).shape, generator=gen)
                    for k, v in init.items()} for _ in batches]
     return opts, len(vocab), batches, init, step_grads
+
+
+def base_parity_setup():
+    """The card-vs-CPU training cut of transformer-base: 2+2 layers
+    without dropout, 3 batches of about 2,048 target words and a constant
+    learning rate of 2e-4 (no warm-up), so that the 3 Adam updates move
+    every parameter by about the rate."""
+    return parity_setup(train_argv("cut.npz", 3, "--enc-depth", "2",
+                                   "--dec-depth", "2",
+                                   "--transformer-dropout", "0",
+                                   "--mini-batch-words", "2048",
+                                   "--lr-warmup", "0"), 3)
+
+
+def doc_parity_setup(seed: int):
+    """The doc-level card-vs-CPU cut: 2+2 layers, dim 256, 4 heads, a
+    500-word vocabulary, without dropout, on documents of 1,200-1,400
+    source and 1,100-1,500 target words (width 1,536 on both sides, so
+    every attention takes flash), 2 batches of 3,072 target words, a
+    constant rate of 2e-4."""
+    write_doc_corpus(seed + 4, "doc_cut", 16, 1200, 1400, 1100, 1500,
+                     VOCAB_CUT)
+    return parity_setup(train_argv(
+        "doc_cut_train.npz", 2, *DOC_CUT_FLAGS, "--transformer-dropout", "0",
+        "--mini-batch-words", "3072", "--lr-warmup", "0", corpus="doc_cut",
+        vocab="vocab_cut.yml"), 2, corpus="doc_cut", vocab="vocab_cut.yml")
 
 
 def parity_run(opts, n_vocab: int, batches, init, step_grads,
@@ -758,17 +1134,17 @@ def parity_holds(readings: dict) -> bool:
     return all(readings[k][0] <= lim for k, lim in PARITY_LIMITS.items())
 
 
-def phase_train_card_vs_cpu() -> None:
-    """The 2+2-layer cut trained on the card (kernels) and on the CPU
-    (dense attention and dense CE) from the same parameters on the same
-    batches; held to PARITY_LIMITS."""
-    setup = parity_setup()
+def train_card_vs_cpu(what: str, setup) -> None:
+    """A training cut run on the card (kernels) and on the CPU (plain
+    versions) from the same parameters on the same batches; held to
+    PARITY_LIMITS."""
     res = {}
+    n = len(setup[2])
     for name in ("cuda", "cpu"):
         t0 = time.perf_counter()
         res[name] = parity_run(*setup, name)
-        print(f"train card vs cpu: {name} 3 updates, 2+2 layers, "
-              f"{sum(b.words for b in setup[2])} target words, and 3 steps "
+        print(f"train card vs cpu: {what}: {name} {n} updates, "
+              f"{sum(b.words for b in setup[2])} target words, and {n} steps "
               f"of the update tail: "
               f"{time.perf_counter() - t0:.2f} s; mean CE {res[name]['loss']}"
               f"; gradient norm {res[name]['norm']}")
@@ -777,8 +1153,35 @@ def phase_train_card_vs_cpu() -> None:
     readings = parity_readings(res["cuda"], res["cpu"])
     text = "; ".join(f"{k} {v:.3g} ({where}, limit {PARITY_LIMITS[k]})"
                      for k, (v, where) in readings.items())
-    check(parity_holds(readings), f"card vs cpu training: {text}")
-    print(f"train card vs cpu: {text}")
+    check(parity_holds(readings), f"card vs cpu training, {what}: {text}")
+    print(f"train card vs cpu: {what}: {text}")
+
+
+def phase_train_card_vs_cpu() -> None:
+    train_card_vs_cpu("2+2 cut of transformer-base", base_parity_setup())
+
+
+def phase_doc_card_vs_cpu(seed: int) -> None:
+    """The doc-level cut on card and CPU: decoding a document past 1,024
+    tokens with a cache past the old 442-position cap (0.3 x width 1,536
+    = 461 positions), and training (every attention through flash, the
+    kernels on the card and their plain versions on the CPU)."""
+    setup = doc_parity_setup(seed)
+    doc = (WORK / "doc_cut.src").read_text().splitlines()[:1]
+    decode_card_vs_cpu(f"a document of {len(doc[0].split())} words, doc "
+                       f"cut (2+2, dim 256, vocab {VOCAB_CUT}), cache 0.3 x "
+                       f"width", "doc_cut.npz", doc, "--max-length", "2048",
+                       "--max-length-factor-translate", "0.3",
+                       vocab="vocab_cut.yml")
+    widths = sorted({(b.src.ids.shape[1], b.trg.ids.shape[1])
+                     for b in setup[2]})
+    check(all(min(w) > 1024 for w in widths), f"doc cut widths {widths}")
+    reset_counts()
+    train_card_vs_cpu(f"doc-level 2+2 cut, dim 256, 4 heads, widths "
+                      f"{widths}", setup)
+    counts = read_counts()
+    check(counts["flash_attention_dkv"] > 0 and counts["packed_attention"]
+          == 0, f"doc cut launches {counts}")
 
 
 def main(argv=None) -> int:
@@ -793,24 +1196,41 @@ def main(argv=None) -> int:
     from marian_tpu_torch.device import resolve_device
     resolve_device("cuda")                           # TF32 off, card present
     smi = phase_card()
-    phase_build()
+    t0 = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s "
+              f"({time.perf_counter() - t0:.1f} s in all)")
+        return out
+    timed("build", phase_build)
     gen = torch.Generator().manual_seed(args.seed)
-    packed = phase_packed_kernel(gen)
-    packed_bwd, packed_fwd_err = phase_packed_bwd_kernel(gen)
+    packed = timed("packed kernel", phase_packed_kernel, gen)
+    packed_bwd, packed_fwd_err = timed("packed backward kernel",
+                                       phase_packed_bwd_kernel, gen)
     packed["max_abs_err"] = max(packed["max_abs_err"], packed_fwd_err)
-    kernels = [phase_decode_kernel(gen), packed, packed_bwd,
-               *phase_fused_ce_kernels(gen)]
+    kernels = [timed("decode kernel", phase_decode_kernel, gen), packed,
+               packed_bwd,
+               *timed("fused_ce kernels", phase_fused_ce_kernels, gen),
+               *timed("flash kernels", phase_flash_kernels, gen)]
     torch.cuda.empty_cache()
-    lines = write_model(args.seed)
-    counts = phase_main_path(lines)
-    phase_card_vs_cpu(lines)
-    train_counts = phase_train_main_path(args.seed)
+    lines = timed("models", write_model, args.seed)
+    path_counts = [timed("decode main path", phase_main_path, lines)]
+    timed("decode card vs cpu", phase_card_vs_cpu, lines)
+    path_counts.append(timed("train main path", phase_train_main_path,
+                             args.seed))
+    timed("train card vs cpu", phase_train_card_vs_cpu)
+    path_counts.append(timed("doc train main path",
+                             phase_doc_train_main_path, args.seed))
+    path_counts.append(timed("doc decode main path",
+                             phase_doc_decode_main_path))
+    timed("doc card vs cpu", phase_doc_card_vs_cpu, args.seed)
     for k in kernels:
-        k["launches"] = counts.get(k["name"], 0) + train_counts.get(
-            k["name"], 0)
-    check(all(k["launches"] > 0 for k in kernels),
+        k["launches"] = sum(c[k["name"]] for c in path_counts)
+    check(len(kernels) == len(kernel_counters())
+          and all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its main path")
-    phase_train_card_vs_cpu()
     print("kernels: " + "; ".join(
         f"{k['name']} launches {k['launches']} pass" for k in kernels))
     print(smi)

@@ -65,7 +65,8 @@ _MODEL = [
     _f("transformer-ffn-activation", str, "swish", "relu, swish, gelu"),
     _f("transformer-no-projection", bool, False, "Omit output projection in MHA"),
     _f("transformer-decoder-autoreg", str, "self-attention", "self-attention (this slice)"),
-    _f("transformer-flash-attention", str, "auto", "Long-sequence attention kernel: auto, on, off (not ported yet; auto raises at length >= 1024)"),
+    _f("transformer-flash-attention", str, "auto", "Long-sequence (flash) attention kernel, CUDA on the card, its plain version on the CPU: auto (at length >= 1024), on, off"),
+    _f("attention-kernel", str, "auto", "Attention impl: auto, dense, flash (alias of --transformer-flash-attention auto, off, on)"),
     _f("transformer-packed-attention", str, "auto", "Short-sequence attention kernel (CUDA): auto (on the card), on, off"),
     _f("transformer-fused-decode-attention", str, "auto", "Fused beam-gather + cache-update + attention decode step (CUDA): auto, on, off"),
     _f("transformer-tied-layers", int, [], "Tie decoder layers to these encoder layers", "*"),
@@ -116,6 +117,7 @@ _MODEL_TRAINING = [
     _f("fused-ce", str, "auto", "Fused output projection + cross-entropy kernels (CUDA): auto (on the card), on, off"),
     _f("gradient-checkpointing", bool, False, "Rematerialization to save memory (not ported yet)"),
     _f("task", str, None, "Predefined hyperparameter bundle (not ported yet)", "?"),
+    _f("auto-tune", bool, False, "Time dense against flash attention and bind the crossover (not ported yet)"),
 ]
 
 _TRAINING = [
@@ -188,8 +190,13 @@ FLAGS = _COMMON + _MODEL + _TRANSLATION
 MODES = {"translation": FLAGS,
          "training": _COMMON + _MODEL + _MODEL_TRAINING + _TRAINING}
 
-# mode-suffixed duplicates → the canonical key runtime code reads
-_CANONICAL = {"max-length-factor-translate": "max-length-factor"}
+# mode-suffixed duplicates and synonyms → (the canonical key runtime code
+# reads, a value map or None for identity)
+_CANONICAL = {
+    "max-length-factor-translate": ("max-length-factor", None),
+    "attention-kernel": ("transformer-flash-attention",
+                         {"auto": "auto", "dense": "off", "flash": "on"}),
+}
 
 
 class ConfigParser:
@@ -243,9 +250,16 @@ class ConfigParser:
         if str((merged.get("precision") or ["float32"])[0]) in (
                 "float16", "fp16", "half"):
             merged["precision"] = ["bfloat16"] + list(merged["precision"][1:])
-        for alias, canon in _CANONICAL.items():
+        for alias, (canon, vmap) in _CANONICAL.items():
             if alias in explicit and canon not in explicit:
-                merged[canon] = merged[alias]
+                val = merged[alias]
+                if vmap is not None:
+                    if str(val) not in vmap:
+                        raise SystemExit(
+                            f"--{alias}: unknown value '{val}' "
+                            f"(expected one of {sorted(vmap)})")
+                    val = vmap[str(val)]
+                merged[canon] = val
         opts = Options(merged)
         if cli.get("version"):
             print("marian-tpu-torch v0.1.0")

@@ -15,19 +15,20 @@
 // tens of times longer than the arithmetic at the f32 rate (chip_smoke.py
 // computes both bounds per run; PERF.md has them). The design answers
 // that with one pass over the cache bytes: each block streams its tile
-// from device memory once, coalesced, writes it straight back out, and
-// does all further work (scores, softmax, the V product) on the copy it
-// staged in shared memory. The tile rows are padded to Dh+1 floats so
-// the per-key dot products read shared memory without bank conflicts.
+// from device memory once, coalesced, in chunks of kChunk positions,
+// writes each chunk straight back out, and does all further work (scores,
+// softmax, the V product) on the copy it staged in shared memory. The
+// softmax is online across chunks (running max and sum per (row, head),
+// the output rescaled when the max moves), so no cache is too long for
+// the block: its shared memory is (2*kChunk*(Dh+1) + Dh + kChunk + 32)
+// floats whatever L is (34 KB at Dh 64; above 48 KB, at Dh > 88, the
+// launch raises the dynamic limit with cudaFuncSetAttribute). The chunk
+// rows are padded to Dh+1 floats so the per-key dot products read shared
+// memory without bank conflicts.
 //
 // The output caches must be other buffers than the input caches:
 // src_rows is an arbitrary map with repeats, so writing in place would
 // let one block overwrite a row another block has yet to read.
-//
-// Shared memory is (2*L*(Dh+1) + Dh + L + 32) floats per block; above
-// 48 KB the launch raises the dynamic limit with cudaFuncSetAttribute,
-// up to the 227 KB a Hopper block may use. The Python wrapper refuses
-// larger L (ops/kernels/decode_attention.py :: max_len).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,6 +37,8 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kChunk = 64;   // cache positions staged per pass (<= kThreads)
+constexpr int kFeat = 2;     // output features per thread: Dh <= 256
 constexpr float kMask = -1e9f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -105,11 +108,11 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     float scale) {
   extern __shared__ float smem[];
   const int stride = Dh + 1;
-  float* ks = smem;               // [L][Dh+1] keys of the reordered row
-  float* vs = ks + L * stride;    // [L][Dh+1] values
-  float* qs = vs + L * stride;    // [Dh]
-  float* ps = qs + Dh;            // [L] scores, then probabilities
-  float* red = ps + L;            // [32] reduction scratch
+  float* ks = smem;                   // [kChunk][Dh+1] keys of this chunk
+  float* vs = ks + kChunk * stride;   // [kChunk][Dh+1] values
+  float* qs = vs + kChunk * stride;   // [Dh]
+  float* ps = qs + Dh;                // [kChunk] scores, then exp(s - m)
+  float* red = ps + kChunk;           // [32] reduction scratch
 
   const int r = blockIdx.x, h = blockIdx.y;
   const int p = pos[r];
@@ -120,51 +123,69 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   const size_t out_tile = ((size_t)r * H + h) * tile;
   const size_t vec = ((size_t)r * H + h) * Dh;
 
-  // one coalesced pass over the tile: gather, insert, write out, stage
-  for (int i = threadIdx.x; i < L * Dh; i += blockDim.x) {
-    const int j = i / Dh, d = i - j * Dh;
-    TC kc, vc;
-    if (j == ins) {
-      kc = from_f32<TC>(to_f32(k_new[vec + d]));
-      vc = from_f32<TC>(to_f32(v_new[vec + d]));
-    } else {
-      kc = cache_k[in_tile + i];
-      vc = cache_v[in_tile + i];
-    }
-    new_k[out_tile + i] = kc;
-    new_v[out_tile + i] = vc;
-    ks[j * stride + d] = to_f32(kc);
-    vs[j * stride + d] = to_f32(vc);
-  }
   for (int d = threadIdx.x; d < Dh; d += blockDim.x) qs[d] = to_f32(q[vec + d]);
-  __syncthreads();
+  // online softmax over the chunks: running max m and sum l (the same in
+  // every thread), and thread t's output features t and t + kThreads
+  float m = -INFINITY, l = 0.f, acc[kFeat];
+#pragma unroll
+  for (int f = 0; f < kFeat; ++f) acc[f] = 0.f;
 
-  // scores: one key per thread
-  float m = -INFINITY;
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    float s = 0.f;
-    const float* kr = ks + j * stride;
-    for (int d = 0; d < Dh; ++d) s = fmaf(qs[d], kr[d], s);
-    s = j <= p ? s * scale : kMask;
-    ps[j] = s;
-    m = fmaxf(m, s);
-  }
-  m = block_max(m, red);
-  float l = 0.f;
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    const float e = expf(ps[j] - m);
-    ps[j] = e;
-    l += e;
-  }
-  l = block_sum(l, red);  // >= 1: the row max contributes exp(0)
-  for (int j = threadIdx.x; j < L; j += blockDim.x) ps[j] = ps[j] / l;
-  __syncthreads();
+  for (int c0 = 0; c0 < L; c0 += kChunk) {
+    const int n = min(kChunk, L - c0);
+    __syncthreads();  // the previous chunk's readers are done
+    // one coalesced pass over the chunk: gather, insert, write out, stage
+    for (int i = threadIdx.x; i < n * Dh; i += blockDim.x) {
+      const int jj = i / Dh, d = i - jj * Dh, j = c0 + jj;
+      const size_t at = (size_t)c0 * Dh + i;
+      TC kc, vc;
+      if (j == ins) {
+        kc = from_f32<TC>(to_f32(k_new[vec + d]));
+        vc = from_f32<TC>(to_f32(v_new[vec + d]));
+      } else {
+        kc = cache_k[in_tile + at];
+        vc = cache_v[in_tile + at];
+      }
+      new_k[out_tile + at] = kc;
+      new_v[out_tile + at] = vc;
+      ks[jj * stride + d] = to_f32(kc);
+      vs[jj * stride + d] = to_f32(vc);
+    }
+    __syncthreads();
 
-  // context: one output feature per thread
-  for (int d = threadIdx.x; d < Dh; d += blockDim.x) {
-    float o = 0.f;
-    for (int j = 0; j < L; ++j) o = fmaf(ps[j], vs[j * stride + d], o);
-    out[vec + d] = from_f32<TQ>(o);
+    // scores: one key per thread
+    float cm = -INFINITY, s = 0.f;
+    if (threadIdx.x < n) {
+      const float* kr = ks + threadIdx.x * stride;
+      for (int d = 0; d < Dh; ++d) s = fmaf(qs[d], kr[d], s);
+      s = c0 + (int)threadIdx.x <= p ? s * scale : kMask;
+      cm = s;
+    }
+    const float m_new = fmaxf(m, block_max(cm, red));
+    const float alpha = expf(m - m_new);  // 0 on the first chunk
+    float e = 0.f;
+    if (threadIdx.x < n) {
+      e = expf(s - m_new);
+      ps[threadIdx.x] = e;
+    }
+    l = l * alpha + block_sum(e, red);  // its barrier publishes ps
+    m = m_new;
+
+    // context: output features per thread, this chunk's keys in order
+#pragma unroll
+    for (int f = 0; f < kFeat; ++f) {
+      const int d = threadIdx.x + f * kThreads;
+      if (d < Dh) {
+        float o = acc[f] * alpha;
+        for (int j = 0; j < n; ++j) o = fmaf(ps[j], vs[j * stride + d], o);
+        acc[f] = o;
+      }
+    }
+  }
+  // l >= 1: the row max contributes exp(0)
+#pragma unroll
+  for (int f = 0; f < kFeat; ++f) {
+    const int d = threadIdx.x + f * kThreads;
+    if (d < Dh) out[vec + d] = from_f32<TQ>(acc[f] / l);
   }
 }
 
@@ -173,7 +194,9 @@ int launch(const void* q, const void* k_new, const void* v_new,
            const void* cache_k, const void* cache_v, const void* pos,
            const void* src_rows, void* out, void* new_k, void* new_v, int R,
            int H, int L, int Dh, float scale, cudaStream_t stream) {
-  const size_t smem = (2 * (size_t)L * (Dh + 1) + Dh + L + 32) * sizeof(float);
+  if (Dh > kFeat * kThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (2 * (size_t)kChunk * (Dh + 1) + Dh + kChunk + 32) * sizeof(float);
   auto kern = decode_attention_kernel<TQ, TC>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

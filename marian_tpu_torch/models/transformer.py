@@ -15,7 +15,7 @@ over a flat parameter dict, ported from the default-config part of
 - Training decodes with teacher forcing (``decode_train``): the gold
   target embeddings shifted right, a causal self-attention with the target
   mask as key mask, and cross-attention with the source mask as key mask:
-  the structured masks the packed attention kernel takes.
+  the structured masks the flash and packed attention kernels take.
 - A Python loop over layers stands in for the reference's --scan-layers.
 - Incremental decoding keeps fixed-size [B, H, L, Dh] self-attention
   caches. With the fused decode kernel the beam reorder is folded into
@@ -73,7 +73,7 @@ class TransformerConfig:
     tied_embeddings_src: bool = False
     tied_embeddings_all: bool = True
     no_projection: bool = False
-    flash_attention: str = "auto"           # not ported: auto raises at T>=1024
+    flash_attention: str = "auto"           # auto (T >= 1024) | on | off
     packed_attention: str = "auto"          # auto | on | off (CUDA kernel)
     fused_decode_attention: str = "auto"    # auto | on | off (CUDA kernel)
     compute_dtype: torch.dtype = torch.float32
@@ -505,7 +505,8 @@ def init_decode_state(cfg: TransformerConfig, params: Params,
                       max_len: int) -> Dict[str, Any]:
     """Precompute cross-attention K/V and allocate the fixed-size
     self-attention caches (plus the fused kernel's second buffers on the
-    card)."""
+    card). K/V are stored contiguous [B, H, Ts, Dh]: as head-split views
+    every step's score and context products would copy them whole."""
     b = enc_out.shape[0]
     h, dh = cfg.heads, cfg.dim_head
     state: Dict[str, Any] = {"pos": 0}
@@ -513,9 +514,11 @@ def init_decode_state(cfg: TransformerConfig, params: Params,
     for l in range(1, cfg.dec_depth + 1):
         cname = f"decoder_l{l}_context"
         state[f"l{l}_cross_k"] = _split_heads(affine(
-            enc_out, params[f"{cname}_Wk"], params[f"{cname}_bk"]), h)
+            enc_out, params[f"{cname}_Wk"], params[f"{cname}_bk"]),
+            h).contiguous()
         state[f"l{l}_cross_v"] = _split_heads(affine(
-            enc_out, params[f"{cname}_Wv"], params[f"{cname}_bv"]), h)
+            enc_out, params[f"{cname}_Wv"], params[f"{cname}_bv"]),
+            h).contiguous()
         kinds = ("self_k", "self_v") + (("spare_k", "spare_v") if spares
                                         else ())
         for kind in kinds:

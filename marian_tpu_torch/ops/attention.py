@@ -6,16 +6,19 @@ mask [B, 1, Tq, Tk] (1 = attend).
 
 The dense path keeps the reference's op order (q scaled BEFORE the score
 product, ``(1 - mask) * NEG_INF`` added, attention dropout on the
-weights). The dispatcher keeps the reference's gates: the packed kernel
-is applicable without returned weights, without active attention dropout,
-with a structured mask and more than one query position. On the card
-``packed="auto"`` engages it whenever the length is within the kernel's
-cap (the reference's head-pack test is TPU geometry and is dropped): the
-forward's cap, or the backward kernel's lower one when an input requires
-a gradient, past which the dense path runs, as the reference's does past
-its packed cap. On the CPU ``auto`` stays dense, ``on`` runs the kernel's
-plain version. Where the reference would pick its flash kernel the port
-raises: that kernel is not ported yet.
+weights). The dispatcher keeps the reference's gates: both kernels are
+applicable without returned weights, without active attention dropout,
+with a structured mask and more than one query position. The flash gate
+comes first, as in the reference: ``flash="on"``, or ``auto`` at
+``max(Tq, Tk) >= FLASH_MIN_LEN``, takes the flash kernel on the card and
+its plain version on the CPU (the reference's ``auto`` engages flash on
+every backend); ``off`` leaves the call to the packed or dense path. On
+the card ``packed="auto"`` engages the packed kernel whenever the length
+is within its cap (the reference's head-pack test is TPU geometry and is
+dropped): the forward's cap, or the backward kernel's lower one when an
+input requires a gradient, past which the dense path runs, as the
+reference's does past its packed cap. On the CPU packed ``auto`` stays
+dense, ``on`` runs the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from .kernels.flash_attention import flash_attention
 from .kernels.packed_attention import max_t, max_t_bwd, packed_attention
 from .ops import NEG_INF, dropout
 
@@ -52,19 +56,16 @@ def attention(q, k, v, mask=None, kv_mask=None, causal: bool = False,
               return_weights: bool = False, flash: str = "auto",
               packed: str = "auto", dropout_rate: float = 0.0,
               generator=None):
-    """Attention dispatcher: dense vs the packed kernel; returns
-    (context, weights or None). ``dropout_rate`` > 0 is attention dropout
-    in training (the caller passes 0 otherwise), drawn from
+    """Attention dispatcher: dense vs the flash and packed kernels;
+    returns (context, weights or None). ``dropout_rate`` > 0 is attention
+    dropout in training (the caller passes 0 otherwise), drawn from
     ``generator``."""
     applicable = (not return_weights and dropout_rate == 0.0
                   and q.shape[-2] > 1
                   and (kv_mask is not None or causal or mask is None))
     if applicable and flash != "off" and (
             flash == "on" or max(q.shape[-2], k.shape[-2]) >= FLASH_MIN_LEN):
-        raise NotImplementedError(
-            f"attention at length {max(q.shape[-2], k.shape[-2])} would take "
-            f"the flash_attention kernel, which is not ported yet (ROADMAP "
-            f"B4); pass --transformer-flash-attention off for the dense path")
+        return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal), None
     if applicable and packed != "off":
         grad = torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)

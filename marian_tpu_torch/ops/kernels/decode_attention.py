@@ -11,7 +11,9 @@ On a CUDA tensor ``decode_attention`` launches the hand-written kernel
 ``csrc/decode_attention.cu`` or raises; on a CPU tensor it runs
 ``decode_attention_reference``, the plain unfused sequence (row gather,
 insert at pos, masked softmax read) in the reference's op order.
-``decode_attention.launches`` counts kernel launches.
+``decode_attention.launches`` counts kernel launches. The kernel streams
+the cache through shared memory in chunks with an online softmax, so it
+takes a cache of any length.
 """
 
 from __future__ import annotations
@@ -25,15 +27,7 @@ import torch
 from ..ops import NEG_INF
 from . import _build
 
-_SMEM_FLOATS = 232448 // 4          # a Hopper block's shared-memory ceiling
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def max_len(dh: int) -> int:
-    """Longest cache the kernel holds per block: its shared memory,
-    (2*L*(Dh+1) + Dh + L + 32) floats, must fit the 227 KB a Hopper
-    block may use (L = 442 at Dh = 64)."""
-    return (_SMEM_FLOATS - dh - 32) // (2 * dh + 3)
 
 
 def _pos_rows(pos, r: int, device) -> torch.Tensor:
@@ -123,9 +117,6 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
                         f"v_new of one dtype and caches of one dtype, got "
                         f"{q.dtype}/{k_new.dtype}/{v_new.dtype} and "
                         f"{cache_k.dtype}/{cache_v.dtype}")
-    if L > max_len(dh):
-        raise ValueError(f"decode_attention: cache length {L} exceeds the "
-                         f"kernel's cap {max_len(dh)} at Dh={dh}")
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     cache_k, cache_v = cache_k.contiguous(), cache_v.contiguous()
     pos_t = _pos_rows(pos, r, q.device)

@@ -1,0 +1,267 @@
+"""Long-sequence (flash) attention, forward and backward, the port of
+``marian_tpu/ops/pallas/flash_attention.py :: flash_attention``:
+
+    out = softmax(scale * Q.K^T + (1 - kv_mask) * -1e9) V
+
+with the scale applied AFTER the product, causal positions (query index
+< key index, absolute) REPLACED by -1e9, and f32 compute whatever the
+input dtype (outputs take the input dtype). The forward also returns
+``lse`` [B,H,Tq] (f32), the log of each row's softmax denominator, with
+a row sum of 0 guarded to 1 as the reference guards it. The backward
+recomputes ``p = exp(s - lse)`` and takes ``delta = rowsum(dO * out)``
+from outside the kernels, in plain torch as the reference computes it:
+``dq`` sums ``ds K`` over key tiles, ``dkv`` sums ``p^T dO`` and
+``ds^T Q`` over query tiles, ``ds = p * (dO V^T - delta) * scale``;
+kv_mask gets no gradient. Layout [B,H,T,Dh] as in the reference.
+
+On a CUDA tensor ``flash_attention_fwd`` and ``flash_attention_bwd``
+launch the hand-written kernels of ``csrc/flash_attention.cu`` or raise
+(the backward computes ``delta`` once and launches ``dq`` and ``dkv``);
+on a CPU tensor they run the plain versions ``flash_attention_reference``
+and ``flash_attention_bwd_reference``. ``flash_attention`` is the
+differentiable call: an autograd Function (the reference's custom VJP)
+whose forward saves ``out`` and ``lse`` and whose backward is
+``flash_attention_bwd``, on either device. ``flash_attention_fwd``,
+``flash_attention_dq`` and ``flash_attention_dkv`` count their kernel's
+launches in ``.launches``.
+
+What is not carried over from the TPU kernel: its padding of Tq and Tk
+to 128-multiples and the ``MARIAN_FLASH_BLOCK_Q/K`` overrides, both TPU
+geometry. The kernels mask the ragged edges themselves, and their tile
+sizes are constants. One result shows: a fully masked query row (the
+batch generator's padding rows) averages V over the Tk real keys, the
+dense path's answer, where the TPU kernel averages over its padded
+length (the choice ``packed_attention`` makes too). So that this holds
+for causal calls as well, a query tile skips the key tiles wholly in its
+future only where every row of the tile sees a live key (the first live
+key of its batch row lies at or before the tile's first query): skipped
+keys then carry exp(-1e9 - max) = 0 exactly, in the forward and in both
+backward passes alike. In such a row the backward follows the reference's
+formula too: lse = -1e9 + log(Tk) rounds to -1e9 in f32, so p = 1 per key
+there; a padding row gets no output gradient in training, so it adds
+nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ..ops import NEG_INF
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_SIZES = (16, 32, 64, 128)      # Dh the kernels are compiled for
+
+
+def _mask(kv_mask, b: int, tk: int, device) -> torch.Tensor:
+    if kv_mask is None:
+        return torch.ones((b, tk), dtype=torch.float32, device=device)
+    return kv_mask.to(device=device, dtype=torch.float32).reshape(b, tk)
+
+
+def _scale(scale, dh: int) -> float:
+    return 1.0 / (dh ** 0.5) if scale is None else float(scale)
+
+
+def _scores(q, k, kvm, causal: bool, scale: float) -> torch.Tensor:
+    """s = (q.k) * scale + (1 - kv_mask) * -1e9, causal positions
+    replaced by -1e9: the kernels' op order, f32."""
+    tq, tk = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = s + (1.0 - kvm)[:, None, None, :] * NEG_INF
+    if causal:
+        live = (torch.arange(tq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def flash_attention_reference(q, k, v, kv_mask=None, causal: bool = False,
+                              scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch forward: (out [B,H,Tq,Dh] in q's dtype, lse
+    [B,H,Tq] f32), the softmax over every real key."""
+    b, _, _, dh = q.shape
+    kvm = _mask(kv_mask, b, k.shape[2], q.device)
+    s = _scores(q, k, kvm, causal, _scale(scale, dh))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_bwd_reference(q, k, v, kv_mask, do, out, lse,
+                                  causal: bool = False,
+                                  scale: Optional[float] = None):
+    """Plain PyTorch backward in the kernels' op order: p recomputed from
+    lse, ``delta = rowsum(dO * out)``, ``ds = p * (dO V^T - delta) *
+    scale``; returns (dq, dk, dv) in the inputs' dtypes."""
+    b, _, _, dh = q.shape
+    sc = _scale(scale, dh)
+    kvm = _mask(kv_mask, b, k.shape[2], q.device)
+    p = torch.exp(_scores(q, k, kvm, causal, sc) - lse.float()[..., None])
+    dof = do.float()
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = p * (dp - delta) * sc
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _fn(symbol: str, n_ptr: int):
+    fn = getattr(_build.load("flash_attention"), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    return {"fwd": _fn("flash_attention_fwd", 6),
+            "dq": _fn("flash_attention_dq", 8),
+            "dkv": _fn("flash_attention_dkv", 9)}
+
+
+def _check(name, q, k, v, *more):
+    """Shapes, dtypes and device the kernels take: q, k, v of one dtype,
+    float32 or bfloat16; ``more`` are (name, tensor, shape) triples."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes float32/bfloat16 q, k, v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if dh not in HEAD_SIZES:
+        raise ValueError(f"{name}: head size {dh} not in {HEAD_SIZES}")
+    for what, t, shape in (("k", k, (b, h, tk, dh)), ("v", v, (b, h, tk, dh)),
+                           *more):
+        if tuple(t.shape) != shape or t.device != q.device:
+            raise ValueError(f"{name}: {what} is {tuple(t.shape)} on "
+                             f"{t.device}, expected {shape} on {q.device}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor] = None,
+                        causal: bool = False, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [B,H,Tq,Dh], k/v [B,H,Tk,Dh], kv_mask [B,Tk] (1.0 = attend) or
+    None → (out [B,H,Tq,Dh], lse [B,H,Tq] f32)."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    sc = _scale(scale, dh)
+    if not q.is_cuda:
+        return flash_attention_reference(q, k, v, kv_mask, causal, sc)
+    _check("flash_attention_fwd", q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    kvm = _mask(kv_mask, b, tk, q.device).contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    err = _kernels()["fwd"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, h, tq, tk, dh, sc,
+        int(bool(causal)), _DTYPES[q.dtype], _stream(q))
+    _build.check(err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def _launch_bwd(which, operands, grads, causal, scale):
+    """One backward kernel, ``dq`` or ``dkv``, on ``operands`` (q, k, v,
+    kv_mask, dO, lse, delta: contiguous, on the card), writing ``grads``."""
+    q, k = operands[:2]
+    b, h, tq, dh = q.shape
+    err = _kernels()[which](
+        *(t.data_ptr() for t in (*operands, *grads)), b, h, tq, k.shape[2],
+        dh, scale, int(bool(causal)), _DTYPES[q.dtype], _stream(q))
+    _build.check(err, f"flash_attention_{which}")
+
+
+def flash_attention_dq(operands, dq, causal: bool, scale: float) -> None:
+    """The dq kernel's launch, writing ``dq`` (``flash_attention_bwd``
+    makes it)."""
+    _launch_bwd("dq", operands, (dq,), causal, scale)
+    flash_attention_dq.launches += 1
+
+
+def flash_attention_dkv(operands, dk, dv, causal: bool, scale: float) -> None:
+    """The dkv kernel's launch, writing ``dk`` and ``dv``
+    (``flash_attention_bwd`` makes it)."""
+    _launch_bwd("dkv", operands, (dk, dv), causal, scale)
+    flash_attention_dkv.launches += 1
+
+
+def flash_attention_bwd(q, k, v, kv_mask, do, out, lse, causal: bool = False,
+                        scale: Optional[float] = None):
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``,
+    from the forward's ``out`` and ``lse``: on a CUDA tensor ``delta`` =
+    rowsum(dO * out) outside the kernels (as the reference computes it),
+    then the dq and the dkv kernel; on a CPU tensor the plain version."""
+    b, h, tq, dh = q.shape
+    sc = _scale(scale, dh)
+    if not q.is_cuda:
+        return flash_attention_bwd_reference(q, k, v, kv_mask, do, out, lse,
+                                             causal, sc)
+    _check("flash_attention_bwd", q, k, v, ("do", do, (b, h, tq, dh)),
+           ("out", out, (b, h, tq, dh)), ("lse", lse, (b, h, tq)))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    do = do.to(q.dtype).contiguous()
+    kvm = _mask(kv_mask, b, k.shape[2], q.device).contiguous()
+    lse = lse.float().contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    operands = (q, k, v, kvm, do, lse, delta)
+    flash_attention_dq(operands, dq, causal, sc)
+    flash_attention_dkv(operands, dk, dv, causal, sc)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The differentiable call: forward saves out and lse; backward runs
+    ``flash_attention_bwd`` (kernels on the card, plain versions on the
+    CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kvm, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, kvm, causal, scale)
+        ctx.save_for_backward(q, k, v, kvm, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, kvm, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kvm, do, out, lse,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    causal: bool = False,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(scale * Q K^T + mask) V without a score matrix in device
+    memory. q [B,H,Tq,Dh], k/v [B,H,Tk,Dh], kv_mask [B,Tk] (1.0 = attend)
+    or None → out [B,H,Tq,Dh]."""
+    sc = _scale(scale, q.shape[-1])
+    kvm = _mask(kv_mask, q.shape[0], k.shape[2], q.device)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kvm, bool(causal), sc)
+    return flash_attention_fwd(q, k, v, kvm, causal, sc)[0]
+
+
+flash_attention_fwd.launches = 0
+flash_attention_dq.launches = 0
+flash_attention_dkv.launches = 0

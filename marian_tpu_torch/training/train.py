@@ -62,6 +62,7 @@ _UNPORTED = {
     "task": None,
     "output-omit-bias": False,
     "transformer-depth-scaling": False,
+    "auto-tune": False,
 }
 
 

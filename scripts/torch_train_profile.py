@@ -2,16 +2,18 @@
 """Where the time of one marian_tpu_torch training update goes, on the
 card.
 
-Builds the training setup chip_smoke.py drives (transformer-base 6+6,
-vocab 32,000, f32, dropout 0.1, 12,288 target words a batch, the
-synthetic corpus from --seed), runs two warm-up updates, times --updates
-untraced updates, then traces as many with torch.profiler and prints,
-per update: the wall time, the device's busy time (sum of kernel times)
-and idle share over the wall time, the device time by kernel class, and
-the kernels that took the most device time. Run from the root of a
-checkout on the machine with the card:
+Builds a training setup chip_smoke.py drives: by default transformer-base
+6+6, vocab 32,000, f32, dropout 0.1, 12,288 target words a batch on the
+synthetic corpus from --seed; with --doc the doc-level one
+(transformer-big 6+6 on documents of 1,023-2,047 words, 8,192 target
+words a batch, every attention through flash). Runs two warm-up updates,
+times --updates untraced updates, then traces as many with
+torch.profiler and prints, per update: the wall time, the device's busy
+time (sum of kernel times) and idle share over the wall time, the device
+time by kernel class, and the kernels that took the most device time.
+Run from the root of a checkout on the machine with the card:
 
-    python3 scripts/torch_train_profile.py [--seed 17] [--updates 3]
+    python3 scripts/torch_train_profile.py [--seed 17] [--updates 3] [--doc]
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 # kernel class ← first matching pattern over the kernel's name
 CLASSES = (
+    ("flash_attention dkv (this port)", r"flash_dkv_kernel"),
+    ("flash_attention dq (this port)", r"flash_dq_kernel"),
+    ("flash_attention forward (this port)", r"flash_fwd_kernel"),
     ("packed_attention backward (this port)", r"packed_attention_bwd_kernel"),
     ("packed_attention forward (this port)", r"packed_attention_kernel"),
     ("fused_ce dx (this port)", r"fce_dx_kernel"),
@@ -51,6 +56,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=17)
     ap.add_argument("--updates", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--doc", action="store_true",
+                    help="the doc-level transformer-big setup")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
@@ -72,12 +79,19 @@ def main(argv=None) -> int:
 
     dev = resolve_device("cuda")
     _build.build_all()
-    cs.write_model(args.seed)                         # the vocab file
-    cs.write_corpus(args.seed)
-    opts = parse_options(cs.train_argv("profile.npz", 0), mode="training")
+    cs.write_vocab()
+    if args.doc:
+        name = "doc"
+        cs.write_doc_train_corpus(args.seed)
+        opts = parse_options(cs.doc_argv("profile.npz", 0), mode="training")
+    else:
+        name = "train"
+        cs.write_corpus(args.seed)
+        opts = parse_options(cs.train_argv("profile.npz", 0),
+                             mode="training")
     vocab = create_vocab(str(cs.WORK / "vocab.yml"))
-    corpus = Corpus([str(cs.WORK / "train.src"), str(cs.WORK / "train.trg")],
-                    [vocab, vocab], opts)
+    corpus = Corpus([str(cs.WORK / f"{name}.src"),
+                     str(cs.WORK / f"{name}.trg")], [vocab, vocab], opts)
     n = 2 + 2 * args.updates
     batches = []
     for b in BatchGenerator(corpus, opts):
@@ -117,7 +131,9 @@ def main(argv=None) -> int:
     busy = sum(e.self_device_time_total for e in events) / 1e3 / len(
         traced_batches)
     words = sum(b.words for b in traced_batches) / len(traced_batches)
-    print(f"update: transformer-base 6+6 f32, {words:.0f} target words; "
+    model_name = ("doc-level transformer-big" if args.doc
+                  else "transformer-base")
+    print(f"update: {model_name} 6+6 f32, {words:.0f} target words; "
           f"wall {wall * 1e3:.1f} ms untraced, {traced * 1e3:.1f} ms traced; "
           f"device busy {busy:.1f} ms; idle share {1 - busy / 1e3 / wall:.3f} "
           f"of the untraced wall")

@@ -7,7 +7,10 @@ out):
 
 Shapes are small and odd on purpose: lengths that are not multiples of a
 warp, a cache and a key length whose block tiles need more than 48 KB of
-shared memory (the dynamic-limit path), bf16 operands, and for the fused
+shared memory (the dynamic-limit path), decode caches of 1,024 and more
+positions (many chunks of the streamed cache), bf16 operands, for the
+flash kernels lengths that are not multiples of their 64-row tiles, every
+head size they are built for and a fully masked row, and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
 its 64 x 64 tiles or its 32-column chunks. Tolerances: 2e-5 for f32
 outputs (f32 sums in another order), 2e-2 for bf16 outputs (one bf16
@@ -22,6 +25,8 @@ import torch
 
 from marian_tpu_torch.ops.kernels.decode_attention import (
     decode_attention, decode_attention_reference)
+from marian_tpu_torch.ops.kernels import flash_attention as fa
+from marian_tpu_torch.ops.ops import NEG_INF
 from marian_tpu_torch.ops.kernels import fused_ce as fce
 from marian_tpu_torch.ops.kernels.packed_attention import (
     packed_attention, packed_attention_bwd, packed_attention_bwd_reference,
@@ -43,7 +48,8 @@ def _randn(gen, dev, *shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("r,h,L,dh", [(5, 3, 17, 32), (12, 2, 100, 64),
-                                      (7, 1, 200, 128)])
+                                      (7, 1, 200, 128), (6, 2, 1024, 64),
+                                      (4, 3, 2048, 64), (3, 2, 1100, 128)])
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain(dev, r, h, L, dh, cache_dtype):
     gen = torch.Generator().manual_seed(r * L)
@@ -193,4 +199,70 @@ def test_fused_softmax_xent_gradients_match_dense(dev):
     ref.sum().backward()
     _close_to_scale(ce, ref, 1e-5)
     for g, r in ((x.grad, xr.grad), (w.grad, wr.grad), (b.grad, br.grad)):
+        _close_to_scale(g, r, 1e-5)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
+    (2, 2, 64, 64, 64, False), (2, 3, 100, 130, 32, False),
+    (3, 2, 150, 150, 64, True), (2, 2, 1000, 1100, 64, False),
+    (1, 2, 70, 45, 16, False), (2, 1, 129, 129, 128, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
+                                             dtype):
+    gen = torch.Generator().manual_seed(tq * tk + dh)
+    q, do = (_randn(gen, dev, b, h, tq, dh, dtype=dtype) for _ in range(2))
+    k, v = (_randn(gen, dev, b, h, tk, dh, dtype=dtype) for _ in range(2))
+    kvm = (torch.rand(b, tk, generator=gen) > 0.3).float()
+    kvm[:, 0] = 1.0
+    kvm[-1] = 0.0                                   # a fully-masked row
+    kvm = kvm.to(dev)
+    launches = (fa.flash_attention_fwd.launches,
+                fa.flash_attention_dq.launches,
+                fa.flash_attention_dkv.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, kvm, causal)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm, causal)
+    grads = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, causal)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(
+                c + 1 for c in launches)
+    # lse: rows with a live key to 1e-5 (lse is of order log Tk); the
+    # fully-masked rows' -1e9 exactly
+    live = ref_lse > 0.5 * NEG_INF
+    assert bool((~live).any())
+    torch.testing.assert_close(lse[live], ref_lse[live], rtol=0, atol=1e-5)
+    assert torch.equal(lse[~live], ref_lse[~live])
+    # the gradients against the plain backward fed the kernel's own out and
+    # lse, and fed the plain forward's (a wrong lse shows there)
+    for fwd in ((out, lse), (ref, ref_lse)):
+        plain = fa.flash_attention_bwd_reference(q, k, v, kvm, do, *fwd,
+                                                 causal)
+        if dtype == torch.float32:
+            for g, r in zip(grads, plain):
+                _close_to_scale(g, r, 1e-5)
+        else:
+            for g, r in zip(grads, plain):
+                torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
+                                           atol=2e-2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_flash_attention_autograd_runs_the_kernels(dev):
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = (_randn(gen, dev, 2, 2, 80, 32).requires_grad_(True)
+               for _ in range(3))
+    kvm = torch.ones(2, 80, device=dev)
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out = fa.flash_attention(q, k, v, kvm, causal=True)
+    do = torch.randn(out.shape, generator=gen).to(dev)
+    out.backward(do)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(c + 1 for c in before)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    fa.flash_attention_reference(qr, kr, vr, kvm, causal=True)[0].backward(do)
+    for g, r in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
         _close_to_scale(g, r, 1e-5)

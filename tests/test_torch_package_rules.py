@@ -9,7 +9,12 @@
   without a card instead of falling back to the CPU;
 - a kernel wrapper given a CUDA tensor launches its kernel or raises; it
   never runs its plain version, and on the card the loss takes the fused
-  CE kernels at every hidden size.
+  CE kernels at every hidden size;
+- the attention dispatcher takes flash attention where the reference
+  does (``on``, or ``auto`` at length >= 1024) and never with ``off``;
+  ``decode_attention`` has no cache-length gate; ``--attention-kernel``
+  maps onto ``--transformer-flash-attention`` as in the reference, and
+  the trainer refuses ``--auto-tune`` by name.
 """
 
 import ast
@@ -26,8 +31,10 @@ from marian_tpu_torch.models import transformer as tmod
 from marian_tpu_torch.ops import attention as tatt
 from marian_tpu_torch.ops.kernels import _build
 from marian_tpu_torch.ops.kernels import decode_attention as dmod
+from marian_tpu_torch.ops.kernels import flash_attention as famod
 from marian_tpu_torch.ops.kernels import fused_ce as fmod
 from marian_tpu_torch.ops.kernels import packed_attention as pmod
+from marian_tpu_torch.training.train import _refuse_unported
 from marian_tpu_torch.translator.translator import Translate
 
 torch.set_num_threads(2)
@@ -71,7 +78,8 @@ def test_cuda_sources_are_listed_and_plain_c():
     listed = {f"{n}.cu" for n in _build.SOURCES}
     on_disk = {p.name for p in _build.CSRC.glob("*.cu")}
     assert listed == on_disk and {"packed_attention.cu", "fused_ce.cu",
-                                  "decode_attention.cu"} <= listed
+                                  "decode_attention.cu",
+                                  "flash_attention.cu"} <= listed
     for name in listed:
         text = (_build.CSRC / name).read_text(encoding="utf-8")
         includes = [l.split()[1] for l in text.splitlines()
@@ -215,3 +223,95 @@ def test_fused_ce_engages_on_card_at_every_width(mode):
     assert table is not None and tuple(table.shape) == (11, 1024)
     on_cpu = model._fused_ce_table(cparams, torch.device("cpu"))
     assert (on_cpu is None) == (mode == "auto")
+
+
+def test_decode_attention_has_no_length_gate(plain_forbidden):
+    """A cache far past the old 442-position cap reaches the kernel's
+    launch (which raises here, where nothing can build it), not a
+    length check."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the kernel would run")
+    r, h, dh, L = 2, 2, 64, 5000
+    with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+        dmod.decode_attention(_cuda_typed(r, h, 1, dh),
+                              _cuda_typed(r, h, 1, dh),
+                              _cuda_typed(r, h, 1, dh),
+                              _cuda_typed(r, h, L, dh),
+                              _cuda_typed(r, h, L, dh), L - 1)
+    assert not hasattr(dmod, "max_len")
+
+
+@pytest.fixture
+def flash_plain_forbidden(monkeypatch):
+    for name in ("flash_attention_reference",
+                 "flash_attention_bwd_reference"):
+        monkeypatch.setattr(famod, name, lambda *a, **k: pytest.fail(
+            "a flash wrapper ran its plain version on a CUDA tensor"))
+
+
+def test_flash_wrappers_raise_on_cuda_request(flash_plain_forbidden):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the kernel would run")
+    b, h, t, dh = 1, 2, 5, 16
+    q, k, v, do, out = (_cuda_typed(b, h, t, dh) for _ in range(5))
+    lse = _cuda_typed(b, h, t)
+    before = (famod.flash_attention_fwd.launches,
+              famod.flash_attention_dq.launches,
+              famod.flash_attention_dkv.launches)
+    with pytest.raises(RuntimeError):
+        famod.flash_attention_fwd(q, k, v)
+    with pytest.raises(RuntimeError):
+        famod.flash_attention_bwd(q, k, v, None, do, out, lse)
+    # with a gradient: the autograd Function's forward is the kernel
+    with pytest.raises(RuntimeError):
+        famod.flash_attention(_cuda_typed(b, h, t, dh).requires_grad_(True),
+                              k, v, causal=True)
+    # a head size the kernels are not built for is refused, not bypassed
+    with pytest.raises(ValueError, match="head size"):
+        famod.flash_attention_fwd(*(_cuda_typed(b, h, t, 8)
+                                    for _ in range(3)))
+    assert (famod.flash_attention_fwd.launches,
+            famod.flash_attention_dq.launches,
+            famod.flash_attention_dkv.launches) == before
+
+
+@pytest.mark.parametrize("flash,t,taken", [
+    ("auto", 1024, True), ("auto", 1023, False), ("on", 16, True),
+    ("off", 1024, False)])
+def test_dispatcher_flash_gate(monkeypatch, flash, t, taken):
+    """The reference's gate, ahead of the packed one: on a CUDA tensor
+    flash 'on', or 'auto' at max(Tq, Tk) >= 1024, calls the flash wrapper
+    (which launches the kernel); 'off' and shorter 'auto' calls never
+    do."""
+    calls = []
+    monkeypatch.setattr(tatt, "flash_attention",
+                        lambda *a, **k: calls.append(1) or a[0])
+    monkeypatch.setattr(tatt, "packed_attention", lambda q, *a, **k: q)
+    q = _cuda_typed(1, 1, 4, 16)
+    k = _cuda_typed(1, 1, t, 16)
+    out, w = tatt.attention(q, k, k, kv_mask=torch.ones(1, t), flash=flash)
+    assert w is None and len(calls) == int(taken)
+
+
+@pytest.mark.parametrize("value,want", [("auto", "auto"), ("dense", "off"),
+                                        ("flash", "on")])
+def test_attention_kernel_alias(value, want):
+    for mode, head in (("translation", ["--models", "m.npz"]),
+                       ("training", ["--train-sets", "a", "b"])):
+        opts = parse_options([*head, "--attention-kernel", value], mode=mode)
+        assert opts.get("transformer-flash-attention") == want
+        # an explicit --transformer-flash-attention wins over the alias
+        opts = parse_options([*head, "--attention-kernel", value,
+                              "--transformer-flash-attention", "off"],
+                             mode=mode)
+        assert opts.get("transformer-flash-attention") == "off"
+    with pytest.raises(SystemExit):
+        parse_options(["--models", "m.npz", "--attention-kernel", "packed"])
+
+
+def test_auto_tune_is_refused_by_name():
+    head = ["--type", "transformer", "--train-sets", "a", "b"]
+    opts = parse_options([*head, "--auto-tune"], mode="training")
+    with pytest.raises(NotImplementedError, match="--auto-tune"):
+        _refuse_unported(opts)
+    _refuse_unported(parse_options(head, mode="training"))

@@ -15,10 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from marian_tpu.ops.attention import attention as jax_attention
 from marian_tpu.ops.attention import dense_attention
 from marian_tpu.ops.pallas.packed_attention import packed_attention as jpa
 from marian_tpu_torch.ops import attention as tatt
 from marian_tpu_torch.ops.kernels import packed_attention as kmod
+from marian_tpu_torch.ops.kernels.flash_attention import flash_attention
 from marian_tpu_torch.ops.kernels.packed_attention import packed_attention
 
 torch.set_num_threads(2)
@@ -92,10 +94,24 @@ def test_no_mask_means_attend_everywhere():
 
 @pytest.mark.parametrize("flash,t", [("auto", 1024), ("on", 16)])
 def test_dispatcher_raises_where_jax_picks_flash(flash, t):
-    q = torch.zeros(1, 1, t, 8)
-    kvm = torch.ones(1, t)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tatt.attention(q, q, q, kv_mask=kvm, flash=flash)
+    """Where the JAX dispatcher picks its flash kernel, the port's takes
+    its own flash attention, ahead of the packed gate: its output is the
+    flash wrapper's (on the CPU the kernel's plain version) and matches
+    the JAX dispatcher's. Eight queries against t keys keep the JAX
+    interpret run short."""
+    q, k, v, rng = _qkv(6, 1, 2, 8, t, dh=8)
+    m = _mask(rng, 1, t)
+    tq, tk, tv, tm = (torch.as_tensor(a) for a in (q, k, v, m))
+    out, w = tatt.attention(tq, tk, tv, tm[:, None, None, :], kv_mask=tm,
+                            flash=flash, packed="on")
+    assert w is None
+    assert torch.equal(out, flash_attention(tq, tk, tv, tm))
+    ref, jw = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(m)[:, None, None, :],
+                            kv_mask=jnp.asarray(m), flash=flash, packed="on")
+    assert jw is None
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=TOL,
+                               atol=TOL)
 
 
 def test_dispatcher_packed_on_runs_plain_version_on_cpu():
