@@ -23,7 +23,17 @@ card, and drives the port's main paths on data made from --seed:
   with a 1,024-position cache (doc-level marian-decoder); a 2+2-layer,
   dim-256 cut trains on documents past 1,024 tokens on the card and on
   the CPU (held as above) and decodes one with a cache past 442
-  positions on both.
+  positions on both;
+- marian-server, transformer-base, iteration mode at beam 1: the server
+  runs in this process on a TCP port with weights made from --seed to
+  copy their source (``serve_weights``: greedy output then follows the
+  attention and each row leaves at its own EOS); 16 clients send 256
+  one-line requests of 8-40 words, all at once, into 64 decode slots
+  over a paged KV pool, so rows join mid-decode and leave at their own
+  EOS; every reply must equal the dense greedy decode of its sentence on
+  the card, and the engine's logits at every step the dense step's on
+  the same tokens; 16 of the sentences decode to the same texts, with
+  the same logits within a tolerance, on the card and on the CPU.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; a kernel's ``launches`` in the kernel line is the sum
@@ -37,6 +47,7 @@ Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import io
 import json
 import subprocess
@@ -109,6 +120,19 @@ DOC_PER_UPDATE = {"packed_attention": 0, "packed_attention_bwd": 0,
 DOC_CUT_FLAGS = ["--dim-emb", "256", "--transformer-heads", "4",
                  "--transformer-dim-ffn", "1024", "--enc-depth", "2",
                  "--dec-depth", "2", "--max-length", "2047"]
+# the serve main path (marian-server, iteration mode, greedy)
+SERVE_ROWS, SERVE_SENTENCES, SERVE_CLIENTS, SERVE_CUT = 64, 256, 16, 16
+# the serve model (serve_weights): its random sublayers' outputs scaled
+# by COPY_SCALE, a copy head of gain COPY_GAIN whose scores resolve
+# positions 0 .. COPY_POSITIONS-1 through the COPY_FREQS highest
+# sinusoid frequencies (ridge COPY_RIDGE), sharpened by COPY_BETA
+COPY_SCALE, COPY_GAIN, COPY_BETA = 0.2, 8.0, 6.0
+COPY_POSITIONS, COPY_FREQS, COPY_RIDGE = 64, 32, 1e-4
+# a served step's logits (f32, of order 1) against the dense step's on
+# the same tokens on the card, and the card's engine against the CPU's:
+# the sound port reads about 2e-6 in both, a paged read one position
+# short 1.4e-2
+SERVE_LOGIT_TOL = 1e-4
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
 BF16_REL_TOL = 1e-2
 # the flash lse (f32, of order log Tk) on rows with a live key, absolute
@@ -290,6 +314,12 @@ def phase_decode_kernel(gen) -> dict:
                 out_v=bv2))
             plain2 = time_ms(lambda: decode_attention_reference(
                 q2, kn2, vn2, ck2, cv2, pos_t2, src2), iters=5)
+            gk2 = ck2.index_select(0, src2.long())
+            gv2 = cv2.index_select(0, src2.long())
+            live2 = torch.ones((r2, 1, 1, L2), dtype=torch.bool, device=dev)
+            lib2 = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q2, gk2, gv2, attn_mask=live2))
+            del gk2, gv2
             uniq2 = int(torch.unique(src2).numel())
             tile2 = h2 * L2 * dh * 4
             nb2 = (2 * uniq2 * tile2 + 2 * r2 * tile2 + 4 * r2 * h2 * dh * 4
@@ -297,7 +327,8 @@ def phase_decode_kernel(gen) -> dict:
             b2, _ = bound(nb2, 4 * r2 * h2 * L2 * dh)
             print(f"kernel decode_attention R={r2} H={h2} L={L2} Dh={dh} "
                   f"f32 (doc decode): kernel_ms {ms2:.4f} plain_ms "
-                  f"{plain2:.4f} bound_ms {b2:.4f} ({nb2 / 1e6:.1f} MB)")
+                  f"{plain2:.4f} library_ms(sdpa, attention only) "
+                  f"{lib2:.4f} bound_ms {b2:.4f} ({nb2 / 1e6:.1f} MB)")
             del bk2, bv2
         del q2, kn2, vn2, ck2, cv2, out, nk, nv, ro, rk, rv
     return {"name": "decode_attention", "route": "cuda",
@@ -639,6 +670,129 @@ def phase_flash_kernels(gen) -> list:
     return rows
 
 
+def paged_case(gen, r, h, dh, page_len, mp, pins, dtype=torch.float32):
+    """One paged-attention case on the card: q and this step's K/V
+    [R,H,1,Dh], pools of 1 + R*MP random pages, a page table that hands
+    every row its own MP pages scattered over the pool in random order
+    (rows share none), and positions drawn from [-1, MP*page_len - 1]
+    with the first rows pinned at ``pins``."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+    n_pages = 1 + r * mp
+    table = (torch.randperm(n_pages - 1, generator=gen) + 1).reshape(r, mp)
+    pos = torch.randint(-1, mp * page_len, (r,), generator=gen)
+    pos[:len(pins)] = torch.tensor(pins)
+    q, kn, vn = randn(r, h, 1, dh), randn(r, h, 1, dh), randn(r, h, 1, dh)
+    pk, pv = (randn(n_pages, h, page_len, dh) for _ in range(2))
+    return (q, kn, vn, pk, pv, table.to(dev, torch.int32),
+            pos.to(dev, torch.int32))
+
+
+def paged_bound(q, pk, table, pos):
+    """(bound_ms, bound_by, MB) of one paged read on these inputs: each
+    row's live positions of K and V (0 .. pos; an idle row, pos < 0,
+    averages all MP*page_len), the table entries of the pages those
+    positions lie on, the positions, q and the output; 4*H*Dh flops per
+    live position."""
+    r, h, _, dh = q.shape
+    page_len, mp = pk.shape[2], table.shape[1]
+    p = pos.long().cpu()
+    live = torch.where(p < 0, mp * page_len,
+                       torch.clamp(p + 1, max=mp * page_len))
+    pages = (live + page_len - 1) // page_len
+    nbytes = (int(live.sum()) * 2 * h * dh * pk.element_size()
+              + int(pages.sum()) * 4 + pos.numel() * 4
+              + 2 * q.numel() * q.element_size())
+    ms, by = bound(nbytes, 4 * h * dh * int(live.sum()))
+    return ms, by, nbytes / 1e6
+
+
+def phase_paged_kernel(gen) -> dict:
+    """paged_decode_attention against its plain version (the insert, then
+    the gather read): at the serve path's shape (R 64, H 8, Dh 64, page
+    16, MP 8, pools of 513 pages), a 2,048-position row span, Dh 32 and
+    128, and bf16; pools after the insert exact (and equal to the CPU's
+    insert at the serve shape). Then the read's times at the serve
+    shape."""
+    from marian_tpu_torch.ops.kernels import kv_pool as kv
+    pins = [-1, 0, 15, 16]
+    cases = [("serve", 64, 8, 64, 16, 8, pins + [127], torch.float32),
+             ("long", 8, 16, 64, 16, 128, pins + [2047], torch.float32),
+             ("Dh 32", 16, 4, 32, 16, 8, pins + [127], torch.float32),
+             ("Dh 128", 16, 4, 128, 16, 8, pins + [127], torch.float32),
+             ("bf16", 16, 8, 64, 16, 8, pins + [127], torch.bfloat16)]
+    err = 0.0
+    for name, r, h, dh, pl, mp, case_pins, dtype in cases:
+        q, kn, vn, pk, pv, table, pos = paged_case(gen, r, h, dh, pl, mp,
+                                                   case_pins, dtype)
+        gk, gv = pk.clone(), pv.clone()
+        out = kv.paged_decode_attention(q, kn, vn, gk, gv, table, pos)
+        rk, rv = pk.clone(), pv.clone()
+        kv.pool_insert(rk, rv, kn, vn, table, pos)
+        ref = kv.paged_decode_attention_reference(q, rk, rv, table, pos)
+        torch.cuda.synchronize()
+        check(torch.equal(gk, rk) and torch.equal(gv, rv),
+              f"paged_decode_attention [{name}]: pools after the insert "
+              f"differ from the plain insert")
+        if name == "serve":
+            ck, cv = pk.cpu(), pv.cpu()
+            kv.pool_insert(ck, cv, kn.cpu(), vn.cpu(), table.cpu(),
+                           pos.cpu())
+            check(torch.equal(gk.cpu(), ck) and torch.equal(gv.cpu(), cv),
+                  "paged_decode_attention [serve]: pools after the insert "
+                  "differ from the CPU's insert")
+        what = (f"paged_decode_attention [{name}] R={r} H={h} Dh={dh} "
+                f"page {pl} MP={mp} {str(dtype)[6:]}")
+        if dtype == torch.float32:
+            e = (out - ref).abs().max().item()
+            check(e <= TOL, f"{what}: max |err| {e} > {TOL}")
+            err = max(err, e)
+            print(f"kernel {what}: max |err| {e:.3g}, pools exact")
+        else:
+            e = close_to_scale(out, ref, what, BF16_REL_TOL)
+            print(f"kernel {what}: max |err| {e:.3g} (tolerance "
+                  f"{BF16_REL_TOL} x max |plain|), pools exact")
+        if name == "long":
+            ms_long = time_ms(lambda: kv.paged_decode_attention_read(
+                q, gk, gv, table, pos))
+            b_long, _, mb = paged_bound(q, pk, table, pos)
+            print(f"kernel {what}: kernel_ms {ms_long:.4f} bound_ms "
+                  f"{b_long:.4f} ({mb:.1f} MB)")
+        if name == "serve":
+            serve = (q, gk, gv, table, pos)
+    q, pk, pv, table, pos = serve
+    r, h, _, dh = q.shape
+    pl, mp = pk.shape[2], table.shape[1]
+    ms = time_ms(lambda: kv.paged_decode_attention_read(q, pk, pv, table,
+                                                        pos))
+    plain_ms = time_ms(lambda: kv.paged_decode_attention_reference(
+        q, pk, pv, table, pos))
+    live = (torch.arange(mp * pl, device=q.device)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    tl = table.long()
+
+    def library():
+        gk = pk[tl].transpose(1, 2).reshape(r, h, mp * pl, dh)
+        gv = pv[tl].transpose(1, 2).reshape(r, h, mp * pl, dh)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, gk, gv, attn_mask=live)
+    library_ms = time_ms(library)
+    bound_ms, bound_by, mb = paged_bound(q, pk, table, pos)
+    print(f"kernel paged_decode_attention R={r} H={h} Dh={dh} page {pl} "
+          f"MP={mp} f32 (the read): kernel_ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} library_ms(gather pool[page_table] + sdpa, two "
+          f"calls) {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"{mb:.2f} MB)")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "marian_tpu_torch/csrc/paged_decode_attention.cu",
+            "replaces": "marian_tpu/ops/pallas/kv_pool.py:750",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def write_vocab() -> None:
     """The 32,000-word vocabulary w2 .. w31999 of the synthetic data
     (vocab.yml), and its first VOCAB_CUT words (vocab_cut.yml)."""
@@ -672,6 +826,10 @@ def write_model(seed: int):
     opts = Options(BASE)
     flat = random_weights(opts, seed)
     mio.save_model(str(WORK / "base.npz"), flat, opts.as_yaml())
+    mio.save_model(str(WORK / "serve.npz"),
+                   serve_weights(flat, T.config_from_options(opts, VOCAB,
+                                                             VOCAB)),
+                   opts.as_yaml())
     small = {k: v for k, v in flat.items()
              if not k.startswith(("encoder_l", "decoder_l"))
              or k.split("_")[1] in ("l1", "l2")}
@@ -688,6 +846,56 @@ def write_model(seed: int):
     return lines
 
 
+def serve_weights(flat: dict, cfg) -> dict:
+    """The serve model: the base weights ``flat`` made to copy their
+    source, so that greedy output follows the attention, is as varied as
+    the sources, and every row leaves at its own EOS (the source's, at
+    step n of an n-word sentence), as a translation does. The random
+    base ranks the same top-bias token first at every step and never
+    emits EOS: a paged read gone wrong would not change one reply.
+
+    - Positions and words get orthogonal subspaces: ``span`` is the span
+      of LN(pos(t)) for t < COPY_POSITIONS (rank 28 at dim 512), and the
+      word embeddings are projected out of it.
+    - Every random sublayer (attention Wo, FFN W2) is scaled by
+      COPY_SCALE and projected out of ``span`` too: the layers move the
+      stream, and with it the logits, but never its positional part.
+    - The last decoder layer's cross-attention is a copy head. Every head
+      scores with the same map ``fit``, the ridge regression of the 32
+      highest-frequency sin/cos pairs of pos(t) on LN(pos(t)), so the
+      step-t query peaks at source position t. Wv drops the positions;
+      Wo writes the source word at position t with gain COPY_GAIN, and
+      the tied output table ranks that word first.
+    - The output bias is 0.
+    """
+    from marian_tpu_torch.models import transformer as T
+    d, f64 = cfg.dim_emb, torch.float64
+    raw = T.sinusoidal_positions(COPY_POSITIONS, d).to(f64)
+    ln = raw - raw.mean(-1, keepdim=True)
+    ln = ln / ln.pow(2).mean(-1, keepdim=True).sqrt()
+    sv = torch.linalg.svd(ln, full_matrices=False)
+    span = sv.Vh[:int((sv.S > 1e-4 * sv.S[0]).sum())].t()
+    off = torch.eye(d, dtype=f64) - span @ span.t()
+    p = {k: torch.from_numpy(v).to(f64) for k, v in flat.items()}
+    p["Wemb"] = p["Wemb"] @ off
+    p["decoder_ff_logit_out_b"] = torch.zeros_like(
+        p["decoder_ff_logit_out_b"])
+    for k in p:
+        if k.endswith(("_Wo", "_ffn_W2")):
+            p[k] = COPY_SCALE * p[k] @ off
+    sel = [*range(COPY_FREQS), *range(d // 2, d // 2 + COPY_FREQS)]
+    check(len(sel) == cfg.dim_head, "copy head features != head width")
+    gram = ln.t() @ ln
+    fit = torch.linalg.solve(
+        gram + COPY_RIDGE * torch.linalg.matrix_norm(gram, 2)
+        * torch.eye(d, dtype=f64), ln.t() @ raw[:, sel])
+    c = f"decoder_l{cfg.dec_depth}_context"
+    p[f"{c}_Wq"] = p[f"{c}_Wk"] = COPY_BETA * fit.repeat(1, cfg.heads)
+    p[f"{c}_Wv"] = off
+    p[f"{c}_Wo"] = COPY_GAIN * torch.eye(d, dtype=f64)
+    return {k: v.to(torch.float32).numpy() for k, v in p.items()}
+
+
 def decoder_options(model: str, *extra: str, vocab: str = "vocab.yml"):
     from marian_tpu_torch.common.config_parser import parse_options
     return parse_options(["--models", str(WORK / model), "--vocabs",
@@ -701,6 +909,7 @@ def kernel_counters():
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import fused_ce as fce
+    from marian_tpu_torch.ops.kernels import kv_pool as kv
     from marian_tpu_torch.ops.kernels import packed_attention as pa
     return {"decode_attention": da.decode_attention,
             "packed_attention": pa.packed_attention,
@@ -709,7 +918,8 @@ def kernel_counters():
             "flash_attention_dq": fa.flash_attention_dq,
             "flash_attention_dkv": fa.flash_attention_dkv,
             "fused_ce_fwd": fce.fused_ce_stats,
-            "fused_ce_dx": fce.fused_ce_dx, "fused_ce_dw": fce.fused_ce_dw}
+            "fused_ce_dx": fce.fused_ce_dx, "fused_ce_dw": fce.fused_ce_dw,
+            "paged_decode_attention": kv.paged_decode_attention}
 
 
 def reset_counts() -> None:
@@ -814,6 +1024,263 @@ def decode_card_vs_cpu(what: str, model: str, sents, *extra: str,
 def phase_card_vs_cpu(lines) -> None:
     decode_card_vs_cpu(f"{len(lines[:8])} sentences, 2+2 layers",
                        "base_2x2.npz", lines[:8])
+
+
+def serve_options(*extra: str):
+    """marian-server flags of the serve main path: transformer-base (the
+    copying serve checkpoint, ``serve_weights``) at --beam-size 1 in iteration mode, 64 slots, pages
+    of 16 tokens, cap 128 (3 x the source), the default pool (every slot
+    can hold a full-cap row: 513 pages)."""
+    from marian_tpu_torch.common.config_parser import parse_options
+    return parse_options(
+        ["--models", str(WORK / "serve.npz"), "--vocabs",
+         str(WORK / "vocab.yml"), str(WORK / "vocab.yml"),
+         "--batching-mode", "iteration", "--beam-size", "1",
+         "--iteration-rows", str(SERVE_ROWS), "--kv-page-len", "16",
+         "--max-length", "128", "--max-length-factor-translate", "3",
+         "--port", "0", "--quiet", *extra], mode="server")
+
+
+def serve_sentences(seed: int, n: int):
+    """``n`` sentences of 8-40 random words of the 32,000-word vocab."""
+    rng = np.random.RandomState(seed + 5)
+    return [" ".join(f"w{i}"
+                     for i in rng.randint(2, VOCAB, rng.randint(8, 41)))
+            for _ in range(n)]
+
+
+async def serve_traffic(port: int, sents, clients: int):
+    """``clients`` concurrent clients over MTPU framing, each sending its
+    share of ``sents`` as one-line requests back to back, one connection
+    a request (a connection carries one request at a time), so every
+    sentence is in the server at once; returns the replies in sentence
+    order and the request latencies (s)."""
+    replies, lat = [None] * len(sents), []
+
+    async def request(i):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            payload = sents[i].encode("utf-8")
+            t0 = time.perf_counter()
+            writer.write(b"MTPU %d\n" % len(payload) + payload)
+            await writer.drain()
+            header = await reader.readline()
+            check(header.startswith(b"MTPU "), f"reply header {header!r}")
+            body = await reader.readexactly(int(header.split()[1]))
+            lat.append(time.perf_counter() - t0)
+            replies[i] = body.decode("utf-8")
+        finally:
+            writer.close()
+
+    async def client(c):
+        await asyncio.gather(*[request(i)
+                               for i in range(c, len(sents), clients)])
+    await asyncio.gather(*[client(c) for c in range(clients)])
+    return replies, lat
+
+
+def engine_step_logits(engine, sents):
+    """``engine.decode_texts(sents)`` with the logits of every decode step
+    kept: (texts, per sentence the [steps, V] logits its row got, in step
+    order). The model's step is wrapped for the run and reads, as it is
+    called, which sentence sits in each slot and at what position (one
+    step a round)."""
+    check(engine.steps_per_round == 1, "the logit record reads one step a "
+          "round")
+    model, rows = engine.model, {}
+    step = model.step
+
+    def recorded(params, state, prev, src_mask, beam_src=None):
+        logits, new = step(params, state, prev, src_mask, beam_src)
+        for i, p in enumerate(state["pos"].tolist()):
+            slot = engine._slots[i]
+            if slot is not None:
+                rows.setdefault(slot.key, {})[p] = logits[i]
+        return logits, new
+    model.step = recorded
+    try:
+        texts = engine.decode_texts(sents)
+    finally:
+        del model.step
+    check(all(sorted(rows[k]) == list(range(len(rows[k])))
+              for k in range(len(sents))), "a row skipped a position")
+    return texts, [torch.stack([rows[k][p] for p in range(len(rows[k]))])
+                   for k in range(len(sents))]
+
+
+def source_batch(tr, sents, device):
+    """[B, W] ids (with EOS) and mask of ``sents``, W the widest."""
+    ids = [tr.src_vocab.encode(t) for t in sents]
+    width = max(len(x) for x in ids)
+    src = torch.zeros((len(ids), width), dtype=torch.long)
+    mask = torch.zeros((len(ids), width))
+    for i, x in enumerate(ids):
+        src[i, :len(x)] = torch.tensor(x)
+        mask[i, :len(x)] = 1.0
+    return ids, src.to(device), mask.to(device)
+
+
+def dense_step_logits(model, params, src, mask, forced):
+    """The dense decode's logits [B, T, V] on the tokens ``forced`` [B, T]
+    (step t reads token t-1; 0 at step 0)."""
+    with torch.inference_mode():
+        enc = model.encode_for_decode(params, src, mask)
+        state = model.start_state(params, enc, mask, forced.shape[1])
+        prev = torch.zeros_like(forced[:, :1])
+        out = []
+        for t in range(forced.shape[1]):
+            logits, state = model.step(params, state, prev, mask)
+            out.append(logits)
+            prev = forced[:, t:t + 1]
+        return torch.stack(out, 1)
+
+
+def served_vs_dense_logits(engine, tr, sents, replies) -> float:
+    """The engine's logits at every step of every row against the dense
+    step's on the same tokens (the engine's own picks), on the card; the
+    engine's texts must equal ``replies``. Returns the largest |diff|."""
+    texts, got = engine_step_logits(engine, sents)
+    check(texts == replies, "the engine's decode_texts differs from the "
+          "served replies")
+    _, src, mask = source_batch(tr, sents, engine.device)
+    forced = torch.zeros((len(got), max(len(g) for g in got)),
+                         dtype=torch.long, device=engine.device)
+    for i, g in enumerate(got):
+        forced[i, :len(g)] = g.argmax(-1)
+    dense = dense_step_logits(tr.model, tr.params, src, mask, forced)
+    err = max((g - dense[i, :len(g)]).abs().max().item()
+              for i, g in enumerate(got))
+    check(err <= SERVE_LOGIT_TOL, f"served logits differ from the dense "
+          f"step's by {err} > {SERVE_LOGIT_TOL}")
+    return err
+
+
+def phase_serve_main_path(seed: int) -> dict:
+    """The serve main path: the port's marian-server (ServingApp on a TCP
+    listener, in this process so the launch counts can be read) answers
+    SERVE_SENTENCES sentences from SERVE_CLIENTS concurrent clients with
+    the copying serve model. Every reply must equal the dense greedy
+    decode of its sentence on the card, cut at its cap; the engine's
+    logits at every step must equal the dense step's within
+    SERVE_LOGIT_TOL; and the traffic must be what it claims (most rows
+    leave at their own EOS, replies as varied as their sources)."""
+    from marian_tpu_torch.server.server import ServingApp, _make_tcp_handler
+    from marian_tpu_torch.translator.greedy import greedy_decode
+    sents = serve_sentences(seed, SERVE_SENTENCES)
+    warm = serve_sentences(seed + 1, 4)
+
+    async def serve():
+        app = ServingApp(serve_options())
+        check(app.scheduler.engine.device.type == "cuda",
+              f"server resolved {app.scheduler.engine.device}")
+        app.start()
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        try:
+            await serve_traffic(port, warm, len(warm))     # not counted
+            engine = app.scheduler.engine
+            before = dict(engine.counters)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            replies, lat = await serve_traffic(port, sents, SERVE_CLIENTS)
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            totals = {k: engine.counters[k] - before[k] for k in before}
+        finally:
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+        return app, replies, lat, secs, counts, totals
+    app, replies, lat, secs, counts, run = asyncio.run(serve())
+    engine = app.scheduler.engine
+    check(engine.idle() and engine.pool.free_pages()
+          == engine.pool.usable_pages and engine.pool.claims() == {},
+          f"pages held after the run: {engine.pool.claims()}")
+    bad = engine.audit()
+    check(bad == [], f"pool audit after the run: {bad}")
+    depth = engine.model.cfg.dec_depth
+    want = {name: 0 for name in counts}
+    want["paged_decode_attention"] = depth * run["steps"]
+    want["packed_attention"] = engine.model.cfg.enc_depth * run["encodes"]
+    check(counts == want, f"serve launches {counts}, expected {want} "
+          f"({run['steps']} steps, {run['encodes']} encoder calls)")
+    check(all(r is not None and not r.startswith("!!") for r in replies),
+          "a request failed: " + str([r for r in replies
+                                      if r is None or r.startswith("!!")][:2]))
+    check(run["mid_decode_joins"] > 0, "no join landed mid-decode")
+    # the dense comparator: greedy_decode of all sentences at the largest
+    # cap, each row cut at its own cap and EOS
+    tr = app.service.translator
+    ids, src, mask = source_batch(tr, sents, engine.device)
+    caps = [engine.decode_cap(len(x)) for x in ids]
+    dense = greedy_decode(tr.model, tr.params, src, mask, max(caps))
+    for i, (reply, cap) in enumerate(zip(replies, caps)):
+        toks = list(dense[i, :cap])
+        toks = toks[:toks.index(0)] if 0 in toks else toks
+        check(reply == tr.trg_vocab.decode(toks),
+              f"sentence {i}: the served reply differs from the dense greedy "
+              f"decode on the card")
+    words = [r.split() for r in replies]
+    n_words = sum(len(w) for w in words)
+    at_eos = sum(len(w) < cap for w, cap in zip(words, caps))
+    distinct = len({t for w in words for t in w})
+    copies = sum(r == s for r, s in zip(replies, sents))
+    check(4 * at_eos >= 3 * len(sents) and 2 * distinct >= n_words,
+          f"the traffic is degenerate: {at_eos} of {len(sents)} rows left at "
+          f"EOS before their cap, {distinct} distinct words of {n_words}")
+    logit_err = served_vs_dense_logits(engine, tr, sents, replies)
+    lat_ms = np.percentile(np.array(lat) * 1e3, [50, 99])
+    cfg = engine.model.cfg
+    print(f"serve main path: transformer {cfg.enc_depth}+{cfg.dec_depth}, "
+          f"dim {cfg.dim_emb}, vocab {len(tr.trg_vocab)}, copying weights, "
+          f"greedy, {SERVE_ROWS} slots, pages of 16, pool "
+          f"{engine.pool.usable_pages} pages: {len(sents)} sentences of "
+          f"8-40 words (caps {min(caps)}-{max(caps)}) from {SERVE_CLIENTS} "
+          f"clients in {secs:.3f} s: {len(sents) / secs:.2f} sentences/s, "
+          f"{n_words / secs:.1f} target tokens/s; {run['rounds']} rounds, "
+          f"{1e3 * run['round_s'] / run['rounds']:.3f} ms per round (engine), "
+          f"{1e3 * secs / run['rounds']:.3f} ms per round (wall), "
+          f"{run['rows'] / run['rounds']:.2f} rows per round, "
+          f"{run['steps']} steps, {run['mid_decode_joins']} mid-decode "
+          f"joins, {run['encodes']} encoder calls; latency p50 "
+          f"{lat_ms[0]:.1f} ms p99 {lat_ms[1]:.1f} ms; launches {counts}")
+    print(f"serve main path: replies equal the dense greedy decode; "
+          f"{at_eos} of {len(sents)} rows left at EOS before their cap, "
+          f"{copies} replies equal their source, {distinct} distinct words "
+          f"of {n_words}; reply 0 {replies[0][:48]!r}...; engine logits vs "
+          f"the dense step's on its tokens: max |diff| {logit_err:.3g} "
+          f"(tolerance {SERVE_LOGIT_TOL}); pool empty, audit clean")
+    return counts
+
+
+def phase_serve_card_vs_cpu(seed: int) -> None:
+    """SERVE_CUT of the served sentences through the engine on the card
+    and on the CPU: identical texts, and logits at every step within
+    SERVE_LOGIT_TOL."""
+    from marian_tpu_torch.server.server import ServingApp
+    sents = serve_sentences(seed, SERVE_CUT)
+    res = {}
+    for name, dev in (("cuda", None), ("cpu", "cpu")):
+        app = ServingApp(serve_options(), device=dev)
+        engine = app.scheduler.engine
+        check(engine.device.type == name, f"{name} run resolved "
+              f"{engine.device}")
+        t0 = time.perf_counter()
+        texts, logits = engine_step_logits(engine, sents)
+        res[name] = texts, [g.cpu() for g in logits]
+        print(f"serve card vs cpu: {name} engine, {len(sents)} sentences: "
+              f"{time.perf_counter() - t0:.2f} s, {engine.counters['rounds']} "
+              f"rounds")
+    (gt, gl), (ct, cl) = res["cuda"], res["cpu"]
+    check(gt == ct, "served texts differ between the card and the CPU")
+    err = max((g - c).abs().max().item() for g, c in zip(gl, cl))
+    check(err <= SERVE_LOGIT_TOL, f"served logits differ between the "
+          f"card and the CPU by {err} > {SERVE_LOGIT_TOL}")
+    print(f"serve card vs cpu: {len(sents)} texts identical "
+          f"({sum(len(t.split()) for t in ct)} words); logits max |diff| "
+          f"{err:.3g} (tolerance {SERVE_LOGIT_TOL})")
 
 
 def write_corpus(seed: int) -> None:
@@ -1213,11 +1680,15 @@ def main(argv=None) -> int:
     kernels = [timed("decode kernel", phase_decode_kernel, gen), packed,
                packed_bwd,
                *timed("fused_ce kernels", phase_fused_ce_kernels, gen),
-               *timed("flash kernels", phase_flash_kernels, gen)]
+               *timed("flash kernels", phase_flash_kernels, gen),
+               timed("paged kernel", phase_paged_kernel, gen)]
     torch.cuda.empty_cache()
     lines = timed("models", write_model, args.seed)
     path_counts = [timed("decode main path", phase_main_path, lines)]
     timed("decode card vs cpu", phase_card_vs_cpu, lines)
+    path_counts.append(timed("serve main path", phase_serve_main_path,
+                             args.seed))
+    timed("serve card vs cpu", phase_serve_card_vs_cpu, args.seed)
     path_counts.append(timed("train main path", phase_train_main_path,
                              args.seed))
     timed("train card vs cpu", phase_train_card_vs_cpu)

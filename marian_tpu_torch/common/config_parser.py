@@ -1,16 +1,19 @@
-"""Marian-compatible configuration surface for the port's decoder and
-trainer: YAML config files + CLI overrides.
+"""Marian-compatible configuration surface for the port's decoder,
+server and trainer: YAML config files + CLI overrides.
 
-Two modes, as in ``marian_tpu/common/config_parser.py``: ``translation``
-(the decoder's flags) and ``training`` (the trainer's), each with the
+Three modes, as in ``marian_tpu/common/config_parser.py``:
+``translation`` (the decoder's flags), ``server`` (those plus the
+server's) and ``training`` (the trainer's), each with the
 model flags a checkpoint's ``special:model.yml`` carries, under the same
-names and defaults as the reference; flags of the JAX package's serving
-and mesh machinery are left out. Precedence as in Marian: defaults <
-config file(s) < CLI flags. ``--cpu-threads N`` (N > 0) runs on the CPU.
+names and defaults as the reference; the flags of the JAX package's
+serving planes this port does not carry (lifecycle, fleet, brownout,
+metrics, tracing) and of its mesh machinery are left out. Precedence as
+in Marian: defaults < config file(s) < CLI flags. ``--cpu-threads N``
+(N > 0) runs on the CPU.
 
 A flag that parses but whose feature this slice does not carry yet is
-refused at startup (``translator.translator``, ``training.train``)
-rather than ignored.
+refused at startup (``translator.translator``, ``server.server``,
+``training.train``) rather than ignored.
 """
 
 from __future__ import annotations
@@ -186,8 +189,24 @@ _TRAINING = [
     _f("cpu-threads", int, 0, "Use CPU with this many threads", "?"),
 ]
 
+# marian-server (reference: the serving subsystem's flags, same defaults)
+_SERVER = [
+    _f("port", int, 8080, "marian-server port (0 = an ephemeral one)"),
+    _f("max-queue", int, 512, "Admission control: maximum queued sentences before new requests are shed with !!SERVER-OVERLOADED (0 = unbounded)"),
+    _f("request-timeout", float, 0.0, "Per-request deadline in seconds: expired requests get !!SERVER-TIMEOUT, even while queued (0 = none)"),
+    _f("batch-token-budget", int, 0, "Token budget of a request-mode device batch (0 = mini-batch x bucketed max-length; request mode is not ported yet, a set budget is refused)"),
+    _f("batching-mode", str, "request", "request (not ported yet) or iteration: sentences join a running decode over a paged KV pool each round and leave the step they finish"),
+    _f("iteration-rows", int, 32, "Iteration mode: decode slots, the most sentences decoding at once"),
+    _f("iteration-steps", int, 1, "Iteration mode: decode steps per scheduling round (joins possible every round)"),
+    _f("kv-page-len", int, 16, "Iteration mode: tokens per KV-cache page"),
+    _f("kv-pool-bytes", int, 0, "Iteration mode: byte budget of the paged KV pool over all decoder layers, K and V (0 = every slot can hold a full --max-length row)"),
+    _f("max-queue-pages", int, 0, "Iteration mode: admission bound on queued KV-pool page debt (0 = 4x the pool's allocatable pages)"),
+    _f("prefix-cache", bool, False, "Iteration mode: cross-request prefix sharing (not ported yet)"),
+]
+
 FLAGS = _COMMON + _MODEL + _TRANSLATION
 MODES = {"translation": FLAGS,
+         "server": FLAGS + _SERVER,
          "training": _COMMON + _MODEL + _MODEL_TRAINING + _TRAINING}
 
 # mode-suffixed duplicates and synonyms → (the canonical key runtime code

@@ -72,3 +72,7 @@ def info(msg: str, *args) -> None:
 
 def warn(msg: str, *args) -> None:
     log("warn", msg, *args)
+
+
+def error(msg: str, *args) -> None:
+    log("error", msg, *args)

@@ -102,6 +102,16 @@ class EncoderDecoder:
         return T.init_decode_state(self.cfg, params, enc_out, src_mask,
                                    max_len)
 
+    def start_paged_state(self, params, enc_out, src_mask, n_pages: int,
+                          page_len: int, max_pages: int):
+        """Decode state over a paged KV pool (iteration-level decoding;
+        see ``transformer.init_paged_decode_state``). Its ``page_table``
+        and ``pos`` are per row and owned by the caller's slot engine
+        (translator/iteration.py)."""
+        return T.init_paged_decode_state(self.cfg, params, enc_out,
+                                         src_mask, n_pages, page_len,
+                                         max_pages)
+
     def step(self, params, state, prev_ids, src_mask, beam_src=None):
         return T.decode_step(self.cfg, params, state, prev_ids, src_mask,
                              beam_src=beam_src)

@@ -22,6 +22,10 @@ over a flat parameter dict, ported from the default-config part of
   the kernel's cache read (``beam_src``) and the kernel writes the next
   cache into a second buffer per layer (ping-pong, no allocation per
   step); without it the step writes its k/v into the cache in place.
+- Paged decoding (iteration-level serving, ``init_paged_decode_state``)
+  replaces those caches by per-layer page pools shared by all rows, one
+  page table and a per-row position vector; the step inserts into the
+  pools in place and reads through ``paged_decode_attention``.
 
 Not ported yet (ROADMAP A7): MoE, ULR, AAN/SSRU decoders, factors and
 lemma, multi-source, learned positions, tied layers, LSH, int8 weights,
@@ -39,6 +43,7 @@ import torch
 
 from ..ops.attention import attention
 from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.kv_pool import paged_decode_attention
 from ..ops.ops import activation, affine, dropout, layer_norm
 
 Params = Dict[str, torch.Tensor]
@@ -268,13 +273,17 @@ def _mha(cfg: TransformerConfig, params: Params, prefix: str,
          cache_pos: Optional[int] = None, static_kv: bool = False,
          kv_mask: Optional[torch.Tensor] = None, causal: bool = False,
          beam_src: Optional[torch.Tensor] = None, train: bool = False,
-         generator=None) -> torch.Tensor:
+         generator=None,
+         page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Multi-head attention with an optional decode cache.
 
     cache (self-attention): 'k','v' [B,H,L,Dh] (+ 'spare_k','spare_v',
     the fused kernel's second buffers); this step's k/v land at
     cache_pos. static_kv (cross-attention): K/V precomputed in cache.
     beam_src [rows]: pending beam backpointers for the fused kernel.
+    page_table [rows, MP]: cache 'k','v' are page pools
+    [n_pages,H,page_len,Dh] and cache_pos the per-row [rows] positions
+    (paged decoding; the pools are written in place).
     """
     h = cfg.heads
 
@@ -288,7 +297,11 @@ def _mha(cfg: TransformerConfig, params: Params, prefix: str,
     else:
         k_, v_ = proj(kv_in, "k"), proj(kv_in, "v")
     out = None
-    if cache is not None and not static_kv:
+    if cache is not None and not static_kv and page_table is not None:
+        # the page table is row identity: no beam reorder exists here
+        out = paged_decode_attention(q, k_, v_, cache["k"], cache["v"],
+                                     page_table, cache_pos)
+    elif cache is not None and not static_kv:
         use_fused = fused_decode_active(cfg) and (
             beam_src is not None or cfg.fused_decode_attention == "on")
         if use_fused:
@@ -359,9 +372,28 @@ def _embed_words(cfg: TransformerConfig, params: Params, ids: torch.Tensor,
 
 
 def _add_pos(cfg: TransformerConfig, x: torch.Tensor,
-             start_pos: int = 0) -> torch.Tensor:
+             start_pos=0) -> torch.Tensor:
+    """x [.., t, D] plus the positions start_pos .. start_pos + t - 1;
+    an [R] tensor ``start_pos`` gives each row of x [R, t, D] its own
+    (iteration-level decoding: rows of different ages share a step)."""
+    if torch.is_tensor(start_pos) and start_pos.dim() == 1:
+        pos_ids = (torch.arange(x.shape[-2], device=x.device)[None, :]
+                   + start_pos.to(x.device)[:, None])
+        return x + _sinusoidal_rows(pos_ids, cfg.dim_emb).to(x.dtype)
     return x + sinusoidal_positions(x.shape[-2], cfg.dim_emb, start_pos,
                                     x.device).to(x.dtype)
+
+
+def _sinusoidal_rows(pos_ids: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embeddings of an [R, t] position grid, the values of
+    ``sinusoidal_positions`` (same inv_freq expression) row by row."""
+    pos = pos_ids.to(torch.float32)[..., None]              # [R, t, 1]
+    half = dim // 2
+    inv_freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                       device=pos_ids.device)
+                         * (math.log(10000.0) / max(half - 1, 1)))
+    angles = pos * inv_freq[None, None, :]                  # [R, t, half]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -500,31 +532,63 @@ def output_logits(cfg: TransformerConfig, params: Params,
     return y if b is None else y + b.float()
 
 
+def cross_kv(cfg: TransformerConfig, params: Params, enc_out: torch.Tensor,
+             layer: int):
+    """Decoder layer ``layer``'s cross-attention K and V of the encoder
+    states, stored contiguous [B, H, Ts, Dh]: as head-split views every
+    step's score and context products would copy them whole."""
+    cname = f"decoder_l{layer}_context"
+    return tuple(_split_heads(affine(enc_out, params[f"{cname}_W{n}"],
+                                     params[f"{cname}_b{n}"]),
+                              cfg.heads).contiguous() for n in ("k", "v"))
+
+
 def init_decode_state(cfg: TransformerConfig, params: Params,
                       enc_out: torch.Tensor, src_mask: torch.Tensor,
                       max_len: int) -> Dict[str, Any]:
-    """Precompute cross-attention K/V and allocate the fixed-size
-    self-attention caches (plus the fused kernel's second buffers on the
-    card). K/V are stored contiguous [B, H, Ts, Dh]: as head-split views
-    every step's score and context products would copy them whole."""
+    """Precompute cross-attention K/V (``cross_kv``) and allocate the
+    fixed-size self-attention caches (plus the fused kernel's second
+    buffers on the card)."""
     b = enc_out.shape[0]
     h, dh = cfg.heads, cfg.dim_head
     state: Dict[str, Any] = {"pos": 0}
     spares = enc_out.is_cuda and fused_decode_active(cfg)
     for l in range(1, cfg.dec_depth + 1):
-        cname = f"decoder_l{l}_context"
-        state[f"l{l}_cross_k"] = _split_heads(affine(
-            enc_out, params[f"{cname}_Wk"], params[f"{cname}_bk"]),
-            h).contiguous()
-        state[f"l{l}_cross_v"] = _split_heads(affine(
-            enc_out, params[f"{cname}_Wv"], params[f"{cname}_bv"]),
-            h).contiguous()
+        state[f"l{l}_cross_k"], state[f"l{l}_cross_v"] = cross_kv(
+            cfg, params, enc_out, l)
         kinds = ("self_k", "self_v") + (("spare_k", "spare_v") if spares
                                         else ())
         for kind in kinds:
             state[f"l{l}_{kind}"] = torch.zeros(
                 (b, h, max_len, dh), dtype=cfg.compute_dtype,
                 device=enc_out.device)
+    return state
+
+
+def init_paged_decode_state(cfg: TransformerConfig, params: Params,
+                            enc_out: torch.Tensor, src_mask: torch.Tensor,
+                            n_pages: int, page_len: int,
+                            max_pages: int) -> Dict[str, Any]:
+    """Decode state for iteration-level decoding: per-layer page pools
+    ``l{l}_pool_k/v`` [n_pages, H, page_len, Dh] shared by all rows (page
+    0 is the trash page), one ``page_table`` [rows, max_pages] int32 for
+    every layer (all layers write the same positions), per-row ``pos``
+    [rows] int32, and the dense per-row cross-attention K/V. The rows'
+    slot engine (translator/iteration.py) owns the table and positions.
+    """
+    b = enc_out.shape[0]
+    dev = enc_out.device
+    state: Dict[str, Any] = {}
+    for l in range(1, cfg.dec_depth + 1):
+        state[f"l{l}_cross_k"], state[f"l{l}_cross_v"] = cross_kv(
+            cfg, params, enc_out, l)
+        for kind in ("pool_k", "pool_v"):
+            state[f"l{l}_{kind}"] = torch.zeros(
+                (n_pages, cfg.heads, page_len, cfg.dim_head),
+                dtype=cfg.compute_dtype, device=dev)
+    state["page_table"] = torch.zeros((b, max_pages), dtype=torch.int32,
+                                      device=dev)
+    state["pos"] = torch.zeros((b,), dtype=torch.int32, device=dev)
     return state
 
 
@@ -535,30 +599,45 @@ def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
     ``state['pos']`` is the time index; the self-attention mask allows
     positions <= pos. ``beam_src`` [B]: pending beam backpointers for the
     fused kernel (the beam search passes them instead of reordering the
-    self-attention caches)."""
+    self-attention caches).
+
+    A paged state (``page_table`` present) carries per-row positions
+    ``pos`` [B] (< 0: an idle slot) and page pools instead of the dense
+    caches; each row masks at its own position (the paged kernel applies
+    that mask) and the pools are written in place."""
     pos = state["pos"]
-    max_len = state["l1_self_k"].shape[2]
+    page_table = state.get("page_table")
     we = _embed_words(cfg, params, prev_ids, "trg")
-    if pos == 0:
-        # Marian's no-BOS decoder start: step 0 sees a zero embedding
+    # Marian's no-BOS decoder start: step 0 sees a zero embedding (per
+    # row when paged; <= covers idle slots with deterministic zeros)
+    if page_table is not None:
+        we = torch.where((pos <= 0)[:, None, None], torch.zeros_like(we), we)
+    elif pos == 0:
         we = torch.zeros_like(we)
     x = _add_pos(cfg, we, pos)
     x = _pre_post(cfg, cfg.postprocess_emb, x, None, "decoder_emb", params)
-    self_mask = (torch.arange(max_len, device=x.device) <= pos).to(
-        cfg.compute_dtype)[None, None, None, :]
+    self_mask = None
+    if page_table is None:
+        max_len = state["l1_self_k"].shape[2]
+        self_mask = (torch.arange(max_len, device=x.device) <= pos).to(
+            cfg.compute_dtype)[None, None, None, :]
     cross_mask = src_mask[:, None, None, :]
     new_state = dict(state)
     for l in range(1, cfg.dec_depth + 1):
         lp = f"decoder_l{l}"
-        cache = {"k": state[f"l{l}_self_k"], "v": state[f"l{l}_self_v"]}
+        kinds = ("pool_k", "pool_v") if page_table is not None \
+            else ("self_k", "self_v")
+        cache = {"k": state[f"l{l}_{kinds[0]}"],
+                 "v": state[f"l{l}_{kinds[1]}"]}
         if f"l{l}_spare_k" in state:
             cache["spare_k"] = state[f"l{l}_spare_k"]
             cache["spare_v"] = state[f"l{l}_spare_v"]
         pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_self_Wo", params)
         out = _mha(cfg, params, f"{lp}_self", pre, pre, self_mask,
-                   cache=cache, cache_pos=pos, beam_src=beam_src)
-        new_state[f"l{l}_self_k"] = cache["k"]
-        new_state[f"l{l}_self_v"] = cache["v"]
+                   cache=cache, cache_pos=pos, beam_src=beam_src,
+                   page_table=page_table)
+        new_state[f"l{l}_{kinds[0]}"] = cache["k"]
+        new_state[f"l{l}_{kinds[1]}"] = cache["v"]
         if "spare_k" in cache:
             new_state[f"l{l}_spare_k"] = cache["spare_k"]
             new_state[f"l{l}_spare_v"] = cache["spare_v"]

@@ -1,0 +1,382 @@
+"""marian-server of the port: iteration-level serving over a paged KV
+pool, ported from ``marian_tpu/server/server.py`` (``--batching-mode
+iteration`` at ``--beam-size 1``).
+
+Protocol as the reference's dependency-free transport: length-prefixed
+TCP frames ``MTPU <nbytes>\\n`` + UTF-8 payload in both directions; a
+request frame holds newline-joined source sentences, the reply the
+newline-joined translations. The WebSocket transport is not ported yet.
+
+All requests flow through ONE scheduler (serving/scheduler.py) that lets
+sentences join a running decode every round (translator/iteration.py),
+behind bounded admission (serving/admission.py) that prices queue debt in
+sentences and in KV-pool pages. Error replies are explicit:
+``!!SERVER-OVERLOADED`` (shed), ``!!SERVER-TIMEOUT`` (deadline),
+``!!SERVER-RETRY`` (row evicted by a failed round) and ``!!SERVER-ERROR``
+(bad frame, or a request header whose feature is not ported).
+
+Not ported yet, each refused by name at startup: request-mode batching,
+beam search in iteration mode (PagedBeamEngine), ``--prefix-cache``, the
+decode-feature flags; and by an ``!!SERVER-ERROR`` reply, the ``#trace:``
+and ``#stream:1`` request headers.
+"""
+
+from __future__ import annotations
+
+import asyncio
+from typing import Optional, Tuple, Union
+
+import torch
+
+from ..common import logging as log
+from ..data.batching import bucket_length
+from ..serving.admission import AdmissionController, Overloaded
+from ..serving.scheduler import ContinuousScheduler, RequestTimeout, RowEvicted
+
+# graceful-drain budget on shutdown
+DRAIN_TIMEOUT_S = 30.0
+# per-connection cap on bytes the EOF watch may read ahead of the framing
+# parser while a reply is pending
+MAX_READAHEAD = 1 << 20
+
+# Request headers, in the reference's stacking order #trace, #model,
+# #priority, #stream (a malformed header is payload, never an error).
+TRACE_PREFIX = "#trace:"
+_MAX_TRACE_ID = 64
+MODEL_PREFIX = "#model:"
+_MAX_MODEL_TAG = 64
+PRIORITY_PREFIX = "#priority:"
+PRIORITY_MIN, PRIORITY_MAX = -9, 9
+STREAM_PREFIX = "#stream:"
+
+
+def _split_header(text: str, prefix: str, parse):
+    """(parse(value) | None, body): a first line ``<prefix><value>`` whose
+    value ``parse`` accepts is stripped; anything else is payload."""
+    if not text.startswith(prefix):
+        return None, text
+    first, sep, rest = text.partition("\n")
+    value = parse(first[len(prefix):].strip())
+    if value is None:
+        return None, text
+    return value, rest if sep else ""
+
+
+def _token(alphabet: str, limit: int):
+    def parse(raw: str):
+        ok = raw and len(raw) <= limit \
+            and all(c.isalnum() or c in alphabet for c in raw)
+        return raw if ok else None
+    return parse
+
+
+def _priority(raw: str):
+    # clamped: the scheduler keeps one lane per distinct priority
+    try:
+        return max(PRIORITY_MIN, min(PRIORITY_MAX, int(raw)))
+    except ValueError:
+        return None
+
+
+def split_headers(text: str) -> Tuple[Optional[str], Optional[int],
+                                      Optional[bool], str]:
+    """(trace id, priority, stream, body) of one request frame. A
+    ``#model:`` tag is stripped and ignored, as the reference's
+    single-model server does."""
+    trace_id, body = _split_header(text, TRACE_PREFIX,
+                                   _token("-_", _MAX_TRACE_ID))
+    _, body = _split_header(body, MODEL_PREFIX, _token("-_.", _MAX_MODEL_TAG))
+    priority, body = _split_header(body, PRIORITY_PREFIX, _priority)
+    stream, body = _split_header(
+        body, STREAM_PREFIX,
+        lambda raw: raw == "1" if raw in ("0", "1") else None)
+    return trace_id, priority, stream, body
+
+
+class TranslationService:
+    """The loaded model, vocabularies and parameters, through the port's
+    ``Translate`` (reference: TranslationService in marian_server.cpp)."""
+
+    def __init__(self, options,
+                 device: Optional[Union[str, torch.device]] = None):
+        from ..translator.translator import Translate
+        self.translator = Translate(options, device)
+
+
+# iteration mode refuses these flags by name (set = not off)
+_UNPORTED_FLAGS = ("prefix-cache", "n-best", "output-sampling",
+                   "force-decode", "shortlist", "alignment", "word-scores",
+                   "output-approx-knn")
+
+
+class ServingApp:
+    """One serving stack: the model (TranslationService), the paged
+    engine, the scheduler and admission control. ``engine`` injects a
+    prebuilt engine; ``device`` overrides the device the options
+    resolve."""
+
+    def __init__(self, options, engine=None,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.options = options
+        self._validate_iteration_options(options)
+        self.service: Optional[TranslationService] = None
+        if engine is None:
+            self.service = TranslationService(options, device)
+            engine = self._build_engine()
+        # admission prices queue debt in pages: by default 4x the pool
+        self.max_queue_pages = int(options.get("max-queue-pages", 0) or 0) \
+            or 4 * engine.pool.usable_pages
+        self.scheduler = ContinuousScheduler(
+            engine,
+            engine_factory=self._build_engine if self.service else None)
+        self.admission = AdmissionController(
+            int(options.get("max-queue", 512) or 0),
+            self.scheduler.queued_units,
+            max_queue_pages=self.max_queue_pages,
+            pages_fn=self.scheduler.queued_pages)
+        self.request_timeout = float(options.get("request-timeout", 0) or 0)
+
+    @staticmethod
+    def _validate_iteration_options(options) -> None:
+        """The option surface this slice serves; everything else fails
+        loudly here rather than serving something other than asked."""
+        mode = str(options.get("batching-mode", "request") or "request")
+        if mode == "request":
+            raise NotImplementedError(
+                "--batching-mode request is not ported to marian_tpu_torch "
+                "yet (ROADMAP A6); serve with --batching-mode iteration")
+        if mode != "iteration":
+            raise ValueError(f"--batching-mode must be request or "
+                             f"iteration, got {mode!r}")
+        beam = int(options.get("beam-size", 6) or 6)
+        if beam > 1:
+            raise NotImplementedError(
+                f"--beam-size {beam} in iteration mode (PagedBeamEngine) is "
+                f"not ported to marian_tpu_torch yet (ROADMAP A6); serve "
+                f"with --beam-size 1")
+        if int(options.get("batch-token-budget", 0) or 0):
+            raise NotImplementedError(
+                "--batch-token-budget sizes request-mode batches, which are "
+                "not ported to marian_tpu_torch yet (ROADMAP A6)")
+        for flag in _UNPORTED_FLAGS:
+            if options.get(flag, None) not in (None, False, [], "", 0):
+                raise NotImplementedError(
+                    f"--{flag} in iteration mode is not ported to "
+                    f"marian_tpu_torch yet (ROADMAP A6)")
+        problems = []
+        steps = int(options.get("iteration-steps", 1) or 1)
+        if steps < 1:
+            problems.append(f"--iteration-steps must be >= 1 (got {steps})")
+        if len(list(options.get("models", []) or [])) > 1:
+            problems.append("--models ensembles are not supported")
+        if problems:
+            raise ValueError("--batching-mode iteration does not support: "
+                             + "; ".join(problems))
+
+    def _build_engine(self):
+        """A fresh PagedDecodeEngine over the loaded model."""
+        from ..translator.iteration import PagedDecodeEngine
+        tr = self.service.translator
+        opts = self.options
+        ml = max(1, int(opts.get("max-length", 50) or 50))
+        return PagedDecodeEngine(
+            tr.model, tr.params, tr.src_vocab, tr.trg_vocab,
+            max_rows=int(opts.get("iteration-rows", 32) or 32),
+            page_len=int(opts.get("kv-page-len", 16) or 16),
+            pool_bytes=int(opts.get("kv-pool-bytes", 0) or 0),
+            src_len_cap=bucket_length(ml + 1),
+            max_length_cap=ml,
+            max_length_factor=float(
+                opts.get("max-length-factor", 3.0) or 3.0),
+            steps_per_round=int(opts.get("iteration-steps", 1) or 1))
+
+    def start(self) -> None:
+        """Start the scheduler on the RUNNING loop."""
+        self.scheduler.start()
+        engine = self.scheduler.engine
+        log.info("Serving on {}: iteration mode, {} rows, {} steps a round, "
+                 "KV pool of {} pages of {} tokens, queue limit {} sentences "
+                 "/ {} pages, request timeout {}", engine.device,
+                 engine.max_rows, engine.steps_per_round,
+                 engine.pool.usable_pages, engine.page_len,
+                 self.admission.max_queue_units or "unbounded",
+                 self.max_queue_pages,
+                 f"{self.request_timeout}s" if self.request_timeout
+                 else "none")
+
+    async def handle_frame(self, text: str) -> str:
+        """One request frame in, one reply frame out: headers, admission,
+        scheduler, reply."""
+        trace_id, priority, stream, body = split_headers(text)
+        if trace_id is not None:
+            return ("!!SERVER-ERROR the #trace: header (request tracing) is "
+                    "not ported to marian_tpu_torch yet")
+        if stream:
+            return ("!!SERVER-ERROR the #stream:1 header (partial replies) "
+                    "is not ported to marian_tpu_torch yet")
+        lines = body.split("\n")
+        engine = self.scheduler.engine
+        try:
+            self.admission.admit(
+                len(lines), n_pages=sum(engine.pages_for_text(l)
+                                        for l in lines))
+        except Overloaded as e:
+            return f"!!SERVER-OVERLOADED {e}"
+        fut = self.scheduler.submit(lines, priority=priority or 0,
+                                    timeout=self.request_timeout or None)
+        try:
+            out = await fut
+        except RequestTimeout as e:
+            return f"!!SERVER-TIMEOUT {e}"
+        except RowEvicted as e:
+            return f"!!SERVER-RETRY {e}"
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — logged by the scheduler
+            return ""
+        return "\n".join(out)
+
+    async def shutdown(self, drain_timeout: float = DRAIN_TIMEOUT_S) -> bool:
+        """Stop admitting, finish queued and decoding work, then stop."""
+        self.admission.begin_drain()
+        queued = self.scheduler.queued_units()
+        if queued:
+            log.info("Draining {} queued sentences (up to {}s)", queued,
+                     drain_timeout)
+        ok = await self.scheduler.drain(drain_timeout)
+        if not ok:
+            log.warn("Drain timed out after {}s — queued requests failed",
+                     drain_timeout)
+        # the handlers write the last replies in later loop steps
+        await asyncio.sleep(0.2)
+        return ok
+
+
+def _make_tcp_handler(app: ServingApp):
+    """Length-prefixed TCP framing, ``MTPU <nbytes>\\n`` + payload, both
+    directions. While a reply is pending the connection is watched for
+    EOF: a client that disconnects cancels its request, so its queued
+    sentences are dropped and its decoding rows evicted. The watch is
+    re-armed after every pipelined chunk; read-ahead lands in a buffer
+    that the framing reads drain first."""
+    async def on_connection(reader: asyncio.StreamReader,
+                            writer: asyncio.StreamWriter):
+        buf = b""
+
+        async def _readline() -> bytes:
+            nonlocal buf
+            if b"\n" in buf:
+                line, _, rest = buf.partition(b"\n")
+                buf = rest
+                return line + b"\n"
+            line, buf = buf, b""
+            return line + await reader.readline()
+
+        async def _readexactly(n: int) -> bytes:
+            nonlocal buf
+            take, buf = buf[:n], buf[n:]
+            if len(take) < n:
+                take += await reader.readexactly(n - len(take))
+            return take
+
+        try:
+            while True:
+                header = await _readline()
+                if not header:
+                    break
+                parts = header.split()
+                # a non-negative integer length, or the bad-frame reply
+                nbytes = (int(parts[1])
+                          if len(parts) == 2 and parts[0] == b"MTPU"
+                          and parts[1].isdigit() else -1)
+                if nbytes < 0:
+                    writer.write(b"MTPU 24\n!!SERVER-ERROR bad frame")
+                    await writer.drain()
+                    break
+                payload = await _readexactly(nbytes)
+                reply_t = asyncio.ensure_future(
+                    app.handle_frame(payload.decode("utf-8")))
+                eof = False
+                while not reply_t.done():
+                    if len(buf) >= MAX_READAHEAD:
+                        # bounded read-ahead: let TCP backpressure throttle
+                        # a flooding pipeliner
+                        await asyncio.wait({reply_t})
+                        break
+                    watch = asyncio.ensure_future(reader.read(65536))
+                    await asyncio.wait({reply_t, watch},
+                                       return_when=asyncio.FIRST_COMPLETED)
+                    if watch.done():
+                        data = watch.result()
+                        if not data:    # EOF: client gone mid-request
+                            eof = True
+                            break
+                        buf += data     # pipelined bytes: keep, re-watch
+                    else:
+                        # cancelling an un-fired read() consumes nothing
+                        watch.cancel()
+                        try:
+                            await watch
+                        except asyncio.CancelledError:
+                            pass
+                if eof and not reply_t.done():
+                    reply_t.cancel()
+                    try:
+                        await reply_t
+                    except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                        pass
+                    break
+                out = (await reply_t).encode("utf-8")
+                writer.write(b"MTPU %d\n" % len(out) + out)
+                await writer.drain()
+        except (asyncio.IncompleteReadError, ConnectionError, ValueError):
+            pass                     # client went away / malformed frame
+        finally:
+            try:
+                writer.close()
+            except Exception:  # noqa: BLE001
+                pass
+    return on_connection
+
+
+async def _serve(options, ready: Optional[asyncio.Future] = None) -> None:
+    """Serve until cancelled, then drain. ``ready`` is resolved with the
+    bound port once listening (``--port 0`` binds an ephemeral one)."""
+    app = ServingApp(options)
+    app.start()
+    server = await asyncio.start_server(_make_tcp_handler(app), "0.0.0.0",
+                                        int(options.get("port", 8080)))
+    async with server:
+        bound = server.sockets[0].getsockname()[1]
+        log.info("Server is listening on port {} (tcp, MTPU framing)", bound)
+        if ready is not None and not ready.cancelled():
+            ready.set_result(bound)
+        try:
+            await asyncio.Future()
+        except asyncio.CancelledError:
+            # drain while client connections are still open, so in-flight
+            # clients get their replies before the listener goes down
+            await asyncio.shield(app.shutdown())
+            raise
+
+
+def serve_main(options) -> None:
+    async def _main():
+        import signal
+        loop = asyncio.get_event_loop()
+        task = asyncio.ensure_future(_serve(options))
+        # SIGTERM and SIGINT both go through _serve's drain
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                loop.add_signal_handler(sig, task.cancel)
+            except (NotImplementedError, RuntimeError):  # pragma: no cover
+                pass
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+
+    try:
+        asyncio.run(_main())
+    except KeyboardInterrupt:
+        pass

@@ -1,0 +1,78 @@
+"""Admission control for the serving subsystem, ported from
+``marian_tpu/serving/admission.py`` without the brownout rung and the
+metrics.
+
+A bounded queue with an EXPLICIT cheap rejection (``Overloaded``, which
+the transports turn into ``!!SERVER-OVERLOADED``) instead of a queue that
+grows until the host runs out of memory, and a drain mode that lets
+in-flight work finish while new requests are refused. Units are
+SENTENCES; in iteration mode the queue debt is also priced in KV-pool
+PAGES, since a 500-token sentence owes far more pool than a 5-token one.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
+
+
+class Overloaded(RuntimeError):
+    """Request shed by admission control (queue full or draining).
+    ``retriable`` tells "try again shortly" (queue full) from "this
+    replica is going away" (draining)."""
+
+    def __init__(self, message: str, retriable: bool = True):
+        super().__init__(message)
+        self.retriable = retriable
+
+
+class AdmissionController:
+    """Bounded-queue gate in front of the scheduler.
+
+    ``depth_fn`` reports the scheduler's live queued sentences and
+    ``pages_fn`` its live queued page debt; ``max_queue_units <= 0`` or
+    ``max_queue_pages <= 0`` disables that bound."""
+
+    def __init__(self, max_queue_units: int, depth_fn: Callable[[], int],
+                 max_queue_pages: int = 0,
+                 pages_fn: Optional[Callable[[], int]] = None):
+        self.max_queue_units = int(max_queue_units)
+        self.depth_fn = depth_fn
+        self.max_queue_pages = int(max_queue_pages)
+        self.pages_fn = pages_fn
+        # the transports admit on the event-loop thread; begin_drain may
+        # come from another (a signal handler, an embedding program)
+        self._lock = threading.Lock()
+        self._draining = False
+
+    @property
+    def draining(self) -> bool:
+        with self._lock:
+            return self._draining
+
+    def admit(self, n_units: int, n_pages: int = 0) -> None:
+        """Gate one request of ``n_units`` sentences owing ``n_pages``
+        pages: raises Overloaded instead of queueing when a bound would
+        be exceeded or the server is draining. All-or-nothing per
+        request, so one client's reply never splits across a shed."""
+        if self.draining:
+            raise Overloaded("server is draining (shutting down); retry "
+                             "against another replica", retriable=False)
+        if self.max_queue_units > 0:
+            depth = int(self.depth_fn())
+            if depth + n_units > self.max_queue_units:
+                raise Overloaded(
+                    f"queue full ({depth}/{self.max_queue_units} sentences "
+                    f"queued, request adds {n_units}); retry later")
+        if self.max_queue_pages > 0 and self.pages_fn is not None:
+            pages = int(self.pages_fn())
+            if pages + n_pages > self.max_queue_pages:
+                raise Overloaded(
+                    f"queue page debt full ({pages}/"
+                    f"{self.max_queue_pages} KV-pool pages owed, request "
+                    f"adds {n_pages}); retry later")
+
+    def begin_drain(self) -> None:
+        """Stop admitting (idempotent)."""
+        with self._lock:
+            self._draining = True

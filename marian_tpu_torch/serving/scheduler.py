@@ -1,0 +1,407 @@
+"""The iteration-level serving scheduler, the ``--batching-mode
+iteration`` path of ``marian_tpu/serving/scheduler.py`` ::
+``ContinuousScheduler`` (without the spans, quiesce, brownout and
+metrics planes, and without request mode).
+
+Requests split into SENTENCE UNITS in priority lanes. Scheduling runs
+INSIDE the decode loop: every round, a join pass admits queued units
+against the paged engine's free slots and pages, then one
+``admit_and_step`` on the single device worker thread advances every
+active row; finished rows resolve the round they finish, and a sentence
+joins the moment capacity exists instead of waiting for a batch to
+drain. Per-request deadlines (``timeout``) fail the request on time even
+while queued; a cancelled request (client gone) has its queued units
+dropped and its decoding rows evicted, pages freed, at the next round.
+A round that raises fails its rows (retriably when the engine can be
+rebuilt, as after a pool audit failure) and rebuilds the engine.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import concurrent.futures
+import threading
+from typing import Callable, Deque, Dict, List, Optional
+
+from ..common import logging as log
+from ..translator.iteration import FATAL_REASONS
+
+
+class RequestTimeout(RuntimeError):
+    """The request's deadline expired before it completed."""
+
+
+class RowEvicted(RuntimeError):
+    """A decoding row was evicted with its pages freed because its round
+    failed and the engine was rebuilt. Retriable: the server replies
+    ``!!SERVER-RETRY``."""
+
+    retriable = True
+
+
+def default_length_fn(line: str) -> int:
+    """Whitespace token estimate (+1 for EOS)."""
+    return len(line.split()) + 1
+
+
+class _Request:
+    __slots__ = ("lines", "future", "priority", "arrival", "results",
+                 "remaining", "queued", "queued_pages", "timeout_handle",
+                 "dead_accounted")
+
+    def __init__(self, lines: List[str], future: "asyncio.Future",
+                 priority: int, arrival: float):
+        self.lines = lines
+        self.future = future
+        self.priority = priority
+        self.arrival = arrival
+        self.results: List[Optional[str]] = [None] * len(lines)
+        self.remaining = len(lines)
+        self.queued = len(lines)        # units currently sitting in lanes
+        self.queued_pages = 0           # page debt of those units
+        self.timeout_handle = None
+        # True once _on_request_done counted this request's leftover
+        # queued units as dead: the future is done at set_exception
+        # time, but its done-callbacks run via call_soon, and a join pass
+        # in that gap must only uncount what the callback counted
+        self.dead_accounted = False
+
+
+class _Unit:
+    """One sentence of one request: the scheduling granule and the
+    engine's row key."""
+
+    __slots__ = ("req", "idx", "text", "tokens", "pages")
+
+    def __init__(self, req: _Request, idx: int, text: str, tokens: int,
+                 pages: int):
+        self.req = req
+        self.idx = idx
+        self.text = text
+        self.tokens = tokens
+        self.pages = pages          # KV-pool pages this sentence will claim
+
+
+class ContinuousScheduler:
+    def __init__(self, engine,
+                 engine_factory: Optional[Callable[[], object]] = None,
+                 window_s: float = 0.002, scan_limit: int = 512,
+                 length_fn: Callable[[str], int] = default_length_fn,
+                 executor: Optional[concurrent.futures.Executor] = None):
+        self.engine = engine
+        # rebuilds the engine after a failed round
+        self.engine_factory = engine_factory
+        # coalescing pause at the edge of an idle period, so a burst of
+        # concurrent clients lands in one round
+        self.window_s = window_s
+        # bound on units examined per join pass
+        self.scan_limit = scan_limit
+        self.length_fn = length_fn
+        # ONE device worker thread: the engine is not re-entrant, and
+        # concurrency comes from the rows of a round, not from threads
+        self._executor = executor or concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="serve-device")
+        self._own_executor = executor is None
+        # lanes are event-loop-only; the counters below are also read by
+        # admission from other threads, hence the lock
+        self._lanes: Dict[int, Deque[_Unit]] = collections.defaultdict(
+            collections.deque)
+        self._state_lock = threading.Lock()
+        self._queued = 0                  # guarded by _state_lock
+        self._queued_pages = 0            # guarded by _state_lock
+        # units in lanes whose request already resolved: still queued
+        # until the next join pass sweeps them, but admission must not
+        # shed live traffic against them
+        self._dead = 0                    # guarded by _state_lock
+        self._dead_pages = 0              # guarded by _state_lock
+        self._wake = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+        self._inflight = 0
+        # units decoding in engine slots (event-loop-only)
+        self._active_units: Dict[_Unit, None] = {}
+        # outcomes and events over the scheduler's life (event-loop-only)
+        self.counts: collections.Counter = collections.Counter()
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> None:
+        """Start the worker on the RUNNING loop (call from a coroutine)."""
+        if self._task is None:
+            self._task = asyncio.ensure_future(self._run())
+
+    async def stop(self) -> None:
+        """Hard stop: cancel the worker; queued and decoding requests
+        fail explicitly (never a silent hang)."""
+        pending = list(self._active_units)
+        self._active_units.clear()
+        if self._task is not None:
+            self._task.cancel()
+            try:
+                await self._task
+            except (asyncio.CancelledError, Exception):  # noqa: BLE001
+                pass
+            self._task = None
+        for u in pending:
+            if not u.req.future.done():
+                u.req.future.set_exception(
+                    RuntimeError("server shut down mid-decode"))
+        for lane in self._lanes.values():
+            for u in lane:
+                # zero the request's queued count before its done-callback
+                # runs, so it cannot re-inflate the counters zeroed below
+                u.req.queued = 0
+                u.req.queued_pages = 0
+                if not u.req.future.done():
+                    u.req.future.set_exception(
+                        RuntimeError("server shut down"))
+            lane.clear()
+        with self._state_lock:
+            self._queued = self._dead = 0
+            self._queued_pages = self._dead_pages = 0
+        if self._own_executor:
+            self._executor.shutdown(wait=False)
+
+    async def drain(self, timeout: Optional[float] = None) -> bool:
+        """Graceful shutdown: finish everything queued or decoding, then
+        stop. Returns True when fully drained, False on timeout."""
+        loop = asyncio.get_event_loop()
+        dl = loop.time() + timeout if timeout is not None else None
+        while self._queue_size() or self._inflight or self._active_units:
+            if dl is not None and loop.time() >= dl:
+                await self.stop()
+                return False
+            self._wake.set()
+            await asyncio.sleep(0.005)
+        await self.stop()
+        return True
+
+    # -- submission ---------------------------------------------------------
+    def queued_units(self) -> int:
+        """LIVE queued sentences (what admission sees)."""
+        with self._state_lock:
+            return max(0, self._queued - self._dead)
+
+    def queued_pages(self) -> int:
+        """LIVE queue debt in KV-pool pages (what page-priced admission
+        sees)."""
+        with self._state_lock:
+            return max(0, self._queued_pages - self._dead_pages)
+
+    def _queue_size(self) -> int:
+        with self._state_lock:
+            return self._queued
+
+    def submit(self, lines: List[str], priority: int = 0,
+               timeout: Optional[float] = None) -> "asyncio.Future":
+        """Enqueue one request (a list of sentences); returns a future of
+        the translations in input order. Event-loop thread only; cancel
+        the future to cancel the request."""
+        loop = asyncio.get_event_loop()
+        fut = loop.create_future()
+        if not lines:
+            fut.set_result([])
+            return fut
+        req = _Request(lines, fut, priority, loop.time())
+        with self._state_lock:
+            for i, text in enumerate(lines):
+                pages = self.engine.pages_for_text(text)
+                u = _Unit(req, i, text, max(1, int(self.length_fn(text))),
+                          pages)
+                self._lanes[priority].append(u)
+                self._queued += 1
+                self._queued_pages += pages
+                req.queued_pages += pages
+        if timeout and timeout > 0:
+            # fires even for a unit buried in the backlog: the client gets
+            # its error on time, and the dead units cost no device work
+            req.timeout_handle = loop.call_at(
+                req.arrival + timeout, self._expire_request, req, loop)
+        fut.add_done_callback(
+            lambda f, _req=req: self._on_request_done(f, _req))
+        self._wake.set()
+        return fut
+
+    def _expire_request(self, req: _Request, loop) -> None:
+        if not req.future.done():
+            self.counts["timeouts"] += 1
+            req.future.set_exception(RequestTimeout(
+                f"request deadline expired after "
+                f"{(loop.time() - req.arrival):.3f}s "
+                f"({req.remaining}/{len(req.lines)} sentences unfinished)"))
+
+    def _on_request_done(self, fut: "asyncio.Future", req: _Request) -> None:
+        if fut.cancelled():
+            self.counts["cancelled"] += 1
+        # the request's units still in lanes are dead from now on
+        with self._state_lock:
+            req.dead_accounted = True
+            self._dead += req.queued
+            self._dead_pages += req.queued_pages
+
+    # -- worker -------------------------------------------------------------
+    async def _run(self) -> None:
+        loop = asyncio.get_event_loop()
+        while True:
+            try:
+                was_idle = False
+                while self._queue_size() == 0 and not self._active_units:
+                    self._wake.clear()
+                    was_idle = True
+                    await self._wake.wait()
+                if was_idle and self.window_s > 0:
+                    await asyncio.sleep(self.window_s)
+                await self._iteration_round(loop)
+            except asyncio.CancelledError:
+                raise
+            except Exception as e:  # noqa: BLE001 — supervision: never die
+                log.error("serving scheduler error (recovered): {}", e)
+
+    def _form_join_set(self) -> List[_Unit]:
+        """The join pass: highest lane first, FIFO within a lane, packed
+        against the engine's free slots and pages; units of resolved
+        requests are swept here, before they cost device time."""
+        joins: List[_Unit] = []
+        budget_pages = self.engine.free_pages()
+        budget_slots = self.engine.free_slots()
+        usable = self.engine.pool.usable_pages
+        scanned = 0
+        skipped: List[_Unit] = []
+        with self._state_lock:
+            for prio in sorted(self._lanes.keys(), reverse=True):
+                lane = self._lanes[prio]
+                while lane and scanned < self.scan_limit:
+                    u = lane.popleft()
+                    scanned += 1
+                    self._queued -= 1
+                    self._queued_pages -= u.pages
+                    u.req.queued -= 1
+                    u.req.queued_pages -= u.pages
+                    if u.req.future.done():
+                        if u.req.dead_accounted:
+                            self._dead -= 1
+                            self._dead_pages -= u.pages
+                        continue
+                    if u.pages > usable:
+                        # the estimate says it can NEVER fit: hand it to
+                        # the engine, which re-measures and admits or
+                        # rejects it fatally (parking it here would block
+                        # the queue head forever)
+                        joins.append(u)
+                        continue
+                    if len(joins) >= budget_slots \
+                            or u.pages > budget_pages:
+                        skipped.append(u)
+                        continue
+                    budget_pages -= u.pages
+                    joins.append(u)
+                if scanned >= self.scan_limit:
+                    break
+            # back to the FRONT of their lanes, in order (FIFO kept)
+            for u in reversed(skipped):
+                self._lanes[u.req.priority].appendleft(u)
+                self._queued += 1
+                self._queued_pages += u.pages
+                u.req.queued += 1
+                u.req.queued_pages += u.pages
+        return joins
+
+    def _requeue_front(self, u: _Unit) -> None:
+        """Return a join-rejected unit to the FRONT of its lane (the
+        engine's claim re-check lost a capacity race)."""
+        with self._state_lock:
+            self._lanes[u.req.priority].appendleft(u)
+            self._queued += 1
+            self._queued_pages += u.pages
+            u.req.queued += 1
+            u.req.queued_pages += u.pages
+            if u.req.future.done() and u.req.dead_accounted:
+                # died between pop and requeue: the done-callback could
+                # no longer count it
+                self._dead += 1
+                self._dead_pages += u.pages
+
+    def _fail_unit(self, u: _Unit, message: str) -> None:
+        if u.req.future.done():
+            return
+        self.counts["failures"] += 1
+        log.error("iteration admission: {}", message)
+        u.req.future.set_exception(RuntimeError(message))
+
+    async def _iteration_round(self, loop) -> None:
+        """One join pass + one engine round on the device worker."""
+        engine = self.engine
+        joins = self._form_join_set()
+        evicts = [u for u in self._active_units if u.req.future.done()]
+        self._inflight += 1
+        try:
+            res = await loop.run_in_executor(
+                self._executor, engine.admit_and_step,
+                [(u, u.text) for u in joins], evicts)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            # a round computes all rows jointly: no per-sentence retry
+            self._iteration_failed(joins, e)
+            return
+        finally:
+            self._inflight -= 1
+        for u in evicts:
+            if u in self._active_units:
+                del self._active_units[u]
+                self.counts["evictions"] += 1
+        for u in res.accepted:
+            self._active_units[u] = None
+        requeue: List[_Unit] = []
+        for u, why in res.rejected:
+            if why in FATAL_REASONS:
+                detail = res.reject_detail.get(
+                    u, "exceeds the engine's source cap or the whole KV "
+                       "pool")
+                self._fail_unit(u, f"sentence cannot be admitted ({why}): "
+                                   f"{detail}")
+            else:
+                requeue.append(u)
+        # reversed, so the lane keeps FIFO order across rejection rounds
+        for u in reversed(requeue):
+            self._requeue_front(u)
+        for u, text in res.finished:
+            self._active_units.pop(u, None)
+            self._complete_unit(u, text)
+
+    def _iteration_failed(self, joins: List[_Unit], exc) -> None:
+        """The round raised: its rows' requests fail (retriably when the
+        engine can be rebuilt or the error says so) and the engine is
+        rebuilt from the factory."""
+        victims = list(self._active_units) + joins
+        self._active_units.clear()
+        log.error("iteration decode round failed ({} sentences): {}",
+                  len(victims), exc)
+        retriable = bool(getattr(exc, "retriable", False)) \
+            or self.engine_factory is not None
+        for u in victims:
+            if u.req.future.done():
+                continue
+            if retriable:
+                self.counts["evictions"] += 1
+                u.req.future.set_exception(RowEvicted(
+                    f"row evicted: decode round failed ({exc}) — retry"))
+            else:
+                self.counts["failures"] += 1
+                u.req.future.set_exception(RuntimeError(str(exc)))
+        if self.engine_factory is not None:
+            try:
+                self.engine = self.engine_factory()
+            except Exception as e:  # noqa: BLE001
+                log.error("engine rebuild after failure failed: {}", e)
+
+    def _complete_unit(self, u: _Unit, line: str) -> None:
+        req = u.req
+        if req.future.done():
+            return                    # cancelled/timed out while decoding
+        req.results[u.idx] = line
+        req.remaining -= 1
+        if req.remaining == 0:
+            if req.timeout_handle is not None:
+                req.timeout_handle.cancel()
+            req.future.set_result([r if r is not None else ""
+                                   for r in req.results])

@@ -1,0 +1,502 @@
+"""Iteration-level (continuous) greedy decoding over a paged KV pool, the
+port of ``marian_tpu/translator/iteration.py`` (``PagedDecodeEngine``
+without the prefix cache, the decode-feature plane, the metrics and the
+compile witness).
+
+Decode rows are SLOTS over one shared paged KV pool
+(ops/kernels/kv_pool.py):
+
+- a sentence JOINS a running decode at any round boundary, claiming a
+  slot and the pages of its own decode cap, and starts at its own
+  position 0 beside rows deep into theirs;
+- a finished sentence LEAVES at the step it emits EOS (or reaches its
+  cap), releasing its pages at once;
+- each round runs ``steps_per_round`` decode steps over the occupied
+  slot prefix, rounded UP to a row bucket (``ROW_BUCKETS``), with one
+  copy of the tokens to the host per round. Joins encode at
+  ``JOIN_BUCKETS`` rows and halving source widths. Eager PyTorch needs
+  no closed shape set; the buckets keep the reference's computed rows
+  and widths, and they are the shapes a CUDA graph would capture.
+
+Threading: ``admit_and_step`` runs on the serving scheduler's single
+device worker thread, and the event loop touches the engine only
+between rounds, so engine state has one thread at a time (the pool's
+own lock covers its readers). The grad mode and the current CUDA device
+are per thread, so ``admit_and_step`` enters ``torch.inference_mode``
+and the engine's device itself.
+
+Determinism: joins take the LOWEST free slot in caller order, page
+claims pop a deterministic free list and idle slots write zeros into the
+trash page, so a replayed join/evict schedule gives identical outputs.
+With ``MARIAN_POOL_AUDIT=1`` every round ends with a full pool audit
+that raises :class:`PoolCorruption` on a violation.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..common import logging as log
+from ..data.vocab import EOS_ID
+from ..ops.kernels.kv_pool import (DEFAULT_PAGE_LEN, KVPool, PoolCorruption,
+                                   PoolExhausted, ROW_BUCKETS, bucket_rows,
+                                   pages_for_tokens, state_key_groups)
+
+# with MARIAN_POOL_AUDIT=1 every admit+step round ends with a full
+# invariant audit; without it the audit runs when a caller asks and the
+# row-exit leak check stays on
+ENV_POOL_AUDIT = "MARIAN_POOL_AUDIT"
+
+# join rejections that can never succeed: the scheduler fails the
+# request instead of re-queueing it (an unadmittable head-of-line
+# sentence must not park the queue)
+FATAL_REASONS = ("src_too_long", "too_large")
+
+
+@dataclass
+class StepResult:
+    """One admit+step round."""
+    accepted: List[object] = field(default_factory=list)
+    # (key, reason); reasons in FATAL_REASONS are permanent
+    rejected: List[Tuple[object, str]] = field(default_factory=list)
+    # key -> what a FATAL rejection needed against what the engine has
+    reject_detail: Dict[object, str] = field(default_factory=dict)
+    finished: List[Tuple[object, str]] = field(default_factory=list)
+    rows: int = 0                 # active rows this round (before finishes)
+    steps: int = 0                # decode steps the round ran
+    device_s: float = 0.0         # admit+step wall time (ends in a sync)
+    mid_decode_joins: int = 0     # joins that landed beside running rows
+
+
+class _Slot:
+    __slots__ = ("key", "tokens", "pos", "cap", "prev", "expected_refs")
+
+    def __init__(self, key, cap: int, expected_refs: int):
+        self.key = key
+        self.tokens: List[int] = []
+        self.pos = 0                # next write position
+        self.cap = cap              # decode cap (max positions)
+        self.prev = 0               # previous token id (0 at pos 0)
+        # page references the row's exit must give back
+        self.expected_refs = expected_refs
+
+
+class PagedDecodeEngine:
+    """Slot-based continuous greedy decoder over a paged KV pool."""
+
+    # encode-at-join batch buckets
+    JOIN_BUCKETS = (1, 2, 4, 8)
+
+    def __init__(self, model, params, src_vocab, trg_vocab,
+                 max_rows: int = 32,
+                 page_len: int = DEFAULT_PAGE_LEN,
+                 pool_bytes: int = 0,
+                 src_len_cap: int = 64,
+                 max_length_cap: int = 256,
+                 max_length_factor: float = 3.0,
+                 row_buckets: Sequence[int] = ROW_BUCKETS,
+                 steps_per_round: int = 1):
+        cfg = model.cfg
+        self.model = model
+        self.params = params
+        self.device = next(iter(params.values())).device
+        self.src_vocab = src_vocab
+        self.trg_vocab = trg_vocab
+        self.max_rows = int(max_rows)
+        self.page_len = int(page_len)
+        self.src_cap = int(src_len_cap)
+        self.max_length_cap = int(max_length_cap)
+        self.max_length_factor = float(max_length_factor)
+        self.row_buckets = tuple(sorted({min(b, self.max_rows)
+                                         for b in row_buckets}))
+        if self.max_rows > max(row_buckets):
+            raise ValueError(
+                f"max_rows {self.max_rows} exceeds the largest row "
+                f"bucket {max(row_buckets)} (extend row_buckets or "
+                f"lower --iteration-rows)")
+        self.max_pages = pages_for_tokens(self.max_length_cap,
+                                          self.page_len)
+        # decode steps per round: joins are admitted every round, so the
+        # admission granularity is steps_per_round steps; a row that
+        # finishes mid-round self-feeds until the host cuts at its EOS
+        self.steps_per_round = max(1, int(steps_per_round))
+        h, dh, depth = cfg.heads, cfg.dim_head, cfg.dec_depth
+        itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        # bytes one PAGE costs across the whole decoder: K+V, all layers
+        self.page_bytes = 2 * depth * h * self.page_len * dh * itemsize
+        if pool_bytes and pool_bytes > 0:
+            n_pages = 1 + max(1, int(pool_bytes) // self.page_bytes)
+        else:
+            # every slot can hold a full-cap row: the pool is then never
+            # the constraint (shrink --kv-pool-bytes to make it one)
+            n_pages = 1 + self.max_rows * self.max_pages
+        self.pool = KVPool(n_pages, self.page_len,
+                           max_pages_per_row=self.max_pages)
+        # device state: the model's paged state (pools + per-slot cross
+        # K/V) and the per-slot source mask; idle rows keep one live
+        # source position
+        with self._on_device():
+            enc0 = torch.zeros((self.max_rows, self.src_cap, cfg.dim_emb),
+                               dtype=cfg.compute_dtype, device=self.device)
+            self._src_mask = torch.zeros((self.max_rows, self.src_cap),
+                                         device=self.device)
+            self._src_mask[:, 0] = 1.0
+            self._state = model.start_paged_state(
+                params, enc0, self._src_mask, n_pages, self.page_len,
+                self.max_pages)
+        self._keys = state_key_groups(self._state)
+        # host page-table mirror, uploaded with every round
+        self._table = np.zeros((self.max_rows, self.max_pages), np.int32)
+        self._slots: List[Optional[_Slot]] = [None] * self.max_rows
+        self._by_key: Dict[object, int] = {}
+        self._n_active = 0
+        self._audit_always = os.environ.get(ENV_POOL_AUDIT, "") == "1"
+        # totals over the engine's life: rounds, decode steps, active
+        # rows summed over rounds, joins, mid-decode joins, encoder
+        # calls, audits and failed audits, and the rounds' wall seconds
+        self.counters: Dict[str, float] = {
+            "rounds": 0, "steps": 0, "rows": 0, "joins": 0,
+            "mid_decode_joins": 0, "encodes": 0, "audits": 0,
+            "audit_failures": 0, "round_s": 0.0}
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """inference mode plus the engine's CUDA device as the current
+        one: both are per thread, and rounds run on a worker thread."""
+        with torch.inference_mode(), (
+                torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext()):
+            yield
+
+    # -- capacity -----------------------------------------------------------
+    def active_rows(self) -> int:
+        return self._n_active
+
+    def free_pages(self) -> int:
+        return self.pool.free_pages()
+
+    def free_slots(self) -> int:
+        return self.max_rows - self._n_active
+
+    def idle(self) -> bool:
+        return self._n_active == 0
+
+    def decode_cap(self, n_src_tokens: int) -> int:
+        """Decode cap for a sentence: the beam search's max-length-factor
+        rule, so both modes price work the same."""
+        return min(self.max_length_cap,
+                   max(8, round(self.max_length_factor
+                                * max(1, n_src_tokens))))
+
+    def pages_for_text(self, text: str) -> int:
+        """Pages one sentence will claim (admission prices queue debt in
+        pages). A whitespace estimate; the join re-measures with the
+        vocab's encoding."""
+        n_src = len(text.split()) + 1
+        return pages_for_tokens(self.decode_cap(n_src), self.page_len)
+
+    # -- the admit + step round (one thread at a time) ----------------------
+    def admit_and_step(self, joins: Sequence[Tuple[object, str]],
+                       evicts: Sequence[object] = ()) -> StepResult:
+        """Apply evictions (dead requests), admit what fits, run one
+        round over the occupied slots. Never blocks on pool space: a join
+        that does not fit comes back rejected (``no_slot``/``no_pages``:
+        retry later; FATAL_REASONS: fail the request)."""
+        t0 = time.perf_counter()
+        res = StepResult()
+        with self._on_device():
+            for key in evicts:
+                self._evict(key)
+            rows_before = self._n_active
+            joiners: List[Tuple[object, List[int], int]] = []
+            for key, text in joins:
+                why = self._try_claim(key, text, joiners, res.reject_detail)
+                if why is None:
+                    res.accepted.append(key)
+                else:
+                    res.rejected.append((key, why))
+            if joiners:
+                self._install(joiners)
+                if rows_before > 0:
+                    res.mid_decode_joins = len(joiners)
+            if self._n_active > 0:
+                self._step(res)
+        if self._audit_always:
+            bad = self.audit(context="round")
+            if bad:
+                # corrupted page state must never serve another token:
+                # the scheduler fails the round's rows retriably and
+                # rebuilds the engine
+                raise PoolCorruption("pool audit failed: "
+                                     + "; ".join(bad[:4]))
+        res.device_s = time.perf_counter() - t0
+        c = self.counters
+        c["rounds"] += 1
+        c["steps"] += res.steps
+        c["rows"] += res.rows
+        c["joins"] += len(res.accepted)
+        c["mid_decode_joins"] += res.mid_decode_joins
+        c["round_s"] += res.device_s
+        return res
+
+    def _try_claim(self, key, text: str, joiners: List,
+                   detail: Dict[object, str]) -> Optional[str]:
+        ids = self.src_vocab.encode(text, add_eos=True)
+        if len(ids) > self.src_cap:
+            detail[key] = (f"source encodes to {len(ids)} tokens but the "
+                           f"engine's source cap is {self.src_cap} (raise "
+                           f"--max-length)")
+            return "src_too_long"
+        cap = self.decode_cap(len(ids))
+        n_pages = pages_for_tokens(cap, self.page_len)
+        if n_pages > self.pool.max_pages_per_row:
+            detail[key] = (f"decode cap {cap} tokens needs {n_pages} KV "
+                           f"pages of {self.page_len} tokens but the page "
+                           f"table holds {self.pool.max_pages_per_row}/row "
+                           f"(raise --kv-page-len or --kv-pool-bytes)")
+            return "too_large"
+        if self._n_active >= self.max_rows:
+            return "no_slot"
+        try:
+            pages = self.pool.claim(key, n_pages)
+        except PoolExhausted:
+            # retriable only if the pool could EVER satisfy it
+            if n_pages > self.pool.usable_pages:
+                detail[key] = (
+                    f"decode cap {cap} tokens needs {n_pages} KV pages but "
+                    f"the whole pool holds only {self.pool.usable_pages} "
+                    f"allocatable pages of {self.page_len} tokens (raise "
+                    f"--kv-pool-bytes or lower --max-length)")
+                return "too_large"
+            return "no_pages"
+        # the lowest free slot keeps the occupied prefix (and with it the
+        # row bucket) tight
+        slot = self._slots.index(None)
+        self._slots[slot] = _Slot(key, cap, expected_refs=n_pages)
+        self._by_key[key] = slot
+        self._n_active += 1
+        self._table[slot, :] = 0
+        self._table[slot, :len(pages)] = pages
+        joiners.append((key, ids, slot))
+        return None
+
+    def _evict(self, key) -> bool:
+        """A row leaves (finished, or its request died): release its
+        pages and clear its table row."""
+        slot = self._by_key.pop(key, None)
+        if slot is None:
+            return False
+        s = self._slots[slot]
+        self._slots[slot] = None
+        self._n_active -= 1
+        released = self.pool.release(key)
+        # row-exit leak check (always on): the row must give back exactly
+        # the references it claimed
+        if released != s.expected_refs:
+            self._report_audit(
+                [f"row exit released {released} page reference(s) for "
+                 f"key {key!r}, expected {s.expected_refs} (cap {s.cap})"],
+                context="row-exit")
+        self._table[slot, :] = 0
+        return True
+
+    # -- pool invariant auditor ---------------------------------------------
+    def audit(self, context: str = "quiesce") -> List[str]:
+        """Cross-check the pool (free list, claims, refcounts) against
+        the slots and the page table: every active row holds exactly its
+        claim, in its table row, with an exclusive write-target page, and
+        no claim outlives its row. Returns the violations (empty =
+        clean) and reports them."""
+        v = self.pool.audit()
+        refs = self.pool.refcounts()
+        active = [(i, s) for i, s in enumerate(self._slots) if s is not None]
+        if self._n_active != len(active):
+            v.append(f"active-row counter {self._n_active} != "
+                     f"{len(active)} occupied slots")
+        for i, s in active:
+            if self._by_key.get(s.key) != i:
+                v.append(f"slot {i} key {s.key!r} missing from the key "
+                         f"index (maps to {self._by_key.get(s.key)})")
+            if s.pos > s.cap:
+                v.append(f"slot {i} position {s.pos} past its decode cap "
+                         f"{s.cap}")
+            pages = self.pool.pages_of(s.key)
+            if len(pages) != s.expected_refs:
+                v.append(f"slot {i} holds {len(pages)} page reference(s), "
+                         f"expected {s.expected_refs} (cap {s.cap})")
+            if pages:
+                # the page holding position pos is the one this row
+                # writes: it must be exclusive
+                wt = pages[min(s.pos // self.page_len, len(pages) - 1)]
+                if refs.get(wt, 0) != 1:
+                    v.append(f"slot {i} write-target page {wt} has "
+                             f"refcount {refs.get(wt, 0)} (partial pages "
+                             f"must be exclusive)")
+            row = self._table[i]
+            if list(row[:len(pages)]) != pages \
+                    or any(int(p) != 0 for p in row[len(pages):]):
+                v.append(f"slot {i} page-table row {[int(p) for p in row]} "
+                         f"does not match its claim {pages} (table "
+                         f"corruption)")
+        for owner in self.pool.owners():
+            if owner not in self._by_key:
+                v.append(f"pool claim for {owner!r} has no active row "
+                         f"(pages leaked at row exit)")
+        self.counters["audits"] += 1
+        if v:
+            self._report_audit(v, context)
+        return v
+
+    def _report_audit(self, violations: List[str], context: str) -> None:
+        log.error("POOL AUDIT FAILED ({}): {} violation(s): {}", context,
+                  len(violations), "; ".join(violations[:4]))
+        self.counters["audit_failures"] += 1
+
+    # -- device work ----------------------------------------------------------
+    def _install(self, joiners: List[Tuple[object, List[int], int]]) -> None:
+        """Encode the joiners (JOIN_BUCKETS rows at a time) and write
+        their cross-attention K/V and source masks into their slots. The
+        encode runs at the chunk's halving width, not at src_cap: a
+        5-token sentence must not pay a max-length-wide encoder pass
+        (the K/V rows are zero-padded to src_cap, where the mask is 0)."""
+        jb = next((b for b in self.JOIN_BUCKETS if b >= len(joiners)),
+                  self.JOIN_BUCKETS[-1])
+        row_keys = self._keys[0]
+        for base in range(0, len(joiners), jb):
+            chunk = joiners[base:base + jb]
+            need = max(len(ids) for _, ids, _ in chunk)
+            w = min(x for x in self.encode_widths() if x >= need)
+            ids_np = np.zeros((jb, w), np.int64)
+            mask_np = np.zeros((jb, self.src_cap), np.float32)
+            slot_np = np.zeros((jb,), np.int64)
+            for i in range(jb):
+                # padding rows repeat joiner 0: their writes land on the
+                # same slot with identical content
+                _, ids, slot = chunk[min(i, len(chunk) - 1)]
+                ids_np[i, :len(ids)] = ids
+                mask_np[i, :len(ids)] = 1.0
+                slot_np[i] = slot
+            ids_t = torch.from_numpy(ids_np).to(self.device)
+            mask = torch.from_numpy(mask_np).to(self.device)
+            slots = torch.from_numpy(slot_np).to(self.device)
+            enc = self.model.encode_for_decode(self.params, ids_t,
+                                               mask[:, :w])
+            st = self.model.start_state(self.params, enc, mask[:, :w], 1)
+            for k in row_keys:
+                v = st[k].to(self._state[k].dtype)
+                pad = self._state[k].shape[-2] - v.shape[-2]
+                self._state[k][slots] = torch.nn.functional.pad(
+                    v, (0, 0, 0, pad))
+            self._src_mask[slots] = mask
+            self.counters["encodes"] += 1
+
+    def _step(self, res: StepResult) -> None:
+        """One round: steps_per_round decode steps over the occupied
+        prefix, rounded up to a row bucket, tokens copied to the host
+        once; then the host cuts each row at its EOS or cap."""
+        top = max(i for i, s in enumerate(self._slots) if s is not None)
+        rb = bucket_rows(top + 1, self.row_buckets)
+        pos_np = np.full((rb,), -1, np.int32)
+        prev_np = np.zeros((rb, 1), np.int64)
+        for i in range(rb):
+            s = self._slots[i]
+            if s is not None:
+                pos_np[i] = s.pos
+                prev_np[i, 0] = s.prev
+        row_keys, pool_keys, whole_keys = self._keys
+        sub = {k: self._state[k][:rb] for k in row_keys}
+        sub.update({k: self._state[k] for k in pool_keys + whole_keys})
+        sub["page_table"] = torch.from_numpy(self._table[:rb]).to(
+            self.device)
+        src_mask = self._src_mask[:rb]
+        pos = torch.from_numpy(pos_np).to(self.device)
+        prev = torch.from_numpy(prev_np).to(self.device)
+        toks = []
+        for _ in range(self.steps_per_round):
+            sub["pos"] = pos
+            logits, _ = self.model.step(self.params, sub, prev, src_mask)
+            nxt = torch.argmax(logits, dim=-1)
+            toks.append(nxt)
+            prev = nxt[:, None]
+            pos = pos + 1
+        # the one host sync of the round: the join/evict schedule runs on
+        # the host between rounds
+        toks = torch.stack(toks).cpu().numpy()
+        emitted = 0
+        finishes: List[_Slot] = []
+        for i in range(rb):
+            s = self._slots[i]
+            if s is None:
+                continue
+            emitted += 1
+            for j in range(toks.shape[0]):
+                tok = int(toks[j, i])
+                s.pos += 1
+                s.prev = tok
+                if tok != EOS_ID:
+                    s.tokens.append(tok)
+                if tok == EOS_ID or s.pos >= s.cap:
+                    # the rest of the round's tokens for this row were
+                    # self-fed past its end: dropped here, and the cache
+                    # positions past the cut are never read again
+                    finishes.append(s)
+                    break
+        for s in finishes:
+            res.finished.append(
+                (s.key, self.trg_vocab.decode(s.tokens, ignore_eos=True)))
+            self._evict(s.key)
+        res.rows = emitted
+        res.steps += toks.shape[0]
+
+    # -- direct (non-serving) decoding --------------------------------------
+    def decode_texts(self, texts: Sequence[str]) -> List[str]:
+        """Decode sentences to completion through the slot machinery
+        (joins as capacity frees up): the library-call equivalent of the
+        serving loop."""
+        pending = list(enumerate(texts))
+        out: Dict[int, str] = {}
+        guard = 0
+        while pending or not self.idle():
+            joins = pending[:self.max_rows]
+            del pending[:self.max_rows]
+            res = self.admit_and_step(joins)
+            for key, why in res.rejected:
+                if why in FATAL_REASONS:
+                    raise ValueError(f"sentence {key} rejected: {why}")
+                pending.insert(0, (key, texts[key]))
+            out.update(res.finished)
+            guard += 1
+            if guard > 100000:
+                raise RuntimeError("iteration decode failed to converge")
+        return [out[i] for i in range(len(texts))]
+
+    def encode_widths(self) -> Tuple[int, ...]:
+        """The halving encode widths _install draws from: src_cap, /2,
+        /4, ... down to 8 (descending)."""
+        widths = []
+        w = self.src_cap
+        while True:
+            widths.append(w)
+            if w // 2 < 8:
+                break
+            w //= 2
+        return tuple(widths)
+
+
+class EngineExecutor:
+    """An engine as a ``List[str] -> List[str]`` callable
+    (``decode_texts``), with ``.engine`` for whoever re-points a
+    scheduler at it."""
+
+    def __init__(self, engine: PagedDecodeEngine):
+        self.engine = engine
+
+    def __call__(self, lines: List[str]) -> List[str]:
+        return self.engine.decode_texts(lines)

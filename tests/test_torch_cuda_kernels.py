@@ -12,7 +12,9 @@ positions (many chunks of the streamed cache), bf16 operands, for the
 flash kernels lengths that are not multiples of their 64-row tiles, every
 head size they are built for and a fully masked row, and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
-its 64 x 64 tiles or its 32-column chunks. Tolerances: 2e-5 for f32
+its 64 x 64 tiles or its 32-column chunks, and for the paged decode
+read page tables permuted over a larger pool, page lengths that do not
+divide its 64-position chunks, idle rows and rows at page boundaries. Tolerances: 2e-5 for f32
 outputs (f32 sums in another order), 2e-2 for bf16 outputs (one bf16
 rounding of the result); new caches are exact copies. The packed
 backward's f32 gradients and the fused CE's outputs are held to 1e-5
@@ -28,6 +30,7 @@ from marian_tpu_torch.ops.kernels.decode_attention import (
 from marian_tpu_torch.ops.kernels import flash_attention as fa
 from marian_tpu_torch.ops.ops import NEG_INF
 from marian_tpu_torch.ops.kernels import fused_ce as fce
+from marian_tpu_torch.ops.kernels import kv_pool as kv
 from marian_tpu_torch.ops.kernels.packed_attention import (
     packed_attention, packed_attention_bwd, packed_attention_bwd_reference,
     packed_attention_reference)
@@ -80,6 +83,36 @@ def test_decode_attention_ping_pong_buffers(dev):
     assert torch.equal(nk, rk)
     with pytest.raises(ValueError, match="alias"):
         decode_attention(q, kn, vn, ck, cv, 4, out_k=ck, out_v=bv)
+
+
+@pytest.mark.parametrize("r,h,dh,page_len,mp", [
+    (5, 3, 64, 16, 8), (7, 2, 32, 4, 5), (4, 1, 128, 16, 3),
+    (6, 2, 64, 7, 40), (3, 4, 16, 16, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_attention_matches_plain(dev, r, h, dh, page_len, mp,
+                                              dtype):
+    gen = torch.Generator().manual_seed(r * mp + dh)
+    n_pages = 1 + 2 * r * mp
+    q, kn, vn = (_randn(gen, dev, r, h, 1, dh, dtype=dtype)
+                 for _ in range(3))
+    pk, pv = (_randn(gen, dev, n_pages, h, page_len, dh, dtype=dtype)
+              for _ in range(2))
+    table = (torch.randperm(n_pages - 1, generator=gen)[:r * mp] + 1
+             ).reshape(r, mp).to(dev, torch.int32)
+    span = mp * page_len
+    pos = torch.randint(-1, span, (r,), generator=gen)
+    pos[:3] = torch.tensor([-1, page_len, span - 1])
+    pos = pos.to(dev, torch.int32)
+    before = kv.paged_decode_attention.launches
+    gk, gv = pk.clone(), pv.clone()
+    out = kv.paged_decode_attention(q, kn, vn, gk, gv, table, pos)
+    assert kv.paged_decode_attention.launches == before + 1
+    rk, rv = pk.clone(), pv.clone()
+    kv.pool_insert(rk, rv, kn, vn, table, pos)
+    ref = kv.paged_decode_attention_reference(q, rk, rv, table, pos)
+    assert torch.equal(gk, rk) and torch.equal(gv, rv)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,causal", [

@@ -8,8 +8,9 @@
 - the entry points run on CUDA unless the CPU is asked for, and raise
   without a card instead of falling back to the CPU;
 - a kernel wrapper given a CUDA tensor launches its kernel or raises; it
-  never runs its plain version, and on the card the loss takes the fused
-  CE kernels at every hidden size;
+  never runs its plain version (the paged decode wrapper neither: its
+  in-place insert may run, its read is the kernel), and on the card the
+  loss takes the fused CE kernels at every hidden size;
 - the attention dispatcher takes flash attention where the reference
   does (``on``, or ``auto`` at length >= 1024) and never with ``off``;
   ``decode_attention`` has no cache-length gate; ``--attention-kernel``
@@ -33,6 +34,7 @@ from marian_tpu_torch.ops.kernels import _build
 from marian_tpu_torch.ops.kernels import decode_attention as dmod
 from marian_tpu_torch.ops.kernels import flash_attention as famod
 from marian_tpu_torch.ops.kernels import fused_ce as fmod
+from marian_tpu_torch.ops.kernels import kv_pool as kvmod
 from marian_tpu_torch.ops.kernels import packed_attention as pmod
 from marian_tpu_torch.training.train import _refuse_unported
 from marian_tpu_torch.translator.translator import Translate
@@ -48,7 +50,8 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py",
                     ROOT / "scripts" / "torch_decode_profile.py",
                     ROOT / "scripts" / "torch_train_profile.py",
-                    ROOT / "scripts" / "torch_train_parity.py"]
+                    ROOT / "scripts" / "torch_train_parity.py",
+                    ROOT / "scripts" / "torch_serve_profile.py"]
 
 
 def _imported_modules(path):
@@ -79,7 +82,8 @@ def test_cuda_sources_are_listed_and_plain_c():
     on_disk = {p.name for p in _build.CSRC.glob("*.cu")}
     assert listed == on_disk and {"packed_attention.cu", "fused_ce.cu",
                                   "decode_attention.cu",
-                                  "flash_attention.cu"} <= listed
+                                  "flash_attention.cu",
+                                  "paged_decode_attention.cu"} <= listed
     for name in listed:
         text = (_build.CSRC / name).read_text(encoding="utf-8")
         includes = [l.split()[1] for l in text.splitlines()
@@ -145,6 +149,32 @@ def test_decode_attention_wrapper_raises_on_cuda_request(plain_forbidden):
                               _cuda_typed(4, 2, 6, 8),
                               _cuda_typed(4, 2, 6, 8), 3)
     assert dmod.decode_attention.launches == before
+
+
+def test_paged_decode_attention_wrapper_raises_on_cuda_request(monkeypatch):
+    """On a CUDA tensor the paged wrapper launches the kernel (which
+    cannot load here) or raises; its plain read never runs and no launch
+    is counted."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the kernel would run")
+    monkeypatch.setattr(kvmod, "paged_decode_attention_reference",
+                        lambda *a, **k: pytest.fail(
+                            "the paged wrapper ran its plain read on a CUDA "
+                            "tensor"))
+    before = kvmod.paged_decode_attention.launches
+    r, h, dh, page_len, mp = 3, 2, 8, 4, 2
+    table = torch.arange(1, 1 + r * mp, dtype=torch.int32).reshape(r, mp)
+    pos = torch.tensor([0, 5, -1], dtype=torch.int32)
+    args = [_cuda_typed(r, h, 1, dh) for _ in range(3)] + [
+        _cuda_typed(1 + r * mp, h, page_len, dh) for _ in range(2)]
+    with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+        kvmod.paged_decode_attention(*args, table.as_subclass(_CudaTyped),
+                                     pos.as_subclass(_CudaTyped))
+    with pytest.raises(RuntimeError, match="nvcc|CUDA"):
+        kvmod.paged_decode_attention_read(
+            args[0], args[3], args[4], table.as_subclass(_CudaTyped),
+            pos.as_subclass(_CudaTyped))
+    assert kvmod.paged_decode_attention.launches == before
 
 
 def test_packed_attention_wrapper_raises_on_cuda_request(plain_forbidden):
