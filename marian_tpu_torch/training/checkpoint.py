@@ -5,9 +5,10 @@ reference layout of three files,
     model.npz.optimizer.npz   optimizer state ('t', 'm:<name>', ...)
     model.npz.progress.yml    TrainingState (incl. the corpus position)
 
-plus model.ema.npz under --exponential-smoothing. Each file is written
-atomically (temp file + rename). ``model.npz`` is the format both
-packages' decoders load.
+plus model.ema.npz under --exponential-smoothing, and the
+iteration-numbered params copies (model.iter<N>.npz) that training
+writes without --overwrite. Each file is written atomically (temp file +
+rename). ``model.npz`` is the format both packages' decoders load.
 
 Trimmed: the checksummed bundle directories and the asynchronous saver.
 """
@@ -30,11 +31,23 @@ def _host(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
                 else np.asarray(v)) for k, v in tree.items()}
 
 
+def suffixed_path(model_path: str, suffix: str) -> str:
+    """model.npz + '.iter8' -> model.iter8.npz (the reference's rule)."""
+    if model_path.endswith((".npz", ".bin")):
+        base, ext = os.path.splitext(model_path)
+        return base + suffix + ext
+    return model_path + suffix + ".npz"
+
+
 def save_checkpoint(model_path: str, params: Dict[str, Any],
                     config_yaml: str, graph_group=None,
                     state: Optional[TrainingState] = None,
-                    smooth_params: Optional[Dict[str, Any]] = None) -> None:
-    mio.save_model(model_path, _host(params), config_yaml)
+                    smooth_params: Optional[Dict[str, Any]] = None,
+                    extra_model_suffixes: Tuple[str, ...] = ()) -> None:
+    """``extra_model_suffixes`` writes params + config copies beside the
+    model (the '.iter<N>' files of a save without --overwrite)."""
+    host_params = _host(params)
+    mio.save_model(model_path, host_params, config_yaml)
     if smooth_params is not None:
         base, ext = os.path.splitext(model_path)
         mio.save_model(base + ".ema" + ext, _host(smooth_params), config_yaml)
@@ -45,6 +58,10 @@ def save_checkpoint(model_path: str, params: Dict[str, Any],
         os.replace(opt + ".tmp", opt)
     if state is not None:
         state.save(model_path + ".progress.yml")
+    for suffix in extra_model_suffixes:
+        path = suffixed_path(model_path, suffix)
+        mio.save_model(path, host_params, config_yaml)
+        log.info("Saved model to {}", path)
     log.info("Saved model to {}", model_path)
 
 

@@ -174,8 +174,13 @@ class Train:
         def do_save() -> None:
             state.corpus = last_corpus_state[0]
             smooth = gg.smoothed() if gg.opt_cfg.smoothing > 0 else None
+            # without --overwrite, every save also keeps an
+            # iteration-numbered copy of the parameters (Train::save)
+            extra = (() if opts.get("overwrite", False)
+                     else (f".iter{state.batches}",))
             save_checkpoint(model_path, gg.export_params(), config_yaml, gg,
-                            state, smooth_params=smooth)
+                            state, smooth_params=smooth,
+                            extra_model_suffixes=extra)
 
         log.info("Training started")
         stop = False
