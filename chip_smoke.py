@@ -78,6 +78,9 @@ TOL = 2e-5
 # products in another order than their plain versions: held to this
 # share of the output's largest magnitude.
 REL_TOL = 1e-5
+# the fused CE backward's forced narrow vocabulary chunk (several chunks,
+# the last one ragged)
+FORCED_CHUNK = 3000
 # training: bench.py's 'base' preset (f32, --transformer-dropout 0.1)
 TRAIN_WORDS, TRAIN_LINES, WARM_UPDATES, COUNTED_UPDATES = 12288, 8000, 2, 20
 TRAIN_FLAGS = [
@@ -459,9 +462,8 @@ def phase_fused_ce_kernels(gen) -> list:
         return x, w, b, labels
 
     errs = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
-    # ragged N and V; E = 1024 (transformer-big) splits the dx / dw
-    # accumulators into two column ranges; the last case is the main
-    # path's N, V and E, kept for the timings below
+    # ragged N and V; E = 1024 (transformer-big) in one pass; the last
+    # case is the main path's N, V and E, kept for the timings below
     for n, v, e in ((4096, VOCAB, 512), (4001, VOCAB + 3, 512),
                     (2048, VOCAB + 3, 1024), (TRAIN_WORDS, VOCAB, 512)):
         x, w, b, labels = inputs(n, v, e)
@@ -486,7 +488,31 @@ def phase_fused_ce_kernels(gen) -> list:
               f"{errs['dx']:.3g} dw/db {errs['dw']:.3g} (tolerance "
               f"{REL_TOL} x max |plain| of each output)")
         lse = ref[0]
+        if (n, v) == (4001, VOCAB + 3):
+            # the joint backward over forced narrow chunks at ragged N:
+            # 11 chunks, the last one ragged
+            jdx, jdw, jdb = fce.fused_ce_bwd(x, w, b, labels, lse, *g,
+                                             chunk=FORCED_CHUNK)
+            errs["dx"] = max(errs["dx"], close_to_scale(
+                jdx, rdx, f"fused_ce_bwd {what} chunk {FORCED_CHUNK} dx"))
+            errs["dw"] = max(errs["dw"], close_to_scale(
+                jdw, rdw, f"fused_ce_bwd {what} chunk {FORCED_CHUNK} dw"),
+                close_to_scale(jdb, rdb,
+                               f"fused_ce_bwd {what} chunk {FORCED_CHUNK} db"))
+            print(f"kernel fused_ce_bwd {what}, chunks of {FORCED_CHUNK}: "
+                  f"{len(fce.vocab_chunks(n, v, FORCED_CHUNK))} chunks, "
+                  f"within tolerance")
+            del jdx, jdw, jdb
         del got, ref, dx, dw, db, rdx, rdw, rdb
+    torch.cuda.empty_cache()
+    # the same inputs twice: bit-identical dx, dw, db
+    one = fce.fused_ce_bwd(x, w, b, labels, lse, *g)
+    two = fce.fused_ce_bwd(x, w, b, labels, lse, *g)
+    check(all(torch.equal(p, q) for p, q in zip(one, two)),
+          "fused_ce_bwd: two calls on the same inputs differ")
+    print(f"kernel fused_ce_bwd N={n} V={v} E={e}: two calls bit-identical "
+          f"(dx, dw, db)")
+    del one, two
     torch.cuda.empty_cache()
     times = {
         "fwd": (lambda: fce.fused_ce_stats(x, w, b, labels),
@@ -511,6 +537,21 @@ def phase_fused_ce_kernels(gen) -> list:
     del lib_loss
     flops = {"fwd": 2 * n * v * e, "dx": 4 * n * v * e, "dw": 4 * n * v * e}
     io_in = (n * e + v * e + v) * 4 + n * 4
+    # the joint backward: three products; bytes: the inputs, the outputs
+    # and the d scratch written once and read twice (dx and dw products)
+    joint_ms = time_ms(lambda: fce.fused_ce_bwd(x, w, b, labels, lse, *g),
+                       iters=5)
+    joint_flops = 6 * n * v * e
+    joint_bytes = (io_in + 4 * n * 4 + (n * e + v * e + v) * 4
+                   + 3 * n * v * 4)
+    joint_bound, joint_by = bound(joint_bytes, joint_flops)
+    print(f"kernel fused_ce_bwd (joint: dx, dw, db) N={n} V={v} E={e} f32: "
+          f"kernel_ms {joint_ms:.4f} library_ms (backward of linear + "
+          f"cross_entropy, two calls) {lib_bwd_ms:.4f} bound_ms "
+          f"{joint_bound:.4f} ({joint_by}; {joint_flops / 1e9:.0f} GFLOP, "
+          f"{joint_bytes / 1e9:.2f} GB, {joint_flops / joint_ms / 1e9:.2f} "
+          f"TFLOP/s achieved)")
+    product_times(fce, x, w, b, labels, lse, g)
     nbytes = {"fwd": io_in + 3 * n * 4, "dx": io_in + 4 * n * 4 + n * e * 4,
               "dw": io_in + 4 * n * 4 + (v * e + v) * 4}
     rows = []
@@ -532,6 +573,53 @@ def phase_fused_ce_kernels(gen) -> list:
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms})
     return rows
+
+
+def product_times(fce, x, w, b, labels, lse, g) -> None:
+    """Each of the backward's three products alone on the first
+    vocabulary chunk of the main shape, with its TFLOP/s, beside
+    torch.matmul of the same shape (a yardstick; the port never calls
+    it)."""
+    n, e = x.shape
+    v0, width = fce.vocab_chunks(n, w.shape[0])[0]
+    ldd = -(-width // fce.CHUNK_ALIGN) * fce.CHUNK_ALIGN
+    d = torch.empty((n, ldd), device=x.device)
+    dx, dw = torch.zeros_like(x), torch.empty_like(w)
+    db = torch.empty(w.shape[0], device=x.device)
+    lbl = labels.to(torch.int32)
+    s = torch.cuda.current_stream().cuda_stream
+    fns = [fce._fn("fused_ce_bwd_dlogit", 9, 6), fce._fn("fused_ce_bwd_dx",
+           4, 8), fce._fn("fused_ce_bwd_dw", 5, 7)]
+    e_tiles = -(-e // fce.CHUNK_ALIGN)
+    sx = fce.k_splits(e_tiles * -(-n // fce.CHUNK_ALIGN), width)
+    sw = fce.k_splits(e_tiles * -(-width // fce.CHUNK_ALIGN), n)
+    part = torch.empty(max(sx * n * e, sw * width * (e + 1)),
+                       device=x.device)
+    wc, dc = w[:width], d[:, :width]
+    runs = {
+        "d (NT, x . w_c^T, d epilogue)": (
+            lambda: fns[0](x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                           lbl.data_ptr(), *(t.data_ptr() for t in (lse, *g)),
+                           d.data_ptr(), n, e, v0, width, ldd, 1, s),
+            lambda: torch.matmul(x, wc.t())),
+        f"dx (NN, d_c . w_c, accumulate, {sx} slices)": (
+            lambda: fns[1](d.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                           part.data_ptr(), n, e, v0, width, ldd, 1, 1, sx,
+                           s),
+            lambda: torch.matmul(dc, wc)),
+        f"dw (TN, d_c^T . x, db, {sw} slices)": (
+            lambda: fns[2](d.data_ptr(), x.data_ptr(), dw.data_ptr(),
+                           db.data_ptr(), part.data_ptr(), n, e, v0, width,
+                           ldd, 1, sw, s),
+            lambda: torch.matmul(dc.t(), x)),
+    }
+    flops = 2 * n * width * e
+    for name, (kernel, yardstick) in runs.items():
+        ms, mm_ms = time_ms(kernel, iters=10), time_ms(yardstick, iters=10)
+        print(f"kernel fused_ce_bwd product {name} N={n} Vc={width} E={e}: "
+              f"kernel_ms {ms:.4f} ({flops / ms / 1e9:.2f} TFLOP/s), "
+              f"torch.matmul of the same shape {mm_ms:.4f} "
+              f"({flops / mm_ms / 1e9:.2f} TFLOP/s)")
 
 
 def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None):

@@ -1,50 +1,60 @@
 // Fused output projection + label-smoothed cross-entropy statistics, and
-// their two gradients, without materialising the [N, V] logits.
+// their gradients.
 //
 // Replaces the TPU kernels of marian_tpu/ops/pallas/fused_ce.py:
-//   fused_ce_fwd  <- _fwd_kernel (from _fwd_call): per token
-//                    lse = logsumexp_v(l), lab = l[label], tot = sum_v l
-//                    of l = x . w^T + b;
-//   fused_ce_dx   <- _dx_kernel (from _bwd_call):  dx = d . w;
-//   fused_ce_dw   <- _dw_kernel (from _bwd_call):  dw = d^T . x, db = sum_n d;
+//   fused_ce_fwd     <- _fwd_kernel (from _fwd_call): per token
+//                       lse = logsumexp_v(l), lab = l[label], tot = sum_v l
+//                       of l = x . w^T + b, without writing [N, V];
+//   fused_ce_bwd_*   <- _dx_kernel and _dw_kernel (from _bwd_call):
+//                       dx = d . w, dw = d^T . x, db = sum_n d
 // with d = g_lse * exp(l - lse) + g_lab * onehot(label) + g_tot on the V
-// real vocabulary columns (0 past the ragged edge V, which the kernels
-// mask themselves: the table is never padded).
+// real vocabulary columns (the kernels mask the ragged edges themselves:
+// the table is never padded).
 //
-// What bounds them on an H100: operations. Each is a product of
-// N*V*E multiply-adds (the forward one, dx and dw two: the logits are
-// recomputed, as on the TPU), 403 GFLOP per product at N = 12,288,
-// V = 32,000, E = 512, against 25 MB of x and 65 MB of w. They run in f32
-// on the CUDA cores, outside the tensor cores (TF32 stays off).
+// What bounds them on an H100: operations. Each is a product of N*V*E
+// multiply-adds, 403 GFLOP at N = 12,288, V = 32,000, E = 512, against
+// 25 MB of x and 65 MB of w. They run in f32 on the CUDA cores, outside
+// the tensor cores (TF32 stays off).
 //
-// Design, simple first (no wgmma, no TMA; later PRs):
-// - logits are formed in 64 x 64 tiles (tokens x vocabulary) by 256
-//   threads, each holding a 4 x 4 register tile (rows ty + 16i, columns
-//   tx + 16j, so shared-memory reads are broadcasts or consecutive words);
-//   the E reduction streams x and w through shared memory 32 columns at a
-//   time, stored k-major with a +1 pad so the transposing stores do not
-//   collide on a bank. Each chunk's global loads are issued into
-//   registers before the previous chunk is multiplied, so their latency
-//   hides behind arithmetic even with one block on an SM;
-// - the TPU carries running stats across a sequential vocabulary grid axis.
-//   Here a forward block owns a token tile and walks one slice of the
-//   vocabulary, keeping online (max, sum-exp, label logit, sum) per thread;
-//   the 16 threads of a row merge by warp shuffles, and a second, fixed-
-//   order pass merges the slices: deterministic, no atomics;
-// - dx: a block owns a token tile and walks one slice of the vocabulary;
-//   its [64, ecw] accumulator lives in shared memory (128 KB at ecw =
-//   E = 512). Per vocabulary tile: logits, then d into shared memory,
-//   then d . w in 64-column chunks. The slices (enough of them for two
-//   blocks per SM over the launch) write partial dx that a second,
-//   fixed-order pass sums;
-// - dw/db: the mirror image: a block owns a vocabulary tile, walks all
-//   tokens, and accumulates [64, ecw] of dw in shared memory and db per
-//   column in a register, in a fixed order;
-// - an E too wide for one accumulator (past 704 columns, e.g. 1024) is
-//   split into ceil(E / ecw) column ranges of ecw each, one per z-block
-//   of the grid (ops/kernels/fused_ce.py :: accumulator_width): each
-//   range recomputes the logits, so dx and dw cost one more product per
-//   extra range, and every E runs the kernels.
+// Forward: logits in 64 x 64 tiles (tokens x vocabulary) by 256 threads,
+// each holding a 4 x 4 register tile; the E reduction streams x and w
+// through shared memory 32 columns at a time, the next chunk's global
+// loads in registers while this one is multiplied. A block owns a token
+// tile and walks one slice of the vocabulary with online (max, sum-exp,
+// label logit, sum) per thread; a second, fixed-order pass merges the
+// slices: deterministic, no atomics.
+//
+// Backward: the TPU keeps each d tile in VMEM between its two products.
+// Here the wrapper (ops/kernels/fused_ce.py) walks the vocabulary in
+// chunks [v0, v0 + Vc) in a fixed order and makes three launches a chunk:
+//   fce_bwd_dlogit_kernel  d_c [N, Vc] = dlogit(x . w_c^T + b_c), an NT
+//                          product with the d epilogue, into one scratch
+//                          of at most 256 MiB that every chunk reuses;
+//   fce_bwd_dx_kernel      dx (+)= d_c . w_c, an NN product: the first
+//                          chunk stores, later ones load, add and store in
+//                          chunk order (no atomics);
+//   fce_bwd_dw_kernel      dw[v0 : v0 + Vc] = d_c^T . x, a TN product; its
+//                          blocks of the first column tile also sum d_c's
+//                          columns into db, in token order, compensated.
+// So the logits are recomputed once a backward and shared by dx and dw:
+// three N*V*E products in all, the least a backward that does not keep
+// [N, V] can do. All three are one template (product_tile): 128 x 128
+// output tiles, 256 threads with an 8 x 8 register tile each (2 x 2
+// sub-tiles of 4 x 4, so each k step reads four float4 from shared memory
+// for 64 FMAs), depth-8 operand tiles staged k-major in shared memory and
+// double-buffered, the next tile's global loads in flight in registers.
+// An operand whose global layout is k-contiguous (x and w rows in the NT
+// product, d in the NN one) is transposed on its way into shared memory;
+// rows are padded to 132 floats so those stores do not collide on a bank.
+// The accumulator is the register tile of an output tile, so no hidden
+// size E limits a block or splits the work into column ranges. The dx
+// and dw products have few output tiles (N x E and Vc x E) and a long
+// reduction: when that leaves much of the last wave of blocks idle, the
+// wrapper splits the reduction into 2-4 slices (k_splits), each written
+// to scratch, and fce_bwd_sum_kernel adds them in order: deterministic.
+// Ragged N, V and E edges are predicated; float4 global access needs
+// E % 4 == 0 and 16-byte aligned operands (the wrapper says so in `vec`),
+// else scalar loads run.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,7 +64,6 @@ namespace {
 constexpr int kTM = 64;        // tokens per tile
 constexpr int kTN = 64;        // vocabulary rows per tile
 constexpr int kBK = 32;        // E columns per staged chunk
-constexpr int kEC = 64;        // E columns per accumulator chunk (dx, dw)
 constexpr int kThreads = 256;  // 16 x 16, 4 x 4 outputs each
 constexpr float kStatsInit = -1e30f;
 
@@ -111,72 +120,6 @@ __device__ __forceinline__ void logits_tile(
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
     }
-  }
-}
-
-constexpr int kOpPerThread = kTM * kEC / kThreads;  // operand chunk floats
-
-// rows [r0, r0 + 64) x columns [c0, c0 + 64) of src [rows, E] into
-// registers (0 outside [rows, E])
-__device__ __forceinline__ void load_operand(const float* __restrict__ src,
-                                             int rows, int E, int r0, int c0,
-                                             float reg[kOpPerThread]) {
-#pragma unroll
-  for (int u = 0; u < kOpPerThread; ++u) {
-    const int idx = threadIdx.x + u * kThreads;
-    const int rr = idx / kEC, r = r0 + rr, c = c0 + idx - rr * kEC;
-    reg[u] = (r < rows && c < E) ? src[(size_t)r * E + c] : 0.f;
-  }
-}
-
-// acc_s[i][c0 - c_begin + j] += sum_k d(i, k) * op[k][c0 + j] over each
-// 64-column chunk c0 of [c_begin, c_end): d(i, k) is ds[i][k] (dx: i
-// token, k vocab) or ds[k][i] (dw: i vocab, k token); op is the operand
-// src rows [r0, r0+64) staged chunk by chunk in opc, the next chunk's
-// loads in flight while this one is multiplied. acc_s rows are ecw wide.
-template <bool kTransposed>
-__device__ __forceinline__ void accumulate_chunks(
-    const float* __restrict__ src, int rows, int E, int r0, int c_begin,
-    int c_end, int ecw, const float* ds, float* opc, float* acc_s) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float reg[kOpPerThread];
-  load_operand(src, rows, E, r0, c_begin, reg);
-  for (int c0 = c_begin; c0 < c_end; c0 += kEC) {
-    __syncthreads();  // ds written / previous chunk consumed
-#pragma unroll
-    for (int u = 0; u < kOpPerThread; ++u) {
-      const int idx = tid + u * kThreads;
-      const int rr = idx / kEC;
-      opc[rr * (kEC + 1) + idx - rr * kEC] = reg[u];
-    }
-    __syncthreads();
-    if (c0 + kEC < c_end) load_operand(src, rows, E, r0, c0 + kEC, reg);
-    float r[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r[i][j] = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < kTM; ++k) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = kTransposed ? ds[k * (kTN + 1) + ty + 16 * i]
-                           : ds[(ty + 16 * i) * (kTN + 1) + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = opc[k * (kEC + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) r[i][j] = fmaf(a[i], bb[j], r[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx + 16 * j;
-        if (c < c_end) acc_s[(ty + 16 * i) * ecw + c - c_begin] += r[i][j];
-      }
   }
 }
 
@@ -287,153 +230,306 @@ __device__ __forceinline__ float dlogit(float l, float lse, float gl,
   return gl * expf(l - lse) + (is_label ? gg : 0.f) + gt;
 }
 
-// smem floats of the dx / dw kernels: two staging chunks, the d tile, a
-// 64 x 64 operand chunk, and the [64, ecw] accumulator
-__host__ __device__ constexpr size_t bwd_fixed_floats() {
-  return 2 * (size_t)kBK * (kTM + 1) + 2 * (size_t)kTM * (kTN + 1);
+// ---------------------------------------------------------------------------
+// backward: one register-blocked f32 product template, three layouts
+// ---------------------------------------------------------------------------
+
+constexpr int kGM = 128;             // output tile rows
+constexpr int kGN = 128;             // output tile columns
+constexpr int kGK = 8;               // depth of a staged operand tile
+constexpr int kGLd = kGM + 4;        // staged row pitch in floats
+constexpr int kGThreads = 256;       // 16 x 16 threads, 8 x 8 outputs each
+constexpr int kGStage = kGK * kGLd;  // floats of one staged operand tile
+static_assert(kGM == kGN && kGM * kGK == 4 * kGThreads, "one float4 each");
+
+// An operand of C[m][n] = sum_k A(m, k) B(n, k): element (r, k) lies at
+// p[k * ld + r] when k-major, else at p[r * ld + k]; rows at or past
+// `rows` and depths at or past `ks` read as 0.
+struct Operand {
+  const float* p;
+  int ld, rows, ks;
+};
+
+// This thread's four elements of the operand's [128 rows x kGK] tile at
+// (r0, k0): k-major, depth k0 + tid / 32 of rows r0 + 4 (tid % 32) .. + 3;
+// else row r0 + tid / 2 at depths k0 + 4 (tid % 2) .. + 3.
+template <bool kMajor>
+__device__ __forceinline__ float4 load_tile(const Operand& o, int r0, int k0,
+                                            bool vec) {
+  const int t = threadIdx.x;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (kMajor) {
+    const int k = k0 + (t >> 5), r = r0 + ((t & 31) << 2);
+    if (k < o.ks) {
+      const float* q = o.p + (size_t)k * o.ld + r;
+      if (vec && r + 3 < o.rows)
+        return __ldg(reinterpret_cast<const float4*>(q));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (r + i < o.rows) v[i] = q[i];
+    }
+  } else {
+    const int r = r0 + (t >> 1), k = k0 + ((t & 1) << 2);
+    if (r < o.rows) {
+      const float* q = o.p + (size_t)r * o.ld + k;
+      if (vec && k + 3 < o.ks)
+        return __ldg(reinterpret_cast<const float4*>(q));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k + i < o.ks) v[i] = q[i];
+    }
+  }
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// grid (ceil(N/64), splits, ceil(E/ecw)): block (bx, by, bz) owns tokens
-// [n0, n0+64) and columns [bz * ecw, ...) and walks vocab tiles
-// [by * tiles_per_split, ...); writes its partial dx to part[by].
-__global__ void __launch_bounds__(kThreads) fce_dx_kernel(
+// the four elements of load_tile into the k-major staged tile s[kGK][kGLd]
+template <bool kMajor>
+__device__ __forceinline__ void stage_tile(float* s, float4 v) {
+  const int t = threadIdx.x;
+  if (kMajor) {
+    *reinterpret_cast<float4*>(s + (t >> 5) * kGLd + ((t & 31) << 2)) = v;
+  } else {
+    const int r = t >> 1, k = (t & 1) << 2;
+    s[k * kGLd + r] = v.x;
+    s[(k + 1) * kGLd + r] = v.y;
+    s[(k + 2) * kGLd + r] = v.z;
+    s[(k + 3) * kGLd + r] = v.w;
+  }
+}
+
+// this thread's place (ty, tx) in the 16 x 16 grid of register tiles
+__device__ __forceinline__ int thread_ty() { return threadIdx.x >> 4; }
+__device__ __forceinline__ int thread_tx() { return threadIdx.x & 15; }
+
+// output rows and columns of this thread's register tile, within the tile
+__device__ __forceinline__ int tile_row(int i) {
+  return 4 * thread_ty() + (i & 3) + 64 * (i >> 2);
+}
+__device__ __forceinline__ int tile_col(int j) {
+  return 4 * thread_tx() + (j & 3) + 64 * (j >> 2);
+}
+
+// acc[i][j] = sum over k in [k_begin, k_end) of A(m0 + tile_row(i), k) *
+// B(n0 + tile_col(j), k), k_begin a multiple of kGK. With colsum on (the
+// dw product's blocks of the first column tile), threads 0 .. 127 also
+// sum A(m0 + tid, k) over k, in order, into colsum[0], compensated
+// (Kahan; colsum[1] carries the lost low bits): one thread's sequential
+// sum over thousands of tokens otherwise drifts past 1e-5 of db.
+// smem holds 4 * kGStage floats.
+template <bool kAMajor, bool kBMajor>
+__device__ __forceinline__ void product_tile(const Operand& A,
+                                             const Operand& B, int m0,
+                                             int n0, int k_begin, int k_end,
+                                             bool vec_a, bool vec_b,
+                                             bool colsum_on, float* smem,
+                                             float (&acc)[8][8],
+                                             float (&colsum)[2]) {
+  float* As = smem;                  // [2][kGK][kGLd]
+  float* Bs = smem + 2 * kGStage;    // [2][kGK][kGLd]
+  const int tid = threadIdx.x, tx = thread_tx(), ty = thread_ty();
+  const bool sums = colsum_on && tid < kGM;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float4 ra = load_tile<kAMajor>(A, m0, k_begin, vec_a);
+  float4 rb = load_tile<kBMajor>(B, n0, k_begin, vec_b);
+  stage_tile<kAMajor>(As, ra);
+  stage_tile<kBMajor>(Bs, rb);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += kGK) {
+    const bool more = k0 + kGK < k_end;
+    if (more) {
+      ra = load_tile<kAMajor>(A, m0, k0 + kGK, vec_a);
+      rb = load_tile<kBMajor>(B, n0, k0 + kGK, vec_b);
+    }
+    const float* as = As + buf * kGStage;
+    const float* bs = Bs + buf * kGStage;
+#pragma unroll
+    for (int kk = 0; kk < kGK; ++kk) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(as + kk * kGLd + 4 * ty);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + kk * kGLd + 64 + 4 * ty);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(bs + kk * kGLd + 4 * tx);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + kk * kGLd + 64 + 4 * tx);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+    }
+    if (sums) {
+#pragma unroll
+      for (int kk = 0; kk < kGK; ++kk) {
+        const float y = as[kk * kGLd + tid] - colsum[1];
+        const float t = colsum[0] + y;
+        colsum[1] = (t - colsum[0]) - y;
+        colsum[0] = t;
+      }
+    }
+    if (more) {
+      stage_tile<kAMajor>(As + (buf ^ 1) * kGStage, ra);
+      stage_tile<kBMajor>(Bs + (buf ^ 1) * kGStage, rb);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+}
+
+// d[N][ldd], columns [0, width): d of vocabulary columns v0 .. v0 + width
+// (NT: x rows against w_c rows). grid (ceil(width / 128), ceil(N / 128)).
+__global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dlogit_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ b, const int* __restrict__ labels,
     const float* __restrict__ lse, const float* __restrict__ g_lse,
     const float* __restrict__ g_lab, const float* __restrict__ g_tot,
-    float* __restrict__ part, int N, int V, int E, int tiles_per_split,
-    int ecw) {
-  extern __shared__ float smem[];
-  float* xs = smem;                        // [kBK][kTM+1]
-  float* ws = xs + kBK * (kTM + 1);        // [kBK][kTN+1]
-  float* ds = ws + kBK * (kTN + 1);        // [kTM][kTN+1] d tile
-  float* wc = ds + kTM * (kTN + 1);        // [kTN][kEC+1] w chunk
-  float* acc_s = wc + kTN * (kEC + 1);     // [kTM][ecw] dx accumulator
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * kTM;
-  const int c_begin = blockIdx.z * ecw, c_end = min(E, c_begin + ecw);
-  for (int i = tid; i < kTM * ecw; i += kThreads) acc_s[i] = 0.f;
-  float r_lse[4], r_gl[4], r_gg[4], r_gt[4];
-  int lbl[4];
+    float* __restrict__ d, int N, int E, int v0, int width, int ldd,
+    int vec) {
+  __shared__ __align__(16) float smem[4 * kGStage];
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  float acc[8][8], unused[2];
+  product_tile<false, false>(Operand{x, E, N, E},
+                             Operand{w + (size_t)v0 * E, E, width, E}, m0,
+                             n0, 0, E, vec, vec, false, smem, acc, unused);
+  float bias[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = n0 + ty + 16 * i;
-    const bool in = row < N;
-    r_lse[i] = in ? lse[row] : 0.f;
-    r_gl[i] = in ? g_lse[row] : 0.f;
-    r_gg[i] = in ? g_lab[row] : 0.f;
-    r_gt[i] = in ? g_tot[row] : 0.f;
-    lbl[i] = in ? labels[row] : -1;
+  for (int j = 0; j < 8; ++j) {
+    const int c = n0 + tile_col(j);
+    bias[j] = c < width ? b[v0 + c] : 0.f;
   }
-  const int ntiles = (V + kTN - 1) / kTN;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(ntiles, t_begin + tiles_per_split);
-  float acc[4][4];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int v0 = t * kTN;
-    logits_tile(x, w, N, V, E, n0, v0, xs, ws, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + tile_row(i);
+    if (r >= N) continue;
+    const float r_lse = lse[r], gl = g_lse[r], gg = g_lab[r], gt = g_tot[r];
+    const int lbl = labels[r] - v0;
+    float* out = d + (size_t)r * ldd;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = n0 + ty + 16 * i, col = v0 + tx + 16 * j;
-        ds[(ty + 16 * i) * (kTN + 1) + tx + 16 * j] =
-            (row < N && col < V)
-                ? dlogit(acc[i][j] + b[col], r_lse[i], r_gl[i], r_gg[i],
-                         r_gt[i], col == lbl[i])
-                : 0.f;
+    for (int jj = 0; jj < 2; ++jj) {
+      const int c0 = n0 + tile_col(4 * jj);
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        o[j] = c0 + j < width
+                   ? dlogit(acc[i][4 * jj + j] + bias[4 * jj + j], r_lse, gl,
+                            gg, gt, c0 + j == lbl)
+                   : 0.f;
+      if (c0 + 3 < width) {
+        *reinterpret_cast<float4*>(out + c0) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < width) out[c0 + j] = o[j];
       }
-    accumulate_chunks<false>(w, V, E, v0, c_begin, c_end, ecw, ds, wc,
-                             acc_s);
-  }
-  __syncthreads();
-  float* out = part + (size_t)blockIdx.y * N * E;
-  for (int i = tid; i < kTM * ecw; i += kThreads) {
-    const int rr = i / ecw, row = n0 + rr, c = c_begin + i - rr * ecw;
-    if (row < N && c < c_end) out[(size_t)row * E + c] = acc_s[i];
+    }
   }
 }
 
-// dx = sum of the slices' partial dx, in slice order
-__global__ void fce_dx_combine_kernel(const float* __restrict__ part,
-                                      size_t count, int splits,
-                                      float* __restrict__ dx) {
+// the depths [k_begin, k_end) of split z of K: equal kGK-aligned slices
+__device__ __forceinline__ int2 k_slice(int K, int splits, int z) {
+  const int per = ((K + splits - 1) / splits + kGK - 1) / kGK * kGK;
+  return make_int2(min(K, z * per), min(K, (z + 1) * per));
+}
+
+// row a = acc[i] of this thread's register tile into row `out` of width
+// E: out[n0 + tile_col(j)] = (accumulate ? out[...] : 0) + a[j]
+__device__ __forceinline__ void store_tile_row(float* out, int n0,
+                                               const float* a, int E,
+                                               bool vec, bool accumulate) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int c0 = n0 + tile_col(4 * jj);
+    const float* p = a + 4 * jj;
+    if (vec && c0 + 3 < E) {
+      float4 o = make_float4(p[0], p[1], p[2], p[3]);
+      if (accumulate) {
+        const float4 q = *reinterpret_cast<const float4*>(out + c0);
+        o = make_float4(q.x + o.x, q.y + o.y, q.z + o.z, q.w + o.w);
+      }
+      *reinterpret_cast<float4*>(out + c0) = o;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c0 + j < E) out[c0 + j] = accumulate ? out[c0 + j] + p[j] : p[j];
+    }
+  }
+}
+
+// dx[N][E] = (accumulate ? dx : 0) + d[:, :width] . w[v0 : v0 + width]
+// (NN). grid (ceil(E / 128), ceil(N / 128), splits): with splits > 1 each
+// z-block sums one slice of the chunk's columns into part[z] [N][E] and
+// fce_bwd_sum_kernel adds the slices in order.
+__global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dx_kernel(
+    const float* __restrict__ d, const float* __restrict__ w,
+    float* __restrict__ dx, float* __restrict__ part, int N, int E, int v0,
+    int width, int ldd, int accumulate, int vec) {
+  __shared__ __align__(16) float smem[4 * kGStage];
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int2 ks = k_slice(width, gridDim.z, blockIdx.z);
+  float acc[8][8], unused[2];
+  product_tile<false, true>(Operand{d, ldd, N, width},
+                            Operand{w + (size_t)v0 * E, E, E, width}, m0, n0,
+                            ks.x, ks.y, true, vec, false, smem, acc, unused);
+  const bool direct = gridDim.z == 1;
+  float* out = direct ? dx : part + (size_t)blockIdx.z * N * E;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + tile_row(i);
+    if (r < N)
+      store_tile_row(out + (size_t)r * E, n0, acc[i], E, vec,
+                     direct && accumulate);
+  }
+}
+
+// dw[v0 + m][E] = sum_n d[n][m] x[n] for m < width (TN), and
+// db[v0 + m] = sum_n d[n][m] from the blocks of the first column tile.
+// grid (ceil(E / 128), ceil(width / 128), splits): with splits > 1 each
+// z-block sums one slice of the tokens into part[z] [width][E] (and its
+// db into part[splits * width * E + z * width + m]), and
+// fce_bwd_sum_kernel adds the slices in order.
+__global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dw_kernel(
+    const float* __restrict__ d, const float* __restrict__ x,
+    float* __restrict__ dw, float* __restrict__ db, float* __restrict__ part,
+    int N, int E, int v0, int width, int ldd, int vec) {
+  __shared__ __align__(16) float smem[4 * kGStage];
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int2 ks = k_slice(N, gridDim.z, blockIdx.z);
+  float acc[8][8], colsum[2] = {0.f, 0.f};
+  product_tile<true, true>(Operand{d, ldd, width, N}, Operand{x, E, E, N},
+                           m0, n0, ks.x, ks.y, true, vec, blockIdx.x == 0,
+                           smem, acc, colsum);
+  const bool direct = gridDim.z == 1;
+  float* out = direct ? dw + (size_t)v0 * E
+                      : part + (size_t)blockIdx.z * width * E;
+  float* col = direct ? db + v0
+                      : part + (size_t)gridDim.z * width * E +
+                            (size_t)blockIdx.z * width;
+  const int t = threadIdx.x;
+  if (blockIdx.x == 0 && t < kGM && m0 + t < width) col[m0 + t] = colsum[0];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + tile_row(i);
+    if (r < width)
+      store_tile_row(out + (size_t)r * E, n0, acc[i], E, vec, false);
+  }
+}
+
+// out[i] = (accumulate ? out[i] : 0) + sum over s < splits of
+// part[s * count + i], the slices in order
+__global__ void fce_bwd_sum_kernel(const float* __restrict__ part,
+                                   float* __restrict__ out, size_t count,
+                                   int splits, int accumulate) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
   float acc = part[i];
-  for (int k = 1; k < splits; ++k) acc += part[(size_t)k * count + i];
-  dx[i] = acc;
-}
-
-// grid (ceil(V/64), ceil(E/ecw)): block (bx, bz) owns vocabulary rows
-// [v0, v0+64) and columns [bz * ecw, ...), walks every token tile; the
-// bz = 0 blocks write db.
-__global__ void __launch_bounds__(kThreads) fce_dw_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ b, const int* __restrict__ labels,
-    const float* __restrict__ lse, const float* __restrict__ g_lse,
-    const float* __restrict__ g_lab, const float* __restrict__ g_tot,
-    float* __restrict__ dw, float* __restrict__ db, int N, int V, int E,
-    int ecw) {
-  extern __shared__ float smem[];
-  float* xs = smem;                        // [kBK][kTM+1]
-  float* ws = xs + kBK * (kTM + 1);        // [kBK][kTN+1]
-  float* ds = ws + kBK * (kTN + 1);        // [kTM][kTN+1] d tile
-  float* xc = ds + kTM * (kTN + 1);        // [kTM][kEC+1] x chunk
-  float* acc_s = xc + kTM * (kEC + 1);     // [kTN][ecw] dw accumulator
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int v0 = blockIdx.x * kTN;
-  const int c_begin = blockIdx.z * ecw, c_end = min(E, c_begin + ecw);
-  for (int i = tid; i < kTN * ecw; i += kThreads) acc_s[i] = 0.f;
-  float db_acc = 0.f;                      // column tid of the tile
-  float bias[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = v0 + tx + 16 * j;
-    bias[j] = col < V ? b[col] : 0.f;
-  }
-  float acc[4][4];
-  for (int n0 = 0; n0 < N; n0 += kTM) {
-    logits_tile(x, w, N, V, E, n0, v0, xs, ws, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = n0 + ty + 16 * i;
-      const bool in = row < N;
-      const float r_lse = in ? lse[row] : 0.f;
-      const float r_gl = in ? g_lse[row] : 0.f;
-      const float r_gg = in ? g_lab[row] : 0.f;
-      const float r_gt = in ? g_tot[row] : 0.f;
-      const int lbl = in ? labels[row] : -1;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = v0 + tx + 16 * j;
-        ds[(ty + 16 * i) * (kTN + 1) + tx + 16 * j] =
-            (in && col < V) ? dlogit(acc[i][j] + bias[j], r_lse, r_gl, r_gg,
-                                     r_gt, col == lbl)
-                            : 0.f;
-      }
-    }
-    __syncthreads();
-    if (tid < kTN)
-      for (int rr = 0; rr < kTM; ++rr) db_acc += ds[rr * (kTN + 1) + tid];
-    accumulate_chunks<true>(x, N, E, n0, c_begin, c_end, ecw, ds, xc,
-                            acc_s);
-  }
-  __syncthreads();
-  for (int i = tid; i < kTN * ecw; i += kThreads) {
-    const int vv = i / ecw, v = v0 + vv, c = c_begin + i - vv * ecw;
-    if (v < V && c < c_end) dw[(size_t)v * E + c] = acc_s[i];
-  }
-  if (blockIdx.z == 0 && tid < kTN && v0 + tid < V) db[v0 + tid] = db_acc;
-}
-
-int set_smem(const void* kern, size_t smem) {
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  for (int s = 1; s < splits; ++s) acc += part[(size_t)s * count + i];
+  out[i] = accumulate ? out[i] + acc : acc;
 }
 
 }  // namespace
@@ -459,47 +555,65 @@ extern "C" int fused_ce_fwd(const void* x, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-// part is scratch of splits * N * E floats (unused when splits is 1);
-// ecw is the accumulator's width in columns, a multiple of 64.
-extern "C" int fused_ce_dx(const void* x, const void* w, const void* b,
-                           const void* labels, const void* lse,
-                           const void* g_lse, const void* g_lab,
-                           const void* g_tot, void* dx, void* part, int N,
-                           int V, int E, int splits, int ecw, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem =
-      (bwd_fixed_floats() + (size_t)kTM * ecw) * sizeof(float);
-  int err = set_smem((const void*)fce_dx_kernel, smem);
-  if (err != 0) return err;
-  const int ntiles = (V + kTN - 1) / kTN;
-  const int tps = (ntiles + splits - 1) / splits;
-  const dim3 grid((N + kTM - 1) / kTM, splits, (E + ecw - 1) / ecw);
-  fce_dx_kernel<<<grid, kThreads, smem, s>>>(
+// The backward of one vocabulary chunk [v0, v0 + width), in three calls
+// the wrapper makes in this order. All tensors float32 and contiguous,
+// labels int32; d is the [N, ldd] scratch (ldd a multiple of 128, at least
+// width); vec: E % 4 == 0 and x, w, dx, dw 16-byte aligned. Each returns
+// cudaGetLastError().
+extern "C" int fused_ce_bwd_dlogit(const void* x, const void* w,
+                                   const void* b, const void* labels,
+                                   const void* lse, const void* g_lse,
+                                   const void* g_lab, const void* g_tot,
+                                   void* d, int N, int E, int v0, int width,
+                                   int ldd, int vec, void* stream) {
+  const dim3 grid((width + kGN - 1) / kGN, (N + kGM - 1) / kGM);
+  fce_bwd_dlogit_kernel<<<grid, kGThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const float*)b, (const int*)labels,
       (const float*)lse, (const float*)g_lse, (const float*)g_lab,
-      (const float*)g_tot, splits == 1 ? (float*)dx : (float*)part, N, V, E,
-      tps, ecw);
-  err = (int)cudaGetLastError();
-  if (err != 0 || splits == 1) return err;
-  const size_t count = (size_t)N * E;
-  fce_dx_combine_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
-      (const float*)part, count, splits, (float*)dx);
+      (const float*)g_tot, (float*)d, N, E, v0, width, ldd, vec);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fused_ce_dw(const void* x, const void* w, const void* b,
-                           const void* labels, const void* lse,
-                           const void* g_lse, const void* g_lab,
-                           const void* g_tot, void* dw, void* db, int N,
-                           int V, int E, int ecw, void* stream) {
-  const size_t smem =
-      (bwd_fixed_floats() + (size_t)kTN * ecw) * sizeof(float);
-  int err = set_smem((const void*)fce_dw_kernel, smem);
-  if (err != 0) return err;
-  const dim3 grid((V + kTN - 1) / kTN, 1, (E + ecw - 1) / ecw);
-  fce_dw_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)b, (const int*)labels,
-      (const float*)lse, (const float*)g_lse, (const float*)g_lab,
-      (const float*)g_tot, (float*)dw, (float*)db, N, V, E, ecw);
+static int sum_slices(const float* part, float* out, size_t count,
+                      int splits, int accumulate, cudaStream_t s) {
+  fce_bwd_sum_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
+      part, out, count, splits, accumulate);
   return (int)cudaGetLastError();
+}
+
+// accumulate 0 for the first chunk (stores), 1 for the later ones; with
+// splits > 1, part is scratch of splits * N * E floats
+extern "C" int fused_ce_bwd_dx(const void* d, const void* w, void* dx,
+                               void* part, int N, int E, int v0, int width,
+                               int ldd, int accumulate, int vec, int splits,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((E + kGN - 1) / kGN, (N + kGM - 1) / kGM, splits);
+  fce_bwd_dx_kernel<<<grid, kGThreads, 0, s>>>(
+      (const float*)d, (const float*)w, (float*)dx, (float*)part, N, E, v0,
+      width, ldd, accumulate, vec);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  return sum_slices((const float*)part, (float*)dx, (size_t)N * E, splits,
+                    accumulate, s);
+}
+
+// with splits > 1, part is scratch of splits * width * (E + 1) floats
+extern "C" int fused_ce_bwd_dw(const void* d, const void* x, void* dw,
+                               void* db, void* part, int N, int E, int v0,
+                               int width, int ldd, int vec, int splits,
+                               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((E + kGN - 1) / kGN, (width + kGM - 1) / kGM, splits);
+  fce_bwd_dw_kernel<<<grid, kGThreads, 0, s>>>(
+      (const float*)d, (const float*)x, (float*)dw, (float*)db, (float*)part,
+      N, E, v0, width, ldd, vec);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  const size_t count = (size_t)width * E;
+  err = sum_slices((const float*)part, (float*)dw + (size_t)v0 * E, count,
+                   splits, 0, s);
+  if (err != 0) return err;
+  return sum_slices((const float*)part + splits * count, (float*)db + v0,
+                    width, splits, 0, s);
 }

@@ -9,43 +9,91 @@ per-token stats triple
 
 is the autograd boundary, as the reference's custom VJP ``_stats`` is;
 ``fused_softmax_xent`` composes Marian's smoothed CE from it in plain
-torch. The backward forms ``d logits = g_lse * softmax + g_lab * onehot +
-g_tot`` tile by tile and never writes [N, V].
+torch. The forward never writes [N, V].
 
-On a CUDA tensor the three wrappers launch the hand-written kernels of
-``csrc/fused_ce.cu`` (forward, dx, dw/db) or raise; on a CPU tensor they
-run their plain versions (``fused_ce_stats_reference``,
-``fused_ce_bwd_reference``), which materialise the logits. The kernels
-take float32 and any hidden size E, and mask the ragged vocabulary edge
-themselves, so the table is never padded. ``.launches`` on each wrapper
-counts its calls on the card; the forward's call (and dx's, when its
-vocabulary is sliced) is its kernel plus the fixed-order merge of the
-slices' partial results.
+The backward (``fused_ce_bwd``, the reference's ``_bwd_call`` with its
+``_dx_kernel`` and ``_dw_kernel``) walks the vocabulary in chunks
+[v0, v0 + Vc) in a fixed order (``vocab_chunks``). For each chunk it
+recomputes the logits once and forms
+
+    d = g_lse * exp(logits - lse) + g_lab * onehot(label) + g_tot
+
+into one [N, Vc] scratch that every chunk reuses (at most 256 MiB), then
+adds d . w_c into dx and writes d^T . x and sum_n d into the chunk's rows
+of dw and db. So dx and dw share one logit recompute: three N.V.E
+products in all. ``run_chunks`` is that loop; it takes its three
+per-chunk operations as arguments, the kernels on the card and
+``plain_chunk_ops`` in the CPU tests.
+
+On a CUDA tensor the wrappers launch the hand-written kernels of
+``csrc/fused_ce.cu`` (the forward; per chunk the d product, the dx
+product and the dw/db product) or raise; on a CPU tensor they run their
+plain versions (``fused_ce_stats_reference``, ``fused_ce_bwd_reference``),
+which materialise the logits. The kernels take float32 and any hidden
+size E, and mask the ragged edges themselves, so the table is never
+padded. ``.launches`` on ``fused_ce_stats`` counts its calls on the
+card; on ``fused_ce_dx`` and ``fused_ce_dw`` it counts the card's
+backward calls that computed dx and dw, whichever entry point made them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from . import _build
 
-_SMEM_FLOATS = 232448 // 4            # a Hopper block's shared-memory ceiling
-_TILE, _BK = 64, 32                   # csrc/fused_ce.cu kTM = kTN = kEC, kBK
-_BWD_FIXED = 2 * _BK * (_TILE + 1) + 2 * _TILE * (_TILE + 1)
+_TILE = 64                            # csrc/fused_ce.cu kTM = kTN (forward)
 _SMS = 132                            # H100 SXM streaming multiprocessors
+SCRATCH_BYTES = 256 * 2 ** 20         # the backward's [N, Vc] f32 d scratch
+CHUNK_ALIGN = 128                     # csrc/fused_ce.cu kGM = kGN
 
 
-def accumulator_width(e: int) -> int:
-    """Columns of the [64, width] f32 accumulator a dx / dw block keeps
-    in shared memory: all of E rounded up to 64 when that fits (up to
-    704), else E split into equal 64-aligned ranges, one per z-block of
-    the grid (each range recomputes the logits)."""
-    cap = (_SMEM_FLOATS - _BWD_FIXED) // _TILE // _TILE * _TILE
-    ranges = -(-e // cap)
-    return -(-e // (ranges * _TILE)) * _TILE
+def k_splits(tiles: int, depth: int) -> int:
+    """Slices of a backward product's reduction of ``depth`` for
+    ``tiles`` output tiles of 128 x 128: the count in 1..4 whose blocks
+    leave the fewest of the card's block slots (two a streaming
+    multiprocessor) idle in the last wave, the fewest slices on a tie,
+    each slice at least 256 deep. The slices' partial sums are added in
+    order by a second pass."""
+    slots = 2 * _SMS
+
+    def fill(s):
+        blocks = tiles * s
+        return blocks / (-(-blocks // slots) * slots)
+    most = max(1, min(4, depth // 256))
+    return max(range(1, most + 1), key=lambda s: (fill(s), -s))
+
+
+def vocab_chunks(n: int, v: int, chunk: Optional[int] = None
+                 ) -> List[Tuple[int, int]]:
+    """(v0, width) of the backward's vocabulary chunks, in order: they
+    cover [0, v) once. The width is ``chunk`` when given (tests force a
+    narrow one), else the largest multiple of 128 whose d scratch of
+    n x width f32 fits SCRATCH_BYTES (at least 128); the last chunk takes
+    what is left."""
+    if chunk is None:
+        fit = SCRATCH_BYTES // (4 * max(n, 1))
+        chunk = max(CHUNK_ALIGN, fit // CHUNK_ALIGN * CHUNK_ALIGN)
+    if chunk < 1:
+        raise ValueError(f"vocab_chunks: chunk {chunk} < 1")
+    return [(v0, min(chunk, v - v0)) for v0 in range(0, v, chunk)]
+
+
+def run_chunks(chunks, make_d: Callable, add_dx: Optional[Callable] = None,
+               put_dw: Optional[Callable] = None) -> None:
+    """The backward's loop over vocabulary chunks, in order: per chunk,
+    d = make_d(v0, width) once, then add_dx(d, v0, width, first) (first:
+    store, later chunks: add) and put_dw(d, v0, width) from that d."""
+    for i, (v0, width) in enumerate(chunks):
+        d = make_d(v0, width)
+        if add_dx is not None:
+            add_dx(d, v0, width, i == 0)
+        if put_dw is not None:
+            put_dw(d, v0, width)
 
 
 # ---------------------------------------------------------------------------
@@ -78,6 +126,34 @@ def fused_ce_bwd_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot):
     dx = torch.matmul(d, w.float())
     dw = torch.matmul(d.t(), x.float())
     return dx.to(x.dtype), dw.to(w.dtype), d.sum(dim=0).to(b.dtype)
+
+
+def plain_chunk_ops(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db):
+    """``run_chunks``'s three operations in plain torch, writing into dx
+    [N, E], dw [V, E] and db [V] (any of them None when not asked for):
+    the loop the card runs, with the kernels' arithmetic per chunk."""
+    labels = labels.long()
+    rows = torch.arange(x.shape[0], device=x.device)
+
+    def make_d(v0, width):
+        logits = x @ w[v0:v0 + width].t() + b[v0:v0 + width]
+        d = g_lse[:, None] * torch.exp(logits - lse[:, None]) + g_tot[:, None]
+        hit = (labels >= v0) & (labels < v0 + width)
+        d[rows[hit], labels[hit] - v0] += g_lab[hit]
+        return d
+
+    def add_dx(d, v0, width, first):
+        part = d @ w[v0:v0 + width]
+        if first:
+            dx.copy_(part)
+        else:
+            dx.add_(part)
+
+    def put_dw(d, v0, width):
+        dw[v0:v0 + width] = d.t() @ x
+        db[v0:v0 + width] = d.sum(dim=0)
+
+    return make_d, add_dx, put_dw
 
 
 # ---------------------------------------------------------------------------
@@ -142,50 +218,90 @@ def _bwd_operands(x, grads):
             for g in grads]
 
 
-def fused_ce_dx(x, w, b, labels, lse, g_lse, g_lab, g_tot):
-    """dx [N, E] = d . w (logits recomputed tile by tile)."""
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
+                 need_dw=True, chunk=None):
+    """(dx [N, E], dw [V, E], db [V]) for the stats' cotangents, each
+    None when not asked for: on a CUDA tensor the chunk loop over the
+    kernels (``chunk`` forces a narrower vocabulary chunk), on a CPU
+    tensor the plain version."""
     if not x.is_cuda:
-        return fused_ce_bwd_reference(x, w, b, labels, lse, g_lse, g_lab,
-                                      g_tot)[0]
-    x, w, b, labels = _operands("fused_ce_dx", x, w, b, labels)
+        dx, dw, db = fused_ce_bwd_reference(x, w, b, labels, lse, g_lse,
+                                            g_lab, g_tot)
+        return (dx if need_dx else None, dw if need_dw else None,
+                db if need_dw else None)
+    ops = (_fn("fused_ce_bwd_dlogit", 9, 6), _fn("fused_ce_bwd_dx", 4, 8),
+           _fn("fused_ce_bwd_dw", 5, 7))
+    x, w, b, labels = _operands("fused_ce_bwd", x, w, b, labels)
     n, e = x.shape
-    lse, g_lse, g_lab, g_tot = _bwd_operands(x, (lse, g_lse, g_lab, g_tot))
     v = w.shape[0]
-    # one block per SM at a time (shared memory): at least two blocks per
-    # SM keep the last wave from idling much of the card
-    splits = _splits(-(-n // _TILE), -(-v // _TILE), 2)
-    dx = torch.empty_like(x)
-    part = torch.empty((splits, n, e) if splits > 1 else (1,),
-                       dtype=torch.float32, device=x.device)
-    err = _fn("fused_ce_dx", 10, 5)(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-        lse.data_ptr(), g_lse.data_ptr(), g_lab.data_ptr(), g_tot.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), n, v, e, splits,
-        accumulator_width(e), _stream(x))
-    _build.check(err, "fused_ce_dx")
-    fused_ce_dx.launches += 1
-    return dx
+    lse, g_lse, g_lab, g_tot = _bwd_operands(x, (lse, g_lse, g_lab, g_tot))
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    db = (torch.empty((v,), dtype=torch.float32, device=x.device)
+          if need_dw else None)
+    chunks = vocab_chunks(n, v, chunk) if n else []
+    if not chunks:                    # nothing to sum: zero gradients
+        for t in (dx, dw, db):
+            if t is not None:
+                t.zero_()
+    else:
+        ldd = -(-chunks[0][1] // CHUNK_ALIGN) * CHUNK_ALIGN
+        d = torch.empty((n, ldd), dtype=torch.float32, device=x.device)
+        e_tiles = -(-e // CHUNK_ALIGN)
+        splits = {width: (k_splits(e_tiles * -(-n // CHUNK_ALIGN), width),
+                          k_splits(e_tiles * -(-width // CHUNK_ALIGN), n))
+                  for _, width in chunks}
+        part = torch.empty(max([1] + [
+            sx * n * e for sx, _ in splits.values() if need_dx and sx > 1] + [
+            sw * w_ * (e + 1) for w_, (_, sw) in splits.items()
+            if need_dw and sw > 1]), dtype=torch.float32, device=x.device)
+        vec = int(e % 4 == 0 and _aligned(*(t for t in (x, w, dx, dw)
+                                             if t is not None)))
+        stream = _stream(x)
+
+        def make_d(v0, width):
+            _build.check(ops[0](
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+                lse.data_ptr(), g_lse.data_ptr(), g_lab.data_ptr(),
+                g_tot.data_ptr(), d.data_ptr(), n, e, v0, width, ldd, vec,
+                stream), "fused_ce_bwd_dlogit")
+            return d
+
+        def add_dx(d, v0, width, first):
+            _build.check(ops[1](
+                d.data_ptr(), w.data_ptr(), dx.data_ptr(), part.data_ptr(),
+                n, e, v0, width, ldd, int(not first), vec, splits[width][0],
+                stream), "fused_ce_bwd_dx")
+
+        def put_dw(d, v0, width):
+            _build.check(ops[2](
+                d.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                part.data_ptr(), n, e, v0, width, ldd, vec,
+                splits[width][1], stream), "fused_ce_bwd_dw")
+
+        run_chunks(chunks, make_d, add_dx if need_dx else None,
+                   put_dw if need_dw else None)
+    if need_dx:
+        fused_ce_dx.launches += 1
+    if need_dw:
+        fused_ce_dw.launches += 1
+    return dx, dw, db
+
+
+def fused_ce_dx(x, w, b, labels, lse, g_lse, g_lab, g_tot):
+    """dx [N, E] = d . w alone (the logits recomputed chunk by chunk)."""
+    return fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot,
+                        need_dw=False)[0]
 
 
 def fused_ce_dw(x, w, b, labels, lse, g_lse, g_lab, g_tot):
-    """(dw [V, E] = d^T . x, db [V] = sum_n d)."""
-    if not x.is_cuda:
-        _, dw, db = fused_ce_bwd_reference(x, w, b, labels, lse, g_lse,
-                                           g_lab, g_tot)
-        return dw, db
-    x, w, b, labels = _operands("fused_ce_dw", x, w, b, labels)
-    n, e = x.shape
-    lse, g_lse, g_lab, g_tot = _bwd_operands(x, (lse, g_lse, g_lab, g_tot))
-    dw = torch.empty_like(w)
-    db = torch.empty((w.shape[0],), dtype=torch.float32, device=x.device)
-    err = _fn("fused_ce_dw", 10, 4)(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-        lse.data_ptr(), g_lse.data_ptr(), g_lab.data_ptr(), g_tot.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), n, w.shape[0], e, accumulator_width(e),
-        _stream(x))
-    _build.check(err, "fused_ce_dw")
-    fused_ce_dw.launches += 1
-    return dw, db
+    """(dw [V, E] = d^T . x, db [V] = sum_n d) alone."""
+    return fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot,
+                        need_dx=False)[1:]
 
 
 fused_ce_stats.launches = 0
@@ -208,11 +324,12 @@ class _FusedCEStats(torch.autograd.Function):
         x, w, b, labels, lse = ctx.saved_tensors
         grads = [torch.zeros_like(lse) if g is None else g
                  for g in (g_lse, g_lab, g_tot)]
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = fused_ce_dx(x, w, b, labels, lse, *grads)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dw, db = fused_ce_dw(x, w, b, labels, lse, *grads)
+        # one call: the logits are recomputed once for dx and dw
+        dx, dw, db = fused_ce_bwd(
+            x, w, b, labels, lse, *grads,
+            need_dx=ctx.needs_input_grad[0],
+            need_dw=ctx.needs_input_grad[1] or ctx.needs_input_grad[2])
+        if db is not None:
             db = db.reshape(b.shape).to(b.dtype)
         return dx, dw, db, None
 
@@ -223,8 +340,9 @@ def fused_softmax_xent(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Per-token label-smoothed CE of logits = x . w^T + b, [N] f32:
         ce = (1-eps) * (lse - lab) + eps * (lse - tot / V)
     (the reference's algebra, ``fused_ce.py :: fused_softmax_xent``).
-    On the card the gradient runs through the dx / dw kernels; on the CPU
-    it is autograd through the plain forward."""
+    On the card the gradient runs through the backward's kernels
+    (``fused_ce_bwd``); on the CPU it is autograd through the plain
+    forward."""
     v = w.shape[0]
     if x.is_cuda:
         lse, lab, tot = _FusedCEStats.apply(x, w, b, labels)

@@ -35,8 +35,10 @@ CLASSES = (
     ("flash_attention forward (this port)", r"flash_fwd_kernel"),
     ("packed_attention backward (this port)", r"packed_attention_bwd_kernel"),
     ("packed_attention forward (this port)", r"packed_attention_kernel"),
-    ("fused_ce dx (this port)", r"fce_dx_kernel"),
-    ("fused_ce dw/db (this port)", r"fce_dw_kernel"),
+    ("fused_ce backward d recompute (this port)", r"fce_bwd_dlogit"),
+    ("fused_ce backward dx product (this port)", r"fce_bwd_dx"),
+    ("fused_ce backward dw/db product (this port)", r"fce_bwd_dw"),
+    ("fused_ce backward slice sums (this port)", r"fce_bwd_sum"),
     ("fused_ce forward (this port)", r"fce_fwd"),
     ("f32 GEMM (cuBLAS/CUTLASS)", r"gemm|sgemm|cutlass|cublas"),
     ("reductions", r"reduce|Reduce|norm"),

@@ -12,7 +12,9 @@ positions (many chunks of the streamed cache), bf16 operands, for the
 flash kernels lengths that are not multiples of their 64-row tiles, every
 head size they are built for and a fully masked row, and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
-its 64 x 64 tiles or its 32-column chunks, and for the paged decode
+its tiles (64 x 64 forward, 128 x 128 backward), a hidden size that is
+not a multiple of 4 (scalar loads), forced narrow vocabulary chunks in
+the backward and a determinism check, and for the paged decode
 read page tables permuted over a larger pool, page lengths that do not
 divide its 64-position chunks, idle rows and rows at page boundaries. Tolerances: 2e-5 for f32
 outputs (f32 sums in another order), 2e-2 for bf16 outputs (one bf16
@@ -189,10 +191,16 @@ def test_packed_attention_autograd_runs_both_kernels(dev):
         _close_to_scale(g, r, 1e-5)
 
 
-@pytest.mark.parametrize("n,v,e", [(70, 200, 48), (64, 64, 32),
-                                   (300, 1000, 512), (129, 3001, 96),
-                                   (200, 1000, 1024), (130, 515, 1500)])
-def test_fused_ce_kernels_match_plain(dev, n, v, e):
+@pytest.mark.parametrize("n,v,e,chunk", [
+    (70, 200, 48, None), (64, 64, 32, None), (300, 1000, 512, None),
+    (129, 3001, 96, None), (200, 1000, 1024, None), (130, 515, 1500, None),
+    (301, 3001, 96, 500), (130, 515, 1500, 200), (129, 700, 50, 128),
+    (1100, 300, 64, None)])
+def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk):
+    """With ``chunk`` the joint backward runs over forced narrow
+    vocabulary chunks (several, the last one ragged); E = 50 takes the
+    scalar loads; small tile counts split the dx and dw reductions into
+    slices (``k_splits``)."""
     gen = torch.Generator().manual_seed(n + v + e)
     x = _randn(gen, dev, n, e)
     w = _randn(gen, dev, v, e) * (e ** -0.5)
@@ -205,8 +213,13 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e):
     for g, r in zip(got, ref):
         _close_to_scale(g, r, 1e-5)
     g_lse, g_lab, g_tot = (_randn(gen, dev, n) for _ in range(3))
-    dx = fce.fused_ce_dx(x, w, b, labels, ref[0], g_lse, g_lab, g_tot)
-    dw, db = fce.fused_ce_dw(x, w, b, labels, ref[0], g_lse, g_lab, g_tot)
+    if chunk is None:
+        dx = fce.fused_ce_dx(x, w, b, labels, ref[0], g_lse, g_lab, g_tot)
+        dw, db = fce.fused_ce_dw(x, w, b, labels, ref[0], g_lse, g_lab,
+                                 g_tot)
+    else:
+        dx, dw, db = fce.fused_ce_bwd(x, w, b, labels, ref[0], g_lse, g_lab,
+                                      g_tot, chunk=chunk)
     rdx, rdw, rdb = fce.fused_ce_bwd_reference(x, w, b, labels, ref[0],
                                                g_lse, g_lab, g_tot)
     _close_to_scale(dx, rdx, 1e-5)
@@ -216,7 +229,26 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e):
             fce.fused_ce_dw.launches) == tuple(c + 1 for c in launches)
 
 
+def test_fused_ce_bwd_is_deterministic(dev):
+    """The same inputs twice give bit-identical dx, dw and db (fixed
+    chunk order, no atomics), also over several chunks."""
+    gen = torch.Generator().manual_seed(11)
+    n, v, e = 1000, 5003, 256
+    x = _randn(gen, dev, n, e)
+    w = _randn(gen, dev, v, e) * (e ** -0.5)
+    b = _randn(gen, dev, v)
+    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    lse = fce.fused_ce_stats_reference(x, w, b, labels)[0]
+    g = [_randn(gen, dev, n) for _ in range(3)]
+    for chunk in (None, 1000):
+        one = fce.fused_ce_bwd(x, w, b, labels, lse, *g, chunk=chunk)
+        two = fce.fused_ce_bwd(x, w, b, labels, lse, *g, chunk=chunk)
+        assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
 def test_fused_softmax_xent_gradients_match_dense(dev):
+    """One backward of the loss counts one dx and one dw launch: the
+    logits are recomputed once for both."""
     gen = torch.Generator().manual_seed(3)
     n, v, e = 100, 333, 64
     x = _randn(gen, dev, n, e).requires_grad_(True)
@@ -224,7 +256,10 @@ def test_fused_softmax_xent_gradients_match_dense(dev):
     b = _randn(gen, dev, v).requires_grad_(True)
     labels = torch.randint(0, v, (n,), generator=gen).to(dev)
     ce = fce.fused_softmax_xent(x, w, b, labels, 0.1)
+    launches = (fce.fused_ce_dx.launches, fce.fused_ce_dw.launches)
     ce.sum().backward()
+    assert (fce.fused_ce_dx.launches, fce.fused_ce_dw.launches) == (
+        launches[0] + 1, launches[1] + 1)
     xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, b))
     logits = xr @ wr.t() + br
     ref = torch.nn.functional.cross_entropy(logits, labels, reduction="none",

@@ -1,5 +1,7 @@
-"""The port's fused CE (plain versions, and the autograd Function that
-routes the backward through the dx / dw wrappers) vs the JAX kernel.
+"""The port's fused CE (plain versions, the autograd Function that
+routes the backward through ``fused_ce_bwd``, and the backward's chunk
+loop over the vocabulary run with plain per-chunk operations) vs the JAX
+kernels.
 
 The JAX side is ``fused_softmax_xent(..., block_v=32, interpret=True)``
 with ``jax.grad``, as tests/test_fused_ce.py runs it on the CPU; V = 45
@@ -113,16 +115,107 @@ def test_bwd_reference_matches_autograd_of_dense_loss():
                                    atol=1e-5)
 
 
-def test_kernel_cap_covers_transformer_base():
-    """The dx / dw accumulator holds transformer-base's E = 512 in one
-    column range; a wider E (transformer-big's 1024) is split into the
-    fewest 64-aligned ranges that fit a Hopper block's shared memory, so
-    every hidden size runs the kernels."""
-    assert fce.accumulator_width(512) == 512
-    assert fce.accumulator_width(1024) == 512
-    cap = 704                       # widest range that fits 227 KB
-    for e in (24, 64, 512, 700, 704, 705, 1024, 1500, 4096):
-        width = fce.accumulator_width(e)
-        assert width % 64 == 0 and width <= cap
-        assert (fce._BWD_FIXED + 64 * width) * 4 <= 232448
-        assert -(-e // width) == -(-e // cap)
+@pytest.mark.parametrize("n,v", [(12288, 32000), (8192, 32000),
+                                 (37, 45), (1, 500000), (100003, 32003),
+                                 (4_000_000, 1000)])
+def test_vocab_chunks_cover_the_vocabulary_within_the_scratch(n, v):
+    """The backward's chunks cover [0, V) once, in order; every width but
+    the last is one multiple of 128, whose [N, width] f32 d scratch fits
+    the budget (a width of 128 where even that does not fit)."""
+    chunks = fce.vocab_chunks(n, v)
+    assert chunks[0][0] == 0
+    assert all(a + wa == b for (a, wa), (b, _) in zip(chunks, chunks[1:]))
+    assert sum(w for _, w in chunks) == v
+    width = chunks[0][1]
+    assert all(w == width for _, w in chunks[:-1]) and chunks[-1][1] <= width
+    if len(chunks) > 1:
+        assert width % fce.CHUNK_ALIGN == 0
+    assert (n * width * 4 <= fce.SCRATCH_BYTES
+            or width <= fce.CHUNK_ALIGN)
+
+
+def test_vocab_chunks_at_transformer_base_training():
+    """12,288 target words a batch, vocabulary 32,000: chunks of 5,376
+    (n x 5,376 x 4 B = 252 MiB), the sixth one ragged."""
+    chunks = fce.vocab_chunks(12288, 32000)
+    assert [w for _, w in chunks] == [5376] * 5 + [5120]
+
+
+@pytest.mark.parametrize("chunk,widths", [(1, [1] * 45), (16, [16, 16, 13]),
+                                          (45, [45]), (100, [45])])
+def test_vocab_chunks_forced_width(chunk, widths):
+    assert [w for _, w in fce.vocab_chunks(N, V, chunk)] == widths
+
+
+def _jax_bwd_call(x, w, b, labels, lse, grads):
+    """The reference's ``_bwd_call`` (dx and dw kernels, interpret mode)
+    on inputs padded as its ``fused_softmax_xent`` pads them: tokens to a
+    128-row block, the vocabulary to 32-row blocks with bias MASK_VALUE;
+    padded tokens get zero cotangents."""
+    from marian_tpu.ops.pallas.fused_ce import MASK_VALUE, _bwd_call
+    n_pad, v_pad = 128, 64
+
+    def pad(a, rows, value=0.0):
+        out = np.full((rows,) + a.shape[1:], value, a.dtype)
+        out[:a.shape[0]] = a
+        return jnp.asarray(out)
+    cols = [pad(a, n_pad)[:, None] for a in (lse, *grads)]
+    dx, dw, db = _bwd_call(pad(x, n_pad), pad(w, v_pad),
+                           pad(b, v_pad, MASK_VALUE)[None, :],
+                           pad(labels, n_pad)[:, None], *cols, n_pad, 32, V,
+                           True)
+    return np.asarray(dx)[:N], np.asarray(dw)[:V], np.asarray(db)[:V, 0]
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 45, 100, None])
+def test_chunk_loop_matches_jax_bwd_call(chunk):
+    """``run_chunks`` over ``vocab_chunks`` with the plain per-chunk
+    operations (the loop the card runs, the kernels' arithmetic per chunk)
+    at widths 1, a ragged last chunk, V, wider than V and the default,
+    against the reference's ``_bwd_call`` (GRAD_TOL) and against
+    ``fused_ce_bwd_reference`` (1e-5: the same f32 sums, cut at chunk
+    edges)."""
+    x, w, b, labels, _ = _inputs(6)
+    rng = np.random.RandomState(7)
+    grads = [rng.randn(N).astype(np.float32) for _ in range(3)]
+    tx, tw, tb = _t(x, w, b)
+    tl = torch.as_tensor(labels)
+    lse = fce.fused_ce_stats_reference(tx, tw, tb, tl)[0]
+    tg = _t(*grads)
+    dx, dw, db = torch.empty(N, E), torch.empty(V, E), torch.empty(V)
+    fce.run_chunks(fce.vocab_chunks(N, V, chunk),
+                   *fce.plain_chunk_ops(tx, tw, tb, tl, lse, *tg, dx, dw, db))
+    ref = _jax_bwd_call(x, w, b, labels, lse.numpy(), grads)
+    plain = fce.fused_ce_bwd_reference(tx, tw, tb, tl, lse, *tg)
+    for got, r, p in zip((dx, dw, db), ref, plain):
+        np.testing.assert_allclose(got.numpy(), r, rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+        np.testing.assert_allclose(got.numpy(), p.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("need_dx,need_dw", [(True, False), (False, True)])
+def test_chunk_loop_computes_only_what_is_asked(need_dx, need_dw):
+    """Without dx (or dw) the loop skips that operation; on the CPU
+    ``fused_ce_bwd`` returns None for the part not asked for."""
+    x, w, b, labels, _ = _inputs(8)
+    tx, tw, tb = _t(x, w, b)
+    tl = torch.as_tensor(labels)
+    lse = fce.fused_ce_stats_reference(tx, tw, tb, tl)[0]
+    g = _t(*(np.full(N, 0.5, np.float32) for _ in range(3)))
+    plain = fce.fused_ce_bwd_reference(tx, tw, tb, tl, lse, *g)
+    dx, dw, db = torch.empty(N, E), torch.empty(V, E), torch.empty(V)
+    make_d, add_dx, put_dw = fce.plain_chunk_ops(tx, tw, tb, tl, lse, *g,
+                                                 dx, dw, db)
+    fce.run_chunks(fce.vocab_chunks(N, V, 16), make_d,
+                   add_dx if need_dx else None, put_dw if need_dw else None)
+    got = fce.fused_ce_bwd(tx, tw, tb, tl, lse, *g, need_dx=need_dx,
+                           need_dw=need_dw)
+    for part, loop, ref, asked in ((got[0], dx, plain[0], need_dx),
+                                   (got[1], dw, plain[1], need_dw),
+                                   (got[2], db, plain[2], need_dw)):
+        assert (part is not None) == asked
+        if asked:
+            np.testing.assert_allclose(loop.numpy(), ref.numpy(), rtol=1e-5,
+                                       atol=1e-5)
+            assert torch.equal(part, ref)

@@ -233,6 +233,8 @@ def test_fused_ce_wrappers_raise_on_cuda_request(monkeypatch):
         fmod.fused_ce_dx(x, w, b, labels, *stats)
     with pytest.raises(RuntimeError):
         fmod.fused_ce_dw(x, w, b, labels, *stats)
+    with pytest.raises(RuntimeError):
+        fmod.fused_ce_bwd(x, w, b, labels, *stats)
     assert (fmod.fused_ce_stats.launches, fmod.fused_ce_dx.launches,
             fmod.fused_ce_dw.launches) == before
 
