@@ -590,9 +590,7 @@ def product_times(fce, x, w, b, labels, lse, g) -> None:
     s = torch.cuda.current_stream().cuda_stream
     fns = [fce._fn("fused_ce_bwd_dlogit", 9, 6), fce._fn("fused_ce_bwd_dx",
            4, 8), fce._fn("fused_ce_bwd_dw", 5, 7)]
-    e_tiles = -(-e // fce.CHUNK_ALIGN)
-    sx = fce.k_splits(e_tiles * -(-n // fce.CHUNK_ALIGN), width)
-    sw = fce.k_splits(e_tiles * -(-width // fce.CHUNK_ALIGN), n)
+    sx, sw = fce.chunk_splits(n, e, width)
     part = torch.empty(max(sx * n * e, sw * width * (e + 1)),
                        device=x.device)
     wc, dc = w[:width], d[:, :width]

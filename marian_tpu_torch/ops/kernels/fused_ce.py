@@ -68,6 +68,15 @@ def k_splits(tiles: int, depth: int) -> int:
     return max(range(1, most + 1), key=lambda s: (fill(s), -s))
 
 
+def chunk_splits(n: int, e: int, width: int) -> Tuple[int, int]:
+    """``k_splits`` of one vocabulary chunk's dx product (n x e outputs,
+    reduction over the chunk) and dw product (width x e outputs,
+    reduction over the tokens)."""
+    e_tiles = -(-e // CHUNK_ALIGN)
+    return (k_splits(e_tiles * -(-n // CHUNK_ALIGN), width),
+            k_splits(e_tiles * -(-width // CHUNK_ALIGN), n))
+
+
 def vocab_chunks(n: int, v: int, chunk: Optional[int] = None
                  ) -> List[Tuple[int, int]]:
     """(v0, width) of the backward's vocabulary chunks, in order: they
@@ -243,48 +252,44 @@ def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
     dw = torch.empty_like(w) if need_dw else None
     db = (torch.empty((v,), dtype=torch.float32, device=x.device)
           if need_dw else None)
-    chunks = vocab_chunks(n, v, chunk) if n else []
-    if not chunks:                    # nothing to sum: zero gradients
-        for t in (dx, dw, db):
-            if t is not None:
-                t.zero_()
-    else:
-        ldd = -(-chunks[0][1] // CHUNK_ALIGN) * CHUNK_ALIGN
-        d = torch.empty((n, ldd), dtype=torch.float32, device=x.device)
-        e_tiles = -(-e // CHUNK_ALIGN)
-        splits = {width: (k_splits(e_tiles * -(-n // CHUNK_ALIGN), width),
-                          k_splits(e_tiles * -(-width // CHUNK_ALIGN), n))
-                  for _, width in chunks}
-        part = torch.empty(max([1] + [
-            sx * n * e for sx, _ in splits.values() if need_dx and sx > 1] + [
-            sw * w_ * (e + 1) for w_, (_, sw) in splits.items()
-            if need_dw and sw > 1]), dtype=torch.float32, device=x.device)
-        vec = int(e % 4 == 0 and _aligned(*(t for t in (x, w, dx, dw)
-                                             if t is not None)))
-        stream = _stream(x)
+    chunks = vocab_chunks(n, v, chunk)
+    ldd = -(-chunks[0][1] // CHUNK_ALIGN) * CHUNK_ALIGN
+    d = torch.empty((n, ldd), dtype=torch.float32, device=x.device)
+    # scratch for the reduction slices, reused by every chunk's products
+    splits = {width: chunk_splits(n, e, width) for _, width in chunks}
+    sizes = [1]
+    for width, (sx, sw) in splits.items():
+        if need_dx and sx > 1:
+            sizes.append(sx * n * e)
+        if need_dw and sw > 1:
+            sizes.append(sw * width * (e + 1))
+    part = torch.empty(max(sizes), dtype=torch.float32, device=x.device)
+    vec = int(e % 4 == 0 and _aligned(*(t for t in (x, w, dx, dw)
+                                         if t is not None)))
+    stream = _stream(x)
 
-        def make_d(v0, width):
-            _build.check(ops[0](
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-                lse.data_ptr(), g_lse.data_ptr(), g_lab.data_ptr(),
-                g_tot.data_ptr(), d.data_ptr(), n, e, v0, width, ldd, vec,
-                stream), "fused_ce_bwd_dlogit")
-            return d
+    def make_d(v0, width):
+        _build.check(ops[0](
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), g_lse.data_ptr(), g_lab.data_ptr(),
+            g_tot.data_ptr(), d.data_ptr(), n, e, v0, width, ldd, vec,
+            stream), "fused_ce_bwd_dlogit")
+        return d
 
-        def add_dx(d, v0, width, first):
-            _build.check(ops[1](
-                d.data_ptr(), w.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                n, e, v0, width, ldd, int(not first), vec, splits[width][0],
-                stream), "fused_ce_bwd_dx")
+    def add_dx(d, v0, width, first):
+        _build.check(ops[1](
+            d.data_ptr(), w.data_ptr(), dx.data_ptr(), part.data_ptr(), n,
+            e, v0, width, ldd, int(not first), vec, splits[width][0],
+            stream), "fused_ce_bwd_dx")
 
-        def put_dw(d, v0, width):
-            _build.check(ops[2](
-                d.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                part.data_ptr(), n, e, v0, width, ldd, vec,
-                splits[width][1], stream), "fused_ce_bwd_dw")
+    def put_dw(d, v0, width):
+        _build.check(ops[2](
+            d.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
+            part.data_ptr(), n, e, v0, width, ldd, vec, splits[width][1],
+            stream), "fused_ce_bwd_dw")
 
-        run_chunks(chunks, make_d, add_dx if need_dx else None,
-                   put_dw if need_dw else None)
+    run_chunks(chunks, make_d, add_dx if need_dx else None,
+               put_dw if need_dw else None)
     if need_dx:
         fused_ce_dx.launches += 1
     if need_dw:
