@@ -38,14 +38,16 @@
 //                          columns into db, in token order, compensated.
 // So the logits are recomputed once a backward and shared by dx and dw:
 // three N*V*E products in all, the least a backward that does not keep
-// [N, V] can do. All three are one template (product_tile): 128 x 128
-// output tiles, 256 threads with an 8 x 8 register tile each (2 x 2
-// sub-tiles of 4 x 4, so each k step reads four float4 from shared memory
-// for 64 FMAs), depth-8 operand tiles staged k-major in shared memory and
-// double-buffered, the next tile's global loads in flight in registers.
-// An operand whose global layout is k-contiguous (x and w rows in the NT
-// product, d in the NN one) is transposed on its way into shared memory;
-// rows are padded to 132 floats so those stores do not collide on a bank.
+// [N, V] can do. All three are one template (product_tile): 128 x 256
+// output tiles, one block of 256 threads an SM, each thread with an 8 x 16
+// register tile (2 x 4 sub-tiles of 4 x 4, so each k step reads six
+// float4 from shared memory for 128 FMAs; 128 x 128 tiles of 8 x 8, two
+// blocks an SM, measured slower on the card), depth-8 operand tiles staged
+// k-major in shared memory and double-buffered, the next tile's global
+// loads in flight in registers. An operand whose global layout is
+// k-contiguous (x and w rows in the NT product, d in the NN one) is
+// transposed on its way into shared memory; staged rows are padded by 4
+// floats so those stores do not collide on a bank.
 // The accumulator is the register tile of an output tile, so no hidden
 // size E limits a block or splits the work into column ranges. The dx
 // and dw products have few output tiles (N x E and Vc x E) and a long
@@ -235,12 +237,14 @@ __device__ __forceinline__ float dlogit(float l, float lse, float gl,
 // ---------------------------------------------------------------------------
 
 constexpr int kGM = 128;             // output tile rows
-constexpr int kGN = 128;             // output tile columns
+constexpr int kGN = 256;             // output tile columns
 constexpr int kGK = 8;               // depth of a staged operand tile
-constexpr int kGLd = kGM + 4;        // staged row pitch in floats
-constexpr int kGThreads = 256;       // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kGStage = kGK * kGLd;  // floats of one staged operand tile
-static_assert(kGM == kGN && kGM * kGK == 4 * kGThreads, "one float4 each");
+constexpr int kGThreads = 256;       // 16 x 16 threads, 8 x 16 outputs each
+constexpr int kRT = kGN / 16;        // outputs of a thread along a row
+// staged row pitch (floats) and floats of one staged tile of R rows
+__host__ __device__ constexpr int pitch(int rows) { return rows + 4; }
+__host__ __device__ constexpr int stage(int rows) { return kGK * pitch(rows); }
+static_assert(kGM * kGK % (4 * kGThreads) == 0, "float4s");
 
 // An operand of C[m][n] = sum_k A(m, k) B(n, k): element (r, k) lies at
 // p[k * ld + r] when k-major, else at p[r * ld + k]; rows at or past
@@ -250,50 +254,69 @@ struct Operand {
   int ld, rows, ks;
 };
 
-// This thread's four elements of the operand's [128 rows x kGK] tile at
-// (r0, k0): k-major, depth k0 + tid / 32 of rows r0 + 4 (tid % 32) .. + 3;
-// else row r0 + tid / 2 at depths k0 + 4 (tid % 2) .. + 3.
-template <bool kMajor>
-__device__ __forceinline__ float4 load_tile(const Operand& o, int r0, int k0,
-                                            bool vec) {
-  const int t = threadIdx.x;
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
-  if (kMajor) {
-    const int k = k0 + (t >> 5), r = r0 + ((t & 31) << 2);
-    if (k < o.ks) {
-      const float* q = o.p + (size_t)k * o.ld + r;
-      if (vec && r + 3 < o.rows)
-        return __ldg(reinterpret_cast<const float4*>(q));
+// This thread's float4s of the operand's [ROWS x kGK] tile at (r0, k0):
+// float4 u is element idx = tid + 256 u; k-major, depth k0 + idx / (ROWS /
+// 4) of rows r0 + 4 (idx % (ROWS / 4)) .. + 3; else row r0 + idx / 2 at
+// depths k0 + 4 (idx % 2) .. + 3.
+template <int ROWS, bool kMajor>
+__device__ __forceinline__ void load_tile(const Operand& o, int r0, int k0,
+                                          bool vec,
+                                          float4 (&out)[ROWS / 128]) {
+  constexpr int kQ = ROWS / 4;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (r + i < o.rows) v[i] = q[i];
-    }
-  } else {
-    const int r = r0 + (t >> 1), k = k0 + ((t & 1) << 2);
-    if (r < o.rows) {
-      const float* q = o.p + (size_t)r * o.ld + k;
-      if (vec && k + 3 < o.ks)
-        return __ldg(reinterpret_cast<const float4*>(q));
+  for (int u = 0; u < ROWS / 128; ++u) {
+    const int t = threadIdx.x + u * kGThreads;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    bool done = false;
+    if (kMajor) {
+      const int k = k0 + t / kQ, r = r0 + ((t % kQ) << 2);
+      if (k < o.ks) {
+        const float* q = o.p + (size_t)k * o.ld + r;
+        if (vec && r + 3 < o.rows) {
+          out[u] = __ldg(reinterpret_cast<const float4*>(q));
+          done = true;
+        } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (k + i < o.ks) v[i] = q[i];
+          for (int i = 0; i < 4; ++i)
+            if (r + i < o.rows) v[i] = q[i];
+        }
+      }
+    } else {
+      const int r = r0 + (t >> 1), k = k0 + ((t & 1) << 2);
+      if (r < o.rows) {
+        const float* q = o.p + (size_t)r * o.ld + k;
+        if (vec && k + 3 < o.ks) {
+          out[u] = __ldg(reinterpret_cast<const float4*>(q));
+          done = true;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (k + i < o.ks) v[i] = q[i];
+        }
+      }
     }
+    if (!done) out[u] = make_float4(v[0], v[1], v[2], v[3]);
   }
-  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// the four elements of load_tile into the k-major staged tile s[kGK][kGLd]
-template <bool kMajor>
-__device__ __forceinline__ void stage_tile(float* s, float4 v) {
-  const int t = threadIdx.x;
-  if (kMajor) {
-    *reinterpret_cast<float4*>(s + (t >> 5) * kGLd + ((t & 31) << 2)) = v;
-  } else {
-    const int r = t >> 1, k = (t & 1) << 2;
-    s[k * kGLd + r] = v.x;
-    s[(k + 1) * kGLd + r] = v.y;
-    s[(k + 2) * kGLd + r] = v.z;
-    s[(k + 3) * kGLd + r] = v.w;
+// load_tile's float4s into the k-major staged tile s[kGK][pitch(ROWS)]
+template <int ROWS, bool kMajor>
+__device__ __forceinline__ void stage_tile(float* s,
+                                           const float4 (&in)[ROWS / 128]) {
+  constexpr int kQ = ROWS / 4, kLd = pitch(ROWS);
+#pragma unroll
+  for (int u = 0; u < ROWS / 128; ++u) {
+    const int t = threadIdx.x + u * kGThreads;
+    const float4 v = in[u];
+    if (kMajor) {
+      *reinterpret_cast<float4*>(s + (t / kQ) * kLd + ((t % kQ) << 2)) = v;
+    } else {
+      const int r = t >> 1, k = (t & 1) << 2;
+      s[k * kLd + r] = v.x;
+      s[(k + 1) * kLd + r] = v.y;
+      s[(k + 2) * kLd + r] = v.z;
+      s[(k + 3) * kLd + r] = v.w;
+    }
   }
 }
 
@@ -301,7 +324,8 @@ __device__ __forceinline__ void stage_tile(float* s, float4 v) {
 __device__ __forceinline__ int thread_ty() { return threadIdx.x >> 4; }
 __device__ __forceinline__ int thread_tx() { return threadIdx.x & 15; }
 
-// output rows and columns of this thread's register tile, within the tile
+// output row i < 8 and column j < kRT of this thread's register tile,
+// within the tile
 __device__ __forceinline__ int tile_row(int i) {
   return 4 * thread_ty() + (i & 3) + 64 * (i >> 2);
 }
@@ -315,66 +339,73 @@ __device__ __forceinline__ int tile_col(int j) {
 // sum A(m0 + tid, k) over k, in order, into colsum[0], compensated
 // (Kahan; colsum[1] carries the lost low bits): one thread's sequential
 // sum over thousands of tokens otherwise drifts past 1e-5 of db.
-// smem holds 4 * kGStage floats.
+// smem holds 2 * (stage(kGM) + stage(kGN)) floats.
 template <bool kAMajor, bool kBMajor>
 __device__ __forceinline__ void product_tile(const Operand& A,
                                              const Operand& B, int m0,
                                              int n0, int k_begin, int k_end,
                                              bool vec_a, bool vec_b,
                                              bool colsum_on, float* smem,
-                                             float (&acc)[8][8],
+                                             float (&acc)[8][kRT],
                                              float (&colsum)[2]) {
-  float* As = smem;                  // [2][kGK][kGLd]
-  float* Bs = smem + 2 * kGStage;    // [2][kGK][kGLd]
+  constexpr int kLdA = pitch(kGM), kLdB = pitch(kGN);
+  float* As = smem;                     // [2][kGK][kLdA]
+  float* Bs = smem + 2 * stage(kGM);    // [2][kGK][kLdB]
   const int tid = threadIdx.x, tx = thread_tx(), ty = thread_ty();
   const bool sums = colsum_on && tid < kGM;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  float4 ra = load_tile<kAMajor>(A, m0, k_begin, vec_a);
-  float4 rb = load_tile<kBMajor>(B, n0, k_begin, vec_b);
-  stage_tile<kAMajor>(As, ra);
-  stage_tile<kBMajor>(Bs, rb);
+    for (int j = 0; j < kRT; ++j) acc[i][j] = 0.f;
+  float4 ra[kGM / 128], rb[kGN / 128];
+  load_tile<kGM, kAMajor>(A, m0, k_begin, vec_a, ra);
+  load_tile<kGN, kBMajor>(B, n0, k_begin, vec_b, rb);
+  stage_tile<kGM, kAMajor>(As, ra);
+  stage_tile<kGN, kBMajor>(Bs, rb);
   __syncthreads();
   int buf = 0;
   for (int k0 = k_begin; k0 < k_end; k0 += kGK) {
     const bool more = k0 + kGK < k_end;
     if (more) {
-      ra = load_tile<kAMajor>(A, m0, k0 + kGK, vec_a);
-      rb = load_tile<kBMajor>(B, n0, k0 + kGK, vec_b);
+      load_tile<kGM, kAMajor>(A, m0, k0 + kGK, vec_a, ra);
+      load_tile<kGN, kBMajor>(B, n0, k0 + kGK, vec_b, rb);
     }
-    const float* as = As + buf * kGStage;
-    const float* bs = Bs + buf * kGStage;
+    const float* as = As + buf * stage(kGM);
+    const float* bs = Bs + buf * stage(kGN);
 #pragma unroll
     for (int kk = 0; kk < kGK; ++kk) {
-      const float4 a0 =
-          *reinterpret_cast<const float4*>(as + kk * kGLd + 4 * ty);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(as + kk * kGLd + 64 + 4 * ty);
-      const float4 b0 =
-          *reinterpret_cast<const float4*>(bs + kk * kGLd + 4 * tx);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(bs + kk * kGLd + 64 + 4 * tx);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float a[8], bb[kRT];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(as + kk * kLdA + 64 * q + 4 * ty);
+        a[4 * q] = f.x; a[4 * q + 1] = f.y; a[4 * q + 2] = f.z;
+        a[4 * q + 3] = f.w;
+      }
+#pragma unroll
+      for (int q = 0; q < kRT / 4; ++q) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(bs + kk * kLdB + 64 * q + 4 * tx);
+        bb[4 * q] = f.x; bb[4 * q + 1] = f.y; bb[4 * q + 2] = f.z;
+        bb[4 * q + 3] = f.w;
+      }
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+        for (int j = 0; j < kRT; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
     }
     if (sums) {
 #pragma unroll
       for (int kk = 0; kk < kGK; ++kk) {
-        const float y = as[kk * kGLd + tid] - colsum[1];
+        const float y = as[kk * kLdA + tid] - colsum[1];
         const float t = colsum[0] + y;
         colsum[1] = (t - colsum[0]) - y;
         colsum[0] = t;
       }
     }
     if (more) {
-      stage_tile<kAMajor>(As + (buf ^ 1) * kGStage, ra);
-      stage_tile<kBMajor>(Bs + (buf ^ 1) * kGStage, rb);
+      stage_tile<kGM, kAMajor>(As + (buf ^ 1) * stage(kGM), ra);
+      stage_tile<kGN, kBMajor>(Bs + (buf ^ 1) * stage(kGN), rb);
     }
     __syncthreads();
     buf ^= 1;
@@ -383,22 +414,22 @@ __device__ __forceinline__ void product_tile(const Operand& A,
 
 // d[N][ldd], columns [0, width): d of vocabulary columns v0 .. v0 + width
 // (NT: x rows against w_c rows). grid (ceil(width / 128), ceil(N / 128)).
-__global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dlogit_kernel(
+__global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dlogit_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ b, const int* __restrict__ labels,
     const float* __restrict__ lse, const float* __restrict__ g_lse,
     const float* __restrict__ g_lab, const float* __restrict__ g_tot,
     float* __restrict__ d, int N, int E, int v0, int width, int ldd,
     int vec) {
-  __shared__ __align__(16) float smem[4 * kGStage];
+  __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
-  float acc[8][8], unused[2];
+  float acc[8][kRT], unused[2];
   product_tile<false, false>(Operand{x, E, N, E},
                              Operand{w + (size_t)v0 * E, E, width, E}, m0,
                              n0, 0, E, vec, vec, false, smem, acc, unused);
-  float bias[8];
+  float bias[kRT];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kRT; ++j) {
     const int c = n0 + tile_col(j);
     bias[j] = c < width ? b[v0 + c] : 0.f;
   }
@@ -410,7 +441,7 @@ __global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dlogit_kernel(
     const int lbl = labels[r] - v0;
     float* out = d + (size_t)r * ldd;
 #pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
+    for (int jj = 0; jj < kRT / 4; ++jj) {
       const int c0 = n0 + tile_col(4 * jj);
       float o[4];
 #pragma unroll
@@ -443,7 +474,7 @@ __device__ __forceinline__ void store_tile_row(float* out, int n0,
                                                const float* a, int E,
                                                bool vec, bool accumulate) {
 #pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
+  for (int jj = 0; jj < kRT / 4; ++jj) {
     const int c0 = n0 + tile_col(4 * jj);
     const float* p = a + 4 * jj;
     if (vec && c0 + 3 < E) {
@@ -465,14 +496,14 @@ __device__ __forceinline__ void store_tile_row(float* out, int n0,
 // (NN). grid (ceil(E / 128), ceil(N / 128), splits): with splits > 1 each
 // z-block sums one slice of the chunk's columns into part[z] [N][E] and
 // fce_bwd_sum_kernel adds the slices in order.
-__global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dx_kernel(
+__global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dx_kernel(
     const float* __restrict__ d, const float* __restrict__ w,
     float* __restrict__ dx, float* __restrict__ part, int N, int E, int v0,
     int width, int ldd, int accumulate, int vec) {
-  __shared__ __align__(16) float smem[4 * kGStage];
+  __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   const int2 ks = k_slice(width, gridDim.z, blockIdx.z);
-  float acc[8][8], unused[2];
+  float acc[8][kRT], unused[2];
   product_tile<false, true>(Operand{d, ldd, N, width},
                             Operand{w + (size_t)v0 * E, E, E, width}, m0, n0,
                             ks.x, ks.y, true, vec, false, smem, acc, unused);
@@ -493,14 +524,14 @@ __global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dx_kernel(
 // z-block sums one slice of the tokens into part[z] [width][E] (and its
 // db into part[splits * width * E + z * width + m]), and
 // fce_bwd_sum_kernel adds the slices in order.
-__global__ void __launch_bounds__(kGThreads, 2) fce_bwd_dw_kernel(
+__global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dw_kernel(
     const float* __restrict__ d, const float* __restrict__ x,
     float* __restrict__ dw, float* __restrict__ db, float* __restrict__ part,
     int N, int E, int v0, int width, int ldd, int vec) {
-  __shared__ __align__(16) float smem[4 * kGStage];
+  __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   const int2 ks = k_slice(N, gridDim.z, blockIdx.z);
-  float acc[8][8], colsum[2] = {0.f, 0.f};
+  float acc[8][kRT], colsum[2] = {0.f, 0.f};
   product_tile<true, true>(Operand{d, ldd, width, N}, Operand{x, E, E, N},
                            m0, n0, ks.x, ks.y, true, vec, blockIdx.x == 0,
                            smem, acc, colsum);

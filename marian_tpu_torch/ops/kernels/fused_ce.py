@@ -49,21 +49,20 @@ from . import _build
 _TILE = 64                            # csrc/fused_ce.cu kTM = kTN (forward)
 _SMS = 132                            # H100 SXM streaming multiprocessors
 SCRATCH_BYTES = 256 * 2 ** 20         # the backward's [N, Vc] f32 d scratch
-CHUNK_ALIGN = 128                     # csrc/fused_ce.cu kGM = kGN
+CHUNK_ALIGN = 128                     # csrc/fused_ce.cu kGM
+_TILE_COLS = 256                      # csrc/fused_ce.cu kGN
 
 
 def k_splits(tiles: int, depth: int) -> int:
     """Slices of a backward product's reduction of ``depth`` for
-    ``tiles`` output tiles of 128 x 128: the count in 1..4 whose blocks
-    leave the fewest of the card's block slots (two a streaming
+    ``tiles`` output tiles of 128 x 256: the count in 1..4 whose blocks
+    leave the fewest of the card's block slots (one a streaming
     multiprocessor) idle in the last wave, the fewest slices on a tie,
     each slice at least 256 deep. The slices' partial sums are added in
     order by a second pass."""
-    slots = 2 * _SMS
-
     def fill(s):
         blocks = tiles * s
-        return blocks / (-(-blocks // slots) * slots)
+        return blocks / (-(-blocks // _SMS) * _SMS)
     most = max(1, min(4, depth // 256))
     return max(range(1, most + 1), key=lambda s: (fill(s), -s))
 
@@ -72,7 +71,7 @@ def chunk_splits(n: int, e: int, width: int) -> Tuple[int, int]:
     """``k_splits`` of one vocabulary chunk's dx product (n x e outputs,
     reduction over the chunk) and dw product (width x e outputs,
     reduction over the tokens)."""
-    e_tiles = -(-e // CHUNK_ALIGN)
+    e_tiles = -(-e // _TILE_COLS)
     return (k_splits(e_tiles * -(-n // CHUNK_ALIGN), width),
             k_splits(e_tiles * -(-width // CHUNK_ALIGN), n))
 
