@@ -620,11 +620,14 @@ def product_times(fce, x, w, b, labels, lse, g) -> None:
               f"({flops / mm_ms / 1e9:.2f} TFLOP/s)")
 
 
-def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None):
+def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None,
+                 lead=0):
     """q, k, v, dO and a key mask [B, Tk] on the card. Rows at and past
     ``live_rows`` mask every key (the batch generator's padding rows)
     and get no output gradient, as in training; the live rows have
-    ragged lengths, the first row all Tk."""
+    ragged lengths, the first row all Tk; with ``lead`` the second row's
+    first ``lead`` keys are masked too (its first live key then lies
+    inside a tile)."""
     dev = torch.device("cuda")
 
     def randn(*shape):
@@ -635,7 +638,9 @@ def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None):
     lens = torch.randint(tk // 2, tk + 1, (b,), generator=gen)
     lens[0] = tk
     lens[live_rows:] = 0
-    kvm = (torch.arange(tk)[None, :] < lens[:, None]).float().to(dev)
+    kvm = (torch.arange(tk)[None, :] < lens[:, None]).float()
+    kvm[1:2, :lead] = 0.0
+    kvm = kvm.to(dev)
     do[live_rows:] = 0.0
     return q, k, v, do, kvm
 
@@ -643,8 +648,12 @@ def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None):
 def phase_flash_kernels(gen) -> list:
     """The three flash kernels against their plain versions at the doc
     slice's shapes (B 8 with 4 padding rows, H 16, T 2,048, Dh 64: encoder
-    self, decoder causal, cross with Tk 1,536) and at ragged lengths,
-    other head sizes and bf16; then their times at the encoder shape."""
+    self, decoder causal, cross with Tk 1,536), at ragged lengths, at the
+    backward's tile edges (1,050 = 8 x 128 + 26 rows, a row whose first
+    live key lies inside a tile, fewer keys than queries), other head
+    sizes and bf16; two backward calls at the encoder shape must give the
+    same bits. Then their times at the encoder shape, the joint backward's
+    against SDPA's, and dq and dkv at the decoder's causal shape."""
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     b, h, t, dh = 8, 16, 2048, 64
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -657,13 +666,25 @@ def phase_flash_kernels(gen) -> list:
              ("Dh 128", 2, 4, 300, 260, 128, False, torch.float32, 1),
              ("Dh 16", 2, 4, 130, 130, 16, False, torch.float32, 1),
              ("bf16", 2, 4, 1000, 1100, dh, False, torch.bfloat16, 1),
-             ("bf16 causal", 2, 4, 777, 777, dh, True, torch.bfloat16, 1)]
-    for name, b_, h_, tq, tk, d_, causal, dtype, live in cases:
-        q, k, v, do, kvm = flash_inputs(gen, b_, h_, tq, tk, d_, dtype, live)
+             ("bf16 causal", 2, 4, 777, 777, dh, True, torch.bfloat16, 1),
+             ("tile edges causal", 3, 4, 1050, 1050, dh, True,
+              torch.float32, 2, 70),
+             ("tile edges cross", 2, 4, 1050, 300, dh, False,
+              torch.float32, 1)]
+    for name, b_, h_, tq, tk, d_, causal, dtype, live, *lead in cases:
+        q, k, v, do, kvm = flash_inputs(gen, b_, h_, tq, tk, d_, dtype, live,
+                                        *lead)
         out, lse = fa.flash_attention_fwd(q, k, v, kvm, causal)
         ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm, causal)
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse,
                                             causal)
+        if name == "encoder self":
+            again = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, causal)
+            check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
+                  f"flash_attention_bwd [{name}]: two calls differ")
+            print(f"kernel flash_attention_bwd [{name}]: two calls give "
+                  f"bit-identical dq, dk, dv")
+            del again
         torch.cuda.synchronize()
         rel = REL_TOL if dtype == torch.float32 else BF16_REL_TOL
         what = (f"flash_attention [{name}] B={b_} H={h_} Tq={tq} Tk={tk} "
@@ -752,8 +773,47 @@ def phase_flash_kernels(gen) -> list:
                      "max_abs_err": errs[part], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": lib_ms[part]})
+    flash_bwd_lines(fa, q, k, v, kvm, do, out, lse, lib_ms["dq"])
     del lib_out
     return rows
+
+
+def flash_bwd_lines(fa, q, k, v, kvm, do, out, lse, lib_bwd_ms) -> None:
+    """The joint backward (``flash_attention_bwd``: delta, dq and dkv) at
+    the encoder shape against SDPA's backward (``lib_bwd_ms``), bound by
+    the 10 B.H.Tq.Tk.Dh flops dq, dk and dv need; then dq and dkv alone at
+    the decoder's causal shape, bound by the live (query, key) pairs,
+    T(T+1)/2 a head."""
+    b, h, t, dh = q.shape
+    ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, kvm, do, out, lse),
+                 iters=5)
+    flops = 10 * b * h * t * t * dh
+    # reads q, k, v, dO, out, lse and the key mask; writes dq, dk, dv
+    bound_ms, bound_by = bound(8 * q.numel() * 4 + b * h * t * 4 + b * t * 4,
+                               flops)
+    print(f"kernel flash_attention_bwd (delta + dq + dkv) B={b} H={h} T={t} "
+          f"Dh={dh} f32: kernel_ms {ms:.4f} library_ms (sdpa backward) "
+          f"{lib_bwd_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"{flops / 1e9:.0f} GFLOP, {flops / ms / 1e9:.2f} TFLOP/s "
+          f"achieved)")
+    out_c, lse_c = fa.flash_attention_fwd(q, k, v, kvm, True)
+    scale = dh ** -0.5
+    operands = (q, k, v, kvm, do, lse_c, (do * out_c).sum(dim=-1))
+    grad, grad2 = torch.empty_like(q), torch.empty_like(q)
+    pairs = b * h * t * (t + 1) // 2 * dh
+    for part, fn, n in (
+            ("dq", lambda: fa.flash_attention_dq(operands, grad, True,
+                                                 scale), 6),
+            ("dkv", lambda: fa.flash_attention_dkv(operands, grad, grad2,
+                                                   True, scale), 8)):
+        ms = time_ms(fn, iters=5)
+        bound_ms, bound_by = bound((5 if part == "dq" else 6) * q.numel() * 4
+                                   + 2 * b * h * t * 4 + b * t * 4,
+                                   n * pairs)
+        print(f"kernel flash_attention_{part} causal B={b} H={h} T={t} "
+              f"Dh={dh} f32: kernel_ms {ms:.4f} bound_ms {bound_ms:.4f} "
+              f"({bound_by}; {n * pairs / 1e9:.0f} GFLOP over the live "
+              f"pairs, {n * pairs / ms / 1e9:.2f} TFLOP/s achieved)")
 
 
 def paged_case(gen, r, h, dh, page_len, mp, pins, dtype=torch.float32):

@@ -32,11 +32,12 @@ sizes are constants. One result shows: a fully masked query row (the
 batch generator's padding rows) averages V over the Tk real keys, the
 dense path's answer, where the TPU kernel averages over its padded
 length (the choice ``packed_attention`` makes too). So that this holds
-for causal calls as well, a query tile skips the key tiles wholly in its
-future only where every row of the tile sees a live key (the first live
-key of its batch row lies at or before the tile's first query): skipped
-keys then carry exp(-1e9 - max) = 0 exactly, in the forward and in both
-backward passes alike. In such a row the backward follows the reference's
+for causal calls as well, a kernel skips a (query tile, key tile) pair
+only where all its keys lie after all its queries and every query row
+sees a live key (the first live key of its batch row lies at or before
+the tile's first query): skipped keys then carry exp(-1e9 - max) = 0
+exactly, whatever tile sizes the forward and the two backward kernels
+use. In a fully masked row the backward follows the reference's
 formula too: lse = -1e9 + log(Tk) rounds to -1e9 in f32, so p = 1 per key
 there; a padding row gets no output gradient in training, so it adds
 nothing.

@@ -9,8 +9,10 @@ Shapes are small and odd on purpose: lengths that are not multiples of a
 warp, a cache and a key length whose block tiles need more than 48 KB of
 shared memory (the dynamic-limit path), decode caches of 1,024 and more
 positions (many chunks of the streamed cache), bf16 operands, for the
-flash kernels lengths that are not multiples of their 64-row tiles, every
-head size they are built for and a fully masked row, and for the fused
+flash kernels lengths that are not multiples of their 64- and 128-row
+tiles, every head size they are built for, a fully masked row, a row
+whose first live key lies inside a tile, a cross case with fewer keys
+than queries and a determinism check, and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
 its tiles (64 x 64 forward, 128 x 128 backward), a hidden size that is
 not a multiple of 4 (scalar loads), forced narrow vocabulary chunks in
@@ -273,7 +275,8 @@ def test_fused_softmax_xent_gradients_match_dense(dev):
 @pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
     (2, 2, 64, 64, 64, False), (2, 3, 100, 130, 32, False),
     (3, 2, 150, 150, 64, True), (2, 2, 1000, 1100, 64, False),
-    (1, 2, 70, 45, 16, False), (2, 1, 129, 129, 128, True)])
+    (1, 2, 70, 45, 16, False), (2, 1, 129, 129, 128, True),
+    (2, 2, 1050, 1050, 64, True), (2, 2, 1050, 300, 64, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
                                              dtype):
@@ -282,6 +285,11 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
     k, v = (_randn(gen, dev, b, h, tk, dh, dtype=dtype) for _ in range(2))
     kvm = (torch.rand(b, tk, generator=gen) > 0.3).float()
     kvm[:, 0] = 1.0
+    if tq > 1024:
+        # past the last full 128-row tile (1050 = 8 x 128 + 26): row 0's
+        # first live key (70) lies inside a 64- and a 128-row tile, so
+        # the causal tile skip must keep the tiles before it
+        kvm[0, :70] = 0.0
     kvm[-1] = 0.0                                   # a fully-masked row
     kvm = kvm.to(dev)
     launches = (fa.flash_attention_fwd.launches,
@@ -316,6 +324,22 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
     else:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bwd_is_deterministic(dev, causal):
+    # one writer per gradient element and a fixed summation order: two
+    # calls give the same bits
+    gen = torch.Generator().manual_seed(1050)
+    q, k, v, do = (_randn(gen, dev, 2, 4, 1050, 64) for _ in range(4))
+    kvm = torch.ones(2, 1050)
+    kvm[1, 900:] = 0.0
+    kvm = kvm.to(dev)
+    out, lse = fa.flash_attention_fwd(q, k, v, kvm, causal)
+    first = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, causal)
+    second = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_autograd_runs_the_kernels(dev):
