@@ -114,6 +114,8 @@ PER_UPDATE = {"packed_attention": 18, "packed_attention_bwd": 18,
 DOC_FLAGS = ["--dim-emb", "1024", "--transformer-heads", "16",
              "--transformer-dim-ffn", "4096", "--max-length", "2047"]
 DOC_WORDS, DOC_LINES, DOC_WARM, DOC_COUNTED, DOC_DOCS = 8192, 200, 2, 8, 4
+# the fused CE forward's tokens at the doc shape: 8 rows of the 2,048 bucket
+DOC_FWD_TOKENS = 8 * 2048
 # every attention of the update runs through flash (T >= 1024)
 DOC_PER_UPDATE = {"packed_attention": 0, "packed_attention_bwd": 0,
                   "flash_attention_fwd": 18, "flash_attention_dq": 18,
@@ -455,16 +457,23 @@ def phase_fused_ce_kernels(gen) -> list:
     dev = torch.device("cuda")
 
     def inputs(n, v, e):
+        """The first labels on the forward's tile edges (columns 0, 255,
+        256 and V - 1)."""
         x = torch.randn(n, e, generator=gen).to(dev)
         w = (torch.randn(v, e, generator=gen) * e ** -0.5).to(dev)
         b = torch.randn(v, generator=gen).to(dev)
-        labels = torch.randint(0, v, (n,), generator=gen).to(dev)
-        return x, w, b, labels
+        labels = torch.randint(0, v, (n,), generator=gen)
+        edges = [c for c in (0, 255, 256, v - 1) if c < v]
+        labels[:len(edges)] = torch.tensor(edges)
+        return x, w, b, labels.to(dev)
 
     errs = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
-    # ragged N and V; E = 1024 (transformer-big) in one pass; the last
-    # case is the main path's N, V and E, kept for the timings below
-    for n, v, e in ((4096, VOCAB, 512), (4001, VOCAB + 3, 512),
+    # ragged N and V (V under one 256-column tile, one column in the last
+    # tile), E not a multiple of 4 (scalar loads); E = 1024
+    # (transformer-big) in two passes; the last case is the main path's N,
+    # V and E, kept for the timings below
+    for n, v, e in ((70, 200, 50), (130, 257, 64), (133, 513, 1024),
+                    (4096, VOCAB, 512), (4001, VOCAB + 3, 512),
                     (2048, VOCAB + 3, 1024), (TRAIN_WORDS, VOCAB, 512)):
         x, w, b, labels = inputs(n, v, e)
         got = fce.fused_ce_stats(x, w, b, labels)
@@ -505,7 +514,13 @@ def phase_fused_ce_kernels(gen) -> list:
             del jdx, jdw, jdb
         del got, ref, dx, dw, db, rdx, rdw, rdb
     torch.cuda.empty_cache()
-    # the same inputs twice: bit-identical dx, dw, db
+    # the same inputs twice: bit-identical lse, lab, tot and dx, dw, db
+    one = fce.fused_ce_stats(x, w, b, labels)
+    two = fce.fused_ce_stats(x, w, b, labels)
+    check(all(torch.equal(p, q) for p, q in zip(one, two)),
+          "fused_ce_fwd: two calls on the same inputs differ")
+    print(f"kernel fused_ce_fwd N={n} V={v} E={e}: two calls bit-identical "
+          f"(lse, lab, tot)")
     one = fce.fused_ce_bwd(x, w, b, labels, lse, *g)
     two = fce.fused_ce_bwd(x, w, b, labels, lse, *g)
     check(all(torch.equal(p, q) for p, q in zip(one, two)),
@@ -552,6 +567,7 @@ def phase_fused_ce_kernels(gen) -> list:
           f"{joint_bytes / 1e9:.2f} GB, {joint_flops / joint_ms / 1e9:.2f} "
           f"TFLOP/s achieved)")
     product_times(fce, x, w, b, labels, lse, g)
+    fwd_times(fce, x, w, b, labels)
     nbytes = {"fwd": io_in + 3 * n * 4, "dx": io_in + 4 * n * 4 + n * e * 4,
               "dw": io_in + 4 * n * 4 + (v * e + v) * 4}
     rows = []
@@ -572,7 +588,47 @@ def phase_fused_ce_kernels(gen) -> list:
                      "max_abs_err": errs[part], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms})
+    del x, w, b, labels, g, lse, xl, wl, bl
+    torch.cuda.empty_cache()
+    doc = inputs(DOC_FWD_TOKENS, VOCAB, 1024)
+    got = fce.fused_ce_stats(*doc)
+    for name, a, r in zip(("lse", "lab", "tot"), got,
+                          fce.fused_ce_stats_reference(*doc)):
+        close_to_scale(a, r, f"fused_ce_fwd doc shape {name}")
+    del got
+    torch.cuda.empty_cache()
+    fwd_times(fce, *doc, library=True)
     return rows
+
+
+def fwd_times(fce, x, w, b, labels, library: bool = False) -> None:
+    """The forward kernel's time and TFLOP/s beside torch.matmul(x,
+    w.t()) of the same shape (a yardstick; the port never calls it) and,
+    with ``library``, the plain version and F.linear + F.cross_entropy,
+    timed after the kernel, their logits freed after."""
+    n, e = x.shape
+    v = w.shape[0]
+    flops = 2 * n * v * e
+    nbytes = (n * e + v * e + v + n) * 4 + 3 * n * 4
+    bound_ms, bound_by = bound(nbytes, flops)
+    ms = time_ms(lambda: fce.fused_ce_stats(x, w, b, labels), iters=5)
+    mm_ms = time_ms(lambda: torch.matmul(x, w.t()), iters=5)
+    line = (f"kernel fused_ce_fwd N={n} V={v} E={e} f32: kernel_ms {ms:.4f} "
+            f"({flops / ms / 1e9:.2f} TFLOP/s), torch.matmul(x, w.t()) "
+            f"{mm_ms:.4f} ({flops / mm_ms / 1e9:.2f} TFLOP/s)")
+    if library:
+        plain_ms = time_ms(lambda: fce.fused_ce_stats_reference(
+            x, w, b, labels), iters=5)
+        line += f", plain_ms {plain_ms:.4f}"
+        with torch.no_grad():
+            lib_ms = time_ms(lambda: torch.nn.functional.cross_entropy(
+                torch.nn.functional.linear(x, w, b), labels,
+                label_smoothing=0.1, reduction="sum"), iters=5)
+        torch.cuda.empty_cache()
+        line += (f", library_ms (linear + cross_entropy, two calls) "
+                 f"{lib_ms:.4f}")
+    print(f"{line}, bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"{flops / 1e9:.0f} GFLOP)")
 
 
 def product_times(fce, x, w, b, labels, lse, g) -> None:

@@ -16,13 +16,21 @@
 // 25 MB of x and 65 MB of w. They run in f32 on the CUDA cores, outside
 // the tensor cores (TF32 stays off).
 //
-// Forward: logits in 64 x 64 tiles (tokens x vocabulary) by 256 threads,
-// each holding a 4 x 4 register tile; the E reduction streams x and w
-// through shared memory 32 columns at a time, the next chunk's global
-// loads in registers while this one is multiplied. A block owns a token
-// tile and walks one slice of the vocabulary with online (max, sum-exp,
-// label logit, sum) per thread; a second, fixed-order pass merges the
-// slices: deterministic, no atomics.
+// Forward: one block of 256 threads per (vocabulary tile of 256 columns,
+// token tile of 128 rows) forms that logit tile with the NT product of the
+// template described below (product_tile, as the backward's d product
+// runs it: x rows against w rows, the full E reduction). Its epilogue adds
+// the bias and reduces each row over the tile's real columns: the exact
+// tile maximum first (a thread's 16 columns, then across the 16 lanes that
+// hold the row), then sum exp(l - max), the label logit and the sum of the
+// logits relative to it, so no statistics are carried across tiles. One
+// lane a row writes the tile's partial (max, sum-exp, label logit, sum)
+// into part [4][tiles][N]; fce_fwd_combine_kernel, one thread a token, adds
+// the partials up in vocabulary order: deterministic, no atomics. The
+// blocks run in the d product's order, one token tile across the whole
+// vocabulary at a time (walking a few token tiles together, so that a
+// wave reads each w tile from device memory once for all of them, measured
+// no faster on the card).
 //
 // Backward: the TPU keeps each d tile in VMEM between its two products.
 // Here the wrapper (ops/kernels/fused_ce.py) walks the vocabulary in
@@ -38,13 +46,13 @@
 //                          columns into db, in token order, compensated.
 // So the logits are recomputed once a backward and shared by dx and dw:
 // three N*V*E products in all, the least a backward that does not keep
-// [N, V] can do. All three are one template (product_tile): 128 x 256
-// output tiles, one block of 256 threads an SM, each thread with an 8 x 16
-// register tile (2 x 4 sub-tiles of 4 x 4, so each k step reads six
-// float4 from shared memory for 128 FMAs; 128 x 128 tiles of 8 x 8, two
-// blocks an SM, measured slower on the card), depth-8 operand tiles staged
-// k-major in shared memory and double-buffered, the next tile's global
-// loads in flight in registers. An operand whose global layout is
+// [N, V] can do. All three, and the forward's product, are one template
+// (product_tile): 128 x 256 output tiles, one block of 256 threads an SM,
+// each thread with an 8 x 16 register tile (2 x 4 sub-tiles of 4 x 4, so
+// each k step reads six float4 from shared memory for 128 FMAs; 128 x 128
+// tiles of 8 x 8, two blocks an SM, measured slower on the card), depth-8
+// operand tiles staged k-major in shared memory and double-buffered, the
+// next tile's global loads in flight in registers. An operand whose global layout is
 // k-contiguous (x and w rows in the NT product, d in the NN one) is
 // transposed on its way into shared memory; staged rows are padded by 4
 // floats so those stores do not collide on a bank.
@@ -63,67 +71,7 @@
 
 namespace {
 
-constexpr int kTM = 64;        // tokens per tile
-constexpr int kTN = 64;        // vocabulary rows per tile
-constexpr int kBK = 32;        // E columns per staged chunk
-constexpr int kThreads = 256;  // 16 x 16, 4 x 4 outputs each
 constexpr float kStatsInit = -1e30f;
-
-constexpr int kPerThread = kTM * kBK / kThreads;   // staged floats a thread
-static_assert(kTM == kTN && kTM * kBK % kThreads == 0, "tile shape");
-
-// one E chunk of the x and w tiles into registers (0 outside [N, V, E])
-__device__ __forceinline__ void load_chunk(
-    const float* __restrict__ x, const float* __restrict__ w, int N, int V,
-    int E, int n0, int v0, int e0, float xr[kPerThread],
-    float wr[kPerThread]) {
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int idx = threadIdx.x + u * kThreads;
-    const int r = idx / kBK, e = e0 + idx - r * kBK;
-    const int n = n0 + r, v = v0 + r;
-    xr[u] = (n < N && e < E) ? x[(size_t)n * E + e] : 0.f;
-    wr[u] = (v < V && e < E) ? w[(size_t)v * E + e] : 0.f;
-  }
-}
-
-// acc[i][j] = x[n0 + ty + 16i] . w[v0 + tx + 16j] over E, zero outside
-// [N, V]. xs and ws hold kBK x (64 + 1) floats each, k-major.
-__device__ __forceinline__ void logits_tile(
-    const float* __restrict__ x, const float* __restrict__ w, int N, int V,
-    int E, int n0, int v0, float* xs, float* ws, float acc[4][4]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float xr[kPerThread], wr[kPerThread];
-  load_chunk(x, w, N, V, E, n0, v0, 0, xr, wr);
-  for (int e0 = 0; e0 < E; e0 += kBK) {
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u) {
-      const int idx = tid + u * kThreads;
-      const int r = idx / kBK, kk = idx - r * kBK;
-      xs[kk * (kTM + 1) + r] = xr[u];
-      ws[kk * (kTN + 1) + r] = wr[u];
-    }
-    __syncthreads();
-    if (e0 + kBK < E) load_chunk(x, w, N, V, E, n0, v0, e0 + kBK, xr, wr);
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk * (kTM + 1) + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = ws[kk * (kTN + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-  }
-}
 
 __device__ __forceinline__ void merge_stats(float& m, float& s, float m2,
                                             float s2) {
@@ -132,108 +80,13 @@ __device__ __forceinline__ void merge_stats(float& m, float& s, float m2,
   m = mn;
 }
 
-// grid (ceil(N/64), splits): block (bx, by) walks vocabulary tiles
-// [by * tiles_per_split, ...) and writes partial stats [by][N] x 4.
-__global__ void __launch_bounds__(kThreads) fce_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ b, const int* __restrict__ labels, int N,
-    int V, int E, int tiles_per_split, float* __restrict__ part) {
-  __shared__ float xs[kBK * (kTM + 1)];
-  __shared__ float ws[kBK * (kTN + 1)];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int n0 = blockIdx.x * kTM;
-  const int ntiles = (V + kTN - 1) / kTN;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(ntiles, t_begin + tiles_per_split);
-  float m[4], s[4], lab[4], tot[4];
-  int lbl[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = n0 + ty + 16 * i;
-    m[i] = kStatsInit;
-    s[i] = lab[i] = tot[i] = 0.f;
-    lbl[i] = row < N ? labels[row] : -1;
-  }
-  float acc[4][4];
-  for (int t = t_begin; t < t_end; ++t) {
-    const int v0 = t * kTN;
-    logits_tile(x, w, N, V, E, n0, v0, xs, ws, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float l[4];
-      bool ok[4];
-      float lmax = kStatsInit;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = v0 + tx + 16 * j;
-        ok[j] = col < V;
-        l[j] = ok[j] ? acc[i][j] + b[col] : 0.f;
-        if (ok[j]) {
-          lmax = fmaxf(lmax, l[j]);
-          tot[i] += l[j];
-          if (col == lbl[i]) lab[i] += l[j];
-        }
-      }
-      if (ok[0]) {  // column tx < V: this thread has a real column here
-        const float mn = fmaxf(m[i], lmax);
-        float acc_s = s[i] * expf(m[i] - mn);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (ok[j]) acc_s += expf(l[j] - mn);
-        s[i] = acc_s;
-        m[i] = mn;
-      }
-    }
-  }
-  // merge the 16 threads of each row (lanes tx = 0..15 of a half warp)
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    for (int o = 8; o > 0; o >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[i], o);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s[i], o);
-      merge_stats(m[i], s[i], m2, s2);
-      lab[i] += __shfl_xor_sync(0xffffffffu, lab[i], o);
-      tot[i] += __shfl_xor_sync(0xffffffffu, tot[i], o);
-    }
-    const int row = n0 + ty + 16 * i;
-    if (tx == 0 && row < N) {
-      const size_t o = (size_t)blockIdx.y * N + row;
-      const size_t plane = (size_t)gridDim.y * N;
-      part[o] = m[i];
-      part[plane + o] = s[i];
-      part[2 * plane + o] = lab[i];
-      part[3 * plane + o] = tot[i];
-    }
-  }
-}
-
-// one thread per token: merge the vocabulary slices in order
-__global__ void fce_fwd_combine_kernel(const float* __restrict__ part, int N,
-                                       int splits, float* __restrict__ lse,
-                                       float* __restrict__ lab,
-                                       float* __restrict__ tot) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= N) return;
-  const size_t plane = (size_t)splits * N;
-  float m = kStatsInit, s = 0.f, g = 0.f, t = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    const size_t o = (size_t)k * N + row;
-    merge_stats(m, s, part[o], part[plane + o]);
-    g += part[2 * plane + o];
-    t += part[3 * plane + o];
-  }
-  lse[row] = m + logf(s == 0.f ? 1.f : s);
-  lab[row] = g;
-  tot[row] = t;
-}
-
 __device__ __forceinline__ float dlogit(float l, float lse, float gl,
                                         float gg, float gt, bool is_label) {
   return gl * expf(l - lse) + (is_label ? gg : 0.f) + gt;
 }
 
 // ---------------------------------------------------------------------------
-// backward: one register-blocked f32 product template, three layouts
+// one register-blocked f32 product template, three layouts
 // ---------------------------------------------------------------------------
 
 constexpr int kGM = 128;             // output tile rows
@@ -412,6 +265,97 @@ __device__ __forceinline__ void product_tile(const Operand& A,
   }
 }
 
+// ---------------------------------------------------------------------------
+// forward: the NT product with a statistics epilogue, and the merge
+// ---------------------------------------------------------------------------
+
+// part[k][t][n], k = max, sum exp(l - max), label logit (0 when the label
+// lies in another tile), sum of l, over the real columns of vocabulary
+// tile t (columns 256 t .. 256 t + 255, those < V) of token n's logits
+// l = x[n] . w^T + b. grid (ceil(V / 256), ceil(N / 128)): block (t, u)
+// forms vocabulary tile t of token tile u.
+__global__ void __launch_bounds__(kGThreads, 1) fce_fwd_kernel(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ b, const int* __restrict__ labels, int N,
+    int V, int E, int vec, float* __restrict__ part) {
+  __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  float acc[8][kRT], unused[2];
+  product_tile<false, false>(Operand{x, E, N, E}, Operand{w, E, V, E}, m0,
+                             n0, 0, E, vec, vec, false, smem, acc, unused);
+#pragma unroll
+  for (int j = 0; j < kRT; ++j) {
+    const int c = n0 + tile_col(j);
+    const float bias = c < V ? b[c] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i][j] += bias;
+  }
+  const size_t plane = (size_t)gridDim.x * N;
+  float* out = part + (size_t)blockIdx.x * N;
+  // every lane runs every row (the shuffles need the whole warp); rows at
+  // or past N read x as 0 and are not written
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + tile_row(i);
+    const int lbl = r < N ? labels[r] : -1;
+    // the row's maximum over the tile; a lane with no real column keeps
+    // kStatsInit, and every tile has a real column
+    float mx = kStatsInit;
+#pragma unroll
+    for (int j = 0; j < kRT; ++j)
+      if (n0 + tile_col(j) < V) mx = fmaxf(mx, acc[i][j]);
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float se = 0.f, lab = 0.f, tot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kRT; ++j) {
+      const int c = n0 + tile_col(j);
+      if (c < V) {
+        se += expf(acc[i][j] - mx);
+        tot += acc[i][j];
+        if (c == lbl) lab = acc[i][j];
+      }
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      se += __shfl_xor_sync(0xffffffffu, se, o);
+      lab += __shfl_xor_sync(0xffffffffu, lab, o);
+      tot += __shfl_xor_sync(0xffffffffu, tot, o);
+    }
+    if (thread_tx() == 0 && r < N) {
+      out[r] = mx;
+      out[plane + r] = se;
+      out[2 * plane + r] = lab;
+      out[3 * plane + r] = tot;
+    }
+  }
+}
+
+// one thread per token: merge the vocabulary tiles' partials in order
+__global__ void fce_fwd_combine_kernel(const float* __restrict__ part, int N,
+                                       int tiles, float* __restrict__ lse,
+                                       float* __restrict__ lab,
+                                       float* __restrict__ tot) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const size_t plane = (size_t)tiles * N;
+  float m = kStatsInit, s = 0.f, g = 0.f, t = 0.f;
+  for (int k = 0; k < tiles; ++k) {
+    const size_t o = (size_t)k * N + row;
+    merge_stats(m, s, part[o], part[plane + o]);
+    g += part[2 * plane + o];
+    t += part[3 * plane + o];
+  }
+  lse[row] = m + logf(s == 0.f ? 1.f : s);
+  lab[row] = g;
+  tot[row] = t;
+}
+
+// ---------------------------------------------------------------------------
+// backward: the NT d product, the NN dx product, the TN dw product
+// ---------------------------------------------------------------------------
+
 // d[N][ldd], columns [0, width): d of vocabulary columns v0 .. v0 + width
 // (NT: x rows against w_c rows). grid (ceil(width / 128), ceil(N / 128)).
 __global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dlogit_kernel(
@@ -566,23 +510,23 @@ __global__ void fce_bwd_sum_kernel(const float* __restrict__ part,
 }  // namespace
 
 // All tensors float32 and contiguous; labels int32. part is scratch of
-// 4 * splits * N floats. Launches the partial-stats kernel and its
-// fixed-order merge. Returns cudaGetLastError().
+// 4 * ceil(V / 256) * N floats; vec: E % 4 == 0 and x, w 16-byte
+// aligned. Launches the partial-stats kernel and its fixed-order merge.
+// Returns cudaGetLastError().
 extern "C" int fused_ce_fwd(const void* x, const void* w, const void* b,
                             const void* labels, void* lse, void* lab,
                             void* tot, void* part, int N, int V, int E,
-                            int splits, void* stream) {
+                            int vec, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int ntiles = (V + kTN - 1) / kTN;
-  const int tps = (ntiles + splits - 1) / splits;
-  const dim3 grid((N + kTM - 1) / kTM, splits);
-  fce_fwd_kernel<<<grid, kThreads, 0, s>>>(
+  const int vtiles = (V + kGN - 1) / kGN;
+  const dim3 grid(vtiles, (N + kGM - 1) / kGM);
+  fce_fwd_kernel<<<grid, kGThreads, 0, s>>>(
       (const float*)x, (const float*)w, (const float*)b, (const int*)labels,
-      N, V, E, tps, (float*)part);
+      N, V, E, vec, (float*)part);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   fce_fwd_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(
-      (const float*)part, N, splits, (float*)lse, (float*)lab, (float*)tot);
+      (const float*)part, N, vtiles, (float*)lse, (float*)lab, (float*)tot);
   return (int)cudaGetLastError();
 }
 

@@ -25,15 +25,23 @@ products in all. ``run_chunks`` is that loop; it takes its three
 per-chunk operations as arguments, the kernels on the card and
 ``plain_chunk_ops`` in the CPU tests.
 
+The forward (``fused_ce_stats``, the reference's ``_fwd_call``) forms
+the logits in tiles of 128 tokens x 256 vocabulary columns, one block
+each, and reduces each tile to a partial (max, sum exp(l - max), label
+logit, sum of l) per token; a second pass adds the partials up in
+vocabulary order (``fused_ce_stats_tiled_reference`` is the same
+algebra in plain torch).
+
 On a CUDA tensor the wrappers launch the hand-written kernels of
-``csrc/fused_ce.cu`` (the forward; per chunk the d product, the dx
-product and the dw/db product) or raise; on a CPU tensor they run their
-plain versions (``fused_ce_stats_reference``, ``fused_ce_bwd_reference``),
-which materialise the logits. The kernels take float32 and any hidden
-size E, and mask the ragged edges themselves, so the table is never
-padded. ``.launches`` on ``fused_ce_stats`` counts its calls on the
-card; on ``fused_ce_dx`` and ``fused_ce_dw`` it counts the card's
-backward calls that computed dx and dw, whichever entry point made them.
+``csrc/fused_ce.cu`` (the forward and its merge; per chunk the d
+product, the dx product and the dw/db product) or raise; on a CPU
+tensor they run their plain versions (``fused_ce_stats_reference``,
+``fused_ce_bwd_reference``), which materialise the logits. The kernels
+take float32 and any hidden size E, and mask the ragged edges
+themselves, so the table is never padded. ``.launches`` on
+``fused_ce_stats`` counts its calls on the card; on ``fused_ce_dx`` and
+``fused_ce_dw`` it counts the card's backward calls that computed dx
+and dw, whichever entry point made them.
 """
 
 from __future__ import annotations
@@ -46,11 +54,11 @@ import torch
 
 from . import _build
 
-_TILE = 64                            # csrc/fused_ce.cu kTM = kTN (forward)
 _SMS = 132                            # H100 SXM streaming multiprocessors
 SCRATCH_BYTES = 256 * 2 ** 20         # the backward's [N, Vc] f32 d scratch
 CHUNK_ALIGN = 128                     # csrc/fused_ce.cu kGM
 _TILE_COLS = 256                      # csrc/fused_ce.cu kGN
+_STATS_INIT = -1e30                   # csrc/fused_ce.cu kStatsInit
 
 
 def k_splits(tiles: int, depth: int) -> int:
@@ -91,6 +99,18 @@ def vocab_chunks(n: int, v: int, chunk: Optional[int] = None
     return [(v0, min(chunk, v - v0)) for v0 in range(0, v, chunk)]
 
 
+def fwd_tiles(v: int) -> List[Tuple[int, int]]:
+    """(v0, width) of the forward's vocabulary tiles, in the order the
+    merge adds their partials: 256 columns each, the last one ragged."""
+    return vocab_chunks(0, v, _TILE_COLS)
+
+
+def fwd_part_shape(n: int, v: int) -> Tuple[int, int, int]:
+    """The forward's partial buffer [4, tiles, N] f32: (max, sum-exp,
+    label logit, sum) per vocabulary tile and token."""
+    return 4, -(-v // _TILE_COLS), n
+
+
 def run_chunks(chunks, make_d: Callable, add_dx: Optional[Callable] = None,
                put_dw: Optional[Callable] = None) -> None:
     """The backward's loop over vocabulary chunks, in order: per chunk,
@@ -118,6 +138,29 @@ def fused_ce_stats_reference(x, w, b, labels):
     lse = torch.logsumexp(logits, dim=-1)
     lab = logits.gather(1, labels.long()[:, None])[:, 0]
     return lse, lab, logits.sum(dim=-1)
+
+
+def fused_ce_stats_tiled_reference(x, w, b, labels):
+    """(lse, lab, tot) as the forward kernel forms them: per vocabulary
+    tile (``fwd_tiles``), each token's partial (tile max m, sum
+    exp(l - m), label logit or 0, sum of l), then the tiles merged in
+    vocabulary order with the merge pass's algebra."""
+    labels = labels.long()
+    m = torch.full((x.shape[0],), _STATS_INIT, dtype=torch.float32,
+                   device=x.device)
+    s, lab, tot = torch.zeros_like(m), torch.zeros_like(m), torch.zeros_like(m)
+    for v0, width in fwd_tiles(w.shape[0]):
+        logits = _logits(x, w[v0:v0 + width], b[v0:v0 + width])
+        mt = logits.max(dim=1).values
+        st = torch.exp(logits - mt[:, None]).sum(dim=1)
+        hit = (labels >= v0) & (labels < v0 + width)
+        at = logits.gather(1, (labels - v0).clamp(0, width - 1)[:, None])
+        mn = torch.maximum(m, mt)
+        s = s * torch.exp(m - mn) + st * torch.exp(mt - mn)
+        m = mn
+        lab = lab + torch.where(hit, at[:, 0], 0.0)
+        tot = tot + logits.sum(dim=1)
+    return m + torch.log(torch.where(s == 0, 1.0, s)), lab, tot
 
 
 def dlogits_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot):
@@ -195,27 +238,22 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _splits(row_tiles: int, vocab_tiles: int, per_sm: int) -> int:
-    """Vocabulary slices that give every SM at least ``per_sm`` blocks
-    (each slice walks whole vocabulary tiles)."""
-    return max(1, min(vocab_tiles, -(-per_sm * _SMS // row_tiles)))
-
-
 def fused_ce_stats(x, w, b, labels):
-    """(lse, lab, tot) [N] f32: the forward kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    """(lse, lab, tot) [N] f32: the forward kernel and its merge on a
+    CUDA tensor, the plain version on a CPU tensor."""
     if not x.is_cuda:
         return fused_ce_stats_reference(x, w, b, labels)
     x, w, b, labels = _operands("fused_ce_stats", x, w, b, labels)
     n, e = x.shape
     v = w.shape[0]
-    splits = _splits(-(-n // _TILE), -(-v // _TILE), 2)
     out = torch.empty((3, n), dtype=torch.float32, device=x.device)
-    part = torch.empty((4, splits, n), dtype=torch.float32, device=x.device)
+    part = torch.empty(fwd_part_shape(n, v), dtype=torch.float32,
+                       device=x.device)
     err = _fn("fused_ce_fwd", 8, 4)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        part.data_ptr(), n, v, e, splits, _stream(x))
+        part.data_ptr(), n, v, e, int(e % 4 == 0 and _aligned(x, w)),
+        _stream(x))
     _build.check(err, "fused_ce_fwd")
     fused_ce_stats.launches += 1
     return out[0], out[1], out[2]

@@ -14,9 +14,10 @@ tiles, every head size they are built for, a fully masked row, a row
 whose first live key lies inside a tile, a cross case with fewer keys
 than queries and a determinism check, and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
-its tiles (64 x 64 forward, 128 x 128 backward), a hidden size that is
-not a multiple of 4 (scalar loads), forced narrow vocabulary chunks in
-the backward and a determinism check, and for the paged decode
+its 128 x 256 tiles, a vocabulary under one tile, labels on the tile
+edges, a hidden size that is not a multiple of 4 (scalar loads), forced
+narrow vocabulary chunks in the backward and determinism checks of the
+forward and the backward, and for the paged decode
 read page tables permuted over a larger pool, page lengths that do not
 divide its 64-position chunks, idle rows and rows at page boundaries. Tolerances: 2e-5 for f32
 outputs (f32 sums in another order), 2e-2 for bf16 outputs (one bf16
@@ -197,17 +198,23 @@ def test_packed_attention_autograd_runs_both_kernels(dev):
     (70, 200, 48, None), (64, 64, 32, None), (300, 1000, 512, None),
     (129, 3001, 96, None), (200, 1000, 1024, None), (130, 515, 1500, None),
     (301, 3001, 96, 500), (130, 515, 1500, 200), (129, 700, 50, 128),
-    (1100, 300, 64, None)])
+    (1100, 300, 64, None), (70, 200, 50, None), (130, 257, 64, None),
+    (133, 513, 1024, None)])
 def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk):
     """With ``chunk`` the joint backward runs over forced narrow
     vocabulary chunks (several, the last one ragged); E = 50 takes the
     scalar loads; small tile counts split the dx and dw reductions into
-    slices (``k_splits``)."""
+    slices (``k_splits``). The first labels lie on the forward's tile
+    edges (columns 0, 255, 256 and V - 1); V 200 is under one tile, V 257
+    leaves one column in the last."""
     gen = torch.Generator().manual_seed(n + v + e)
     x = _randn(gen, dev, n, e)
     w = _randn(gen, dev, v, e) * (e ** -0.5)
     b = _randn(gen, dev, v)
-    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    labels = torch.randint(0, v, (n,), generator=gen)
+    edges = [c for c in (0, 255, 256, v - 1) if c < v]
+    labels[:len(edges)] = torch.tensor(edges)
+    labels = labels.to(dev)
     launches = (fce.fused_ce_stats.launches, fce.fused_ce_dx.launches,
                 fce.fused_ce_dw.launches)
     got = fce.fused_ce_stats(x, w, b, labels)
@@ -246,6 +253,20 @@ def test_fused_ce_bwd_is_deterministic(dev):
         one = fce.fused_ce_bwd(x, w, b, labels, lse, *g, chunk=chunk)
         two = fce.fused_ce_bwd(x, w, b, labels, lse, *g, chunk=chunk)
         assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
+def test_fused_ce_fwd_is_deterministic(dev):
+    """The same inputs twice give bit-identical lse, lab and tot (the
+    tiles' partials merged in vocabulary order, no atomics)."""
+    gen = torch.Generator().manual_seed(13)
+    n, v, e = 1000, 5003, 256
+    x = _randn(gen, dev, n, e)
+    w = _randn(gen, dev, v, e) * (e ** -0.5)
+    b = _randn(gen, dev, v)
+    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    one = fce.fused_ce_stats(x, w, b, labels)
+    two = fce.fused_ce_stats(x, w, b, labels)
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
 
 
 def test_fused_softmax_xent_gradients_match_dense(dev):

@@ -219,3 +219,58 @@ def test_chunk_loop_computes_only_what_is_asked(need_dx, need_dw):
             np.testing.assert_allclose(loop.numpy(), ref.numpy(), rtol=1e-5,
                                        atol=1e-5)
             assert torch.equal(part, ref)
+
+
+def _close_to_scale(got, ref, rel=1e-5):
+    """|got - ref| <= rel * max(1, max |ref|): f32 sums over V taken in
+    another order."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    err = float(np.abs(got - ref).max())
+    assert err <= rel * max(1.0, float(np.abs(ref).max())), err
+
+
+@pytest.mark.parametrize("v", [200, 256, 257, 3001])
+def test_tiled_stats_match_plain_and_jax_kernel(v):
+    """``fused_ce_stats_tiled_reference`` (the forward kernel's partials
+    per 256-column vocabulary tile, merged in vocabulary order) against
+    ``fused_ce_stats_reference`` and against the reference kernel through
+    its public entry in interpret mode (``_jax``: it pads V and N and
+    reaches ``_fwd_call``), at ragged V, N = 133 (not a multiple of the
+    128-token tile) and labels on the tile edges 0, 255, 256 and V - 1;
+    1e-5 of each output's largest magnitude (f32 sums over V in another
+    order). The reference returns the CE: eps 0 gives lse - lab, eps 0.1
+    brings in tot."""
+    n, e = 133, 24
+    rng = np.random.RandomState(v)
+    x = rng.randn(n, e).astype(np.float32)
+    w = (rng.randn(v, e) * 0.3).astype(np.float32)
+    b = rng.randn(v).astype(np.float32)
+    labels = rng.randint(0, v, size=n).astype(np.int32)
+    edges = [c for c in (0, 255, 256, v - 1) if c < v]
+    labels[:len(edges)] = edges
+    tx, tw, tb = _t(x, w, b)
+    tl = torch.as_tensor(labels)
+    lse, lab, tot = fce.fused_ce_stats_tiled_reference(tx, tw, tb, tl)
+    for got, plain in zip((lse, lab, tot),
+                          fce.fused_ce_stats_reference(tx, tw, tb, tl)):
+        _close_to_scale(got.numpy(), plain.numpy())
+    for eps in (0.0, 0.1):
+        ce = (1.0 - eps) * (lse - lab) + eps * (lse - tot / float(v))
+        _close_to_scale(ce.numpy(), _jax(x, w, b, labels, eps))
+
+
+@pytest.mark.parametrize("n,v,nbytes", [
+    (12288, 32000, 24_576_000), (16384, 32000, 32_768_000),
+    (133, 257, 4 * 2 * 133 * 4), (1, 200, 16)])
+def test_fwd_tiles_cover_the_vocabulary_and_size_the_partials(n, v, nbytes):
+    """The forward's vocabulary tiles cover [0, V) once, in order, 256
+    columns each but a ragged last one; its partial buffer is
+    [4, tiles, N] f32: 24.6 MB at base training (N 12,288) and 32.8 MB at
+    the doc shape (N 16,384)."""
+    tiles = fce.fwd_tiles(v)
+    assert [c for v0, width in tiles for c in range(v0, v0 + width)] == \
+        list(range(v))
+    assert all(width == 256 for _, width in tiles[:-1])
+    shape = fce.fwd_part_shape(n, v)
+    assert shape == (4, len(tiles), n)
+    assert 4 * int(np.prod(shape)) == nbytes
