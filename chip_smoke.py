@@ -391,15 +391,23 @@ def phase_packed_kernel(gen) -> dict:
 
 def phase_packed_bwd_kernel(gen):
     """The backward against its plain version at the training path's
-    shapes; the forward that feeds it ``out`` is held against its own
-    plain version there too. Returns (backward row, forward max |err|)."""
+    shapes (the rows of a 12,288-token batch: B 192 at T 64) and, in its
+    tiled form, at T 200 and 256, where the dispatcher now takes it; the
+    forward that feeds it ``out`` is held against its own plain version
+    there too, and two backward calls must give the same bits. Then its
+    times: at T 64 self (the kernel line), causal and cross, and at T 256
+    against SDPA's backward and the dense path's, which the dispatcher
+    took there before. Returns (backward row, forward max |err|)."""
+    from marian_tpu_torch.ops import attention as att
     from marian_tpu_torch.ops.kernels.packed_attention import (
         packed_attention, packed_attention_bwd,
         packed_attention_bwd_reference, packed_attention_reference)
     dev = torch.device("cuda")
-    b, h, dh = 192, 8, 64       # the rows of a 12,288-token batch at T=64
+    h, dh, tokens = 8, 64, 12288
     err = fwd_err = 0.0
-    for tq, tk, causal in ((64, 64, False), (64, 64, True), (64, 48, False)):
+
+    def inputs(tq, tk, live=True):
+        b = tokens // max(tq, tk)
         q, do = (torch.randn(b, h, tq, dh, generator=gen).to(dev)
                  for _ in range(2))
         k, v = (torch.randn(b, h, tk, dh, generator=gen).to(dev)
@@ -408,12 +416,23 @@ def phase_packed_bwd_kernel(gen):
         lens[0] = tk
         kvm = (torch.arange(tk)[None, :] < lens[:, None]).float()
         kvm[1] = 0.0                                  # a fully-masked row
-        kvm = kvm.to(dev)
+        if live:
+            kvm.fill_(1.0)
+        return q, k, v, do, kvm.to(dev)
+
+    for tq, tk, causal in ((64, 64, False), (64, 64, True), (64, 48, False),
+                           (200, 200, True), (256, 256, False)):
+        q, k, v, do, kvm = inputs(tq, tk, live=False)
+        b = q.shape[0]
         out = packed_attention(q, k, v, kvm, causal=causal)
         got = packed_attention_bwd(q, k, v, kvm, do, out, causal)
+        again = packed_attention_bwd(q, k, v, kvm, do, out, causal)
         ref = packed_attention_bwd_reference(q, k, v, kvm, do, out, causal)
         plain_out = packed_attention_reference(q, k, v, kvm, causal=causal)
         torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"packed_attention_bwd Tq={tq} Tk={tk} causal={causal}: two "
+              f"calls differ")
         e = (out - plain_out).abs().max().item()
         check(e <= TOL, f"packed_attention B={b} Tq={tq} Tk={tk} "
               f"causal={causal} max |err| {e} > {TOL}")
@@ -424,13 +443,26 @@ def phase_packed_bwd_kernel(gen):
                 f"{name}"))
         print(f"kernel packed_attention_bwd B={b} H={h} Tq={tq} Tk={tk} "
               f"Dh={dh} causal={causal}: max |err| {err:.3g} (tolerance "
-              f"{REL_TOL} x max |plain|); its forward: max |err| {e:.3g}")
-    t = 64
-    q, k, v, do = (torch.randn(b, h, t, dh, generator=gen).to(dev)
-                   for _ in range(4))
-    kvm = torch.ones(b, t, device=dev)
-    out = packed_attention(q, k, v, kvm)
-    ms = time_ms(lambda: packed_attention_bwd(q, k, v, kvm, do, out))
+              f"{REL_TOL} x max |plain|), two calls bit-identical; its "
+              f"forward: max |err| {e:.3g}")
+
+    def packed_bound(b, tq, tk, causal):
+        """Reads q, dO, k, v, the key mask and delta and writes dq, dk,
+        dv; 10 flops a feature of each live (query, key) pair."""
+        pairs = b * h * (sum(min(i + 1, tk) for i in range(tq)) if causal
+                         else tq * tk)
+        return bound((3 * tq + 4 * tk) * b * h * dh * 4 + b * tk * 4
+                     + b * h * tq * 4, 10 * pairs * dh)
+
+    def timed(tq, tk, causal):
+        q, k, v, do, kvm = inputs(tq, tk)
+        out = packed_attention(q, k, v, kvm, causal=causal)
+        ms = time_ms(lambda: packed_attention_bwd(q, k, v, kvm, do, out,
+                                                  causal))
+        return (q, k, v, do, kvm, out), ms
+
+    (q, k, v, do, kvm, out), ms = timed(64, 64, False)
+    b = q.shape[0]
     plain_ms = time_ms(lambda: packed_attention_bwd_reference(
         q, k, v, kvm, do, out))
     ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
@@ -438,18 +470,46 @@ def phase_packed_bwd_kernel(gen):
         ql, kl, vl, attn_mask=kvm.bool()[:, None, None, :])
     library_ms = time_ms(lambda: torch.autograd.grad(
         lib_out, (ql, kl, vl), do, retain_graph=True))
-    nbytes = 7 * b * h * t * dh * 4 + b * t * 4 + b * h * t * 4
-    bound_ms, bound_by = bound(nbytes, 10 * b * h * t * t * dh)
-    print(f"kernel packed_attention_bwd B={b} H={h} T={t} Dh={dh} f32: "
+    bound_ms, bound_by = packed_bound(b, 64, 64, False)
+    flops = 10 * b * h * 64 * 64 * dh
+    print(f"kernel packed_attention_bwd B={b} H={h} T=64 Dh={dh} f32: "
           f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms(sdpa "
           f"backward) {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
-          f"{nbytes / 1e6:.1f} MB, {10 * b * h * t * t * dh / 1e9:.2f} GFLOP)")
-    return {"name": "packed_attention_bwd", "route": "cuda",
-            "source": "marian_tpu_torch/csrc/packed_attention.cu",
-            "replaces": "marian_tpu/ops/pallas/packed_attention.py:214",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}, fwd_err
+          f"{flops / 1e9:.2f} GFLOP, {flops / ms / 1e9:.2f} TFLOP/s)")
+    row = {"name": "packed_attention_bwd", "route": "cuda",
+           "source": "marian_tpu_torch/csrc/packed_attention.cu",
+           "replaces": "marian_tpu/ops/pallas/packed_attention.py:214",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    del q, k, v, do, kvm, out, ql, kl, vl, lib_out
+    for tq, tk, causal in ((64, 64, True), (64, 48, False)):
+        (q, *_), ms = timed(tq, tk, causal)
+        bm, by = packed_bound(q.shape[0], tq, tk, causal)
+        print(f"kernel packed_attention_bwd B={q.shape[0]} H={h} Tq={tq} "
+              f"Tk={tk} Dh={dh} causal={causal} f32: kernel_ms {ms:.4f} "
+              f"bound_ms {bm:.4f} ({by}, live pairs)")
+    # T 256: the kernel's tiled form against SDPA's backward and the
+    # dense path's, which the dispatcher took there before the cap rose
+    (q, k, v, do, kvm, out), ms = timed(256, 256, False)
+    b = q.shape[0]
+    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+    mask = kvm[:, None, None, :]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=mask.bool())
+    lib_ms = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do, retain_graph=True), iters=10)
+    dense_out, _ = att.dense_attention_with_weights(ql, kl, vl, mask,
+                                                    False)
+    dense_ms = time_ms(lambda: torch.autograd.grad(
+        dense_out, (ql, kl, vl), do, retain_graph=True), iters=10)
+    bm, by = packed_bound(b, 256, 256, False)
+    flops = 10 * b * h * 256 * 256 * dh
+    print(f"kernel packed_attention_bwd B={b} H={h} T=256 Dh={dh} f32 "
+          f"(tiled): kernel_ms {ms:.4f} library_ms(sdpa backward) "
+          f"{lib_ms:.4f} dense_path_backward_ms {dense_ms:.4f} bound_ms "
+          f"{bm:.4f} ({by}; {flops / ms / 1e9:.2f} TFLOP/s)")
+    return row, fwd_err
 
 
 def phase_fused_ce_kernels(gen) -> list:
@@ -709,7 +769,8 @@ def phase_flash_kernels(gen) -> list:
     live key lies inside a tile, fewer keys than queries), other head
     sizes and bf16; two backward calls at the encoder shape must give the
     same bits. Then their times at the encoder shape, the joint backward's
-    against SDPA's, and dq and dkv at the decoder's causal shape."""
+    against SDPA's, and the forward, dq and dkv at the decoder's causal
+    shape."""
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     b, h, t, dh = 8, 16, 2048, 64
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -837,9 +898,9 @@ def phase_flash_kernels(gen) -> list:
 def flash_bwd_lines(fa, q, k, v, kvm, do, out, lse, lib_bwd_ms) -> None:
     """The joint backward (``flash_attention_bwd``: delta, dq and dkv) at
     the encoder shape against SDPA's backward (``lib_bwd_ms``), bound by
-    the 10 B.H.Tq.Tk.Dh flops dq, dk and dv need; then dq and dkv alone at
-    the decoder's causal shape, bound by the live (query, key) pairs,
-    T(T+1)/2 a head."""
+    the 10 B.H.Tq.Tk.Dh flops dq, dk and dv need; then the forward, dq and
+    dkv alone at the decoder's causal shape, bound by the live (query,
+    key) pairs, T(T+1)/2 a head."""
     b, h, t, dh = q.shape
     ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, kvm, do, out, lse),
                  iters=5)
@@ -857,14 +918,17 @@ def flash_bwd_lines(fa, q, k, v, kvm, do, out, lse, lib_bwd_ms) -> None:
     operands = (q, k, v, kvm, do, lse_c, (do * out_c).sum(dim=-1))
     grad, grad2 = torch.empty_like(q), torch.empty_like(q)
     pairs = b * h * t * (t + 1) // 2 * dh
-    for part, fn, n in (
+    for part, fn, n, elems in (
+            ("fwd", lambda: fa.flash_attention_fwd(q, k, v, kvm, True), 4,
+             4),
             ("dq", lambda: fa.flash_attention_dq(operands, grad, True,
-                                                 scale), 6),
+                                                 scale), 6, 5),
             ("dkv", lambda: fa.flash_attention_dkv(operands, grad, grad2,
-                                                   True, scale), 8)):
+                                                   True, scale), 8, 6)):
         ms = time_ms(fn, iters=5)
-        bound_ms, bound_by = bound((5 if part == "dq" else 6) * q.numel() * 4
-                                   + 2 * b * h * t * 4 + b * t * 4,
+        # fwd: q, k, v in, out and lse out; dq, dkv as their kernel lines
+        stats = (1 if part == "fwd" else 2) * b * h * t * 4
+        bound_ms, bound_by = bound(elems * q.numel() * 4 + stats + b * t * 4,
                                    n * pairs)
         print(f"kernel flash_attention_{part} causal B={b} H={h} T={t} "
               f"Dh={dh} f32: kernel_ms {ms:.4f} bound_ms {bound_ms:.4f} "

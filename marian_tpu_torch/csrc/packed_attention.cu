@@ -29,29 +29,15 @@
 // which sets the port's length cap (ops/kernels/packed_attention.py ::
 // max_t, from the 227 KB a Hopper block may use).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerBlock = 16;
-constexpr float kMask = -1e9f;
+using namespace attn;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kFwdThreads = 128;
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kRowsPerBlock = 16;
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
@@ -65,7 +51,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) packed_attention_kernel(
+__global__ void __launch_bounds__(kFwdThreads) packed_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ kv_mask,
     T* __restrict__ out, int H, int Tq, int Tk, int Dh, float scale,
@@ -75,8 +61,8 @@ __global__ void __launch_bounds__(kThreads) packed_attention_kernel(
   float* ks = smem;               // [Tk][Dh+1]
   float* vs = ks + Tk * stride;   // [Tk][Dh+1]
   float* bias = vs + Tk * stride; // [Tk] additive key mask
-  float* qw = bias + Tk;          // [kWarps][Dh] one query row per warp
-  float* pw = qw + kWarps * Dh;   // [kWarps][Tk] its scores/probabilities
+  float* qw = bias + Tk;            // [kFwdWarps][Dh] a query row a warp
+  float* pw = qw + kFwdWarps * Dh;  // [kFwdWarps][Tk] its scores, then p
 
   const int bh = blockIdx.x, b = bh / H;
   const size_t kbase = (size_t)bh * Tk * Dh;
@@ -94,7 +80,8 @@ __global__ void __launch_bounds__(kThreads) packed_attention_kernel(
   float* qr = qw + warp * Dh;
   float* pr = pw + warp * Tk;
   const int row_end = min(Tq, (int)(blockIdx.y + 1) * kRowsPerBlock);
-  for (int i = blockIdx.y * kRowsPerBlock + warp; i < row_end; i += kWarps) {
+  for (int i = blockIdx.y * kRowsPerBlock + warp; i < row_end;
+       i += kFwdWarps) {
     for (int d = lane; d < Dh; d += 32) qr[d] = to_f32(q[qbase + (size_t)i * Dh + d]);
     __syncwarp();
     float m = -INFINITY;
@@ -131,7 +118,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* out, int B, int H, int Tq, int Tk, int Dh, float scale,
            int causal, cudaStream_t stream) {
   const size_t smem =
-      (2 * (size_t)Tk * (Dh + 1) + Tk + kWarps * (size_t)(Dh + Tk)) *
+      (2 * (size_t)Tk * (Dh + 1) + Tk + kFwdWarps * (size_t)(Dh + Tk)) *
       sizeof(float);
   auto kern = packed_attention_kernel<T>;
   if (smem > 48 * 1024) {
@@ -140,212 +127,482 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid(B * H, (Tq + kRowsPerBlock - 1) / kRowsPerBlock);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, kFwdThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask, (T*)out,
       H, Tq, Tk, Dh, scale, causal);
   return (int)cudaGetLastError();
 }
-
 // ---------------------------------------------------------------------------
 // Backward: dq, dk, dv from the recomputed probabilities.
 //
 // Replaces marian_tpu/ops/pallas/packed_attention.py :: _bwd_kernel (called
 // from _bwd_call). As there, the probabilities are recomputed, not saved,
 // and delta = rowsum(dO * out) arrives from outside the kernel:
+//   P = exp(S - max) / sum over every real key (S as the forward's),
 //   dP = dO V^T,  dS = P * (dP - delta) * scale,
 //   dQ = dS K,    dK = dS^T Q,    dV = P^T dO.
-// A block owns one (batch, head) and produces its dq, dk and dv together,
-// so no two blocks write the same output and no atomics are needed (the
-// TPU grid (b, h//g) did the same per head group). Q, dO, K, V are staged
-// as [T][Dh+1] f32 tiles and P (then dS, in place) as [Tq][Tk+1]; the
-// five products read shared memory only, each thread computing a 4 x 4
-// register tile (tile_product), and the +1 rows keep the threads of a
-// warp on distinct banks.
+// One block produces the dq, dk and dv of a (batch, head), so no two
+// blocks write the same output and no atomics are needed (the TPU grid
+// (b, h//g) did the same per head group); every sum runs in a fixed
+// order, so two calls give the same bits.
 //
-// What bounds it on an H100: close to the balance point. It moves
-// 7*B*H*T*Dh elements (q, k, v, dO in; dq, dk, dv out) for
-// 10*B*H*Tq*Tk*Dh flops (the recomputed scores and four products): at
-// T = 64, Dh = 64 the f32 flops just outweigh the bytes (chip_smoke.py
-// computes both bounds per run). Shared memory is
-//   (2*Tq*(Dh+1) + 2*Tk*(Dh+1) + Tq*(Tk+1) + Tk + Tq) floats,
-// 83 KB at T=64, Dh=64: the backward's length cap (max_t_bwd) is lower
-// than the forward's.
+// Both kernels below are built from the flash kernels' register-blocked
+// products (attention_tiles.cuh) on 64 x 64 tiles of queries and keys: a
+// thread holds a 4 x 4 fragment of a tile's S and dO.V^T (own rows:
+// queries), the row max and sum reduce over the sixteen lanes of a row,
+// and P^T, dS^T and dS are written to shared memory once (stride 68: the
+// transposed stores fall two to a bank) for the three products, which
+// read them as float4: dV and dK of the key tile in one pass
+// (apply_rows' two-product form, own rows: keys), then dQ of the query
+// tile.
+//
+// Up to 64 queries and keys (the training path's sentences) a head is one
+// tile pair: packed_attention_bwd_kernel stages its Q, dO, K, V, key mask
+// and delta once, computes S once and takes the statistics from it; from
+// Dh 64 dS overwrites V, which no product reads after dO.V^T. Its block
+// has 128 threads (8 x 16), so a thread holds 8 x 4 fragments, as the
+// flash kernels do, with 8 float4 reads for every 128 FMAs of a product
+// where 4 x 4 fragments take 8 for 64; two blocks (105 KB each at Dh 64)
+// share an SM, one's loads under the other's products.
+//
+// Past 64, packed_attention_bwd_tiled_kernel walks the tiles of one head.
+// Pass 1 takes each query tile across the key tiles it sees for every
+// row's max and sum (online, from -1e30) into shared memory. Pass 2 takes
+// the key tiles in order: dK and dV of the tile stay in registers while
+// the query tiles stream through two cp.async stages (one at Dh 128), and
+// each query tile's dQ adds ds.K of the key tile to its sum over the
+// earlier key tiles, held in shared memory (at Dh 128 in the block's
+// slice of a global f32 scratch), each element by the one thread that
+// owns it. One key tile's statistics are the same in both kernels, bit
+// for bit. Causal pairs are skipped by flash_attention.cu's rule: every
+// key after every query and every row sees a live key (such keys weigh
+// exp(-1e9 - max) = 0 exactly).
+//
+// What bounds it on an H100: close to the balance point at T = 64. It
+// moves 7*B*H*T*Dh elements (q, k, v, dO in; dq, dk, dv out) for
+// 10*B*H*Tq*Tk*Dh flops (the recomputed scores and four products),
+// 12*B*H*Tq*Tk*Dh past 64 (pass 1 computes S again): at T = 64, Dh = 64
+// the f32 flops just outweigh the bytes (chip_smoke.py computes both
+// bounds per run). Shared memory (floats; OT = 64*(Dh + 4); ST = 64*68):
+//   short   4*OT + 128 + 2*ST (3*ST below Dh 64, where V's tile cannot
+//           take dS)                               (105 KB at Dh 64)
+//   tiled   (2 + 2*stages)*OT + 3*ST + stats + Tq*Dh (Dh <= 64)
+// with stats = 3*Tq + Tk (max, sum, delta, key mask) rounded up to a
+// float4. The longest T = Tq = Tk within the 227 KB a block may take is
+// the backward's cap (max_t_bwd): 1,868 / 867 / 278 / 2,816 at Dh 16 /
+// 32 / 64 / 128.
 
-constexpr int kBwdThreads = 256;   // 16 x 16, a 4 x 4 micro-tile each
+constexpr int kTile = kSTile;   // queries and keys of a tile
+constexpr int kPS = kTile + 4;  // stride of the score tiles
 
-// C(m, n) = sum_k A(m, k) B(k, n) over shared-memory operands
-// A(m, k) = A[m*am + k*ak], B(k, n) = B[k*bk + n*bn], for m < M, n < N;
-// epi(m, n, value) consumes each result. The output is walked in 64 x 64
-// tiles; thread (ty, tx) owns rows ty + 16i and columns tx + 16j of a
-// tile, so per k it reads 4 + 4 operands (two distinct rows of A per warp,
-// sixteen consecutive words of B) for 16 FMAs. Sums run k = 0, 1, ...,
-// the order of a plain dot product.
-template <typename Epi>
-__device__ __forceinline__ void tile_product(const float* A, int am, int ak,
-                                             const float* B, int bk, int bn,
-                                             int M, int N, int K, Epi epi) {
+template <int DH>
+struct Packed {
+  static constexpr int R = kTile / 16;             // rows a thread (tiled)
+  static constexpr int SD = DH + 4;                // operand row stride
+  static constexpr int NF = DH / 16;               // output columns a thread
+  static constexpr int kOperand = kTile * SD;      // floats of an operand tile
+  static constexpr int kScore = kTile * kPS;       // floats of a score tile
+  // short: 128 threads, 8 rows a thread; a head's Q, dO, K, V, key mask
+  // and delta, and the score tiles
+  static constexpr int kShortThreads = 128;
+  static constexpr int kShortR = kTile / (kShortThreads / 16);
+  static constexpr bool kDsOverV = SD >= kPS;      // V's tile holds dS
+  static constexpr int kShortFloats =
+      4 * kOperand + 2 * kTile + (kDsOverV ? 2 : 3) * kScore;
+  // tiled: Q/dO stages, and where the dq sums live
+  static constexpr int kStages = DH > 64 ? 1 : 2;
+  static constexpr bool kDqGlobal = DH > 64;
+  static_assert(kShortFloats * 4 <= kMaxSmem, "shared memory of a block");
+};
+
+// floats of shared memory for Tq x Tk (the layout in the header note)
+template <int DH>
+size_t bwd_floats(int Tq, int Tk) {
+  using G = Packed<DH>;
+  if (Tq <= kTile && Tk <= kTile) return G::kShortFloats;
+  const size_t stats = (3 * (size_t)Tq + Tk + 3) / 4 * 4;
+  return (2 + 2 * G::kStages) * G::kOperand + 3 * G::kScore + stats +
+         (G::kDqGlobal ? 0 : (size_t)Tq * DH);
+}
+
+// S of the query tile at q0 against the key tile at k0 in the forward's
+// op order: (q.k) * scale + (1 - mask) * -1e9, causal positions -1e9,
+// keys past Tk -inf; mk is the key tile's mask
+template <int R, int NT>
+__device__ __forceinline__ void mask_scores(float (&s)[R][4], const float* mk,
+                                            int q0, int k0, int Tk,
+                                            float scale, int causal) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int m0 = 0; m0 < M; m0 += 64)
-    for (int n0 = 0; n0 < N; n0 += 64) {
-      int ma[4], nb[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ma[i] = min(m0 + ty + 16 * i, M - 1) * am;   // clamped, discarded
-        nb[i] = min(n0 + tx + 16 * i, N - 1) * bn;
+  for (int ii = 0; ii < R; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int row = q0 + ty + NT / 16 * ii, c = tx + 16 * jj;
+      float x = -INFINITY;
+      if (k0 + c < Tk) {
+        x = s[ii][jj] * scale + (1.f - mk[c]) * kMask;
+        if (causal && row < k0 + c) x = kMask;
       }
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[ma[i] + k * ak];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = B[k * bk + nb[j]];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-          if (m < M && n < N) epi(m, n, acc[i][j]);
-        }
+      s[ii][jj] = x;
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads) packed_attention_bwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const float* __restrict__ kv_mask,
-    const T* __restrict__ dout, const float* __restrict__ delta,
-    T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int H,
-    int Tq, int Tk, int Dh, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int stride = Dh + 1, pstride = Tk + 1;
-  float* qs = smem;                  // [Tq][Dh+1]
-  float* dos = qs + Tq * stride;     // [Tq][Dh+1]
-  float* ks = dos + Tq * stride;     // [Tk][Dh+1]
-  float* vs = ks + Tk * stride;      // [Tk][Dh+1]
-  float* ps = vs + Tk * stride;      // [Tq][Tk+1] P, then dS
-  float* bias = ps + Tq * pstride;   // [Tk]
-  float* dl = bias + Tk;             // [Tq] delta
+// the running max and sum of each own row after one more key tile
+template <int R>
+__device__ __forceinline__ void online(const float (&s)[R][4],
+                                       float (&m)[R], float (&l)[R]) {
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) mx = fmaxf(mx, s[ii][jj]);
+    const float m_new = fmaxf(m[ii], row_max(mx));
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) sum += expf(s[ii][jj] - m_new);
+    l[ii] = expf(m[ii] - m_new) * l[ii] + row_sum(sum);
+    m[ii] = m_new;
+  }
+}
 
+// p = exp(s - m) / l and ds = p * (dp - delta) * scale of the pair, 0 for
+// rows past Tq and keys past Tk, into P^T, dS^T and dS; dl is the query
+// tile's delta
+template <int R, int NT>
+__device__ __forceinline__ void write_scores(
+    const float (&s)[R][4], const float (&dp)[R][4], const float (&m)[R],
+    const float (&l)[R], const float* dl, int q0, int k0, int Tq, int Tk,
+    float scale, float* pt, float* dst, float* ds) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii) {
+    const int r = ty + NT / 16 * ii;
+    const bool in = q0 + r < Tq;
+    const float d = in ? dl[r] : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int c = tx + 16 * jj;
+      const float p =
+          in && k0 + c < Tk ? expf(s[ii][jj] - m[ii]) / l[ii] : 0.f;
+      const float g = p * (dp[ii][jj] - d) * scale;
+      pt[c * kPS + r] = p;
+      dst[c * kPS + r] = g;
+      ds[r * kPS + c] = g;
+    }
+  }
+}
+
+// rows row0 + ty + (NT/16)i (those before `rows`) of a [rows][DH] output
+template <typename T, int DH, int NT, int R>
+__device__ __forceinline__ void store_rows(T* out, int row0, int rows,
+                                           const float (&acc)[R][DH / 16]) {
+  const int ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii) {
+    const int row = row0 + ty + NT / 16 * ii;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int f = 0; f < DH / 16; ++f)
+      out[(size_t)row * DH + out_col<DH>(f)] = from_f32<T>(acc[ii][f]);
+  }
+}
+
+template <int R, int NF>
+__device__ __forceinline__ void zero(float (&a)[R][NF]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int f = 0; f < NF; ++f) a[i][f] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// short: Tq, Tk <= 64; a block of 128 threads per (batch, head)
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(Packed<DH>::kShortThreads)
+    packed_attention_bwd_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const float* __restrict__ kv_mask,
+        const T* __restrict__ dout, const float* __restrict__ delta,
+        T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int H,
+        int Tq, int Tk, float scale, int causal) {
+  using G = Packed<DH>;
+  constexpr int NT = G::kShortThreads, R = G::kShortR, NF = G::NF;
+  constexpr int OT = G::kOperand, ST = G::kScore;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [64][SD] Q
+  float* dos = qs + OT;                          // [64][SD] dO
+  float* ks = dos + OT;                          // [64][SD] K
+  float* vs = ks + OT;                           // [64][SD] V, then dS
+  float* mk = vs + OT;                           // [64] key mask
+  float* dl = mk + kTile;                        // [64] delta
+  float* pt = dl + kTile;                        // [64][kPS] P^T
+  float* dst = pt + ST;                          // [64][kPS] dS^T
+  float* ds = G::kDsOverV ? vs : dst + ST;       // [64][kPS] dS
+
+  const int bh = blockIdx.x;
+  stage_rows<kTile, DH, NT>(q + (size_t)bh * Tq * DH, 0, Tq, qs);
+  stage_rows<kTile, DH, NT>(dout + (size_t)bh * Tq * DH, 0, Tq, dos);
+  stage_rows<kTile, DH, NT>(k + (size_t)bh * Tk * DH, 0, Tk, ks);
+  stage_rows<kTile, DH, NT>(v + (size_t)bh * Tk * DH, 0, Tk, vs);
+  stage_vec(kv_mask + (size_t)(bh / H) * Tk, 0, Tk, mk, 0);
+  stage_vec(delta + (size_t)bh * Tq, 0, Tq, dl, kTile);
+  cp_async_wait_all();
+  __syncthreads();  // the head's tiles landed
+  float s[R][4], dp[R][4], m[R], l[R];
+  dot_rows<R, DH, NT>(qs, ks, s);
+  dot_rows<R, DH, NT>(dos, vs, dp);
+  mask_scores<R, NT>(s, mk, 0, 0, Tk, scale, causal);
+#pragma unroll
+  for (int ii = 0; ii < R; ++ii) {
+    m[ii] = kStatsInit;
+    l[ii] = 0.f;
+  }
+  online<R>(s, m, l);
+  if (G::kDsOverV) __syncthreads();  // every dO.V^T has read V
+  write_scores<R, NT>(s, dp, m, l, dl, 0, 0, Tq, Tk, scale, pt, dst, ds);
+  __syncthreads();  // P^T, dS^T and dS are written
+  float dk_acc[R][NF], dv_acc[R][NF], dq_acc[R][NF];
+  zero(dk_acc);
+  zero(dv_acc);
+  zero(dq_acc);
+  apply_rows<R, DH, true, kPS, NT>(pt, dos, dv_acc, dst, qs, dk_acc);
+  store_rows<T, DH, NT>(dk + (size_t)bh * Tk * DH, 0, Tk, dk_acc);
+  store_rows<T, DH, NT>(dv + (size_t)bh * Tk * DH, 0, Tk, dv_acc);
+  apply_rows<R, DH, false, kPS, NT>(ds, ks, dq_acc);
+  store_rows<T, DH, NT>(dq + (size_t)bh * Tq * DH, 0, Tq, dq_acc);
+}
+
+// ---------------------------------------------------------------------------
+// tiled: past 64 queries or keys; one block per (batch, head)
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    packed_attention_bwd_tiled_kernel(
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const float* __restrict__ kv_mask,
+        const T* __restrict__ dout, const float* __restrict__ delta,
+        T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+        float* __restrict__ dq_sum, int H, int Tq, int Tk, float scale,
+        int causal) {
+  using G = Packed<DH>;
+  constexpr int R = G::R, NF = G::NF, OT = G::kOperand, ST = G::kScore;
+  constexpr int kStages = G::kStages;
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);  // [64][SD] K of the key tile
+  float* vs = ks + OT;                           // [64][SD] V
+  float* stage = vs + OT;                        // stages x {Q, dO} [64][SD]
+  float* pt = stage + kStages * 2 * OT;          // [64][kPS] P^T (key rows)
+  float* dst = pt + ST;                          // [64][kPS] dS^T
+  float* ds = dst + ST;                          // [64][kPS] dS (query rows)
+  float* m_s = ds + ST;                          // [Tq] row max
+  float* l_s = m_s + Tq;                         // [Tq] row sum
+  float* dl_s = l_s + Tq;                        // [Tq] delta
+  float* mask = dl_s + Tq;                       // [Tk] key mask
+  __shared__ int first_slot;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.x, b = bh / H;
-  const size_t qbase = (size_t)bh * Tq * Dh;
-  const size_t kbase = (size_t)bh * Tk * Dh;
-  for (int i = threadIdx.x; i < Tq * Dh; i += blockDim.x) {
-    const int r = i / Dh, d = i - r * Dh;
-    qs[r * stride + d] = to_f32(q[qbase + i]);
-    dos[r * stride + d] = to_f32(dout[qbase + i]);
-  }
-  for (int i = threadIdx.x; i < Tk * Dh; i += blockDim.x) {
-    const int r = i / Dh, d = i - r * Dh;
-    ks[r * stride + d] = to_f32(k[kbase + i]);
-    vs[r * stride + d] = to_f32(v[kbase + i]);
-  }
-  for (int j = threadIdx.x; j < Tk; j += blockDim.x)
-    bias[j] = (1.f - kv_mask[(size_t)b * Tk + j]) * kMask;
-  for (int i = threadIdx.x; i < Tq; i += blockDim.x)
-    dl[i] = delta[(size_t)bh * Tq + i];
-  __syncthreads();
+  const float* kvm = kv_mask + (size_t)b * Tk;
+  const T* qh = q + (size_t)bh * Tq * DH;
+  const T* doh = dout + (size_t)bh * Tq * DH;
+  const T* kh = k + (size_t)bh * Tk * DH;
+  const T* vh = v + (size_t)bh * Tk * DH;
+  // [Tq][DH] dq summed over the key tiles so far
+  float* dq_acc = G::kDqGlobal ? dq_sum + (size_t)bh * Tq * DH
+                               : m_s + (3 * Tq + Tk + 3) / 4 * 4;
+  const int first = first_live_key(kvm, Tk, causal, &first_slot);
+  for (int r = threadIdx.x; r < Tq; r += kThreads)
+    dl_s[r] = delta[(size_t)bh * Tq + r];
+  for (int c = threadIdx.x; c < Tk; c += kThreads) mask[c] = kvm[c];
+  const int nq = (Tq + kTile - 1) / kTile, nk = (Tk + kTile - 1) / kTile;
+  // the key tiles query tile i sees: all but those wholly in its future
+  // when every row of it sees a live key
+  auto live_k = [&](int i) {
+    return causal && i * kTile >= first ? min(nk, i + 1) : nk;
+  };
 
-  // scores S = Q K^T, in the forward's op order
-  tile_product(qs, stride, 1, ks, 1, stride, Tq, Tk, Dh,
-               [&](int i, int j, float s) {
-                 s = s * scale + bias[j];
-                 if (causal && j > i) s = kMask;
-                 ps[i * pstride + j] = s;
-               });
-  __syncthreads();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = warp; i < Tq; i += nwarps) {
-    float* pr = ps + i * pstride;
-    float m = -INFINITY;
-    for (int j = lane; j < Tk; j += 32) m = fmaxf(m, pr[j]);
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < Tk; j += 32) {
-      const float e = expf(pr[j] - m);
-      pr[j] = e;
-      l += e;
+  // pass 1: query tiles in order, each across the key tiles it sees; Q
+  // tiles in stage 0's two slots (by tile parity), K tiles in the K and V
+  // slots (by pair parity), the next pair's in flight
+  float* qb = stage;
+  float* kb = ks;
+  stage_rows<kTile, DH>(qh, 0, Tq, qb);
+  stage_rows<kTile, DH>(kh, 0, Tk, kb);
+  cp_async_commit();
+  int n = 0;
+  for (int i = 0; i < nq; ++i) {
+    float m[R], l[R];
+#pragma unroll
+    for (int ii = 0; ii < R; ++ii) {
+      m[ii] = kStatsInit;
+      l[ii] = 0.f;
     }
-    l = warp_sum(l);
-    for (int j = lane; j < Tk; j += 32) pr[j] = pr[j] / l;
+    const int nki = live_k(i);
+    for (int j = 0; j < nki; ++j, ++n) {
+      cp_async_wait_all();
+      __syncthreads();  // pair n landed; pair n - 1's readers are done
+      float* kn = kb + ((n + 1) & 1) * OT;
+      if (j + 1 < nki) {
+        stage_rows<kTile, DH>(kh, (j + 1) * kTile, Tk, kn);
+      } else if (i + 1 < nq) {
+        stage_rows<kTile, DH>(qh, (i + 1) * kTile, Tq,
+                              qb + ((i + 1) & 1) * OT);
+        stage_rows<kTile, DH>(kh, 0, Tk, kn);
+      }
+      cp_async_commit();
+      float s[R][4];
+      dot_rows<R, DH>(qb + (i & 1) * OT, kb + (n & 1) * OT, s);
+      mask_scores<R, kThreads>(s, mask + j * kTile, i * kTile, j * kTile,
+                               Tk, scale, causal);
+      online<R>(s, m, l);
+    }
+    if (tx == 0)
+#pragma unroll
+      for (int ii = 0; ii < R; ++ii) {
+        const int row = i * kTile + ty + 16 * ii;
+        if (row < Tq) {
+          m_s[row] = m[ii];
+          l_s[row] = l[ii];
+        }
+      }
   }
-  __syncthreads();
-  // dV = P^T dO
-  tile_product(ps, 1, pstride, dos, stride, 1, Tk, Dh, Tq,
-               [&](int j, int d, float x) {
-                 dv[kbase + (size_t)j * Dh + d] = from_f32<T>(x);
-               });
-  __syncthreads();
-  // dS = P * (dO V^T - delta) * scale, in place of P (each element read
-  // and written by the thread that owns it)
-  tile_product(dos, stride, 1, vs, 1, stride, Tq, Tk, Dh,
-               [&](int i, int j, float dp) {
-                 float* p = ps + i * pstride + j;
-                 *p = *p * (dp - dl[i]) * scale;
-               });
-  __syncthreads();
-  // dQ = dS K, dK = dS^T Q
-  tile_product(ps, pstride, 1, ks, stride, 1, Tq, Dh, Tk,
-               [&](int i, int d, float x) {
-                 dq[qbase + (size_t)i * Dh + d] = from_f32<T>(x);
-               });
-  tile_product(ps, 1, pstride, qs, stride, 1, Tk, Dh, Tq,
-               [&](int j, int d, float x) {
-                 dk[kbase + (size_t)j * Dh + d] = from_f32<T>(x);
-               });
+
+  // pass 2: key tiles in order, each against the query tiles that see it
+  auto stage_q = [&](int i, int buf) {
+    float* s = stage + buf * 2 * OT;
+    stage_rows<kTile, DH>(qh, i * kTile, Tq, s);
+    stage_rows<kTile, DH>(doh, i * kTile, Tq, s + OT);
+    cp_async_commit();
+  };
+  for (int j = 0; j < nk; ++j) {
+    auto next_q = [&](int i) {
+      while (i < nq && causal && i * kTile >= first && j > i) ++i;
+      return i;
+    };
+    int i = next_q(0), buf = 0;
+    __syncthreads();  // pass 1's or the previous key tile's readers are done
+    stage_rows<kTile, DH>(kh, j * kTile, Tk, ks);
+    stage_rows<kTile, DH>(vh, j * kTile, Tk, vs);
+    if (i < nq) stage_q(i, 0);
+    cp_async_commit();
+    float dk_acc[R][NF], dv_acc[R][NF];
+    zero(dk_acc);
+    zero(dv_acc);
+    while (i < nq) {
+      const int nxt = next_q(i + 1);
+      cp_async_wait_all();
+      __syncthreads();  // the pair's tiles landed; the last pair's readers
+                        // are done
+      if (kStages == 2 && nxt < nq) stage_q(nxt, buf ^ 1);
+      const float* qs = stage + buf * 2 * OT;
+      const float* dos = qs + OT;
+      float s[R][4], dp[R][4], m[R], l[R];
+      dot_rows<R, DH>(qs, ks, s);
+      dot_rows<R, DH>(dos, vs, dp);
+      mask_scores<R, kThreads>(s, mask + j * kTile, i * kTile, j * kTile,
+                               Tk, scale, causal);
+#pragma unroll
+      for (int ii = 0; ii < R; ++ii) {
+        const int row = i * kTile + ty + 16 * ii;
+        m[ii] = row < Tq ? m_s[row] : 0.f;
+        l[ii] = row < Tq ? l_s[row] : 1.f;
+      }
+      write_scores<R, kThreads>(s, dp, m, l, dl_s + i * kTile, i * kTile,
+                                j * kTile, Tq, Tk, scale, pt, dst, ds);
+      __syncthreads();  // P^T, dS^T and dS of the pair are written
+      apply_rows<R, DH, true, kPS>(pt, dos, dv_acc, dst, qs, dk_acc);
+      // dq of query tile i: its sum over the key tiles, in their order
+      const bool first_j = j == 0, last_j = j == live_k(i) - 1;
+      float acc[R][NF];
+#pragma unroll
+      for (int ii = 0; ii < R; ++ii) {
+        const int row = i * kTile + ty + 16 * ii;
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+          acc[ii][f] = first_j || row >= Tq
+                           ? 0.f
+                           : dq_acc[(size_t)row * DH + out_col<DH>(f)];
+      }
+      apply_rows<R, DH, false, kPS>(ds, ks, acc);
+      if (last_j) {
+        store_rows<T, DH, kThreads>(dq + (size_t)bh * Tq * DH, i * kTile, Tq,
+                                    acc);
+      } else {
+        store_rows<float, DH, kThreads>(dq_acc, i * kTile, Tq, acc);
+      }
+      if (kStages == 1 && nxt < nq) {
+        __syncthreads();  // one stage: its readers are done before it refills
+        stage_q(nxt, 0);
+      }
+      i = nxt;
+      buf ^= kStages - 1;
+    }
+    store_rows<T, DH, kThreads>(dk + (size_t)bh * Tk * DH, j * kTile, Tk,
+                                dk_acc);
+    store_rows<T, DH, kThreads>(dv + (size_t)bh * Tk * DH, j * kTile, Tk,
+                                dv_acc);
+  }
+  cp_async_wait_all();
 }
 
-template <typename T>
+template <typename T, int DH>
 int launch_bwd(const void* q, const void* k, const void* v,
                const void* kv_mask, const void* dout, const void* delta,
-               void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk,
-               int Dh, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = (2 * (size_t)Tq * (Dh + 1) + 2 * (size_t)Tk * (Dh + 1) +
-                       (size_t)Tq * (Tk + 1) + Tk + Tq) *
-                      sizeof(float);
-  auto kern = packed_attention_bwd_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+               void* dq, void* dk, void* dv, void* dq_sum, int B, int H,
+               int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = bwd_floats<DH>(Tq, Tk) * sizeof(float);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (Tq <= kTile && Tk <= kTile) {
+    auto kern = packed_attention_bwd_kernel<T, DH>;
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<B * H, Packed<DH>::kShortThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask,
+        (const T*)dout, (const float*)delta, (T*)dq, (T*)dk, (T*)dv, H, Tq,
+        Tk, scale, causal);
+    return (int)cudaGetLastError();
   }
-  kern<<<B * H, kBwdThreads, smem, stream>>>(
+  if (Packed<DH>::kDqGlobal && !dq_sum) return (int)cudaErrorInvalidValue;
+  auto kern = packed_attention_bwd_tiled_kernel<T, DH>;
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<B * H, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask,
-      (const T*)dout, (const float*)delta, (T*)dq, (T*)dk, (T*)dv, H, Tq,
-      Tk, Dh, scale, causal);
+      (const T*)dout, (const float*)delta, (T*)dq, (T*)dk, (T*)dv,
+      (float*)dq_sum, H, Tq, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. kv_mask and delta are float32
-// ([B, Tk] and [B, H, Tq]). Returns cudaGetLastError().
+// dtype codes: 0 = float32, 1 = bfloat16; Dh 16, 32, 64 or 128. kv_mask
+// and delta are float32 ([B, Tk] and [B, H, Tq]); dq_sum is float32
+// [B, H, Tq, Dh] scratch, needed at Dh 128 past 64 queries or keys (else
+// it may be null). Returns cudaGetLastError() (or the error of raising
+// the shared-memory limit; cudaErrorInvalidValue for what it does not
+// take).
 extern "C" int packed_attention_bwd(const void* q, const void* k,
                                     const void* v, const void* kv_mask,
                                     const void* dout, const void* delta,
-                                    void* dq, void* dk, void* dv, int B,
-                                    int H, int Tq, int Tk, int Dh,
-                                    float scale, int causal, int dtype,
-                                    void* stream) {
+                                    void* dq, void* dk, void* dv,
+                                    void* dq_sum, int B, int H, int Tq,
+                                    int Tk, int Dh, float scale, int causal,
+                                    int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_bwd<float>(q, k, v, kv_mask, dout, delta, dq, dk, dv, B, H,
-                             Tq, Tk, Dh, scale, causal, s);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, kv_mask, dout, delta, dq, dk,
-                                     dv, B, H, Tq, Tk, Dh, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+#define CALL(T, D)                                                        \
+  launch_bwd<T, D>(q, k, v, kv_mask, dout, delta, dq, dk, dv, dq_sum, B, \
+                   H, Tq, Tk, scale, causal, s)
+  switch (dtype * 1000 + Dh) {
+    case 16: return CALL(float, 16);
+    case 32: return CALL(float, 32);
+    case 64: return CALL(float, 64);
+    case 128: return CALL(float, 128);
+    case 1016: return CALL(__nv_bfloat16, 16);
+    case 1032: return CALL(__nv_bfloat16, 32);
+    case 1064: return CALL(__nv_bfloat16, 64);
+    case 1128: return CALL(__nv_bfloat16, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CALL
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16. kv_mask is float32 [B, Tk].

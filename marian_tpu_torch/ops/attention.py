@@ -15,10 +15,10 @@ its plain version on the CPU (the reference's ``auto`` engages flash on
 every backend); ``off`` leaves the call to the packed or dense path. On
 the card ``packed="auto"`` engages the packed kernel whenever the length
 is within its cap (the reference's head-pack test is TPU geometry and is
-dropped): the forward's cap, or the backward kernel's lower one when an
-input requires a gradient, past which the dense path runs, as the
-reference's does past its packed cap. On the CPU packed ``auto`` stays
-dense, ``on`` runs the kernel's plain version.
+dropped): the forward's cap and, when an input requires a gradient, the
+backward kernel's too (0 at a head size it is not built for), past which
+the dense path runs, as the reference's does past its packed cap. On the
+CPU packed ``auto`` stays dense, ``on`` runs the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -69,7 +69,8 @@ def attention(q, k, v, mask=None, kv_mask=None, causal: bool = False,
     if applicable and packed != "off":
         grad = torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad)
-        cap = (max_t_bwd if grad else max_t)(q.shape[-1])
+        dh = q.shape[-1]
+        cap = min(max_t(dh), max_t_bwd(dh)) if grad else max_t(dh)
         fits = max(q.shape[-2], k.shape[-2]) <= cap
         if fits and (packed == "on" or q.is_cuda):
             return packed_attention(q, k, v, kv_mask=kv_mask,

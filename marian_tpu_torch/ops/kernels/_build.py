@@ -3,9 +3,10 @@
 Each source is compiled on first use by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). Libraries land in ``build/marian_tpu_torch/``
-beside the package, named by a hash of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded. ``build_all``
-starts one ``nvcc`` per source, all at once.
+beside the package, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. ``build_all`` starts one ``nvcc``
+per source, all at once.
 
 Every C entry point takes pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
@@ -45,7 +46,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source and every shared header it may include
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

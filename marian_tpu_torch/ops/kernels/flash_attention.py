@@ -97,6 +97,59 @@ def flash_attention_reference(q, k, v, kv_mask=None, causal: bool = False,
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
+def flash_attention_fwd_tiled_reference(q, k, v, kv_mask=None,
+                                        causal: bool = False,
+                                        scale: Optional[float] = None
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's tiling in plain PyTorch (128 query rows, 64
+    at Dh 128, against 64-key tiles), one batch row at a time: each query
+    tile walks the key tiles in order with an online softmax from a
+    running max of -1e30 (the accumulator and sum rescaled by
+    exp(m_old - m_new)); a causal query tile stops after the last key
+    tile any of its rows can see once its first query sees a live key
+    (the header rule), and ends with out = acc / l, lse = m + log(l), l
+    == 0 guarded to 1. Returns (out in q's dtype, lse f32)."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    sc = _scale(scale, dh)
+    kvm = _mask(kv_mask, b, tk, q.device)
+    query_tile, key_tile = (128 if dh <= 64 else 64), 64
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty_like(qf)
+    lse = torch.empty((b, h, tq), device=q.device)
+    live = kvm != 0
+    for bb in range(b):
+        first = int(live[bb].float().argmax()) if live[bb].any() else tk
+        for i0 in range(0, tq, query_tile):
+            i1 = min(tq, i0 + query_tile)
+            m = torch.full((h, i1 - i0), -1e30, device=q.device)
+            l = torch.zeros((h, i1 - i0), device=q.device)
+            acc = torch.zeros((h, i1 - i0, dh), device=q.device)
+            n_k = -(-tk // key_tile)
+            if causal and i0 >= first:
+                n_k = min(n_k, (i0 + query_tile - 1) // key_tile + 1)
+            for j0 in range(0, n_k * key_tile, key_tile):
+                j1 = min(tk, j0 + key_tile)
+                s = (torch.einsum("hqd,hkd->hqk", qf[bb, :, i0:i1],
+                                  kf[bb, :, j0:j1]) * sc
+                     + (1.0 - kvm[bb, j0:j1]) * NEG_INF)
+                if causal:
+                    seen = (torch.arange(i0, i1, device=q.device)[:, None]
+                            >= torch.arange(j0, j1, device=q.device)[None])
+                    s = torch.where(seen, s, torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = alpha * l + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "hqk,hkd->hqd", p, vf[bb, :, j0:j1])
+                m = m_new
+            l = torch.where(l == 0.0, torch.ones_like(l), l)
+            out[bb, :, i0:i1] = acc / l[..., None]
+            lse[bb, :, i0:i1] = m + torch.log(l)
+    return out.to(q.dtype), lse
+
+
 def flash_attention_bwd_reference(q, k, v, kv_mask, do, out, lse,
                                   causal: bool = False,
                                   scale: Optional[float] = None):
@@ -158,7 +211,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B,H,Tq,Dh], k/v [B,H,Tk,Dh], kv_mask [B,Tk] (1.0 = attend) or
-    None → (out [B,H,Tq,Dh], lse [B,H,Tq] f32)."""
+    None → (out [B,H,Tq,Dh], lse [B,H,Tq] f32). The kernel runs a block
+    per 128 query rows (64 at Dh 128) over 64-key tiles loaded by
+    cp.async into two stages, with an online softmax in registers
+    (``flash_attention_fwd_tiled_reference`` is its tiling in plain
+    torch)."""
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     sc = _scale(scale, dh)

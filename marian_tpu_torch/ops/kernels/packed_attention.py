@@ -19,6 +19,16 @@ recomputes P and returns dq, dk, dv (kv_mask gets none). On the CPU the
 gradient is autograd through the plain forward.
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
 kernel launches.
+
+The backward kernel works on 64 x 64 tiles of queries and keys: up to 64
+of each (a training sentence) a head is one tile pair, computed once;
+past that it walks the key tiles (pass 1 for each row's max and sum,
+pass 2 for the products), which lifts its cap (``max_t_bwd``) to 278
+tokens at Dh 64, past the reference's 256.
+``packed_attention_bwd_tiled_reference`` is that tiling in plain torch.
+It is built for Dh 16, 32, 64 and 128 (``BWD_HEAD_SIZES``); at another
+head size ``max_t_bwd`` is 0 and the dispatcher takes the dense path when
+a gradient is needed.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from . import _build
 
 _SMEM_FLOATS = 232448 // 4          # a Hopper block's shared-memory ceiling
 _WARPS = 4
+_TILE = 64                          # the backward's query and key tile
+BWD_HEAD_SIZES = (16, 32, 64, 128)  # Dh the backward kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -46,16 +58,33 @@ def max_t(dh: int) -> int:
 
 
 def _bwd_smem_floats(tq: int, tk: int, dh: int) -> int:
-    return 2 * tq * (dh + 1) + 2 * tk * (dh + 1) + tq * (tk + 1) + tk + tq
+    """Shared memory of the backward kernel's block, in floats
+    (``csrc/packed_attention.cu :: bwd_floats``). Up to 64 queries and
+    keys: Q, dO, K, V, the key mask and delta, and two 64 x 68 score
+    tiles (three below Dh 64, where V's tile cannot take dS). Past that:
+    K, V, the Q/dO stages (one at Dh 128), three score tiles, a max, sum
+    and delta per query and a mask value per key rounded up to a float4,
+    and at Dh <= 64 the dq sums [Tq, Dh]."""
+    operand, score = _TILE * (dh + 4), _TILE * (_TILE + 4)
+    if tq <= _TILE and tk <= _TILE:
+        return 4 * operand + 2 * _TILE + (2 if dh >= 64 else 3) * score
+    stats = -(-(3 * tq + tk) // 4) * 4
+    stages = 1 if dh > 64 else 2
+    return ((2 + 2 * stages) * operand + 3 * score + stats
+            + (0 if dh > 64 else tq * dh))
 
 
+@functools.lru_cache(maxsize=None)
 def max_t_bwd(dh: int) -> int:
-    """Longest sequence (Tq = Tk = T) the backward kernel stages per
-    block: Q, dO, K, V as [T, Dh+1] f32 tiles plus a [T, T+1] P/dS tile
-    must fit the 227 KB a Hopper block may use (T = 143 at Dh = 64). The
-    dispatcher sends longer sequences that need a gradient to the dense
+    """Longest sequence (Tq = Tk = T) the backward kernel takes: its
+    block's shared memory must fit the 227 KB a Hopper block may use (T
+    = 1,868 / 867 / 278 / 2,816 at Dh 16 / 32 / 64 / 128), and 0 at a
+    head size it is not built for. The dispatcher sends what needs a
+    gradient past it (or past the forward's ``max_t``) to the dense
     path."""
-    t = 1
+    if dh not in BWD_HEAD_SIZES:
+        return 0
+    t = _TILE
     while _bwd_smem_floats(t + 1, t + 1, dh) <= _SMEM_FLOATS:
         t += 1
     return t
@@ -116,6 +145,76 @@ def packed_attention_bwd_reference(q, k, v, kv_mask, do, out,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def packed_attention_bwd_tiled_reference(q, k, v, kv_mask, do, out,
+                                         causal: bool = False,
+                                         scale: Optional[float] = None):
+    """The backward kernel's tiling in plain PyTorch (64 x 64 tiles), one
+    batch row at a time: pass 1 takes each query tile across the key
+    tiles it sees for every row's max and sum (online, from -1e30); pass
+    2 takes the key tiles in order and, in each, the query tiles that see
+    it, summing dk and dv of the key tile over the query tiles and dq of
+    each query tile over the key tiles in their order. A causal (query
+    tile, key tile) pair is skipped when all its keys follow all its
+    queries and its first query sees a live key. Returns (dq, dk, dv)."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    kvm = _mask(kv_mask, b, tk, q.device)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * out.float()).sum(dim=-1)
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    qt = kt = _TILE
+    live = kvm != 0
+    for bb in range(b):
+        first = int(live[bb].float().argmax()) if live[bb].any() else tk
+        bias = (1.0 - kvm[bb]) * NEG_INF
+
+        def sees(i0, j0):
+            return not (causal and i0 >= first and j0 > i0 + qt - 1)
+
+        def scores(i0, j0):
+            i1, j1 = min(tq, i0 + qt), min(tk, j0 + kt)
+            s = torch.einsum("hqd,hkd->hqk", qf[bb, :, i0:i1],
+                             kf[bb, :, j0:j1]) * scale + bias[j0:j1]
+            if causal:
+                live = (torch.arange(i0, i1, device=q.device)[:, None]
+                        >= torch.arange(j0, j1, device=q.device)[None, :])
+                s = torch.where(live, s, torch.full_like(s, NEG_INF))
+            return s
+
+        m = torch.full((h, tq), -1e30, device=q.device)
+        l = torch.zeros((h, tq), device=q.device)
+        for i0 in range(0, tq, qt):
+            rows = slice(i0, min(tq, i0 + qt))
+            for j0 in range(0, tk, kt):
+                if not sees(i0, j0):
+                    continue
+                s = scores(i0, j0)
+                m_new = torch.maximum(m[:, rows], s.amax(dim=-1))
+                l[:, rows] = (torch.exp(m[:, rows] - m_new) * l[:, rows]
+                              + torch.exp(s - m_new[..., None]).sum(dim=-1))
+                m[:, rows] = m_new
+        for j0 in range(0, tk, kt):
+            keys = slice(j0, min(tk, j0 + kt))
+            for i0 in range(0, tq, qt):
+                if not sees(i0, j0):
+                    continue
+                rows = slice(i0, min(tq, i0 + qt))
+                p = (torch.exp(scores(i0, j0) - m[:, rows, None])
+                     / l[:, rows, None])
+                dp = torch.einsum("hqd,hkd->hqk", dof[bb, :, rows],
+                                  vf[bb, :, keys])
+                ds = p * (dp - delta[bb, :, rows, None]) * scale
+                dv[bb, :, keys] += torch.einsum("hqk,hqd->hkd", p,
+                                                dof[bb, :, rows])
+                dk[bb, :, keys] += torch.einsum("hqk,hqd->hkd", ds,
+                                                qf[bb, :, rows])
+                dq[bb, :, rows] += torch.einsum("hqk,hkd->hqd", ds,
+                                                kf[bb, :, keys])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("packed_attention").packed_attention
@@ -128,7 +227,7 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
     fn = _build.load("packed_attention").packed_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -207,8 +306,10 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
                          scale: Optional[float] = None):
     """(dq, dk, dv) of ``packed_attention`` for the output gradient
-    ``do``: the backward kernel on a CUDA tensor, the plain version on a
-    CPU tensor."""
+    ``do``: the backward kernel on a CUDA tensor (one launch: the one-tile
+    kernel up to 64 queries and keys, else the tiled one, with a global
+    f32 dq scratch at Dh 128), the plain version on a CPU tensor. Raises
+    past ``max_t_bwd`` or at a head size the kernel is not built for."""
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     if scale is None:
@@ -217,6 +318,9 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
         return packed_attention_bwd_reference(q, k, v, kv_mask, do, out,
                                               causal, scale)
     _check_operands("packed_attention_bwd", q, k, v)
+    if dh not in BWD_HEAD_SIZES:
+        raise ValueError(f"packed_attention_bwd: head size {dh} not in "
+                         f"{BWD_HEAD_SIZES}")
     if _bwd_smem_floats(tq, tk, dh) > _SMEM_FLOATS:
         raise ValueError(f"packed_attention_bwd: lengths {tq}x{tk} exceed "
                          f"the backward kernel's cap {max_t_bwd(dh)} at "
@@ -227,11 +331,16 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
     # delta outside the kernel, as the reference computes it
     delta = (do.float() * out.float()).sum(dim=-1).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # past one tile the Dh 128 kernel sums dq in global f32 scratch
+    dq_sum = (torch.empty((b, h, tq, dh), dtype=torch.float32,
+                          device=q.device)
+              if dh > 64 and max(tq, tk) > _TILE else None)
     err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
         do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), None if dq_sum is None else dq_sum.data_ptr(), b, h,
+        tq, tk, dh, float(scale), int(bool(causal)), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "packed_attention_bwd")
     packed_attention_bwd.launches += 1
     return dq, dk, dv

@@ -147,23 +147,33 @@ def _close_to_scale(got, ref, rel):
     assert err <= rel * scale, (err, scale)
 
 
-@pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
-    (3, 2, 17, 17, 32, False), (2, 3, 33, 33, 64, True),
-    (2, 2, 20, 13, 64, False), (2, 8, 64, 64, 64, True),
-    (1, 2, 130, 130, 64, False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_packed_attention_bwd_matches_plain(dev, b, h, tq, tk, dh, causal,
-                                            dtype):
-    if causal and tq != tk:
-        pytest.skip("causal self-attention has Tq == Tk")
+def _packed_bwd_inputs(dev, b, h, tq, tk, dh, dtype=torch.float32):
+    """q, k, v, dO and a key mask with a fully masked row and, past two
+    key tiles, a row whose first live key (70) lies inside a tile."""
     gen = torch.Generator().manual_seed(tq * tk + dh)
     q = _randn(gen, dev, b, h, tq, dh, dtype=dtype)
     k, v = (_randn(gen, dev, b, h, tk, dh, dtype=dtype) for _ in range(2))
     do = _randn(gen, dev, b, h, tq, dh, dtype=dtype)
     kvm = (torch.rand(b, tk, generator=gen) > 0.3).float()
     kvm[:, 0] = 1.0
+    if tk > 128:
+        kvm[0, :70] = 0.0
     kvm[-1] = 0.0                                   # a fully-masked row
-    kvm = kvm.to(dev)
+    return q, k, v, do, kvm.to(dev)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
+    (3, 2, 17, 17, 32, False), (2, 3, 33, 33, 64, True),
+    (2, 2, 20, 13, 64, False), (2, 8, 64, 64, 64, True),
+    (1, 2, 130, 130, 64, False), (2, 2, 200, 200, 64, True),
+    (2, 3, 256, 256, 64, True), (2, 2, 256, 180, 64, False),
+    (2, 2, 128, 128, 128, True), (1, 2, 182, 182, 32, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_attention_bwd_matches_plain(dev, b, h, tq, tk, dh, causal,
+                                            dtype):
+    if causal and tq != tk:
+        pytest.skip("causal self-attention has Tq == Tk")
+    q, k, v, do, kvm = _packed_bwd_inputs(dev, b, h, tq, tk, dh, dtype)
     out = packed_attention(q, k, v, kvm, causal=causal)
     before = packed_attention_bwd.launches
     got = packed_attention_bwd(q, k, v, kvm, do, out, causal)
@@ -175,6 +185,19 @@ def test_packed_attention_bwd_matches_plain(dev, b, h, tq, tk, dh, causal,
         else:
             torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
                                        atol=2e-2)
+
+
+@pytest.mark.parametrize("t,dh,causal", [(64, 64, False), (256, 64, True),
+                                         (128, 128, False)])
+def test_packed_attention_bwd_is_deterministic(dev, t, dh, causal):
+    # one writer per gradient element and a fixed summation order: two
+    # calls give the same bits, in one tile and across tiles
+    q, k, v, do, kvm = _packed_bwd_inputs(dev, 3, 4, t, t, dh)
+    out = packed_attention(q, k, v, kvm, causal=causal)
+    first = packed_attention_bwd(q, k, v, kvm, do, out, causal)
+    second = packed_attention_bwd(q, k, v, kvm, do, out, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_packed_attention_autograd_runs_both_kernels(dev):
@@ -297,7 +320,9 @@ def test_fused_softmax_xent_gradients_match_dense(dev):
     (2, 2, 64, 64, 64, False), (2, 3, 100, 130, 32, False),
     (3, 2, 150, 150, 64, True), (2, 2, 1000, 1100, 64, False),
     (1, 2, 70, 45, 16, False), (2, 1, 129, 129, 128, True),
-    (2, 2, 1050, 1050, 64, True), (2, 2, 1050, 300, 64, False)])
+    (2, 2, 1050, 1050, 64, True), (2, 2, 1050, 300, 64, False),
+    (2, 2, 130, 130, 64, True), (1, 3, 257, 257, 64, True),
+    (2, 2, 300, 260, 128, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
                                              dtype):
@@ -306,10 +331,10 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
     k, v = (_randn(gen, dev, b, h, tk, dh, dtype=dtype) for _ in range(2))
     kvm = (torch.rand(b, tk, generator=gen) > 0.3).float()
     kvm[:, 0] = 1.0
-    if tq > 1024:
-        # past the last full 128-row tile (1050 = 8 x 128 + 26): row 0's
-        # first live key (70) lies inside a 64- and a 128-row tile, so
-        # the causal tile skip must keep the tiles before it
+    if tq > 1024 or tq in (130, 257):
+        # past the last full 128-row tile (1050 = 8 x 128 + 26; 130, 257):
+        # row 0's first live key (70) lies inside a 64- and a 128-row
+        # tile, so the causal tile skip must keep the tiles before it
         kvm[0, :70] = 0.0
     kvm[-1] = 0.0                                   # a fully-masked row
     kvm = kvm.to(dev)

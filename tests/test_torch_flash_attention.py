@@ -11,6 +11,12 @@ A fully masked row averages V over the TPU kernel's padded length but
 over the real keys in the port (the dense answer), so that row is held
 against the JAX dense path instead.
 
+``flash_attention_fwd_tiled_reference`` (the forward kernel's tiling:
+128 query rows, 64-key tiles, the online rescale, the causal tile skip)
+is held against the plain forward and the JAX kernel at ragged lengths
+and the 128-row tile edges, and, with a row whose first live key lies
+inside a tile, against the JAX dense path.
+
 The model-level tests build both packages from one seeded JAX init
 (``tiny_pair``) with ``--transformer-flash-attention on``, so every
 multi-query attention of both runs through flash: loss and gradients
@@ -34,7 +40,7 @@ from marian_tpu_torch.models.encoder_decoder import create_model
 from marian_tpu_torch.ops.kernels import flash_attention as fmod
 from marian_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_bwd_reference, flash_attention_fwd,
-    flash_attention_reference)
+    flash_attention_fwd_tiled_reference, flash_attention_reference)
 from marian_tpu_torch.translator.beam_search import BeamSearch
 from tests.test_torch_loss import make_batch, to_port
 from tests.test_torch_transformer import random_batch, tiny_pair
@@ -90,6 +96,51 @@ def test_lse_is_the_masked_logsumexp():
     np.testing.assert_allclose(lse.numpy(),
                                np.asarray(jax.nn.logsumexp(s, axis=-1)),
                                rtol=FWD_TOL, atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
+    (2, 2, 130, 130, 64, True),      # past one 128-row tile
+    (1, 2, 257, 257, 32, True),      # two full tiles and one row
+    (2, 2, 200, 150, 16, False),     # ragged, Tq > Tk
+    (2, 2, 100, 300, 128, False)])   # one partial tile, Dh 128
+def test_tiled_forward_matches_plain_and_jax_kernel(b, h, tq, tk, dh,
+                                                    causal):
+    q, k, v, _, m = _inputs(tq + 2 * tk + dh, b, h, tq, tk, dh)
+    args = [torch.as_tensor(a) for a in (q, k, v, m)]
+    out, lse = flash_attention_fwd_tiled_reference(*args, causal)
+    ref, ref_lse = flash_attention_reference(*args, causal)
+    jout = jfa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+               kv_mask=jnp.asarray(m), causal=causal, interpret=True)
+    for want in (ref.numpy(), np.asarray(jout)):
+        np.testing.assert_allclose(out.numpy(), want, rtol=FWD_TOL,
+                                   atol=FWD_TOL)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), rtol=FWD_TOL,
+                               atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("tq", [130, 257])
+def test_tiled_forward_first_live_key_inside_a_tile(tq):
+    """Batch row 0's first live key (70) lies inside the first key tile
+    and row 1 masks every key: with causal, row 0's first 70 queries see
+    no live key, so the skip rule keeps every tile of its first query
+    tile, and those rows (like row 1) average V over the real keys, the
+    JAX dense path's answer; lse of the masked rows is -1e9 exactly."""
+    q, k, v, _, m = _inputs(tq, 3, 2, tq, tq, 16, full_row=1)
+    m[0, :70], m[0, 70] = 0.0, 1.0
+    args = [torch.as_tensor(a) for a in (q, k, v, m)]
+    out, lse = flash_attention_fwd_tiled_reference(*args, True)
+    ref, ref_lse = flash_attention_reference(*args, True)
+    mask = combine_masks(causal_mask(tq), jnp.asarray(m)[:, None, None, :])
+    jout = dense_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           mask)
+    for want in (ref.numpy(), np.asarray(jout)):
+        np.testing.assert_allclose(out.numpy(), want, rtol=FWD_TOL,
+                                   atol=FWD_TOL)
+    live = ref_lse > -5e8
+    assert not bool(live[0, :, :70].any()) and bool(live[0, :, 70:].all())
+    np.testing.assert_allclose(lse[live].numpy(), ref_lse[live].numpy(),
+                               rtol=FWD_TOL, atol=FWD_TOL)
+    assert torch.equal(lse[~live], ref_lse[~live])
 
 
 def _jax_grads(fn, q, k, v, do):

@@ -84,13 +84,18 @@ def test_cuda_sources_are_listed_and_plain_c():
                                   "decode_attention.cu",
                                   "flash_attention.cu",
                                   "paged_decode_attention.cu"} <= listed
-    for name in listed:
+    headers = {p.name for p in _build.CSRC.glob("*.cuh")}
+    for name in sorted(listed | headers):
         text = (_build.CSRC / name).read_text(encoding="utf-8")
         includes = [l.split()[1] for l in text.splitlines()
                     if l.startswith("#include")]
+        # CUDA's and the C math headers, or the package's own shared
+        # headers (held to the same rule in this loop)
         assert includes and all(i.strip("<>\"").startswith(
-            ("cuda", "math")) for i in includes), (name, includes)
-        assert "extern \"C\"" in text
+            ("cuda", "math")) or (name.endswith(".cu") and i.strip('"')
+                                  in headers)
+            for i in includes), (name, includes)
+        assert name in headers or "extern \"C\"" in text
 
 
 @pytest.fixture
@@ -207,11 +212,19 @@ def test_packed_attention_refuses_grad_on_cuda(plain_forbidden,
     with pytest.raises(RuntimeError):
         pmod.packed_attention(q, _cuda_typed(1, 1, 3, 8),
                               _cuda_typed(1, 1, 3, 8))
-    with pytest.raises(RuntimeError):
+    # the backward kernel is built for Dh 16, 32, 64 and 128: it raises
+    # at a head size it does not take, and at one it takes the launch
+    # raises (no card here)
+    with pytest.raises(ValueError, match="head size 8"):
         pmod.packed_attention_bwd(
             _cuda_typed(1, 1, 3, 8), _cuda_typed(1, 1, 3, 8),
             _cuda_typed(1, 1, 3, 8), None, _cuda_typed(1, 1, 3, 8),
             _cuda_typed(1, 1, 3, 8))
+    with pytest.raises(RuntimeError):
+        pmod.packed_attention_bwd(
+            _cuda_typed(1, 1, 3, 16), _cuda_typed(1, 1, 3, 16),
+            _cuda_typed(1, 1, 3, 16), None, _cuda_typed(1, 1, 3, 16),
+            _cuda_typed(1, 1, 3, 16))
     assert (pmod.packed_attention.launches,
             pmod.packed_attention_bwd.launches) == before
 

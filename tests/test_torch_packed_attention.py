@@ -142,3 +142,53 @@ def test_shared_memory_cap():
         smem = (lambda n: (2 * n * (dh + 1) + n + 4 * (dh + n)) * 4)
         assert smem(cap) <= 232448 < smem(cap + 1)
     assert kmod.max_t(64) == 428
+
+
+def test_backward_cap_reaches_the_reference_and_fits_shared_memory():
+    """max_t_bwd is at least the old cap and the reference's
+    (marian_tpu/ops/auto_tuner.py :: packed_attention_max_t) at every head
+    size the kernel is built for, and is the longest T whose block fits
+    the 227 KB a Hopper block may use; other head sizes get 0."""
+    from marian_tpu.ops.auto_tuner import packed_attention_max_t
+    old = {16: 208, 32: 182, 64: 143, 128: 94}
+    for dh in (16, 32, 64, 128):
+        cap = kmod.max_t_bwd(dh)
+        assert cap >= max(old[dh], packed_attention_max_t(dh))
+        assert (kmod._bwd_smem_floats(cap, cap, dh) * 4 <= 232448
+                < kmod._bwd_smem_floats(cap + 1, cap + 1, dh) * 4)
+        # one tile: two sets of Q, dO, K, V (one at Dh 128) and the
+        # score tiles also fit
+        assert kmod._bwd_smem_floats(64, 64, dh) * 4 <= 232448
+    assert [kmod.max_t_bwd(d) for d in (16, 32, 64, 128)] == [
+        1868, 867, 278, 2816]
+    assert kmod.max_t_bwd(8) == kmod.max_t_bwd(48) == 0
+
+
+@pytest.mark.parametrize("t,dh,packed_path", [
+    (256, 64, True),      # past the old cap (143), within the new one
+    (279, 64, False),     # past the new cap
+    (40, 8, False)])      # a head size the backward is not built for
+def test_dispatcher_with_gradient_follows_the_backward_cap(monkeypatch, t, dh,
+                                                           packed_path):
+    """With a gradient and packed on, the dispatcher takes the packed
+    path (its plain version on the CPU) up to min(max_t, max_t_bwd) and
+    the dense path past it or at a head size the backward kernel does
+    not take."""
+    calls = []
+    real = kmod.packed_attention_reference
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(kmod, "packed_attention_reference", counted)
+    q, k, v, rng = _qkv(7, 1, 2, t, t, dh=dh)
+    m = _mask(rng, 1, t)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    tm = torch.as_tensor(m)
+    mask = tm[:, None, None, :] * torch.tril(torch.ones(t, t))[None, None]
+    out, _ = tatt.attention(tq, tk, tv, mask, kv_mask=tm, causal=True,
+                            packed="on")
+    assert bool(calls) == packed_path
+    ref = (packed_attention(tq, tk, tv, tm, causal=True) if packed_path
+           else tatt.dense_attention_with_weights(tq, tk, tv, mask)[0])
+    assert torch.equal(out, ref)
