@@ -265,6 +265,7 @@ def phase_decode_kernel(gen) -> dict:
         err = max(err, e)
         print(f"kernel decode_attention [{name}]: max |err| {e:.3g}, caches "
               f"exact")
+    err = max(err, decode_edge_cases(gen, dev))
     bk, bv = torch.empty_like(ck), torch.empty_like(cv)
     pos_t = torch.full((r,), L - 1, dtype=torch.int32, device=dev)
     ms = time_ms(lambda: decode_attention(q, kn, vn, ck, cv, pos_t,
@@ -344,46 +345,153 @@ def phase_decode_kernel(gen) -> dict:
             "library_ms": library_ms}
 
 
+def decode_edge_cases(gen, dev) -> float:
+    """decode_attention at the shapes its launcher routes apart, against
+    the plain version (context within TOL, bf16 queries within
+    BF16_REL_TOL of scale, caches exact), each also called twice for the
+    same bits: a length that is not a multiple of a chunk, Dh 30 and Dh
+    20 with bf16 caches (the scalar kernel), Dh 256, bf16 queries, pos -1
+    (every position masked) and past L, and one document at beam 6 (R 6,
+    H 16, L 1,024: few blocks, a long cache). Returns the max
+    |err| of the f32 contexts."""
+    from marian_tpu_torch.ops.kernels import decode_attention as da
+    err = 0.0
+    for name, r, h, L, dh, qd, cd in (
+            ("L 77", 12, 8, 77, 64, torch.float32, torch.float32),
+            ("scalar Dh 30", 12, 4, 100, 30, torch.float32, torch.float32),
+            ("scalar Dh 20 bf16 caches", 12, 4, 100, 20, torch.float32,
+             torch.bfloat16),
+            ("Dh 256", 6, 2, 90, 256, torch.float32, torch.float32),
+            ("bf16 queries and caches", 12, 8, 64, 64, torch.bfloat16,
+             torch.bfloat16),
+            ("one document", BEAM, 16, 1024, 64, torch.float32,
+             torch.float32)):
+        q, kn, vn = (torch.randn(r, h, 1, dh, generator=gen).to(dev, qd)
+                     for _ in range(3))
+        ck, cv = (torch.randn(r, h, L, dh, generator=gen).to(dev, cd)
+                  for _ in range(2))
+        src = torch.randint(0, r, (r,), generator=gen).to(dev, torch.int32)
+        pos = torch.randint(0, L, (r,), generator=gen)
+        pos[0], pos[1], pos[2] = -1, L + 7, L - 1
+        pos = pos.to(dev, torch.int32)
+        vector = da.vector_path(dh, ck.element_size())
+        got = da.decode_attention(q, kn, vn, ck, cv, pos, src_rows=src)
+        again = da.decode_attention(q, kn, vn, ck, cv, pos, src_rows=src)
+        ro, rk, rv = da.decode_attention_reference(q, kn, vn, ck, cv, pos,
+                                                   src)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"decode_attention [{name}]: two calls differ")
+        check(torch.equal(got[1], rk) and torch.equal(got[2], rv),
+              f"decode_attention [{name}]: caches differ from the plain "
+              f"version")
+        if qd == torch.float32:
+            e = (got[0] - ro).abs().max().item()
+            check(e <= TOL, f"decode_attention [{name}] max |err| {e} > "
+                  f"{TOL}")
+            err = max(err, e)
+        else:
+            e = close_to_scale(got[0], ro, f"decode_attention [{name}]",
+                               BF16_REL_TOL)
+        print(f"kernel decode_attention [{name}] R={r} H={h} L={L} Dh={dh} "
+              f"{'vector' if vector else 'scalar'} kernel, "
+              f"pos -1, past L, L-1 and random: max |err| "
+              f"{e:.3g}, caches exact, two calls bit-identical")
+    return err
+
+
 def phase_packed_kernel(gen) -> dict:
+    """The forward against its plain version: at the decode encoder's
+    shape and lengths around it, at one tile pair and past it (64, 65,
+    128 and the routing cap, 428, keys), at 20 queries (32-query tiles)
+    against 90 keys, at Dh 48 (the generic kernel),
+    causal and cross, each with a fully masked row and, past 128 keys, a
+    row whose first live key lies inside a tile; two calls of each give
+    the same bits. Then its times: at the decode encoder's shape (the
+    kernel line) and at base training's (B 192, H 8, T 64: self, causal,
+    cross 64 x 48), each beside SDPA's and the bound."""
     from marian_tpu_torch.ops.kernels.packed_attention import (
-        packed_attention, packed_attention_reference)
+        fwd_query_tile, max_t, packed_attention, packed_attention_reference)
     dev = torch.device("cuda")
     b, h, dh = BATCH, 8, 64
     err = 0.0
-    for t, causal in ((SRC_LEN, False), (50, False), (50, True)):
-        q, k, v = (torch.randn(b, h, t, dh, generator=gen).to(dev)
-                   for _ in range(3))
-        lens = torch.randint(1, t + 1, (b,), generator=gen)
-        lens[0] = t
-        kvm = (torch.arange(t)[None, :] < lens[:, None]).float()
+    cap = max_t(dh)
+    for bb, hh, tq, tk, d, causal in (
+            (b, h, SRC_LEN, SRC_LEN, dh, False), (b, h, 50, 50, dh, False),
+            (b, h, 50, 50, dh, True), (16, h, 64, 64, dh, True),
+            (16, h, 65, 65, dh, True), (16, h, 40, 65, dh, False),
+            (8, h, 128, 128, dh, False), (4, h, cap, cap, dh, True),
+            (4, h, 100, cap, dh, False), (16, h, 20, 90, dh, True),
+            (16, h, 70, 50, 48, True)):
+        q = torch.randn(bb, hh, tq, d, generator=gen).to(dev)
+        k, v = (torch.randn(bb, hh, tk, d, generator=gen).to(dev)
+                for _ in range(2))
+        lens = torch.randint(1, tk + 1, (bb,), generator=gen)
+        lens[0] = tk
+        kvm = (torch.arange(tk)[None, :] < lens[:, None]).float()
         kvm[1] = 0.0                                  # a fully-masked row
+        if tk > 128:
+            kvm[2, :70] = 0.0
         kvm = kvm.to(dev)
         out = packed_attention(q, k, v, kvm, causal=causal)
+        again = packed_attention(q, k, v, kvm, causal=causal)
         ref = packed_attention_reference(q, k, v, kvm, causal=causal)
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"packed_attention Tq={tq} Tk={tk} "
+              f"Dh={d} causal={causal}: two calls differ")
         e = (out - ref).abs().max().item()
-        check(e <= TOL, f"packed_attention T={t} causal={causal} max |err| "
-              f"{e} > {TOL}")
+        check(e <= TOL, f"packed_attention Tq={tq} Tk={tk} Dh={d} "
+              f"causal={causal} max |err| {e} > {TOL}")
         err = max(err, e)
-        print(f"kernel packed_attention B={b} H={h} T={t} Dh={dh} "
-              f"causal={causal}: max |err| {e:.3g}")
+        print(f"kernel packed_attention B={bb} H={hh} Tq={tq} Tk={tk} Dh={d} "
+              f"causal={causal} (query tile {fwd_query_tile(d, tq)}, 0: the "
+              f"generic kernel): max |err| {e:.3g}, two calls "
+              f"bit-identical")
+
+    def fwd_bound(b, tq, tk, causal):
+        """Reads q, k, v and the key mask and writes out; 4 flops a
+        feature of each live (query, key) pair."""
+        pairs = b * h * (sum(min(i + 1, tk) for i in range(tq)) if causal
+                         else tq * tk)
+        return bound((2 * tq + 2 * tk) * b * h * dh * 4 + b * tk * 4,
+                     4 * pairs * dh)
+
+    def sdpa_ms(q, k, v, kvm, causal):
+        mask = (torch.ones(q.shape[2], k.shape[2], device=dev).tril().bool()
+                if causal else kvm.bool()[:, None, None, :])
+        return time_ms(lambda: torch.nn.functional
+                       .scaled_dot_product_attention(q, k, v,
+                                                     attn_mask=mask))
+
     t = SRC_LEN
     q, k, v = (torch.randn(b, h, t, dh, generator=gen).to(dev)
                for _ in range(3))
     kvm = torch.ones(b, t, device=dev)
     ms = time_ms(lambda: packed_attention(q, k, v, kvm))
     plain_ms = time_ms(lambda: packed_attention_reference(q, k, v, kvm))
-    live = kvm.bool()[:, None, None, :]
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=live))
+    library_ms = sdpa_ms(q, k, v, kvm, False)
+    bound_ms, bound_by = fwd_bound(b, t, t, False)
     nbytes = 4 * b * h * t * dh * 4 + b * t * 4
-    bound_ms, bound_by = bound(nbytes, 4 * b * h * t * t * dh)
     print(f"kernel packed_attention B={b} H={h} T={t} Dh={dh} f32: kernel_ms "
           f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms(sdpa) {library_ms:.4f} "
           f"bound_ms {bound_ms:.4f} ({nbytes / 1e6:.1f} MB)")
+    # base training's attentions: the rows of a 12,288-token batch
+    for tq, tk, causal in ((64, 64, False), (64, 64, True), (64, 48, False)):
+        bt = 12288 // tq
+        q = torch.randn(bt, h, tq, dh, generator=gen).to(dev)
+        k, v = (torch.randn(bt, h, tk, dh, generator=gen).to(dev)
+                for _ in range(2))
+        kvm = torch.ones(bt, tk, device=dev)
+        t_ms = time_ms(lambda: packed_attention(q, k, v, kvm, causal=causal))
+        lib = sdpa_ms(q, k, v, kvm, causal)
+        bm, by = fwd_bound(bt, tq, tk, causal)
+        print(f"kernel packed_attention B={bt} H={h} Tq={tq} Tk={tk} Dh={dh} "
+              f"causal={causal} f32 (training): kernel_ms {t_ms:.4f} "
+              f"library_ms(sdpa) {lib:.4f} bound_ms {bm:.4f} ({by}, live "
+              f"pairs)")
     return {"name": "packed_attention", "route": "cuda",
             "source": "marian_tpu_torch/csrc/packed_attention.cu",
-            "replaces": "marian_tpu/ops/pallas/packed_attention.py:261",
+            "replaces": "marian_tpu/ops/pallas/packed_attention.py:197",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}

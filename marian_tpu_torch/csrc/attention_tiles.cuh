@@ -1,5 +1,6 @@
 // Register-blocked f32 tile products shared by the attention kernels
-// (flash_attention.cu, and packed_attention.cu's backward).
+// (flash_attention.cu and packed_attention.cu; decode_attention.cu takes
+// its cp.async and conversion helpers).
 //
 // A block of NT threads (256 unless a kernel says otherwise) is a
 // NT/16 x 16 grid: thread (ty, tx) holds own rows ty + (NT/16)i (i < R)
@@ -15,7 +16,7 @@
 // order, so two calls give the same bits.
 //
 // The kernels' libraries are hashed with this header (ops/kernels/
-// _build.py), so an edit here rebuilds both.
+// _build.py), so an edit here rebuilds them all.
 
 #pragma once
 

@@ -13,21 +13,46 @@
 // (the TPU kernel's padding to 64 adds zero keys to that average; rows
 // that are not fully masked are unaffected by the padding).
 //
-// What bounds it on an H100: bytes. It moves 4*B*H*T*Dh elements (q, k,
-// v, out) for 4*B*H*T*T*Dh flops, so at NMT sentence lengths (T of a few
-// dozen) the bytes take longer than the arithmetic at the f32 rate
-// (chip_smoke.py computes both bounds per run; PERF.md has them). The
-// design reads each input once: a block owns one (batch, head) and a
-// tile of query rows, stages that head's K and V in shared memory (rows
-// padded to Dh+1 floats, so lanes walking different keys hit different
-// banks), and each warp takes one query row at a time: lanes split the
-// keys for the scores and the softmax (warp shuffles for max and sum),
-// then split the features for the V product. Scores never leave shared
-// memory.
+// What bounds it on an H100: bytes, at sentence lengths. It moves
+// 4*B*H*T*Dh elements (q, k, v, out) for 4*B*H*Tq*Tk*Dh flops: at T = 64,
+// Dh = 64 the f32 bytes just outweigh the flops (chip_smoke.py computes
+// both bounds per run; PERF.md has them), so the kernel has to read each
+// input once and keep the arithmetic near the CUDA cores' rate.
 //
-// Shared memory is (2*Tk*(Dh+1) + Tk + warps*(Dh+Tk)) floats per block,
-// which sets the port's length cap (ops/kernels/packed_attention.py ::
-// max_t, from the 227 KB a Hopper block may use).
+// packed_attention_fwd_kernel (Dh 16, 32, 64, 128) runs on the register-
+// blocked tiles of attention_tiles.cuh, as the backward's one-tile kernel
+// does: a block of 128 threads (8 x 16) owns one (batch, head) and 64
+// query rows, a thread an 8 x 4 fragment of the score tile (up to 32
+// queries, as in the decode encoder, 64 threads own 32 rows, so no block
+// computes a half-empty tile). The query
+// tile, and the head's K, V and key mask 64 keys at a time, are staged by
+// 16-byte cp.async (bf16 converted through registers); S = Q.K^T is
+// computed once a key tile from float4 reads (8 FMAs each), its row max
+// and sum reduced over the sixteen lanes of a row, P written once to
+// shared memory at the template's stride of 80 and multiplied into the
+// accumulators by apply_rows. Up to 64 keys (every training sentence at
+// --max-length 63, the decode and serving encoders) that is one tile pair
+// and one pass; past 64 the block walks the key tiles with the flash
+// forward's online softmax (from a running max of -1e30, whose first
+// rescale exp(-1e30 - m) is 0), the next tile in flight in a second
+// stage, and past 64 queries the grid has more query tiles, each staging
+// the head's K and V once. Causal: key tiles wholly after every query of
+// the tile are skipped when every row of the tile sees a live key (one at
+// or before its first query): they weigh exp(-1e9 - max) = 0. Every
+// output has one writer and every sum a fixed order: two calls give the
+// same bits. Shared memory (floats; SD = Dh + 4; QT query rows): QT*SD +
+// QT*80 + stages * (2*64*SD + 64), one stage up to 64 keys: 73 KB at Dh
+// 64 (54 KB with 32 rows).
+//
+// At any other head size, or where q, k or v is not 16-byte aligned (the
+// tiles stage by 16-byte copies), packed_attention_generic_kernel, the
+// former design, runs (the launcher's choice by shape: ops/kernels/
+// packed_attention.py :: fwd_query_tile): a block owns one (batch, head) and
+// 16 query rows, stages the head's K and V in shared memory (rows padded
+// to Dh+1 floats) and walks one query row a warp. Its shared memory,
+// (2*Tk*(Dh+1) + Tk + warps*(Dh+Tk)) floats, set the port's length cap
+// (ops/kernels/packed_attention.py :: max_t), which stays the routing cap
+// at every head size.
 
 #include "attention_tiles.cuh"
 
@@ -35,8 +60,140 @@ namespace {
 
 using namespace attn;
 
-constexpr int kFwdThreads = 128;
-constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kTile = kSTile;   // queries and keys of a tile
+
+// QT query rows a block (64, or 32 where Tq <= 32) by 2*QT threads, 8
+// rows a thread
+template <typename T, int DH, int QT>
+__global__ void __launch_bounds__(2 * QT) packed_attention_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const float* __restrict__ kv_mask,
+    T* __restrict__ out, int H, int Tq, int Tk, float scale, int causal) {
+  constexpr int NT = 2 * QT, RS = NT / 16, R = QT / RS;
+  constexpr int SD = DH + 4, NF = DH / 16, OT = kTile * SD;
+  constexpr int kStage = 2 * OT + kTile;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [QT][SD] the query tile
+  float* ps = qs + QT * SD;                      // [QT][kBPS] p of a tile
+  float* stream = ps + QT * kBPS;                // stages x {K, V, mask}
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bh = blockIdx.x, b = bh / H, q0 = blockIdx.y * QT;
+  const float* kvm = kv_mask + (size_t)b * Tk;
+  const T* kh = k + (size_t)bh * Tk * DH;
+  const T* vh = v + (size_t)bh * Tk * DH;
+  int n_k = (Tk + kTile - 1) / kTile;
+  if (causal) {
+    bool seen = false;  // a live key at or before q0
+    for (int j = threadIdx.x; j <= q0 && j < Tk; j += NT)
+      seen |= kvm[j] != 0.f;
+    if (__syncthreads_or(seen)) n_k = min(n_k, (q0 + QT - 1) / kTile + 1);
+  }
+  stage_rows<QT, DH, NT>(q + (size_t)bh * Tq * DH, q0, Tq, qs);
+  auto stage_keys = [&](int kt, int buf) {
+    float* s = stream + buf * kStage;
+    stage_rows<kTile, DH, NT>(kh, kt * kTile, Tk, s);
+    stage_rows<kTile, DH, NT>(vh, kt * kTile, Tk, s + OT);
+    stage_vec(kvm, kt * kTile, Tk, s + 2 * OT, 0);
+    cp_async_commit();
+  };
+
+  float m[R], l[R], acc[R][NF];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = kStatsInit;
+    l[i] = 0.f;
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[i][f] = 0.f;
+  }
+  stage_keys(0, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int k0 = kt * kTile, buf = kt & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile kt landed; the previous tile's readers are done
+    if (kt + 1 < n_k) stage_keys(kt + 1, buf ^ 1);
+    const float* ks = stream + buf * kStage;
+    const float* vs = ks + OT;
+    const float* mk = vs + OT;
+    float s[R][4];
+    dot_rows<R, DH, NT>(qs, ks, s);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = ty + RS * i, row = q0 + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j, col = k0 + c;
+        float x = s[i][j] * scale + (1.f - mk[c]) * kMask;
+        if (causal && row < col) x = kMask;
+        s[i][j] = col < Tk ? x : -INFINITY;  // past Tk: not a key
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        ps[r * kBPS + tx + 16 * j] = p;
+        sum += p;
+      }
+      l[i] = alpha * l[i] + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int f = 0; f < NF; ++f) acc[i][f] *= alpha;
+    }
+    __syncthreads();  // the probabilities of the tile are written
+    apply_rows<R, DH, false, kBPS, NT>(ps, vs, acc);
+  }
+  // l >= 1: the row max contributes exp(0)
+  const size_t obase = (size_t)bh * Tq;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = q0 + ty + RS * i;
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      out[(obase + row) * DH + out_col<DH>(f)] = from_f32<T>(acc[i][f] / l[i]);
+  }
+}
+
+template <typename T, int DH, int QT>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const void* kv_mask, void* out, int B, int H, int Tq, int Tk,
+               float scale, int causal, cudaStream_t stream) {
+  constexpr int OT = kTile * (DH + 4);
+  const int stages = Tk > kTile ? 2 : 1;
+  const size_t smem =
+      (QT * (DH + 4) + QT * kBPS + stages * (2 * OT + kTile)) *
+      sizeof(float);
+  auto kern = packed_attention_fwd_kernel<T, DH, QT>;
+  if (int e = set_smem(kern, smem)) return e;
+  const dim3 grid(B * H, (Tq + QT - 1) / QT);
+  kern<<<grid, 2 * QT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask, (T*)out,
+      H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const void* kv_mask, void* out, int B, int H, int Tq, int Tk,
+               float scale, int causal, int tile, cudaStream_t stream) {
+  if (tile == 32)
+    return launch_fwd<T, DH, 32>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale,
+                                 causal, stream);
+  if (tile == 64)
+    return launch_fwd<T, DH, 64>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale,
+                                 causal, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// packed_attention_generic_kernel: any head size
+
+constexpr int kGenThreads = 128;
+constexpr int kGenWarps = kGenThreads / 32;
 constexpr int kRowsPerBlock = 16;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -51,7 +208,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kFwdThreads) packed_attention_kernel(
+__global__ void __launch_bounds__(kGenThreads) packed_attention_generic_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const float* __restrict__ kv_mask,
     T* __restrict__ out, int H, int Tq, int Tk, int Dh, float scale,
@@ -61,8 +218,8 @@ __global__ void __launch_bounds__(kFwdThreads) packed_attention_kernel(
   float* ks = smem;               // [Tk][Dh+1]
   float* vs = ks + Tk * stride;   // [Tk][Dh+1]
   float* bias = vs + Tk * stride; // [Tk] additive key mask
-  float* qw = bias + Tk;            // [kFwdWarps][Dh] a query row a warp
-  float* pw = qw + kFwdWarps * Dh;  // [kFwdWarps][Tk] its scores, then p
+  float* qw = bias + Tk;            // [kGenWarps][Dh] a query row a warp
+  float* pw = qw + kGenWarps * Dh;  // [kGenWarps][Tk] its scores, then p
 
   const int bh = blockIdx.x, b = bh / H;
   const size_t kbase = (size_t)bh * Tk * Dh;
@@ -81,7 +238,7 @@ __global__ void __launch_bounds__(kFwdThreads) packed_attention_kernel(
   float* pr = pw + warp * Tk;
   const int row_end = min(Tq, (int)(blockIdx.y + 1) * kRowsPerBlock);
   for (int i = blockIdx.y * kRowsPerBlock + warp; i < row_end;
-       i += kFwdWarps) {
+       i += kGenWarps) {
     for (int d = lane; d < Dh; d += 32) qr[d] = to_f32(q[qbase + (size_t)i * Dh + d]);
     __syncwarp();
     float m = -INFINITY;
@@ -114,24 +271,24 @@ __global__ void __launch_bounds__(kFwdThreads) packed_attention_kernel(
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* kv_mask,
-           void* out, int B, int H, int Tq, int Tk, int Dh, float scale,
-           int causal, cudaStream_t stream) {
+int launch_generic(const void* q, const void* k, const void* v,
+                   const void* kv_mask, void* out, int B, int H, int Tq,
+                   int Tk, int Dh, float scale, int causal,
+                   cudaStream_t stream) {
   const size_t smem =
-      (2 * (size_t)Tk * (Dh + 1) + Tk + kFwdWarps * (size_t)(Dh + Tk)) *
+      (2 * (size_t)Tk * (Dh + 1) + Tk + kGenWarps * (size_t)(Dh + Tk)) *
       sizeof(float);
-  auto kern = packed_attention_kernel<T>;
+  auto kern = packed_attention_generic_kernel<T>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    if (int e = set_smem(kern, smem)) return e;
   }
   const dim3 grid(B * H, (Tq + kRowsPerBlock - 1) / kRowsPerBlock);
-  kern<<<grid, kFwdThreads, smem, stream>>>(
+  kern<<<grid, kGenThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const float*)kv_mask, (T*)out,
       H, Tq, Tk, Dh, scale, causal);
   return (int)cudaGetLastError();
 }
+
 // ---------------------------------------------------------------------------
 // Backward: dq, dk, dv from the recomputed probabilities.
 //
@@ -192,7 +349,6 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
 // the backward's cap (max_t_bwd): 1,868 / 867 / 278 / 2,816 at Dh 16 /
 // 32 / 64 / 128.
 
-constexpr int kTile = kSTile;   // queries and keys of a tile
 constexpr int kPS = kTile + 4;  // stride of the score tiles
 
 template <int DH>
@@ -606,17 +762,38 @@ extern "C" int packed_attention_bwd(const void* q, const void* k,
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16. kv_mask is float32 [B, Tk].
-// Returns cudaGetLastError().
+// tile 32 or 64 takes packed_attention_fwd_kernel (Dh 16, 32, 64 or 128)
+// with that many query rows a block, tile 0 packed_attention_generic_kernel
+// (any Dh). Returns cudaGetLastError() (or the error of raising the
+// shared-memory limit; cudaErrorInvalidValue for what it does not take).
 extern "C" int packed_attention(const void* q, const void* k, const void* v,
                                 const void* kv_mask, void* out, int B, int H,
                                 int Tq, int Tk, int Dh, float scale,
-                                int causal, int dtype, void* stream) {
+                                int causal, int dtype, int tile,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch<float>(q, k, v, kv_mask, out, B, H, Tq, Tk, Dh, scale,
-                         causal, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, kv_mask, out, B, H, Tq, Tk, Dh,
-                                 scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  if (tile == 0) {
+    if (dtype == 0)
+      return launch_generic<float>(q, k, v, kv_mask, out, B, H, Tq, Tk, Dh,
+                                   scale, causal, s);
+    if (dtype == 1)
+      return launch_generic<__nv_bfloat16>(q, k, v, kv_mask, out, B, H, Tq,
+                                           Tk, Dh, scale, causal, s);
+    return (int)cudaErrorInvalidValue;
+  }
+#define CALL(T, D)                                                     \
+  launch_fwd<T, D>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale, causal, tile, \
+                   s)
+  switch (dtype * 1000 + Dh) {
+    case 16: return CALL(float, 16);
+    case 32: return CALL(float, 32);
+    case 64: return CALL(float, 64);
+    case 128: return CALL(float, 128);
+    case 1016: return CALL(__nv_bfloat16, 16);
+    case 1032: return CALL(__nv_bfloat16, 32);
+    case 1064: return CALL(__nv_bfloat16, 64);
+    case 1128: return CALL(__nv_bfloat16, 128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CALL
 }

@@ -20,6 +20,20 @@ gradient is autograd through the plain forward.
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
 kernel launches.
 
+The forward kernel works on 64 x 64 tiles of queries and keys too: a
+block per (batch, head) and 64 queries (32 up to 32 queries:
+``fwd_query_tile``) stages its query tile and the head's K and V once,
+64 keys at a time; up to 64 keys (every sentence of
+the training, decode and serving paths) that is one pass, past 64 it
+walks the key tiles with an online softmax.
+``packed_attention_tiled_reference`` is that tiling in plain torch. It is
+built for Dh 16, 32, 64 and 128 (``BWD_HEAD_SIZES``) and stages by
+16-byte copies; at any other head size, or where q, k or v is not
+16-byte aligned (a view at an odd offset), the launcher takes the former
+kernel, which stages a head's whole K and V a block with scalar loads and
+walks one query row a warp (``fwd_query_tile``, a choice by shape).
+``max_t`` stays the forward's routing cap at every head size.
+
 The backward kernel works on 64 x 64 tiles of queries and keys: up to 64
 of each (a training sentence) a head is one tile pair, computed once;
 past that it walks the key tiles (pass 1 for each row's max and sum,
@@ -50,11 +64,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def max_t(dh: int) -> int:
-    """Longest key sequence the kernel stages per block: its shared
-    memory, (2*Tk*(Dh+1) + Tk + 4*(Dh+Tk)) floats, must fit the 227 KB a
-    Hopper block may use (Tk = 428 at Dh = 64). The dispatcher sends
-    longer sequences to the dense path."""
+    """The forward's routing cap: the longest key sequence the dispatcher
+    sends to the packed kernel (Tk = 428 at Dh = 64); longer ones go to
+    the dense path. It keeps the value the former kernel's shared memory
+    set, (2*Tk*(Dh+1) + Tk + 4*(Dh+Tk)) floats within the 227 KB a Hopper
+    block may use, which still bounds the generic kernel that other head
+    sizes take; the tiled kernel stages 64 keys at a time and is not
+    bounded by it. Raising it would move lengths 429-1,023 off the dense
+    path, a routing decision of its own."""
     return (_SMEM_FLOATS - _WARPS * dh) // (2 * dh + 3 + _WARPS)
+
+
+def fwd_query_tile(dh: int, tq: int, aligned: bool = True) -> int:
+    """The forward kernel a shape takes, as the query rows a block of the
+    tile kernel owns: 0 at a head size that kernel is not built for, or
+    for operands that are not all 16-byte aligned (its copies are 16
+    bytes; the generic kernel, one query row a warp); 32 (a block of 64
+    threads) up to 32 queries, as the decode encoder has them, so no
+    block computes a half-empty tile; else 64 (128 threads)."""
+    if dh not in BWD_HEAD_SIZES or not aligned:
+        return 0
+    return 32 if tq <= 32 else _TILE
 
 
 def _bwd_smem_floats(tq: int, tk: int, dh: int) -> int:
@@ -114,6 +144,53 @@ def packed_attention_reference(q, k, v, kv_mask=None, causal: bool = False,
     p = torch.exp(s - m)
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def packed_attention_tiled_reference(q, k, v, kv_mask=None,
+                                     causal: bool = False,
+                                     scale: Optional[float] = None):
+    """The forward kernel's tiling in plain PyTorch (``fwd_query_tile``
+    queries by 64 keys), one batch row at a time: each query tile walks
+    the key tiles in order with an online softmax (running max from
+    -1e30, sum and accumulator rescaled by exp(m_old - m_new) a tile),
+    keys past Tk left out, and divides by the sum at the end. A causal
+    key tile wholly after every query of the tile is skipped when the
+    batch row has a live key at or before the tile's first query."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    kvm = _mask(kv_mask, b, tk, q.device)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty_like(qf)
+    qt = fwd_query_tile(dh, tq) or _TILE
+    for bb in range(b):
+        bias = (1.0 - kvm[bb]) * NEG_INF
+        for i0 in range(0, tq, qt):
+            i1 = min(tq, i0 + qt)
+            n_k = -(-tk // _TILE)
+            if causal and bool((kvm[bb, :i0 + 1] != 0).any()):
+                n_k = min(n_k, (i0 + qt - 1) // _TILE + 1)
+            m = torch.full((h, i1 - i0), -1e30, device=q.device)
+            l = torch.zeros((h, i1 - i0), device=q.device)
+            acc = torch.zeros((h, i1 - i0, dh), device=q.device)
+            for j0 in range(0, n_k * _TILE, _TILE):
+                j1 = min(tk, j0 + _TILE)
+                s = torch.einsum("hqd,hkd->hqk", qf[bb, :, i0:i1],
+                                 kf[bb, :, j0:j1]) * scale + bias[j0:j1]
+                if causal:
+                    live = (torch.arange(i0, i1, device=q.device)[:, None]
+                            >= torch.arange(j0, j1, device=q.device)[None])
+                    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new[..., None])
+                l = alpha * l + p.sum(dim=-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "hqk,hkd->hqd", p, vf[bb, :, j0:j1])
+                m = m_new
+            out[bb, :, i0:i1] = acc / l[..., None]
+    return out.to(q.dtype)
 
 
 def packed_attention_bwd_reference(q, k, v, kv_mask, do, out,
@@ -219,7 +296,7 @@ def packed_attention_bwd_tiled_reference(q, k, v, kv_mask, do, out,
 def _kernel():
     fn = _build.load("packed_attention").packed_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -253,7 +330,9 @@ def _launch_fwd(q, k, v, kvm, causal, scale):
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
         out.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
-        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPES[q.dtype],
+        fwd_query_tile(dh, tq, all(t.data_ptr() % 16 == 0 for t in (q, k, v))),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "packed_attention")
     packed_attention.launches += 1
     return out
@@ -325,8 +404,11 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
         raise ValueError(f"packed_attention_bwd: lengths {tq}x{tk} exceed "
                          f"the backward kernel's cap {max_t_bwd(dh)} at "
                          f"Dh={dh}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do = do.to(q.dtype).contiguous()
+    # the kernel stages by 16-byte copies: an operand at an odd offset is
+    # copied to an aligned buffer first
+    q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q.contiguous(), k.contiguous(), v.contiguous(),
+                             do.to(q.dtype).contiguous()))
     kvm = _mask(kv_mask, b, tk, q.device).contiguous()
     # delta outside the kernel, as the reference computes it
     delta = (do.float() * out.float()).sum(dim=-1).contiguous()

@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
-"""The packed attention backward and the flash attention forward of two
-checkouts, side by side on one card.
+"""decode_attention and the packed attention forward of two checkouts,
+side by side on one card.
 
-Builds ``marian_tpu_torch/csrc/packed_attention.cu`` and
-``flash_attention.cu`` of this checkout and, with --parent, of another
+Builds ``marian_tpu_torch/csrc/decode_attention.cu`` and
+``packed_attention.cu`` of this checkout and, with --parent, of another
 checkout (for example the parent commit unpacked with ``git archive``),
 and of any --variant tree (an edited copy), with ``nvcc -Xptxas -v``,
 all at once, and prints the registers, shared memory and spills of the
-packed backward's kernels (``packed_attention_bwd_kernel`` and, from
-this tree on, ``packed_attention_bwd_tiled_kernel``) and of
-``flash_fwd_kernel``. Then it times
-each build in turns (parent, change, variants, then back in reverse
-order; CUDA events behind a device sleep), with the card's SM clock,
-power and temperature before and after each shape, and holds every
-build's outputs against this checkout's:
+f32 kernels of the two functions (``decode_attention_kernel``, and from
+this tree on ``decode_attention_scalar_kernel``; the forward's
+``packed_attention_kernel``, from this tree on
+``packed_attention_fwd_kernel`` and ``packed_attention_generic_kernel``).
+Then it times each build in turns (parent, change, variants, then back
+in reverse order; CUDA events behind a device sleep), with the card's SM
+clock, power and temperature before and after each shape, holds every
+build's outputs against this checkout's (new caches equal, contexts
+within 1e-5 of scale) and two calls of each build bit-identical:
 
-- the packed backward (one kernel launch, delta computed once outside)
-  at base training's shapes, B 192, H 8, Dh 64, f32: self T 64, causal
-  T 64 and cross 64 x 48;
-- the flash forward (out and lse) at the doc-level training shapes,
-  transformer-big: B 8, H 16, Dh 64, f32, every key live: encoder self
-  T 2,048, decoder causal, cross with Tk 1,536, encoder self at the
-  1,024 bucket.
+- decode_attention, f32 caches, Dh 64, beam rows from 6 candidates, pos
+  at the cache's end: base decode (R 384, H 8, L 64), doc decode (R 48,
+  H 16, L 1,024), the doc decode halfway (pos 511), and base decode of
+  8 sentences at a cache of 128 (R 48, H 8, L 128), the fewest (row,
+  head) pairs the batcher sends;
+- the packed forward, f32, Dh 64, every key live: the decode encoder's
+  B 64, H 8, T 32, and base training's B 192, H 8: self T 64, causal
+  T 64, cross 64 x 48.
 
-With --profile it then runs ``scripts/torch_train_profile.py`` (base
-with --updates 3, then --doc with --updates 2) in the parent and in this
-checkout in turns: parent, change, change, parent. Run from the root of
-a checkout on the machine with the card:
+Each time stands beside its bound (bytes at 3.35 TB/s or flops at 67
+TFLOP/s, the larger) and, for the packed forward, SDPA's time on the
+same inputs. With --profile it then runs
+``scripts/torch_decode_profile.py --doc`` and
+``scripts/torch_train_profile.py`` (base, --updates 3) in the parent and
+in this checkout in turns: parent, change, change, parent. Run from the
+root of a checkout on the machine with the card:
 
     python3 scripts/torch_attention_ab.py [--parent DIR]
         [--variant NAME=DIR ...] [--rounds 2] [--profile]
@@ -37,6 +43,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -46,18 +53,21 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "attention_ab"
 DH = 64
-# (name, B, H, Tq, Tk, causal): the base update's packed attentions
-PACKED_SHAPES = (("self", 192, 8, 64, 64, False),
-                 ("causal", 192, 8, 64, 64, True),
-                 ("cross", 192, 8, 64, 48, False))
-# the doc update's attentions at the 2,048 bucket and the encoder's at
-# the 1,024 bucket (scripts/torch_flash_bwd_ab.py's shapes)
-FLASH_SHAPES = (("encoder self", 8, 16, 2048, 2048, False),
-                ("decoder causal", 8, 16, 2048, 2048, True),
-                ("cross", 8, 16, 2048, 1536, False),
-                ("encoder self, 1,024 bucket", 8, 16, 1024, 1024, False))
-KERNELS = ("packed_attention_bwd_tiled_kernel", "packed_attention_bwd_kernel",
-           "flash_fwd_kernel")
+BEAM = 6
+# (name, R, H, L, pos): the decode steps' cached self-attention
+DECODE_SHAPES = (("base decode", 384, 8, 64, 63),
+                 ("doc decode", 48, 16, 1024, 1023),
+                 ("doc decode, halfway", 48, 16, 1024, 511),
+                 ("base decode, 8 sentences", 48, 8, 128, 127))
+# (name, B, H, Tq, Tk, causal): the decode encoder, the base update's
+PACKED_SHAPES = (("decode encoder", 64, 8, 32, 32, False),
+                 ("training self", 192, 8, 64, 64, False),
+                 ("training causal", 192, 8, 64, 64, True),
+                 ("training cross", 192, 8, 64, 48, False))
+SOURCES = ("decode_attention", "packed_attention")
+KERNELS = ("decode_attention_scalar_kernel", "decode_attention_kernel",
+           "packed_attention_fwd_kernel", "packed_attention_generic_kernel",
+           "packed_attention_kernel")
 
 
 def _source(tree, name: str) -> Path:
@@ -72,12 +82,12 @@ def _nvcc() -> str:
 
 def build(trees, flags) -> dict:
     """nvcc of each (tag, tree)'s two sources with -Xptxas -v, all
-    started together; prints the two kernels' resource lines and returns
+    started together; prints the f32 kernels' resource lines and returns
     {(tag, source name): library}."""
     OUT.mkdir(parents=True, exist_ok=True)
     jobs = []
     for tag, tree in trees:
-        for name in ("packed_attention", "flash_attention"):
+        for name in SOURCES:
             lib = OUT / f"lib{name}_{tag}.so"
             jobs.append((tag, name, lib, subprocess.Popen(
                 [_nvcc(), *flags, "-Xptxas", "-v", "-o", str(lib),
@@ -95,11 +105,12 @@ def build(trees, flags) -> dict:
                 entry = m.group(1)
                 continue
             kernel = next((k for k in KERNELS if k in (entry or "")), None)
-            if kernel and ("registers" in line or "spill" in line):
-                dtype = "bf16" if "nv_bfloat16" in entry else "f32"
-                dh = re.findall(r"Li(\d+)E", entry)
-                print(f"ptxas [{tag}] {kernel} {dtype} Dh "
-                      f"{dh[0] if dh else 'any'}: "
+            if not kernel or "nv_bfloat16" in entry:
+                continue
+            if "registers" in line or "spill" in line:
+                args = re.findall(r"Li(\d+)E", entry)
+                print(f"ptxas [{tag}] {kernel} f32 "
+                      f"{'<' + ','.join(args) + '>' if args else ''}: "
                       f"{line.split('ptxas info    :')[-1].strip()}")
         libs[tag, name] = ctypes.CDLL(str(lib))
     return libs
@@ -118,108 +129,128 @@ def card_state() -> str:
         timeout=60).stdout.strip()
 
 
-def _fn(lib, symbol: str, n_ptr: int):
-    f = getattr(lib, symbol)
-    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def decode_call(lib, tree):
+    """fn(q, kn, vn, ck, cv, pos, src) -> (out, new_k, new_v) through the
+    library's decode_attention: a tree whose entry takes the layout (the
+    vector kernel) gets this checkout's layout rule, a former one its own
+    signature."""
+    laid = "int per_lane" in _source(tree, "decode_attention").read_text()
+    f = lib.decode_attention
     f.restype = ctypes.c_int
-    return f
+    if laid:
+        from marian_tpu_torch.ops.kernels import decode_attention as da
+        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+            ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    else:
+        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
-
-def packed_backward(lib, tree):
-    """fn(q, k, v, kvm, do, delta, causal) -> (dq, dk, dv) through the
-    library's packed_attention_bwd; a parent without the dq scratch
-    argument is called without it."""
-    scratch = re.search(r"void\* dq_sum", _source(
-        tree, "packed_attention").read_text()) is not None
-    f = _fn(lib, "packed_attention_bwd", 10 if scratch else 9)
-
-    def run(q, k, v, kvm, do, delta, causal):
-        b, h, tq, dh = q.shape
-        grads = tuple(torch.empty_like(t) for t in (q, k, v))
-        extra = (None,) if scratch else ()
-        err = f(*(t.data_ptr() for t in (q, k, v, kvm, do, delta)),
-                *(g.data_ptr() for g in grads), *extra, b, h, tq,
-                k.shape[2], dh, dh ** -0.5, int(causal), 0,
-                torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"packed_attention_bwd launch: CUDA error {err}")
-        return grads
+    def run(q, kn, vn, ck, cv, pos, src):
+        r, h, L, dh = ck.shape
+        out, nk, nv = (torch.empty_like(t) for t in (q, ck, cv))
+        ptrs = [t.data_ptr() for t in (q, kn, vn, ck, cv, pos, src, out, nk,
+                                       nv)]
+        stream = torch.cuda.current_stream().cuda_stream
+        if laid:
+            lanes, per_lane, _ = da.vector_layout(dh, 4)
+            err = f(*ptrs, r, h, L, dh, dh ** -0.5, 0, 0, lanes, per_lane,
+                    stream)
+        else:
+            err = f(*ptrs, r, h, L, dh, dh ** -0.5, 0, 0, stream)
+        check(err == 0, f"decode_attention launch: CUDA error {err}")
+        return out, nk, nv
     return run
 
 
-def flash_forward(lib):
-    """fn(q, k, v, kvm, causal) -> (out, lse) through the library's
-    flash_attention_fwd."""
-    f = _fn(lib, "flash_attention_fwd", 6)
+def packed_call(lib, tree):
+    """fn(q, k, v, kvm, causal) -> out through the library's
+    packed_attention: a tree whose entry takes the query tile gets this
+    checkout's rule for it, a former one its own signature."""
+    tiled = "int tile" in _source(tree, "packed_attention").read_text()
+    f = lib.packed_attention
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] + [ctypes.c_int] * (3 if tiled else 2) + [
+        ctypes.c_void_p]
 
     def run(q, k, v, kvm, causal):
+        from marian_tpu_torch.ops.kernels.packed_attention import (
+            fwd_query_tile)
         b, h, tq, dh = q.shape
         out = torch.empty_like(q)
-        lse = torch.empty((b, h, tq), device=q.device)
-        err = f(*(t.data_ptr() for t in (q, k, v, kvm, out, lse)), b, h,
-                tq, k.shape[2], dh, dh ** -0.5, int(causal), 0,
+        route = (fwd_query_tile(dh, tq),) if tiled else ()
+        err = f(*(t.data_ptr() for t in (q, k, v, kvm, out)), b, h, tq,
+                k.shape[2], dh, dh ** -0.5, int(causal), 0, *route,
                 torch.cuda.current_stream().cuda_stream)
-        check(err == 0, f"flash_attention_fwd launch: CUDA error {err}")
-        return out, lse
+        check(err == 0, f"packed_attention launch: CUDA error {err}")
+        return out
     return run
 
 
-def live_pairs(b, h, tq, tk, causal) -> int:
-    """(query, key) pairs the data needs: all, or the causal triangle."""
-    return b * h * (sum(min(i + 1, tk) for i in range(tq)) if causal
-                    else tq * tk)
-
-
-def compare(cs, name, runs, call, order):
-    """Every build's outputs against this checkout's, two calls of each
+def compare(cs, name, runs, call, order, exact=()):
+    """Every build's outputs against this checkout's (those at ``exact``
+    positions equal, the rest within 1e-5 of scale), two calls of each
     bit-identical; then each build's times over ``order``."""
     ref = call(runs["change"])
+    ref = ref if isinstance(ref, tuple) else (ref,)
     for tag, run in runs.items():
         one, two = call(run), call(run)
+        one = one if isinstance(one, tuple) else (one,)
+        two = two if isinstance(two, tuple) else (two,)
         check(all(torch.equal(a, b) for a, b in zip(one, two)),
               f"{name} [{tag}]: two calls differ")
         for i, (a, r) in enumerate(zip(one, ref)):
-            cs.close_to_scale(a, r, f"{name} [{tag}] output {i} against "
-                              f"change")
+            if i in exact:
+                check(torch.equal(a, r), f"{name} [{tag}] output {i} differs "
+                      f"from the change's")
+            else:
+                cs.close_to_scale(a, r, f"{name} [{tag}] output {i} against "
+                                  f"change")
     del ref, one, two
     times = {tag: [] for tag in runs}
     print(f"card before [{name}]: {card_state()}")
     for tag in order:
-        times[tag].append(cs.time_ms(lambda: call(runs[tag]), 10))
+        times[tag].append(cs.time_ms(lambda: call(runs[tag]), 20))
     print(f"card after [{name}]: {card_state()}")
     return times
 
 
-def report(label, times, flops):
+def report(label, times, bound_ms, bound_by, extra=""):
     for tag, ms in times.items():
         best = min(ms)
         print(f"{label} {tag}: ms {' '.join(f'{t:.4f}' for t in ms)} "
-              f"(best {best:.4f}; {flops / best / 1e9:.2f} TFLOP/s; bound "
-              f"{flops / 67e12 * 1e3:.4f} ms, operations)")
+              f"(best {best:.4f}; {100 * bound_ms / best:.1f}% of the bound "
+              f"{bound_ms:.4f} ms, {bound_by}{extra})")
 
 
 def profile_turns(trees) -> None:
-    """scripts/torch_train_profile.py, base then --doc, in each tree in
-    the given order; prints each run's update and class lines, and the
-    card's clock, power and temperature before and after it."""
-    for doc, updates in ((False, 3), (True, 2)):
+    """scripts/torch_decode_profile.py --doc, then
+    scripts/torch_train_profile.py (base) in each tree in the given
+    order; prints each run's summary lines (the train profile's class
+    lines too) and the card's clock, power and temperature around it.
+    This checkout's decode profile is copied into the other trees first
+    (an older one has no --doc)."""
+    script = ROOT / "scripts" / "torch_decode_profile.py"
+    for _, tree in trees:
+        dst = Path(tree).resolve() / "scripts" / script.name
+        if dst != script:
+            shutil.copy(script, dst)
+    runs = (("doc decode", ["scripts/torch_decode_profile.py", "--doc",
+                            "--top", "12"]),
+            ("base update", ["scripts/torch_train_profile.py", "--updates",
+                             "3", "--top", "0"]))
+    for what, cmd in runs:
         for tag, tree in trees:
             before = card_state()
-            cmd = [sys.executable, "scripts/torch_train_profile.py",
-                   "--updates", str(updates), "--top", "0"]
-            cmd += ["--doc"] if doc else []
-            run = subprocess.run(cmd, cwd=tree, capture_output=True,
-                                 text=True)
-            what = "doc" if doc else "base"
+            run = subprocess.run([sys.executable, *cmd], cwd=tree,
+                                 capture_output=True, text=True)
             if run.returncode != 0:
                 raise RuntimeError(f"profile {what} [{tag}] failed:\n"
                                    f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
             print(f"profile {what} [{tag}] card before: {before}; after: "
                   f"{card_state()}")
             for line in run.stdout.splitlines():
-                if line.startswith("update:") or line.lstrip().startswith(
-                        "class"):
-                    print(f"profile {what} [{tag}] {line.strip()}")
+                print(f"profile {what} [{tag}] {line.rstrip()}")
 
 
 def main(argv=None) -> int:
@@ -232,7 +263,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2,
                     help="rounds of turns over the builds, there and back")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile base and doc updates in turns")
+                    help="also profile doc decode and the base update in "
+                    "turns")
     ap.add_argument("--seed", type=int, default=17)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -242,49 +274,60 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from marian_tpu_torch.device import resolve_device
     from marian_tpu_torch.ops.kernels import _build
-    from marian_tpu_torch.ops.kernels.packed_attention import (
-        packed_attention)
     resolve_device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
     cs.phase_card()
     trees = [("change", ROOT)]
     trees += [("parent", args.parent)] if args.parent is not None else []
     trees += [tuple(v.split("=", 1)) for v in args.variant]
     libs = build(trees, list(_build.NVCC_FLAGS))
-    packed = {tag: packed_backward(libs[tag, "packed_attention"], tree)
+    decode = {tag: decode_call(libs[tag, "decode_attention"], tree)
               for tag, tree in trees}
-    flash = {tag: flash_forward(libs[tag, "flash_attention"])
-             for tag, _ in trees}
+    packed = {tag: packed_call(libs[tag, "packed_attention"], tree)
+              for tag, tree in trees}
     turns = ["parent"] * (args.parent is not None) + [
         tag for tag, _ in trees if tag != "parent"]
     order = (turns + turns[::-1]) * args.rounds
     gen = torch.Generator().manual_seed(args.seed)
     dev = torch.device("cuda")
+    for name, r, h, L, p in DECODE_SHAPES:
+        q, kn, vn = (torch.randn(r, h, 1, DH, generator=gen).to(dev)
+                     for _ in range(3))
+        ck, cv = (torch.randn(r, h, L, DH, generator=gen).to(dev)
+                  for _ in range(2))
+        rows = r // BEAM
+        src = (torch.arange(rows)[:, None] * BEAM + torch.randint(
+            0, BEAM, (rows, BEAM), generator=gen)).reshape(-1).to(
+            dev, torch.int32)
+        pos = torch.full((r,), p, dtype=torch.int32, device=dev)
+        times = compare(cs, f"decode {name}", decode,
+                        lambda run: run(q, kn, vn, ck, cv, pos, src), order,
+                        exact=(1, 2))
+        tile = h * L * DH * 4
+        uniq = int(torch.unique(src).numel())
+        nbytes = 2 * uniq * tile + 2 * r * tile + 4 * r * h * DH * 4 + 8 * r
+        bound_ms, by = cs.bound(nbytes, 4 * r * h * (min(p, L - 1) + 1) * DH)
+        report(f"decode [{name}] R={r} H={h} L={L} Dh={DH} pos={p}", times,
+               bound_ms, by, f", {nbytes / 1e6:.1f} MB")
+        del q, kn, vn, ck, cv
     for name, b, h, tq, tk, causal in PACKED_SHAPES:
-        q, do = (torch.randn(b, h, tq, DH, generator=gen).to(dev)
-                 for _ in range(2))
+        q = torch.randn(b, h, tq, DH, generator=gen).to(dev)
         k, v = (torch.randn(b, h, tk, DH, generator=gen).to(dev)
                 for _ in range(2))
-        lens = torch.randint(1, tk + 1, (b,), generator=gen)
-        lens[0] = tk
-        kvm = (torch.arange(tk)[None, :] < lens[:, None]).float().to(dev)
-        out = packed_attention(q, k, v, kvm, causal=causal)
-        delta = (do * out).sum(dim=-1)
-        times = compare(cs, f"packed bwd {name}", packed,
-                        lambda run: run(q, k, v, kvm, do, delta, causal),
-                        order)
-        report(f"packed bwd [{name}] B={b} H={h} Tq={tq} Tk={tk} Dh={DH}",
-               times, 10 * live_pairs(b, h, tq, tk, causal) * DH)
-    for name, b, h, tq, tk, causal in FLASH_SHAPES:
-        q, k, v, _, kvm = cs.flash_inputs(gen, b, h, tq, tk, DH,
-                                          live_rows=b)
-        kvm.fill_(1.0)
-        times = compare(cs, f"flash fwd {name}", flash,
+        kvm = torch.ones(b, tk, device=dev)
+        times = compare(cs, f"packed fwd {name}", packed,
                         lambda run: run(q, k, v, kvm, causal), order)
-        report(f"flash fwd [{name}] B={b} H={h} Tq={tq} Tk={tk} Dh={DH}",
-               times, 4 * live_pairs(b, h, tq, tk, causal) * DH)
+        mask = (torch.ones(tq, tk, device=dev).tril().bool() if causal
+                else kvm.bool()[:, None, None, :])
+        sdpa = cs.time_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=mask))
+        pairs = b * h * (sum(min(i + 1, tk) for i in range(tq)) if causal
+                         else tq * tk)
+        bound_ms, by = cs.bound((2 * tq + 2 * tk) * b * h * DH * 4 + b * tk * 4,
+                                4 * pairs * DH)
+        report(f"packed fwd [{name}] B={b} H={h} Tq={tq} Tk={tk} Dh={DH}",
+               times, bound_ms, by, f"; sdpa {sdpa:.4f} ms")
         del q, k, v, kvm
-        torch.cuda.empty_cache()
     if args.profile:
         pair = [t for t in trees if t[0] in ("parent", "change")][::-1]
         profile_turns(pair + pair[::-1])

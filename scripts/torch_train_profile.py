@@ -34,7 +34,8 @@ CLASSES = (
     ("flash_attention dq (this port)", r"flash_dq_kernel"),
     ("flash_attention forward (this port)", r"flash_fwd_kernel"),
     ("packed_attention backward (this port)", r"packed_attention_bwd"),
-    ("packed_attention forward (this port)", r"packed_attention_kernel"),
+    ("packed_attention forward (this port)",
+     r"packed_attention_(fwd_|generic_)?kernel"),
     ("fused_ce backward d recompute (this port)", r"fce_bwd_dlogit"),
     ("fused_ce backward dx product (this port)", r"fce_bwd_dx"),
     ("fused_ce backward dw/db product (this port)", r"fce_bwd_dw"),

@@ -57,9 +57,15 @@ def _randn(gen, dev, *shape, dtype=torch.float32):
 
 @pytest.mark.parametrize("r,h,L,dh", [(5, 3, 17, 32), (12, 2, 100, 64),
                                       (7, 1, 200, 128), (6, 2, 1024, 64),
-                                      (4, 3, 2048, 64), (3, 2, 1100, 128)])
+                                      (4, 3, 2048, 64), (3, 2, 1100, 128),
+                                      (5, 2, 77, 20), (4, 3, 45, 40),
+                                      (3, 2, 70, 30), (2, 2, 33, 256)])
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain(dev, r, h, L, dh, cache_dtype):
+    """Lengths that are not multiples of a chunk, head sizes on the vector
+    path (any 16-byte row) and on the scalar one (Dh 30; Dh 20 with a
+    bf16 cache), pos per row, 0, L - 1, -1 (every position masked) and
+    past L (the insert clamps to L - 1, every position live)."""
     gen = torch.Generator().manual_seed(r * L)
     q, kn, vn = (_randn(gen, dev, r, h, 1, dh) for _ in range(3))
     ck, cv = (_randn(gen, dev, r, h, L, dh, dtype=cache_dtype)
@@ -67,12 +73,80 @@ def test_decode_attention_matches_plain(dev, r, h, L, dh, cache_dtype):
     src = torch.randint(0, r, (r,), generator=gen).to(dev, torch.int32)
     pos = torch.randint(0, L, (r,), generator=gen).to(dev, torch.int32)
     before = decode_attention.launches
-    for p in (pos, 0, L - 1):
+    for p in (pos, 0, L - 1, -1, L + 5):
         out, nk, nv = decode_attention(q, kn, vn, ck, cv, p, src_rows=src)
         ro, rk, rv = decode_attention_reference(q, kn, vn, ck, cv, p, src)
         torch.testing.assert_close(out, ro, rtol=2e-5, atol=2e-5)
         assert torch.equal(nk, rk) and torch.equal(nv, rv)
-    assert decode_attention.launches == before + 3
+    assert decode_attention.launches == before + 5
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype", [
+    (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)])
+def test_decode_attention_bf16_queries(dev, q_dtype, cache_dtype):
+    gen = torch.Generator().manual_seed(3)
+    r, h, L, dh = 6, 4, 150, 64
+    q, kn, vn = (_randn(gen, dev, r, h, 1, dh, dtype=q_dtype)
+                 for _ in range(3))
+    ck, cv = (_randn(gen, dev, r, h, L, dh, dtype=cache_dtype)
+              for _ in range(2))
+    src = torch.tensor([1, 1, 0, 5, 3, 3], device=dev, dtype=torch.int32)
+    pos = torch.tensor([0, 149, 70, -1, 200, 31], device=dev,
+                       dtype=torch.int32)
+    out, nk, nv = decode_attention(q, kn, vn, ck, cv, pos, src_rows=src)
+    ro, rk, rv = decode_attention_reference(q, kn, vn, ck, cv, pos, src)
+    assert out.dtype == q_dtype
+    torch.testing.assert_close(out.float(), ro.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(nk, rk) and torch.equal(nv, rv)
+
+
+@pytest.mark.parametrize("r,h,L,dh,pos", [
+    (6, 16, 1024, 64, [0, 1023, 700, -1, 5000, 64]),
+    (6, 2, 2000, 128, [1999, 3, 1000, 0, -1, 1500])])
+def test_decode_attention_few_rows_match_plain_and_are_deterministic(
+        dev, r, h, L, dh, pos):
+    """One sentence at beam 6 over a long cache: few (row, head) pairs,
+    each block walking many chunks; two calls give the same bits."""
+    gen = torch.Generator().manual_seed(L)
+    q, kn, vn = (_randn(gen, dev, r, h, 1, dh) for _ in range(3))
+    ck, cv = (_randn(gen, dev, r, h, L, dh) for _ in range(2))
+    src = torch.tensor([2, 2, 0, 1, 5, 4], device=dev, dtype=torch.int32)
+    p = torch.tensor(pos, device=dev, dtype=torch.int32)
+    first = decode_attention(q, kn, vn, ck, cv, p, src_rows=src)
+    second = decode_attention(q, kn, vn, ck, cv, p, src_rows=src)
+    ro, rk, rv = decode_attention_reference(q, kn, vn, ck, cv, p, src)
+    torch.testing.assert_close(first[0], ro, rtol=2e-5, atol=2e-5)
+    assert torch.equal(first[1], rk) and torch.equal(first[2], rv)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_decode_attention_is_deterministic(dev):
+    gen = torch.Generator().manual_seed(11)
+    r, h, L, dh = 48, 16, 1024, 64
+    q, kn, vn = (_randn(gen, dev, r, h, 1, dh) for _ in range(3))
+    ck, cv = (_randn(gen, dev, r, h, L, dh) for _ in range(2))
+    src = torch.randint(0, r, (r,), generator=gen).to(dev, torch.int32)
+    pos = torch.randint(-1, L, (r,), generator=gen).to(dev, torch.int32)
+    first = decode_attention(q, kn, vn, ck, cv, pos, src_rows=src)
+    second = decode_attention(q, kn, vn, ck, cv, pos, src_rows=src)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_decode_attention_unaligned_cache_takes_the_scalar_path(dev):
+    """A cache view 4 bytes off a 16-byte boundary: the launcher takes
+    the scalar kernel by shape, and the answer is the same."""
+    gen = torch.Generator().manual_seed(5)
+    r, h, L, dh = 4, 2, 40, 64
+    q, kn, vn = (_randn(gen, dev, r, h, 1, dh) for _ in range(3))
+    flat = _randn(gen, dev, 2 * r * h * L * dh + 2)
+    ck = flat[1:1 + r * h * L * dh].view(r, h, L, dh)
+    cv = flat[2 + r * h * L * dh:].view(r, h, L, dh)
+    assert ck.data_ptr() % 16 != 0
+    out, nk, nv = decode_attention(q, kn, vn, ck, cv, 17)
+    ro, rk, rv = decode_attention_reference(q, kn, vn, ck, cv, 17)
+    torch.testing.assert_close(out, ro, rtol=2e-5, atol=2e-5)
+    assert torch.equal(nk, rk) and torch.equal(nv, rv)
 
 
 def test_decode_attention_ping_pong_buffers(dev):
@@ -122,21 +196,80 @@ def test_paged_decode_attention_matches_plain(dev, r, h, dh, page_len, mp,
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
     (3, 2, 7, 7, 64, False), (2, 3, 33, 50, 32, False),
-    (2, 2, 45, 45, 64, True), (1, 2, 200, 200, 64, False)])
+    (2, 2, 45, 45, 64, True), (1, 2, 200, 200, 64, False),
+    (3, 2, 64, 64, 64, True), (2, 2, 65, 65, 64, True),
+    (2, 2, 40, 65, 16, False), (2, 2, 128, 128, 128, True),
+    (1, 2, 428, 428, 64, True), (2, 3, 100, 428, 64, False),
+    (2, 2, 70, 50, 48, True), (2, 2, 33, 33, 48, False),
+    (3, 2, 32, 32, 64, True), (3, 2, 20, 90, 64, True),
+    (2, 2, 30, 30, 128, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_attention_matches_plain(dev, b, h, tq, tk, dh, causal,
                                         dtype):
+    """One tile pair (up to 64), key tiles walked past it (65, 128 and
+    the routing cap 428), more query tiles than one, 32-query tiles (up
+    to 32 queries), a fully masked row, past 128 keys a row whose first
+    live key (70) lies inside a tile, and Dh 48, which the generic kernel
+    takes."""
     gen = torch.Generator().manual_seed(tq * tk)
     q = _randn(gen, dev, b, h, tq, dh, dtype=dtype)
     k, v = (_randn(gen, dev, b, h, tk, dh, dtype=dtype) for _ in range(2))
     kvm = (torch.rand(b, tk, generator=gen) > 0.3).float()
     kvm[:, 0] = 1.0
+    if tk > 128:
+        kvm[0, :70] = 0.0
     kvm[-1] = 0.0                                   # a fully-masked row
     kvm = kvm.to(dev)
     out = packed_attention(q, k, v, kvm, causal=causal)
     ref = packed_attention_reference(q, k, v, kvm, causal=causal)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tq,tk,dh,causal", [(64, 64, 64, False),
+                                             (200, 200, 64, True),
+                                             (32, 70, 64, True),
+                                             (50, 40, 48, False)])
+def test_packed_attention_is_deterministic(dev, tq, tk, dh, causal):
+    gen = torch.Generator().manual_seed(tq + dh)
+    q = _randn(gen, dev, 3, 4, tq, dh)
+    k, v = (_randn(gen, dev, 3, 4, tk, dh) for _ in range(2))
+    kvm = torch.ones(3, tk, device=dev)
+    kvm[1, tk // 2:] = 0.0
+    first = packed_attention(q, k, v, kvm, causal=causal)
+    second = packed_attention(q, k, v, kvm, causal=causal)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_attention_unaligned_views_match_plain(dev, dtype):
+    """q, k and v views one element off a 16-byte boundary: the forward
+    takes the generic kernel by shape, the backward copies them to
+    aligned buffers, and both agree with the plain version."""
+    gen = torch.Generator().manual_seed(9)
+    b, h, t, dh = 3, 4, 40, 64
+    n = b * h * t * dh
+    flat = _randn(gen, dev, 3 * n + 1, dtype=dtype)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(b, h, t, dh)
+               for i in range(3))
+    assert all(x.data_ptr() % 16 != 0 for x in (q, k, v))
+    kvm = torch.ones(b, t, device=dev)
+    kvm[1, 30:] = 0.0
+    before = packed_attention.launches
+    out = packed_attention(q, k, v, kvm, causal=True)
+    assert packed_attention.launches == before + 1
+    ref = packed_attention_reference(q, k, v, kvm, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    do = _randn(gen, dev, b, h, t, dh, dtype=dtype)
+    got = packed_attention_bwd(q, k, v, kvm, do, out, causal=True)
+    want = packed_attention_bwd_reference(q, k, v, kvm, do, out, causal=True)
+    for g, w in zip(got, want):
+        if dtype == torch.float32:
+            _close_to_scale(g, w, 1e-5)
+        else:
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2)
 
 
 def _close_to_scale(got, ref, rel):
