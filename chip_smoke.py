@@ -1044,18 +1044,23 @@ def flash_bwd_lines(fa, q, k, v, kvm, do, out, lse, lib_bwd_ms) -> None:
               f"pairs, {n * pairs / ms / 1e9:.2f} TFLOP/s achieved)")
 
 
-def paged_case(gen, r, h, dh, page_len, mp, pins, dtype=torch.float32):
+def paged_case(gen, r, h, dh, page_len, mp, pins, dtype=torch.float32,
+               share=False):
     """One paged-attention case on the card: q and this step's K/V
     [R,H,1,Dh], pools of 1 + R*MP random pages, a page table that hands
     every row its own MP pages scattered over the pool in random order
-    (rows share none), and positions drawn from [-1, MP*page_len - 1]
-    with the first rows pinned at ``pins``."""
+    (rows share none; with ``share``, rows 4 and 5 share their first MP/2
+    pages, as the prefix cache sends them, and write past them), and
+    positions drawn from [-1, MP*page_len - 1] with the first rows pinned
+    at ``pins``."""
     dev = torch.device("cuda")
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev, dtype)
     n_pages = 1 + r * mp
     table = (torch.randperm(n_pages - 1, generator=gen) + 1).reshape(r, mp)
+    if share:
+        table[5, :mp // 2] = table[4, :mp // 2]
     pos = torch.randint(-1, mp * page_len, (r,), generator=gen)
     pos[:len(pins)] = torch.tensor(pins)
     q, kn, vn = randn(r, h, 1, dh), randn(r, h, 1, dh), randn(r, h, 1, dh)
@@ -1066,41 +1071,70 @@ def paged_case(gen, r, h, dh, page_len, mp, pins, dtype=torch.float32):
 
 def paged_bound(q, pk, table, pos):
     """(bound_ms, bound_by, MB) of one paged read on these inputs: each
-    row's live positions of K and V (0 .. pos; an idle row, pos < 0,
-    averages all MP*page_len), the table entries of the pages those
-    positions lie on, the positions, q and the output; 4*H*Dh flops per
-    live position."""
+    active row's live positions of K and V (0 .. pos), an idle row's
+    (pos < 0) V over all MP*page_len positions (every score is -1e9, so
+    its answer is V's average and needs no K), the table entries of the
+    pages those positions lie on, the positions, q and the output; 4*H*Dh
+    flops per live position of an active row, 2*H*Dh of an idle one."""
     r, h, _, dh = q.shape
     page_len, mp = pk.shape[2], table.shape[1]
     p = pos.long().cpu()
     live = torch.where(p < 0, mp * page_len,
                        torch.clamp(p + 1, max=mp * page_len))
+    active = int(live[p >= 0].sum())
+    idle = int(live.sum()) - active
     pages = (live + page_len - 1) // page_len
-    nbytes = (int(live.sum()) * 2 * h * dh * pk.element_size()
+    nbytes = ((2 * active + idle) * h * dh * pk.element_size()
               + int(pages.sum()) * 4 + pos.numel() * 4
               + 2 * q.numel() * q.element_size())
-    ms, by = bound(nbytes, 4 * h * dh * int(live.sum()))
+    ms, by = bound(nbytes, h * dh * (4 * active + 2 * idle))
     return ms, by, nbytes / 1e6
+
+
+def paged_route_name(route) -> str:
+    """The paged read's kernel for a ``kv_pool.paged_route`` triple."""
+    lanes, per_lane, stages = route
+    return (f"vector kernel, {lanes} lanes x {per_lane}, {stages} buffers"
+            if lanes else "scalar kernel")
 
 
 def phase_paged_kernel(gen) -> dict:
     """paged_decode_attention against its plain version (the insert, then
-    the gather read): at the serve path's shape (R 64, H 8, Dh 64, page
-    16, MP 8, pools of 513 pages), a 2,048-position row span, Dh 32 and
-    128, and bf16; pools after the insert exact (and equal to the CPU's
-    insert at the serve shape). Then the read's times at the serve
-    shape."""
+    the gather read), on both routes: the vector kernel at the serve
+    path's shape (R 64, H 8, Dh 64, page 16, MP 8, pools of 513 pages),
+    a 2,048-position row span, Dh 32 and 128, bf16, pages of 8 and 32
+    and rows that share pages (one of them past its span); the scalar
+    kernel at pages of 5 and at Dh 36 in bf16. Pools after the insert
+    exact (and equal to the CPU's insert at the serve shape). Then the
+    read's times at the serve shape, and at the long shape beside its
+    bound."""
     from marian_tpu_torch.ops.kernels import kv_pool as kv
     pins = [-1, 0, 15, 16]
-    cases = [("serve", 64, 8, 64, 16, 8, pins + [127], torch.float32),
-             ("long", 8, 16, 64, 16, 128, pins + [2047], torch.float32),
-             ("Dh 32", 16, 4, 32, 16, 8, pins + [127], torch.float32),
-             ("Dh 128", 16, 4, 128, 16, 8, pins + [127], torch.float32),
-             ("bf16", 16, 8, 64, 16, 8, pins + [127], torch.bfloat16)]
+    # (name, R, H, Dh, page, MP, pins, dtype, rows 4 and 5 share pages)
+    cases = [("serve", 64, 8, 64, 16, 8, pins + [127], torch.float32, False),
+             ("long", 8, 16, 64, 16, 128, pins + [2047], torch.float32,
+              False),
+             ("Dh 32", 16, 4, 32, 16, 8, pins + [127], torch.float32, False),
+             ("Dh 128", 16, 4, 128, 16, 8, pins + [127], torch.float32,
+              False),
+             ("bf16", 16, 8, 64, 16, 8, pins + [127], torch.bfloat16, False),
+             ("page 8", 16, 8, 64, 8, 16, pins + [127], torch.float32,
+              False),
+             ("page 32", 16, 8, 64, 32, 4, pins + [127], torch.float32,
+              False),
+             ("shared pages", 16, 8, 64, 16, 8, pins + [127, 100, 133],
+              torch.float32, True),
+             ("page 5", 16, 4, 64, 5, 20, pins + [99], torch.float32, False),
+             ("Dh 36", 16, 4, 36, 16, 8, pins + [127], torch.bfloat16,
+              False)]
     err = 0.0
-    for name, r, h, dh, pl, mp, case_pins, dtype in cases:
+    for name, r, h, dh, pl, mp, case_pins, dtype, share in cases:
         q, kn, vn, pk, pv, table, pos = paged_case(gen, r, h, dh, pl, mp,
-                                                   case_pins, dtype)
+                                                   case_pins, dtype, share)
+        route = kv.paged_route(r, h, dh, pk.element_size(), pl, mp,
+                               sms=kv._sms(torch.cuda.current_device()))
+        check((route == (0, 0, 0)) == (name in ("page 5", "Dh 36")),
+              f"paged_decode_attention [{name}]: route {route}")
         gk, gv = pk.clone(), pv.clone()
         out = kv.paged_decode_attention(q, kn, vn, gk, gv, table, pos)
         rk, rv = pk.clone(), pv.clone()
@@ -1118,7 +1152,8 @@ def phase_paged_kernel(gen) -> dict:
                   "paged_decode_attention [serve]: pools after the insert "
                   "differ from the CPU's insert")
         what = (f"paged_decode_attention [{name}] R={r} H={h} Dh={dh} "
-                f"page {pl} MP={mp} {str(dtype)[6:]}")
+                f"page {pl} MP={mp} {str(dtype)[6:]}, "
+                f"{paged_route_name(route)}")
         if dtype == torch.float32:
             e = (out - ref).abs().max().item()
             check(e <= TOL, f"{what}: max |err| {e} > {TOL}")
@@ -1132,10 +1167,13 @@ def phase_paged_kernel(gen) -> dict:
             ms_long = time_ms(lambda: kv.paged_decode_attention_read(
                 q, gk, gv, table, pos))
             b_long, _, mb = paged_bound(q, pk, table, pos)
+            long_line = (f"long shape R={r} H={h} MP={mp} "
+                         f"({paged_route_name(route)}): kernel_ms "
+                         f"{ms_long:.4f} bound_ms {b_long:.4f}")
             print(f"kernel {what}: kernel_ms {ms_long:.4f} bound_ms "
                   f"{b_long:.4f} ({mb:.1f} MB)")
         if name == "serve":
-            serve = (q, gk, gv, table, pos)
+            serve, serve_route = (q, gk, gv, table, pos), route
     q, pk, pv, table, pos = serve
     r, h, _, dh = q.shape
     pl, mp = pk.shape[2], table.shape[1]
@@ -1155,10 +1193,11 @@ def phase_paged_kernel(gen) -> dict:
     library_ms = time_ms(library)
     bound_ms, bound_by, mb = paged_bound(q, pk, table, pos)
     print(f"kernel paged_decode_attention R={r} H={h} Dh={dh} page {pl} "
-          f"MP={mp} f32 (the read): kernel_ms {ms:.4f} plain_ms "
-          f"{plain_ms:.4f} library_ms(gather pool[page_table] + sdpa, two "
-          f"calls) {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
-          f"{mb:.2f} MB)")
+          f"MP={mp} f32 (the read, {paged_route_name(serve_route)}): "
+          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms(gather pool[page_table] + sdpa, two calls) "
+          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"{mb:.2f} MB); {long_line}")
     return {"name": "paged_decode_attention", "route": "cuda",
             "source": "marian_tpu_torch/csrc/paged_decode_attention.cu",
             "replaces": "marian_tpu/ops/pallas/kv_pool.py:750",

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import yaml
 
+from .config_validator import validate_options
 from .options import Options
 
 F = dataclasses.make_dataclass(
@@ -125,6 +126,7 @@ _MODEL_TRAINING = [
 
 _TRAINING = [
     _f("cost-type", str, "ce-sum", "ce-mean, ce-mean-words, ce-sum, perplexity"),
+    _f("sigterm", str, "save-and-exit", "SIGTERM behavior: save-and-exit or exit-immediately"),
     _f("unlikelihood-loss", bool, False, "Word-level weights as unlikelihood indicators (not ported yet)"),
     _f("overwrite", bool, False, "Do not create checkpoints per save, overwrite model file"),
     _f("no-reload", bool, False, "Do not load existing model file before training"),
@@ -312,24 +314,13 @@ def _as_list(v: Any) -> List[Any]:
 def parse_options(argv: Optional[Sequence[str]] = None,
                   mode: str = "translation") -> Options:
     """Module-level convenience mirroring ConfigParser::parseOptions, with
-    the reference's validation of the mode."""
+    the reference's validation of the mode (``config_validator``) and
+    the port's own check of ``--cpu-threads``."""
     opts = ConfigParser(mode).parse(argv)
-    if opts.get("dim-emb", 512) <= 0:
-        raise ValueError("--dim-emb must be positive")
+    if opts.get("no-shuffle", False):
+        opts.set("shuffle", "none")
+    validate_options(opts, mode)
     threads = opts.get("cpu-threads", 0)
     if isinstance(threads, (str, bool)) or threads is None:
         raise ValueError("--cpu-threads needs a thread count N > 0")
-    if mode == "training":
-        if len(opts.get("train-sets", [])) == 0:
-            raise ValueError("No training data given in --train-sets")
-        if opts.get("no-shuffle", False):
-            opts.set("shuffle", "none")
-        return opts
-    if not opts.get("models", []) and not opts.get("model", None):
-        raise ValueError("No model given in --models")
-    w, m = opts.get("weights", []), opts.get("models", [])
-    if w and len(w) != len(m):
-        raise ValueError("--weights count must match --models count")
-    if opts.get("beam-size", 12) < 1:
-        raise ValueError("--beam-size must be >= 1")
     return opts

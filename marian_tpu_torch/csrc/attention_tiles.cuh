@@ -1,6 +1,7 @@
 // Register-blocked f32 tile products shared by the attention kernels
-// (flash_attention.cu and packed_attention.cu; decode_attention.cu takes
-// its cp.async and conversion helpers).
+// (flash_attention.cu and packed_attention.cu; decode_attention.cu and
+// paged_decode_attention.cu take its cp.async and conversion helpers and
+// the 16-byte vector stream's Vec16 and group_sum).
 //
 // A block of NT threads (256 unless a kernel says otherwise) is a
 // NT/16 x 16 grid: thread (ty, tx) holds own rows ty + (NT/16)i (i < R)
@@ -98,6 +99,47 @@ __device__ __forceinline__ void cp_async_commit() {
 // commits what is pending and waits for every copy of this thread
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// waits until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the values of one 16-byte vector of T (the decode kernels' streams)
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int E = 4;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* x) {
+    x[0] = __uint_as_float(u.x);
+    x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z);
+    x[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* x) {
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    const float2 c =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.z));
+    const float2 d =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.w));
+    x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+    x[4] = c.x, x[5] = c.y, x[6] = d.x, x[7] = d.y;
+  }
+};
+
+// the sum over the G lanes of an aligned group (every lane of the warp
+// takes part; each gets the same bits)
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
 // rows [row0, row0 + ROWS) of a [rows][DH] matrix into dst[ROWS][DH + 4]

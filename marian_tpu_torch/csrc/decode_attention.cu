@@ -61,46 +61,12 @@ using attn::cp_async16;
 using attn::cp_async_commit;
 using attn::cp_async_wait_all;
 using attn::from_f32;
+using attn::group_sum;
 using attn::kMask;
 using attn::to_f32;
+using attn::Vec16;
 
 constexpr int kVecThreads = 128;
-
-// the values of one 16-byte vector of T
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int E = 4;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* x) {
-    x[0] = __uint_as_float(u.x);
-    x[1] = __uint_as_float(u.y);
-    x[2] = __uint_as_float(u.z);
-    x[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int E = 8;
-  __device__ __forceinline__ static void unpack(const uint4& u, float* x) {
-    const float2 a =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-    const float2 b =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-    const float2 c =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.z));
-    const float2 d =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.w));
-    x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
-    x[4] = c.x, x[5] = c.y, x[6] = d.x, x[7] = d.y;
-  }
-};
-
-// the sum over the G lanes of an aligned group (every lane of the warp
-// takes part; each gets the same bits)
-template <int G>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // grid (R, H): one block streams a whole (row, head) tile
 template <typename TQ, typename TC, int G, int F>

@@ -28,6 +28,14 @@ insert) or raises; on a CPU tensor it runs
 ``paged_decode_attention_reference``, the reference's gather followed
 by the dense plain version's masked softmax, in its op order.
 ``paged_decode_attention.launches`` counts kernel launches.
+
+The kernel streams a row's live positions through the page table as
+16-byte vectors in chunks of whole pages (or whole parts of one page),
+with ``decode_attention``'s layout (``vector_layout``); ``paged_route``
+chooses the layout and the number of chunk buffers by the shapes, or
+the scalar kernel for rows that are not whole 16-byte vectors, unaligned
+pools and page lengths that do not tile a chunk, never on a failed
+launch.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 
 from ..ops import NEG_INF
 from . import _build
+from .decode_attention import vector_layout, vector_path
 
 # active-row buckets: the iteration engine rounds its occupied slot
 # prefix UP to the next entry, so steps run at a closed set of shapes
@@ -51,6 +60,8 @@ ROW_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 DEFAULT_PAGE_LEN = 16
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_SMEM = 232448      # bytes of shared memory a Hopper block may take
+H100_SMS = 132
 
 
 def pages_for_tokens(n_tokens: int, page_len: int) -> int:
@@ -447,11 +458,40 @@ def paged_decode_attention_reference(q, pool_k, pool_v, page_table,
     return torch.einsum("rhqk,rhkd->rhqd", w, v_full.float()).to(q.dtype)
 
 
+def paged_route(r: int, h: int, dh: int, itemsize: int, page_len: int,
+                mp: int, aligned: bool = True,
+                sms: int = H100_SMS) -> Tuple[int, int, int]:
+    """(lanes a key, vectors a lane, chunk buffers) of the vector kernel
+    for a read of ``r`` rows and ``h`` heads over pools of ``dh``-element
+    rows of ``itemsize`` bytes, pages of ``page_len`` and tables of
+    ``mp`` pages; (0, 0, 0) takes the scalar kernel. The vector kernel
+    takes rows of whole 16-byte vectors in 16-byte aligned pools
+    (``vector_path``), Dh <= 256, a page length that divides its chunk
+    (``vector_layout``) or is divided by it, and a table that fits in
+    shared memory beside the chunk buffers. It keeps 4 chunk buffers (3
+    chunks in flight) where the read has fewer than two blocks for each
+    of the card's ``sms`` SMs, else 2."""
+    if dh > 256 or not vector_path(dh, itemsize, aligned):
+        return 0, 0, 0
+    lanes, per_lane, chunk = vector_layout(dh, itemsize)
+    if chunk % page_len and page_len % chunk:
+        return 0, 0, 0
+    stages = 4 if r * h < 2 * sms else 2
+    if 2 * stages * chunk * dh * itemsize + 4 * mp > _MAX_SMEM:
+        return 0, 0, 0
+    return lanes, per_lane, stages
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     fn = _build.load("paged_decode_attention").paged_decode_attention
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -495,11 +535,16 @@ def paged_decode_attention_read(q: torch.Tensor, pool_k: torch.Tensor,
         pool_v.contiguous()
     page_table, row_pos = page_table.contiguous(), row_pos.contiguous()
     out = torch.empty_like(q)
-    err = _kernel()(
+    kernel = _kernel()
+    route = paged_route(
+        r, h, dh, pool_k.element_size(), page_len, mp,
+        pool_k.data_ptr() % 16 == 0 and pool_v.data_ptr() % 16 == 0,
+        _sms(q.device.index))
+    err = kernel(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
         page_table.data_ptr(), row_pos.data_ptr(), out.data_ptr(), r, h,
         page_len, dh, mp, float(scale), _DTYPES[q.dtype],
-        _DTYPES[pool_k.dtype],
+        _DTYPES[pool_k.dtype], *route,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     return out

@@ -7,6 +7,12 @@ GraphGroup; restores a checkpoint (params, optimizer state, progress and
 corpus position) unless --no-reload; runs the epoch loop with the display,
 save and stop triggers; saves at the end.
 
+SIGTERM and SIGINT set a flag (``common/signal_handling``) that the loop
+reads after every update, as the reference's ``_check_stop`` does: under
+``--sigterm save-and-exit`` (the default) the update finishes, the
+checkpoint is saved and training ends normally; under
+``exit-immediately`` it ends without a save.
+
 Randomness is explicit and seeded from --seed: corpus and batch
 shuffling draw from numpy's RandomState as the reference does, and
 dropout draws from a ``torch.Generator`` on the training device that is
@@ -27,6 +33,7 @@ import torch
 
 from ..common import io as mio
 from ..common import logging as log
+from ..common import signal_handling
 from ..data.batch_generator import BatchGenerator
 from ..data.corpus import Corpus
 from ..data.vocab import DefaultVocab, create_vocab
@@ -117,6 +124,7 @@ class Train:
                  device: Optional[Union[str, torch.device]] = None):
         self.options = options
         log.create_loggers(options)
+        signal_handling.set_signal_handlers()
         _refuse_unported(options)
         self.device = resolve_device(
             device, int(options.get("cpu-threads", 0) or 0))
@@ -199,6 +207,16 @@ class Train:
                                  lr=gg.schedule(step))
                 if scheduler.should_save():
                     do_save()
+                if signal_handling.signal_flag():
+                    if opts.get("sigterm", "save-and-exit") == \
+                            "exit-immediately":
+                        log.info("Caught termination signal; exiting "
+                                 "immediately (--sigterm exit-immediately)")
+                        return
+                    log.info("Caught termination signal; saving and exiting")
+                    do_save()
+                    stop = True
+                    break
                 if not scheduler.keep_going():
                     stop = True
                     break

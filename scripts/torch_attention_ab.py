@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""decode_attention and the packed attention forward of two checkouts,
-side by side on one card.
+"""decode_attention, the paged decode read and the packed attention
+forward of two checkouts, side by side on one card.
 
-Builds ``marian_tpu_torch/csrc/decode_attention.cu`` and
-``packed_attention.cu`` of this checkout and, with --parent, of another
-checkout (for example the parent commit unpacked with ``git archive``),
-and of any --variant tree (an edited copy), with ``nvcc -Xptxas -v``,
-all at once, and prints the registers, shared memory and spills of the
-f32 kernels of the two functions (``decode_attention_kernel``, and from
-this tree on ``decode_attention_scalar_kernel``; the forward's
-``packed_attention_kernel``, from this tree on
+Builds ``marian_tpu_torch/csrc/decode_attention.cu``,
+``paged_decode_attention.cu`` and ``packed_attention.cu`` of this
+checkout and, with --parent, of another checkout (for example the parent
+commit unpacked with ``git archive``), and of any --variant tree (an
+edited copy), with ``nvcc -Xptxas -v``, all at once, and prints the
+registers, shared memory and spills of the f32 kernels of the three
+functions (``decode_attention_kernel``, and from this tree on
+``decode_attention_scalar_kernel``; ``paged_decode_attention_kernel``,
+and from this tree on ``paged_decode_attention_scalar_kernel``; the
+forward's ``packed_attention_kernel``, from this tree on
 ``packed_attention_fwd_kernel`` and ``packed_attention_generic_kernel``).
 Then it times each build in turns (parent, change, variants, then back
 in reverse order; CUDA events behind a device sleep), with the card's SM
@@ -22,20 +24,34 @@ within 1e-5 of scale) and two calls of each build bit-identical:
   H 16, L 1,024), the doc decode halfway (pos 511), and base decode of
   8 sentences at a cache of 128 (R 48, H 8, L 128), the fewest (row,
   head) pairs the batcher sends;
+- the paged decode read, Dh 64, pools and table as ``chip_smoke.py``'s
+  ``paged_case`` makes them (positions over [-1, span - 1], the first
+  rows pinned at -1, 0, 15, 16 and the span's end): the serve path's
+  R 64, H 8, pages of 16, MP 8 in f32 and in bf16 (q and pools), R 8 at
+  the same widths (a serve round of 8 sentences) and the long shape
+  R 8, H 16, MP 128 (2,048 positions). This checkout runs its launcher's
+  route, and beside it (as ``change-2``, ``change-4``) the vector kernel
+  forced to 2 and to 4 chunk buffers. Each build is timed warm (the
+  calls back to back, the pools in L2 where they fit) and cold (a
+  128 MB write before each call evicts them, as the serve step's other
+  layers do);
 - the packed forward, f32, Dh 64, every key live: the decode encoder's
   B 64, H 8, T 32, and base training's B 192, H 8: self T 64, causal
   T 64, cross 64 x 48.
 
 Each time stands beside its bound (bytes at 3.35 TB/s or flops at 67
-TFLOP/s, the larger) and, for the packed forward, SDPA's time on the
-same inputs. With --profile it then runs
+TFLOP/s, the larger) and, for the packed forward and the paged read,
+the library's time on the same inputs (SDPA; for the paged read the
+``pool[page_table]`` gather, then SDPA). With --profile it then runs
 ``scripts/torch_decode_profile.py --doc`` and
 ``scripts/torch_train_profile.py`` (base, --updates 3) in the parent and
-in this checkout in turns: parent, change, change, parent. Run from the
-root of a checkout on the machine with the card:
+in this checkout in turns: parent, change, change, parent; with
+--serve-profile, ``scripts/torch_serve_profile.py`` the same way. Run
+from the root of a checkout on the machine with the card:
 
     python3 scripts/torch_attention_ab.py [--parent DIR]
         [--variant NAME=DIR ...] [--rounds 2] [--profile]
+        [--serve-profile] [--only paged]
 """
 
 from __future__ import annotations
@@ -64,10 +80,23 @@ PACKED_SHAPES = (("decode encoder", 64, 8, 32, 32, False),
                  ("training self", 192, 8, 64, 64, False),
                  ("training causal", 192, 8, 64, 64, True),
                  ("training cross", 192, 8, 64, 48, False))
-SOURCES = ("decode_attention", "packed_attention")
-KERNELS = ("decode_attention_scalar_kernel", "decode_attention_kernel",
+# (name, R, H, page, MP, pins, dtype): the serve step's paged read
+PAGED_PINS = [-1, 0, 15, 16]
+PAGED_SHAPES = (("serve", 64, 8, 16, 8, PAGED_PINS + [127], torch.float32),
+                ("serve, 8 rows", 8, 8, 16, 8, PAGED_PINS + [127],
+                 torch.float32),
+                ("long", 8, 16, 16, 128, PAGED_PINS + [2047],
+                 torch.float32),
+                ("serve, bf16", 64, 8, 16, 8, PAGED_PINS + [127],
+                 torch.bfloat16))
+SOURCES = ("decode_attention", "paged_decode_attention", "packed_attention")
+# the paged names first: a kernel takes the first name it contains
+KERNELS = ("paged_decode_attention_scalar_kernel",
+           "paged_decode_attention_kernel",
+           "decode_attention_scalar_kernel", "decode_attention_kernel",
            "packed_attention_fwd_kernel", "packed_attention_generic_kernel",
            "packed_attention_kernel")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _source(tree, name: str) -> Path:
@@ -162,6 +191,59 @@ def decode_call(lib, tree):
     return run
 
 
+def paged_call(lib, tree, stages=None):
+    """fn(q, pk, pv, table, pos) -> out through the library's
+    paged_decode_attention: a tree whose entry takes the route gets this
+    checkout's ``paged_route`` (the vector kernel with ``stages`` chunk
+    buffers where given), a former one its own signature."""
+    routed = "int stages" in _source(tree, "paged_decode_attention") \
+        .read_text()
+    f = lib.paged_decode_attention
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] + [ctypes.c_int] * (5 if routed else 2) + [
+        ctypes.c_void_p]
+
+    def run(q, pk, pv, table, pos):
+        from marian_tpu_torch.ops.kernels import kv_pool as kv
+        r, h, _, dh = q.shape
+        page_len, mp = pk.shape[2], table.shape[1]
+        out = torch.empty_like(q)
+        route = ()
+        if routed:
+            route = kv.paged_route(r, h, dh, pk.element_size(), page_len, mp,
+                                   sms=kv._sms(torch.cuda.current_device()))
+            if stages:
+                check(route[0] > 0, "a forced stage count needs the vector "
+                      "kernel's route")
+                route = route[:2] + (stages,)
+        err = f(*(t.data_ptr() for t in (q, pk, pv, table, pos, out)), r, h,
+                page_len, dh, mp, dh ** -0.5, _DTYPE_CODES[q.dtype],
+                _DTYPE_CODES[pk.dtype], *route,
+                torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"paged_decode_attention launch: CUDA error {err}")
+        return out
+    return run
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Device time of one call with a cold L2: a 128 MB write before each
+    call, events around the call alone."""
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def packed_call(lib, tree):
     """fn(q, k, v, kvm, causal) -> out through the library's
     packed_attention: a tree whose entry takes the query tile gets this
@@ -187,10 +269,11 @@ def packed_call(lib, tree):
     return run
 
 
-def compare(cs, name, runs, call, order, exact=()):
+def compare(cs, name, runs, call, order, exact=(), timer=None, rel=None):
     """Every build's outputs against this checkout's (those at ``exact``
-    positions equal, the rest within 1e-5 of scale), two calls of each
-    bit-identical; then each build's times over ``order``."""
+    positions equal, the rest within ``rel`` of scale, 1e-5 unless
+    given), two calls of each bit-identical; then each build's times over
+    ``order`` (``timer``, ``chip_smoke.time_ms`` by default)."""
     ref = call(runs["change"])
     ref = ref if isinstance(ref, tuple) else (ref,)
     for tag, run in runs.items():
@@ -205,12 +288,13 @@ def compare(cs, name, runs, call, order, exact=()):
                       f"from the change's")
             else:
                 cs.close_to_scale(a, r, f"{name} [{tag}] output {i} against "
-                                  f"change")
+                                  f"change", rel or cs.REL_TOL)
     del ref, one, two
     times = {tag: [] for tag in runs}
+    timer = timer or cs.time_ms
     print(f"card before [{name}]: {card_state()}")
     for tag in order:
-        times[tag].append(cs.time_ms(lambda: call(runs[tag]), 20))
+        times[tag].append(timer(lambda: call(runs[tag]), 20))
     print(f"card after [{name}]: {card_state()}")
     return times
 
@@ -221,6 +305,60 @@ def report(label, times, bound_ms, bound_by, extra=""):
         print(f"{label} {tag}: ms {' '.join(f'{t:.4f}' for t in ms)} "
               f"(best {best:.4f}; {100 * bound_ms / best:.1f}% of the bound "
               f"{bound_ms:.4f} ms, {bound_by}{extra})")
+
+
+def serve_profile_turns(trees) -> None:
+    """scripts/torch_serve_profile.py in each tree in the given order;
+    prints each run's lines and the card's clock, power and temperature
+    around it."""
+    for tag, tree in trees:
+        before = card_state()
+        run = subprocess.run([sys.executable, "scripts/torch_serve_profile.py",
+                              "--top", "8"], cwd=tree, capture_output=True,
+                             text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"serve profile [{tag}] failed:\n"
+                               f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+        print(f"profile serve [{tag}] card before: {before}; after: "
+              f"{card_state()}")
+        for line in run.stdout.splitlines():
+            print(f"profile serve [{tag}] {line.rstrip()}")
+
+
+def paged_turns(cs, libs, trees, turns, args, gen) -> None:
+    """The paged read of every build at PAGED_SHAPES, warm and cold, in
+    turns, beside its bound and the library's time."""
+    paged = {tag: paged_call(libs[tag, "paged_decode_attention"], tree)
+             for tag, tree in trees}
+    for stages in (2, 4):
+        paged[f"change-{stages}"] = paged_call(
+            libs["change", "paged_decode_attention"], ROOT, stages)
+    tags = turns + ["change-2", "change-4"]
+    order = (tags + tags[::-1]) * args.rounds
+    for name, r, h, pl, mp, pins, dtype in PAGED_SHAPES:
+        q, _, _, pk, pv, table, pos = cs.paged_case(gen, r, h, DH, pl, mp,
+                                                    pins, dtype)
+        call = lambda run: run(q, pk, pv, table, pos)  # noqa: E731
+        bound_ms, by, mb = cs.paged_bound(q, pk, table, pos)
+        tl = table.long()
+        live = (torch.arange(mp * pl, device=q.device)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+
+        def library():
+            gk = pk[tl].transpose(1, 2).reshape(r, h, mp * pl, DH)
+            gv = pv[tl].transpose(1, 2).reshape(r, h, mp * pl, DH)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, gk, gv, attn_mask=live)
+        what = (f"paged [{name}] R={r} H={h} page {pl} MP={mp} Dh={DH} "
+                f"{str(dtype)[6:]}")
+        for temp, timer in (("warm", cs.time_ms), ("cold", cold_ms)):
+            times = compare(cs, f"{what} {temp}", paged, call, order,
+                            timer=timer, rel=(cs.BF16_REL_TOL
+                                              if dtype == torch.bfloat16
+                                              else None))
+            report(f"{what} {temp}", times, bound_ms, by,
+                   f", {mb:.2f} MB; library {timer(library, 20):.4f} ms")
+        del q, pk, pv, table, pos
 
 
 def profile_turns(trees) -> None:
@@ -265,6 +403,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile doc decode and the base update in "
                     "turns")
+    ap.add_argument("--serve-profile", action="store_true",
+                    help="also profile the serve rounds in turns")
+    ap.add_argument("--only", choices=("paged",), default=None,
+                    help="time the paged read alone")
     ap.add_argument("--seed", type=int, default=17)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -289,7 +431,9 @@ def main(argv=None) -> int:
     order = (turns + turns[::-1]) * args.rounds
     gen = torch.Generator().manual_seed(args.seed)
     dev = torch.device("cuda")
-    for name, r, h, L, p in DECODE_SHAPES:
+    paged_turns(cs, libs, trees, turns, args, gen)
+    alone = args.only == "paged"
+    for name, r, h, L, p in () if alone else DECODE_SHAPES:
         q, kn, vn = (torch.randn(r, h, 1, DH, generator=gen).to(dev)
                      for _ in range(3))
         ck, cv = (torch.randn(r, h, L, DH, generator=gen).to(dev)
@@ -309,7 +453,7 @@ def main(argv=None) -> int:
         report(f"decode [{name}] R={r} H={h} L={L} Dh={DH} pos={p}", times,
                bound_ms, by, f", {nbytes / 1e6:.1f} MB")
         del q, kn, vn, ck, cv
-    for name, b, h, tq, tk, causal in PACKED_SHAPES:
+    for name, b, h, tq, tk, causal in () if alone else PACKED_SHAPES:
         q = torch.randn(b, h, tq, DH, generator=gen).to(dev)
         k, v = (torch.randn(b, h, tk, DH, generator=gen).to(dev)
                 for _ in range(2))
@@ -328,8 +472,10 @@ def main(argv=None) -> int:
         report(f"packed fwd [{name}] B={b} H={h} Tq={tq} Tk={tk} Dh={DH}",
                times, bound_ms, by, f"; sdpa {sdpa:.4f} ms")
         del q, k, v, kvm
+    pair = [t for t in trees if t[0] in ("parent", "change")][::-1]
+    if args.serve_profile:
+        serve_profile_turns(pair + pair[::-1])
     if args.profile:
-        pair = [t for t in trees if t[0] in ("parent", "change")][::-1]
         profile_turns(pair + pair[::-1])
     return 0
 

@@ -18,8 +18,11 @@ its 128 x 256 tiles, a vocabulary under one tile, labels on the tile
 edges, a hidden size that is not a multiple of 4 (scalar loads), forced
 narrow vocabulary chunks in the backward and determinism checks of the
 forward and the backward, and for the paged decode
-read page tables permuted over a larger pool, page lengths that do not
-divide its 64-position chunks, idle rows and rows at page boundaries. Tolerances: 2e-5 for f32
+read both routes (the vector kernel at pages that tile its chunks,
+the scalar one at pages that do not and at Dh 36 in bf16), page tables
+permuted over a larger pool, rows that share pages, a row past its
+span, idle rows, rows at page boundaries and a determinism check.
+Tolerances: 2e-5 for f32
 outputs (f32 sums in another order), 2e-2 for bf16 outputs (one bf16
 rounding of the result); new caches are exact copies. The packed
 backward's f32 gradients and the fused CE's outputs are held to 1e-5
@@ -166,22 +169,37 @@ def test_decode_attention_ping_pong_buffers(dev):
 
 @pytest.mark.parametrize("r,h,dh,page_len,mp", [
     (5, 3, 64, 16, 8), (7, 2, 32, 4, 5), (4, 1, 128, 16, 3),
-    (6, 2, 64, 7, 40), (3, 4, 16, 16, 130)])
+    (6, 2, 64, 7, 40), (3, 4, 16, 16, 130), (6, 2, 64, 8, 9),
+    (6, 2, 64, 32, 5), (5, 2, 64, 64, 3), (6, 2, 64, 5, 12),
+    (6, 2, 36, 16, 6), (40, 8, 64, 16, 8)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_attention_matches_plain(dev, r, h, dh, page_len, mp,
                                               dtype):
-    gen = torch.Generator().manual_seed(r * mp + dh)
+    """Both routes: the vector kernel (whole pages in a chunk at pages of
+    4-32, parts of a page at 64; two and four chunk buffers) and the
+    scalar one (pages of 5 and 7 tile no chunk; Dh 36 in bf16 is no
+    whole number of 16-byte vectors). Rows 3 and 4 share their first
+    pages, as the prefix cache sends them; row 3 sits past its span. Two
+    calls give the same bits."""
+    gen = torch.Generator().manual_seed(r * mp + dh + page_len)
     n_pages = 1 + 2 * r * mp
     q, kn, vn = (_randn(gen, dev, r, h, 1, dh, dtype=dtype)
                  for _ in range(3))
     pk, pv = (_randn(gen, dev, n_pages, h, page_len, dh, dtype=dtype)
               for _ in range(2))
     table = (torch.randperm(n_pages - 1, generator=gen)[:r * mp] + 1
-             ).reshape(r, mp).to(dev, torch.int32)
+             ).reshape(r, mp)
     span = mp * page_len
     pos = torch.randint(-1, span, (r,), generator=gen)
     pos[:3] = torch.tensor([-1, page_len, span - 1])
-    pos = pos.to(dev, torch.int32)
+    if r > 4:
+        shared = (mp + 1) // 2           # the write pages stay private
+        table[4, :shared] = table[3, :shared]
+        pos[3], pos[4] = span + 5, span - 1
+    table, pos = table.to(dev, torch.int32), pos.to(dev, torch.int32)
+    route = kv.paged_route(r, h, dh, pk.element_size(), page_len, mp)
+    scalar = page_len in (5, 7) or (dh == 36 and dtype == torch.bfloat16)
+    assert (route == (0, 0, 0)) == scalar
     before = kv.paged_decode_attention.launches
     gk, gv = pk.clone(), pv.clone()
     out = kv.paged_decode_attention(q, kn, vn, gk, gv, table, pos)
@@ -192,6 +210,8 @@ def test_paged_decode_attention_matches_plain(dev, r, h, dh, page_len, mp,
     assert torch.equal(gk, rk) and torch.equal(gv, rv)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    again = kv.paged_decode_attention_read(q, gk, gv, table, pos)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,causal", [

@@ -12,6 +12,9 @@
   chain after the gather), as the reference pins for its own pair.
 - One operation sequence replayed on both ``KVPool``s gives the same
   results, errors, claims, refcounts, stats and audits.
+- The launcher's route for each shape class: the vector kernel, with 2
+  chunk buffers at two blocks an SM and more and 4 below, or the scalar
+  kernel.
 """
 
 import jax.numpy as jnp
@@ -172,3 +175,32 @@ def test_bucket_tables_match_jax():
     keys = ["l1_cross_k", "l1_pool_k", "l2_pool_v", "pos", "page_table",
             "lsh_planes"]
     assert tkv.state_key_groups(keys) == jkv.state_key_groups(keys)
+
+
+@pytest.mark.parametrize("shape,itemsize,aligned,route", [
+    # the serve path: R 64, H 8, Dh 64, pages of 16 (32-position chunks)
+    ((64, 8, 64, 16, 8), 4, True, (16, 1, 2)),
+    # R 8 at the same widths, and the long shape: under 2 blocks an SM
+    ((8, 8, 64, 16, 8), 4, True, (16, 1, 4)),
+    ((8, 16, 64, 16, 128), 4, True, (16, 1, 4)),
+    # bf16 pools: 64-position chunks
+    ((64, 8, 64, 16, 8), 2, True, (8, 1, 2)),
+    # pages that tile a chunk, and pages that a chunk tiles
+    ((64, 8, 64, 8, 16), 4, True, (16, 1, 2)),
+    ((64, 8, 64, 32, 4), 4, True, (16, 1, 2)),
+    ((64, 8, 64, 64, 2), 4, True, (16, 1, 2)),
+    ((64, 8, 256, 16, 8), 4, True, (32, 2, 2)),
+    # the scalar kernel: pages of 5 or 24, Dh 36 in bf16 (no whole
+    # 16-byte vectors), unaligned pools, Dh past 256
+    ((64, 8, 64, 5, 8), 4, True, (0, 0, 0)),
+    ((64, 8, 64, 24, 8), 4, True, (0, 0, 0)),
+    ((64, 8, 36, 16, 8), 2, True, (0, 0, 0)),
+    ((64, 8, 64, 16, 8), 4, False, (0, 0, 0)),
+    ((64, 8, 512, 16, 8), 2, True, (0, 0, 0)),
+    # Dh 36 in f32 is 9 whole vectors: the vector kernel, 7 lanes idle
+    ((64, 8, 36, 16, 8), 4, True, (16, 1, 2)),
+])
+def test_paged_route(shape, itemsize, aligned, route):
+    r, h, dh, page_len, mp = shape
+    assert tkv.paged_route(r, h, dh, itemsize, page_len, mp,
+                           aligned) == route

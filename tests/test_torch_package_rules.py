@@ -75,6 +75,10 @@ def test_port_imports_no_jax_and_nothing_of_marian_tpu():
                for p in files if "marian_tpu_torch" in p.parts}
     assert {"layers", "optimizers", "training", "data", "models", "ops",
             "cli"} <= scanned
+    # the port's copies of reference modules are scanned like the rest
+    copies = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"marian_tpu_torch/common/config_validator.py",
+            "marian_tpu_torch/common/signal_handling.py"} <= copies
 
 
 def test_cuda_sources_are_listed_and_plain_c():
