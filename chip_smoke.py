@@ -4,7 +4,7 @@ NVIDIA card. Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed 17]
 
-It builds the port's CUDA kernels from csrc/ (one nvcc per source, all
+It builds the port's CUDA kernels from csrc/ (one nvcc per library, all
 at once), holds each kernel against its plain PyTorch version on the
 card, and drives the port's main paths on data made from --seed:
 
@@ -33,7 +33,17 @@ card, and drives the port's main paths on data made from --seed:
   EOS; every reply must equal the dense greedy decode of its sentence on
   the card, and the engine's logits at every step the dense step's on
   the same tokens; 16 of the sentences decode to the same texts, with
-  the same logits within a tolerance, on the card and on the CPU.
+  the same logits within a tolerance, on the card and on the CPU;
+- mixed precision (--precision bfloat16 float32): the fused CE's bf16
+  instantiations held against their plain versions on the same bf16
+  operands; transformer-base trained 2 + 10 updates and decoded (beam 6,
+  the same sentences) in bf16; and bf16 on the card against bf16 on the
+  CPU within PARITY_LIMITS_BF16: the 2+2 base and doc-level training
+  cuts, and the 2+2 base decode by its step logits on the card's own
+  tokens. Their CPU halves need no card: a child process of this script
+  (--cpu-references) runs them while the kernels build and the kernel
+  phases run, on its own copy of the same data, and the card's halves
+  are held to them later.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after; a kernel's ``launches`` in the kernel line is the sum
@@ -60,6 +70,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+# the child process's copy of the data (--cpu-references), and its
+# threads: the rest of the cores build the kernels meanwhile
+CPU_WORK = ROOT / "build" / "chip_smoke_cpu"
+CPU_REF_THREADS = 4
 
 # transformer-base as the repo runs it (bench_decode.py 'base' preset)
 BASE = {"type": "transformer", "dim-emb": 512, "transformer-heads": 8,
@@ -73,6 +87,7 @@ VOCAB, BATCH, SRC_LEN, BEAM, N_BATCHES = 32000, 64, 32, 6, 2
 VOCAB_CUT = 500
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 on the tensor cores, dense
 TOL = 2e-5
 # The packed backward and the fused CE sum hundreds to thousands of
 # products in another order than their plain versions: held to this
@@ -106,6 +121,31 @@ PER_UPDATE = {"packed_attention": 18, "packed_attention_bwd": 18,
               "flash_attention_fwd": 0, "flash_attention_dq": 0,
               "flash_attention_dkv": 0,
               "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
+# mixed precision (--precision bfloat16 float32, bench.py's presets'
+# precision): the same base training and decode in bf16 from f32 master
+# weights, the fused CE through its bf16 instantiations
+BF16_FLAGS = ["--precision", "bfloat16", "float32"]
+BF16_WARM, BF16_COUNTED = 2, 10
+PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
+                   "fused_ce_dw": 0, "fused_ce_fwd_bf16": 1,
+                   "fused_ce_dx_bf16": 1, "fused_ce_dw_bf16": 1}
+# card vs CPU in bf16, relative, each cut its own: limits set between
+# the sound port's readings and those of planted faults
+# (scripts/torch_train_parity.py --precision bfloat16, seeds 17 and 19;
+# PERF.md section 6). Sound: base loss 2.3-3.1e-4, grad 4.4-4.6e-2,
+# grad_norm 7.7-9.1e-3, update 1.6e-7; doc 7.0-8.0e-4, 2.4e-2, 2.7-2.9e-3,
+# 2.4e-7; decode 6.2e-4. Faults: d not rounded and the logits cotangent
+# not rounded read base loss 1.7-1.9e-3 (in the doc cut, 500 words, they
+# stay within its noise); bf16 master weights read update 1 and loss
+# 1.9e-3 (base), 2.4-3.5e-2 (doc); bf16 split-K reduction reads as the
+# sound port (cuBLAS takes no split-K here). ``decode``: the largest step
+# logit difference under teacher forcing over the largest logit.
+PARITY_LIMITS_BF16 = {
+    "base": {"loss": 7e-4, "grad": 9e-2, "grad_norm": 1.8e-2,
+             "update": 1e-4},
+    "doc": {"loss": 2e-3, "grad": 4.8e-2, "grad_norm": 6e-3,
+            "update": 1e-4},
+    "decode": 2.5e-3}
 # doc-level training: bench.py's 'big' preset (bench.py:290-293) in its
 # MARIAN_BENCH_SEQLEN=2048 stage (bench.py:303-321): transformer-big
 # (dim 1024, ffn 4096, 16 heads), lines of 1,023-2,047 words, an 8,192-word
@@ -140,6 +180,10 @@ COPY_POSITIONS, COPY_FREQS, COPY_RIDGE = 64, 32, 1e-4
 SERVE_LOGIT_TOL = 1e-4
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
 BF16_REL_TOL = 1e-2
+# one bf16 spacing, at most, relative to the value: a bf16 output whose
+# f32 sum the kernel and its plain version take in two orders may round
+# to neighbouring values
+BF16_SPACING = 2.0 ** -7
 # the flash lse (f32, of order log Tk) on rows with a live key, absolute
 LSE_TOL = 1e-5
 
@@ -169,10 +213,27 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
+    """The least time (ms) for the bytes at the HBM rate and the
+    operations at ``peak`` (the card's rate for the operands' type), and
+    which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def close_bf16(got, ref, what: str, rel: float = REL_TOL) -> float:
+    """A bf16 output against its plain version, which rounds its own f32
+    sum: |got - ref| within one bf16 spacing of ref (at most 2^-7 of it)
+    plus rel * max(1, max |ref|); returns max |got - ref|."""
+    check(got.dtype == ref.dtype == torch.bfloat16,
+          f"{what}: {got.dtype} against {ref.dtype}")
+    got, ref = got.detach().float(), ref.detach().float()
+    scale = max(float(ref.abs().max()), 1.0)
+    over = float(((got - ref).abs() - BF16_SPACING * ref.abs()).max())
+    check(over <= rel * scale, f"{what}: |err| exceeds one bf16 spacing by "
+          f"{over:.3g} > {rel} x scale {scale:.3g}")
+    return float((got - ref).abs().max())
 
 
 def close_to_scale(got, ref, what: str, rel: float = REL_TOL) -> float:
@@ -227,9 +288,11 @@ def phase_card() -> str:
 def phase_build() -> None:
     from marian_tpu_torch.ops.kernels import _build
     t0 = time.time()
-    built = _build.build_all()
-    print(f"build: {', '.join(built) or 'nothing to build'} in "
-          f"{time.time() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    took = _build.build_all()
+    each = ", ".join(f"{n} {t:.1f} s" for n, t in took.items())
+    print(f"build: {each or 'nothing to build'}; {time.time() - t0:.1f} s "
+          f"in all, one nvcc a library in parallel "
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
 
 
 def phase_decode_kernel(gen) -> dict:
@@ -769,6 +832,142 @@ def phase_fused_ce_kernels(gen) -> list:
     return rows
 
 
+def phase_fused_ce_kernels_bf16(gen) -> list:
+    """The fused CE's bf16 instantiations (x and w bf16, b f32) against
+    their plain versions on the same bf16 operands, at ragged shapes, the
+    main path's (N 12,288, V 32,000, E 512) and the doc shape's (N
+    16,384, E 1,024): lse, lab, tot and db (f32) within REL_TOL of the
+    largest, dx and dw (bf16) within one bf16 spacing of the plain
+    version's; two calls bit-identical; times beside the bound (bf16
+    operand bytes, operations at the card's bf16 peak, the tensor cores'
+    rate: the least time for this work on bf16 operands, which these
+    kernels, computing in f32 on the CUDA cores, stay far from; the
+    bound at the f32 CUDA-core peak rides along as bound_ms_f32_peak) and
+    F.linear on bf16 + F.cross_entropy."""
+    from marian_tpu_torch.ops.kernels import fused_ce as fce
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def inputs(n, v, e):
+        x = torch.randn(n, e, generator=gen).to(dev, bf)
+        w = (torch.randn(v, e, generator=gen) * e ** -0.5).to(dev, bf)
+        b = torch.randn(v, generator=gen).to(dev)
+        labels = torch.randint(0, v, (n,), generator=gen)
+        edges = [c for c in (0, 255, 256, v - 1) if c < v]
+        labels[:len(edges)] = torch.tensor(edges)
+        return x, w, b, labels.to(dev)
+
+    errs = {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    for n, v, e, chunk in ((70, 200, 50, None), (133, 513, 1024, None),
+                           (4001, VOCAB + 3, 512, FORCED_CHUNK),
+                           (DOC_FWD_TOKENS, VOCAB, 1024, None),
+                           (TRAIN_WORDS, VOCAB, 512, None)):
+        x, w, b, labels = inputs(n, v, e)
+        got = fce.fused_ce_stats(x, w, b, labels)
+        ref = fce.fused_ce_stats_reference(x, w, b, labels)
+        g = [torch.randn(n, generator=gen).to(dev) for _ in range(3)]
+        dx, dw, db = fce.fused_ce_bwd(x, w, b, labels, ref[0], *g,
+                                      chunk=chunk)
+        rdx, rdw, rdb = fce.fused_ce_bwd_reference(x, w, b, labels, ref[0],
+                                                   *g)
+        torch.cuda.synchronize()
+        what = (f"N={n} V={v} E={e} bf16"
+                + (f", chunks of {chunk}" if chunk else ""))
+        for name, a, r in zip(("lse", "lab", "tot"), got, ref):
+            errs["fwd"] = max(errs["fwd"], close_to_scale(
+                a, r, f"fused_ce_fwd {what} {name}"))
+        errs["dx"] = max(errs["dx"], close_bf16(dx, rdx,
+                                                f"fused_ce_dx {what}"))
+        errs["dw"] = max(errs["dw"], close_bf16(dw, rdw,
+                                                f"fused_ce_dw {what}"),
+                         close_to_scale(db, rdb, f"fused_ce_db {what}"))
+        print(f"kernel fused_ce {what}: max |err| fwd {errs['fwd']:.3g} dx "
+              f"{errs['dx']:.3g} dw/db {errs['dw']:.3g} (f32 outputs: "
+              f"{REL_TOL} x max |plain|; bf16 dx, dw: one bf16 spacing + "
+              f"that); dx {dx.dtype}, dw {dw.dtype}, db {db.dtype}")
+        del got, ref, dx, dw, db, rdx, rdw, rdb
+        if n == DOC_FWD_TOKENS:
+            fwd_times(fce, x, w, b, labels, library=True)
+            del x, w, b, labels, g
+        torch.cuda.empty_cache()
+    lse = fce.fused_ce_stats_reference(x, w, b, labels)[0]
+    one = fce.fused_ce_stats(x, w, b, labels)
+    two = fce.fused_ce_stats(x, w, b, labels)
+    check(all(torch.equal(p, q) for p, q in zip(one, two)),
+          "fused_ce_fwd bf16: two calls on the same inputs differ")
+    one = fce.fused_ce_bwd(x, w, b, labels, lse, *g)
+    two = fce.fused_ce_bwd(x, w, b, labels, lse, *g)
+    check(all(torch.equal(p, q) for p, q in zip(one, two)),
+          "fused_ce_bwd bf16: two calls on the same inputs differ")
+    print(f"kernel fused_ce N={n} V={v} E={e} bf16: two calls bit-identical "
+          f"(lse, lab, tot; dx, dw, db)")
+    del one, two
+    torch.cuda.empty_cache()
+    xl, wl = (t.clone().requires_grad_(True) for t in (x, w))
+    bl = b.to(bf).requires_grad_(True)
+
+    def lib_fwd():
+        return torch.nn.functional.cross_entropy(
+            torch.nn.functional.linear(xl, wl, bl), labels,
+            label_smoothing=0.1, reduction="sum")
+    lib_loss = lib_fwd()
+    lib_fwd_ms = time_ms(lib_fwd, iters=5)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_loss, (xl, wl, bl), retain_graph=True), iters=5)
+    del lib_loss, xl, wl, bl
+    torch.cuda.empty_cache()
+
+    def d16(t):
+        return fce.round_d(fce.dlogits_reference(x, w, b, labels, lse, *g),
+                           t.dtype)
+    times = {
+        "fwd": (lambda: fce.fused_ce_stats(x, w, b, labels),
+                lambda: fce.fused_ce_stats_reference(x, w, b, labels)),
+        "dx": (lambda: fce.fused_ce_dx(x, w, b, labels, lse, *g),
+               lambda: torch.matmul(d16(w), w.float()).to(bf)),
+        "dw": (lambda: fce.fused_ce_dw(x, w, b, labels, lse, *g),
+               lambda: (torch.matmul(d16(x).t(), x.float()).to(bf),
+                        fce.dlogits_reference(x, w, b, labels, lse,
+                                              *g).sum(0))),
+    }
+    joint_ms = time_ms(lambda: fce.fused_ce_bwd(x, w, b, labels, lse, *g),
+                       iters=5)
+    print(f"kernel fused_ce_bwd (joint: dx, dw, db) N={n} V={v} E={e} bf16: "
+          f"kernel_ms {joint_ms:.4f} library_ms (backward of linear + "
+          f"cross_entropy on bf16, two calls) {lib_bwd_ms:.4f}")
+    product_times(fce, x, w, b, labels, lse, g)
+    flops = {"fwd": 2 * n * v * e, "dx": 4 * n * v * e, "dw": 4 * n * v * e}
+    io_in = (n * e + v * e) * 2 + v * 4 + n * 4
+    nbytes = {"fwd": io_in + 3 * n * 4, "dx": io_in + 4 * n * 4 + n * e * 2,
+              "dw": io_in + 4 * n * 4 + v * e * 2 + v * 4}
+    rows = []
+    for part, line in (("fwd", 205), ("dx", 233), ("dw", 233)):
+        ms = time_ms(times[part][0], iters=5)
+        plain_ms = time_ms(times[part][1], iters=3)
+        library_ms = lib_fwd_ms if part == "fwd" else lib_bwd_ms
+        bound_ms, bound_by = bound(nbytes[part], flops[part], BF16_FLOPS)
+        f32_peak_ms = bound(nbytes[part], flops[part])[0]
+        print(f"kernel fused_ce_{part}_bf16 N={n} V={v} E={e}: kernel_ms "
+              f"{ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+              f"({'' if part == 'fwd' else 'backward of '}linear + "
+              f"cross_entropy on bf16, two calls) {library_ms:.4f} bound_ms "
+              f"{bound_ms:.4f} ({bound_by}; {flops[part] / 1e9:.0f} GFLOP "
+              f"at the bf16 peak, {nbytes[part] / 1e9:.3f} GB; "
+              f"{100 * bound_ms / ms:.1f}% of it) bound_ms_f32_peak "
+              f"{f32_peak_ms:.4f} (the same operations at the f32 "
+              f"CUDA-core peak); {flops[part] / ms / 1e9:.2f} TFLOP/s "
+              f"achieved")
+        rows.append({"name": f"fused_ce_{part}_bf16", "route": "cuda",
+                     "source": "marian_tpu_torch/csrc/fused_ce.cu",
+                     "replaces": f"marian_tpu/ops/pallas/fused_ce.py:{line}",
+                     "max_abs_err": errs[part], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "bound_ms_f32_peak": f32_peak_ms})
+    del x, w, b, labels, g, lse
+    torch.cuda.empty_cache()
+    return rows
+
+
 def fwd_times(fce, x, w, b, labels, library: bool = False) -> None:
     """The forward kernel's time and TFLOP/s beside torch.matmul(x,
     w.t()) of the same shape (a yardstick; the port never calls it) and,
@@ -777,11 +976,13 @@ def fwd_times(fce, x, w, b, labels, library: bool = False) -> None:
     n, e = x.shape
     v = w.shape[0]
     flops = 2 * n * v * e
-    nbytes = (n * e + v * e + v + n) * 4 + 3 * n * 4
-    bound_ms, bound_by = bound(nbytes, flops)
+    nbytes = (n * e + v * e) * x.element_size() + (v + n) * 4 + 3 * n * 4
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS
+                               if x.dtype == torch.bfloat16 else F32_FLOPS)
     ms = time_ms(lambda: fce.fused_ce_stats(x, w, b, labels), iters=5)
     mm_ms = time_ms(lambda: torch.matmul(x, w.t()), iters=5)
-    line = (f"kernel fused_ce_fwd N={n} V={v} E={e} f32: kernel_ms {ms:.4f} "
+    line = (f"kernel fused_ce_fwd N={n} V={v} E={e} {str(x.dtype)[6:]}: "
+            f"kernel_ms {ms:.4f} "
             f"({flops / ms / 1e9:.2f} TFLOP/s), torch.matmul(x, w.t()) "
             f"{mm_ms:.4f} ({flops / mm_ms / 1e9:.2f} TFLOP/s)")
     if library:
@@ -790,7 +991,7 @@ def fwd_times(fce, x, w, b, labels, library: bool = False) -> None:
         line += f", plain_ms {plain_ms:.4f}"
         with torch.no_grad():
             lib_ms = time_ms(lambda: torch.nn.functional.cross_entropy(
-                torch.nn.functional.linear(x, w, b), labels,
+                torch.nn.functional.linear(x, w, b.to(x.dtype)), labels,
                 label_smoothing=0.1, reduction="sum"), iters=5)
         torch.cuda.empty_cache()
         line += (f", library_ms (linear + cross_entropy, two calls) "
@@ -807,13 +1008,16 @@ def product_times(fce, x, w, b, labels, lse, g) -> None:
     n, e = x.shape
     v0, width = fce.vocab_chunks(n, w.shape[0])[0]
     ldd = -(-width // fce.CHUNK_ALIGN) * fce.CHUNK_ALIGN
+    bf16 = int(x.dtype == torch.bfloat16)
     d = torch.empty((n, ldd), device=x.device)
     dx, dw = torch.zeros_like(x), torch.empty_like(w)
+    dxf = torch.zeros((n, e), device=x.device)
     db = torch.empty(w.shape[0], device=x.device)
     lbl = labels.to(torch.int32)
     s = torch.cuda.current_stream().cuda_stream
-    fns = [fce._fn("fused_ce_bwd_dlogit", 9, 6), fce._fn("fused_ce_bwd_dx",
-           4, 8), fce._fn("fused_ce_bwd_dw", 5, 7)]
+    fns = [fce._fn("fused_ce_bwd_dlogit", 9, 7, bf16),
+           fce._fn("fused_ce_bwd_dx", 5, 10, bf16),
+           fce._fn("fused_ce_bwd_dw", 5, 8, bf16)]
     sx, sw = fce.chunk_splits(n, e, width)
     part = torch.empty(max(sx * n * e, sw * width * (e + 1)),
                        device=x.device)
@@ -822,23 +1026,25 @@ def product_times(fce, x, w, b, labels, lse, g) -> None:
         "d (NT, x . w_c^T, d epilogue)": (
             lambda: fns[0](x.data_ptr(), w.data_ptr(), b.data_ptr(),
                            lbl.data_ptr(), *(t.data_ptr() for t in (lse, *g)),
-                           d.data_ptr(), n, e, v0, width, ldd, 1, s),
+                           d.data_ptr(), n, e, v0, width, ldd, 1, bf16, s),
             lambda: torch.matmul(x, wc.t())),
         f"dx (NN, d_c . w_c, accumulate, {sx} slices)": (
-            lambda: fns[1](d.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                           part.data_ptr(), n, e, v0, width, ldd, 1, 1, sx,
-                           s),
-            lambda: torch.matmul(dc, wc)),
+            lambda: fns[1](d.data_ptr(), w.data_ptr(),
+                           (dxf if bf16 else dx).data_ptr(), dx.data_ptr(),
+                           part.data_ptr(), n, e, v0, width, ldd, 1, 0, 1,
+                           sx, bf16, s),
+            lambda: torch.matmul(dc.to(x.dtype), wc)),
         f"dw (TN, d_c^T . x, db, {sw} slices)": (
             lambda: fns[2](d.data_ptr(), x.data_ptr(), dw.data_ptr(),
                            db.data_ptr(), part.data_ptr(), n, e, v0, width,
-                           ldd, 1, sw, s),
-            lambda: torch.matmul(dc.t(), x)),
+                           ldd, 1, sw, bf16, s),
+            lambda: torch.matmul(dc.t().to(x.dtype), x)),
     }
     flops = 2 * n * width * e
     for name, (kernel, yardstick) in runs.items():
         ms, mm_ms = time_ms(kernel, iters=10), time_ms(yardstick, iters=10)
-        print(f"kernel fused_ce_bwd product {name} N={n} Vc={width} E={e}: "
+        print(f"kernel fused_ce_bwd product {name} N={n} Vc={width} E={e} "
+              f"{str(x.dtype)[6:]}: "
               f"kernel_ms {ms:.4f} ({flops / ms / 1e9:.2f} TFLOP/s), "
               f"torch.matmul of the same shape {mm_ms:.4f} "
               f"({flops / mm_ms / 1e9:.2f} TFLOP/s)")
@@ -1217,13 +1423,14 @@ def write_vocab() -> None:
         vocab.save(str(WORK / name))
 
 
-def write_model(seed: int):
+def write_model(seed: int, cuts_only: bool = False):
     """A 32,000-word vocab and transformer-base weights from ``seed``
     (plus a 2+2-layer cut of them), written through the port's own io;
     and the doc-level cut's random weights (2+2 layers, dim 256, 4
     heads). The output bias is drawn wide (std 2) so a random model's
     next-token ranking has gaps far above f32 rounding: card and CPU then
-    pick the same beams."""
+    pick the same beams. ``cuts_only``: the two cuts alone (the same
+    weights), not the full base and serve models."""
     from marian_tpu_torch.common import io as mio
     from marian_tpu_torch.common.options import Options
     from marian_tpu_torch.models import transformer as T
@@ -1238,11 +1445,10 @@ def write_model(seed: int):
         return {k: v.numpy() for k, v in params.items()}
     opts = Options(BASE)
     flat = random_weights(opts, seed)
-    mio.save_model(str(WORK / "base.npz"), flat, opts.as_yaml())
-    mio.save_model(str(WORK / "serve.npz"),
-                   serve_weights(flat, T.config_from_options(opts, VOCAB,
-                                                             VOCAB)),
-                   opts.as_yaml())
+    if not cuts_only:
+        mio.save_model(str(WORK / "base.npz"), flat, opts.as_yaml())
+        mio.save_model(str(WORK / "serve.npz"), serve_weights(
+            flat, T.config_from_options(opts, VOCAB, VOCAB)), opts.as_yaml())
     small = {k: v for k, v in flat.items()
              if not k.startswith(("encoder_l", "decoder_l"))
              or k.split("_")[1] in ("l1", "l2")}
@@ -1318,30 +1524,37 @@ def decoder_options(model: str, *extra: str, vocab: str = "vocab.yml"):
 
 
 def kernel_counters():
-    """Every kernel wrapper of the port, by the name of its kernel."""
+    """Every kernel of the port, by name: (its wrapper, the attribute
+    that counts its launches). The fused CE's bf16 instantiations count
+    on their wrappers' ``launches_bf16``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import fused_ce as fce
     from marian_tpu_torch.ops.kernels import kv_pool as kv
     from marian_tpu_torch.ops.kernels import packed_attention as pa
-    return {"decode_attention": da.decode_attention,
-            "packed_attention": pa.packed_attention,
-            "packed_attention_bwd": pa.packed_attention_bwd,
-            "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_dq": fa.flash_attention_dq,
-            "flash_attention_dkv": fa.flash_attention_dkv,
-            "fused_ce_fwd": fce.fused_ce_stats,
-            "fused_ce_dx": fce.fused_ce_dx, "fused_ce_dw": fce.fused_ce_dw,
-            "paged_decode_attention": kv.paged_decode_attention}
+    fns = {"decode_attention": da.decode_attention,
+           "packed_attention": pa.packed_attention,
+           "packed_attention_bwd": pa.packed_attention_bwd,
+           "flash_attention_fwd": fa.flash_attention_fwd,
+           "flash_attention_dq": fa.flash_attention_dq,
+           "flash_attention_dkv": fa.flash_attention_dkv,
+           "fused_ce_fwd": fce.fused_ce_stats,
+           "fused_ce_dx": fce.fused_ce_dx, "fused_ce_dw": fce.fused_ce_dw,
+           "paged_decode_attention": kv.paged_decode_attention}
+    out = {name: (fn, "launches") for name, fn in fns.items()}
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+        out[f"{name}_bf16"] = (fns[name], "launches_bf16")
+    return out
 
 
 def reset_counts() -> None:
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in kernel_counters().items()}
 
 
 def decode_run(model: str, lines, *extra: str):
@@ -1533,16 +1746,22 @@ def source_batch(tr, sents, device):
     return ids, src.to(device), mask.to(device)
 
 
-def dense_step_logits(model, params, src, mask, forced):
+def dense_step_logits(model, params, src, mask, forced, fused=False):
     """The dense decode's logits [B, T, V] on the tokens ``forced`` [B, T]
-    (step t reads token t-1; 0 at step 0)."""
+    (step t reads token t-1; 0 at step 0). ``fused``: each row its own
+    beam under the fused decode contract (identity backpointers), so the
+    card reads its caches through decode_attention, as the beam search
+    does."""
+    rows = (torch.arange(forced.shape[0], dtype=torch.int32,
+                         device=src.device) if fused else None)
     with torch.inference_mode():
         enc = model.encode_for_decode(params, src, mask)
         state = model.start_state(params, enc, mask, forced.shape[1])
         prev = torch.zeros_like(forced[:, :1])
         out = []
         for t in range(forced.shape[1]):
-            logits, state = model.step(params, state, prev, mask)
+            logits, state = model.step(params, state, prev, mask,
+                                       beam_src=rows)
             out.append(logits)
             prev = forced[:, t:t + 1]
         return torch.stack(out, 1)
@@ -1900,30 +2119,31 @@ def parity_setup(argv, n_batches: int, corpus: str = "train",
     return opts, len(vocab), batches, init, step_grads
 
 
-def base_parity_setup():
+def base_parity_setup(*extra: str):
     """The card-vs-CPU training cut of transformer-base: 2+2 layers
     without dropout, 3 batches of about 2,048 target words and a constant
     learning rate of 2e-4 (no warm-up), so that the 3 Adam updates move
-    every parameter by about the rate."""
+    every parameter by about the rate; ``extra`` flags last."""
     return parity_setup(train_argv("cut.npz", 3, "--enc-depth", "2",
                                    "--dec-depth", "2",
                                    "--transformer-dropout", "0",
                                    "--mini-batch-words", "2048",
-                                   "--lr-warmup", "0"), 3)
+                                   "--lr-warmup", "0", *extra), 3)
 
 
-def doc_parity_setup(seed: int):
+def doc_parity_setup(seed: int, *extra: str):
     """The doc-level card-vs-CPU cut: 2+2 layers, dim 256, 4 heads, a
     500-word vocabulary, without dropout, on documents of 1,200-1,400
     source and 1,100-1,500 target words (width 1,536 on both sides, so
     every attention takes flash), 2 batches of 3,072 target words, a
-    constant rate of 2e-4."""
+    constant rate of 2e-4; ``extra`` flags last."""
     write_doc_corpus(seed + 4, "doc_cut", 16, 1200, 1400, 1100, 1500,
                      VOCAB_CUT)
     return parity_setup(train_argv(
         "doc_cut_train.npz", 2, *DOC_CUT_FLAGS, "--transformer-dropout", "0",
-        "--mini-batch-words", "3072", "--lr-warmup", "0", corpus="doc_cut",
-        vocab="vocab_cut.yml"), 2, corpus="doc_cut", vocab="vocab_cut.yml")
+        "--mini-batch-words", "3072", "--lr-warmup", "0", *extra,
+        corpus="doc_cut", vocab="vocab_cut.yml"), 2, corpus="doc_cut",
+        vocab="vocab_cut.yml")
 
 
 def parity_run(opts, n_vocab: int, batches, init, step_grads,
@@ -2010,30 +2230,43 @@ def parity_readings(got: dict, ref: dict) -> dict:
             "update": worst("update")}
 
 
-def parity_holds(readings: dict) -> bool:
-    return all(readings[k][0] <= lim for k, lim in PARITY_LIMITS.items())
+def parity_holds(readings: dict, limits: dict = PARITY_LIMITS) -> bool:
+    return all(readings[k][0] <= limits[k] for k in readings)
 
 
-def train_card_vs_cpu(what: str, setup) -> None:
+def batch_words(batches) -> list:
+    return [int(b.words) for b in batches]
+
+
+def train_card_vs_cpu(what: str, setup, limits: dict = PARITY_LIMITS,
+                      cpu: dict = None) -> None:
     """A training cut run on the card (kernels) and on the CPU (plain
     versions) from the same parameters on the same batches; held to
-    PARITY_LIMITS."""
+    ``limits``. ``cpu``: the CPU's run, made already by the child
+    process (``cpu_references``) on its own copy of the same data."""
     res = {}
     n = len(setup[2])
     for name in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        res[name] = parity_run(*setup, name)
+        if name == "cpu" and cpu is not None:
+            check(cpu["words"] == batch_words(setup[2]), f"{what}: the "
+                  f"child's batches {cpu['words']} are not the card's")
+            res[name] = cpu["run"]
+            took = f"{cpu['seconds']:.2f} s in the child process"
+        else:
+            res[name] = parity_run(*setup, name)
+            took = f"{time.perf_counter() - t0:.2f} s"
         print(f"train card vs cpu: {what}: {name} {n} updates, "
               f"{sum(b.words for b in setup[2])} target words, and {n} steps "
-              f"of the update tail: "
-              f"{time.perf_counter() - t0:.2f} s; mean CE {res[name]['loss']}"
+              f"of the update tail: {took}; mean CE {res[name]['loss']}"
               f"; gradient norm {res[name]['norm']}")
     check(bool(np.isfinite(res["cuda"]["loss"] + res["cuda"]["norm"]).all()),
           "non-finite card losses")
     readings = parity_readings(res["cuda"], res["cpu"])
-    text = "; ".join(f"{k} {v:.3g} ({where}, limit {PARITY_LIMITS[k]})"
+    text = "; ".join(f"{k} {v:.3g} ({where}, limit {limits[k]})"
                      for k, (v, where) in readings.items())
-    check(parity_holds(readings), f"card vs cpu training, {what}: {text}")
+    check(parity_holds(readings, limits),
+          f"card vs cpu training, {what}: {text}")
     print(f"train card vs cpu: {what}: {text}")
 
 
@@ -2064,18 +2297,196 @@ def phase_doc_card_vs_cpu(seed: int) -> None:
           == 0, f"doc cut launches {counts}")
 
 
+def phase_bf16_train_main_path() -> dict:
+    """transformer-base training at --precision bfloat16 float32 on the
+    base corpus (written by the f32 path): the fused CE through its bf16
+    instantiations, one forward, dx and dw launch an update."""
+    return train_main_path(
+        f"transformer-base 6+6, dim 512, ffn 2048, 8 heads, vocab {VOCAB}, "
+        f"bf16 compute from f32 master weights, dropout 0.1, {TRAIN_WORDS} "
+        f"target words a batch",
+        lambda model, updates: train_argv(model, updates, *BF16_FLAGS),
+        "train_bf16.npz", BF16_WARM, BF16_COUNTED, PER_UPDATE_BF16)
+
+
+def phase_bf16_decode_main_path(lines) -> dict:
+    """The base decode main path at --precision bfloat16: bf16 weights,
+    caches through decode_attention's bf16 path, f32 logits."""
+    tr, _, secs, counts = decode_run("base.npz", lines, *BF16_FLAGS)
+    check(tr.model.cfg.compute_dtype == torch.bfloat16
+          and tr.params["Wemb"].dtype == torch.bfloat16,
+          f"bf16 decode computes in {tr.model.cfg.compute_dtype}")
+    check_decode_counts(tr, counts, N_BATCHES, "packed_attention")
+    steps = list(tr.search.steps)
+    print(f"bf16 decode main path: transformer-base 6+6 in bf16, vocab "
+          f"{VOCAB}, beam {BEAM}, {len(lines)} sentences x {SRC_LEN} tokens "
+          f"in {N_BATCHES} batches of {BATCH}: steps {steps}, {secs:.3f} s, "
+          f"{len(lines) / secs:.2f} sentences/s, "
+          f"{1e3 * secs / sum(steps):.3f} ms per decode step (whole run / "
+          f"steps); launches {counts}")
+    return counts
+
+
+def bf16_translator(name: str, model: str, *extra: str,
+                    threads: int = 8):
+    """A bf16 decoder of ``model`` (BF16_FLAGS) on ``name``'s device."""
+    from marian_tpu_torch.translator.translator import Translate
+    dev = () if name == "cuda" else ("--cpu-threads", str(threads))
+    tr = Translate(decoder_options(model, "--n-best", *BF16_FLAGS, *extra,
+                                   *dev))
+    check(tr.device.type == name and tr.model.cfg.compute_dtype
+          == torch.bfloat16, f"{name} bf16 decode: {tr.device}, "
+          f"{tr.model.cfg.compute_dtype}")
+    return tr
+
+
+def best_hypotheses(tr, sents) -> list:
+    """``tr``'s beam decode of ``sents``: the best hypothesis of each."""
+    hyps = [[l.split(" ||| ") for l in s.splitlines()]
+            for s in tr.run(sents, io.StringIO())]
+    return [max(h, key=lambda x: float(x[2].split()[1]))[1] for h in hyps]
+
+
+def bf16_decode_reading(model: str, sents, *extra: str,
+                        cpu_best: list = None) -> dict:
+    """The card's bf16 beam decode of ``sents`` (``model``, BF16_FLAGS),
+    then both devices' steps on the card's best hypotheses (teacher
+    forcing): {"decode": (largest |logit diff| over the largest |logit|,
+    where), "identical": best hypotheses equal to the CPU's decode}.
+    ``cpu_best``: the CPU's best hypotheses, decoded already by the child
+    process."""
+    trs, best = {}, {}
+    for name in ("cuda", "cpu"):
+        trs[name] = tr = bf16_translator(name, model, *extra)
+        best[name] = (cpu_best if name == "cpu" and cpu_best is not None
+                      else best_hypotheses(tr, sents))
+    tokens = [trs["cuda"].trg_vocab.encode(t) for t in best["cuda"]]
+    forced = torch.zeros((len(tokens), max(map(len, tokens))),
+                         dtype=torch.long)
+    for i, t in enumerate(tokens):
+        forced[i, :len(t)] = torch.tensor(t)
+    logits = {}
+    for name, tr in trs.items():
+        _, src, mask = source_batch(tr, sents, tr.device)
+        logits[name] = dense_step_logits(tr.model, tr.params, src, mask,
+                                         forced.to(tr.device),
+                                         fused=True).cpu()
+    ref = logits["cpu"]
+    err = float((logits["cuda"] - ref).abs().max() / ref.abs().max())
+    same = sum(a == b for a, b in zip(best["cuda"], best["cpu"]))
+    return {"decode": (err, f"{forced.shape[1]} forced steps of "
+                       f"{len(sents)} sentences"), "identical": same}
+
+
+def cpu_references(seed: int) -> None:
+    """The CPU halves of phase_bf16_card_vs_cpu, in a child process
+    (--cpu-references) while the parent builds the kernels and runs the
+    kernel phases: the same
+    data from ``seed`` in CPU_WORK, then on CPU_REF_THREADS threads the
+    bf16 beam decode of the 2+2 base cut (its best hypotheses) and the
+    CPU runs of the base and doc-level bf16 training cuts, saved to
+    CPU_WORK/cpu_references.pt for the parent."""
+    global WORK
+    WORK = CPU_WORK
+    torch.set_num_threads(CPU_REF_THREADS)
+    lines = write_model(seed, cuts_only=True)
+    write_corpus(seed)
+    t0 = time.perf_counter()
+    tr = bf16_translator("cpu", "base_2x2.npz", threads=CPU_REF_THREADS)
+    out = {"decode_best": best_hypotheses(tr, lines[:8]),
+           "decode_seconds": time.perf_counter() - t0}
+    for cut, setup in (("base", lambda: base_parity_setup(*BF16_FLAGS)),
+                       ("doc", lambda: doc_parity_setup(seed, *BF16_FLAGS))):
+        args = setup()
+        t0 = time.perf_counter()
+        out[cut] = {"run": parity_run(*args, "cpu"),
+                    "seconds": time.perf_counter() - t0,
+                    "words": batch_words(args[2])}
+    torch.save(out, CPU_WORK / "cpu_references.pt")
+
+
+def start_cpu_references(seed: int):
+    """The child process of ``cpu_references``, its output to
+    CPU_WORK/log.txt."""
+    CPU_WORK.mkdir(parents=True, exist_ok=True)
+    (CPU_WORK / "cpu_references.pt").unlink(missing_ok=True)
+    with open(CPU_WORK / "log.txt", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--seed",
+             str(seed), "--cpu-references"], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT)
+
+
+def collect_cpu_references(child) -> dict:
+    """Waits for the child and loads what it saved."""
+    rc = child.wait(timeout=900)
+    if rc != 0:
+        fail(f"the CPU references' child process exited {rc}: "
+             f"{(CPU_WORK / 'log.txt').read_text()[-3000:]}")
+    ref = torch.load(CPU_WORK / "cpu_references.pt")
+    print(f"cpu references (child process, {CPU_REF_THREADS} threads): bf16 "
+          f"decode of 8 sentences {ref['decode_seconds']:.2f} s, base cut "
+          f"{ref['base']['seconds']:.2f} s, doc cut "
+          f"{ref['doc']['seconds']:.2f} s")
+    return ref
+
+
+def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> None:
+    """bf16 on the card against bf16 on the CPU, held to
+    PARITY_LIMITS_BF16: the 2+2 base training cut, the doc-level cut
+    (flash forward, dq and dkv in bf16) and the 2+2 base decode compared
+    by its step logits on the card's own tokens. ``ref``: the CPU halves,
+    from the child process."""
+    got = bf16_decode_reading("base_2x2.npz", lines[:8],
+                              cpu_best=ref["decode_best"])
+    err, where = got["decode"]
+    limit = PARITY_LIMITS_BF16["decode"]
+    check(err <= limit, f"bf16 decode card vs cpu: {err:.3g} ({where}) > "
+          f"{limit}")
+    print(f"bf16 card vs cpu: decode of 8 sentences, 2+2 base cut, beam "
+          f"{BEAM}: step logits within {err:.3g} of the largest ({where}, "
+          f"limit {limit}); best hypotheses identical on card and CPU: "
+          f"{got['identical']} of 8")
+    train_card_vs_cpu("2+2 cut of transformer-base, bf16",
+                      base_parity_setup(*BF16_FLAGS),
+                      PARITY_LIMITS_BF16["base"], ref["base"])
+    setup = doc_parity_setup(seed, *BF16_FLAGS)
+    reset_counts()
+    train_card_vs_cpu("doc-level 2+2 cut, dim 256, 4 heads, bf16", setup,
+                      PARITY_LIMITS_BF16["doc"], ref["doc"])
+    counts = read_counts()
+    check(counts["flash_attention_dkv"] > 0 and counts["fused_ce_dx_bf16"]
+          > 0 and counts["fused_ce_dx"] == 0, f"bf16 doc cut launches "
+          f"{counts}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=17)
+    ap.add_argument("--cpu-references", action="store_true",
+                    help=argparse.SUPPRESS)     # the child process
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if args.cpu_references:
+        cpu_references(args.seed)
+        return 0
     from marian_tpu_torch.device import resolve_device
     resolve_device("cuda")                           # TF32 off, card present
     smi = phase_card()
+    child = start_cpu_references(args.seed)
+    try:
+        return run_phases(args, smi, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def run_phases(args, smi: str, child) -> int:
     t0 = time.perf_counter()
 
     def timed(name, fn, *args):
@@ -2093,9 +2504,16 @@ def main(argv=None) -> int:
     kernels = [timed("decode kernel", phase_decode_kernel, gen), packed,
                packed_bwd,
                *timed("fused_ce kernels", phase_fused_ce_kernels, gen),
+               *timed("fused_ce bf16 kernels", phase_fused_ce_kernels_bf16,
+                      gen),
                *timed("flash kernels", phase_flash_kernels, gen),
                timed("paged kernel", phase_paged_kernel, gen)]
     torch.cuda.empty_cache()
+    # the child's CPU work may overlap the kernel phases, whose times are
+    # the card's own (CUDA events behind a device sleep), but none of the
+    # main paths, whose host-bound times it would slow
+    cpu_ref = timed("cpu references (the wait for the child)",
+                    collect_cpu_references, child)
     lines = timed("models", write_model, args.seed)
     path_counts = [timed("decode main path", phase_main_path, lines)]
     timed("decode card vs cpu", phase_card_vs_cpu, lines)
@@ -2110,6 +2528,12 @@ def main(argv=None) -> int:
     path_counts.append(timed("doc decode main path",
                              phase_doc_decode_main_path))
     timed("doc card vs cpu", phase_doc_card_vs_cpu, args.seed)
+    path_counts.append(timed("bf16 train main path",
+                             phase_bf16_train_main_path))
+    path_counts.append(timed("bf16 decode main path",
+                             phase_bf16_decode_main_path, lines))
+    timed("bf16 card vs cpu", phase_bf16_card_vs_cpu, lines, args.seed,
+          cpu_ref)
     for k in kernels:
         k["launches"] = sum(c[k["name"]] for c in path_counts)
     check(len(kernels) == len(kernel_counters())
@@ -2119,8 +2543,9 @@ def main(argv=None) -> int:
         f"{k['name']} launches {k['launches']} pass" for k in kernels))
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_ms_f32_peak")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

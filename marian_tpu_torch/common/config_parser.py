@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import yaml
 
+from . import logging as log
 from .config_validator import validate_options
 from .options import Options
 
@@ -81,7 +82,8 @@ _MODEL = [
     _f("transformer-train-position-embeddings", bool, False, "Learned positional embeddings"),
     _f("transformer-depth-scaling", bool, False, "Depth-scaled parameter initialization"),
     _f("max-length", int, 50, "Maximum sentence length (decode cap)"),
-    _f("precision", str, ["float32", "float32"], "Precisions: compute, accumulation (float16 maps to bfloat16)", "+"),
+    _f("precision", str, ["float32", "float32"], "Precisions: compute, optimizer accumulation (float16 is mapped to bfloat16; the second is accepted and not acted on)", "+"),
+    _f("fp16", bool, False, "Half-precision shortcut: --precision bfloat16 float32 unless --precision is given (fp16's narrow exponent needs loss scaling; bf16 keeps the f32 range)"),
 ]
 
 _TRANSLATION = [
@@ -142,8 +144,8 @@ _TRAINING = [
     _f("normalize-gradient", bool, False, "Additionally divide the gradient by the batch's target-word count"),
     _f("check-gradient-nan", bool, False, "Skip the whole update when the gradient norm is non-finite"),
     _f("dynamic-gradient-scaling", str, [], "Outlier gradient scaling (not ported yet)", "*"),
-    _f("optimizer-state-dtype", str, "float32", "Storage dtype of Adam's first moment (float32 only here)"),
-    _f("gradient-dtype", str, "float32", "Gradient dtype (float32 only here)"),
+    _f("optimizer-state-dtype", str, "float32", "Storage dtype for Adam's first moment: float32 | bfloat16 (halves m's memory and per-step traffic; math stays f32, v stays f32; beyond the reference)"),
+    _f("gradient-dtype", str, "float32", "Dtype gradients are produced and stored in until the optimizer's f32 upcast: float32 | bfloat16 (requires matching bfloat16 compute --precision, otherwise ignored with a warning). Note: the logits backward always rounds its cotangent through the COMPUTE dtype (ops/ops.py logits_matmul), so float32 here does NOT make bf16-compute backward passes fully f32"),
     _f("async-save", bool, False, "Overlap checkpoint writes with training (not ported yet)"),
     _f("shuffle", str, "data", "data, batches, none"),
     _f("no-shuffle", bool, False, "Disable shuffling (= --shuffle none)"),
@@ -268,8 +270,17 @@ class ConfigParser:
         for k, v in cli.items():
             if k != "config":
                 merged[k] = v
+        if merged.get("fp16"):
+            # --fp16 shortcut (reference: precision float16 float32): it
+            # maps to bfloat16 compute, which keeps the f32 exponent
+            # range and needs no loss scaling; an explicit --precision
+            # wins
+            if "precision" not in explicit:
+                merged["precision"] = ["bfloat16", "float32"]
         if str((merged.get("precision") or ["float32"])[0]) in (
                 "float16", "fp16", "half"):
+            log.warn("precision float16 is mapped to bfloat16 (same width, "
+                     "f32 exponent range — no loss scaling needed)")
             merged["precision"] = ["bfloat16"] + list(merged["precision"][1:])
         for alias, (canon, vmap) in _CANONICAL.items():
             if alias in explicit and canon not in explicit:

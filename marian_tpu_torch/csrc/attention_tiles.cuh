@@ -25,6 +25,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// The operand type of a library built from a source whose entry points
+// each take one (packed_attention.cu, flash_attention.cu, fused_ce.cu):
+// the build compiles such a source twice, in parallel, with KERNEL_DTYPE
+// 0 (float32) and 1 (bfloat16); a library returns cudaErrorInvalidValue
+// for the other type.
+#ifndef KERNEL_DTYPE
+#define KERNEL_DTYPE 0
+#endif
+
 namespace attn {
 
 constexpr int kThreads = 256;      // 16 x 16

@@ -458,17 +458,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* kvm,
   return (int)cudaGetLastError();
 }
 
-// one instance per (dtype, head size): 0 = float32, 1 = bfloat16
+// one instance per head size of the library's dtype (KERNEL_DTYPE): 0 =
+// float32, 1 = bfloat16
+#if KERNEL_DTYPE == 0
+#define FLASH_T float
+#else
+#define FLASH_T __nv_bfloat16
+#endif
 #define FLASH_DISPATCH(CALL)                                     \
-  switch (dtype * 1000 + Dh) {                                   \
-    case 16: return CALL(float, 16);                             \
-    case 32: return CALL(float, 32);                             \
-    case 64: return CALL(float, 64);                             \
-    case 128: return CALL(float, 128);                           \
-    case 1016: return CALL(__nv_bfloat16, 16);                   \
-    case 1032: return CALL(__nv_bfloat16, 32);                   \
-    case 1064: return CALL(__nv_bfloat16, 64);                   \
-    case 1128: return CALL(__nv_bfloat16, 128);                  \
+  if (dtype != KERNEL_DTYPE) return (int)cudaErrorInvalidValue;  \
+  switch (Dh) {                                                  \
+    case 16: return CALL(FLASH_T, 16);                           \
+    case 32: return CALL(FLASH_T, 32);                           \
+    case 64: return CALL(FLASH_T, 64);                           \
+    case 128: return CALL(FLASH_T, 128);                         \
     default: return (int)cudaErrorInvalidValue;                  \
   }
 

@@ -16,6 +16,19 @@
 // 25 MB of x and 65 MB of w. They run in f32 on the CUDA cores, outside
 // the tensor cores (TF32 stays off).
 //
+// Two instantiations of every kernel, each in a library of its own
+// (KERNEL_DTYPE, at the entry points): x and w float32, or x and w bfloat16
+// (mixed-precision training, --precision bfloat16). The f32 one loads its
+// operands as float4s. The bf16 one reads them from memory as bf16 (8
+// bytes for 4 values, half the f32 bytes), widens them in registers and
+// accumulates in f32 on the same template; b, lse, the cotangents, d and
+// db stay f32. As the reference's backward does (d.astype(w.dtype)
+// before dx, d.astype(x.dtype) before dw), the bf16 dx and dw products
+// round each d value to bf16 as they read it from shared memory, while db
+// sums the unrounded d. dx is accumulated over the vocabulary chunks in
+// an f32 buffer and written as bf16 by the last chunk; dw is written as
+// bf16 once a chunk.
+//
 // Forward: one block of 256 threads per (vocabulary tile of 256 columns,
 // token tile of 128 rows) forms that logit tile with the NT product of the
 // template described below (product_tile, as the backward's d product
@@ -66,10 +79,66 @@
 // E % 4 == 0 and 16-byte aligned operands (the wrapper says so in `vec`),
 // else scalar loads run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_tiles.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+using attn::from_f32;
+
+// x rounded to bf16 and widened back (the reference's d.astype(bf16))
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Four consecutive values of T as loaded, raw: a float4 of f32, a uint2
+// of bf16 bits. An operand tile waits in registers in this form while
+// the block computes on the staged one, and is widened to f32 only when
+// it is staged, so no conversion waits on a load in flight.
+template <typename T> struct Raw4;
+template <> struct Raw4<float> { using type = float4; };
+template <> struct Raw4<bf16> { using type = uint2; };
+
+// the four bf16 values at q, raw: one 8-byte load (q aligned to 8 bytes)
+__device__ __forceinline__ uint2 load_raw(const bf16* q) {
+  return __ldg(reinterpret_cast<const uint2*>(q));
+}
+
+// the bf16 values q[i] for the i < 4 that `ok` allows, 0 elsewhere, raw
+__device__ __forceinline__ uint2 load_raw_masked(const bf16* q, int ok) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(q);
+  unsigned v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < ok) v[i] = h[i];
+  return make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
+}
+
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float4 widen(uint2 u) {
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// four values to q (16-byte aligned for f32, 8-byte for bf16), in T
+__device__ __forceinline__ void store4(float* q, float4 v) {
+  *reinterpret_cast<float4*>(q) = v;
+}
+__device__ __forceinline__ void store4(bf16* q, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(q) = u;
+}
 
 constexpr float kStatsInit = -1e30f;
 
@@ -101,19 +170,20 @@ static_assert(kGM * kGK % (4 * kGThreads) == 0, "float4s");
 
 // An operand of C[m][n] = sum_k A(m, k) B(n, k): element (r, k) lies at
 // p[k * ld + r] when k-major, else at p[r * ld + k]; rows at or past
-// `rows` and depths at or past `ks` read as 0.
+// `rows` and depths at or past `ks` read as 0. T is float or bf16.
+template <typename T>
 struct Operand {
-  const float* p;
+  const T* p;
   int ld, rows, ks;
 };
 
-// This thread's float4s of the operand's [ROWS x kGK] tile at (r0, k0):
-// float4 u is element idx = tid + 256 u; k-major, depth k0 + idx / (ROWS /
-// 4) of rows r0 + 4 (idx % (ROWS / 4)) .. + 3; else row r0 + idx / 2 at
-// depths k0 + 4 (idx % 2) .. + 3.
+// This thread's four-value vectors of the operand's [ROWS x kGK] tile at
+// (r0, k0): vector u is element idx = tid + 256 u; k-major, depth k0 +
+// idx / (ROWS / 4) of rows r0 + 4 (idx % (ROWS / 4)) .. + 3; else row r0 +
+// idx / 2 at depths k0 + 4 (idx % 2) .. + 3. In f32, float4s as loaded.
 template <int ROWS, bool kMajor>
-__device__ __forceinline__ void load_tile(const Operand& o, int r0, int k0,
-                                          bool vec,
+__device__ __forceinline__ void load_tile(const Operand<float>& o, int r0,
+                                          int k0, bool vec,
                                           float4 (&out)[ROWS / 128]) {
   constexpr int kQ = ROWS / 4;
 #pragma unroll
@@ -152,15 +222,45 @@ __device__ __forceinline__ void load_tile(const Operand& o, int r0, int k0,
   }
 }
 
-// load_tile's float4s into the k-major staged tile s[kGK][pitch(ROWS)]
+// The same vectors of a bf16 operand, as raw bits (uint2).
 template <int ROWS, bool kMajor>
+__device__ __forceinline__ void load_tile(const Operand<bf16>& o, int r0,
+                                          int k0, bool vec,
+                                          uint2 (&out)[ROWS / 128]) {
+  constexpr int kQ = ROWS / 4;
+#pragma unroll
+  for (int u = 0; u < ROWS / 128; ++u) {
+    const int t = threadIdx.x + u * kGThreads;
+    // the vector's first element, and how many of its 4 are real
+    const bf16* q = o.p;
+    int ok = 0;
+    if (kMajor) {
+      const int k = k0 + t / kQ, r = r0 + ((t % kQ) << 2);
+      if (k < o.ks) {
+        q += (size_t)k * o.ld + r;
+        ok = min(4, o.rows - r);
+      }
+    } else {
+      const int r = r0 + (t >> 1), k = k0 + ((t & 1) << 2);
+      if (r < o.rows) {
+        q += (size_t)r * o.ld + k;
+        ok = min(4, o.ks - k);
+      }
+    }
+    out[u] = vec && ok == 4 ? load_raw(q) : load_raw_masked(q, ok);
+  }
+}
+
+// load_tile's vectors, widened to f32, into the k-major staged tile
+// s[kGK][pitch(ROWS)]
+template <int ROWS, bool kMajor, typename R>
 __device__ __forceinline__ void stage_tile(float* s,
-                                           const float4 (&in)[ROWS / 128]) {
+                                           const R (&in)[ROWS / 128]) {
   constexpr int kQ = ROWS / 4, kLd = pitch(ROWS);
 #pragma unroll
   for (int u = 0; u < ROWS / 128; ++u) {
     const int t = threadIdx.x + u * kGThreads;
-    const float4 v = in[u];
+    const float4 v = widen(in[u]);
     if (kMajor) {
       *reinterpret_cast<float4*>(s + (t / kQ) * kLd + ((t % kQ) << 2)) = v;
     } else {
@@ -187,15 +287,16 @@ __device__ __forceinline__ int tile_col(int j) {
 }
 
 // acc[i][j] = sum over k in [k_begin, k_end) of A(m0 + tile_row(i), k) *
-// B(n0 + tile_col(j), k), k_begin a multiple of kGK. With colsum on (the
-// dw product's blocks of the first column tile), threads 0 .. 127 also
-// sum A(m0 + tid, k) over k, in order, into colsum[0], compensated
-// (Kahan; colsum[1] carries the lost low bits): one thread's sequential
-// sum over thousands of tokens otherwise drifts past 1e-5 of db.
-// smem holds 2 * (stage(kGM) + stage(kGN)) floats.
-template <bool kAMajor, bool kBMajor>
-__device__ __forceinline__ void product_tile(const Operand& A,
-                                             const Operand& B, int m0,
+// B(n0 + tile_col(j), k), k_begin a multiple of kGK. With kRoundA each A
+// value is rounded to bf16 as the product reads it (the bf16 backward's
+// d). With colsum on (the dw product's blocks of the first column tile),
+// threads 0 .. 127 also sum A(m0 + tid, k) over k, unrounded, in order,
+// into colsum[0], compensated (Kahan; colsum[1] carries the lost low
+// bits): one thread's sequential sum over thousands of tokens otherwise
+// drifts past 1e-5 of db. smem holds 2 * (stage(kGM) + stage(kGN)) floats.
+template <bool kAMajor, bool kBMajor, bool kRoundA, typename TA, typename TB>
+__device__ __forceinline__ void product_tile(const Operand<TA>& A,
+                                             const Operand<TB>& B, int m0,
                                              int n0, int k_begin, int k_end,
                                              bool vec_a, bool vec_b,
                                              bool colsum_on, float* smem,
@@ -210,7 +311,8 @@ __device__ __forceinline__ void product_tile(const Operand& A,
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < kRT; ++j) acc[i][j] = 0.f;
-  float4 ra[kGM / 128], rb[kGN / 128];
+  typename Raw4<TA>::type ra[kGM / 128];
+  typename Raw4<TB>::type rb[kGN / 128];
   load_tile<kGM, kAMajor>(A, m0, k_begin, vec_a, ra);
   load_tile<kGN, kBMajor>(B, n0, k_begin, vec_b, rb);
   stage_tile<kGM, kAMajor>(As, ra);
@@ -230,8 +332,11 @@ __device__ __forceinline__ void product_tile(const Operand& A,
       float a[8], bb[kRT];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
-        const float4 f =
+        float4 f =
             *reinterpret_cast<const float4*>(as + kk * kLdA + 64 * q + 4 * ty);
+        if (kRoundA)
+          f = make_float4(round_bf16(f.x), round_bf16(f.y), round_bf16(f.z),
+                          round_bf16(f.w));
         a[4 * q] = f.x; a[4 * q + 1] = f.y; a[4 * q + 2] = f.z;
         a[4 * q + 3] = f.w;
       }
@@ -273,16 +378,18 @@ __device__ __forceinline__ void product_tile(const Operand& A,
 // lies in another tile), sum of l, over the real columns of vocabulary
 // tile t (columns 256 t .. 256 t + 255, those < V) of token n's logits
 // l = x[n] . w^T + b. grid (ceil(V / 256), ceil(N / 128)): block (t, u)
-// forms vocabulary tile t of token tile u.
+// forms vocabulary tile t of token tile u. T: the type of x and w.
+template <typename T>
 __global__ void __launch_bounds__(kGThreads, 1) fce_fwd_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
+    const T* __restrict__ x, const T* __restrict__ w,
     const float* __restrict__ b, const int* __restrict__ labels, int N,
     int V, int E, int vec, float* __restrict__ part) {
   __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   float acc[8][kRT], unused[2];
-  product_tile<false, false>(Operand{x, E, N, E}, Operand{w, E, V, E}, m0,
-                             n0, 0, E, vec, vec, false, smem, acc, unused);
+  product_tile<false, false, false>(Operand<T>{x, E, N, E},
+                                    Operand<T>{w, E, V, E}, m0, n0, 0, E,
+                                    vec, vec, false, smem, acc, unused);
 #pragma unroll
   for (int j = 0; j < kRT; ++j) {
     const int c = n0 + tile_col(j);
@@ -358,8 +465,10 @@ __global__ void fce_fwd_combine_kernel(const float* __restrict__ part, int N,
 
 // d[N][ldd], columns [0, width): d of vocabulary columns v0 .. v0 + width
 // (NT: x rows against w_c rows). grid (ceil(width / 128), ceil(N / 128)).
+// d stays f32 in both instantiations: db sums it unrounded.
+template <typename T>
 __global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dlogit_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
+    const T* __restrict__ x, const T* __restrict__ w,
     const float* __restrict__ b, const int* __restrict__ labels,
     const float* __restrict__ lse, const float* __restrict__ g_lse,
     const float* __restrict__ g_lab, const float* __restrict__ g_tot,
@@ -368,9 +477,9 @@ __global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dlogit_kernel(
   __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   float acc[8][kRT], unused[2];
-  product_tile<false, false>(Operand{x, E, N, E},
-                             Operand{w + (size_t)v0 * E, E, width, E}, m0,
-                             n0, 0, E, vec, vec, false, smem, acc, unused);
+  product_tile<false, false, false>(
+      Operand<T>{x, E, N, E}, Operand<T>{w + (size_t)v0 * E, E, width, E},
+      m0, n0, 0, E, vec, vec, false, smem, acc, unused);
   float bias[kRT];
 #pragma unroll
   for (int j = 0; j < kRT; ++j) {
@@ -413,75 +522,87 @@ __device__ __forceinline__ int2 k_slice(int K, int splits, int z) {
 }
 
 // row a = acc[i] of this thread's register tile into row `out` of width
-// E: out[n0 + tile_col(j)] = (accumulate ? out[...] : 0) + a[j]
-__device__ __forceinline__ void store_tile_row(float* out, int n0,
-                                               const float* a, int E,
-                                               bool vec, bool accumulate) {
+// E, in T: out[n0 + tile_col(j)] = (prev ? prev[...] : 0) + a[j], prev
+// the f32 row the sum so far lies in (it may be out itself)
+template <typename T>
+__device__ __forceinline__ void store_tile_row(T* out, const float* prev,
+                                               int n0, const float* a, int E,
+                                               bool vec) {
 #pragma unroll
   for (int jj = 0; jj < kRT / 4; ++jj) {
     const int c0 = n0 + tile_col(4 * jj);
     const float* p = a + 4 * jj;
     if (vec && c0 + 3 < E) {
       float4 o = make_float4(p[0], p[1], p[2], p[3]);
-      if (accumulate) {
-        const float4 q = *reinterpret_cast<const float4*>(out + c0);
+      if (prev) {
+        const float4 q = *reinterpret_cast<const float4*>(prev + c0);
         o = make_float4(q.x + o.x, q.y + o.y, q.z + o.z, q.w + o.w);
       }
-      *reinterpret_cast<float4*>(out + c0) = o;
+      store4(out + c0, o);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (c0 + j < E) out[c0 + j] = accumulate ? out[c0 + j] + p[j] : p[j];
+        if (c0 + j < E)
+          out[c0 + j] = from_f32<T>(prev ? prev[c0 + j] + p[j] : p[j]);
     }
   }
 }
 
-// dx[N][E] = (accumulate ? dx : 0) + d[:, :width] . w[v0 : v0 + width]
-// (NN). grid (ceil(E / 128), ceil(N / 128), splits): with splits > 1 each
-// z-block sums one slice of the chunk's columns into part[z] [N][E] and
-// fce_bwd_sum_kernel adds the slices in order.
+// sum = (accumulate ? dxf : 0) + d[:, :width] . w[v0 : v0 + width] (NN),
+// into OUT: the f32 running sum dxf, or on the last chunk dx in T (for
+// f32, dxf and dx are one buffer). grid (ceil(E / 128), ceil(N / 128),
+// splits): with splits > 1 each z-block sums one slice of the chunk's
+// columns into part[z] [N][E] and fce_bwd_sum_kernel adds the slices in
+// order and writes the sum.
+template <typename T, typename OUT>
 __global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dx_kernel(
-    const float* __restrict__ d, const float* __restrict__ w,
-    float* __restrict__ dx, float* __restrict__ part, int N, int E, int v0,
-    int width, int ldd, int accumulate, int vec) {
+    const float* __restrict__ d, const T* __restrict__ w,
+    const float* dxf, OUT* out, float* __restrict__ part, int N, int E,
+    int v0, int width, int ldd, int accumulate, int vec) {
   __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   const int2 ks = k_slice(width, gridDim.z, blockIdx.z);
   float acc[8][kRT], unused[2];
-  product_tile<false, true>(Operand{d, ldd, N, width},
-                            Operand{w + (size_t)v0 * E, E, E, width}, m0, n0,
-                            ks.x, ks.y, true, vec, false, smem, acc, unused);
-  const bool direct = gridDim.z == 1;
-  float* out = direct ? dx : part + (size_t)blockIdx.z * N * E;
+  constexpr bool kRound = sizeof(T) == 2;
+  product_tile<false, true, kRound>(
+      Operand<float>{d, ldd, N, width},
+      Operand<T>{w + (size_t)v0 * E, E, E, width}, m0, n0, ks.x, ks.y, true,
+      vec, false, smem, acc, unused);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + tile_row(i);
-    if (r < N)
-      store_tile_row(out + (size_t)r * E, n0, acc[i], E, vec,
-                     direct && accumulate);
+    if (r >= N) continue;
+    if (gridDim.z == 1)
+      store_tile_row(out + (size_t)r * E,
+                     accumulate ? dxf + (size_t)r * E : nullptr, n0, acc[i],
+                     E, vec);
+    else
+      store_tile_row(part + ((size_t)blockIdx.z * N + r) * E, nullptr, n0,
+                     acc[i], E, vec);
   }
 }
 
-// dw[v0 + m][E] = sum_n d[n][m] x[n] for m < width (TN), and
-// db[v0 + m] = sum_n d[n][m] from the blocks of the first column tile.
+// dw[v0 + m][E] = sum_n d[n][m] x[n] for m < width (TN), in T, and
+// db[v0 + m] = sum_n d[n][m] (f32, d unrounded) from the blocks of the
+// first column tile.
 // grid (ceil(E / 128), ceil(width / 128), splits): with splits > 1 each
 // z-block sums one slice of the tokens into part[z] [width][E] (and its
 // db into part[splits * width * E + z * width + m]), and
 // fce_bwd_sum_kernel adds the slices in order.
+template <typename T>
 __global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dw_kernel(
-    const float* __restrict__ d, const float* __restrict__ x,
-    float* __restrict__ dw, float* __restrict__ db, float* __restrict__ part,
+    const float* __restrict__ d, const T* __restrict__ x,
+    T* __restrict__ dw, float* __restrict__ db, float* __restrict__ part,
     int N, int E, int v0, int width, int ldd, int vec) {
   __shared__ __align__(16) float smem[2 * (stage(kGM) + stage(kGN))];
   const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
   const int2 ks = k_slice(N, gridDim.z, blockIdx.z);
   float acc[8][kRT], colsum[2] = {0.f, 0.f};
-  product_tile<true, true>(Operand{d, ldd, width, N}, Operand{x, E, E, N},
-                           m0, n0, ks.x, ks.y, true, vec, blockIdx.x == 0,
-                           smem, acc, colsum);
+  constexpr bool kRound = sizeof(T) == 2;
+  product_tile<true, true, kRound>(
+      Operand<float>{d, ldd, width, N}, Operand<T>{x, E, E, N}, m0, n0, ks.x,
+      ks.y, true, vec, blockIdx.x == 0, smem, acc, colsum);
   const bool direct = gridDim.z == 1;
-  float* out = direct ? dw + (size_t)v0 * E
-                      : part + (size_t)blockIdx.z * width * E;
   float* col = direct ? db + v0
                       : part + (size_t)gridDim.z * width * E +
                             (size_t)blockIdx.z * width;
@@ -490,39 +611,38 @@ __global__ void __launch_bounds__(kGThreads, 1) fce_bwd_dw_kernel(
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = m0 + tile_row(i);
-    if (r < width)
-      store_tile_row(out + (size_t)r * E, n0, acc[i], E, vec, false);
+    if (r >= width) continue;
+    if (direct)
+      store_tile_row(dw + (size_t)(v0 + r) * E, nullptr, n0, acc[i], E, vec);
+    else
+      store_tile_row(part + ((size_t)blockIdx.z * width + r) * E, nullptr,
+                     n0, acc[i], E, vec);
   }
 }
 
-// out[i] = (accumulate ? out[i] : 0) + sum over s < splits of
-// part[s * count + i], the slices in order
+// out[i] = (prev ? prev[i] : 0) + sum over s < splits of
+// part[s * count + i], the slices in order, in OUT (prev may be out)
+template <typename OUT>
 __global__ void fce_bwd_sum_kernel(const float* __restrict__ part,
-                                   float* __restrict__ out, size_t count,
-                                   int splits, int accumulate) {
+                                   const float* prev, OUT* out,
+                                   size_t count, int splits) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
   float acc = part[i];
   for (int s = 1; s < splits; ++s) acc += part[(size_t)s * count + i];
-  out[i] = accumulate ? out[i] + acc : acc;
+  out[i] = from_f32<OUT>(prev ? prev[i] + acc : acc);
 }
 
-}  // namespace
-
-// All tensors float32 and contiguous; labels int32. part is scratch of
-// 4 * ceil(V / 256) * N floats; vec: E % 4 == 0 and x, w 16-byte
-// aligned. Launches the partial-stats kernel and its fixed-order merge.
-// Returns cudaGetLastError().
-extern "C" int fused_ce_fwd(const void* x, const void* w, const void* b,
-                            const void* labels, void* lse, void* lab,
-                            void* tot, void* part, int N, int V, int E,
-                            int vec, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// the launches of one call in the operands' type T
+template <typename T>
+int fwd(const void* x, const void* w, const void* b, const void* labels,
+        void* lse, void* lab, void* tot, void* part, int N, int V, int E,
+        int vec, cudaStream_t s) {
   const int vtiles = (V + kGN - 1) / kGN;
   const dim3 grid(vtiles, (N + kGM - 1) / kGM);
-  fce_fwd_kernel<<<grid, kGThreads, 0, s>>>(
-      (const float*)x, (const float*)w, (const float*)b, (const int*)labels,
-      N, V, E, vec, (float*)part);
+  fce_fwd_kernel<T><<<grid, kGThreads, 0, s>>>(
+      (const T*)x, (const T*)w, (const float*)b, (const int*)labels, N, V,
+      E, vec, (float*)part);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   fce_fwd_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(
@@ -530,65 +650,127 @@ extern "C" int fused_ce_fwd(const void* x, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-// The backward of one vocabulary chunk [v0, v0 + width), in three calls
-// the wrapper makes in this order. All tensors float32 and contiguous,
-// labels int32; d is the [N, ldd] scratch (ldd a multiple of 128, at least
-// width); vec: E % 4 == 0 and x, w, dx, dw 16-byte aligned. Each returns
-// cudaGetLastError().
-extern "C" int fused_ce_bwd_dlogit(const void* x, const void* w,
-                                   const void* b, const void* labels,
-                                   const void* lse, const void* g_lse,
-                                   const void* g_lab, const void* g_tot,
-                                   void* d, int N, int E, int v0, int width,
-                                   int ldd, int vec, void* stream) {
+template <typename T>
+int dlogit(const void* x, const void* w, const void* b, const void* labels,
+           const void* lse, const void* g_lse, const void* g_lab,
+           const void* g_tot, void* d, int N, int E, int v0, int width,
+           int ldd, int vec, cudaStream_t s) {
   const dim3 grid((width + kGN - 1) / kGN, (N + kGM - 1) / kGM);
-  fce_bwd_dlogit_kernel<<<grid, kGThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)b, (const int*)labels,
+  fce_bwd_dlogit_kernel<T><<<grid, kGThreads, 0, s>>>(
+      (const T*)x, (const T*)w, (const float*)b, (const int*)labels,
       (const float*)lse, (const float*)g_lse, (const float*)g_lab,
       (const float*)g_tot, (float*)d, N, E, v0, width, ldd, vec);
   return (int)cudaGetLastError();
 }
 
-static int sum_slices(const float* part, float* out, size_t count,
-                      int splits, int accumulate, cudaStream_t s) {
-  fce_bwd_sum_kernel<<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
-      part, out, count, splits, accumulate);
+template <typename OUT>
+int sum_slices(const float* part, const float* prev, OUT* out, size_t count,
+               int splits, cudaStream_t s) {
+  fce_bwd_sum_kernel<OUT><<<(unsigned)((count + 255) / 256), 256, 0, s>>>(
+      part, prev, out, count, splits);
   return (int)cudaGetLastError();
 }
 
-// accumulate 0 for the first chunk (stores), 1 for the later ones; with
-// splits > 1, part is scratch of splits * N * E floats
-extern "C" int fused_ce_bwd_dx(const void* d, const void* w, void* dx,
-                               void* part, int N, int E, int v0, int width,
-                               int ldd, int accumulate, int vec, int splits,
-                               void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+// OUT: float while the sum runs on in dxf, T on the last chunk
+template <typename T, typename OUT>
+int dx_chunk(const void* d, const void* w, const void* dxf, void* out,
+             void* part, int N, int E, int v0, int width, int ldd,
+             int accumulate, int vec, int splits, cudaStream_t s) {
   const dim3 grid((E + kGN - 1) / kGN, (N + kGM - 1) / kGM, splits);
-  fce_bwd_dx_kernel<<<grid, kGThreads, 0, s>>>(
-      (const float*)d, (const float*)w, (float*)dx, (float*)part, N, E, v0,
-      width, ldd, accumulate, vec);
+  fce_bwd_dx_kernel<T, OUT><<<grid, kGThreads, 0, s>>>(
+      (const float*)d, (const T*)w, (const float*)dxf, (OUT*)out,
+      (float*)part, N, E, v0, width, ldd, accumulate, vec);
   int err = (int)cudaGetLastError();
   if (err != 0 || splits == 1) return err;
-  return sum_slices((const float*)part, (float*)dx, (size_t)N * E, splits,
-                    accumulate, s);
+  return sum_slices((const float*)part,
+                    accumulate ? (const float*)dxf : nullptr, (OUT*)out,
+                    (size_t)N * E, splits, s);
 }
 
-// with splits > 1, part is scratch of splits * width * (E + 1) floats
-extern "C" int fused_ce_bwd_dw(const void* d, const void* x, void* dw,
-                               void* db, void* part, int N, int E, int v0,
-                               int width, int ldd, int vec, int splits,
-                               void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+template <typename T>
+int dw_chunk(const void* d, const void* x, void* dw, void* db, void* part,
+             int N, int E, int v0, int width, int ldd, int vec, int splits,
+             cudaStream_t s) {
   const dim3 grid((E + kGN - 1) / kGN, (width + kGM - 1) / kGM, splits);
-  fce_bwd_dw_kernel<<<grid, kGThreads, 0, s>>>(
-      (const float*)d, (const float*)x, (float*)dw, (float*)db, (float*)part,
-      N, E, v0, width, ldd, vec);
+  fce_bwd_dw_kernel<T><<<grid, kGThreads, 0, s>>>(
+      (const float*)d, (const T*)x, (T*)dw, (float*)db, (float*)part, N, E,
+      v0, width, ldd, vec);
   int err = (int)cudaGetLastError();
   if (err != 0 || splits == 1) return err;
   const size_t count = (size_t)width * E;
-  err = sum_slices((const float*)part, (float*)dw + (size_t)v0 * E, count,
-                   splits, 0, s);
+  err = sum_slices((const float*)part, nullptr, (T*)dw + (size_t)v0 * E,
+                   count, splits, s);
   if (err != 0) return err;
-  return sum_slices((const float*)part + splits * count, (float*)db + v0,
-                    width, splits, 0, s);
+  return sum_slices((const float*)part + splits * count, nullptr,
+                    (float*)db + v0, width, splits, s);
+}
+
+}  // namespace
+
+// This library's operand type (KERNEL_DTYPE, attention_tiles.cuh). Every
+// entry point takes the type its caller expects (bf16) and returns
+// cudaErrorInvalidValue for the other.
+#if KERNEL_DTYPE == 1
+using Op = __nv_bfloat16;
+#else
+using Op = float;
+#endif
+
+// x, w float32 (bf16 0) or bfloat16 (bf16 1), of one type; b, lse, lab,
+// tot and part float32; labels int32; all contiguous. part is scratch of
+// 4 * ceil(V / 256) * N floats; vec: E % 4 == 0 and x, w 16-byte
+// aligned. Launches the partial-stats kernel and its fixed-order merge.
+// Returns cudaGetLastError().
+extern "C" int fused_ce_fwd(const void* x, const void* w, const void* b,
+                            const void* labels, void* lse, void* lab,
+                            void* tot, void* part, int N, int V, int E,
+                            int vec, int bf16, void* stream) {
+  if (bf16 != KERNEL_DTYPE) return (int)cudaErrorInvalidValue;
+  return fwd<Op>(x, w, b, labels, lse, lab, tot, part, N, V, E, vec,
+                 (cudaStream_t)stream);
+}
+
+// The backward of one vocabulary chunk [v0, v0 + width), in three calls
+// the wrapper makes in this order. x, w (and dx, dw) float32 or bfloat16
+// as bf16 says; b, lse, the cotangents, d, db and the scratch float32;
+// labels int32; all contiguous. d is the [N, ldd] scratch (ldd a multiple
+// of 128, at least width); vec: E % 4 == 0 and x, w, dx, dw 16-byte
+// aligned. Each returns cudaGetLastError().
+extern "C" int fused_ce_bwd_dlogit(const void* x, const void* w,
+                                   const void* b, const void* labels,
+                                   const void* lse, const void* g_lse,
+                                   const void* g_lab, const void* g_tot,
+                                   void* d, int N, int E, int v0, int width,
+                                   int ldd, int vec, int bf16, void* stream) {
+  if (bf16 != KERNEL_DTYPE) return (int)cudaErrorInvalidValue;
+  return dlogit<Op>(x, w, b, labels, lse, g_lse, g_lab, g_tot, d, N, E, v0,
+                    width, ldd, vec, (cudaStream_t)stream);
+}
+
+// dxf: the f32 running sum [N][E] (accumulate 0 for the first chunk, 1
+// for the later ones); dx: where the last chunk (last 1) writes the total,
+// in the operands' type. For float32 dxf and dx may be one buffer. With
+// splits > 1, part is scratch of splits * N * E floats.
+extern "C" int fused_ce_bwd_dx(const void* d, const void* w, void* dxf,
+                               void* dx, void* part, int N, int E, int v0,
+                               int width, int ldd, int accumulate, int last,
+                               int vec, int splits, int bf16, void* stream) {
+  if (bf16 != KERNEL_DTYPE) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!last)
+    return dx_chunk<Op, float>(d, w, dxf, dxf, part, N, E, v0, width, ldd,
+                               accumulate, vec, splits, s);
+  return dx_chunk<Op, Op>(d, w, dxf, dx, part, N, E, v0, width, ldd,
+                          accumulate, vec, splits, s);
+}
+
+// dw in the operands' type, db float32; with splits > 1, part is scratch
+// of splits * width * (E + 1) floats
+extern "C" int fused_ce_bwd_dw(const void* d, const void* x, void* dw,
+                               void* db, void* part, int N, int E, int v0,
+                               int width, int ldd, int vec, int splits,
+                               int bf16, void* stream) {
+  if (bf16 != KERNEL_DTYPE) return (int)cudaErrorInvalidValue;
+  return dw_chunk<Op>(d, x, dw, db, part, N, E, v0, width, ldd, vec, splits,
+                      (cudaStream_t)stream);
 }

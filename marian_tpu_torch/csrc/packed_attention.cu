@@ -730,7 +730,8 @@ int launch_bwd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16; Dh 16, 32, 64 or 128. kv_mask
+// dtype codes: 0 = float32, 1 = bfloat16, the library's own
+// (KERNEL_DTYPE); Dh 16, 32, 64 or 128. kv_mask
 // and delta are float32 ([B, Tk] and [B, H, Tq]); dq_sum is float32
 // [B, H, Tq, Dh] scratch, needed at Dh 128 past 64 queries or keys (else
 // it may be null). Returns cudaGetLastError() (or the error of raising
@@ -748,20 +749,24 @@ extern "C" int packed_attention_bwd(const void* q, const void* k,
   launch_bwd<T, D>(q, k, v, kv_mask, dout, delta, dq, dk, dv, dq_sum, B, \
                    H, Tq, Tk, scale, causal, s)
   switch (dtype * 1000 + Dh) {
+#if KERNEL_DTYPE == 0
     case 16: return CALL(float, 16);
     case 32: return CALL(float, 32);
     case 64: return CALL(float, 64);
     case 128: return CALL(float, 128);
+#else
     case 1016: return CALL(__nv_bfloat16, 16);
     case 1032: return CALL(__nv_bfloat16, 32);
     case 1064: return CALL(__nv_bfloat16, 64);
     case 1128: return CALL(__nv_bfloat16, 128);
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CALL
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16. kv_mask is float32 [B, Tk].
+// dtype codes: 0 = float32, 1 = bfloat16, the library's own
+// (KERNEL_DTYPE). kv_mask is float32 [B, Tk].
 // tile 32 or 64 takes packed_attention_fwd_kernel (Dh 16, 32, 64 or 128)
 // with that many query rows a block, tile 0 packed_attention_generic_kernel
 // (any Dh). Returns cudaGetLastError() (or the error of raising the
@@ -773,26 +778,32 @@ extern "C" int packed_attention(const void* q, const void* k, const void* v,
                                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (tile == 0) {
+#if KERNEL_DTYPE == 0
     if (dtype == 0)
       return launch_generic<float>(q, k, v, kv_mask, out, B, H, Tq, Tk, Dh,
                                    scale, causal, s);
+#else
     if (dtype == 1)
       return launch_generic<__nv_bfloat16>(q, k, v, kv_mask, out, B, H, Tq,
                                            Tk, Dh, scale, causal, s);
+#endif
     return (int)cudaErrorInvalidValue;
   }
 #define CALL(T, D)                                                     \
   launch_fwd<T, D>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale, causal, tile, \
                    s)
   switch (dtype * 1000 + Dh) {
+#if KERNEL_DTYPE == 0
     case 16: return CALL(float, 16);
     case 32: return CALL(float, 32);
     case 64: return CALL(float, 64);
     case 128: return CALL(float, 128);
+#else
     case 1016: return CALL(__nv_bfloat16, 16);
     case 1032: return CALL(__nv_bfloat16, 32);
     case 1064: return CALL(__nv_bfloat16, 64);
     case 1128: return CALL(__nv_bfloat16, 128);
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CALL

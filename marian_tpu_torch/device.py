@@ -7,7 +7,9 @@ they never fall back to the CPU on their own.
 
 float32 stays float32 on the card: TF32 is switched off for matrix
 products and for cuDNN, so the port's f32 numbers are comparable with the
-reference's and with its own CPU runs.
+reference's and with its own CPU runs. bfloat16 products accumulate in
+f32 throughout: cuBLAS may not reduce split-K partial sums in bf16, where
+the reference's dots accumulate in f32 (``preferred_element_type``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 def _pin_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None,

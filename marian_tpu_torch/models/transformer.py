@@ -44,7 +44,8 @@ import torch
 from ..ops.attention import attention
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.kv_pool import paged_decode_attention
-from ..ops.ops import activation, affine, dropout, layer_norm
+from ..ops.ops import (activation, affine, dropout, layer_norm,
+                       logits_matmul, scalar)
 
 Params = Dict[str, torch.Tensor]
 
@@ -368,7 +369,7 @@ def _embed_words(cfg: TransformerConfig, params: Params, ids: torch.Tensor,
     else:
         table = params[own]
     x = table[ids].to(cfg.compute_dtype)
-    return x * math.sqrt(cfg.dim_emb)
+    return x * scalar(math.sqrt(cfg.dim_emb), x)
 
 
 def _add_pos(cfg: TransformerConfig, x: torch.Tensor,
@@ -519,7 +520,8 @@ def _plain_output_table(cfg: TransformerConfig, params: Params):
 def output_logits(cfg: TransformerConfig, params: Params,
                   x: torch.Tensor) -> torch.Tensor:
     """[.., D] decoder states → [.., V] f32 logits (tied embeddings: the
-    table's transpose, a view, not a copy)."""
+    table's transpose, a view, not a copy), by ``logits_matmul`` on the
+    compute-dtype operands, as the reference computes them."""
     if cfg.tied_embeddings_all:
         table = params["Wemb"]
     elif cfg.tied_embeddings:
@@ -527,7 +529,7 @@ def output_logits(cfg: TransformerConfig, params: Params,
     else:
         table = None
     w = table.t() if table is not None else params["decoder_ff_logit_out_W"]
-    y = torch.matmul(x.float(), w.float())
+    y = logits_matmul(x, w.to(x.dtype))
     b = params.get("decoder_ff_logit_out_b")
     return y if b is None else y + b.float()
 

@@ -29,7 +29,7 @@ import torch
 
 from .kernels.flash_attention import flash_attention
 from .kernels.packed_attention import max_t, max_t_bwd, packed_attention
-from .ops import NEG_INF, dropout
+from .ops import NEG_INF, dropout, matmul_f32, scalar
 
 # the reference's default flash crossover (marian_tpu/ops/auto_tuner.py
 # :: flash_threshold)
@@ -39,10 +39,11 @@ FLASH_MIN_LEN = 1024
 def dense_attention_with_weights(q, k, v, mask=None, return_weights=True,
                                  dropout_rate: float = 0.0, generator=None):
     dh = q.shape[-1]
-    # 1/sqrt(dh) rounded in f32 as the reference computes it
+    # 1/sqrt(dh) computed in f32 and rounded to q's dtype, as the
+    # reference computes it; the scores in f32 from q's dtype
     scale = (1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
              ).item()
-    scores = torch.matmul(q * scale, k.transpose(-1, -2)).float()
+    scores = matmul_f32(q * scalar(scale, q), k.transpose(-1, -2))
     if mask is not None:
         scores = scores + (1.0 - mask.to(scores.dtype)) * NEG_INF
     weights = torch.softmax(scores, dim=-1).to(q.dtype)

@@ -1,12 +1,16 @@
 """Build and load the port's CUDA kernels (``marian_tpu_torch/csrc/*.cu``).
 
-Each source is compiled on first use by ``nvcc`` into a shared library
-with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds). Libraries land in ``build/marian_tpu_torch/``
-beside the package, named by a hash of the source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
-and a stale library is never loaded. ``build_all`` starts one ``nvcc``
-per source, all at once.
+Each library is compiled on first use by ``nvcc`` from one source, with
+defines of its own, into a shared library with a plain C interface and
+loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
+A source whose entry points each take one operand type
+(``packed_attention``, ``flash_attention``, ``fused_ce``) makes two
+libraries, ``KERNEL_DTYPE`` 0 (float32) and 1 (bfloat16, the name
+``<source>_bf16``), which compile in parallel. Libraries land in
+``build/marian_tpu_torch/`` beside the package, named by a hash of the
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
+``build_all`` starts one ``nvcc`` per library, all at once.
 
 Every C entry point takes pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
@@ -20,15 +24,22 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "marian_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("decode_attention", "packed_attention", "fused_ce",
-           "flash_attention", "paged_decode_attention")
+# library -> (source in csrc/, its own nvcc flags)
+LIBRARIES = {"decode_attention": ("decode_attention", ()),
+             "paged_decode_attention": ("paged_decode_attention", ())}
+for _src in ("packed_attention", "flash_attention", "fused_ce"):
+    LIBRARIES[_src] = (_src, ("-DKERNEL_DTYPE=0",))
+    LIBRARIES[f"{_src}_bf16"] = (_src, ("-DKERNEL_DTYPE=1",))
+# the sources the libraries are built from
+SOURCES = tuple(dict.fromkeys(src for src, _ in LIBRARIES.values()))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,45 +56,64 @@ def _nvcc() -> str:
                        "machine with the card (PATH or /usr/local/cuda)")
 
 
+def _flags(name: str):
+    return [*NVCC_FLAGS, *LIBRARIES[name][1]]
+
+
 def _lib_path(name: str) -> Path:
-    # the source and every shared header it may include
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
-                                            *sorted(CSRC.glob("*.cuh"))])
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # the source, every shared header it may include, and the flags
+    src = b"".join(p.read_bytes() for p in [
+        CSRC / f"{LIBRARIES[name][0]}.cu", *sorted(CSRC.glob("*.cuh"))])
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 
 
-def build_all(names: Sequence[str] = SOURCES) -> List[str]:
-    """Compile every source whose library is missing, one nvcc each, all
-    started together; returns the names that were compiled."""
+def build_all(names: Sequence[str] = tuple(LIBRARIES)) -> Dict[str, float]:
+    """Compile every library that is missing, one nvcc each, all started
+    together; returns {name: seconds its nvcc took} for those compiled."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not _lib_path(n).exists()]
-    jobs = []
+    jobs, took = [], {}
+    t0 = time.perf_counter()
     try:
         for n in todo:
             out = _lib_path(n)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{n}.cu")]
-            jobs.append((n, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        for n, out, tmp, proc in jobs:
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for csrc/{n}.cu "
-                                   f"(exit {proc.returncode}):\n{log}")
-            os.replace(tmp, out)
+            log = out.with_suffix(f".{os.getpid()}.log")
+            cmd = [_nvcc(), *_flags(n), "-o", str(tmp),
+                   str(CSRC / f"{LIBRARIES[n][0]}.cu")]
+            with open(log, "w") as f:
+                jobs.append((n, out, tmp, log, subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT)))
+        # poll, so that each library's time is its own nvcc's
+        while len(took) < len(jobs):
+            time.sleep(0.05)
+            for n, out, tmp, log, proc in jobs:
+                if n in took or proc.poll() is None:
+                    continue
+                took[n] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed for {n} (csrc/{LIBRARIES[n][0]}.cu, "
+                        f"exit {proc.returncode}):\n{log.read_text()}")
+                os.replace(tmp, out)
     finally:
-        for *_, proc in jobs:
+        for _, _, _, log, proc in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    return todo
+            log.unlink(missing_ok=True)
+    return took
+
+
+def typed(source: str, bf16: bool) -> str:
+    """The library of ``source`` for float32 or bfloat16 operands."""
+    return f"{source}_bf16" if bf16 else source
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library ``name`` (a key of LIBRARIES), built on first
+    use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

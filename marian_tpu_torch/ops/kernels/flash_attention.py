@@ -170,8 +170,8 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, do, out, lse,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _fn(symbol: str, n_ptr: int):
-    fn = getattr(_build.load("flash_attention"), symbol)
+def _fn(symbol: str, n_ptr: int, bf16: bool):
+    fn = getattr(_build.load(_build.typed("flash_attention", bf16)), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -179,10 +179,10 @@ def _fn(symbol: str, n_ptr: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    return {"fwd": _fn("flash_attention_fwd", 6),
-            "dq": _fn("flash_attention_dq", 8),
-            "dkv": _fn("flash_attention_dkv", 9)}
+def _kernels(bf16: bool):
+    return {"fwd": _fn("flash_attention_fwd", 6, bf16),
+            "dq": _fn("flash_attention_dq", 8, bf16),
+            "dkv": _fn("flash_attention_dkv", 9, bf16)}
 
 
 def _check(name, q, k, v, *more):
@@ -226,7 +226,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvm = _mask(kv_mask, b, tk, q.device).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    err = _kernels()["fwd"](
+    err = _kernels(q.dtype == torch.bfloat16)["fwd"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, h, tq, tk, dh, sc,
         int(bool(causal)), _DTYPES[q.dtype], _stream(q))
@@ -240,7 +240,7 @@ def _launch_bwd(which, operands, grads, causal, scale):
     kv_mask, dO, lse, delta: contiguous, on the card), writing ``grads``."""
     q, k = operands[:2]
     b, h, tq, dh = q.shape
-    err = _kernels()[which](
+    err = _kernels(q.dtype == torch.bfloat16)[which](
         *(t.data_ptr() for t in (*operands, *grads)), b, h, tq, k.shape[2],
         dh, scale, int(bool(causal)), _DTYPES[q.dtype], _stream(q))
     _build.check(err, f"flash_attention_{which}")

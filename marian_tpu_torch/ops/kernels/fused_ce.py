@@ -37,10 +37,15 @@ On a CUDA tensor the wrappers launch the hand-written kernels of
 product, the dx product and the dw/db product) or raise; on a CPU
 tensor they run their plain versions (``fused_ce_stats_reference``,
 ``fused_ce_bwd_reference``), which materialise the logits. The kernels
-take float32 and any hidden size E, and mask the ragged edges
-themselves, so the table is never padded. ``.launches`` on
-``fused_ce_stats`` counts its calls on the card; on ``fused_ce_dx`` and
-``fused_ce_dw`` it counts the card's backward calls that computed dx
+take x and w in float32 or in bfloat16 (of one type; b stays float32),
+any hidden size E, and mask the ragged edges themselves, so the table is
+never padded. In bfloat16 they read the operands as bf16 and accumulate
+in f32, and, as the reference's backward does, round d to bf16 before
+the dx and dw products (``round_d``); dx and dw come out in the
+operands' type, lse, lab, tot and db in float32. ``.launches`` on
+``fused_ce_stats`` counts its float32 calls on the card and
+``.launches_bf16`` its bfloat16 ones; on ``fused_ce_dx`` and
+``fused_ce_dw`` they count the card's backward calls that computed dx
 and dw, whichever entry point made them.
 """
 
@@ -129,7 +134,16 @@ def run_chunks(chunks, make_d: Callable, add_dx: Optional[Callable] = None,
 # ---------------------------------------------------------------------------
 
 def _logits(x, w, b):
+    """f32 logits: a product of two bf16 values is exact in f32, so this
+    is the kernels' arithmetic for either operand type."""
     return torch.matmul(x.float(), w.float().t()) + b.float()
+
+
+def round_d(d, dtype):
+    """d as the backward's products read it: rounded to the operand
+    dtype (the reference's ``d.astype(w.dtype)`` / ``d.astype(x.dtype)``;
+    a no-op in float32), in f32."""
+    return d.to(dtype).float()
 
 
 def fused_ce_stats_reference(x, w, b, labels):
@@ -172,36 +186,40 @@ def dlogits_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot):
 
 
 def fused_ce_bwd_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot):
-    """(dx, dw, db) for the stats' cotangents: d . w, d^T . x, sum_n d."""
+    """(dx, dw, db) for the stats' cotangents: d . w with d rounded to
+    w's dtype, d^T . x with d rounded to x's dtype, sum_n d unrounded;
+    dx and dw in the operands' dtypes, db in b's."""
     d = dlogits_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot)
-    dx = torch.matmul(d, w.float())
-    dw = torch.matmul(d.t(), x.float())
+    dx = torch.matmul(round_d(d, w.dtype), w.float())
+    dw = torch.matmul(round_d(d, x.dtype).t(), x.float())
     return dx.to(x.dtype), dw.to(w.dtype), d.sum(dim=0).to(b.dtype)
 
 
 def plain_chunk_ops(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db):
     """``run_chunks``'s three operations in plain torch, writing into dx
-    [N, E], dw [V, E] and db [V] (any of them None when not asked for):
-    the loop the card runs, with the kernels' arithmetic per chunk."""
+    [N, E] (float32: the running sum over the chunks), dw [V, E] and db
+    [V] (any of them None when not asked for): the loop the card runs,
+    with the kernels' arithmetic per chunk."""
     labels = labels.long()
     rows = torch.arange(x.shape[0], device=x.device)
 
     def make_d(v0, width):
-        logits = x @ w[v0:v0 + width].t() + b[v0:v0 + width]
+        logits = _logits(x, w[v0:v0 + width], b[v0:v0 + width])
         d = g_lse[:, None] * torch.exp(logits - lse[:, None]) + g_tot[:, None]
         hit = (labels >= v0) & (labels < v0 + width)
         d[rows[hit], labels[hit] - v0] += g_lab[hit]
         return d
 
     def add_dx(d, v0, width, first):
-        part = d @ w[v0:v0 + width]
+        part = round_d(d, w.dtype) @ w[v0:v0 + width].float()
         if first:
             dx.copy_(part)
         else:
             dx.add_(part)
 
     def put_dw(d, v0, width):
-        dw[v0:v0 + width] = d.t() @ x
+        dw[v0:v0 + width] = (round_d(d, x.dtype).t() @ x.float()).to(
+            dw.dtype)
         db[v0:v0 + width] = d.sum(dim=0)
 
     return make_d, add_dx, put_dw
@@ -212,21 +230,32 @@ def plain_chunk_ops(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db):
 # ---------------------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _fn(name: str, n_ptr: int, n_int: int):
-    fn = getattr(_build.load("fused_ce"), name)
+def _fn(name: str, n_ptr: int, n_int: int, bf16: bool = False):
+    """C entry ``name`` of the library for the operands' type."""
+    fn = getattr(_build.load(_build.typed("fused_ce", bf16)), name)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _operands(name, x, w, b, labels):
+    """The kernels' operands, contiguous, labels int32; raises on what
+    they do not take: x and w of one type in ``KERNEL_DTYPES``, b
+    float32, all on x's device."""
     n, e = x.shape
     v = w.shape[0]
-    for what, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.float32 or t.device != x.device:
+    for what, t, want in (("x", x, x.dtype), ("w", w, x.dtype),
+                          ("b", b, torch.float32)):
+        if (t.dtype != want or t.dtype not in KERNEL_DTYPES
+                or t.device != x.device):
             raise TypeError(f"{name}: {what} is {t.dtype} on {t.device}; "
-                            f"the kernels take float32 on {x.device}")
+                            f"the kernels take x and w of one type, "
+                            f"float32 or bfloat16, and b float32, on "
+                            f"{x.device}")
     if w.shape[1] != e or b.numel() != v or labels.numel() != n:
         raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)}, "
                          f"b {tuple(b.shape)}, labels {tuple(labels.shape)}")
@@ -238,6 +267,13 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _count(fn, bf16: bool) -> None:
+    if bf16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
 def fused_ce_stats(x, w, b, labels):
     """(lse, lab, tot) [N] f32: the forward kernel and its merge on a
     CUDA tensor, the plain version on a CPU tensor."""
@@ -246,16 +282,17 @@ def fused_ce_stats(x, w, b, labels):
     x, w, b, labels = _operands("fused_ce_stats", x, w, b, labels)
     n, e = x.shape
     v = w.shape[0]
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((3, n), dtype=torch.float32, device=x.device)
     part = torch.empty(fwd_part_shape(n, v), dtype=torch.float32,
                        device=x.device)
-    err = _fn("fused_ce_fwd", 8, 4)(
+    err = _fn("fused_ce_fwd", 8, 5, bf16)(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
         part.data_ptr(), n, v, e, int(e % 4 == 0 and _aligned(x, w)),
-        _stream(x))
+        int(bf16), _stream(x))
     _build.check(err, "fused_ce_fwd")
-    fused_ce_stats.launches += 1
+    _count(fused_ce_stats, bf16)
     return out[0], out[1], out[2]
 
 
@@ -279,17 +316,24 @@ def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
                                             g_lab, g_tot)
         return (dx if need_dx else None, dw if need_dw else None,
                 db if need_dw else None)
-    ops = (_fn("fused_ce_bwd_dlogit", 9, 6), _fn("fused_ce_bwd_dx", 4, 8),
-           _fn("fused_ce_bwd_dw", 5, 7))
     x, w, b, labels = _operands("fused_ce_bwd", x, w, b, labels)
     n, e = x.shape
     v = w.shape[0]
+    bf16 = x.dtype == torch.bfloat16
+    ops = (_fn("fused_ce_bwd_dlogit", 9, 7, bf16),
+           _fn("fused_ce_bwd_dx", 5, 10, bf16),
+           _fn("fused_ce_bwd_dw", 5, 8, bf16))
     lse, g_lse, g_lab, g_tot = _bwd_operands(x, (lse, g_lse, g_lab, g_tot))
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
     db = (torch.empty((v,), dtype=torch.float32, device=x.device)
           if need_dw else None)
     chunks = vocab_chunks(n, v, chunk)
+    # dx's running sum over the chunks: dx itself in float32, an f32
+    # buffer that the last chunk turns into the bf16 dx otherwise
+    dxf = dx
+    if need_dx and bf16 and len(chunks) > 1:
+        dxf = torch.empty((n, e), dtype=torch.float32, device=x.device)
     ldd = -(-chunks[0][1] // CHUNK_ALIGN) * CHUNK_ALIGN
     d = torch.empty((n, ldd), dtype=torch.float32, device=x.device)
     # scratch for the reduction slices, reused by every chunk's products
@@ -305,32 +349,35 @@ def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
                                          if t is not None)))
     stream = _stream(x)
 
+    last_v0 = chunks[-1][0]
+
     def make_d(v0, width):
         _build.check(ops[0](
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             lse.data_ptr(), g_lse.data_ptr(), g_lab.data_ptr(),
             g_tot.data_ptr(), d.data_ptr(), n, e, v0, width, ldd, vec,
-            stream), "fused_ce_bwd_dlogit")
+            int(bf16), stream), "fused_ce_bwd_dlogit")
         return d
 
     def add_dx(d, v0, width, first):
         _build.check(ops[1](
-            d.data_ptr(), w.data_ptr(), dx.data_ptr(), part.data_ptr(), n,
-            e, v0, width, ldd, int(not first), vec, splits[width][0],
-            stream), "fused_ce_bwd_dx")
+            d.data_ptr(), w.data_ptr(), dxf.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), n, e, v0, width, ldd, int(not first),
+            int(v0 == last_v0), vec, splits[width][0], int(bf16), stream),
+            "fused_ce_bwd_dx")
 
     def put_dw(d, v0, width):
         _build.check(ops[2](
             d.data_ptr(), x.data_ptr(), dw.data_ptr(), db.data_ptr(),
             part.data_ptr(), n, e, v0, width, ldd, vec, splits[width][1],
-            stream), "fused_ce_bwd_dw")
+            int(bf16), stream), "fused_ce_bwd_dw")
 
     run_chunks(chunks, make_d, add_dx if need_dx else None,
                put_dw if need_dw else None)
     if need_dx:
-        fused_ce_dx.launches += 1
+        _count(fused_ce_dx, bf16)
     if need_dw:
-        fused_ce_dw.launches += 1
+        _count(fused_ce_dw, bf16)
     return dx, dw, db
 
 
@@ -346,9 +393,9 @@ def fused_ce_dw(x, w, b, labels, lse, g_lse, g_lab, g_tot):
                         need_dx=False)[1:]
 
 
-fused_ce_stats.launches = 0
-fused_ce_dx.launches = 0
-fused_ce_dw.launches = 0
+for _wrapper in (fused_ce_stats, fused_ce_dx, fused_ce_dw):
+    _wrapper.launches = 0
+    _wrapper.launches_bf16 = 0
 
 
 class _FusedCEStats(torch.autograd.Function):
@@ -382,14 +429,13 @@ def fused_softmax_xent(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Per-token label-smoothed CE of logits = x . w^T + b, [N] f32:
         ce = (1-eps) * (lse - lab) + eps * (lse - tot / V)
     (the reference's algebra, ``fused_ce.py :: fused_softmax_xent``).
-    On the card the gradient runs through the backward's kernels
-    (``fused_ce_bwd``); on the CPU it is autograd through the plain
-    forward."""
+    The gradient runs through ``fused_ce_bwd``, as the reference's
+    custom VJP does: the backward's kernels on the card, its plain
+    version (with the same rounding of d) on the CPU. The bias enters
+    in f32 whatever its dtype, as the reference casts it (a bf16 bias
+    from the compute-dtype parameters is widened exactly)."""
     v = w.shape[0]
-    if x.is_cuda:
-        lse, lab, tot = _FusedCEStats.apply(x, w, b, labels)
-    else:
-        lse, lab, tot = fused_ce_stats_reference(x, w, b, labels)
+    lse, lab, tot = _FusedCEStats.apply(x, w, b.float(), labels)
     eps = float(label_smoothing)
     nll = lse - lab
     if eps > 0.0:

@@ -293,8 +293,8 @@ def packed_attention_bwd_tiled_reference(q, k, v, kv_mask, do, out,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("packed_attention").packed_attention
+def _kernel(bf16: bool):
+    fn = _build.load(_build.typed("packed_attention", bf16)).packed_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -302,8 +302,9 @@ def _kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    fn = _build.load("packed_attention").packed_attention_bwd
+def _bwd_kernel(bf16: bool):
+    fn = _build.load(_build.typed("packed_attention",
+                                  bf16)).packed_attention_bwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -327,7 +328,7 @@ def _launch_fwd(q, k, v, kvm, causal, scale):
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     out = torch.empty_like(q)
-    err = _kernel()(
+    err = _kernel(q.dtype == torch.bfloat16)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
         out.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
         _DTYPES[q.dtype],
@@ -417,7 +418,7 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
     dq_sum = (torch.empty((b, h, tq, dh), dtype=torch.float32,
                           device=q.device)
               if dh > 64 and max(tq, tk) > _TILE else None)
-    err = _bwd_kernel()(
+    err = _bwd_kernel(q.dtype == torch.bfloat16)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
         do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), None if dq_sum is None else dq_sum.data_ptr(), b, h,

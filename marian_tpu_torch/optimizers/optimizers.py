@@ -8,13 +8,16 @@ src/optimizers/exponential_smoothing.h), ported from
   --mini-batch-words-ref scaling of lr and eps;
 - exponential smoothing of params (EMA swapped in for saving).
 
-State is f32 whatever the compute dtype. Unlike the reference's pure
-(state, grads) → (state, params) functions, ``apply_update`` updates the
-parameters and the state IN PLACE (under no_grad), which saves a second
-copy of every tensor; it returns the same dicts for the reference's call
-shape. Not ported yet: train-time quantization, gradient dropping,
-dynamic gradient scaling and a bf16 first moment; ``from_options``
-refuses their flags.
+State is f32 whatever the compute dtype, except Adam's first moment m
+under --optimizer-state-dtype bfloat16: it is stored in bf16, upcast for
+the update math (f32), and the new m rounded back; v stays f32.
+Gradients of any dtype are upcast to f32 here. Unlike the reference's
+pure (state, grads) → (state, params) functions, ``apply_update``
+updates the parameters and the state IN PLACE (under no_grad), which
+saves a second copy of every tensor; it returns the same dicts for the
+reference's call shape. Not ported yet: train-time quantization,
+gradient dropping and dynamic gradient scaling; ``from_options`` refuses
+their flags.
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ _UNPORTED = {
     "quantize-bits": 0,
     "gradient-dropping-rate": 0.0,
     "dynamic-gradient-scaling": [],
-    "optimizer-state-dtype": "float32",
 }
+
+STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -46,6 +50,7 @@ class OptimizerConfig:
     ref_mb_words: int = 0              # --mini-batch-words-ref
     normalize_gradient: bool = False   # --normalize-gradient
     check_gradient_nan: bool = False   # --check-gradient-nan
+    state_dtype: str = "float32"       # --optimizer-state-dtype (Adam's m)
 
     @classmethod
     def from_options(cls, options) -> "OptimizerConfig":
@@ -68,7 +73,13 @@ class OptimizerConfig:
                   normalize_gradient=bool(
                       options.get("normalize-gradient", False)),
                   check_gradient_nan=bool(
-                      options.get("check-gradient-nan", False)))
+                      options.get("check-gradient-nan", False)),
+                  state_dtype=str(options.get("optimizer-state-dtype",
+                                              "float32") or "float32"))
+        if cfg.state_dtype not in STATE_DTYPES:
+            raise ValueError(
+                f"--optimizer-state-dtype {cfg.state_dtype}: expected "
+                f"float32 or bfloat16")
         if name == "adam":
             if len(params) > 0:
                 cfg.beta1 = params[0]
@@ -82,15 +93,15 @@ class OptimizerConfig:
 
 
 def init_state(cfg: OptimizerConfig, params: Params) -> Dict[str, Any]:
-    def zeros():
-        return {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    def zeros(dtype=torch.float32):
+        return {k: torch.zeros(v.shape, dtype=dtype, device=v.device)
                 for k, v in params.items()}
 
     dev = next(iter(params.values())).device
     st: Dict[str, Any] = {"t": torch.zeros((), dtype=torch.float32,
                                            device=dev)}
     if cfg.name == "adam":
-        st["m"], st["v"] = zeros(), zeros()
+        st["m"], st["v"] = zeros(STATE_DTYPES[cfg.state_dtype]), zeros()
     elif cfg.name == "adagrad":
         st["gt"] = zeros()
     if cfg.smoothing > 0:
@@ -120,7 +131,13 @@ def apply_update(cfg: OptimizerConfig, state: Dict[str, Any], params: Params,
         for k, p in params.items():
             g = grads[k].float()
             m, v = state["m"][k], state["v"][k]
-            m.mul_(cfg.beta1).add_((1.0 - cfg.beta1) * g)
+            if m.dtype == torch.float32:
+                m.mul_(cfg.beta1).add_((1.0 - cfg.beta1) * g)
+            else:
+                # a bf16 m: the update in f32, the new m rounded back
+                m32 = cfg.beta1 * m.float() + (1.0 - cfg.beta1) * g
+                m.copy_(m32)
+                m = m32
             v.mul_(cfg.beta2).add_((1.0 - cfg.beta2) * torch.square(g))
             step = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
             p.copy_((p.float() - step).to(p.dtype))

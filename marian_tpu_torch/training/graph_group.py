@@ -7,8 +7,13 @@ One update: forward and backward of ``EncoderDecoder.loss`` by autograd,
 then cost-type normalisation of the gradient, --normalize-gradient,
 global-norm clipping (--clip-norm), the optimizer step, and
 --check-gradient-nan (a non-finite gradient norm skips the whole update,
-params and optimizer state untouched). Parameters are leaf tensors on
-the device and are updated in place.
+params and optimizer state untouched). Parameters are f32 leaf tensors
+on the device (the master weights, whatever --precision computes in)
+and are updated in place. Gradients come back to them in f32 through the
+loss's cast to the compute dtype, or, under --gradient-dtype bfloat16
+with bf16 compute, in bf16 from a bf16 copy of the parameters; the cost
+normalisation upcasts them to f32, as the reference's division by its
+f32 denominator does.
 
 Not ported yet: meshes and ZeRO sharding, --optimizer-delay > 1,
 --dispatch-window, embedding freezing; the trainer refuses their flags.
@@ -23,8 +28,10 @@ import numpy as np
 import torch
 
 from ..ops.ops import clip_by_global_norm, global_norm
-from ..optimizers.optimizers import (OptimizerConfig, apply_update,
-                                     init_state, smoothed_params)
+from ..common import logging as log
+from ..optimizers.optimizers import (STATE_DTYPES, OptimizerConfig,
+                                     apply_update, init_state,
+                                     smoothed_params)
 from ..optimizers.schedule import LRSchedule
 
 Params = Dict[str, torch.Tensor]
@@ -52,6 +59,26 @@ def cost_denominator(cost_type: str, labels: torch.Tensor,
     return torch.ones((), device=labels.device)
 
 
+def _grad_dtype(name, compute_dtype: torch.dtype) -> Optional[torch.dtype]:
+    """--gradient-dtype as the dtype to differentiate in, or None for
+    f32 gradients. As in the reference, bfloat16 gradients need bfloat16
+    compute: otherwise the flag is ignored with a warning, since casting
+    the parameters would change the compute dtype too."""
+    name = str(name or "float32")
+    if name not in STATE_DTYPES:
+        raise ValueError(f"--gradient-dtype {name}: expected float32 or "
+                         f"bfloat16")
+    gd = STATE_DTYPES[name]
+    if gd == torch.float32:
+        return None
+    if gd != compute_dtype:
+        log.warn("--gradient-dtype {} ignored: compute precision is {} "
+                 "(set --precision accordingly)", name,
+                 str(compute_dtype).replace("torch.", ""))
+        return None
+    return gd
+
+
 @torch.no_grad()
 def finalize_update(opt_cfg: OptimizerConfig, opt_state, params: Params,
                     grads: Params, lr: float, labels: torch.Tensor,
@@ -61,7 +88,7 @@ def finalize_update(opt_cfg: OptimizerConfig, opt_state, params: Params,
     step → --check-gradient-nan. Returns (raw gradient norm, skipped)."""
     if opt_cfg.normalize_gradient:
         denom = denom * torch.clamp(labels, min=1.0)
-    grads = {k: g / denom for k, g in grads.items()}
+    grads = {k: g.float() / denom for k, g in grads.items()}
     gnorm = global_norm(grads)
     if opt_cfg.check_gradient_nan and not bool(torch.isfinite(gnorm)):
         return gnorm, torch.ones((), device=gnorm.device)
@@ -81,6 +108,9 @@ class GraphGroup:
         self.opt_cfg = OptimizerConfig.from_options(options)
         self.schedule = LRSchedule.from_options(options)
         self.cost_type = options.get("cost-type", "ce-sum")
+        self.grad_dtype = _grad_dtype(options.get("gradient-dtype",
+                                                  "float32"),
+                                      model.cfg.compute_dtype)
         self.params: Optional[Params] = None
         self.opt_state: Optional[Dict[str, Any]] = None
 
@@ -106,11 +136,17 @@ class GraphGroup:
                generator: Optional[torch.Generator] = None) -> TrainOutput:
         """Forward, backward and optimizer step on one batch (tensors on
         the device); ``step`` is the 1-based update number."""
-        total, aux = self.model.loss(self.params, batch, generator,
-                                     train=True)
+        leaves = self.params
+        if self.grad_dtype is not None:
+            # differentiate with respect to the parameters already cast:
+            # the loss's own cast is then an identity and the gradients
+            # come out in the grad dtype (reference: zero.py _grads_of)
+            leaves = {k: p.detach().to(self.grad_dtype).requires_grad_(True)
+                      for k, p in self.params.items()}
+        total, aux = self.model.loss(leaves, batch, generator, train=True)
         total.backward()
         grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for k, p in self.params.items()}
+                 for k, p in leaves.items()}
         labels = aux["labels"].detach()
         denom = cost_denominator(self.cost_type, labels,
                                  int(batch["trg_ids"].shape[0]))
@@ -133,19 +169,26 @@ class GraphGroup:
 
     def optimizer_arrays(self) -> Dict[str, np.ndarray]:
         """Flat-named optimizer state as numpy, the reference's
-        ``.optimizer.npz`` layout ('t', 'm:<name>', 'v:<name>', ...)."""
+        ``.optimizer.npz`` layout ('t', 'm:<name>', 'v:<name>', ...); a
+        bf16 m is saved as f32, as the reference saves it (numpy has no
+        bfloat16, and the file resumes under either state dtype)."""
         flat = {"t": self.opt_state["t"].cpu().numpy()}
         for part in ("m", "v", "gt", "avg"):
             for k, v in self.opt_state.get(part, {}).items():
-                flat[f"{part}:{k}"] = v.detach().cpu().numpy()
+                flat[f"{part}:{k}"] = v.detach().float().cpu().numpy()
         return flat
 
     def load_optimizer_arrays(self, flat: Dict[str, np.ndarray]) -> None:
+        """Optimizer state from ``optimizer_arrays``' layout; m takes
+        this run's --optimizer-state-dtype."""
+        m_dtype = STATE_DTYPES[self.opt_cfg.state_dtype]
         st: Dict[str, Any] = {"t": torch.as_tensor(
             np.asarray(flat["t"], dtype=np.float32)).to(self.device)}
         for key, v in flat.items():
             if ":" in key:
                 part, name = key.split(":", 1)
                 st.setdefault(part, {})[name] = torch.as_tensor(
-                    np.asarray(v, dtype=np.float32)).to(self.device)
+                    np.asarray(v, dtype=np.float32)).to(
+                        self.device, m_dtype if part == "m"
+                        else torch.float32)
         self.opt_state = st

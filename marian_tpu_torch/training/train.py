@@ -20,6 +20,11 @@ re-seeded from (seed, update number) before every update, so a resumed
 run draws the same masks as an uninterrupted one (the reference folds
 its dropout key by the update number for the same reason).
 
+Mixed precision as the reference runs it: --precision bfloat16 (or
+--fp16) computes the forward and backward in bf16 from f32 master
+weights, which the optimizer updates and the checkpoint saves in f32;
+--precision's second value is accepted and not acted on.
+
 Runs on the card unless the CPU is asked for (--cpu-threads N, or
 device="cpu" from Python); without a card it raises.
 """
@@ -64,7 +69,6 @@ _UNPORTED = {
     "embedding-fix-src": False,
     "embedding-fix-trg": False,
     "gradient-checkpointing": False,
-    "gradient-dtype": "float32",
     "mesh": [],
     "task": None,
     "output-omit-bias": False,
@@ -89,10 +93,10 @@ def _refuse_unported(options) -> None:
         raise NotImplementedError("multi-device training is not ported to "
                                   "marian_tpu_torch yet (ROADMAP)")
     precision = options.get("precision", ["float32"]) or ["float32"]
-    if any(str(p) != "float32" for p in precision):
+    if str(precision[0]) not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"--precision {' '.join(map(str, precision))}: this slice "
-            f"trains in float32 only (bf16 is ROADMAP work)")
+            f"--precision {' '.join(map(str, precision))}: the port "
+            f"computes in float32 or bfloat16 (float16 maps to bfloat16)")
     if str(options.get("type", "transformer")) != "transformer":
         raise NotImplementedError(f"--type {options.get('type')}: this "
                                   f"slice trains --type transformer")

@@ -13,16 +13,29 @@ cap. The traced batch runs under torch.profiler (the card's kernels
 only with --doc, where a batch is some 200,000 launches). Prints: the
 batch's wall time and decode steps, the device's busy time (sum of
 kernel times) and idle share over the untraced wall time, and the
-kernels that took the most device time. Run from the root of a checkout
-on the machine with the card:
+kernels that took the most device time, and the kernel launches a
+step; with --counts every kernel, by launches a step.
+``--precision bfloat16`` decodes in bf16 (chip_smoke.py's bf16 decode
+main path). ``--untraced N`` times N untraced batches and traces none.
+``--ab DIR --pairs N`` times the base decode of another checkout (DIR,
+for example the parent commit unpacked with ``git archive``) and of this
+one in alternating processes, parent then change, change then parent,
+N pairs, each process --untraced 3 with its own checkout's package, and
+prints every process's ms a step and each side's median. Run from the
+root of a checkout on the machine with the card:
 
     python3 scripts/torch_decode_profile.py [--seed 17] [--top 15] [--doc]
+        [--precision bfloat16] [--counts] [--untraced N]
+        [--ab DIR --pairs 10]
 """
 
 from __future__ import annotations
 
 import argparse
 import io
+import re
+import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -31,6 +44,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 DOC_FACTOR = 0.5
+UNTRACED_RE = re.compile(r"untraced batch \d+: ([\d.]+) ms/step")
 
 
 def doc_model(cs, seed: int):
@@ -58,11 +72,25 @@ def main(argv=None) -> int:
     ap.add_argument("--doc", action="store_true",
                     help="the doc-level decode (transformer-big, 4 "
                     "documents, cache 1,024)")
+    ap.add_argument("--precision", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--counts", action="store_true",
+                    help="list every kernel by launches a step")
+    ap.add_argument("--untraced", type=int, default=0, metavar="N",
+                    help="time N untraced batches, trace none")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="the checkout whose package decodes")
+    ap.add_argument("--ab", type=Path, default=None, metavar="DIR",
+                    help="another checkout to time against this one")
+    ap.add_argument("--pairs", type=int, default=10)
     args = ap.parse_args(argv)
+    extra = ("--precision", args.precision)
     if not torch.cuda.is_available():
         print("torch_decode_profile: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT))
+    if args.ab is not None:
+        return alternate(args)
+    sys.path.insert(0, str(args.root.resolve()))
     import chip_smoke as cs
     from marian_tpu_torch.device import resolve_device
     from marian_tpu_torch.ops.kernels import _build
@@ -75,16 +103,27 @@ def main(argv=None) -> int:
         lines = doc_model(cs, args.seed)
         tr = Translate(cs.decoder_options(
             "doc_profile.npz", "--max-length", "2048",
-            "--max-length-factor-translate", str(DOC_FACTOR)))
+            "--max-length-factor-translate", str(DOC_FACTOR), *extra))
         tr.search.max_length_factor = 0.01            # a 20-step warm-up
         tr.run(lines, io.StringIO())
         tr.search.max_length_factor = DOC_FACTOR
         activities = [ProfilerActivity.CUDA]
     else:
         lines = cs.write_model(args.seed)[:cs.BATCH]
-        tr = Translate(cs.decoder_options("base.npz"))
+        tr = Translate(cs.decoder_options("base.npz", *extra))
         tr.run(lines, io.StringIO())                  # warm-up batch
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if args.untraced:
+        for i in range(args.untraced):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run(lines, io.StringIO())
+            torch.cuda.synchronize()
+            steps = tr.search.steps[-1]
+            print(f"untraced batch {i}: "
+                  f"{(time.perf_counter() - t0) * 1e3 / steps:.3f} ms/step "
+                  f"({args.precision}, {steps} steps)")
+        return 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     tr.run(lines, io.StringIO())                      # untraced batch
@@ -101,21 +140,56 @@ def main(argv=None) -> int:
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
     what = (f"doc-level transformer-big, {len(lines)} documents of "
             f"{[len(l.split()) for l in lines]} words, cache {DOC_FACTOR} x "
             f"width" if args.doc else
             f"transformer-base, {len(lines)} sentences")
-    print(f"batch: {what}, beam {cs.BEAM}, {steps} steps; "
+    print(f"batch: {what}, {args.precision}, beam {cs.BEAM}, {steps} steps; "
           f"wall {wall * 1e3:.1f} ms untraced ({wall * 1e3 / steps:.3f} "
           f"ms/step), {traced * 1e3:.1f} ms traced")
     print(f"device busy {busy_us / 1e3:.1f} ms = {busy_us / 1e3 / steps:.3f} "
           f"ms/step; idle share {1 - busy_us / 1e6 / wall:.3f} of the "
-          f"untraced wall")
+          f"untraced wall; {launches / steps:.1f} kernel launches a step")
     events.sort(key=lambda e: -e.self_device_time_total)
     for e in events[:args.top]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms "
               f"{100 * e.self_device_time_total / busy_us:5.1f}% "
               f"x{e.count:<6d} {e.key[:90]}")
+    if args.counts:
+        events.sort(key=lambda e: (-e.count, e.key))
+        for e in events:
+            print(f"  count {e.count / steps:7.2f}/step "
+                  f"{e.self_device_time_total / 1e3:9.2f} ms {e.key[:150]}")
+    return 0
+
+
+def alternate(args) -> int:
+    """--ab: this script with --untraced 3 in DIR's package and in this
+    checkout's, processes in the order parent, change, change, parent,
+    ... (args.pairs pairs); prints each process's median ms a step, and
+    each side's median over the processes."""
+    sides = {"parent": args.ab.resolve(), "change": ROOT}
+    order = [("parent", "change"), ("change", "parent")]
+    got = {"parent": [], "change": []}
+    for i in range(args.pairs):
+        for tag in order[i % 2]:
+            run = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), "--root",
+                 str(sides[tag]), "--untraced", "3", "--seed",
+                 str(args.seed)], cwd=sides[tag], capture_output=True,
+                text=True)
+            ms = [float(m) for m in UNTRACED_RE.findall(run.stdout)]
+            if run.returncode != 0 or len(ms) != 3:
+                raise RuntimeError(f"[{tag}] failed:\n{run.stdout[-3000:]}"
+                                   f"{run.stderr[-3000:]}")
+            got[tag].append(statistics.median(ms))
+            print(f"pair {i} [{tag}]: ms/step {' '.join(f'{m:.3f}' for m in ms)}"
+                  f" (median {got[tag][-1]:.3f})")
+    slower = sum(c > p for p, c in zip(got["parent"], got["change"]))
+    print(f"ab: parent median {statistics.median(got['parent']):.3f} ms/step,"
+          f" change {statistics.median(got['change']):.3f}; the change slower "
+          f"in {slower} of {args.pairs} pairs")
     return 0
 
 

@@ -8,19 +8,27 @@ its ``marian_tpu_torch/csrc/fused_ce.cu`` is read), with ``nvcc -Xptxas
 -v``, and prints the fused CE kernels' registers, shared memory and
 spills. Then, at the training shapes (base: N 12,288, E 512; doc-level:
 N 16,384 = 8 rows x 2,048, E 1,024; V 32,000, f32), it times the forward
-(kernel + merge) and the joint backward (``fused_ce_bwd``: dx, dw, db)
-of each build in turns (parent, change, variants, then back in reverse
+(kernel + merge) and the joint backward (``fused_ce_bwd``: dx, dw, db;
+not for a build whose entry points predate the operand-type flag) of
+each build in turns (parent, change, variants, then back in reverse
 order; CUDA events behind a device sleep), holds every build's outputs
 against this checkout's and checks that two calls of each build are
 bit-identical. A checkout whose forward still takes a vocabulary split
 count (the 64 x 64 kernel) is called with the split count its wrapper
 chose. With --profile it then runs ``scripts/torch_train_profile.py``
 (base with --updates 3, then --doc with --updates 2) in the parent and
-in this checkout in turns: parent, change, change, parent.
-Run from the root of a checkout on the machine with the card:
+in this checkout in turns: parent, change, change, parent. With
+``--dtype bfloat16`` the operands x and w are bf16 (b f32) and only the
+builds whose entry points take the operand-type flag are timed. With
+--bwd-turns N each checkout's own ``fused_ce_bwd`` (its wrapper and its
+library, whatever its entry points) is timed at both shapes in a process
+of its own, in the order parent, change, change, parent, N times, on the
+same seeded inputs. Run from the root of a checkout on the machine with
+the card:
 
     python3 scripts/torch_fused_ce_fwd_ab.py [--parent DIR]
         [--variant NAME=DIR ...] [--rounds 2] [--profile]
+        [--dtype float32|bfloat16] [--bwd-turns N]
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -91,8 +100,9 @@ def _nvcc() -> str:
 
 
 def entry(lib):
-    """The wrapper's ``_fn`` for one library: fn(name, n_ptr, n_int)."""
-    def fn(name, n_ptr, n_int):
+    """The wrapper's ``_fn`` for one library: fn(name, n_ptr, n_int,
+    bf16), ``bf16`` ignored (the library is of one type)."""
+    def fn(name, n_ptr, n_int, bf16=False):
         f = getattr(lib, name)
         f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
             ctypes.c_void_p]
@@ -101,11 +111,12 @@ def entry(lib):
     return fn
 
 
-def forward(lib, takes_splits: bool):
+def forward(lib, takes_splits: bool, takes_dtype: bool):
     """fn(x, w, b, labels) -> [3, N] (lse, lab, tot) through the
-    library's fused_ce_fwd, scratch allocated as its wrapper does."""
+    library's fused_ce_fwd, scratch allocated as its wrapper does
+    (``takes_dtype``: its entry points take the operand-type flag)."""
     from marian_tpu_torch.ops.kernels import fused_ce as fce
-    f = entry(lib)("fused_ce_fwd", 8, 4)
+    f = entry(lib)("fused_ce_fwd", 8, 4 + takes_dtype)
 
     def run(x, w, b, labels):
         n, e = x.shape
@@ -122,6 +133,7 @@ def forward(lib, takes_splits: bool):
             last = int(e % 4 == 0)
         err = f(*(t.data_ptr() for t in (x, w, b, labels, out[0], out[1],
                                          out[2], part)), n, v, e, last,
+                *(int(x.dtype == torch.bfloat16),) * takes_dtype,
                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
@@ -129,12 +141,15 @@ def forward(lib, takes_splits: bool):
     return run
 
 
-def backward(lib):
+def backward(lib, takes_dtype: bool):
     """fn(x, w, b, labels, lse, g_lse, g_lab, g_tot) -> (dx, dw, db): this
-    checkout's ``fused_ce_bwd`` with its kernels taken from the library
-    (the backward's C entry points are the same in every build)."""
+    checkout's ``fused_ce_bwd`` with its kernels taken from the library;
+    None for a library whose backward entry points predate the
+    operand-type flag (other signatures: its forward alone is timed)."""
     from marian_tpu_torch.ops.kernels import fused_ce as fce
     fn = entry(lib)
+    if not takes_dtype:
+        return None
 
     def run(*args):
         saved, fce._fn = fce._fn, fn
@@ -178,6 +193,56 @@ def profile_turns(trees) -> None:
                     print(f"profile {what} [{tag}] {line.strip()}")
 
 
+def own_backward(tree: Path, seed: int, dtype) -> None:
+    """In this process: ``tree``'s own fused_ce_bwd at both shapes,
+    timed, one line each."""
+    sys.path.insert(0, str(tree))
+    import chip_smoke as cs
+    from marian_tpu_torch.device import resolve_device
+    from marian_tpu_torch.ops.kernels import fused_ce as fce
+    resolve_device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    dev = torch.device("cuda")
+    for name, n, e in SHAPES:
+        x = torch.randn(n, e, generator=gen).to(dev, dtype)
+        w = (torch.randn(VOCAB, e, generator=gen) * e ** -0.5).to(dev, dtype)
+        b = torch.randn(VOCAB, generator=gen).to(dev)
+        labels = torch.randint(0, VOCAB, (n,), generator=gen).to(dev)
+        g = [torch.randn(n, generator=gen).to(dev) for _ in range(3)]
+        lse = fce.fused_ce_stats_reference(x, w, b, labels)[0]
+        ms = cs.time_ms(lambda: fce.fused_ce_bwd(x, w, b, labels, lse, *g),
+                        5)
+        print(f"own backward [{name}]: {ms:.4f} ms")
+        del x, w, b, labels, g, lse
+        torch.cuda.empty_cache()
+
+
+def backward_turns(trees, turns: int, seed: int, dtype: str) -> None:
+    """--bwd-turns: ``own_backward`` of each (tag, tree) in a process of
+    its own, parent then change then back, ``turns`` times; prints each
+    time and each side's median."""
+    order = trees + trees[::-1]
+    got = {}
+    for _ in range(turns):
+        for tag, tree in order:
+            run = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--own-backward", str(Path(tree).resolve()), "--dtype",
+                 dtype], cwd=tree, capture_output=True, text=True)
+            found = re.findall(r"own backward \[(\w+)\]: ([\d.]+) ms",
+                               run.stdout)
+            if run.returncode != 0 or len(found) != len(SHAPES):
+                raise RuntimeError(f"own backward [{tag}] failed:\n"
+                                   f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
+            for shape, ms in found:
+                got.setdefault((tag, shape), []).append(float(ms))
+                print(f"fused_ce_bwd own [{shape}] {dtype} {tag}: {ms} ms "
+                      f"(card: {card_state()})")
+    for (tag, shape), ms in got.items():
+        print(f"fused_ce_bwd own [{shape}] {dtype} {tag}: median "
+              f"{statistics.median(ms):.4f} ms over {len(ms)} processes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
@@ -190,10 +255,21 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile base and doc updates in turns")
     ap.add_argument("--seed", type=int, default=17)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--bwd-turns", type=int, default=0, metavar="N",
+                    help="time each checkout's own fused_ce_bwd in "
+                    "processes of its own, N rounds of turns")
+    ap.add_argument("--own-backward", type=Path, default=None,
+                    help=argparse.SUPPRESS)      # one such process
     args = ap.parse_args(argv)
+    dtype = getattr(torch, args.dtype)
     if not torch.cuda.is_available():
         print("torch_fused_ce_fwd_ab: no CUDA device", file=sys.stderr)
         return 1
+    if args.own_backward is not None:
+        own_backward(args.own_backward, args.seed, dtype)
+        return 0
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from marian_tpu_torch.device import resolve_device
@@ -204,18 +280,29 @@ def main(argv=None) -> int:
     trees = [("change", ROOT)]
     trees += [("parent", args.parent)] if args.parent is not None else []
     trees += [tuple(v.split("=", 1)) for v in args.variant]
-    libs = build(trees, list(_build.NVCC_FLAGS))
-    runs = {tag: (forward(libs[tag], re.search(
-        r"fused_ce_fwd\([^)]*int splits", _source(tree).read_text())
-        is not None), backward(libs[tag])) for tag, tree in trees}
-    turns = ["parent"] * (args.parent is not None) + [
+    # the library of the operands' type (a checkout from before the
+    # one-type libraries ignores the define)
+    libs = build(trees, list(_build.NVCC_FLAGS)
+                 + [f"-DKERNEL_DTYPE={int(dtype == torch.bfloat16)}"])
+    runs = {}
+    for tag, tree in trees:
+        src = _source(tree).read_text()
+        takes_dtype = re.search(r"fused_ce_fwd\([^)]*int bf16", src) \
+            is not None
+        if dtype != torch.float32 and not takes_dtype:
+            print(f"[{tag}] takes float32 operands only: not timed")
+            continue
+        runs[tag] = (forward(libs[tag], re.search(
+            r"fused_ce_fwd\([^)]*int splits", src) is not None, takes_dtype),
+            backward(libs[tag], takes_dtype))
+    turns = ["parent"] * ("parent" in runs) + [
         tag for tag in runs if tag != "parent"]
     order = turns + turns[::-1]
     gen = torch.Generator().manual_seed(args.seed)
     dev = torch.device("cuda")
     for name, n, e in SHAPES:
-        x = torch.randn(n, e, generator=gen).to(dev)
-        w = (torch.randn(VOCAB, e, generator=gen) * e ** -0.5).to(dev)
+        x = torch.randn(n, e, generator=gen).to(dev, dtype)
+        w = (torch.randn(VOCAB, e, generator=gen) * e ** -0.5).to(dev, dtype)
         b = torch.randn(VOCAB, generator=gen).to(dev)
         labels = torch.randint(0, VOCAB, (n,), generator=gen).to(
             dev, torch.int32)
@@ -226,33 +313,45 @@ def main(argv=None) -> int:
         for part, call in ops.items():
             ref = call(runs["change"])
             for tag, run in runs.items():
+                if run[part == "bwd"] is None:
+                    continue
                 one, two = call(run), call(run)
                 check(all(torch.equal(p, q) for p, q in zip(one, two)),
                       f"{name} {part} [{tag}]: two calls differ")
                 for i, (a, r) in enumerate(zip(one, ref)):
-                    cs.close_to_scale(a, r, f"{name} {part} [{tag}] output "
-                                      f"{i} against change")
+                    close = (cs.close_bf16 if r.dtype == torch.bfloat16
+                             else cs.close_to_scale)
+                    close(a, r, f"{name} {part} [{tag}] output {i} "
+                          f"against change")
             del ref, one, two
         torch.cuda.empty_cache()
         flops = {"fwd": 2 * n * VOCAB * e, "bwd": 6 * n * VOCAB * e}
-        times = {(tag, part): [] for tag in runs for part in ops}
+        times = {(tag, part): [] for tag in runs for part in ops
+                 if runs[tag][part == "bwd"] is not None}
         print(f"card before the {name} timings: {card_state()}")
         for _ in range(args.rounds):
             for tag in order:
                 for part, call in ops.items():
+                    if (tag, part) not in times:
+                        continue
                     times[tag, part].append(cs.time_ms(
                         lambda: call(runs[tag]), 5))
         print(f"card after the {name} timings: {card_state()}")
+        # operations at the card's peak for the operands' type
+        peak = cs.BF16_FLOPS if dtype == torch.bfloat16 else cs.F32_FLOPS
         for (tag, part), ms in times.items():
-            bound_ms = flops[part] / cs.F32_FLOPS * 1e3
-            print(f"fused_ce_{part} [{name}] N={n} V={VOCAB} E={e} {tag}: ms "
+            bound_ms = flops[part] / peak * 1e3
+            print(f"fused_ce_{part} [{name}] N={n} V={VOCAB} E={e} "
+                  f"{args.dtype} {tag}: ms "
                   f"{' '.join(f'{t:.4f}' for t in ms)} (best {min(ms):.4f}; "
-                  f"{flops[part] / min(ms) / 1e9:.2f} TFLOP/s; bound "
-                  f"{bound_ms:.4f} ms, operations)")
+                  f"{flops[part] / min(ms) / 1e9:.2f} TFLOP/s; operation "
+                  f"bound {bound_ms:.4f} ms at {peak / 1e12:.0f} TFLOP/s)")
         del x, w, b, labels, g, lse
         torch.cuda.empty_cache()
+    pair = [t for t in trees if t[0] in ("parent", "change")][::-1]
+    if args.bwd_turns and args.parent is not None:
+        backward_turns(pair, args.bwd_turns, args.seed, args.dtype)
     if args.profile:
-        pair = [t for t in trees if t[0] in ("parent", "change")][::-1]
         profile_turns(pair + pair[::-1])
     return 0
 

@@ -11,9 +11,12 @@ times --updates untraced updates, then traces as many with
 torch.profiler and prints, per update: the wall time, the device's busy
 time (sum of kernel times) and idle share over the wall time, the device
 time by kernel class, and the kernels that took the most device time.
-Run from the root of a checkout on the machine with the card:
+``--precision bfloat16`` trains in bf16 from f32 master weights
+(chip_smoke.py's bf16 training main path). Run from the root of a
+checkout on the machine with the card:
 
     python3 scripts/torch_train_profile.py [--seed 17] [--updates 3] [--doc]
+        [--precision bfloat16]
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ CLASSES = (
     ("fused_ce backward dw/db product (this port)", r"fce_bwd_dw"),
     ("fused_ce backward slice sums (this port)", r"fce_bwd_sum"),
     ("fused_ce forward (this port)", r"fce_fwd"),
-    ("f32 GEMM (cuBLAS/CUTLASS)", r"gemm|sgemm|cutlass|cublas"),
+    ("GEMM (cuBLAS/CUTLASS)", r"gemm|sgemm|cutlass|cublas|nvjet"),
     ("reductions", r"reduce|Reduce|norm"),
     ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),
 )
@@ -61,7 +64,10 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--doc", action="store_true",
                     help="the doc-level transformer-big setup")
+    ap.add_argument("--precision", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
+    extra = ("--precision", args.precision, "float32")
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -86,11 +92,12 @@ def main(argv=None) -> int:
     if args.doc:
         name = "doc"
         cs.write_doc_train_corpus(args.seed)
-        opts = parse_options(cs.doc_argv("profile.npz", 0), mode="training")
+        opts = parse_options(cs.doc_argv("profile.npz", 0, *extra),
+                             mode="training")
     else:
         name = "train"
         cs.write_corpus(args.seed)
-        opts = parse_options(cs.train_argv("profile.npz", 0),
+        opts = parse_options(cs.train_argv("profile.npz", 0, *extra),
                              mode="training")
     vocab = create_vocab(str(cs.WORK / "vocab.yml"))
     corpus = Corpus([str(cs.WORK / f"{name}.src"),
@@ -136,7 +143,8 @@ def main(argv=None) -> int:
     words = sum(b.words for b in traced_batches) / len(traced_batches)
     model_name = ("doc-level transformer-big" if args.doc
                   else "transformer-base")
-    print(f"update: {model_name} 6+6 f32, {words:.0f} target words; "
+    print(f"update: {model_name} 6+6 {args.precision}, {words:.0f} "
+          f"target words; "
           f"wall {wall * 1e3:.1f} ms untraced, {traced * 1e3:.1f} ms traced; "
           f"device busy {busy:.1f} ms; idle share {1 - busy / 1e3 / wall:.3f} "
           f"of the untraced wall")

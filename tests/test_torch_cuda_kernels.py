@@ -300,6 +300,19 @@ def _close_to_scale(got, ref, rel):
     assert err <= rel * scale, (err, scale)
 
 
+def _close_bf16(got, ref, rel):
+    """A bf16 output against its plain version, which rounds its own f32
+    sum: |got - ref| <= one bf16 spacing of ref (at most 2^-7 of it) +
+    rel * max|ref|; an f32 output as ``_close_to_scale``."""
+    if ref.dtype != torch.bfloat16:
+        return _close_to_scale(got, ref, rel)
+    assert got.dtype == torch.bfloat16
+    got, ref = got.detach().float(), ref.detach().float()
+    scale = max(float(ref.abs().max()), 1.0)
+    over = (got - ref).abs() - (2.0 ** -7 * ref.abs() + rel * scale)
+    assert float(over.max()) <= 0.0, float(over.max())
+
+
 def _packed_bwd_inputs(dev, b, h, tq, tk, dh, dtype=torch.float32):
     """q, k, v, dO and a key mask with a fully masked row and, past two
     key tiles, a row whose first live key (70) lies inside a tile."""
@@ -376,23 +389,27 @@ def test_packed_attention_autograd_runs_both_kernels(dev):
     (301, 3001, 96, 500), (130, 515, 1500, 200), (129, 700, 50, 128),
     (1100, 300, 64, None), (70, 200, 50, None), (130, 257, 64, None),
     (133, 513, 1024, None)])
-def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     """With ``chunk`` the joint backward runs over forced narrow
     vocabulary chunks (several, the last one ragged); E = 50 takes the
     scalar loads; small tile counts split the dx and dw reductions into
     slices (``k_splits``). The first labels lie on the forward's tile
     edges (columns 0, 255, 256 and V - 1); V 200 is under one tile, V 257
-    leaves one column in the last."""
+    leaves one column in the last. In bf16 (x and w; b f32) the kernels
+    count on ``.launches_bf16``, dx and dw come out bf16 and are held to
+    one bf16 spacing of the plain version's."""
     gen = torch.Generator().manual_seed(n + v + e)
-    x = _randn(gen, dev, n, e)
-    w = _randn(gen, dev, v, e) * (e ** -0.5)
+    x = _randn(gen, dev, n, e, dtype=dtype)
+    w = (_randn(gen, dev, v, e) * (e ** -0.5)).to(dtype)
     b = _randn(gen, dev, v)
     labels = torch.randint(0, v, (n,), generator=gen)
     edges = [c for c in (0, 255, 256, v - 1) if c < v]
     labels[:len(edges)] = torch.tensor(edges)
     labels = labels.to(dev)
-    launches = (fce.fused_ce_stats.launches, fce.fused_ce_dx.launches,
-                fce.fused_ce_dw.launches)
+    count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    counters = (fce.fused_ce_stats, fce.fused_ce_dx, fce.fused_ce_dw)
+    launches = tuple(getattr(c, count) for c in counters)
     got = fce.fused_ce_stats(x, w, b, labels)
     ref = fce.fused_ce_stats_reference(x, w, b, labels)
     for g, r in zip(got, ref):
@@ -407,20 +424,22 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk):
                                       g_tot, chunk=chunk)
     rdx, rdw, rdb = fce.fused_ce_bwd_reference(x, w, b, labels, ref[0],
                                                g_lse, g_lab, g_tot)
-    _close_to_scale(dx, rdx, 1e-5)
-    _close_to_scale(dw, rdw, 1e-5)
+    assert (dx.dtype, dw.dtype, db.dtype) == (dtype, dtype, torch.float32)
+    _close_bf16(dx, rdx, 1e-5)
+    _close_bf16(dw, rdw, 1e-5)
     _close_to_scale(db, rdb, 1e-5)
-    assert (fce.fused_ce_stats.launches, fce.fused_ce_dx.launches,
-            fce.fused_ce_dw.launches) == tuple(c + 1 for c in launches)
+    assert tuple(getattr(c, count) for c in counters) == tuple(
+        c + 1 for c in launches)
 
 
-def test_fused_ce_bwd_is_deterministic(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_bwd_is_deterministic(dev, dtype):
     """The same inputs twice give bit-identical dx, dw and db (fixed
     chunk order, no atomics), also over several chunks."""
     gen = torch.Generator().manual_seed(11)
     n, v, e = 1000, 5003, 256
-    x = _randn(gen, dev, n, e)
-    w = _randn(gen, dev, v, e) * (e ** -0.5)
+    x = _randn(gen, dev, n, e, dtype=dtype)
+    w = (_randn(gen, dev, v, e) * (e ** -0.5)).to(dtype)
     b = _randn(gen, dev, v)
     labels = torch.randint(0, v, (n,), generator=gen).to(dev)
     lse = fce.fused_ce_stats_reference(x, w, b, labels)[0]
@@ -431,13 +450,14 @@ def test_fused_ce_bwd_is_deterministic(dev):
         assert all(torch.equal(p, q) for p, q in zip(one, two))
 
 
-def test_fused_ce_fwd_is_deterministic(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_fwd_is_deterministic(dev, dtype):
     """The same inputs twice give bit-identical lse, lab and tot (the
     tiles' partials merged in vocabulary order, no atomics)."""
     gen = torch.Generator().manual_seed(13)
     n, v, e = 1000, 5003, 256
-    x = _randn(gen, dev, n, e)
-    w = _randn(gen, dev, v, e) * (e ** -0.5)
+    x = _randn(gen, dev, n, e, dtype=dtype)
+    w = (_randn(gen, dev, v, e) * (e ** -0.5)).to(dtype)
     b = _randn(gen, dev, v)
     labels = torch.randint(0, v, (n,), generator=gen).to(dev)
     one = fce.fused_ce_stats(x, w, b, labels)
@@ -445,28 +465,58 @@ def test_fused_ce_fwd_is_deterministic(dev):
     assert all(torch.equal(p, q) for p, q in zip(one, two))
 
 
-def test_fused_softmax_xent_gradients_match_dense(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_softmax_xent_gradients_match_dense(dev, dtype):
     """One backward of the loss counts one dx and one dw launch: the
-    logits are recomputed once for both."""
+    logits are recomputed once for both. f32: against autograd of the
+    dense loss; bf16: against the same function on CPU copies (the plain
+    version, which rounds d to bf16 before dx and dw, as the reference
+    does)."""
     gen = torch.Generator().manual_seed(3)
     n, v, e = 100, 333, 64
-    x = _randn(gen, dev, n, e).requires_grad_(True)
-    w = (_randn(gen, dev, v, e) * 0.125).requires_grad_(True)
+    x = _randn(gen, dev, n, e, dtype=dtype).requires_grad_(True)
+    w = (_randn(gen, dev, v, e) * 0.125).to(dtype).requires_grad_(True)
     b = _randn(gen, dev, v).requires_grad_(True)
     labels = torch.randint(0, v, (n,), generator=gen).to(dev)
     ce = fce.fused_softmax_xent(x, w, b, labels, 0.1)
-    launches = (fce.fused_ce_dx.launches, fce.fused_ce_dw.launches)
+    count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    launches = (getattr(fce.fused_ce_dx, count),
+                getattr(fce.fused_ce_dw, count))
     ce.sum().backward()
-    assert (fce.fused_ce_dx.launches, fce.fused_ce_dw.launches) == (
+    assert (getattr(fce.fused_ce_dx, count),
+            getattr(fce.fused_ce_dw, count)) == (
         launches[0] + 1, launches[1] + 1)
     xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, b))
-    logits = xr @ wr.t() + br
-    ref = torch.nn.functional.cross_entropy(logits, labels, reduction="none",
-                                            label_smoothing=0.1)
+    if dtype == torch.float32:
+        logits = xr @ wr.t() + br
+        ref = torch.nn.functional.cross_entropy(
+            logits, labels, reduction="none", label_smoothing=0.1)
+    else:
+        xr, wr, br = (t.detach().cpu().requires_grad_(True)
+                      for t in (x, w, b))
+        ref = fce.fused_softmax_xent(xr, wr, br, labels.cpu(), 0.1)
     ref.sum().backward()
-    _close_to_scale(ce, ref, 1e-5)
+    _close_to_scale(ce, ref.to(dev), 1e-5)
     for g, r in ((x.grad, xr.grad), (w.grad, wr.grad), (b.grad, br.grad)):
-        _close_to_scale(g, r, 1e-5)
+        _close_bf16(g, r.to(dev), 1e-5)
+
+
+def test_fused_ce_refuses_mixed_operand_types(dev):
+    """bf16 x with f32 w (and the other way) raises before any launch:
+    nothing casts one to the other's type."""
+    x = torch.zeros(8, 16, device=dev)
+    w = torch.zeros(32, 16, device=dev)
+    b = torch.zeros(32, device=dev)
+    labels = torch.zeros(8, dtype=torch.int32, device=dev)
+    launches = (fce.fused_ce_stats.launches, fce.fused_ce_stats.launches_bf16)
+    for xx, ww in ((x.bfloat16(), w), (x, w.bfloat16())):
+        with pytest.raises(TypeError):
+            fce.fused_ce_stats(xx, ww, b, labels)
+        with pytest.raises(TypeError):
+            fce.fused_ce_bwd(xx, ww, b, labels, *(torch.zeros(8, device=dev)
+                                                  for _ in range(4)))
+    assert (fce.fused_ce_stats.launches,
+            fce.fused_ce_stats.launches_bf16) == launches
 
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,causal", [
@@ -557,3 +607,42 @@ def test_flash_attention_autograd_runs_the_kernels(dev):
     fa.flash_attention_reference(qr, kr, vr, kvm, causal=True)[0].backward(do)
     for g, r in ((q.grad, qr.grad), (k.grad, kr.grad), (v.grad, vr.grad)):
         _close_to_scale(g, r, 1e-5)
+
+
+def test_bf16_products_with_f32_output_match_the_cpu(dev):
+    """``logits_matmul`` (its forward one cuBLAS call with an f32 output,
+    its backward rounding the cotangent to bf16) and the dense attention
+    in bf16 with a gradient (its f32 scores from widened operands, which
+    autograd can differentiate) on the card against the same functions on
+    CPU copies: f32 outputs within 1e-5 of their largest magnitude, bf16
+    ones (the outputs, and logits_matmul's dx and dw, each one rounding
+    of an f32 sum) within one bf16 spacing more; the attention's q, k
+    and v gradients, a chain of bf16 roundings, within 2e-2 of their
+    largest magnitude, the reference's bf16 tolerance."""
+    from marian_tpu_torch.ops import attention as tattn
+    from marian_tpu_torch.ops import ops as tops
+    gen = torch.Generator().manual_seed(29)
+    x = _randn(gen, dev, 3, 40, 64, dtype=torch.bfloat16)
+    w = (_randn(gen, dev, 64, 333) * 0.125).to(torch.bfloat16)
+    g = _randn(gen, dev, 3, 40, 333)
+    q, k, v = (_randn(gen, dev, 2, 4, 30, 16, dtype=torch.bfloat16)
+               for _ in range(3))
+    do = _randn(gen, dev, 2, 4, 30, 16, dtype=torch.bfloat16)
+    mask = torch.ones(2, 1, 30, 30, device=dev)
+    mask[1, :, :, 20:] = 0.0
+    outs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        leaves = [t.detach().to(d).requires_grad_(True) for t in (x, w, q, k,
+                                                                 v)]
+        y = tops.logits_matmul(leaves[0], leaves[1])
+        y.backward(g.to(d))
+        ctx, _ = tattn.dense_attention_with_weights(
+            *leaves[2:], mask.to(d), return_weights=False)
+        ctx.backward(do.to(d))
+        outs[name] = [y, ctx] + [t.grad for t in leaves]
+    for i, (got, ref) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        assert got.dtype == ref.dtype
+        if i < 4:
+            _close_bf16(got, ref.to(dev), 1e-5)
+        else:
+            _close_to_scale(got, ref.to(dev), 2e-2)

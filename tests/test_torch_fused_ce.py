@@ -70,9 +70,10 @@ def test_stats_match_jax_dense():
 @pytest.mark.parametrize("eps", [0.0, 0.1])
 @pytest.mark.parametrize("route", ["autograd", "function"])
 def test_gradients_match_jax_grad(eps, route):
-    """``autograd``: the CPU training path (autograd through the plain
-    forward); ``function``: the card's autograd Function, whose backward
-    calls the dx / dw wrappers (their plain versions here)."""
+    """``autograd``: the training path (``fused_softmax_xent``, whose
+    gradient runs through the autograd Function); ``function``: that
+    Function alone, whose backward calls the dx / dw wrappers (their
+    plain versions here)."""
     x, w, b, labels, weights = _inputs(3)
 
     def loss(xx, ww, bb):

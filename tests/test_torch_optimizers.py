@@ -117,8 +117,16 @@ def test_check_gradient_nan_skips_the_whole_update():
 
 @pytest.mark.parametrize("flag,value", [
     ("quantize-bits", 8), ("gradient-dropping-rate", 0.9),
-    ("dynamic-gradient-scaling", ["2"]),
-    ("optimizer-state-dtype", "bfloat16")])
+    ("dynamic-gradient-scaling", ["2"])])
 def test_unported_optimizer_flags_raise(flag, value):
     with pytest.raises(NotImplementedError, match=flag):
         topt.OptimizerConfig.from_options(TOptions({flag: value}))
+
+
+def test_optimizer_state_dtype_other_than_f32_or_bf16_raises_as_reference():
+    opts = {**OPTS, "optimizer-state-dtype": "float16"}
+    with pytest.raises(ValueError) as ref:
+        jopt.OptimizerConfig.from_options(Options(opts))
+    with pytest.raises(ValueError) as got:
+        topt.OptimizerConfig.from_options(TOptions(opts))
+    assert str(got.value) == str(ref.value)

@@ -145,7 +145,7 @@ def test_train_entry_point_raises_without_card(work, monkeypatch):
 @pytest.mark.parametrize("flag", [["--optimizer-delay", "2"],
                                   ["--dispatch-window", "4"],
                                   ["--guided-alignment", "a.txt"],
-                                  ["--precision", "float16"]])
+                                  ["--lr-decay", "0.5"]])
 def test_unported_training_flags_raise(work, flag):
     with pytest.raises(NotImplementedError):
         marian_train.main(train_args(work, "x.npz", "--cpu-threads", "1",
