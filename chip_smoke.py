@@ -35,8 +35,9 @@ card, and drives the port's main paths on data made from --seed:
   the same tokens; 16 of the sentences decode to the same texts, with
   the same logits within a tolerance, on the card and on the CPU;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
-  instantiations held against their plain versions on the same bf16
-  operands; transformer-base trained 2 + 10 updates and decoded (beam 6,
+  instantiations (its backward on the tensor cores at E % 8 == 0) held
+  against their plain versions on the same bf16 operands;
+  transformer-base trained 2 + 10 updates and decoded (beam 6,
   the same sentences) in bf16; and bf16 on the card against bf16 on the
   CPU within PARITY_LIMITS_BF16: the 2+2 base and doc-level training
   cuts, and the 2+2 base decode by its step logits on the card's own
@@ -126,9 +127,12 @@ PER_UPDATE = {"packed_attention": 18, "packed_attention_bwd": 18,
 # weights, the fused CE through its bf16 instantiations
 BF16_FLAGS = ["--precision", "bfloat16", "float32"]
 BF16_WARM, BF16_COUNTED = 2, 10
+# (E 512: the fused CE's backward on the tensor-core kernels, counted on
+# the wrappers' launches_bf16_tc; the CUDA-core bf16 backward not at all)
 PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
                    "fused_ce_dw": 0, "fused_ce_fwd_bf16": 1,
-                   "fused_ce_dx_bf16": 1, "fused_ce_dw_bf16": 1}
+                   "fused_ce_dx_bf16": 0, "fused_ce_dw_bf16": 0,
+                   "fused_ce_dx_bf16_tc": 1, "fused_ce_dw_bf16_tc": 1}
 # card vs CPU in bf16, relative, each cut its own: limits set between
 # the sound port's readings and those of planted faults
 # (scripts/torch_train_parity.py --precision bfloat16, seeds 17 and 19;
@@ -287,12 +291,17 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     from marian_tpu_torch.ops.kernels import _build
+    from marian_tpu_torch.ops.kernels import fused_ce as fce
     t0 = time.time()
     took = _build.build_all()
     each = ", ".join(f"{n} {t:.1f} s" for n, t in took.items())
     print(f"build: {each or 'nothing to build'}; {time.time() - t0:.1f} s "
           f"in all, one nvcc a library in parallel "
-          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)}); ptxas -v of the fused CE's "
+          f"tensor-core kernels (dynamic shared memory "
+          f"{fce.TC_SMEM_BYTES} B each): " + "; ".join(
+              line for line in _build.USAGE.get("fused_ce_bf16", [])
+              if "fce_tc_" in line))
 
 
 def phase_decode_kernel(gen) -> dict:
@@ -840,10 +849,11 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
     largest, dx and dw (bf16) within one bf16 spacing of the plain
     version's; two calls bit-identical; times beside the bound (bf16
     operand bytes, operations at the card's bf16 peak, the tensor cores'
-    rate: the least time for this work on bf16 operands, which these
-    kernels, computing in f32 on the CUDA cores, stay far from; the
-    bound at the f32 CUDA-core peak rides along as bound_ms_f32_peak) and
-    F.linear on bf16 + F.cross_entropy."""
+    rate: the least time for this work on bf16 operands; the bound at the
+    f32 CUDA-core peak rides along as bound_ms_f32_peak) and F.linear on
+    bf16 + F.cross_entropy. The backward takes the tensor-core kernels at
+    E % 8 == 0 (every shape here but E 50, which keeps the CUDA-core
+    ones): each shape's line names the path its counters show."""
     from marian_tpu_torch.ops.kernels import fused_ce as fce
     dev, bf = torch.device("cuda"), torch.bfloat16
 
@@ -865,13 +875,21 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
         got = fce.fused_ce_stats(x, w, b, labels)
         ref = fce.fused_ce_stats_reference(x, w, b, labels)
         g = [torch.randn(n, generator=gen).to(dev) for _ in range(3)]
+        before = bwd_paths(fce)
         dx, dw, db = fce.fused_ce_bwd(x, w, b, labels, ref[0], *g,
                                       chunk=chunk)
+        took = {k: c - before[k] for k, c in bwd_paths(fce).items()}
+        path = "tensor cores" if e % 8 == 0 else "CUDA cores"
+        check(took == {"tensor cores": 2 if e % 8 == 0 else 0,
+                       "CUDA cores": 0 if e % 8 == 0 else 2},
+              f"fused_ce_bwd N={n} V={v} E={e} bf16: launches {took}, "
+              f"expected the {path} path")
         rdx, rdw, rdb = fce.fused_ce_bwd_reference(x, w, b, labels, ref[0],
                                                    *g)
         torch.cuda.synchronize()
         what = (f"N={n} V={v} E={e} bf16"
-                + (f", chunks of {chunk}" if chunk else ""))
+                + (f", chunks of {chunk}" if chunk else "")
+                + f", backward on the {path}")
         for name, a, r in zip(("lse", "lab", "tot"), got, ref):
             errs["fwd"] = max(errs["fwd"], close_to_scale(
                 a, r, f"fused_ce_fwd {what} {name}"))
@@ -931,9 +949,16 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
     }
     joint_ms = time_ms(lambda: fce.fused_ce_bwd(x, w, b, labels, lse, *g),
                        iters=5)
+    # three products; bytes: the inputs, the outputs and the bf16 d
+    # scratch written once and read twice
+    joint_bound, joint_by = bound(
+        (n * e + v * e) * 2 * 2 + v * 4 * 2 + n * 4 * 5 + 3 * n * v * 2,
+        6 * n * v * e, BF16_FLOPS)
     print(f"kernel fused_ce_bwd (joint: dx, dw, db) N={n} V={v} E={e} bf16: "
           f"kernel_ms {joint_ms:.4f} library_ms (backward of linear + "
-          f"cross_entropy on bf16, two calls) {lib_bwd_ms:.4f}")
+          f"cross_entropy on bf16, two calls) {lib_bwd_ms:.4f} bound_ms "
+          f"{joint_bound:.4f} ({joint_by}, at the bf16 peak; "
+          f"{6 * n * v * e / joint_ms / 1e9:.2f} TFLOP/s achieved)")
     product_times(fce, x, w, b, labels, lse, g)
     flops = {"fwd": 2 * n * v * e, "dx": 4 * n * v * e, "dw": 4 * n * v * e}
     io_in = (n * e + v * e) * 2 + v * 4 + n * 4
@@ -956,13 +981,16 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
               f"{f32_peak_ms:.4f} (the same operations at the f32 "
               f"CUDA-core peak); {flops[part] / ms / 1e9:.2f} TFLOP/s "
               f"achieved")
+        # the backward's rows are its tensor-core kernels (their counter)
         rows.append({"name": f"fused_ce_{part}_bf16", "route": "cuda",
                      "source": "marian_tpu_torch/csrc/fused_ce.cu",
                      "replaces": f"marian_tpu/ops/pallas/fused_ce.py:{line}",
                      "max_abs_err": errs[part], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
-                     "bound_ms_f32_peak": f32_peak_ms})
+                     "bound_ms_f32_peak": f32_peak_ms,
+                     "counter": f"fused_ce_{part}_bf16"
+                     + ("" if part == "fwd" else "_tc")})
     del x, w, b, labels, g, lse
     torch.cuda.empty_cache()
     return rows
@@ -1000,11 +1028,22 @@ def fwd_times(fce, x, w, b, labels, library: bool = False) -> None:
           f"{flops / 1e9:.0f} GFLOP)")
 
 
+def bwd_paths(fce) -> dict:
+    """The fused CE backward's launches so far on each bf16 path (dx and
+    dw counted apart)."""
+    return {"tensor cores": fce.fused_ce_dx.launches_bf16_tc
+            + fce.fused_ce_dw.launches_bf16_tc,
+            "CUDA cores": fce.fused_ce_dx.launches_bf16
+            + fce.fused_ce_dw.launches_bf16}
+
+
 def product_times(fce, x, w, b, labels, lse, g) -> None:
     """Each of the backward's three products alone on the first
     vocabulary chunk of the main shape, with its TFLOP/s, beside
     torch.matmul of the same shape (a yardstick; the port never calls
-    it)."""
+    it). bf16 operands take the tensor-core kernels."""
+    if x.dtype == torch.bfloat16:
+        return tc_product_times(fce, x, w, b, labels, lse, g)
     n, e = x.shape
     v0, width = fce.vocab_chunks(n, w.shape[0])[0]
     ldd = -(-width // fce.CHUNK_ALIGN) * fce.CHUNK_ALIGN
@@ -1048,6 +1087,55 @@ def product_times(fce, x, w, b, labels, lse, g) -> None:
               f"kernel_ms {ms:.4f} ({flops / ms / 1e9:.2f} TFLOP/s), "
               f"torch.matmul of the same shape {mm_ms:.4f} "
               f"({flops / mm_ms / 1e9:.2f} TFLOP/s)")
+
+
+def tc_product_times(fce, x, w, b, labels, lse, g) -> None:
+    """``product_times`` of the tensor-core kernels (bf16 d scratch; the
+    d kernel with and without its db sums)."""
+    n, e = x.shape
+    v0, width = fce.vocab_chunks(n, w.shape[0], elem=2)[0]
+    ldd = -(-width // fce.CHUNK_ALIGN) * fce.CHUNK_ALIGN
+    d = torch.empty((n, ldd), device=x.device, dtype=torch.bfloat16)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    dxf = torch.zeros((n, e), device=x.device)
+    db = torch.empty(w.shape[0], device=x.device)
+    lbl = labels.to(torch.int32)
+    s = torch.cuda.current_stream().cuda_stream
+    fns = [fce._fn("fused_ce_bwd_tc_dlogit", 11, 5, True),
+           fce._fn("fused_ce_bwd_tc_dx", 5, 8, True),
+           fce._fn("fused_ce_bwd_tc_dw", 4, 6, True)]
+    sx, sw = fce.chunk_splits(n, e, width, tc=True)
+    part = torch.empty(max(sx * n * e, sw * width * e,
+                           -(-n // fce.TC_TILE) * width), device=x.device)
+    wc, dc = w[:width], d[:, :width]
+
+    def dlogit(out_db):
+        return fns[0](x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                      lbl.data_ptr(), *(t.data_ptr() for t in (lse, *g)),
+                      d.data_ptr(), out_db, part.data_ptr(), n, e, v0, width,
+                      ldd, s)
+    runs = {
+        "d (NT, x . w_c^T, d epilogue, db)": (
+            lambda: dlogit(db.data_ptr()), lambda: torch.matmul(x, wc.t())),
+        "d (NT, x . w_c^T, d epilogue)": (
+            lambda: dlogit(None), lambda: torch.matmul(x, wc.t())),
+        f"dx (NN, d_c . w_c, accumulate, {sx} slices)": (
+            lambda: fns[1](d.data_ptr(), w.data_ptr(), dxf.data_ptr(),
+                           dx.data_ptr(), part.data_ptr(), n, e, v0, width,
+                           ldd, 1, 0, sx, s),
+            lambda: torch.matmul(dc, wc)),
+        f"dw (TN, d_c^T . x, {sw} slices)": (
+            lambda: fns[2](d.data_ptr(), x.data_ptr(), dw.data_ptr(),
+                           part.data_ptr(), n, e, v0, width, ldd, sw, s),
+            lambda: torch.matmul(dc.t(), x)),
+    }
+    flops = 2 * n * width * e
+    for name, (kernel, yardstick) in runs.items():
+        ms, mm_ms = time_ms(kernel, iters=10), time_ms(yardstick, iters=10)
+        print(f"kernel fused_ce_bwd tensor-core product {name} N={n} "
+              f"Vc={width} E={e} bfloat16: kernel_ms {ms:.4f} "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), torch.matmul of the same "
+              f"shape {mm_ms:.4f} ({flops / mm_ms / 1e9:.2f} TFLOP/s)")
 
 
 def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None,
@@ -1526,7 +1614,8 @@ def decoder_options(model: str, *extra: str, vocab: str = "vocab.yml"):
 def kernel_counters():
     """Every kernel of the port, by name: (its wrapper, the attribute
     that counts its launches). The fused CE's bf16 instantiations count
-    on their wrappers' ``launches_bf16``."""
+    on their wrappers' ``launches_bf16``, its tensor-core backward on
+    ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import fused_ce as fce
@@ -1544,6 +1633,8 @@ def kernel_counters():
     out = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
         out[f"{name}_bf16"] = (fns[name], "launches_bf16")
+    for name in ("fused_ce_dx", "fused_ce_dw"):
+        out[f"{name}_bf16_tc"] = (fns[name], "launches_bf16_tc")
     return out
 
 
@@ -2455,9 +2546,9 @@ def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> None:
     train_card_vs_cpu("doc-level 2+2 cut, dim 256, 4 heads, bf16", setup,
                       PARITY_LIMITS_BF16["doc"], ref["doc"])
     counts = read_counts()
-    check(counts["flash_attention_dkv"] > 0 and counts["fused_ce_dx_bf16"]
-          > 0 and counts["fused_ce_dx"] == 0, f"bf16 doc cut launches "
-          f"{counts}")
+    check(counts["flash_attention_dkv"] > 0 and counts["fused_ce_dx_bf16_tc"]
+          > 0 and counts["fused_ce_dx_bf16"] == counts["fused_ce_dx"] == 0,
+          f"bf16 doc cut launches {counts}")
 
 
 def main(argv=None) -> int:
@@ -2535,12 +2626,21 @@ def run_phases(args, smi: str, child) -> int:
     timed("bf16 card vs cpu", phase_bf16_card_vs_cpu, lines, args.seed,
           cpu_ref)
     for k in kernels:
-        k["launches"] = sum(c[k["name"]] for c in path_counts)
-    check(len(kernels) == len(kernel_counters())
+        k["launches"] = sum(c[k.get("counter", k["name"])]
+                            for c in path_counts)
+    # every counter is a row's, but the CUDA-core bf16 backward's: it takes
+    # the bf16 shapes no main path gives (E % 8 != 0, unaligned operands)
+    counted = {k.get("counter", k["name"]) for k in kernels}
+    check(counted | {"fused_ce_dx_bf16", "fused_ce_dw_bf16"}
+          == set(kernel_counters())
           and all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its main path")
     print("kernels: " + "; ".join(
-        f"{k['name']} launches {k['launches']} pass" for k in kernels))
+        f"{k['name']} launches {k['launches']} pass" for k in kernels)
+        + "; fused_ce_dx_bf16, fused_ce_dw_bf16 on the CUDA cores: "
+        + ", ".join(str(sum(c[name] for c in path_counts)) for name in
+                    ("fused_ce_dx_bf16", "fused_ce_dw_bf16"))
+        + " launches on the main paths (their shapes: E % 8 != 0)")
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -13,8 +13,8 @@
 //
 // What bounds them on an H100: operations. Each is a product of N*V*E
 // multiply-adds, 403 GFLOP at N = 12,288, V = 32,000, E = 512, against
-// 25 MB of x and 65 MB of w. They run in f32 on the CUDA cores, outside
-// the tensor cores (TF32 stays off).
+// 25 MB of x and 65 MB of w. The f32 kernels run on the CUDA cores,
+// outside the tensor cores (TF32 stays off).
 //
 // Two instantiations of every kernel, each in a library of its own
 // (KERNEL_DTYPE, at the entry points): x and w float32, or x and w bfloat16
@@ -27,7 +27,25 @@
 // round each d value to bf16 as they read it from shared memory, while db
 // sums the unrounded d. dx is accumulated over the vocabulary chunks in
 // an f32 buffer and written as bf16 by the last chunk; dw is written as
-// bf16 once a chunk.
+// bf16 once a chunk. The bf16 forward, and the bf16 backward at the shapes
+// named below, run so.
+//
+// The bf16 backward on the tensor cores (the bf16 library only; the
+// fce_tc_* kernels and the fused_ce_bwd_tc_* entry points) takes every
+// call with E % 8 == 0 and x, w, dx, dw 16-byte aligned (the wrapper's
+// tc_path); other bf16 shapes keep the CUDA-core kernels above. Its three
+// products per chunk are one template (mma_tiles.cuh: mma.sync m16n8k16,
+// bf16 operands, f32 accumulators, 128 x 128 tiles, a 4-stage cp.async
+// ring, two blocks an SM): the d kernel stores d into a bf16 scratch
+// already rounded (the one value both of the reference's products read;
+// half the scratch bytes, so chunks twice as wide) and sums the
+// unrounded f32 d of its 128 token rows per column, which
+// fce_tc_db_kernel adds over the token tiles in order, compensated, into
+// db; dx and dw read the stored d. What bounds it: operations at the bf16
+// tensor-core peak (989 TFLOP/s: 1.22 ms for the three products at the
+// base shape), then the bf16 d traffic, about 2.4 GB a base backward
+// (written once, read twice: 0.7 ms at 3.35 TB/s). mma.sync reaches
+// 170-255 TFLOP/s a product here (wgmma and TMA are the next step).
 //
 // Forward: one block of 256 threads per (vocabulary tile of 256 columns,
 // token tile of 128 rows) forms that logit tile with the NT product of the
@@ -84,6 +102,9 @@
 #include <math.h>
 
 #include "attention_tiles.cuh"
+#if KERNEL_DTYPE == 1
+#include "mma_tiles.cuh"
+#endif
 
 namespace {
 
@@ -707,6 +728,260 @@ int dw_chunk(const void* d, const void* x, void* dw, void* db, void* part,
 
 }  // namespace
 
+#if KERNEL_DTYPE == 1
+// ---------------------------------------------------------------------------
+// the bf16 backward on the tensor cores (mma_tiles.cuh)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// d[N][ldd] in bf16, columns [0, width) and on to the tile's edge (0 past
+// width): d of vocabulary columns v0 .. v0 + width, rounded once as it is
+// stored (NT: x rows against w_c rows, reduction over E). The tensor
+// cores sum the logit in another order than the plain version (cuBLAS;
+// the CUDA-core kernels' d matched its rounding everywhere on 10 inputs),
+// so where the two f32 d straddle a bf16 midpoint the stored d rounds the
+// other way: 2-14 of 3.9-5.2e8 values an input at the training shapes
+// (scripts/torch_fused_ce_tc_check.py). With part_db, each
+// block also sums its 128 token rows of the unrounded f32 d per column
+// into part_db[blockIdx.y][width]. grid (ceil(width / 128),
+// ceil(N / 128)).
+__global__ void __launch_bounds__(mma::kThreads, mma::kBlocksPerSM)
+    fce_tc_dlogit_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w,
+    const float* __restrict__ b, const int* __restrict__ labels,
+    const float* __restrict__ lse, const float* __restrict__ g_lse,
+    const float* __restrict__ g_lab, const float* __restrict__ g_tot,
+    bf16* __restrict__ d, float* __restrict__ part_db, int N, int E, int v0,
+    int width, int ldd) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(tc_smem);
+  const int m0 = blockIdx.y * mma::kBM, n0 = blockIdx.x * mma::kBN;
+  float acc[4][mma::kFragN][4];
+  mma::product<false, false>(mma::Operand{x, E, N, E},
+                             mma::Operand{w + (size_t)v0 * E, E, width, E},
+                             m0, n0, 0, E, smem, acc);
+  // this thread's 8 columns: bias, and the sums of d over its rows
+  float bias[mma::kFragN][2], colsum[mma::kFragN][2];
+#pragma unroll
+  for (int j = 0; j < mma::kFragN; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + mma::frag_col(j, h);
+      bias[j][h] = c < width ? b[v0 + c] : 0.f;
+      colsum[j][h] = 0.f;
+    }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 4; hr += 2) {
+      const int r = m0 + mma::frag_row(i, hr);
+      if (r >= N) continue;
+      const float r_lse = lse[r], gl = g_lse[r], gg = g_lab[r], gt = g_tot[r];
+      const int lbl = labels[r] - v0;
+      bf16* out = d + (size_t)r * ldd;
+#pragma unroll
+      for (int j = 0; j < mma::kFragN; ++j) {
+        const int c = n0 + mma::frag_col(j, 0);
+        float o[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          o[h] = c + h < width ? dlogit(acc[i][j][hr + h] + bias[j][h], r_lse,
+                                        gl, gg, gt, c + h == lbl)
+                               : 0.f;
+          colsum[j][h] += o[h];
+        }
+        mma::store2(out + c, o[0], o[1]);
+      }
+    }
+  if (part_db == nullptr) return;
+  // the 8 lanes that share columns, then the two warps of a column range
+#pragma unroll
+  for (int j = 0; j < mma::kFragN; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+        colsum[j][h] += __shfl_xor_sync(0xffffffffu, colsum[j][h], o);
+  float* red = reinterpret_cast<float*>(tc_smem);     // [2][kBN]
+  if (mma::lane() < 4)
+#pragma unroll
+    for (int j = 0; j < mma::kFragN; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        red[mma::warp_m() * mma::kBN + mma::frag_col(j, h)] = colsum[j][h];
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < mma::kBN && n0 + t < width)
+    part_db[(size_t)blockIdx.y * width + n0 + t] = red[t] + red[mma::kBN + t];
+}
+
+// sum = (accumulate ? dxf : 0) + d[:, :width] . w[v0 : v0 + width] (NN,
+// reduction over the chunk's columns), into OUT: the f32 running sum dxf,
+// or on the last chunk dx in bf16. grid (ceil(E / 128), ceil(N / 128),
+// splits): with splits > 1 each z-block sums one slice of the columns into
+// part[z] [N][E], added in order by fce_bwd_sum_kernel.
+template <typename OUT>
+__global__ void __launch_bounds__(mma::kThreads, mma::kBlocksPerSM)
+    fce_tc_dx_kernel(
+    const bf16* __restrict__ d, const bf16* __restrict__ w, const float* dxf,
+    OUT* out, float* __restrict__ part, int N, int E, int v0, int width,
+    int ldd, int accumulate) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int m0 = blockIdx.y * mma::kBM, n0 = blockIdx.x * mma::kBN;
+  const int2 ks = mma::k_slice(width, gridDim.z, blockIdx.z);
+  float acc[4][mma::kFragN][4];
+  mma::product<false, true>(mma::Operand{d, ldd, N, width},
+                            mma::Operand{w + (size_t)v0 * E, E, E, width}, m0,
+                            n0, ks.x, ks.y, reinterpret_cast<bf16*>(tc_smem),
+                            acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 4; hr += 2) {
+      const int r = m0 + mma::frag_row(i, hr);
+      if (r >= N) continue;
+#pragma unroll
+      for (int j = 0; j < mma::kFragN; ++j) {
+        const int c = n0 + mma::frag_col(j, 0);
+        if (c >= E) continue;
+        float a0 = acc[i][j][hr], a1 = acc[i][j][hr + 1];
+        const size_t o = (size_t)r * E + c;
+        if (gridDim.z > 1) {
+          mma::store2(part + (size_t)blockIdx.z * N * E + o, a0, a1);
+          continue;
+        }
+        if (accumulate) {
+          const float2 p = *reinterpret_cast<const float2*>(dxf + o);
+          a0 += p.x;
+          a1 += p.y;
+        }
+        mma::store2(out + o, a0, a1);
+      }
+    }
+}
+
+// dw[v0 + m][E] = sum_n d[n][m] x[n] for m < width (TN, reduction over the
+// tokens), in bf16. grid (ceil(E / 128), ceil(width / 128), splits): with
+// splits > 1 each z-block sums one slice of the tokens into part[z]
+// [width][E], added in order by fce_bwd_sum_kernel.
+__global__ void __launch_bounds__(mma::kThreads, mma::kBlocksPerSM)
+    fce_tc_dw_kernel(
+    const bf16* __restrict__ d, const bf16* __restrict__ x,
+    bf16* __restrict__ dw, float* __restrict__ part, int N, int E, int v0,
+    int width, int ldd) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int m0 = blockIdx.y * mma::kBM, n0 = blockIdx.x * mma::kBN;
+  const int2 ks = mma::k_slice(N, gridDim.z, blockIdx.z);
+  float acc[4][mma::kFragN][4];
+  mma::product<true, true>(mma::Operand{d, ldd, width, N},
+                           mma::Operand{x, E, E, N}, m0, n0, ks.x, ks.y,
+                           reinterpret_cast<bf16*>(tc_smem), acc);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 4; hr += 2) {
+      const int r = m0 + mma::frag_row(i, hr);
+      if (r >= width) continue;
+#pragma unroll
+      for (int j = 0; j < mma::kFragN; ++j) {
+        const int c = n0 + mma::frag_col(j, 0);
+        if (c >= E) continue;
+        if (gridDim.z > 1)
+          mma::store2(part + ((size_t)blockIdx.z * width + r) * E + c,
+                      acc[i][j][hr], acc[i][j][hr + 1]);
+        else
+          mma::store2(dw + (size_t)(v0 + r) * E + c, acc[i][j][hr],
+                      acc[i][j][hr + 1]);
+      }
+    }
+}
+
+// db[i] = sum over the token tiles t, in order, of part[t * count + i],
+// compensated (Kahan): the tile sums are of order sqrt(128) while the
+// running sum may reach some 100 before it cancels, and a plain f32 sum
+// over 96-128 tiles came close to the 1e-5 check against the plain
+// version on the card.
+__global__ void fce_tc_db_kernel(const float* __restrict__ part,
+                                 float* __restrict__ db, int count,
+                                 int tiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float sum = 0.f, lost = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const float y = part[(size_t)t * count + i] - lost;
+    const float u = sum + y;
+    lost = (u - sum) - y;
+    sum = u;
+  }
+  db[i] = sum;
+}
+
+// a kernel's dynamic shared memory above the default 48 KB, set once
+template <typename Kernel>
+int allow_tc_smem(Kernel kernel) {
+  return (int)cudaFuncSetAttribute(kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   mma::kSmemBytes);
+}
+
+int tc_dlogit(const void* x, const void* w, const void* b, const void* labels,
+              const void* lse, const void* g_lse, const void* g_lab,
+              const void* g_tot, void* d, void* db, void* part, int N, int E,
+              int v0, int width, int ldd, cudaStream_t s) {
+  static const int attr = allow_tc_smem(fce_tc_dlogit_kernel);
+  if (attr != 0) return attr;
+  const int tiles = (N + mma::kBM - 1) / mma::kBM;
+  const dim3 grid((width + mma::kBN - 1) / mma::kBN, tiles);
+  fce_tc_dlogit_kernel<<<grid, mma::kThreads, mma::kSmemBytes, s>>>(
+      (const bf16*)x, (const bf16*)w, (const float*)b, (const int*)labels,
+      (const float*)lse, (const float*)g_lse, (const float*)g_lab,
+      (const float*)g_tot, (bf16*)d, db ? (float*)part : nullptr, N, E, v0,
+      width, ldd);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || db == nullptr) return err;
+  // the token tiles' column sums, in order
+  fce_tc_db_kernel<<<(width + 255) / 256, 256, 0, s>>>(
+      (const float*)part, (float*)db + v0, width, tiles);
+  return (int)cudaGetLastError();
+}
+
+template <typename OUT>
+int tc_dx(const void* d, const void* w, const void* dxf, void* out,
+          void* part, int N, int E, int v0, int width, int ldd,
+          int accumulate, int splits, cudaStream_t s) {
+  static const int attr = allow_tc_smem(fce_tc_dx_kernel<OUT>);
+  if (attr != 0) return attr;
+  const dim3 grid((E + mma::kBN - 1) / mma::kBN, (N + mma::kBM - 1) / mma::kBM,
+                  splits);
+  fce_tc_dx_kernel<OUT><<<grid, mma::kThreads, mma::kSmemBytes, s>>>(
+      (const bf16*)d, (const bf16*)w, (const float*)dxf, (OUT*)out,
+      (float*)part, N, E, v0, width, ldd, accumulate);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  return sum_slices((const float*)part,
+                    accumulate ? (const float*)dxf : nullptr, (OUT*)out,
+                    (size_t)N * E, splits, s);
+}
+
+int tc_dw(const void* d, const void* x, void* dw, void* part, int N, int E,
+          int v0, int width, int ldd, int splits, cudaStream_t s) {
+  static const int attr = allow_tc_smem(fce_tc_dw_kernel);
+  if (attr != 0) return attr;
+  const dim3 grid((E + mma::kBN - 1) / mma::kBN,
+                  (width + mma::kBM - 1) / mma::kBM, splits);
+  fce_tc_dw_kernel<<<grid, mma::kThreads, mma::kSmemBytes, s>>>(
+      (const bf16*)d, (const bf16*)x, (bf16*)dw, (float*)part, N, E, v0,
+      width, ldd);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  return sum_slices((const float*)part, nullptr, (bf16*)dw + (size_t)v0 * E,
+                    (size_t)width * E, splits, s);
+}
+
+}  // namespace
+#endif
+
 // This library's operand type (KERNEL_DTYPE, attention_tiles.cuh). Every
 // entry point takes the type its caller expects (bf16) and returns
 // cudaErrorInvalidValue for the other.
@@ -774,3 +1049,41 @@ extern "C" int fused_ce_bwd_dw(const void* d, const void* x, void* dw,
   return dw_chunk<Op>(d, x, dw, db, part, N, E, v0, width, ldd, vec, splits,
                       (cudaStream_t)stream);
 }
+
+#if KERNEL_DTYPE == 1
+// The bf16 backward on the tensor cores, for E % 8 == 0 and x, w, dx, dw
+// 16-byte aligned (the wrapper's tc_path), in the same three calls a
+// chunk. d is the [N, ldd] bf16 scratch (ldd a multiple of 128, at least
+// width): fused_ce_bwd_tc_dlogit stores it rounded and, given db, sums
+// the unrounded d into db[v0 : v0 + width] through part (ceil(N / 128) *
+// width floats), token tile by token tile in order. dx and dw as
+// fused_ce_bwd_dx and fused_ce_bwd_dw take them, part their scratch for
+// splits > 1 (splits * N * E, splits * width * E floats).
+extern "C" int fused_ce_bwd_tc_dlogit(
+    const void* x, const void* w, const void* b, const void* labels,
+    const void* lse, const void* g_lse, const void* g_lab, const void* g_tot,
+    void* d, void* db, void* part, int N, int E, int v0, int width, int ldd,
+    void* stream) {
+  return tc_dlogit(x, w, b, labels, lse, g_lse, g_lab, g_tot, d, db, part, N,
+                   E, v0, width, ldd, (cudaStream_t)stream);
+}
+
+extern "C" int fused_ce_bwd_tc_dx(const void* d, const void* w, void* dxf,
+                                  void* dx, void* part, int N, int E, int v0,
+                                  int width, int ldd, int accumulate, int last,
+                                  int splits, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!last)
+    return tc_dx<float>(d, w, dxf, dxf, part, N, E, v0, width, ldd,
+                        accumulate, splits, s);
+  return tc_dx<bf16>(d, w, dxf, dx, part, N, E, v0, width, ldd, accumulate,
+                     splits, s);
+}
+
+extern "C" int fused_ce_bwd_tc_dw(const void* d, const void* x, void* dw,
+                                  void* part, int N, int E, int v0, int width,
+                                  int ldd, int splits, void* stream) {
+  return tc_dw(d, x, dw, part, N, E, v0, width, ldd, splits,
+               (cudaStream_t)stream);
+}
+#endif

@@ -10,7 +10,10 @@ libraries, ``KERNEL_DTYPE`` 0 (float32) and 1 (bfloat16, the name
 ``build/marian_tpu_torch/`` beside the package, named by a hash of the
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded.
-``build_all`` starts one ``nvcc`` per library, all at once.
+``build_all`` starts one ``nvcc`` per library, all at once. A library
+built with ``-Xptxas -v`` (the bf16 fused CE, whose tensor-core kernels'
+registers and spills are worth a look) leaves its kernels' resource
+lines in ``USAGE``.
 
 Every C entry point takes pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
@@ -21,12 +24,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "marian_tpu_torch"
@@ -38,11 +42,16 @@ LIBRARIES = {"decode_attention": ("decode_attention", ()),
 for _src in ("packed_attention", "flash_attention", "fused_ce"):
     LIBRARIES[_src] = (_src, ("-DKERNEL_DTYPE=0",))
     LIBRARIES[f"{_src}_bf16"] = (_src, ("-DKERNEL_DTYPE=1",))
+LIBRARIES["fused_ce_bf16"] = ("fused_ce", ("-DKERNEL_DTYPE=1", "-Xptxas",
+                                           "-v"))
 # the sources the libraries are built from
 SOURCES = tuple(dict.fromkeys(src for src, _ in LIBRARIES.values()))
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# library -> "<kernel>: <registers, shared memory, spills>" lines of its
+# last build here with -Xptxas -v
+USAGE: Dict[str, List[str]] = {}
 
 
 def _nvcc() -> str:
@@ -54,6 +63,25 @@ def _nvcc() -> str:
         return default
     raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
                        "machine with the card (PATH or /usr/local/cuda)")
+
+
+def ptxas_usage(log: str) -> List[str]:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name (the
+    mangled name's ``*_kernel`` part) with its stack, spill and register
+    lines."""
+    out, kernel, props = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.search(r"\d([a-z][a-z0-9_]*?_kernel)", m.group(1))
+            kernel, props = (k.group(1) if k else m.group(1)), ""
+        elif kernel and "spill" in line:
+            props = line.strip()
+        elif kernel and "registers" in line:
+            out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}; "
+                       f"{props}")
+            kernel = None
+    return out
 
 
 def _flags(name: str):
@@ -96,6 +124,8 @@ def build_all(names: Sequence[str] = tuple(LIBRARIES)) -> Dict[str, float]:
                     raise RuntimeError(
                         f"nvcc failed for {n} (csrc/{LIBRARIES[n][0]}.cu, "
                         f"exit {proc.returncode}):\n{log.read_text()}")
+                if "-v" in LIBRARIES[n][1]:
+                    USAGE[n] = ptxas_usage(log.read_text())
                 os.replace(tmp, out)
     finally:
         for _, _, _, log, proc in jobs:

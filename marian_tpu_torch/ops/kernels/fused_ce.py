@@ -42,11 +42,22 @@ any hidden size E, and mask the ragged edges themselves, so the table is
 never padded. In bfloat16 they read the operands as bf16 and accumulate
 in f32, and, as the reference's backward does, round d to bf16 before
 the dx and dw products (``round_d``); dx and dw come out in the
-operands' type, lse, lab, tot and db in float32. ``.launches`` on
-``fused_ce_stats`` counts its float32 calls on the card and
-``.launches_bf16`` its bfloat16 ones; on ``fused_ce_dx`` and
+operands' type, lse, lab, tot and db in float32.
+
+The bf16 backward runs on the tensor cores where ``tc_path`` allows it
+(E a multiple of 8, x, w, dx and dw 16-byte aligned): its d scratch is
+bf16, stored already rounded (the value both of the reference's products
+read), so a chunk is twice as wide, and db is summed from the unrounded
+d in the d kernel, per 128-token tile and then across the tiles in
+order, compensated (``fused_ce_bwd_tc_reference``, ``tc_chunk_ops``).
+Other bf16
+shapes take the CUDA-core kernels, which round d as they read it.
+
+``.launches`` on ``fused_ce_stats`` counts its float32 calls on the card
+and ``.launches_bf16`` its bfloat16 ones; on ``fused_ce_dx`` and
 ``fused_ce_dw`` they count the card's backward calls that computed dx
-and dw, whichever entry point made them.
+and dw on the CUDA-core kernels, whichever entry point made them, and
+``.launches_bf16_tc`` those on the tensor-core kernels.
 """
 
 from __future__ import annotations
@@ -60,44 +71,54 @@ import torch
 from . import _build
 
 _SMS = 132                            # H100 SXM streaming multiprocessors
-SCRATCH_BYTES = 256 * 2 ** 20         # the backward's [N, Vc] f32 d scratch
-CHUNK_ALIGN = 128                     # csrc/fused_ce.cu kGM
+SCRATCH_BYTES = 256 * 2 ** 20         # the backward's [N, Vc] d scratch
+CHUNK_ALIGN = 128                     # csrc/fused_ce.cu kGM, mma_tiles kBM
 _TILE_COLS = 256                      # csrc/fused_ce.cu kGN
+TC_TILE = 128                         # csrc/mma_tiles.cuh kBM = kBN
+TC_SLOTS = 2 * _SMS                   # mma_tiles.cuh kBlocksPerSM an SM
+# csrc/mma_tiles.cuh kSmemBytes: 4 stages of two [128][32 + 8] bf16 tiles
+TC_SMEM_BYTES = 4 * 2 * TC_TILE * (32 + 8) * 2
 _STATS_INIT = -1e30                   # csrc/fused_ce.cu kStatsInit
 
 
-def k_splits(tiles: int, depth: int) -> int:
+def k_splits(tiles: int, depth: int, slots: int = _SMS) -> int:
     """Slices of a backward product's reduction of ``depth`` for
-    ``tiles`` output tiles of 128 x 256: the count in 1..4 whose blocks
-    leave the fewest of the card's block slots (one a streaming
-    multiprocessor) idle in the last wave, the fewest slices on a tie,
-    each slice at least 256 deep. The slices' partial sums are added in
-    order by a second pass."""
+    ``tiles`` output tiles: the count in 1..4 whose blocks leave the
+    fewest of the card's ``slots`` block slots (one a streaming
+    multiprocessor for the CUDA-core kernels, two for the tensor-core
+    ones) idle in the last wave, the fewest slices on a tie, each slice
+    at least 256 deep. The slices' partial sums are added in order by a
+    second pass."""
     def fill(s):
         blocks = tiles * s
-        return blocks / (-(-blocks // _SMS) * _SMS)
+        return blocks / (-(-blocks // slots) * slots)
     most = max(1, min(4, depth // 256))
     return max(range(1, most + 1), key=lambda s: (fill(s), -s))
 
 
-def chunk_splits(n: int, e: int, width: int) -> Tuple[int, int]:
+def chunk_splits(n: int, e: int, width: int, tc: bool = False
+                 ) -> Tuple[int, int]:
     """``k_splits`` of one vocabulary chunk's dx product (n x e outputs,
     reduction over the chunk) and dw product (width x e outputs,
-    reduction over the tokens)."""
-    e_tiles = -(-e // _TILE_COLS)
-    return (k_splits(e_tiles * -(-n // CHUNK_ALIGN), width),
-            k_splits(e_tiles * -(-width // CHUNK_ALIGN), n))
+    reduction over the tokens), for output tiles 128 rows high: 256 wide
+    and one block an SM on the CUDA cores, 128 wide and two on the
+    tensor cores (``tc``)."""
+    e_tiles = -(-e // (TC_TILE if tc else _TILE_COLS))
+    slots = TC_SLOTS if tc else _SMS
+    return (k_splits(e_tiles * -(-n // CHUNK_ALIGN), width, slots),
+            k_splits(e_tiles * -(-width // CHUNK_ALIGN), n, slots))
 
 
-def vocab_chunks(n: int, v: int, chunk: Optional[int] = None
-                 ) -> List[Tuple[int, int]]:
+def vocab_chunks(n: int, v: int, chunk: Optional[int] = None,
+                 elem: int = 4) -> List[Tuple[int, int]]:
     """(v0, width) of the backward's vocabulary chunks, in order: they
     cover [0, v) once. The width is ``chunk`` when given (tests force a
     narrow one), else the largest multiple of 128 whose d scratch of
-    n x width f32 fits SCRATCH_BYTES (at least 128); the last chunk takes
-    what is left."""
+    n x width values of ``elem`` bytes (4: f32; 2: the tensor-core path's
+    bf16) fits SCRATCH_BYTES (at least 128); the last chunk takes what is
+    left."""
     if chunk is None:
-        fit = SCRATCH_BYTES // (4 * max(n, 1))
+        fit = SCRATCH_BYTES // (elem * max(n, 1))
         chunk = max(CHUNK_ALIGN, fit // CHUNK_ALIGN * CHUNK_ALIGN)
     if chunk < 1:
         raise ValueError(f"vocab_chunks: chunk {chunk} < 1")
@@ -195,6 +216,31 @@ def fused_ce_bwd_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot):
     return dx.to(x.dtype), dw.to(w.dtype), d.sum(dim=0).to(b.dtype)
 
 
+def tile_sums(d, rows: int = TC_TILE):
+    """sum_n d as the tensor-core backward takes it: each tile of
+    ``rows`` tokens summed on its own, then the tiles added in order,
+    compensated (Kahan: ``lost`` carries the low bits each add drops)."""
+    parts = [d[t:t + rows].sum(dim=0) for t in range(0, d.shape[0], rows)]
+    out, lost = parts[0].clone(), torch.zeros_like(parts[0])
+    for p in parts[1:]:
+        y = p - lost
+        u = out + y
+        lost = (u - out) - y
+        out = u
+    return out
+
+
+def fused_ce_bwd_tc_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot):
+    """(dx, dw, db) in the tensor-core backward's order of work: d
+    rounded once to x's dtype and stored, dx and dw from that stored d
+    (in f32 sums), db from the unrounded d by ``tile_sums``."""
+    d = dlogits_reference(x, w, b, labels, lse, g_lse, g_lab, g_tot)
+    stored = d.to(x.dtype)
+    dx = torch.matmul(stored.float(), w.float())
+    dw = torch.matmul(stored.float().t(), x.float())
+    return dx.to(x.dtype), dw.to(w.dtype), tile_sums(d).to(b.dtype)
+
+
 def plain_chunk_ops(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db):
     """``run_chunks``'s three operations in plain torch, writing into dx
     [N, E] (float32: the running sum over the chunks), dw [V, E] and db
@@ -221,6 +267,27 @@ def plain_chunk_ops(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db):
         dw[v0:v0 + width] = (round_d(d, x.dtype).t() @ x.float()).to(
             dw.dtype)
         db[v0:v0 + width] = d.sum(dim=0)
+
+    return make_d, add_dx, put_dw
+
+
+def tc_chunk_ops(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db):
+    """``run_chunks``'s three operations as the tensor-core kernels order
+    them: make_d stores d rounded once to the operands' dtype and, with
+    db, sums the unrounded d into db[v0 : v0 + width] by ``tile_sums``;
+    add_dx and put_dw read the stored d. dx is the f32 running sum, dw
+    in the operands' dtype; db None when dw is not asked for."""
+    make, add_dx, _ = plain_chunk_ops(x, w, b, labels, lse, g_lse, g_lab,
+                                      g_tot, dx, dw, db)
+
+    def make_d(v0, width):
+        d = make(v0, width)
+        if db is not None:
+            db[v0:v0 + width] = tile_sums(d)
+        return d.to(x.dtype)
+
+    def put_dw(d, v0, width):
+        dw[v0:v0 + width] = (d.float().t() @ x.float()).to(dw.dtype)
 
     return make_d, add_dx, put_dw
 
@@ -267,8 +334,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _count(fn, bf16: bool) -> None:
-    if bf16:
+def _count(fn, bf16: bool, tc: bool = False) -> None:
+    if tc:
+        fn.launches_bf16_tc += 1
+    elif bf16:
         fn.launches_bf16 += 1
     else:
         fn.launches += 1
@@ -305,6 +374,14 @@ def _aligned(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def tc_path(e: int, dtype: torch.dtype, aligned: bool) -> bool:
+    """Whether the backward takes the tensor-core kernels: bf16 operands,
+    E a multiple of 8 (rows of whole 16-byte vectors) and x, w, dx, dw
+    16-byte aligned (``aligned``). Every other bf16 call takes the
+    CUDA-core kernels; float32 never takes this path."""
+    return dtype == torch.bfloat16 and e % 8 == 0 and aligned
+
+
 def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
                  need_dw=True, chunk=None):
     """(dx [N, E], dw [V, E], db [V]) for the stats' cotangents, each
@@ -320,14 +397,18 @@ def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
     n, e = x.shape
     v = w.shape[0]
     bf16 = x.dtype == torch.bfloat16
-    ops = (_fn("fused_ce_bwd_dlogit", 9, 7, bf16),
-           _fn("fused_ce_bwd_dx", 5, 10, bf16),
-           _fn("fused_ce_bwd_dw", 5, 8, bf16))
     lse, g_lse, g_lab, g_tot = _bwd_operands(x, (lse, g_lse, g_lab, g_tot))
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
     db = (torch.empty((v,), dtype=torch.float32, device=x.device)
           if need_dw else None)
+    outs = [t for t in (x, w, dx, dw) if t is not None]
+    if tc_path(e, x.dtype, _aligned(*outs)):
+        return _bwd_tc(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db,
+                       chunk)
+    ops = (_fn("fused_ce_bwd_dlogit", 9, 7, bf16),
+           _fn("fused_ce_bwd_dx", 5, 10, bf16),
+           _fn("fused_ce_bwd_dw", 5, 8, bf16))
     chunks = vocab_chunks(n, v, chunk)
     # dx's running sum over the chunks: dx itself in float32, an f32
     # buffer that the last chunk turns into the bf16 dx otherwise
@@ -345,8 +426,7 @@ def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
         if need_dw and sw > 1:
             sizes.append(sw * width * (e + 1))
     part = torch.empty(max(sizes), dtype=torch.float32, device=x.device)
-    vec = int(e % 4 == 0 and _aligned(*(t for t in (x, w, dx, dw)
-                                         if t is not None)))
+    vec = int(e % 4 == 0 and _aligned(*outs))
     stream = _stream(x)
 
     last_v0 = chunks[-1][0]
@@ -381,6 +461,67 @@ def fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot, need_dx=True,
     return dx, dw, db
 
 
+def _bwd_tc(x, w, b, labels, lse, g_lse, g_lab, g_tot, dx, dw, db, chunk):
+    """``fused_ce_bwd``'s chunk loop on the tensor-core kernels (bf16,
+    ``tc_path``): a bf16 d scratch, stored rounded, with db taken in the
+    d kernel's epilogue."""
+    n, e = x.shape
+    v = w.shape[0]
+    ops = (_fn("fused_ce_bwd_tc_dlogit", 11, 5, True),
+           _fn("fused_ce_bwd_tc_dx", 5, 8, True),
+           _fn("fused_ce_bwd_tc_dw", 4, 6, True))
+    chunks = vocab_chunks(n, v, chunk, elem=2)
+    dxf = dx
+    if dx is not None and len(chunks) > 1:
+        dxf = torch.empty((n, e), dtype=torch.float32, device=x.device)
+    ldd = -(-chunks[0][1] // CHUNK_ALIGN) * CHUNK_ALIGN
+    d = torch.empty((n, ldd), dtype=torch.bfloat16, device=x.device)
+    splits = {width: chunk_splits(n, e, width, tc=True)
+              for _, width in chunks}
+    # scratch of the db tile sums and of the reduction slices, reused by
+    # every chunk's launches in turn
+    sizes = [1]
+    for width, (sx, sw) in splits.items():
+        if dx is not None and sx > 1:
+            sizes.append(sx * n * e)
+        if dw is not None:
+            sizes.append(-(-n // TC_TILE) * width)
+            if sw > 1:
+                sizes.append(sw * width * e)
+    part = torch.empty(max(sizes), dtype=torch.float32, device=x.device)
+    stream = _stream(x)
+    last_v0 = chunks[-1][0]
+
+    def make_d(v0, width):
+        _build.check(ops[0](
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), g_lse.data_ptr(), g_lab.data_ptr(),
+            g_tot.data_ptr(), d.data_ptr(),
+            None if db is None else db.data_ptr(), part.data_ptr(), n, e, v0,
+            width, ldd, stream), "fused_ce_bwd_tc_dlogit")
+        return d
+
+    def add_dx(d, v0, width, first):
+        _build.check(ops[1](
+            d.data_ptr(), w.data_ptr(), dxf.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), n, e, v0, width, ldd, int(not first),
+            int(v0 == last_v0), splits[width][0], stream),
+            "fused_ce_bwd_tc_dx")
+
+    def put_dw(d, v0, width):
+        _build.check(ops[2](
+            d.data_ptr(), x.data_ptr(), dw.data_ptr(), part.data_ptr(), n, e,
+            v0, width, ldd, splits[width][1], stream), "fused_ce_bwd_tc_dw")
+
+    run_chunks(chunks, make_d, None if dx is None else add_dx,
+               None if dw is None else put_dw)
+    if dx is not None:
+        _count(fused_ce_dx, True, tc=True)
+    if dw is not None:
+        _count(fused_ce_dw, True, tc=True)
+    return dx, dw, db
+
+
 def fused_ce_dx(x, w, b, labels, lse, g_lse, g_lab, g_tot):
     """dx [N, E] = d . w alone (the logits recomputed chunk by chunk)."""
     return fused_ce_bwd(x, w, b, labels, lse, g_lse, g_lab, g_tot,
@@ -396,6 +537,8 @@ def fused_ce_dw(x, w, b, labels, lse, g_lse, g_lab, g_tot):
 for _wrapper in (fused_ce_stats, fused_ce_dx, fused_ce_dw):
     _wrapper.launches = 0
     _wrapper.launches_bf16 = 0
+for _wrapper in (fused_ce_dx, fused_ce_dw):
+    _wrapper.launches_bf16_tc = 0
 
 
 class _FusedCEStats(torch.autograd.Function):

@@ -9,7 +9,8 @@ its ``marian_tpu_torch/csrc/fused_ce.cu`` is read), with ``nvcc -Xptxas
 spills. Then, at the training shapes (base: N 12,288, E 512; doc-level:
 N 16,384 = 8 rows x 2,048, E 1,024; V 32,000, f32), it times the forward
 (kernel + merge) and the joint backward (``fused_ce_bwd``: dx, dw, db;
-not for a build whose entry points predate the operand-type flag) of
+not for a build whose entry points predate the operand-type flag, nor in
+bf16 for one without the tensor-core backward) of
 each build in turns (parent, change, variants, then back in reverse
 order; CUDA events behind a device sleep), holds every build's outputs
 against this checkout's and checks that two calls of each build are
@@ -69,21 +70,15 @@ def build(trees, flags) -> dict:
             [_nvcc(), *flags, "-Xptxas", "-v", "-o", str(lib),
              str(_source(tree))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    from marian_tpu_torch.ops.kernels import _build
     libs = {}
     for tag, lib, src, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        entry = None
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                entry = m.group(1)
-                continue
-            kernel = re.search(r"\d(fce_[a-z_]+?_kernel)", entry or "")
-            if kernel and ("registers" in line or "spill" in line):
-                print(f"ptxas [{tag}] {kernel.group(1)}: "
-                      f"{line.split('ptxas info    :')[-1].strip()}")
+        for line in _build.ptxas_usage(log):
+            if line.startswith("fce_"):
+                print(f"ptxas [{tag}] {line}")
         libs[tag] = ctypes.CDLL(str(lib))
     return libs
 
@@ -141,14 +136,17 @@ def forward(lib, takes_splits: bool, takes_dtype: bool):
     return run
 
 
-def backward(lib, takes_dtype: bool):
+def backward(lib, takes_dtype: bool, dtype):
     """fn(x, w, b, labels, lse, g_lse, g_lab, g_tot) -> (dx, dw, db): this
     checkout's ``fused_ce_bwd`` with its kernels taken from the library;
     None for a library whose backward entry points predate the
-    operand-type flag (other signatures: its forward alone is timed)."""
+    operand-type flag, or, in bf16, the tensor-core ones (other
+    signatures: its forward alone is timed here, its own backward by
+    --bwd-turns)."""
     from marian_tpu_torch.ops.kernels import fused_ce as fce
     fn = entry(lib)
-    if not takes_dtype:
+    if not takes_dtype or (dtype == torch.bfloat16
+                           and not hasattr(lib, "fused_ce_bwd_tc_dx")):
         return None
 
     def run(*args):
@@ -294,7 +292,7 @@ def main(argv=None) -> int:
             continue
         runs[tag] = (forward(libs[tag], re.search(
             r"fused_ce_fwd\([^)]*int splits", src) is not None, takes_dtype),
-            backward(libs[tag], takes_dtype))
+            backward(libs[tag], takes_dtype, dtype))
     turns = ["parent"] * ("parent" in runs) + [
         tag for tag in runs if tag != "parent"]
     order = turns + turns[::-1]

@@ -39,10 +39,11 @@ CLASSES = (
     ("packed_attention backward (this port)", r"packed_attention_bwd"),
     ("packed_attention forward (this port)",
      r"packed_attention_(fwd_|generic_)?kernel"),
-    ("fused_ce backward d recompute (this port)", r"fce_bwd_dlogit"),
-    ("fused_ce backward dx product (this port)", r"fce_bwd_dx"),
-    ("fused_ce backward dw/db product (this port)", r"fce_bwd_dw"),
-    ("fused_ce backward slice sums (this port)", r"fce_bwd_sum"),
+    ("fused_ce backward d recompute (this port)", r"fce_(bwd|tc)_dlogit"),
+    ("fused_ce backward dx product (this port)", r"fce_(bwd|tc)_dx"),
+    ("fused_ce backward dw/db product (this port)", r"fce_(bwd|tc)_dw"),
+    ("fused_ce backward slice and db sums (this port)",
+     r"fce_bwd_sum|fce_tc_db"),
     ("fused_ce forward (this port)", r"fce_fwd"),
     ("GEMM (cuBLAS/CUTLASS)", r"gemm|sgemm|cutlass|cublas|nvjet"),
     ("reductions", r"reduce|Reduce|norm"),

@@ -388,7 +388,7 @@ def test_packed_attention_autograd_runs_both_kernels(dev):
     (129, 3001, 96, None), (200, 1000, 1024, None), (130, 515, 1500, None),
     (301, 3001, 96, 500), (130, 515, 1500, 200), (129, 700, 50, 128),
     (1100, 300, 64, None), (70, 200, 50, None), (130, 257, 64, None),
-    (133, 513, 1024, None)])
+    (133, 513, 1024, None), (4001, 32003, 512, 2048)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     """With ``chunk`` the joint backward runs over forced narrow
@@ -396,9 +396,12 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     scalar loads; small tile counts split the dx and dw reductions into
     slices (``k_splits``). The first labels lie on the forward's tile
     edges (columns 0, 255, 256 and V - 1); V 200 is under one tile, V 257
-    leaves one column in the last. In bf16 (x and w; b f32) the kernels
-    count on ``.launches_bf16``, dx and dw come out bf16 and are held to
-    one bf16 spacing of the plain version's."""
+    leaves one column in the last; N 4,001, V 32,003 leaves ragged tiles
+    in every product over 16 chunks. In bf16 (x and w; b f32) the
+    forward counts on ``.launches_bf16``, the backward on
+    ``.launches_bf16_tc`` (the tensor-core kernels) where E % 8 == 0 and
+    on ``.launches_bf16`` (the CUDA-core ones) otherwise; dx and dw come
+    out bf16 and are held to one bf16 spacing of the plain version's."""
     gen = torch.Generator().manual_seed(n + v + e)
     x = _randn(gen, dev, n, e, dtype=dtype)
     w = (_randn(gen, dev, v, e) * (e ** -0.5)).to(dtype)
@@ -408,8 +411,12 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     labels[:len(edges)] = torch.tensor(edges)
     labels = labels.to(dev)
     count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
-    counters = (fce.fused_ce_stats, fce.fused_ce_dx, fce.fused_ce_dw)
-    launches = tuple(getattr(c, count) for c in counters)
+    bwd = ("launches_bf16_tc" if dtype == torch.bfloat16 and e % 8 == 0
+           else count)
+    counters = ((fce.fused_ce_stats, count), (fce.fused_ce_dx, bwd),
+                (fce.fused_ce_dw, bwd), (fce.fused_ce_dx, "launches_bf16"),
+                (fce.fused_ce_dx, "launches_bf16_tc"))
+    launches = tuple(getattr(c, a) for c, a in counters)
     got = fce.fused_ce_stats(x, w, b, labels)
     ref = fce.fused_ce_stats_reference(x, w, b, labels)
     for g, r in zip(got, ref):
@@ -428,14 +435,19 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     _close_bf16(dx, rdx, 1e-5)
     _close_bf16(dw, rdw, 1e-5)
     _close_to_scale(db, rdb, 1e-5)
-    assert tuple(getattr(c, count) for c in counters) == tuple(
-        c + 1 for c in launches)
+    # each path's counter moved by one, the other bf16 path's not at all
+    moved = [getattr(c, a) - k for (c, a), k in zip(counters, launches)]
+    if dtype == torch.bfloat16:
+        assert moved == [1, 1, 1] + ([0, 1] if e % 8 == 0 else [1, 0])
+    else:
+        assert moved == [1, 1, 1, 0, 0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_bwd_is_deterministic(dev, dtype):
     """The same inputs twice give bit-identical dx, dw and db (fixed
-    chunk order, no atomics), also over several chunks."""
+    chunk order, no atomics), also over several chunks; in bf16 on the
+    tensor-core kernels (E 256)."""
     gen = torch.Generator().manual_seed(11)
     n, v, e = 1000, 5003, 256
     x = _randn(gen, dev, n, e, dtype=dtype)
@@ -444,10 +456,13 @@ def test_fused_ce_bwd_is_deterministic(dev, dtype):
     labels = torch.randint(0, v, (n,), generator=gen).to(dev)
     lse = fce.fused_ce_stats_reference(x, w, b, labels)[0]
     g = [_randn(gen, dev, n) for _ in range(3)]
+    tc = fce.fused_ce_dx.launches_bf16_tc
     for chunk in (None, 1000):
         one = fce.fused_ce_bwd(x, w, b, labels, lse, *g, chunk=chunk)
         two = fce.fused_ce_bwd(x, w, b, labels, lse, *g, chunk=chunk)
         assert all(torch.equal(p, q) for p, q in zip(one, two))
+    assert fce.fused_ce_dx.launches_bf16_tc == tc + 4 * (
+        dtype == torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -479,7 +494,8 @@ def test_fused_softmax_xent_gradients_match_dense(dev, dtype):
     b = _randn(gen, dev, v).requires_grad_(True)
     labels = torch.randint(0, v, (n,), generator=gen).to(dev)
     ce = fce.fused_softmax_xent(x, w, b, labels, 0.1)
-    count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    # bf16 at E 64: the tensor-core backward
+    count = "launches_bf16_tc" if dtype == torch.bfloat16 else "launches"
     launches = (getattr(fce.fused_ce_dx, count),
                 getattr(fce.fused_ce_dw, count))
     ce.sum().backward()

@@ -51,7 +51,8 @@ def _port_files():
                     ROOT / "scripts" / "torch_decode_profile.py",
                     ROOT / "scripts" / "torch_train_profile.py",
                     ROOT / "scripts" / "torch_train_parity.py",
-                    ROOT / "scripts" / "torch_serve_profile.py"]
+                    ROOT / "scripts" / "torch_serve_profile.py",
+                    ROOT / "scripts" / "torch_fused_ce_tc_check.py"]
 
 
 def _imported_modules(path):
