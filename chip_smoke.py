@@ -35,8 +35,10 @@ card, and drives the port's main paths on data made from --seed:
   the same tokens; 16 of the sentences decode to the same texts, with
   the same logits within a tolerance, on the card and on the CPU;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
-  instantiations (its backward on the tensor cores at E % 8 == 0) held
-  against their plain versions on the same bf16 operands;
+  instantiations (its forward and backward on the tensor cores at E % 8
+  == 0) and the attention kernels' bf16 instantiations (at the bf16
+  paths' shapes, timed beside SDPA on bf16) held against their plain
+  versions on the same bf16 operands;
   transformer-base trained 2 + 10 updates and decoded (beam 6,
   the same sentences) in bf16; and bf16 on the card against bf16 on the
   CPU within PARITY_LIMITS_BF16: the 2+2 base and doc-level training
@@ -46,10 +48,13 @@ card, and drives the port's main paths on data made from --seed:
   phases run, on its own copy of the same data, and the card's halves
   are held to them later.
 
-Each main path runs with every launch count set to 0 just before it and
-read just after; a kernel's ``launches`` in the kernel line is the sum
-over the paths that run it. Phases print their own lines; any failure
-ends the run with a non-zero exit and no result. The last line is
+Each main path (and the bf16 doc-level cut, the bf16 flash kernels'
+path) runs with every launch count set to 0 just before it and read
+just after; a kernel's ``launches`` in the kernel line is the sum over
+the paths that run it (for the attention kernels, whose f32 and bf16
+instantiations share a counter, over the paths of the row's type).
+Phases print their own lines; any failure ends the run with a non-zero
+exit and no result. The last line is
 {"ok": true, "device": {...}}; the line before it lists every kernel.
 
 Without a CUDA device it exits non-zero at once.
@@ -127,12 +132,20 @@ PER_UPDATE = {"packed_attention": 18, "packed_attention_bwd": 18,
 # weights, the fused CE through its bf16 instantiations
 BF16_FLAGS = ["--precision", "bfloat16", "float32"]
 BF16_WARM, BF16_COUNTED = 2, 10
-# (E 512: the fused CE's backward on the tensor-core kernels, counted on
-# the wrappers' launches_bf16_tc; the CUDA-core bf16 backward not at all)
+# (E 512: the fused CE's forward and backward on the tensor-core
+# kernels, counted on the wrappers' launches_bf16_tc; the CUDA-core bf16
+# kernels not at all)
 PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
-                   "fused_ce_dw": 0, "fused_ce_fwd_bf16": 1,
+                   "fused_ce_dw": 0, "fused_ce_fwd_bf16": 0,
                    "fused_ce_dx_bf16": 0, "fused_ce_dw_bf16": 0,
-                   "fused_ce_dx_bf16_tc": 1, "fused_ce_dw_bf16_tc": 1}
+                   "fused_ce_fwd_bf16_tc": 1, "fused_ce_dx_bf16_tc": 1,
+                   "fused_ce_dw_bf16_tc": 1}
+# the main paths, by the names run_phases gives their launch counts. The
+# attention kernels' f32 and bf16 instantiations count on one wrapper's
+# launches, so their rows sum their counter over these paths only (a
+# row's "paths"); other rows sum it over every path.
+F32_PATHS = ("decode", "serve", "train", "doc train", "doc decode")
+BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut")
 # card vs CPU in bf16, relative, each cut its own: limits set between
 # the sound port's readings and those of planted faults
 # (scripts/torch_train_parity.py --precision bfloat16, seeds 17 and 19;
@@ -414,7 +427,7 @@ def phase_decode_kernel(gen) -> dict:
             "replaces": "marian_tpu/ops/pallas/decode_attention.py:117",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "paths": F32_PATHS}
 
 
 def decode_edge_cases(gen, dev) -> float:
@@ -566,7 +579,7 @@ def phase_packed_kernel(gen) -> dict:
             "replaces": "marian_tpu/ops/pallas/packed_attention.py:197",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "paths": F32_PATHS}
 
 
 def phase_packed_bwd_kernel(gen):
@@ -661,7 +674,7 @@ def phase_packed_bwd_kernel(gen):
            "replaces": "marian_tpu/ops/pallas/packed_attention.py:214",
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms, "paths": F32_PATHS}
     del q, k, v, do, kvm, out, ql, kl, vl, lib_out
     for tq, tk, causal in ((64, 64, True), (64, 48, False)):
         (q, *_), ms = timed(tq, tk, causal)
@@ -851,9 +864,10 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
     operand bytes, operations at the card's bf16 peak, the tensor cores'
     rate: the least time for this work on bf16 operands; the bound at the
     f32 CUDA-core peak rides along as bound_ms_f32_peak) and F.linear on
-    bf16 + F.cross_entropy. The backward takes the tensor-core kernels at
-    E % 8 == 0 (every shape here but E 50, which keeps the CUDA-core
-    ones): each shape's line names the path its counters show."""
+    bf16 + F.cross_entropy. The forward and the backward take the
+    tensor-core kernels at E % 8 == 0 (every shape here but E 50, which
+    keeps the CUDA-core ones): each shape's line names the paths its
+    counters show."""
     from marian_tpu_torch.ops.kernels import fused_ce as fce
     dev, bf = torch.device("cuda"), torch.bfloat16
 
@@ -872,14 +886,22 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
                            (DOC_FWD_TOKENS, VOCAB, 1024, None),
                            (TRAIN_WORDS, VOCAB, 512, None)):
         x, w, b, labels = inputs(n, v, e)
+        path = "tensor cores" if e % 8 == 0 else "CUDA cores"
+        before = bf16_paths(fce.fused_ce_stats)
         got = fce.fused_ce_stats(x, w, b, labels)
+        took = {k: c - before[k]
+                for k, c in bf16_paths(fce.fused_ce_stats).items()}
+        check(took == {"tensor cores": int(e % 8 == 0),
+                       "CUDA cores": int(e % 8 != 0)},
+              f"fused_ce_fwd N={n} V={v} E={e} bf16: launches {took}, "
+              f"expected the {path} path")
         ref = fce.fused_ce_stats_reference(x, w, b, labels)
         g = [torch.randn(n, generator=gen).to(dev) for _ in range(3)]
-        before = bwd_paths(fce)
+        bwd = (fce.fused_ce_dx, fce.fused_ce_dw)
+        before = bf16_paths(*bwd)
         dx, dw, db = fce.fused_ce_bwd(x, w, b, labels, ref[0], *g,
                                       chunk=chunk)
-        took = {k: c - before[k] for k, c in bwd_paths(fce).items()}
-        path = "tensor cores" if e % 8 == 0 else "CUDA cores"
+        took = {k: c - before[k] for k, c in bf16_paths(*bwd).items()}
         check(took == {"tensor cores": 2 if e % 8 == 0 else 0,
                        "CUDA cores": 0 if e % 8 == 0 else 2},
               f"fused_ce_bwd N={n} V={v} E={e} bf16: launches {took}, "
@@ -889,7 +911,7 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
         torch.cuda.synchronize()
         what = (f"N={n} V={v} E={e} bf16"
                 + (f", chunks of {chunk}" if chunk else "")
-                + f", backward on the {path}")
+                + f", forward and backward on the {path}")
         for name, a, r in zip(("lse", "lab", "tot"), got, ref):
             errs["fwd"] = max(errs["fwd"], close_to_scale(
                 a, r, f"fused_ce_fwd {what} {name}"))
@@ -981,7 +1003,7 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
               f"{f32_peak_ms:.4f} (the same operations at the f32 "
               f"CUDA-core peak); {flops[part] / ms / 1e9:.2f} TFLOP/s "
               f"achieved")
-        # the backward's rows are its tensor-core kernels (their counter)
+        # the rows are the tensor-core kernels (their counters)
         rows.append({"name": f"fused_ce_{part}_bf16", "route": "cuda",
                      "source": "marian_tpu_torch/csrc/fused_ce.cu",
                      "replaces": f"marian_tpu/ops/pallas/fused_ce.py:{line}",
@@ -989,8 +1011,7 @@ def phase_fused_ce_kernels_bf16(gen) -> list:
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "bound_ms_f32_peak": f32_peak_ms,
-                     "counter": f"fused_ce_{part}_bf16"
-                     + ("" if part == "fwd" else "_tc")})
+                     "counter": f"fused_ce_{part}_bf16_tc"})
     del x, w, b, labels, g, lse
     torch.cuda.empty_cache()
     return rows
@@ -1009,8 +1030,9 @@ def fwd_times(fce, x, w, b, labels, library: bool = False) -> None:
                                if x.dtype == torch.bfloat16 else F32_FLOPS)
     ms = time_ms(lambda: fce.fused_ce_stats(x, w, b, labels), iters=5)
     mm_ms = time_ms(lambda: torch.matmul(x, w.t()), iters=5)
-    line = (f"kernel fused_ce_fwd N={n} V={v} E={e} {str(x.dtype)[6:]}: "
-            f"kernel_ms {ms:.4f} "
+    entry, cols = fce.fwd_route(x, w)
+    line = (f"kernel fused_ce_fwd N={n} V={v} E={e} {str(x.dtype)[6:]} "
+            f"({entry}, {cols}-column tiles): kernel_ms {ms:.4f} "
             f"({flops / ms / 1e9:.2f} TFLOP/s), torch.matmul(x, w.t()) "
             f"{mm_ms:.4f} ({flops / mm_ms / 1e9:.2f} TFLOP/s)")
     if library:
@@ -1028,13 +1050,11 @@ def fwd_times(fce, x, w, b, labels, library: bool = False) -> None:
           f"{flops / 1e9:.0f} GFLOP)")
 
 
-def bwd_paths(fce) -> dict:
-    """The fused CE backward's launches so far on each bf16 path (dx and
-    dw counted apart)."""
-    return {"tensor cores": fce.fused_ce_dx.launches_bf16_tc
-            + fce.fused_ce_dw.launches_bf16_tc,
-            "CUDA cores": fce.fused_ce_dx.launches_bf16
-            + fce.fused_ce_dw.launches_bf16}
+def bf16_paths(*wrappers) -> dict:
+    """The fused CE ``wrappers``' launches so far on each bf16 path,
+    summed over the wrappers."""
+    return {"tensor cores": sum(f.launches_bf16_tc for f in wrappers),
+            "CUDA cores": sum(f.launches_bf16 for f in wrappers)}
 
 
 def product_times(fce, x, w, b, labels, lse, g) -> None:
@@ -1136,6 +1156,171 @@ def tc_product_times(fce, x, w, b, labels, lse, g) -> None:
               f"Vc={width} E={e} bfloat16: kernel_ms {ms:.4f} "
               f"({flops / ms / 1e9:.2f} TFLOP/s), torch.matmul of the same "
               f"shape {mm_ms:.4f} ({flops / mm_ms / 1e9:.2f} TFLOP/s)")
+
+
+def phase_attention_kernels_bf16(gen) -> list:
+    """The attention kernels' bf16 instantiations at the shapes the bf16
+    paths give them, against their plain versions on the same bf16
+    operands (outputs within BF16_REL_TOL of the largest, the flash lse
+    within LSE_TOL, new caches exact), timed beside SDPA on the same bf16
+    operands and the bound (bf16 operand bytes, operations at the bf16
+    tensor-core peak): decode_attention on bf16 queries and caches at the
+    base decode's R 384, H 8, L 64; the packed forward and backward at
+    the bf16 base update's B 192, H 8, T 64; the flash forward, dq and
+    dkv at the doc shape (B 8, H 16, T 2,048, every key live). Rows
+    ``<kernel>_bf16`` count their wrapper's launches on the bf16 paths
+    (BF16_PATHS)."""
+    from marian_tpu_torch.ops.kernels import decode_attention as da
+    from marian_tpu_torch.ops.kernels import flash_attention as fa
+    from marian_tpu_torch.ops.kernels import packed_attention as pa
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, bf)
+
+    def add(name, what, source, replaces, err, ms, plain_ms, library_ms,
+            nbytes, flops):
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+        print(f"kernel {name} {what}: kernel_ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} library_ms (sdpa on bf16) {library_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}, at the bf16 peak; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+              f"{100 * bound_ms / ms:.1f}% of it; {ms / library_ms:.2f}x "
+              f"the library's time); max |err| {err:.3g}")
+        rows.append({"name": f"{name}_bf16", "route": "cuda",
+                     "source": f"marian_tpu_torch/csrc/{source}",
+                     "replaces": f"marian_tpu/ops/pallas/{replaces}",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms, "counter": name,
+                     "paths": BF16_PATHS})
+
+    # decode_attention: the base decode's rows (beam reorder), bf16 caches
+    r, h, L, dh = BATCH * BEAM, 8, 64, 64
+    q, kn, vn = randn(r, h, 1, dh), randn(r, h, 1, dh), randn(r, h, 1, dh)
+    ck, cv = randn(r, h, L, dh), randn(r, h, L, dh)
+    beams = (torch.arange(BATCH)[:, None] * BEAM
+             + torch.randint(0, BEAM, (BATCH, BEAM), generator=gen))
+    src = beams.reshape(-1).to(dev, torch.int32)
+    pos = torch.full((r,), L - 1, dtype=torch.int32, device=dev)
+    out, nk, nv = da.decode_attention(q, kn, vn, ck, cv, pos, src_rows=src)
+    ro, rk, rv = da.decode_attention_reference(q, kn, vn, ck, cv, pos, src)
+    torch.cuda.synchronize()
+    check(torch.equal(nk, rk) and torch.equal(nv, rv),
+          "decode_attention bf16: caches differ from the plain version")
+    err = close_to_scale(out, ro, "decode_attention bf16", BF16_REL_TOL)
+    bk, bv = torch.empty_like(ck), torch.empty_like(cv)
+    ms = time_ms(lambda: da.decode_attention(q, kn, vn, ck, cv, pos,
+                                             src_rows=src, out_k=bk,
+                                             out_v=bv))
+    plain_ms = time_ms(lambda: da.decode_attention_reference(
+        q, kn, vn, ck, cv, pos, src))
+    gk, gv = ck.index_select(0, src.long()), cv.index_select(0, src.long())
+    live = torch.ones((r, 1, 1, L), dtype=torch.bool, device=dev)
+    lib_ms = time_ms(lambda: sdpa(q, gk, gv, attn_mask=live))
+    tile = h * L * dh * 2
+    uniq = int(torch.unique(src).numel())
+    add("decode_attention", f"R={r} H={h} L={L} Dh={dh} bf16 queries and "
+        f"caches (base decode)", "decode_attention.cu",
+        "decode_attention.py:117", err, ms, plain_ms, lib_ms,
+        2 * uniq * tile + 2 * r * tile + 4 * r * h * dh * 2 + 2 * r * 4,
+        4 * r * h * L * dh)
+    del q, kn, vn, ck, cv, out, nk, nv, ro, rk, rv, bk, bv, gk, gv
+
+    # the packed forward and backward: the rows of a 12,288-token batch
+    t = 64
+    b = TRAIN_WORDS // t
+    q, k, v, do = (randn(b, h, t, dh) for _ in range(4))
+    kvm = torch.ones(b, t, device=dev)
+    mask = kvm.bool()[:, None, None, :]
+    out = pa.packed_attention(q, k, v, kvm)
+    ref = pa.packed_attention_reference(q, k, v, kvm)
+    got = pa.packed_attention_bwd(q, k, v, kvm, do, out)
+    rgot = pa.packed_attention_bwd_reference(q, k, v, kvm, do, out)
+    torch.cuda.synchronize()
+    err = close_to_scale(out, ref, "packed_attention bf16", BF16_REL_TOL)
+    bwd_err = max(close_to_scale(g, r_, f"packed_attention_bwd bf16 {n}",
+                                 BF16_REL_TOL)
+                  for n, g, r_ in zip(("dq", "dk", "dv"), got, rgot))
+    ms = time_ms(lambda: pa.packed_attention(q, k, v, kvm))
+    plain_ms = time_ms(lambda: pa.packed_attention_reference(q, k, v, kvm))
+    lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
+    elems = b * h * t * dh * 2
+    add("packed_attention", f"B={b} H={h} T={t} Dh={dh} bf16 (base "
+        f"training)", "packed_attention.cu", "packed_attention.py:197",
+        err, ms, plain_ms, lib_ms, 4 * elems + b * t * 4,
+        4 * b * h * t * t * dh)
+    ms = time_ms(lambda: pa.packed_attention_bwd(q, k, v, kvm, do, out))
+    plain_ms = time_ms(lambda: pa.packed_attention_bwd_reference(
+        q, k, v, kvm, do, out))
+    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = sdpa(ql, kl, vl, attn_mask=mask)
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
+                                                 retain_graph=True))
+    add("packed_attention_bwd", f"B={b} H={h} T={t} Dh={dh} bf16 (base "
+        f"training, with delta)", "packed_attention.cu",
+        "packed_attention.py:214", bwd_err, ms, plain_ms, lib_ms,
+        7 * elems + b * t * 4 + b * h * t * 4, 10 * b * h * t * t * dh)
+    del q, k, v, do, kvm, mask, out, ref, got, rgot, ql, kl, vl, lib_out
+    torch.cuda.empty_cache()
+
+    # flash: the doc shape, every key live
+    b, h, t = 8, 16, 2048
+    q, k, v, do = (randn(b, h, t, dh) for _ in range(4))
+    kvm = torch.ones(b, t, device=dev)
+    mask = kvm.bool()[:, None, None, :]
+    out, lse = fa.flash_attention_fwd(q, k, v, kvm)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm)
+    errs = {"fwd": max(close_to_scale(out, ref, "flash_attention_fwd bf16 "
+                                      "out", BF16_REL_TOL),
+                       lse_err(lse, ref_lse, "flash_attention_fwd bf16"))}
+    del ref, ref_lse
+    got = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse)
+    rgot = fa.flash_attention_bwd_reference(q, k, v, kvm, do, out, lse)
+    torch.cuda.synchronize()
+    errs["dq"] = close_to_scale(got[0], rgot[0], "flash_attention_dq bf16",
+                                BF16_REL_TOL)
+    errs["dkv"] = max(close_to_scale(g, r_, f"flash_attention_dkv bf16 {n}",
+                                     BF16_REL_TOL)
+                      for n, g, r_ in zip(("dk", "dv"), got[1:], rgot[1:]))
+    del got, rgot
+    torch.cuda.empty_cache()
+    scale = dh ** -0.5
+    operands = (q, k, v, kvm, do, lse,
+                (do.float() * out.float()).sum(dim=-1))
+    grad, grad2 = torch.empty_like(q), torch.empty_like(q)
+    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+
+    def lib_fwd():
+        return sdpa(ql, kl, vl, attn_mask=mask)
+    lib_out = lib_fwd()
+    lib = {"fwd": time_ms(lib_fwd, iters=5)}
+    lib["dq"] = lib["dkv"] = time_ms(lambda: torch.autograd.grad(
+        lib_out, (ql, kl, vl), do, retain_graph=True), iters=5)
+    del lib_out
+    plain_bwd_ms = time_ms(lambda: fa.flash_attention_bwd_reference(
+        q, k, v, kvm, do, out, lse), iters=3)
+    torch.cuda.empty_cache()
+    elems = b * h * t * dh * 2
+    stats = b * h * t * 4
+    pairs = b * h * t * t * dh
+    for part, line, fn, plain, n_elems, n_stats, n_ops in (
+            ("fwd", 252, lambda: fa.flash_attention_fwd(q, k, v, kvm),
+             lambda: fa.flash_attention_reference(q, k, v, kvm), 4, 1, 4),
+            ("dq", 287, lambda: fa.flash_attention_dq(operands, grad, False,
+                                                      scale), None, 5, 2, 6),
+            ("dkv", 309, lambda: fa.flash_attention_dkv(
+                operands, grad, grad2, False, scale), None, 6, 2, 8)):
+        ms = time_ms(fn, iters=5)
+        plain_ms = plain_bwd_ms if plain is None else time_ms(plain, iters=3)
+        add(f"flash_attention_{part}", f"B={b} H={h} T={t} Dh={dh} bf16 "
+            f"(doc shape{'' if plain else '; plain_ms: whole backward'})",
+            "flash_attention.cu", f"flash_attention.py:{line}", errs[part],
+            ms, plain_ms, lib[part], n_elems * elems + n_stats * stats
+            + b * t * 4, n_ops * pairs)
+    return rows
 
 
 def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None,
@@ -1291,7 +1476,8 @@ def phase_flash_kernels(gen) -> list:
                                  f"{line}",
                      "max_abs_err": errs[part], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": lib_ms[part]})
+                     "bound_by": bound_by, "library_ms": lib_ms[part],
+                     "paths": F32_PATHS})
     flash_bwd_lines(fa, q, k, v, kvm, do, out, lse, lib_ms["dq"])
     del lib_out
     return rows
@@ -1614,8 +1800,8 @@ def decoder_options(model: str, *extra: str, vocab: str = "vocab.yml"):
 def kernel_counters():
     """Every kernel of the port, by name: (its wrapper, the attribute
     that counts its launches). The fused CE's bf16 instantiations count
-    on their wrappers' ``launches_bf16``, its tensor-core backward on
-    ``launches_bf16_tc``."""
+    on their wrappers' ``launches_bf16``, its tensor-core forward and
+    backward on ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import fused_ce as fce
@@ -1633,7 +1819,7 @@ def kernel_counters():
     out = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
         out[f"{name}_bf16"] = (fns[name], "launches_bf16")
-    for name in ("fused_ce_dx", "fused_ce_dw"):
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
         out[f"{name}_bf16_tc"] = (fns[name], "launches_bf16_tc")
     return out
 
@@ -2522,12 +2708,13 @@ def collect_cpu_references(child) -> dict:
     return ref
 
 
-def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> None:
+def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> dict:
     """bf16 on the card against bf16 on the CPU, held to
     PARITY_LIMITS_BF16: the 2+2 base training cut, the doc-level cut
     (flash forward, dq and dkv in bf16) and the 2+2 base decode compared
     by its step logits on the card's own tokens. ``ref``: the CPU halves,
-    from the child process."""
+    from the child process. Returns the doc cut's launch counts (the
+    bf16 flash kernels' path)."""
     got = bf16_decode_reading("base_2x2.npz", lines[:8],
                               cpu_best=ref["decode_best"])
     err, where = got["decode"]
@@ -2547,8 +2734,10 @@ def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> None:
                       PARITY_LIMITS_BF16["doc"], ref["doc"])
     counts = read_counts()
     check(counts["flash_attention_dkv"] > 0 and counts["fused_ce_dx_bf16_tc"]
-          > 0 and counts["fused_ce_dx_bf16"] == counts["fused_ce_dx"] == 0,
+          > 0 and counts["fused_ce_fwd_bf16_tc"] > 0
+          and counts["fused_ce_dx_bf16"] == counts["fused_ce_dx"] == 0,
           f"bf16 doc cut launches {counts}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -2598,7 +2787,9 @@ def run_phases(args, smi: str, child) -> int:
                *timed("fused_ce bf16 kernels", phase_fused_ce_kernels_bf16,
                       gen),
                *timed("flash kernels", phase_flash_kernels, gen),
-               timed("paged kernel", phase_paged_kernel, gen)]
+               timed("paged kernel", phase_paged_kernel, gen),
+               *timed("attention bf16 kernels",
+                      phase_attention_kernels_bf16, gen)]
     torch.cuda.empty_cache()
     # the child's CPU work may overlap the kernel phases, whose times are
     # the card's own (CUDA events behind a device sleep), but none of the
@@ -2606,41 +2797,44 @@ def run_phases(args, smi: str, child) -> int:
     cpu_ref = timed("cpu references (the wait for the child)",
                     collect_cpu_references, child)
     lines = timed("models", write_model, args.seed)
-    path_counts = [timed("decode main path", phase_main_path, lines)]
+    paths = {"decode": timed("decode main path", phase_main_path, lines)}
     timed("decode card vs cpu", phase_card_vs_cpu, lines)
-    path_counts.append(timed("serve main path", phase_serve_main_path,
-                             args.seed))
+    paths["serve"] = timed("serve main path", phase_serve_main_path,
+                           args.seed)
     timed("serve card vs cpu", phase_serve_card_vs_cpu, args.seed)
-    path_counts.append(timed("train main path", phase_train_main_path,
-                             args.seed))
+    paths["train"] = timed("train main path", phase_train_main_path,
+                           args.seed)
     timed("train card vs cpu", phase_train_card_vs_cpu)
-    path_counts.append(timed("doc train main path",
-                             phase_doc_train_main_path, args.seed))
-    path_counts.append(timed("doc decode main path",
-                             phase_doc_decode_main_path))
+    paths["doc train"] = timed("doc train main path",
+                               phase_doc_train_main_path, args.seed)
+    paths["doc decode"] = timed("doc decode main path",
+                                phase_doc_decode_main_path)
     timed("doc card vs cpu", phase_doc_card_vs_cpu, args.seed)
-    path_counts.append(timed("bf16 train main path",
-                             phase_bf16_train_main_path))
-    path_counts.append(timed("bf16 decode main path",
-                             phase_bf16_decode_main_path, lines))
-    timed("bf16 card vs cpu", phase_bf16_card_vs_cpu, lines, args.seed,
-          cpu_ref)
+    paths["bf16 train"] = timed("bf16 train main path",
+                                phase_bf16_train_main_path)
+    paths["bf16 decode"] = timed("bf16 decode main path",
+                                 phase_bf16_decode_main_path, lines)
+    paths["bf16 doc cut"] = timed("bf16 card vs cpu", phase_bf16_card_vs_cpu,
+                                  lines, args.seed, cpu_ref)
+    check(set(paths) == set(F32_PATHS + BF16_PATHS), f"paths {set(paths)}")
     for k in kernels:
-        k["launches"] = sum(c[k.get("counter", k["name"])]
-                            for c in path_counts)
-    # every counter is a row's, but the CUDA-core bf16 backward's: it takes
-    # the bf16 shapes no main path gives (E % 8 != 0, unaligned operands)
+        k["launches"] = sum(paths[p][k.get("counter", k["name"])]
+                            for p in k.get("paths", paths))
+    # every counter is a row's, but the CUDA-core bf16 fused CE's: it
+    # takes the bf16 shapes no main path gives (E % 8 != 0, unaligned
+    # operands)
+    cuda_cores = ("fused_ce_fwd_bf16", "fused_ce_dx_bf16", "fused_ce_dw_bf16")
     counted = {k.get("counter", k["name"]) for k in kernels}
-    check(counted | {"fused_ce_dx_bf16", "fused_ce_dw_bf16"}
-          == set(kernel_counters())
+    check(counted | set(cuda_cores) == set(kernel_counters())
           and all(k["launches"] > 0 for k in kernels),
           "a kernel was not launched on its main path")
     print("kernels: " + "; ".join(
         f"{k['name']} launches {k['launches']} pass" for k in kernels)
-        + "; fused_ce_dx_bf16, fused_ce_dw_bf16 on the CUDA cores: "
-        + ", ".join(str(sum(c[name] for c in path_counts)) for name in
-                    ("fused_ce_dx_bf16", "fused_ce_dw_bf16"))
-        + " launches on the main paths (their shapes: E % 8 != 0)")
+        + f"; {', '.join(cuda_cores)} on the CUDA cores: "
+        + ", ".join(str(sum(c[name] for c in paths.values()))
+                    for name in cuda_cores)
+        + " launches on the main paths (their shapes: E % 8 != 0 or "
+          "unaligned operands)")
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

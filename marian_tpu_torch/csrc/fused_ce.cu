@@ -27,8 +27,23 @@
 // round each d value to bf16 as they read it from shared memory, while db
 // sums the unrounded d. dx is accumulated over the vocabulary chunks in
 // an f32 buffer and written as bf16 by the last chunk; dw is written as
-// bf16 once a chunk. The bf16 forward, and the bf16 backward at the shapes
-// named below, run so.
+// bf16 once a chunk. The bf16 forward and backward run so only at the
+// shapes the tensor-core kernels below do not take.
+//
+// The bf16 forward on the tensor cores (fce_tc_fwd_kernel, entry point
+// fused_ce_fwd_tc; the bf16 library only) takes the same calls as the
+// tensor-core backward (tc_path: E % 8 == 0, x and w 16-byte aligned). It
+// forms each 128 x 128 logit tile with the backward's NT product on the
+// template below and reduces it in the epilogue to the same per-tile
+// partials as fce_fwd_kernel (128 columns a tile instead of 256), merged
+// by the same fce_fwd_combine_kernel. What bounds it: operations at the
+// bf16 tensor-core peak (0.41 ms at the base shape), so in practice the
+// mma.sync template's rate, as in the backward; its partials (4 floats a
+// token and tile, 49 MB at the base shape) are written once and read
+// once. The blocks walk the tiles in a grouped order (kFwdGroup token
+// tiles down each vocabulary tile, band by band), so that a band of w is
+// read from device memory once for the group even where w (65.5 MB at
+// the doc shape) does not fit the 50 MB L2.
 //
 // The bf16 backward on the tensor cores (the bf16 library only; the
 // fce_tc_* kernels and the fused_ce_bwd_tc_* entry points) takes every
@@ -47,7 +62,8 @@
 // (written once, read twice: 0.7 ms at 3.35 TB/s). mma.sync reaches
 // 170-255 TFLOP/s a product here (wgmma and TMA are the next step).
 //
-// Forward: one block of 256 threads per (vocabulary tile of 256 columns,
+// Forward (f32, and bf16 where the tensor cores do not take it): one
+// block of 256 threads per (vocabulary tile of 256 columns,
 // token tile of 128 rows) forms that logit tile with the NT product of the
 // template described below (product_tile, as the backward's d product
 // runs it: x rows against w rows, the full E reduction). Its epilogue adds
@@ -730,10 +746,142 @@ int dw_chunk(const void* d, const void* x, void* dw, void* db, void* part,
 
 #if KERNEL_DTYPE == 1
 // ---------------------------------------------------------------------------
-// the bf16 backward on the tensor cores (mma_tiles.cuh)
+// the bf16 forward and backward on the tensor cores (mma_tiles.cuh)
 // ---------------------------------------------------------------------------
 
 namespace {
+
+// token tiles that walk one band of vocabulary tiles together
+// (fwd_tile): G = 1, 4 and 8 timed by scripts/torch_fused_ce_fwd_ab.py
+// --fwd-group
+constexpr int kFwdGroup = 8;
+
+// (vocabulary tile, token tile) of this block of a 1-D grid of vtiles x
+// ntiles blocks. In launch order the blocks take `group` token tiles at a
+// time and walk them down every vocabulary tile (token tile fastest), so
+// the blocks in flight share a band of w tiles and a few x tiles; the last
+// group may hold fewer token tiles. group 1: one token tile across the
+// whole vocabulary at a time.
+__device__ __forceinline__ int2 fwd_tile(int vtiles, int ntiles, int group) {
+  const int per = group * vtiles;
+  const int first = blockIdx.x / per * group;
+  const int rows = min(group, ntiles - first);
+  const int r = blockIdx.x % per;
+  return make_int2(r / rows, first + r % rows);
+}
+
+// fce_fwd_kernel's partials on the tensor cores: part[k][t][n], k = max,
+// sum exp(l - max), label logit (0 when the label lies in another tile),
+// sum of l over the real columns of vocabulary tile t (columns 128 t ..
+// 128 t + 127, those < V) of token n's logits l = x[n] . w^T + b (NT:
+// x rows against w rows, reduction over E). A row's 128 columns lie in the
+// 4 warps of a warp_n column (32 each), 4 lanes a warp (lane & 3), 8
+// values a lane: each statistic is reduced in the lane, across the quad
+// (shuffles) and then across the 4 warps through the free staging ring
+// in a fixed order, the exact maximum first, then the three sums relative
+// to it. One thread a row writes the tile's partial; no atomics.
+__global__ void __launch_bounds__(mma::kThreads, mma::kBlocksPerSM)
+    fce_tc_fwd_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ w,
+    const float* __restrict__ b, const int* __restrict__ labels, int N,
+    int V, int E, int vtiles, int ntiles, int group,
+    float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int2 tile = fwd_tile(vtiles, ntiles, group);
+  const int m0 = tile.y * mma::kBM, n0 = tile.x * mma::kBN;
+  float acc[4][mma::kFragN][4];
+  mma::product<false, false>(mma::Operand{x, E, N, E},
+                             mma::Operand{w, E, V, E}, m0, n0, 0, E,
+                             reinterpret_cast<bf16*>(tc_smem), acc);
+  // the bias on real columns; columns at or past V (0 from the product's
+  // zero-filled rows of w) enter no statistic
+#pragma unroll
+  for (int j = 0; j < mma::kFragN; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = n0 + mma::frag_col(j, h);
+      const float bias = c < V ? b[c] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[i][j][h] += bias;
+        acc[i][j][h + 2] += bias;
+      }
+    }
+  // red[s][warp_n][row]: s 0 the warps' maxima, 1-3 their sum-exp, label
+  // logit and sum; the ring is free once product returns
+  float* red = reinterpret_cast<float*>(tc_smem);
+  constexpr int kPlane = mma::kWarpsN * mma::kBM;
+  const int wn = mma::warp_n();
+  const bool quad_lead = (mma::lane() & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 4; hr += 2) {
+      // a lane with no real column keeps kStatsInit; every tile has one
+      float mx = kStatsInit;
+#pragma unroll
+      for (int j = 0; j < mma::kFragN; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (n0 + mma::frag_col(j, h) < V) mx = fmaxf(mx, acc[i][j][hr + h]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      if (quad_lead) red[wn * mma::kBM + mma::frag_row(i, hr)] = mx;
+    }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 4; hr += 2) {
+      const int row = mma::frag_row(i, hr), r = m0 + row;
+      const float mx = fmaxf(fmaxf(red[row], red[mma::kBM + row]),
+                             fmaxf(red[2 * mma::kBM + row],
+                                   red[3 * mma::kBM + row]));
+      const int lbl = r < N ? labels[r] : -1;
+      float se = 0.f, lab = 0.f, tot = 0.f;
+#pragma unroll
+      for (int j = 0; j < mma::kFragN; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = n0 + mma::frag_col(j, h);
+          const float l = acc[i][j][hr + h];
+          if (c < V) {
+            se += expf(l - mx);
+            tot += l;
+            if (c == lbl) lab = l;
+          }
+        }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        se += __shfl_xor_sync(0xffffffffu, se, o);
+        lab += __shfl_xor_sync(0xffffffffu, lab, o);
+        tot += __shfl_xor_sync(0xffffffffu, tot, o);
+      }
+      if (quad_lead) {
+        float* s = red + kPlane + wn * mma::kBM + row;
+        s[0] = se;
+        s[kPlane] = lab;
+        s[2 * kPlane] = tot;
+      }
+    }
+  __syncthreads();
+  // thread t < 128: row t of the tile, its 4 warps in order
+  const int t = threadIdx.x, r = m0 + t;
+  if (t >= mma::kBM || r >= N) return;
+  float out[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const float* p = red + s * kPlane + t;
+    out[s] = s == 0 ? fmaxf(fmaxf(p[0], p[mma::kBM]),
+                            fmaxf(p[2 * mma::kBM], p[3 * mma::kBM]))
+                    : ((p[0] + p[mma::kBM]) + p[2 * mma::kBM])
+                          + p[3 * mma::kBM];
+  }
+  const size_t plane = (size_t)vtiles * N;
+  float* o = part + (size_t)tile.x * N + r;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) o[s * plane] = out[s];
+}
 
 // d[N][ldd] in bf16, columns [0, width) and on to the tile's edge (0 past
 // width): d of vocabulary columns v0 .. v0 + width, rounded once as it is
@@ -925,6 +1073,23 @@ int allow_tc_smem(Kernel kernel) {
                                    mma::kSmemBytes);
 }
 
+int tc_fwd(const void* x, const void* w, const void* b, const void* labels,
+           void* lse, void* lab, void* tot, void* part, int N, int V, int E,
+           cudaStream_t s) {
+  static const int attr = allow_tc_smem(fce_tc_fwd_kernel);
+  if (attr != 0) return attr;
+  const int vtiles = (V + mma::kBN - 1) / mma::kBN;
+  const int ntiles = (N + mma::kBM - 1) / mma::kBM;
+  fce_tc_fwd_kernel<<<vtiles * ntiles, mma::kThreads, mma::kSmemBytes, s>>>(
+      (const bf16*)x, (const bf16*)w, (const float*)b, (const int*)labels, N,
+      V, E, vtiles, ntiles, kFwdGroup, (float*)part);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  fce_fwd_combine_kernel<<<(N + 255) / 256, 256, 0, s>>>(
+      (const float*)part, N, vtiles, (float*)lse, (float*)lab, (float*)tot);
+  return (int)cudaGetLastError();
+}
+
 int tc_dlogit(const void* x, const void* w, const void* b, const void* labels,
               const void* lse, const void* g_lse, const void* g_lab,
               const void* g_tot, void* d, void* db, void* part, int N, int E,
@@ -1051,6 +1216,17 @@ extern "C" int fused_ce_bwd_dw(const void* d, const void* x, void* dw,
 }
 
 #if KERNEL_DTYPE == 1
+// The bf16 forward on the tensor cores, for E % 8 == 0 and x, w 16-byte
+// aligned (the wrapper's tc_path): as fused_ce_fwd, with part scratch of
+// 4 * ceil(V / 128) * N floats.
+extern "C" int fused_ce_fwd_tc(const void* x, const void* w, const void* b,
+                               const void* labels, void* lse, void* lab,
+                               void* tot, void* part, int N, int V, int E,
+                               void* stream) {
+  return tc_fwd(x, w, b, labels, lse, lab, tot, part, N, V, E,
+                (cudaStream_t)stream);
+}
+
 // The bf16 backward on the tensor cores, for E % 8 == 0 and x, w, dx, dw
 // 16-byte aligned (the wrapper's tc_path), in the same three calls a
 // chunk. d is the [N, ldd] bf16 scratch (ldd a multiple of 128, at least

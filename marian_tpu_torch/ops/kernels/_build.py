@@ -65,16 +65,28 @@ def _nvcc() -> str:
                        "machine with the card (PATH or /usr/local/cuda)")
 
 
+def kernel_name(mangled: str) -> str:
+    """The ``*_kernel`` identifier in a mangled name: the one whose
+    length prefix (the digits just before it, e.g. ``17fce_tc_fwd_kernel``)
+    counts exactly its characters; the mangled name when none does."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()
+        for i in range(len(digits)):
+            ident = mangled[m.end():m.end() + int(digits[i:])]
+            if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
+                                                          ident):
+                return ident
+    return mangled
+
+
 def ptxas_usage(log: str) -> List[str]:
-    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name (the
-    mangled name's ``*_kernel`` part) with its stack, spill and register
-    lines."""
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
+    (``kernel_name``) with its stack, spill and register lines."""
     out, kernel, props = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"\d([a-z][a-z0-9_]*?_kernel)", m.group(1))
-            kernel, props = (k.group(1) if k else m.group(1)), ""
+            kernel, props = kernel_name(m.group(1)), ""
         elif kernel and "spill" in line:
             props = line.strip()
         elif kernel and "registers" in line:

@@ -26,11 +26,11 @@ per-chunk operations as arguments, the kernels on the card and
 ``plain_chunk_ops`` in the CPU tests.
 
 The forward (``fused_ce_stats``, the reference's ``_fwd_call``) forms
-the logits in tiles of 128 tokens x 256 vocabulary columns, one block
-each, and reduces each tile to a partial (max, sum exp(l - max), label
-logit, sum of l) per token; a second pass adds the partials up in
-vocabulary order (``fused_ce_stats_tiled_reference`` is the same
-algebra in plain torch).
+the logits in tiles of 128 tokens x 256 vocabulary columns (128 on the
+tensor cores), one block each, and reduces each tile to a partial (max,
+sum exp(l - max), label logit, sum of l) per token; a second pass adds
+the partials up in vocabulary order (``fused_ce_stats_tiled_reference``
+is the same algebra in plain torch, at either tile width).
 
 On a CUDA tensor the wrappers launch the hand-written kernels of
 ``csrc/fused_ce.cu`` (the forward and its merge; per chunk the d
@@ -44,20 +44,22 @@ in f32, and, as the reference's backward does, round d to bf16 before
 the dx and dw products (``round_d``); dx and dw come out in the
 operands' type, lse, lab, tot and db in float32.
 
-The bf16 backward runs on the tensor cores where ``tc_path`` allows it
-(E a multiple of 8, x, w, dx and dw 16-byte aligned): its d scratch is
-bf16, stored already rounded (the value both of the reference's products
-read), so a chunk is twice as wide, and db is summed from the unrounded
-d in the d kernel, per 128-token tile and then across the tiles in
-order, compensated (``fused_ce_bwd_tc_reference``, ``tc_chunk_ops``).
-Other bf16
-shapes take the CUDA-core kernels, which round d as they read it.
+The bf16 forward and backward run on the tensor cores where ``tc_path``
+allows it (E a multiple of 8, x and w, and dx and dw, 16-byte aligned;
+``fwd_route`` names the forward's entry): the forward's tiles are 128
+columns wide, and the backward's d scratch is bf16, stored already
+rounded (the value both of the reference's products read), so a chunk
+is twice as wide, and db is summed from the unrounded d in the d
+kernel, per 128-token tile and then across the tiles in order,
+compensated (``fused_ce_bwd_tc_reference``, ``tc_chunk_ops``). Other
+bf16 shapes take the CUDA-core kernels, which round d as they read it.
 
-``.launches`` on ``fused_ce_stats`` counts its float32 calls on the card
-and ``.launches_bf16`` its bfloat16 ones; on ``fused_ce_dx`` and
-``fused_ce_dw`` they count the card's backward calls that computed dx
-and dw on the CUDA-core kernels, whichever entry point made them, and
-``.launches_bf16_tc`` those on the tensor-core kernels.
+``.launches`` on ``fused_ce_stats`` counts its float32 calls on the card,
+``.launches_bf16`` its bfloat16 ones on the CUDA-core kernel and
+``.launches_bf16_tc`` those on the tensor-core kernel; on ``fused_ce_dx``
+and ``fused_ce_dw`` they count the card's backward calls that computed
+dx and dw on the CUDA-core kernels (f32, bf16), whichever entry point
+made them, and ``.launches_bf16_tc`` those on the tensor-core kernels.
 """
 
 from __future__ import annotations
@@ -125,16 +127,18 @@ def vocab_chunks(n: int, v: int, chunk: Optional[int] = None,
     return [(v0, min(chunk, v - v0)) for v0 in range(0, v, chunk)]
 
 
-def fwd_tiles(v: int) -> List[Tuple[int, int]]:
+def fwd_tiles(v: int, cols: int = _TILE_COLS) -> List[Tuple[int, int]]:
     """(v0, width) of the forward's vocabulary tiles, in the order the
-    merge adds their partials: 256 columns each, the last one ragged."""
-    return vocab_chunks(0, v, _TILE_COLS)
+    merge adds their partials: ``cols`` columns each (256 on the CUDA
+    cores, TC_TILE on the tensor cores), the last one ragged."""
+    return vocab_chunks(0, v, cols)
 
 
-def fwd_part_shape(n: int, v: int) -> Tuple[int, int, int]:
+def fwd_part_shape(n: int, v: int, cols: int = _TILE_COLS
+                   ) -> Tuple[int, int, int]:
     """The forward's partial buffer [4, tiles, N] f32: (max, sum-exp,
-    label logit, sum) per vocabulary tile and token."""
-    return 4, -(-v // _TILE_COLS), n
+    label logit, sum) per vocabulary tile of ``cols`` columns and token."""
+    return 4, -(-v // cols), n
 
 
 def run_chunks(chunks, make_d: Callable, add_dx: Optional[Callable] = None,
@@ -175,16 +179,17 @@ def fused_ce_stats_reference(x, w, b, labels):
     return lse, lab, logits.sum(dim=-1)
 
 
-def fused_ce_stats_tiled_reference(x, w, b, labels):
-    """(lse, lab, tot) as the forward kernel forms them: per vocabulary
-    tile (``fwd_tiles``), each token's partial (tile max m, sum
+def fused_ce_stats_tiled_reference(x, w, b, labels, cols: int = _TILE_COLS):
+    """(lse, lab, tot) as the forward kernels form them: per vocabulary
+    tile of ``cols`` columns (``fwd_tiles``: 256 on the CUDA cores,
+    TC_TILE on the tensor cores), each token's partial (tile max m, sum
     exp(l - m), label logit or 0, sum of l), then the tiles merged in
     vocabulary order with the merge pass's algebra."""
     labels = labels.long()
     m = torch.full((x.shape[0],), _STATS_INIT, dtype=torch.float32,
                    device=x.device)
     s, lab, tot = torch.zeros_like(m), torch.zeros_like(m), torch.zeros_like(m)
-    for v0, width in fwd_tiles(w.shape[0]):
+    for v0, width in fwd_tiles(w.shape[0], cols):
         logits = _logits(x, w[v0:v0 + width], b[v0:v0 + width])
         mt = logits.max(dim=1).values
         st = torch.exp(logits - mt[:, None]).sum(dim=1)
@@ -343,25 +348,40 @@ def _count(fn, bf16: bool, tc: bool = False) -> None:
         fn.launches += 1
 
 
+def fwd_route(x, w) -> Tuple[str, int]:
+    """The forward's C entry for the operands x, w and its vocabulary
+    tile width: ``fused_ce_fwd_tc`` (tensor cores, TC_TILE columns) where
+    ``tc_path`` allows it, else ``fused_ce_fwd`` (CUDA cores, 256)."""
+    if tc_path(x.shape[1], x.dtype, _aligned(x, w)):
+        return "fused_ce_fwd_tc", TC_TILE
+    return "fused_ce_fwd", _TILE_COLS
+
+
 def fused_ce_stats(x, w, b, labels):
-    """(lse, lab, tot) [N] f32: the forward kernel and its merge on a
-    CUDA tensor, the plain version on a CPU tensor."""
+    """(lse, lab, tot) [N] f32: the forward kernel (``fwd_route``) and
+    its merge on a CUDA tensor, the plain version on a CPU tensor."""
     if not x.is_cuda:
         return fused_ce_stats_reference(x, w, b, labels)
     x, w, b, labels = _operands("fused_ce_stats", x, w, b, labels)
     n, e = x.shape
     v = w.shape[0]
     bf16 = x.dtype == torch.bfloat16
+    entry, cols = fwd_route(x, w)
+    tc = cols == TC_TILE
     out = torch.empty((3, n), dtype=torch.float32, device=x.device)
-    part = torch.empty(fwd_part_shape(n, v), dtype=torch.float32,
+    part = torch.empty(fwd_part_shape(n, v, cols), dtype=torch.float32,
                        device=x.device)
-    err = _fn("fused_ce_fwd", 8, 5, bf16)(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        part.data_ptr(), n, v, e, int(e % 4 == 0 and _aligned(x, w)),
-        int(bf16), _stream(x))
-    _build.check(err, "fused_ce_fwd")
-    _count(fused_ce_stats, bf16)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            part.data_ptr())
+    if tc:
+        err = _fn(entry, 8, 3, True)(*ptrs, n, v, e, _stream(x))
+    else:
+        err = _fn(entry, 8, 5, bf16)(
+            *ptrs, n, v, e, int(e % 4 == 0 and _aligned(x, w)), int(bf16),
+            _stream(x))
+    _build.check(err, entry)
+    _count(fused_ce_stats, bf16, tc)
     return out[0], out[1], out[2]
 
 
@@ -537,7 +557,6 @@ def fused_ce_dw(x, w, b, labels, lse, g_lse, g_lab, g_tot):
 for _wrapper in (fused_ce_stats, fused_ce_dx, fused_ce_dw):
     _wrapper.launches = 0
     _wrapper.launches_bf16 = 0
-for _wrapper in (fused_ce_dx, fused_ce_dw):
     _wrapper.launches_bf16_tc = 0
 
 

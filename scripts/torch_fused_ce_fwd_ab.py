@@ -20,7 +20,17 @@ chose. With --profile it then runs ``scripts/torch_train_profile.py``
 (base with --updates 3, then --doc with --updates 2) in the parent and
 in this checkout in turns: parent, change, change, parent. With
 ``--dtype bfloat16`` the operands x and w are bf16 (b f32) and only the
-builds whose entry points take the operand-type flag are timed. With
+builds whose entry points take the operand-type flag are timed; a build
+with the tensor-core forward (``fused_ce_fwd_tc``) is timed through it,
+as its wrapper routes these shapes, an older one through
+``fused_ce_fwd``. With --fwd-group G (repeatable) it also builds edited
+copies of this checkout's ``csrc/`` under ``build/fused_ce_fwd_ab/``
+whose tensor-core forward walks its blocks in groups of G token tiles
+(``kFwdGroup``) and times them as variants ``group_G``. With --sass it
+first compares each kernel's machine code (``cuobjdump -sass``, the
+addresses left out) in every other build with this checkout's, and
+prints which kernels are identical, which differ and which one build
+has alone. With
 --bwd-turns N each checkout's own ``fused_ce_bwd`` (its wrapper and its
 library, whatever its entry points) is timed at both shapes in a process
 of its own, in the order parent, change, change, parent, N times, on the
@@ -29,7 +39,8 @@ the card:
 
     python3 scripts/torch_fused_ce_fwd_ab.py [--parent DIR]
         [--variant NAME=DIR ...] [--rounds 2] [--profile]
-        [--dtype float32|bfloat16] [--bwd-turns N]
+        [--dtype float32|bfloat16] [--bwd-turns N] [--fwd-group G ...]
+        [--sass]
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -83,6 +95,45 @@ def build(trees, flags) -> dict:
     return libs
 
 
+def sass(lib) -> dict:
+    """{kernel: its SASS instructions} of a built library, by the mangled
+    name with the source's anonymous-namespace tag left out, each
+    instruction without its address and encoding."""
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).parent
+                                            / "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True).stdout
+    funcs = {}
+    for block in re.split(r"\n\s*Function : ", out)[1:]:
+        name, body = block.split("\n", 1)
+        name = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "",
+                      name.strip())
+        funcs[name] = [re.sub(r"/\*[^*]*\*/", "", line).strip()
+                       for line in body.splitlines()
+                       if re.match(r"\s*/\*[0-9a-f]{4}\*/", line)]
+    return funcs
+
+
+def compare_sass(libs) -> None:
+    """Each build's kernels against this checkout's (``sass``)."""
+    from marian_tpu_torch.ops.kernels import _build
+    mine = sass(libs["change"])
+    for tag, lib in libs.items():
+        if tag == "change":
+            continue
+        theirs = sass(lib)
+        same = sorted(k for k in mine if theirs.get(k) == mine[k])
+        differ = sorted(k for k in mine if k in theirs and theirs[k]
+                        != mine[k])
+        names = (lambda keys: ", ".join(
+            f"{_build.kernel_name(k)} ({len(mine.get(k) or theirs[k])} "
+            f"instructions)" for k in keys) or "none")
+        print(f"sass [{tag} vs change]: identical: {names(same)}; "
+              f"differ: {names(differ)}; change alone: "
+              f"{names(sorted(set(mine) - set(theirs)))}; {tag} alone: "
+              f"{names(sorted(set(theirs) - set(mine)))}")
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SystemExit(f"torch_fused_ce_fwd_ab: FAILED: {msg}")
@@ -106,17 +157,48 @@ def entry(lib):
     return fn
 
 
-def forward(lib, takes_splits: bool, takes_dtype: bool):
+def group_variants(groups) -> list:
+    """(tag, tree) of edited copies of this checkout's csrc/, one for each
+    G in ``groups``, whose tensor-core forward's kFwdGroup is G."""
+    trees = []
+    for g in groups:
+        tree = OUT / f"group_{g}"
+        csrc = tree / "marian_tpu_torch" / "csrc"
+        shutil.rmtree(tree, ignore_errors=True)
+        shutil.copytree(_source(ROOT).parent, csrc)
+        text = (csrc / "fused_ce.cu").read_text()
+        new = re.sub(r"constexpr int kFwdGroup = \d+;",
+                     f"constexpr int kFwdGroup = {g};", text)
+        check(new != text or f"kFwdGroup = {g};" in text,
+              "kFwdGroup is not in fused_ce.cu")
+        (csrc / "fused_ce.cu").write_text(new)
+        trees.append((f"group_{g}", tree))
+    return trees
+
+
+def forward(lib, takes_splits: bool, takes_dtype: bool, tc: bool = False):
     """fn(x, w, b, labels) -> [3, N] (lse, lab, tot) through the
-    library's fused_ce_fwd, scratch allocated as its wrapper does
-    (``takes_dtype``: its entry points take the operand-type flag)."""
+    library's fused_ce_fwd, or with ``tc`` its fused_ce_fwd_tc (the
+    tensor-core forward, 128-column tiles), scratch allocated as its
+    wrapper does (``takes_dtype``: its entry points take the
+    operand-type flag)."""
     from marian_tpu_torch.ops.kernels import fused_ce as fce
-    f = entry(lib)("fused_ce_fwd", 8, 4 + takes_dtype)
+    f = (entry(lib)("fused_ce_fwd_tc", 8, 3) if tc
+         else entry(lib)("fused_ce_fwd", 8, 4 + takes_dtype))
 
     def run(x, w, b, labels):
         n, e = x.shape
         v = w.shape[0]
         out = torch.empty((3, n), device=x.device)
+        if tc:
+            part = torch.empty(fce.fwd_part_shape(n, v, fce.TC_TILE),
+                               device=x.device)
+            err = f(*(t.data_ptr() for t in (x, w, b, labels, out[0],
+                                             out[1], out[2], part)), n, v, e,
+                    torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+            return out
         if takes_splits:
             # the 64 x 64 kernel's wrapper: at least 2 blocks an SM
             rows, cols = -(-n // 64), -(-v // 64)
@@ -258,6 +340,12 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd-turns", type=int, default=0, metavar="N",
                     help="time each checkout's own fused_ce_bwd in "
                     "processes of its own, N rounds of turns")
+    ap.add_argument("--fwd-group", type=int, action="append", default=[],
+                    metavar="G", help="also time this checkout's "
+                    "tensor-core forward with kFwdGroup G (repeatable)")
+    ap.add_argument("--sass", action="store_true",
+                    help="compare the builds' machine code, kernel by "
+                    "kernel, with this checkout's")
     ap.add_argument("--own-backward", type=Path, default=None,
                     help=argparse.SUPPRESS)      # one such process
     args = ap.parse_args(argv)
@@ -278,10 +366,13 @@ def main(argv=None) -> int:
     trees = [("change", ROOT)]
     trees += [("parent", args.parent)] if args.parent is not None else []
     trees += [tuple(v.split("=", 1)) for v in args.variant]
+    trees += group_variants(args.fwd_group)
     # the library of the operands' type (a checkout from before the
     # one-type libraries ignores the define)
     libs = build(trees, list(_build.NVCC_FLAGS)
                  + [f"-DKERNEL_DTYPE={int(dtype == torch.bfloat16)}"])
+    if args.sass:
+        compare_sass({tag: OUT / f"libfused_ce_{tag}.so" for tag, _ in trees})
     runs = {}
     for tag, tree in trees:
         src = _source(tree).read_text()
@@ -290,9 +381,12 @@ def main(argv=None) -> int:
         if dtype != torch.float32 and not takes_dtype:
             print(f"[{tag}] takes float32 operands only: not timed")
             continue
+        tc = dtype == torch.bfloat16 and hasattr(libs[tag], "fused_ce_fwd_tc")
+        print(f"[{tag}] forward through "
+              f"{'fused_ce_fwd_tc' if tc else 'fused_ce_fwd'}")
         runs[tag] = (forward(libs[tag], re.search(
-            r"fused_ce_fwd\([^)]*int splits", src) is not None, takes_dtype),
-            backward(libs[tag], takes_dtype, dtype))
+            r"fused_ce_fwd\([^)]*int splits", src) is not None, takes_dtype,
+            tc), backward(libs[tag], takes_dtype, dtype))
     turns = ["parent"] * ("parent" in runs) + [
         tag for tag in runs if tag != "parent"]
     order = turns + turns[::-1]

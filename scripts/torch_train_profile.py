@@ -44,7 +44,7 @@ CLASSES = (
     ("fused_ce backward dw/db product (this port)", r"fce_(bwd|tc)_dw"),
     ("fused_ce backward slice and db sums (this port)",
      r"fce_bwd_sum|fce_tc_db"),
-    ("fused_ce forward (this port)", r"fce_fwd"),
+    ("fused_ce forward (this port)", r"fce_(tc_)?fwd"),
     ("GEMM (cuBLAS/CUTLASS)", r"gemm|sgemm|cutlass|cublas|nvjet"),
     ("reductions", r"reduce|Reduce|norm"),
     ("elementwise", r"elementwise|vectorized|unrolled|Elementwise"),

@@ -398,10 +398,11 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     edges (columns 0, 255, 256 and V - 1); V 200 is under one tile, V 257
     leaves one column in the last; N 4,001, V 32,003 leaves ragged tiles
     in every product over 16 chunks. In bf16 (x and w; b f32) the
-    forward counts on ``.launches_bf16``, the backward on
-    ``.launches_bf16_tc`` (the tensor-core kernels) where E % 8 == 0 and
-    on ``.launches_bf16`` (the CUDA-core ones) otherwise; dx and dw come
-    out bf16 and are held to one bf16 spacing of the plain version's."""
+    forward and the backward count on ``.launches_bf16_tc`` (the
+    tensor-core kernels) where E % 8 == 0 and on ``.launches_bf16`` (the
+    CUDA-core ones) otherwise, and the other path's counter does not
+    move; dx and dw come out bf16 and are held to one bf16 spacing of the
+    plain version's."""
     gen = torch.Generator().manual_seed(n + v + e)
     x = _randn(gen, dev, n, e, dtype=dtype)
     w = (_randn(gen, dev, v, e) * (e ** -0.5)).to(dtype)
@@ -411,11 +412,13 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     labels[:len(edges)] = torch.tensor(edges)
     labels = labels.to(dev)
     count = "launches_bf16" if dtype == torch.bfloat16 else "launches"
-    bwd = ("launches_bf16_tc" if dtype == torch.bfloat16 and e % 8 == 0
-           else count)
-    counters = ((fce.fused_ce_stats, count), (fce.fused_ce_dx, bwd),
-                (fce.fused_ce_dw, bwd), (fce.fused_ce_dx, "launches_bf16"),
-                (fce.fused_ce_dx, "launches_bf16_tc"))
+    path = ("launches_bf16_tc" if dtype == torch.bfloat16 and e % 8 == 0
+            else count)
+    counters = ((fce.fused_ce_stats, path), (fce.fused_ce_dx, path),
+                (fce.fused_ce_dw, path), (fce.fused_ce_dx, "launches_bf16"),
+                (fce.fused_ce_dx, "launches_bf16_tc"),
+                (fce.fused_ce_stats, "launches_bf16"),
+                (fce.fused_ce_stats, "launches_bf16_tc"))
     launches = tuple(getattr(c, a) for c, a in counters)
     got = fce.fused_ce_stats(x, w, b, labels)
     ref = fce.fused_ce_stats_reference(x, w, b, labels)
@@ -438,9 +441,9 @@ def test_fused_ce_kernels_match_plain(dev, n, v, e, chunk, dtype):
     # each path's counter moved by one, the other bf16 path's not at all
     moved = [getattr(c, a) - k for (c, a), k in zip(counters, launches)]
     if dtype == torch.bfloat16:
-        assert moved == [1, 1, 1] + ([0, 1] if e % 8 == 0 else [1, 0])
+        assert moved == [1, 1, 1] + ([0, 1] if e % 8 == 0 else [1, 0]) * 2
     else:
-        assert moved == [1, 1, 1, 0, 0]
+        assert moved == [1, 1, 1, 0, 0, 0, 0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -468,16 +471,43 @@ def test_fused_ce_bwd_is_deterministic(dev, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_fwd_is_deterministic(dev, dtype):
     """The same inputs twice give bit-identical lse, lab and tot (the
-    tiles' partials merged in vocabulary order, no atomics)."""
+    tiles' partials merged in vocabulary order, no atomics); in bf16 on
+    the tensor-core kernel, at a ragged N (1,000 = 7 x 128 + 104) and V
+    (5,003 = 39 x 128 + 11)."""
     gen = torch.Generator().manual_seed(13)
     n, v, e = 1000, 5003, 256
     x = _randn(gen, dev, n, e, dtype=dtype)
     w = (_randn(gen, dev, v, e) * (e ** -0.5)).to(dtype)
     b = _randn(gen, dev, v)
     labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    tc = fce.fused_ce_stats.launches_bf16_tc
     one = fce.fused_ce_stats(x, w, b, labels)
     two = fce.fused_ce_stats(x, w, b, labels)
     assert all(torch.equal(p, q) for p, q in zip(one, two))
+    assert fce.fused_ce_stats.launches_bf16_tc == tc + 2 * (
+        dtype == torch.bfloat16)
+
+
+def test_fused_ce_fwd_unaligned_bf16_takes_the_cuda_cores(dev):
+    """A bf16 x that is a view one element into its storage (contiguous,
+    not 16-byte aligned) takes the CUDA-core forward (``fwd_route``),
+    counted on ``.launches_bf16``, and matches the plain version."""
+    gen = torch.Generator().manual_seed(17)
+    n, v, e = 300, 1000, 64
+    store = _randn(gen, dev, n * e + 1, dtype=torch.bfloat16)
+    x = store[1:].view(n, e)
+    w = (_randn(gen, dev, v, e) * (e ** -0.5)).to(torch.bfloat16)
+    b = _randn(gen, dev, v)
+    labels = torch.randint(0, v, (n,), generator=gen).to(dev)
+    assert x.is_contiguous() and fce.fwd_route(x, w) == ("fused_ce_fwd", 256)
+    launches = (fce.fused_ce_stats.launches_bf16,
+                fce.fused_ce_stats.launches_bf16_tc)
+    got = fce.fused_ce_stats(x, w, b, labels)
+    assert (fce.fused_ce_stats.launches_bf16,
+            fce.fused_ce_stats.launches_bf16_tc) == (launches[0] + 1,
+                                                     launches[1])
+    for g, r in zip(got, fce.fused_ce_stats_reference(x, w, b, labels)):
+        _close_to_scale(g, r, 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -524,15 +554,16 @@ def test_fused_ce_refuses_mixed_operand_types(dev):
     w = torch.zeros(32, 16, device=dev)
     b = torch.zeros(32, device=dev)
     labels = torch.zeros(8, dtype=torch.int32, device=dev)
-    launches = (fce.fused_ce_stats.launches, fce.fused_ce_stats.launches_bf16)
+    launches = (fce.fused_ce_stats.launches, fce.fused_ce_stats.launches_bf16,
+                fce.fused_ce_stats.launches_bf16_tc)
     for xx, ww in ((x.bfloat16(), w), (x, w.bfloat16())):
         with pytest.raises(TypeError):
             fce.fused_ce_stats(xx, ww, b, labels)
         with pytest.raises(TypeError):
             fce.fused_ce_bwd(xx, ww, b, labels, *(torch.zeros(8, device=dev)
                                                   for _ in range(4)))
-    assert (fce.fused_ce_stats.launches,
-            fce.fused_ce_stats.launches_bf16) == launches
+    assert (fce.fused_ce_stats.launches, fce.fused_ce_stats.launches_bf16,
+            fce.fused_ce_stats.launches_bf16_tc) == launches
 
 
 @pytest.mark.parametrize("b,h,tq,tk,dh,causal", [

@@ -260,18 +260,32 @@ def test_tiled_stats_match_plain_and_jax_kernel(v):
         _close_to_scale(ce.numpy(), _jax(x, w, b, labels, eps))
 
 
-@pytest.mark.parametrize("n,v,nbytes", [
-    (12288, 32000, 24_576_000), (16384, 32000, 32_768_000),
-    (133, 257, 4 * 2 * 133 * 4), (1, 200, 16)])
-def test_fwd_tiles_cover_the_vocabulary_and_size_the_partials(n, v, nbytes):
-    """The forward's vocabulary tiles cover [0, V) once, in order, 256
-    columns each but a ragged last one; its partial buffer is
-    [4, tiles, N] f32: 24.6 MB at base training (N 12,288) and 32.8 MB at
-    the doc shape (N 16,384)."""
-    tiles = fce.fwd_tiles(v)
+def _tile_case(n, v, nbytes, cols=256):
+    """One case; the 256-column ones keep their ids from before the
+    128-column (tensor-core) cases were added."""
+    case = f"{n}-{v}-{nbytes}" + ("" if cols == 256 else f"-cols{cols}")
+    return pytest.param(n, v, nbytes, cols, id=case)
+
+
+@pytest.mark.parametrize("n,v,nbytes,cols", [
+    _tile_case(12288, 32000, 24_576_000), _tile_case(16384, 32000, 32_768_000),
+    _tile_case(133, 257, 4 * 2 * 133 * 4), _tile_case(1, 200, 16),
+    _tile_case(12288, 32000, 49_152_000, 128),
+    _tile_case(16384, 32000, 65_536_000, 128),
+    _tile_case(133, 257, 4 * 3 * 133 * 4, 128), _tile_case(1, 200, 32, 128)])
+def test_fwd_tiles_cover_the_vocabulary_and_size_the_partials(n, v, nbytes,
+                                                              cols):
+    """The forward's vocabulary tiles cover [0, V) once, in order, ``cols``
+    columns each (256 on the CUDA cores, 128 on the tensor cores) but a
+    ragged last one; its partial buffer is [4, tiles, N] f32: at 256
+    columns 24.6 MB at base training (N 12,288) and 32.8 MB at the doc
+    shape (N 16,384); at 128, 250 tiles, 49.2 and 65.5 MB."""
+    tiles = fce.fwd_tiles(v, cols)
     assert [c for v0, width in tiles for c in range(v0, v0 + width)] == \
         list(range(v))
-    assert all(width == 256 for _, width in tiles[:-1])
-    shape = fce.fwd_part_shape(n, v)
+    assert all(width == cols for _, width in tiles[:-1])
+    shape = fce.fwd_part_shape(n, v, cols)
     assert shape == (4, len(tiles), n)
     assert 4 * int(np.prod(shape)) == nbytes
+    if (n, v, cols) == (12288, 32000, 128):
+        assert len(tiles) == 250

@@ -52,7 +52,10 @@ def _port_files():
                     ROOT / "scripts" / "torch_train_profile.py",
                     ROOT / "scripts" / "torch_train_parity.py",
                     ROOT / "scripts" / "torch_serve_profile.py",
-                    ROOT / "scripts" / "torch_fused_ce_tc_check.py"]
+                    ROOT / "scripts" / "torch_fused_ce_tc_check.py",
+                    ROOT / "scripts" / "torch_fused_ce_fwd_ab.py",
+                    ROOT / "scripts" / "torch_attention_ab.py",
+                    ROOT / "scripts" / "torch_flash_bwd_ab.py"]
 
 
 def _imported_modules(path):
