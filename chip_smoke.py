@@ -37,7 +37,8 @@ card, and drives the port's main paths on data made from --seed:
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
-  paths' shapes, timed beside SDPA on bf16) held against their plain
+  paths' shapes, timed beside SDPA on bf16; the flash forward and dkv on
+  the tensor cores for aligned operands) held against their plain
   versions on the same bf16 operands;
   transformer-base trained 2 + 10 updates and decoded (beam 6,
   the same sentences) in bf16; and bf16 on the card against bf16 on the
@@ -142,8 +143,9 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
                    "fused_ce_dw_bf16_tc": 1}
 # the main paths, by the names run_phases gives their launch counts. The
 # attention kernels' f32 and bf16 instantiations count on one wrapper's
-# launches, so their rows sum their counter over these paths only (a
-# row's "paths"); other rows sum it over every path.
+# launches (the bf16 flash forward and dkv on the tensor cores on their
+# own, launches_bf16_tc), so their rows sum their counter over these
+# paths only (a row's "paths"); other rows sum it over every path.
 F32_PATHS = ("decode", "serve", "train", "doc train", "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut")
 # card vs CPU in bf16, relative, each cut its own: limits set between
@@ -179,9 +181,12 @@ DOC_PER_UPDATE = {"packed_attention": 0, "packed_attention_bwd": 0,
                   "flash_attention_dkv": 18,
                   "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
 # the doc-level card-vs-CPU cut: 2+2 layers, dim 256, 4 heads (Dh 64)
+# (a gradient pass and 2 updates, 6 attentions each, all through flash:
+# in bf16 the forward and dkv on the tensor cores, dq on the CUDA cores)
 DOC_CUT_FLAGS = ["--dim-emb", "256", "--transformer-heads", "4",
                  "--transformer-dim-ffn", "1024", "--enc-depth", "2",
                  "--dec-depth", "2", "--max-length", "2047"]
+DOC_CUT_FLASH = 18
 # the serve main path (marian-server, iteration mode, greedy)
 SERVE_ROWS, SERVE_SENTENCES, SERVE_CLIENTS, SERVE_CUT = 64, 256, 16, 16
 # the serve model (serve_weights): its random sublayers' outputs scaled
@@ -308,13 +313,23 @@ def phase_build() -> None:
     t0 = time.time()
     took = _build.build_all()
     each = ", ".join(f"{n} {t:.1f} s" for n, t in took.items())
+    flash = [line for line in _build.USAGE.get("flash_attention_bf16", [])
+             if line.startswith("flash_tc_")]
     print(f"build: {each or 'nothing to build'}; {time.time() - t0:.1f} s "
           f"in all, one nvcc a library in parallel "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)}); ptxas -v of the fused CE's "
           f"tensor-core kernels (dynamic shared memory "
           f"{fce.TC_SMEM_BYTES} B each): " + "; ".join(
               line for line in _build.USAGE.get("fused_ce_bf16", [])
-              if "fce_tc_" in line))
+              if "fce_tc_" in line)
+          + "; of the flash tensor-core kernels: " + "; ".join(flash))
+    # the flash tensor-core kernels: every instance built here, none spills
+    if "flash_attention_bf16" in took:
+        spill = [line for line in flash if "0 bytes spill stores, 0 bytes "
+                 "spill loads" not in line]
+        check(len(flash) == 8 and not spill,
+              f"flash tensor-core kernels: {len(flash)} of 8 instances, "
+              f"spills: {spill}")
 
 
 def phase_decode_kernel(gen) -> dict:
@@ -1161,15 +1176,18 @@ def tc_product_times(fce, x, w, b, labels, lse, g) -> None:
 def phase_attention_kernels_bf16(gen) -> list:
     """The attention kernels' bf16 instantiations at the shapes the bf16
     paths give them, against their plain versions on the same bf16
-    operands (outputs within BF16_REL_TOL of the largest, the flash lse
-    within LSE_TOL, new caches exact), timed beside SDPA on the same bf16
-    operands and the bound (bf16 operand bytes, operations at the bf16
-    tensor-core peak): decode_attention on bf16 queries and caches at the
-    base decode's R 384, H 8, L 64; the packed forward and backward at
-    the bf16 base update's B 192, H 8, T 64; the flash forward, dq and
-    dkv at the doc shape (B 8, H 16, T 2,048, every key live). Rows
-    ``<kernel>_bf16`` count their wrapper's launches on the bf16 paths
-    (BF16_PATHS)."""
+    operands (outputs within BF16_REL_TOL of the largest; the flash
+    forward's out and dkv's dk and dv, on the tensor cores, within one
+    bf16 spacing plus REL_TOL of the scale, ``close_bf16``; the flash lse
+    within LSE_TOL; new caches exact; two dkv calls bit-identical), timed
+    beside SDPA on the same bf16 operands and the bound (bf16 operand
+    bytes, operations at the bf16 tensor-core peak): decode_attention on
+    bf16 queries and caches at the base decode's R 384, H 8, L 64; the
+    packed forward and backward at the bf16 base update's B 192, H 8, T
+    64; the flash forward, dq and dkv at the doc shape (B 8, H 16, T
+    2,048, every key live). Each row prints its route. Rows
+    ``<kernel>_bf16`` count their route's launches on the bf16 paths
+    (BF16_PATHS): the flash forward and dkv on ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import packed_attention as pa
@@ -1181,9 +1199,10 @@ def phase_attention_kernels_bf16(gen) -> list:
         return torch.randn(*shape, generator=gen).to(dev, bf)
 
     def add(name, what, source, replaces, err, ms, plain_ms, library_ms,
-            nbytes, flops):
+            nbytes, flops, route="CUDA cores", counter=None):
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
-        print(f"kernel {name} {what}: kernel_ms {ms:.4f} plain_ms "
+        print(f"kernel {name} {what} [route: {route}]: kernel_ms {ms:.4f} "
+              f"plain_ms "
               f"{plain_ms:.4f} library_ms (sdpa on bf16) {library_ms:.4f} "
               f"bound_ms {bound_ms:.4f} ({bound_by}, at the bf16 peak; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
@@ -1194,7 +1213,7 @@ def phase_attention_kernels_bf16(gen) -> list:
                      "replaces": f"marian_tpu/ops/pallas/{replaces}",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": library_ms, "counter": name,
+                     "library_ms": library_ms, "counter": counter or name,
                      "paths": BF16_PATHS})
 
     # decode_attention: the base decode's rows (beam reorder), bf16 caches
@@ -1266,26 +1285,36 @@ def phase_attention_kernels_bf16(gen) -> list:
     del q, k, v, do, kvm, mask, out, ref, got, rgot, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
 
-    # flash: the doc shape, every key live
+    # flash: the doc shape, every key live; the forward and dkv take the
+    # tensor cores (bf16, aligned, Dh 64), dq the CUDA cores
     b, h, t = 8, 16, 2048
     q, k, v, do = (randn(b, h, t, dh) for _ in range(4))
     kvm = torch.ones(b, t, device=dev)
     mask = kvm.bool()[:, None, None, :]
+    tc = (fa.flash_attention_fwd.launches_bf16_tc,
+          fa.flash_attention_dkv.launches_bf16_tc)
     out, lse = fa.flash_attention_fwd(q, k, v, kvm)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm)
-    errs = {"fwd": max(close_to_scale(out, ref, "flash_attention_fwd bf16 "
-                                      "out", BF16_REL_TOL),
+    errs = {"fwd": max(close_bf16(out, ref, "flash_attention_fwd bf16 out"),
                        lse_err(lse, ref_lse, "flash_attention_fwd bf16"))}
     del ref, ref_lse
     got = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse)
+    again = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse)
     rgot = fa.flash_attention_bwd_reference(q, k, v, kvm, do, out, lse)
     torch.cuda.synchronize()
+    check(fa.flash_attention_fwd.launches_bf16_tc == tc[0] + 1
+          and fa.flash_attention_dkv.launches_bf16_tc == tc[1] + 2,
+          "the doc shape's bf16 flash forward and dkv did not take the "
+          "tensor cores")
+    check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+          "flash_attention_dkv bf16: two calls differ")
     errs["dq"] = close_to_scale(got[0], rgot[0], "flash_attention_dq bf16",
                                 BF16_REL_TOL)
-    errs["dkv"] = max(close_to_scale(g, r_, f"flash_attention_dkv bf16 {n}",
-                                     BF16_REL_TOL)
+    errs["dkv"] = max(close_bf16(g, r_, f"flash_attention_dkv bf16 {n}")
                       for n, g, r_ in zip(("dk", "dv"), got[1:], rgot[1:]))
-    del got, rgot
+    print("kernel flash_attention_dkv bf16 (tensor cores): two calls give "
+          "bit-identical dk, dv")
+    del got, again, rgot
     torch.cuda.empty_cache()
     scale = dh ** -0.5
     operands = (q, k, v, kvm, do, lse,
@@ -1306,6 +1335,11 @@ def phase_attention_kernels_bf16(gen) -> list:
     elems = b * h * t * dh * 2
     stats = b * h * t * 4
     pairs = b * h * t * t * dh
+    routes = {"fwd": ("tensor cores, flash_tc_fwd_kernel",
+                      "flash_attention_fwd_bf16_tc"),
+              "dq": ("CUDA cores, flash_dq_kernel", "flash_attention_dq"),
+              "dkv": ("tensor cores, flash_tc_dkv_kernel",
+                      "flash_attention_dkv_bf16_tc")}
     for part, line, fn, plain, n_elems, n_stats, n_ops in (
             ("fwd", 252, lambda: fa.flash_attention_fwd(q, k, v, kvm),
              lambda: fa.flash_attention_reference(q, k, v, kvm), 4, 1, 4),
@@ -1319,18 +1353,19 @@ def phase_attention_kernels_bf16(gen) -> list:
             f"(doc shape{'' if plain else '; plain_ms: whole backward'})",
             "flash_attention.cu", f"flash_attention.py:{line}", errs[part],
             ms, plain_ms, lib[part], n_elems * elems + n_stats * stats
-            + b * t * 4, n_ops * pairs)
+            + b * t * 4, n_ops * pairs, *routes[part])
     return rows
 
 
 def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None,
-                 lead=0):
+                 lead=0, unaligned=False):
     """q, k, v, dO and a key mask [B, Tk] on the card. Rows at and past
     ``live_rows`` mask every key (the batch generator's padding rows)
     and get no output gradient, as in training; the live rows have
     ragged lengths, the first row all Tk; with ``lead`` the second row's
     first ``lead`` keys are masked too (its first live key then lies
-    inside a tile)."""
+    inside a tile); with ``unaligned`` q is a contiguous view 8 bytes
+    into its buffer (16-byte aligned no more)."""
     dev = torch.device("cuda")
 
     def randn(*shape):
@@ -1345,6 +1380,10 @@ def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None,
     kvm[1:2, :lead] = 0.0
     kvm = kvm.to(dev)
     do[live_rows:] = 0.0
+    if unaligned:
+        shift = 8 // q.element_size()
+        buf = torch.empty(q.numel() + shift, dtype=dtype, device=dev)
+        q = buf[shift:].view(q.shape).copy_(q)
     return q, k, v, do, kvm
 
 
@@ -1354,70 +1393,116 @@ def phase_flash_kernels(gen) -> list:
     self, decoder causal, cross with Tk 1,536), at ragged lengths, at the
     backward's tile edges (1,050 = 8 x 128 + 26 rows, a row whose first
     live key lies inside a tile, fewer keys than queries), other head
-    sizes and bf16; two backward calls at the encoder shape must give the
-    same bits. Then their times at the encoder shape, the joint backward's
-    against SDPA's, and the forward, dq and dkv at the decoder's causal
-    shape."""
+    sizes and bf16: aligned bf16 takes the tensor-core forward and dkv
+    (their out, dk and dv within one bf16 spacing plus REL_TOL of the
+    scale of the plain backward fed the kernel's own out and lse), an
+    unaligned bf16 view the CUDA-core ones; each case checks the route
+    its launches took. Two backward calls at the encoder shape, and at
+    every bf16 tensor-core case, must give the same bits. Then their
+    times at the encoder shape, the joint backward's against SDPA's, and
+    the forward, dq and dkv at the decoder's causal shape."""
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     b, h, t, dh = 8, 16, 2048, 64
+    f32, bf = torch.float32, torch.bfloat16
     errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
-    cases = [("encoder self", b, h, t, t, dh, False, torch.float32, 4),
-             ("decoder causal", b, h, t, t, dh, True, torch.float32, 4),
-             ("cross", b, h, t, 1536, dh, False, torch.float32, 4),
-             ("ragged", 2, 4, 1000, 1100, dh, False, torch.float32, 1),
-             ("ragged causal", 2, 4, 1000, 1000, dh, True, torch.float32, 1),
-             ("Dh 32", 2, 4, 300, 333, 32, True, torch.float32, 1),
-             ("Dh 128", 2, 4, 300, 260, 128, False, torch.float32, 1),
-             ("Dh 16", 2, 4, 130, 130, 16, False, torch.float32, 1),
-             ("bf16", 2, 4, 1000, 1100, dh, False, torch.bfloat16, 1),
-             ("bf16 causal", 2, 4, 777, 777, dh, True, torch.bfloat16, 1),
-             ("tile edges causal", 3, 4, 1050, 1050, dh, True,
-              torch.float32, 2, 70),
-             ("tile edges cross", 2, 4, 1050, 300, dh, False,
-              torch.float32, 1)]
-    for name, b_, h_, tq, tk, d_, causal, dtype, live, *lead in cases:
+    # name, B, H, Tq, Tk, Dh, causal, dtype, live rows, first live key of
+    # row 1, q unaligned
+    cases = [("encoder self", b, h, t, t, dh, False, f32, 4, 0, False),
+             ("decoder causal", b, h, t, t, dh, True, f32, 4, 0, False),
+             ("cross", b, h, t, 1536, dh, False, f32, 4, 0, False),
+             ("ragged", 2, 4, 1000, 1100, dh, False, f32, 1, 0, False),
+             ("ragged causal", 2, 4, 1000, 1000, dh, True, f32, 1, 0, False),
+             ("Dh 32", 2, 4, 300, 333, 32, True, f32, 1, 0, False),
+             ("Dh 128", 2, 4, 300, 260, 128, False, f32, 1, 0, False),
+             ("Dh 16", 2, 4, 130, 130, 16, False, f32, 1, 0, False),
+             ("bf16", 2, 4, 1000, 1100, dh, False, bf, 1, 0, False),
+             ("bf16 causal", 2, 4, 777, 777, dh, True, bf, 1, 0, False),
+             ("bf16 Dh 128", 2, 4, 300, 260, 128, False, bf, 1, 0, False),
+             ("bf16 Dh 128 causal", 2, 4, 333, 333, 128, True, bf, 1, 0,
+              False),
+             ("bf16 Dh 32", 2, 4, 300, 333, 32, True, bf, 1, 0, False),
+             ("bf16 Dh 16", 2, 4, 130, 130, 16, False, bf, 1, 0, False),
+             ("bf16 cross, Tk < Tq", 2, 4, 1050, 300, dh, False, bf, 1, 0,
+              False),
+             ("bf16 tile edges causal", 3, 4, 1050, 1050, dh, True, bf, 2,
+              70, False),
+             ("bf16 padding rows", 4, 4, 640, 640, dh, False, bf, 2, 0,
+              False),
+             ("bf16 unaligned view", 2, 4, 500, 520, dh, True, bf, 1, 0,
+              True),
+             ("tile edges causal", 3, 4, 1050, 1050, dh, True, f32, 2, 70,
+              False),
+             ("tile edges cross", 2, 4, 1050, 300, dh, False, f32, 1, 0,
+              False)]
+    routes = [(fa.flash_attention_fwd, "launches"),
+              (fa.flash_attention_fwd, "launches_bf16_tc"),
+              (fa.flash_attention_dkv, "launches"),
+              (fa.flash_attention_dkv, "launches_bf16_tc")]
+    for (name, b_, h_, tq, tk, d_, causal, dtype, live, lead,
+         unaligned) in cases:
         q, k, v, do, kvm = flash_inputs(gen, b_, h_, tq, tk, d_, dtype, live,
-                                        *lead)
+                                        lead, unaligned)
+        tc = dtype == bf and not unaligned
+        before = [getattr(fn, a) for fn, a in routes]
         out, lse = fa.flash_attention_fwd(q, k, v, kvm, causal)
         ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm, causal)
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse,
                                             causal)
-        if name == "encoder self":
+        calls = 1
+        if name == "encoder self" or tc:
             again = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, causal)
             check(all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)),
                   f"flash_attention_bwd [{name}]: two calls differ")
             print(f"kernel flash_attention_bwd [{name}]: two calls give "
                   f"bit-identical dq, dk, dv")
+            calls = 2
             del again
         torch.cuda.synchronize()
-        rel = REL_TOL if dtype == torch.float32 else BF16_REL_TOL
+        moved = [getattr(fn, a) - n for (fn, a), n in zip(routes, before)]
+        check(moved == ([0, 1, 0, calls] if tc else [1, 0, calls, 0]),
+              f"flash_attention [{name}]: launches by route (forward, "
+              f"forward on the tensor cores, dkv, dkv on the tensor cores) "
+              f"{moved}, expected the {'tensor' if tc else 'CUDA'} cores")
+        rel = REL_TOL if dtype == f32 else BF16_REL_TOL
         what = (f"flash_attention [{name}] B={b_} H={h_} Tq={tq} Tk={tk} "
                 f"Dh={d_} {str(dtype)[6:]}")
-        e = {"fwd": max(close_to_scale(out, ref, f"{what} out", rel),
+
+        def gate(got, want, msg, one_spacing):
+            if one_spacing:
+                return close_bf16(got, want, msg)
+            return close_to_scale(got, want, msg, rel)
+        e = {"fwd": max(gate(out, ref, f"{what} out", tc),
                         lse_err(lse, ref_lse, f"{what} lse")),
              "dq": 0.0, "dkv": 0.0}
         # the plain backward fed the kernel's own out and lse, then the
         # plain forward's: a wrong lse skews every gradient of the second
+        # (the tensor-core dk and dv are held to one bf16 spacing of the
+        # first)
         for src, fwd in (("kernel", (out, lse)), ("plain", (ref, ref_lse))):
             rdq, rdk, rdv = fa.flash_attention_bwd_reference(
                 q, k, v, kvm, do, *fwd, causal)
+            own = tc and src == "kernel"
             e["dq"] = max(e["dq"], close_to_scale(
                 dq, rdq, f"{what} dq (plain from {src} out/lse)", rel))
-            e["dkv"] = max(e["dkv"], close_to_scale(
-                dk, rdk, f"{what} dk (plain from {src} out/lse)", rel),
-                close_to_scale(dv, rdv, f"{what} dv (plain from {src} "
-                               f"out/lse)", rel))
+            e["dkv"] = max(e["dkv"], gate(
+                dk, rdk, f"{what} dk (plain from {src} out/lse)", own),
+                gate(dv, rdv, f"{what} dv (plain from {src} out/lse)", own))
             del rdq, rdk, rdv
         check(bool(torch.isfinite(out.float()).all()
                    and torch.isfinite(dq.float()).all()
                    and torch.isfinite(dk.float()).all()),
               f"{what}: non-finite values")
-        for part in errs:
-            errs[part] = max(errs[part], e[part])
-        print(f"kernel {what} causal={causal}: max |err| out/lse "
-              f"{e['fwd']:.3g} dq {e['dq']:.3g} dk/dv {e['dkv']:.3g} "
-              f"(tolerance {rel} x max |plain| of each output; lse "
-              f"{LSE_TOL} on rows with a live key, fully masked rows exact)")
+        if dtype == f32:        # the rows below are the f32 kernels'
+            for part in errs:
+                errs[part] = max(errs[part], e[part])
+        spacing = (f"; out, dk, dv one bf16 spacing + {REL_TOL} x scale"
+                   if tc else "")
+        print(f"kernel {what} causal={causal} "
+              f"[route: {'tensor' if tc else 'CUDA'} cores]: max |err| "
+              f"out/lse {e['fwd']:.3g} dq {e['dq']:.3g} dk/dv "
+              f"{e['dkv']:.3g} (tolerance {rel} x max |plain| of each "
+              f"output{spacing}; lse {LSE_TOL} on rows with a live key, "
+              f"fully masked rows exact)")
         del q, k, v, do, kvm, out, lse, ref, ref_lse, dq, dk, dv
         torch.cuda.empty_cache()
     # times at the encoder's shape, every key live (the bound below counts
@@ -1801,7 +1886,8 @@ def kernel_counters():
     """Every kernel of the port, by name: (its wrapper, the attribute
     that counts its launches). The fused CE's bf16 instantiations count
     on their wrappers' ``launches_bf16``, its tensor-core forward and
-    backward on ``launches_bf16_tc``."""
+    backward, and the flash tensor-core forward and dkv, on
+    ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import fused_ce as fce
@@ -1819,7 +1905,8 @@ def kernel_counters():
     out = {name: (fn, "launches") for name, fn in fns.items()}
     for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
         out[f"{name}_bf16"] = (fns[name], "launches_bf16")
-    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
+    for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw",
+                 "flash_attention_fwd", "flash_attention_dkv"):
         out[f"{name}_bf16_tc"] = (fns[name], "launches_bf16_tc")
     return out
 
@@ -2733,10 +2820,21 @@ def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> dict:
     train_card_vs_cpu("doc-level 2+2 cut, dim 256, 4 heads, bf16", setup,
                       PARITY_LIMITS_BF16["doc"], ref["doc"])
     counts = read_counts()
-    check(counts["flash_attention_dkv"] > 0 and counts["fused_ce_dx_bf16_tc"]
-          > 0 and counts["fused_ce_fwd_bf16_tc"] > 0
+    check(counts["flash_attention_fwd_bf16_tc"] == DOC_CUT_FLASH
+          and counts["flash_attention_dkv_bf16_tc"] == DOC_CUT_FLASH
+          and counts["flash_attention_dq"] == DOC_CUT_FLASH
+          and counts["flash_attention_fwd"] == 0
+          and counts["flash_attention_dkv"] == 0
+          and counts["fused_ce_dx_bf16_tc"] > 0
+          and counts["fused_ce_fwd_bf16_tc"] > 0
           and counts["fused_ce_dx_bf16"] == counts["fused_ce_dx"] == 0,
-          f"bf16 doc cut launches {counts}")
+          f"bf16 doc cut launches {counts}: expected {DOC_CUT_FLASH} flash "
+          f"forwards and dkv on the tensor cores, {DOC_CUT_FLASH} dq, none "
+          f"on the CUDA-core forward and dkv")
+    print(f"bf16 card vs cpu: the doc cut's flash launches by route: "
+          f"forward {counts['flash_attention_fwd_bf16_tc']} and dkv "
+          f"{counts['flash_attention_dkv_bf16_tc']} on the tensor cores, "
+          f"dq {counts['flash_attention_dq']} on the CUDA cores")
     return counts
 
 

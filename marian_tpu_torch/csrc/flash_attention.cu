@@ -71,8 +71,39 @@
 //                                         (223 KB at Dh 64, 177 KB at 128)
 // each above 48 KB, so every launch raises the dynamic limit first; one
 // block fits an SM (__launch_bounds__(256, 1)).
+//
+// The bf16 forward and dkv on the tensor cores (the bf16 library only:
+// flash_tc_fwd_kernel and flash_tc_dkv_kernel, entries
+// flash_attention_fwd_tc and flash_attention_dkv_tc) take every bf16 call
+// with q, k, v (and dO, dk, dv) 16-byte aligned at Dh 16-128 (the
+// wrapper's flash_tc_path); other bf16 calls, dq, and every f32 call keep
+// the kernels above. They replace the same _fwd_kernel and _dkv_kernel
+// and keep the semantics listed at the top, with the reference's f32 P:
+// the scores come out of mma.sync m16n8k16 (mma_tiles.cuh) as exact bf16
+// products summed in f32, and P (dkv: P^T and dS^T) enters the second
+// product from the score accumulators' registers as a hi/lo bf16 pair,
+// hi = bf16(p), lo = bf16(p - hi), two products on the same operand
+// fragments, so it keeps p to 2^-16 where one rounding (SDPA's) puts
+// 2^-9 on every weight; the running sum l adds the f32 p. Each streamed
+// tile's products start from 0 and are added into the f32 accumulators
+// with round-to-nearest adds (the tensor cores' own sums truncate: the
+// two-level accumulation of mma_tiles.cuh). What bounds them on an H100:
+// operations at the bf16 tensor-core peak, 4 B.H.Tq.Tk.Dh flops for the
+// forward and 8 for dkv, of which the hi/lo split makes 6 and 12 on the
+// tensor cores; in practice mma.sync's rate, with the softmax's exp on
+// the CUDA cores beside it. A block is 8 warps of 16 own rows (128 query rows; 128 keys
+// in dkv, held transposed so P^T and dS^T are A operands); the streamed
+// tiles (64 keys; 64 queries, 16 at Dh 128) cycle through a three-slot
+// cp.async ring with rows padded by 16 bytes for conflict-free ldmatrix,
+// Q and dO read through ldmatrix .trans where they are the B operand of
+// dV and dK. One block writes each output row: no atomics, two calls give
+// the same bits. The forward runs two blocks an SM up to Dh 32 and one
+// at Dh 64 and 128 (two spilled at Dh 64 under 128 registers).
 
 #include "attention_tiles.cuh"
+#if KERNEL_DTYPE == 1
+#include "mma_tiles.cuh"
+#endif
 
 namespace {
 
@@ -477,6 +508,479 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* kvm,
 
 }  // namespace
 
+#if KERNEL_DTYPE == 1
+// ---------------------------------------------------------------------------
+// the bf16 forward and dkv on the tensor cores (mma_tiles.cuh's mma.sync
+// m16n8k16 primitives; the bf16 library only)
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// Design checks, edited by scripts/torch_flash_bwd_ab.py --variant: P and
+// dS enter their products as a hi/lo bf16 pair (false: rounded to bf16
+// once), and each streamed tile's products start from 0 and are added
+// into the f32 accumulators with round-to-nearest adds (false: the tensor
+// cores sum into them directly).
+constexpr bool kTcSplit = true;
+constexpr bool kTcTwoLevel = true;
+
+// A block is 8 warps of 16 own rows (query rows in the forward, keys in
+// dkv); staged rows are padded by 16 bytes, so the eight rows an ldmatrix
+// reads fall on distinct banks. Shared memory in bytes.
+template <int DH>
+struct FlashTc {
+  static constexpr int P = DH + 8;       // staged row pitch, bf16 values
+  static constexpr int NK = DH / 16;     // k16 steps over Dh
+  static constexpr int ND = DH / 8;      // n8 fragments over Dh
+  static constexpr int kStages = 3;      // slots of the cp.async ring
+  static constexpr int kRows = 128;      // own rows a block
+  // forward: 64-key tiles of K, V and the key mask
+  static constexpr int kKeys = 64;
+  static constexpr int kFwdStage = 2 * kKeys * P * 2 + kKeys * 4;
+  static constexpr int kFwdSmem = kRows * P * 2 + kStages * kFwdStage;
+  // two blocks an SM (128 registers a thread) up to Dh 32; at Dh 64 the
+  // cap spilled (4 bytes), so one block of up to 255
+  static constexpr int kFwdBlocks = DH <= 32 ? 2 : 1;
+  // dkv: query tiles of Q, dO, lse and delta (16 rows at Dh 128, where
+  // the dk and dv accumulators take 128 registers: 32 rows spilled)
+  static constexpr int kQT = DH == 128 ? 16 : 64;
+  static constexpr int kDkvStage = 2 * kQT * P * 2 + 2 * kQT * 4;
+  static constexpr int kDkvSmem = 2 * kRows * P * 2 + kStages * kDkvStage;
+  static_assert(kFwdSmem <= (int)kMaxSmem && kDkvSmem <= (int)kMaxSmem,
+                "shared memory of a block");
+};
+
+// rows [r0, r0 + ROWS) of a [n][DH] bf16 matrix into dst[ROWS][DH + 8]
+// by 16-byte cp.async; rows at or past n read nothing and are zero-filled
+template <int ROWS, int DH>
+__device__ __forceinline__ void tc_stage_rows(const bf16* __restrict__ src,
+                                              int r0, int n, bf16* dst) {
+  constexpr int C = DH / 8;
+  for (int i = threadIdx.x; i < ROWS * C; i += kThreads) {
+    const int r = i / C, c = (i % C) * 8;
+    const bool in = r0 + r < n;
+    cp_async16(reinterpret_cast<float*>(dst + r * (DH + 8) + c),
+               src + (size_t)(in ? r0 + r : 0) * DH + c, in);
+  }
+}
+
+// src[i0 .. i0 + N) into dst by threads t0 .. t0 + N - 1 (4-byte
+// cp.async), zero at and past `end`
+template <int N>
+__device__ __forceinline__ void tc_stage_vec(const float* __restrict__ src,
+                                             int i0, int end, float* dst,
+                                             int t0) {
+  const int j = (int)threadIdx.x - t0;
+  if (j >= 0 && j < N) {
+    const bool in = i0 + j < end;
+    cp_async4(dst + j, src + (in ? i0 + j : 0), in);
+  }
+}
+
+// two f32 values (the lower column first) as one bf16x2 operand register
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// ... and as a hi/lo pair: hi = bf16(x), lo = bf16(x - hi), so that
+// |x - hi - lo| <= 2^-16 |x| (bf16 has f32's exponent range)
+__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
+
+// s[j] = A . B^T over Dh: the warp's 16 rows of a staged [.][DH] tile a
+// from row0 against the 8 NJ rows of a staged [8 NJ][DH] tile b, in
+// m16n8 fragments (C layout: s[j][h] at row lane / 4 + 8 (h / 2), column
+// 8 j + 2 (lane % 4) + h % 2). A's fragments are read one k16 step at a
+// time (ldmatrix x4: lane l gives row l % 8 of matrix l / 8), which
+// keeps registers for the accumulators; with kRolled the steps are a
+// rolled loop (dkv at Dh 128: unrolled, the loads ptxas hoists across
+// the steps spilled its registers). A product of two bf16 values is
+// exact; the sums are the tensor cores' f32 sums over Dh.
+template <int NJ, int DH>
+__device__ __forceinline__ void score_step(const bf16* a, int row0,
+                                           const bf16* b, int kk,
+                                           float (&s)[NJ][4]) {
+  const int l = threadIdx.x & 31, lr = l & 7, lm = l >> 3;
+  unsigned af[4];
+  mma::ldmatrix_x4(af, mma::smem_addr(
+      a + (row0 + (lm & 1) * 8 + lr) * (DH + 8) + kk * 16 + (lm >> 1) * 8));
+#pragma unroll
+  for (int p = 0; p < NJ / 2; ++p) {
+    unsigned r[4];
+    mma::ldmatrix_x4(r, mma::smem_addr(
+        b + (p * 16 + (lm >> 1) * 8 + lr) * (DH + 8) + kk * 16
+        + (lm & 1) * 8));
+    mma::mma_bf16(s[2 * p], af, r[0], r[1]);
+    mma::mma_bf16(s[2 * p + 1], af, r[2], r[3]);
+  }
+}
+
+template <int NJ, int DH, bool kRolled = false>
+__device__ __forceinline__ void score_product(const bf16* a, int row0,
+                                              const bf16* b,
+                                              float (&s)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) s[j][h] = 0.f;
+  if constexpr (kRolled) {
+#pragma unroll 1
+    for (int kk = 0; kk < DH / 16; ++kk) score_step<NJ, DH>(a, row0, b, kk, s);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) score_step<NJ, DH>(a, row0, b, kk, s);
+  }
+}
+
+// acc += X . M: X the warp's [16][16 KS] f32 tile in C fragments (k16
+// step kk is fragments 2 kk and 2 kk + 1, repacked into A fragments in
+// registers), M a staged [16 KS][DH] tile m read through ldmatrix .trans.
+// X goes in as a hi/lo bf16 pair, two products on the same M fragments,
+// so the product keeps X's f32 value to 2^-16 (kTcSplit); the tile's
+// products start from 0 and are added into acc rounded to nearest, as
+// the tensor cores' own f32 sums truncate (kTcTwoLevel).
+template <int KS, int DH>
+__device__ __forceinline__ void tile_product(const float (&x)[2 * KS][4],
+                                             const bf16* m,
+                                             float (&acc)[DH / 8][4]) {
+  const int l = threadIdx.x & 31, lr = l & 7, lm = l >> 3;
+  unsigned hi[KS][4], lo[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      // a0: row lane / 4 of fragment 2 kk; a1: eight rows below; a2, a3
+      // the same of fragment 2 kk + 1 (the step's upper eight columns)
+      const float c0 = x[2 * kk + (u >> 1)][2 * (u & 1)];
+      const float c1 = x[2 * kk + (u >> 1)][2 * (u & 1) + 1];
+      if (kTcSplit)
+        split_bf16(c0, c1, hi[kk][u], lo[kk][u]);
+      else
+        hi[kk][u] = pack_bf16(c0, c1);
+    }
+#pragma unroll
+  for (int dp = 0; dp < DH / 16; ++dp) {
+    float part[2][4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      part[0][h] = kTcTwoLevel ? 0.f : acc[2 * dp][h];
+      part[1][h] = kTcTwoLevel ? 0.f : acc[2 * dp + 1][h];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned r[4];
+      mma::ldmatrix_x4_trans(r, mma::smem_addr(
+          m + (kk * 16 + (lm & 1) * 8 + lr) * (DH + 8) + dp * 16
+          + (lm >> 1) * 8));
+      mma::mma_bf16(part[0], hi[kk], r[0], r[1]);
+      if (kTcSplit) mma::mma_bf16(part[0], lo[kk], r[0], r[1]);
+      mma::mma_bf16(part[1], hi[kk], r[2], r[3]);
+      if (kTcSplit) mma::mma_bf16(part[1], lo[kk], r[2], r[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      acc[2 * dp][h] = kTcTwoLevel ? acc[2 * dp][h] + part[0][h] : part[0][h];
+      acc[2 * dp + 1][h] =
+          kTcTwoLevel ? acc[2 * dp + 1][h] + part[1][h] : part[1][h];
+    }
+  }
+}
+
+// forward: grid (query tiles of 128, B*H); causal calls take the last
+// (heavy) query tiles first. Warp w owns query rows q0 + 16 w .. + 15;
+// this thread rows r0 and r0 + 8 (its C fragments' two rows).
+template <int DH>
+__global__ void __launch_bounds__(kThreads, FlashTc<DH>::kFwdBlocks)
+    flash_tc_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ kv_mask,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        int H, int Tq, int Tk, float scale, int causal) {
+  using G = FlashTc<DH>;
+  constexpr int BQ = G::kRows, BK = G::kKeys, P = G::P, S = G::kStages;
+  constexpr int ND = G::ND, NJ = BK / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][P]
+  unsigned char* ring = tc_smem + BQ * P * 2;   // S x {K, V, key mask}
+  __shared__ int first_slot;
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ, r0 = q0 + warp * 16 + g;
+  const float* kvm = kv_mask + (size_t)b * Tk;
+  const bf16* kh = k + (size_t)bh * Tk * DH;
+  const bf16* vh = v + (size_t)bh * Tk * DH;
+  const int first = first_live_key(kvm, Tk, causal, &first_slot);
+  // key tiles wholly in the future of every row, rows that all see a
+  // live key: they would weigh exp(-1e9 - m) = 0
+  int n_k = (Tk + BK - 1) / BK;
+  if (causal && q0 >= first) n_k = min(n_k, (q0 + BQ - 1) / BK + 1);
+  auto slot = [&](int kt) {
+    return reinterpret_cast<bf16*>(ring + (kt % S) * G::kFwdStage);
+  };
+  auto stage_keys = [&](int kt) {
+    bf16* s = slot(kt);
+    tc_stage_rows<BK, DH>(kh, kt * BK, Tk, s);
+    tc_stage_rows<BK, DH>(vh, kt * BK, Tk, s + BK * P);
+    tc_stage_vec<BK>(kvm, kt * BK, Tk, reinterpret_cast<float*>(s + 2 * BK * P),
+                     0);
+  };
+  tc_stage_rows<BQ, DH>(q + (size_t)bh * Tq * DH, q0, Tq, qs);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n_k) stage_keys(st);
+    cp_async_commit();
+  }
+
+  float o[ND][4], m[2] = {kStatsInit, kStatsInit}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) o[d][h] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile kt landed; tile kt - 1's readers are done
+    if (kt + S - 1 < n_k) stage_keys(kt + S - 1);
+    cp_async_commit();
+    const bf16* ks = slot(kt);
+    const bf16* vs = ks + BK * P;
+    const float* mk = reinterpret_cast<const float*>(vs + BK * P);
+    const int k0 = kt * BK;
+    float s[NJ][4];
+    score_product<NJ, DH>(qs, warp * 16, ks, s);
+    // scale, then the key mask and the causal replacement, in the
+    // reference's order; keys past Tk are no keys
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int c = 8 * j + 2 * t + (h & 1), col = k0 + c;
+        float x = s[j][h] * scale + (1.f - mk[c]) * kMask;
+        if (causal && r0 + 8 * (h >> 1) < col) x = kMask;
+        s[j][h] = col < Tk ? x : -INFINITY;
+        mx[h >> 1] = fmaxf(mx[h >> 1], s[j][h]);
+      }
+    // a row lies on a quad (lane % 4): two shuffles
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        s[j][h] = expf(s[j][h] - m[h >> 1]);
+        sum[h >> 1] += s[j][h];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = alpha[i] * l[i] + sum[i];  // the f32 p, not the rounded pair
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) o[d][h] *= alpha[h >> 1];
+    tile_product<NJ / 2, DH>(s, vs, o);  // O += P V, P as a hi/lo pair
+  }
+  cp_async_wait<0>();
+  const size_t obase = (size_t)bh * Tq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= Tq) continue;
+    const float ls = l[i] == 0.f ? 1.f : l[i];
+    bf16* orow = out + (obase + row) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      mma::store2(orow + 8 * d, o[d][2 * i] / ls, o[d][2 * i + 1] / ls);
+    if (t == 0) lse[obase + row] = m[i] + logf(ls);
+  }
+}
+
+// dkv: grid (key tiles of 128, B*H). The tiles are held transposed, keys
+// in the rows: S^T = K Q^T, P^T = exp(S^T scale + mask - lse), dP^T = V
+// dO^T, dS^T = P^T (dP^T - delta) scale, so P^T and dS^T feed dV += P^T dO
+// and dK += dS^T Q from registers (Q and dO through ldmatrix .trans).
+// Warp w owns keys k0 + 16 w .. + 15; this thread keys key0 and key0 + 8.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1) flash_tc_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ kv_mask,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int Tq, int Tk, float scale, int causal) {
+  using G = FlashTc<DH>;
+  constexpr int BK = G::kRows, QT = G::kQT, P = G::P, S = G::kStages;
+  constexpr int ND = G::ND, NJ = QT / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // [BK][P]
+  bf16* vs = ks + BK * P;                        // [BK][P]
+  // S x {Q [QT][P], dO [QT][P], lse [QT], delta [QT]}
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + BK * P);
+  __shared__ int first_slot;
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int bh = blockIdx.y, b = bh / H, k0 = blockIdx.x * BK;
+  const int key0 = k0 + warp * 16 + g;
+  const float* kvm = kv_mask + (size_t)b * Tk;
+  const bf16* qh = q + (size_t)bh * Tq * DH;
+  const bf16* doh = dout + (size_t)bh * Tq * DH;
+  const float* lseh = lse + (size_t)bh * Tq;
+  const float* dlh = delta + (size_t)bh * Tq;
+  const int first = first_live_key(kvm, Tk, causal, &first_slot);
+  tc_stage_rows<BK, DH>(k + (size_t)bh * Tk * DH, k0, Tk, ks);
+  tc_stage_rows<BK, DH>(v + (size_t)bh * Tk * DH, k0, Tk, vs);
+  cp_async_commit();
+  // query tiles [skip0, skip1) lie wholly before this key tile and their
+  // rows all see a live key (at or after the batch row's first live key):
+  // p = 0 there, so they are skipped
+  const int n_q = (Tq + QT - 1) / QT;
+  int skip0 = n_q, skip1 = n_q;
+  if (causal) {
+    skip0 = min(n_q, (first + QT - 1) / QT);
+    skip1 = max(skip0, min(n_q, k0 / QT));
+  }
+  const int n_it = n_q - (skip1 - skip0);
+  auto tile = [&](int i) { return i < skip0 ? i : i + skip1 - skip0; };
+  auto slot = [&](int i) {
+    return reinterpret_cast<bf16*>(ring + (i % S) * G::kDkvStage);
+  };
+  auto stage_queries = [&](int i) {
+    bf16* s = slot(i);
+    const int q0 = tile(i) * QT;
+    tc_stage_rows<QT, DH>(qh, q0, Tq, s);
+    tc_stage_rows<QT, DH>(doh, q0, Tq, s + QT * P);
+    float* f = reinterpret_cast<float*>(s + 2 * QT * P);
+    tc_stage_vec<QT>(lseh, q0, Tq, f, 0);
+    tc_stage_vec<QT>(dlh, q0, Tq, f + QT, QT);
+  };
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n_it) stage_queries(st);
+    cp_async_commit();
+  }
+  float bias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    bias[i] = key < Tk ? (1.f - kvm[key]) * kMask : 0.f;
+  }
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) dka[d][h] = dva[d][h] = 0.f;
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile it (and K, V) landed; it - 1's readers done
+    if (it + S - 1 < n_it) stage_queries(it + S - 1);
+    cp_async_commit();
+    const int q0 = tile(it) * QT;
+    const bf16* qs = slot(it);
+    const bf16* dos = qs + QT * P;
+    const float* lse_s = reinterpret_cast<const float*>(dos + QT * P);
+    const float* dl_s = lse_s + QT;
+    float pt[NJ][4];
+    // S^T[key][query] = k . q
+    score_product<NJ, DH, DH == 128>(ks, warp * 16, qs, pt);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int c = 8 * j + 2 * t + (h & 1), row = q0 + c;
+        const int key = key0 + 8 * (h >> 1);
+        float x = pt[j][h] * scale + bias[h >> 1];
+        if (causal && row < key) x = kMask;
+        pt[j][h] = row < Tq && key < Tk ? expf(x - lse_s[c]) : 0.f;
+      }
+    tile_product<NJ / 2, DH>(pt, dos, dva);  // dV += P^T dO
+    float ds[NJ][4];
+    // dP^T[key][query] = v . dO
+    score_product<NJ, DH, DH == 128>(vs, warp * 16, dos, ds);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int c = 8 * j + 2 * t + (h & 1);
+        ds[j][h] = pt[j][h] * (ds[j][h] - dl_s[c]) * scale;
+      }
+    tile_product<NJ / 2, DH>(ds, qs, dka);  // dK += dS^T Q
+  }
+  cp_async_wait<0>();  // K and V, when no query tile was left
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= Tk) continue;
+    const size_t at = ((size_t)bh * Tk + key) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      mma::store2(dk + at + 8 * d, dka[d][2 * i], dka[d][2 * i + 1]);
+      mma::store2(dv + at + 8 * d, dva[d][2 * i], dva[d][2 * i + 1]);
+    }
+  }
+}
+
+template <int DH>
+int launch_tc_fwd(const void* q, const void* k, const void* v,
+                  const void* kvm, void* out, void* lse, int B, int H, int Tq,
+                  int Tk, float scale, int causal, cudaStream_t stream) {
+  using G = FlashTc<DH>;
+  auto kern = flash_tc_fwd_kernel<DH>;
+  if (int e = prepare(kern, G::kFwdSmem, B, H)) return e;
+  const dim3 grid((Tq + G::kRows - 1) / G::kRows, B * H);
+  kern<<<grid, kThreads, G::kFwdSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kvm,
+      (bf16*)out, (float*)lse, H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_tc_dkv(const void* q, const void* k, const void* v,
+                  const void* kvm, const void* dout, const void* lse,
+                  const void* delta, void* dk, void* dv, int B, int H, int Tq,
+                  int Tk, float scale, int causal, cudaStream_t stream) {
+  using G = FlashTc<DH>;
+  auto kern = flash_tc_dkv_kernel<DH>;
+  if (int e = prepare(kern, G::kDkvSmem, B, H)) return e;
+  const dim3 grid((Tk + G::kRows - 1) / G::kRows, B * H);
+  kern<<<grid, kThreads, G::kDkvSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kvm,
+      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
+      (bf16*)dv, H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+#define FLASH_TC_DISPATCH(CALL)                  \
+  switch (Dh) {                                  \
+    case 16: return CALL(16);                    \
+    case 32: return CALL(32);                    \
+    case 64: return CALL(64);                    \
+    case 128: return CALL(128);                  \
+    default: return (int)cudaErrorInvalidValue;  \
+  }
+
+}  // namespace
+#endif
+
 // kv_mask is float32 [B, Tk]; lse and delta float32 [B, H, Tq]. Every
 // entry point returns cudaGetLastError() (or the error of raising the
 // shared-memory limit).
@@ -520,3 +1024,34 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
   FLASH_DISPATCH(CALL)
 #undef CALL
 }
+
+#if KERNEL_DTYPE == 1
+// The bf16 forward and dkv on the tensor cores, for q, k, v (and dO, dk,
+// dv) 16-byte aligned (the wrapper's flash_tc_path): as
+// flash_attention_fwd and flash_attention_dkv, without the type flag.
+extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
+                                      const void* v, const void* kv_mask,
+                                      void* out, void* lse, int B, int H,
+                                      int Tq, int Tk, int Dh, float scale,
+                                      int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define CALL(D) \
+  launch_tc_fwd<D>(q, k, v, kv_mask, out, lse, B, H, Tq, Tk, scale, causal, s)
+  FLASH_TC_DISPATCH(CALL)
+#undef CALL
+}
+
+extern "C" int flash_attention_dkv_tc(const void* q, const void* k,
+                                      const void* v, const void* kv_mask,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dk, void* dv,
+                                      int B, int H, int Tq, int Tk, int Dh,
+                                      float scale, int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define CALL(D)                                                           \
+  launch_tc_dkv<D>(q, k, v, kv_mask, dout, lse, delta, dk, dv, B, H, Tq, \
+                   Tk, scale, causal, s)
+  FLASH_TC_DISPATCH(CALL)
+#undef CALL
+}
+#endif

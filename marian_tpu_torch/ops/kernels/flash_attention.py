@@ -25,6 +25,18 @@ whose forward saves ``out`` and ``lse`` and whose backward is
 ``flash_attention_dq`` and ``flash_attention_dkv`` count their kernel's
 launches in ``.launches``.
 
+In bfloat16 the forward and dkv run on the tensor cores where
+``flash_tc_path`` allows it (head size 16, 32, 64 or 128, and q, k, v,
+and dO, dk, dv, 16-byte aligned; the entries ``flash_attention_fwd_tc``
+and ``flash_attention_dkv_tc``), counted on ``.launches_bf16_tc``
+instead: the scores are bf16 products with f32 sums, and P (and dS)
+enter the products with V (dO, Q) as a hi/lo bf16 pair, hi = bf16(x), lo
+= bf16(x - hi), which keeps the reference's f32 value to 2^-16; each
+streamed tile's products start from 0 and are added into the f32
+accumulators in order (``flash_attention_fwd_tc_reference`` and
+``flash_attention_dkv_tc_reference`` are that order of work in plain
+torch). Every other call, dq, and float32 keep the CUDA-core kernels.
+
 What is not carried over from the TPU kernel: its padding of Tq and Tk
 to 128-multiples and the ``MARIAN_FLASH_BLOCK_Q/K`` overrides, both TPU
 geometry. The kernels mask the ragged edges themselves, and their tile
@@ -53,9 +65,22 @@ import torch
 
 from ..ops import NEG_INF
 from . import _build
+from .fused_ce import _aligned     # the tensor-core kernels' 16-byte rule
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (16, 32, 64, 128)      # Dh the kernels are compiled for
+TC_HEAD_SIZES = HEAD_SIZES          # ... the tensor-core kernels too
+# csrc/flash_attention.cu FlashTc: 128 own rows a block; the forward's
+# 64-key tiles (the CUDA-core forward's too); dkv's query tiles (16 at
+# Dh 128)
+TC_ROWS, TC_KEYS = 128, 64
+# bytes of the vectors the CUDA-core kernels read q, k, v and dO in
+# (attention_tiles.cuh stage_rows): a row must start so aligned
+_VECTOR_BYTES = {torch.float32: 16, torch.bfloat16: 8}
+
+
+def tc_query_tile(dh: int) -> int:
+    return 16 if dh == 128 else 64
 
 
 def _mask(kv_mask, b: int, tk: int, device) -> torch.Tensor:
@@ -97,23 +122,32 @@ def flash_attention_reference(q, k, v, kv_mask=None, causal: bool = False,
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def flash_attention_fwd_tiled_reference(q, k, v, kv_mask=None,
-                                        causal: bool = False,
-                                        scale: Optional[float] = None
-                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel's tiling in plain PyTorch (128 query rows, 64
-    at Dh 128, against 64-key tiles), one batch row at a time: each query
-    tile walks the key tiles in order with an online softmax from a
-    running max of -1e30 (the accumulator and sum rescaled by
-    exp(m_old - m_new)); a causal query tile stops after the last key
-    tile any of its rows can see once its first query sees a live key
-    (the header rule), and ends with out = acc / l, lse = m + log(l), l
-    == 0 guarded to 1. Returns (out in q's dtype, lse f32)."""
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core kernels' hi/lo pair of an f32 tensor: hi =
+    bf16(x), lo = bf16(x - hi), so that |x - hi - lo| <= 2^-16 |x| where
+    x - hi is a normal f32."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_product(x: torch.Tensor, m: torch.Tensor, spec: str):
+    """One tile's product on the tensor cores from 0, in f32: x as its
+    hi/lo bf16 pair against the bf16 values of m."""
+    hi, lo = split_bf16(x)
+    return (torch.einsum(spec, hi.float(), m)
+            + torch.einsum(spec, lo.float(), m))
+
+
+def _fwd_tiles(q, k, v, kv_mask, causal, scale, query_tile: int,
+               split: bool):
+    """The forward kernels' tiling in plain PyTorch, one batch row at a
+    time (see flash_attention_fwd_tiled_reference); with ``split`` each
+    64-key tile's P V is the tensor-core kernel's (``_split_product``)."""
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     sc = _scale(scale, dh)
     kvm = _mask(kv_mask, b, tk, q.device)
-    query_tile, key_tile = (128 if dh <= 64 else 64), 64
+    key_tile = TC_KEYS
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.empty_like(qf)
     lse = torch.empty((b, h, tq), device=q.device)
@@ -141,13 +175,96 @@ def flash_attention_fwd_tiled_reference(q, k, v, kv_mask=None,
                 alpha = torch.exp(m - m_new)
                 p = torch.exp(s - m_new[..., None])
                 l = alpha * l + p.sum(dim=-1)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "hqk,hkd->hqd", p, vf[bb, :, j0:j1])
+                if split:
+                    pv = _split_product(p, vf[bb, :, j0:j1], "hqk,hkd->hqd")
+                else:
+                    pv = torch.einsum("hqk,hkd->hqd", p, vf[bb, :, j0:j1])
+                acc = acc * alpha[..., None] + pv
                 m = m_new
             l = torch.where(l == 0.0, torch.ones_like(l), l)
             out[bb, :, i0:i1] = acc / l[..., None]
             lse[bb, :, i0:i1] = m + torch.log(l)
     return out.to(q.dtype), lse
+
+
+def flash_attention_fwd_tiled_reference(q, k, v, kv_mask=None,
+                                        causal: bool = False,
+                                        scale: Optional[float] = None
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel's tiling in plain PyTorch (128 query rows, 64
+    at Dh 128, against 64-key tiles), one batch row at a time: each query
+    tile walks the key tiles in order with an online softmax from a
+    running max of -1e30 (the accumulator and sum rescaled by
+    exp(m_old - m_new)); a causal query tile stops after the last key
+    tile any of its rows can see once its first query sees a live key
+    (the header rule), and ends with out = acc / l, lse = m + log(l), l
+    == 0 guarded to 1. Returns (out in q's dtype, lse f32)."""
+    return _fwd_tiles(q, k, v, kv_mask, causal, scale,
+                      128 if q.shape[-1] <= 64 else 64, False)
+
+
+def flash_attention_fwd_tc_reference(q, k, v, kv_mask=None,
+                                     causal: bool = False,
+                                     scale: Optional[float] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core forward's order of work in plain PyTorch: 128
+    query rows at every head size against 64-key tiles, the online
+    softmax of ``flash_attention_fwd_tiled_reference`` with the running
+    sum l over the f32 P, and each tile's P V taken from 0 with P as its
+    hi/lo bf16 pair (``split_bf16``), then added into the rescaled
+    accumulator. Returns (out in q's dtype, lse f32)."""
+    return _fwd_tiles(q, k, v, kv_mask, causal, scale, TC_ROWS, True)
+
+
+def flash_attention_dkv_tc_reference(q, k, v, kv_mask, do, out, lse,
+                                     causal: bool = False,
+                                     scale: Optional[float] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core dkv's order of work in plain PyTorch: per batch
+    row, key tiles of 128 walk the query tiles (``tc_query_tile``: 64,
+    16 at Dh 128) in order, skipping those the header rule skips; each
+    tile is held transposed, S^T = K Q^T, P^T = exp(S^T scale + mask -
+    lse), dP^T = V dO^T, dS^T = P^T (dP^T - delta) scale, and its dV +=
+    P^T dO and dK += dS^T Q are taken from 0 with P^T and dS^T as hi/lo
+    bf16 pairs, then added into the f32 sums in order. delta =
+    rowsum(dO * out), as ``flash_attention_bwd`` computes it. Returns
+    (dk, dv) in k's and v's dtypes."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    sc = _scale(scale, dh)
+    kvm = _mask(kv_mask, b, tk, q.device)
+    qt = tc_query_tile(dh)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * out.float()).sum(dim=-1)
+    lse = lse.float()
+    dk = torch.zeros((b, h, tk, dh), device=q.device)
+    dv = torch.zeros_like(dk)
+    live = kvm != 0
+    for bb in range(b):
+        first = int(live[bb].float().argmax()) if live[bb].any() else tk
+        bias = (1.0 - kvm[bb]) * NEG_INF
+        for k0 in range(0, tk, TC_ROWS):
+            k1 = min(tk, k0 + TC_ROWS)
+            for q0 in range(0, tq, qt):
+                if causal and q0 >= first and q0 + qt - 1 < k0:
+                    continue
+                q1 = min(tq, q0 + qt)
+                st = (torch.einsum("hkd,hqd->hkq", kf[bb, :, k0:k1],
+                                   qf[bb, :, q0:q1]) * sc
+                      + bias[k0:k1, None])
+                if causal:
+                    seen = (torch.arange(q0, q1, device=q.device)[None]
+                            >= torch.arange(k0, k1, device=q.device)[:, None])
+                    st = torch.where(seen, st, torch.full_like(st, NEG_INF))
+                pt = torch.exp(st - lse[bb, :, None, q0:q1])
+                dv[bb, :, k0:k1] += _split_product(
+                    pt, dof[bb, :, q0:q1], "hkq,hqd->hkd")
+                dpt = torch.einsum("hkd,hqd->hkq", vf[bb, :, k0:k1],
+                                   dof[bb, :, q0:q1])
+                dst = pt * (dpt - delta[bb, :, None, q0:q1]) * sc
+                dk[bb, :, k0:k1] += _split_product(
+                    dst, qf[bb, :, q0:q1], "hkq,hqd->hkd")
+    return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_reference(q, k, v, kv_mask, do, out, lse,
@@ -170,19 +287,36 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, do, out, lse,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _fn(symbol: str, n_ptr: int, bf16: bool):
+def _fn(symbol: str, n_ptr: int, bf16: bool, tc: bool = False):
+    """An entry of the library of one operand type: pointers, B, H, Tq,
+    Tk, Dh, scale, causal, the type flag (not on the tensor-core
+    entries), the stream."""
     fn = getattr(_build.load(_build.typed("flash_attention", bf16)), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int] + [ctypes.c_int] * (not tc) + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels(bf16: bool):
-    return {"fwd": _fn("flash_attention_fwd", 6, bf16),
-            "dq": _fn("flash_attention_dq", 8, bf16),
-            "dkv": _fn("flash_attention_dkv", 9, bf16)}
+    fns = {"fwd": _fn("flash_attention_fwd", 6, bf16),
+           "dq": _fn("flash_attention_dq", 8, bf16),
+           "dkv": _fn("flash_attention_dkv", 9, bf16)}
+    if bf16:
+        fns["fwd_tc"] = _fn("flash_attention_fwd_tc", 6, True, True)
+        fns["dkv_tc"] = _fn("flash_attention_dkv_tc", 9, True, True)
+    return fns
+
+
+def flash_tc_path(dtype: torch.dtype, dh: int, aligned: bool) -> bool:
+    """Whether the forward or dkv takes its tensor-core kernel: bfloat16
+    operands, a head size the kernels are built for (TC_HEAD_SIZES) and
+    every operand and output of whole 16-byte rows 16-byte aligned
+    (``aligned``: q, k, v, out; q, k, v, dO, dk, dv). Shape and alignment
+    alone decide; a failure to build or launch raises."""
+    return dtype == torch.bfloat16 and dh in TC_HEAD_SIZES and aligned
 
 
 def _check(name, q, k, v, *more):
@@ -215,7 +349,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per 128 query rows (64 at Dh 128) over 64-key tiles loaded by
     cp.async into two stages, with an online softmax in registers
     (``flash_attention_fwd_tiled_reference`` is its tiling in plain
-    torch)."""
+    torch); on ``flash_tc_path`` the tensor-core kernel, 128 query rows
+    against 64-key tiles in a three-slot ring
+    (``flash_attention_fwd_tc_reference``)."""
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     sc = _scale(scale, dh)
@@ -226,38 +362,60 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvm = _mask(kv_mask, b, tk, q.device).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    err = _kernels(q.dtype == torch.bfloat16)["fwd"](
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, h, tq, tk, dh, sc,
-        int(bool(causal)), _DTYPES[q.dtype], _stream(q))
-    _build.check(err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    tc = flash_tc_path(q.dtype, dh, _aligned(q, k, v, out))
+    _launch("fwd", tc, (q, k, v, kvm), (out, lse), tk, causal, sc)
+    _count(flash_attention_fwd, tc)
     return out, lse
 
 
-def _launch_bwd(which, operands, grads, causal, scale):
-    """One backward kernel, ``dq`` or ``dkv``, on ``operands`` (q, k, v,
-    kv_mask, dO, lse, delta: contiguous, on the card), writing ``grads``."""
-    q, k = operands[:2]
+def _launch(which, tc, operands, outs, tk, causal, scale):
+    """One kernel, ``fwd``, ``dq`` or ``dkv`` (its tensor-core entry with
+    ``tc``), on ``operands`` (q, k, v, kv_mask and, for the backward, dO,
+    lse, delta: contiguous, on the card), writing ``outs``."""
+    q = operands[0]
     b, h, tq, dh = q.shape
-    err = _kernels(q.dtype == torch.bfloat16)[which](
-        *(t.data_ptr() for t in (*operands, *grads)), b, h, tq, k.shape[2],
-        dh, scale, int(bool(causal)), _DTYPES[q.dtype], _stream(q))
-    _build.check(err, f"flash_attention_{which}")
+    need = 16 if tc else _VECTOR_BYTES[q.dtype]
+    rows = (*operands[:3], *operands[4:5])
+    if not all(t.data_ptr() % need == 0 for t in rows):
+        raise ValueError(f"flash_attention_{which}: q, k, v and dO must "
+                         f"start {need}-byte aligned (the kernel reads "
+                         f"{need}-byte vectors); a view into another "
+                         f"tensor's storage may not")
+    args = (*(t.data_ptr() for t in (*operands, *outs)), b, h, tq, tk, dh,
+            scale, int(bool(causal)))
+    if tc:
+        err = _kernels(True)[f"{which}_tc"](*args, _stream(q))
+    else:
+        err = _kernels(q.dtype == torch.bfloat16)[which](
+            *args, _DTYPES[q.dtype], _stream(q))
+    _build.check(err, f"flash_attention_{which}{'_tc' if tc else ''}")
+
+
+def _count(fn, tc: bool) -> None:
+    if tc:
+        fn.launches_bf16_tc += 1
+    else:
+        fn.launches += 1
 
 
 def flash_attention_dq(operands, dq, causal: bool, scale: float) -> None:
     """The dq kernel's launch, writing ``dq`` (``flash_attention_bwd``
     makes it)."""
-    _launch_bwd("dq", operands, (dq,), causal, scale)
+    _launch("dq", False, operands, (dq,), operands[1].shape[2], causal,
+            scale)
     flash_attention_dq.launches += 1
 
 
 def flash_attention_dkv(operands, dk, dv, causal: bool, scale: float) -> None:
     """The dkv kernel's launch, writing ``dk`` and ``dv``
-    (``flash_attention_bwd`` makes it)."""
-    _launch_bwd("dkv", operands, (dk, dv), causal, scale)
-    flash_attention_dkv.launches += 1
+    (``flash_attention_bwd`` makes it): the tensor-core kernel on
+    ``flash_tc_path`` (128 keys a block against query tiles of
+    ``tc_query_tile``; ``flash_attention_dkv_tc_reference``), else the
+    CUDA-core one."""
+    q, k, v, _, do = operands[:5]
+    tc = flash_tc_path(q.dtype, q.shape[-1], _aligned(q, k, v, do, dk, dv))
+    _launch("dkv", tc, operands, (dk, dv), k.shape[2], causal, scale)
+    _count(flash_attention_dkv, tc)
 
 
 def flash_attention_bwd(q, k, v, kv_mask, do, out, lse, causal: bool = False,
@@ -321,5 +479,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_bf16_tc = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+flash_attention_dkv.launches_bf16_tc = 0

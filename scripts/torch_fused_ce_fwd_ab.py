@@ -110,7 +110,7 @@ def sass(lib) -> dict:
                       name.strip())
         funcs[name] = [re.sub(r"/\*[^*]*\*/", "", line).strip()
                        for line in body.splitlines()
-                       if re.match(r"\s*/\*[0-9a-f]{4}\*/", line)]
+                       if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
     return funcs
 
 

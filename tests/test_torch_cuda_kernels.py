@@ -12,7 +12,10 @@ positions (many chunks of the streamed cache), bf16 operands, for the
 flash kernels lengths that are not multiples of their 64- and 128-row
 tiles, every head size they are built for, a fully masked row, a row
 whose first live key lies inside a tile, a cross case with fewer keys
-than queries and a determinism check, and for the fused
+than queries and a determinism check, each case asserting its route
+(aligned bf16 forward and dkv on the tensor cores, held to one bf16
+spacing of the plain backward fed their own out and lse; an unaligned
+bf16 view on the CUDA cores), and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
 its 128 x 256 tiles, a vocabulary under one tile, labels on the tile
 edges, a hidden size that is not a multiple of 4 (scalar loads), forced
@@ -588,15 +591,16 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
         kvm[0, :70] = 0.0
     kvm[-1] = 0.0                                   # a fully-masked row
     kvm = kvm.to(dev)
-    launches = (fa.flash_attention_fwd.launches,
-                fa.flash_attention_dq.launches,
-                fa.flash_attention_dkv.launches)
+    launches = _flash_launches()
     out, lse = fa.flash_attention_fwd(q, k, v, kvm, causal)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm, causal)
     grads = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, causal)
-    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
-            fa.flash_attention_dkv.launches) == tuple(
-                c + 1 for c in launches)
+    # bf16 (aligned, every head size here) takes the tensor-core forward
+    # and dkv, f32 the CUDA-core ones; dq always the CUDA cores
+    tc = dtype == torch.bfloat16
+    assert fa.flash_tc_path(dtype, dh, True) == tc
+    assert _flash_launches() == tuple(
+        c + n for c, n in zip(launches, (not tc, tc, 1, not tc, tc)))
     # lse: rows with a live key to 1e-5 (lse is of order log Tk); the
     # fully-masked rows' -1e9 exactly
     live = ref_lse > 0.5 * NEG_INF
@@ -615,11 +619,68 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
             for g, r in zip(grads, plain):
                 torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
                                            atol=2e-2)
+            if fwd[0] is out:
+                # the tensor-core dk and dv: one bf16 spacing of the plain
+                # backward on the same out and lse
+                for g, r in zip(grads[1:], plain[1:]):
+                    _close_bf16(g, r, 1e-5)
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
     else:
         torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                    atol=2e-2)
+        _close_bf16(out, ref, 1e-5)
+
+
+def _flash_launches():
+    """The flash wrappers' counters by route: forward, forward on the
+    tensor cores, dq, dkv, dkv on the tensor cores."""
+    return (fa.flash_attention_fwd.launches,
+            fa.flash_attention_fwd.launches_bf16_tc,
+            fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches,
+            fa.flash_attention_dkv.launches_bf16_tc)
+
+
+@pytest.mark.parametrize("what,dtype,shift_q,shift_do,route", [
+    ("aligned bf16", torch.bfloat16, 0, 0, (0, 1, 1, 0, 1)),
+    ("bf16 q 8 bytes in", torch.bfloat16, 4, 0, (1, 0, 1, 1, 0)),
+    ("bf16 dO 8 bytes in", torch.bfloat16, 0, 4, (0, 1, 1, 1, 0)),
+    ("f32", torch.float32, 0, 0, (1, 0, 1, 1, 0))])
+def test_flash_attention_takes_the_route_of_its_alignment(dev, what, dtype,
+                                                          shift_q, shift_do,
+                                                          route):
+    """The route follows dtype and alignment alone: a q (or dO) that is
+    a contiguous view 8 bytes into its buffer (16-byte aligned no more)
+    keeps the forward and dkv (or dkv) on the CUDA cores; both routes
+    agree with the plain versions. A bf16 q 2 bytes in, which the
+    CUDA-core kernels' 8-byte reads cannot take, raises before any
+    launch."""
+    gen = torch.Generator().manual_seed(77)
+
+    def shifted(t, shift):
+        buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=dev)
+        return buf[shift:].view(t.shape).copy_(t)
+    q = shifted(_randn(gen, dev, 2, 3, 150, 64, dtype=dtype), shift_q)
+    k, v = (_randn(gen, dev, 2, 3, 170, 64, dtype=dtype) for _ in range(2))
+    do = shifted(_randn(gen, dev, 2, 3, 150, 64, dtype=dtype), shift_do)
+    kvm = torch.ones(2, 170, device=dev)
+    kvm[1, 120:] = 0.0
+    before = _flash_launches()
+    out, lse = fa.flash_attention_fwd(q, k, v, kvm, True)
+    grads = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, True)
+    assert tuple(a - b for a, b in zip(_flash_launches(), before)) == route
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_fwd(shifted(q, 1) if dtype == torch.bfloat16
+                               else shifted(q, 2), k, v, kvm, True)
+    assert tuple(a - b for a, b in zip(_flash_launches(), before)) == route
+    ref, _ = fa.flash_attention_reference(q, k, v, kvm, True)
+    plain = fa.flash_attention_bwd_reference(q, k, v, kvm, do, out, lse,
+                                             True)
+    rel = 1e-5 if dtype == torch.bfloat16 else 2e-5
+    _close_bf16(out, ref, rel)
+    for g, r in zip(grads[1:], plain[1:]):
+        _close_bf16(g, r, 1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])
