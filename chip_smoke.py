@@ -37,9 +37,10 @@ card, and drives the port's main paths on data made from --seed:
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
-  paths' shapes, timed beside SDPA on bf16; the flash forward and dkv on
-  the tensor cores for aligned operands) held against their plain
-  versions on the same bf16 operands;
+  paths' shapes, timed beside SDPA on bf16; the flash forward, dq and
+  dkv on the tensor cores for aligned operands, the packed backward
+  there up to 64 tokens) held against their plain versions on the same
+  bf16 operands;
   transformer-base trained 2 + 10 updates and decoded (beam 6,
   the same sentences) in bf16; and bf16 on the card against bf16 on the
   CPU within PARITY_LIMITS_BF16: the 2+2 base and doc-level training
@@ -53,7 +54,10 @@ Each main path (and the bf16 doc-level cut, the bf16 flash kernels'
 path) runs with every launch count set to 0 just before it and read
 just after; a kernel's ``launches`` in the kernel line is the sum over
 the paths that run it (for the attention kernels, whose f32 and bf16
-instantiations share a counter, over the paths of the row's type).
+instantiations share a counter, over the paths of the row's type; the
+tensor-core kernels count on their wrappers' ``launches_bf16_tc``). The
+flash phase also runs head sizes the flash kernels are not built for
+(Dh 48, 80: zero-padded to 64, 128).
 Phases print their own lines; any failure ends the run with a non-zero
 exit and no result. The last line is
 {"ok": true, "device": {...}}; the line before it lists every kernel.
@@ -140,11 +144,15 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
                    "fused_ce_dw": 0, "fused_ce_fwd_bf16": 0,
                    "fused_ce_dx_bf16": 0, "fused_ce_dw_bf16": 0,
                    "fused_ce_fwd_bf16_tc": 1, "fused_ce_dx_bf16_tc": 1,
-                   "fused_ce_dw_bf16_tc": 1}
+                   "fused_ce_dw_bf16_tc": 1,
+                   # every sentence within 64 tokens: the packed backward
+                   # on the tensor cores
+                   "packed_attention_bwd": 0,
+                   "packed_attention_bwd_bf16_tc": 18}
 # the main paths, by the names run_phases gives their launch counts. The
 # attention kernels' f32 and bf16 instantiations count on one wrapper's
-# launches (the bf16 flash forward and dkv on the tensor cores on their
-# own, launches_bf16_tc), so their rows sum their counter over these
+# launches (the bf16 tensor-core kernels on their own,
+# launches_bf16_tc), so their rows sum their counter over these
 # paths only (a row's "paths"); other rows sum it over every path.
 F32_PATHS = ("decode", "serve", "train", "doc train", "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut")
@@ -182,7 +190,7 @@ DOC_PER_UPDATE = {"packed_attention": 0, "packed_attention_bwd": 0,
                   "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
 # the doc-level card-vs-CPU cut: 2+2 layers, dim 256, 4 heads (Dh 64)
 # (a gradient pass and 2 updates, 6 attentions each, all through flash:
-# in bf16 the forward and dkv on the tensor cores, dq on the CUDA cores)
+# in bf16 the forward, dq and dkv on the tensor cores)
 DOC_CUT_FLAGS = ["--dim-emb", "256", "--transformer-heads", "4",
                  "--transformer-dim-ffn", "1024", "--enc-depth", "2",
                  "--dec-depth", "2", "--max-length", "2047"]
@@ -315,6 +323,8 @@ def phase_build() -> None:
     each = ", ".join(f"{n} {t:.1f} s" for n, t in took.items())
     flash = [line for line in _build.USAGE.get("flash_attention_bf16", [])
              if line.startswith("flash_tc_")]
+    packed = [line for line in _build.USAGE.get("packed_attention_bf16", [])
+              if line.startswith("packed_tc_")]
     print(f"build: {each or 'nothing to build'}; {time.time() - t0:.1f} s "
           f"in all, one nvcc a library in parallel "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)}); ptxas -v of the fused CE's "
@@ -322,14 +332,19 @@ def phase_build() -> None:
           f"{fce.TC_SMEM_BYTES} B each): " + "; ".join(
               line for line in _build.USAGE.get("fused_ce_bf16", [])
               if "fce_tc_" in line)
-          + "; of the flash tensor-core kernels: " + "; ".join(flash))
-    # the flash tensor-core kernels: every instance built here, none spills
-    if "flash_attention_bf16" in took:
-        spill = [line for line in flash if "0 bytes spill stores, 0 bytes "
-                 "spill loads" not in line]
-        check(len(flash) == 8 and not spill,
-              f"flash tensor-core kernels: {len(flash)} of 8 instances, "
-              f"spills: {spill}")
+          + "; of the flash tensor-core kernels: " + "; ".join(flash)
+          + "; of the packed tensor-core backward: " + "; ".join(packed))
+    # the attention tensor-core kernels: every instance built here (the
+    # flash forward, dq and dkv, the packed backward, at Dh 16, 32, 64
+    # and 128), none spills
+    for lib, lines, n in (("flash_attention_bf16", flash, 12),
+                          ("packed_attention_bf16", packed, 4)):
+        if lib in took:
+            spill = [line for line in lines if "0 bytes spill stores, 0 "
+                     "bytes spill loads" not in line]
+            check(len(lines) == n and not spill,
+                  f"{lib} tensor-core kernels: {len(lines)} of {n} "
+                  f"instances, spills: {spill}")
 
 
 def phase_decode_kernel(gen) -> dict:
@@ -1176,18 +1191,23 @@ def tc_product_times(fce, x, w, b, labels, lse, g) -> None:
 def phase_attention_kernels_bf16(gen) -> list:
     """The attention kernels' bf16 instantiations at the shapes the bf16
     paths give them, against their plain versions on the same bf16
-    operands (outputs within BF16_REL_TOL of the largest; the flash
-    forward's out and dkv's dk and dv, on the tensor cores, within one
-    bf16 spacing plus REL_TOL of the scale, ``close_bf16``; the flash lse
-    within LSE_TOL; new caches exact; two dkv calls bit-identical), timed
+    operands (outputs within BF16_REL_TOL of the largest; the outputs of
+    the tensor-core kernels, the flash forward's out, dq, dk and dv (the
+    plain backward fed the kernel's own out and lse) and the packed
+    backward's dq, dk and dv, within one bf16 spacing plus REL_TOL of the
+    scale, ``close_bf16``; the flash lse within LSE_TOL; new caches
+    exact; two calls of each tensor-core backward bit-identical), timed
     beside SDPA on the same bf16 operands and the bound (bf16 operand
     bytes, operations at the bf16 tensor-core peak): decode_attention on
     bf16 queries and caches at the base decode's R 384, H 8, L 64; the
     packed forward and backward at the bf16 base update's B 192, H 8, T
-    64; the flash forward, dq and dkv at the doc shape (B 8, H 16, T
-    2,048, every key live). Each row prints its route. Rows
-    ``<kernel>_bf16`` count their route's launches on the bf16 paths
-    (BF16_PATHS): the flash forward and dkv on ``launches_bf16_tc``."""
+    64 (the backward also at Dh 16, 32 and 128, causal, cross and ragged
+    with a fully masked row, and past 64 tokens on the CUDA cores); the
+    flash forward, dq and dkv at the doc shape (B 8, H 16, T 2,048,
+    every key live). Each row prints its route. Rows ``<kernel>_bf16``
+    count their route's launches on the bf16 paths (BF16_PATHS): the
+    flash forward, dq and dkv and the packed backward on
+    ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import packed_attention as pa
@@ -1256,13 +1276,9 @@ def phase_attention_kernels_bf16(gen) -> list:
     mask = kvm.bool()[:, None, None, :]
     out = pa.packed_attention(q, k, v, kvm)
     ref = pa.packed_attention_reference(q, k, v, kvm)
-    got = pa.packed_attention_bwd(q, k, v, kvm, do, out)
-    rgot = pa.packed_attention_bwd_reference(q, k, v, kvm, do, out)
     torch.cuda.synchronize()
     err = close_to_scale(out, ref, "packed_attention bf16", BF16_REL_TOL)
-    bwd_err = max(close_to_scale(g, r_, f"packed_attention_bwd bf16 {n}",
-                                 BF16_REL_TOL)
-                  for n, g, r_ in zip(("dq", "dk", "dv"), got, rgot))
+    bwd_err = packed_bwd_bf16_cases(gen, q, k, v, do, kvm, out)
     ms = time_ms(lambda: pa.packed_attention(q, k, v, kvm))
     plain_ms = time_ms(lambda: pa.packed_attention_reference(q, k, v, kvm))
     lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask))
@@ -1278,20 +1294,24 @@ def phase_attention_kernels_bf16(gen) -> list:
     lib_out = sdpa(ql, kl, vl, attn_mask=mask)
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do,
                                                  retain_graph=True))
+    # the call reads q, k, v, dO, out and the key mask (delta is taken
+    # from out) and writes dq, dk, dv
     add("packed_attention_bwd", f"B={b} H={h} T={t} Dh={dh} bf16 (base "
         f"training, with delta)", "packed_attention.cu",
         "packed_attention.py:214", bwd_err, ms, plain_ms, lib_ms,
-        7 * elems + b * t * 4 + b * h * t * 4, 10 * b * h * t * t * dh)
-    del q, k, v, do, kvm, mask, out, ref, got, rgot, ql, kl, vl, lib_out
+        8 * elems + b * t * 4, 10 * b * h * t * t * dh,
+        "tensor cores, packed_tc_bwd_kernel", "packed_attention_bwd_bf16_tc")
+    del q, k, v, do, kvm, mask, out, ref, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
 
-    # flash: the doc shape, every key live; the forward and dkv take the
-    # tensor cores (bf16, aligned, Dh 64), dq the CUDA cores
+    # flash: the doc shape, every key live; the forward, dq and dkv take
+    # the tensor cores (bf16, aligned, Dh 64)
     b, h, t = 8, 16, 2048
     q, k, v, do = (randn(b, h, t, dh) for _ in range(4))
     kvm = torch.ones(b, t, device=dev)
     mask = kvm.bool()[:, None, None, :]
     tc = (fa.flash_attention_fwd.launches_bf16_tc,
+          fa.flash_attention_dq.launches_bf16_tc,
           fa.flash_attention_dkv.launches_bf16_tc)
     out, lse = fa.flash_attention_fwd(q, k, v, kvm)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm)
@@ -1303,17 +1323,18 @@ def phase_attention_kernels_bf16(gen) -> list:
     rgot = fa.flash_attention_bwd_reference(q, k, v, kvm, do, out, lse)
     torch.cuda.synchronize()
     check(fa.flash_attention_fwd.launches_bf16_tc == tc[0] + 1
-          and fa.flash_attention_dkv.launches_bf16_tc == tc[1] + 2,
-          "the doc shape's bf16 flash forward and dkv did not take the "
+          and fa.flash_attention_dq.launches_bf16_tc == tc[1] + 2
+          and fa.flash_attention_dkv.launches_bf16_tc == tc[2] + 2,
+          "the doc shape's bf16 flash forward, dq and dkv did not take the "
           "tensor cores")
-    check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
-          "flash_attention_dkv bf16: two calls differ")
-    errs["dq"] = close_to_scale(got[0], rgot[0], "flash_attention_dq bf16",
-                                BF16_REL_TOL)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "flash_attention_dq/dkv bf16: two calls differ")
+    # the plain backward is fed the kernel's own out and lse
+    errs["dq"] = close_bf16(got[0], rgot[0], "flash_attention_dq bf16")
     errs["dkv"] = max(close_bf16(g, r_, f"flash_attention_dkv bf16 {n}")
                       for n, g, r_ in zip(("dk", "dv"), got[1:], rgot[1:]))
-    print("kernel flash_attention_dkv bf16 (tensor cores): two calls give "
-          "bit-identical dk, dv")
+    print("kernel flash_attention_dq, flash_attention_dkv bf16 (tensor "
+          "cores): two calls give bit-identical dq, dk, dv")
     del got, again, rgot
     torch.cuda.empty_cache()
     scale = dh ** -0.5
@@ -1337,7 +1358,8 @@ def phase_attention_kernels_bf16(gen) -> list:
     pairs = b * h * t * t * dh
     routes = {"fwd": ("tensor cores, flash_tc_fwd_kernel",
                       "flash_attention_fwd_bf16_tc"),
-              "dq": ("CUDA cores, flash_dq_kernel", "flash_attention_dq"),
+              "dq": ("tensor cores, flash_tc_dq_kernel",
+                     "flash_attention_dq_bf16_tc"),
               "dkv": ("tensor cores, flash_tc_dkv_kernel",
                       "flash_attention_dkv_bf16_tc")}
     for part, line, fn, plain, n_elems, n_stats, n_ops in (
@@ -1355,6 +1377,70 @@ def phase_attention_kernels_bf16(gen) -> list:
             ms, plain_ms, lib[part], n_elems * elems + n_stats * stats
             + b * t * 4, n_ops * pairs, *routes[part])
     return rows
+
+
+def packed_bwd_bf16_cases(gen, q, k, v, do, kvm, out) -> float:
+    """The bf16 packed backward against its plain version: at the base
+    shape (q, k, v, dO, kvm, out; B 192, T 64, Dh 64, every key live)
+    and at Dh 16, 32 and 128, causal, cross 64 x 48 and ragged with a
+    fully masked row, each on the tensor cores (dq, dk, dv within one
+    bf16 spacing, ``close_bf16``; two calls bit-identical), then at T
+    100 on the CUDA cores (BF16_REL_TOL). Each case checks its route;
+    returns the tensor-core cases' max |err|."""
+    from marian_tpu_torch.ops.kernels import packed_attention as pa
+    dev = q.device
+    err = 0.0
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    # name, B, H, Tq, Tk, Dh, causal
+    cases = [("base", None), ("causal", (64, 8, 64, 64, 64, True)),
+             ("cross", (64, 8, 64, 48, 64, False)),
+             ("ragged, a fully masked row, Dh 16", (32, 8, 41, 41, 16,
+                                                     False)),
+             ("Dh 32 causal", (32, 8, 64, 64, 32, True)),
+             ("Dh 128", (32, 4, 64, 64, 128, False)),
+             ("past one tile", (8, 8, 100, 100, 64, True))]
+    fn = pa.packed_attention_bwd
+    for name, shape in cases:
+        causal = False
+        if shape is not None:
+            b, h, tq, tk, dh, causal = shape
+            q, do = randn(b, h, tq, dh), randn(b, h, tq, dh)
+            k, v = randn(b, h, tk, dh), randn(b, h, tk, dh)
+            lens = torch.randint(1, tk + 1, (b,), generator=gen)
+            lens[0] = tk
+            kvm = (torch.arange(tk)[None, :] < lens[:, None]).float()
+            kvm[1] = 0.0                              # a fully masked row
+            kvm = kvm.to(dev)
+            out = pa.packed_attention(q, k, v, kvm, causal=causal)
+        b, h, tq, dh = q.shape
+        tk = k.shape[2]
+        tc = pa.packed_tc_path(q.dtype, dh, tq, tk)
+        before = (fn.launches, fn.launches_bf16_tc)
+        got = fn(q, k, v, kvm, do, out, causal)
+        again = fn(q, k, v, kvm, do, out, causal)
+        ref = pa.packed_attention_bwd_reference(q, k, v, kvm, do, out, causal)
+        torch.cuda.synchronize()
+        moved = (fn.launches - before[0], fn.launches_bf16_tc - before[1])
+        check(moved == ((0, 2) if tc else (2, 0)),
+              f"packed_attention_bwd bf16 [{name}]: launches by route "
+              f"(CUDA cores, tensor cores) {moved}")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"packed_attention_bwd bf16 [{name}]: two calls differ")
+        what = (f"packed_attention_bwd bf16 [{name}] B={b} H={h} Tq={tq} "
+                f"Tk={tk} Dh={dh} causal={causal}")
+        e = max(close_bf16(g, r_, f"{what} {n}") if tc else
+                close_to_scale(g, r_, f"{what} {n}", BF16_REL_TOL)
+                for n, g, r_ in zip(("dq", "dk", "dv"), got, ref))
+        if tc:
+            err = max(err, e)
+        print(f"kernel {what} [route: {'tensor' if tc else 'CUDA'} cores]: "
+              f"max |err| {e:.3g} ("
+              + (f"one bf16 spacing + {REL_TOL} x scale" if tc else
+                 f"{BF16_REL_TOL} x max |plain|")
+              + "), two calls bit-identical")
+    return err
 
 
 def flash_inputs(gen, b, h, tq, tk, dh, dtype=torch.float32, live_rows=None,
@@ -1393,12 +1479,13 @@ def phase_flash_kernels(gen) -> list:
     self, decoder causal, cross with Tk 1,536), at ragged lengths, at the
     backward's tile edges (1,050 = 8 x 128 + 26 rows, a row whose first
     live key lies inside a tile, fewer keys than queries), other head
-    sizes and bf16: aligned bf16 takes the tensor-core forward and dkv
-    (their out, dk and dv within one bf16 spacing plus REL_TOL of the
-    scale of the plain backward fed the kernel's own out and lse), an
-    unaligned bf16 view the CUDA-core ones; each case checks the route
-    its launches took. Two backward calls at the encoder shape, and at
-    every bf16 tensor-core case, must give the same bits. Then their
+    sizes (Dh 48 and 80 run zero-padded to 64 and 128 and come back at
+    their own Dh) and bf16: aligned bf16 takes the tensor-core forward, dq
+    and dkv (their out, dq, dk and dv within one bf16 spacing plus
+    REL_TOL of the scale of the plain backward fed the kernel's own out
+    and lse), an unaligned bf16 view the CUDA-core ones; each case checks
+    the route its launches took. Two backward calls at the encoder shape,
+    and at every bf16 tensor-core case, must give the same bits. Then their
     times at the encoder shape, the joint backward's against SDPA's, and
     the forward, dq and dkv at the decoder's causal shape."""
     from marian_tpu_torch.ops.kernels import flash_attention as fa
@@ -1433,9 +1520,18 @@ def phase_flash_kernels(gen) -> list:
              ("tile edges causal", 3, 4, 1050, 1050, dh, True, f32, 2, 70,
               False),
              ("tile edges cross", 2, 4, 1050, 300, dh, False, f32, 1, 0,
-              False)]
+              False),
+             ("Dh 48, padded", 2, 4, 300, 333, 48, False, f32, 1, 0, False),
+             ("Dh 80 causal, padded", 2, 4, 260, 260, 80, True, f32, 1, 0,
+              False),
+             ("bf16 Dh 48, padded", 2, 4, 300, 333, 48, False, bf, 1, 0,
+              False),
+             ("bf16 Dh 80 causal, padded", 2, 4, 260, 260, 80, True, bf, 1,
+              0, False)]
     routes = [(fa.flash_attention_fwd, "launches"),
               (fa.flash_attention_fwd, "launches_bf16_tc"),
+              (fa.flash_attention_dq, "launches"),
+              (fa.flash_attention_dq, "launches_bf16_tc"),
               (fa.flash_attention_dkv, "launches"),
               (fa.flash_attention_dkv, "launches_bf16_tc")]
     for (name, b_, h_, tq, tk, d_, causal, dtype, live, lead,
@@ -1459,10 +1555,14 @@ def phase_flash_kernels(gen) -> list:
             del again
         torch.cuda.synchronize()
         moved = [getattr(fn, a) - n for (fn, a), n in zip(routes, before)]
-        check(moved == ([0, 1, 0, calls] if tc else [1, 0, calls, 0]),
-              f"flash_attention [{name}]: launches by route (forward, "
-              f"forward on the tensor cores, dkv, dkv on the tensor cores) "
+        check(moved == ([0, 1, 0, calls, 0, calls] if tc
+                        else [1, 0, calls, 0, calls, 0]),
+              f"flash_attention [{name}]: launches by route (forward, dq, "
+              f"dkv, each on the CUDA cores, then on the tensor cores) "
               f"{moved}, expected the {'tensor' if tc else 'CUDA'} cores")
+        check(out.shape == q.shape and dq.shape == q.shape
+              and dk.shape == k.shape and dv.shape == v.shape,
+              f"flash_attention [{name}]: outputs not at Dh {d_}")
         rel = REL_TOL if dtype == f32 else BF16_REL_TOL
         what = (f"flash_attention [{name}] B={b_} H={h_} Tq={tq} Tk={tk} "
                 f"Dh={d_} {str(dtype)[6:]}")
@@ -1476,14 +1576,14 @@ def phase_flash_kernels(gen) -> list:
              "dq": 0.0, "dkv": 0.0}
         # the plain backward fed the kernel's own out and lse, then the
         # plain forward's: a wrong lse skews every gradient of the second
-        # (the tensor-core dk and dv are held to one bf16 spacing of the
-        # first)
+        # (the tensor-core dq, dk and dv are held to one bf16 spacing of
+        # the first)
         for src, fwd in (("kernel", (out, lse)), ("plain", (ref, ref_lse))):
             rdq, rdk, rdv = fa.flash_attention_bwd_reference(
                 q, k, v, kvm, do, *fwd, causal)
             own = tc and src == "kernel"
-            e["dq"] = max(e["dq"], close_to_scale(
-                dq, rdq, f"{what} dq (plain from {src} out/lse)", rel))
+            e["dq"] = max(e["dq"], gate(
+                dq, rdq, f"{what} dq (plain from {src} out/lse)", own))
             e["dkv"] = max(e["dkv"], gate(
                 dk, rdk, f"{what} dk (plain from {src} out/lse)", own),
                 gate(dv, rdv, f"{what} dv (plain from {src} out/lse)", own))
@@ -1495,7 +1595,7 @@ def phase_flash_kernels(gen) -> list:
         if dtype == f32:        # the rows below are the f32 kernels'
             for part in errs:
                 errs[part] = max(errs[part], e[part])
-        spacing = (f"; out, dk, dv one bf16 spacing + {REL_TOL} x scale"
+        spacing = (f"; out, dq, dk, dv one bf16 spacing + {REL_TOL} x scale"
                    if tc else "")
         print(f"kernel {what} causal={causal} "
               f"[route: {'tensor' if tc else 'CUDA'} cores]: max |err| "
@@ -1886,8 +1986,8 @@ def kernel_counters():
     """Every kernel of the port, by name: (its wrapper, the attribute
     that counts its launches). The fused CE's bf16 instantiations count
     on their wrappers' ``launches_bf16``, its tensor-core forward and
-    backward, and the flash tensor-core forward and dkv, on
-    ``launches_bf16_tc``."""
+    backward, the flash tensor-core forward, dq and dkv and the packed
+    tensor-core backward on ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import fused_ce as fce
@@ -1906,7 +2006,8 @@ def kernel_counters():
     for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"):
         out[f"{name}_bf16"] = (fns[name], "launches_bf16")
     for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw",
-                 "flash_attention_fwd", "flash_attention_dkv"):
+                 "flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv", "packed_attention_bwd"):
         out[f"{name}_bf16_tc"] = (fns[name], "launches_bf16_tc")
     return out
 
@@ -2822,19 +2923,20 @@ def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> dict:
     counts = read_counts()
     check(counts["flash_attention_fwd_bf16_tc"] == DOC_CUT_FLASH
           and counts["flash_attention_dkv_bf16_tc"] == DOC_CUT_FLASH
-          and counts["flash_attention_dq"] == DOC_CUT_FLASH
+          and counts["flash_attention_dq_bf16_tc"] == DOC_CUT_FLASH
           and counts["flash_attention_fwd"] == 0
+          and counts["flash_attention_dq"] == 0
           and counts["flash_attention_dkv"] == 0
           and counts["fused_ce_dx_bf16_tc"] > 0
           and counts["fused_ce_fwd_bf16_tc"] > 0
           and counts["fused_ce_dx_bf16"] == counts["fused_ce_dx"] == 0,
           f"bf16 doc cut launches {counts}: expected {DOC_CUT_FLASH} flash "
-          f"forwards and dkv on the tensor cores, {DOC_CUT_FLASH} dq, none "
-          f"on the CUDA-core forward and dkv")
+          f"forwards, dq and dkv on the tensor cores, none on the CUDA "
+          f"cores")
     print(f"bf16 card vs cpu: the doc cut's flash launches by route: "
-          f"forward {counts['flash_attention_fwd_bf16_tc']} and dkv "
-          f"{counts['flash_attention_dkv_bf16_tc']} on the tensor cores, "
-          f"dq {counts['flash_attention_dq']} on the CUDA cores")
+          f"forward {counts['flash_attention_fwd_bf16_tc']}, dq "
+          f"{counts['flash_attention_dq_bf16_tc']} and dkv "
+          f"{counts['flash_attention_dkv_bf16_tc']} on the tensor cores")
     return counts
 
 

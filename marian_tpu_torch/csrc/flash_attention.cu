@@ -72,37 +72,42 @@
 // each above 48 KB, so every launch raises the dynamic limit first; one
 // block fits an SM (__launch_bounds__(256, 1)).
 //
-// The bf16 forward and dkv on the tensor cores (the bf16 library only:
-// flash_tc_fwd_kernel and flash_tc_dkv_kernel, entries
-// flash_attention_fwd_tc and flash_attention_dkv_tc) take every bf16 call
-// with q, k, v (and dO, dk, dv) 16-byte aligned at Dh 16-128 (the
-// wrapper's flash_tc_path); other bf16 calls, dq, and every f32 call keep
-// the kernels above. They replace the same _fwd_kernel and _dkv_kernel
-// and keep the semantics listed at the top, with the reference's f32 P:
-// the scores come out of mma.sync m16n8k16 (mma_tiles.cuh) as exact bf16
-// products summed in f32, and P (dkv: P^T and dS^T) enters the second
-// product from the score accumulators' registers as a hi/lo bf16 pair,
-// hi = bf16(p), lo = bf16(p - hi), two products on the same operand
-// fragments, so it keeps p to 2^-16 where one rounding (SDPA's) puts
-// 2^-9 on every weight; the running sum l adds the f32 p. Each streamed
-// tile's products start from 0 and are added into the f32 accumulators
-// with round-to-nearest adds (the tensor cores' own sums truncate: the
-// two-level accumulation of mma_tiles.cuh). What bounds them on an H100:
-// operations at the bf16 tensor-core peak, 4 B.H.Tq.Tk.Dh flops for the
-// forward and 8 for dkv, of which the hi/lo split makes 6 and 12 on the
-// tensor cores; in practice mma.sync's rate, with the softmax's exp on
-// the CUDA cores beside it. A block is 8 warps of 16 own rows (128 query rows; 128 keys
-// in dkv, held transposed so P^T and dS^T are A operands); the streamed
-// tiles (64 keys; 64 queries, 16 at Dh 128) cycle through a three-slot
-// cp.async ring with rows padded by 16 bytes for conflict-free ldmatrix,
-// Q and dO read through ldmatrix .trans where they are the B operand of
-// dV and dK. One block writes each output row: no atomics, two calls give
-// the same bits. The forward runs two blocks an SM up to Dh 32 and one
-// at Dh 64 and 128 (two spilled at Dh 64 under 128 registers).
+// The bf16 forward, dq and dkv on the tensor cores (the bf16 library
+// only: flash_tc_fwd_kernel, flash_tc_dq_kernel and flash_tc_dkv_kernel,
+// entries flash_attention_fwd_tc, flash_attention_dq_tc and
+// flash_attention_dkv_tc) take every bf16 call with q, k, v (and dO, dq,
+// dk, dv) 16-byte aligned at Dh 16-128 (the wrapper's flash_tc_path);
+// other bf16 calls and every f32 call keep the kernels above. They
+// replace the same _fwd_kernel, _dq_kernel and _dkv_kernel and keep the
+// semantics listed at the top, with the reference's f32 P: the scores
+// come out of mma.sync m16n8k16 (mma_tiles.cuh, through the tiles of
+// attention_mma.cuh) as exact bf16 products summed in f32, and P (dq: dS;
+// dkv: P^T and dS^T) enters the second product from the score
+// accumulators' registers as a hi/lo bf16 pair, hi = bf16(p), lo = bf16(p
+// - hi), two products on the same operand fragments, so it keeps p to
+// 2^-16 where one rounding (SDPA's) puts 2^-9 on every weight; the
+// running sum l adds the f32 p. Each streamed tile's products start from
+// 0 and are added into the f32 accumulators with round-to-nearest adds
+// (the tensor cores' own sums truncate: the two-level accumulation of
+// mma_tiles.cuh). What bounds them on an H100: operations at the bf16
+// tensor-core peak, 4 B.H.Tq.Tk.Dh flops for the forward, 6 for dq and 8
+// for dkv, of which the hi/lo split makes 6, 8 and 12 on the tensor
+// cores; in practice mma.sync's rate, with the softmax's exp on the CUDA
+// cores beside it. A block is 8 warps of 16 own rows (128 query rows in
+// the forward and dq; 128 keys in dkv, held transposed so P^T and dS^T
+// are A operands); the streamed tiles (64 keys; dkv 64 queries, 16 at Dh
+// 128) cycle through a three-slot cp.async ring with rows padded by 16
+// bytes for conflict-free ldmatrix, V (forward), K (dq), Q and dO (dkv)
+// read through ldmatrix .trans where they are the B operand of the
+// second product. One block writes each output row: no atomics, two
+// calls give the same bits. The forward runs two blocks an SM up to Dh
+// 32 and one at Dh 64 and 128 (two spilled at Dh 64 under 128
+// registers); dq, which holds dP beside P, one at every head size.
 
 #include "attention_tiles.cuh"
 #if KERNEL_DTYPE == 1
 #include "mma_tiles.cuh"
+#include "attention_mma.cuh"
 #endif
 
 namespace {
@@ -510,20 +515,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* kvm,
 
 #if KERNEL_DTYPE == 1
 // ---------------------------------------------------------------------------
-// the bf16 forward and dkv on the tensor cores (mma_tiles.cuh's mma.sync
-// m16n8k16 primitives; the bf16 library only)
+// the bf16 forward, dq and dkv on the tensor cores (attention_mma.cuh's
+// tiles on mma_tiles.cuh's mma.sync m16n8k16 primitives; the bf16 library
+// only)
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-// Design checks, edited by scripts/torch_flash_bwd_ab.py --variant: P and
-// dS enter their products as a hi/lo bf16 pair (false: rounded to bf16
-// once), and each streamed tile's products start from 0 and are added
-// into the f32 accumulators with round-to-nearest adds (false: the tensor
-// cores sum into them directly).
-constexpr bool kTcSplit = true;
-constexpr bool kTcTwoLevel = true;
 
 // A block is 8 warps of 16 own rows (query rows in the forward, keys in
 // dkv); staged rows are padded by 16 bytes, so the eight rows an ldmatrix
@@ -547,151 +543,13 @@ struct FlashTc {
   static constexpr int kQT = DH == 128 ? 16 : 64;
   static constexpr int kDkvStage = 2 * kQT * P * 2 + 2 * kQT * 4;
   static constexpr int kDkvSmem = 2 * kRows * P * 2 + kStages * kDkvStage;
-  static_assert(kFwdSmem <= (int)kMaxSmem && kDkvSmem <= (int)kMaxSmem,
+  // dq: Q and dO staged once, the forward's 64-key stages of K, V and the
+  // key mask
+  static constexpr int kDqSmem = 2 * kRows * P * 2 + kStages * kFwdStage;
+  static_assert(kFwdSmem <= (int)kMaxSmem && kDkvSmem <= (int)kMaxSmem &&
+                    kDqSmem <= (int)kMaxSmem,
                 "shared memory of a block");
 };
-
-// rows [r0, r0 + ROWS) of a [n][DH] bf16 matrix into dst[ROWS][DH + 8]
-// by 16-byte cp.async; rows at or past n read nothing and are zero-filled
-template <int ROWS, int DH>
-__device__ __forceinline__ void tc_stage_rows(const bf16* __restrict__ src,
-                                              int r0, int n, bf16* dst) {
-  constexpr int C = DH / 8;
-  for (int i = threadIdx.x; i < ROWS * C; i += kThreads) {
-    const int r = i / C, c = (i % C) * 8;
-    const bool in = r0 + r < n;
-    cp_async16(reinterpret_cast<float*>(dst + r * (DH + 8) + c),
-               src + (size_t)(in ? r0 + r : 0) * DH + c, in);
-  }
-}
-
-// src[i0 .. i0 + N) into dst by threads t0 .. t0 + N - 1 (4-byte
-// cp.async), zero at and past `end`
-template <int N>
-__device__ __forceinline__ void tc_stage_vec(const float* __restrict__ src,
-                                             int i0, int end, float* dst,
-                                             int t0) {
-  const int j = (int)threadIdx.x - t0;
-  if (j >= 0 && j < N) {
-    const bool in = i0 + j < end;
-    cp_async4(dst + j, src + (in ? i0 + j : 0), in);
-  }
-}
-
-// two f32 values (the lower column first) as one bf16x2 operand register
-__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// ... and as a hi/lo pair: hi = bf16(x), lo = bf16(x - hi), so that
-// |x - hi - lo| <= 2^-16 |x| (bf16 has f32's exponent range)
-__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(a - f.x, b - f.y);
-}
-
-// s[j] = A . B^T over Dh: the warp's 16 rows of a staged [.][DH] tile a
-// from row0 against the 8 NJ rows of a staged [8 NJ][DH] tile b, in
-// m16n8 fragments (C layout: s[j][h] at row lane / 4 + 8 (h / 2), column
-// 8 j + 2 (lane % 4) + h % 2). A's fragments are read one k16 step at a
-// time (ldmatrix x4: lane l gives row l % 8 of matrix l / 8), which
-// keeps registers for the accumulators; with kRolled the steps are a
-// rolled loop (dkv at Dh 128: unrolled, the loads ptxas hoists across
-// the steps spilled its registers). A product of two bf16 values is
-// exact; the sums are the tensor cores' f32 sums over Dh.
-template <int NJ, int DH>
-__device__ __forceinline__ void score_step(const bf16* a, int row0,
-                                           const bf16* b, int kk,
-                                           float (&s)[NJ][4]) {
-  const int l = threadIdx.x & 31, lr = l & 7, lm = l >> 3;
-  unsigned af[4];
-  mma::ldmatrix_x4(af, mma::smem_addr(
-      a + (row0 + (lm & 1) * 8 + lr) * (DH + 8) + kk * 16 + (lm >> 1) * 8));
-#pragma unroll
-  for (int p = 0; p < NJ / 2; ++p) {
-    unsigned r[4];
-    mma::ldmatrix_x4(r, mma::smem_addr(
-        b + (p * 16 + (lm >> 1) * 8 + lr) * (DH + 8) + kk * 16
-        + (lm & 1) * 8));
-    mma::mma_bf16(s[2 * p], af, r[0], r[1]);
-    mma::mma_bf16(s[2 * p + 1], af, r[2], r[3]);
-  }
-}
-
-template <int NJ, int DH, bool kRolled = false>
-__device__ __forceinline__ void score_product(const bf16* a, int row0,
-                                              const bf16* b,
-                                              float (&s)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int h = 0; h < 4; ++h) s[j][h] = 0.f;
-  if constexpr (kRolled) {
-#pragma unroll 1
-    for (int kk = 0; kk < DH / 16; ++kk) score_step<NJ, DH>(a, row0, b, kk, s);
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) score_step<NJ, DH>(a, row0, b, kk, s);
-  }
-}
-
-// acc += X . M: X the warp's [16][16 KS] f32 tile in C fragments (k16
-// step kk is fragments 2 kk and 2 kk + 1, repacked into A fragments in
-// registers), M a staged [16 KS][DH] tile m read through ldmatrix .trans.
-// X goes in as a hi/lo bf16 pair, two products on the same M fragments,
-// so the product keeps X's f32 value to 2^-16 (kTcSplit); the tile's
-// products start from 0 and are added into acc rounded to nearest, as
-// the tensor cores' own f32 sums truncate (kTcTwoLevel).
-template <int KS, int DH>
-__device__ __forceinline__ void tile_product(const float (&x)[2 * KS][4],
-                                             const bf16* m,
-                                             float (&acc)[DH / 8][4]) {
-  const int l = threadIdx.x & 31, lr = l & 7, lm = l >> 3;
-  unsigned hi[KS][4], lo[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      // a0: row lane / 4 of fragment 2 kk; a1: eight rows below; a2, a3
-      // the same of fragment 2 kk + 1 (the step's upper eight columns)
-      const float c0 = x[2 * kk + (u >> 1)][2 * (u & 1)];
-      const float c1 = x[2 * kk + (u >> 1)][2 * (u & 1) + 1];
-      if (kTcSplit)
-        split_bf16(c0, c1, hi[kk][u], lo[kk][u]);
-      else
-        hi[kk][u] = pack_bf16(c0, c1);
-    }
-#pragma unroll
-  for (int dp = 0; dp < DH / 16; ++dp) {
-    float part[2][4];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      part[0][h] = kTcTwoLevel ? 0.f : acc[2 * dp][h];
-      part[1][h] = kTcTwoLevel ? 0.f : acc[2 * dp + 1][h];
-    }
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      unsigned r[4];
-      mma::ldmatrix_x4_trans(r, mma::smem_addr(
-          m + (kk * 16 + (lm & 1) * 8 + lr) * (DH + 8) + dp * 16
-          + (lm >> 1) * 8));
-      mma::mma_bf16(part[0], hi[kk], r[0], r[1]);
-      if (kTcSplit) mma::mma_bf16(part[0], lo[kk], r[0], r[1]);
-      mma::mma_bf16(part[1], hi[kk], r[2], r[3]);
-      if (kTcSplit) mma::mma_bf16(part[1], lo[kk], r[2], r[3]);
-    }
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      acc[2 * dp][h] = kTcTwoLevel ? acc[2 * dp][h] + part[0][h] : part[0][h];
-      acc[2 * dp + 1][h] =
-          kTcTwoLevel ? acc[2 * dp + 1][h] + part[1][h] : part[1][h];
-    }
-  }
-}
 
 // forward: grid (query tiles of 128, B*H); causal calls take the last
 // (heavy) query tiles first. Warp w owns query rows q0 + 16 w .. + 15;
@@ -939,6 +797,118 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_dkv_kernel(
   }
 }
 
+// dq: grid (query tiles of 128, B*H); causal calls take the last (heavy)
+// query tiles first. The forward's geometry: Q and dO are staged once,
+// the 64-key tiles of K, V and the key mask stream through the ring; per
+// tile S = Q K^T, P = exp(S scale + mask - lse), dP = dO V^T, dS = P (dP
+// - delta) scale, and dQ += dS K with dS as a hi/lo pair from the
+// registers (K through ldmatrix .trans). Warp w owns query rows q0 + 16 w
+// .. + 15; this thread rows r0 and r0 + 8.
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1) flash_tc_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ kv_mask,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int Tq,
+    int Tk, float scale, int causal) {
+  using G = FlashTc<DH>;
+  constexpr int BQ = G::kRows, BK = G::kKeys, P = G::P, S = G::kStages;
+  constexpr int ND = G::ND, NJ = BK / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [BQ][P]
+  bf16* dos = qs + BQ * P;                       // [BQ][P]
+  // S x {K, V, key mask}
+  unsigned char* ring = reinterpret_cast<unsigned char*>(dos + BQ * P);
+  __shared__ int first_slot;
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int bh = blockIdx.y, b = bh / H;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ, r0 = q0 + warp * 16 + g;
+  const float* kvm = kv_mask + (size_t)b * Tk;
+  const bf16* kh = k + (size_t)bh * Tk * DH;
+  const bf16* vh = v + (size_t)bh * Tk * DH;
+  const int first = first_live_key(kvm, Tk, causal, &first_slot);
+  // key tiles wholly in the future of every row, rows that all see a
+  // live key: their p is exp(-1e9 - lse) = 0
+  int n_k = (Tk + BK - 1) / BK;
+  if (causal && q0 >= first) n_k = min(n_k, (q0 + BQ - 1) / BK + 1);
+  auto slot = [&](int kt) {
+    return reinterpret_cast<bf16*>(ring + (kt % S) * G::kFwdStage);
+  };
+  auto stage_keys = [&](int kt) {
+    bf16* s = slot(kt);
+    tc_stage_rows<BK, DH>(kh, kt * BK, Tk, s);
+    tc_stage_rows<BK, DH>(vh, kt * BK, Tk, s + BK * P);
+    tc_stage_vec<BK>(kvm, kt * BK, Tk, reinterpret_cast<float*>(s + 2 * BK * P),
+                     0);
+  };
+  tc_stage_rows<BQ, DH>(q + (size_t)bh * Tq * DH, q0, Tq, qs);
+  tc_stage_rows<BQ, DH>(dout + (size_t)bh * Tq * DH, q0, Tq, dos);
+  cp_async_commit();
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n_k) stage_keys(st);
+    cp_async_commit();
+  }
+  float ls[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    ls[i] = row < Tq ? lse[(size_t)bh * Tq + row] : 0.f;
+    dl[i] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
+  }
+  float dqa[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) dqa[d][h] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile kt (and Q, dO) landed; kt - 1's readers done
+    if (kt + S - 1 < n_k) stage_keys(kt + S - 1);
+    cp_async_commit();
+    const bf16* ks = slot(kt);
+    const bf16* vs = ks + BK * P;
+    const float* mk = reinterpret_cast<const float*>(vs + BK * P);
+    const int k0 = kt * BK;
+    float p[NJ][4];
+    score_product<NJ, DH, DH == 128>(qs, warp * 16, ks, p);
+    // scale, then the key mask and the causal replacement, in the
+    // reference's order; rows past Tq and keys past Tk weigh nothing
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int c = 8 * j + 2 * t + (h & 1), col = k0 + c;
+        const int row = r0 + 8 * (h >> 1);
+        float x = p[j][h] * scale + (1.f - mk[c]) * kMask;
+        if (causal && row < col) x = kMask;
+        p[j][h] = row < Tq && col < Tk ? expf(x - ls[h >> 1]) : 0.f;
+      }
+    float ds[NJ][4];
+    // dP[query][key] = dO . v
+    score_product<NJ, DH, DH == 128>(dos, warp * 16, vs, ds);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+        ds[j][h] = p[j][h] * (ds[j][h] - dl[h >> 1]) * scale;
+    tile_product<NJ / 2, DH>(ds, ks, dqa);  // dQ += dS K, dS as a hi/lo pair
+  }
+  cp_async_wait<0>();  // Q and dO, when no key tile was left
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= Tq) continue;
+    bf16* drow = dq + ((size_t)bh * Tq + row) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      mma::store2(drow + 8 * d, dqa[d][2 * i], dqa[d][2 * i + 1]);
+  }
+}
+
 template <int DH>
 int launch_tc_fwd(const void* q, const void* k, const void* v,
                   const void* kvm, void* out, void* lse, int B, int H, int Tq,
@@ -966,6 +936,22 @@ int launch_tc_dkv(const void* q, const void* k, const void* v,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kvm,
       (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
       (bf16*)dv, H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_tc_dq(const void* q, const void* k, const void* v,
+                 const void* kvm, const void* dout, const void* lse,
+                 const void* delta, void* dq, int B, int H, int Tq, int Tk,
+                 float scale, int causal, cudaStream_t stream) {
+  using G = FlashTc<DH>;
+  auto kern = flash_tc_dq_kernel<DH>;
+  if (int e = prepare(kern, G::kDqSmem, B, H)) return e;
+  const dim3 grid((Tq + G::kRows - 1) / G::kRows, B * H);
+  kern<<<grid, kThreads, G::kDqSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kvm,
+      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dq,
+      H, Tq, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1026,9 +1012,10 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
 }
 
 #if KERNEL_DTYPE == 1
-// The bf16 forward and dkv on the tensor cores, for q, k, v (and dO, dk,
-// dv) 16-byte aligned (the wrapper's flash_tc_path): as
-// flash_attention_fwd and flash_attention_dkv, without the type flag.
+// The bf16 forward, dq and dkv on the tensor cores, for q, k, v (and dO,
+// dq, dk, dv) 16-byte aligned (the wrapper's flash_tc_path): as
+// flash_attention_fwd, flash_attention_dq and flash_attention_dkv, without
+// the type flag.
 extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
                                       const void* v, const void* kv_mask,
                                       void* out, void* lse, int B, int H,
@@ -1037,6 +1024,20 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
 #define CALL(D) \
   launch_tc_fwd<D>(q, k, v, kv_mask, out, lse, B, H, Tq, Tk, scale, causal, s)
+  FLASH_TC_DISPATCH(CALL)
+#undef CALL
+}
+
+extern "C" int flash_attention_dq_tc(const void* q, const void* k,
+                                     const void* v, const void* kv_mask,
+                                     const void* dout, const void* lse,
+                                     const void* delta, void* dq, int B,
+                                     int H, int Tq, int Tk, int Dh,
+                                     float scale, int causal, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define CALL(D)                                                         \
+  launch_tc_dq<D>(q, k, v, kv_mask, dout, lse, delta, dq, B, H, Tq, Tk, \
+                  scale, causal, s)
   FLASH_TC_DISPATCH(CALL)
 #undef CALL
 }

@@ -55,6 +55,10 @@
 // at every head size.
 
 #include "attention_tiles.cuh"
+#if KERNEL_DTYPE == 1
+#include "mma_tiles.cuh"
+#include "attention_mma.cuh"
+#endif
 
 namespace {
 
@@ -314,7 +318,8 @@ int launch_generic(const void* q, const void* k, const void* v,
 // tile.
 //
 // Up to 64 queries and keys (the training path's sentences) a head is one
-// tile pair: packed_attention_bwd_kernel stages its Q, dO, K, V, key mask
+// tile pair: in f32 (bf16: packed_tc_bwd_kernel, below)
+// packed_attention_bwd_kernel stages its Q, dO, K, V, key mask
 // and delta once, computes S once and takes the statistics from it; from
 // Dh 64 dS overwrites V, which no product reads after dO.V^T. Its block
 // has 128 threads (8 x 16), so a thread holds 8 x 4 fragments, as the
@@ -348,6 +353,28 @@ int launch_generic(const void* q, const void* k, const void* v,
 // float4. The longest T = Tq = Tk within the 227 KB a block may take is
 // the backward's cap (max_t_bwd): 1,868 / 867 / 278 / 2,816 at Dh 16 /
 // 32 / 64 / 128.
+//
+// In bf16, up to 64 queries and keys (every sentence of the bf16 base
+// update), packed_tc_bwd_kernel (the bf16 library only; entry
+// packed_attention_bwd_tc, the wrapper's packed_tc_path) replaces the
+// same _bwd_kernel on the tensor cores: mma.sync m16n8k16 on bf16
+// operands with f32 sums (attention_mma.cuh's tiles), a block of 4 warps
+// a (batch, head). It takes delta = rowsum(dO * out) itself, in f32 from
+// the staged dO and out: outside the kernel, as the reference takes it,
+// delta's elementwise launches cost more than the kernel at the base
+// update's shape. Step 1 owns 16 query rows a warp: S = Q.K^T and dO.V^T
+// from the staged tiles, P and dS in the registers in the op order above,
+// dQ = dS.K with dS entering as a hi/lo bf16 pair (hi = bf16(x), lo =
+// bf16(x - hi): the reference's f32 dS to 2^-16). P and dS go to shared
+// memory as hi/lo pairs (four 64 x 72 bf16 tiles, where out's tile lies
+// first); step 2 owns 16 keys a warp and reads P^T and dS^T through
+// ldmatrix .trans for dV = P^T.dO and dK = dS^T.Q. What bounds it on an
+// H100: bytes (8 B.H.T.Dh bf16 elements in and out for 10 B.H.Tq.Tk.Dh
+// flops, of which the hi/lo pairs make 16 on the tensor cores); shared
+// memory 4 x 64 x (Dh + 8) + 4 x 64 x 72 bf16 and 128 floats (74 KB at
+// Dh 64, 107 KB at 128). It takes every bf16 call within one tile pair
+// (the wrapper copies unaligned operands);
+// past 64 tokens and in f32 the kernels above run.
 
 constexpr int kPS = kTile + 4;  // stride of the score tiles
 
@@ -710,6 +737,11 @@ int launch_bwd(const void* q, const void* k, const void* v,
   const size_t smem = bwd_floats<DH>(Tq, Tk) * sizeof(float);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (Tq <= kTile && Tk <= kTile) {
+#if KERNEL_DTYPE == 1
+    // in bf16 one tile pair is packed_tc_bwd_kernel's (the entry
+    // packed_attention_bwd_tc)
+    return (int)cudaErrorInvalidValue;
+#else
     auto kern = packed_attention_bwd_kernel<T, DH>;
     if (int e = set_smem(kern, smem)) return e;
     kern<<<B * H, Packed<DH>::kShortThreads, smem, stream>>>(
@@ -717,6 +749,7 @@ int launch_bwd(const void* q, const void* k, const void* v,
         (const T*)dout, (const float*)delta, (T*)dq, (T*)dk, (T*)dv, H, Tq,
         Tk, scale, causal);
     return (int)cudaGetLastError();
+#endif
   }
   if (Packed<DH>::kDqGlobal && !dq_sum) return (int)cudaErrorInvalidValue;
   auto kern = packed_attention_bwd_tiled_kernel<T, DH>;
@@ -728,15 +761,207 @@ int launch_bwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+#if KERNEL_DTYPE == 1
+// ---------------------------------------------------------------------------
+// the bf16 one-tile backward on the tensor cores: Tq, Tk <= 64, a block of
+// 4 warps per (batch, head), the bf16 library only
+
+constexpr int kTcThreads = 128;
+constexpr int kTcPitch = kTile + 8;  // P and dS tiles' row pitch, bf16
+
+template <int DH>
+struct PackedTc {
+  static constexpr int P = DH + 8;    // Q, dO, K, V row pitch, bf16
+  // Q, dO, K, V; P and dS as hi/lo pairs [64 queries][64 keys] (out's
+  // tile [64][P] before them); the key mask and delta (bytes)
+  static constexpr int kSmem =
+      4 * kTile * P * 2 + 4 * kTile * kTcPitch * 2 + 2 * kTile * 4;
+  static_assert(kSmem <= (int)kMaxSmem, "shared memory of a block");
+  static_assert(P <= 2 * kTcPitch, "out's tile fits P's hi and lo tiles");
+};
+
+// rows r0 and r0 + 8 (those before `rows`) of a warp's [16][DH] tile in
+// C fragments into out[rows][DH], as bf16
+template <int DH>
+__device__ __forceinline__ void tc_store_rows(bf16* out, int r0, int rows,
+                                              const float (&acc)[DH / 8][4]) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d)
+      mma::store2(out + (size_t)row * DH + 2 * t + 8 * d, acc[d][2 * i],
+                  acc[d][2 * i + 1]);
+  }
+}
+
+// First delta = rowsum(dO * out) in f32, from the staged dO and out (two
+// threads a row), as the reference takes it outside its kernel. Step 1,
+// rows are queries (warp w: queries 16 w .. + 15; this thread rows r0
+// and r0 + 8): S = Q K^T and dP = dO V^T on the tensor cores, P =
+// exp(S scale + mask - rowmax) / rowsum in the reference's op order (no
+// zero guard: a fully masked row comes out uniform over the Tk keys), dS =
+// P (dP - delta) scale, dQ = dS K with dS as a hi/lo pair from the
+// registers. P and dS go to shared memory as hi/lo pairs. Step 2, rows
+// are keys (warp w: keys 16 w .. + 15): dV = P^T dO and dK = dS^T Q, P^T
+// and dS^T read through ldmatrix .trans. One block writes every output
+// of its head, every sum in a fixed order: two calls give the same bits.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads) packed_tc_bwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ kv_mask,
+    const bf16* __restrict__ dout, const bf16* __restrict__ out,
+    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int H, int Tq, int Tk, float scale, int causal) {
+  using G = PackedTc<DH>;
+  constexpr int P = G::P, PS = kTcPitch, ND = DH / 8, NJ = kTile / 8;
+  constexpr int NT = kTcThreads;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [64][P] Q
+  bf16* dos = qs + kTile * P;                    // [64][P] dO
+  bf16* ks = dos + kTile * P;                    // [64][P] K
+  bf16* vs = ks + kTile * P;                     // [64][P] V
+  bf16* p_hi = vs + kTile * P;                   // [64][PS] P, hi and lo
+  bf16* p_lo = p_hi + kTile * PS;
+  bf16* outs = p_hi;                             // [64][P] out, at first
+  bf16* ds_hi = p_lo + kTile * PS;               // [64][PS] dS, hi and lo
+  bf16* ds_lo = ds_hi + kTile * PS;
+  float* mk = reinterpret_cast<float*>(ds_lo + kTile * PS);  // [64]
+  float* dl = mk + kTile;                                    // [64]
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const int bh = blockIdx.x, r0 = warp * 16 + g;
+  tc_stage_rows<kTile, DH, NT>(q + (size_t)bh * Tq * DH, 0, Tq, qs);
+  tc_stage_rows<kTile, DH, NT>(dout + (size_t)bh * Tq * DH, 0, Tq, dos);
+  tc_stage_rows<kTile, DH, NT>(k + (size_t)bh * Tk * DH, 0, Tk, ks);
+  tc_stage_rows<kTile, DH, NT>(v + (size_t)bh * Tk * DH, 0, Tk, vs);
+  tc_stage_rows<kTile, DH, NT>(out + (size_t)bh * Tq * DH, 0, Tq, outs);
+  tc_stage_vec<kTile>(kv_mask + (size_t)(bh / H) * Tk, 0, Tk, mk, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();  // the head's tiles landed
+  {
+    const int row = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (DH / 2);
+    float d = 0.f;
+#pragma unroll 8
+    for (int c = c0; c < c0 + DH / 2; ++c)
+      d += __bfloat162float(dos[row * P + c]) *
+           __bfloat162float(outs[row * P + c]);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (c0 == 0) dl[row] = d;  // rows past Tq: 0 (dO, out zero-filled)
+  }
+  __syncthreads();  // delta is written; out's tile is free for P
+
+  // step 1: S, its row max over the quad that holds a row (keys past Tk
+  // are no keys), P
+  float p[NJ][4], mx[2] = {-INFINITY, -INFINITY};
+  score_product<NJ, DH>(qs, warp * 16, ks, p);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int c = 8 * j + 2 * t + (h & 1), row = r0 + 8 * (h >> 1);
+      float x = -INFINITY;
+      if (c < Tk) {
+        x = p[j][h] * scale + (1.f - mk[c]) * kMask;
+        if (causal && row < c) x = kMask;
+      }
+      p[j][h] = x;
+      mx[h >> 1] = fmaxf(mx[h >> 1], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      p[j][h] = expf(p[j][h] - mx[h >> 1]);
+      sum[h >> 1] += p[j][h];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+  }
+  // dP[query][key] = dO . v, then dS; rows past Tq weigh nothing
+  float ds[NJ][4];
+  score_product<NJ, DH>(dos, warp * 16, vs, ds);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i, c = 8 * j + 2 * t;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int h = 2 * i + u;
+        p[j][h] = row < Tq ? p[j][h] / sum[i] : 0.f;
+        ds[j][h] = p[j][h] * (ds[j][h] - dl[row]) * scale;
+      }
+      unsigned hi, lo;
+      split_bf16(p[j][2 * i], p[j][2 * i + 1], hi, lo);
+      *reinterpret_cast<unsigned*>(p_hi + row * PS + c) = hi;
+      *reinterpret_cast<unsigned*>(p_lo + row * PS + c) = lo;
+      split_bf16(ds[j][2 * i], ds[j][2 * i + 1], hi, lo);
+      *reinterpret_cast<unsigned*>(ds_hi + row * PS + c) = hi;
+      *reinterpret_cast<unsigned*>(ds_lo + row * PS + c) = lo;
+    }
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) acc[d][h] = 0.f;
+  tile_product<NJ / 2, DH>(ds, ks, acc);  // dQ = dS K
+  tc_store_rows<DH>(dq + (size_t)bh * Tq * DH, r0, Tq, acc);
+  __syncthreads();  // every warp's P and dS are written
+
+  // step 2: this warp's keys r0 - g .. + 15
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) acc[d][h] = 0.f;
+  tile_product_t<kTile / 16, DH>(p_hi, p_lo, PS, warp * 16, dos, acc);
+  tc_store_rows<DH>(dv + (size_t)bh * Tk * DH, r0, Tk, acc);  // dV = P^T dO
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) acc[d][h] = 0.f;
+  tile_product_t<kTile / 16, DH>(ds_hi, ds_lo, PS, warp * 16, qs, acc);
+  tc_store_rows<DH>(dk + (size_t)bh * Tk * DH, r0, Tk, acc);  // dK = dS^T Q
+}
+
+template <int DH>
+int launch_tc_bwd(const void* q, const void* k, const void* v,
+                  const void* kv_mask, const void* dout, const void* out,
+                  void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk,
+                  float scale, int causal, cudaStream_t stream) {
+  if (Tq > kTile || Tk > kTile) return (int)cudaErrorInvalidValue;
+  auto kern = packed_tc_bwd_kernel<DH>;
+  if (int e = set_smem(kern, PackedTc<DH>::kSmem)) return e;
+  kern<<<B * H, kTcThreads, PackedTc<DH>::kSmem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kv_mask,
+      (const bf16*)dout, (const bf16*)out, (bf16*)dq, (bf16*)dk,
+      (bf16*)dv, H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+#endif
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, the library's own
 // (KERNEL_DTYPE); Dh 16, 32, 64 or 128. kv_mask
 // and delta are float32 ([B, Tk] and [B, H, Tq]); dq_sum is float32
 // [B, H, Tq, Dh] scratch, needed at Dh 128 past 64 queries or keys (else
-// it may be null). Returns cudaGetLastError() (or the error of raising
-// the shared-memory limit; cudaErrorInvalidValue for what it does not
-// take).
+// it may be null). bf16 up to 64 queries and keys is the entry
+// packed_attention_bwd_tc's. Returns cudaGetLastError() (or the error of
+// raising the shared-memory limit; cudaErrorInvalidValue for what it does
+// not take).
 extern "C" int packed_attention_bwd(const void* q, const void* k,
                                     const void* v, const void* kv_mask,
                                     const void* dout, const void* delta,
@@ -764,6 +989,34 @@ extern "C" int packed_attention_bwd(const void* q, const void* k,
   }
 #undef CALL
 }
+
+#if KERNEL_DTYPE == 1
+// The bf16 backward on the tensor cores (packed_tc_bwd_kernel), Tq and Tk
+// <= 64, Dh 16, 32, 64 or 128, every operand 16-byte aligned: as
+// packed_attention_bwd, with the forward's bf16 out [B, H, Tq, Dh] in
+// place of delta (the kernel takes delta itself), without the scratch and
+// the type flag.
+extern "C" int packed_attention_bwd_tc(const void* q, const void* k,
+                                       const void* v, const void* kv_mask,
+                                       const void* dout, const void* out,
+                                       void* dq, void* dk, void* dv, int B,
+                                       int H, int Tq, int Tk, int Dh,
+                                       float scale, int causal,
+                                       void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define CALL(D)                                                          \
+  launch_tc_bwd<D>(q, k, v, kv_mask, dout, out, dq, dk, dv, B, H, Tq, \
+                   Tk, scale, causal, s)
+  switch (Dh) {
+    case 16: return CALL(16);
+    case 32: return CALL(32);
+    case 64: return CALL(64);
+    case 128: return CALL(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CALL
+}
+#endif
 
 // dtype codes: 0 = float32, 1 = bfloat16, the library's own
 // (KERNEL_DTYPE). kv_mask is float32 [B, Tk].

@@ -43,6 +43,7 @@ import torch
 
 from ..ops.attention import attention
 from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.flash_attention import MAX_HEAD_SIZE
 from ..ops.kernels.kv_pool import paged_decode_attention
 from ..ops.ops import (activation, affine, dropout, layer_norm,
                        logits_matmul, scalar)
@@ -131,7 +132,7 @@ def config_from_options(options, src_vocab: int,
             f"(ROADMAP A7)")
     precision = g("precision", ["float32"])
     compute = precision[0] if isinstance(precision, list) else precision
-    return TransformerConfig(
+    cfg = TransformerConfig(
         src_vocab=int(src_vocab),
         trg_vocab=int(trg_vocab),
         dim_emb=int(g("dim-emb", 512)),
@@ -163,6 +164,16 @@ def config_from_options(options, src_vocab: int,
         dropout_src=float(g("dropout-src", 0.0) or 0.0),
         dropout_trg=float(g("dropout-trg", 0.0) or 0.0),
     )
+    # the flash kernels are built up to MAX_HEAD_SIZE (smaller head sizes
+    # run zero-padded to a built one); 'auto' routes larger ones dense
+    if cfg.flash_attention == "on" and cfg.dim_head > MAX_HEAD_SIZE:
+        raise NotImplementedError(
+            f"--transformer-flash-attention on at head size {cfg.dim_head} "
+            f"(--dim-emb {cfg.dim_emb} / --transformer-heads {cfg.heads}) is "
+            f"not ported to marian_tpu_torch yet: the flash kernels are built "
+            f"up to head size {MAX_HEAD_SIZE} (use auto, which takes the "
+            f"dense path there)")
+    return cfg
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,12 @@ with a structured mask and more than one query position. The flash gate
 comes first, as in the reference: ``flash="on"``, or ``auto`` at
 ``max(Tq, Tk) >= FLASH_MIN_LEN``, takes the flash kernel on the card and
 its plain version on the CPU (the reference's ``auto`` engages flash on
-every backend); ``off`` leaves the call to the packed or dense path. On
+every backend); ``off`` leaves the call to the packed or dense path.
+Under ``auto`` a head size past the flash kernels' largest
+(``MAX_HEAD_SIZE``, 128) skips the flash gate, so such a call goes on to
+the packed gate and, past its caps, to the dense path, as the packed
+kernel's calls do at a head size its backward is not built for (the
+model refuses ``on`` at such a head size when it is built). On
 the card ``packed="auto"`` engages the packed kernel whenever the length
 is within its cap (the reference's head-pack test is TPU geometry and is
 dropped): the forward's cap and, when an input requires a gradient, the
@@ -27,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from .kernels.flash_attention import flash_attention
+from .kernels.flash_attention import MAX_HEAD_SIZE, flash_attention
 from .kernels.packed_attention import max_t, max_t_bwd, packed_attention
 from .ops import NEG_INF, dropout, matmul_f32, scalar
 
@@ -65,7 +70,8 @@ def attention(q, k, v, mask=None, kv_mask=None, causal: bool = False,
                   and q.shape[-2] > 1
                   and (kv_mask is not None or causal or mask is None))
     if applicable and flash != "off" and (
-            flash == "on" or max(q.shape[-2], k.shape[-2]) >= FLASH_MIN_LEN):
+            flash == "on" or (max(q.shape[-2], k.shape[-2]) >= FLASH_MIN_LEN
+                              and q.shape[-1] <= MAX_HEAD_SIZE)):
         return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal), None
     if applicable and packed != "off":
         grad = torch.is_grad_enabled() and (

@@ -11,9 +11,9 @@ libraries, ``KERNEL_DTYPE`` 0 (float32) and 1 (bfloat16, the name
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded.
 ``build_all`` starts one ``nvcc`` per library, all at once. A library
-built with ``-Xptxas -v`` (the bf16 fused CE and flash attention, whose
-tensor-core kernels' registers and spills are worth a look) leaves its
-kernels' resource lines in ``USAGE``.
+built with ``-Xptxas -v`` (the bf16 fused CE, flash and packed
+attention, whose tensor-core kernels' registers and spills are worth a
+look) leaves its kernels' resource lines in ``USAGE``.
 
 Every C entry point takes pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()``; ``check`` raises when that is not 0.
@@ -42,7 +42,7 @@ LIBRARIES = {"decode_attention": ("decode_attention", ()),
 for _src in ("packed_attention", "flash_attention", "fused_ce"):
     LIBRARIES[_src] = (_src, ("-DKERNEL_DTYPE=0",))
     LIBRARIES[f"{_src}_bf16"] = (_src, ("-DKERNEL_DTYPE=1",))
-for _src in ("fused_ce", "flash_attention"):
+for _src in ("fused_ce", "flash_attention", "packed_attention"):
     LIBRARIES[f"{_src}_bf16"] = (_src, ("-DKERNEL_DTYPE=1", "-Xptxas", "-v"))
 # the sources the libraries are built from
 SOURCES = tuple(dict.fromkeys(src for src, _ in LIBRARIES.values()))
@@ -66,10 +66,15 @@ def _nvcc() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """The ``*_kernel`` identifier in a mangled name: the one whose
-    length prefix (the digits just before it, e.g. ``17fce_tc_fwd_kernel``)
-    counts exactly its characters, with its integer template arguments
-    (``flash_tc_fwd_kernel<64>``); the mangled name when none does."""
+    """The ``*_kernel`` identifier in a mangled name: the shortest one
+    whose length prefix (the digits just before it, e.g.
+    ``17fce_tc_fwd_kernel``) counts exactly its characters, with its
+    integer template arguments (``flash_tc_fwd_kernel<64>``); the mangled
+    name when none does. Digits of the hash in an anonymous namespace's
+    name can count a longer run that also ends at ``_kernel`` (``...cu_
+    16167a2f18flash_tc_dq_kernel``); the identifier itself is the
+    shortest."""
+    found = []
     for m in re.finditer(r"\d+", mangled):
         digits = m.group()
         for i in range(len(digits)):
@@ -77,11 +82,13 @@ def kernel_name(mangled: str) -> str:
             ident = mangled[m.end():end]
             if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*",
                                                           ident):
-                args = re.match(r"I(.*?)EE", mangled[end:])
-                ints = re.findall(r"Li(-?\d+)E", args.group(1) + "E"
-                                  ) if args else []
-                return f"{ident}<{', '.join(ints)}>" if ints else ident
-    return mangled
+                found.append((len(ident), end, ident))
+    if not found:
+        return mangled
+    _, end, ident = min(found)
+    args = re.match(r"I(.*?)EE", mangled[end:])
+    ints = re.findall(r"Li(-?\d+)E", args.group(1) + "E") if args else []
+    return f"{ident}<{', '.join(ints)}>" if ints else ident
 
 
 def ptxas_usage(log: str) -> List[str]:

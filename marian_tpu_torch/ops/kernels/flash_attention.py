@@ -25,17 +25,29 @@ whose forward saves ``out`` and ``lse`` and whose backward is
 ``flash_attention_dq`` and ``flash_attention_dkv`` count their kernel's
 launches in ``.launches``.
 
-In bfloat16 the forward and dkv run on the tensor cores where
-``flash_tc_path`` allows it (head size 16, 32, 64 or 128, and q, k, v,
-and dO, dk, dv, 16-byte aligned; the entries ``flash_attention_fwd_tc``
+In bfloat16 the forward, dq and dkv run on the tensor cores where
+``flash_tc_path`` allows it (q, k, v, and dO, dq, dk, dv, 16-byte
+aligned; the entries ``flash_attention_fwd_tc``, ``flash_attention_dq_tc``
 and ``flash_attention_dkv_tc``), counted on ``.launches_bf16_tc``
 instead: the scores are bf16 products with f32 sums, and P (and dS)
-enter the products with V (dO, Q) as a hi/lo bf16 pair, hi = bf16(x), lo
-= bf16(x - hi), which keeps the reference's f32 value to 2^-16; each
+enter the products with V (K; dO, Q) as a hi/lo bf16 pair, hi = bf16(x),
+lo = bf16(x - hi), which keeps the reference's f32 value to 2^-16; each
 streamed tile's products start from 0 and are added into the f32
-accumulators in order (``flash_attention_fwd_tc_reference`` and
+accumulators in order (``flash_attention_fwd_tc_reference``,
+``flash_attention_dq_tc_reference`` and
 ``flash_attention_dkv_tc_reference`` are that order of work in plain
-torch). Every other call, dq, and float32 keep the CUDA-core kernels.
+torch). Every other call and float32 keep the CUDA-core kernels.
+
+The kernels are built for head sizes 16, 32, 64 and 128. A call at
+another head size up to 128 (8, 48, 80, 96, ...) runs at the next built
+one (``built_head_size``): q, k, v and dO are zero-padded along Dh, the
+scale stays the real head size's, and out, dq, dk and dv are cut back to
+the real Dh (zero columns add nothing to q.k, to dO.V^T or to delta,
+and the padded columns of every output come out zero); lse is the same.
+Past 128 the wrappers raise; the dispatcher (``ops/attention.py``)
+routes such calls to the dense path under ``auto``, and the model
+refuses ``--transformer-flash-attention on`` at such a head size when
+it is built.
 
 What is not carried over from the TPU kernel: its padding of Tq and Tk
 to 128-multiples and the ``MARIAN_FLASH_BLOCK_Q/K`` overrides, both TPU
@@ -70,6 +82,7 @@ from .fused_ce import _aligned     # the tensor-core kernels' 16-byte rule
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_SIZES = (16, 32, 64, 128)      # Dh the kernels are compiled for
 TC_HEAD_SIZES = HEAD_SIZES          # ... the tensor-core kernels too
+MAX_HEAD_SIZE = HEAD_SIZES[-1]      # the largest Dh a call may have
 # csrc/flash_attention.cu FlashTc: 128 own rows a block; the forward's
 # 64-key tiles (the CUDA-core forward's too); dkv's query tiles (16 at
 # Dh 128)
@@ -81,6 +94,21 @@ _VECTOR_BYTES = {torch.float32: 16, torch.bfloat16: 8}
 
 def tc_query_tile(dh: int) -> int:
     return 16 if dh == 128 else 64
+
+
+def built_head_size(dh: int) -> Optional[int]:
+    """The head size a call at ``dh`` runs at: the smallest built one
+    at or above it (its operands zero-padded along Dh), None past
+    MAX_HEAD_SIZE."""
+    return next((d for d in HEAD_SIZES if d >= dh), None)
+
+
+def _pad_head(dh: int, *ts):
+    """``ts`` zero-padded along Dh to ``dh`` (as they are when they
+    already have it)."""
+    pad = dh - ts[0].shape[-1]
+    return tuple(torch.nn.functional.pad(t, (0, pad)) if pad else t
+                 for t in ts)
 
 
 def _mask(kv_mask, b: int, tk: int, device) -> torch.Tensor:
@@ -216,6 +244,51 @@ def flash_attention_fwd_tc_reference(q, k, v, kv_mask=None,
     return _fwd_tiles(q, k, v, kv_mask, causal, scale, TC_ROWS, True)
 
 
+def flash_attention_dq_tc_reference(q, k, v, kv_mask, do, out, lse,
+                                    causal: bool = False,
+                                    scale: Optional[float] = None
+                                    ) -> torch.Tensor:
+    """The tensor-core dq's order of work in plain PyTorch: per batch
+    row, query tiles of 128 walk the 64-key tiles in order, stopping
+    where the header rule skips; each tile's S = Q K^T, P = exp(S scale
+    + mask - lse), dP = dO V^T, dS = P (dP - delta) scale, and its dQ +=
+    dS K taken from 0 with dS as a hi/lo bf16 pair, then added into the
+    f32 sum in order. delta = rowsum(dO * out), as
+    ``flash_attention_bwd`` computes it. Returns dq in q's dtype."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    sc = _scale(scale, dh)
+    kvm = _mask(kv_mask, b, tk, q.device)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * out.float()).sum(dim=-1)
+    lse = lse.float()
+    dq = torch.zeros((b, h, tq, dh), device=q.device)
+    live = kvm != 0
+    for bb in range(b):
+        first = int(live[bb].float().argmax()) if live[bb].any() else tk
+        bias = (1.0 - kvm[bb]) * NEG_INF
+        for q0 in range(0, tq, TC_ROWS):
+            q1 = min(tq, q0 + TC_ROWS)
+            n_k = -(-tk // TC_KEYS)
+            if causal and q0 >= first:
+                n_k = min(n_k, (q0 + TC_ROWS - 1) // TC_KEYS + 1)
+            for k0 in range(0, n_k * TC_KEYS, TC_KEYS):
+                k1 = min(tk, k0 + TC_KEYS)
+                s = (torch.einsum("hqd,hkd->hqk", qf[bb, :, q0:q1],
+                                  kf[bb, :, k0:k1]) * sc + bias[k0:k1])
+                if causal:
+                    seen = (torch.arange(q0, q1, device=q.device)[:, None]
+                            >= torch.arange(k0, k1, device=q.device)[None])
+                    s = torch.where(seen, s, torch.full_like(s, NEG_INF))
+                p = torch.exp(s - lse[bb, :, q0:q1, None])
+                dp = torch.einsum("hqd,hkd->hqk", dof[bb, :, q0:q1],
+                                  vf[bb, :, k0:k1])
+                ds = p * (dp - delta[bb, :, q0:q1, None]) * sc
+                dq[bb, :, q0:q1] += _split_product(
+                    ds, kf[bb, :, k0:k1], "hqk,hkd->hqd")
+    return dq.to(q.dtype)
+
+
 def flash_attention_dkv_tc_reference(q, k, v, kv_mask, do, out, lse,
                                      causal: bool = False,
                                      scale: Optional[float] = None
@@ -306,16 +379,19 @@ def _kernels(bf16: bool):
            "dkv": _fn("flash_attention_dkv", 9, bf16)}
     if bf16:
         fns["fwd_tc"] = _fn("flash_attention_fwd_tc", 6, True, True)
+        fns["dq_tc"] = _fn("flash_attention_dq_tc", 8, True, True)
         fns["dkv_tc"] = _fn("flash_attention_dkv_tc", 9, True, True)
     return fns
 
 
 def flash_tc_path(dtype: torch.dtype, dh: int, aligned: bool) -> bool:
-    """Whether the forward or dkv takes its tensor-core kernel: bfloat16
-    operands, a head size the kernels are built for (TC_HEAD_SIZES) and
-    every operand and output of whole 16-byte rows 16-byte aligned
-    (``aligned``: q, k, v, out; q, k, v, dO, dk, dv). Shape and alignment
-    alone decide; a failure to build or launch raises."""
+    """Whether the forward, dq or dkv takes its tensor-core kernel:
+    bfloat16 operands, a head size the kernels are built for
+    (TC_HEAD_SIZES: the padded one, ``built_head_size``) and every
+    operand and output of whole 16-byte rows 16-byte aligned
+    (``aligned``: q, k, v, out; q, k, v, dO, dq; q, k, v, dO, dk, dv).
+    Shape and alignment alone decide; a failure to build or launch
+    raises."""
     return dtype == torch.bfloat16 and dh in TC_HEAD_SIZES and aligned
 
 
@@ -327,8 +403,10 @@ def _check(name, q, k, v, *more):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32/bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if dh not in HEAD_SIZES:
-        raise ValueError(f"{name}: head size {dh} not in {HEAD_SIZES}")
+    if built_head_size(dh) is None:
+        raise ValueError(f"{name}: head size {dh} past {MAX_HEAD_SIZE}, the "
+                         f"largest the kernels are built for "
+                         f"({HEAD_SIZES})")
     for what, t, shape in (("k", k, (b, h, tk, dh)), ("v", v, (b, h, tk, dh)),
                            *more):
         if tuple(t.shape) != shape or t.device != q.device:
@@ -351,21 +429,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``flash_attention_fwd_tiled_reference`` is its tiling in plain
     torch); on ``flash_tc_path`` the tensor-core kernel, 128 query rows
     against 64-key tiles in a three-slot ring
-    (``flash_attention_fwd_tc_reference``)."""
+    (``flash_attention_fwd_tc_reference``). At a head size the kernels
+    are not built for, the next built one on zero-padded q, k, v, with
+    this head size's scale; out comes back at Dh."""
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     sc = _scale(scale, dh)
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, kv_mask, causal, sc)
     _check("flash_attention_fwd", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _pad_head(built_head_size(dh), q.contiguous(), k.contiguous(),
+                        v.contiguous())
     kvm = _mask(kv_mask, b, tk, q.device).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    tc = flash_tc_path(q.dtype, dh, _aligned(q, k, v, out))
+    tc = flash_tc_path(q.dtype, q.shape[-1], _aligned(q, k, v, out))
     _launch("fwd", tc, (q, k, v, kvm), (out, lse), tk, causal, sc)
     _count(flash_attention_fwd, tc)
-    return out, lse
+    return out[..., :dh].contiguous() if out.shape[-1] != dh else out, lse
 
 
 def _launch(which, tc, operands, outs, tk, causal, scale):
@@ -400,10 +481,13 @@ def _count(fn, tc: bool) -> None:
 
 def flash_attention_dq(operands, dq, causal: bool, scale: float) -> None:
     """The dq kernel's launch, writing ``dq`` (``flash_attention_bwd``
-    makes it)."""
-    _launch("dq", False, operands, (dq,), operands[1].shape[2], causal,
-            scale)
-    flash_attention_dq.launches += 1
+    makes it): the tensor-core kernel on ``flash_tc_path`` (128 query
+    rows a block against 64-key tiles;
+    ``flash_attention_dq_tc_reference``), else the CUDA-core one."""
+    q, k, v, _, do = operands[:5]
+    tc = flash_tc_path(q.dtype, q.shape[-1], _aligned(q, k, v, do, dq))
+    _launch("dq", tc, operands, (dq,), k.shape[2], causal, scale)
+    _count(flash_attention_dq, tc)
 
 
 def flash_attention_dkv(operands, dk, dv, causal: bool, scale: float) -> None:
@@ -423,7 +507,10 @@ def flash_attention_bwd(q, k, v, kv_mask, do, out, lse, causal: bool = False,
     """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``,
     from the forward's ``out`` and ``lse``: on a CUDA tensor ``delta`` =
     rowsum(dO * out) outside the kernels (as the reference computes it),
-    then the dq and the dkv kernel; on a CPU tensor the plain version."""
+    then the dq and the dkv kernel (at a head size the kernels are not
+    built for, the next built one on zero-padded q, k, v and dO, with
+    this head size's scale; the gradients come back at Dh); on a CPU
+    tensor the plain version."""
     b, h, tq, dh = q.shape
     sc = _scale(scale, dh)
     if not q.is_cuda:
@@ -431,15 +518,18 @@ def flash_attention_bwd(q, k, v, kv_mask, do, out, lse, causal: bool = False,
                                              causal, sc)
     _check("flash_attention_bwd", q, k, v, ("do", do, (b, h, tq, dh)),
            ("out", out, (b, h, tq, dh)), ("lse", lse, (b, h, tq)))
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    do = do.to(q.dtype).contiguous()
+    do = do.to(q.dtype)
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    q, k, v, do = _pad_head(built_head_size(dh), *(
+        t.contiguous() for t in (q, k, v, do)))
     kvm = _mask(kv_mask, b, k.shape[2], q.device).contiguous()
     lse = lse.float().contiguous()
-    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     operands = (q, k, v, kvm, do, lse, delta)
     flash_attention_dq(operands, dq, causal, sc)
     flash_attention_dkv(operands, dk, dv, causal, sc)
+    if q.shape[-1] != dh:
+        return tuple(g[..., :dh].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -481,5 +571,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_bf16_tc = 0
 flash_attention_dq.launches = 0
+flash_attention_dq.launches_bf16_tc = 0
 flash_attention_dkv.launches = 0
 flash_attention_dkv.launches_bf16_tc = 0

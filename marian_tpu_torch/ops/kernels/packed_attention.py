@@ -43,6 +43,18 @@ tokens at Dh 64, past the reference's 256.
 It is built for Dh 16, 32, 64 and 128 (``BWD_HEAD_SIZES``); at another
 head size ``max_t_bwd`` is 0 and the dispatcher takes the dense path when
 a gradient is needed.
+
+In bfloat16, up to 64 queries and keys (``packed_tc_path``: every
+sentence of the bf16 base update), the backward runs on the tensor cores
+(the entry ``packed_attention_bwd_tc``), counted on
+``packed_attention_bwd.launches_bf16_tc`` instead: a block of 4 warps a
+head forms S and dO.V^T from bf16 products with f32 sums, P and dS in
+the order above, dQ = dS.K with dS as a hi/lo bf16 pair (hi = bf16(x),
+lo = bf16(x - hi): the f32 value to 2^-16), then dV = P^T.dO and dK =
+dS^T.Q from P and dS stored as hi/lo pairs; it takes delta itself, from
+the staged dO and ``out``
+(``packed_attention_bwd_tc_reference`` is that order of work in plain
+torch). Past 64 tokens and in float32 the kernels above run.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ import torch
 
 from ..ops import NEG_INF
 from . import _build
+from .flash_attention import _split_product   # the hi/lo pair's product
 
 _SMEM_FLOATS = 232448 // 4          # a Hopper block's shared-memory ceiling
 _WARPS = 4
@@ -292,6 +305,47 @@ def packed_attention_bwd_tiled_reference(q, k, v, kv_mask, do, out,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def packed_attention_bwd_tc_reference(q, k, v, kv_mask, do, out,
+                                      causal: bool = False,
+                                      scale: Optional[float] = None):
+    """The tensor-core backward's order of work in plain PyTorch (Tq, Tk
+    <= 64, one tile pair a head): S = Q K^T scale + mask (causal
+    positions -1e9), P = exp(S - rowmax) / rowsum, dP = dO V^T, dS = P
+    (dP - delta) scale with delta = rowsum(dO * out); then dQ = dS K, dV
+    = P^T dO and dK = dS^T Q, each from 0 with dS (P) as its hi/lo bf16
+    pair. Returns (dq, dk, dv) in the inputs' dtypes."""
+    b, _, tq, dh = q.shape
+    tk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / (dh ** 0.5)
+    kvm = _mask(kv_mask, b, tk, q.device)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    s = s + (1.0 - kvm)[:, None, None, :] * NEG_INF
+    if causal:
+        live = (torch.arange(tq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = _split_product(ds, kf, "bhqk,bhkd->bhqd")
+    dv = _split_product(p, dof, "bhqk,bhqd->bhkd")
+    dk = _split_product(ds, qf, "bhqk,bhqd->bhkd")
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def packed_tc_path(dtype: torch.dtype, dh: int, tq: int, tk: int) -> bool:
+    """Whether the backward takes its tensor-core kernel: bfloat16
+    operands at a head size it is built for (BWD_HEAD_SIZES) and one
+    tile pair (Tq, Tk <= 64). The wrapper hands it 16-byte aligned
+    operands (it copies others); shape alone decides."""
+    return (dtype == torch.bfloat16 and dh in BWD_HEAD_SIZES
+            and max(tq, tk) <= _TILE)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(bf16: bool):
     fn = _build.load(_build.typed("packed_attention", bf16)).packed_attention
@@ -309,6 +363,20 @@ def _bwd_kernel(bf16: bool):
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tc_kernel():
+    fn = _build.load(_build.typed("packed_attention",
+                                  True)).packed_attention_bwd_tc
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _check_operands(name, q, k, v):
@@ -333,7 +401,7 @@ def _launch_fwd(q, k, v, kvm, causal, scale):
         out.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
         _DTYPES[q.dtype],
         fwd_query_tile(dh, tq, all(t.data_ptr() % 16 == 0 for t in (q, k, v))),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     _build.check(err, "packed_attention")
     packed_attention.launches += 1
     return out
@@ -387,9 +455,10 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
                          scale: Optional[float] = None):
     """(dq, dk, dv) of ``packed_attention`` for the output gradient
     ``do``: the backward kernel on a CUDA tensor (one launch: the one-tile
-    kernel up to 64 queries and keys, else the tiled one, with a global
-    f32 dq scratch at Dh 128), the plain version on a CPU tensor. Raises
-    past ``max_t_bwd`` or at a head size the kernel is not built for."""
+    kernel up to 64 queries and keys, on the tensor cores in bf16
+    (``packed_tc_path``), else the tiled one, with a global f32 dq scratch
+    at Dh 128), the plain version on a CPU tensor. Raises past
+    ``max_t_bwd`` or at a head size the kernel is not built for."""
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     if scale is None:
@@ -405,15 +474,32 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
         raise ValueError(f"packed_attention_bwd: lengths {tq}x{tk} exceed "
                          f"the backward kernel's cap {max_t_bwd(dh)} at "
                          f"Dh={dh}")
-    # the kernel stages by 16-byte copies: an operand at an odd offset is
+    for what, t in (("do", do), ("out", out)):
+        if tuple(t.shape) != (b, h, tq, dh):
+            raise ValueError(f"packed_attention_bwd: {what} is "
+                             f"{tuple(t.shape)}, expected {(b, h, tq, dh)}")
+    # the kernels stage by 16-byte copies: an operand at an odd offset is
     # copied to an aligned buffer first
     q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q.contiguous(), k.contiguous(), v.contiguous(),
                              do.to(q.dtype).contiguous()))
     kvm = _mask(kv_mask, b, tk, q.device).contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if packed_tc_path(q.dtype, dh, tq, tk):
+        # the kernel takes delta = rowsum(dO * out) from out, in q's dtype
+        # as the forward returns it
+        out = out.to(q.dtype).contiguous()
+        out = out if out.data_ptr() % 16 == 0 else out.clone()
+        err = _bwd_tc_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
+            do.data_ptr(), out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, tq, tk, dh, float(scale),
+            int(bool(causal)), _stream(q))
+        _build.check(err, "packed_attention_bwd_tc")
+        packed_attention_bwd.launches_bf16_tc += 1
+        return dq, dk, dv
     # delta outside the kernel, as the reference computes it
     delta = (do.float() * out.float()).sum(dim=-1).contiguous()
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     # past one tile the Dh 128 kernel sums dq in global f32 scratch
     dq_sum = (torch.empty((b, h, tq, dh), dtype=torch.float32,
                           device=q.device)
@@ -423,7 +509,7 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
         do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), None if dq_sum is None else dq_sum.data_ptr(), b, h,
         tq, tk, dh, float(scale), int(bool(causal)), _DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q))
     _build.check(err, "packed_attention_bwd")
     packed_attention_bwd.launches += 1
     return dq, dk, dv
@@ -431,3 +517,4 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
 
 packed_attention.launches = 0
 packed_attention_bwd.launches = 0
+packed_attention_bwd.launches_bf16_tc = 0

@@ -17,8 +17,9 @@ versions (max |err|, and in bf16 the margin of the one-spacing gate,
 chip_smoke.close_bf16) and times them and the joint backward (delta + dq
 + dkv) in turns (parent, change, any variant, then back in reverse
 order; CUDA events behind a device sleep). A bf16 build takes its
-tensor-core entries (``flash_attention_fwd_tc``, ``_dkv_tc``) where it
-has them, as the wrapper does for aligned operands at Dh 64.
+tensor-core entries (``flash_attention_fwd_tc``, ``_dq_tc``,
+``_dkv_tc``) where it has them, as the wrapper does for aligned operands
+at Dh 64.
 
 --sass compares the machine code of every kernel of both libraries
 (float32 and bfloat16) with the parent's (``cuobjdump -sass``). --profile
@@ -83,20 +84,22 @@ def _nvcc() -> str:
 
 def design_trees(names) -> list:
     """(tag, tree) of edited copies of this checkout's csrc/, one per
-    DESIGNS name."""
+    DESIGNS name (each edit made in the source or header that holds
+    it)."""
     trees = []
     for name in names:
         tree = OUT / f"design_{name}"
         csrc = tree / "marian_tpu_torch" / "csrc"
         shutil.rmtree(tree, ignore_errors=True)
         shutil.copytree(_source(ROOT).parent, csrc)
-        text = (csrc / "flash_attention.cu").read_text()
         for old, new in DESIGNS[name]:
-            if old not in text:
+            files = [f for f in ("flash_attention.cu", "attention_mma.cuh")
+                     if old in (csrc / f).read_text()]
+            if not files:
                 raise SystemExit(f"torch_flash_bwd_ab: {old!r} is not in "
-                                 f"flash_attention.cu")
-            text = text.replace(old, new)
-        (csrc / "flash_attention.cu").write_text(text)
+                                 f"the flash sources")
+            text = (csrc / files[0]).read_text()
+            (csrc / files[0]).write_text(text.replace(old, new))
         trees.append((name, tree))
     return trees
 
@@ -128,7 +131,7 @@ def build(jobs, flags) -> dict:
 
 def entry_points(lib: ctypes.CDLL, bf16: bool) -> dict:
     """{part: fn(operands, outs, b, h, tq, tk, causal)} of one library:
-    the tensor-core forward and dkv where a bf16 library has them."""
+    the tensor-core forward, dq and dkv where a bf16 library has them."""
     def fn(symbol, n_ptr, flag):
         f = getattr(lib, symbol)
         f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [
@@ -147,9 +150,11 @@ def entry_points(lib: ctypes.CDLL, bf16: bool) -> dict:
         return run
     flag = int(bf16)
     tc = bf16 and hasattr(lib, "flash_attention_fwd_tc")
+    dq_tc = bf16 and hasattr(lib, "flash_attention_dq_tc")
     return {"fwd": (fn("flash_attention_fwd_tc", 6, None) if tc
                     else fn("flash_attention_fwd", 6, flag)),
-            "dq": fn("flash_attention_dq", 8, flag),
+            "dq": (fn("flash_attention_dq_tc", 8, None) if dq_tc
+                   else fn("flash_attention_dq", 8, flag)),
             "dkv": (fn("flash_attention_dkv_tc", 9, None) if tc
                     else fn("flash_attention_dkv", 9, flag))}
 
@@ -172,26 +177,29 @@ def gate(cs, got, ref, bf16: bool, what: str, strict: bool) -> str:
     return f"{err:.3g} (of scale {err / scale:.3g})"
 
 
-def profile_turns(trees, precision: str) -> None:
-    """scripts/torch_train_profile.py --doc in each (tag, tree) in order;
-    prints each run's update and class lines and the card's clock, power
-    and temperature before and after it."""
+def profile_turns(trees, precision: str, doc: bool = True) -> None:
+    """scripts/torch_train_profile.py (--doc, 2 updates; else the base
+    update, 3) in each (tag, tree) in order; prints each run's update and
+    class lines and the card's clock, power and temperature before and
+    after it."""
     import torch_fused_ce_fwd_ab as fab
+    what = "doc" if doc else "base"
     for tag, tree in trees:
         before = fab.card_state()
         run = subprocess.run(
-            [sys.executable, "scripts/torch_train_profile.py", "--doc",
-             "--precision", precision, "--updates", "2", "--top", "0"],
+            [sys.executable, "scripts/torch_train_profile.py",
+             *(["--doc"] if doc else []), "--precision", precision,
+             "--updates", "2" if doc else "3", "--top", "0"],
             cwd=tree, capture_output=True, text=True)
         if run.returncode != 0:
             raise RuntimeError(f"profile [{tag}] failed:\n"
                                f"{run.stdout[-3000:]}{run.stderr[-3000:]}")
-        print(f"profile doc {precision} [{tag}] card before: {before}; "
+        print(f"profile {what} {precision} [{tag}] card before: {before}; "
               f"after: {fab.card_state()}")
         for line in run.stdout.splitlines():
             if line.startswith("update:") or line.lstrip().startswith(
                     "class"):
-                print(f"profile doc {precision} [{tag}] {line.strip()}")
+                print(f"profile {what} {precision} [{tag}] {line.strip()}")
 
 
 def main(argv=None) -> int:
@@ -277,7 +285,8 @@ def main(argv=None) -> int:
                                 strict and tag == "change"),
                     "lse": f"{float((lse - ref_lse).abs().max()):.3g}",
                     "dq": gate(cs, dq, rdq, bf16, f"{name} dq [{tag}]",
-                               False),
+                               strict and tag == "change"
+                               and fns["dq"].symbol.endswith("_tc")),
                     "dk": gate(cs, dk, rdk, bf16, f"{name} dk [{tag}]",
                                strict and tag == "change"),
                     "dv": gate(cs, dv, rdv, bf16, f"{name} dv [{tag}]",

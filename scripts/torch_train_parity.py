@@ -126,7 +126,8 @@ def planted(variant: str):
         dq, dk, dv = bwd(q, k, v, kv_mask, do, out, causal, scale)
         return dq, dk if causal else dk * (1.0 + FAULT), dv
 
-    scaled_dk.launches = 0        # the wrapped function counts here
+    # the wrapped function counts here
+    scaled_dk.launches = scaled_dk.launches_bf16_tc = 0
 
     def scaled_flash_dk(q, k, v, kv_mask, do, out, lse, causal=False,
                         scale=None):

@@ -34,9 +34,10 @@ ROOT = Path(__file__).resolve().parents[1]
 # kernel class ← first matching pattern over the kernel's name
 CLASSES = (
     ("flash_attention dkv (this port)", r"flash_(tc_)?dkv_kernel"),
-    ("flash_attention dq (this port)", r"flash_dq_kernel"),
+    ("flash_attention dq (this port)", r"flash_(tc_)?dq_kernel"),
     ("flash_attention forward (this port)", r"flash_(tc_)?fwd_kernel"),
-    ("packed_attention backward (this port)", r"packed_attention_bwd"),
+    ("packed_attention backward (this port)",
+     r"packed_attention_bwd|packed_tc_bwd"),
     ("packed_attention forward (this port)",
      r"packed_attention_(fwd_|generic_)?kernel"),
     ("fused_ce backward d recompute (this port)", r"fce_(bwd|tc)_dlogit"),

@@ -10,12 +10,15 @@ warp, a cache and a key length whose block tiles need more than 48 KB of
 shared memory (the dynamic-limit path), decode caches of 1,024 and more
 positions (many chunks of the streamed cache), bf16 operands, for the
 flash kernels lengths that are not multiples of their 64- and 128-row
-tiles, every head size they are built for, a fully masked row, a row
-whose first live key lies inside a tile, a cross case with fewer keys
-than queries and a determinism check, each case asserting its route
-(aligned bf16 forward and dkv on the tensor cores, held to one bf16
-spacing of the plain backward fed their own out and lse; an unaligned
-bf16 view on the CUDA cores), and for the fused
+tiles, every head size they are built for and Dh 8, 48 and 80 (run
+zero-padded to 16, 64 and 128, results at the real Dh), a fully masked
+row, a row whose first live key lies inside a tile, a cross case with
+fewer keys than queries and determinism checks, each case asserting its
+route (aligned bf16 forward, dq and dkv on the tensor cores, held to one
+bf16 spacing of the plain backward fed their own out and lse; an
+unaligned bf16 view on the CUDA cores), for the packed backward the
+bf16 one-tile kernel on the tensor cores up to 64 tokens (one bf16
+spacing of the plain version, two calls bit-identical), and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
 its 128 x 256 tiles, a vocabulary under one tile, labels on the tile
 edges, a hidden size that is not a multiple of 4 (scalar loads), forced
@@ -344,24 +347,35 @@ def test_packed_attention_bwd_matches_plain(dev, b, h, tq, tk, dh, causal,
         pytest.skip("causal self-attention has Tq == Tk")
     q, k, v, do, kvm = _packed_bwd_inputs(dev, b, h, tq, tk, dh, dtype)
     out = packed_attention(q, k, v, kvm, causal=causal)
-    before = packed_attention_bwd.launches
+    before = (packed_attention_bwd.launches,
+              packed_attention_bwd.launches_bf16_tc)
     got = packed_attention_bwd(q, k, v, kvm, do, out, causal)
     ref = packed_attention_bwd_reference(q, k, v, kvm, do, out, causal)
-    assert packed_attention_bwd.launches == before + 1
+    # bf16 up to 64 tokens takes the tensor cores, held to one bf16
+    # spacing of the plain version
+    tc = dtype == torch.bfloat16 and max(tq, tk) <= 64
+    assert (packed_attention_bwd.launches,
+            packed_attention_bwd.launches_bf16_tc) == (
+                before[0] + (not tc), before[1] + tc)
     for g, r in zip(got, ref):
         if dtype == torch.float32:
             _close_to_scale(g, r, 1e-5)
+        elif tc:
+            _close_bf16(g, r, 1e-5)
         else:
             torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
                                        atol=2e-2)
 
 
-@pytest.mark.parametrize("t,dh,causal", [(64, 64, False), (256, 64, True),
-                                         (128, 128, False)])
-def test_packed_attention_bwd_is_deterministic(dev, t, dh, causal):
+@pytest.mark.parametrize("t,dh,causal,dtype", [
+    (64, 64, False, torch.float32), (256, 64, True, torch.float32),
+    (128, 128, False, torch.float32), (64, 64, True, torch.bfloat16),
+    (50, 128, False, torch.bfloat16), (64, 16, False, torch.bfloat16)])
+def test_packed_attention_bwd_is_deterministic(dev, t, dh, causal, dtype):
     # one writer per gradient element and a fixed summation order: two
-    # calls give the same bits, in one tile and across tiles
-    q, k, v, do, kvm = _packed_bwd_inputs(dev, 3, 4, t, t, dh)
+    # calls give the same bits, in one tile and across tiles, and on the
+    # tensor cores (bf16 up to 64 tokens)
+    q, k, v, do, kvm = _packed_bwd_inputs(dev, 3, 4, t, t, dh, dtype)
     out = packed_attention(q, k, v, kvm, causal=causal)
     first = packed_attention_bwd(q, k, v, kvm, do, out, causal)
     second = packed_attention_bwd(q, k, v, kvm, do, out, causal)
@@ -575,7 +589,8 @@ def test_fused_ce_refuses_mixed_operand_types(dev):
     (1, 2, 70, 45, 16, False), (2, 1, 129, 129, 128, True),
     (2, 2, 1050, 1050, 64, True), (2, 2, 1050, 300, 64, False),
     (2, 2, 130, 130, 64, True), (1, 3, 257, 257, 64, True),
-    (2, 2, 300, 260, 128, False)])
+    (2, 2, 300, 260, 128, False), (2, 2, 300, 260, 48, False),
+    (2, 2, 200, 200, 80, True), (1, 2, 90, 70, 8, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
                                              dtype):
@@ -595,12 +610,15 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
     out, lse = fa.flash_attention_fwd(q, k, v, kvm, causal)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, kvm, causal)
     grads = fa.flash_attention_bwd(q, k, v, kvm, do, out, lse, causal)
-    # bf16 (aligned, every head size here) takes the tensor-core forward
-    # and dkv, f32 the CUDA-core ones; dq always the CUDA cores
+    # bf16 (aligned, every head size here: Dh 8, 48 and 80 zero-padded to
+    # 16, 64 and 128) takes the tensor-core forward, dq and dkv, f32 the
+    # CUDA-core ones; every output at the real Dh
     tc = dtype == torch.bfloat16
-    assert fa.flash_tc_path(dtype, dh, True) == tc
+    assert fa.flash_tc_path(dtype, fa.built_head_size(dh), True) == tc
     assert _flash_launches() == tuple(
-        c + n for c, n in zip(launches, (not tc, tc, 1, not tc, tc)))
+        c + n for c, n in zip(launches, (not tc, tc) * 3))
+    assert out.shape == q.shape and lse.shape == (b, h, tq)
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
     # lse: rows with a live key to 1e-5 (lse is of order log Tk); the
     # fully-masked rows' -1e9 exactly
     live = ref_lse > 0.5 * NEG_INF
@@ -620,9 +638,9 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
                 torch.testing.assert_close(g.float(), r.float(), rtol=2e-2,
                                            atol=2e-2)
             if fwd[0] is out:
-                # the tensor-core dk and dv: one bf16 spacing of the plain
-                # backward on the same out and lse
-                for g, r in zip(grads[1:], plain[1:]):
+                # the tensor-core dq, dk and dv: one bf16 spacing of the
+                # plain backward on the same out and lse
+                for g, r in zip(grads, plain):
                     _close_bf16(g, r, 1e-5)
     if dtype == torch.float32:
         torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
@@ -634,25 +652,28 @@ def test_flash_attention_kernels_match_plain(dev, b, h, tq, tk, dh, causal,
 
 def _flash_launches():
     """The flash wrappers' counters by route: forward, forward on the
-    tensor cores, dq, dkv, dkv on the tensor cores."""
+    tensor cores, dq, dq on the tensor cores, dkv, dkv on the tensor
+    cores."""
     return (fa.flash_attention_fwd.launches,
             fa.flash_attention_fwd.launches_bf16_tc,
             fa.flash_attention_dq.launches,
+            fa.flash_attention_dq.launches_bf16_tc,
             fa.flash_attention_dkv.launches,
             fa.flash_attention_dkv.launches_bf16_tc)
 
 
 @pytest.mark.parametrize("what,dtype,shift_q,shift_do,route", [
-    ("aligned bf16", torch.bfloat16, 0, 0, (0, 1, 1, 0, 1)),
-    ("bf16 q 8 bytes in", torch.bfloat16, 4, 0, (1, 0, 1, 1, 0)),
-    ("bf16 dO 8 bytes in", torch.bfloat16, 0, 4, (0, 1, 1, 1, 0)),
-    ("f32", torch.float32, 0, 0, (1, 0, 1, 1, 0))])
+    ("aligned bf16", torch.bfloat16, 0, 0, (0, 1, 0, 1, 0, 1)),
+    ("bf16 q 8 bytes in", torch.bfloat16, 4, 0, (1, 0, 1, 0, 1, 0)),
+    ("bf16 dO 8 bytes in", torch.bfloat16, 0, 4, (0, 1, 1, 0, 1, 0)),
+    ("f32", torch.float32, 0, 0, (1, 0, 1, 0, 1, 0))])
 def test_flash_attention_takes_the_route_of_its_alignment(dev, what, dtype,
                                                           shift_q, shift_do,
                                                           route):
     """The route follows dtype and alignment alone: a q (or dO) that is
     a contiguous view 8 bytes into its buffer (16-byte aligned no more)
-    keeps the forward and dkv (or dkv) on the CUDA cores; both routes
+    keeps the forward, dq and dkv (or dq and dkv) on the CUDA cores; both
+    routes
     agree with the plain versions. A bf16 q 2 bytes in, which the
     CUDA-core kernels' 8-byte reads cannot take, raises before any
     launch."""
@@ -681,14 +702,18 @@ def test_flash_attention_takes_the_route_of_its_alignment(dev, what, dtype,
     _close_bf16(out, ref, rel)
     for g, r in zip(grads[1:], plain[1:]):
         _close_bf16(g, r, 1e-5)
+    if route[3]:        # dq on the tensor cores: one bf16 spacing too
+        _close_bf16(grads[0], plain[0], 1e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_attention_bwd_is_deterministic(dev, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_is_deterministic(dev, causal, dtype):
     # one writer per gradient element and a fixed summation order: two
-    # calls give the same bits
+    # calls give the same bits (bf16: dq and dkv on the tensor cores)
     gen = torch.Generator().manual_seed(1050)
-    q, k, v, do = (_randn(gen, dev, 2, 4, 1050, 64) for _ in range(4))
+    q, k, v, do = (_randn(gen, dev, 2, 4, 1050, 64, dtype=dtype)
+                   for _ in range(4))
     kvm = torch.ones(2, 1050)
     kvm[1, 900:] = 0.0
     kvm = kvm.to(dev)

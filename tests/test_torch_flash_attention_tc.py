@@ -1,15 +1,17 @@
-"""The bf16 flash forward and dkv in the tensor-core kernels' order of
-work (``flash_attention_fwd_tc_reference``,
+"""The bf16 flash forward, dq and dkv in the tensor-core kernels' order
+of work (``flash_attention_fwd_tc_reference``,
+``flash_attention_dq_tc_reference``,
 ``flash_attention_dkv_tc_reference``), their routing rule
 (``flash_tc_path``) and counters, on the CPU, against the JAX kernel.
 
 The tensor-core kernels form the scores from bf16 products with f32
-sums and feed P (forward) and P^T, dS^T (dkv) to their second products
-as hi/lo bf16 pairs, each tile's products from 0 and added in order. The
-JAX side is ``flash_attention(..., interpret=True)`` on bf16 q, k, v, and
-``jax.vjp`` of it for dk and dv, as tests/test_torch_flash_attention.py
-runs it; its kernel computes in f32 and rounds the outputs to bf16.
-Tolerances: out, dk and dv within one bf16 spacing of the reference
+sums and feed P (forward), dS (dq) and P^T, dS^T (dkv) to their second
+products as hi/lo bf16 pairs, each tile's products from 0 and added in
+order. The JAX side is ``flash_attention(..., interpret=True)`` on bf16
+q, k, v, and ``jax.vjp`` of it for dq, dk and dv, as
+tests/test_torch_flash_attention.py runs it; its kernel computes in f32
+and rounds the outputs to bf16.
+Tolerances: out, dq, dk and dv within one bf16 spacing of the reference
 (two f32 sums in different orders may round to neighbouring bf16
 values) plus 1e-5 of its largest magnitude; lse within 1e-5 absolute on
 rows that see a live key, and rows that see none exactly -1e9.
@@ -174,6 +176,32 @@ def test_tc_dkv_matches_jax_vjp(name, b, h, tq, tk, dh, causal, dead_row,
                     f"{name} {what}")
 
 
+@pytest.mark.parametrize("name,b,h,tq,tk,dh,causal,dead_row,lead", CASES)
+def test_tc_dq_matches_jax_vjp(name, b, h, tq, tk, dh, causal, dead_row,
+                               lead):
+    """dq in the tensor-core order of work (128 query rows against
+    64-key tiles, dS as a hi/lo pair) against the JAX kernel's VJP, and
+    against the plain backward on the same out and lse."""
+    q, k, v, do, m = _bf16_inputs(_seed(name, tq, tk, dh) + 2, b, h, tq, tk,
+                                  dh, dead_row, lead)
+    _, lse = fmod.flash_attention_fwd_tc_reference(
+        *(_t(a) for a in (q, k, v, m)), causal)
+    live = (lse > -5e8).numpy()
+    do[~live] = 0.0
+    jout, vjp = jax.vjp(lambda a, bb, c: jfa(a, bb, c, kv_mask=jnp.asarray(m),
+                                             causal=causal, interpret=True),
+                        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jdq = vjp(jnp.asarray(do))[0]
+    args = (*(_t(a) for a in (q, k, v, m, do)), _t(np.asarray(jout)), lse)
+    dq = fmod.flash_attention_dq_tc_reference(*args, causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == (b, h, tq, dh)
+    _close_bf16(dq.float().numpy(), np.asarray(jdq).astype(np.float32),
+                f"{name} dq")
+    rdq = fmod.flash_attention_bwd_reference(*args, causal)[0]
+    _close_bf16(dq.float().numpy(), rdq.float().numpy(),
+                f"{name} dq against the plain backward")
+
+
 def test_hi_lo_pair_recovers_p_to_2_pow_minus_16():
     """hi = bf16(x), lo = bf16(x - hi): |x - hi - lo| <= 2^-16 |x| for
     probabilities (exp of scores down to -80) and dS values of either
@@ -219,7 +247,8 @@ def _recording(monkeypatch):
     calls = []
 
     def kernels(bf16):
-        names = ["fwd", "dq", "dkv"] + (["fwd_tc", "dkv_tc"] if bf16 else [])
+        names = ["fwd", "dq", "dkv"] + (["fwd_tc", "dq_tc", "dkv_tc"]
+                                        if bf16 else [])
         return {n: (lambda n_: lambda *a: calls.append((n_, bf16, a)) or 0)(n)
                 for n in names}
     monkeypatch.setattr(fmod, "_kernels", kernels)
@@ -227,7 +256,8 @@ def _recording(monkeypatch):
     for fn in (fmod.flash_attention_fwd, fmod.flash_attention_dq,
                fmod.flash_attention_dkv):
         monkeypatch.setattr(fn, "launches", 0)
-    for fn in (fmod.flash_attention_fwd, fmod.flash_attention_dkv):
+    for fn in (fmod.flash_attention_fwd, fmod.flash_attention_dq,
+               fmod.flash_attention_dkv):
         monkeypatch.setattr(fn, "launches_bf16_tc", 0)
     return calls
 
@@ -239,9 +269,10 @@ def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, offset, tc):
     """On (stand-in) CUDA tensors the forward and the backward call the
     entries ``flash_tc_path`` names, once each, with that entry's
     arguments (the tensor-core ones without the type flag), and count
-    each launch on its route's counter alone; dq always takes the
-    CUDA-core entry. A bf16 q 8 bytes into its buffer (aligned for the
-    CUDA-core kernels' 8-byte vectors, not 16) takes the CUDA cores."""
+    each launch on its route's counter alone; dq takes its tensor-core
+    entry as the forward and dkv do. A bf16 q 8 bytes into its buffer
+    (aligned for the CUDA-core kernels' 8-byte vectors, not 16) takes the
+    CUDA cores."""
     calls = _recording(monkeypatch)
     b, h, tq, tk, dh = 2, 3, 5, 7, 64
 
@@ -257,7 +288,8 @@ def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, offset, tc):
                              True)
     bf = dtype == torch.bfloat16
     names = [(c[0], c[1]) for c in calls]
-    assert names == [("fwd_tc" if tc else "fwd", bf), ("dq", bf),
+    assert names == [("fwd_tc" if tc else "fwd", bf),
+                     ("dq_tc" if tc else "dq", bf),
                      ("dkv_tc" if tc else "dkv", bf)]
     scale = dh ** -0.5
     for name, _, args in calls:
@@ -267,15 +299,17 @@ def test_wrappers_launch_the_routed_entries(monkeypatch, dtype, offset, tc):
     assert (fmod.flash_attention_fwd.launches,
             fmod.flash_attention_fwd.launches_bf16_tc,
             fmod.flash_attention_dq.launches,
+            fmod.flash_attention_dq.launches_bf16_tc,
             fmod.flash_attention_dkv.launches,
             fmod.flash_attention_dkv.launches_bf16_tc) == (
-                int(not tc), int(tc), 1, int(not tc), int(tc))
+                int(not tc), int(tc), int(not tc), int(tc), int(not tc),
+                int(tc))
 
 
 def test_an_unaligned_do_keeps_dkv_on_the_cuda_cores(monkeypatch):
-    """dkv's route reads its own operands: an output gradient 8 bytes
-    into its storage sends it to the CUDA-core entry while the forward
-    (q, k, v aligned) takes the tensor cores."""
+    """dq's and dkv's routes read their own operands: an output gradient
+    8 bytes into its storage sends both to the CUDA-core entries while
+    the forward (q, k, v aligned) takes the tensor cores."""
     calls = _recording(monkeypatch)
     shape = (1, 2, 9, 32)
     q, k, v = (torch.zeros(*shape, dtype=torch.bfloat16).as_subclass(
@@ -307,12 +341,13 @@ def test_misaligned_rows_raise_before_any_launch(monkeypatch, dtype, offset):
 
 
 def test_route_counters_exist_and_count_nothing_on_the_cpu():
-    """``launches_bf16_tc`` on the forward and dkv beside ``.launches``; a
-    CPU call (the plain versions, forward and backward through autograd)
-    moves none of them."""
+    """``launches_bf16_tc`` on the forward, dq and dkv beside
+    ``.launches``; a CPU call (the plain versions, forward and backward
+    through autograd) moves none of them."""
     counters = [(fmod.flash_attention_fwd, "launches"),
                 (fmod.flash_attention_fwd, "launches_bf16_tc"),
                 (fmod.flash_attention_dq, "launches"),
+                (fmod.flash_attention_dq, "launches_bf16_tc"),
                 (fmod.flash_attention_dkv, "launches"),
                 (fmod.flash_attention_dkv, "launches_bf16_tc")]
     before = [getattr(fn, a) for fn, a in counters]
@@ -348,3 +383,25 @@ def test_ptxas_usage_names_the_flash_tensor_core_kernels():
     ) == "flash_dkv_kernel<64, 2>"
     assert _build.kernel_name("_ZN12_GLOBAL__N_116fce_tc_dx_kernelIfEEvPK13"
                               ) == "fce_tc_dx_kernel"
+
+
+@pytest.mark.parametrize("tag, kernel", [
+    ("_ZN51_GLOBAL__N__577aa515_18_flash_attention_cu_424c222f",
+     "flash_tc_fwd_kernel"),
+    ("_ZN51_GLOBAL__N__57a47b99_18_flash_attention_cu_16167a2f",
+     "flash_tc_dq_kernel"),
+    ("_ZN51_GLOBAL__N__61d8d152_18_flash_attention_cu_ed5dc373",
+     "flash_tc_dkv_kernel"),
+    ("_ZN52_GLOBAL__N__cd7dd454_19_packed_attention_cu_7a4883c9",
+     "packed_tc_bwd_kernel"),
+])
+def test_kernel_name_ignores_runs_the_namespace_hash_counts(tag, kernel):
+    """Digits of the anonymous namespace's hashes can count a longer run
+    that also ends at the kernel's ``_kernel`` (``...2a4f18flash_tc_dq_
+    kernel`` read from the ``57`` of the first hash); each instance is
+    still named by its own identifier, so the build's count of
+    tensor-core instances does not depend on the hashes a build drew."""
+    from marian_tpu_torch.ops.kernels import _build
+    mangled = (f"{tag}{len(kernel)}{kernel}ILi64EEEvPK13__nv_bfloat16S3_S3_"
+               f"PKfPS1_Pfiiifi")
+    assert _build.kernel_name(mangled) == f"{kernel}<64>"

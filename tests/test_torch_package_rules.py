@@ -319,8 +319,13 @@ def test_flash_wrappers_raise_on_cuda_request(flash_plain_forbidden):
     with pytest.raises(RuntimeError):
         famod.flash_attention(_cuda_typed(b, h, t, dh).requires_grad_(True),
                               k, v, causal=True)
-    # a head size the kernels are not built for is refused, not bypassed
-    with pytest.raises(ValueError, match="head size"):
+    # a head size past the largest the kernels are built for is refused
+    # by name, not bypassed; a smaller one they are not built for runs
+    # zero-padded to a built one, so it reaches the launch
+    with pytest.raises(ValueError, match="head size 256"):
+        famod.flash_attention_fwd(*(_cuda_typed(b, h, t, 256)
+                                    for _ in range(3)))
+    with pytest.raises(RuntimeError):
         famod.flash_attention_fwd(*(_cuda_typed(b, h, t, 8)
                                     for _ in range(3)))
     assert (famod.flash_attention_fwd.launches,
