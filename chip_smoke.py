@@ -38,8 +38,9 @@ card, and drives the port's main paths on data made from --seed:
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
   paths' shapes, timed beside SDPA on bf16; the flash forward, dq and
-  dkv on the tensor cores for aligned operands, the packed backward
-  there up to 64 tokens) held against their plain versions on the same
+  dkv on the tensor cores for aligned operands, the packed forward
+  there at every length and the packed backward up to 64 tokens) held
+  against their plain versions on the same
   bf16 operands;
   transformer-base trained 2 + 10 updates and decoded (beam 6,
   the same sentences) in bf16; and bf16 on the card against bf16 on the
@@ -146,9 +147,11 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
                    "fused_ce_fwd_bf16_tc": 1, "fused_ce_dx_bf16_tc": 1,
                    "fused_ce_dw_bf16_tc": 1,
                    # every sentence within 64 tokens: the packed backward
-                   # on the tensor cores
+                   # on the tensor cores; the packed forward there at
+                   # every length
                    "packed_attention_bwd": 0,
-                   "packed_attention_bwd_bf16_tc": 18}
+                   "packed_attention_bwd_bf16_tc": 18,
+                   "packed_attention": 0, "packed_attention_bf16_tc": 18}
 # the main paths, by the names run_phases gives their launch counts. The
 # attention kernels' f32 and bf16 instantiations count on one wrapper's
 # launches (the bf16 tensor-core kernels on their own,
@@ -333,12 +336,14 @@ def phase_build() -> None:
               line for line in _build.USAGE.get("fused_ce_bf16", [])
               if "fce_tc_" in line)
           + "; of the flash tensor-core kernels: " + "; ".join(flash)
-          + "; of the packed tensor-core backward: " + "; ".join(packed))
+          + "; of the packed tensor-core forward and backward: "
+          + "; ".join(packed))
     # the attention tensor-core kernels: every instance built here (the
     # flash forward, dq and dkv, the packed backward, at Dh 16, 32, 64
-    # and 128), none spills
+    # and 128; the packed forward at those and 32 or 64 query rows), none
+    # spills
     for lib, lines, n in (("flash_attention_bf16", flash, 12),
-                          ("packed_attention_bf16", packed, 4)):
+                          ("packed_attention_bf16", packed, 12)):
         if lib in took:
             spill = [line for line in lines if "0 bytes spill stores, 0 "
                      "bytes spill loads" not in line]
@@ -1201,12 +1206,14 @@ def phase_attention_kernels_bf16(gen) -> list:
     bytes, operations at the bf16 tensor-core peak): decode_attention on
     bf16 queries and caches at the base decode's R 384, H 8, L 64; the
     packed forward and backward at the bf16 base update's B 192, H 8, T
-    64 (the backward also at Dh 16, 32 and 128, causal, cross and ragged
-    with a fully masked row, and past 64 tokens on the CUDA cores); the
+    64 (both also at Dh 16, 32 and 128, causal, cross and ragged with a
+    fully masked row; the forward at T 32 and past 64 tokens on the
+    tensor cores, ``packed_fwd_bf16_cases``; the backward past 64 tokens
+    on the CUDA cores); the
     flash forward, dq and dkv at the doc shape (B 8, H 16, T 2,048,
     every key live). Each row prints its route. Rows ``<kernel>_bf16``
     count their route's launches on the bf16 paths (BF16_PATHS): the
-    flash forward, dq and dkv and the packed backward on
+    flash forward, dq and dkv and the packed forward and backward on
     ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
@@ -1274,10 +1281,8 @@ def phase_attention_kernels_bf16(gen) -> list:
     q, k, v, do = (randn(b, h, t, dh) for _ in range(4))
     kvm = torch.ones(b, t, device=dev)
     mask = kvm.bool()[:, None, None, :]
+    err = packed_fwd_bf16_cases(gen, q, k, v, kvm)
     out = pa.packed_attention(q, k, v, kvm)
-    ref = pa.packed_attention_reference(q, k, v, kvm)
-    torch.cuda.synchronize()
-    err = close_to_scale(out, ref, "packed_attention bf16", BF16_REL_TOL)
     bwd_err = packed_bwd_bf16_cases(gen, q, k, v, do, kvm, out)
     ms = time_ms(lambda: pa.packed_attention(q, k, v, kvm))
     plain_ms = time_ms(lambda: pa.packed_attention_reference(q, k, v, kvm))
@@ -1286,7 +1291,8 @@ def phase_attention_kernels_bf16(gen) -> list:
     add("packed_attention", f"B={b} H={h} T={t} Dh={dh} bf16 (base "
         f"training)", "packed_attention.cu", "packed_attention.py:197",
         err, ms, plain_ms, lib_ms, 4 * elems + b * t * 4,
-        4 * b * h * t * t * dh)
+        4 * b * h * t * t * dh, "tensor cores, packed_tc_fwd_kernel",
+        "packed_attention_bf16_tc")
     ms = time_ms(lambda: pa.packed_attention_bwd(q, k, v, kvm, do, out))
     plain_ms = time_ms(lambda: pa.packed_attention_bwd_reference(
         q, k, v, kvm, do, out))
@@ -1301,7 +1307,7 @@ def phase_attention_kernels_bf16(gen) -> list:
         "packed_attention.py:214", bwd_err, ms, plain_ms, lib_ms,
         8 * elems + b * t * 4, 10 * b * h * t * t * dh,
         "tensor cores, packed_tc_bwd_kernel", "packed_attention_bwd_bf16_tc")
-    del q, k, v, do, kvm, mask, out, ref, ql, kl, vl, lib_out
+    del q, k, v, do, kvm, mask, out, ql, kl, vl, lib_out
     torch.cuda.empty_cache()
 
     # flash: the doc shape, every key live; the forward, dq and dkv take
@@ -1379,6 +1385,74 @@ def phase_attention_kernels_bf16(gen) -> list:
     return rows
 
 
+def packed_bf16_inputs(gen, dev, b, h, tq, tk, dh, lead: int = 0):
+    """bf16 q, k, v, dO on the card and a key mask [B, Tk] of ragged
+    lengths (row 0 all Tk), row 1 fully masked, row 2's first ``lead``
+    keys masked too."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    q, do = randn(b, h, tq, dh), randn(b, h, tq, dh)
+    k, v = randn(b, h, tk, dh), randn(b, h, tk, dh)
+    lens = torch.randint(1, tk + 1, (b,), generator=gen)
+    lens[0] = tk
+    kvm = (torch.arange(tk)[None, :] < lens[:, None]).float()
+    kvm[1] = 0.0                                      # a fully masked row
+    kvm[2, :lead] = 0.0
+    return q, k, v, do, kvm.to(dev)
+
+
+def packed_fwd_bf16_cases(gen, q, k, v, kvm) -> float:
+    """The bf16 packed forward against its plain version, every case on
+    the tensor cores (out within one bf16 spacing plus REL_TOL of the
+    scale, ``close_bf16``; two calls bit-identical; the route by its
+    counter): at the base shape (q, k, v, kvm; B 192, T 64, Dh 64, every
+    key live), causal, cross 64 x 48, ragged with a fully masked row at
+    Dh 16, Dh 32 causal, Dh 128, the decode encoder's T 32 (32-query
+    tiles), and past one key tile at T 100 causal and T 256, where a row
+    whose first 70 keys are masked walks every key tile. Returns the
+    cases' max |err|."""
+    from marian_tpu_torch.ops.kernels import packed_attention as pa
+    err = 0.0
+    # name, B, H, Tq, Tk, Dh, causal
+    cases = [("base", None), ("causal", (64, 8, 64, 64, 64, True)),
+             ("cross", (64, 8, 64, 48, 64, False)),
+             ("ragged, a fully masked row, Dh 16", (32, 8, 41, 41, 16,
+                                                     False)),
+             ("Dh 32 causal", (32, 8, 64, 64, 32, True)),
+             ("Dh 128", (32, 4, 64, 64, 128, False)),
+             ("decode encoder", (64, 8, 32, 32, 64, False)),
+             ("two key tiles", (8, 8, 100, 100, 64, True)),
+             ("four key tiles", (8, 8, 256, 256, 64, False))]
+    fn = pa.packed_attention
+    for name, shape in cases:
+        causal = False
+        if shape is not None:
+            b, h, tq, tk, dh, causal = shape
+            q, k, v, _, kvm = packed_bf16_inputs(
+                gen, q.device, b, h, tq, tk, dh, 70 if tk > 64 else 0)
+        b, h, tq, dh = q.shape
+        tk = k.shape[2]
+        before = (fn.launches, fn.launches_bf16_tc)
+        got = fn(q, k, v, kvm, causal=causal)
+        again = fn(q, k, v, kvm, causal=causal)
+        ref = pa.packed_attention_reference(q, k, v, kvm, causal=causal)
+        torch.cuda.synchronize()
+        moved = (fn.launches - before[0], fn.launches_bf16_tc - before[1])
+        check(moved == (0, 2),
+              f"packed_attention bf16 [{name}]: launches by route (CUDA "
+              f"cores, tensor cores) {moved}")
+        check(torch.equal(got, again),
+              f"packed_attention bf16 [{name}]: two calls differ")
+        what = (f"packed_attention bf16 [{name}] B={b} H={h} Tq={tq} "
+                f"Tk={tk} Dh={dh} causal={causal}")
+        e = close_bf16(got, ref, what)
+        err = max(err, e)
+        print(f"kernel {what} [route: tensor cores]: max |err| {e:.3g} "
+              f"(one bf16 spacing + {REL_TOL} x scale), two calls "
+              f"bit-identical")
+    return err
+
+
 def packed_bwd_bf16_cases(gen, q, k, v, do, kvm, out) -> float:
     """The bf16 packed backward against its plain version: at the base
     shape (q, k, v, dO, kvm, out; B 192, T 64, Dh 64, every key live)
@@ -1388,11 +1462,7 @@ def packed_bwd_bf16_cases(gen, q, k, v, do, kvm, out) -> float:
     100 on the CUDA cores (BF16_REL_TOL). Each case checks its route;
     returns the tensor-core cases' max |err|."""
     from marian_tpu_torch.ops.kernels import packed_attention as pa
-    dev = q.device
     err = 0.0
-
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
     # name, B, H, Tq, Tk, Dh, causal
     cases = [("base", None), ("causal", (64, 8, 64, 64, 64, True)),
              ("cross", (64, 8, 64, 48, 64, False)),
@@ -1406,13 +1476,8 @@ def packed_bwd_bf16_cases(gen, q, k, v, do, kvm, out) -> float:
         causal = False
         if shape is not None:
             b, h, tq, tk, dh, causal = shape
-            q, do = randn(b, h, tq, dh), randn(b, h, tq, dh)
-            k, v = randn(b, h, tk, dh), randn(b, h, tk, dh)
-            lens = torch.randint(1, tk + 1, (b,), generator=gen)
-            lens[0] = tk
-            kvm = (torch.arange(tk)[None, :] < lens[:, None]).float()
-            kvm[1] = 0.0                              # a fully masked row
-            kvm = kvm.to(dev)
+            q, k, v, do, kvm = packed_bf16_inputs(gen, q.device, b, h, tq,
+                                                  tk, dh)
             out = pa.packed_attention(q, k, v, kvm, causal=causal)
         b, h, tq, dh = q.shape
         tk = k.shape[2]
@@ -1987,7 +2052,7 @@ def kernel_counters():
     that counts its launches). The fused CE's bf16 instantiations count
     on their wrappers' ``launches_bf16``, its tensor-core forward and
     backward, the flash tensor-core forward, dq and dkv and the packed
-    tensor-core backward on ``launches_bf16_tc``."""
+    tensor-core forward and backward on ``launches_bf16_tc``."""
     from marian_tpu_torch.ops.kernels import decode_attention as da
     from marian_tpu_torch.ops.kernels import flash_attention as fa
     from marian_tpu_torch.ops.kernels import fused_ce as fce
@@ -2007,7 +2072,8 @@ def kernel_counters():
         out[f"{name}_bf16"] = (fns[name], "launches_bf16")
     for name in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw",
                  "flash_attention_fwd", "flash_attention_dq",
-                 "flash_attention_dkv", "packed_attention_bwd"):
+                 "flash_attention_dkv", "packed_attention",
+                 "packed_attention_bwd"):
         out[f"{name}_bf16_tc"] = (fns[name], "launches_bf16_tc")
     return out
 
@@ -2781,7 +2847,7 @@ def phase_bf16_decode_main_path(lines) -> dict:
     check(tr.model.cfg.compute_dtype == torch.bfloat16
           and tr.params["Wemb"].dtype == torch.bfloat16,
           f"bf16 decode computes in {tr.model.cfg.compute_dtype}")
-    check_decode_counts(tr, counts, N_BATCHES, "packed_attention")
+    check_decode_counts(tr, counts, N_BATCHES, "packed_attention_bf16_tc")
     steps = list(tr.search.steps)
     print(f"bf16 decode main path: transformer-base 6+6 in bf16, vocab "
           f"{VOCAB}, beam {BEAM}, {len(lines)} sentences x {SRC_LEN} tokens "

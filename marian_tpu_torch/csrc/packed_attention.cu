@@ -19,14 +19,14 @@
 // both bounds per run; PERF.md has them), so the kernel has to read each
 // input once and keep the arithmetic near the CUDA cores' rate.
 //
-// packed_attention_fwd_kernel (Dh 16, 32, 64, 128) runs on the register-
-// blocked tiles of attention_tiles.cuh, as the backward's one-tile kernel
-// does: a block of 128 threads (8 x 16) owns one (batch, head) and 64
+// In float32, packed_attention_fwd_kernel (Dh 16, 32, 64, 128) runs on the
+// register-blocked tiles of attention_tiles.cuh, as the backward's one-tile
+// kernel does: a block of 128 threads (8 x 16) owns one (batch, head) and 64
 // query rows, a thread an 8 x 4 fragment of the score tile (up to 32
 // queries, as in the decode encoder, 64 threads own 32 rows, so no block
 // computes a half-empty tile). The query
 // tile, and the head's K, V and key mask 64 keys at a time, are staged by
-// 16-byte cp.async (bf16 converted through registers); S = Q.K^T is
+// 16-byte cp.async; S = Q.K^T is
 // computed once a key tile from float4 reads (8 FMAs each), its row max
 // and sum reduced over the sixteen lanes of a row, P written once to
 // shared memory at the template's stride of 80 and multiplied into the
@@ -44,10 +44,29 @@
 // QT*80 + stages * (2*64*SD + 64), one stage up to 64 keys: 73 KB at Dh
 // 64 (54 KB with 32 rows).
 //
-// At any other head size, or where q, k or v is not 16-byte aligned (the
-// tiles stage by 16-byte copies), packed_attention_generic_kernel, the
-// former design, runs (the launcher's choice by shape: ops/kernels/
-// packed_attention.py :: fwd_query_tile): a block owns one (batch, head) and
+// In bf16 at those head sizes packed_tc_fwd_kernel (the bf16 library
+// only; entry packed_attention_fwd_tc, the wrapper's packed_tc_fwd_path)
+// takes every call on the tensor cores: mma.sync m16n8k16 on bf16
+// operands with f32 sums (attention_mma.cuh's tiles), a block of 4 warps
+// and 64 query rows, 16 a warp (2 warps and 32 rows up to 32 queries),
+// the same grid, key tiles, online softmax and causal skip as above. S =
+// Q.K^T and its softmax stay in the registers; P enters O += P.V as a
+// hi/lo bf16 pair (hi = bf16(x), lo = bf16(x - hi): the reference's f32 P
+// to 2^-16). A tile's K and key mask land as one cp.async group and its V
+// as the next, so S is formed while V lands; past 64 keys the next
+// tile's groups fly in a second slot. O / l leaves through the warp's own
+// rows of the query tile as 16-byte stores. What bounds it on an H100:
+// bytes (4 B.H.T.Dh bf16 elements for 4 B.H.Tq.Tk.Dh flops, of which the
+// hi/lo pair makes 6 on the tensor cores), so several blocks share an
+// SM, one's copies under another's products. Shared memory (bytes; P =
+// Dh + 8): QT*P*2 + stages * (4*64*P + 256): 28 KB at Dh 64 up to 64
+// keys. The wrapper copies operands that are not 16-byte aligned.
+//
+// At any other head size, or in float32 where q, k or v is not 16-byte
+// aligned (the tiles stage by 16-byte copies),
+// packed_attention_generic_kernel, the former design, runs (the
+// launcher's choice by shape: ops/kernels/packed_attention.py ::
+// fwd_query_tile): a block owns one (batch, head) and
 // 16 query rows, stages the head's K and V in shared memory (rows padded
 // to Dh+1 floats) and walks one query row a warp. Its shared memory,
 // (2*Tk*(Dh+1) + Tk + warps*(Dh+Tk)) floats, set the port's length cap
@@ -950,6 +969,195 @@ int launch_tc_bwd(const void* q, const void* k, const void* v,
       (bf16*)dv, H, Tq, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// the bf16 forward on the tensor cores: QT query rows a block (64: 4
+// warps; 32 up to 32 queries: 2 warps), 64-key tiles, the bf16 library
+// only
+
+template <int DH>
+struct PackedTcFwd {
+  static constexpr int P = DH + 8;  // staged row pitch, bf16
+  // one key tile: K and V [64][P], the key mask [64] (bytes)
+  static constexpr int kStage = 2 * kTile * P * 2 + kTile * 4;
+  // blocks of 128 threads an SM the registers are capped for (twice as
+  // many of 64): 80, 96, 166 and 249 registers at Dh 16, 32, 64, 128, no
+  // spill; one block more spilled at Dh 32, 64 (12 bytes) and 128
+  static constexpr int kBlocks =
+      DH == 16 ? 6 : DH == 32 ? 5 : DH == 64 ? 3 : 2;
+  // the query tile and one key tile, two past 64 keys (bytes)
+  static constexpr size_t smem(int qt, int tk) {
+    return (size_t)qt * P * 2 + (tk > kTile ? 2 : 1) * kStage;
+  }
+  static_assert(kTile * P * 2 + 2 * kStage <= (int)kMaxSmem,
+                "shared memory of a block");
+};
+
+// Warp w owns query rows q0 + 16 w .. + 15 (this thread r0 and r0 + 8,
+// its C fragments' two rows). Each key tile: S = Q K^T on the tensor
+// cores, scale, key mask and causal replacement in the reference's
+// order (keys past Tk are no keys), the online softmax from -1e30 in
+// the registers (a row lies on a quad), O += P V with P as a hi/lo bf16
+// pair from the registers. A tile's K and key mask are one cp.async
+// group and its V the next, so S is formed while V lands; past 64 keys
+// the next tile's two groups fly in the ring's other slot. At the end
+// O / l (l >= 1: the row max contributes exp(0)) goes through the warp's
+// own rows of Q's tile to 16-byte stores; rows past Tq are not stored.
+template <int DH, int QT>
+__global__ void __launch_bounds__(2 * QT, PackedTcFwd<DH>::kBlocks * 64 / QT)
+    packed_tc_fwd_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const float* __restrict__ kv_mask,
+                         bf16* __restrict__ out, int H, int Tq, int Tk,
+                         float scale, int causal) {
+  using G = PackedTcFwd<DH>;
+  constexpr int P = G::P, NT = 2 * QT, ND = DH / 8, NJ = kTile / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [QT][P] Q, then out
+  unsigned char* ring = tc_smem + QT * P * 2;   // 2 x {K, V, key mask}
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / H, q0 = blockIdx.y * QT;
+  const int r0 = q0 + warp * 16 + g;
+  const float* kvm = kv_mask + (size_t)b * Tk;
+  const bf16* kh = k + (size_t)bh * Tk * DH;
+  const bf16* vh = v + (size_t)bh * Tk * DH;
+  int n_k = (Tk + kTile - 1) / kTile;
+  auto slot = [&](int kt) {
+    return reinterpret_cast<bf16*>(ring + (kt & 1) * G::kStage);
+  };
+  // tile kt's K and key mask, then its V: two groups (empty past n_k)
+  auto stage_keys = [&](int kt) {
+    bf16* s = slot(kt);
+    if (kt < n_k) {
+      tc_stage_rows<kTile, DH, NT>(kh, kt * kTile, Tk, s);
+      tc_stage_vec<kTile>(kvm, kt * kTile, Tk,
+                          reinterpret_cast<float*>(s + 2 * kTile * P), 0);
+    }
+    cp_async_commit();
+    if (kt < n_k)
+      tc_stage_rows<kTile, DH, NT>(vh, kt * kTile, Tk, s + kTile * P);
+    cp_async_commit();
+  };
+  tc_stage_rows<QT, DH, NT>(q + (size_t)bh * Tq * DH, q0, Tq, qs);
+  stage_keys(0);  // Q lands with tile 0's K
+  if (causal) {
+    // key tiles wholly after every query of the tile weigh exp(-1e9 -
+    // max) = 0 when every row sees a live key: one at or before q0
+    bool seen = false;
+    for (int j = threadIdx.x; j <= q0 && j < Tk; j += NT)
+      seen |= kvm[j] != 0.f;
+    if (__syncthreads_or(seen)) n_k = min(n_k, (q0 + QT - 1) / kTile + 1);
+  }
+
+  float o[ND][4], m[2] = {kStatsInit, kStatsInit}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) o[d][h] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    cp_async_wait<1>();  // Q, tile kt's K and key mask (its V may fly)
+    __syncthreads();     // ... of every thread; tile kt - 1's readers are done
+    stage_keys(kt + 1);
+    const bf16* ks = slot(kt);
+    const bf16* vs = ks + kTile * P;
+    const float* mk = reinterpret_cast<const float*>(vs + kTile * P);
+    const int k0 = kt * kTile;
+    float s[NJ][4];
+    score_product<NJ, DH>(qs, warp * 16, ks, s);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int c = 8 * j + 2 * t + (h & 1), col = k0 + c;
+        float x = s[j][h] * scale + (1.f - mk[c]) * kMask;
+        if (causal && r0 + 8 * (h >> 1) < col) x = kMask;
+        s[j][h] = col < Tk ? x : -INFINITY;
+        mx[h >> 1] = fmaxf(mx[h >> 1], s[j][h]);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        s[j][h] = expf(s[j][h] - m[h >> 1]);
+        sum[h >> 1] += s[j][h];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = alpha[i] * l[i] + sum[i];  // the f32 p, not the rounded pair
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) o[d][h] *= alpha[h >> 1];
+    cp_async_wait<2>();  // tile kt's V (the next tile's two groups may fly)
+    __syncthreads();
+    tile_product<NJ / 2, DH>(s, vs, o);  // O += P V, P as a hi/lo pair
+  }
+  cp_async_wait<0>();
+  // every warp read its Q rows before the last tile's barrier
+  bf16* os = qs + warp * 16 * P;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      mma::store2(os + (g + 8 * i) * P + 8 * d + 2 * t, o[d][2 * i] / l[i],
+                  o[d][2 * i + 1] / l[i]);
+  __syncwarp();
+  constexpr int C = DH / 8;  // 16-byte vectors a row
+  bf16* oh = out + ((size_t)bh * Tq + q0 + warp * 16) * DH;
+#pragma unroll
+  for (int i = 0; i < C / 2; ++i) {
+    const int u = lane + 32 * i, r = u / C, c = (u % C) * 8;
+    if (q0 + warp * 16 + r < Tq)
+      *reinterpret_cast<uint4*>(oh + r * DH + c) =
+          *reinterpret_cast<const uint4*>(os + r * P + c);
+  }
+}
+
+template <int DH, int QT>
+int launch_tc_fwd(const void* q, const void* k, const void* v,
+                  const void* kv_mask, void* out, int B, int H, int Tq,
+                  int Tk, float scale, int causal, cudaStream_t stream) {
+  const size_t smem = PackedTcFwd<DH>::smem(QT, Tk);
+  auto kern = packed_tc_fwd_kernel<DH, QT>;
+  if (smem > 48 * 1024) {
+    if (int e = set_smem(kern, smem)) return e;
+  }
+  const dim3 grid(B * H, (Tq + QT - 1) / QT);
+  kern<<<grid, 2 * QT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)kv_mask,
+      (bf16*)out, H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_tc_fwd(const void* q, const void* k, const void* v,
+                  const void* kv_mask, void* out, int B, int H, int Tq,
+                  int Tk, float scale, int causal, int tile,
+                  cudaStream_t stream) {
+  if (tile == 32)
+    return launch_tc_fwd<DH, 32>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale,
+                                 causal, stream);
+  if (tile == 64)
+    return launch_tc_fwd<DH, 64>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale,
+                                 causal, stream);
+  return (int)cudaErrorInvalidValue;
+}
 #endif
 
 }  // namespace
@@ -1020,10 +1228,12 @@ extern "C" int packed_attention_bwd_tc(const void* q, const void* k,
 
 // dtype codes: 0 = float32, 1 = bfloat16, the library's own
 // (KERNEL_DTYPE). kv_mask is float32 [B, Tk].
-// tile 32 or 64 takes packed_attention_fwd_kernel (Dh 16, 32, 64 or 128)
-// with that many query rows a block, tile 0 packed_attention_generic_kernel
-// (any Dh). Returns cudaGetLastError() (or the error of raising the
-// shared-memory limit; cudaErrorInvalidValue for what it does not take).
+// tile 32 or 64 takes packed_attention_fwd_kernel (float32, Dh 16, 32, 64
+// or 128) with that many query rows a block, tile 0
+// packed_attention_generic_kernel (any Dh); bf16 at those head sizes is
+// the entry packed_attention_fwd_tc's. Returns cudaGetLastError() (or the
+// error of raising the shared-memory limit; cudaErrorInvalidValue for
+// what it does not take).
 extern "C" int packed_attention(const void* q, const void* k, const void* v,
                                 const void* kv_mask, void* out, int B, int H,
                                 int Tq, int Tk, int Dh, float scale,
@@ -1042,22 +1252,44 @@ extern "C" int packed_attention(const void* q, const void* k, const void* v,
 #endif
     return (int)cudaErrorInvalidValue;
   }
-#define CALL(T, D)                                                     \
-  launch_fwd<T, D>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale, causal, tile, \
-                   s)
-  switch (dtype * 1000 + Dh) {
 #if KERNEL_DTYPE == 0
-    case 16: return CALL(float, 16);
-    case 32: return CALL(float, 32);
-    case 64: return CALL(float, 64);
-    case 128: return CALL(float, 128);
+#define CALL(D)                                                            \
+  launch_fwd<float, D>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale, causal, \
+                       tile, s)
+  switch (dtype * 1000 + Dh) {
+    case 16: return CALL(16);
+    case 32: return CALL(32);
+    case 64: return CALL(64);
+    case 128: return CALL(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CALL
 #else
-    case 1016: return CALL(__nv_bfloat16, 16);
-    case 1032: return CALL(__nv_bfloat16, 32);
-    case 1064: return CALL(__nv_bfloat16, 64);
-    case 1128: return CALL(__nv_bfloat16, 128);
+  return (int)cudaErrorInvalidValue;
 #endif
+}
+
+#if KERNEL_DTYPE == 1
+// The bf16 forward on the tensor cores (packed_tc_fwd_kernel), Dh 16, 32,
+// 64 or 128, any Tq and Tk up to the routing cap, q, k, v and out 16-byte
+// aligned: as packed_attention, without the type flag; tile 32 or 64
+// query rows a block. kv_mask is float32 [B, Tk].
+extern "C" int packed_attention_fwd_tc(const void* q, const void* k,
+                                       const void* v, const void* kv_mask,
+                                       void* out, int B, int H, int Tq,
+                                       int Tk, int Dh, float scale,
+                                       int causal, int tile, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define CALL(D)                                                          \
+  launch_tc_fwd<D>(q, k, v, kv_mask, out, B, H, Tq, Tk, scale, causal, \
+                   tile, s)
+  switch (Dh) {
+    case 16: return CALL(16);
+    case 32: return CALL(32);
+    case 64: return CALL(64);
+    case 128: return CALL(128);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CALL
 }
+#endif

@@ -12,27 +12,30 @@ On a CUDA tensor ``packed_attention`` launches the hand-written kernel
 ``csrc/packed_attention.cu`` or raises; on a CPU tensor it runs
 ``packed_attention_reference``. When an input requires a gradient on the
 card, the call goes through an autograd Function (the reference's custom
-VJP): its forward is the same kernel and saves ``out``; its backward
-computes ``delta = rowsum(dO * out)`` in plain torch, as the reference
-does, and ``packed_attention_bwd`` launches the backward kernel, which
-recomputes P and returns dq, dk, dv (kv_mask gets none). On the CPU the
+VJP): its forward is the same kernel and saves ``out``; its backward,
+``packed_attention_bwd``, launches the backward kernel, which recomputes
+P and returns dq, dk, dv (kv_mask gets none), with ``delta = rowsum(dO *
+out)`` taken in plain torch before the float32 and tiled kernels, as the
+reference takes it, and inside the bf16 tensor-core one. On the CPU the
 gradient is autograd through the plain forward.
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
-kernel launches.
+kernel launches on the CUDA cores, ``.launches_bf16_tc`` of each those
+on the tensor cores.
 
-The forward kernel works on 64 x 64 tiles of queries and keys too: a
-block per (batch, head) and 64 queries (32 up to 32 queries:
+The float32 forward kernel works on 64 x 64 tiles of queries and keys
+too: a block per (batch, head) and 64 queries (32 up to 32 queries:
 ``fwd_query_tile``) stages its query tile and the head's K and V once,
 64 keys at a time; up to 64 keys (every sentence of
 the training, decode and serving paths) that is one pass, past 64 it
 walks the key tiles with an online softmax.
 ``packed_attention_tiled_reference`` is that tiling in plain torch. It is
 built for Dh 16, 32, 64 and 128 (``BWD_HEAD_SIZES``) and stages by
-16-byte copies; at any other head size, or where q, k or v is not
-16-byte aligned (a view at an odd offset), the launcher takes the former
-kernel, which stages a head's whole K and V a block with scalar loads and
-walks one query row a warp (``fwd_query_tile``, a choice by shape).
-``max_t`` stays the forward's routing cap at every head size.
+16-byte copies; at any other head size (in either type), or where a
+float32 q, k or v is not 16-byte aligned (a view at an odd offset), the
+launcher takes the former kernel, which stages a head's whole K and V
+a block with scalar loads and walks one query row a warp
+(``fwd_query_tile``, a choice by shape). ``max_t`` stays the forward's
+routing cap at every head size.
 
 The backward kernel works on 64 x 64 tiles of queries and keys: up to 64
 of each (a training sentence) a head is one tile pair, computed once;
@@ -55,6 +58,15 @@ dS^T.Q from P and dS stored as hi/lo pairs; it takes delta itself, from
 the staged dO and ``out``
 (``packed_attention_bwd_tc_reference`` is that order of work in plain
 torch). Past 64 tokens and in float32 the kernels above run.
+
+In bfloat16 at those head sizes (``packed_tc_fwd_path``: every bf16 call
+of the training, decode and serving paths) the forward runs on the
+tensor cores too (the entry ``packed_attention_fwd_tc``), counted on
+``packed_attention.launches_bf16_tc``: the same query tiles (32 or 64
+rows, ``fwd_query_tile``), 64-key tiles and online softmax, S = Q.K^T
+from bf16 products with f32 sums and P into P.V as a hi/lo bf16 pair
+(``packed_attention_tc_reference`` is that order of work in plain
+torch). The wrapper copies an operand that is not 16-byte aligned first.
 """
 
 from __future__ import annotations
@@ -67,7 +79,8 @@ import torch
 
 from ..ops import NEG_INF
 from . import _build
-from .flash_attention import _split_product   # the hi/lo pair's product
+# the hi/lo pair's product; the tensor-core forward's order of work
+from .flash_attention import _fwd_tiles, _split_product
 
 _SMEM_FLOATS = 232448 // 4          # a Hopper block's shared-memory ceiling
 _WARPS = 4
@@ -90,11 +103,13 @@ def max_t(dh: int) -> int:
 
 def fwd_query_tile(dh: int, tq: int, aligned: bool = True) -> int:
     """The forward kernel a shape takes, as the query rows a block of the
-    tile kernel owns: 0 at a head size that kernel is not built for, or
-    for operands that are not all 16-byte aligned (its copies are 16
-    bytes; the generic kernel, one query row a warp); 32 (a block of 64
-    threads) up to 32 queries, as the decode encoder has them, so no
-    block computes a half-empty tile; else 64 (128 threads)."""
+    tile kernels (float32, and bf16 on the tensor cores) owns: 0 at a
+    head size they are not built for, or for operands that are not all
+    16-byte aligned (their copies are 16 bytes; the generic kernel, one
+    query row a warp, in float32; the wrapper copies bf16 ones); 32 (a
+    block of 64 threads) up to 32 queries, as the decode encoder has
+    them, so no block computes a half-empty tile; else 64 (128
+    threads)."""
     if dh not in BWD_HEAD_SIZES or not aligned:
         return 0
     return 32 if tq <= 32 else _TILE
@@ -169,41 +184,19 @@ def packed_attention_tiled_reference(q, k, v, kv_mask=None,
     keys past Tk left out, and divides by the sum at the end. A causal
     key tile wholly after every query of the tile is skipped when the
     batch row has a live key at or before the tile's first query."""
-    b, h, tq, dh = q.shape
-    tk = k.shape[2]
+    return _tiles(q, k, v, kv_mask, causal, scale, False)
+
+
+def _tiles(q, k, v, kv_mask, causal, scale, split: bool):
+    """The forward kernels' tiling (flash_attention's ``_fwd_tiles`` at
+    ``fwd_query_tile`` query rows and 64-key tiles; l >= 1 here, so its
+    zero guard never acts); with ``split`` each tile's P.V takes P as its
+    hi/lo bf16 pair. Returns out in q's dtype."""
+    dh = q.shape[-1]
     if scale is None:
         scale = 1.0 / (dh ** 0.5)
-    kvm = _mask(kv_mask, b, tk, q.device)
-    qf, kf, vf = q.float(), k.float(), v.float()
-    out = torch.empty_like(qf)
-    qt = fwd_query_tile(dh, tq) or _TILE
-    for bb in range(b):
-        bias = (1.0 - kvm[bb]) * NEG_INF
-        for i0 in range(0, tq, qt):
-            i1 = min(tq, i0 + qt)
-            n_k = -(-tk // _TILE)
-            if causal and bool((kvm[bb, :i0 + 1] != 0).any()):
-                n_k = min(n_k, (i0 + qt - 1) // _TILE + 1)
-            m = torch.full((h, i1 - i0), -1e30, device=q.device)
-            l = torch.zeros((h, i1 - i0), device=q.device)
-            acc = torch.zeros((h, i1 - i0, dh), device=q.device)
-            for j0 in range(0, n_k * _TILE, _TILE):
-                j1 = min(tk, j0 + _TILE)
-                s = torch.einsum("hqd,hkd->hqk", qf[bb, :, i0:i1],
-                                 kf[bb, :, j0:j1]) * scale + bias[j0:j1]
-                if causal:
-                    live = (torch.arange(i0, i1, device=q.device)[:, None]
-                            >= torch.arange(j0, j1, device=q.device)[None])
-                    s = torch.where(live, s, torch.full_like(s, NEG_INF))
-                m_new = torch.maximum(m, s.amax(dim=-1))
-                alpha = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
-                l = alpha * l + p.sum(dim=-1)
-                acc = acc * alpha[..., None] + torch.einsum(
-                    "hqk,hkd->hqd", p, vf[bb, :, j0:j1])
-                m = m_new
-            out[bb, :, i0:i1] = acc / l[..., None]
-    return out.to(q.dtype)
+    return _fwd_tiles(q, k, v, kv_mask, causal, scale,
+                      fwd_query_tile(dh, q.shape[2]) or _TILE, split)[0]
 
 
 def packed_attention_bwd_reference(q, k, v, kv_mask, do, out,
@@ -337,6 +330,29 @@ def packed_attention_bwd_tc_reference(q, k, v, kv_mask, do, out,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def packed_attention_tc_reference(q, k, v, kv_mask=None,
+                                  causal: bool = False,
+                                  scale: Optional[float] = None):
+    """The tensor-core forward's order of work in plain PyTorch, one
+    batch row at a time: query tiles of ``fwd_query_tile`` rows walk the
+    64-key tiles in order with the online softmax from a running max of
+    -1e30, each tile's P.V taken from 0 with P as its hi/lo bf16 pair
+    (``_split_product``) and added into the rescaled accumulator, the
+    division by the sum at the end (l >= 1: the row max contributes
+    exp(0)); a causal key tile wholly after every query of the tile is
+    skipped when the batch row has a live key at or before the tile's
+    first query. Returns out in q's dtype."""
+    return _tiles(q, k, v, kv_mask, causal, scale, True)
+
+
+def packed_tc_fwd_path(dtype: torch.dtype, dh: int) -> bool:
+    """Whether the forward takes its tensor-core kernel: bfloat16
+    operands at a head size it is built for (BWD_HEAD_SIZES), at every
+    length up to the routing cap. The wrapper hands it 16-byte aligned
+    operands (it copies others); type and head size alone decide."""
+    return dtype == torch.bfloat16 and dh in BWD_HEAD_SIZES
+
+
 def packed_tc_path(dtype: torch.dtype, dh: int, tq: int, tk: int) -> bool:
     """Whether the backward takes its tensor-core kernel: bfloat16
     operands at a head size it is built for (BWD_HEAD_SIZES) and one
@@ -351,6 +367,16 @@ def _kernel(bf16: bool):
     fn = _build.load(_build.typed("packed_attention", bf16)).packed_attention
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_tc_kernel():
+    fn = _build.load(_build.typed("packed_attention",
+                                  True)).packed_attention_fwd_tc
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -392,10 +418,25 @@ def _check_operands(name, q, k, v):
         raise TypeError(f"{name} takes float32/bfloat16, got {q.dtype}")
 
 
+def _aligned(t):
+    """t, or a copy of it where it is not 16-byte aligned (the kernels
+    stage by 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_fwd(q, k, v, kvm, causal, scale):
     b, h, tq, dh = q.shape
     tk = k.shape[2]
     out = torch.empty_like(q)
+    if packed_tc_fwd_path(q.dtype, dh):
+        q, k, v = (_aligned(t) for t in (q, k, v))
+        err = _fwd_tc_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
+            out.data_ptr(), b, h, tq, tk, dh, float(scale),
+            int(bool(causal)), fwd_query_tile(dh, tq), _stream(q))
+        _build.check(err, "packed_attention_fwd_tc")
+        packed_attention.launches_bf16_tc += 1
+        return out
     err = _kernel(q.dtype == torch.bfloat16)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
         out.data_ptr(), b, h, tq, tk, dh, float(scale), int(bool(causal)),
@@ -478,18 +519,15 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
         if tuple(t.shape) != (b, h, tq, dh):
             raise ValueError(f"packed_attention_bwd: {what} is "
                              f"{tuple(t.shape)}, expected {(b, h, tq, dh)}")
-    # the kernels stage by 16-byte copies: an operand at an odd offset is
-    # copied to an aligned buffer first
-    q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q.contiguous(), k.contiguous(), v.contiguous(),
-                             do.to(q.dtype).contiguous()))
+    q, k, v, do = (_aligned(t) for t in (q.contiguous(), k.contiguous(),
+                                         v.contiguous(),
+                                         do.to(q.dtype).contiguous()))
     kvm = _mask(kv_mask, b, tk, q.device).contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if packed_tc_path(q.dtype, dh, tq, tk):
         # the kernel takes delta = rowsum(dO * out) from out, in q's dtype
         # as the forward returns it
-        out = out.to(q.dtype).contiguous()
-        out = out if out.data_ptr() % 16 == 0 else out.clone()
+        out = _aligned(out.to(q.dtype).contiguous())
         err = _bwd_tc_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kvm.data_ptr(),
             do.data_ptr(), out.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -516,5 +554,6 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
 
 
 packed_attention.launches = 0
+packed_attention.launches_bf16_tc = 0
 packed_attention_bwd.launches = 0
 packed_attention_bwd.launches_bf16_tc = 0

@@ -39,7 +39,7 @@ CLASSES = (
     ("packed_attention backward (this port)",
      r"packed_attention_bwd|packed_tc_bwd"),
     ("packed_attention forward (this port)",
-     r"packed_attention_(fwd_|generic_)?kernel"),
+     r"packed_attention_(fwd_|generic_)?kernel|packed_tc_fwd"),
     ("fused_ce backward d recompute (this port)", r"fce_(bwd|tc)_dlogit"),
     ("fused_ce backward dx product (this port)", r"fce_(bwd|tc)_dx"),
     ("fused_ce backward dw/db product (this port)", r"fce_(bwd|tc)_dw"),

@@ -16,7 +16,9 @@ row, a row whose first live key lies inside a tile, a cross case with
 fewer keys than queries and determinism checks, each case asserting its
 route (aligned bf16 forward, dq and dkv on the tensor cores, held to one
 bf16 spacing of the plain backward fed their own out and lse; an
-unaligned bf16 view on the CUDA cores), for the packed backward the
+unaligned bf16 view on the CUDA cores), for the packed forward the bf16
+tensor-core kernel at its built head sizes, aligned or copied (one bf16
+spacing of the plain version), for the packed backward the
 bf16 one-tile kernel on the tensor cores up to 64 tokens (one bf16
 spacing of the plain version, two calls bit-identical), and for the fused
 CE token counts, vocabularies and hidden sizes that are not multiples of
@@ -236,7 +238,9 @@ def test_packed_attention_matches_plain(dev, b, h, tq, tk, dh, causal,
     the routing cap 428), more query tiles than one, 32-query tiles (up
     to 32 queries), a fully masked row, past 128 keys a row whose first
     live key (70) lies inside a tile, and Dh 48, which the generic kernel
-    takes."""
+    takes. bf16 at the built head sizes takes the tensor cores
+    (``launches_bf16_tc``), held to one bf16 spacing of the plain
+    version."""
     gen = torch.Generator().manual_seed(tq * tk)
     q = _randn(gen, dev, b, h, tq, dh, dtype=dtype)
     k, v = (_randn(gen, dev, b, h, tk, dh, dtype=dtype) for _ in range(2))
@@ -246,20 +250,27 @@ def test_packed_attention_matches_plain(dev, b, h, tq, tk, dh, causal,
         kvm[0, :70] = 0.0
     kvm[-1] = 0.0                                   # a fully-masked row
     kvm = kvm.to(dev)
+    before = (packed_attention.launches, packed_attention.launches_bf16_tc)
     out = packed_attention(q, k, v, kvm, causal=causal)
     ref = packed_attention_reference(q, k, v, kvm, causal=causal)
+    tc = dtype == torch.bfloat16 and dh in (16, 32, 64, 128)
+    assert (packed_attention.launches, packed_attention.launches_bf16_tc) == (
+        before[0] + (not tc), before[1] + tc)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if tc:
+        _close_bf16(out, ref, 1e-5)
 
 
 @pytest.mark.parametrize("tq,tk,dh,causal", [(64, 64, 64, False),
                                              (200, 200, 64, True),
                                              (32, 70, 64, True),
                                              (50, 40, 48, False)])
-def test_packed_attention_is_deterministic(dev, tq, tk, dh, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_attention_is_deterministic(dev, tq, tk, dh, causal, dtype):
     gen = torch.Generator().manual_seed(tq + dh)
-    q = _randn(gen, dev, 3, 4, tq, dh)
-    k, v = (_randn(gen, dev, 3, 4, tk, dh) for _ in range(2))
+    q = _randn(gen, dev, 3, 4, tq, dh, dtype=dtype)
+    k, v = (_randn(gen, dev, 3, 4, tk, dh, dtype=dtype) for _ in range(2))
     kvm = torch.ones(3, tk, device=dev)
     kvm[1, tk // 2:] = 0.0
     first = packed_attention(q, k, v, kvm, causal=causal)
@@ -269,9 +280,10 @@ def test_packed_attention_is_deterministic(dev, tq, tk, dh, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_attention_unaligned_views_match_plain(dev, dtype):
-    """q, k and v views one element off a 16-byte boundary: the forward
-    takes the generic kernel by shape, the backward copies them to
-    aligned buffers, and both agree with the plain version."""
+    """q, k and v views one element off a 16-byte boundary: the f32
+    forward takes the generic kernel by shape, the bf16 one and the
+    backward copy them to aligned buffers (the bf16 forward then runs on
+    the tensor cores), and both agree with the plain version."""
     gen = torch.Generator().manual_seed(9)
     b, h, t, dh = 3, 4, 40, 64
     n = b * h * t * dh
@@ -281,12 +293,16 @@ def test_packed_attention_unaligned_views_match_plain(dev, dtype):
     assert all(x.data_ptr() % 16 != 0 for x in (q, k, v))
     kvm = torch.ones(b, t, device=dev)
     kvm[1, 30:] = 0.0
-    before = packed_attention.launches
+    before = (packed_attention.launches, packed_attention.launches_bf16_tc)
     out = packed_attention(q, k, v, kvm, causal=True)
-    assert packed_attention.launches == before + 1
+    tc = dtype == torch.bfloat16
+    assert (packed_attention.launches, packed_attention.launches_bf16_tc) == (
+        before[0] + (not tc), before[1] + tc)
     ref = packed_attention_reference(q, k, v, kvm, causal=True)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if tc:
+        _close_bf16(out, ref, 1e-5)
     do = _randn(gen, dev, b, h, t, dh, dtype=dtype)
     got = packed_attention_bwd(q, k, v, kvm, do, out, causal=True)
     want = packed_attention_bwd_reference(q, k, v, kvm, do, out, causal=True)
