@@ -34,6 +34,17 @@ card, and drives the port's main paths on data made from --seed:
   the card, and the engine's logits at every step the dense step's on
   the same tokens; 16 of the sentences decode to the same texts, with
   the same logits within a tolerance, on the card and on the CPU;
+- marian-server in request mode, its defaults (beam 12, batches by token
+  budget): the same 256 sentences from 16 clients through the scheduler
+  into the dense beam search; every reply must equal Translate.run of
+  the same sentences on the card (in other batches);
+- marian-server in iteration mode at beam 6 with the host merge: the
+  copy-on-write beam engine over the paged pool answers the same
+  traffic; every reply must equal the dense beam search's best
+  hypothesis on the card at its decode cap (raw scores within a
+  tolerance), joins land mid-decode, hypotheses fork and share pages,
+  and the pool ends empty; 8 sentences decode to the same texts on the
+  card and on the CPU;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
@@ -49,7 +60,9 @@ card, and drives the port's main paths on data made from --seed:
   tokens. Their CPU halves need no card: a child process of this script
   (--cpu-references) runs them while the kernels build and the kernel
   phases run, on its own copy of the same data, and the card's halves
-  are held to them later.
+  are held to them later; and the two new serve paths in bf16 (64
+  sentences each), their replies held to the bf16 dense decodes on the
+  card.
 
 Each main path (and the bf16 doc-level cut, the bf16 flash kernels'
 path) runs with every launch count set to 0 just before it and read
@@ -157,8 +170,10 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 # launches (the bf16 tensor-core kernels on their own,
 # launches_bf16_tc), so their rows sum their counter over these
 # paths only (a row's "paths"); other rows sum it over every path.
-F32_PATHS = ("decode", "serve", "train", "doc train", "doc decode")
-BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut")
+F32_PATHS = ("decode", "serve", "request serve", "beam serve", "train",
+             "doc train", "doc decode")
+BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
+              "bf16 request serve", "bf16 beam serve")
 # card vs CPU in bf16, relative, each cut its own: limits set between
 # the sound port's readings and those of planted faults
 # (scripts/torch_train_parity.py --precision bfloat16, seeds 17 and 19;
@@ -211,6 +226,18 @@ COPY_POSITIONS, COPY_FREQS, COPY_RIDGE = 64, 32, 1e-4
 # the sound port reads about 2e-6 in both, a paged read one position
 # short 1.4e-2
 SERVE_LOGIT_TOL = 1e-4
+# the request-mode serve path (marian-server's defaults: request mode,
+# beam 12): --mini-batch 16 makes the token budget 16 x the bucketed
+# --max-length + 1 (3,072 tokens: 64 sentences of the 48-token bucket)
+REQUEST_MINI_BATCH = 16
+# the iteration beam path: --beam-size 6 --iteration-beam-merge host over
+# the greedy serve path's 64 slots (10 sentences at once), pages of 16;
+# its raw path scores against the dense beam search's on the card, f32
+# (sums of up to 41 log-probs read through the paged and the dense
+# attention: the sound port reads about 1e-5)
+SERVE_BEAM, SERVE_BEAM_CUT, SERVE_BEAM_SCORE_TOL = 6, 8, 1e-3
+# sentences of the bf16 cuts of the two serve paths
+SERVE_BF16 = 64
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
 BF16_REL_TOL = 1e-2
 # one bf16 spacing, at most, relative to the value: a bf16 output whose
@@ -1799,7 +1826,7 @@ def paged_case(gen, r, h, dh, page_len, mp, pins, dtype=torch.float32,
             pos.to(dev, torch.int32))
 
 
-def paged_bound(q, pk, table, pos):
+def paged_bound(q, pk, table, pos, peak: float = F32_FLOPS):
     """(bound_ms, bound_by, MB) of one paged read on these inputs: each
     active row's live positions of K and V (0 .. pos), an idle row's
     (pos < 0) V over all MP*page_len positions (every score is -1e9, so
@@ -1817,7 +1844,7 @@ def paged_bound(q, pk, table, pos):
     nbytes = ((2 * active + idle) * h * dh * pk.element_size()
               + int(pages.sum()) * 4 + pos.numel() * 4
               + 2 * q.numel() * q.element_size())
-    ms, by = bound(nbytes, h * dh * (4 * active + 2 * idle))
+    ms, by = bound(nbytes, h * dh * (4 * active + 2 * idle), peak)
     return ms, by, nbytes / 1e6
 
 
@@ -1828,7 +1855,7 @@ def paged_route_name(route) -> str:
             if lanes else "scalar kernel")
 
 
-def phase_paged_kernel(gen) -> dict:
+def phase_paged_kernel(gen) -> list:
     """paged_decode_attention against its plain version (the insert, then
     the gather read), on both routes: the vector kernel at the serve
     path's shape (R 64, H 8, Dh 64, page 16, MP 8, pools of 513 pages),
@@ -1837,7 +1864,9 @@ def phase_paged_kernel(gen) -> dict:
     kernel at pages of 5 and at Dh 36 in bf16. Pools after the insert
     exact (and equal to the CPU's insert at the serve shape). Then the
     read's times at the serve shape, and at the long shape beside its
-    bound."""
+    bound; and row 10b, the read on bf16 pools at both shapes, held to
+    its plain version and timed beside the gather + SDPA on bf16, its
+    bound in bf16 bytes."""
     from marian_tpu_torch.ops.kernels import kv_pool as kv
     pins = [-1, 0, 15, 16]
     # (name, R, H, Dh, page, MP, pins, dtype, rows 4 and 5 share pages)
@@ -1890,9 +1919,9 @@ def phase_paged_kernel(gen) -> dict:
             err = max(err, e)
             print(f"kernel {what}: max |err| {e:.3g}, pools exact")
         else:
-            e = close_to_scale(out, ref, what, BF16_REL_TOL)
-            print(f"kernel {what}: max |err| {e:.3g} (tolerance "
-                  f"{BF16_REL_TOL} x max |plain|), pools exact")
+            e = close_bf16(out, ref, what)
+            print(f"kernel {what}: max |err| {e:.3g} (one bf16 spacing + "
+                  f"{REL_TOL} x scale), pools exact")
         if name == "long":
             ms_long = time_ms(lambda: kv.paged_decode_attention_read(
                 q, gk, gv, table, pos))
@@ -1904,7 +1933,65 @@ def phase_paged_kernel(gen) -> dict:
                   f"{b_long:.4f} ({mb:.1f} MB)")
         if name == "serve":
             serve, serve_route = (q, gk, gv, table, pos), route
-    q, pk, pv, table, pos = serve
+    ms, plain_ms, library_ms, bound_ms, bound_by, mb = paged_times(*serve)
+    q, pk, _, table, _ = serve
+    r, h, _, dh = q.shape
+    pl, mp = pk.shape[2], table.shape[1]
+    print(f"kernel paged_decode_attention R={r} H={h} Dh={dh} page {pl} "
+          f"MP={mp} f32 (the read, {paged_route_name(serve_route)}): "
+          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms(gather pool[page_table] + sdpa, two calls) "
+          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
+          f"{mb:.2f} MB); {long_line}")
+    f32_row = {"name": "paged_decode_attention", "route": "cuda",
+               "source": "marian_tpu_torch/csrc/paged_decode_attention.cu",
+               "replaces": "marian_tpu/ops/pallas/kv_pool.py:750",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": library_ms, "paths": F32_PATHS}
+    # row 10b: the read on bf16 pools (the bf16 beam serve path's), at the
+    # serve shape and the long shape, against its plain version
+    bf16_err, times = 0.0, []
+    for name, r, h, mp, case_pins in (("serve", 64, 8, 8, pins + [127]),
+                                      ("long", 8, 16, 128, pins + [2047])):
+        q, kn, vn, pk, pv, table, pos = paged_case(gen, r, h, 64, 16, mp,
+                                                   case_pins, torch.bfloat16)
+        kv.pool_insert(pk, pv, kn, vn, table, pos)
+        out = kv.paged_decode_attention_read(q, pk, pv, table, pos)
+        ref = kv.paged_decode_attention_reference(q, pk, pv, table, pos)
+        what = (f"paged_decode_attention bf16 [{name}] R={r} H={h} Dh=64 "
+                f"page 16 MP={mp}")
+        # the read sums in f32 and rounds once: one bf16 spacing holds
+        e = close_bf16(out, ref, what)
+        bf16_err = max(bf16_err, e)
+        excess = float(((out.float() - ref.float()).abs()
+                        - BF16_SPACING * ref.float().abs()).max())
+        t = paged_times(q, pk, pv, table, pos, BF16_FLOPS)
+        times.append(t)
+        print(f"kernel {what} (the read on bf16 pools): kernel_ms "
+              f"{t[0]:.4f} plain_ms {t[1]:.4f} library_ms (gather "
+              f"pool[page_table] + sdpa on bf16, two calls) {t[2]:.4f} "
+              f"bound_ms {t[3]:.4f} ({t[4]}, bf16 bytes; {t[5]:.2f} MB; "
+              f"{100 * t[3] / t[0]:.1f}% of it; {t[0] / t[2]:.2f}x the "
+              f"library's time); max |err| vs plain {e:.3g}, largest "
+              f"|err| less one bf16 spacing {excess:.3g} (gate: one bf16 "
+              f"spacing + {REL_TOL} x scale)")
+    ms, plain_ms, library_ms, bound_ms, bound_by, _ = times[0]
+    bf16_row = {"name": "paged_decode_attention_bf16", "route": "cuda",
+                "source": "marian_tpu_torch/csrc/paged_decode_attention.cu",
+                "replaces": "marian_tpu/ops/pallas/kv_pool.py:750",
+                "max_abs_err": bf16_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,
+                "counter": "paged_decode_attention", "paths": BF16_PATHS}
+    return [f32_row, bf16_row]
+
+
+def paged_times(q, pk, pv, table, pos, peak: float = F32_FLOPS):
+    """(kernel ms, plain ms, library ms, bound ms, bound_by, MB) of the
+    paged read on these inputs; the library: the ``pool[page_table]``
+    gather, then SDPA under the live-position mask (two calls)."""
+    from marian_tpu_torch.ops.kernels import kv_pool as kv
     r, h, _, dh = q.shape
     pl, mp = pk.shape[2], table.shape[1]
     ms = time_ms(lambda: kv.paged_decode_attention_read(q, pk, pv, table,
@@ -1921,19 +2008,8 @@ def phase_paged_kernel(gen) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             q, gk, gv, attn_mask=live)
     library_ms = time_ms(library)
-    bound_ms, bound_by, mb = paged_bound(q, pk, table, pos)
-    print(f"kernel paged_decode_attention R={r} H={h} Dh={dh} page {pl} "
-          f"MP={mp} f32 (the read, {paged_route_name(serve_route)}): "
-          f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms(gather pool[page_table] + sdpa, two calls) "
-          f"{library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}; "
-          f"{mb:.2f} MB); {long_line}")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "marian_tpu_torch/csrc/paged_decode_attention.cu",
-            "replaces": "marian_tpu/ops/pallas/kv_pool.py:750",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    bound_ms, bound_by, mb = paged_bound(q, pk, table, pos, peak)
+    return ms, plain_ms, library_ms, bound_ms, bound_by, mb
 
 
 def write_vocab() -> None:
@@ -2318,6 +2394,45 @@ def served_vs_dense_logits(engine, tr, sents, replies) -> float:
     return err
 
 
+def serve_counted(app, sents, warm, stats):
+    """The counted run of a serve main path: ``app`` (a ServingApp) on a
+    TCP listener in this process answers the ``warm`` sentences (not
+    counted), then ``sents`` from SERVE_CLIENTS clients with every launch
+    count set to 0 just before and read just after (the device worker
+    thread's work synchronized first); then it drains and shuts down.
+    Returns (replies, latencies, seconds, counts, the change of each of
+    ``stats()``'s counters over the counted run)."""
+    from marian_tpu_torch.server.server import _make_tcp_handler
+
+    async def serve():
+        app.start()
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        try:
+            await serve_traffic(port, warm, len(warm))
+            before = stats()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            replies, lat = await serve_traffic(port, sents, SERVE_CLIENTS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            after = stats()
+        finally:
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+        return replies, lat, secs, counts, {k: after[k] - before.get(k, 0)
+                                            for k in after}
+    replies, lat, secs, counts, run = asyncio.run(serve())
+    check(all(r is not None and not r.startswith("!!") for r in replies),
+          "a request failed: " + str([r for r in replies
+                                      if r is None or r.startswith("!!")][:2]))
+    return replies, lat, secs, counts, run
+
+
 def phase_serve_main_path(seed: int) -> dict:
     """The serve main path: the port's marian-server (ServingApp on a TCP
     listener, in this process so the launch counts can be read) answers
@@ -2327,36 +2442,15 @@ def phase_serve_main_path(seed: int) -> dict:
     logits at every step must equal the dense step's within
     SERVE_LOGIT_TOL; and the traffic must be what it claims (most rows
     leave at their own EOS, replies as varied as their sources)."""
-    from marian_tpu_torch.server.server import ServingApp, _make_tcp_handler
+    from marian_tpu_torch.server.server import ServingApp
     from marian_tpu_torch.translator.greedy import greedy_decode
     sents = serve_sentences(seed, SERVE_SENTENCES)
-    warm = serve_sentences(seed + 1, 4)
-
-    async def serve():
-        app = ServingApp(serve_options())
-        check(app.scheduler.engine.device.type == "cuda",
-              f"server resolved {app.scheduler.engine.device}")
-        app.start()
-        server = await asyncio.start_server(_make_tcp_handler(app),
-                                            "127.0.0.1", 0)
-        port = server.sockets[0].getsockname()[1]
-        try:
-            await serve_traffic(port, warm, len(warm))     # not counted
-            engine = app.scheduler.engine
-            before = dict(engine.counters)
-            torch.cuda.synchronize()
-            reset_counts()
-            t0 = time.perf_counter()
-            replies, lat = await serve_traffic(port, sents, SERVE_CLIENTS)
-            secs = time.perf_counter() - t0
-            counts = read_counts()
-            totals = {k: engine.counters[k] - before[k] for k in before}
-        finally:
-            server.close()
-            await server.wait_closed()
-            await app.shutdown()
-        return app, replies, lat, secs, counts, totals
-    app, replies, lat, secs, counts, run = asyncio.run(serve())
+    app = ServingApp(serve_options())
+    check(app.scheduler.engine.device.type == "cuda",
+          f"server resolved {app.scheduler.engine.device}")
+    replies, lat, secs, counts, run = serve_counted(
+        app, sents, serve_sentences(seed + 1, 4),
+        lambda: dict(app.scheduler.engine.counters))
     engine = app.scheduler.engine
     check(engine.idle() and engine.pool.free_pages()
           == engine.pool.usable_pages and engine.pool.claims() == {},
@@ -2369,9 +2463,6 @@ def phase_serve_main_path(seed: int) -> dict:
     want["packed_attention"] = engine.model.cfg.enc_depth * run["encodes"]
     check(counts == want, f"serve launches {counts}, expected {want} "
           f"({run['steps']} steps, {run['encodes']} encoder calls)")
-    check(all(r is not None and not r.startswith("!!") for r in replies),
-          "a request failed: " + str([r for r in replies
-                                      if r is None or r.startswith("!!")][:2]))
     check(run["mid_decode_joins"] > 0, "no join landed mid-decode")
     # the dense comparator: greedy_decode of all sentences at the largest
     # cap, each row cut at its own cap and EOS
@@ -2444,6 +2535,247 @@ def phase_serve_card_vs_cpu(seed: int) -> None:
     print(f"serve card vs cpu: {len(sents)} texts identical "
           f"({sum(len(t.split()) for t in ct)} words); logits max |diff| "
           f"{err:.3g} (tolerance {SERVE_LOGIT_TOL})")
+
+
+def request_options(*extra: str):
+    """marian-server flags of the request-mode serve path: the server's
+    defaults (--batching-mode request, --beam-size 12), the copying serve
+    checkpoint, --mini-batch REQUEST_MINI_BATCH (the token budget: 16 x
+    the 192-token bucket of --max-length 128 + 1)."""
+    from marian_tpu_torch.common.config_parser import parse_options
+    return parse_options(
+        ["--models", str(WORK / "serve.npz"), "--vocabs",
+         str(WORK / "vocab.yml"), str(WORK / "vocab.yml"),
+         "--mini-batch", str(REQUEST_MINI_BATCH), "--max-length", "128",
+         "--max-length-factor-translate", "3", "--port", "0", "--quiet",
+         *extra], mode="server")
+
+
+def beam_margins(tr, sents) -> list:
+    """The gap between the best and the second normalized score of each
+    of ``sents`` alone in ``tr``'s dense beam search: how near a decode
+    whose reply differs was to a tie."""
+    from marian_tpu_torch.translator.beam_search import (BeamConfig,
+                                                         beam_search)
+    out = []
+    for sent in sents:
+        _, src, mask = source_batch(tr, [sent], tr.device)
+        cfg = BeamConfig.from_options(tr.options, tr.search.max_length_cap)
+        with torch.inference_mode():
+            norm = beam_search(tr.model, tr.params, cfg, src, mask)[3]
+        top = norm[0].sort(descending=True).values
+        out.append(float(top[0] - top[1]))
+    return out
+
+
+def phase_request_serve_main_path(seed: int, *extra: str,
+                                  n: int = SERVE_SENTENCES,
+                                  encoder: str = "packed_attention",
+                                  what: str = "request serve") -> dict:
+    """The request-mode serve path, the server's default: n sentences of
+    8-40 words from SERVE_CLIENTS clients through the token-budget
+    scheduler into the dense beam search at beam 12 (``extra``: more
+    flags, BF16_FLAGS for the bf16 cut). Every reply must equal the
+    port's Translate.run of the same sentences on the card (other
+    batches); decode_attention launches dec_depth x steps, the encoder's
+    kernel (``encoder``) enc_depth x batches, no other kernel."""
+    from marian_tpu_torch.server.server import ServingApp
+    sents = serve_sentences(seed, n)
+    app = ServingApp(request_options(*extra))
+    tr, sched = app.service.translator, app.scheduler
+    check(tr.device.type == "cuda", f"server resolved {tr.device}")
+    replies, lat, secs, counts, run = serve_counted(
+        app, sents, serve_sentences(seed + 1, 4),
+        lambda: {**sched.counts, "steps": sum(tr.search.steps),
+                 "searches": len(tr.search.steps)})
+    cfg = tr.model.cfg
+    beam = int(tr.options.get("beam-size"))
+    check(run["searches"] == run["batches"], f"{run['searches']} device "
+          f"batches for {run['batches']} scheduler batches")
+    want = {name: 0 for name in counts}
+    want["decode_attention"] = cfg.dec_depth * run["steps"]
+    want[encoder] = cfg.enc_depth * run["batches"]
+    check(counts == want, f"{what} launches {counts}, expected {want} "
+          f"({run['steps']} steps, {run['batches']} batches)")
+    t0 = time.perf_counter()
+    ref = tr.run(sents, io.StringIO())
+    ref_s = time.perf_counter() - t0
+    bad = [i for i, (r, w) in enumerate(zip(replies, ref)) if r != w]
+    if bad:
+        fail(f"{what}: {len(bad)} replies differ from Translate.run on the "
+             f"card (sentences {bad[:8]}; best-second score margins alone "
+             f"{beam_margins(tr, [sents[i] for i in bad[:8]])})")
+    lat_ms = np.percentile(np.array(lat) * 1e3, [50, 99])
+    print(f"{what} main path: transformer {cfg.enc_depth}+{cfg.dec_depth}, "
+          f"dim {cfg.dim_emb}, {str(cfg.compute_dtype)[6:]}, vocab "
+          f"{len(tr.trg_vocab)}, copying weights, request mode, beam {beam}, "
+          f"token budget {sched.token_budget}: {len(sents)} sentences of "
+          f"8-40 words from {SERVE_CLIENTS} clients in {secs:.3f} s: "
+          f"{len(sents) / secs:.2f} sentences/s; {run['batches']} batches, "
+          f"{run['batch_rows'] / run['batches']:.2f} sentences per batch, "
+          f"fill {run['batch_tokens'] / run['batch_capacity']:.3f} (real "
+          f"tokens over padded), {run['steps']} decode steps, "
+          f"{1e3 * secs / run['steps']:.3f} ms per step (wall); latency p50 "
+          f"{lat_ms[0]:.1f} ms p99 {lat_ms[1]:.1f} ms; launches {counts}")
+    print(f"{what} main path: replies equal Translate.run of the same "
+          f"sentences on the card ({ref_s:.3f} s, {len(sents)} sentences in "
+          f"its own batches); reply 0 {replies[0][:48]!r}...")
+    return counts
+
+
+def beam_serve_options(*extra: str):
+    """The serve path's flags at --beam-size SERVE_BEAM with the host
+    merge. Every sentence of the traffic queues at once, each priced at
+    its trunk plus 5 partial pages (about 11 pages, 2,800 in all): the
+    queue's page bound is raised past the default 4 x the pool's 512."""
+    return serve_options("--beam-size", str(SERVE_BEAM),
+                         "--iteration-beam-merge", "host",
+                         "--max-queue-pages", "8192", *extra)
+
+
+def record_beam_rounds(engine) -> dict:
+    """Wraps ``engine.admit_and_step`` for the run: the finished rows'
+    info (raw scores) by source text, and the largest page refcount seen
+    after a round."""
+    seen = {"max_ref": 0, "info": {}}
+    step = engine.admit_and_step
+
+    def recorded(joins, evicts=()):
+        res = step(joins, evicts)
+        seen["max_ref"] = max(seen["max_ref"],
+                              engine.pool.alias_stats()["max"])
+        seen["info"].update({u.text: i for u, i in res.finished_info.items()})
+        return res
+    engine.admit_and_step = recorded
+    return seen
+
+
+def dense_beam_best(tr, sents, caps, engine) -> list:
+    """The best hypothesis of each of ``sents`` in the port's dense beam
+    search on the card at ``engine``'s beam, normalization and decode
+    caps (``caps``: sentences of one cap decode in one batch)."""
+    from marian_tpu_torch.translator.beam_search import (BeamConfig,
+                                                         BeamSearch,
+                                                         beam_search)
+    out = [None] * len(sents)
+    groups = {}
+    for i, cap in enumerate(caps):
+        groups.setdefault(cap, []).append(i)
+    for cap, idx in sorted(groups.items()):
+        _, src, mask = source_batch(tr, [sents[i] for i in idx], tr.device)
+        cfg = BeamConfig(beam_size=engine.beam_size,
+                         normalize=engine.normalize,
+                         word_penalty=engine.word_penalty,
+                         allow_unk=engine.allow_unk, max_length=cap)
+        with torch.inference_mode():
+            res = beam_search(tr.model, tr.params, cfg, src, mask)
+        best = BeamSearch._collect(*(x.cpu().numpy() for x in res[:4]), cfg)
+        for row, i in enumerate(idx):
+            out[i] = best[row][0]
+    return out
+
+
+def phase_beam_serve_main_path(seed: int, *extra: str,
+                               n: int = SERVE_SENTENCES,
+                               encoder: str = "packed_attention",
+                               what: str = "beam serve") -> dict:
+    """The iteration beam path: n sentences from SERVE_CLIENTS clients
+    into the copy-on-write beam engine (beam SERVE_BEAM, host merge, 64
+    slots, pages of 16; ``extra``: BF16_FLAGS for the bf16 cut). Every
+    reply must equal the best hypothesis of the dense beam search on the
+    card at its decode cap, with raw scores within SERVE_BEAM_SCORE_TOL
+    (f32; printed in bf16); paged_decode_attention launches dec_depth x
+    steps, the encoder's kernel enc_depth x encoder calls; a join lands
+    mid-decode, hypotheses fork and pages are shared (refcount >= 2); the
+    pool ends empty and its audit clean."""
+    from marian_tpu_torch.server.server import ServingApp
+    from marian_tpu_torch.translator.beam_iteration import PagedBeamEngine
+    sents = serve_sentences(seed, n)
+    app = ServingApp(beam_serve_options(*extra))
+    engine = app.scheduler.engine
+    check(isinstance(engine, PagedBeamEngine)
+          and engine.device.type == "cuda", f"{what}: engine "
+          f"{type(engine).__name__} on {engine.device}")
+    seen = record_beam_rounds(engine)
+    replies, lat, secs, counts, run = serve_counted(
+        app, sents, serve_sentences(seed + 1, 4),
+        lambda: dict(engine.counters))
+    check(engine.idle() and engine.pool.free_pages()
+          == engine.pool.usable_pages and engine.pool.refcounts() == {},
+          f"{what}: pages held after the run: {engine.pool.claims()}")
+    bad = engine.audit()
+    check(bad == [], f"{what}: pool audit after the run: {bad}")
+    cfg = engine.model.cfg
+    want = {name: 0 for name in counts}
+    want["paged_decode_attention"] = cfg.dec_depth * run["steps"]
+    want[encoder] = cfg.enc_depth * run["encodes"]
+    check(counts == want, f"{what} launches {counts}, expected {want} "
+          f"({run['steps']} steps, {run['encodes']} encoder calls)")
+    check(run["mid_decode_joins"] > 0 and run["forks"] > 0
+          and seen["max_ref"] >= 2 and run["pool_evictions"] == 0,
+          f"{what}: {run['mid_decode_joins']} mid-decode joins, "
+          f"{run['forks']} forks, largest refcount {seen['max_ref']}, "
+          f"{run['pool_evictions']} pool evictions")
+    tr = app.service.translator
+    caps = [engine.decode_cap(len(tr.src_vocab.encode(t))) for t in sents]
+    t0 = time.perf_counter()
+    dense = dense_beam_best(tr, sents, caps, engine)
+    dense_s = time.perf_counter() - t0
+    differ = [i for i, (r, d) in enumerate(zip(replies, dense))
+              if r != tr.trg_vocab.decode(d["tokens"], ignore_eos=True)]
+    check(not differ, f"{what}: {len(differ)} replies differ from the "
+          f"dense beam search on the card (sentences {differ[:8]})")
+    err = max(abs(seen["info"][t]["score"] - d["score"])
+              for t, d in zip(sents, dense))
+    f32 = cfg.compute_dtype == torch.float32
+    check(not f32 or err <= SERVE_BEAM_SCORE_TOL, f"{what}: raw scores "
+          f"differ from the dense search's by {err} > {SERVE_BEAM_SCORE_TOL}")
+    lat_ms = np.percentile(np.array(lat) * 1e3, [50, 99])
+    n_words = sum(len(r.split()) for r in replies)
+    print(f"{what} main path: transformer {cfg.enc_depth}+{cfg.dec_depth}, "
+          f"dim {cfg.dim_emb}, {str(cfg.compute_dtype)[6:]} (pools "
+          f"{str(engine._state['l1_pool_k'].dtype)[6:]}), copying weights, "
+          f"beam {engine.beam_size}, host merge, {engine.max_rows} slots, "
+          f"pages of {engine.page_len}, pool {engine.pool.usable_pages} "
+          f"pages: {len(sents)} sentences from {SERVE_CLIENTS} clients in "
+          f"{secs:.3f} s: {len(sents) / secs:.2f} sentences/s, "
+          f"{n_words / secs:.1f} target tokens/s; {run['rounds']} rounds, "
+          f"{1e3 * run['round_s'] / run['rounds']:.3f} ms per round "
+          f"(engine), {1e3 * secs / run['rounds']:.3f} ms (wall), "
+          f"{run['rows'] / run['rounds']:.2f} live rows per round, "
+          f"{run['mid_decode_joins']} mid-decode joins, {run['forks']} "
+          f"forks ({run['copied_pages']} partial pages copied), largest "
+          f"refcount {seen['max_ref']}, {run['encodes']} encoder calls; "
+          f"latency p50 {lat_ms[0]:.1f} ms p99 {lat_ms[1]:.1f} ms; launches "
+          f"{counts}")
+    print(f"{what} main path: replies equal the dense beam search's best "
+          f"hypotheses on the card ({dense_s:.3f} s, {len(set(caps))} cap "
+          f"groups); raw scores max |diff| {err:.3g}"
+          + (f" (tolerance {SERVE_BEAM_SCORE_TOL})" if f32 else
+             " (bf16: tokens held, scores printed)")
+          + "; pool empty, audit clean")
+    return counts
+
+
+def phase_beam_serve_card_vs_cpu(seed: int) -> None:
+    """SERVE_BEAM_CUT of the served sentences through the beam engine on
+    the card and on the CPU: identical texts."""
+    from marian_tpu_torch.server.server import ServingApp
+    sents = serve_sentences(seed, SERVE_BEAM_CUT)
+    texts = {}
+    for name, dev in (("cuda", None), ("cpu", "cpu")):
+        engine = ServingApp(beam_serve_options(), device=dev).scheduler.engine
+        check(engine.device.type == name, f"{name} run resolved "
+              f"{engine.device}")
+        t0 = time.perf_counter()
+        texts[name] = engine.decode_texts(sents)
+        print(f"beam serve card vs cpu: {name} engine, {len(sents)} "
+              f"sentences: {time.perf_counter() - t0:.2f} s, "
+              f"{engine.counters['rounds']} rounds")
+    check(texts["cuda"] == texts["cpu"], "beam-served texts differ between "
+          "the card and the CPU")
+    print(f"beam serve card vs cpu: {len(sents)} texts identical "
+          f"({sum(len(t.split()) for t in texts['cpu'])} words)")
 
 
 def write_corpus(seed: int) -> None:
@@ -3053,7 +3385,7 @@ def run_phases(args, smi: str, child) -> int:
                *timed("fused_ce bf16 kernels", phase_fused_ce_kernels_bf16,
                       gen),
                *timed("flash kernels", phase_flash_kernels, gen),
-               timed("paged kernel", phase_paged_kernel, gen),
+               *timed("paged kernel", phase_paged_kernel, gen),
                *timed("attention bf16 kernels",
                       phase_attention_kernels_bf16, gen)]
     torch.cuda.empty_cache()
@@ -3068,6 +3400,11 @@ def run_phases(args, smi: str, child) -> int:
     paths["serve"] = timed("serve main path", phase_serve_main_path,
                            args.seed)
     timed("serve card vs cpu", phase_serve_card_vs_cpu, args.seed)
+    paths["request serve"] = timed("request serve main path",
+                                   phase_request_serve_main_path, args.seed)
+    paths["beam serve"] = timed("beam serve main path",
+                                phase_beam_serve_main_path, args.seed)
+    timed("beam serve card vs cpu", phase_beam_serve_card_vs_cpu, args.seed)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
     timed("train card vs cpu", phase_train_card_vs_cpu)
@@ -3082,6 +3419,13 @@ def run_phases(args, smi: str, child) -> int:
                                  phase_bf16_decode_main_path, lines)
     paths["bf16 doc cut"] = timed("bf16 card vs cpu", phase_bf16_card_vs_cpu,
                                   lines, args.seed, cpu_ref)
+    bf16_serve = dict(n=SERVE_BF16, encoder="packed_attention_bf16_tc")
+    paths["bf16 request serve"] = timed(
+        "bf16 request serve main path", lambda: phase_request_serve_main_path(
+            args.seed, *BF16_FLAGS, what="bf16 request serve", **bf16_serve))
+    paths["bf16 beam serve"] = timed(
+        "bf16 beam serve main path", lambda: phase_beam_serve_main_path(
+            args.seed, *BF16_FLAGS, what="bf16 beam serve", **bf16_serve))
     check(set(paths) == set(F32_PATHS + BF16_PATHS), f"paths {set(paths)}")
     for k in kernels:
         k["launches"] = sum(paths[p][k.get("counter", k["name"])]

@@ -1,11 +1,15 @@
 """marian-server entry point of the port (reference:
-src/command/marian_server.cpp): iteration-level greedy serving over a
-paged KV pool, on the length-prefixed TCP framing. Runs on the card;
-``--cpu-threads N`` runs on the CPU instead.
+src/command/marian_server.cpp), on the length-prefixed TCP framing:
+request mode by default (token-budget batches through the beam search),
+or iteration mode over a paged KV pool (greedy at ``--beam-size 1``, the
+copy-on-write beam engine with ``--iteration-beam-merge host`` above
+it). Runs on the card; ``--cpu-threads N`` runs on the CPU instead.
 
     python -m marian_tpu_torch.cli.marian_server --models model.npz \\
-        --vocabs v.yml v.yml --batching-mode iteration --beam-size 1 \\
-        --port 8080
+        --vocabs v.yml v.yml --port 8080
+    python -m marian_tpu_torch.cli.marian_server --models model.npz \\
+        --vocabs v.yml v.yml --batching-mode iteration --beam-size 6 \\
+        --iteration-beam-merge host --port 8080
 
 SIGTERM/SIGINT drain the queue before exiting.
 """

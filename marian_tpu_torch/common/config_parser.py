@@ -198,10 +198,12 @@ _SERVER = [
     _f("port", int, 8080, "marian-server port (0 = an ephemeral one)"),
     _f("max-queue", int, 512, "Admission control: maximum queued sentences before new requests are shed with !!SERVER-OVERLOADED (0 = unbounded)"),
     _f("request-timeout", float, 0.0, "Per-request deadline in seconds: expired requests get !!SERVER-TIMEOUT, even while queued (0 = none)"),
-    _f("batch-token-budget", int, 0, "Token budget of a request-mode device batch (0 = mini-batch x bucketed max-length; request mode is not ported yet, a set budget is refused)"),
-    _f("batching-mode", str, "request", "request (not ported yet) or iteration: sentences join a running decode over a paged KV pool each round and leave the step they finish"),
+    _f("batch-token-budget", int, 0, "Token budget of a request-mode device batch, real rows x bucketed width (0 = mini-batch x bucketed max-length)"),
+    _f("batching-mode", str, "request", "request: sentences of many requests packed into device batches by token budget, each decoded by the beam search; iteration: sentences join a running decode over a paged KV pool each round and leave the step they finish (greedy at beam 1, copy-on-write beam search above it)"),
+    _f("dispatch-stall-timeout", float, 0.0, "Request mode: liveness watchdog over one device batch (not ported yet; 0 = off)"),
     _f("iteration-rows", int, 32, "Iteration mode: decode slots, the most sentences decoding at once"),
-    _f("iteration-steps", int, 1, "Iteration mode: decode steps per scheduling round (joins possible every round)"),
+    _f("iteration-steps", int, 1, "Iteration mode: decode steps per scheduling round (joins possible every round; 1 under the host beam merge)"),
+    _f("iteration-beam-merge", str, "fused", "Iteration mode at beam > 1: where the k*k candidate merge runs; host (the merge on the host, one step a round) or fused (on the device; not ported yet)"),
     _f("kv-page-len", int, 16, "Iteration mode: tokens per KV-cache page"),
     _f("kv-pool-bytes", int, 0, "Iteration mode: byte budget of the paged KV pool over all decoder layers, K and V (0 = every slot can hold a full --max-length row)"),
     _f("max-queue-pages", int, 0, "Iteration mode: admission bound on queued KV-pool page debt (0 = 4x the pool's allocatable pages)"),

@@ -25,7 +25,8 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from .batching import DEFAULT_LENGTH_BUCKETS, bucket_batch_size, bucket_length
+from .batching import (DEFAULT_LENGTH_BUCKETS, bucket_batch_size,
+                       bucket_length, budget_groups, budget_rows)
 from .corpus import Corpus, SentenceTuple
 
 
@@ -164,45 +165,18 @@ class BatchGenerator:
             buf = sorted(buf, key=lambda t: (len(t.src), len(t.trg)))
         words_budget = self.mini_batch_words
         batches: List[CorpusBatch] = []
-        cur: List[SentenceTuple] = []
-        cur_maxlens = [0] * self.n_streams
-
-        def flush():
-            if not cur:
-                return
-            fixed = 0
-            if words_budget > 0:
-                # one canonical row count per width: the rows a full
-                # budget-sized batch of this width has, rounded down
-                w = bucket_length(max(len(t.trg) for t in cur),
+        # the budget counts the padded target size (Marian counts labels);
+        # one canonical row count per width under it
+        for group in budget_groups(buf, lambda t: len(t.trg), self.mini_batch,
+                                   words_budget, self.length_buckets):
+            width = bucket_length(max(len(t.trg) for t in group),
                                   self.length_buckets)
-                fixed = max(self.batch_multiple,
-                            (words_budget // w) // self.batch_multiple
-                            * self.batch_multiple)
-            batches.append(make_batch(cur, self.n_streams,
-                                      self.length_buckets,
-                                      self.batch_multiple,
-                                      corpus_state=state,
-                                      weighting_type=self.weighting_type,
-                                      fixed_rows=fixed))
-
-        for t in buf:
-            lens = [len(s) for s in t.streams]
-            new_maxlens = [max(a, b) for a, b in zip(cur_maxlens, lens)]
-            n = len(cur) + 1
-            if words_budget > 0:
-                # budget on the padded target size (Marian counts labels)
-                padded = bucket_length(new_maxlens[-1], self.length_buckets)
-                over = n * padded > words_budget and len(cur) > 0
-            else:
-                over = n > self.mini_batch
-            if over:
-                flush()
-                cur = []
-                new_maxlens = lens
-            cur.append(t)
-            cur_maxlens = new_maxlens
-        flush()
+            batches.append(make_batch(
+                group, self.n_streams, self.length_buckets,
+                self.batch_multiple, corpus_state=state,
+                weighting_type=self.weighting_type,
+                fixed_rows=budget_rows(width, words_budget,
+                                       self.batch_multiple)))
         if self.shuffle_batches:
             self._rs.shuffle(batches)
         return batches

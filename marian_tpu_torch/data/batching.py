@@ -5,17 +5,22 @@ trimmed to one text stream.
 
 Sentences are read ``--maxi-batch`` × ``--mini-batch`` at a time, sorted
 by source length (``--maxi-batch-sort src``), and cut into batches of
-``--mini-batch`` sentences. Each batch is padded to the reference's
-bucket table (rows to a multiple of 8, width to a length bucket), so the
-port decodes the same padded shapes, and hence the same decode cap, as
-the reference. Output order is restored by the caller from
-``sentence_ids``.
+``--mini-batch`` sentences or, under ``--mini-batch-words``, by the
+reference's token budget (rows × bucketed width, ``over_budget``, the
+rule the training batches and the serving scheduler share). Each batch
+is padded to the reference's bucket table (rows to a multiple of 8,
+width to a length bucket), so the port decodes the same real rows at
+the same width, and hence the same decode cap, as the reference. Unlike
+the reference, a decode batch under a budget keeps no canonical row
+count: that count only saves XLA recompiles, and eager PyTorch would
+spend it on fully masked rows. Output order is restored by the caller
+from ``sentence_ids``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, List, Sequence, Tuple
+from typing import Callable, Iterator, List, Sequence, Tuple, TypeVar
 
 import numpy as np
 
@@ -35,6 +40,66 @@ def bucket_length(n: int, buckets: Sequence[int] = DEFAULT_LENGTH_BUCKETS) -> in
 def bucket_batch_size(n: int, multiple: int = 8) -> int:
     """Snap sentence count up to a multiple (pad rows are fully masked)."""
     return max(multiple, ((n + multiple - 1) // multiple) * multiple)
+
+
+def padded_batch_cost(n_rows: int, max_len: int) -> int:
+    """Device cost (padded tokens) of a decode batch of ``n_rows``
+    sentences whose longest has ``max_len`` tokens, under the bucket
+    table."""
+    return bucket_batch_size(n_rows) * bucket_length(max_len)
+
+
+def over_budget(rows: int, longest: int, words_budget: int,
+                length_buckets: Sequence[int] = DEFAULT_LENGTH_BUCKETS
+                ) -> bool:
+    """The reference's budget rule: ``rows`` unpadded rows x the bucketed
+    width of the ``longest`` exceed ``words_budget`` padded tokens."""
+    return rows * bucket_length(longest, length_buckets) > words_budget
+
+
+T_ = TypeVar("T_")
+
+
+def budget_groups(items: Sequence[T_], length: Callable[[T_], int],
+                  rows_budget: int, words_budget: int,
+                  length_buckets: Sequence[int] = DEFAULT_LENGTH_BUCKETS
+                  ) -> List[List[T_]]:
+    """The reference's batch cut (``_split_maxi``): consecutive ``items``
+    fill a group while its rows x the bucketed width of its longest
+    ``length`` stay within ``words_budget`` (under a budget), or while it
+    holds at most ``rows_budget`` items (without one)."""
+    groups: List[List[T_]] = []
+    cur: List[T_] = []
+    maxlen = 0
+    for item in items:
+        n_len = max(maxlen, length(item))
+        n = len(cur) + 1
+        if words_budget > 0:
+            over = bool(cur) and over_budget(n, n_len, words_budget,
+                                             length_buckets)
+        else:
+            over = n > rows_budget
+        if over:
+            groups.append(cur)
+            cur = []
+            n_len = length(item)
+        cur.append(item)
+        maxlen = n_len
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def budget_rows(width: int, words_budget: int,
+                batch_multiple: int = 8) -> int:
+    """The canonical row count of a training batch of bucketed ``width``
+    under a budget: the rows a full batch of that width holds, rounded
+    down to the batch multiple (0 without a budget: rows snap to the
+    multiple alone)."""
+    if words_budget <= 0:
+        return 0
+    return max(batch_multiple,
+               (words_budget // width) // batch_multiple * batch_multiple)
 
 
 @dataclasses.dataclass
@@ -78,9 +143,11 @@ def make_batch(sents: Sequence[Tuple[int, List[int]]],
 
 
 def batches(sents: Sequence[Tuple[int, List[int]]], mini_batch: int,
-            maxi_batch: int, maxi_batch_sort: str = "src") -> Iterator[Batch]:
+            maxi_batch: int, maxi_batch_sort: str = "src",
+            mini_batch_words: int = 0) -> Iterator[Batch]:
     """Maxi-window sort + mini-batch split (reference:
-    BatchGenerator::fetchBatches, sentence-count budget)."""
+    BatchGenerator::fetchBatches): ``mini_batch`` sentences a batch, or
+    under ``mini_batch_words`` > 0 the token budget."""
     if maxi_batch_sort not in ("src", "none"):
         raise ValueError(f"--maxi-batch-sort {maxi_batch_sort}: "
                          f"src or none when translating")
@@ -90,5 +157,6 @@ def batches(sents: Sequence[Tuple[int, List[int]]], mini_batch: int,
         window = list(sents[start:start + cap])
         if maxi_batch_sort == "src":
             window.sort(key=lambda s: len(s[1]))
-        for i in range(0, len(window), mini_batch):
-            yield make_batch(window[i:i + mini_batch])
+        for group in budget_groups(window, lambda s: len(s[1]), mini_batch,
+                                   mini_batch_words):
+            yield make_batch(group)

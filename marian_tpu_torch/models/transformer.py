@@ -44,7 +44,7 @@ import torch
 from ..ops.attention import attention
 from ..ops.kernels.decode_attention import decode_attention
 from ..ops.kernels.flash_attention import MAX_HEAD_SIZE
-from ..ops.kernels.kv_pool import paged_decode_attention
+from ..ops.kernels.kv_pool import paged_decode_attention, state_key_groups
 from ..ops.ops import (activation, affine, dropout, layer_norm,
                        logits_matmul, scalar)
 
@@ -603,6 +603,23 @@ def init_paged_decode_state(cfg: TransformerConfig, params: Params,
                                       device=dev)
     state["pos"] = torch.zeros((b,), dtype=torch.int32, device=dev)
     return state
+
+
+def fork_paged_rows(state: Dict[str, Any], src_mask: torch.Tensor,
+                    src_slots: torch.Tensor, dst_slots: torch.Tensor) -> None:
+    """Copy the ROW leaves of a paged decode state (each layer's
+    cross-attention K/V, the sentence's encoder summary) and the source
+    mask row from ``src_slots`` to ``dst_slots``, IN PLACE: a new beam
+    hypothesis row takes its sentence without another encoder pass (its
+    decoder history travels as page-table aliases, ``kv_pool``). Pairs
+    with ``src == dst`` are self-copies, so callers may pad with
+    ``(0, 0)``. Pools and ``pos``/``page_table`` are untouched."""
+    row_keys, _, _ = state_key_groups(state)
+    src = src_slots.to(device=src_mask.device, dtype=torch.long)
+    dst = dst_slots.to(device=src_mask.device, dtype=torch.long)
+    for k in row_keys:
+        state[k][dst] = state[k][src]
+    src_mask[dst] = src_mask[src]
 
 
 def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],

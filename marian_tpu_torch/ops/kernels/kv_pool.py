@@ -17,7 +17,8 @@ table entries of unclaimed slots point at it, and idle rows write zeros
 into it, so their writes collide deterministically.
 
 ``KVPool`` is the host-side refcounted allocator (a copy of the
-reference's, behind a plain ``threading.Lock``). ``pool_insert`` writes
+reference's, behind a plain ``threading.Lock``). ``pool_fork_partial``
+copies the partial pages a beam fork diverges on. ``pool_insert`` writes
 each row's new-token K/V into its page IN PLACE: the reference returns
 new pools because XLA donates the old ones, and a copy of a pool per
 layer per step would cost more than the attention read. On a CUDA tensor
@@ -429,6 +430,21 @@ def pool_insert(pool_k: torch.Tensor, pool_v: torch.Tensor,
         payload = new[:, :, 0, :].to(pool.dtype)
         payload = torch.where(keep, payload, torch.zeros_like(payload))
         pool[page, :, off, :] = payload
+
+
+def pool_fork_partial(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                      src_pages: torch.Tensor,
+                      dst_pages: torch.Tensor) -> None:
+    """Copy-on-write fork of PARTIAL pages, IN PLACE: ``pool[dst] =
+    pool[src]`` for each (src, dst) pair, the one content copy a beam
+    reorder pays per diverging hypothesis (H x page_len x Dh elements,
+    against the dense reorder's H x L x Dh). Pairs ``(0, 0)`` rewrite the
+    trash page with its own content (no-ops), so callers may pad the
+    pairs to a bucket. The sources are gathered before any write."""
+    src = src_pages.to(device=pool_k.device, dtype=torch.long)
+    dst = dst_pages.to(device=pool_k.device, dtype=torch.long)
+    for pool in (pool_k, pool_v):
+        pool[dst] = pool[src]
 
 
 def paged_decode_attention_reference(q, pool_k, pool_v, page_table,

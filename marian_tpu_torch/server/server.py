@@ -1,30 +1,44 @@
-"""marian-server of the port: iteration-level serving over a paged KV
-pool, ported from ``marian_tpu/server/server.py`` (``--batching-mode
-iteration`` at ``--beam-size 1``).
+"""marian-server of the port, ported from ``marian_tpu/server/server.py``:
+request-mode serving (the reference's default) and iteration-mode
+serving over a paged KV pool, greedy at ``--beam-size 1`` and beam
+search with the host merge above it.
 
 Protocol as the reference's dependency-free transport: length-prefixed
 TCP frames ``MTPU <nbytes>\\n`` + UTF-8 payload in both directions; a
 request frame holds newline-joined source sentences, the reply the
 newline-joined translations. The WebSocket transport is not ported yet.
 
-All requests flow through ONE scheduler (serving/scheduler.py) that lets
-sentences join a running decode every round (translator/iteration.py),
-behind bounded admission (serving/admission.py) that prices queue debt in
-sentences and in KV-pool pages. Error replies are explicit:
-``!!SERVER-OVERLOADED`` (shed), ``!!SERVER-TIMEOUT`` (deadline),
-``!!SERVER-RETRY`` (row evicted by a failed round) and ``!!SERVER-ERROR``
-(bad frame, or a request header whose feature is not ported).
+All requests flow through ONE scheduler (serving/scheduler.py) behind
+bounded admission (serving/admission.py):
 
-Not ported yet, each refused by name at startup: request-mode batching,
-beam search in iteration mode (PagedBeamEngine), ``--prefix-cache``, the
-decode-feature flags; and by an ``!!SERVER-ERROR`` reply, the ``#trace:``
-and ``#stream:1`` request headers.
+- ``--batching-mode request``: the scheduler packs sentences of many
+  requests into device batches by token budget (``--batch-token-budget``,
+  by default ``--mini-batch`` x the bucketed ``--max-length``) and runs
+  each through the decoder's dense beam search (``translate_lines``);
+  admission bounds queued sentences.
+- ``--batching-mode iteration``: sentences join a running decode every
+  round (translator/iteration.py; at beam > 1 the copy-on-write beam
+  engine, translator/beam_iteration.py, with ``--iteration-beam-merge
+  host``); admission prices queue debt in sentences and in pool pages.
+
+Error replies are explicit: ``!!SERVER-OVERLOADED`` (shed),
+``!!SERVER-TIMEOUT`` (deadline), ``!!SERVER-RETRY`` (row evicted by a
+failed round or a dry pool) and ``!!SERVER-ERROR`` (bad frame, or a
+request header whose feature is not ported).
+
+Not ported yet, each refused by name at startup: the fused on-device
+beam merge (``--iteration-beam-merge fused``, the reference's default at
+beam > 1), ``--prefix-cache``, the decode-feature flags in iteration
+mode, the dispatch watchdog (``--dispatch-stall-timeout``); and by an
+``!!SERVER-ERROR`` reply, the ``#trace:`` and ``#stream:1`` request
+headers.
 """
 
 from __future__ import annotations
 
 import asyncio
-from typing import Optional, Tuple, Union
+import io
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -102,6 +116,29 @@ class TranslationService:
         from ..translator.translator import Translate
         self.translator = Translate(options, device)
 
+    def translate_lines(self, lines: List[str]) -> List[str]:
+        """One device batch of ``lines`` through ``Translate.run``, one
+        translation a line."""
+        got = self.translator.run(lines=lines, stream=io.StringIO())
+        if len(got) != len(lines):
+            # the batched reply slicing relies on one entry a line: a
+            # mismatch would route one client's text to another
+            raise RuntimeError(
+                f"translator returned {len(got)} lines for {len(lines)} "
+                f"inputs — per-request reply slicing would misalign")
+        return got
+
+
+def resolve_token_budget(options) -> int:
+    """--batch-token-budget, or ``--mini-batch`` x the bucketed
+    ``--max-length`` + 1 when it is unset."""
+    budget = int(options.get("batch-token-budget", 0) or 0)
+    if budget > 0:
+        return budget
+    mb = max(1, int(options.get("mini-batch", 1) or 1))
+    ml = max(1, int(options.get("max-length", 50) or 50))
+    return mb * bucket_length(ml + 1)
+
 
 # iteration mode refuses these flags by name (set = not off)
 _UNPORTED_FLAGS = ("prefix-cache", "n-best", "output-sampling",
@@ -110,63 +147,104 @@ _UNPORTED_FLAGS = ("prefix-cache", "n-best", "output-sampling",
 
 
 class ServingApp:
-    """One serving stack: the model (TranslationService), the paged
-    engine, the scheduler and admission control. ``engine`` injects a
-    prebuilt engine; ``device`` overrides the device the options
-    resolve."""
+    """One serving stack: the model (TranslationService), the scheduler
+    in the configured batching mode (with the paged engine in iteration
+    mode) and admission control. ``translate_lines`` (request mode) and
+    ``engine`` (iteration mode) inject what would otherwise be built from
+    the options; ``device`` overrides the device the options resolve."""
 
     def __init__(self, options, engine=None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 translate_lines: Optional[
+                     Callable[[List[str]], List[str]]] = None):
         self.options = options
-        self._validate_iteration_options(options)
+        self._validate_options(options)
+        self.batching_mode = str(options.get("batching-mode", "request"))
         self.service: Optional[TranslationService] = None
-        if engine is None:
-            self.service = TranslationService(options, device)
-            engine = self._build_engine()
-        # admission prices queue debt in pages: by default 4x the pool
-        self.max_queue_pages = int(options.get("max-queue-pages", 0) or 0) \
-            or 4 * engine.pool.usable_pages
-        self.scheduler = ContinuousScheduler(
-            engine,
-            engine_factory=self._build_engine if self.service else None)
-        self.admission = AdmissionController(
-            int(options.get("max-queue", 512) or 0),
-            self.scheduler.queued_units,
-            max_queue_pages=self.max_queue_pages,
-            pages_fn=self.scheduler.queued_pages)
+        budget = resolve_token_budget(options)
+        max_queue = int(options.get("max-queue", 512) or 0)
+        if self.batching_mode == "request":
+            if translate_lines is None:
+                # one scheduler batch is one device batch: the decoder
+                # cuts by the same budget, and its window (maxi-batch x
+                # mini-batch sentences) holds any batch (rows are at
+                # most budget / the narrowest bucket)
+                options.set("mini-batch-words", budget)
+                options.set("mini-batch", budget)
+                options.set("maxi-batch", 1)
+                self.service = TranslationService(options, device)
+                translate_lines = self.service.translate_lines
+            self.max_queue_pages = 0
+            self.scheduler = ContinuousScheduler(
+                translate_lines, token_budget=budget,
+                batching_mode="request")
+            # request mode bounds queued sentences only: no pool
+            self.admission = AdmissionController(
+                max_queue, self.scheduler.queued_units)
+        else:
+            if engine is None:
+                self.service = TranslationService(options, device)
+                engine = self._build_engine()
+            # admission prices queue debt in pages: by default 4x the pool
+            self.max_queue_pages = \
+                int(options.get("max-queue-pages", 0) or 0) \
+                or 4 * engine.pool.usable_pages
+            self.scheduler = ContinuousScheduler(
+                batching_mode="iteration", engine=engine,
+                engine_factory=self._build_engine if self.service else None)
+            self.admission = AdmissionController(
+                max_queue, self.scheduler.queued_units,
+                max_queue_pages=self.max_queue_pages,
+                pages_fn=self.scheduler.queued_pages)
         self.request_timeout = float(options.get("request-timeout", 0) or 0)
 
     @staticmethod
-    def _validate_iteration_options(options) -> None:
+    def _validate_options(options) -> None:
         """The option surface this slice serves; everything else fails
-        loudly here rather than serving something other than asked."""
+        loudly here, before a model loads, rather than serving something
+        other than asked."""
         mode = str(options.get("batching-mode", "request") or "request")
-        if mode == "request":
-            raise NotImplementedError(
-                "--batching-mode request is not ported to marian_tpu_torch "
-                "yet (ROADMAP A6); serve with --batching-mode iteration")
-        if mode != "iteration":
+        if mode not in ("request", "iteration"):
             raise ValueError(f"--batching-mode must be request or "
                              f"iteration, got {mode!r}")
-        beam = int(options.get("beam-size", 6) or 6)
-        if beam > 1:
+        if float(options.get("dispatch-stall-timeout", 0) or 0) > 0:
             raise NotImplementedError(
-                f"--beam-size {beam} in iteration mode (PagedBeamEngine) is "
-                f"not ported to marian_tpu_torch yet (ROADMAP A6); serve "
-                f"with --beam-size 1")
-        if int(options.get("batch-token-budget", 0) or 0):
-            raise NotImplementedError(
-                "--batch-token-budget sizes request-mode batches, which are "
-                "not ported to marian_tpu_torch yet (ROADMAP A6)")
+                "--dispatch-stall-timeout (the dispatch watchdog) is not "
+                "ported to marian_tpu_torch yet (ROADMAP A6b)")
+        if mode == "request":
+            return          # the decoder refuses its own unported flags
         for flag in _UNPORTED_FLAGS:
             if options.get(flag, None) not in (None, False, [], "", 0):
                 raise NotImplementedError(
                     f"--{flag} in iteration mode is not ported to "
-                    f"marian_tpu_torch yet (ROADMAP A6)")
-        problems = []
+                    f"marian_tpu_torch yet (ROADMAP A6b)")
+        beam = int(options.get("beam-size", 6) or 6)
         steps = int(options.get("iteration-steps", 1) or 1)
+        merge = str(options.get("iteration-beam-merge", "fused") or "fused")
+        if merge == "fused" and beam > 1:
+            raise NotImplementedError(
+                f"--iteration-beam-merge fused (the on-device beam merge, "
+                f"the default at --beam-size {beam}) is not ported to "
+                f"marian_tpu_torch yet (ROADMAP A6b); pass "
+                f"--iteration-beam-merge host")
+        problems = []
+        if beam < 1:
+            problems.append("--beam-size must be >= 1")
         if steps < 1:
             problems.append(f"--iteration-steps must be >= 1 (got {steps})")
+        if merge not in ("fused", "host"):
+            problems.append(f"--iteration-beam-merge {merge!r} (choose "
+                            f"'fused' or 'host')")
+        elif merge == "host" and steps > 1 and beam > 1:
+            problems.append(
+                f"--iteration-beam-merge host with --iteration-steps "
+                f"{steps}: the host merge needs the host between steps "
+                f"(rounds run single-step) — drop to --iteration-steps 1")
+        rows = int(options.get("iteration-rows", 32) or 32)
+        if beam > rows:
+            problems.append(f"--beam-size {beam} exceeds --iteration-rows "
+                            f"{rows} (one sentence needs beam-size decode "
+                            f"slots)")
         if len(list(options.get("models", []) or [])) > 1:
             problems.append("--models ensembles are not supported")
         if problems:
@@ -174,13 +252,13 @@ class ServingApp:
                              + "; ".join(problems))
 
     def _build_engine(self):
-        """A fresh PagedDecodeEngine over the loaded model."""
+        """A fresh paged engine over the loaded model: greedy at
+        --beam-size 1, the copy-on-write beam engine above it."""
         from ..translator.iteration import PagedDecodeEngine
         tr = self.service.translator
         opts = self.options
         ml = max(1, int(opts.get("max-length", 50) or 50))
-        return PagedDecodeEngine(
-            tr.model, tr.params, tr.src_vocab, tr.trg_vocab,
+        kw = dict(
             max_rows=int(opts.get("iteration-rows", 32) or 32),
             page_len=int(opts.get("kv-page-len", 16) or 16),
             pool_bytes=int(opts.get("kv-pool-bytes", 0) or 0),
@@ -189,20 +267,39 @@ class ServingApp:
             max_length_factor=float(
                 opts.get("max-length-factor", 3.0) or 3.0),
             steps_per_round=int(opts.get("iteration-steps", 1) or 1))
+        beam = int(opts.get("beam-size", 6) or 6)
+        if beam == 1:
+            return PagedDecodeEngine(tr.model, tr.params, tr.src_vocab,
+                                     tr.trg_vocab, **kw)
+        from ..translator.beam_iteration import PagedBeamEngine
+        norm = opts.get("normalize", 0.0)
+        if norm is True:
+            norm = 1.0
+        return PagedBeamEngine(
+            tr.model, tr.params, tr.src_vocab, tr.trg_vocab,
+            beam_size=beam, normalize=float(norm or 0.0),
+            word_penalty=float(opts.get("word-penalty", 0.0) or 0.0),
+            allow_unk=bool(opts.get("allow-unk", False)), **kw)
 
     def start(self) -> None:
         """Start the scheduler on the RUNNING loop."""
         self.scheduler.start()
+        timeout = (f"{self.request_timeout}s" if self.request_timeout
+                   else "none")
+        limit = self.admission.max_queue_units or "unbounded"
         engine = self.scheduler.engine
-        log.info("Serving on {}: iteration mode, {} rows, {} steps a round, "
-                 "KV pool of {} pages of {} tokens, queue limit {} sentences "
-                 "/ {} pages, request timeout {}", engine.device,
-                 engine.max_rows, engine.steps_per_round,
-                 engine.pool.usable_pages, engine.page_len,
-                 self.admission.max_queue_units or "unbounded",
-                 self.max_queue_pages,
-                 f"{self.request_timeout}s" if self.request_timeout
-                 else "none")
+        if engine is None:
+            log.info("Serving: request mode, beam {}, batches of {} "
+                     "tokens, queue limit {} sentences, request timeout {}",
+                     self.options.get("beam-size", 12),
+                     self.scheduler.token_budget, limit, timeout)
+            return
+        log.info("Serving on {}: iteration mode, beam {}, {} rows, {} steps "
+                 "a round, KV pool of {} pages of {} tokens, queue limit {} "
+                 "sentences / {} pages, request timeout {}", engine.device,
+                 getattr(engine, "beam_size", 1), engine.max_rows,
+                 engine.steps_per_round, engine.pool.usable_pages,
+                 engine.page_len, limit, self.max_queue_pages, timeout)
 
     async def handle_frame(self, text: str) -> str:
         """One request frame in, one reply frame out: headers, admission,
@@ -219,7 +316,7 @@ class ServingApp:
         try:
             self.admission.admit(
                 len(lines), n_pages=sum(engine.pages_for_text(l)
-                                        for l in lines))
+                                        for l in lines) if engine else 0)
         except Overloaded as e:
             return f"!!SERVER-OVERLOADED {e}"
         fut = self.scheduler.submit(lines, priority=priority or 0,

@@ -1,19 +1,29 @@
-"""The iteration-level serving scheduler, the ``--batching-mode
-iteration`` path of ``marian_tpu/serving/scheduler.py`` ::
-``ContinuousScheduler`` (without the spans, quiesce, brownout and
-metrics planes, and without request mode).
+"""The serving scheduler, ported from ``marian_tpu/serving/scheduler.py``
+:: ``ContinuousScheduler`` (without the spans, quiesce, brownout,
+watchdog, fleet and metrics planes), in both batching modes.
 
-Requests split into SENTENCE UNITS in priority lanes. Scheduling runs
-INSIDE the decode loop: every round, a join pass admits queued units
-against the paged engine's free slots and pages, then one
-``admit_and_step`` on the single device worker thread advances every
-active row; finished rows resolve the round they finish, and a sentence
-joins the moment capacity exists instead of waiting for a batch to
-drain. Per-request deadlines (``timeout``) fail the request on time even
-while queued; a cancelled request (client gone) has its queued units
-dropped and its decoding rows evicted, pages freed, at the next round.
-A round that raises fails its rows (retriably when the engine can be
-rebuilt, as after a pool audit failure) and rebuilds the engine.
+Requests split into SENTENCE UNITS in priority lanes (highest first,
+FIFO within a lane); units of requests already resolved are swept
+before they cost device time. All device work runs on ONE worker thread.
+
+- ``request`` (the reference's default): the worker packs one device
+  batch at a time by PADDED-TOKEN BUDGET (rows x bucketed width, the
+  training batches' rule, ``data/batching.py``), seeded by the oldest
+  live unit and topped up with whatever else fits, and hands its lines
+  to ``translate_lines``. A batch that raises is bisected until single
+  units isolate the poison sentence: only its request fails.
+- ``iteration``: scheduling runs INSIDE the decode loop. Every round, a
+  join pass admits queued units against the paged engine's free slots
+  and pages, then one ``admit_and_step`` advances every active row;
+  finished rows resolve the round they finish, and a sentence joins the
+  moment capacity exists. A round that raises fails its rows (retriably
+  when the engine can be rebuilt, as after a pool audit failure) and
+  rebuilds the engine; a beam sentence evicted on a dry pool fails
+  retriably.
+
+Per-request deadlines (``timeout``) fail the request on time even while
+queued; a cancelled request (client gone) has its queued units dropped
+and, in iteration mode, its decoding rows evicted at the next round.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import threading
 from typing import Callable, Deque, Dict, List, Optional
 
 from ..common import logging as log
+from ..data.batching import over_budget, padded_batch_cost
 from ..translator.iteration import FATAL_REASONS
 
 
@@ -33,8 +44,9 @@ class RequestTimeout(RuntimeError):
 
 
 class RowEvicted(RuntimeError):
-    """A decoding row was evicted with its pages freed because its round
-    failed and the engine was rebuilt. Retriable: the server replies
+    """A decoding row was evicted with its pages freed: its round failed
+    and the engine was rebuilt, or the pool ran dry under a beam
+    sentence's lazy page claims. Retriable: the server replies
     ``!!SERVER-RETRY``."""
 
     retriable = True
@@ -84,11 +96,29 @@ class _Unit:
 
 
 class ContinuousScheduler:
-    def __init__(self, engine,
-                 engine_factory: Optional[Callable[[], object]] = None,
+    def __init__(self,
+                 translate_lines: Optional[
+                     Callable[[List[str]], List[str]]] = None,
+                 token_budget: int = 4096,
                  window_s: float = 0.002, scan_limit: int = 512,
                  length_fn: Callable[[str], int] = default_length_fn,
-                 executor: Optional[concurrent.futures.Executor] = None):
+                 executor: Optional[concurrent.futures.Executor] = None,
+                 batching_mode: str = "request", engine=None,
+                 engine_factory: Optional[Callable[[], object]] = None):
+        if batching_mode not in ("request", "iteration"):
+            raise ValueError(f"--batching-mode must be request or "
+                             f"iteration, got {batching_mode!r}")
+        if batching_mode == "iteration" and engine is None:
+            raise ValueError("--batching-mode iteration needs a paged "
+                             "engine (translate_lines alone cannot join "
+                             "rows mid-decode)")
+        if batching_mode == "request" and translate_lines is None:
+            raise ValueError("--batching-mode request needs "
+                             "translate_lines")
+        self.batching_mode = batching_mode
+        # request mode: List[str] -> List[str], one device batch a call
+        self.translate_lines = translate_lines
+        self.token_budget = max(1, int(token_budget))
         self.engine = engine
         # rebuilds the engine after a failed round
         self.engine_factory = engine_factory
@@ -118,9 +148,13 @@ class ContinuousScheduler:
         self._wake = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
         self._inflight = 0
+        # request mode: units of the device batch in flight, failed by
+        # stop() (event-loop-only)
+        self._inflight_units: List[_Unit] = []
         # units decoding in engine slots (event-loop-only)
         self._active_units: Dict[_Unit, None] = {}
-        # outcomes and events over the scheduler's life (event-loop-only)
+        # outcomes and events over the scheduler's life (event-loop-only);
+        # request mode adds batches, rows, real and padded tokens
         self.counts: collections.Counter = collections.Counter()
 
     # -- lifecycle ----------------------------------------------------------
@@ -132,8 +166,9 @@ class ContinuousScheduler:
     async def stop(self) -> None:
         """Hard stop: cancel the worker; queued and decoding requests
         fail explicitly (never a silent hang)."""
-        pending = list(self._active_units)
+        pending = list(self._active_units) + self._inflight_units
         self._active_units.clear()
+        self._inflight_units = []
         if self._task is not None:
             self._task.cancel()
             try:
@@ -204,7 +239,8 @@ class ContinuousScheduler:
         req = _Request(lines, fut, priority, loop.time())
         with self._state_lock:
             for i, text in enumerate(lines):
-                pages = self.engine.pages_for_text(text)
+                pages = (self.engine.pages_for_text(text)
+                         if self.batching_mode == "iteration" else 0)
                 u = _Unit(req, i, text, max(1, int(self.length_fn(text))),
                           pages)
                 self._lanes[priority].append(u)
@@ -241,6 +277,7 @@ class ContinuousScheduler:
     # -- worker -------------------------------------------------------------
     async def _run(self) -> None:
         loop = asyncio.get_event_loop()
+        iteration = self.batching_mode == "iteration"
         while True:
             try:
                 was_idle = False
@@ -249,12 +286,121 @@ class ContinuousScheduler:
                     was_idle = True
                     await self._wake.wait()
                 if was_idle and self.window_s > 0:
+                    # idle-edge coalescing only; under load the previous
+                    # batch's (or round's) device time is the window
                     await asyncio.sleep(self.window_s)
-                await self._iteration_round(loop)
+                if iteration:
+                    await self._iteration_round(loop)
+                    continue
+                batch = self._form_batch()
+                if batch:
+                    await self._dispatch(batch, loop)
             except asyncio.CancelledError:
                 raise
             except Exception as e:  # noqa: BLE001 — supervision: never die
                 log.error("serving scheduler error (recovered): {}", e)
+
+    # -- request mode -------------------------------------------------------
+    def _form_batch(self) -> List[_Unit]:
+        """Pack one device batch: seeded by the oldest live unit of the
+        highest non-empty lane, topped up (same lane order) with queued
+        units that fit the padded-token budget. Units that do not fit go
+        back to the front of their lanes in order (FIFO kept); units of
+        resolved requests are swept here."""
+        batch: List[_Unit] = []
+        longest = 0
+        scanned = 0
+        skipped: List[_Unit] = []
+        with self._state_lock:
+            for prio in sorted(self._lanes.keys(), reverse=True):
+                lane = self._lanes[prio]
+                while lane and scanned < self.scan_limit:
+                    u = lane.popleft()
+                    scanned += 1
+                    self._queued -= 1
+                    self._queued_pages -= u.pages
+                    u.req.queued -= 1
+                    u.req.queued_pages -= u.pages
+                    if u.req.future.done():
+                        if u.req.dead_accounted:
+                            self._dead -= 1
+                            self._dead_pages -= u.pages
+                        continue
+                    # the decoder's budget rule, so one batch here is
+                    # one device batch; a shorter unit further back may
+                    # still fit, so the scan goes on
+                    if batch and over_budget(len(batch) + 1,
+                                             max(longest, u.tokens),
+                                             self.token_budget):
+                        skipped.append(u)
+                        continue
+                    batch.append(u)
+                    longest = max(longest, u.tokens)
+                if scanned >= self.scan_limit:
+                    break
+            for u in reversed(skipped):
+                self._lanes[u.req.priority].appendleft(u)
+                self._queued += 1
+                self._queued_pages += u.pages
+                u.req.queued += 1
+                u.req.queued_pages += u.pages
+        return batch
+
+    async def _dispatch(self, units: List[_Unit], loop) -> None:
+        """One device batch: its counts, then ``_translate_units``."""
+        self._inflight += 1
+        self._inflight_units = list(units)
+        try:
+            c = self.counts
+            c["batches"] += 1
+            c["batch_rows"] += len(units)
+            c["batch_tokens"] += sum(u.tokens for u in units)
+            c["batch_capacity"] += padded_batch_cost(
+                len(units), max(u.tokens for u in units))
+            await self._translate_units(units, loop)
+        finally:
+            self._inflight -= 1
+            self._inflight_units = []
+
+    async def _translate_units(self, units: List[_Unit], loop) -> None:
+        """One device call for the batch; on failure, bisect: each half
+        is retried, recursively, until single units isolate the poison
+        sentence, whose request alone fails (O(log batch) extra calls
+        for one poison unit)."""
+        # requests may die (deadline, cancel, a sibling's failure) while
+        # the batch waits, inside bisection retries too
+        units = [u for u in units if not u.req.future.done()]
+        if not units:
+            return
+        lines = [u.text for u in units]
+        try:
+            out = await loop.run_in_executor(self._executor,
+                                             self.translate_lines, lines)
+            if len(out) != len(lines):
+                raise RuntimeError(
+                    f"translator returned {len(out)} lines for "
+                    f"{len(lines)} inputs — reply routing would misalign")
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001
+            if len(units) == 1:
+                u = units[0]
+                if not u.req.future.done():
+                    self.counts["failures"] += 1
+                    log.error("translation error: {}", e)
+                    u.req.future.set_exception(RuntimeError(str(e)))
+                return
+            self.counts["bisections"] += 1
+            log.error("batch translation error ({} sentences — bisecting "
+                      "to isolate): {}", len(units), e)
+            mid = len(units) // 2
+            await self._translate_units(units[:mid], loop)
+            await self._translate_units(units[mid:], loop)
+            return
+        for u, line in zip(units, out):
+            self._complete_unit(u, line)
+
+    # -- iteration mode -----------------------------------------------------
 
     def _form_join_set(self) -> List[_Unit]:
         """The join pass: highest lane first, FIFO within a lane, packed
@@ -364,6 +510,16 @@ class ContinuousScheduler:
         # reversed, so the lane keeps FIFO order across rejection rounds
         for u in reversed(requeue):
             self._requeue_front(u)
+        # beam sentences evicted on a dry pool: retriable
+        for u in res.pool_evicted:
+            if u not in self._active_units:
+                continue
+            del self._active_units[u]
+            self.counts["evictions"] += 1
+            if not u.req.future.done():
+                u.req.future.set_exception(RowEvicted(
+                    "row evicted: KV pool exhausted mid-decode "
+                    "(copy-on-write beam divergence) — retry"))
         for u, text in res.finished:
             self._active_units.pop(u, None)
             self._complete_unit(u, text)

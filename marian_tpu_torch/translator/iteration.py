@@ -69,6 +69,11 @@ class StepResult:
     # key -> what a FATAL rejection needed against what the engine has
     reject_detail: Dict[object, str] = field(default_factory=dict)
     finished: List[Tuple[object, str]] = field(default_factory=list)
+    # key -> score, norm_score, length and tokens of a finished beam row
+    finished_info: Dict[object, dict] = field(default_factory=dict)
+    # keys evicted because a lazy page claim found the pool dry (beam
+    # divergence): retriable, the scheduler replies !!SERVER-RETRY
+    pool_evicted: List[object] = field(default_factory=list)
     rows: int = 0                 # active rows this round (before finishes)
     steps: int = 0                # decode steps the round ran
     device_s: float = 0.0         # admit+step wall time (ends in a sync)
@@ -93,6 +98,9 @@ class PagedDecodeEngine:
 
     # encode-at-join batch buckets
     JOIN_BUCKETS = (1, 2, 4, 8)
+    # slots one sentence holds: a beam engine's sentence holds beam-size
+    # slots, an aligned block of them
+    slots_per_sentence = 1
 
     def __init__(self, model, params, src_vocab, trg_vocab,
                  max_rows: int = 32,
@@ -183,7 +191,16 @@ class PagedDecodeEngine:
         return self.pool.free_pages()
 
     def free_slots(self) -> int:
-        return self.max_rows - self._n_active
+        """Sentences that can join now."""
+        return (self.max_rows - self._n_active) // self.slots_per_sentence
+
+    def _free_block(self) -> Optional[int]:
+        """The first slot of the lowest free aligned block of
+        ``slots_per_sentence`` slots (None: no block is free). The lowest
+        keeps the occupied prefix, and with it the row bucket, tight."""
+        g = self.slots_per_sentence
+        return next((b for b in range(0, self.max_rows - g + 1, g)
+                     if not any(self._slots[b:b + g])), None)
 
     def idle(self) -> bool:
         return self._n_active == 0
@@ -262,7 +279,8 @@ class PagedDecodeEngine:
                            f"table holds {self.pool.max_pages_per_row}/row "
                            f"(raise --kv-page-len or --kv-pool-bytes)")
             return "too_large"
-        if self._n_active >= self.max_rows:
+        slot = self._free_block()
+        if slot is None:
             return "no_slot"
         try:
             pages = self.pool.claim(key, n_pages)
@@ -276,9 +294,6 @@ class PagedDecodeEngine:
                     f"--kv-pool-bytes or lower --max-length)")
                 return "too_large"
             return "no_pages"
-        # the lowest free slot keeps the occupied prefix (and with it the
-        # row bucket) tight
-        slot = self._slots.index(None)
         self._slots[slot] = _Slot(key, cap, expected_refs=n_pages)
         self._by_key[key] = slot
         self._n_active += 1
@@ -397,6 +412,27 @@ class PagedDecodeEngine:
             self._src_mask[slots] = mask
             self.counters["encodes"] += 1
 
+    def _step_state(self, rb: int):
+        """(the model's step state over slots [0, rb) without ``pos``,
+        their source mask): the rows' cross K/V, the pools, this round's
+        page table."""
+        row_keys, pool_keys, whole_keys = self._keys
+        sub = {k: self._state[k][:rb] for k in row_keys}
+        sub.update({k: self._state[k] for k in pool_keys + whole_keys})
+        sub["page_table"] = torch.from_numpy(self._table[:rb]).to(
+            self.device)
+        return sub, self._src_mask[:rb]
+
+    def _finish(self, res: StepResult, key, tokens: List[int],
+                info: Optional[dict] = None) -> None:
+        """The round tail of a finished sentence: its text (and ``info``)
+        into ``res``, then its slots and pages freed."""
+        res.finished.append(
+            (key, self.trg_vocab.decode(tokens, ignore_eos=True)))
+        if info is not None:
+            res.finished_info[key] = info
+        self._evict(key)
+
     def _step(self, res: StepResult) -> None:
         """One round: steps_per_round decode steps over the occupied
         prefix, rounded up to a row bucket, tokens copied to the host
@@ -410,12 +446,7 @@ class PagedDecodeEngine:
             if s is not None:
                 pos_np[i] = s.pos
                 prev_np[i, 0] = s.prev
-        row_keys, pool_keys, whole_keys = self._keys
-        sub = {k: self._state[k][:rb] for k in row_keys}
-        sub.update({k: self._state[k] for k in pool_keys + whole_keys})
-        sub["page_table"] = torch.from_numpy(self._table[:rb]).to(
-            self.device)
-        src_mask = self._src_mask[:rb]
+        sub, src_mask = self._step_state(rb)
         pos = torch.from_numpy(pos_np).to(self.device)
         prev = torch.from_numpy(prev_np).to(self.device)
         toks = []
@@ -449,9 +480,7 @@ class PagedDecodeEngine:
                     finishes.append(s)
                     break
         for s in finishes:
-            res.finished.append(
-                (s.key, self.trg_vocab.decode(s.tokens, ignore_eos=True)))
-            self._evict(s.key)
+            self._finish(res, s.key, s.tokens)
         res.rows = emitted
         res.steps += toks.shape[0]
 
@@ -470,6 +499,9 @@ class PagedDecodeEngine:
             for key, why in res.rejected:
                 if why in FATAL_REASONS:
                     raise ValueError(f"sentence {key} rejected: {why}")
+                pending.insert(0, (key, texts[key]))
+            # evicted on a dry pool: decoded again once pages free up
+            for key in res.pool_evicted:
                 pending.insert(0, (key, texts[key]))
             out.update(res.finished)
             guard += 1

@@ -2,7 +2,8 @@
 ``marian_tpu/translator/translator.py`` (reference src/translator/
 translator.h :: Translate<BeamSearch>::run) for one model.
 
-Loads the model and vocabs, batches the input (maxi-batch length sort),
+Loads the model and vocabs, batches the input (maxi-batch length sort,
+``--mini-batch`` sentences or the ``--mini-batch-words`` token budget),
 runs the beam search batch by batch on the resolved device, and writes
 translations in input order.
 """
@@ -33,7 +34,6 @@ _UNPORTED = {
     "force-decode": False,
     "shortlist": [],
     "output-approx-knn": [],
-    "mini-batch-words": 0,
     "weights": [],
 }
 
@@ -107,7 +107,8 @@ class Translate:
             for batch in batches(
                     sents, int(self.options.get("mini-batch", 32) or 32),
                     int(self.options.get("maxi-batch", 100) or 1),
-                    str(self.options.get("maxi-batch-sort", "src"))):
+                    str(self.options.get("maxi-batch-sort", "src")),
+                    int(self.options.get("mini-batch-words", 0) or 0)):
                 nbests = self.search.search(batch.ids, batch.mask)
                 for row in range(batch.size):
                     sid = int(batch.sentence_ids[row])

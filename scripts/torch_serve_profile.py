@@ -19,9 +19,13 @@ time per round:
 - served: ServingApp on a TCP port, 16 clients, every request at once,
   twice untraced and once traced (engine and wall time per round).
 
+``--beam`` profiles the beam engine chip_smoke.py serves instead (beam 6,
+the host merge: ``chip_smoke.beam_serve_options``).
+
 Run from the root of a checkout on the machine with the card:
 
     python3 scripts/torch_serve_profile.py [--seed 17] [--sentences 256]
+        [--beam]
 """
 
 from __future__ import annotations
@@ -70,6 +74,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=17)
     ap.add_argument("--sentences", type=int, default=256)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--beam", action="store_true",
+                    help="the beam engine (beam 6, host merge)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
@@ -82,7 +88,8 @@ def main(argv=None) -> int:
 
     _build.build_all()
     cs.write_model(args.seed)
-    app = ServingApp(cs.serve_options())
+    app = ServingApp(cs.beam_serve_options() if args.beam
+                     else cs.serve_options())
     engine = app.scheduler.engine
     sents = cs.serve_sentences(args.seed, args.sentences)
     engine.decode_texts(cs.serve_sentences(args.seed + 1, cs.SERVE_ROWS))

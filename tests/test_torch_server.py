@@ -10,8 +10,10 @@ the port's io.
   streaming headers reply ``!!SERVER-ERROR``;
 - a client that disconnects mid-decode cancels its request: its row is
   evicted and its pages freed;
-- flags this slice does not carry are refused by name, and without a
-  card the entry point raises unless ``--cpu-threads`` asks for the CPU.
+- flags the port does not carry are refused by name (the fused beam
+  merge, the prefix cache, n-best and sampling in iteration mode, the
+  dispatch watchdog), and without a card the entry point raises unless
+  ``--cpu-threads`` asks for the CPU.
 """
 
 import asyncio
@@ -172,16 +174,19 @@ def test_disconnect_cancels_the_request(model):
 
 
 @pytest.mark.parametrize("flags,name", [
-    ([], "--batching-mode request"),
-    (["--batching-mode", "iteration"], "--beam-size"),
+    (["--batching-mode", "iteration", "--beam-size", "4"],
+     "--iteration-beam-merge"),
     (["--batching-mode", "iteration", "--beam-size", "1", "--prefix-cache"],
      "--prefix-cache"),
+    (["--batching-mode", "iteration", "--beam-size", "4",
+      "--iteration-beam-merge", "host", "--prefix-cache"], "--prefix-cache"),
     (["--batching-mode", "iteration", "--beam-size", "1", "--n-best"],
      "--n-best"),
+    (["--batching-mode", "iteration", "--beam-size", "4",
+      "--iteration-beam-merge", "host", "--n-best"], "--n-best"),
     (["--batching-mode", "iteration", "--beam-size", "1",
       "--output-sampling", "full"], "--output-sampling"),
-    (["--batching-mode", "iteration", "--beam-size", "1",
-      "--batch-token-budget", "4096"], "--batch-token-budget"),
+    (["--dispatch-stall-timeout", "5"], "--dispatch-stall-timeout"),
 ])
 def test_unported_flags_are_refused_by_name(flags, name):
     opts = parse_options(["--models", "absent.npz", "--vocabs", "a.yml",
