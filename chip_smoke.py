@@ -45,6 +45,19 @@ card, and drives the port's main paths on data made from --seed:
   tolerance), joins land mid-decode, hypotheses fork and share pages,
   and the pool ends empty; 8 sentences decode to the same texts on the
   card and on the CPU;
+- the same at the server's own default at beam > 1, the fused on-device
+  merge, at --iteration-steps 1 and 4 (the same checks; every round's
+  step loop runs under torch.cuda.set_sync_debug_mode("error"), so a
+  host sync inside it fails the run; no round falls back to the host
+  merge), printed beside the host merge's rounds and sentences/s; on a
+  pool too small for the rounds' worst-case page preclaim (12 slots, 8
+  steps a round), where rounds fall back to one host-merge step with
+  the same replies; 8 sentences on the card and on the CPU at 4 steps;
+- --prefix-cache, greedy and fused beam at 4 steps a round: 128
+  sentences each sent twice (half the repeats while the first copy
+  decodes, half after its reply); every reply equals the dense decode,
+  the greedy engine forks repeats from live rows, both replay finished
+  ones, and after the cache's drop_all the pool is empty;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
@@ -60,9 +73,9 @@ card, and drives the port's main paths on data made from --seed:
   tokens. Their CPU halves need no card: a child process of this script
   (--cpu-references) runs them while the kernels build and the kernel
   phases run, on its own copy of the same data, and the card's halves
-  are held to them later; and the two new serve paths in bf16 (64
-  sentences each), their replies held to the bf16 dense decodes on the
-  card.
+  are held to them later; and request mode, the host merge and the
+  fused merge (4 steps a round) in bf16 (64 sentences each), their
+  replies held to the bf16 dense decodes on the card.
 
 Each main path (and the bf16 doc-level cut, the bf16 flash kernels'
 path) runs with every launch count set to 0 just before it and read
@@ -89,6 +102,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -170,10 +184,12 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 # launches (the bf16 tensor-core kernels on their own,
 # launches_bf16_tc), so their rows sum their counter over these
 # paths only (a row's "paths"); other rows sum it over every path.
-F32_PATHS = ("decode", "serve", "request serve", "beam serve", "train",
-             "doc train", "doc decode")
+F32_PATHS = ("decode", "serve", "request serve", "beam serve",
+             "fused beam serve", "fused beam pressure", "prefix serve",
+             "train", "doc train", "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
-              "bf16 request serve", "bf16 beam serve")
+              "bf16 request serve", "bf16 beam serve",
+              "bf16 fused beam serve")
 # card vs CPU in bf16, relative, each cut its own: limits set between
 # the sound port's readings and those of planted faults
 # (scripts/torch_train_parity.py --precision bfloat16, seeds 17 and 19;
@@ -236,6 +252,16 @@ REQUEST_MINI_BATCH = 16
 # (sums of up to 41 log-probs read through the paged and the dense
 # attention: the sound port reads about 1e-5)
 SERVE_BEAM, SERVE_BEAM_CUT, SERVE_BEAM_SCORE_TOL = 6, 8, 1e-3
+# the fused beam merge (the server's default at beam > 1) and the prefix
+# cache: steps a round of the multi-step runs
+FUSED_STEPS = 4
+# the pressured fused run: 12 slots (two sentences), a pool of 12
+# full-cap rows (96 pages: the host merge never runs dry), 8 steps a
+# round (a worst-case preclaim of up to 41 pages a sentence), 32
+# sentences
+PRESSURE_ROWS, PRESSURE_STEPS, PRESSURE_SENTENCES = 12, 8, 32
+# the prefix serve paths: the first 128 served sentences, each sent twice
+PREFIX_SENTENCES = 128
 # sentences of the bf16 cuts of the two serve paths
 SERVE_BF16 = 64
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
@@ -2394,13 +2420,15 @@ def served_vs_dense_logits(engine, tr, sents, replies) -> float:
     return err
 
 
-def serve_counted(app, sents, warm, stats):
+def serve_counted(app, sents, warm, stats, on_warm=None, traffic=None):
     """The counted run of a serve main path: ``app`` (a ServingApp) on a
     TCP listener in this process answers the ``warm`` sentences (not
-    counted), then ``sents`` from SERVE_CLIENTS clients with every launch
-    count set to 0 just before and read just after (the device worker
-    thread's work synchronized first); then it drains and shuts down.
-    Returns (replies, latencies, seconds, counts, the change of each of
+    counted; ``on_warm()`` runs after them), then ``sents`` from
+    SERVE_CLIENTS clients (or ``traffic(port)``, which returns replies
+    and latencies as serve_traffic does) with every launch count set to 0 just
+    before and read just after (the device worker thread's work
+    synchronized first); then it drains and shuts down. Returns
+    (replies, latencies, seconds, counts, the change of each of
     ``stats()``'s counters over the counted run)."""
     from marian_tpu_torch.server.server import _make_tcp_handler
 
@@ -2411,11 +2439,17 @@ def serve_counted(app, sents, warm, stats):
         port = server.sockets[0].getsockname()[1]
         try:
             await serve_traffic(port, warm, len(warm))
+            if on_warm is not None:
+                on_warm()
             before = stats()
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
-            replies, lat = await serve_traffic(port, sents, SERVE_CLIENTS)
+            if traffic is None:
+                replies, lat = await serve_traffic(port, sents,
+                                                   SERVE_CLIENTS)
+            else:
+                replies, lat = await traffic(port)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = read_counts()
@@ -2427,8 +2461,10 @@ def serve_counted(app, sents, warm, stats):
         return replies, lat, secs, counts, {k: after[k] - before.get(k, 0)
                                             for k in after}
     replies, lat, secs, counts, run = asyncio.run(serve())
-    check(all(r is not None and not r.startswith("!!") for r in replies),
-          "a request failed: " + str([r for r in replies
+    flat = [r for x in replies
+            for r in (x if isinstance(x, tuple) or x is None else (x,))]
+    check(all(r is not None and not r.startswith("!!") for r in flat),
+          "a request failed: " + str([r for r in flat
                                       if r is None or r.startswith("!!")][:2]))
     return replies, lat, secs, counts, run
 
@@ -2623,13 +2659,15 @@ def phase_request_serve_main_path(seed: int, *extra: str,
     return counts
 
 
-def beam_serve_options(*extra: str):
-    """The serve path's flags at --beam-size SERVE_BEAM with the host
-    merge. Every sentence of the traffic queues at once, each priced at
-    its trunk plus 5 partial pages (about 11 pages, 2,800 in all): the
-    queue's page bound is raised past the default 4 x the pool's 512."""
-    return serve_options("--beam-size", str(SERVE_BEAM),
-                         "--iteration-beam-merge", "host",
+def beam_serve_options(*extra: str, merge: Optional[str] = "host"):
+    """The serve path's flags at --beam-size SERVE_BEAM, with
+    ``--iteration-beam-merge merge`` (None: no merge flag, the server's
+    default, the fused merge). Every sentence of the traffic queues at
+    once, each priced at its trunk plus 5 partial pages (about 11 pages,
+    2,800 in all): the queue's page bound is raised past the default 4 x
+    the pool."""
+    merge_flags = ("--iteration-beam-merge", merge) if merge else ()
+    return serve_options("--beam-size", str(SERVE_BEAM), *merge_flags,
                          "--max-queue-pages", "8192", *extra)
 
 
@@ -2650,17 +2688,28 @@ def record_beam_rounds(engine) -> dict:
     return seen
 
 
+# the dense beam search's best hypothesis of a served sentence, by
+# (compute dtype, sentence): every beam serve phase holds its replies to
+# it, and a sentence is searched once a run
+DENSE_BEAM = {}
+# the beam serve runs' figures by name, for the lines that set the fused
+# merge beside the host merge
+BEAM_RUNS = {}
+
+
 def dense_beam_best(tr, sents, caps, engine) -> list:
     """The best hypothesis of each of ``sents`` in the port's dense beam
     search on the card at ``engine``'s beam, normalization and decode
-    caps (``caps``: sentences of one cap decode in one batch)."""
+    caps (``caps``: sentences of one cap decode in one batch), from
+    DENSE_BEAM where a phase searched it before."""
     from marian_tpu_torch.translator.beam_search import (BeamConfig,
                                                          BeamSearch,
                                                          beam_search)
-    out = [None] * len(sents)
+    dtype = str(tr.model.cfg.compute_dtype)
     groups = {}
     for i, cap in enumerate(caps):
-        groups.setdefault(cap, []).append(i)
+        if (dtype, sents[i]) not in DENSE_BEAM:
+            groups.setdefault(cap, []).append(i)
     for cap, idx in sorted(groups.items()):
         _, src, mask = source_batch(tr, [sents[i] for i in idx], tr.device)
         cfg = BeamConfig(beam_size=engine.beam_size,
@@ -2671,35 +2720,41 @@ def dense_beam_best(tr, sents, caps, engine) -> list:
             res = beam_search(tr.model, tr.params, cfg, src, mask)
         best = BeamSearch._collect(*(x.cpu().numpy() for x in res[:4]), cfg)
         for row, i in enumerate(idx):
-            out[i] = best[row][0]
-    return out
+            DENSE_BEAM[dtype, sents[i]] = best[row][0]
+    return [DENSE_BEAM[dtype, t] for t in sents]
 
 
-def phase_beam_serve_main_path(seed: int, *extra: str,
-                               n: int = SERVE_SENTENCES,
-                               encoder: str = "packed_attention",
-                               what: str = "beam serve") -> dict:
-    """The iteration beam path: n sentences from SERVE_CLIENTS clients
-    into the copy-on-write beam engine (beam SERVE_BEAM, host merge, 64
-    slots, pages of 16; ``extra``: BF16_FLAGS for the bf16 cut). Every
-    reply must equal the best hypothesis of the dense beam search on the
-    card at its decode cap, with raw scores within SERVE_BEAM_SCORE_TOL
-    (f32; printed in bf16); paged_decode_attention launches dec_depth x
-    steps, the encoder's kernel enc_depth x encoder calls; a join lands
-    mid-decode, hypotheses fork and pages are shared (refcount >= 2); the
-    pool ends empty and its audit clean."""
+def beam_serve_run(what: str, seed: int, sents, flags, encoder: str,
+                   guard: bool = False, pressured: bool = False) -> dict:
+    """One beam serve run: ``sents`` from SERVE_CLIENTS clients into the
+    copy-on-write beam engine built from ``flags`` (beam_serve_options).
+    Every reply must equal the best hypothesis of the dense beam search on
+    the card at its decode cap, with raw scores within
+    SERVE_BEAM_SCORE_TOL (f32; printed in bf16); paged_decode_attention
+    launches dec_depth x steps, the encoder's kernel enc_depth x encoder
+    calls; a join lands mid-decode, hypotheses fork and pages are shared,
+    no sentence is evicted; the pool ends empty and its audit clean. A
+    fused engine: ``guard`` runs its step loops under
+    ``torch.cuda.set_sync_debug_mode("error")`` from the counted run on
+    (the warm-up round outside, where kernels build), so a host sync
+    inside a round fails the run; its rounds fall back to the host merge
+    (``fused_fallback_rounds``) only when ``pressured``. Returns the
+    launch counts."""
     from marian_tpu_torch.server.server import ServingApp
     from marian_tpu_torch.translator.beam_iteration import PagedBeamEngine
-    sents = serve_sentences(seed, n)
-    app = ServingApp(beam_serve_options(*extra))
+    app = ServingApp(flags)
     engine = app.scheduler.engine
     check(isinstance(engine, PagedBeamEngine)
           and engine.device.type == "cuda", f"{what}: engine "
           f"{type(engine).__name__} on {engine.device}")
     seen = record_beam_rounds(engine)
+
+    def arm():
+        engine.sync_debug = "error" if guard else None
     replies, lat, secs, counts, run = serve_counted(
         app, sents, serve_sentences(seed + 1, 4),
-        lambda: dict(engine.counters))
+        lambda: dict(engine.counters), on_warm=arm)
+    engine.sync_debug = None
     check(engine.idle() and engine.pool.free_pages()
           == engine.pool.usable_pages and engine.pool.refcounts() == {},
           f"{what}: pages held after the run: {engine.pool.claims()}")
@@ -2711,11 +2766,15 @@ def phase_beam_serve_main_path(seed: int, *extra: str,
     want[encoder] = cfg.enc_depth * run["encodes"]
     check(counts == want, f"{what} launches {counts}, expected {want} "
           f"({run['steps']} steps, {run['encodes']} encoder calls)")
+    fallback = run["fused_fallback_rounds"]
     check(run["mid_decode_joins"] > 0 and run["forks"] > 0
-          and seen["max_ref"] >= 2 and run["pool_evictions"] == 0,
+          and seen["max_ref"] >= 2 and run["pool_evictions"] == 0
+          and (fallback > 0 if pressured else fallback == 0)
+          and (engine.merge == "host" or run["rounds"] > fallback),
           f"{what}: {run['mid_decode_joins']} mid-decode joins, "
           f"{run['forks']} forks, largest refcount {seen['max_ref']}, "
-          f"{run['pool_evictions']} pool evictions")
+          f"{run['pool_evictions']} pool evictions, {fallback} of "
+          f"{run['rounds']} rounds through the host-merge fallback")
     tr = app.service.translator
     caps = [engine.decode_cap(len(tr.src_vocab.encode(t))) for t in sents]
     t0 = time.perf_counter()
@@ -2732,15 +2791,23 @@ def phase_beam_serve_main_path(seed: int, *extra: str,
           f"differ from the dense search's by {err} > {SERVE_BEAM_SCORE_TOL}")
     lat_ms = np.percentile(np.array(lat) * 1e3, [50, 99])
     n_words = sum(len(r.split()) for r in replies)
+    merge = (f"{engine.merge} merge, {engine.steps_per_round} steps a round"
+             + (" under the sync guard" if guard else ""))
+    BEAM_RUNS[what] = {
+        "sentences/s": len(sents) / secs, "rounds": run["rounds"],
+        "engine ms": 1e3 * run["round_s"] / run["rounds"],
+        "wall ms": 1e3 * secs / run["rounds"],
+        "steps": run["steps"], "merge": merge}
     print(f"{what} main path: transformer {cfg.enc_depth}+{cfg.dec_depth}, "
           f"dim {cfg.dim_emb}, {str(cfg.compute_dtype)[6:]} (pools "
           f"{str(engine._state['l1_pool_k'].dtype)[6:]}), copying weights, "
-          f"beam {engine.beam_size}, host merge, {engine.max_rows} slots, "
+          f"beam {engine.beam_size}, {merge}, {engine.max_rows} slots, "
           f"pages of {engine.page_len}, pool {engine.pool.usable_pages} "
           f"pages: {len(sents)} sentences from {SERVE_CLIENTS} clients in "
           f"{secs:.3f} s: {len(sents) / secs:.2f} sentences/s, "
-          f"{n_words / secs:.1f} target tokens/s; {run['rounds']} rounds, "
-          f"{1e3 * run['round_s'] / run['rounds']:.3f} ms per round "
+          f"{n_words / secs:.1f} target tokens/s; {run['rounds']} rounds "
+          f"({fallback} through the host-merge fallback), {run['steps']} "
+          f"steps, {1e3 * run['round_s'] / run['rounds']:.3f} ms per round "
           f"(engine), {1e3 * secs / run['rounds']:.3f} ms (wall), "
           f"{run['rows'] / run['rounds']:.2f} live rows per round, "
           f"{run['mid_decode_joins']} mid-decode joins, {run['forks']} "
@@ -2757,25 +2824,245 @@ def phase_beam_serve_main_path(seed: int, *extra: str,
     return counts
 
 
-def phase_beam_serve_card_vs_cpu(seed: int) -> None:
+def add_counts(*counts: dict) -> dict:
+    return {name: sum(c[name] for c in counts) for name in counts[0]}
+
+
+def phase_beam_serve_main_path(seed: int, *extra: str,
+                               n: int = SERVE_SENTENCES,
+                               encoder: str = "packed_attention",
+                               what: str = "beam serve") -> dict:
+    """The iteration beam path with the host merge (beam SERVE_BEAM, 64
+    slots, pages of 16; ``extra``: BF16_FLAGS for the bf16 cut): n
+    sentences through ``beam_serve_run``."""
+    return beam_serve_run(what, seed, serve_sentences(seed, n),
+                          beam_serve_options(*extra), encoder)
+
+
+def phase_fused_beam_serve_main_path(seed: int) -> dict:
+    """The server's own default at beam > 1 in iteration mode, the fused
+    on-device merge (no --iteration-beam-merge flag), at --iteration-steps
+    1 and then FUSED_STEPS, each over the beam serve path's 256
+    sentences from 16 clients, every step loop under the sync guard (one
+    host sync a round), no round through the fallback at the default
+    pool; both runs' figures beside the host merge's."""
+    sents = serve_sentences(seed, SERVE_SENTENCES)
+    # the guard is live: a host sync under it raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.zeros(1, device="cuda").item()
+        fail("torch.cuda.set_sync_debug_mode('error') let .item() pass")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counts = [beam_serve_run(
+        f"fused beam serve, steps {steps}", seed, sents,
+        beam_serve_options("--iteration-steps", str(steps), merge=None),
+        "packed_attention", guard=True) for steps in (1, FUSED_STEPS)]
+    host = BEAM_RUNS["beam serve"]
+    for name in ("beam serve", "fused beam serve, steps 1",
+                 f"fused beam serve, steps {FUSED_STEPS}"):
+        r = BEAM_RUNS[name]
+        print(f"beam serve merges: {name} ({r['merge']}): {r['rounds']} "
+              f"rounds of {r['engine ms']:.3f} ms (engine), "
+              f"{r['wall ms']:.3f} ms (wall), {r['steps']} steps, "
+              f"{r['sentences/s']:.2f} sentences/s "
+              f"({r['sentences/s'] / host['sentences/s']:.2f}x the host "
+              f"merge's)")
+    return add_counts(*counts)
+
+
+def phase_fused_pressure(seed: int) -> dict:
+    """The fused merge on a pool that holds its rows at their caps but not
+    the rounds' worst-case preclaim: PRESSURE_ROWS slots (two sentences),
+    --kv-pool-bytes for PRESSURE_ROWS full-cap rows (the host merge's
+    default pool: it can never run dry) and PRESSURE_STEPS steps a round
+    (a preclaim of up to 41 pages a sentence). Rounds fall back to one
+    host-merge step, no sentence is evicted, and every reply is still the
+    dense search's."""
+    page_bytes = 2 * BASE["dec-depth"] * BASE["dim-emb"] * 16 * 4
+    pages = PRESSURE_ROWS * -(-128 // 16)
+    return beam_serve_run(
+        "fused beam pressure", seed,
+        serve_sentences(seed, SERVE_SENTENCES)[:PRESSURE_SENTENCES],
+        beam_serve_options("--iteration-steps", str(PRESSURE_STEPS),
+                           "--iteration-rows", str(PRESSURE_ROWS),
+                           "--kv-pool-bytes", str(pages * page_bytes),
+                           merge=None),
+        "packed_attention", pressured=True)
+
+
+def phase_beam_serve_card_vs_cpu(seed: int, *extra: str, merge="host",
+                                 what: str = "beam serve") -> None:
     """SERVE_BEAM_CUT of the served sentences through the beam engine on
     the card and on the CPU: identical texts."""
     from marian_tpu_torch.server.server import ServingApp
     sents = serve_sentences(seed, SERVE_BEAM_CUT)
     texts = {}
     for name, dev in (("cuda", None), ("cpu", "cpu")):
-        engine = ServingApp(beam_serve_options(), device=dev).scheduler.engine
+        engine = ServingApp(beam_serve_options(*extra, merge=merge),
+                            device=dev).scheduler.engine
         check(engine.device.type == name, f"{name} run resolved "
               f"{engine.device}")
         t0 = time.perf_counter()
         texts[name] = engine.decode_texts(sents)
-        print(f"beam serve card vs cpu: {name} engine, {len(sents)} "
+        print(f"{what} card vs cpu: {name} engine ({engine.merge} merge, "
+              f"{engine.steps_per_round} steps a round), {len(sents)} "
               f"sentences: {time.perf_counter() - t0:.2f} s, "
               f"{engine.counters['rounds']} rounds")
-    check(texts["cuda"] == texts["cpu"], "beam-served texts differ between "
+    check(texts["cuda"] == texts["cpu"], f"{what}: texts differ between "
           "the card and the CPU")
-    print(f"beam serve card vs cpu: {len(sents)} texts identical "
+    print(f"{what} card vs cpu: {len(sents)} texts identical "
           f"({sum(len(t.split()) for t in texts['cpu'])} words)")
+
+
+def decoding(engine, text: str) -> bool:
+    """Whether a row of ``text`` (a scheduler unit's) is decoding past its
+    first round: read from the event loop while the device worker runs
+    rounds, so a read that races a change retries."""
+    for _ in range(8):
+        try:
+            if hasattr(engine, "_sents"):
+                return any(s.key.text == text and s.t > 0
+                           for s in list(engine._sents.values()))
+            return any(s is not None and s.key.text == text and s.pos > 0
+                       for s in list(engine._slots))
+        except RuntimeError:
+            continue
+    return False
+
+
+async def prefix_traffic(port: int, sents, engine, clients: int):
+    """Each of ``sents`` sent twice by one of ``clients`` concurrent
+    clients, its sentences one after another: an even-numbered sentence's
+    repeat goes out while the first copy decodes (past its first round),
+    an odd one's after the first reply. Returns the (first, repeat)
+    replies in sentence order and the request latencies (s)."""
+    out, lat = [None] * len(sents), []
+
+    async def send(text):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            payload = text.encode("utf-8")
+            t0 = time.perf_counter()
+            writer.write(b"MTPU %d\n" % len(payload) + payload)
+            await writer.drain()
+            header = await reader.readline()
+            check(header.startswith(b"MTPU "), f"reply header {header!r}")
+            body = await reader.readexactly(int(header.split()[1]))
+            lat.append(time.perf_counter() - t0)
+            return body.decode("utf-8")
+        finally:
+            writer.close()
+
+    async def sentence(i):
+        first = asyncio.ensure_future(send(sents[i]))
+        if i % 2:
+            out[i] = (await first, await send(sents[i]))
+            return
+        while not first.done() and not decoding(engine, sents[i]):
+            await asyncio.sleep(0.002)
+        repeat = await send(sents[i])
+        out[i] = (await first, repeat)
+
+    async def client(c):
+        for i in range(c, len(sents), clients):
+            await sentence(i)
+    await asyncio.gather(*[client(c) for c in range(clients)])
+    return out, lat
+
+
+def phase_prefix_serve_main_path(seed: int) -> dict:
+    """--prefix-cache on the serve path, greedy (beam 1) and the fused
+    beam engine (beam SERVE_BEAM), FUSED_STEPS steps a round: the first
+    PREFIX_SENTENCES of the served sentences, each sent twice
+    (``prefix_traffic``). Every reply, cold or warm, must equal the dense
+    decode (greedy_decode cut at its cap and EOS; the dense beam search's
+    best); the greedy engine forks repeats from live leaders, both replay
+    finished sentences; both engines' step loops run under the sync
+    guard; launches as on the other serve paths; after ``drop_all`` the
+    pool is empty and its audit clean."""
+    from marian_tpu_torch.server.server import ServingApp
+    from marian_tpu_torch.translator.greedy import greedy_decode
+    sents = serve_sentences(seed, SERVE_SENTENCES)[:PREFIX_SENTENCES]
+    all_counts = []
+    for what, flags in (
+            ("prefix serve, greedy", serve_options(
+                "--prefix-cache", "--iteration-steps", str(FUSED_STEPS))),
+            ("prefix serve, beam", beam_serve_options(
+                "--prefix-cache", "--iteration-steps", str(FUSED_STEPS),
+                merge=None))):
+        app = ServingApp(flags)
+        engine = app.scheduler.engine
+        check(engine.device.type == "cuda" and engine.prefix is not None,
+              f"{what}: engine on {engine.device}, cache {engine.prefix}")
+        pairs, lat, secs, counts, run = serve_counted(
+            app, sents, serve_sentences(seed + 1, 4),
+            lambda: {**engine.counters, **engine.prefix.counters},
+            on_warm=lambda: setattr(engine, "sync_debug", "error"),
+            traffic=lambda port: prefix_traffic(port, sents, engine,
+                                                SERVE_CLIENTS))
+        engine.sync_debug = None
+        tr = app.service.translator
+        ids, src, mask = source_batch(tr, sents, engine.device)
+        caps = [engine.decode_cap(len(x)) for x in ids]
+        if hasattr(engine, "beam_size"):
+            want = [tr.trg_vocab.decode(d["tokens"], ignore_eos=True)
+                    for d in dense_beam_best(tr, sents, caps, engine)]
+            forks_ok = True
+        else:
+            dense = greedy_decode(tr.model, tr.params, src, mask, max(caps))
+            want = []
+            for i, cap in enumerate(caps):
+                toks = list(dense[i, :cap])
+                want.append(tr.trg_vocab.decode(
+                    toks[:toks.index(0)] if 0 in toks else toks))
+            forks_ok = run["forks"] > 0
+        differ = [i for i, ((a, b), w) in enumerate(zip(pairs, want))
+                  if not a == b == w]
+        check(not differ, f"{what}: {len(differ)} cold or warm replies "
+              f"differ from the dense decode (sentences {differ[:8]})")
+        check(forks_ok and run["replays"] > 0
+              and run["prefix_hits"] == run["hits"],
+              f"{what}: {run['forks']} forks, {run['replays']} replays, "
+              f"{run['prefix_hits']} hits")
+        cfg = engine.model.cfg
+        want_counts = {name: 0 for name in counts}
+        want_counts["paged_decode_attention"] = cfg.dec_depth * run["steps"]
+        want_counts["packed_attention"] = cfg.enc_depth * run["encodes"]
+        check(counts == want_counts, f"{what} launches {counts}, expected "
+              f"{want_counts}")
+        entries = engine.prefix.entries()
+        held = engine.prefix.held_pages()
+        engine.prefix.drop_all(engine.pool)
+        check(engine.idle() and engine.pool.free_pages()
+              == engine.pool.usable_pages and engine.pool.claims() == {},
+              f"{what}: pages held after drop_all: {engine.pool.claims()}")
+        bad = engine.audit()
+        check(bad == [], f"{what}: pool audit after the run: {bad}")
+        lat_ms = np.percentile(np.array(lat) * 1e3, [50, 99])
+        print(f"{what} main path: transformer {cfg.enc_depth}+"
+              f"{cfg.dec_depth}, copying weights, beam "
+              f"{getattr(engine, 'beam_size', 1)}, {engine.steps_per_round} "
+              f"steps a round, {engine.max_rows} slots, pool "
+              f"{engine.pool.usable_pages} pages: {len(sents)} sentences "
+              f"twice from {SERVE_CLIENTS} clients in {secs:.3f} s "
+              f"({2 * len(sents) / secs:.2f} requests/s); {run['rounds']} "
+              f"rounds, {run['steps']} steps, {run['encodes']} encoder "
+              f"calls; cache hits {run['hits']} "
+              f"({run['prefix_hits'] - run['replays']} live forks, "
+              f"{run['replays']} replays), {run['misses']} misses, "
+              f"{run['tokens_saved']} decode steps and {run['pages_reused']} "
+              f"pages not recomputed, {run['evictions']} evictions, "
+              f"{entries} entries holding {held} pages at the end; latency "
+              f"p50 {lat_ms[0]:.1f} ms p99 {lat_ms[1]:.1f} ms; launches "
+              f"{counts}")
+        print(f"{what} main path: every cold and warm reply equals the "
+              f"dense decode, step loops under the sync guard; after "
+              f"drop_all the pool is empty, audit clean")
+        all_counts.append(counts)
+    return add_counts(*all_counts)
 
 
 def write_corpus(seed: int) -> None:
@@ -3404,7 +3691,18 @@ def run_phases(args, smi: str, child) -> int:
                                    phase_request_serve_main_path, args.seed)
     paths["beam serve"] = timed("beam serve main path",
                                 phase_beam_serve_main_path, args.seed)
+    paths["fused beam serve"] = timed("fused beam serve main path",
+                                      phase_fused_beam_serve_main_path,
+                                      args.seed)
+    paths["fused beam pressure"] = timed("fused beam pressure",
+                                         phase_fused_pressure, args.seed)
     timed("beam serve card vs cpu", phase_beam_serve_card_vs_cpu, args.seed)
+    timed("fused beam serve card vs cpu",
+          lambda: phase_beam_serve_card_vs_cpu(
+              args.seed, "--iteration-steps", str(FUSED_STEPS), merge=None,
+              what="fused beam serve"))
+    paths["prefix serve"] = timed("prefix serve main path",
+                                  phase_prefix_serve_main_path, args.seed)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
     timed("train card vs cpu", phase_train_card_vs_cpu)
@@ -3426,6 +3724,13 @@ def run_phases(args, smi: str, child) -> int:
     paths["bf16 beam serve"] = timed(
         "bf16 beam serve main path", lambda: phase_beam_serve_main_path(
             args.seed, *BF16_FLAGS, what="bf16 beam serve", **bf16_serve))
+    paths["bf16 fused beam serve"] = timed(
+        "bf16 fused beam serve main path", lambda: beam_serve_run(
+            "bf16 fused beam serve", args.seed,
+            serve_sentences(args.seed, SERVE_BF16),
+            beam_serve_options(*BF16_FLAGS, "--iteration-steps",
+                               str(FUSED_STEPS), merge=None),
+            bf16_serve["encoder"], guard=True))
     check(set(paths) == set(F32_PATHS + BF16_PATHS), f"paths {set(paths)}")
     for k in kernels:
         k["launches"] = sum(paths[p][k.get("counter", k["name"])]

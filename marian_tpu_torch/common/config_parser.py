@@ -202,12 +202,13 @@ _SERVER = [
     _f("batching-mode", str, "request", "request: sentences of many requests packed into device batches by token budget, each decoded by the beam search; iteration: sentences join a running decode over a paged KV pool each round and leave the step they finish (greedy at beam 1, copy-on-write beam search above it)"),
     _f("dispatch-stall-timeout", float, 0.0, "Request mode: liveness watchdog over one device batch (not ported yet; 0 = off)"),
     _f("iteration-rows", int, 32, "Iteration mode: decode slots, the most sentences decoding at once"),
-    _f("iteration-steps", int, 1, "Iteration mode: decode steps per scheduling round (joins possible every round; 1 under the host beam merge)"),
-    _f("iteration-beam-merge", str, "fused", "Iteration mode at beam > 1: where the k*k candidate merge runs; host (the merge on the host, one step a round) or fused (on the device; not ported yet)"),
+    _f("iteration-steps", int, 1, "Iteration mode: decode steps per scheduling round, one host sync a round (joins possible every round; the greedy engine and the fused beam merge; the host beam merge runs 1)"),
+    _f("iteration-beam-merge", str, "fused", "Iteration mode at beam > 1: where the k*k candidate merge runs; fused (on the device, --iteration-steps steps a round; a round whose worst-case page preclaim does not fit the pool runs one host step) or host (on the host, one step a round)"),
     _f("kv-page-len", int, 16, "Iteration mode: tokens per KV-cache page"),
     _f("kv-pool-bytes", int, 0, "Iteration mode: byte budget of the paged KV pool over all decoder layers, K and V (0 = every slot can hold a full --max-length row)"),
     _f("max-queue-pages", int, 0, "Iteration mode: admission bound on queued KV-pool page debt (0 = 4x the pool's allocatable pages)"),
-    _f("prefix-cache", bool, False, "Iteration mode: cross-request prefix sharing (not ported yet)"),
+    _f("prefix-cache", bool, False, "Iteration mode: cross-request prefix sharing over the paged KV pool: an exact source repeat of a sentence decoding now forks from it copy-on-write (greedy), a repeat of a finished one replays its text; finished rows' pages stay with the cache, LRU-evicted under pool pressure"),
+    _f("prefix-cache-entries", int, 64, "With --prefix-cache: the most finished decodes kept (LRU)"),
 ]
 
 FLAGS = _COMMON + _MODEL + _TRANSLATION

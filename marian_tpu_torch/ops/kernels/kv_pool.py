@@ -18,7 +18,9 @@ into it, so their writes collide deterministically.
 
 ``KVPool`` is the host-side refcounted allocator (a copy of the
 reference's, behind a plain ``threading.Lock``). ``pool_fork_partial``
-copies the partial pages a beam fork diverges on. ``pool_insert`` writes
+copies the partial pages a beam fork diverges on, and
+``beam_table_reorder`` is the fused beam round's page-table reorder
+(int32 table math on the device). ``pool_insert`` writes
 each row's new-token K/V into its page IN PLACE: the reference returns
 new pools because XLA donates the old ones, and a copy of a pool per
 layer per step would cost more than the attention read. On a CUDA tensor
@@ -445,6 +447,27 @@ def pool_fork_partial(pool_k: torch.Tensor, pool_v: torch.Tensor,
     dst = dst_pages.to(device=pool_k.device, dtype=torch.long)
     for pool in (pool_k, pool_v):
         pool[dst] = pool[src]
+
+
+def beam_table_reorder(page_table: torch.Tensor, parent: torch.Tensor,
+                       write_slot: torch.Tensor, fresh_page: torch.Tensor,
+                       needs_fresh: torch.Tensor,
+                       frozen: torch.Tensor) -> torch.Tensor:
+    """The beam reorder's page-table half as int32 table math on the
+    device (no host sync): each row takes its ``parent`` row's table, a
+    row that diverges (``needs_fresh``: a page boundary, or a child that
+    is not its parent's keeper and forks the partial page) has its
+    ``write_slot`` entry repointed at its preclaimed ``fresh_page``, and a
+    ``frozen`` row (a hypothesis that emitted EOS) is zeroed. Refcounts
+    stay on the host, which applies the round's final table as
+    ``retable`` diffs. A ``write_slot`` past the table repoints nothing."""
+    t = page_table.to(torch.int32)
+    new = t[parent.to(torch.long)]
+    cols = torch.arange(t.shape[1], dtype=torch.int32, device=t.device)
+    hot = (cols[None, :] == write_slot.to(torch.int32)[:, None]) \
+        & needs_fresh[:, None]
+    new = torch.where(hot, fresh_page.to(torch.int32)[:, None], new)
+    return torch.where(frozen[:, None], torch.zeros_like(new), new)
 
 
 def paged_decode_attention_reference(q, pool_k, pool_v, page_table,

@@ -1,7 +1,8 @@
 """marian-server of the port, ported from ``marian_tpu/server/server.py``:
 request-mode serving (the reference's default) and iteration-mode
 serving over a paged KV pool, greedy at ``--beam-size 1`` and beam
-search with the host merge above it.
+search above it (the fused on-device merge by default, or the host
+merge), with the cross-request prefix cache (``--prefix-cache``).
 
 Protocol as the reference's dependency-free transport: length-prefixed
 TCP frames ``MTPU <nbytes>\\n`` + UTF-8 payload in both directions; a
@@ -18,18 +19,19 @@ bounded admission (serving/admission.py):
   admission bounds queued sentences.
 - ``--batching-mode iteration``: sentences join a running decode every
   round (translator/iteration.py; at beam > 1 the copy-on-write beam
-  engine, translator/beam_iteration.py, with ``--iteration-beam-merge
-  host``); admission prices queue debt in sentences and in pool pages.
+  engine, translator/beam_iteration.py, ``--iteration-beam-merge fused``
+  with ``--iteration-steps`` steps a round, or ``host``, one); admission
+  prices queue debt in sentences and in pool pages, against the free
+  pages plus what the prefix cache could give back.
 
 Error replies are explicit: ``!!SERVER-OVERLOADED`` (shed),
 ``!!SERVER-TIMEOUT`` (deadline), ``!!SERVER-RETRY`` (row evicted by a
 failed round or a dry pool) and ``!!SERVER-ERROR`` (bad frame, or a
 request header whose feature is not ported).
 
-Not ported yet, each refused by name at startup: the fused on-device
-beam merge (``--iteration-beam-merge fused``, the reference's default at
-beam > 1), ``--prefix-cache``, the decode-feature flags in iteration
-mode, the dispatch watchdog (``--dispatch-stall-timeout``); and by an
+Not ported yet, each refused by name at startup: the decode-feature
+flags in iteration mode (``--n-best``, ``--output-sampling``, ...), the
+dispatch watchdog (``--dispatch-stall-timeout``); and by an
 ``!!SERVER-ERROR`` reply, the ``#trace:`` and ``#stream:1`` request
 headers.
 """
@@ -141,9 +143,8 @@ def resolve_token_budget(options) -> int:
 
 
 # iteration mode refuses these flags by name (set = not off)
-_UNPORTED_FLAGS = ("prefix-cache", "n-best", "output-sampling",
-                   "force-decode", "shortlist", "alignment", "word-scores",
-                   "output-approx-knn")
+_UNPORTED_FLAGS = ("n-best", "output-sampling", "force-decode", "shortlist",
+                   "alignment", "word-scores", "output-approx-knn")
 
 
 class ServingApp:
@@ -221,12 +222,6 @@ class ServingApp:
         beam = int(options.get("beam-size", 6) or 6)
         steps = int(options.get("iteration-steps", 1) or 1)
         merge = str(options.get("iteration-beam-merge", "fused") or "fused")
-        if merge == "fused" and beam > 1:
-            raise NotImplementedError(
-                f"--iteration-beam-merge fused (the on-device beam merge, "
-                f"the default at --beam-size {beam}) is not ported to "
-                f"marian_tpu_torch yet (ROADMAP A6b); pass "
-                f"--iteration-beam-merge host")
         problems = []
         if beam < 1:
             problems.append("--beam-size must be >= 1")
@@ -253,11 +248,19 @@ class ServingApp:
 
     def _build_engine(self):
         """A fresh paged engine over the loaded model: greedy at
-        --beam-size 1, the copy-on-write beam engine above it."""
+        --beam-size 1, the copy-on-write beam engine above it; with
+        --prefix-cache its own cache, stamped with the model path (a
+        rebuilt engine starts with an empty one)."""
         from ..translator.iteration import PagedDecodeEngine
         tr = self.service.translator
         opts = self.options
         ml = max(1, int(opts.get("max-length", 50) or 50))
+        prefix = None
+        if opts.get("prefix-cache", False):
+            from ..translator.prefix_cache import PrefixCache
+            prefix = PrefixCache(
+                max_entries=int(opts.get("prefix-cache-entries", 64) or 64),
+                version=str((opts.get("models", None) or ["model"])[0]))
         kw = dict(
             max_rows=int(opts.get("iteration-rows", 32) or 32),
             page_len=int(opts.get("kv-page-len", 16) or 16),
@@ -266,7 +269,8 @@ class ServingApp:
             max_length_cap=ml,
             max_length_factor=float(
                 opts.get("max-length-factor", 3.0) or 3.0),
-            steps_per_round=int(opts.get("iteration-steps", 1) or 1))
+            steps_per_round=int(opts.get("iteration-steps", 1) or 1),
+            prefix_cache=prefix)
         beam = int(opts.get("beam-size", 6) or 6)
         if beam == 1:
             return PagedDecodeEngine(tr.model, tr.params, tr.src_vocab,
@@ -279,7 +283,9 @@ class ServingApp:
             tr.model, tr.params, tr.src_vocab, tr.trg_vocab,
             beam_size=beam, normalize=float(norm or 0.0),
             word_penalty=float(opts.get("word-penalty", 0.0) or 0.0),
-            allow_unk=bool(opts.get("allow-unk", False)), **kw)
+            allow_unk=bool(opts.get("allow-unk", False)),
+            merge=str(opts.get("iteration-beam-merge", "fused") or "fused"),
+            **kw)
 
     def start(self) -> None:
         """Start the scheduler on the RUNNING loop."""
@@ -294,12 +300,16 @@ class ServingApp:
                      self.options.get("beam-size", 12),
                      self.scheduler.token_budget, limit, timeout)
             return
-        log.info("Serving on {}: iteration mode, beam {}, {} rows, {} steps "
-                 "a round, KV pool of {} pages of {} tokens, queue limit {} "
-                 "sentences / {} pages, request timeout {}", engine.device,
-                 getattr(engine, "beam_size", 1), engine.max_rows,
+        prefix = getattr(engine, "prefix", None)
+        log.info("Serving on {}: iteration mode, beam {} ({} merge), {} rows, "
+                 "{} steps a round, KV pool of {} pages of {} tokens, prefix "
+                 "cache {}, queue limit {} sentences / {} pages, request "
+                 "timeout {}", engine.device, getattr(engine, "beam_size", 1),
+                 getattr(engine, "merge", "no"), engine.max_rows,
                  engine.steps_per_round, engine.pool.usable_pages,
-                 engine.page_len, limit, self.max_queue_pages, timeout)
+                 engine.page_len,
+                 f"of {prefix.max_entries} entries" if prefix else "off",
+                 limit, self.max_queue_pages, timeout)
 
     async def handle_frame(self, text: str) -> str:
         """One request frame in, one reply frame out: headers, admission,

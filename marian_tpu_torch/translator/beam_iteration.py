@@ -1,7 +1,8 @@
 """Beam search at iteration level over copy-on-write pages, the port of
 ``marian_tpu/translator/beam_iteration.py`` (``PagedBeamEngine`` with the
-HOST merge; the fused on-device merge, sampling, ``cow=False``, n-best,
-the prefix cache and the decode-feature plane are not ported).
+fused on-device merge, the default, the host merge and the prefix
+cache's replays; sampling, ``cow=False``, n-best and the decode-feature
+plane are not ported).
 
 The dense beam search (translator/beam_search.py) reorders every cache
 row every step. Here each HYPOTHESIS owns a page-table row instead, and
@@ -34,8 +35,26 @@ pages are claimed lazily at page boundaries and forks. If the pool runs
 dry mid-decode the whole sentence is evicted (``StepResult.pool_evicted``,
 which the scheduler answers with ``!!SERVER-RETRY``): admission prices a
 sentence at one trunk plus k-1 partial pages (``pages_for_text``), not at
-k full copies. Rounds are one step each: the merge needs the host
+k full copies. A host-merge round is one step: the merge needs the host
 between steps.
+
+The FUSED merge (``merge="fused"``, the default) moves the merge to the
+device, so a round runs ``steps_per_round`` steps with one host sync.
+Because a sentence sits in a k-aligned block, ``fused_merge`` takes the
+dense flat top-k over every sentence's k x W candidates at once, exactly
+(ties by flat index, through int64 keys). The page work rides along as
+table math (``beam_table_reorder``): keepers keep their parent's partial
+page, diverging children fork it (``pool_fork_partial``) into pages the
+host PRECLAIMED for the round's worst case, and EOS freezes by mask.
+After the round's one copy to the host, the host replays each step's
+(lane, token, value) into the hypotheses and applies the final table as
+``retable`` diffs: refcounts stay on the host, the loop allocates and
+frees nothing. When the worst-case preclaim does not fit the pool, the
+round falls back to one host-merge step with lazy claims (same output).
+
+With a ``PrefixCache`` a finished sentence's best text is remembered
+(pageless) and an exact repeat replays it at join; the beam engine has
+no live fork, as in the reference.
 
 Threading and determinism as translator/iteration.py; the audit adds the
 copy-on-write invariant: every live row's write page has refcount 1.
@@ -50,10 +69,64 @@ import torch
 
 from ..data.vocab import EOS_ID, UNK_ID
 from ..models.transformer import fork_paged_rows
-from ..ops.kernels.kv_pool import (PoolExhausted, bucket_rows,
-                                   pages_for_tokens, pool_fork_partial)
+from ..ops.kernels.kv_pool import (PoolExhausted, beam_table_reorder,
+                                   bucket_rows, pages_for_tokens,
+                                   pool_fork_partial)
 from .beam_search import NEG_INF, topk_rows
 from .iteration import PagedDecodeEngine, StepResult, _Slot
+
+_LOW32 = (1 << 32) - 1
+
+
+def exact_topk(x: torch.Tensor, k: int, index: torch.Tensor = None):
+    """Top k of each row of f32 ``x`` [N, M] in the order
+    ``jax.lax.top_k`` gives (value descending in the f32 total order,
+    which puts +0.0 above -0.0; equal values to the lower index), with
+    no host sync (``torch.topk`` promises no order for ties): each value
+    becomes a unique int64 key, its order-preserving int32 image above
+    the complement of its index (``index`` [N, M], unique in a row and
+    below 2^32, or the column). Returns (values [N, k], the chosen
+    columns [N, k])."""
+    bits = x.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    if index is None:
+        index = torch.arange(x.shape[-1], dtype=torch.int64,
+                             device=x.device)
+    keys = ordered.to(torch.int64) * (1 << 32) + (_LOW32 - index)
+    top = torch.topk(keys, k, dim=-1).indices
+    return x.gather(-1, top), top
+
+
+def fused_merge(lp: torch.Tensor, score: torch.Tensor, fin: torch.Tensor,
+                k: int, eos_flat: int):
+    """The dense beam search's flat top-k over every sentence at once.
+
+    ``lp`` [R, W] per-row log-probs (R = nb * k rows, k-aligned blocks),
+    ``score`` [R] cumulative path scores, ``fin`` [R] frozen markers. A
+    live row offers the f32 candidates ``score + lp``; a frozen row one
+    {EOS: score} candidate at coordinate ``eos_flat`` and NEG_INF
+    elsewhere. Each block's [k * W] grid is ranked value descending,
+    flat index ascending (``exact_topk``), the dense tie-break, so the
+    merge holds through ties (NEG_INF saturates f32), bit for bit the
+    reference's ``fused_merge``. A block's top k takes at most k entries
+    from one row, the row's own first k in the same order, so each row's
+    top k is taken first and the block ranks its k x k of them.
+
+    Returns ([nb, k] values, [nb, k] parent lanes, [nb, k] coordinates).
+    """
+    rows, width = lp.shape
+    nb = rows // k
+    coords = torch.arange(width, device=lp.device)
+    eos_cand = torch.where(coords[None, :] == eos_flat, score[:, None],
+                           NEG_INF)
+    comb = torch.where(fin[:, None], eos_cand, score[:, None] + lp)
+    kr = min(k, width)
+    row_vals, row_coords = exact_topk(comb, kr)
+    lanes = torch.arange(rows, device=lp.device) % k
+    flat = (lanes[:, None] * width + row_coords).reshape(nb, k * kr)
+    vals, pick = exact_topk(row_vals.reshape(nb, k * kr), k, flat)
+    flat = flat.gather(1, pick)
+    return vals, flat // width, flat % width
 
 
 class _Hyp:
@@ -78,28 +151,36 @@ class _Hyp:
 class _Sent:
     """One decoding sentence: k hypotheses over its k claimed slots."""
 
-    __slots__ = ("key", "slots", "hyps", "t", "cap")
+    __slots__ = ("key", "slots", "hyps", "t", "cap", "src_key")
 
-    def __init__(self, key, slots, hyps, cap):
+    def __init__(self, key, slots, hyps, cap, src_key):
         self.key = key
         self.slots = slots
         self.hyps = hyps
         self.t = 0                  # decode steps taken (= live-row pos)
         self.cap = cap
+        self.src_key = src_key      # source id tuple (the prefix-cache key)
 
 
 class PagedBeamEngine(PagedDecodeEngine):
     """Slot-based continuous copy-on-write beam decoder over a paged KV
-    pool, with the host merge (the reference's ``merge="host"``): the
-    greedy engine's admit_and_step/evict/audit surface, with
-    ``free_slots`` in sentences of ``beam_size`` slots."""
+    pool: the greedy engine's admit_and_step/evict/audit surface, with
+    ``free_slots`` in sentences of ``beam_size`` slots. ``merge`` is
+    ``"fused"`` (on the device, ``steps_per_round`` steps a round) or
+    ``"host"`` (one step a round: ``steps_per_round`` is clamped to 1)."""
 
     def __init__(self, model, params, src_vocab, trg_vocab,
                  beam_size: int = 6, normalize: float = 0.6,
-                 word_penalty: float = 0.0, allow_unk: bool = False, **kw):
-        if int(kw.get("steps_per_round", 1) or 1) > 1:
-            raise ValueError("the host merge runs one step a round "
-                             "(steps_per_round 1)")
+                 word_penalty: float = 0.0, allow_unk: bool = False,
+                 merge: str = "fused", **kw):
+        merge = str(merge)
+        if merge not in ("fused", "host"):
+            raise ValueError(f"iteration-beam-merge must be 'fused' or "
+                             f"'host', got {merge!r}")
+        if merge == "host":
+            kw["steps_per_round"] = 1    # the merge needs the host a step
+        # set before the base sizes the pool (_default_pool_pages)
+        self.merge = merge
         self.slots_per_sentence = int(beam_size)
         super().__init__(model, params, src_vocab, trg_vocab, **kw)
         k = self.beam_size = int(beam_size)
@@ -123,8 +204,21 @@ class PagedBeamEngine(PagedDecodeEngine):
         # (slot 0 of a joined sentence, its other slots): the encoder
         # rows to replicate after the install (one encode a sentence)
         self._pending_replicate: List[Tuple[int, List[int]]] = []
-        self.counters.update({"forks": 0, "copied_pages": 0,
-                              "pool_evictions": 0})
+        self.counters.update({"copied_pages": 0, "pool_evictions": 0,
+                              "fused_fallback_rounds": 0})
+
+    def _default_pool_pages(self) -> int:
+        """A fused engine's unsized pool adds the rounds' preclaim
+        headroom, ``max_rows`` x ``steps_per_round`` pages: each fused
+        round claims its worst-case fresh pages before it runs (k a
+        sentence at a page boundary, else k-1, a step) and gives back
+        what it did not use after. Without it a pool of full-cap rows
+        would send every round to the host-merge fallback. An explicit
+        --kv-pool-bytes overrides it."""
+        base = super()._default_pool_pages()
+        if self.merge != "fused":
+            return base
+        return base + self.max_rows * self.steps_per_round
 
     # -- capacity -----------------------------------------------------------
     def pages_for_text(self, text: str) -> int:
@@ -140,14 +234,19 @@ class PagedBeamEngine(PagedDecodeEngine):
 
     # -- join ---------------------------------------------------------------
     def _try_claim(self, key, text: str, joiners: List,
-                   detail: Dict[object, str]) -> Optional[str]:
+                   res: StepResult) -> Optional[str]:
         k = self.beam_size
+        detail = res.reject_detail
         ids = self.src_vocab.encode(text, add_eos=True)
         if len(ids) > self.src_cap:
             detail[key] = (f"source encodes to {len(ids)} tokens but the "
                            f"engine's source cap is {self.src_cap} (raise "
                            f"--max-length)")
             return "src_too_long"
+        src_key = tuple(int(i) for i in ids)
+        # a repeat of a finished sentence replays its remembered best
+        if self._replay(key, src_key, res):
+            return None
         cap = self.decode_cap(len(ids))
         n_pages = pages_for_tokens(cap, self.page_len)
         if n_pages > self.pool.max_pages_per_row:
@@ -161,12 +260,14 @@ class PagedBeamEngine(PagedDecodeEngine):
         if base is None:
             return "no_slot"
         slots = list(range(base, base + k))
-        # one partial page per hypothesis row, all or nothing
+        # one partial page per hypothesis row, all or nothing (the first
+        # with the prefix cache's pressure relief)
         claimed = []
         try:
-            for slot in slots:
+            for j, slot in enumerate(slots):
                 owner = self._owner(key, slot)
-                claimed.append((owner, self.pool.claim(owner, 1)))
+                claimed.append((owner, self._claim_pages(owner, 1) if j == 0
+                                else self.pool.claim(owner, 1)))
         except PoolExhausted:
             for owner, _ in claimed:
                 self.pool.release(owner)
@@ -191,7 +292,7 @@ class PagedBeamEngine(PagedDecodeEngine):
             self._table[slot, 0] = pages[0]
         self._n_active += k
         self._by_key[key] = slots[0]
-        self._sents[key] = _Sent(key, slots, hyps, cap)
+        self._sents[key] = _Sent(key, slots, hyps, cap, src_key)
         # one encoder pass a sentence (slot 0); the other rows copy its
         # cross K/V and mask after the install, so a fork never copies
         # them
@@ -212,7 +313,10 @@ class PagedBeamEngine(PagedDecodeEngine):
                 torch.tensor(dst, dtype=torch.long, device=self.device))
 
     # -- leave --------------------------------------------------------------
-    def _evict(self, key) -> bool:
+    def _evict(self, key, adopt_text: Optional[str] = None) -> bool:
+        """A sentence leaves: its rows' pages are released. Finished
+        (``adopt_text``) with a prefix cache, its best hypothesis is
+        remembered for replays."""
         sent = self._sents.pop(key, None)
         if sent is None:
             return False
@@ -221,6 +325,10 @@ class PagedBeamEngine(PagedDecodeEngine):
             self._release_row(sent.key, slot)
             self._slots[slot] = None
         self._n_active -= len(sent.slots)
+        if self.prefix is not None and adopt_text is not None:
+            self.prefix.remember(self.pool, sent.src_key,
+                                 self._crop(self._best_hyp(sent)),
+                                 adopt_text)
         return True
 
     def _release_row(self, key, slot: int) -> None:
@@ -237,10 +345,16 @@ class PagedBeamEngine(PagedDecodeEngine):
 
     # -- the round ----------------------------------------------------------
     def _step(self, res: StepResult) -> None:
-        """One step over the occupied slot prefix: the device takes each
-        row's top k of ``score + logp``; the host merges each sentence's
-        candidates, reorders its rows over shared pages and forks the
-        diverging partial pages in one call per layer."""
+        if self.merge == "fused":
+            self._step_fused(res)
+        else:
+            self._step_host(res)
+
+    def _step_host(self, res: StepResult) -> None:
+        """One HOST-merge step over the occupied slot prefix: the device
+        takes each row's top k of ``score + logp``; the host merges each
+        sentence's candidates, reorders its rows over shared pages and
+        forks the diverging partial pages in one call per layer."""
         top = max(i for i, s in enumerate(self._slots) if s is not None)
         rb = bucket_rows(top + 1, self.row_buckets)
         pos_np = np.full((rb,), -1, np.int32)
@@ -285,22 +399,29 @@ class PagedBeamEngine(PagedDecodeEngine):
                 finished.append((sent, done))
         if fork_src:
             # after this step's pool_insert, on the same stream
-            src = torch.tensor(fork_src, dtype=torch.long,
-                               device=self.device)
-            dst = torch.tensor(fork_dst, dtype=torch.long,
-                               device=self.device)
-            for kk in self._keys[1]:
-                if kk.endswith("_pool_k"):
-                    pool_fork_partial(self._state[kk],
-                                      self._state[kk[:-1] + "v"], src, dst)
+            self._fork_pages(
+                torch.tensor(fork_src, dtype=torch.long, device=self.device),
+                torch.tensor(fork_dst, dtype=torch.long, device=self.device))
             self.counters["copied_pages"] += len(fork_src)
+        self._finish_sentences(res, finished)
+        res.rows = live_rows
+        res.steps += 1
+
+    def _fork_pages(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """``pool[dst] = pool[src]`` in every layer's K and V pools."""
+        src, dst = src.long(), dst.long()
+        for kk in self._keys[1]:
+            if kk.endswith("_pool_k"):
+                pool_fork_partial(self._state[kk], self._state[kk[:-1] + "v"],
+                                  src, dst)
+
+    def _finish_sentences(self, res: StepResult,
+                          finished: List[Tuple[_Sent, _Hyp]]) -> None:
         for sent, best in finished:
             self._finish(res, sent.key, self._crop(best), {
                 "score": float(best.score),
                 "norm_score": float(self._norm_score(best)),
                 "length": int(best.length), "tokens": list(best.tokens)})
-        res.rows = live_rows
-        res.steps += 1
 
     def _merge_sentence(self, sent: _Sent, vals, idx, fork_src: List[int],
                         fork_dst: List[int]) -> Optional[_Hyp]:
@@ -366,14 +487,24 @@ class PagedBeamEngine(PagedDecodeEngine):
         # ones, so no retable below frees an alias (or a fork's copy
         # source) before its new reference lands
         tmp = ("cow", sent.key)
-        self.pool.share(tmp, [p for s in sent.slots for p in old[s]],
-                        row_cap=False)
+
+        def hold_and_claim():
+            self.pool.share(tmp, [p for s in sent.slots for p in old[s]],
+                            row_cap=False)
+            try:
+                return (self.pool.claim_extra(tmp, n_fresh, row_cap=False)
+                        if n_fresh else [])
+            except PoolExhausted:
+                self.pool.release(tmp)
+                raise
         try:
-            fresh = (self.pool.claim_extra(tmp, n_fresh, row_cap=False)
-                     if n_fresh else [])
+            fresh = hold_and_claim()
         except PoolExhausted:
-            self.pool.release(tmp)
-            raise
+            # pressure relief from the prefix cache, then once more
+            if self.prefix is None or not self.prefix.evict_for_pages(
+                    self.pool, n_fresh):
+                raise
+            fresh = hold_and_claim()
         fi = 0
         new_tables: Dict[int, List[int]] = {}
         for pslot, c in keeper.items():
@@ -399,9 +530,7 @@ class PagedBeamEngine(PagedDecodeEngine):
             if row is None:
                 self._release_row(sent.key, slot)
                 continue
-            self.pool.retable(self._owner(sent.key, slot), row)
-            self._table[slot, :] = 0
-            self._table[slot, :len(row)] = row
+            self._retable_row(sent.key, slot, row)
             st = self._slots[slot]
             st.pos = next_pos
             st.expected_refs = len(row)
@@ -412,6 +541,275 @@ class PagedBeamEngine(PagedDecodeEngine):
             self._slot_prev[c.slot] = c.tokens[-1]
             self._slot_score[c.slot] = float(c.score)
         return None
+
+    def _retable_row(self, key, slot: int, row: List[int]) -> None:
+        """A row's new page list: the pool's refcounts, then the host
+        table mirror the next round uploads."""
+        self.pool.retable(self._owner(key, slot), row)
+        self._table[slot, :] = 0
+        self._table[slot, :len(row)] = row
+
+    # -- the fused round ----------------------------------------------------
+    def _round_fresh_counts(self, sent: _Sent) -> List[int]:
+        """The worst-case fresh pages of each step of a fused round for
+        one sentence: k at a page boundary (every live child starts an
+        unwritten page), else k-1 (every child but one forks), none from
+        the step that reaches the cap on."""
+        k, out = self.beam_size, []
+        for j in range(self.steps_per_round):
+            npos = sent.t + j + 1
+            if npos >= sent.cap:
+                break
+            out.append(k if npos % self.page_len == 0 else k - 1)
+        return out
+
+    def _claim_round_fresh(self, owner, n: int) -> List[int]:
+        """A sentence's preclaim for one fused round under the transient
+        owner ``("roundfresh", key)``, with the prefix cache's pressure
+        relief. No row cap: it spans k rows and several steps."""
+        try:
+            return self.pool.claim(owner, n, row_cap=False)
+        except PoolExhausted:
+            if self.prefix is None or not self.prefix.evict_for_pages(
+                    self.pool, n):
+                raise
+            return self.pool.claim(owner, n, row_cap=False)
+
+    def _step_fused(self, res: StepResult) -> None:
+        """One fused round: preclaim the worst-case fresh pages, upload
+        the rows' inputs once, run ``steps_per_round`` steps on the device
+        (model step, ``fused_merge``, keeper/fork masks, the partial-page
+        forks, ``beam_table_reorder``, commit masks) with no host sync,
+        copy (lanes, tokens, values, table) to the host once, replay the
+        steps into the hypotheses and apply the table as retable diffs.
+        A preclaim the pool cannot meet sends the round to one host-merge
+        step instead (``fused_fallback_rounds``)."""
+        k, steps = self.beam_size, self.steps_per_round
+        fresh: Dict[object, List[int]] = {}
+        for key, sent in self._sents.items():
+            try:
+                fresh[key] = self._claim_round_fresh(
+                    ("roundfresh", key), sum(self._round_fresh_counts(sent)))
+            except PoolExhausted:
+                # the worst case does not fit, the real demand may: one
+                # host-merge step with lazy claims, the same output
+                for k2 in fresh:
+                    self.pool.release(("roundfresh", k2))
+                self.counters["fused_fallback_rounds"] += 1
+                self._step_host(res)
+                return
+        top = max(i for i, s in enumerate(self._slots) if s is not None)
+        rows = bucket_rows(top + 1, self.row_buckets)
+        nb = rows // k
+        pos_np = np.full((rows,), -1, np.int32)
+        prev_np = np.zeros((rows, 1), np.int64)
+        score_np = np.zeros((rows,), np.float32)
+        fin_np = np.zeros((rows,), bool)
+        blk_live_np = np.zeros((nb,), bool)
+        cap_np = np.zeros((nb,), np.int32)
+        fresh_np = np.zeros((steps, rows), np.int32)
+        live_rows = 0
+        for key, sent in self._sents.items():
+            base = sent.slots[0]
+            blk_live_np[base // k] = True
+            cap_np[base // k] = sent.cap
+            for j, h in enumerate(sent.hyps):
+                score_np[base + j] = h.score
+                if h.finished:
+                    fin_np[base + j] = True
+                else:
+                    pos_np[base + j] = sent.t
+                    prev_np[base + j, 0] = h.tokens[-1] if h.tokens else 0
+                    live_rows += 1
+            fi = 0
+            for j, cnt in enumerate(self._round_fresh_counts(sent)):
+                # this step's pages densely at the block base, lane order
+                fresh_np[j, base:base + cnt] = fresh[key][fi:fi + cnt]
+                fi += cnt
+        sub, src_mask = self._step_state(rows)
+        lanes, toks, vals, table = self._fused_steps(
+            sub, src_mask, *(torch.from_numpy(a).to(self.device) for a in (
+                prev_np, pos_np, score_np, fin_np, blk_live_np, cap_np,
+                fresh_np)))
+        finished: List[Tuple[_Sent, _Hyp]] = []
+        for key in list(self._sents):
+            sent = self._sents[key]
+            best = self._replay_round(sent, lanes[:, sent.slots[0] // k],
+                                      toks[:, sent.slots[0] // k],
+                                      vals[:, sent.slots[0] // k])
+            if best is not None:
+                self.pool.release(("roundfresh", key))
+                finished.append((sent, best))
+                continue
+            self._apply_round_table(sent, table)
+            self.pool.release(("roundfresh", key))
+        self._finish_sentences(res, finished)
+        res.rows = live_rows
+        res.steps += steps
+
+    def _fused_steps(self, sub, src_mask, prev, pos, score, fin, blk_live,
+                     cap, fresh):
+        """The fused round's device loop over ``rows`` = nb x k rows, with
+        no host sync inside (``sync_debug`` checks it). Every committed
+        step of a live sentence moves its rows to their children: parent
+        lane, token and value from ``fused_merge``, the table from
+        ``beam_table_reorder``, forks of the partial page into the step's
+        preclaimed pages. A sentence that finishes (every child frozen,
+        or its cap) stops committing, and its rows idle at ``pos`` -1, as
+        frozen rows do. Returns the host copies of the per-step [steps,
+        nb, k] lanes, tokens, values and the final [rows, max_pages]
+        table, from ONE device-to-host copy."""
+        k, page_len = self.beam_size, self.page_len
+        rows = pos.shape[0]
+        nb = rows // k
+        mp = self._table.shape[1]
+        dev = self.device
+        blk_base = torch.arange(nb, device=dev) * k
+        lanes_k = torch.arange(k, device=dev)
+        earlier = lanes_k[None, None, :] < lanes_k[None, :, None]
+        table = sub["page_table"]
+        done = ~blk_live
+
+        def per_row(x):
+            return x[:, None].expand(nb, k).reshape(rows)
+        outs = []
+        with self._sync_guard():
+            for j in range(fresh.shape[0]):
+                sub["pos"] = pos
+                sub["page_table"] = table
+                logits, _ = self.model.step(self.params, sub, prev, src_mask)
+                # the host path's per-row values: f32 log-softmax, UNK
+                # suppressed; then the f32 cumulative add in the merge
+                lp = torch.log_softmax(logits.float(), dim=-1)
+                if not self.allow_unk:
+                    lp[:, UNK_ID] = NEG_INF
+                val, lane, tok = fused_merge(lp, score, fin, k, EOS_ID)
+                parent = blk_base[:, None] + lane
+                fin_c = fin[parent] | (tok == EOS_ID)
+                live_c = ~fin_c
+                # live rows sit at the sentence's t, frozen rows at -1
+                next_pos = pos.view(nb, k).amax(1) + 1
+                gate = ~done
+                done_now = ((~live_c.any(1)) | (next_pos >= cap)) & gate
+                commit = gate & ~done_now
+                # the keeper (lowest lane among a parent's live children)
+                # keeps the parent's partial page in place
+                dup = (lane[:, :, None] == lane[:, None, :]) & earlier \
+                    & live_c[:, None, :]
+                keeper = live_c & ~dup.any(2)
+                boundary = next_pos % page_len == 0
+                needs = live_c & (boundary[:, None] | ~keeper)
+                fidx = (torch.cumsum(needs.to(torch.int32), 1) - 1).clamp(
+                    min=0)
+                pg = torch.where(
+                    needs, fresh[j].view(nb, k).gather(1, fidx.long()), 0)
+                commit_row = per_row(commit)
+                next_pos_row = per_row(next_pos)
+                write_slot = next_pos_row // page_len
+                parent_row = parent.reshape(rows)
+                fin_row = fin_c.reshape(rows)
+                needs_row = needs.reshape(rows) & commit_row
+                pg_row = torch.where(needs_row, pg.reshape(rows), 0)
+                # the fork: the parent's partial page (this step's write
+                # included) into the child's fresh page, after the step's
+                # insert on the same stream; (0, 0) pairs are no-ops
+                mid = needs_row & ~per_row(boundary)
+                src_pg = table[parent_row].gather(
+                    1, write_slot.clamp(max=mp - 1)[:, None].long())[:, 0]
+                self._fork_pages(torch.where(mid, src_pg, 0),
+                                 torch.where(mid, pg_row, 0))
+                new_table = beam_table_reorder(table, parent_row, write_slot,
+                                               pg_row, needs_row, fin_row)
+                table = torch.where(commit_row[:, None], new_table, table)
+                score = torch.where(commit_row, val.reshape(rows), score)
+                fin = torch.where(commit_row, fin_row, fin)
+                prev = torch.where(commit_row[:, None],
+                                   tok.reshape(rows)[:, None], prev)
+                # committed live children advance; frozen children and
+                # the rows of a sentence that just finished idle at -1
+                pos = torch.where(commit_row & ~fin_row, next_pos_row,
+                                  torch.where(per_row(gate), -1, pos))
+                done = done | done_now
+                outs.append((lane, tok, val))
+        n = len(outs) * nb * k
+        # the round's one host sync: every output in one copy
+        flat = torch.cat([
+            torch.stack([o[0] for o in outs]).to(torch.int32).reshape(-1),
+            torch.stack([o[1] for o in outs]).to(torch.int32).reshape(-1),
+            torch.stack([o[2] for o in outs]).view(torch.int32).reshape(-1),
+            table.reshape(-1)]).cpu().numpy()
+        shape = (len(outs), nb, k)
+        return (flat[:n].reshape(shape), flat[n:2 * n].reshape(shape),
+                flat[2 * n:3 * n].view(np.float32).reshape(shape),
+                flat[3 * n:].reshape(rows, mp))
+
+    def _replay_round(self, sent: _Sent, lanes, toks, vals) -> Optional[_Hyp]:
+        """The host half of a fused round for one sentence: each step's
+        [k] (lane, token, value) becomes its children, as the host merge
+        makes them (frozen parents stay {EOS: score}; EOS children freeze
+        off the device). Returns the best hypothesis when the sentence
+        finished in the round."""
+        k = self.beam_size
+        base = sent.slots[0]
+        for j in range(lanes.shape[0]):
+            cur = sent.hyps
+            next_pos = sent.t + 1
+            children: List[_Hyp] = []
+            live_lanes: List[int] = []
+            for i in range(k):
+                parent = cur[int(lanes[j, i])]
+                if parent.finished:
+                    children.append(_Hyp(parent.tokens, parent.score,
+                                         parent.length, True, i, None))
+                    continue
+                tok = int(toks[j, i])
+                fin = tok == EOS_ID
+                children.append(_Hyp(parent.tokens + [tok],
+                                     np.float32(vals[j, i]), next_pos, fin,
+                                     i, None if fin else base + i))
+                if not fin:
+                    live_lanes.append(int(lanes[j, i]))
+            sent.hyps = children
+            sent.t = next_pos
+            if not live_lanes or next_pos >= sent.cap:
+                # unfinished hypotheses at the cap score at length = cap
+                for c in children:
+                    if not c.finished:
+                        c.length = sent.cap
+                        c.slot = None
+                return self._best_hyp(sent)
+            # the host merge's ledger: forks, and copies off a boundary
+            forkers = len(live_lanes) - len(set(live_lanes))
+            self.counters["forks"] += forkers
+            if next_pos % self.page_len != 0:
+                self.counters["copied_pages"] += forkers
+        return None
+
+    def _apply_round_table(self, sent: _Sent, table) -> None:
+        """Apply the device's final table to a continuing sentence as
+        retable diffs: every page an old row references is held first
+        (``("cow", key)``), so no retable frees a page before the row
+        that moves onto it takes its reference."""
+        key = sent.key
+        tmp = ("cow", key)
+        self.pool.share(tmp, list(dict.fromkeys(
+            p for slot in sent.slots
+            for p in self.pool.pages_of(self._owner(key, slot)))),
+            row_cap=False)
+        for slot, h in zip(sent.slots, sent.hyps):
+            if h.slot is None:
+                self._release_row(key, slot)
+                continue
+            row = [int(p) for p in table[slot]]
+            row = row[:row.index(0)] if 0 in row else row
+            self._retable_row(key, slot, row)
+            st = self._slots[slot]
+            st.pos = sent.t
+            st.expected_refs = len(row)
+            self._slot_pos[slot] = sent.t
+            self._slot_prev[slot] = h.tokens[-1]
+            self._slot_score[slot] = float(h.score)
+        self.pool.release(tmp)
 
     # -- scoring (the dense search's collect math, in np.float32) -----------
     def _norm_score(self, h: _Hyp) -> np.float32:
@@ -470,6 +868,7 @@ class PagedBeamEngine(PagedDecodeEngine):
             if live != dev_live:
                 v.append(f"sentence {key!r}: {live} live hypotheses vs "
                          f"{dev_live} live device rows")
+        owners |= self._cache_owners()
         for owner in self.pool.owners():
             if owner not in owners:
                 v.append(f"pool claim for {owner!r} matches no sentence "

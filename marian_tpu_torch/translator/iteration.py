@@ -1,7 +1,7 @@
 """Iteration-level (continuous) greedy decoding over a paged KV pool, the
 port of ``marian_tpu/translator/iteration.py`` (``PagedDecodeEngine``
-without the prefix cache, the decode-feature plane, the metrics and the
-compile witness).
+with the cross-request prefix cache, translator/prefix_cache.py; without
+the decode-feature plane, the metrics and the compile witness).
 
 Decode rows are SLOTS over one shared paged KV pool
 (ops/kernels/kv_pool.py):
@@ -16,7 +16,11 @@ Decode rows are SLOTS over one shared paged KV pool
   copy of the tokens to the host per round. Joins encode at
   ``JOIN_BUCKETS`` rows and halving source widths. Eager PyTorch needs
   no closed shape set; the buckets keep the reference's computed rows
-  and widths, and they are the shapes a CUDA graph would capture.
+  and widths, and they are the shapes a CUDA graph would capture;
+- with a ``PrefixCache`` an exact source repeat of a finished sentence
+  replays its text at join (no slot), and a repeat of a sentence
+  decoding now forks from it copy-on-write (``_try_fork``); a finished
+  row's pages move to the cache, which gives them back under pressure.
 
 Threading: ``admit_and_step`` runs on the serving scheduler's single
 device worker thread, and the event loop touches the engine only
@@ -45,9 +49,12 @@ import torch
 
 from ..common import logging as log
 from ..data.vocab import EOS_ID
+from ..models.transformer import fork_paged_rows
 from ..ops.kernels.kv_pool import (DEFAULT_PAGE_LEN, KVPool, PoolCorruption,
                                    PoolExhausted, ROW_BUCKETS, bucket_rows,
-                                   pages_for_tokens, state_key_groups)
+                                   pages_for_tokens, pool_fork_partial,
+                                   state_key_groups)
+from .prefix_cache import PrefixCache
 
 # with MARIAN_POOL_AUDIT=1 every admit+step round ends with a full
 # invariant audit; without it the audit runs when a caller asks and the
@@ -81,16 +88,19 @@ class StepResult:
 
 
 class _Slot:
-    __slots__ = ("key", "tokens", "pos", "cap", "prev", "expected_refs")
+    __slots__ = ("key", "tokens", "pos", "cap", "prev", "expected_refs",
+                 "src_key")
 
-    def __init__(self, key, cap: int, expected_refs: int):
+    def __init__(self, key, cap: int, expected_refs: int, src_key=None):
         self.key = key
         self.tokens: List[int] = []
         self.pos = 0                # next write position
         self.cap = cap              # decode cap (max positions)
         self.prev = 0               # previous token id (0 at pos 0)
-        # page references the row's exit must give back
+        # page references the row's exit must give back (cap pages for
+        # a cold join; aliased full pages + owned tail for a fork)
         self.expected_refs = expected_refs
+        self.src_key = src_key      # source id tuple (the prefix-cache key)
 
 
 class PagedDecodeEngine:
@@ -110,7 +120,8 @@ class PagedDecodeEngine:
                  max_length_cap: int = 256,
                  max_length_factor: float = 3.0,
                  row_buckets: Sequence[int] = ROW_BUCKETS,
-                 steps_per_round: int = 1):
+                 steps_per_round: int = 1,
+                 prefix_cache: Optional[PrefixCache] = None):
         cfg = model.cfg
         self.model = model
         self.params = params
@@ -142,9 +153,7 @@ class PagedDecodeEngine:
         if pool_bytes and pool_bytes > 0:
             n_pages = 1 + max(1, int(pool_bytes) // self.page_bytes)
         else:
-            # every slot can hold a full-cap row: the pool is then never
-            # the constraint (shrink --kv-pool-bytes to make it one)
-            n_pages = 1 + self.max_rows * self.max_pages
+            n_pages = 1 + self._default_pool_pages()
         self.pool = KVPool(n_pages, self.page_len,
                            max_pages_per_row=self.max_pages)
         # device state: the model's paged state (pools + per-slot cross
@@ -166,13 +175,42 @@ class PagedDecodeEngine:
         self._by_key: Dict[object, int] = {}
         self._n_active = 0
         self._audit_always = os.environ.get(ENV_POOL_AUDIT, "") == "1"
+        # cross-request prefix sharing (--prefix-cache): one cache per
+        # engine, so a rebuilt engine starts with an empty one
+        self.prefix = prefix_cache
+        # the step loop runs under torch.cuda.set_sync_debug_mode(this)
+        # when set ("warn" or "error"): a host sync inside the loop shows
+        self.sync_debug: Optional[str] = None
         # totals over the engine's life: rounds, decode steps, active
         # rows summed over rounds, joins, mid-decode joins, encoder
-        # calls, audits and failed audits, and the rounds' wall seconds
+        # calls, prefix-cache hits (forks + replays) and replays, live
+        # forks, audits and failed audits, and the rounds' wall seconds
         self.counters: Dict[str, float] = {
             "rounds": 0, "steps": 0, "rows": 0, "joins": 0,
-            "mid_decode_joins": 0, "encodes": 0, "audits": 0,
-            "audit_failures": 0, "round_s": 0.0}
+            "mid_decode_joins": 0, "encodes": 0, "prefix_hits": 0,
+            "replays": 0, "forks": 0, "audits": 0, "audit_failures": 0,
+            "round_s": 0.0}
+
+    def _default_pool_pages(self) -> int:
+        """The unsized pool (no --kv-pool-bytes): every slot can hold a
+        full-cap row, so the pool is never the constraint (shrink
+        --kv-pool-bytes to make it one). The fused beam engine adds its
+        rounds' preclaim headroom."""
+        return self.max_rows * self.max_pages
+
+    @contextlib.contextmanager
+    def _sync_guard(self):
+        """The step loop's ``sync_debug`` mode (a no-op when unset or on
+        the CPU)."""
+        if self.sync_debug is None or self.device.type != "cuda":
+            yield
+            return
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(self.sync_debug)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
 
     @contextlib.contextmanager
     def _on_device(self):
@@ -188,7 +226,13 @@ class PagedDecodeEngine:
         return self._n_active
 
     def free_pages(self) -> int:
-        return self.pool.free_pages()
+        """Free pages plus what evicting the prefix cache would free now:
+        page-priced admission sees relievable pressure, and the claims
+        relieve it before they fail (``_claim_pages``)."""
+        free = self.pool.free_pages()
+        if self.prefix is not None:
+            free += self.prefix.reclaimable_pages(self.pool)
+        return free
 
     def free_slots(self) -> int:
         """Sentences that can join now."""
@@ -234,7 +278,7 @@ class PagedDecodeEngine:
             rows_before = self._n_active
             joiners: List[Tuple[object, List[int], int]] = []
             for key, text in joins:
-                why = self._try_claim(key, text, joiners, res.reject_detail)
+                why = self._try_claim(key, text, joiners, res)
                 if why is None:
                     res.accepted.append(key)
                 else:
@@ -263,14 +307,32 @@ class PagedDecodeEngine:
         c["round_s"] += res.device_s
         return res
 
+    def _replay(self, key, src_key, res: StepResult) -> bool:
+        """A join whose source has a finished prefix-cache entry resolves
+        now with the entry's text, taking no slot: decoding is
+        deterministic, so it is what a cold decode would give."""
+        if self.prefix is None:
+            return False
+        ent = self.prefix.get(src_key, self.prefix.version)
+        if ent is None:
+            return False
+        res.finished.append((key, ent.text))
+        self.counters["prefix_hits"] += 1
+        self.counters["replays"] += 1
+        return True
+
     def _try_claim(self, key, text: str, joiners: List,
-                   detail: Dict[object, str]) -> Optional[str]:
+                   res: StepResult) -> Optional[str]:
+        detail = res.reject_detail
         ids = self.src_vocab.encode(text, add_eos=True)
         if len(ids) > self.src_cap:
             detail[key] = (f"source encodes to {len(ids)} tokens but the "
                            f"engine's source cap is {self.src_cap} (raise "
                            f"--max-length)")
             return "src_too_long"
+        src_key = tuple(int(i) for i in ids)
+        if self._replay(key, src_key, res):
+            return None
         cap = self.decode_cap(len(ids))
         n_pages = pages_for_tokens(cap, self.page_len)
         if n_pages > self.pool.max_pages_per_row:
@@ -282,8 +344,13 @@ class PagedDecodeEngine:
         slot = self._free_block()
         if slot is None:
             return "no_slot"
+        if self.prefix is not None:
+            forked = self._try_fork(key, src_key, cap, n_pages, slot)
+            if forked is not None:
+                return None if forked else "no_pages"
+            self.prefix.note_miss()
         try:
-            pages = self.pool.claim(key, n_pages)
+            pages = self._claim_pages(key, n_pages)
         except PoolExhausted:
             # retriable only if the pool could EVER satisfy it
             if n_pages > self.pool.usable_pages:
@@ -294,24 +361,116 @@ class PagedDecodeEngine:
                     f"--kv-pool-bytes or lower --max-length)")
                 return "too_large"
             return "no_pages"
-        self._slots[slot] = _Slot(key, cap, expected_refs=n_pages)
+        self._slots[slot] = _Slot(key, cap, expected_refs=n_pages,
+                                  src_key=src_key)
         self._by_key[key] = slot
         self._n_active += 1
+        if self.prefix is not None:
+            self.prefix.register_live(src_key, key)
         self._table[slot, :] = 0
         self._table[slot, :len(pages)] = pages
         joiners.append((key, ids, slot))
         return None
 
-    def _evict(self, key) -> bool:
+    def _claim_pages(self, owner, n: int) -> List[int]:
+        """A fresh claim with prefix-cache pressure relief: when the free
+        list is short, LRU cache entries are evicted and the claim tried
+        once more."""
+        try:
+            return self.pool.claim(owner, n)
+        except PoolExhausted:
+            if self.prefix is None \
+                    or not self.prefix.evict_for_pages(self.pool, n):
+                raise
+            return self.pool.claim(owner, n)
+
+    def _try_fork(self, key, src_key, cap: int, n_pages: int,
+                  slot: int) -> Optional[bool]:
+        """Copy-on-write fork into ``slot`` from a LIVE row with the same
+        source: alias its full (append-only) pages, copy its partial page
+        and its cross-attention rows (no encoder pass), resume at its
+        position with its tokens. True: joined; False: a fork would do
+        but the pool is dry (retry later); None: no row to fork from (a
+        cold join). The leader must have stepped (its encoder rows are
+        installed) and have the same cap."""
+        leader_key = self.prefix.leader(src_key)
+        if leader_key is None or leader_key == key:
+            return None
+        slot_l = self._by_key.get(leader_key)
+        s_l = self._slots[slot_l] if slot_l is not None else None
+        if s_l is None or s_l.pos <= 0 or s_l.cap != cap:
+            return None
+        pos_l = s_l.pos
+        n_full = pos_l // self.page_len
+        has_partial = pos_l % self.page_len != 0
+        leader_pages = self.pool.pages_of(leader_key)
+        fulls = leader_pages[:n_full]
+        own_needed = n_pages - n_full
+
+        def build():
+            self.pool.share(key, fulls)
+            try:
+                return self.pool.claim_extra(key, own_needed)
+            except PoolExhausted:
+                self.pool.release(key)
+                raise
+        try:
+            own = build()
+        except PoolExhausted:
+            if not self.prefix.evict_for_pages(self.pool, own_needed):
+                return False
+            try:
+                own = build()
+            except PoolExhausted:
+                return False
+        s = _Slot(key, cap, expected_refs=n_full + own_needed,
+                  src_key=src_key)
+        s.tokens = list(s_l.tokens)
+        s.pos = pos_l
+        s.prev = s_l.prev
+        self._slots[slot] = s
+        self._by_key[key] = slot
+        self._n_active += 1
+        self.prefix.register_live(src_key, key)
+        row = fulls + own
+        self._table[slot, :] = 0
+        self._table[slot, :len(row)] = row
+        # the device half: cross-attention rows and source mask, then the
+        # partial page's content ((0, 0): a leader on a page boundary)
+        def dev(xs):
+            return torch.tensor(xs, dtype=torch.long, device=self.device)
+        fork_paged_rows(self._state, self._src_mask, dev([slot_l]),
+                        dev([slot]))
+        src_page = dev([leader_pages[n_full] if has_partial else 0])
+        dst_page = dev([own[0] if has_partial else 0])
+        for kk in self._keys[1]:
+            if kk.endswith("_pool_k"):
+                pool_fork_partial(self._state[kk],
+                                  self._state[kk[:-1] + "v"], src_page,
+                                  dst_page)
+        self.prefix.note_fork(tokens_saved=pos_l, pages_reused=n_full)
+        self.counters["prefix_hits"] += 1
+        self.counters["forks"] += 1
+        return True
+
+    def _evict(self, key, adopt_text: Optional[str] = None) -> bool:
         """A row leaves (finished, or its request died): release its
-        pages and clear its table row."""
+        pages (or, finished with ``adopt_text`` and a prefix cache, hand
+        them to the cache with its decode) and clear its table row."""
         slot = self._by_key.pop(key, None)
         if slot is None:
             return False
         s = self._slots[slot]
         self._slots[slot] = None
         self._n_active -= 1
-        released = self.pool.release(key)
+        released = 0
+        if self.prefix is not None and s.src_key is not None:
+            self.prefix.unregister_live(s.src_key, key)
+            if adopt_text is not None:
+                released = self.prefix.adopt(self.pool, s.src_key, key,
+                                             s.tokens, adopt_text)
+        if released == 0:
+            released = self.pool.release(key)
         # row-exit leak check (always on): the row must give back exactly
         # the references it claimed
         if released != s.expected_refs:
@@ -360,14 +519,21 @@ class PagedDecodeEngine:
                 v.append(f"slot {i} page-table row {[int(p) for p in row]} "
                          f"does not match its claim {pages} (table "
                          f"corruption)")
+        cache = self._cache_owners()
         for owner in self.pool.owners():
-            if owner not in self._by_key:
-                v.append(f"pool claim for {owner!r} has no active row "
-                         f"(pages leaked at row exit)")
+            if owner in self._by_key or owner in cache:
+                continue
+            v.append(f"pool claim for {owner!r} has no active row "
+                     f"(pages leaked at row exit)")
         self.counters["audits"] += 1
         if v:
             self._report_audit(v, context)
         return v
+
+    def _cache_owners(self) -> set:
+        """The pool owners the prefix cache's entries hold."""
+        return (set(self.prefix.owner_keys()) if self.prefix is not None
+                else set())
 
     def _report_audit(self, violations: List[str], context: str) -> None:
         log.error("POOL AUDIT FAILED ({}): {} violation(s): {}", context,
@@ -426,12 +592,13 @@ class PagedDecodeEngine:
     def _finish(self, res: StepResult, key, tokens: List[int],
                 info: Optional[dict] = None) -> None:
         """The round tail of a finished sentence: its text (and ``info``)
-        into ``res``, then its slots and pages freed."""
-        res.finished.append(
-            (key, self.trg_vocab.decode(tokens, ignore_eos=True)))
+        into ``res``, then its slots and pages freed (or handed to the
+        prefix cache with the text)."""
+        text = self.trg_vocab.decode(tokens, ignore_eos=True)
+        res.finished.append((key, text))
         if info is not None:
             res.finished_info[key] = info
-        self._evict(key)
+        self._evict(key, adopt_text=text)
 
     def _step(self, res: StepResult) -> None:
         """One round: steps_per_round decode steps over the occupied
@@ -450,13 +617,15 @@ class PagedDecodeEngine:
         pos = torch.from_numpy(pos_np).to(self.device)
         prev = torch.from_numpy(prev_np).to(self.device)
         toks = []
-        for _ in range(self.steps_per_round):
-            sub["pos"] = pos
-            logits, _ = self.model.step(self.params, sub, prev, src_mask)
-            nxt = torch.argmax(logits, dim=-1)
-            toks.append(nxt)
-            prev = nxt[:, None]
-            pos = pos + 1
+        with self._sync_guard():
+            for _ in range(self.steps_per_round):
+                sub["pos"] = pos
+                logits, _ = self.model.step(self.params, sub, prev,
+                                            src_mask)
+                nxt = torch.argmax(logits, dim=-1)
+                toks.append(nxt)
+                prev = nxt[:, None]
+                pos = pos + 1
         # the one host sync of the round: the join/evict schedule runs on
         # the host between rounds
         toks = torch.stack(toks).cpu().numpy()

@@ -20,12 +20,15 @@ time per round:
   twice untraced and once traced (engine and wall time per round).
 
 ``--beam`` profiles the beam engine chip_smoke.py serves instead (beam 6,
-the host merge: ``chip_smoke.beam_serve_options``).
+``chip_smoke.beam_serve_options``), with ``--merge host`` (the default
+here) or ``fused`` (the server's own default at beam > 1); ``--steps N``
+runs N decode steps a round (--iteration-steps; the host merge takes 1).
+Each line gives sentences/s and the time per round and per step.
 
 Run from the root of a checkout on the machine with the card:
 
     python3 scripts/torch_serve_profile.py [--seed 17] [--sentences 256]
-        [--beam]
+        [--beam [--merge host|fused]] [--steps N]
 """
 
 from __future__ import annotations
@@ -75,7 +78,11 @@ def main(argv=None) -> int:
     ap.add_argument("--sentences", type=int, default=256)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--beam", action="store_true",
-                    help="the beam engine (beam 6, host merge)")
+                    help="the beam engine (beam 6)")
+    ap.add_argument("--merge", choices=("host", "fused"), default="host",
+                    help="the beam engine's merge (with --beam)")
+    ap.add_argument("--steps", type=int, default=1,
+                    help="decode steps a round (--iteration-steps)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: no CUDA device", file=sys.stderr)
@@ -88,9 +95,14 @@ def main(argv=None) -> int:
 
     _build.build_all()
     cs.write_model(args.seed)
-    app = ServingApp(cs.beam_serve_options() if args.beam
-                     else cs.serve_options())
+    steps = ("--iteration-steps", str(args.steps))
+    app = ServingApp(cs.beam_serve_options(*steps, merge=args.merge)
+                     if args.beam else cs.serve_options(*steps))
     engine = app.scheduler.engine
+    print(f"engine: {type(engine).__name__}, "
+          f"{getattr(engine, 'merge', 'greedy')} "
+          f"merge, {engine.steps_per_round} steps a round, "
+          f"{engine.pool.usable_pages} pages")
     sents = cs.serve_sentences(args.seed, args.sentences)
     engine.decode_texts(cs.serve_sentences(args.seed + 1, cs.SERVE_ROWS))
 
@@ -108,7 +120,8 @@ def main(argv=None) -> int:
               f"{n['encodes']} encoder calls, {n['rows'] / n['rounds']:.2f} "
               f"rows per round; {1e3 * n['round_s'] / n['rounds']:.3f} "
               f"ms/round in the engine, {1e3 * wall / n['rounds']:.3f} "
-              f"ms/round wall, {wall:.3f} s")
+              f"ms/round wall, {1e3 * wall / n['steps']:.3f} ms/step wall, "
+              f"{wall:.3f} s, {len(sents) / wall:.2f} sentences/s")
 
     def decode():
         engine.decode_texts(sents)

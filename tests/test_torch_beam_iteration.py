@@ -56,10 +56,11 @@ def tiny():
 
 
 def engines(tiny, **kw):
-    """(the port's engine, the JAX host-merge engine) at ENGINE + kw."""
+    """(the port's host-merge engine, the JAX host-merge engine) at
+    ENGINE + kw."""
     jm, jp, tm, tp, jv, tv = tiny
     args = {**ENGINE, "max_rows": 2 * K, **kw}
-    return (PagedBeamEngine(tm, tp, tv, tv, **args),
+    return (PagedBeamEngine(tm, tp, tv, tv, merge="host", **args),
             JBeam(jm, jp, jv, jv, merge="host", **args))
 
 

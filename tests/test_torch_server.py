@@ -10,9 +10,11 @@ the port's io.
   streaming headers reply ``!!SERVER-ERROR``;
 - a client that disconnects mid-decode cancels its request: its row is
   evicted and its pages freed;
-- flags the port does not carry are refused by name (the fused beam
-  merge, the prefix cache, n-best and sampling in iteration mode, the
-  dispatch watchdog), and without a card the entry point raises unless
+- flags the port does not carry are refused by name (n-best and
+  sampling in iteration mode, the dispatch watchdog), the fused beam
+  merge (the default at beam > 1) and ``--prefix-cache`` pass the
+  option checks, the host merge with ``--iteration-steps`` > 1 at beam
+  > 1 is refused, and without a card the entry point raises unless
   ``--cpu-threads`` asks for the CPU.
 """
 
@@ -173,13 +175,35 @@ def test_disconnect_cancels_the_request(model):
     assert engine.audit() == []
 
 
+def _flags(*flags):
+    return parse_options(["--models", "absent.npz", "--vocabs", "a.yml",
+                          "b.yml", "--cpu-threads", "1", *flags],
+                         mode="server")
+
+
+@pytest.mark.parametrize("flags", [
+    ["--batching-mode", "iteration", "--beam-size", "4"],
+    ["--batching-mode", "iteration", "--beam-size", "1", "--prefix-cache"],
+    ["--batching-mode", "iteration", "--beam-size", "4",
+     "--iteration-beam-merge", "host", "--prefix-cache"],
+    ["--batching-mode", "iteration", "--beam-size", "4",
+     "--iteration-steps", "4", "--prefix-cache"],
+])
+def test_ported_flags_pass_the_option_checks(flags):
+    """The fused beam merge (the default at beam > 1, at any
+    --iteration-steps) and --prefix-cache (greedy, host and fused beam)
+    pass the server's option checks."""
+    srv.ServingApp._validate_options(_flags(*flags))
+
+
+def test_host_merge_with_multistep_rounds_is_refused():
+    with pytest.raises(ValueError, match="host merge needs"):
+        srv.ServingApp._validate_options(_flags(
+            "--batching-mode", "iteration", "--beam-size", "4",
+            "--iteration-beam-merge", "host", "--iteration-steps", "4"))
+
+
 @pytest.mark.parametrize("flags,name", [
-    (["--batching-mode", "iteration", "--beam-size", "4"],
-     "--iteration-beam-merge"),
-    (["--batching-mode", "iteration", "--beam-size", "1", "--prefix-cache"],
-     "--prefix-cache"),
-    (["--batching-mode", "iteration", "--beam-size", "4",
-      "--iteration-beam-merge", "host", "--prefix-cache"], "--prefix-cache"),
     (["--batching-mode", "iteration", "--beam-size", "1", "--n-best"],
      "--n-best"),
     (["--batching-mode", "iteration", "--beam-size", "4",
@@ -189,11 +213,8 @@ def test_disconnect_cancels_the_request(model):
     (["--dispatch-stall-timeout", "5"], "--dispatch-stall-timeout"),
 ])
 def test_unported_flags_are_refused_by_name(flags, name):
-    opts = parse_options(["--models", "absent.npz", "--vocabs", "a.yml",
-                          "b.yml", "--cpu-threads", "1", *flags],
-                         mode="server")
     with pytest.raises(NotImplementedError, match=name):
-        srv.ServingApp(opts)
+        srv.ServingApp(_flags(*flags))
 
 
 def test_entry_point_raises_without_a_card(model, monkeypatch):
