@@ -53,11 +53,24 @@ card, and drives the port's main paths on data made from --seed:
   pool too small for the rounds' worst-case page preclaim (12 slots, 8
   steps a round), where rounds fall back to one host-merge step with
   the same replies; 8 sentences on the card and on the CPU at 4 steps;
-- --prefix-cache, greedy and fused beam at 4 steps a round: 128
+- --prefix-cache, greedy and fused beam at 4 steps a round: 64
   sentences each sent twice (half the repeats while the first copy
   decodes, half after its reply); every reply equals the dense decode,
   the greedy engine forks repeats from live rows, both replay finished
   ones, and after the cache's drop_all the pool is empty;
+- the decode surface on the serve model, with a lex table from --seed
+  (each word's own copy and 19 random targets; --shortlist lex.s2t 100
+  20): the dense beam-6 search with the shortlist (card against CPU, and
+  --word-scores summing to the raw scores); greedy with the shortlist
+  equal to the full-vocabulary decode (the smallest top-1 margin
+  printed); iteration greedy and the fused beam (4 steps a round, under
+  the sync guard) with per-row shortlists, each reply the dense
+  shortlisted decode of its sentence; --force-decode through a prefix
+  file (marian-decoder) and TAB lines (the fused beam), replies the
+  dense forced decode; --output-sampling topk 1 equal to the unsampled
+  decode and topk 10 0.8 replaying at its seed; iteration --n-best equal
+  to request mode's blocks; a #stream:1 client's partials prefixes of
+  its final reply; and the sampling noise equal on the card and the CPU;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
@@ -186,7 +199,7 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 # paths only (a row's "paths"); other rows sum it over every path.
 F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
-             "train", "doc train", "doc decode")
+             "decode surface", "train", "doc train", "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
               "bf16 request serve", "bf16 beam serve",
               "bf16 fused beam serve")
@@ -260,8 +273,15 @@ FUSED_STEPS = 4
 # round (a worst-case preclaim of up to 41 pages a sentence), 32
 # sentences
 PRESSURE_ROWS, PRESSURE_STEPS, PRESSURE_SENTENCES = 12, 8, 32
-# the prefix serve paths: the first 128 served sentences, each sent twice
-PREFIX_SENTENCES = 128
+# the prefix serve paths: the first 64 served sentences, each sent twice
+PREFIX_SENTENCES = 64
+# the decode surface: --shortlist lex.s2t 100 20 over a table of each
+# word's own copy (probability 0.9) and LEX_RANDOM random targets; a
+# 40-word sentence's union is at most 100 + 40 x 20 = 900 words, below
+# the engines' static K of 1,024, so no row is cut. SURFACE_SENTENCES
+# of the served sentences through each check, SURFACE_CUT of them
+# through the CPU and the n-best comparisons
+LEX_RANDOM, SURFACE_SENTENCES, SURFACE_CUT = 19, 24, 8
 # sentences of the bf16 cuts of the two serve paths
 SERVE_BF16 = 64
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
@@ -2349,8 +2369,8 @@ def engine_step_logits(engine, sents):
     model, rows = engine.model, {}
     step = model.step
 
-    def recorded(params, state, prev, src_mask, beam_src=None):
-        logits, new = step(params, state, prev, src_mask, beam_src)
+    def recorded(params, state, prev, src_mask, beam_src=None, **kw):
+        logits, new = step(params, state, prev, src_mask, beam_src, **kw)
         for i, p in enumerate(state["pos"].tolist()):
             slot = engine._slots[i]
             if slot is not None:
@@ -3065,6 +3085,359 @@ def phase_prefix_serve_main_path(seed: int) -> dict:
     return add_counts(*all_counts)
 
 
+def write_lex(seed: int) -> str:
+    """lex.s2t over the 32,000 words from ``seed``: each word's own copy
+    at probability 0.9, then LEX_RANDOM random targets at 0.5 / rank
+    (the copying serve model's replies stay inside any union)."""
+    rng = np.random.RandomState(seed + 11)
+    targets = rng.randint(2, VOCAB, size=(VOCAB - 2, LEX_RANDOM))
+    lines = []
+    for i in range(2, VOCAB):
+        lines.append(f"w{i} w{i} 0.9")
+        lines += [f"w{i} w{t} {0.5 / (j + 1):.5f}"
+                  for j, t in enumerate(targets[i - 2])]
+    path = WORK / "lex.s2t"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def dense_hyps(tr, text: str, cap: int, beam: int, shortlist_gen=None,
+               forced=(), n_best: int = 1, normalize: float = 0.0):
+    """The port's dense beam search of ``text`` alone on the card at decode
+    cap ``cap``: its n-best dicts, over the sentence's own shortlist
+    (``shortlist_gen``) or with the target prefix ``forced``."""
+    from marian_tpu_torch.translator.beam_search import (BeamConfig,
+                                                         BeamSearch,
+                                                         beam_search)
+    ids, src, mask = source_batch(tr, [text], tr.device)
+    sl = pfx = None
+    if shortlist_gen is not None:
+        sl = torch.from_numpy(shortlist_gen.generate(
+            np.unique(ids[0])).indices).long().to(tr.device)
+    if forced:
+        pfx = torch.full((1, cap), -1, dtype=torch.long, device=tr.device)
+        pfx[0, :len(forced)] = torch.tensor(forced)
+    cfg = BeamConfig(beam_size=beam, normalize=normalize, max_length=cap,
+                     n_best=n_best)
+    with torch.inference_mode():
+        res = beam_search(tr.model, tr.params, cfg, src, mask, sl, pfx)
+    return BeamSearch._collect(*(x.cpu().numpy() for x in res[:4]), cfg)[0]
+
+
+def surface_engine_cap(engine, tr, text: str, forced=()) -> int:
+    """A served sentence's decode cap, its forced trunk covered."""
+    cap = engine.decode_cap(len(tr.src_vocab.encode(text)))
+    return min(engine.max_length_cap, max(cap, len(forced) + 8)) \
+        if forced else cap
+
+
+async def stream_client(port: int, text: str):
+    """One ``#stream:1`` request: (its #partial: frames, the final reply)."""
+    from marian_tpu_torch.server.server import PARTIAL_PREFIX
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        payload = ("#stream:1\n" + text).encode("utf-8")
+        writer.write(b"MTPU %d\n" % len(payload) + payload)
+        await writer.drain()
+        partials = []
+        while True:
+            header = await reader.readline()
+            check(header.startswith(b"MTPU "), f"reply header {header!r}")
+            frame = (await reader.readexactly(
+                int(header.split()[1]))).decode("utf-8")
+            if not frame.startswith(PARTIAL_PREFIX):
+                return partials, frame
+            partials.append(frame[len(PARTIAL_PREFIX):])
+    finally:
+        writer.close()
+
+
+def surface_serve(what: str, seed: int, sents, flags, guard: bool = False):
+    """``sents`` through a ServingApp built from ``flags`` (a counted
+    serve run, serve_counted); the engine's step loops under the sync
+    guard when ``guard``. Returns (app, replies, counts)."""
+    from marian_tpu_torch.server.server import ServingApp
+    app = ServingApp(flags)
+    engine = app.scheduler.engine
+    check(engine.device.type == "cuda" and engine.features is not None,
+          f"{what}: engine on {engine.device}, plane {engine.features}")
+
+    def arm():
+        engine.sync_debug = "error" if guard else None
+    replies, _, secs, counts, run = serve_counted(
+        app, sents, serve_sentences(seed + 1, 2),
+        lambda: dict(engine.counters), on_warm=arm)
+    engine.sync_debug = None
+    check(engine.idle() and engine.pool.free_pages()
+          == engine.pool.usable_pages and engine.audit() == [],
+          f"{what}: pool not empty or audit failed after the run")
+    cfg = engine.model.cfg
+    want = {name: 0 for name in counts}
+    want["paged_decode_attention"] = cfg.dec_depth * run["steps"]
+    want["packed_attention"] = cfg.enc_depth * run["encodes"]
+    check(counts == want, f"{what} launches {counts}, expected {want}")
+    print(f"decode surface: {what}: {engine.features.describe()}, "
+          f"{getattr(engine, 'merge', 'greedy')}, {engine.steps_per_round} "
+          f"steps a round{' under the sync guard' if guard else ''}: "
+          f"{len(sents)} sentences in {secs:.3f} s, {run['rounds']} rounds, "
+          f"{run['steps']} steps; launches paged "
+          f"{want['paged_decode_attention']}, packed "
+          f"{want['packed_attention']}")
+    return app, replies, counts
+
+
+def per_row_logit_times(tr) -> None:
+    """The per-row shortlisted logits at the serve shape (SERVE_ROWS rows,
+    K 1,024, the serve model's table) in both forms, each held to the
+    other, timed beside one batch-wide [K] slice and the full product;
+    the bytes each form moves (``per_row_gather_bytes``) and the form
+    the port takes."""
+    from marian_tpu_torch.models import transformer as T
+    cfg, params = tr.model.cfg, tr.params
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(SERVE_ROWS, cfg.dim_emb, generator=gen).to(tr.device)
+    sl = torch.stack([torch.randperm(VOCAB, generator=gen)[:1024].sort().values
+                      for _ in range(SERVE_ROWS)]).to(tr.device)
+    itemsize = params["Wemb"].element_size()
+    gathered_b, full_b = T.per_row_gather_bytes(SERVE_ROWS, 1024, VOCAB,
+                                                cfg.dim_emb, itemsize)
+    plain = T.per_row_gather_bytes
+    out, ms = {}, {}
+    try:
+        for form, pick in (("gathered", (0, 1)), ("full", (1, 0))):
+            T.per_row_gather_bytes = lambda *a, _p=pick: _p
+            with torch.inference_mode():
+                out[form] = T.output_logits(cfg, params, x, sl)
+                ms[form] = time_ms(lambda: T.output_logits(cfg, params, x,
+                                                           sl))
+    finally:
+        T.per_row_gather_bytes = plain
+    with torch.inference_mode():
+        ms["slice"] = time_ms(lambda: T.output_logits(cfg, params, x, sl[0]))
+        ms["none"] = time_ms(lambda: T.output_logits(cfg, params, x))
+    err = (out["gathered"] - out["full"]).abs().max().item()
+    check(err <= 1e-3, f"the per-row logit forms differ by {err}")
+    taken = "gathered" if gathered_b <= full_b else "full"
+    print(f"decode surface: per-row shortlisted logits, {SERVE_ROWS} rows, K "
+          f"1024, table [{VOCAB}, {cfg.dim_emb}] f32: gathered [R, K, D] "
+          f"{gathered_b / 2**20:.1f} MiB, {ms['gathered']:.4f} ms; full "
+          f"product + gather {full_b / 2**20:.1f} MiB, {ms['full']:.4f} ms "
+          f"(the port takes '{taken}'); forms agree within {err:.2g}; one "
+          f"[K] slice {ms['slice']:.4f} ms, no shortlist {ms['none']:.4f} ms")
+
+
+def phase_decode_surface(seed: int) -> dict:
+    """The decode surface on the serve model (``serve_weights``), with a
+    lex table from ``seed`` (``write_lex``): the dense search and the
+    paged engines with --shortlist, --force-decode, --output-sampling,
+    --n-best, --word-scores and #stream:1 (see each check's line).
+    Counted: the dense shortlisted beam-6 decode (decode_attention, the
+    packed encoder) and the greedy and fused beam serves with the
+    shortlist (paged_decode_attention, the packed encoder)."""
+    from marian_tpu_torch.server.server import ServingApp
+    from marian_tpu_torch.translator.beam_search import (gumbel_noise,
+                                                         noise_bits)
+    from marian_tpu_torch.translator.translator import Translate
+    lex = write_lex(seed)
+    sl = ("--shortlist", lex, "100", "20")
+    sents = serve_sentences(seed, SURFACE_SENTENCES)
+    cut = sents[:SURFACE_CUT]
+    all_counts = []
+
+    # the noise: bits equal on the card and the CPU, values within 1 ulp
+    coords = torch.arange(32000)[None, :]
+    lanes, steps = torch.arange(64)[:, None] * 7 + 3, torch.arange(64)[:, None]
+    cpu_bits = noise_bits(1234, lanes, steps, coords)
+    dev = torch.device("cuda")
+    bits = noise_bits(1234, lanes.to(dev), steps.to(dev), coords.to(dev))
+    check(torch.equal(bits.cpu(), cpu_bits), "noise bits differ between the "
+          "card and the CPU")
+    g_cpu = gumbel_noise(1234, lanes, steps, coords)
+    g = gumbel_noise(1234, lanes.to(dev), steps.to(dev), coords.to(dev)).cpu()
+    ulps = int((g.view(torch.int32) - g_cpu.view(torch.int32)).abs().max())
+    check(ulps <= 1, f"gumbel noise differs by {ulps} ulps card vs CPU")
+
+    # the dense search, beam 6, the shortlist (one a batch): counted, and
+    # equal to the CPU's; --word-scores sum to the raw scores
+    tr, hyps, secs, counts = decode_run("serve.npz", cut, *sl,
+                                        "--word-scores")
+    check_decode_counts(tr, counts, 1, "packed_attention")
+    all_counts.append(counts)
+    worst = 0.0
+    for h in hyps:
+        ws = [float(x) for x in h[2].split()[1:]]
+        worst = max(worst, abs(sum(ws) - float(h[3].split()[1])))
+    check(worst < 1e-3, f"word scores sum off their raw score by {worst}")
+    decode_card_vs_cpu(f"{len(cut)} sentences, serve model, --shortlist "
+                       f"100 20", "serve.npz", cut, *sl)
+    print(f"decode surface: dense beam {BEAM} with --shortlist lex.s2t 100 "
+          f"20 on {len(cut)} sentences: {secs:.3f} s, steps "
+          f"{tr.search.steps}; --word-scores sum to the raw score within "
+          f"{worst:.2g}")
+
+    # greedy (the dense search at beam 1): with the shortlist as without
+    # it; the copy head's top-1 margin over the full vocabulary (a lower
+    # bound of the shortlisted margin)
+    def dense_lines(*flags):
+        t = Translate(decoder_options("serve.npz", "--beam-size", "1",
+                                      *flags))
+        return t, t.run(sents, io.StringIO())
+    tr1, with_sl = dense_lines(*sl)
+    _, without = dense_lines()
+    check(with_sl == without, "greedy with the shortlist differs from the "
+          "full-vocabulary decode")
+    _, src, mask = source_batch(tr1, sents, tr1.device)
+    forced = torch.zeros((len(sents), max(len(r.split()) for r in with_sl)
+                          + 1), dtype=torch.long, device=tr1.device)
+    for i, r in enumerate(with_sl):
+        ids = tr1.trg_vocab.encode(r)
+        forced[i, :len(ids)] = torch.tensor(ids)
+    logits = dense_step_logits(tr1.model, tr1.params, src, mask, forced)
+    top2 = logits.topk(2, dim=-1).values
+    margin = min(float((top2[i, :len(r.split()) + 1, 0]
+                        - top2[i, :len(r.split()) + 1, 1]).min())
+                 for i, r in enumerate(with_sl))
+    print(f"decode surface: greedy with the shortlist equals the full-"
+          f"vocabulary greedy decode on {len(sents)} sentences; smallest "
+          f"top-1 margin {margin:.3f}")
+    gen = tr1.shortlist_gen
+
+    per_row_logit_times(tr1)
+
+    # iteration greedy and the fused beam (FUSED_STEPS a round, under the
+    # sync guard) with the shortlist: each reply the dense shortlisted
+    # decode of its sentence alone
+    for what, flags, beam in (
+            ("iteration greedy", serve_options(*sl, "--iteration-steps",
+                                               str(FUSED_STEPS)), 1),
+            ("fused beam", beam_serve_options(*sl, "--iteration-steps",
+                                              str(FUSED_STEPS), merge=None),
+             SERVE_BEAM)):
+        app, replies, counts = surface_serve(what, seed, sents, flags,
+                                             guard=True)
+        all_counts.append(counts)
+        engine = app.scheduler.engine
+        check(engine.features.k_static == 1024, "static K")
+        t = app.service.translator
+        for text, reply in zip(sents, replies):
+            best = dense_hyps(t, text, surface_engine_cap(engine, t, text),
+                              beam, gen,
+                              normalize=getattr(engine, "normalize", 0.0))[0]
+            check(reply == t.trg_vocab.decode(best["tokens"]),
+                  f"{what}: a shortlisted reply differs from the dense "
+                  f"shortlisted decode of its sentence")
+        print(f"decode surface: {what}: every reply equals the dense "
+              f"shortlisted decode of its sentence alone")
+
+    # force-decode: a trunk of 3 words of another sentence; request mode
+    # reads a prefix file (marian-decoder), iteration mode TAB lines
+    trunks = [" ".join(sents[(i + 1) % len(cut)].split()[:3])
+              for i in range(len(cut))]
+    (WORK / "fd.src").write_text("\n".join(cut) + "\n")
+    (WORK / "fd.pfx").write_text("\n".join(trunks) + "\n")
+    trf = Translate(decoder_options("serve.npz", "--force-decode", "--input",
+                                    str(WORK / "fd.src"),
+                                    str(WORK / "fd.pfx")))
+    out = io.StringIO()
+    trf.run(stream=out)
+    request_replies = out.getvalue().splitlines()
+    app = ServingApp(beam_serve_options("--force-decode", "--iteration-steps",
+                                        str(FUSED_STEPS), merge=None))
+    engine = app.scheduler.engine
+    iteration_replies, _, _, _, _ = serve_counted(
+        app, [f"{s}\t{p}" for s, p in zip(cut, trunks)], [], dict)
+    for text, trunk, a, b in zip(cut, trunks, request_replies,
+                                 iteration_replies):
+        forced = trf.trg_vocab.encode(trunk, add_eos=False)
+        cap = surface_engine_cap(engine, trf, text, forced)
+        best = dense_hyps(trf, text, cap, SERVE_BEAM, forced=forced,
+                          normalize=engine.normalize)[0]
+        want = trf.trg_vocab.decode(best["tokens"])
+        check(a.startswith(trunk) and b.startswith(trunk) and a == want
+              and b == want, f"force-decode: {a!r} / {b!r} against the "
+              f"dense forced decode {want!r} (trunk {trunk!r})")
+    print(f"decode surface: force-decode, request mode (prefix file) and "
+          f"iteration fused beam (TAB lines) on {len(cut)} sentences: every "
+          f"reply starts with its trunk and equals the dense forced decode")
+
+    # sampling: topk 1 is the unsampled decode; topk 10 0.8 replays at one
+    # seed (a fresh engine, a fresh search)
+    stream_app = ServingApp(serve_options())
+    plain = stream_app.scheduler.engine.decode_texts(sents)
+    app = ServingApp(serve_options("--output-sampling", "topk", "1"))
+    check(app.scheduler.engine.decode_texts(sents) == plain,
+          "iteration greedy at --output-sampling topk 1 differs from the "
+          "unsampled decode")
+    trs = Translate(decoder_options("serve.npz", "--beam-size", "1",
+                                    "--output-sampling", "topk", "1"))
+    check(trs.run(sents, io.StringIO()) == without, "the dense search at "
+          "--output-sampling topk 1 differs from the unsampled decode")
+    app = ServingApp(serve_options("--output-sampling", "topk", "10", "0.8",
+                                   "--seed", "5"))
+    runs = [app._build_engine().decode_texts(cut) for _ in range(2)]
+    trs = Translate(decoder_options("serve.npz", "--output-sampling", "topk",
+                                    "10", "0.8", "--seed", "5"))
+    dense_runs = []
+    for _ in range(2):
+        trs.search._sample_calls = 0
+        dense_runs.append(trs.run(cut, io.StringIO()))
+    check(runs[0] == runs[1] and dense_runs[0] == dense_runs[1],
+          "a sampled decode did not replay at its seed")
+    changed = sum(a != b for a, b in zip(runs[0], plain))
+    print(f"decode surface: --output-sampling topk 1 equals the unsampled "
+          f"decode (iteration greedy, {len(sents)} sentences; dense beam "
+          f"1); topk 10 0.8 at seed 5 replays (iteration greedy and dense "
+          f"beam {BEAM}, {len(cut)} sentences, {changed} differ from the "
+          f"unsampled)")
+
+    # iteration n-best (the fused beam at beam SERVE_BEAM) against request
+    # mode's n-best block of each sentence at the engine's cap
+    app = ServingApp(beam_serve_options("--n-best", "--iteration-steps",
+                                        str(FUSED_STEPS), merge=None))
+    engine = app.scheduler.engine
+    check(engine.prefix is None and engine.features.n_best, "n-best engine")
+    blocks, _, _, _, _ = serve_counted(app, cut, [], dict)
+    t = app.service.translator
+    worst = 0.0
+    for text, block in zip(cut, blocks):
+        want = engine.features.printer.line(0, dense_hyps(
+            t, text, surface_engine_cap(engine, t, text), SERVE_BEAM,
+            n_best=SERVE_BEAM, normalize=engine.normalize))
+        got_l = [l.split(" ||| ") for l in block.split("\n")]
+        want_l = [l.split(" ||| ") for l in want.split("\n")]
+        check([g[:2] for g in got_l] == [w[:2] for w in want_l],
+              f"n-best: the iteration block differs from request mode's for "
+              f"{text[:40]!r}")
+        worst = max([worst] + [abs(float(g[2].split()[1])
+                                   - float(w[2].split()[1]))
+                               for g, w in zip(got_l, want_l)])
+    check(worst <= SERVE_BEAM_SCORE_TOL, f"n-best scores differ by {worst}")
+    print(f"decode surface: iteration --n-best ({len(cut)} sentences x "
+          f"{SERVE_BEAM}) equals request mode's blocks; scores max |diff| "
+          f"{worst:.3g} (tolerance {SERVE_BEAM_SCORE_TOL})")
+
+    # one #stream:1 client: greedy partials are prefixes of the final
+    # reply, which equals the unstreamed one
+    text = "\n".join(cut[:4])
+    got = {}
+
+    async def client(port):
+        got["partials"], got["final"] = await stream_client(port, text)
+        return [got["final"]], []
+    serve_counted(stream_app, [], [], dict, traffic=client)
+    lines = got["final"].split("\n")
+    check(lines == plain[:4] and got["partials"], "the streamed reply "
+          "differs from the unstreamed one, or carried no partials")
+    for frame in got["partials"]:
+        idx, _, partial = frame.partition(" ")
+        check(lines[int(idx)].startswith(partial), f"partial {frame!r} is "
+              f"not a prefix of its final reply")
+    print(f"decode surface: #stream:1: {len(got['partials'])} partial frames, "
+          f"each a prefix of its final reply; the final reply equals the "
+          f"unstreamed one")
+    return add_counts(*all_counts)
+
+
 def write_corpus(seed: int) -> None:
     """A synthetic parallel corpus from ``seed``: random words of the
     32,000-word vocabulary, 8-63 words a line on each side."""
@@ -3703,6 +4076,8 @@ def run_phases(args, smi: str, child) -> int:
               what="fused beam serve"))
     paths["prefix serve"] = timed("prefix serve main path",
                                   phase_prefix_serve_main_path, args.seed)
+    paths["decode surface"] = timed("decode surface", phase_decode_surface,
+                                    args.seed)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
     timed("train card vs cpu", phase_train_card_vs_cpu)

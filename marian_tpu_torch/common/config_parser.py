@@ -285,6 +285,9 @@ class ConfigParser:
             log.warn("precision float16 is mapped to bfloat16 (same width, "
                      "f32 exponent range — no loss scaling needed)")
             merged["precision"] = ["bfloat16"] + list(merged["precision"][1:])
+        # bare `--output-sampling` (Marian shorthand) = full sampling, temp 1
+        if cli.get("output-sampling") == []:
+            merged["output-sampling"] = ["full"]
         for alias, (canon, vmap) in _CANONICAL.items():
             if alias in explicit and canon not in explicit:
                 val = merged[alias]

@@ -109,6 +109,9 @@ class DefaultVocab:
     def __len__(self) -> int:
         return self._size
 
+    def __getitem__(self, word: str) -> int:
+        return self._w2i.get(word, UNK_ID)
+
     @property
     def eos_id(self) -> int:
         return EOS_ID

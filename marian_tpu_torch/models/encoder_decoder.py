@@ -112,9 +112,10 @@ class EncoderDecoder:
                                          src_mask, n_pages, page_len,
                                          max_pages)
 
-    def step(self, params, state, prev_ids, src_mask, beam_src=None):
+    def step(self, params, state, prev_ids, src_mask, beam_src=None,
+             shortlist=None):
         return T.decode_step(self.cfg, params, state, prev_ids, src_mask,
-                             beam_src=beam_src)
+                             beam_src=beam_src, shortlist=shortlist)
 
 
 def create_model(options, src_vocab: int, trg_vocab: int) -> EncoderDecoder:

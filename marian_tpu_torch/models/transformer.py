@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -529,20 +529,64 @@ def _plain_output_table(cfg: TransformerConfig, params: Params):
 
 
 def output_logits(cfg: TransformerConfig, params: Params,
-                  x: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor,
+                  shortlist: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[.., D] decoder states → [.., V] f32 logits (tied embeddings: the
     table's transpose, a view, not a copy), by ``logits_matmul`` on the
-    compute-dtype operands, as the reference computes them."""
+    compute-dtype operands, as the reference computes them.
+
+    ``shortlist``: a 1-D [K] index set (one per batch) takes the K
+    columns of the table and the bias; a 2-D [R, K] one (a row's own
+    set, the paged engines') needs [R, D] states and gives [R, K]."""
     if cfg.tied_embeddings_all:
         table = params["Wemb"]
     elif cfg.tied_embeddings:
         table = params["Wemb"] if "Wemb" in params else params["decoder_Wemb"]
     else:
         table = None
-    w = table.t() if table is not None else params["decoder_ff_logit_out_W"]
-    y = logits_matmul(x, w.to(x.dtype))
     b = params.get("decoder_ff_logit_out_b")
+    if shortlist is not None and shortlist.dim() == 2:
+        return _per_row_logits(table, params, x, b, shortlist)
+    w = table.t() if table is not None else params["decoder_ff_logit_out_W"]
+    if shortlist is not None:
+        idx = shortlist.long()
+        w = table[idx].t() if table is not None else w[:, idx]
+        b = None if b is None else b[:, idx]
+    y = logits_matmul(x, w.to(x.dtype))
     return y if b is None else y + b.float()
+
+
+def per_row_gather_bytes(rows: int, k: int, vocab: int, dim: int,
+                         itemsize: int) -> Tuple[int, int]:
+    """Bytes the two forms of per-row shortlisted logits move: (the
+    gathered [R, K, D] table rows, written then read; the whole [V, D]
+    table read once plus the [R, V] f32 logits written and read)."""
+    return (2 * rows * k * dim * itemsize,
+            vocab * dim * itemsize + 2 * rows * vocab * 4)
+
+
+def _per_row_logits(table, params: Params, x: torch.Tensor, b,
+                    shortlist: torch.Tensor) -> torch.Tensor:
+    """[R, D] states → [R, K] f32 logits at each row's own K coordinates,
+    by whichever form moves fewer bytes (``per_row_gather_bytes``): the
+    reference's gathered product over [R, K, D] table rows, or the full
+    [R, V] product followed by a gather of each row's K columns."""
+    if x.dim() != 2:
+        raise ValueError("per-row [R, K] shortlist needs [R, d] "
+                         "activations (single decode position)")
+    rows_table = table if table is not None \
+        else params["decoder_ff_logit_out_W"].t()          # [V, D]
+    idx = shortlist.long()
+    r, k = idx.shape
+    gathered, full = per_row_gather_bytes(
+        r, k, rows_table.shape[0], rows_table.shape[1],
+        rows_table.element_size())
+    if gathered <= full:
+        wg = rows_table[idx].float()                        # [R, K, D]
+        y = torch.bmm(wg, x.float()[:, :, None])[:, :, 0]
+    else:
+        y = logits_matmul(x, rows_table.t().to(x.dtype)).gather(1, idx)
+    return y if b is None else y + b[0].float()[idx]
 
 
 def cross_kv(cfg: TransformerConfig, params: Params, enc_out: torch.Tensor,
@@ -624,7 +668,8 @@ def fork_paged_rows(state: Dict[str, Any], src_mask: torch.Tensor,
 
 def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
                 prev_ids: torch.Tensor, src_mask: torch.Tensor,
-                beam_src: Optional[torch.Tensor] = None):
+                beam_src: Optional[torch.Tensor] = None,
+                shortlist: Optional[torch.Tensor] = None):
     """One decode step on [B, 1] previous ids → ([B, V] logits, new state).
     ``state['pos']`` is the time index; the self-attention mask allows
     positions <= pos. ``beam_src`` [B]: pending beam backpointers for the
@@ -634,7 +679,10 @@ def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
     A paged state (``page_table`` present) carries per-row positions
     ``pos`` [B] (< 0: an idle slot) and page pools instead of the dense
     caches; each row masks at its own position (the paged kernel applies
-    that mask) and the pools are written in place."""
+    that mask) and the pools are written in place.
+
+    ``shortlist`` ([K], or [B, K] per row) restricts the logits to its
+    coordinates (``output_logits``)."""
     pos = state["pos"]
     page_table = state.get("page_table")
     we = _embed_words(cfg, params, prev_ids, "trg")
@@ -685,4 +733,4 @@ def decode_step(cfg: TransformerConfig, params: Params, state: Dict[str, Any],
         x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_ffn_ffn", params)
     x = _pre_post(cfg, cfg.postprocess_top, x, None, "decoder_top", params)
     new_state["pos"] = pos + 1
-    return output_logits(cfg, params, x[:, 0, :]), new_state
+    return output_logits(cfg, params, x[:, 0, :], shortlist), new_state

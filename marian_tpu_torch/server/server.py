@@ -2,7 +2,9 @@
 request-mode serving (the reference's default) and iteration-mode
 serving over a paged KV pool, greedy at ``--beam-size 1`` and beam
 search above it (the fused on-device merge by default, or the host
-merge), with the cross-request prefix cache (``--prefix-cache``).
+merge), with the cross-request prefix cache (``--prefix-cache``) and
+the decode surface (``--shortlist``, ``--output-sampling``,
+``--force-decode``, ``--n-best``; in request mode ``--word-scores`` too).
 
 Protocol as the reference's dependency-free transport: length-prefixed
 TCP frames ``MTPU <nbytes>\\n`` + UTF-8 payload in both directions; a
@@ -24,16 +26,32 @@ bounded admission (serving/admission.py):
   prices queue debt in sentences and in pool pages, against the free
   pages plus what the prefix cache could give back.
 
+In iteration mode the decode surface is the engines' per-row
+feature plane (translator/decode_features.py): a ``--force-decode``
+line is ``source<TAB>target-prefix`` (request mode reads it the same
+way), ``--n-best`` runs the beam engine even at beam 1 and turns the
+prefix cache off (a cached block would carry another request's sentence
+numbers), and ``--output-sampling`` turns it off too.
+
+Streaming: a request whose first header line is ``#stream:1`` gets, in
+iteration mode, one ``#partial:<sentence idx> <text so far>`` frame a
+round for each of its sentences still decoding, then its final reply
+frame. Greedy partials are prefixes of the final text; beam partials
+are the best hypothesis so far and may be revised. Request mode accepts
+the header and sends no partials.
+
 Error replies are explicit: ``!!SERVER-OVERLOADED`` (shed),
 ``!!SERVER-TIMEOUT`` (deadline), ``!!SERVER-RETRY`` (row evicted by a
 failed round or a dry pool) and ``!!SERVER-ERROR`` (bad frame, or a
 request header whose feature is not ported).
 
-Not ported yet, each refused by name at startup: the decode-feature
-flags in iteration mode (``--n-best``, ``--output-sampling``, ...), the
-dispatch watchdog (``--dispatch-stall-timeout``); and by an
-``!!SERVER-ERROR`` reply, the ``#trace:`` and ``#stream:1`` request
-headers.
+Refused by name at startup: in iteration mode ``--alignment``,
+``--word-scores`` and ``--output-approx-knn`` (``ITERATION_DECODE_SURFACE``
+gives the reasons; a decode flag with no verdict there is refused as
+UNCLASSIFIED), ``--shortlist`` with ``--force-decode`` in either mode,
+ensembles and the dispatch watchdog (``--dispatch-stall-timeout``, not
+ported yet); by an ``!!SERVER-ERROR`` reply, the ``#trace:`` request
+header (not ported yet).
 """
 
 from __future__ import annotations
@@ -64,6 +82,7 @@ _MAX_MODEL_TAG = 64
 PRIORITY_PREFIX = "#priority:"
 PRIORITY_MIN, PRIORITY_MAX = -9, 9
 STREAM_PREFIX = "#stream:"
+PARTIAL_PREFIX = "#partial:"
 
 
 def _split_header(text: str, prefix: str, parse):
@@ -142,9 +161,8 @@ def resolve_token_budget(options) -> int:
     return mb * bucket_length(ml + 1)
 
 
-# iteration mode refuses these flags by name (set = not off)
-_UNPORTED_FLAGS = ("n-best", "output-sampling", "force-decode", "shortlist",
-                   "alignment", "word-scores", "output-approx-knn")
+def _flag_set(options, flag: str) -> bool:
+    return options.get(flag, None) not in (None, False, [], "", 0)
 
 
 class ServingApp:
@@ -153,6 +171,26 @@ class ServingApp:
     mode) and admission control. ``translate_lines`` (request mode) and
     ``engine`` (iteration mode) inject what would otherwise be built from
     the options; ``device`` overrides the device the options resolve."""
+
+    # The decode-output flags iteration mode must take a position on, and
+    # that position: True = carried by the engines' feature plane, a
+    # string = why the paged path refuses it. A set flag with no entry is
+    # refused as UNCLASSIFIED, never decoded without its feature.
+    DECODE_SURFACE_FLAGS = ("n-best", "output-sampling", "force-decode",
+                            "shortlist", "alignment", "word-scores",
+                            "output-approx-knn")
+    ITERATION_DECODE_SURFACE = {
+        "n-best": True,
+        "output-sampling": True,
+        "force-decode": True,
+        "shortlist": True,
+        "alignment": "alignment output — the paged step keeps no "
+                     "per-row attention tap",
+        "word-scores": "per-word scores — the paged step keeps no "
+                       "per-token logp trail",
+        "output-approx-knn": "approximate-knn output layers — the LSH "
+                             "projection is batch-shaped, not per-row",
+    }
 
     def __init__(self, options, engine=None,
                  device: Optional[Union[str, torch.device]] = None,
@@ -199,8 +237,8 @@ class ServingApp:
                 pages_fn=self.scheduler.queued_pages)
         self.request_timeout = float(options.get("request-timeout", 0) or 0)
 
-    @staticmethod
-    def _validate_options(options) -> None:
+    @classmethod
+    def _validate_options(cls, options) -> None:
         """The option surface this slice serves; everything else fails
         loudly here, before a model loads, rather than serving something
         other than asked."""
@@ -212,13 +250,31 @@ class ServingApp:
             raise NotImplementedError(
                 "--dispatch-stall-timeout (the dispatch watchdog) is not "
                 "ported to marian_tpu_torch yet (ROADMAP A6b)")
+        if _flag_set(options, "shortlist") \
+                and _flag_set(options, "force-decode"):
+            # the dense search refuses the pair a batch, the plane at
+            # construction: caught here, before a model loads
+            raise ValueError(
+                "--shortlist together with --force-decode (forced prefix "
+                "ids are full-vocab, shortlisted logits are not)")
         if mode == "request":
             return          # the decoder refuses its own unported flags
-        for flag in _UNPORTED_FLAGS:
-            if options.get(flag, None) not in (None, False, [], "", 0):
-                raise NotImplementedError(
-                    f"--{flag} in iteration mode is not ported to "
-                    f"marian_tpu_torch yet (ROADMAP A6b)")
+        refused = []
+        for flag in cls.DECODE_SURFACE_FLAGS:
+            if not _flag_set(options, flag):
+                continue
+            verdict = cls.ITERATION_DECODE_SURFACE.get(flag)
+            if verdict is True:
+                continue
+            if not verdict:
+                verdict = ("UNCLASSIFIED decode flag — add it to "
+                           "ITERATION_DECODE_SURFACE before serving it in "
+                           "iteration mode")
+            refused.append(f"--{flag} ({verdict})")
+        if refused:
+            raise NotImplementedError(
+                "--batching-mode iteration does not support: "
+                + "; ".join(refused))
         beam = int(options.get("beam-size", 6) or 6)
         steps = int(options.get("iteration-steps", 1) or 1)
         merge = str(options.get("iteration-beam-merge", "fused") or "fused")
@@ -230,7 +286,8 @@ class ServingApp:
         if merge not in ("fused", "host"):
             problems.append(f"--iteration-beam-merge {merge!r} (choose "
                             f"'fused' or 'host')")
-        elif merge == "host" and steps > 1 and beam > 1:
+        elif merge == "host" and steps > 1 \
+                and (beam > 1 or _flag_set(options, "n-best")):
             problems.append(
                 f"--iteration-beam-merge host with --iteration-steps "
                 f"{steps}: the host merge needs the host between steps "
@@ -248,19 +305,31 @@ class ServingApp:
 
     def _build_engine(self):
         """A fresh paged engine over the loaded model: greedy at
-        --beam-size 1, the copy-on-write beam engine above it; with
-        --prefix-cache its own cache, stamped with the model path (a
-        rebuilt engine starts with an empty one)."""
+        --beam-size 1, the copy-on-write beam engine above it (and at
+        beam 1 under --n-best); the decode-feature plane of the decode
+        flags; with --prefix-cache its own cache, stamped with the model
+        path (a rebuilt engine starts with an empty one)."""
+        from ..translator.decode_features import FeaturePlane
         from ..translator.iteration import PagedDecodeEngine
         tr = self.service.translator
         opts = self.options
         ml = max(1, int(opts.get("max-length", 50) or 50))
+        plane = FeaturePlane.from_options(opts, tr.src_vocab, tr.trg_vocab)
+        if plane is not None:
+            log.info("iteration decode-feature plane: {}", plane.describe())
         prefix = None
         if opts.get("prefix-cache", False):
             from ..translator.prefix_cache import PrefixCache
             prefix = PrefixCache(
                 max_entries=int(opts.get("prefix-cache-entries", 64) or 64),
                 version=str((opts.get("models", None) or ["model"])[0]))
+            if plane is not None and plane.n_best:
+                # a cached n-best block carries the first request's
+                # sentence numbers: replayed, it would mislabel every line
+                log.info("--n-best disables the prefix cache: cached n-best "
+                         "replies would carry another request's sentence "
+                         "ids")
+                prefix = None
         kw = dict(
             max_rows=int(opts.get("iteration-rows", 32) or 32),
             page_len=int(opts.get("kv-page-len", 16) or 16),
@@ -270,9 +339,9 @@ class ServingApp:
             max_length_factor=float(
                 opts.get("max-length-factor", 3.0) or 3.0),
             steps_per_round=int(opts.get("iteration-steps", 1) or 1),
-            prefix_cache=prefix)
+            prefix_cache=prefix, features=plane)
         beam = int(opts.get("beam-size", 6) or 6)
-        if beam == 1:
+        if beam == 1 and not (plane is not None and plane.n_best):
             return PagedDecodeEngine(tr.model, tr.params, tr.src_vocab,
                                      tr.trg_vocab, **kw)
         from ..translator.beam_iteration import PagedBeamEngine
@@ -311,16 +380,22 @@ class ServingApp:
                  f"of {prefix.max_entries} entries" if prefix else "off",
                  limit, self.max_queue_pages, timeout)
 
-    async def handle_frame(self, text: str) -> str:
+    async def handle_frame(self, text: str,
+                           send_partial: Optional[Callable[[str], None]]
+                           = None) -> str:
         """One request frame in, one reply frame out: headers, admission,
-        scheduler, reply."""
+        scheduler, reply. ``send_partial`` writes a ``#stream:1``
+        request's partial frames (on the event-loop thread, in order,
+        before this returns the final reply); without it the header is
+        ignored."""
         trace_id, priority, stream, body = split_headers(text)
         if trace_id is not None:
             return ("!!SERVER-ERROR the #trace: header (request tracing) is "
                     "not ported to marian_tpu_torch yet")
-        if stream:
-            return ("!!SERVER-ERROR the #stream:1 header (partial replies) "
-                    "is not ported to marian_tpu_torch yet")
+        on_partial = None
+        if stream and send_partial is not None:
+            def on_partial(idx: int, partial: str, _ntok: int) -> None:
+                send_partial(f"{PARTIAL_PREFIX}{idx} {partial}")
         lines = body.split("\n")
         engine = self.scheduler.engine
         try:
@@ -330,7 +405,8 @@ class ServingApp:
         except Overloaded as e:
             return f"!!SERVER-OVERLOADED {e}"
         fut = self.scheduler.submit(lines, priority=priority or 0,
-                                    timeout=self.request_timeout or None)
+                                    timeout=self.request_timeout or None,
+                                    on_partial=on_partial)
         try:
             out = await fut
         except RequestTimeout as e:
@@ -401,8 +477,15 @@ def _make_tcp_handler(app: ServingApp):
                     await writer.drain()
                     break
                 payload = await _readexactly(nbytes)
+
+                def send_partial(frame: str) -> None:
+                    # one MTPU frame a partial, written before the reply
+                    # frame; the writer buffers, the reply drains it
+                    b = frame.encode("utf-8")
+                    writer.write(b"MTPU %d\n" % len(b) + b)
+
                 reply_t = asyncio.ensure_future(
-                    app.handle_frame(payload.decode("utf-8")))
+                    app.handle_frame(payload.decode("utf-8"), send_partial))
                 eof = False
                 while not reply_t.done():
                     if len(buf) >= MAX_READAHEAD:

@@ -19,7 +19,10 @@ before they cost device time. All device work runs on ONE worker thread.
   moment capacity exists. A round that raises fails its rows (retriably
   when the engine can be rebuilt, as after a pool audit failure) and
   rebuilds the engine; a beam sentence evicted on a dry pool fails
-  retriably.
+  retriably. Each join carries its sentence's index in the request (the
+  n-best numbering) and whether the request streams: the round's
+  partials (``StepResult.partials``) go to the request's ``on_partial``
+  on the event-loop thread, before its final reply.
 
 Per-request deadlines (``timeout``) fail the request on time even while
 queued; a cancelled request (client gone) has its queued units dropped
@@ -60,7 +63,7 @@ def default_length_fn(line: str) -> int:
 class _Request:
     __slots__ = ("lines", "future", "priority", "arrival", "results",
                  "remaining", "queued", "queued_pages", "timeout_handle",
-                 "dead_accounted")
+                 "dead_accounted", "on_partial")
 
     def __init__(self, lines: List[str], future: "asyncio.Future",
                  priority: int, arrival: float):
@@ -78,6 +81,8 @@ class _Request:
         # time, but its done-callbacks run via call_soon, and a join pass
         # in that gap must only uncount what the callback counted
         self.dead_accounted = False
+        # streaming: on_partial(sentence idx, text so far, tokens so far)
+        self.on_partial: Optional[Callable[[int, str, int], None]] = None
 
 
 class _Unit:
@@ -227,16 +232,23 @@ class ContinuousScheduler:
             return self._queued
 
     def submit(self, lines: List[str], priority: int = 0,
-               timeout: Optional[float] = None) -> "asyncio.Future":
+               timeout: Optional[float] = None,
+               on_partial: Optional[Callable[[int, str, int], None]] = None
+               ) -> "asyncio.Future":
         """Enqueue one request (a list of sentences); returns a future of
         the translations in input order. Event-loop thread only; cancel
-        the future to cancel the request."""
+        the future to cancel the request. ``on_partial`` (iteration
+        mode) is called as ``on_partial(sentence idx, text so far,
+        tokens so far)`` every round a sentence of the request is still
+        decoding, never after the future is done; the future stays the
+        final reply."""
         loop = asyncio.get_event_loop()
         fut = loop.create_future()
         if not lines:
             fut.set_result([])
             return fut
         req = _Request(lines, fut, priority, loop.time())
+        req.on_partial = on_partial
         with self._state_lock:
             for i, text in enumerate(lines):
                 pages = (self.engine.pages_for_text(text)
@@ -480,9 +492,13 @@ class ContinuousScheduler:
         evicts = [u for u in self._active_units if u.req.future.done()]
         self._inflight += 1
         try:
+            # per-row join meta: the sentence's index in its request
+            # (n-best numbering) and whether the request streams
             res = await loop.run_in_executor(
                 self._executor, engine.admit_and_step,
-                [(u, u.text) for u in joins], evicts)
+                [(u, u.text, {"sid": u.idx,
+                              "stream": u.req.on_partial is not None})
+                 for u in joins], evicts)
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001
@@ -520,6 +536,18 @@ class ContinuousScheduler:
                 u.req.future.set_exception(RowEvicted(
                     "row evicted: KV pool exhausted mid-decode "
                     "(copy-on-write beam divergence) — retry"))
+        # streaming fan-out: a still-decoding row of a streaming request
+        # delivers its text so far, once a round, before any final reply
+        for u, text, ntok in res.partials:
+            req = u.req
+            if req.future.done() or req.on_partial is None:
+                continue
+            self.counts["partials"] += 1
+            try:
+                req.on_partial(u.idx, text, ntok)
+            except Exception as e:  # noqa: BLE001
+                log.warn("stream partial delivery failed: {}", e)
+                req.on_partial = None     # a stream never kills rounds
         for u, text in res.finished:
             self._active_units.pop(u, None)
             self._complete_unit(u, text)

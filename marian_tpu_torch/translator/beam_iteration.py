@@ -1,8 +1,7 @@
 """Beam search at iteration level over copy-on-write pages, the port of
 ``marian_tpu/translator/beam_iteration.py`` (``PagedBeamEngine`` with the
-fused on-device merge, the default, the host merge and the prefix
-cache's replays; sampling, ``cow=False``, n-best and the decode-feature
-plane are not ported).
+fused on-device merge, the default, the host merge, the prefix cache's
+replays, ``cow=False`` and the decode-feature plane).
 
 The dense beam search (translator/beam_search.py) reorders every cache
 row every step. Here each HYPOTHESIS owns a page-table row instead, and
@@ -56,6 +55,21 @@ With a ``PrefixCache`` a finished sentence's best text is remembered
 (pageless) and an exact repeat replays it at join; the beam engine has
 no live fork, as in the reference.
 
+The decode-feature plane (``features``, translator/decode_features.py)
+rides both merges. A sentence's rows share its shortlist (the merge
+ranks in its coordinates, EOS at coordinate 0, the tokens map back
+through it; UNK is suppressed only without one) and its forced trunk
+(every token but the forced one NEG_INF, the forced one at its true
+log-prob); the fused merge uploads them once a round, [rows, K] and
+[steps, rows], and stays free of host syncs. Sampling
+(``--output-sampling``) makes every hypothesis an independent
+trajectory on its own lane from score 0, with no reorder: it runs on the
+host merge, as ``cow=False`` (the replication baseline: every child
+copies its whole history into fresh pages, bit-identical output) does.
+``--n-best`` formats the finished sentence's ranked hypotheses through
+the plane's printer, and a streaming sentence reports its best
+hypothesis so far every round.
+
 Threading and determinism as translator/iteration.py; the audit adds the
 copy-on-write invariant: every live row's write page has refcount 1.
 """
@@ -72,7 +86,8 @@ from ..models.transformer import fork_paged_rows
 from ..ops.kernels.kv_pool import (PoolExhausted, beam_table_reorder,
                                    bucket_rows, pages_for_tokens,
                                    pool_fork_partial)
-from .beam_search import NEG_INF, topk_rows
+from .beam_search import (NEG_INF, gumbel_noise, sample_pick,
+                          sampling_params, topk_rows)
 from .iteration import PagedDecodeEngine, StepResult, _Slot
 
 _LOW32 = (1 << 32) - 1
@@ -151,15 +166,16 @@ class _Hyp:
 class _Sent:
     """One decoding sentence: k hypotheses over its k claimed slots."""
 
-    __slots__ = ("key", "slots", "hyps", "t", "cap", "src_key")
+    __slots__ = ("key", "slots", "hyps", "t", "cap", "src_key", "feat")
 
-    def __init__(self, key, slots, hyps, cap, src_key):
+    def __init__(self, key, slots, hyps, cap, src_key, feat=None):
         self.key = key
         self.slots = slots
         self.hyps = hyps
         self.t = 0                  # decode steps taken (= live-row pos)
         self.cap = cap
         self.src_key = src_key      # source id tuple (the prefix-cache key)
+        self.feat = feat            # RowFeatures (decode_features.py)
 
 
 class PagedBeamEngine(PagedDecodeEngine):
@@ -169,14 +185,21 @@ class PagedBeamEngine(PagedDecodeEngine):
     ``"fused"`` (on the device, ``steps_per_round`` steps a round) or
     ``"host"`` (one step a round: ``steps_per_round`` is clamped to 1)."""
 
+    _SUPPORTS_NBEST = True
+
     def __init__(self, model, params, src_vocab, trg_vocab,
                  beam_size: int = 6, normalize: float = 0.6,
                  word_penalty: float = 0.0, allow_unk: bool = False,
-                 merge: str = "fused", **kw):
+                 cow: bool = True, merge: str = "fused", **kw):
         merge = str(merge)
         if merge not in ("fused", "host"):
             raise ValueError(f"iteration-beam-merge must be 'fused' or "
                              f"'host', got {merge!r}")
+        # the replication baseline and sampling (k trajectories that
+        # never merge: no k x k grid to fuse) run on the host merge
+        feats = kw.get("features")
+        if not cow or (feats is not None and feats.sampling):
+            merge = "host"
         if merge == "host":
             kw["steps_per_round"] = 1    # the merge needs the host a step
         # set before the base sizes the pool (_default_pool_pages)
@@ -195,6 +218,7 @@ class PagedBeamEngine(PagedDecodeEngine):
         self.normalize = float(normalize)
         self.word_penalty = float(word_penalty)
         self.allow_unk = bool(allow_unk)
+        self.cow = bool(cow)
         self._sents: Dict[object, _Sent] = {}
         # per-row device inputs; pos -1 = a row idled by a frozen
         # hypothesis (its slot stays with the sentence)
@@ -234,20 +258,17 @@ class PagedBeamEngine(PagedDecodeEngine):
 
     # -- join ---------------------------------------------------------------
     def _try_claim(self, key, text: str, joiners: List,
-                   res: StepResult) -> Optional[str]:
+                   res: StepResult, meta: Optional[dict] = None
+                   ) -> Optional[str]:
         k = self.beam_size
         detail = res.reject_detail
-        ids = self.src_vocab.encode(text, add_eos=True)
-        if len(ids) > self.src_cap:
-            detail[key] = (f"source encodes to {len(ids)} tokens but the "
-                           f"engine's source cap is {self.src_cap} (raise "
-                           f"--max-length)")
-            return "src_too_long"
-        src_key = tuple(int(i) for i in ids)
+        got = self._join_features(key, text, res, meta)
+        if isinstance(got, str):
+            return got
+        ids, src_key, cap, feat = got
         # a repeat of a finished sentence replays its remembered best
         if self._replay(key, src_key, res):
             return None
-        cap = self.decode_cap(len(ids))
         n_pages = pages_for_tokens(cap, self.page_len)
         if n_pages > self.pool.max_pages_per_row:
             detail[key] = (f"decode cap {cap} tokens needs {n_pages} KV "
@@ -279,26 +300,30 @@ class PagedBeamEngine(PagedDecodeEngine):
                                f"--kv-pool-bytes or lower --max-length)")
                 return "too_large"
             return "no_pages"
+        # sampling: every beam an independent trajectory from score 0
+        sampled = bool(self.features is not None and self.features.sampling)
         hyps = []
         for j, ((_, pages), slot) in enumerate(zip(claimed, slots)):
-            self._slots[slot] = _Slot(key, cap, expected_refs=1)
+            self._slots[slot] = _Slot(key, cap, expected_refs=1, feat=feat)
             self._slot_pos[slot] = 0
             self._slot_prev[slot] = 0
             # one live beam at t=0: the dense search's score init
-            s0 = 0.0 if j == 0 else NEG_INF
+            s0 = 0.0 if (j == 0 or sampled) else NEG_INF
             self._slot_score[slot] = s0
             hyps.append(_Hyp([], np.float32(s0), 0, False, j, slot))
             self._table[slot, :] = 0
             self._table[slot, 0] = pages[0]
         self._n_active += k
         self._by_key[key] = slots[0]
-        self._sents[key] = _Sent(key, slots, hyps, cap, src_key)
+        self._sents[key] = _Sent(key, slots, hyps, cap, src_key, feat)
         # one encoder pass a sentence (slot 0); the other rows copy its
         # cross K/V and mask after the install, so a fork never copies
         # them
         joiners.append((key, ids, slots[0]))
         if k > 1:
             self._pending_replicate.append((slots[0], slots[1:]))
+        # noise lanes a hypothesis row: the sentence's and k-1 more
+        self._row_admitted(k)
         return None
 
     def _install(self, joiners) -> None:
@@ -350,11 +375,72 @@ class PagedBeamEngine(PagedDecodeEngine):
         else:
             self._step_host(res)
 
+    def _beam_features(self, rows: int, steps: int) -> dict:
+        """The decode-surface inputs of a round over rows [0, rows),
+        uploaded once: a sentence's rows share its ``sl`` [rows, K]
+        shortlist and ``sl_len`` [rows] true width and its ``forced``
+        [steps, rows] trunk tokens (-1: free; from the sentence's t),
+        and hypothesis j rides lane ``feat.lane + j`` (``lane`` [rows,
+        1]) at its position (``ctr`` [rows, 1]). Idle rows get neutral
+        values. Empty without a plane."""
+        plane = self.features
+        if plane is None:
+            return {}
+        arrays = {}
+        if plane.shortlist_gen is not None:
+            arrays["sl"] = np.zeros((rows, plane.k_static), np.int64)
+            arrays["sl_len"] = np.full((rows,), plane.k_static, np.int64)
+        if plane.sampling:
+            arrays["lane"] = np.zeros((rows, 1), np.int64)
+            arrays["ctr"] = np.zeros((rows, 1), np.int64)
+        if plane.force_decode:
+            arrays["forced"] = np.full((steps, rows), -1, np.int64)
+        for sent in self._sents.values():
+            f = sent.feat
+            if f is None:
+                continue
+            for j, slot in enumerate(sent.slots):
+                if slot >= rows:
+                    continue
+                if "sl" in arrays and f.shortlist is not None:
+                    arrays["sl"][slot] = f.shortlist
+                    arrays["sl_len"][slot] = f.sl_len
+                if "lane" in arrays:
+                    arrays["lane"][slot, 0] = f.lane + j
+                    arrays["ctr"][slot, 0] = max(self._slot_pos[slot], 0)
+                if "forced" in arrays and f.forced:
+                    arrays["forced"][:, slot] = [f.forced_at(sent.t + i)
+                                                 for i in range(steps)]
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}
+
+    def _row_logp(self, sub, prev, src_mask, feats: dict, j: int = 0):
+        """One model step and the dense search's per-row log-probs: the
+        f32 log-softmax (past a shortlisted row's true width NEG_INF
+        first), UNK suppressed only without a shortlist, and at a forced
+        position every token but the forced one NEG_INF (the forced one
+        keeps its log-prob). Returns ([rows, W] log-probs, the
+        shortlists or None)."""
+        sl = feats.get("sl")
+        kw = {} if sl is None else {"shortlist": sl}
+        logits, _ = self.model.step(self.params, sub, prev, src_mask, **kw)
+        lp = torch.log_softmax(self._masked_logits(logits.float(), feats),
+                               dim=-1)
+        if not self.allow_unk and sl is None:
+            lp[:, UNK_ID] = NEG_INF
+        if "forced" in feats:
+            f = feats["forced"][j]
+            coords = torch.arange(lp.shape[-1], device=lp.device)
+            keep = (f < 0)[:, None] | (coords[None, :] == f[:, None])
+            lp = torch.where(keep, lp, torch.full_like(lp, NEG_INF))
+        return lp, sl
+
     def _step_host(self, res: StepResult) -> None:
         """One HOST-merge step over the occupied slot prefix: the device
-        takes each row's top k of ``score + logp``; the host merges each
-        sentence's candidates, reorders its rows over shared pages and
-        forks the diverging partial pages in one call per layer."""
+        takes each row's top k of ``score + logp`` (a sampled row: its
+        drawn token); the host merges each sentence's candidates,
+        reorders its rows over shared pages and forks the diverging
+        partial pages in one call per layer."""
         top = max(i for i, s in enumerate(self._slots) if s is not None)
         rb = bucket_rows(top + 1, self.row_buckets)
         pos_np = np.full((rb,), -1, np.int32)
@@ -370,14 +456,24 @@ class PagedBeamEngine(PagedDecodeEngine):
         sub, src_mask = self._step_state(rb)
         sub["pos"] = torch.from_numpy(pos_np).to(self.device)
         prev = torch.from_numpy(prev_np).to(self.device)
-        logits, _ = self.model.step(self.params, sub, prev, src_mask)
-        # the dense search's per-row values: f32 log-softmax, UNK
-        # suppressed, then the f32 cumulative add
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        if not self.allow_unk:
-            lp[:, UNK_ID] = NEG_INF
+        feats = self._beam_features(rb, 1)
+        lp, sl = self._row_logp(sub, prev, src_mask, feats)
         score = torch.from_numpy(score_np).to(self.device)
-        vals, idx = topk_rows(score[:, None] + lp, self.beam_size)
+        sampled = "lane" in feats
+        if sampled:
+            # k independent gumbel-max trajectories: the drawn token's
+            # true log-prob joins the path score
+            plane = self.features
+            temp, topn = sampling_params(plane.sampling)
+            coords = torch.arange(lp.shape[-1], device=self.device)
+            tok = sample_pick(lp, gumbel_noise(plane.seed, feats["lane"],
+                                               feats["ctr"], coords[None, :]),
+                              temp, topn)
+            vals = score + lp.gather(1, tok[:, None])[:, 0]
+            idx = tok if sl is None else sl.gather(1, tok[:, None])[:, 0]
+        else:
+            # the f32 cumulative add, each row's top k (coordinates)
+            vals, idx = topk_rows(score[:, None] + lp, self.beam_size)
         # the host sync of the round: the merge runs on the host
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         fork_src: List[int] = []
@@ -386,8 +482,11 @@ class PagedBeamEngine(PagedDecodeEngine):
         for key in list(self._sents):
             sent = self._sents[key]
             try:
-                done = self._merge_sentence(sent, vals, idx, fork_src,
-                                            fork_dst)
+                if sampled:
+                    done = self._merge_sentence_sampled(sent, vals, idx)
+                else:
+                    done = self._merge_sentence(sent, vals, idx, fork_src,
+                                                fork_dst)
             except PoolExhausted:
                 # a lazy claim found the pool dry: the whole sentence
                 # leaves, retriably
@@ -417,11 +516,35 @@ class PagedBeamEngine(PagedDecodeEngine):
 
     def _finish_sentences(self, res: StepResult,
                           finished: List[Tuple[_Sent, _Hyp]]) -> None:
+        """The round tail of both merges: finished sentences into
+        ``res`` (under --n-best their ranked hypotheses through the
+        plane's printer, the request-mode block), then a streaming
+        sentence's best hypothesis so far (a later round may rerank it:
+        beam partials are best-so-far, greedy ones append-only)."""
+        plane = self.features
         for sent, best in finished:
-            self._finish(res, sent.key, self._crop(best), {
-                "score": float(best.score),
-                "norm_score": float(self._norm_score(best)),
-                "length": int(best.length), "tokens": list(best.tokens)})
+            info = {"score": float(best.score),
+                    "norm_score": float(self._norm_score(best)),
+                    "length": int(best.length), "tokens": list(best.tokens)}
+            text = None
+            if plane is not None and plane.n_best:
+                norms = np.array([self._norm_score(h) for h in sent.hyps],
+                                 np.float32)
+                info["nbest"] = [
+                    {"tokens": list(h.tokens[:h.length]),
+                     "score": float(h.score),
+                     "norm_score": float(self._norm_score(h))}
+                    for h in (sent.hyps[i]
+                              for i in np.argsort(-norms, kind="stable"))]
+                text = plane.format_nbest(
+                    sent.feat.sid if sent.feat is not None else 0,
+                    info["nbest"])
+            self._finish(res, sent.key, self._crop(best), info, text)
+        for sent in self._sents.values():
+            if sent.feat is not None and sent.feat.stream:
+                res.partials.append((sent.key, self.trg_vocab.decode(
+                    self._crop(self._best_hyp(sent)), ignore_eos=True),
+                    sent.t))
 
     def _merge_sentence(self, sent: _Sent, vals, idx, fork_src: List[int],
                         fork_dst: List[int]) -> Optional[_Hyp]:
@@ -431,18 +554,25 @@ class PagedBeamEngine(PagedDecodeEngine):
         page forks. Returns the best hypothesis when the sentence
         finished (all frozen, or the cap reached)."""
         k = self.beam_size
-        vocab = len(self.trg_vocab)
+        # a shortlisted sentence's rows give coordinates: the flat
+        # tie-break ranks in them (the dense shortlisted top-k's index
+        # space, EOS at coordinate 0) and the tokens map back here
+        sl = sent.feat.shortlist if sent.feat is not None else None
+        width = self.features.k_static if sl is not None \
+            else len(self.trg_vocab)
+        eos_flat = 0 if sl is not None else EOS_ID
         cands = []
         for h in sent.hyps:
             if h.finished:
                 # the frozen {EOS: 0.0} candidate: the f32 add of 0.0
                 cands.append((np.float32(h.score),
-                              h.dense_pos * vocab + EOS_ID, EOS_ID, h))
+                              h.dense_pos * width + eos_flat, EOS_ID, h))
             else:
                 for j in range(k):
-                    tok = int(idx[h.slot, j])
+                    coord = int(idx[h.slot, j])
+                    tok = int(sl[coord]) if sl is not None else coord
                     cands.append((vals[h.slot, j],
-                                  h.dense_pos * vocab + tok, tok, h))
+                                  h.dense_pos * width + coord, tok, h))
         cands.sort(key=lambda c: (-c[0], c[1]))
         children: List[_Hyp] = []
         for dense_pos, (val, _flat, tok, parent) in enumerate(cands[:k]):
@@ -474,15 +604,19 @@ class PagedBeamEngine(PagedDecodeEngine):
                for slot in sent.slots}
         # the lowest-dense_pos child of each parent KEEPS the parent's
         # partial page; the others fork it (at a page boundary every
-        # live child starts a fresh page, and nothing is copied)
+        # live child starts a fresh page, and nothing is copied). With
+        # cow=False every child copies its parent's whole history
         keeper: Dict[int, _Hyp] = {}
         forkers: List[Tuple[_Hyp, int]] = []
         for c in live:
-            if c.slot not in keeper:
+            if self.cow and c.slot not in keeper:
                 keeper[c.slot] = c
             else:
                 forkers.append((c, c.slot))
-        n_fresh = len(forkers) if has_partial else len(live)
+        if self.cow:
+            n_fresh = len(forkers) if has_partial else len(live)
+        else:
+            n_fresh = len(live) * (n_full + 1)
         # hold every page an old row references, then claim the fresh
         # ones, so no retable below frees an alias (or a fork's copy
         # source) before its new reference lands
@@ -516,11 +650,21 @@ class PagedBeamEngine(PagedDecodeEngine):
             c.slot = sent.slots[c.dense_pos]
             new_tables[c.slot] = row
         for c, pslot in forkers:
-            row = list(old[pslot][:n_full]) + [fresh[fi]]
-            if has_partial:
-                fork_src.append(old[pslot][n_full])
-                fork_dst.append(fresh[fi])
-            fi += 1
+            if self.cow:
+                row = list(old[pslot][:n_full]) + [fresh[fi]]
+                if has_partial:
+                    fork_src.append(old[pslot][n_full])
+                    fork_dst.append(fresh[fi])
+                fi += 1
+            else:
+                # the replication baseline: a copy of every history page
+                row = []
+                for j in range(n_full + 1):
+                    row.append(fresh[fi])
+                    if j < len(old[pslot]):
+                        fork_src.append(old[pslot][j])
+                        fork_dst.append(fresh[fi])
+                    fi += 1
             c.slot = sent.slots[c.dense_pos]
             new_tables[c.slot] = row
         # retable every slot in ascending order: increfs the new rows,
@@ -540,6 +684,51 @@ class PagedBeamEngine(PagedDecodeEngine):
         for c in live:
             self._slot_prev[c.slot] = c.tokens[-1]
             self._slot_score[c.slot] = float(c.score)
+        return None
+
+    def _merge_sentence_sampled(self, sent: _Sent, vals, toks
+                                ) -> Optional[_Hyp]:
+        """A sampled step for one sentence: k independent trajectories
+        (the dense sampled search keeps ``beam_idx`` the identity), so
+        nothing reorders and nothing forks: each live row appends its
+        drawn token (``toks`` [rb], vocabulary ids) and its new path
+        score (``vals`` [rb]) to its own lineage, claiming a page at a
+        boundary. Returns the best hypothesis when the sentence
+        finished."""
+        next_pos = sent.t + 1
+        for h in sent.hyps:
+            if h.slot is None:
+                continue
+            slot = h.slot
+            tok = int(toks[slot])
+            h.tokens = h.tokens + [tok]
+            h.score = np.float32(vals[slot])
+            h.length = next_pos
+            if tok == EOS_ID:
+                h.finished = True
+                self._release_row(sent.key, slot)
+                h.slot = None
+                continue
+            owner = self._owner(sent.key, slot)
+            if next_pos % self.page_len == 0 and next_pos < sent.cap:
+                # a fresh page at the boundary (not at the cap, where the
+                # row leaves unwritten); a dry pool evicts the sentence
+                self.pool.claim_extra(owner, 1)
+                pages = self.pool.pages_of(owner)
+                self._table[slot, :] = 0
+                self._table[slot, :len(pages)] = pages
+                self._slots[slot].expected_refs = len(pages)
+            self._slots[slot].pos = next_pos
+            self._slot_pos[slot] = next_pos
+            self._slot_prev[slot] = tok
+            self._slot_score[slot] = float(h.score)
+        sent.t = next_pos
+        live = [h for h in sent.hyps if h.slot is not None]
+        if not live or next_pos >= sent.cap:
+            for h in live:
+                h.length = sent.cap
+                h.slot = None
+            return self._best_hyp(sent)
         return None
 
     def _retable_row(self, key, slot: int, row: List[int]) -> None:
@@ -630,7 +819,7 @@ class PagedBeamEngine(PagedDecodeEngine):
         lanes, toks, vals, table = self._fused_steps(
             sub, src_mask, *(torch.from_numpy(a).to(self.device) for a in (
                 prev_np, pos_np, score_np, fin_np, blk_live_np, cap_np,
-                fresh_np)))
+                fresh_np)), feats=self._beam_features(rows, steps))
         finished: List[Tuple[_Sent, _Hyp]] = []
         for key in list(self._sents):
             sent = self._sents[key]
@@ -648,7 +837,7 @@ class PagedBeamEngine(PagedDecodeEngine):
         res.steps += steps
 
     def _fused_steps(self, sub, src_mask, prev, pos, score, fin, blk_live,
-                     cap, fresh):
+                     cap, fresh, feats=None):
         """The fused round's device loop over ``rows`` = nb x k rows, with
         no host sync inside (``sync_debug`` checks it). Every committed
         step of a live sentence moves its rows to their children: parent
@@ -658,7 +847,10 @@ class PagedBeamEngine(PagedDecodeEngine):
         or its cap) stops committing, and its rows idle at ``pos`` -1, as
         frozen rows do. Returns the host copies of the per-step [steps,
         nb, k] lanes, tokens, values and the final [rows, max_pages]
-        table, from ONE device-to-host copy."""
+        table, from ONE device-to-host copy. ``feats``: the round's
+        decode-surface inputs (``_beam_features``); under a shortlist
+        the merge ranks a block's coordinates and its tokens map back
+        through the block's set on the device."""
         k, page_len = self.beam_size, self.page_len
         rows = pos.shape[0]
         nb = rows // k
@@ -677,13 +869,13 @@ class PagedBeamEngine(PagedDecodeEngine):
             for j in range(fresh.shape[0]):
                 sub["pos"] = pos
                 sub["page_table"] = table
-                logits, _ = self.model.step(self.params, sub, prev, src_mask)
-                # the host path's per-row values: f32 log-softmax, UNK
-                # suppressed; then the f32 cumulative add in the merge
-                lp = torch.log_softmax(logits.float(), dim=-1)
-                if not self.allow_unk:
-                    lp[:, UNK_ID] = NEG_INF
-                val, lane, tok = fused_merge(lp, score, fin, k, EOS_ID)
+                # the host path's per-row values; then the f32
+                # cumulative add in the merge
+                lp, sl = self._row_logp(sub, prev, src_mask, feats or {}, j)
+                val, lane, tok = fused_merge(lp, score, fin, k,
+                                             EOS_ID if sl is None else 0)
+                if sl is not None:
+                    tok = sl.view(nb, k, -1)[:, 0, :].gather(1, tok)
                 parent = blk_base[:, None] + lane
                 fin_c = fin[parent] | (tok == EOS_ID)
                 live_c = ~fin_c

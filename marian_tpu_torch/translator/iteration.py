@@ -1,7 +1,8 @@
 """Iteration-level (continuous) greedy decoding over a paged KV pool, the
 port of ``marian_tpu/translator/iteration.py`` (``PagedDecodeEngine``
-with the cross-request prefix cache, translator/prefix_cache.py; without
-the decode-feature plane, the metrics and the compile witness).
+with the cross-request prefix cache, translator/prefix_cache.py, and the
+decode-feature plane, translator/decode_features.py; without the metrics
+and the compile witness).
 
 Decode rows are SLOTS over one shared paged KV pool
 (ops/kernels/kv_pool.py):
@@ -20,7 +21,17 @@ Decode rows are SLOTS over one shared paged KV pool
 - with a ``PrefixCache`` an exact source repeat of a finished sentence
   replays its text at join (no slot), and a repeat of a sentence
   decoding now forks from it copy-on-write (``_try_fork``); a finished
-  row's pages move to the cache, which gives them back under pressure.
+  row's pages move to the cache, which gives them back under pressure;
+- with a ``FeaturePlane`` (``features``) each row carries its own
+  decode surface: a shortlist (the step's logits in the row's [K]
+  coordinates, masked past its true width before the softmax, the pick
+  mapped back to vocabulary ids on the device, since the next step
+  embeds it), a noise lane (``--output-sampling``; the prefix cache is
+  off then) and a forced trunk (``source<TAB>prefix`` lines: the trunk
+  salts the cache key, and the row's cap covers it). A join may carry a
+  third element, a dict with ``sid`` (n-best numbering) and ``stream``:
+  a streaming row reports its text so far every round
+  (``StepResult.partials``).
 
 Threading: ``admit_and_step`` runs on the serving scheduler's single
 device worker thread, and the event loop touches the engine only
@@ -54,6 +65,8 @@ from ..ops.kernels.kv_pool import (DEFAULT_PAGE_LEN, KVPool, PoolCorruption,
                                    PoolExhausted, ROW_BUCKETS, bucket_rows,
                                    pages_for_tokens, pool_fork_partial,
                                    state_key_groups)
+from .beam_search import NEG_INF, gumbel_noise, sample_pick, sampling_params
+from .decode_features import RowFeatures
 from .prefix_cache import PrefixCache
 
 # with MARIAN_POOL_AUDIT=1 every admit+step round ends with a full
@@ -81,6 +94,9 @@ class StepResult:
     # keys evicted because a lazy page claim found the pool dry (beam
     # divergence): retriable, the scheduler replies !!SERVER-RETRY
     pool_evicted: List[object] = field(default_factory=list)
+    # (key, text so far, tokens so far) of every streaming row still
+    # decoding after the round; a finishing row's text is in ``finished``
+    partials: List[Tuple[object, str, int]] = field(default_factory=list)
     rows: int = 0                 # active rows this round (before finishes)
     steps: int = 0                # decode steps the round ran
     device_s: float = 0.0         # admit+step wall time (ends in a sync)
@@ -89,9 +105,10 @@ class StepResult:
 
 class _Slot:
     __slots__ = ("key", "tokens", "pos", "cap", "prev", "expected_refs",
-                 "src_key")
+                 "src_key", "feat")
 
-    def __init__(self, key, cap: int, expected_refs: int, src_key=None):
+    def __init__(self, key, cap: int, expected_refs: int, src_key=None,
+                 feat: Optional[RowFeatures] = None):
         self.key = key
         self.tokens: List[int] = []
         self.pos = 0                # next write position
@@ -101,6 +118,7 @@ class _Slot:
         # a cold join; aliased full pages + owned tail for a fork)
         self.expected_refs = expected_refs
         self.src_key = src_key      # source id tuple (the prefix-cache key)
+        self.feat = feat            # RowFeatures (decode_features.py)
 
 
 class PagedDecodeEngine:
@@ -111,6 +129,8 @@ class PagedDecodeEngine:
     # slots one sentence holds: a beam engine's sentence holds beam-size
     # slots, an aligned block of them
     slots_per_sentence = 1
+    # n-best needs the beam engine's hypotheses
+    _SUPPORTS_NBEST = False
 
     def __init__(self, model, params, src_vocab, trg_vocab,
                  max_rows: int = 32,
@@ -121,7 +141,8 @@ class PagedDecodeEngine:
                  max_length_factor: float = 3.0,
                  row_buckets: Sequence[int] = ROW_BUCKETS,
                  steps_per_round: int = 1,
-                 prefix_cache: Optional[PrefixCache] = None):
+                 prefix_cache: Optional[PrefixCache] = None,
+                 features=None):
         cfg = model.cfg
         self.model = model
         self.params = params
@@ -175,6 +196,22 @@ class PagedDecodeEngine:
         self._by_key: Dict[object, int] = {}
         self._n_active = 0
         self._audit_always = os.environ.get(ENV_POOL_AUDIT, "") == "1"
+        # the decode-feature plane (None: the plain step)
+        self.features = features
+        if features is not None and features.n_best \
+                and not self._SUPPORTS_NBEST:
+            raise ValueError("n-best needs beam bookkeeping — the server "
+                             "routes it to PagedBeamEngine (any beam "
+                             "size)")
+        # noise lanes: each admitted row takes the next ordinal, so a
+        # replayed join schedule replays its draws
+        self._lane_ctr = 0
+        if features is not None and not features.cacheable \
+                and prefix_cache is not None:
+            log.info("iteration engine: --output-sampling disables the "
+                     "prefix cache (sampled decodes must not be replayed "
+                     "or forked)")
+            prefix_cache = None
         # cross-request prefix sharing (--prefix-cache): one cache per
         # engine, so a rebuilt engine starts with an empty one
         self.prefix = prefix_cache
@@ -264,12 +301,14 @@ class PagedDecodeEngine:
         return pages_for_tokens(self.decode_cap(n_src), self.page_len)
 
     # -- the admit + step round (one thread at a time) ----------------------
-    def admit_and_step(self, joins: Sequence[Tuple[object, str]],
+    def admit_and_step(self, joins: Sequence[tuple],
                        evicts: Sequence[object] = ()) -> StepResult:
         """Apply evictions (dead requests), admit what fits, run one
         round over the occupied slots. Never blocks on pool space: a join
         that does not fit comes back rejected (``no_slot``/``no_pages``:
-        retry later; FATAL_REASONS: fail the request)."""
+        retry later; FATAL_REASONS: fail the request). A join is ``(key,
+        text)`` or ``(key, text, meta)``, meta a dict with ``sid`` and
+        ``stream``."""
         t0 = time.perf_counter()
         res = StepResult()
         with self._on_device():
@@ -277,8 +316,10 @@ class PagedDecodeEngine:
                 self._evict(key)
             rows_before = self._n_active
             joiners: List[Tuple[object, List[int], int]] = []
-            for key, text in joins:
-                why = self._try_claim(key, text, joiners, res)
+            for j in joins:
+                key, text = j[0], j[1]
+                meta = j[2] if len(j) > 2 else None
+                why = self._try_claim(key, text, joiners, res, meta)
                 if why is None:
                     res.accepted.append(key)
                 else:
@@ -321,9 +362,18 @@ class PagedDecodeEngine:
         self.counters["replays"] += 1
         return True
 
-    def _try_claim(self, key, text: str, joiners: List,
-                   res: StepResult) -> Optional[str]:
+    def _join_features(self, key, text: str, res: StepResult,
+                       meta: Optional[dict]):
+        """The feature half of a join: (source ids, the prefix-cache key,
+        the decode cap, the row's RowFeatures or None), or a rejection
+        reason (a str) with its detail in ``res``. The plane splits off
+        a forced trunk (``source<TAB>prefix``), which salts the cache
+        key and must fit under the cap with 8 positions to go on."""
         detail = res.reject_detail
+        plane = self.features
+        forced: List[int] = []
+        if plane is not None and plane.force_decode:
+            text, forced = plane.split_forced(text, self.trg_vocab)
         ids = self.src_vocab.encode(text, add_eos=True)
         if len(ids) > self.src_cap:
             detail[key] = (f"source encodes to {len(ids)} tokens but the "
@@ -331,9 +381,44 @@ class PagedDecodeEngine:
                            f"--max-length)")
             return "src_too_long"
         src_key = tuple(int(i) for i in ids)
+        if plane is not None:
+            src_key = plane.cache_key(src_key, forced)
+        cap = self.decode_cap(len(ids))
+        if forced:
+            # the dense twin's rule: the cap covers the trunk plus 8
+            if len(forced) + 8 > self.max_length_cap:
+                detail[key] = (f"forced target prefix is {len(forced)} "
+                               f"tokens but the engine's decode cap is "
+                               f"{self.max_length_cap} (raise --max-length)")
+                return "too_large"
+            cap = min(self.max_length_cap, max(cap, len(forced) + 8))
+        stream = bool(meta.get("stream")) if meta else False
+        sid = int(meta.get("sid", 0)) if meta else 0
+        feat = None
+        if plane is not None:
+            feat = plane.row_features(ids, forced=forced,
+                                      lane=self._lane_ctr, stream=stream,
+                                      sid=sid)
+        elif stream or sid:
+            feat = RowFeatures(stream=stream, sid=sid)
+        return ids, src_key, cap, feat
+
+    def _row_admitted(self, lanes: int = 1) -> None:
+        """A row (a beam sentence: ``lanes`` rows) joined: the lane
+        allocator moves on, so a replayed join schedule replays them."""
+        if self.features is not None:
+            self._lane_ctr += lanes
+
+    def _try_claim(self, key, text: str, joiners: List,
+                   res: StepResult, meta: Optional[dict] = None
+                   ) -> Optional[str]:
+        detail = res.reject_detail
+        got = self._join_features(key, text, res, meta)
+        if isinstance(got, str):
+            return got
+        ids, src_key, cap, feat = got
         if self._replay(key, src_key, res):
             return None
-        cap = self.decode_cap(len(ids))
         n_pages = pages_for_tokens(cap, self.page_len)
         if n_pages > self.pool.max_pages_per_row:
             detail[key] = (f"decode cap {cap} tokens needs {n_pages} KV "
@@ -345,9 +430,12 @@ class PagedDecodeEngine:
         if slot is None:
             return "no_slot"
         if self.prefix is not None:
-            forked = self._try_fork(key, src_key, cap, n_pages, slot)
+            forked = self._try_fork(key, src_key, cap, n_pages, slot, feat)
             if forked is not None:
-                return None if forked else "no_pages"
+                if forked:
+                    self._row_admitted()
+                    return None
+                return "no_pages"
             self.prefix.note_miss()
         try:
             pages = self._claim_pages(key, n_pages)
@@ -362,7 +450,7 @@ class PagedDecodeEngine:
                 return "too_large"
             return "no_pages"
         self._slots[slot] = _Slot(key, cap, expected_refs=n_pages,
-                                  src_key=src_key)
+                                  src_key=src_key, feat=feat)
         self._by_key[key] = slot
         self._n_active += 1
         if self.prefix is not None:
@@ -370,6 +458,7 @@ class PagedDecodeEngine:
         self._table[slot, :] = 0
         self._table[slot, :len(pages)] = pages
         joiners.append((key, ids, slot))
+        self._row_admitted()
         return None
 
     def _claim_pages(self, owner, n: int) -> List[int]:
@@ -385,7 +474,8 @@ class PagedDecodeEngine:
             return self.pool.claim(owner, n)
 
     def _try_fork(self, key, src_key, cap: int, n_pages: int,
-                  slot: int) -> Optional[bool]:
+                  slot: int, feat: Optional[RowFeatures] = None
+                  ) -> Optional[bool]:
         """Copy-on-write fork into ``slot`` from a LIVE row with the same
         source: alias its full (append-only) pages, copy its partial page
         and its cross-attention rows (no encoder pass), resume at its
@@ -424,7 +514,7 @@ class PagedDecodeEngine:
             except PoolExhausted:
                 return False
         s = _Slot(key, cap, expected_refs=n_full + own_needed,
-                  src_key=src_key)
+                  src_key=src_key, feat=feat)
         s.tokens = list(s_l.tokens)
         s.pos = pos_l
         s.prev = s_l.prev
@@ -590,15 +680,62 @@ class PagedDecodeEngine:
         return sub, self._src_mask[:rb]
 
     def _finish(self, res: StepResult, key, tokens: List[int],
-                info: Optional[dict] = None) -> None:
-        """The round tail of a finished sentence: its text (and ``info``)
-        into ``res``, then its slots and pages freed (or handed to the
-        prefix cache with the text)."""
-        text = self.trg_vocab.decode(tokens, ignore_eos=True)
+                info: Optional[dict] = None,
+                text: Optional[str] = None) -> None:
+        """The round tail of a finished sentence: its text (``tokens``
+        decoded, or ``text``) and ``info`` into ``res``, then its slots
+        and pages freed (or handed to the prefix cache with the text)."""
+        if text is None:
+            text = self.trg_vocab.decode(tokens, ignore_eos=True)
         res.finished.append((key, text))
         if info is not None:
             res.finished_info[key] = info
         self._evict(key, adopt_text=text)
+
+    def _feature_inputs(self, rb: int, steps: int) -> dict:
+        """The rows' decode-surface inputs of a round over slots [0, rb),
+        uploaded once: ``sl`` [rb, K] shortlists and ``sl_len`` [rb] true
+        widths, ``lane`` [rb, 1] noise lanes and ``ctr`` [rb, 1] their
+        positions, ``forced`` [steps, rb] trunk tokens (-1: free). Idle
+        rows get neutral values (full width, lane 0, free); their
+        outputs are dropped. Empty without a plane."""
+        plane = self.features
+        if plane is None:
+            return {}
+        arrays = {}
+        feats = [(i, s.feat) for i, s in enumerate(self._slots[:rb])
+                 if s is not None and s.feat is not None]
+        if plane.shortlist_gen is not None:
+            sl = np.zeros((rb, plane.k_static), np.int64)
+            sl_len = np.full((rb,), plane.k_static, np.int64)
+            for i, f in feats:
+                if f.shortlist is not None:
+                    sl[i], sl_len[i] = f.shortlist, f.sl_len
+            arrays.update(sl=sl, sl_len=sl_len)
+        if plane.sampling:
+            lane = np.zeros((rb, 1), np.int64)
+            ctr = np.zeros((rb, 1), np.int64)
+            for i, f in feats:
+                lane[i, 0], ctr[i, 0] = f.lane, self._slots[i].pos
+            arrays.update(lane=lane, ctr=ctr)
+        if plane.force_decode:
+            forced = np.full((steps, rb), -1, np.int64)
+            for i, f in feats:
+                pos = self._slots[i].pos
+                forced[:, i] = [f.forced_at(pos + j) for j in range(steps)]
+            arrays["forced"] = forced
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}
+
+    def _masked_logits(self, logits: torch.Tensor, feats: dict):
+        """A shortlisted row's [K] logits with the coordinates past its
+        true width at NEG_INF (engine padding, not the dense twin's: it
+        leaves the softmax before it happens)."""
+        if "sl" not in feats:
+            return logits
+        coords = torch.arange(logits.shape[-1], device=logits.device)
+        return torch.where(coords[None, :] < feats["sl_len"][:, None],
+                           logits, torch.full_like(logits, NEG_INF))
 
     def _step(self, res: StepResult) -> None:
         """One round: steps_per_round decode steps over the occupied
@@ -616,13 +753,37 @@ class PagedDecodeEngine:
         sub, src_mask = self._step_state(rb)
         pos = torch.from_numpy(pos_np).to(self.device)
         prev = torch.from_numpy(prev_np).to(self.device)
+        feats = self._feature_inputs(rb, self.steps_per_round)
+        sl = feats.get("sl")
+        plane = self.features
+        if plane is not None and plane.sampling:
+            temp, topn = sampling_params(plane.sampling)
         toks = []
         with self._sync_guard():
-            for _ in range(self.steps_per_round):
+            for j in range(self.steps_per_round):
                 sub["pos"] = pos
+                kw = {} if sl is None else {"shortlist": sl}
                 logits, _ = self.model.step(self.params, sub, prev,
-                                            src_mask)
-                nxt = torch.argmax(logits, dim=-1)
+                                            src_mask, **kw)
+                logits = self._masked_logits(logits, feats)
+                if "lane" in feats:
+                    # gumbel-max on the row's lane at its position
+                    coords = torch.arange(logits.shape[-1],
+                                          device=logits.device)
+                    noise = gumbel_noise(plane.seed, feats["lane"],
+                                         feats["ctr"] + j, coords[None, :])
+                    nxt = sample_pick(
+                        torch.log_softmax(logits.float(), dim=-1), noise,
+                        temp, topn)
+                else:
+                    nxt = torch.argmax(logits, dim=-1)
+                if sl is not None:
+                    # coordinates to vocabulary ids on the device: the
+                    # next step embeds this token
+                    nxt = sl.gather(1, nxt[:, None])[:, 0]
+                if "forced" in feats:
+                    f = feats["forced"][j]
+                    nxt = torch.where(f >= 0, f, nxt)
                 toks.append(nxt)
                 prev = nxt[:, None]
                 pos = pos + 1
@@ -650,6 +811,12 @@ class PagedDecodeEngine:
                     break
         for s in finishes:
             self._finish(res, s.key, s.tokens)
+        # streaming rows still decoding report their text so far
+        for s in self._slots[:rb]:
+            if s is not None and s.feat is not None and s.feat.stream:
+                res.partials.append(
+                    (s.key, self.trg_vocab.decode(s.tokens, ignore_eos=True),
+                     s.pos))
         res.rows = emitted
         res.steps += toks.shape[0]
 

@@ -5,8 +5,8 @@ src/translator/output_collector.cpp, output_printer.cpp).
 Batches are length-sorted, so results arrive out of input order; the
 collector buffers them and writes them in input order. The printer
 formats single-best lines and ``--n-best`` lines
-(``idx ||| text ||| Score= raw normalized``). Alignments and word scores
-are not ported yet.
+(``idx ||| text ||| Score= raw normalized``), with a ``WordScores=``
+segment under ``--word-scores``. Alignments are not ported.
 """
 
 from __future__ import annotations
@@ -52,12 +52,30 @@ class OutputPrinter:
             tokens = list(tokens)[::-1]
         return self.vocab.decode(tokens, ignore_eos=not self.allow_special)
 
+    def _word_scores(self, h: dict) -> str:
+        """The ``WordScores=`` segment: one score an emitted token, the
+        terminating EOS included (right-left: the words re-reversed, the
+        EOS still last)."""
+        ws = h["word_scores"]
+        if self.right_left and len(ws) > 1:
+            ws = ws[-2::-1] + ws[-1:]
+        return "WordScores= " + " ".join(f"{x:.6f}" for x in ws)
+
     def line(self, sentence_id: int, nbest: List[dict]) -> str:
         """Format one sentence's result (reference: OutputPrinter::print)."""
         if not self.n_best:
-            return self._detok(nbest[0]["tokens"])
-        return "\n".join(
-            " ||| ".join([str(sentence_id), self._detok(h["tokens"]),
-                          f"{self.feature}= {h['score']:.6f}",
-                          f"{h['norm_score']:.6f}"])
-            for h in nbest)
+            h = nbest[0]
+            out = self._detok(h["tokens"])
+            if "word_scores" in h:
+                # --word-scores applies to single-best output too
+                out += " ||| " + self._word_scores(h)
+            return out
+        lines = []
+        for h in nbest:
+            parts = [str(sentence_id), self._detok(h["tokens"])]
+            if "word_scores" in h:
+                parts.append(self._word_scores(h))
+            parts += [f"{self.feature}= {h['score']:.6f}",
+                      f"{h['norm_score']:.6f}"]
+            lines.append(" ||| ".join(parts))
+        return "\n".join(lines)

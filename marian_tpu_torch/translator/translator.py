@@ -2,10 +2,17 @@
 ``marian_tpu/translator/translator.py`` (reference src/translator/
 translator.h :: Translate<BeamSearch>::run) for one model.
 
-Loads the model and vocabs, batches the input (maxi-batch length sort,
-``--mini-batch`` sentences or the ``--mini-batch-words`` token budget),
-runs the beam search batch by batch on the resolved device, and writes
-translations in input order.
+Loads the model, vocabs and ``--shortlist``, batches the input
+(maxi-batch length sort, ``--mini-batch`` sentences or the
+``--mini-batch-words`` token budget), runs the beam search batch by
+batch on the resolved device (one shortlist a batch, from the union of
+its source words), and writes translations in input order.
+
+``--force-decode`` reads two ``--input`` files, the source and one
+target prefix a line (an empty line: unconstrained), as the reference
+does; lines given to ``run`` (the request-mode server's) carry the
+prefix after a TAB, ``source<TAB>prefix``, the iteration engines' wire
+convention (translator/decode_features.py).
 """
 
 from __future__ import annotations
@@ -13,12 +20,14 @@ from __future__ import annotations
 import sys
 from typing import Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from ..common import io as mio
 from ..common import logging as log
 from ..convert import params_from_numpy
 from ..data.batching import batches, encode_lines
+from ..data.shortlist import parse_shortlist_options
 from ..data.vocab import create_vocab
 from ..device import resolve_device
 from ..models.encoder_decoder import apply_embedded_config, create_model
@@ -29,10 +38,6 @@ from .output_collector import OutputCollector, OutputPrinter
 # decoder refuses to start instead of ignoring it
 _UNPORTED = {
     "alignment": None,
-    "word-scores": False,
-    "output-sampling": [],
-    "force-decode": False,
-    "shortlist": [],
     "output-approx-knn": [],
     "weights": [],
 }
@@ -74,16 +79,63 @@ class Translate:
                                         self.model.cfg.compute_dtype)
         self.search = BeamSearch(self.model, self.params, self.options,
                                  self.device)
+        self.shortlist_gen = parse_shortlist_options(
+            self.options.get("shortlist", []), self.src_vocab,
+            self.trg_vocab)
+        self.force_decode = bool(self.options.get("force-decode", False))
         self.printer = OutputPrinter(self.options, self.trg_vocab)
         log.info("Translating on {} with {}", self.device, model_path)
 
-    def _input_lines(self) -> List[str]:
-        inputs = self.options.get("input", ["stdin"])
-        path = inputs[0] if isinstance(inputs, list) else inputs
+    def _read(self, path: str) -> List[str]:
         if path in ("stdin", "-"):
             return [l.rstrip("\n") for l in sys.stdin]
         with open(path, "r", encoding="utf-8") as fh:
             return [l.rstrip("\n") for l in fh]
+
+    def _input_lines(self) -> List[str]:
+        """The source lines of --input; under --force-decode each with
+        its prefix line from the second --input file after a TAB."""
+        inputs = self.options.get("input", ["stdin"])
+        paths = inputs if isinstance(inputs, list) else [inputs]
+        if not self.force_decode:
+            return self._read(paths[0])
+        if len(paths) != 2:
+            raise ValueError(f"model expects 2 --input files (1 source + "
+                             f"target prefix), got {len(paths)}")
+        src, pfx = self._read(paths[0]), self._read(paths[1])
+        if len(pfx) != len(src):
+            raise ValueError(
+                f"--force-decode: prefix file has {len(pfx)} lines but the "
+                f"source has {len(src)} — one (possibly empty) prefix line "
+                f"per source sentence required")
+        return [f"{s}\t{p}" for s, p in zip(src, pfx)]
+
+    def _split_prefixes(self, lines: List[str]):
+        """(source lines, per line its forced target prefix ids, encoded
+        without EOS so the hypothesis goes on past it)."""
+        srcs, prefixes = [], []
+        for line in lines:
+            src, _, pfx = line.partition("\t")
+            srcs.append(src)
+            prefixes.append(self.trg_vocab.encode(pfx, add_eos=False)
+                            if pfx.strip() else [])
+        return srcs, prefixes
+
+    def _batch_features(self, batch, prefixes):
+        """The batch's shortlist (the union of its real source ids) and
+        its [rows, P] prefix matrix (-1 pad), each None when off."""
+        shortlist = None
+        if self.shortlist_gen is not None:
+            shortlist = self.shortlist_gen.generate(
+                np.unique(batch.ids[batch.mask > 0]))
+        prefix = None
+        if prefixes is not None:
+            sids = [int(s) for s in batch.sentence_ids if s >= 0]
+            plen = max([1] + [len(prefixes[s]) for s in sids])
+            prefix = np.full((batch.ids.shape[0], plen), -1, np.int64)
+            for row, sid in enumerate(sids):
+                prefix[row, :len(prefixes[sid])] = prefixes[sid]
+        return shortlist, prefix
 
     def run(self, lines: Optional[List[str]] = None, stream=None) -> List[str]:
         """Translate ``lines`` (or --input) and write to ``stream`` (or
@@ -91,6 +143,9 @@ class Translate:
         keep = lines is not None
         if lines is None:
             lines = self._input_lines()
+        prefixes = None
+        if self.force_decode:
+            lines, prefixes = self._split_prefixes(lines)
         sents = encode_lines(lines, self.src_vocab,
                              int(self.options.get("max-length", 1000)))
         out_path = self.options.get("output", "stdout")
@@ -109,7 +164,10 @@ class Translate:
                     int(self.options.get("maxi-batch", 100) or 1),
                     str(self.options.get("maxi-batch-sort", "src")),
                     int(self.options.get("mini-batch-words", 0) or 0)):
-                nbests = self.search.search(batch.ids, batch.mask)
+                shortlist, prefix = self._batch_features(batch, prefixes)
+                nbests = self.search.search(batch.ids, batch.mask,
+                                            shortlist=shortlist,
+                                            prefix=prefix)
                 for row in range(batch.size):
                     sid = int(batch.sentence_ids[row])
                     text = self.printer.line(sid, nbests[row])

@@ -6,16 +6,19 @@ the port's io.
 - concurrent TCP clients get the replies the JAX engine's
   ``decode_texts`` gives for their lines;
 - ``--max-queue-pages`` sheds with ``!!SERVER-OVERLOADED``, an expired
-  ``--request-timeout`` replies ``!!SERVER-TIMEOUT``, the tracing and
-  streaming headers reply ``!!SERVER-ERROR``;
+  ``--request-timeout`` replies ``!!SERVER-TIMEOUT``, the tracing header
+  replies ``!!SERVER-ERROR``, and a ``#stream:1`` request's final reply
+  (after its ``#partial:`` frames) is the JAX engine's;
 - a client that disconnects mid-decode cancels its request: its row is
   evicted and its pages freed;
-- flags the port does not carry are refused by name (n-best and
-  sampling in iteration mode, the dispatch watchdog), the fused beam
-  merge (the default at beam > 1) and ``--prefix-cache`` pass the
-  option checks, the host merge with ``--iteration-steps`` > 1 at beam
-  > 1 is refused, and without a card the entry point raises unless
-  ``--cpu-threads`` asks for the CPU.
+- flags the port does not carry are refused by name (alignment, word
+  scores and approximate-knn in iteration mode, ensembles, the dispatch
+  watchdog), the fused beam merge (the default at beam > 1),
+  ``--prefix-cache`` and the decode-feature plane's flags (n-best,
+  sampling, force-decode, shortlist) pass the option checks, the host
+  merge with ``--iteration-steps`` > 1 at beam > 1 is refused, and
+  without a card the entry point raises unless ``--cpu-threads`` asks
+  for the CPU.
 """
 
 import asyncio
@@ -61,15 +64,21 @@ def server_options(model, *extra):
 
 
 async def request(port: int, text: str) -> str:
+    """One request's final reply frame (a ``#stream:1`` request's
+    ``#partial:`` frames before it are read past)."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     payload = text.encode("utf-8")
     writer.write(b"MTPU %d\n" % len(payload) + payload)
     await writer.drain()
-    header = await reader.readline()
-    assert header.startswith(b"MTPU ")
-    reply = await reader.readexactly(int(header.split()[1]))
+    while True:
+        header = await reader.readline()
+        assert header.startswith(b"MTPU ")
+        reply = (await reader.readexactly(int(header.split()[1]))).decode(
+            "utf-8")
+        if not reply.startswith(srv.PARTIAL_PREFIX):
+            break
     writer.close()
-    return reply.decode("utf-8")
+    return reply
 
 
 def serve(options, client_fn):
@@ -98,9 +107,10 @@ def test_concurrent_clients_get_the_jax_engine_replies(model):
     _, _, jm, jp = model
     jvocab = JVocab.build(WORDS)
     lines = [l for r in REQUESTS for l in r.split("\n")]
-    want = JEngine(jm, jp, jvocab, jvocab, max_rows=3, page_len=4,
-                   src_len_cap=srv.bucket_length(MAX_LENGTH + 1),
-                   max_length_cap=MAX_LENGTH).decode_texts(lines)
+    *want, want_w3 = JEngine(jm, jp, jvocab, jvocab, max_rows=3, page_len=4,
+                             src_len_cap=srv.bucket_length(MAX_LENGTH + 1),
+                             max_length_cap=MAX_LENGTH).decode_texts(
+        lines + ["w3"])
 
     async def clients(port):
         return await asyncio.gather(*[request(port, r) for r in REQUESTS],
@@ -111,7 +121,7 @@ def test_concurrent_clients_get_the_jax_engine_replies(model):
     assert "\n".join(replies).split("\n") == want
     assert prio and not prio.startswith("!!")
     assert traced.startswith("!!SERVER-ERROR") and "#trace:" in traced
-    assert streamed.startswith("!!SERVER-ERROR") and "#stream:1" in streamed
+    assert streamed == want_w3
 
 
 def test_admission_sheds_past_max_queue_pages(model):
@@ -188,11 +198,22 @@ def _flags(*flags):
      "--iteration-beam-merge", "host", "--prefix-cache"],
     ["--batching-mode", "iteration", "--beam-size", "4",
      "--iteration-steps", "4", "--prefix-cache"],
+    ["--batching-mode", "iteration", "--beam-size", "1", "--n-best"],
+    ["--batching-mode", "iteration", "--beam-size", "4",
+     "--iteration-beam-merge", "host", "--n-best"],
+    ["--batching-mode", "iteration", "--beam-size", "1",
+     "--output-sampling", "full"],
+    ["--batching-mode", "iteration", "--beam-size", "4",
+     "--iteration-steps", "4", "--shortlist", "lex.s2t", "100", "20"],
+    ["--batching-mode", "iteration", "--beam-size", "1", "--force-decode"],
+    ["--word-scores", "--shortlist", "lex.s2t", "--output-sampling",
+     "topk", "10"],
 ])
 def test_ported_flags_pass_the_option_checks(flags):
     """The fused beam merge (the default at beam > 1, at any
-    --iteration-steps) and --prefix-cache (greedy, host and fused beam)
-    pass the server's option checks."""
+    --iteration-steps), --prefix-cache (greedy, host and fused beam) and
+    the decode-feature plane (n-best, sampling, shortlist, force-decode;
+    word scores too in request mode) pass the server's option checks."""
     srv.ServingApp._validate_options(_flags(*flags))
 
 
@@ -204,12 +225,14 @@ def test_host_merge_with_multistep_rounds_is_refused():
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--batching-mode", "iteration", "--beam-size", "1", "--n-best"],
-     "--n-best"),
+    (["--batching-mode", "iteration", "--beam-size", "1", "--alignment",
+      "soft"], "--alignment"),
     (["--batching-mode", "iteration", "--beam-size", "4",
-      "--iteration-beam-merge", "host", "--n-best"], "--n-best"),
+      "--iteration-beam-merge", "host", "--word-scores"], "--word-scores"),
     (["--batching-mode", "iteration", "--beam-size", "1",
-      "--output-sampling", "full"], "--output-sampling"),
+      "--output-approx-knn", "8", "128"], "--output-approx-knn"),
+    (["--alignment", "soft"], "--alignment"),
+    (["--models", "absent.npz", "second.npz"], "ensembles"),
     (["--dispatch-stall-timeout", "5"], "--dispatch-stall-timeout"),
 ])
 def test_unported_flags_are_refused_by_name(flags, name):
