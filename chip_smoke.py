@@ -17,6 +17,16 @@ card, and drives the port's main paths on data made from --seed:
   is decoded on the card; a 2+2-layer cut trains 3 updates on the card
   and on the CPU, which must agree leaf by leaf in gradients and
   parameter changes;
+- the same training at --optimizer-delay 2 (two micro-batches of half
+  the words an update: twice the kernel launches), validated every 5
+  updates on a 64-line dev set from the seed (cross-entropy, bleu, chrf,
+  translation: the validators decode through the beam search), with
+  --keep-best and stall-driven --lr-decay: the validations fire where
+  --valid-freq says, the dev cross-entropy recomputed sentence by
+  sentence agrees, bleu and chrf equal those of Translate.run of their
+  .best checkpoints, the .best files are written where a metric
+  improved and the lr factor follows the stalls; the 2+2 cut at delay 2
+  on the card and on the CPU within the f32 limits;
 - doc-level marian-train, transformer-big: documents of 1,023-2,047
   words, 2 + 8 updates the same way, every attention through the flash
   kernels; the trained checkpoint then decodes 4 documents at beam 6
@@ -71,6 +81,14 @@ card, and drives the port's main paths on data made from --seed:
   decode and topk 10 0.8 replaying at its seed; iteration --n-best equal
   to request mode's blocks; a #stream:1 client's partials prefixes of
   its final reply; and the sampling noise equal on the card and the CPU;
+- the dispatch watchdog (--dispatch-stall-timeout) on the serve model:
+  one request's device call waits on a host event past the timeout in
+  request mode, iteration greedy and the fused beam merge (there inside
+  the round's sync-debug guard); its reply is !!SERVER-RETRY, the
+  scheduler trips once, the sync-debug mode is back to default, and 16
+  following requests are served on a fresh worker (a rebuilt engine
+  whose pool audits clean), each equal to Translate.run or the dense
+  greedy or beam decode;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
@@ -86,9 +104,11 @@ card, and drives the port's main paths on data made from --seed:
   tokens. Their CPU halves need no card: a child process of this script
   (--cpu-references) runs them while the kernels build and the kernel
   phases run, on its own copy of the same data, and the card's halves
-  are held to them later; and request mode, the host merge and the
+  are held to them later; request mode, the host merge and the
   fused merge (4 steps a round) in bf16 (64 sentences each), their
-  replies held to the bf16 dense decodes on the card.
+  replies held to the bf16 dense decodes on the card; and the decode
+  surface in bf16 on the 2+2 cut, held as the bf16 decode is (8
+  sentences shortlisted with --word-scores, and with a forced prefix).
 
 Each main path (and the bf16 doc-level cut, the bf16 flash kernels'
 path) runs with every launch count set to 0 just before it and read
@@ -109,10 +129,13 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
+import gc
 import io
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -163,6 +186,19 @@ TRAIN_FLAGS = [
     "--maxi-batch", "100", "--maxi-batch-sort", "trg", "--shuffle", "data",
     "--seed", "1111", "--transformer-dropout", "0.1", "--disp-freq", "10",
     "--quiet"]
+# the delay + validation train path: --optimizer-delay DELAY at half the
+# base path's words a micro-batch, validated every VALID_FREQ updates on
+# a held-out dev set of DEV_LINES lines from the seed through
+# DELAY_METRICS at beam BEAM (--valid-mini-batch DEV_LINES: one dev
+# batch), --keep-best, and --lr-decay 0.5 after every validation at
+# which the first metric has stalled
+DELAY, DEV_LINES, VALID_FREQ = 2, 64, 5
+DELAY_METRICS = ("cross-entropy", "bleu", "chrf", "translation")
+# the validator's dev cross-entropy against the same loss recomputed
+# sentence by sentence on the card, relative
+CE_REL_TOL = 1e-5
+# each training main path's ms/update and peak memory, by model file
+TRAIN_RUNS = {}
 # card vs CPU training (parity_readings), relative: limits set between
 # the sound port's readings and those of planted faults
 # (scripts/torch_train_parity.py; PERF.md section 6)
@@ -199,10 +235,11 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 # paths only (a row's "paths"); other rows sum it over every path.
 F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
-             "decode surface", "train", "doc train", "doc decode")
+             "decode surface", "train", "delay train", "doc train",
+             "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
               "bf16 request serve", "bf16 beam serve",
-              "bf16 fused beam serve")
+              "bf16 fused beam serve", "bf16 decode surface")
 # card vs CPU in bf16, relative, each cut its own: limits set between
 # the sound port's readings and those of planted faults
 # (scripts/torch_train_parity.py --precision bfloat16, seeds 17 and 19;
@@ -282,6 +319,10 @@ PREFIX_SENTENCES = 64
 # of the served sentences through each check, SURFACE_CUT of them
 # through the CPU and the n-best comparisons
 LEX_RANDOM, SURFACE_SENTENCES, SURFACE_CUT = 19, 24, 8
+# the dispatch watchdog phase: --dispatch-stall-timeout (seconds, well
+# above a request-mode batch of the following requests), the requests
+# served after the trip, and the longest a wedged call waits
+STALL_TIMEOUT_S, STALL_FOLLOWING, STALL_WAIT_S = 4.0, 16, 120.0
 # sentences of the bf16 cuts of the two serve paths
 SERVE_BF16 = 64
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
@@ -2893,6 +2934,235 @@ def phase_fused_beam_serve_main_path(seed: int) -> dict:
     return add_counts(*counts)
 
 
+class Wedge:
+    """A one-shot host stall on a device call: ``wrap(fn, picks)`` calls
+    ``fn``, but the first call that ``picks(*args)`` chooses waits on
+    ``release`` first (or, with ``wait_first`` False, runs with
+    ``in_round`` set, for a wrapper inside ``fn`` to wait); ``done`` is
+    set when that call has returned."""
+
+    def __init__(self):
+        self.release, self.done = threading.Event(), threading.Event()
+        self.armed = True
+        self.in_round = False
+
+    def wrap(self, fn, picks, wait_first: bool = True):
+        def call(*args):
+            if not (self.armed and picks(*args)):
+                return fn(*args)
+            self.armed = False
+            self.in_round = True
+            try:
+                if wait_first:
+                    self.release.wait(STALL_WAIT_S)
+                return fn(*args)
+            finally:
+                self.in_round = False
+                self.done.set()
+        return call
+
+    def finish(self) -> None:
+        """Release the wedged call and wait for it to return."""
+        self.release.set()
+        check(self.done.wait(STALL_WAIT_S),
+              "the abandoned device call did not return")
+
+
+def stall_traffic(app, warm: list, stall: str, following: list,
+                  on_warm=None):
+    """``app`` on a TCP listener: the ``warm`` requests (``on_warm()``
+    after them), the ``stall`` request alone, then the following
+    requests from STALL_FOLLOWING clients. Returns (the stall reply, the
+    CUDA sync-debug mode after it, the card's allocated bytes then, the
+    following replies)."""
+    from marian_tpu_torch.server.server import _make_tcp_handler
+
+    async def serve():
+        app.start()
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        try:
+            await serve_traffic(port, warm, len(warm))
+            if on_warm is not None:
+                on_warm()
+            (stalled,), _ = await serve_traffic(port, [stall], 1)
+            mode = torch.cuda.get_sync_debug_mode()
+            alloc = torch.cuda.memory_allocated()
+            replies, _ = await serve_traffic(port, following,
+                                             STALL_FOLLOWING)
+        finally:
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+        return stalled, mode, alloc, replies
+    return asyncio.run(serve())
+
+
+def engine_pool_bytes(engine) -> int:
+    """The bytes of an engine's paged KV pools (every layer, K and V)."""
+    return sum(t.numel() * t.element_size()
+               for k, t in engine._state.items() if "_pool_" in k)
+
+
+def abandoned_bytes(alloc: int) -> int:
+    """What the card freed once the abandoned engine was dropped: the
+    allocation at the trip (both engines alive) less the allocation
+    now."""
+    gc.collect()
+    return alloc - torch.cuda.memory_allocated()
+
+
+def check_stall(what: str, app, stalled: str, mode: int, replies) -> None:
+    sched = app.scheduler
+    check(stalled.startswith("!!SERVER-RETRY ")
+          and "stalled past" in stalled, f"{what}: the stalled request's "
+          f"reply {stalled[:80]!r}")
+    check(sched.counts["watchdog_trips"] == 1, f"{what}: "
+          f"{sched.counts['watchdog_trips']} watchdog trips")
+    check(mode == 0, f"{what}: sync-debug mode {mode} after the trip")
+    check(all(not r.startswith("!!") for r in replies),
+          f"{what}: a following request failed: "
+          f"{[r for r in replies if r.startswith('!!')][:2]}")
+
+
+def phase_watchdog_serve(seed: int) -> None:
+    """The dispatch watchdog (--dispatch-stall-timeout STALL_TIMEOUT_S)
+    on the serve model at full width: one request's device call is
+    wedged on a host event past the timeout, in request mode (the
+    translate call), iteration greedy (the engine round) and the fused
+    beam merge (inside the round's sync-debug guard, mode "error"). Its
+    reply is !!SERVER-RETRY, the scheduler trips once, the sync-debug
+    mode is back to default, and STALL_FOLLOWING requests are served on
+    the fresh worker, each equal to Translate.run (request mode) or the
+    dense greedy or beam decode (iteration mode, on the rebuilt engine,
+    whose pool then audits clean: its rounds run outside the guard, so a
+    mode left at "error" would fail their host syncs); the wedged call
+    is released and returns last. Each server answers two warm-up
+    requests first; the fused engine's guard is armed after them (its
+    first round stays outside, as in beam_serve_run)."""
+    from marian_tpu_torch.server.server import ServingApp
+    from marian_tpu_torch.translator.greedy import greedy_decode
+    stall = serve_sentences(seed + 9, 1)[0]
+    following = serve_sentences(seed + 10, STALL_FOLLOWING)
+    warm = serve_sentences(seed + 1, 2)
+    flag = ("--dispatch-stall-timeout", str(STALL_TIMEOUT_S))
+    lines = []
+
+    # request mode: the translate call of the stalled request's batch
+    app = ServingApp(request_options(*flag))
+    sched, tr = app.scheduler, app.service.translator
+    wedge = Wedge()
+    real = sched.translate_lines
+    sched.translate_lines = wedge.wrap(real, lambda batch: stall in batch)
+    t0 = time.perf_counter()
+    stalled, mode, _, replies = stall_traffic(app, warm, stall, following)
+    wedge.finish()
+    check_stall("request mode", app, stalled, mode, replies)
+    ref = tr.run(following, io.StringIO())
+    check(replies == ref, "request mode: replies after the trip differ from "
+          "Translate.run on the card")
+    lines.append(f"request mode (beam {tr.options.get('beam-size')}) "
+                 f"{time.perf_counter() - t0:.2f} s")
+    del app, sched, tr, real
+
+    # iteration greedy: the engine round that joins the stalled request
+    app = ServingApp(serve_options(*flag))
+    old = app.scheduler.engine
+    wedge = Wedge()
+    step = old.admit_and_step
+    old.admit_and_step = wedge.wrap(
+        step, lambda joins, evicts: any(t == stall for _, t, _ in joins))
+    t0 = time.perf_counter()
+    stalled, mode, alloc, replies = stall_traffic(app, warm, stall,
+                                                  following)
+    engine = app.scheduler.engine
+    wedge.finish()
+    check_stall("iteration greedy", app, stalled, mode, replies)
+    check(engine is not old and engine.idle() and engine.pool.free_pages()
+          == engine.pool.usable_pages and engine.audit() == [],
+          "iteration greedy: the rebuilt engine's pool after the run: "
+          f"{engine.pool.claims()}, audit {engine.audit()}")
+    tr = app.service.translator
+    ids, src, mask = source_batch(tr, following, engine.device)
+    caps = [engine.decode_cap(len(x)) for x in ids]
+    dense = greedy_decode(tr.model, tr.params, src, mask, max(caps))
+    for i, (reply, cap) in enumerate(zip(replies, caps)):
+        toks = list(dense[i, :cap])
+        toks = toks[:toks.index(0)] if 0 in toks else toks
+        check(reply == tr.trg_vocab.decode(toks), f"iteration greedy: "
+              f"reply {i} after the trip differs from the dense greedy "
+              f"decode")
+    del old, step
+    lines.append(f"iteration greedy {time.perf_counter() - t0:.2f} s, the "
+                 f"wedged engine held {abandoned_bytes(alloc) / 2**20:.1f} "
+                 f"MiB beside the rebuilt one until its round returned "
+                 f"(a pool of {engine_pool_bytes(engine) / 2**20:.1f} MiB)")
+    del app, engine, tr
+
+    # the fused beam merge: the wedge inside the round's sync guard
+    app = ServingApp(beam_serve_options("--iteration-steps",
+                                        str(FUSED_STEPS), *flag, merge=None))
+    sched = app.scheduler
+    old = sched.engine
+    wedge = Wedge()
+    guard = old._sync_guard
+    inside = []             # the mode the wedged round waited under
+
+    @contextlib.contextmanager
+    def wedged_guard():
+        with guard():
+            if wedge.in_round and not inside:
+                inside.append(torch.cuda.get_sync_debug_mode())
+                wedge.release.wait(STALL_WAIT_S)
+            yield
+    old._sync_guard = wedged_guard
+    old.admit_and_step = wedge.wrap(
+        old.admit_and_step,
+        lambda joins, evicts: any(t == stall for _, t, _ in joins),
+        wait_first=False)
+    t0 = time.perf_counter()
+    stalled, mode, alloc, replies = stall_traffic(
+        app, warm, stall, following,
+        on_warm=lambda: setattr(old, "sync_debug", "error"))
+    engine = sched.engine
+    wedge.finish()
+    check_stall("fused beam", app, stalled, mode, replies)
+    check(inside == [2], f"fused beam: the wedged round waited under "
+          f"sync-debug modes {inside}, not once under 'error' (2)")
+    check(torch.cuda.get_sync_debug_mode() == 0, "fused beam: the "
+          "abandoned guard's exit changed the sync-debug mode")
+    check(engine is not old and engine.sync_debug is None
+          and engine.idle() and engine.pool.free_pages()
+          == engine.pool.usable_pages and engine.audit() == [],
+          "fused beam: the rebuilt engine's pool after the run: "
+          f"{engine.pool.claims()}, audit {engine.audit()}")
+    tr = app.service.translator
+    caps = [engine.decode_cap(len(tr.src_vocab.encode(t)))
+            for t in following]
+    dense = dense_beam_best(tr, following, caps, engine)
+    differ = [i for i, (r, d) in enumerate(zip(replies, dense))
+              if r != tr.trg_vocab.decode(d["tokens"], ignore_eos=True)]
+    check(not differ, f"fused beam: replies {differ} after the trip differ "
+          f"from the dense beam search")
+    del old, guard, wedged_guard
+    lines.append(f"fused beam, {FUSED_STEPS} steps a round, under the sync "
+                 f"guard {time.perf_counter() - t0:.2f} s, the wedged engine "
+                 f"held {abandoned_bytes(alloc) / 2**20:.1f} MiB (a pool of "
+                 f"{engine_pool_bytes(engine) / 2**20:.1f} MiB)")
+    del app, sched, engine, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"watchdog serve: --dispatch-stall-timeout {STALL_TIMEOUT_S}, "
+          f"serve model 6+6 dim 512 vocab {VOCAB}: one request wedged past "
+          f"the timeout got !!SERVER-RETRY, 1 trip, sync-debug mode default "
+          f"after it, then {STALL_FOLLOWING} requests served on the fresh "
+          f"worker, replies equal Translate.run / the dense greedy / the "
+          f"dense beam decode, the rebuilt engines' pools empty and "
+          f"audited clean, the wedged call released and returned: "
+          + "; ".join(lines))
+
+
 def phase_fused_pressure(seed: int) -> dict:
     """The fused merge on a pool that holds its rows at their caps but not
     the rounds' worst-case preclaim: PRESSURE_ROWS slots (two sentences),
@@ -3482,15 +3752,57 @@ def doc_argv(model: str, updates: int, *extra: str):
                       str(DOC_WORDS), *extra, corpus="doc")
 
 
+def recording_validators(valid: list):
+    """A stand-in for the trainer's ``create_validators`` that wraps each
+    validator's ``validate``: every call appends to ``valid`` a dict of
+    the update, the metric, the value, its seconds and launches (the
+    card synchronized around it), and for cross-entropy a copy of the
+    parameters it validated."""
+    from marian_tpu_torch.training import train as train_mod
+    create = train_mod.create_validators
+
+    def wrapped(*args, **kw):
+        vals = create(*args, **kw)
+        for v in vals:
+            def validate(params, _v=v, _run=v.validate):
+                torch.cuda.synchronize()
+                before = read_counts()
+                t0 = time.perf_counter()
+                value = _run(params)
+                torch.cuda.synchronize()
+                after = read_counts()
+                rec = {"update": _v.training_state.batches
+                       if getattr(_v, "training_state", None) else None,
+                       "metric": _v.name, "value": value,
+                       "seconds": time.perf_counter() - t0,
+                       "counts": {k: after[k] - before[k] for k in after}}
+                if _v.name == "cross-entropy":
+                    for earlier in valid:       # only the last is kept
+                        earlier.pop("params", None)
+                    rec["params"] = {k: t.detach().clone()
+                                     for k, t in params.items()}
+                valid.append(rec)
+                return value
+            v.validate = validate
+        return vals
+    return wrapped
+
+
 def train_main_path(what: str, argv, model: str, warm: int, counted: int,
-                    per_update: dict) -> dict:
+                    per_update: dict, valid: Optional[list] = None) -> dict:
     """``warm`` updates through ``marian_train.main`` (which write the
     checkpoint), then ``counted`` updates through the trainer object
     ``main`` drives, resuming from it, with every launch count set to 0
     just before and read just after; prints the path's line and returns
-    the counts."""
+    the counts. An update may take a list of micro-batches
+    (--optimizer-delay). ``valid``: the counted run's validations are
+    recorded there (``recording_validators``), and their launches and
+    their time between the first and the last update (with what a caller
+    adds to a record's seconds, as the keep-best saves) are not the
+    updates'."""
     from marian_tpu_torch.cli import marian_train
     from marian_tpu_torch.common.config_parser import parse_options
+    from marian_tpu_torch.training import train as train_mod
     from marian_tpu_torch.training.graph_group import GraphGroup
     from marian_tpu_torch.training.train import Train
     for f in WORK.glob(f"{model}*"):
@@ -3507,33 +3819,44 @@ def train_main_path(what: str, argv, model: str, warm: int, counted: int,
     # update's start to the last update's end
     outs, clock = [], {}
     update = GraphGroup.update
+    create = train_mod.create_validators
 
-    def recorded(gg, batch, step, generator=None):
+    def recorded(gg, batches, step, *args, **kw):
         if not outs:
             torch.cuda.synchronize()
             clock["start"] = time.perf_counter()
-        out = update(gg, batch, step, generator)
-        outs.append((out.loss_sum, out.labels, batch["src_mask"].sum()))
+            clock["valid"] = len(valid or ())
+        out = update(gg, batches, step, *args, **kw)
+        group = batches if isinstance(batches, list) else [batches]
+        outs.append((out.loss_sum, out.labels,
+                     sum(b["src_mask"].sum() for b in group)))
         if len(outs) == counted:
             torch.cuda.synchronize()
             clock["end"] = time.perf_counter()
+            clock["valid_end"] = len(valid or ())
         return out
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     GraphGroup.update = recorded
+    if valid is not None:
+        train_mod.create_validators = recording_validators(valid)
     try:
         tr.run()
     finally:
         GraphGroup.update = update
+        train_mod.create_validators = create
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     updates = len(outs)
     check(updates == counted and tr.state.batches == total,
           f"counted run did {updates} updates, state at {tr.state.batches}")
-    want = {name: per_update.get(name, 0) * updates for name in counts}
+    side = {name: sum(v["counts"][name] for v in valid or ())
+            for name in counts}
+    want = {name: per_update.get(name, 0) * updates + side[name]
+            for name in counts}
     check(counts == want, f"training launches {counts}, expected {want} "
-          f"({per_update} per update)")
+          f"({per_update} per update, validations {side})")
     loss_sum, trg_tokens, src_tokens = (
         np.array([float(o[i]) for o in outs]) for i in range(3))
     costs = loss_sum / trg_tokens
@@ -3541,7 +3864,13 @@ def train_main_path(what: str, argv, model: str, warm: int, counted: int,
     params = tr.graph_group.export_params()
     check(all(bool(torch.isfinite(p).all()) for p in params.values()),
           "non-finite parameters after training")
-    secs = clock["end"] - clock["start"]
+    # validations between the first and the last update are not updates
+    secs = clock["end"] - clock["start"] - sum(
+        v["seconds"] for v in (valid or [])[clock["valid"]:
+                                            clock["valid_end"]])
+    TRAIN_RUNS[model] = {"ms": 1e3 * secs / updates, "peak_gb": peak_gb}
+    if valid is not None:
+        TRAIN_RUNS[model]["trainer"] = tr     # the validation checks' own
     print(f"train main path: {what}: warm-up {warm} updates through "
           f"marian_train.main in {warm_s:.2f} s; counted {updates} updates "
           f"in {secs:.3f} s, {1e3 * secs / updates:.2f} ms/update, "
@@ -3549,7 +3878,7 @@ def train_main_path(what: str, argv, model: str, warm: int, counted: int,
           f"{trg_tokens.sum() / secs:.1f} target tokens/s; "
           f"peak memory {peak_gb:.2f} GB; mean CE first/last "
           f"{costs[0]:.4f}/{costs[-1]:.4f}; launches {counts}, per update "
-          f"{ {k: v // updates for k, v in counts.items() if v} }")
+          f"{ {k: (v - side[k]) // updates for k, v in counts.items() if v} }")
     return counts
 
 
@@ -3572,6 +3901,179 @@ def phase_train_main_path(seed: int) -> dict:
           f"checkpoint on the card, {len(hyps)} hypotheses, best score "
           f"{scores.max():.3f}")
     return counts
+
+
+def delay_argv(model: str, updates: int, *extra: str):
+    """The delay + validation path's flags (see DELAY)."""
+    dev = [str(WORK / "dev.src"), str(WORK / "dev.trg")]
+    return train_argv(
+        model, updates, "--mini-batch-words", str(TRAIN_WORDS // DELAY),
+        "--optimizer-delay", str(DELAY), "--valid-sets", *dev,
+        "--valid-freq", f"{VALID_FREQ}u", "--valid-metrics", *DELAY_METRICS,
+        "--valid-mini-batch", str(DEV_LINES), "--beam-size", str(BEAM),
+        "--keep-best", "--lr-decay", "0.5", "--lr-decay-strategy",
+        "stalled", "--lr-decay-start", "1", *extra)
+
+
+def expected_bests(valid: list) -> dict:
+    """metric -> the updates at which it improved, by the trainer's rule
+    (the first validation always; then strictly better, epsilon 0)."""
+    best, out = {}, {}
+    for v in valid:
+        m, x = v["metric"], v["value"]
+        lower = m == "cross-entropy"
+        if m not in best or (x < best[m] if lower else x > best[m]):
+            best[m] = x
+            out.setdefault(m, []).append(v["update"])
+    return out
+
+
+def dev_ce_recomputed(gg, params, vocab) -> float:
+    """The dev set's mean cross-entropy (--cost-type ce-mean-words) from
+    ``params``, one sentence a forward on the card: other batch shapes
+    and padding than the validator's."""
+    from marian_tpu_torch.data.batch_generator import make_batch
+    from marian_tpu_torch.data.corpus import SentenceTuple
+    from marian_tpu_torch.models.encoder_decoder import batch_to_arrays
+    src = (WORK / "dev.src").read_text().splitlines()
+    trg = (WORK / "dev.trg").read_text().splitlines()
+    total = labels = 0.0
+    with torch.no_grad():
+        for i, (s, t) in enumerate(zip(src, trg)):
+            batch = make_batch([SentenceTuple(i, [vocab.encode(s),
+                                                  vocab.encode(t)])], 2)
+            _, aux = gg.model.loss(params, batch_to_arrays(batch, gg.device),
+                                   None, train=False)
+            total += float(aux["ce_sum"])
+            labels += float(aux["labels"])
+    return total / labels
+
+
+def phase_delay_train_main_path(seed: int) -> dict:
+    """The delay + validation train main path: transformer-base at
+    --optimizer-delay 2 (two micro-batches of TRAIN_WORDS / 2 words an
+    update), validated every VALID_FREQ updates on the dev set
+    (cross-entropy, bleu, chrf, translation: the packed encoder and
+    decode_attention through the port's beam search), with --keep-best
+    and stall-driven --lr-decay. Checks: twice PER_UPDATE's launches an
+    update; validations at the updates --valid-freq names, their decodes
+    through decode_attention and the packed forward; the dev
+    cross-entropy of the last validation recomputed; bleu and chrf
+    equal to corpus_bleu / corpus_chrf of Translate.run of their
+    ``.best-*`` checkpoint on the card; the ``.best-*`` files written at
+    the updates where their metric improved; the progress file's lr
+    decay factor following the stall counts."""
+    from marian_tpu_torch.data.vocab import create_vocab
+    from marian_tpu_torch.training import train as train_mod
+    from marian_tpu_torch.training.training_state import TrainingState
+    from marian_tpu_torch.translator.metrics import corpus_bleu, corpus_chrf
+    from marian_tpu_torch.translator.translator import Translate
+    rng = np.random.RandomState(seed + 21)
+    for side in ("src", "trg"):
+        write_lines(f"dev.{side}", rng.randint(8, 64, DEV_LINES), rng)
+    valid, saves = [], []
+    save = train_mod.save_checkpoint
+
+    def recorded_save(path, *args, suffix: str = "", **kw):
+        if not suffix:
+            return save(path, *args, **kw)
+        # a keep-best save is its validation's time, not the updates'
+        t0 = time.perf_counter()
+        save(path, *args, suffix=suffix, **kw)
+        valid[-1]["seconds"] += time.perf_counter() - t0
+        saves.append((valid[-1]["update"], suffix))
+    train_mod.save_checkpoint = recorded_save
+    try:
+        counts = train_main_path(
+            f"transformer-base 6+6, dim 512, ffn 2048, 8 heads, vocab "
+            f"{VOCAB}, f32, dropout 0.1, --optimizer-delay {DELAY} x "
+            f"{TRAIN_WORDS // DELAY} target words, validated every "
+            f"{VALID_FREQ} updates", delay_argv, "train_delay.npz",
+            WARM_UPDATES, COUNTED_UPDATES,
+            {k: DELAY * v for k, v in PER_UPDATE.items()}, valid)
+    finally:
+        train_mod.save_checkpoint = save
+    total = WARM_UPDATES + COUNTED_UPDATES
+    fired = sorted({v["update"] for v in valid})
+    check(fired == [u for u in range(WARM_UPDATES + 1, total + 1)
+                    if u % VALID_FREQ == 0]
+          and [v["metric"] for v in valid] == list(DELAY_METRICS)
+          * len(fired), f"validations at {fired}: "
+          f"{[(v['update'], v['metric']) for v in valid]}")
+    decodes = [v["counts"] for v in valid if v["metric"] != "cross-entropy"]
+    check(all(c["decode_attention"] > 0 and c["packed_attention"] > 0
+              for c in decodes), f"validation decodes launched {decodes}")
+    # the dev loss of the last validation, recomputed from its parameters
+    last_ce = [v for v in valid if v["metric"] == "cross-entropy"][-1]
+    vocab = create_vocab(str(WORK / "vocab.yml"))
+    tr = TRAIN_RUNS["train_delay.npz"].pop("trainer")
+    ce = dev_ce_recomputed(tr.graph_group, last_ce.pop("params"), vocab)
+    ce_err = abs(ce - last_ce["value"]) / abs(ce)
+    check(ce_err <= CE_REL_TOL, f"dev cross-entropy {last_ce['value']} "
+          f"against {ce} recomputed: {ce_err:.3g} > {CE_REL_TOL}")
+    bests = expected_bests(valid)
+    check(sorted(saves) == sorted((u, f".best-{m}") for m, us in
+                                  bests.items() for u in us),
+          f".best-* saves {saves}, improvements {bests}")
+    # the translation metrics against Translate.run of their checkpoint
+    # (the smoothed parameters each validated: --exponential-smoothing)
+    src = (WORK / "dev.src").read_text().splitlines()
+    refs = (WORK / "dev.trg").read_text().splitlines()
+    metric_checks = []
+    for m, fn in (("bleu", corpus_bleu), ("chrf", corpus_chrf)):
+        at = bests[m][-1]
+        want = [v["value"] for v in valid
+                if v["metric"] == m and v["update"] == at][0]
+        path = WORK / f"train_delay.best-{m}.ema.npz"
+        trn = Translate(decoder_options(
+            path.name, "--mini-batch", str(DEV_LINES), "--maxi-batch", "1",
+            "--max-length", "63"))
+        got = fn(trn.run(src, io.StringIO()), refs)
+        check(got == want, f"{m} {want} at update {at}, Translate.run of "
+              f"{path.name}: {got}")
+        metric_checks.append(f"{m} {got:.4f} (update {at})")
+    state = TrainingState.load(str(WORK / "train_delay.npz.progress.yml"))
+    stalls = _ce_stalls(valid)
+    factor = 0.5 ** sum(s >= 1 for s in stalls)
+    check(state.factor == factor
+          and tr.graph_group.schedule.decay_factor == factor,
+          f"lr decay factor {state.factor} (schedule "
+          f"{tr.graph_group.schedule.decay_factor}), stalls {stalls}: "
+          f"expected {factor}")
+    base = TRAIN_RUNS.get("train.npz", {})
+    n_params = sum(p.numel() for p in tr.graph_group.params.values())
+    per_val = {v["metric"]: round(v["seconds"], 3) for v in valid[-4:]}
+    print(f"delay train main path: validations at updates {fired}: "
+          + "; ".join(f"up {u}: " + ", ".join(
+              f"{v['metric']} {v['value']:.4f}" for v in valid
+              if v["update"] == u) for u in fired)
+          + f"; seconds of the last {per_val}, of all with the keep-best "
+          f"saves {sum(v['seconds'] for v in valid):.2f}; dev cross-entropy "
+          f"recomputed {ce:.6f} (relative {ce_err:.2g}, tolerance "
+          f"{CE_REL_TOL}); {', '.join(metric_checks)} equal Translate.run "
+          f"of their .best checkpoint; .best saves {sorted(saves)}; stalls "
+          f"of cross-entropy {stalls}, lr factor {state.factor}; "
+          f"ms/update {TRAIN_RUNS['train_delay.npz']['ms']:.2f} against "
+          f"the base path's {base.get('ms', float('nan')):.2f}, peak "
+          f"{TRAIN_RUNS['train_delay.npz']['peak_gb']:.2f} GB against "
+          f"{base.get('peak_gb', float('nan')):.2f} + "
+          f"{4 * n_params / 1e9:.2f} (one f32 copy of the parameters)")
+    return counts
+
+
+def _ce_stalls(valid: list) -> list:
+    """The cross-entropy validator's stall count after each validation
+    (the trainer's global count: --early-stopping-on first)."""
+    best, stalled, out = None, 0, []
+    for v in valid:
+        if v["metric"] != "cross-entropy":
+            continue
+        if best is None or v["value"] < best:
+            best, stalled = v["value"], 0
+        else:
+            stalled += 1
+        out.append(stalled)
+    return out
 
 
 def write_doc_train_corpus(seed: int) -> None:
@@ -3642,16 +4144,24 @@ def parity_setup(argv, n_batches: int, corpus: str = "train",
     return opts, len(vocab), batches, init, step_grads
 
 
-def base_parity_setup(*extra: str):
+def base_parity_setup(*extra: str, batches: int = 3):
     """The card-vs-CPU training cut of transformer-base: 2+2 layers
-    without dropout, 3 batches of about 2,048 target words and a constant
-    learning rate of 2e-4 (no warm-up), so that the 3 Adam updates move
-    every parameter by about the rate; ``extra`` flags last."""
-    return parity_setup(train_argv("cut.npz", 3, "--enc-depth", "2",
+    without dropout, ``batches`` batches of about 2,048 target words and
+    a constant learning rate of 2e-4 (no warm-up), so that the Adam
+    updates move every parameter by about the rate; ``extra`` flags
+    last."""
+    return parity_setup(train_argv("cut.npz", batches, "--enc-depth", "2",
                                    "--dec-depth", "2",
                                    "--transformer-dropout", "0",
                                    "--mini-batch-words", "2048",
-                                   "--lr-warmup", "0", *extra), 3)
+                                   "--lr-warmup", "0", *extra), batches)
+
+
+def delay_parity_setup():
+    """The base cut at --optimizer-delay 2: one update of two
+    micro-batches."""
+    return base_parity_setup("--optimizer-delay", str(DELAY),
+                             batches=DELAY)
 
 
 def doc_parity_setup(seed: int, *extra: str):
@@ -3672,8 +4182,9 @@ def doc_parity_setup(seed: int, *extra: str):
 def parity_run(opts, n_vocab: int, batches, init, step_grads,
                device: str) -> dict:
     """On ``device``, from the same initial parameters: the gradient of
-    every leaf on the first batch; 3 updates through the GraphGroup (mean
-    CE and global gradient norm of each); and the update tail alone
+    every leaf on the first batch; an update through the GraphGroup for
+    each batch, or each group of --optimizer-delay batches (mean CE and
+    global gradient norm of each); and the update tail alone
     (cost normalisation, clipping, Adam, EMA: ``finalize_update``) for 3
     steps on ``step_grads``, with each leaf's change over them. Tensors
     come back as float64 on the CPU."""
@@ -3696,7 +4207,9 @@ def parity_run(opts, n_vocab: int, batches, init, step_grads,
                                 allow_unused=True)
     grads = {k: (torch.zeros_like(gg.params[k]) if g is None else g)
              .detach().cpu().double() for k, g in zip(names, grads)}
-    outs = [gg.update(a, i + 1) for i, a in enumerate(arrays)]
+    groups = [arrays[i:i + gg.delay]
+              for i in range(0, len(arrays), gg.delay)]
+    outs = [gg.update(g, i + 1) for i, g in enumerate(groups)]
     tail = graph_group()
     for i, (batch, g) in enumerate(zip(batches, step_grads)):
         labels = torch.tensor(float(batch.words), device=dev)
@@ -3779,7 +4292,8 @@ def train_card_vs_cpu(what: str, setup, limits: dict = PARITY_LIMITS,
         else:
             res[name] = parity_run(*setup, name)
             took = f"{time.perf_counter() - t0:.2f} s"
-        print(f"train card vs cpu: {what}: {name} {n} updates, "
+        print(f"train card vs cpu: {what}: {name} "
+              f"{len(res[name]['loss'])} updates of {n} batches, "
               f"{sum(b.words for b in setup[2])} target words, and {n} steps "
               f"of the update tail: {took}; mean CE {res[name]['loss']}"
               f"; gradient norm {res[name]['norm']}")
@@ -3795,6 +4309,15 @@ def train_card_vs_cpu(what: str, setup, limits: dict = PARITY_LIMITS,
 
 def phase_train_card_vs_cpu() -> None:
     train_card_vs_cpu("2+2 cut of transformer-base", base_parity_setup())
+
+
+def phase_delay_card_vs_cpu(ref: dict) -> None:
+    """The base cut at --optimizer-delay 2 (one update of two
+    micro-batches) on the card against the CPU's run in the child
+    process, held to the unchanged f32 PARITY_LIMITS."""
+    train_card_vs_cpu(f"2+2 cut of transformer-base, --optimizer-delay "
+                      f"{DELAY}", delay_parity_setup(), PARITY_LIMITS,
+                      ref["delay"])
 
 
 def phase_doc_card_vs_cpu(seed: int) -> None:
@@ -3863,26 +4386,52 @@ def bf16_translator(name: str, model: str, *extra: str,
     return tr
 
 
-def best_hypotheses(tr, sents) -> list:
-    """``tr``'s beam decode of ``sents``: the best hypothesis of each."""
+def nbest_score(fields) -> float:
+    """The raw score of one n-best line's fields (after ``WordScores=``
+    under --word-scores)."""
+    return float(next(f for f in fields if f.startswith("Score="))
+                 .split()[1])
+
+
+def best_hypotheses(tr, sents, full: bool = False) -> list:
+    """``tr``'s beam decode of ``sents``: the best hypothesis of each
+    (``full``: its n-best fields)."""
     hyps = [[l.split(" ||| ") for l in s.splitlines()]
             for s in tr.run(sents, io.StringIO())]
-    return [max(h, key=lambda x: float(x[2].split()[1]))[1] for h in hyps]
+    best = [max(h, key=nbest_score) for h in hyps]
+    return best if full else [b[1] for b in best]
 
 
 def bf16_decode_reading(model: str, sents, *extra: str,
-                        cpu_best: list = None) -> dict:
+                        cpu_best: list = None, counts: dict = None,
+                        fields: list = None) -> dict:
     """The card's bf16 beam decode of ``sents`` (``model``, BF16_FLAGS),
     then both devices' steps on the card's best hypotheses (teacher
     forcing): {"decode": (largest |logit diff| over the largest |logit|,
     where), "identical": best hypotheses equal to the CPU's decode}.
     ``cpu_best``: the CPU's best hypotheses, decoded already by the child
-    process."""
+    process. ``counts``: the card decode's launches are added to it (the
+    counts set to 0 just before it); ``fields``: the card's best n-best
+    fields are appended to it."""
     trs, best = {}, {}
     for name in ("cuda", "cpu"):
         trs[name] = tr = bf16_translator(name, model, *extra)
-        best[name] = (cpu_best if name == "cpu" and cpu_best is not None
-                      else best_hypotheses(tr, sents))
+        if name == "cpu" and cpu_best is not None:
+            best[name] = cpu_best
+            continue
+        if name == "cuda" and counts is not None:
+            torch.cuda.synchronize()
+            reset_counts()
+        full = best_hypotheses(tr, sents, full=True)
+        if name == "cuda" and counts is not None:
+            torch.cuda.synchronize()
+            for k, v in read_counts().items():
+                counts[k] = counts.get(k, 0) + v
+        if name == "cuda" and fields is not None:
+            fields.extend(full)
+        best[name] = [f[1] for f in full]
+    # the forced decodes' lines carry their prefix after a TAB
+    sents = [s.partition("\t")[0] for s in sents]
     tokens = [trs["cuda"].trg_vocab.encode(t) for t in best["cuda"]]
     forced = torch.zeros((len(tokens), max(map(len, tokens))),
                          dtype=torch.long)
@@ -3918,8 +4467,15 @@ def cpu_references(seed: int) -> None:
     tr = bf16_translator("cpu", "base_2x2.npz", threads=CPU_REF_THREADS)
     out = {"decode_best": best_hypotheses(tr, lines[:8]),
            "decode_seconds": time.perf_counter() - t0}
+    write_lex(seed)
+    for name, (sents, extra) in surface_bf16_cases(lines).items():
+        tr = bf16_translator("cpu", "base_2x2.npz", *extra,
+                             threads=CPU_REF_THREADS)
+        out[f"surface_{name}"] = best_hypotheses(tr, sents)
+    out["decode_seconds"] = time.perf_counter() - t0
     for cut, setup in (("base", lambda: base_parity_setup(*BF16_FLAGS)),
-                       ("doc", lambda: doc_parity_setup(seed, *BF16_FLAGS))):
+                       ("doc", lambda: doc_parity_setup(seed, *BF16_FLAGS)),
+                       ("delay", delay_parity_setup)):
         args = setup()
         t0 = time.perf_counter()
         out[cut] = {"run": parity_run(*args, "cpu"),
@@ -3948,10 +4504,69 @@ def collect_cpu_references(child) -> dict:
              f"{(CPU_WORK / 'log.txt').read_text()[-3000:]}")
     ref = torch.load(CPU_WORK / "cpu_references.pt")
     print(f"cpu references (child process, {CPU_REF_THREADS} threads): bf16 "
-          f"decode of 8 sentences {ref['decode_seconds']:.2f} s, base cut "
+          f"decodes of 8 sentences (plain, shortlisted, forced) "
+          f"{ref['decode_seconds']:.2f} s, base cut "
           f"{ref['base']['seconds']:.2f} s, doc cut "
-          f"{ref['doc']['seconds']:.2f} s")
+          f"{ref['doc']['seconds']:.2f} s, f32 delay cut "
+          f"{ref['delay']['seconds']:.2f} s")
     return ref
+
+
+def surface_bf16_cases(lines) -> dict:
+    """The bf16 decode-surface readings' inputs: 8 sentences through the
+    lex table in WORK (``--shortlist lex.s2t 100 20 --word-scores``),
+    and the same sentences with one forced prefix, the first one's
+    first 3 source words, as ``source<TAB>prefix`` lines
+    (``--force-decode``; the decoder refuses the pair together)."""
+    sents = lines[:8]
+    forced = [f"{s}\t" for s in sents]
+    forced[0] += " ".join(sents[0].split()[:3])
+    return {"shortlist": (sents, ("--shortlist", str(WORK / "lex.s2t"),
+                                  "100", "20", "--word-scores")),
+            "forced": (forced, ("--force-decode",))}
+
+
+def phase_bf16_decode_surface(lines, ref: dict) -> dict:
+    """The decode surface in bf16 (``surface_bf16_cases``) on the 2+2
+    base cut at beam BEAM, each held as the bf16 decode is held
+    (bf16_decode_reading: card against the CPU's decode from the child,
+    by the step logits on the card's own tokens, PARITY_LIMITS_BF16's
+    decode limit); the word scores sum to each best hypothesis's raw
+    score, the forced sentence's best hypothesis starts with its prefix.
+    Returns the card decodes' launches (rows 1b, 2b)."""
+    counts = {}
+    limit = PARITY_LIMITS_BF16["decode"]
+    for name, (sents, extra) in surface_bf16_cases(lines).items():
+        fields = []
+        got = bf16_decode_reading("base_2x2.npz", sents, *extra,
+                                  cpu_best=ref[f"surface_{name}"],
+                                  counts=counts, fields=fields)
+        err, where = got["decode"]
+        check(err <= limit, f"bf16 {name} decode card vs cpu: {err:.3g} "
+              f"({where}) > {limit}")
+        extra_check = ""
+        if name == "shortlist":
+            gaps = [abs(sum(float(x) for x in f[2].split()[1:])
+                        - nbest_score(f)) for f in fields]
+            check(max(gaps) <= 1e-3, f"bf16 word scores against the raw "
+                  f"scores: {gaps}")
+            extra_check = (f"; word scores sum to the raw scores within "
+                           f"{max(gaps):.3g}")
+        else:
+            prefix = sents[0].partition("\t")[2]
+            check(fields[0][1].startswith(prefix), f"bf16 forced decode "
+                  f"{fields[0][1][:40]!r} does not start with {prefix!r}")
+            extra_check = f"; sentence 0 starts with its prefix {prefix!r}"
+        print(f"bf16 decode surface: {name} ({' '.join(extra)}), 8 "
+              f"sentences, 2+2 base cut, beam {BEAM}: step logits within "
+              f"{err:.3g} of the largest ({where}, limit {limit}); best "
+              f"hypotheses identical on card and CPU: {got['identical']} "
+              f"of 8{extra_check}")
+    check(counts["decode_attention"] > 0
+          and counts["packed_attention_bf16_tc"] > 0,
+          f"bf16 decode surface launches {counts}")
+    print(f"bf16 decode surface: launches {counts}")
+    return counts
 
 
 def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> dict:
@@ -4078,9 +4693,13 @@ def run_phases(args, smi: str, child) -> int:
                                   phase_prefix_serve_main_path, args.seed)
     paths["decode surface"] = timed("decode surface", phase_decode_surface,
                                     args.seed)
+    timed("watchdog serve", phase_watchdog_serve, args.seed)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
     timed("train card vs cpu", phase_train_card_vs_cpu)
+    paths["delay train"] = timed("delay train main path",
+                                 phase_delay_train_main_path, args.seed)
+    timed("delay card vs cpu", phase_delay_card_vs_cpu, cpu_ref)
     paths["doc train"] = timed("doc train main path",
                                phase_doc_train_main_path, args.seed)
     paths["doc decode"] = timed("doc decode main path",
@@ -4092,6 +4711,9 @@ def run_phases(args, smi: str, child) -> int:
                                  phase_bf16_decode_main_path, lines)
     paths["bf16 doc cut"] = timed("bf16 card vs cpu", phase_bf16_card_vs_cpu,
                                   lines, args.seed, cpu_ref)
+    paths["bf16 decode surface"] = timed("bf16 decode surface",
+                                         phase_bf16_decode_surface, lines,
+                                         cpu_ref)
     bf16_serve = dict(n=SERVE_BF16, encoder="packed_attention_bf16_tc")
     paths["bf16 request serve"] = timed(
         "bf16 request serve main path", lambda: phase_request_serve_main_path(

@@ -161,17 +161,22 @@ _TRAINING = [
     _f("mini-batch-warmup", str, "0", "Linear batch-size warmup period (not ported yet)"),
     _f("optimizer", str, "adam", "adam, adagrad, sgd"),
     _f("optimizer-params", float, [], "Optimizer hyperparameters (Adam: beta1 beta2 eps)", "*"),
-    _f("optimizer-delay", float, 1.0, "SGD update delay (gradient accumulation; 1 only here)"),
+    _f("optimizer-delay", float, 1.0, "SGD update delay (gradient accumulation): N updates or fractional"),
     _f("dispatch-window", int, 1, "Updates per dispatch (1 only here)"),
     _f("sync-sgd", bool, False, "Synchronous SGD (one device here)"),
     _f("learn-rate", float, 0.0001, "Learning rate"),
     _f("lr-report", bool, False, "Report learning rate in progress lines"),
-    _f("lr-decay", float, 0.0, "Decay factor (not ported yet)"),
+    _f("lr-decay", float, 0.0, "Decay factor: lr = lr * decay"),
+    _f("lr-decay-strategy", str, "epoch+stalled", "epoch, batches, stalled, epoch+batches, epoch+stalled"),
+    _f("lr-decay-start", int, [10, 1], "Decay start: [epoch, batches/stalled]", "+"),
+    _f("lr-decay-freq", int, 50000, "Decay frequency (strategy: batches)"),
+    _f("lr-decay-reset-optimizer", bool, False, "Reset optimizer state at LR decay"),
+    _f("lr-decay-repeat-warmup", bool, False, "Repeat warmup after decay"),
     _f("lr-decay-inv-sqrt", str, ["0"], "Inverse-sqrt decay with this warmup, e.g. 16000u", "+"),
     _f("lr-warmup", str, "0", "Linear LR warmup period"),
     _f("lr-warmup-start-rate", float, 0.0, "Warmup start LR"),
     _f("lr-warmup-cycle", bool, False, "Cyclic warmup"),
-    _f("lr-warmup-at-reload", bool, False, "Repeat warmup after checkpoint reload (not ported yet)"),
+    _f("lr-warmup-at-reload", bool, False, "Repeat warmup after checkpoint reload"),
     _f("label-smoothing", float, 0.0, "Label smoothing epsilon"),
     _f("clip-norm", float, 1.0, "Global gradient-norm clipping (0 = off)"),
     _f("exponential-smoothing", float, 0.0, "EMA decay of parameters, e.g. 1e-4 (0 = off)"),
@@ -189,8 +194,32 @@ _TRAINING = [
     _f("devices", str, ["0"], "Device ids (one device here)", "+"),
     _f("num-devices", int, 0, "Number of devices (one here)"),
     _f("mesh", str, [], "Mesh axes (not ported yet)", "*"),
-    _f("valid-sets", str, [], "Validation corpora (not ported yet)", "*"),
     _f("cpu-threads", int, 0, "Use CPU with this many threads", "?"),
+]
+
+# validation (reference: the valid group); the translation validators
+# decode with the beam-search flags below
+_VALIDATION = [
+    _f("valid-sets", str, [], "Paths to validation corpora", "*"),
+    _f("valid-freq", str, "10000u", "Validate every N"),
+    _f("valid-metrics", str, ["cross-entropy"], "cross-entropy, ce-mean-words, perplexity, bleu, bleu-detok, bleu-segmented, chrf, valid-script, translation", "+"),
+    _f("valid-reset-stalled", bool, False, "Reset stalled counts on training restart"),
+    _f("valid-reset-all", bool, False, "Reset all validation state on restart"),
+    _f("early-stopping", int, 10, "Stop after N consecutive non-improving validations"),
+    _f("early-stopping-epsilon", float, [0.0], "Minimum required improvement per metric", "+"),
+    _f("early-stopping-on", str, "first", "first, all, any of valid-metrics"),
+    _f("keep-best", bool, False, "Keep best model per metric"),
+    _f("valid-log", str, None, "Validation log file"),
+    _f("valid-max-length", int, 1000, "Max length for validation sentences"),
+    _f("valid-mini-batch", int, 32, "Validation minibatch size"),
+    _f("valid-script-path", str, None, "External validation script"),
+    _f("valid-script-args", str, [], "Args for external validation script", "*"),
+    _f("valid-translation-output", str, None, "Print validation translations to file"),
+    _f("beam-size", int, 12, "Beam size"),
+    _f("normalize", float, 0.0, "Divide score by length^alpha", "?"),
+    _f("word-penalty", float, 0.0, "Subtract penalty*length from score"),
+    _f("allow-unk", bool, False, "Allow <unk> in output"),
+    _f("max-length-factor", float, 3.0, "Max target length factor of source length while decoding"),
 ]
 
 # marian-server (reference: the serving subsystem's flags, same defaults)
@@ -200,7 +229,7 @@ _SERVER = [
     _f("request-timeout", float, 0.0, "Per-request deadline in seconds: expired requests get !!SERVER-TIMEOUT, even while queued (0 = none)"),
     _f("batch-token-budget", int, 0, "Token budget of a request-mode device batch, real rows x bucketed width (0 = mini-batch x bucketed max-length)"),
     _f("batching-mode", str, "request", "request: sentences of many requests packed into device batches by token budget, each decoded by the beam search; iteration: sentences join a running decode over a paged KV pool each round and leave the step they finish (greedy at beam 1, copy-on-write beam search above it)"),
-    _f("dispatch-stall-timeout", float, 0.0, "Request mode: liveness watchdog over one device batch (not ported yet; 0 = off)"),
+    _f("dispatch-stall-timeout", float, 0.0, "Liveness watchdog, both batching modes: a device batch or engine round still running after this many seconds fails its requests with !!SERVER-RETRY and serving moves onto a fresh device worker (0 = off; set well above the worst legitimate batch time; it cannot cancel a kernel that never returns)"),
     _f("iteration-rows", int, 32, "Iteration mode: decode slots, the most sentences decoding at once"),
     _f("iteration-steps", int, 1, "Iteration mode: decode steps per scheduling round, one host sync a round (joins possible every round; the greedy engine and the fused beam merge; the host beam merge runs 1)"),
     _f("iteration-beam-merge", str, "fused", "Iteration mode at beam > 1: where the k*k candidate merge runs; fused (on the device, --iteration-steps steps a round; a round whose worst-case page preclaim does not fit the pool runs one host step) or host (on the host, one step a round)"),
@@ -214,7 +243,8 @@ _SERVER = [
 FLAGS = _COMMON + _MODEL + _TRANSLATION
 MODES = {"translation": FLAGS,
          "server": FLAGS + _SERVER,
-         "training": _COMMON + _MODEL + _MODEL_TRAINING + _TRAINING}
+         "training": _COMMON + _MODEL + _MODEL_TRAINING + _TRAINING
+         + _VALIDATION}
 
 # mode-suffixed duplicates and synonyms → (the canonical key runtime code
 # reads, a value map or None for identity)

@@ -1,10 +1,10 @@
-"""Logging with Marian's look-and-feel, trimmed to the decoder: one
-``general`` logger on stderr (plus an optional ``--log`` file), pattern
-"[%Y-%m-%d %T] %v". stdout stays clean for translations.
-
-Copied from ``marian_tpu/common/logging.py`` without the validation
-logger; the logger lives under its own name so both packages can log in
-one process.
+"""Logging with Marian's look-and-feel, copied from
+``marian_tpu/common/logging.py``: two named loggers, ``general``
+(stderr plus an optional ``--log`` file) and ``valid`` (validation
+messages, prefixed ``[valid] ``, on stderr plus an optional
+``--valid-log`` file), pattern "[%Y-%m-%d %T] %v". stdout stays clean
+for translations. The loggers live under their own names so both
+packages can log in one process.
 """
 
 from __future__ import annotations
@@ -24,11 +24,12 @@ _LEVELS = {
 }
 
 _NAME = "marian_tpu_torch.general"
+_VALID = "marian_tpu_torch.valid"
 _initialized = False
 
 
 def create_loggers(options=None) -> None:
-    """Set up the general logger from Options (or defaults)."""
+    """Set up the general and valid loggers from Options (or defaults)."""
     global _initialized
     quiet = bool(options and options.get("quiet", False))
     if options and options.get("quiet-translation", False):
@@ -36,24 +37,29 @@ def create_loggers(options=None) -> None:
     level = _LEVELS.get(options.get("log-level", "info") if options
                         else "info", logging.INFO)
     log_file: Optional[str] = options.get("log", None) if options else None
-    fmt = logging.Formatter(fmt="[%(asctime)s] %(message)s",
-                            datefmt="%Y-%m-%d %H:%M:%S")
-    lg = logging.getLogger(_NAME)
-    lg.setLevel(level)
-    lg.propagate = False
-    for h in list(lg.handlers):
-        lg.removeHandler(h)
-        h.close()
-    if not quiet:
-        h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(fmt)
-        lg.addHandler(h)
-    if log_file:
-        fh = logging.FileHandler(log_file)
-        fh.setFormatter(fmt)
-        lg.addHandler(fh)
-    if quiet and not log_file:
-        lg.addHandler(logging.NullHandler())
+    valid_file: Optional[str] = (options.get("valid-log", None) if options
+                                 else None)
+    for name, prefix, path in ((_NAME, "", log_file),
+                               (_VALID, "[valid] ", valid_file)):
+        fmt = logging.Formatter(fmt="[%(asctime)s] " + prefix
+                                + "%(message)s",
+                                datefmt="%Y-%m-%d %H:%M:%S")
+        lg = logging.getLogger(name)
+        lg.setLevel(level)
+        lg.propagate = False
+        for h in list(lg.handlers):
+            lg.removeHandler(h)
+            h.close()
+        if not quiet:
+            h = logging.StreamHandler(sys.stderr)
+            h.setFormatter(fmt)
+            lg.addHandler(h)
+        if path:
+            fh = logging.FileHandler(path)
+            fh.setFormatter(fmt)
+            lg.addHandler(fh)
+        if quiet and not path:
+            lg.addHandler(logging.NullHandler())
     _initialized = True
 
 
@@ -64,6 +70,15 @@ def log(level: str, msg: str, *args) -> None:
     if args:
         msg = msg.format(*args)
     logging.getLogger(_NAME).log(_LEVELS.get(level, logging.INFO), msg)
+
+
+def log_valid(level: str, msg: str, *args) -> None:
+    """LOG_VALID(info, "...") equivalent: the valid logger."""
+    if not _initialized:
+        create_loggers(None)
+    if args:
+        msg = msg.format(*args)
+    logging.getLogger(_VALID).log(_LEVELS.get(level, logging.INFO), msg)
 
 
 def info(msg: str, *args) -> None:

@@ -4,8 +4,10 @@ ported from ``marian_tpu/optimizers/schedule.py``:
 
 base * min(step/warmup, 1) * sqrt(inv_sqrt / max(step, inv_sqrt))
 
-computed on the host: PyTorch runs eagerly, so the rate is a plain float
-handed to the optimizer each update.
+times the --lr-decay factor the training Scheduler sets, with the
+warmup counted from ``warmup_offset`` (--lr-warmup-at-reload,
+--lr-decay-repeat-warmup), computed on the host: PyTorch runs eagerly,
+so the rate is a plain float handed to the optimizer each update.
 """
 
 from __future__ import annotations
@@ -22,8 +24,10 @@ class LRSchedule:
     warmup: int = 0                  # in updates
     inv_sqrt: int = 0                # warmup constant for inv-sqrt decay
     warmup_start_rate: float = 0.0
-    decay_factor: float = 1.0        # multiplicative (--lr-decay; not ported)
+    decay_factor: float = 1.0        # multiplicative, set by Scheduler
     warmup_cycle: bool = False       # --lr-warmup-cycle: sawtooth warmup
+    warmup_offset: int = 0           # warmup restarts here (--lr-warmup-at-
+                                     # reload / --lr-decay-repeat-warmup)
 
     @classmethod
     def from_options(cls, options) -> "LRSchedule":
@@ -48,7 +52,7 @@ class LRSchedule:
         step = max(float(step), 1.0)
         lr = self.base_lr
         if self.warmup > 0:
-            wstep = step
+            wstep = max(step - float(self.warmup_offset), 1.0)
             if self.warmup_cycle:
                 wstep = math.fmod(wstep - 1.0, float(self.warmup)) + 1.0
             frac = min(wstep / float(self.warmup), 1.0)

@@ -42,21 +42,31 @@ the header and sends no partials.
 
 Error replies are explicit: ``!!SERVER-OVERLOADED`` (shed),
 ``!!SERVER-TIMEOUT`` (deadline), ``!!SERVER-RETRY`` (row evicted by a
-failed round or a dry pool) and ``!!SERVER-ERROR`` (bad frame, or a
-request header whose feature is not ported).
+failed round or a dry pool, or a device batch or round failed by the
+dispatch watchdog) and ``!!SERVER-ERROR`` (bad frame, or a request
+header whose feature is not ported).
+
+``--dispatch-stall-timeout S`` (both modes) arms the scheduler's
+dispatch watchdog: a device batch or engine round still running after S
+seconds fails its requests with ``!!SERVER-RETRY`` and serving goes on
+on a fresh worker thread (iteration mode on a rebuilt engine, whose KV
+pool is allocated beside the wedged round's until that round returns).
+It guards host-side stalls and overlong batches; a kernel that never
+returns cannot be cancelled, and later work on its CUDA stream queues
+behind it, so the watchdog does not revive a hung card.
 
 Refused by name at startup: in iteration mode ``--alignment``,
 ``--word-scores`` and ``--output-approx-knn`` (``ITERATION_DECODE_SURFACE``
 gives the reasons; a decode flag with no verdict there is refused as
 UNCLASSIFIED), ``--shortlist`` with ``--force-decode`` in either mode,
-ensembles and the dispatch watchdog (``--dispatch-stall-timeout``, not
-ported yet); by an ``!!SERVER-ERROR`` reply, the ``#trace:`` request
+and ensembles; by an ``!!SERVER-ERROR`` reply, the ``#trace:`` request
 header (not ported yet).
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import io
 from typing import Callable, List, Optional, Tuple, Union
 
@@ -65,7 +75,8 @@ import torch
 from ..common import logging as log
 from ..data.batching import bucket_length
 from ..serving.admission import AdmissionController, Overloaded
-from ..serving.scheduler import ContinuousScheduler, RequestTimeout, RowEvicted
+from ..serving.scheduler import (ContinuousScheduler, DispatchStalled,
+                                 RequestTimeout, RowEvicted)
 
 # graceful-drain budget on shutdown
 DRAIN_TIMEOUT_S = 30.0
@@ -139,8 +150,13 @@ class TranslationService:
 
     def translate_lines(self, lines: List[str]) -> List[str]:
         """One device batch of ``lines`` through ``Translate.run``, one
-        translation a line."""
-        got = self.translator.run(lines=lines, stream=io.StringIO())
+        translation a line. The current CUDA device is per thread, and a
+        watchdog trip moves the calls onto a fresh worker thread: the
+        model's card is made current for each call."""
+        dev = self.translator.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            got = self.translator.run(lines=lines, stream=io.StringIO())
         if len(got) != len(lines):
             # the batched reply slicing relies on one entry a line: a
             # mismatch would route one client's text to another
@@ -200,6 +216,7 @@ class ServingApp:
         self._validate_options(options)
         self.batching_mode = str(options.get("batching-mode", "request"))
         self.service: Optional[TranslationService] = None
+        stall = float(options.get("dispatch-stall-timeout", 0) or 0)
         budget = resolve_token_budget(options)
         max_queue = int(options.get("max-queue", 512) or 0)
         if self.batching_mode == "request":
@@ -216,7 +233,7 @@ class ServingApp:
             self.max_queue_pages = 0
             self.scheduler = ContinuousScheduler(
                 translate_lines, token_budget=budget,
-                batching_mode="request")
+                batching_mode="request", stall_timeout=stall)
             # request mode bounds queued sentences only: no pool
             self.admission = AdmissionController(
                 max_queue, self.scheduler.queued_units)
@@ -230,7 +247,8 @@ class ServingApp:
                 or 4 * engine.pool.usable_pages
             self.scheduler = ContinuousScheduler(
                 batching_mode="iteration", engine=engine,
-                engine_factory=self._build_engine if self.service else None)
+                engine_factory=self._build_engine if self.service else None,
+                stall_timeout=stall)
             self.admission = AdmissionController(
                 max_queue, self.scheduler.queued_units,
                 max_queue_pages=self.max_queue_pages,
@@ -246,10 +264,6 @@ class ServingApp:
         if mode not in ("request", "iteration"):
             raise ValueError(f"--batching-mode must be request or "
                              f"iteration, got {mode!r}")
-        if float(options.get("dispatch-stall-timeout", 0) or 0) > 0:
-            raise NotImplementedError(
-                "--dispatch-stall-timeout (the dispatch watchdog) is not "
-                "ported to marian_tpu_torch yet (ROADMAP A6b)")
         if _flag_set(options, "shortlist") \
                 and _flag_set(options, "force-decode"):
             # the dense search refuses the pair a batch, the plane at
@@ -411,7 +425,7 @@ class ServingApp:
             out = await fut
         except RequestTimeout as e:
             return f"!!SERVER-TIMEOUT {e}"
-        except RowEvicted as e:
+        except (RowEvicted, DispatchStalled) as e:
             return f"!!SERVER-RETRY {e}"
         except asyncio.CancelledError:
             raise

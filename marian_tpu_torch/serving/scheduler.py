@@ -1,6 +1,6 @@
 """The serving scheduler, ported from ``marian_tpu/serving/scheduler.py``
-:: ``ContinuousScheduler`` (without the spans, quiesce, brownout,
-watchdog, fleet and metrics planes), in both batching modes.
+:: ``ContinuousScheduler`` (without the spans, quiesce, brownout, fleet
+and metrics planes), in both batching modes.
 
 Requests split into SENTENCE UNITS in priority lanes (highest first,
 FIFO within a lane); units of requests already resolved are swept
@@ -27,6 +27,16 @@ before they cost device time. All device work runs on ONE worker thread.
 Per-request deadlines (``timeout``) fail the request on time even while
 queued; a cancelled request (client gone) has its queued units dropped
 and, in iteration mode, its decoding rows evicted at the next round.
+
+The dispatch watchdog (``stall_timeout`` > 0, the server's
+``--dispatch-stall-timeout``) bounds each device call, in both modes: a
+batch or round still running past it fails its requests with the
+retriable ``DispatchStalled`` (no bisection: a stall is a liveness
+event, not a poison sentence), the wedged worker thread is abandoned
+and a fresh one takes the next call (``_trip_watchdog``); iteration mode
+also rebuilds its engine. A call that never returns cannot be
+cancelled: the watchdog guards host-side stalls and overlong batches,
+and later work on the same CUDA stream queues behind a hung kernel.
 """
 
 from __future__ import annotations
@@ -35,15 +45,30 @@ import asyncio
 import collections
 import concurrent.futures
 import threading
+import weakref
 from typing import Callable, Deque, Dict, List, Optional
 
 from ..common import logging as log
 from ..data.batching import over_budget, padded_batch_cost
-from ..translator.iteration import FATAL_REASONS
+from ..translator.iteration import FATAL_REASONS, release_sync_guard
 
 
 class RequestTimeout(RuntimeError):
     """The request's deadline expired before it completed."""
+
+
+# _guarded's answer for a call still running past the stall timeout
+_STALLED = object()
+
+
+class DispatchStalled(RuntimeError):
+    """The dispatch watchdog fired: one device batch (or engine round)
+    ran past the stall timeout. Its requests fail with this retriable
+    error (the server replies ``!!SERVER-RETRY``) and the scheduler moves
+    onto a fresh device worker instead of wedging behind the stuck
+    call."""
+
+    retriable = True
 
 
 class RowEvicted(RuntimeError):
@@ -109,7 +134,8 @@ class ContinuousScheduler:
                  length_fn: Callable[[str], int] = default_length_fn,
                  executor: Optional[concurrent.futures.Executor] = None,
                  batching_mode: str = "request", engine=None,
-                 engine_factory: Optional[Callable[[], object]] = None):
+                 engine_factory: Optional[Callable[[], object]] = None,
+                 stall_timeout: float = 0.0):
         if batching_mode not in ("request", "iteration"):
             raise ValueError(f"--batching-mode must be request or "
                              f"iteration, got {batching_mode!r}")
@@ -125,8 +151,10 @@ class ContinuousScheduler:
         self.translate_lines = translate_lines
         self.token_budget = max(1, int(token_budget))
         self.engine = engine
-        # rebuilds the engine after a failed round
+        # rebuilds the engine after a failed or stalled round
         self.engine_factory = engine_factory
+        # liveness watchdog over each device call, seconds (0 = off)
+        self.stall_timeout = max(0.0, float(stall_timeout))
         # coalescing pause at the edge of an idle period, so a burst of
         # concurrent clients lands in one round
         self.window_s = window_s
@@ -378,7 +406,8 @@ class ContinuousScheduler:
         """One device call for the batch; on failure, bisect: each half
         is retried, recursively, until single units isolate the poison
         sentence, whose request alone fails (O(log batch) extra calls
-        for one poison unit)."""
+        for one poison unit). A call past the stall timeout fails the
+        whole batch with ``DispatchStalled`` instead."""
         # requests may die (deadline, cancel, a sibling's failure) while
         # the batch waits, inside bisection retries too
         units = [u for u in units if not u.req.future.done()]
@@ -386,8 +415,18 @@ class ContinuousScheduler:
             return
         lines = [u.text for u in units]
         try:
-            out = await loop.run_in_executor(self._executor,
-                                             self.translate_lines, lines)
+            call = loop.run_in_executor(self._executor,
+                                        self.translate_lines, lines)
+            out = await self._guarded(call)
+            if out is _STALLED:
+                self._trip_watchdog(call, len(units))
+                for u in units:
+                    if not u.req.future.done():
+                        self.counts["stalled"] += 1
+                        u.req.future.set_exception(DispatchStalled(
+                            f"device batch stalled past "
+                            f"{self.stall_timeout}s — retry"))
+                return
             if len(out) != len(lines):
                 raise RuntimeError(
                     f"translator returned {len(out)} lines for "
@@ -487,6 +526,11 @@ class ContinuousScheduler:
 
     async def _iteration_round(self, loop) -> None:
         """One join pass + one engine round on the device worker."""
+        if self.engine is None:
+            # a rebuild after a stall failed with the old engine gone:
+            # retry it, at most once a stall timeout
+            await asyncio.sleep(self.stall_timeout)
+            self.engine = self.engine_factory()
         engine = self.engine
         joins = self._form_join_set()
         evicts = [u for u in self._active_units if u.req.future.done()]
@@ -494,11 +538,16 @@ class ContinuousScheduler:
         try:
             # per-row join meta: the sentence's index in its request
             # (n-best numbering) and whether the request streams
-            res = await loop.run_in_executor(
+            call = loop.run_in_executor(
                 self._executor, engine.admit_and_step,
                 [(u, u.text, {"sid": u.idx,
                               "stream": u.req.on_partial is not None})
                  for u in joins], evicts)
+            res = await self._guarded(call)
+            if res is _STALLED:
+                del engine          # the rebuild must not find it held
+                self._iteration_stalled(call, joins)
+                return
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001
@@ -552,6 +601,33 @@ class ContinuousScheduler:
             self._active_units.pop(u, None)
             self._complete_unit(u, text)
 
+    def _iteration_stalled(self, call, joins: List[_Unit]) -> None:
+        """The engine round ran past the stall timeout: every row of it
+        fails retriably, the wedged worker (with the old engine's device
+        state) is abandoned, and the engine is rebuilt from the factory.
+        The scheduler drops its reference first: the wedged round still
+        holds the old engine and its KV pool until it returns, and the
+        rebuilt one allocates a second pool beside it."""
+        victims = list(self._active_units) + joins
+        self._active_units.clear()
+        self._trip_watchdog(call, len(victims))
+        for u in victims:
+            if not u.req.future.done():
+                self.counts["stalled"] += 1
+                u.req.future.set_exception(DispatchStalled(
+                    f"decode step stalled past {self.stall_timeout}s — "
+                    f"retry"))
+        if self.engine_factory is not None:
+            old = weakref.ref(self.engine)
+            self.engine = None
+            try:
+                self.engine = self.engine_factory()
+            except Exception as e:  # noqa: BLE001
+                # back to the old engine, as the reference keeps it: its
+                # next round trips again and retries the rebuild
+                self.engine = old()
+                log.error("engine rebuild after stall failed: {}", e)
+
     def _iteration_failed(self, joins: List[_Unit], exc) -> None:
         """The round raised: its rows' requests fail (retriably when the
         engine can be rebuilt or the error says so) and the engine is
@@ -577,6 +653,62 @@ class ContinuousScheduler:
                 self.engine = self.engine_factory()
             except Exception as e:  # noqa: BLE001
                 log.error("engine rebuild after failure failed: {}", e)
+
+    # -- dispatch watchdog -----------------------------------------------
+    async def _guarded(self, call: "asyncio.Future"):
+        """The device call's result, or ``_STALLED`` when it is still
+        running after the stall timeout (the call goes on; see
+        _trip_watchdog)."""
+        if self.stall_timeout <= 0:
+            return await call
+        try:
+            return await asyncio.wait_for(asyncio.shield(call),
+                                          self.stall_timeout)
+        except asyncio.TimeoutError:
+            return _STALLED
+
+    def _trip_watchdog(self, pending: "asyncio.Future", n_rows: int) -> None:
+        """The in-flight device call exceeded the stall timeout. A thread
+        wedged inside a device call has no cancellation point; what can
+        be saved is the scheduler: abandon the wedged worker, log if its
+        call ever ends, hand the process-wide CUDA sync-debug mode back
+        (a round abandoned inside an engine's ``sync_debug`` guard would
+        otherwise leave it set for the fresh worker's rounds), and point
+        the executor at a fresh single worker."""
+        self.counts["watchdog_trips"] += 1
+        log.error(
+            "DISPATCH WATCHDOG: device batch ({} sentences) still running "
+            "after {}s — failing its requests with a retriable error and "
+            "replacing the device worker (the stuck thread is abandoned)",
+            n_rows, self.stall_timeout)
+
+        def _late(f) -> None:
+            if f.cancelled():
+                return
+            exc = f.exception()
+            log.warn("watchdog-abandoned device batch eventually {} — "
+                     "its results were discarded",
+                     f"failed: {exc}" if exc else "completed")
+        pending.add_done_callback(_late)
+        release_sync_guard()
+        old, was_own = self._executor, self._own_executor
+        self._executor = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="serve-device")
+        self._own_executor = True
+        if was_own and old is not None:
+            # injected executors stay the caller's to shut down
+            old.shutdown(wait=False)
+            # detach the wedged worker from concurrent.futures' atexit
+            # join: its threads are non-daemon, so a call that never
+            # returns would hang interpreter shutdown after a graceful
+            # drain (private API: without it, the orchestrator's kill is
+            # the backstop)
+            try:
+                from concurrent.futures import thread as _cf_thread
+                for t in list(getattr(old, "_threads", ())):
+                    _cf_thread._threads_queues.pop(t, None)
+            except Exception:  # noqa: BLE001
+                pass
 
     def _complete_unit(self, u: _Unit, line: str) -> None:
         req = u.req

@@ -5,10 +5,12 @@ reference layout of three files,
     model.npz.optimizer.npz   optimizer state ('t', 'm:<name>', ...)
     model.npz.progress.yml    TrainingState (incl. the corpus position)
 
-plus model.ema.npz under --exponential-smoothing, and the
+plus model.ema.npz under --exponential-smoothing, the
 iteration-numbered params copies (model.iter<N>.npz) that training
-writes without --overwrite. Each file is written atomically (temp file +
-rename). ``model.npz`` is the format both packages' decoders load.
+writes without --overwrite, and under --keep-best the params of each
+metric's best validation (model.best-<metric>.npz). Each file is
+written atomically (temp file + rename). ``model.npz`` is the format
+both packages' decoders load.
 
 Trimmed: the checksummed bundle directories and the asynchronous saver.
 """
@@ -43,9 +45,21 @@ def save_checkpoint(model_path: str, params: Dict[str, Any],
                     config_yaml: str, graph_group=None,
                     state: Optional[TrainingState] = None,
                     smooth_params: Optional[Dict[str, Any]] = None,
-                    extra_model_suffixes: Tuple[str, ...] = ()) -> None:
+                    extra_model_suffixes: Tuple[str, ...] = (),
+                    suffix: str = "") -> None:
     """``extra_model_suffixes`` writes params + config copies beside the
-    model (the '.iter<N>' files of a save without --overwrite)."""
+    model (the '.iter<N>' files of a save without --overwrite). A
+    ``suffix`` ('.best-bleu', ...) writes only the params (and their
+    smoothed copy) to the suffixed path, outside the resume files."""
+    if suffix:
+        path = suffixed_path(model_path, suffix)
+        mio.save_model(path, _host(params), config_yaml)
+        if smooth_params is not None:
+            base, ext = os.path.splitext(path)
+            mio.save_model(base + ".ema" + ext, _host(smooth_params),
+                           config_yaml)
+        log.info("Saved model to {}", path)
+        return
     host_params = _host(params)
     mio.save_model(model_path, host_params, config_yaml)
     if smooth_params is not None:

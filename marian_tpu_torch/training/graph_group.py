@@ -3,8 +3,11 @@
 src/training/graph_group_singleton.cpp) and the update tail of
 ``marian_tpu/parallel/zero.py :: finalize_update``.
 
-One update: forward and backward of ``EncoderDecoder.loss`` by autograd,
-then cost-type normalisation of the gradient, --normalize-gradient,
+One update: forward and backward of ``EncoderDecoder.loss`` by autograd
+over one batch, or over the ``--optimizer-delay`` micro-batches of one
+update with their gradients summed into f32 accumulators (the
+reference's split path, graph_group.py ``update``), then cost-type
+normalisation of the gradient, --normalize-gradient,
 global-norm clipping (--clip-norm), the optimizer step, and
 --check-gradient-nan (a non-finite gradient norm skips the whole update,
 params and optimizer state untouched). Parameters are f32 leaf tensors
@@ -15,14 +18,14 @@ with bf16 compute, in bf16 from a bf16 copy of the parameters; the cost
 normalisation upcasts them to f32, as the reference's division by its
 f32 denominator does.
 
-Not ported yet: meshes and ZeRO sharding, --optimizer-delay > 1,
---dispatch-window, embedding freezing; the trainer refuses their flags.
+Not ported yet: meshes and ZeRO sharding, --dispatch-window, embedding
+freezing; the trainer refuses their flags.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -46,6 +49,27 @@ class TrainOutput:
     labels: Any
     grad_norm: Any
     skipped: Any = None          # 0/1 under --check-gradient-nan
+
+
+def delay_of(options) -> int:
+    """--optimizer-delay as micro-batches an update, and the reference's
+    refusal of it beside --dispatch-window (graph_group.py)."""
+    delay = max(1, int(float(options.get("optimizer-delay", 1))))
+    window = max(1, int(options.get("dispatch-window", 1)))
+    if window > 1 and delay > 1:
+        raise ValueError("--dispatch-window requires --optimizer-delay 1 "
+                         "(in-jit windowing and in-jit accumulation do "
+                         "not compose; pick one)")
+    return delay
+
+
+def dropout_seed(seed: int, update: int, micro: int = 0) -> int:
+    """Seed of the dropout generator for micro-batch ``micro`` of update
+    ``update`` (micro 0 is the whole batch at delay 1)."""
+    s = (int(seed) * 1_000_003 + int(update)) % (2**63 - 1)
+    if micro:
+        s = (s * 7_919 + int(micro)) % (2**63 - 1)
+    return s
 
 
 def cost_denominator(cost_type: str, labels: torch.Tensor,
@@ -107,6 +131,7 @@ class GraphGroup:
         self.device = torch.device(device)
         self.opt_cfg = OptimizerConfig.from_options(options)
         self.schedule = LRSchedule.from_options(options)
+        self.delay = delay_of(options)
         self.cost_type = options.get("cost-type", "ce-sum")
         self.grad_dtype = _grad_dtype(options.get("gradient-dtype",
                                                   "float32"),
@@ -131,31 +156,66 @@ class GraphGroup:
             for k, v in init_state(self.opt_cfg, self.params).items():
                 self.opt_state.setdefault(k, v)
 
+    def reset_optimizer(self) -> None:
+        """Fresh optimizer state (--lr-decay-reset-optimizer), keeping
+        the parameters. The reference also rebuilds its jitted step
+        here, since its schedule is baked into the trace; the port's
+        step reads the schedule every update, so nothing is rebuilt."""
+        self.opt_state = init_state(self.opt_cfg, self.params)
+
     # -- one update ---------------------------------------------------------
-    def update(self, batch: Dict[str, torch.Tensor], step: int,
-               generator: Optional[torch.Generator] = None) -> TrainOutput:
-        """Forward, backward and optimizer step on one batch (tensors on
-        the device); ``step`` is the 1-based update number."""
-        leaves = self.params
-        if self.grad_dtype is not None:
-            # differentiate with respect to the parameters already cast:
-            # the loss's own cast is then an identity and the gradients
-            # come out in the grad dtype (reference: zero.py _grads_of)
-            leaves = {k: p.detach().to(self.grad_dtype).requires_grad_(True)
-                      for k, p in self.params.items()}
-        total, aux = self.model.loss(leaves, batch, generator, train=True)
-        total.backward()
-        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for k, p in leaves.items()}
-        labels = aux["labels"].detach()
-        denom = cost_denominator(self.cost_type, labels,
-                                 int(batch["trg_ids"].shape[0]))
+    def update(self, batches: Union[Dict[str, torch.Tensor],
+                                    List[Dict[str, torch.Tensor]]],
+               step: int, generator: Optional[torch.Generator] = None,
+               seed: Optional[int] = None) -> TrainOutput:
+        """Forward, backward and optimizer step on one batch, or on a
+        list of micro-batches (tensors on the device) whose gradients
+        are summed in f32 whatever --gradient-dtype is (bf16 adds would
+        absorb the later micro-batches' small terms), with the cost
+        normalised by their summed labels or rows. ``step`` is the
+        1-based update number; with ``generator`` and ``seed``, micro-
+        batch i draws its dropout from ``dropout_seed(seed, step, i)``."""
+        if isinstance(batches, dict):
+            batches = [batches]
+        names = list(self.params)
+        acc: Optional[List[torch.Tensor]] = None
+        ce_sum = labels = None
+        rows = 0
+        for i, batch in enumerate(batches):
+            if generator is not None and seed is not None:
+                generator.manual_seed(dropout_seed(seed, step, i))
+            leaves = [self.params[k] for k in names]
+            if self.grad_dtype is not None:
+                # differentiate with respect to the parameters already
+                # cast: the loss's own cast is then an identity and the
+                # gradients come out in the grad dtype (reference:
+                # zero.py _grads_of)
+                leaves = [p.detach().to(self.grad_dtype).requires_grad_(True)
+                          for p in leaves]
+            total, aux = self.model.loss(dict(zip(names, leaves)), batch,
+                                         generator, train=True)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            if len(batches) == 1:
+                acc = grads
+            elif acc is None:
+                # owned copies: autograd may hand two leaves one tensor
+                acc = [g.to(torch.float32, copy=True) for g in grads]
+            else:
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+            del grads           # freed before the next micro-batch's forward
+            ce = aux["ce_sum"].detach()
+            lab = aux["labels"].detach()
+            ce_sum = ce if ce_sum is None else ce_sum + ce
+            labels = lab if labels is None else labels + lab
+            rows += int(batch["trg_ids"].shape[0])
+        denom = cost_denominator(self.cost_type, labels, rows)
         gnorm, skipped = finalize_update(
-            self.opt_cfg, self.opt_state, self.params, grads,
-            self.schedule(step), labels, denom)
-        for p in self.params.values():
-            p.grad = None          # frees the gradients before the next step
-        return TrainOutput(aux["ce_sum"].detach(), labels, gnorm,
+            self.opt_cfg, self.opt_state, self.params,
+            dict(zip(names, acc)), self.schedule(step), labels, denom)
+        return TrainOutput(ce_sum, labels, gnorm,
                            skipped if self.opt_cfg.check_gradient_nan
                            else None)
 

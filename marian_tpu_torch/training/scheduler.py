@@ -1,13 +1,13 @@
-"""Scheduler: update/epoch/label counting, Marian-format progress lines
-and the save and stop triggers, trimmed from
-``marian_tpu/training/scheduler.py`` (reference
-src/training/scheduler.h :: Scheduler::update). The progress line keeps
-Marian's greppable format:
+"""Scheduler: update/epoch/label counting, Marian-format progress lines,
+the save, validation and stop triggers, the per-metric validation
+bookkeeping behind early stopping and the --lr-decay strategies, trimmed
+from ``marian_tpu/training/scheduler.py`` (reference
+src/training/scheduler.h :: Scheduler::update/validate). The progress
+line keeps Marian's greppable format:
 
 Ep. 1 : Up. 1000 : Sen. 12,345 : Cost 4.52 : Time 12.3s : 45000.0 words/s
 
-Trimmed: validation, --lr-decay strategies, early stopping, TensorBoard
-and divergence handling (the trainer refuses their flags).
+Trimmed: logical epochs, TensorBoard and divergence handling.
 """
 
 from __future__ import annotations
@@ -30,9 +30,16 @@ class Scheduler:
         self.disp_first = int(options.get("disp-first", 0))
         self.save_freq = SchedulingParameter.parse(
             str(options.get("save-freq", "10000u")))
+        self.valid_freq = SchedulingParameter.parse(
+            str(options.get("valid-freq", "10000u")))
         self.after = SchedulingParameter.parse(str(options.get("after", "0e")))
         self.after_epochs = int(options.get("after-epochs", 0) or 0)
         self.after_batches = int(options.get("after-batches", 0) or 0)
+        self.early_stopping = int(options.get("early-stopping", 10) or 0)
+        # per-metric improvement margins (--early-stopping-epsilon)
+        eps = options.get("early-stopping-epsilon", [0.0]) or [0.0]
+        self.early_stopping_eps = [float(e) for e in (
+            eps if isinstance(eps, list) else [eps])]
         self.lr_report = bool(options.get("lr-report", False))
         self.disp_label_counts = bool(options.get("disp-label-counts", False))
         self.cost_type = options.get("cost-type", "ce-sum")
@@ -63,6 +70,10 @@ class Scheduler:
             if self.after.unit == SchedulingUnit.TRG_LABELS \
                     and s.labels_total >= self.after.n:
                 return False
+        if self.early_stopping and s.stalled >= self.early_stopping:
+            log.info("Early stopping after {} stalled validations",
+                     s.stalled)
+            return False
         return True
 
     # -- per-update bookkeeping (reference: Scheduler::update) ---------------
@@ -126,7 +137,95 @@ class Scheduler:
     def should_save(self) -> bool:
         return bool(self.save_freq) and self._hit(self.save_freq)
 
+    def should_validate(self) -> bool:
+        return bool(self.valid_freq) and self._hit(self.valid_freq)
+
     def new_epoch(self) -> None:
         seen = self.state.samples_epoch
         self.state.new_epoch()
         log.info("Seen {} samples in epoch {}", seen, self.state.epochs)
+
+    # -- validation bookkeeping (reference: Scheduler::validate) -------------
+    def register_validation(self, metric: str, value: float,
+                            lower_is_better: bool = True) -> bool:
+        """Track best/stalled per metric; returns True if improved."""
+        s = self.state
+        rec = s.validators.setdefault(metric,
+                                      {"last-best": None, "stalled": 0})
+        best = rec["last-best"]
+        metrics_order = (self.options.get("valid-metrics", ["cross-entropy"])
+                         or ["cross-entropy"])
+        idx = metrics_order.index(metric) if metric in metrics_order else 0
+        eps = self.early_stopping_eps[min(idx,
+                                          len(self.early_stopping_eps) - 1)]
+        improved = (best is None or
+                    (value < best - eps if lower_is_better
+                     else value > best + eps))
+        if improved:
+            rec["last-best"] = float(value)
+            rec["stalled"] = 0
+        else:
+            rec["stalled"] += 1
+        # --early-stopping-on: which metrics drive the global stall count:
+        # first (default) = the first valid-metric only; any = the most
+        # stalled metric; all = the least stalled one
+        mode = str(self.options.get("early-stopping-on", "first") or "first")
+        stalls = [r["stalled"] for r in s.validators.values()] or [0]
+        if mode == "any":
+            s.stalled = max(stalls)
+        elif mode == "all":
+            s.stalled = min(stalls)
+        elif metric == metrics_order[0]:
+            s.stalled = rec["stalled"]
+        s.max_stalled = max(s.max_stalled, s.stalled)
+        return improved
+
+    def reset_stalled(self, reset_best: bool = False) -> None:
+        """--valid-reset-stalled / --valid-reset-all on resume: clear the
+        stall counters (and with ``reset_best`` the recorded bests), so a
+        continued run is not early-stopped by earlier validations."""
+        s = self.state
+        s.stalled = 0
+        s.max_stalled = 0
+        for rec in s.validators.values():
+            rec["stalled"] = 0
+            if reset_best:
+                rec["last-best"] = None
+
+    # -- LR decay (reference: Scheduler::updateLearningRate strategies) ------
+    def maybe_decay_lr(self, schedule, graph_group=None) -> None:
+        """After a validation: multiply the schedule's decay factor by
+        --lr-decay when --lr-decay-strategy says so, optionally restart
+        the warmup there and reset the optimizer state."""
+        decay = float(self.options.get("lr-decay", 0.0) or 0.0)
+        if decay <= 0:
+            return
+        strategy = self.options.get("lr-decay-strategy", "epoch+stalled")
+        start = self.options.get("lr-decay-start", [10, 1])
+        s = self.state
+        fire = False
+        if "epoch" in strategy and s.epochs + 1 >= int(start[0]):
+            if "stalled" in strategy:
+                fire = s.stalled >= int(start[1] if len(start) > 1 else 1)
+            elif "batches" in strategy:
+                freq = int(self.options.get("lr-decay-freq", 50000))
+                fire = s.batches > 0 and s.batches % freq == 0
+            else:
+                fire = True
+        elif strategy == "batches":
+            freq = int(self.options.get("lr-decay-freq", 50000))
+            fire = s.batches > 0 and s.batches % freq == 0
+        elif strategy == "stalled":
+            fire = s.stalled >= int(start[0])
+        if fire:
+            s.factor *= decay
+            schedule.decay_factor = s.factor
+            log.info("Decaying learning rate to factor {}", s.factor)
+            if self.options.get("lr-decay-repeat-warmup", False):
+                schedule.warmup_offset = s.batches
+                log.info("Restarting learning-rate warmup at update {}",
+                         s.batches)
+            if graph_group is not None \
+                    and self.options.get("lr-decay-reset-optimizer", False):
+                graph_group.reset_optimizer()
+                log.info("Optimizer state reset after learning-rate decay")

@@ -4,8 +4,19 @@
 Builds the vocabs (from the training data when a vocab file is missing),
 the corpus and batch generator, the model and the single-device
 GraphGroup; restores a checkpoint (params, optimizer state, progress and
-corpus position) unless --no-reload; runs the epoch loop with the display,
-save and stop triggers; saves at the end.
+corpus position) unless --no-reload; runs the epoch loop, one update a
+group of --optimizer-delay batches, with the display, validation, save
+and stop triggers; saves at the end.
+
+Validation (--valid-sets, at --valid-freq) runs the --valid-metrics
+validators (training/validators.py, translator/validators.py) on the
+current parameters, or their smoothed copy under
+--exponential-smoothing, logs ``[valid]`` lines, saves
+model.best-<metric>.npz under --keep-best when a metric improved, and
+lets the Scheduler apply --lr-decay; early stopping ends training after
+--early-stopping stalled validations. A group still short of
+--optimizer-delay batches at the end of an epoch is dropped, as in the
+reference.
 
 SIGTERM and SIGINT set a flag (``common/signal_handling``) that the loop
 reads after every update, as the reference's ``_check_stop`` does: under
@@ -16,9 +27,10 @@ checkpoint is saved and training ends normally; under
 Randomness is explicit and seeded from --seed: corpus and batch
 shuffling draw from numpy's RandomState as the reference does, and
 dropout draws from a ``torch.Generator`` on the training device that is
-re-seeded from (seed, update number) before every update, so a resumed
-run draws the same masks as an uninterrupted one (the reference folds
-its dropout key by the update number for the same reason).
+re-seeded from (seed, update number, micro-batch index) before every
+micro-batch, so a resumed run draws the same masks as an uninterrupted
+one (the reference folds its dropout key by the update number and the
+micro-batch index for the same reason).
 
 Mixed precision as the reference runs it: --precision bfloat16 (or
 --fp16) computes the forward and backward in bf16 from f32 master
@@ -46,20 +58,17 @@ from ..device import resolve_device
 from ..models import transformer as T
 from ..models.encoder_decoder import batch_to_arrays, create_model
 from .checkpoint import load_checkpoint, save_checkpoint
-from .graph_group import GraphGroup
+from .graph_group import GraphGroup, delay_of
 from .scheduler import Scheduler
 from .training_state import TrainingState
+from .validators import create_validators
 
 # option → value at which the feature is off; set to anything else the
 # trainer refuses to start instead of ignoring it
 _UNPORTED = {
-    "optimizer-delay": 1.0,
     "dispatch-window": 1,
     "guided-alignment": "none",
     "unlikelihood-loss": False,
-    "valid-sets": [],
-    "lr-decay": 0.0,
-    "lr-warmup-at-reload": False,
     "mini-batch-fit": False,
     "mini-batch-warmup": "0",
     "async-save": False,
@@ -78,6 +87,7 @@ _UNPORTED = {
 
 
 def _refuse_unported(options) -> None:
+    delay_of(options)       # the reference's refusal of delay with window
     for name, off in _UNPORTED.items():
         val = options.get(name, off)
         if val in (off, None, False, [], ""):
@@ -113,11 +123,6 @@ def _vocab(path: str, train_path: str, max_size: int) -> DefaultVocab:
     log.info("Created vocabulary {} ({} entries) from {}", path, len(vocab),
              train_path)
     return vocab
-
-
-def dropout_seed(seed: int, update: int) -> int:
-    """Seed of the dropout generator for one update."""
-    return (int(seed) * 1_000_003 + int(update)) % (2**63 - 1)
 
 
 class Train:
@@ -170,6 +175,12 @@ class Train:
             init_params, _ = mio.load_model(opts.get("pretrained-model"))
         if init_params is None:
             init_params = T.init_params(model.cfg, seed)
+        # the schedule's decay factor and warmup restart resume with it
+        gg.schedule.decay_factor = state.factor
+        if state.batches > 0 and opts.get("lr-warmup-at-reload", False):
+            gg.schedule.warmup_offset = state.batches
+            log.info("Repeating learning-rate warmup from update {} "
+                     "(--lr-warmup-at-reload)", state.batches)
         gg.initialize(init_params)
         n_params = sum(p.numel() for p in gg.params.values())
         log.info("Model created on {}: {} parameters ({:.1f}M)", self.device,
@@ -177,38 +188,74 @@ class Train:
         self.graph_group, self.state = gg, state
 
         scheduler = Scheduler(opts, state)
+        if state.batches > 0 and (opts.get("valid-reset-stalled", False)
+                                  or opts.get("valid-reset-all", False)):
+            scheduler.reset_stalled(
+                reset_best=bool(opts.get("valid-reset-all", False)))
+            log.info("Validation stall counters reset on resume")
+        validators = create_validators(opts, vocabs, model, self.device)
+        for v in validators:
+            # the live state: {U}/{E}/{B}/{T} output-path templates read it
+            v.training_state = state
         config_yaml = opts.as_yaml()
         generator = torch.Generator(device=self.device)
         # resume point of the last APPLIED batch: the corpus runs a whole
         # maxi window ahead of training
         last_corpus_state = [corpus.state.as_dict()]
 
-        def do_save() -> None:
+        def do_save(suffix: str = "") -> None:
             state.corpus = last_corpus_state[0]
             smooth = gg.smoothed() if gg.opt_cfg.smoothing > 0 else None
             # without --overwrite, every save also keeps an
             # iteration-numbered copy of the parameters (Train::save)
-            extra = (() if opts.get("overwrite", False)
+            extra = (() if suffix or opts.get("overwrite", False)
                      else (f".iter{state.batches}",))
             save_checkpoint(model_path, gg.export_params(), config_yaml, gg,
                             state, smooth_params=smooth,
-                            extra_model_suffixes=extra)
+                            extra_model_suffixes=extra, suffix=suffix)
+
+        def do_validate() -> None:
+            params = gg.smoothed() if gg.opt_cfg.smoothing > 0 \
+                else gg.export_params()
+            for v in validators:
+                value = v.validate(params)
+                improved = scheduler.register_validation(
+                    v.name, value, v.lower_is_better)
+                log.log_valid(
+                    "info",
+                    f"Ep. {state.epochs + 1} : Up. {state.batches} : "
+                    f"{v.name} : {value:.6f} : "
+                    + ("new best" if improved else
+                       f"stalled {state.validators[v.name]['stalled']} "
+                       f"times"))
+                if improved and opts.get("keep-best", False):
+                    do_save(suffix=".best-" + v.name)
+            scheduler.maybe_decay_lr(gg.schedule, gg)
 
         log.info("Training started")
         stop = False
         while scheduler.keep_going() and not stop:
             n_batches = 0
+            # the reference's micro list starts empty each epoch: a group
+            # short of --optimizer-delay at the epoch's end is dropped
+            group = []
             for batch in BatchGenerator(corpus, opts):
                 n_batches += 1
+                group.append(batch)
+                if len(group) < gg.delay:
+                    continue
                 step = state.batches + 1
-                generator.manual_seed(dropout_seed(seed, step))
-                out = gg.update(batch_to_arrays(batch, self.device), step,
-                                generator)
-                if batch.corpus_state is not None:
-                    last_corpus_state[0] = batch.corpus_state
-                scheduler.update(out.loss_sum, batch.words, batch.size,
-                                 src_words=batch.src_words,
+                out = gg.update([batch_to_arrays(b, self.device)
+                                 for b in group], step, generator, seed)
+                if group[-1].corpus_state is not None:
+                    last_corpus_state[0] = group[-1].corpus_state
+                scheduler.update(out.loss_sum, sum(b.words for b in group),
+                                 sum(b.size for b in group),
+                                 src_words=sum(b.src_words for b in group),
                                  lr=gg.schedule(step))
+                group = []
+                if scheduler.should_validate():
+                    do_validate()
                 if scheduler.should_save():
                     do_save()
                 if signal_handling.signal_flag():

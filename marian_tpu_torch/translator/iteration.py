@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -78,6 +79,49 @@ ENV_POOL_AUDIT = "MARIAN_POOL_AUDIT"
 # request instead of re-queueing it (an unadmittable head-of-line
 # sentence must not park the queue)
 FATAL_REASONS = ("src_too_long", "too_large")
+
+# torch.cuda.set_sync_debug_mode is process-wide, not per thread: the
+# guard that set the mode last owns it (its token holds the mode to
+# restore), so a serving watchdog that abandons a round inside its guard
+# can take the mode back for the next worker's rounds, and the abandoned
+# guard's late exit then restores nothing
+_SYNC_LOCK = threading.Lock()
+_sync_owner: Optional[List[int]] = None     # guarded by _SYNC_LOCK
+
+
+@contextlib.contextmanager
+def sync_guard(mode: Optional[str], device: torch.device):
+    """Run the body under ``torch.cuda.set_sync_debug_mode(mode)`` and
+    restore the previous mode after it (a no-op when ``mode`` is None or
+    off the card)."""
+    global _sync_owner
+    if mode is None or device.type != "cuda":
+        yield
+        return
+    token = [torch.cuda.get_sync_debug_mode()]
+    with _SYNC_LOCK:
+        torch.cuda.set_sync_debug_mode(mode)
+        _sync_owner = token
+    try:
+        yield
+    finally:
+        with _SYNC_LOCK:
+            if _sync_owner is token:
+                torch.cuda.set_sync_debug_mode(token[0])
+                _sync_owner = None
+
+
+def release_sync_guard() -> bool:
+    """Restore the mode a live ``sync_guard`` replaced, as if its body
+    had ended (the serving watchdog abandons such a body); True when a
+    guard was live."""
+    global _sync_owner
+    with _SYNC_LOCK:
+        if _sync_owner is None:
+            return False
+        torch.cuda.set_sync_debug_mode(_sync_owner[0])
+        _sync_owner = None
+        return True
 
 
 @dataclass
@@ -235,19 +279,10 @@ class PagedDecodeEngine:
         rounds' preclaim headroom."""
         return self.max_rows * self.max_pages
 
-    @contextlib.contextmanager
     def _sync_guard(self):
         """The step loop's ``sync_debug`` mode (a no-op when unset or on
         the CPU)."""
-        if self.sync_debug is None or self.device.type != "cuda":
-            yield
-            return
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode(self.sync_debug)
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
+        return sync_guard(self.sync_debug, self.device)
 
     @contextlib.contextmanager
     def _on_device(self):

@@ -12,11 +12,13 @@ torch.profiler and prints, per update: the wall time, the device's busy
 time (sum of kernel times) and idle share over the wall time, the device
 time by kernel class, and the kernels that took the most device time.
 ``--precision bfloat16`` trains in bf16 from f32 master weights
-(chip_smoke.py's bf16 training main path). Run from the root of a
-checkout on the machine with the card:
+(chip_smoke.py's bf16 training main path); ``--delay N`` makes each
+update of N micro-batches of 1/N the words (--optimizer-delay N, as
+chip_smoke.py's delay path at N = 2). Run from the root of a checkout on
+the machine with the card:
 
     python3 scripts/torch_train_profile.py [--seed 17] [--updates 3] [--doc]
-        [--precision bfloat16]
+        [--precision bfloat16] [--delay 2]
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ def main(argv=None) -> int:
                     help="the doc-level transformer-big setup")
     ap.add_argument("--precision", choices=("float32", "bfloat16"),
                     default="float32")
+    ap.add_argument("--delay", type=int, default=1,
+                    help="micro-batches an update (--optimizer-delay)")
     args = ap.parse_args(argv)
     extra = ("--precision", args.precision, "float32")
     if not torch.cuda.is_available():
@@ -85,12 +89,14 @@ def main(argv=None) -> int:
                                                          create_model)
     from marian_tpu_torch.ops.kernels import _build
     from marian_tpu_torch.training.graph_group import GraphGroup
-    from marian_tpu_torch.training.train import dropout_seed
     from torch.profiler import ProfilerActivity, profile
 
     dev = resolve_device("cuda")
     _build.build_all()
     cs.write_vocab()
+    words = cs.DOC_WORDS if args.doc else cs.TRAIN_WORDS
+    extra += ("--optimizer-delay", str(args.delay), "--mini-batch-words",
+              str(words // args.delay))
     if args.doc:
         name = "doc"
         cs.write_doc_train_corpus(args.seed)
@@ -104,22 +110,24 @@ def main(argv=None) -> int:
     vocab = create_vocab(str(cs.WORK / "vocab.yml"))
     corpus = Corpus([str(cs.WORK / f"{name}.src"),
                      str(cs.WORK / f"{name}.trg")], [vocab, vocab], opts)
-    n = 2 + 2 * args.updates
-    batches = []
+    n = (2 + 2 * args.updates) * args.delay
+    micro = []
     for b in BatchGenerator(corpus, opts):
-        batches.append(b)
-        if len(batches) == n:
+        micro.append(b)
+        if len(micro) == n:
             break
+    # one update's micro-batches each
+    batches = [micro[i:i + args.delay] for i in range(0, n, args.delay)]
     model = create_model(opts, len(vocab), len(vocab))
     gg = GraphGroup(model, opts, dev)
     gg.initialize(T.init_params(model.cfg, 1111))
     gen = torch.Generator(device=dev)
     step = [0]
 
-    def update(batch):
+    def update(group):
         step[0] += 1
-        gen.manual_seed(dropout_seed(1111, step[0]))
-        return gg.update(batch_to_arrays(batch, dev), step[0], gen)
+        return gg.update([batch_to_arrays(b, dev) for b in group], step[0],
+                         gen, 1111)
 
     for b in batches[:2]:                              # warm-up
         update(b)
@@ -142,11 +150,12 @@ def main(argv=None) -> int:
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e3 / len(
         traced_batches)
-    words = sum(b.words for b in traced_batches) / len(traced_batches)
+    words = sum(b.words for g in traced_batches for b in g) / len(
+        traced_batches)
     model_name = ("doc-level transformer-big" if args.doc
                   else "transformer-base")
     print(f"update: {model_name} 6+6 {args.precision}, {words:.0f} "
-          f"target words; "
+          f"target words in {args.delay} micro-batch(es); "
           f"wall {wall * 1e3:.1f} ms untraced, {traced * 1e3:.1f} ms traced; "
           f"device busy {busy:.1f} ms; idle share {1 - busy / 1e3 / wall:.3f} "
           f"of the untraced wall")

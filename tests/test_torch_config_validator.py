@@ -4,8 +4,12 @@ Every ``raise`` of ``marian_tpu/common/config_validator.py`` gets an
 argv, run through both packages' ``parse_options`` in the matching mode
 (training, translation, server): both refuse with the same exception
 type and message, or both accept. Where the raise needs a flag the port
-does not carry (``--early-stopping``, a validation flag), the case pins
-the port's own refusal instead: its parser's unknown-option exit. A few
+does not carry, the case pins the port's own refusal instead: its
+parser's unknown-option exit. ``--optimizer-delay`` above 1 with
+``--dispatch-window`` above 1, which the reference refuses when its
+GraphGroup is built, the port refuses with the same message in its
+trainer's option check, before ``--dispatch-window`` is refused by
+name. A few
 argv that both parsers accept but whose feature the port's trainer does
 not carry (``--tsv``, ``--right-left``, ``--guided-alignment``) are
 pinned to the trainer's refusal by name (``_UNPORTED``). Last, the
@@ -53,8 +57,7 @@ REFUSED = [
     ("training", TRAIN + ["--label-smoothing", "1.5"], None),
     ("training", TRAIN + ["--label-smoothing", "-0.5"], None),
     ("training", TRAIN + ["--optimizer-delay", "0"], None),
-    ("training", TRAIN + ["--early-stopping", "-1"],
-     "Unknown option(s): --early-stopping -1"),
+    ("training", TRAIN + ["--early-stopping", "-1"], None),
     ("training", TRAIN + ["--cost-type", "foo"], None),
     ("translation", ["--model", ""], None),
     ("server", ["--model", ""], None),
@@ -134,3 +137,14 @@ def test_train_cli_refuses_unknown_cost_type(tmp_path):
     assert "ValueError: Unknown --cost-type foo" in proc.stderr
     assert "Up. " not in proc.stderr
     assert not model.exists()
+
+
+def test_delay_with_dispatch_window_refused_like_the_reference():
+    from marian_tpu.training.graph_group import GraphGroup as JGraphGroup
+    argv = TRAIN + ["--optimizer-delay", "2", "--dispatch-window", "2"]
+    with pytest.raises(ValueError) as ref:
+        JGraphGroup(None, jax_parse(argv, mode="training"))
+    with pytest.raises(ValueError) as got:
+        _refuse_unported(torch_parse(argv, mode="training"))
+    assert str(got.value) == str(ref.value)
+    assert "--dispatch-window requires --optimizer-delay 1" in str(got.value)

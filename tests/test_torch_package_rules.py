@@ -82,7 +82,10 @@ def test_port_imports_no_jax_and_nothing_of_marian_tpu():
     # the port's copies of reference modules are scanned like the rest
     copies = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"marian_tpu_torch/common/config_validator.py",
-            "marian_tpu_torch/common/signal_handling.py"} <= copies
+            "marian_tpu_torch/common/signal_handling.py",
+            "marian_tpu_torch/translator/metrics.py",
+            "marian_tpu_torch/training/validators.py",
+            "marian_tpu_torch/translator/validators.py"} <= copies
 
 
 def test_cuda_sources_are_listed_and_plain_c():

@@ -208,12 +208,14 @@ def _flags(*flags):
     ["--batching-mode", "iteration", "--beam-size", "1", "--force-decode"],
     ["--word-scores", "--shortlist", "lex.s2t", "--output-sampling",
      "topk", "10"],
+    ["--dispatch-stall-timeout", "5"],
 ])
 def test_ported_flags_pass_the_option_checks(flags):
     """The fused beam merge (the default at beam > 1, at any
-    --iteration-steps), --prefix-cache (greedy, host and fused beam) and
+    --iteration-steps), --prefix-cache (greedy, host and fused beam),
     the decode-feature plane (n-best, sampling, shortlist, force-decode;
-    word scores too in request mode) pass the server's option checks."""
+    word scores too in request mode) and the dispatch watchdog pass the
+    server's option checks."""
     srv.ServingApp._validate_options(_flags(*flags))
 
 
@@ -233,7 +235,6 @@ def test_host_merge_with_multistep_rounds_is_refused():
       "--output-approx-knn", "8", "128"], "--output-approx-knn"),
     (["--alignment", "soft"], "--alignment"),
     (["--models", "absent.npz", "second.npz"], "ensembles"),
-    (["--dispatch-stall-timeout", "5"], "--dispatch-stall-timeout"),
 ])
 def test_unported_flags_are_refused_by_name(flags, name):
     with pytest.raises(NotImplementedError, match=name):

@@ -142,11 +142,26 @@ def test_train_entry_point_raises_without_card(work, monkeypatch):
     assert not (work / "none.npz").exists()
 
 
-@pytest.mark.parametrize("flag", [["--optimizer-delay", "2"],
+@pytest.mark.parametrize("flag", [["--dynamic-gradient-scaling", "2"],
                                   ["--dispatch-window", "4"],
                                   ["--guided-alignment", "a.txt"],
-                                  ["--lr-decay", "0.5"]])
+                                  ["--mini-batch-fit"]])
 def test_unported_training_flags_raise(work, flag):
     with pytest.raises(NotImplementedError):
         marian_train.main(train_args(work, "x.npz", "--cpu-threads", "1",
                                      *flag))
+
+
+@pytest.mark.parametrize("flag,progress", [
+    (["--optimizer-delay", "2"], "batches: 3"),
+    (["--lr-decay", "0.5", "--lr-decay-strategy", "batches",
+      "--lr-decay-freq", "1", "--valid-sets", str(DATA / "train.src"),
+      str(DATA / "train.trg"), "--valid-freq", "1u"], "factor: 0.125")])
+def test_ported_training_flags_run(work, flag, progress):
+    """--optimizer-delay and --lr-decay, once refused, now train: 3
+    updates of 2 batches each; a decay by half after each of 3
+    validations."""
+    marian_train.main(train_args(work, "ported.npz", "--after-batches", "3",
+                                 "--cpu-threads", "1", "--no-reload",
+                                 *flag))
+    assert progress in (work / "ported.npz.progress.yml").read_text()
