@@ -16,7 +16,33 @@ card, and drives the port's main paths on data made from --seed:
   ``main`` drives, resuming from that checkpoint; the trained checkpoint
   is decoded on the card; a 2+2-layer cut trains 3 updates on the card
   and on the CPU, which must agree leaf by leaf in gradients and
-  parameter changes;
+  parameter changes; every save is a committed checkpoint bundle
+  (train.npz.bundles: one a save, each validates, train.npz the newest
+  one's model member byte for byte; a copy with that member truncated
+  restores from the bundle before it), and one save of a trained state
+  is timed as a bundle commit beside the same files written flat;
+- the model lifecycle (marian-server --model-watch 0.2, --metrics-port)
+  in request mode on the copying weights' 2+2-layer cut (full width),
+  committed as a bundle:
+  /readyz 503 while the server boots (--warmup-on-boot) and 200 once it
+  serves; marian_train, in this process, trains 2 updates on the same
+  model path and commits B while 16 clients send 256 sentences, one
+  request after another: zero failures, every reply Translate.run of A
+  or of B, every reply B's once /lifecyclez shows B live; at
+  --canary-fraction 0.5 --canary-min-batches 8 a candidate C whose
+  executor raises after its golden decode is rolled back with zero
+  client failures (counted in /metrics), the card's allocated bytes
+  rising by one model while C is canary and falling back at its
+  release; a bundle D with another vocabulary hash refused with nothing
+  loaded; POST /admin/rollback returns live to A; then in iteration
+  mode (greedy, 64 slots, --quiesce-deadline 0.5) a swap through the
+  quiesce protocol under the same load: every reply A's or B's dense
+  greedy decode or !!SERVER-RETRY, the retries equal to the quiesce
+  evictions, both pools audited clean, the old engine's pool freed once
+  it leaves the rollback slot; and one fused beam-6 swap on 8
+  sentences with the live engine's rounds under the sync guard (the
+  candidate's load and golden decode on the watcher thread never
+  overlap a guarded round);
 - the same training at --optimizer-delay 2 (two micro-batches of half
   the words an update: twice the kernel launches), validated every 5
   updates on a 64-line dev set from the seed (cross-entropy, bleu, chrf,
@@ -48,6 +74,10 @@ card, and drives the port's main paths on data made from --seed:
   budget): the same 256 sentences from 16 clients through the scheduler
   into the dense beam search; every reply must equal Translate.run of
   the same sentences on the card (in other batches);
+- from here on the serve paths (the beam ones in f32 and bf16, the
+  prefix cache, the decode surface, the watchdog and the lifecycle) run
+  the copying weights of the 2+2-layer base cut at full width
+  (SERVE_CUT_MODEL: a depth cut for the run's time);
 - marian-server in iteration mode at beam 6 with the host merge: the
   copy-on-write beam engine over the paged pool answers the same
   traffic; every reply must equal the dense beam search's best
@@ -68,7 +98,7 @@ card, and drives the port's main paths on data made from --seed:
   decodes, half after its reply); every reply equals the dense decode,
   the greedy engine forks repeats from live rows, both replay finished
   ones, and after the cache's drop_all the pool is empty;
-- the decode surface on the serve model, with a lex table from --seed
+- the decode surface, with a lex table from --seed
   (each word's own copy and 19 random targets; --shortlist lex.s2t 100
   20): the dense beam-6 search with the shortlist (card against CPU, and
   --word-scores summing to the raw scores); greedy with the shortlist
@@ -133,6 +163,7 @@ import contextlib
 import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -235,7 +266,8 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 # paths only (a row's "paths"); other rows sum it over every path.
 F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
-             "decode surface", "train", "delay train", "doc train",
+             "decode surface", "train", "lifecycle serve",
+             "lifecycle iteration", "delay train", "doc train",
              "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
               "bf16 request serve", "bf16 beam serve",
@@ -319,6 +351,16 @@ PREFIX_SENTENCES = 64
 # of the served sentences through each check, SURFACE_CUT of them
 # through the CPU and the n-best comparisons
 LEX_RANDOM, SURFACE_SENTENCES, SURFACE_CUT = 19, 24, 8
+# the copying serve weights of the 2+2-layer base cut, at full width: the
+# model of the beam serve paths (f32 and bf16), the prefix cache, the
+# decode surface, the watchdog and the lifecycle phases (a depth cut for
+# the run's time: the greedy serve and request-mode paths keep the 6+6
+# serve model)
+SERVE_CUT_MODEL, SERVE_CUT_DEPTH = "serve_2x2.npz", 2
+# the model lifecycle phases commit that cut as bundles; the trainer that
+# commits B trains that depth
+LIFE_DEPTH = ("--enc-depth", str(SERVE_CUT_DEPTH), "--dec-depth",
+              str(SERVE_CUT_DEPTH))
 # the dispatch watchdog phase: --dispatch-stall-timeout (seconds, well
 # above a request-mode batch of the following requests), the requests
 # served after the trip, and the longest a wedged call waits
@@ -2139,8 +2181,12 @@ def write_model(seed: int, cuts_only: bool = False):
     small = {k: v for k, v in flat.items()
              if not k.startswith(("encoder_l", "decoder_l"))
              or k.split("_")[1] in ("l1", "l2")}
-    mio.save_model(str(WORK / "base_2x2.npz"), small,
-                   opts.with_(**{"enc-depth": 2, "dec-depth": 2}).as_yaml())
+    cut = opts.with_(**{"enc-depth": SERVE_CUT_DEPTH,
+                        "dec-depth": SERVE_CUT_DEPTH})
+    mio.save_model(str(WORK / "base_2x2.npz"), small, cut.as_yaml())
+    if not cuts_only:
+        mio.save_model(str(WORK / SERVE_CUT_MODEL), serve_weights(
+            small, T.config_from_options(cut, VOCAB, VOCAB)), cut.as_yaml())
     doc = opts.with_(**{"dim-emb": 256, "transformer-heads": 4,
                         "transformer-dim-ffn": 1024, "enc-depth": 2,
                         "dec-depth": 2, "max-length": 2048})
@@ -2346,14 +2392,15 @@ def phase_card_vs_cpu(lines) -> None:
                        "base_2x2.npz", lines[:8])
 
 
-def serve_options(*extra: str):
+def serve_options(*extra: str, model: str = "serve.npz"):
     """marian-server flags of the serve main path: transformer-base (the
-    copying serve checkpoint, ``serve_weights``) at --beam-size 1 in iteration mode, 64 slots, pages
-    of 16 tokens, cap 128 (3 x the source), the default pool (every slot
-    can hold a full-cap row: 513 pages)."""
+    copying serve checkpoint, ``serve_weights``; ``model``, its 2+2 cut
+    for the decode surface) at --beam-size 1 in iteration mode, 64
+    slots, pages of 16 tokens, cap 128 (3 x the source), the default
+    pool (every slot can hold a full-cap row: 513 pages)."""
     from marian_tpu_torch.common.config_parser import parse_options
     return parse_options(
-        ["--models", str(WORK / "serve.npz"), "--vocabs",
+        ["--models", str(WORK / model), "--vocabs",
          str(WORK / "vocab.yml"), str(WORK / "vocab.yml"),
          "--batching-mode", "iteration", "--beam-size", "1",
          "--iteration-rows", str(SERVE_ROWS), "--kv-page-len", "16",
@@ -2634,14 +2681,14 @@ def phase_serve_card_vs_cpu(seed: int) -> None:
           f"{err:.3g} (tolerance {SERVE_LOGIT_TOL})")
 
 
-def request_options(*extra: str):
+def request_options(*extra: str, model: str = "serve.npz"):
     """marian-server flags of the request-mode serve path: the server's
     defaults (--batching-mode request, --beam-size 12), the copying serve
-    checkpoint, --mini-batch REQUEST_MINI_BATCH (the token budget: 16 x
-    the 192-token bucket of --max-length 128 + 1)."""
+    checkpoint (``model``), --mini-batch REQUEST_MINI_BATCH (the token
+    budget: 16 x the 192-token bucket of --max-length 128 + 1)."""
     from marian_tpu_torch.common.config_parser import parse_options
     return parse_options(
-        ["--models", str(WORK / "serve.npz"), "--vocabs",
+        ["--models", str(WORK / model), "--vocabs",
          str(WORK / "vocab.yml"), str(WORK / "vocab.yml"),
          "--mini-batch", str(REQUEST_MINI_BATCH), "--max-length", "128",
          "--max-length-factor-translate", "3", "--port", "0", "--quiet",
@@ -2720,7 +2767,8 @@ def phase_request_serve_main_path(seed: int, *extra: str,
     return counts
 
 
-def beam_serve_options(*extra: str, merge: Optional[str] = "host"):
+def beam_serve_options(*extra: str, merge: Optional[str] = "host",
+                       model: str = SERVE_CUT_MODEL):
     """The serve path's flags at --beam-size SERVE_BEAM, with
     ``--iteration-beam-merge merge`` (None: no merge flag, the server's
     default, the fused merge). Every sentence of the traffic queues at
@@ -2729,7 +2777,7 @@ def beam_serve_options(*extra: str, merge: Optional[str] = "host"):
     the pool."""
     merge_flags = ("--iteration-beam-merge", merge) if merge else ()
     return serve_options("--beam-size", str(SERVE_BEAM), *merge_flags,
-                         "--max-queue-pages", "8192", *extra)
+                         "--max-queue-pages", "8192", *extra, model=model)
 
 
 def record_beam_rounds(engine) -> dict:
@@ -2750,8 +2798,8 @@ def record_beam_rounds(engine) -> dict:
 
 
 # the dense beam search's best hypothesis of a served sentence, by
-# (compute dtype, sentence): every beam serve phase holds its replies to
-# it, and a sentence is searched once a run
+# ((compute dtype, model file), sentence): every beam serve phase holds
+# its replies to it, and a sentence is searched once a run
 DENSE_BEAM = {}
 # the beam serve runs' figures by name, for the lines that set the fused
 # merge beside the host merge
@@ -2762,11 +2810,12 @@ def dense_beam_best(tr, sents, caps, engine) -> list:
     """The best hypothesis of each of ``sents`` in the port's dense beam
     search on the card at ``engine``'s beam, normalization and decode
     caps (``caps``: sentences of one cap decode in one batch), from
-    DENSE_BEAM where a phase searched it before."""
+    DENSE_BEAM where a phase searched it before (with the same model
+    file and compute dtype)."""
     from marian_tpu_torch.translator.beam_search import (BeamConfig,
                                                          BeamSearch,
                                                          beam_search)
-    dtype = str(tr.model.cfg.compute_dtype)
+    dtype = (str(tr.model.cfg.compute_dtype), tr.options.get("models")[0])
     groups = {}
     for i, cap in enumerate(caps):
         if (dtype, sents[i]) not in DENSE_BEAM:
@@ -3050,7 +3099,7 @@ def phase_watchdog_serve(seed: int) -> None:
     lines = []
 
     # request mode: the translate call of the stalled request's batch
-    app = ServingApp(request_options(*flag))
+    app = ServingApp(request_options(*flag, model=SERVE_CUT_MODEL))
     sched, tr = app.scheduler, app.service.translator
     wedge = Wedge()
     real = sched.translate_lines
@@ -3067,7 +3116,7 @@ def phase_watchdog_serve(seed: int) -> None:
     del app, sched, tr, real
 
     # iteration greedy: the engine round that joins the stalled request
-    app = ServingApp(serve_options(*flag))
+    app = ServingApp(serve_options(*flag, model=SERVE_CUT_MODEL))
     old = app.scheduler.engine
     wedge = Wedge()
     step = old.admit_and_step
@@ -3171,7 +3220,7 @@ def phase_fused_pressure(seed: int) -> dict:
     (a preclaim of up to 41 pages a sentence). Rounds fall back to one
     host-merge step, no sentence is evicted, and every reply is still the
     dense search's."""
-    page_bytes = 2 * BASE["dec-depth"] * BASE["dim-emb"] * 16 * 4
+    page_bytes = 2 * SERVE_CUT_DEPTH * BASE["dim-emb"] * 16 * 4
     pages = PRESSURE_ROWS * -(-128 // 16)
     return beam_serve_run(
         "fused beam pressure", seed,
@@ -3279,7 +3328,8 @@ def phase_prefix_serve_main_path(seed: int) -> dict:
     all_counts = []
     for what, flags in (
             ("prefix serve, greedy", serve_options(
-                "--prefix-cache", "--iteration-steps", str(FUSED_STEPS))),
+                "--prefix-cache", "--iteration-steps", str(FUSED_STEPS),
+                model=SERVE_CUT_MODEL)),
             ("prefix serve, beam", beam_serve_options(
                 "--prefix-cache", "--iteration-steps", str(FUSED_STEPS),
                 merge=None))):
@@ -3497,8 +3547,10 @@ def per_row_logit_times(tr) -> None:
 
 
 def phase_decode_surface(seed: int) -> dict:
-    """The decode surface on the serve model (``serve_weights``), with a
-    lex table from ``seed`` (``write_lex``): the dense search and the
+    """The decode surface on the serve model's 2+2-layer cut
+    (SERVE_CUT_MODEL, ``serve_weights`` of the base cut's weights: depth
+    cut for time), with a lex table from ``seed`` (``write_lex``): the
+    dense search and the
     paged engines with --shortlist, --force-decode, --output-sampling,
     --n-best, --word-scores and #stream:1 (see each check's line).
     Counted: the dense shortlisted beam-6 decode (decode_attention, the
@@ -3529,7 +3581,7 @@ def phase_decode_surface(seed: int) -> dict:
 
     # the dense search, beam 6, the shortlist (one a batch): counted, and
     # equal to the CPU's; --word-scores sum to the raw scores
-    tr, hyps, secs, counts = decode_run("serve.npz", cut, *sl,
+    tr, hyps, secs, counts = decode_run(SERVE_CUT_MODEL, cut, *sl,
                                         "--word-scores")
     check_decode_counts(tr, counts, 1, "packed_attention")
     all_counts.append(counts)
@@ -3539,7 +3591,7 @@ def phase_decode_surface(seed: int) -> dict:
         worst = max(worst, abs(sum(ws) - float(h[3].split()[1])))
     check(worst < 1e-3, f"word scores sum off their raw score by {worst}")
     decode_card_vs_cpu(f"{len(cut)} sentences, serve model, --shortlist "
-                       f"100 20", "serve.npz", cut, *sl)
+                       f"100 20", SERVE_CUT_MODEL, cut, *sl)
     print(f"decode surface: dense beam {BEAM} with --shortlist lex.s2t 100 "
           f"20 on {len(cut)} sentences: {secs:.3f} s, steps "
           f"{tr.search.steps}; --word-scores sum to the raw score within "
@@ -3549,7 +3601,7 @@ def phase_decode_surface(seed: int) -> dict:
     # it; the copy head's top-1 margin over the full vocabulary (a lower
     # bound of the shortlisted margin)
     def dense_lines(*flags):
-        t = Translate(decoder_options("serve.npz", "--beam-size", "1",
+        t = Translate(decoder_options(SERVE_CUT_MODEL, "--beam-size", "1",
                                       *flags))
         return t, t.run(sents, io.StringIO())
     tr1, with_sl = dense_lines(*sl)
@@ -3579,9 +3631,11 @@ def phase_decode_surface(seed: int) -> dict:
     # decode of its sentence alone
     for what, flags, beam in (
             ("iteration greedy", serve_options(*sl, "--iteration-steps",
-                                               str(FUSED_STEPS)), 1),
+                                               str(FUSED_STEPS),
+                                               model=SERVE_CUT_MODEL), 1),
             ("fused beam", beam_serve_options(*sl, "--iteration-steps",
-                                              str(FUSED_STEPS), merge=None),
+                                              str(FUSED_STEPS), merge=None,
+                                              model=SERVE_CUT_MODEL),
              SERVE_BEAM)):
         app, replies, counts = surface_serve(what, seed, sents, flags,
                                              guard=True)
@@ -3605,14 +3659,15 @@ def phase_decode_surface(seed: int) -> dict:
               for i in range(len(cut))]
     (WORK / "fd.src").write_text("\n".join(cut) + "\n")
     (WORK / "fd.pfx").write_text("\n".join(trunks) + "\n")
-    trf = Translate(decoder_options("serve.npz", "--force-decode", "--input",
+    trf = Translate(decoder_options(SERVE_CUT_MODEL, "--force-decode", "--input",
                                     str(WORK / "fd.src"),
                                     str(WORK / "fd.pfx")))
     out = io.StringIO()
     trf.run(stream=out)
     request_replies = out.getvalue().splitlines()
     app = ServingApp(beam_serve_options("--force-decode", "--iteration-steps",
-                                        str(FUSED_STEPS), merge=None))
+                                        str(FUSED_STEPS), merge=None,
+                                        model=SERVE_CUT_MODEL))
     engine = app.scheduler.engine
     iteration_replies, _, _, _, _ = serve_counted(
         app, [f"{s}\t{p}" for s, p in zip(cut, trunks)], [], dict)
@@ -3632,20 +3687,21 @@ def phase_decode_surface(seed: int) -> dict:
 
     # sampling: topk 1 is the unsampled decode; topk 10 0.8 replays at one
     # seed (a fresh engine, a fresh search)
-    stream_app = ServingApp(serve_options())
+    stream_app = ServingApp(serve_options(model=SERVE_CUT_MODEL))
     plain = stream_app.scheduler.engine.decode_texts(sents)
-    app = ServingApp(serve_options("--output-sampling", "topk", "1"))
+    app = ServingApp(serve_options("--output-sampling", "topk", "1",
+                                   model=SERVE_CUT_MODEL))
     check(app.scheduler.engine.decode_texts(sents) == plain,
           "iteration greedy at --output-sampling topk 1 differs from the "
           "unsampled decode")
-    trs = Translate(decoder_options("serve.npz", "--beam-size", "1",
+    trs = Translate(decoder_options(SERVE_CUT_MODEL, "--beam-size", "1",
                                     "--output-sampling", "topk", "1"))
     check(trs.run(sents, io.StringIO()) == without, "the dense search at "
           "--output-sampling topk 1 differs from the unsampled decode")
     app = ServingApp(serve_options("--output-sampling", "topk", "10", "0.8",
-                                   "--seed", "5"))
+                                   "--seed", "5", model=SERVE_CUT_MODEL))
     runs = [app._build_engine().decode_texts(cut) for _ in range(2)]
-    trs = Translate(decoder_options("serve.npz", "--output-sampling", "topk",
+    trs = Translate(decoder_options(SERVE_CUT_MODEL, "--output-sampling", "topk",
                                     "10", "0.8", "--seed", "5"))
     dense_runs = []
     for _ in range(2):
@@ -3663,7 +3719,8 @@ def phase_decode_surface(seed: int) -> dict:
     # iteration n-best (the fused beam at beam SERVE_BEAM) against request
     # mode's n-best block of each sentence at the engine's cap
     app = ServingApp(beam_serve_options("--n-best", "--iteration-steps",
-                                        str(FUSED_STEPS), merge=None))
+                                        str(FUSED_STEPS), merge=None,
+                                        model=SERVE_CUT_MODEL))
     engine = app.scheduler.engine
     check(engine.prefix is None and engine.features.n_best, "n-best engine")
     blocks, _, _, _, _ = serve_counted(app, cut, [], dict)
@@ -3706,6 +3763,722 @@ def phase_decode_surface(seed: int) -> dict:
           f"each a prefix of its final reply; the final reply equals the "
           f"unstreamed one")
     return add_counts(*all_counts)
+
+
+# ---------------------------------------------------------------------------
+# checkpoint bundles and the zero-downtime model lifecycle
+# ---------------------------------------------------------------------------
+
+def model_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in params.values())
+
+
+class _OptimizerArrays:
+    """Stands in for a GraphGroup at a save or a restore: hands over (or
+    records) the optimizer arrays."""
+
+    def __init__(self, arrays=None):
+        self.arrays = arrays
+
+    def optimizer_arrays(self):
+        return self.arrays
+
+    def load_optimizer_arrays(self, arrays):
+        self.arrays = {k: np.asarray(v) for k, v in arrays.items()}
+
+
+def phase_train_bundles() -> None:
+    """The base train path's saves as bundles: ``train.npz.bundles``
+    holds one committed bundle a save (two: the warm-up run's and the
+    counted run's, under the default keep of 3), each validates, the
+    top-level ``train.npz`` is the newest bundle's model member byte for
+    byte; a copy whose newest model member is truncated restores (what
+    a resume loads) from the bundle before it; and one save of that
+    state (model, EMA, Adam moments, progress) timed as a bundle commit
+    (stage, fsync, sha256, rename, publish) beside the same files
+    written flat."""
+    import filecmp
+    import shutil
+    from marian_tpu_torch.common import io as mio
+    from marian_tpu_torch.training import bundle as bdl
+    from marian_tpu_torch.training import checkpoint as ckpt
+    model = WORK / "train.npz"
+    root = Path(bdl.bundle_root(str(model)))
+    names = bdl.list_bundles(str(root))
+    saves = 2
+    check(names == [f"bundle-{i:08d}" for i in range(1, min(saves, 3) + 1)],
+          f"train.npz.bundles holds {names} after {saves} saves")
+    # the newest validates here, the one before it in the crash copy's
+    # restore below (which hashes every member of each bundle it takes)
+    ok, why, manifest = bdl.validate_bundle(str(root / names[-1]))
+    check(ok, f"bundle {names[-1]}: {why}")
+    newest = root / names[-1]
+    check(filecmp.cmp(newest / "train.npz", model, shallow=False),
+          "the top-level train.npz differs from the newest bundle's member")
+    members = sorted(manifest["members"])
+    # a crash copy (hardlinks; the newest model member a truncated copy)
+    crash = WORK / "crash"
+    shutil.rmtree(crash, ignore_errors=True)
+    crash.mkdir()
+    shutil.copytree(root, crash / root.name, copy_function=os.link)
+    victim = crash / root.name / names[-1] / "train.npz"
+    data = victim.read_bytes()
+    victim.unlink()
+    victim.write_bytes(data[:len(data) // 2])
+    opt = _OptimizerArrays()
+    params, config, state = ckpt.load_checkpoint(str(crash / "train.npz"),
+                                                 opt)
+    want, _ = mio.load_model(str(root / names[-2] / "train.npz"))
+    check(state.batches == WARM_UPDATES
+          and sorted(params) == sorted(want)
+          and all(np.array_equal(params[k], want[k]) for k in want)
+          and opt.arrays is not None,
+          f"the crash copy restored update {state.batches}, not the bundle "
+          f"before the truncated one")
+    # one save of that state: flat, then committed as a bundle
+    smooth, _ = mio.load_model(str(root / names[-2] / "train.ema.npz"))
+    shutil.rmtree(crash)
+    probe = WORK / "probe"
+    shutil.rmtree(probe, ignore_errors=True)
+    probe.mkdir()
+    t0 = time.perf_counter()
+    mio.save_model(str(probe / "flat.npz"), params, config)
+    mio.save_model(str(probe / "flat.ema.npz"), smooth, config)
+    with open(probe / "flat.npz.optimizer.npz", "wb") as fh:
+        np.savez(fh, **opt.arrays)
+    state.save(str(probe / "flat.npz.progress.yml"))
+    flat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(str(probe / "b.npz"), params, config, opt, state,
+                         smooth_params=smooth)
+    commit_s = time.perf_counter() - t0
+    with open(os.path.join(bdl.bundle_root(str(probe / "b.npz")),
+                           "bundle-00000001", bdl.MANIFEST_NAME)) as fh:
+        hashed = sum(info["bytes"]
+                     for info in json.load(fh)["members"].values())
+    shutil.rmtree(probe)
+    print(f"bundles: train.npz.bundles holds {names} after {saves} saves, "
+          f"each validates ({len(members)} members: {members}; the older "
+          f"one in the restore); train.npz is "
+          f"{names[-1]}'s member byte for byte; with its model member "
+          f"truncated the restore falls back to {names[-2]} (update "
+          f"{WARM_UPDATES}, parameters equal); one save of that "
+          f"state: flat {flat_s:.3f} s, bundle commit {commit_s:.3f} s "
+          f"({hashed / 1e9:.3f} GB written, fsync'd and hashed; "
+          f"+{commit_s - flat_s:.3f} s)")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port: int, path: str, method: str = "GET"):
+    """(status, body) of one request to the metrics port."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 method=method,
+                                 data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as fh:
+            return fh.status, fh.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def commit_copy(model: Path, src_bundle: str, state=None) -> str:
+    """Commit a bundle of ``src_bundle``'s model member under ``model``
+    through the port's save_checkpoint (the trainer's commit)."""
+    from marian_tpu_torch.common import io as mio
+    from marian_tpu_torch.training import checkpoint as ckpt
+    from marian_tpu_torch.training.training_state import TrainingState
+    params, config = mio.load_model(src_bundle)
+    ckpt.save_checkpoint(str(model), params, config,
+                         state=state or TrainingState())
+    from marian_tpu_torch.training import bundle as bdl
+    return os.path.join(bdl.bundle_root(str(model)),
+                        bdl.list_bundles(bdl.bundle_root(str(model)))[-1])
+
+
+async def closed_loop(port: int, sents, clients: int, until):
+    """``clients`` clients, each sending its share of ``sents`` one
+    request after another (the next once the reply is in), and on from
+    the start of its share until ``until()`` holds: (sentence, reply,
+    start, end) of every request, in the order they ended."""
+    out = []
+
+    async def client(c):
+        mine = sents[c::clients]
+        i = 0
+        while i < len(mine) or not until():
+            text = mine[i % len(mine)]
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            try:
+                payload = text.encode("utf-8")
+                t0 = time.perf_counter()
+                writer.write(b"MTPU %d\n" % len(payload) + payload)
+                await writer.drain()
+                header = await reader.readline()
+                check(header.startswith(b"MTPU "), f"reply header {header!r}")
+                body = await reader.readexactly(int(header.split()[1]))
+                out.append((text, body.decode("utf-8"), t0,
+                            time.perf_counter()))
+            finally:
+                writer.close()
+            i += 1
+    await asyncio.gather(*[client(c) for c in range(clients)])
+    return out
+
+
+def latency_classes(done, warm, swap) -> str:
+    """Served p50/p99 of the requests that ended before the candidate's
+    warmup, overlapped it (load + golden decode), and started after the
+    swap."""
+    groups = {"before the warmup": [d for d in done if d[3] < warm[0]],
+              "during the warmup": [d for d in done
+                                    if d[2] < warm[1] and d[3] > warm[0]],
+              "after the swap": [d for d in done if d[2] >= swap]}
+    parts = []
+    for name, ds in groups.items():
+        if ds:
+            p = np.percentile([1e3 * (d[3] - d[2]) for d in ds], [50, 99])
+            parts.append(f"{name} {len(ds)} requests p50 {p[0]:.1f} ms "
+                         f"p99 {p[1]:.1f} ms")
+        else:
+            parts.append(f"{name} no request")
+    return "; ".join(parts)
+
+
+def watch_lifecycle(app, times: dict) -> None:
+    """Wraps the app's SwapController: into ``times`` go the times each
+    ingest (compat check, load, golden decode, install) started and
+    ended and each swap happened, by bundle name."""
+    ctrl = app.lifecycle
+    ingest, swap = ctrl.ingest, ctrl._swap_to_live
+
+    def timed_ingest(bundle_dir, manifest):
+        name = os.path.basename(bundle_dir)
+        times[name, "ingest"] = time.perf_counter()
+        try:
+            return ingest(bundle_dir, manifest)
+        finally:
+            times[name, "done"] = time.perf_counter()
+
+    def timed_swap(v):
+        swap(v)
+        times[v.name, "swap"] = time.perf_counter()
+    ctrl.ingest, ctrl._swap_to_live = timed_ingest, timed_swap
+    app.watcher.on_bundle = timed_ingest
+
+
+def wait_until(pred, what: str, timeout: float = 120.0) -> None:
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout, f"timed out: {what}")
+        time.sleep(0.01)
+
+
+def phase_lifecycle_serve(seed: int) -> dict:
+    """The model lifecycle in request mode (the server's default, beam
+    12) at full width, with --model-watch 0.2 and --metrics-port, on the
+    copying weights' 2+2-layer cut (SERVE_CUT_MODEL; depth cut for time)
+    committed as bundle A of ``life.npz``:
+
+    - /readyz answers 503 while the server boots (its --warmup-on-boot
+      golden decode) and 200 once it serves;
+    - swap under load: the port's marian_train, in this process, trains
+      2 updates on life.npz (resuming from A) and commits B, while 16
+      clients send 256 sentences one request after another (and on until
+      B has served a while); zero failures, every reply equals
+      Translate.run of A or of B on the card, and once /lifecyclez shows
+      B live every reply is B's (the outcome series by version);
+    - canary rollback at --canary-fraction 0.5 --canary-min-batches 8: a
+      candidate C (B's weights, committed again) whose executor the
+      phase wraps to raise after its golden decode is rolled back with
+      zero client failures, counted in /metrics; the card's allocated
+      bytes rise by C's model while it is canary and fall back when it
+      is released;
+    - compat refusal: a bundle D whose manifest has another vocabulary
+      hash is refused with nothing loaded (allocated bytes unchanged);
+    - POST /admin/rollback returns live to A.
+    The swap runs with the canary fraction at 0 (an immediate swap)."""
+    from marian_tpu_torch.common.config_parser import parse_options
+    from marian_tpu_torch.server.server import ServingApp, _make_tcp_handler
+    from marian_tpu_torch.training import bundle as bdl
+    from marian_tpu_torch.training import checkpoint as ckpt
+    from marian_tpu_torch.training.training_state import TrainingState
+    from marian_tpu_torch.training.graph_group import GraphGroup
+    from marian_tpu_torch.training.train import Train
+    from marian_tpu_torch.common import io as mio
+    import shutil
+    model = WORK / "life.npz"
+    for f in WORK.glob("life*"):
+        shutil.rmtree(f) if f.is_dir() else f.unlink()
+    # A: the copying weights under the trainer's own config (its geometry
+    # and vocabularies: the compat block B's commit will carry)
+    params, _ = mio.load_model(str(WORK / SERVE_CUT_MODEL))
+    tconfig = parse_options(train_argv("life.npz", 0, *LIFE_DEPTH),
+                            mode="training").as_yaml()
+    ckpt.save_checkpoint(str(model), params, tconfig, state=TrainingState())
+    mport = free_port()
+    opts = request_options("--models", str(model), "--model-watch", "0.2",
+                           "--metrics-port", str(mport),
+                           "--canary-fraction", "0.5",
+                           "--canary-min-batches", "8", "--warmup-on-boot")
+    sents = serve_sentences(seed, SERVE_SENTENCES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_phase = time.perf_counter()
+    # B: the trainer's own commit, in this process. It loads its data and
+    # A's bundle while the server boots, and takes its first update once
+    # the server serves (``serving``), so its commit lands under load
+    serving, train_err = threading.Event(), []
+    update = GraphGroup.update
+
+    def gated(gg, *args, **kw):
+        serving.wait(120)
+        return update(gg, *args, **kw)
+
+    def train_b():
+        try:
+            Train(parse_options(train_argv("life.npz", 2, "--overwrite",
+                                           *LIFE_DEPTH),
+                                mode="training")).run()
+        except BaseException as e:  # noqa: BLE001
+            train_err.append(e)
+    GraphGroup.update = gated
+    trainer = threading.Thread(target=train_b, daemon=True)
+    trainer.start()
+    app = ServingApp(opts)
+    ctrl = app.lifecycle
+    check(ctrl is not None and ctrl.live_version_name() == "bundle-00000001",
+          f"boot did not adopt bundle A: {ctrl and ctrl.status()}")
+    ctrl.canary_fraction = 0.0
+    times = {}
+    ready_codes = []
+    stop_poll = threading.Event()
+
+    def poll_ready():
+        while not stop_poll.is_set():
+            try:
+                ready_codes.append(http_get(mport, "/readyz")[0])
+            except OSError:
+                pass                      # not listening yet
+            if ready_codes and ready_codes[-1] == 200:
+                return
+            time.sleep(0.005)
+    poller = threading.Thread(target=poll_ready, daemon=True)
+    poller.start()
+    model_b = model_bytes(app.service.translator.params)
+    res = {}
+
+    async def serve():
+        app.start()
+        watch_lifecycle(app, times)
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        loop = asyncio.get_event_loop()
+        try:
+            await loop.run_in_executor(None, poller.join, 30)
+
+            def until():
+                t = times.get(("bundle-00000002", "swap"))
+                return t is not None and time.perf_counter() - t > 1.0
+            serving.set()
+            done = await closed_loop(port, sents, SERVE_CLIENTS, until)
+            await loop.run_in_executor(None, trainer.join, 120)
+            GraphGroup.update = update
+            check(not train_err, f"training B failed: {train_err}")
+            code, body = await loop.run_in_executor(
+                None, http_get, mport, "/lifecyclez")
+            status = json.loads(body)
+            check(code == 200 and status["live"] == "bundle-00000002"
+                  and status["rollback_target"] == "bundle-00000001",
+                  f"/lifecyclez after the swap: {status}")
+            res["swap"] = done
+            # post-swap: 32 more, every reply B's
+            outs = app.registry.get("marian_serving_request_outcomes_total")
+            b_ok = outs.labels("ok", "bundle-00000002").value
+            post = sents[:32]
+            res["post"], _ = await serve_traffic(port, post, SERVE_CLIENTS)
+            check(outs.labels("ok", "bundle-00000002").value - b_ok == 32,
+                  "post-swap requests not resolved under B's version")
+            # C: a canary that fails every batch after its golden decode
+            ctrl.canary_fraction = 0.5
+            real = ctrl.executor_factory
+
+            def factory(bundle_dir, manifest):
+                ex = real(bundle_dir, manifest)
+                if int(manifest["seq"]) != 3:
+                    return ex
+                calls = [0]
+
+                def failing(lines):
+                    calls[0] += 1
+                    if calls[0] > 1:
+                        raise RuntimeError("candidate C fails its batches")
+                    return ex(lines)
+                return failing
+            ctrl.executor_factory = factory
+            gc.collect()
+            mem0 = torch.cuda.memory_allocated()
+            b_member = os.path.join(bdl.bundle_root(str(model)),
+                                    "bundle-00000002", "life.npz")
+            await loop.run_in_executor(None, commit_copy, model, b_member)
+            await loop.run_in_executor(
+                None, wait_until,
+                lambda: ctrl.status()["canary"] == "bundle-00000003",
+                "C canary")
+            mem1 = torch.cuda.memory_allocated()
+            short = [" ".join(s.split()[:4]) for s in sents[:16]]
+            canary = []
+            for text in short:
+                canary.append(await serve_traffic(port, [text], 1))
+            gc.collect()
+            mem2 = torch.cuda.memory_allocated()
+            res["canary"] = [(t, r[0][0]) for t, r in zip(short, canary)]
+            res["mem"] = (mem0, mem1, mem2)
+            code, metrics = await loop.run_in_executor(
+                None, http_get, mport, "/metrics")
+            res["metrics"] = metrics
+            # D: another vocabulary's hash in its manifest
+            manifest = bdl.validate_bundle(os.path.dirname(b_member))[2]
+            bad = json.loads(json.dumps(manifest["compat"]))
+            bad["vocabs"][0]["sha256"] = "0" * 64
+            gc.collect()
+            mem_d = torch.cuda.memory_allocated()
+            await loop.run_in_executor(
+                None, lambda: bdl.write_bundle(
+                    str(model), {"life.npz": lambda p: os.link(b_member, p)},
+                    compat=bad))
+            await loop.run_in_executor(
+                None, wait_until,
+                lambda: any(r["version"] == "bundle-00000004"
+                            and r["state"] == "rejected"
+                            for r in ctrl.status()["versions"]), "D refused")
+            gc.collect()
+            res["mem_d"] = (mem_d, torch.cuda.memory_allocated())
+            # the admin verb
+            code, body = await loop.run_in_executor(
+                None, http_get, mport, "/admin/rollback", "POST")
+            res["admin"] = (code, json.loads(body))
+            res["after_admin"], _ = await serve_traffic(port, sents[:4], 4)
+            res["status"] = ctrl.status()
+        finally:
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+    asyncio.run(serve())
+    stop_poll.set()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    secs = time.perf_counter() - t_phase
+    tr = app.service.translator
+    # the references: Translate.run of A (the boot service) and of B
+    ref_a = tr.run(sents, io.StringIO())
+    done = res["swap"]
+    warm = (times[("bundle-00000002", "ingest")],
+            times[("bundle-00000002", "swap")])
+    # B answers nothing that ended before its warmup began
+    late_sents = sorted({t for t, _, _, t1 in done if t1 >= warm[0]}
+                        | set(sents[:32]))
+    short = [t for t, _ in res["canary"]]
+    svc_b = app._bundle_service(os.path.join(
+        bdl.bundle_root(str(model)), "bundle-00000002"))
+    got_b = svc_b.translator.run(late_sents + short, io.StringIO())
+    del svc_b
+    ref_b = dict(zip(late_sents, got_b))
+    ref_short = got_b[len(late_sents):]
+    ref = {s: (a, ref_b.get(s)) for s, a in zip(sents, ref_a)}
+    bad = [(t, r) for t, r, _, _ in done if r not in ref[t]]
+    check(not bad, f"swap under load: {len(bad)} replies equal neither A's "
+          f"nor B's Translate.run ({bad[:2]})")
+    swap_t = times[("bundle-00000002", "swap")]
+    late = [(t, r) for t, r, t0, _ in done if t0 >= swap_t
+            and r != ref[t][1]]
+    check(not late and all(r == ref[t][1] for t, r in
+                           zip(sents[:32], res["post"])),
+          f"replies after the swap that are not B's: {late[:2]}")
+    check(not [t for t, r, _, t1 in done if t1 < warm[0] and r != ref[t][0]],
+          "a reply that ended before B's warmup is not A's")
+    check(ready_codes and ready_codes[0] == 503 and ready_codes[-1] == 200,
+          f"/readyz while booting and serving: {ready_codes[:3]} ... "
+          f"{ready_codes[-1:]}")
+    st = res["status"]
+    states = {r["version"]: r["state"] for r in st["versions"]}
+    check(states.get("bundle-00000003") == "failed"
+          and "marian_lifecycle_rollbacks_total 1" in res["metrics"]
+          and [r for _, r in res["canary"]] == ref_short,
+          f"canary C: {states}, replies {res['canary'][:2]}")
+    mem0, mem1, mem2 = res["mem"]
+    check(mem1 - mem0 >= 0.9 * model_b and abs(mem2 - mem0) < model_b / 4,
+          f"canary bytes: {mem0} before, {mem1} while C is canary, {mem2} "
+          f"after its release (one model {model_b})")
+    check(states.get("bundle-00000004") == "rejected"
+          and res["mem_d"][0] == res["mem_d"][1],
+          f"D: {states.get('bundle-00000004')}, allocated {res['mem_d']}")
+    code, body = res["admin"]
+    check(code == 200 and body["live"] == "bundle-00000001"
+          and st["live"] == "bundle-00000001"
+          and res["after_admin"] == ref_a[:4],
+          f"POST /admin/rollback: {code} {body}, live {st['live']}")
+    check(all(counts[k] > 0 for k in ("decode_attention", "packed_attention",
+                                      "packed_attention_bwd", "fused_ce_fwd",
+                                      "fused_ce_dx", "fused_ce_dw")),
+          f"lifecycle serve launches {counts}")
+    cfg = tr.model.cfg
+    print(f"lifecycle serve: request mode, beam 12, copying transformer "
+          f"{cfg.enc_depth}+{cfg.dec_depth}, dim {cfg.dim_emb}, vocab "
+          f"{len(tr.trg_vocab)} ({model_b / 1e9:.3f} GB of weights), "
+          f"--model-watch 0.2: /readyz "
+          f"{ready_codes[0]} while booting ({len(ready_codes)} polls), then "
+          f"200; B committed by marian_train (2 updates, in this process) "
+          f"under load: {len(done)} requests from {SERVE_CLIENTS} clients, "
+          f"zero failures, each reply A's or B's Translate.run; B warmed "
+          f"(load + golden decode) in {warm[1] - warm[0]:.3f} s and swapped "
+          f"in; {latency_classes(done, warm, swap_t)}; 32 after the swap all "
+          f"B's")
+    print(f"lifecycle serve: canary C rolled back after "
+          f"{len(res['canary'])} requests with zero failures (rollbacks "
+          f"counted in /metrics); allocated {mem0 / 2**30:.3f} GiB before "
+          f"C, {mem1 / 2**30:.3f} GiB while C is canary (+"
+          f"{(mem1 - mem0) / 2**30:.3f} GiB), {mem2 / 2**30:.3f} GiB after "
+          f"its release; D refused for its vocabulary hash, allocated bytes "
+          f"unchanged; POST /admin/rollback -> live {body['live']}; phase "
+          f"{secs:.1f} s; launches {counts}")
+    return counts
+
+
+def dense_greedy_texts(tr, engine, sents) -> list:
+    """The dense greedy decode of each of ``sents`` on ``tr``'s model,
+    cut at its ``engine`` cap and EOS."""
+    from marian_tpu_torch.translator.greedy import greedy_decode
+    ids, src, mask = source_batch(tr, sents, engine.device)
+    caps = [engine.decode_cap(len(x)) for x in ids]
+    dense = greedy_decode(tr.model, tr.params, src, mask, max(caps))
+    out = []
+    for i, cap in enumerate(caps):
+        toks = list(dense[i, :cap])
+        toks = toks[:toks.index(0)] if 0 in toks else toks
+        out.append(tr.trg_vocab.decode(toks))
+    return out
+
+
+def phase_lifecycle_iteration(seed: int) -> dict:
+    """The model lifecycle in iteration mode, through the scheduler's
+    quiesce protocol, on the copying weights' 2+2-layer cut
+    (SERVE_CUT_MODEL) committed as bundle A of ``iter.npz``:
+
+    - greedy at 64 slots with --quiesce-deadline 0.5: B (the same
+      weights, committed again) is committed while 16 clients send 256
+      sentences one request after another; every reply is A's dense
+      greedy decode, B's, or !!SERVER-RETRY, the retries equal
+      marian_serving_quiesce_evictions_total, the old engine's pool
+      audits clean with every page free, the new engine's too after the
+      traffic; a third commit retires A out of the rollback slot, and
+      its engine and KV pool leave the card (A's weights stay: the boot
+      model the server rebuilds from);
+    - the fused beam at beam 6, FUSED_STEPS steps a round, on 8
+      sentences with the live engine's rounds under
+      torch.cuda.set_sync_debug_mode("error"): a commit swaps in (its
+      load and golden decode on the watcher thread never overlap a
+      guarded round), every reply the dense beam search's best or
+      !!SERVER-RETRY, the retries the quiesce evictions, the sync-debug
+      mode back to its default."""
+    import shutil
+    import weakref
+    from marian_tpu_torch.common import io as mio
+    from marian_tpu_torch.server.server import ServingApp, _make_tcp_handler
+    from marian_tpu_torch.serving import metrics as msm
+    from marian_tpu_torch.training import bundle as bdl
+    from marian_tpu_torch.training import checkpoint as ckpt
+    from marian_tpu_torch.training.training_state import TrainingState
+    model = WORK / "iter.npz"
+    for f in WORK.glob("iter*"):
+        shutil.rmtree(f) if f.is_dir() else f.unlink()
+    params, config = mio.load_model(str(WORK / SERVE_CUT_MODEL))
+    ckpt.save_checkpoint(str(model), params, config, state=TrainingState())
+    a_member = os.path.join(bdl.bundle_root(str(model)), "bundle-00000001",
+                            "iter.npz")
+    sents = serve_sentences(seed, SERVE_SENTENCES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t_phase = time.perf_counter()
+    reg = msm.Registry()
+    app = ServingApp(serve_options("--model-watch", "0.2",
+                                   "--quiesce-deadline", "0.5",
+                                   model="iter.npz"), registry=reg)
+    sched, ctrl = app.scheduler, app.lifecycle
+    check(ctrl.live_version_name() == "bundle-00000001", "boot did not "
+          "adopt bundle A")
+    eng_a = weakref.ref(sched.engine)
+    pool_a = engine_pool_bytes(sched.engine)
+    times, res = {}, {}
+
+    async def serve():
+        app.start()
+        watch_lifecycle(app, times)
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        loop = asyncio.get_event_loop()
+        try:
+            async def commit_b():
+                await asyncio.sleep(0.3)       # rows are decoding
+                await loop.run_in_executor(None, commit_copy, model,
+                                           a_member)
+
+            def until():
+                t = times.get(("bundle-00000002", "swap"))
+                return t is not None and time.perf_counter() - t > 1.0
+            committer = asyncio.ensure_future(commit_b())
+            res["done"] = await closed_loop(port, sents, SERVE_CLIENTS,
+                                            until)
+            await committer
+            old = eng_a()
+            res["old_audit"] = (old.audit(), old.pool.free_pages()
+                                == old.pool.usable_pages, old.idle())
+            del old
+            eng_b = sched.engine
+            res["new_audit"] = (eng_b.audit(), eng_b.idle(),
+                                eng_b is ctrl.live_version().executor.engine)
+            del eng_b
+            res["evictions"] = sched.m_quiesce_evictions.value
+            res["quiesces"] = sched.m_quiesces.value
+            # B2: A leaves the rollback slot, its engine and pool the card
+            gc.collect()
+            mem0 = torch.cuda.memory_allocated()
+            await loop.run_in_executor(None, commit_copy, model, a_member)
+            await loop.run_in_executor(
+                None, wait_until,
+                lambda: ctrl.live_version_name() == "bundle-00000003",
+                "B2 live")
+            gc.collect()
+            res["mem"] = (mem0, torch.cuda.memory_allocated(),
+                          model_bytes(ctrl.live_version().executor.engine
+                                      .params))
+            res["a_gone"] = eng_a() is None
+        finally:
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+    asyncio.run(serve())
+    tr = app.service.translator
+    done = res["done"]
+    engine_b = ctrl.live_version().executor.engine
+    ref_a = dense_greedy_texts(tr, engine_b, sents)
+    svc_b = app._bundle_service(os.path.join(bdl.bundle_root(str(model)),
+                                             "bundle-00000002"))
+    ref_b = dense_greedy_texts(svc_b.translator, engine_b, sents)
+    del svc_b
+    ref = {s: (a, b) for s, a, b in zip(sents, ref_a, ref_b)}
+    retries = [r for _, r, _, _ in done if r.startswith("!!SERVER-RETRY")]
+    bad = [(t, r) for t, r, _, _ in done
+           if r not in ref[t] and not r.startswith("!!SERVER-RETRY")]
+    check(not bad, f"iteration swap: {len(bad)} replies are neither A's, "
+          f"B's nor a retry ({bad[:2]})")
+    check(len(retries) == res["evictions"] and res["quiesces"] == 1,
+          f"{len(retries)} retries, {res['evictions']} quiesce evictions, "
+          f"{res['quiesces']} quiesces")
+    check(res["old_audit"] == ([], True, True) and res["new_audit"][0] == []
+          and res["new_audit"][2], f"audits: old {res['old_audit']}, new "
+          f"{res['new_audit']}")
+    mem0, mem1, b2_bytes = res["mem"]
+    check(res["a_gone"] and abs((mem1 - mem0) - b2_bytes) < pool_a / 2,
+          f"A's engine {'freed' if res['a_gone'] else 'still held'}; "
+          f"allocated {mem0} -> {mem1} over B2's load ({b2_bytes} bytes of "
+          f"weights, A's pool {pool_a})")
+    warm = (times[("bundle-00000002", "ingest")],
+            times[("bundle-00000002", "swap")])
+    counts_greedy = read_counts()
+    print(f"lifecycle iteration: copying transformer "
+          f"{engine_b.model.cfg.enc_depth}+{engine_b.model.cfg.dec_depth}, "
+          f"greedy, {SERVE_ROWS} slots, "
+          f"--quiesce-deadline 0.5: {len(done)} requests from "
+          f"{SERVE_CLIENTS} clients while B was committed, warmed (load, "
+          f"golden decode, {len(engine_b.row_buckets)} row buckets) and "
+          f"swapped in through one quiesce: each reply A's or B's dense "
+          f"greedy decode or one of {len(retries)} !!SERVER-RETRY (= "
+          f"{int(res['evictions'])} quiesce evictions); ingest to swap "
+          f"{warm[1] - warm[0]:.3f} s; {latency_classes(done, warm, warm[1])};"
+          f" the old pool audited clean with every page free; a third "
+          f"commit released A's engine and its {pool_a / 2**20:.1f} MiB "
+          f"pool (allocated {mem0 / 2**30:.3f} -> {mem1 / 2**30:.3f} GiB "
+          f"over B2's {b2_bytes / 2**30:.3f} GiB load)")
+    del engine_b
+    app = ctrl = sched = None
+    gc.collect()
+
+    # the fused beam, the live engine's rounds under the sync guard
+    sents8 = sents[:8]
+    reg = msm.Registry()
+    app = ServingApp(beam_serve_options(
+        "--iteration-steps", str(FUSED_STEPS), "--model-watch", "0.2",
+        "--quiesce-deadline", "0.5", merge=None, model="iter.npz"),
+        registry=reg)
+    engine = app.scheduler.engine
+    engine.sync_debug = "error"
+    times = {}
+
+    async def serve_beam():
+        app.start()
+        watch_lifecycle(app, times)
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        loop = asyncio.get_event_loop()
+        try:
+            async def commit_b():
+                await asyncio.sleep(0.3)
+                await loop.run_in_executor(None, commit_copy, model,
+                                           a_member)
+            committer = asyncio.ensure_future(commit_b())
+            replies, _ = await serve_traffic(port, sents8, len(sents8))
+            await committer
+            await loop.run_in_executor(
+                None, wait_until,
+                lambda: app.lifecycle.live_version_name()
+                == "bundle-00000004", "the beam swap")
+            return replies
+        finally:
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+    replies = asyncio.run(serve_beam())
+    engine.sync_debug = None
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(torch.cuda.get_sync_debug_mode() == 0, "the sync-debug mode was "
+          "not handed back")
+    tr = app.service.translator
+    ids = [tr.src_vocab.encode(t) for t in sents8]
+    caps = [engine.decode_cap(len(x)) for x in ids]
+    best = dense_beam_best(tr, sents8, caps, engine)
+    want = [tr.trg_vocab.decode(b["tokens"]) for b in best]
+    retries = sum(r.startswith("!!SERVER-RETRY") for r in replies)
+    check(all(r == w or r.startswith("!!SERVER-RETRY")
+              for r, w in zip(replies, want))
+          and retries == app.scheduler.m_quiesce_evictions.value
+          and engine.audit() == []
+          and engine.pool.free_pages() == engine.pool.usable_pages,
+          f"fused beam swap: replies {replies[:2]}, {retries} retries, "
+          f"{app.scheduler.m_quiesce_evictions.value} evictions")
+    check(counts["paged_decode_attention"] > 0
+          and counts["packed_attention"] > 0,
+          f"lifecycle iteration launches {counts}")
+    print(f"lifecycle iteration: fused beam {SERVE_BEAM}, {FUSED_STEPS} "
+          f"steps a round, the live engine under the sync guard: 8 "
+          f"sentences while a commit was warmed (on the watcher thread, "
+          f"outside every guarded round) and swapped in: each reply the "
+          f"dense beam search's best or one of {retries} !!SERVER-RETRY (= "
+          f"the quiesce evictions); the old pool audited clean; sync-debug "
+          f"mode back to default; phase {time.perf_counter() - t_phase:.1f}"
+          f" s; launches {counts} (greedy part {counts_greedy})")
+    return counts
 
 
 def write_corpus(seed: int) -> None:
@@ -4696,6 +5469,11 @@ def run_phases(args, smi: str, child) -> int:
     timed("watchdog serve", phase_watchdog_serve, args.seed)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
+    timed("bundles", phase_train_bundles)
+    paths["lifecycle serve"] = timed("lifecycle serve main path",
+                                     phase_lifecycle_serve, args.seed)
+    paths["lifecycle iteration"] = timed("lifecycle iteration main path",
+                                         phase_lifecycle_iteration, args.seed)
     timed("train card vs cpu", phase_train_card_vs_cpu)
     paths["delay train"] = timed("delay train main path",
                                  phase_delay_train_main_path, args.seed)

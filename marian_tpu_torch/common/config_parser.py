@@ -5,9 +5,10 @@ Three modes, as in ``marian_tpu/common/config_parser.py``:
 ``translation`` (the decoder's flags), ``server`` (those plus the
 server's) and ``training`` (the trainer's), each with the
 model flags a checkpoint's ``special:model.yml`` carries, under the same
-names and defaults as the reference; the flags of the JAX package's
-serving planes this port does not carry (lifecycle, fleet, brownout,
-metrics, tracing) and of its mesh machinery are left out. Precedence as
+names and defaults as the reference, the serving lifecycle's and the
+metrics port's among them; the flags of the JAX package's serving planes
+this port does not carry (fleet, brownout, tracing, SLOs) and of its
+mesh machinery are left out. Precedence as
 in Marian: defaults < config file(s) < CLI flags. ``--cpu-threads N``
 (N > 0) runs on the CPU.
 
@@ -55,6 +56,7 @@ _MODEL = [
     _f("type", str, "amun", "Model type (this slice decodes: transformer)"),
     _f("dim-vocabs", int, [0, 0], "Maximum vocabulary sizes (0 = from vocab file)", "+"),
     _f("dim-emb", int, 512, "Embedding vector size"),
+    _f("dim-rnn", int, 1024, "RNN state size (a model-geometry key of the checkpoint's config; the transformer does not read it)"),
     _f("enc-depth", int, 1, "Encoder layers"),
     _f("dec-depth", int, 1, "Decoder layers"),
     _f("right-left", bool, False, "Train right-to-left model"),
@@ -147,6 +149,7 @@ _TRAINING = [
     _f("optimizer-state-dtype", str, "float32", "Storage dtype for Adam's first moment: float32 | bfloat16 (halves m's memory and per-step traffic; math stays f32, v stays f32; beyond the reference)"),
     _f("gradient-dtype", str, "float32", "Dtype gradients are produced and stored in until the optimizer's f32 upcast: float32 | bfloat16 (requires matching bfloat16 compute --precision, otherwise ignored with a warning). Note: the logits backward always rounds its cotangent through the COMPUTE dtype (ops/ops.py logits_matmul), so float32 here does NOT make bf16-compute backward passes fully f32"),
     _f("async-save", bool, False, "Overlap checkpoint writes with training (not ported yet)"),
+    _f("keep-checkpoint-bundles", int, 3, "Crash-safe checkpointing: keep the last N committed checkpoint bundles under <model>.bundles/ (each bundle is the atomic, checksummed model+optimizer+progress unit restore validates and falls back across). Disk cost is ~N x checkpoint size; minimum 1"),
     _f("shuffle", str, "data", "data, batches, none"),
     _f("no-shuffle", bool, False, "Disable shuffling (= --shuffle none)"),
     _f("no-restore-corpus", bool, False, "Do not restore corpus position on resume"),
@@ -238,6 +241,15 @@ _SERVER = [
     _f("max-queue-pages", int, 0, "Iteration mode: admission bound on queued KV-pool page debt (0 = 4x the pool's allocatable pages)"),
     _f("prefix-cache", bool, False, "Iteration mode: cross-request prefix sharing over the paged KV pool: an exact source repeat of a sentence decoding now forks from it copy-on-write (greedy), a repeat of a finished one replays its text; finished rows' pages stay with the cache, LRU-evicted under pool pressure"),
     _f("prefix-cache-entries", int, 64, "With --prefix-cache: the most finished decodes kept (LRU)"),
+    _f("metrics-port", int, 0, "Serve Prometheus /metrics + /healthz + /readyz on this port (0 = off), with /lifecyclez and the POST /admin/{pin,unpin,rollback} verbs under --model-watch"),
+    _f("quiesce-deadline", float, 2.0, "With --batching-mode iteration and --model-watch: drain budget in seconds for a lifecycle quiesce (swap/canary/rollback). Joins pause and active decode rows drain naturally; rows still decoding at the deadline are evicted with a retriable !!SERVER-RETRY (pages freed, counted in marian_serving_quiesce_evictions_total) so a swap is never held hostage by one long sentence; the engine is re-pointed at a step boundary with an empty join set"),
+    _f("model-watch", float, 0.0, "marian-server zero-downtime lifecycle: poll <model>.bundles/ every N seconds for newly committed checkpoint bundles and hot-swap to them after an off-path warmup (compat check, load onto the card, golden decode) with no dropped requests; in-flight batches finish on the old model (0 = off)"),
+    _f("canary-fraction", float, 0.0, "With --model-watch: route this fraction of device batches to a freshly warmed candidate (state 'canary') before promoting it to live; per-version error/latency metrics (marian_model_*) record both sides, and a canary whose failure rate or p99 regresses is auto-rolled-back (0 = swap immediately after warmup; iteration mode: the canary takes all joins for its evaluation window)"),
+    _f("rollback-error-rate", float, 0.5, "With --model-watch: auto-rollback threshold on the windowed device-batch failure rate — a canary (or a freshly swapped live version with a retained rollback target) exceeding this rate is rolled back to the previous live version"),
+    _f("rollback-p99-factor", float, 0.0, "With --model-watch: auto-rollback a canary whose p99 batch latency exceeds this factor x the live version's p99 (both over a recent-sample window; 0 = latency check off)"),
+    _f("canary-min-batches", int, 8, "With --model-watch and --canary-fraction > 0: promote the canary to live after this many canary batches without tripping a rollback threshold"),
+    _f("warmup-golden", str, "", "With --model-watch: file of golden source sentences (one per line) each candidate model must translate during off-path warmup before it can serve — proves the checkpoint loads on the card and decodes (empty = a built-in probe set)"),
+    _f("warmup-on-boot", bool, False, "marian-server: golden-decode every serving width bucket of the boot model BEFORE accepting the first request, instead of letting the first request of each bucket pay its first launches inline"),
 ]
 
 FLAGS = _COMMON + _MODEL + _TRANSLATION

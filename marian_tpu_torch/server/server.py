@@ -46,6 +46,24 @@ failed round or a dry pool, or a device batch or round failed by the
 dispatch watchdog) and ``!!SERVER-ERROR`` (bad frame, or a request
 header whose feature is not ported).
 
+The zero-downtime model lifecycle (``--model-watch S``, both modes;
+``serving/lifecycle/``): a watcher polls ``<model>.bundles/`` every S
+seconds (and is pushed by an in-process trainer's commit hook), warms
+each newly committed bundle off the serving path (compat check against
+the live version's manifest, load onto the card, golden decode; an
+iteration engine at each of its row buckets), then swaps it in — in
+request mode between device batches (``SwapController.route`` is the
+scheduler's ``translate_lines``; ``--canary-fraction`` routes that
+share of batches to the candidate first), in iteration mode through the
+scheduler's quiesce protocol (``--quiesce-deadline``; the canary takes
+all joins for its window). A failing canary's batches are re-served on
+live and it is rolled back (``--rollback-error-rate``,
+``--rollback-p99-factor``, ``--canary-min-batches``); the previous live
+version stays warm as the rollback target, every other version's model
+is released. ``--metrics-port P`` serves ``/metrics``, ``/healthz``,
+``/readyz`` (503 until a live version routes) and, with the lifecycle,
+``/lifecyclez`` and loopback ``POST /admin/{pin,unpin,rollback}``.
+
 ``--dispatch-stall-timeout S`` (both modes) arms the scheduler's
 dispatch watchdog: a device batch or engine round still running after S
 seconds fails its requests with ``!!SERVER-RETRY`` and serving goes on
@@ -68,12 +86,15 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import io
-from typing import Callable, List, Optional, Tuple, Union
+import json
+import os
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from ..common import logging as log
 from ..data.batching import bucket_length
+from ..serving import metrics as msm
 from ..serving.admission import AdmissionController, Overloaded
 from ..serving.scheduler import (ContinuousScheduler, DispatchStalled,
                                  RequestTimeout, RowEvicted)
@@ -147,6 +168,7 @@ class TranslationService:
                  device: Optional[Union[str, torch.device]] = None):
         from ..translator.translator import Translate
         self.translator = Translate(options, device)
+        self.options = options
 
     def translate_lines(self, lines: List[str]) -> List[str]:
         """One device batch of ``lines`` through ``Translate.run``, one
@@ -184,9 +206,12 @@ def _flag_set(options, flag: str) -> bool:
 class ServingApp:
     """One serving stack: the model (TranslationService), the scheduler
     in the configured batching mode (with the paged engine in iteration
-    mode) and admission control. ``translate_lines`` (request mode) and
-    ``engine`` (iteration mode) inject what would otherwise be built from
-    the options; ``device`` overrides the device the options resolve."""
+    mode), admission control, the metrics port and, with
+    ``--model-watch``, the model lifecycle. ``translate_lines`` (request
+    mode) and ``engine`` (iteration mode) inject what would otherwise be
+    built from the options, ``executor_factory`` the lifecycle's loader
+    of a bundle and ``registry`` the metrics registry; ``device``
+    overrides the device the options resolve."""
 
     # The decode-output flags iteration mode must take a position on, and
     # that position: True = carried by the engines' feature plane, a
@@ -211,10 +236,14 @@ class ServingApp:
     def __init__(self, options, engine=None,
                  device: Optional[Union[str, torch.device]] = None,
                  translate_lines: Optional[
-                     Callable[[List[str]], List[str]]] = None):
+                     Callable[[List[str]], List[str]]] = None,
+                 registry: Optional[msm.Registry] = None,
+                 executor_factory=None):
         self.options = options
         self._validate_options(options)
         self.batching_mode = str(options.get("batching-mode", "request"))
+        self.registry = registry if registry is not None else msm.REGISTRY
+        self.device = device
         self.service: Optional[TranslationService] = None
         stall = float(options.get("dispatch-stall-timeout", 0) or 0)
         budget = resolve_token_budget(options)
@@ -233,7 +262,8 @@ class ServingApp:
             self.max_queue_pages = 0
             self.scheduler = ContinuousScheduler(
                 translate_lines, token_budget=budget,
-                batching_mode="request", stall_timeout=stall)
+                batching_mode="request", stall_timeout=stall,
+                registry=self.registry)
             # request mode bounds queued sentences only: no pool
             self.admission = AdmissionController(
                 max_queue, self.scheduler.queued_units)
@@ -245,15 +275,28 @@ class ServingApp:
             self.max_queue_pages = \
                 int(options.get("max-queue-pages", 0) or 0) \
                 or 4 * engine.pool.usable_pages
+            # the rebuild after a watchdog trip or a failed round resolves
+            # through the lifecycle when one is attached: the fresh
+            # engine must serve the CURRENT live version
             self.scheduler = ContinuousScheduler(
                 batching_mode="iteration", engine=engine,
-                engine_factory=self._build_engine if self.service else None,
-                stall_timeout=stall)
+                engine_factory=(self._rebuild_live_engine if self.service
+                                else None),
+                stall_timeout=stall, registry=self.registry)
             self.admission = AdmissionController(
                 max_queue, self.scheduler.queued_units,
                 max_queue_pages=self.max_queue_pages,
                 pages_fn=self.scheduler.queued_pages)
         self.request_timeout = float(options.get("request-timeout", 0) or 0)
+        self.metrics_server: Optional[msm.MetricsServer] = None
+        self._started = False
+        # zero-downtime lifecycle (--model-watch SECONDS): registry +
+        # watcher + warmup + swap controller over <model>.bundles/
+        self.lifecycle = None
+        self.watcher = None
+        watch_s = float(options.get("model-watch", 0) or 0)
+        if watch_s > 0:
+            self._init_lifecycle(watch_s, translate_lines, executor_factory)
 
     @classmethod
     def _validate_options(cls, options) -> None:
@@ -318,15 +361,19 @@ class ServingApp:
                              + "; ".join(problems))
 
     def _build_engine(self):
-        """A fresh paged engine over the loaded model: greedy at
+        """A fresh paged engine over the boot model."""
+        return self._engine_for(self.service)
+
+    def _engine_for(self, service: TranslationService):
+        """A fresh paged engine over ``service``'s model: greedy at
         --beam-size 1, the copy-on-write beam engine above it (and at
         beam 1 under --n-best); the decode-feature plane of the decode
         flags; with --prefix-cache its own cache, stamped with the model
-        path (a rebuilt engine starts with an empty one)."""
+        path (a rebuilt or swapped-in engine starts with an empty one)."""
         from ..translator.decode_features import FeaturePlane
         from ..translator.iteration import PagedDecodeEngine
-        tr = self.service.translator
-        opts = self.options
+        tr = service.translator
+        opts = service.options
         ml = max(1, int(opts.get("max-length", 50) or 50))
         plane = FeaturePlane.from_options(opts, tr.src_vocab, tr.trg_vocab)
         if plane is not None:
@@ -370,9 +417,261 @@ class ServingApp:
             merge=str(opts.get("iteration-beam-merge", "fused") or "fused"),
             **kw)
 
+    # -- the model lifecycle (--model-watch) --------------------------------
+    def _device_context(self):
+        """The boot model's card made current: the watcher, the admin
+        HTTP thread and a rebuilding worker each start with device 0
+        current, and a bundle's model must land beside the boot one."""
+        dev = self.service.translator.device if self.service is not None \
+            else None
+        if dev is not None and dev.type == "cuda":
+            return torch.cuda.device(dev)
+        return contextlib.nullcontext()
+
+    def _bundle_service(self, bundle_dir: str) -> TranslationService:
+        """A TranslationService over a bundle's model member, on the boot
+        model's device, loaded outside every other thread's sync-debug
+        guard (the copy to the card syncs the host)."""
+        from ..translator.iteration import sync_exclusive
+        member = os.path.basename(self._model_path())
+        bopts = self.options.with_(models=[os.path.join(bundle_dir,
+                                                        member)])
+        dev = self.service.translator.device if self.service is not None \
+            else self.device
+        with self._device_context(), sync_exclusive():
+            return TranslationService(bopts, dev)
+
+    def _bundle_executor_factory(self, bundle_dir: str, manifest):
+        """Request mode's executor_factory: a fresh TranslationService
+        against a bundle's model member, warmed off the serving path,
+        then swapped in whole."""
+        return self._bundle_service(bundle_dir).translate_lines
+
+    def _bundle_engine_factory(self, bundle_dir: str, manifest):
+        """Iteration mode's executor_factory: a warmed candidate is a
+        whole paged engine (the bundle's model and its own KV pool) in an
+        ``EngineExecutor``, callable for the golden decode, with
+        ``.engine`` for the quiesce re-point."""
+        from ..translator.iteration import EngineExecutor, sync_exclusive
+        service = self._bundle_service(bundle_dir)
+        with self._device_context(), sync_exclusive():
+            return EngineExecutor(self._engine_for(service))
+
+    def _rebuild_live_engine(self):
+        """The scheduler's engine_factory (after a watchdog trip or a
+        failed round): a fresh engine for the CURRENT live version. With
+        the lifecycle attached it is built from the live version's
+        bundle, and the controller adopts it, so round attribution and
+        rollbacks follow the engine actually serving. The build runs on
+        the event loop: a bounded stall, paid only on a trip."""
+        from ..translator.iteration import EngineExecutor
+        lc = self.lifecycle
+        if lc is not None:
+            v = lc.live_version()
+            if v is not None and getattr(v, "bundle_dir", ""):
+                ex = self._bundle_engine_factory(v.bundle_dir,
+                                                 v.manifest or {})
+                lc.adopt_live_executor(ex)
+                return ex.engine
+        with self._device_context():
+            engine = self._build_engine()
+        if lc is not None:
+            lc.adopt_live_executor(EngineExecutor(engine))
+        return engine
+
+    def _model_path(self) -> str:
+        models = self.options.get("models", []) or []
+        return str(models[0] if models
+                   else self.options.get("model", "") or "")
+
+    @staticmethod
+    def _adopt_boot_bundle(model_path: str, valid):
+        """Which committed bundle IS the flat (published) model file?
+        Same inode in the normal hardlink-publish case; otherwise ONE
+        content hash of the flat file compared against each manifest's
+        recorded member sha256 (copy-fallback publish). None when it
+        matches no bundle (stale publish, hand-copied model)."""
+        from ..training import bundle as bdl
+        base = os.path.basename(model_path)
+        for b in reversed(valid):
+            try:
+                if os.path.samefile(model_path,
+                                    os.path.join(b.bundle_dir, base)):
+                    return b
+            except OSError:
+                continue
+        try:
+            flat_sha = bdl.file_sha256(model_path)
+        except OSError:
+            return None
+        for b in reversed(valid):
+            rec = (b.manifest or {}).get("members", {}).get(base) or {}
+            if rec.get("sha256") == flat_sha:
+                return b
+        return None
+
+    def _init_lifecycle(self, interval: float, boot_translate,
+                        executor_factory) -> None:
+        from ..serving.lifecycle import (BundleWatcher, SwapController,
+                                         load_golden, scan_bundles)
+        from ..training import bundle as bdl
+        from ..translator.iteration import EngineExecutor
+        model_path = self._model_path()
+        if not model_path:
+            log.warn("--model-watch: no model path to watch; lifecycle "
+                     "disabled")
+            return
+        iteration = self.batching_mode == "iteration"
+        factory = executor_factory or (
+            self._bundle_engine_factory if iteration
+            else self._bundle_executor_factory)
+        self.lifecycle = SwapController(
+            executor_factory=factory,
+            metrics_registry=self.registry,
+            canary_fraction=float(
+                self.options.get("canary-fraction", 0) or 0),
+            rollback_error_rate=float(
+                self.options.get("rollback-error-rate", 0.5) or 0.5),
+            rollback_p99_factor=float(
+                self.options.get("rollback-p99-factor", 0) or 0),
+            canary_min_batches=int(
+                self.options.get("canary-min-batches", 8) or 8),
+            golden=load_golden(
+                self.options.get("warmup-golden", "") or None))
+        # seed the boot model as the live version, under the name of the
+        # bundle the flat model file verifiably IS: a crash between the
+        # bundle commit and the flat publish, or a hand-copied model,
+        # leaves the flat file older, and the watcher must then warm and
+        # swap to anything newer instead of serving stale weights under
+        # the newest bundle's name
+        boot_seq, boot_name, boot_compat = 0, "boot", None
+        valid = [b for b in scan_bundles(model_path) if b.ok]
+        adopted = self._adopt_boot_bundle(model_path, valid)
+        if adopted is not None:
+            boot_seq = adopted.seq
+            boot_name = os.path.basename(adopted.bundle_dir)
+            boot_compat = bdl.manifest_compat(adopted.manifest)
+            if adopted is not valid[-1]:
+                log.warn("--model-watch: boot model {} matches {} but "
+                         "newer committed bundles exist (stale publish?); "
+                         "the watcher will hot-swap to the newest",
+                         model_path, boot_name)
+        elif valid:
+            # valid bundles exist but the flat file matches none of them:
+            # seed one seq below the newest so the watcher ingests it
+            boot_seq = valid[-1].seq - 1
+            log.warn("--model-watch: boot model {} matches no committed "
+                     "bundle; seeding as '{}' (seq {}) so the newest "
+                     "bundle is warmed and swapped in", model_path,
+                     boot_name, boot_seq)
+        if boot_compat is None and self.service is not None:
+            opts = self.service.translator.options
+            boot_compat = bdl.compat_block(
+                opts, list(opts.get("vocabs", None) or []))
+        if iteration:
+            # the boot executor wraps the engine the scheduler runs; the
+            # quiesce protocol re-points at successors' engines
+            self.lifecycle.seed_live(
+                boot_seq, boot_name, EngineExecutor(self.scheduler.engine),
+                compat=boot_compat)
+            self.lifecycle.attach_iteration(
+                self.scheduler,
+                float(self.options.get("quiesce-deadline", 2.0) or 2.0))
+        else:
+            self.lifecycle.seed_live(boot_seq, boot_name, boot_translate,
+                                     compat=boot_compat)
+            self.scheduler.translate_lines = self.lifecycle.route
+        self.scheduler.version_fn = self.lifecycle.live_version_name
+        self.watcher = BundleWatcher(bdl.bundle_root(model_path),
+                                     self.lifecycle.ingest,
+                                     interval=interval,
+                                     last_seq=boot_seq)
+        # a trainer in this process pushes the watcher on each commit
+        # instead of waiting out the poll interval
+        bdl.add_commit_hook(self._on_bundle_commit)
+
+    def _on_bundle_commit(self, model_path: str, bundle_dir: str,
+                          manifest) -> None:
+        if self.watcher is not None \
+                and os.path.dirname(os.path.abspath(bundle_dir)) \
+                == os.path.abspath(self.watcher.root):
+            self.watcher.notify()
+
+    def _admin_routes(self) -> Dict:
+        """Lifecycle endpoints on the metrics port: GET /lifecyclez
+        (version table + health), POST /admin/pin | /admin/unpin |
+        /admin/rollback (operator verbs). They run on the metrics HTTP
+        thread: an iteration-mode rollback waits there for the serving
+        loop's quiesce, never on the loop itself."""
+        lc = self.lifecycle
+
+        def _lifecyclez(method: str, query: str):
+            body = json.dumps(lc.status(), indent=1).encode() + b"\n"
+            return 200, body, "application/json"
+
+        def _verb(fn, name):
+            def handler(method: str, query: str):
+                if method != "POST":
+                    return (405, b"POST only\n", "text/plain")
+                with self._device_context():
+                    ok = fn()
+                ok = True if ok is None else bool(ok)
+                body = json.dumps({"ok": ok, "verb": name,
+                                   "live": lc.live_version_name()}
+                                  ).encode() + b"\n"
+                return (200 if ok else 409, body, "application/json")
+            return handler
+
+        return {
+            "/lifecyclez": _lifecyclez,
+            "/admin/pin": _verb(lc.pin, "pin"),
+            "/admin/unpin": _verb(lc.unpin, "unpin"),
+            "/admin/rollback": _verb(lc.rollback, "rollback"),
+        }
+
+    def ready(self) -> bool:
+        """/readyz: accepting traffic (started, not draining, and — with
+        the lifecycle — a live version is routing)."""
+        if not self._started or self.admission.draining:
+            return False
+        return self.lifecycle is None or self.lifecycle.has_live()
+
+    def _boot_warmup(self) -> None:
+        """--warmup-on-boot: a golden decode of the boot model at each
+        width bucket BEFORE the first client lands. Failure degrades to
+        a warning: a cold-but-correct server beats no server."""
+        from ..serving.lifecycle.warmup import (DEFAULT_GOLDEN,
+                                                load_golden, smoke_buckets,
+                                                smoke_engine_grid)
+        from ..translator.iteration import EngineExecutor
+        try:
+            golden = load_golden(
+                self.options.get("warmup-golden", "") or None) \
+                or list(DEFAULT_GOLDEN)
+            if self.scheduler.engine is not None:
+                ex = EngineExecutor(self.scheduler.engine)
+                smoke_buckets(ex, golden, "boot model")
+                smoke_engine_grid(ex, golden, "boot model")
+            else:
+                smoke_buckets(self.scheduler.translate_lines, golden,
+                              "boot model")
+        except Exception as e:  # noqa: BLE001
+            log.warn("--warmup-on-boot failed ({}); first requests pay "
+                     "their first launches inline", e)
+
     def start(self) -> None:
-        """Start the scheduler on the RUNNING loop."""
+        """Start the scheduler on the RUNNING loop, then the metrics
+        port, the boot warmup and the bundle watcher."""
         self.scheduler.start()
+        routes = self._admin_routes() if self.lifecycle is not None else {}
+        self.metrics_server = msm.maybe_start_metrics_server(
+            self.options, ready_fn=self.ready, routes=routes,
+            registry=self.registry)
+        if self.options.get("warmup-on-boot", False):
+            self._boot_warmup()
+        if self.watcher is not None:
+            self.watcher.start()
+        self._started = True
         timeout = (f"{self.request_timeout}s" if self.request_timeout
                    else "none")
         limit = self.admission.max_queue_units or "unbounded"
@@ -433,8 +732,23 @@ class ServingApp:
             return ""
         return "\n".join(out)
 
+    def close_nowait(self) -> None:
+        """Synchronous cleanup (after a drain, cancelled contexts, test
+        teardown): the bundle watcher and the metrics port stop."""
+        self._started = False
+        if self.watcher is not None:
+            from ..training import bundle as bdl
+            bdl.remove_commit_hook(self._on_bundle_commit)
+            self.watcher.stop()
+            self.watcher = None
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
+
     async def shutdown(self, drain_timeout: float = DRAIN_TIMEOUT_S) -> bool:
-        """Stop admitting, finish queued and decoding work, then stop."""
+        """Stop admitting (/readyz answers 503), finish queued and
+        decoding work, then stop; the watcher and the metrics port close
+        last."""
         self.admission.begin_drain()
         queued = self.scheduler.queued_units()
         if queued:
@@ -446,6 +760,7 @@ class ServingApp:
                      drain_timeout)
         # the handlers write the last replies in later loop steps
         await asyncio.sleep(0.2)
+        self.close_nowait()
         return ok
 
 

@@ -1,6 +1,7 @@
 """The serving scheduler, ported from ``marian_tpu/serving/scheduler.py``
-:: ``ContinuousScheduler`` (without the spans, quiesce, brownout, fleet
-and metrics planes), in both batching modes.
+:: ``ContinuousScheduler``, in both batching modes, with the quiesce
+protocol and the lifecycle's and the watchdog's series (without the
+spans, brownout, fleet and the rest of the metrics plane).
 
 Requests split into SENTENCE UNITS in priority lanes (highest first,
 FIFO within a lane); units of requests already resolved are swept
@@ -37,6 +38,19 @@ and a fresh one takes the next call (``_trip_watchdog``); iteration mode
 also rebuilds its engine. A call that never returns cannot be
 cancelled: the watchdog guards host-side stalls and overlong batches,
 and later work on the same CUDA stream queues behind a hung kernel.
+
+The quiesce protocol (iteration mode; ``request_quiesce``, the serving
+lifecycle's engine re-point): joins pause, active rows drain until the
+op's deadline, rows still decoding then are evicted with the retriable
+``RowEvicted`` (their pages freed), the outgoing engine's pool audit
+runs, and ``install()`` runs at a step boundary with an empty join set;
+then the incoming engine's audit, and joins resume. Request mode needs
+none: the lifecycle re-points ``translate_lines`` between batches.
+
+Every resolved request counts once in
+``marian_serving_request_outcomes_total{outcome,model_version}``, the
+version read from ``version_fn`` (the lifecycle's live version) at
+resolution time.
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ from typing import Callable, Deque, Dict, List, Optional
 from ..common import logging as log
 from ..data.batching import over_budget, padded_batch_cost
 from ..translator.iteration import FATAL_REASONS, release_sync_guard
+from . import metrics as msm
 
 
 class RequestTimeout(RuntimeError):
@@ -73,11 +88,39 @@ class DispatchStalled(RuntimeError):
 
 class RowEvicted(RuntimeError):
     """A decoding row was evicted with its pages freed: its round failed
-    and the engine was rebuilt, or the pool ran dry under a beam
-    sentence's lazy page claims. Retriable: the server replies
-    ``!!SERVER-RETRY``."""
+    and the engine was rebuilt, the pool ran dry under a beam sentence's
+    lazy page claims, or a quiesce deadline expired before it drained.
+    Retriable: the server replies ``!!SERVER-RETRY``."""
 
     retriable = True
+
+
+class _QuiesceOp:
+    """One pending quiesce: stop admitting joins, drain active rows
+    under ``deadline_s`` (evict the overdue with RowEvicted), run the
+    pool audit, then ``install()`` re-points the engine at a step
+    boundary with an empty join set. ``event`` releases the waiting
+    caller (watcher / admin thread)."""
+
+    __slots__ = ("install", "deadline_s", "reason", "deadline", "event",
+                 "ok", "install_ok", "cancelled", "evicted", "t0")
+
+    def __init__(self, install: Callable[[], None], deadline_s: float,
+                 reason: str):
+        self.install = install
+        self.deadline_s = max(0.0, float(deadline_s))
+        self.reason = reason
+        self.deadline: Optional[float] = None   # set on first round seen
+        self.event = threading.Event()
+        self.ok = False            # install ran AND both audits clean
+        self.install_ok = False    # install() returned without raising
+        # a waiter that timed out CANCELS the op (cancel_quiesce): its
+        # install must never run late — the caller has already treated
+        # the re-point as failed (e.g. the lifecycle released the
+        # candidate), so a late install would serve a dead executor
+        self.cancelled = False
+        self.evicted = 0
+        self.t0 = 0.0
 
 
 def default_length_fn(line: str) -> int:
@@ -135,7 +178,9 @@ class ContinuousScheduler:
                  executor: Optional[concurrent.futures.Executor] = None,
                  batching_mode: str = "request", engine=None,
                  engine_factory: Optional[Callable[[], object]] = None,
-                 stall_timeout: float = 0.0):
+                 stall_timeout: float = 0.0,
+                 registry: Optional[msm.Registry] = None,
+                 version_fn: Optional[Callable[[], str]] = None):
         if batching_mode not in ("request", "iteration"):
             raise ValueError(f"--batching-mode must be request or "
                              f"iteration, got {batching_mode!r}")
@@ -153,6 +198,13 @@ class ContinuousScheduler:
         self.engine = engine
         # rebuilds the engine after a failed or stalled round
         self.engine_factory = engine_factory
+        # model-version label of the outcome counter; the lifecycle's
+        # SwapController installs its live_version_name here. Read on
+        # the event-loop thread only.
+        self.version_fn = version_fn or (lambda: "unversioned")
+        # lifecycle health hook (iteration mode): called after every
+        # engine round with (error, device seconds)
+        self.round_observer: Optional[Callable[[bool, float], None]] = None
         # liveness watchdog over each device call, seconds (0 = off)
         self.stall_timeout = max(0.0, float(stall_timeout))
         # coalescing pause at the edge of an idle period, so a burst of
@@ -180,7 +232,15 @@ class ContinuousScheduler:
         self._dead_pages = 0              # guarded by _state_lock
         self._wake = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
+        # captured at start(): request_quiesce wakes the worker from
+        # other threads through it
+        self._loop = None
         self._inflight = 0
+        # pending quiesce operations, processed one at a time by the
+        # iteration worker at round boundaries; appended from any thread
+        # (the lifecycle watcher, admin verbs)
+        self._quiesce_q: Deque[_QuiesceOp] = collections.deque()
+        #                                   guarded by _state_lock
         # request mode: units of the device batch in flight, failed by
         # stop() (event-loop-only)
         self._inflight_units: List[_Unit] = []
@@ -189,11 +249,43 @@ class ContinuousScheduler:
         # outcomes and events over the scheduler's life (event-loop-only);
         # request mode adds batches, rows, real and padded tokens
         self.counts: collections.Counter = collections.Counter()
+        # the reference's series that the lifecycle, the quiesce and the
+        # watchdog read (its other scheduler series come with the rest of
+        # the metrics plane)
+        r = registry if registry is not None else msm.REGISTRY
+        self.m_watchdog = r.counter(
+            "marian_serving_watchdog_trips_total",
+            "Device batches failed by the dispatch stall watchdog "
+            "(--dispatch-stall-timeout)")
+        self.m_outcomes = r.counter(
+            "marian_serving_request_outcomes_total",
+            "Requests resolved, by outcome and the model version live at "
+            "resolution time (ok|failure|timeout|cancelled|stalled|"
+            "evicted — evicted is retriable row eviction: quiesce "
+            "deadline, brownout, recoverable engine failure; excluded "
+            "from the availability SLO like cancelled, because the "
+            "client is told to retry and the retry's outcome counts)",
+            labels=("outcome", "model_version"))
+        self.m_quiesces = r.counter(
+            "marian_serving_quiesces_total",
+            "Quiesce operations completed (joins stopped, rows drained "
+            "or evicted, engine re-pointed at a step boundary)")
+        self.m_quiesce_evictions = r.counter(
+            "marian_serving_quiesce_evictions_total",
+            "Rows evicted with retriable !!SERVER-RETRY because the "
+            "--quiesce-deadline expired before they drained")
+        self.m_quiescing = r.gauge(
+            "marian_serving_quiescing",
+            "Quiesce operations pending/draining (joins are paused "
+            "while this is > 0; back-to-back lifecycle verbs can queue "
+            "more than one)")
+        self.m_quiescing.set_function(self._quiesce_depth)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
         """Start the worker on the RUNNING loop (call from a coroutine)."""
         if self._task is None:
+            self._loop = asyncio.get_event_loop()
             self._task = asyncio.ensure_future(self._run())
 
     async def stop(self) -> None:
@@ -226,6 +318,13 @@ class ContinuousScheduler:
         with self._state_lock:
             self._queued = self._dead = 0
             self._queued_pages = self._dead_pages = 0
+            dangling = list(self._quiesce_q)
+            self._quiesce_q.clear()
+        for op in dangling:
+            # release any thread blocked in request_quiesce(wait=True):
+            # the loop is gone, the install will never run
+            op.ok = False
+            op.event.set()
         if self._own_executor:
             self._executor.shutdown(wait=False)
 
@@ -258,6 +357,71 @@ class ContinuousScheduler:
     def _queue_size(self) -> int:
         with self._state_lock:
             return self._queued
+
+    # -- quiesce protocol (iteration mode) ----------------------------------
+    def _quiesce_depth(self) -> int:
+        with self._state_lock:
+            return len(self._quiesce_q)
+
+    def _peek_quiesce(self) -> Optional[_QuiesceOp]:
+        with self._state_lock:
+            while self._quiesce_q and self._quiesce_q[0].cancelled:
+                self._quiesce_q.popleft().event.set()
+            return self._quiesce_q[0] if self._quiesce_q else None
+
+    def cancel_quiesce(self, op: _QuiesceOp) -> None:
+        """Withdraw a pending quiesce whose waiter gave up (wait budget
+        exceeded): its install must not run late — the caller has
+        already declared the re-point failed and may have released the
+        target executor. A cancelled head is dropped at the next peek;
+        an op already past its install cannot be recalled (the caller's
+        event was set then)."""
+        with self._state_lock:
+            op.cancelled = True
+
+    def request_quiesce(self, install: Callable[[], None],
+                        deadline_s: float, reason: str,
+                        wait: bool = True,
+                        timeout: Optional[float] = None) -> _QuiesceOp:
+        """Enqueue a quiesce: the iteration worker stops admitting joins,
+        drains active rows until ``deadline_s`` (rows past it are evicted
+        with retriable ``!!SERVER-RETRY`` and their pages freed), runs
+        the pool audit, then calls ``install()`` at a step boundary with
+        an empty join set (the only legal moment to re-point the engine)
+        and resumes joins. Callable from ANY thread except — with
+        ``wait=True`` — the event-loop thread itself (the loop is what
+        executes the quiesce; waiting on it there would deadlock, which
+        is why the lifecycle's rollback paths pass ``wait=False``).
+        Returns the op; ``op.event``/``op.ok`` report completion."""
+        op = _QuiesceOp(install, deadline_s, reason)
+        with self._state_lock:
+            self._quiesce_q.append(op)
+        loop = self._loop
+        if loop is not None:
+            try:
+                loop.call_soon_threadsafe(self._wake.set)
+            except RuntimeError:   # loop already closed: stop() cleans up
+                pass
+        if wait:
+            # bounded: drain deadline + generous slack for the install's
+            # own work; a dead loop must not wedge the watcher forever
+            op.event.wait(timeout if timeout is not None
+                          else op.deadline_s + 30.0)
+            if not op.event.is_set():
+                # withdraw it: the caller will treat the re-point as
+                # failed, so a LATE install (serving loop catching up
+                # after the caller released the target) must not run
+                self.cancel_quiesce(op)
+                log.error("quiesce ({}) did not complete within its "
+                          "wait budget — withdrawn; the serving loop "
+                          "may be down", reason)
+        return op
+
+    def install_engine(self, engine) -> None:
+        """Re-point the paged engine (the quiesce install callback is
+        the only legitimate caller — loop thread, empty join set, zero
+        active rows)."""
+        self.engine = engine
 
     def submit(self, lines: List[str], priority: int = 0,
                timeout: Optional[float] = None,
@@ -300,6 +464,7 @@ class ContinuousScheduler:
     def _expire_request(self, req: _Request, loop) -> None:
         if not req.future.done():
             self.counts["timeouts"] += 1
+            self._outcome("timeout")
             req.future.set_exception(RequestTimeout(
                 f"request deadline expired after "
                 f"{(loop.time() - req.arrival):.3f}s "
@@ -308,6 +473,7 @@ class ContinuousScheduler:
     def _on_request_done(self, fut: "asyncio.Future", req: _Request) -> None:
         if fut.cancelled():
             self.counts["cancelled"] += 1
+            self._outcome("cancelled")
         # the request's units still in lanes are dead from now on
         with self._state_lock:
             req.dead_accounted = True
@@ -321,7 +487,8 @@ class ContinuousScheduler:
         while True:
             try:
                 was_idle = False
-                while self._queue_size() == 0 and not self._active_units:
+                while self._queue_size() == 0 and not self._active_units \
+                        and self._quiesce_depth() == 0:
                     self._wake.clear()
                     was_idle = True
                     await self._wake.wait()
@@ -423,6 +590,7 @@ class ContinuousScheduler:
                 for u in units:
                     if not u.req.future.done():
                         self.counts["stalled"] += 1
+                        self._outcome("stalled")
                         u.req.future.set_exception(DispatchStalled(
                             f"device batch stalled past "
                             f"{self.stall_timeout}s — retry"))
@@ -438,6 +606,7 @@ class ContinuousScheduler:
                 u = units[0]
                 if not u.req.future.done():
                     self.counts["failures"] += 1
+                    self._outcome("failure")
                     log.error("translation error: {}", e)
                     u.req.future.set_exception(RuntimeError(str(e)))
                 return
@@ -521,19 +690,48 @@ class ContinuousScheduler:
         if u.req.future.done():
             return
         self.counts["failures"] += 1
+        self._outcome("failure")
         log.error("iteration admission: {}", message)
         u.req.future.set_exception(RuntimeError(message))
 
     async def _iteration_round(self, loop) -> None:
-        """One join pass + one engine round on the device worker."""
+        """One join pass + one engine round on the device worker. With a
+        quiesce pending the join set is EMPTY: active rows drain until
+        the deadline, overdue rows are evicted with retriable errors,
+        and once the engine is empty the op's install re-points it
+        before joins resume."""
         if self.engine is None:
             # a rebuild after a stall failed with the old engine gone:
             # retry it, at most once a stall timeout
             await asyncio.sleep(self.stall_timeout)
             self.engine = self.engine_factory()
         engine = self.engine
-        joins = self._form_join_set()
+        q = self._peek_quiesce()
+        if q is not None and q.deadline is None:
+            q.t0 = loop.time()
+            q.deadline = q.t0 + q.deadline_s
+            log.info("quiesce ({}): joins paused, draining {} active "
+                     "row(s) under a {}s deadline", q.reason,
+                     len(self._active_units), q.deadline_s)
+        joins = [] if q is not None else self._form_join_set()
         evicts = [u for u in self._active_units if u.req.future.done()]
+        if q is not None and loop.time() >= q.deadline:
+            # the deadline expired: rows still decoding leave NOW with a
+            # retriable error (the engine frees their pages this round),
+            # so a swap is never held hostage by one long sentence
+            for u in list(self._active_units):
+                if u in evicts:
+                    continue
+                self._evict_with_retry(
+                    u, f"row evicted at the quiesce deadline ({q.reason})")
+                self.m_quiesce_evictions.inc()
+                q.evicted += 1
+                evicts.append(u)
+        if q is not None and not joins and not evicts \
+                and not self._active_units:
+            # drained (or never had rows): complete without a round
+            self._finish_quiesce(q, loop)
+            return
         self._inflight += 1
         try:
             # per-row join meta: the sentence's index in its request
@@ -581,10 +779,9 @@ class ContinuousScheduler:
                 continue
             del self._active_units[u]
             self.counts["evictions"] += 1
-            if not u.req.future.done():
-                u.req.future.set_exception(RowEvicted(
-                    "row evicted: KV pool exhausted mid-decode "
-                    "(copy-on-write beam divergence) — retry"))
+            self._evict_with_retry(
+                u, "row evicted: KV pool exhausted mid-decode "
+                   "(copy-on-write beam divergence)")
         # streaming fan-out: a still-decoding row of a streaming request
         # delivers its text so far, once a round, before any final reply
         for u, text, ntok in res.partials:
@@ -600,6 +797,88 @@ class ContinuousScheduler:
         for u, text in res.finished:
             self._active_units.pop(u, None)
             self._complete_unit(u, text)
+        self._notify_round(False, res.device_s)
+        if q is not None and not self._active_units:
+            self._finish_quiesce(q, loop)
+
+    def _finish_quiesce(self, q: _QuiesceOp, loop) -> None:
+        """The engine reached an empty join set with zero active rows:
+        audit the outgoing engine (zero leaked pages is the contract),
+        run the install (which may re-point self.engine), audit the
+        incoming engine, resume joins."""
+        # the test hooks' plane brings the reference's serving.quiesce
+        # fault point here
+        if q.cancelled:
+            # the waiter gave up and withdrew the op mid-drain: do NOT
+            # install (the target may already be released); just resume
+            with self._state_lock:
+                if self._quiesce_q and self._quiesce_q[0] is q:
+                    self._quiesce_q.popleft()
+            log.info("quiesce ({}): withdrawn by its waiter; joins resume "
+                     "on the current engine", q.reason)
+            q.event.set()
+            self._wake.set()
+            return
+        old = self.engine
+        pre = self._audit_engine(old, "quiesce-drain")
+        install_ok = True
+        try:
+            q.install()
+        except Exception as e:  # noqa: BLE001 — a failed install keeps
+            # the drained (but healthy) old engine serving; the caller
+            # learns via op.ok and decides (the lifecycle fails the
+            # candidate)
+            install_ok = False
+            log.error("quiesce ({}): install failed ({}); the previous "
+                      "engine keeps serving", q.reason, e)
+        post = [] if self.engine is old \
+            else self._audit_engine(self.engine, "quiesce-install")
+        q.install_ok = install_ok
+        q.ok = install_ok and not pre and not post
+        with self._state_lock:
+            if self._quiesce_q and self._quiesce_q[0] is q:
+                self._quiesce_q.popleft()
+        self.m_quiesces.inc()
+        log.info("quiesce ({}): complete in {:.0f}ms — {} row(s) "
+                 "evicted with retry, audit {} ({} violation(s))",
+                 q.reason, (loop.time() - q.t0) * 1e3, q.evicted,
+                 "clean" if not (pre or post) else "FAILED",
+                 len(pre) + len(post))
+        q.event.set()
+        self._wake.set()           # joins resume immediately
+
+    @staticmethod
+    def _audit_engine(engine, context: str) -> List[str]:
+        """Run the engine's pool auditor if it has one (stub engines in
+        tests may not); violations are already reported by the engine."""
+        audit = getattr(engine, "audit", None)
+        if audit is None:
+            return []
+        try:
+            return list(audit(context=context))
+        except TypeError:
+            return list(audit())
+
+    def _evict_with_retry(self, u: _Unit, msg: str) -> None:
+        """Fail one decoding row's request with the retriable RowEvicted
+        (the server replies !!SERVER-RETRY); the row itself leaves the
+        engine through the round's evict list, freeing its pages."""
+        if u.req.future.done():
+            return
+        self._outcome("evicted")
+        u.req.future.set_exception(RowEvicted(msg + " — retry"))
+
+    def _notify_round(self, error: bool, device_s: float) -> None:
+        """Report one engine round's health to the lifecycle observer
+        (the SwapController windows these per version for canary
+        promotion and live auto-rollback in iteration mode)."""
+        fn = self.round_observer
+        if fn is None:
+            return
+        try:
+            fn(error, device_s)
+        except Exception as e:  # noqa: BLE001 — health accounting must
+            log.warn("round observer failed: {}", e)   # never kill rounds
 
     def _iteration_stalled(self, call, joins: List[_Unit]) -> None:
         """The engine round ran past the stall timeout: every row of it
@@ -614,9 +893,11 @@ class ContinuousScheduler:
         for u in victims:
             if not u.req.future.done():
                 self.counts["stalled"] += 1
+                self._outcome("stalled")
                 u.req.future.set_exception(DispatchStalled(
                     f"decode step stalled past {self.stall_timeout}s — "
                     f"retry"))
+        self._notify_round(True, self.stall_timeout)
         if self.engine_factory is not None:
             old = weakref.ref(self.engine)
             self.engine = None
@@ -636,21 +917,31 @@ class ContinuousScheduler:
         self._active_units.clear()
         log.error("iteration decode round failed ({} sentences): {}",
                   len(victims), exc)
+        # with a recovery path armed (a rebuild, or the lifecycle
+        # observer that can roll back to a warm engine) a resend lands
+        # on a healthy engine: retriable by construction
         retriable = bool(getattr(exc, "retriable", False)) \
-            or self.engine_factory is not None
+            or self.engine_factory is not None \
+            or self.round_observer is not None
         for u in victims:
             if u.req.future.done():
                 continue
             if retriable:
                 self.counts["evictions"] += 1
-                u.req.future.set_exception(RowEvicted(
-                    f"row evicted: decode round failed ({exc}) — retry"))
+                self._evict_with_retry(
+                    u, f"row evicted: decode round failed ({exc})")
             else:
                 self.counts["failures"] += 1
+                self._outcome("failure")
                 u.req.future.set_exception(RuntimeError(str(exc)))
-        if self.engine_factory is not None:
+        self._notify_round(True, 0.0)
+        if self.engine_factory is not None and self._quiesce_depth() == 0:
+            # the observer may have just started a recovery itself (a
+            # lifecycle rollback enqueues a quiesce re-point to the warm
+            # previous engine): a rebuild on top of it would load a
+            # whole model only to be replaced a round later
             try:
-                self.engine = self.engine_factory()
+                self.install_engine(self.engine_factory())
             except Exception as e:  # noqa: BLE001
                 log.error("engine rebuild after failure failed: {}", e)
 
@@ -676,6 +967,7 @@ class ContinuousScheduler:
         otherwise leave it set for the fresh worker's rounds), and point
         the executor at a fresh single worker."""
         self.counts["watchdog_trips"] += 1
+        self.m_watchdog.inc()
         log.error(
             "DISPATCH WATCHDOG: device batch ({} sentences) still running "
             "after {}s — failing its requests with a retriable error and "
@@ -721,3 +1013,15 @@ class ContinuousScheduler:
                 req.timeout_handle.cancel()
             req.future.set_result([r if r is not None else ""
                                    for r in req.results])
+            self._outcome("ok")
+
+    def _version_label(self) -> str:
+        try:
+            return str(self.version_fn())
+        except Exception:  # noqa: BLE001 — labeling must never fail a reply
+            return "unknown"
+
+    def _outcome(self, outcome: str) -> None:
+        """One request resolved: count it under the model version live
+        now, so a swap-correlated outcome shift shows per version."""
+        self.m_outcomes.labels(outcome, self._version_label()).inc()

@@ -1,18 +1,29 @@
-"""Checkpoints, trimmed from ``marian_tpu/training/checkpoint.py``: the
+"""Checkpoints, after ``marian_tpu/training/checkpoint.py``: the
 reference layout of three files,
 
     model.npz                 params + embedded special:model.yml
     model.npz.optimizer.npz   optimizer state ('t', 'm:<name>', ...)
     model.npz.progress.yml    TrainingState (incl. the corpus position)
 
-plus model.ema.npz under --exponential-smoothing, the
-iteration-numbered params copies (model.iter<N>.npz) that training
-writes without --overwrite, and under --keep-best the params of each
-metric's best validation (model.best-<metric>.npz). Each file is
-written atomically (temp file + rename). ``model.npz`` is the format
-both packages' decoders load.
+plus model.ema.npz under --exponential-smoothing, committed together as
+one crash-safe BUNDLE (``training/bundle.py``): staged, fsync'd, a
+checksummed ``MANIFEST.json`` (v2, with the compat block the serving
+lifecycle checks), renamed into ``<model>.bundles/bundle-<seq>`` in one
+atomic step, then republished as the top-level files above; the last
+--keep-checkpoint-bundles bundles are kept. Restore prefers the newest
+bundle that validates and falls back across damaged ones, logging each
+one it skips; a flat layout without bundles (hand-copied models,
+checkpoints written before bundles) loads as before.
 
-Trimmed: the checksummed bundle directories and the asynchronous saver.
+Outside the resume bundle, as in the reference: the iteration-numbered
+params copies (model.iter<N>.npz) that training writes without
+--overwrite, and under --keep-best the params of each metric's best
+validation (model.best-<metric>.npz), each written atomically (temp
+file + rename). ``model.npz`` is the format both packages' decoders
+load, and a bundle of either package resumes in the other.
+
+Not carried: the reference's asynchronous saver (``--async-save``, a
+speed option; the trainer refuses it).
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import torch
 
 from ..common import io as mio
 from ..common import logging as log
+from . import bundle as bdl
 from .training_state import TrainingState
 
 
@@ -46,11 +58,14 @@ def save_checkpoint(model_path: str, params: Dict[str, Any],
                     state: Optional[TrainingState] = None,
                     smooth_params: Optional[Dict[str, Any]] = None,
                     extra_model_suffixes: Tuple[str, ...] = (),
-                    suffix: str = "") -> None:
-    """``extra_model_suffixes`` writes params + config copies beside the
-    model (the '.iter<N>' files of a save without --overwrite). A
-    ``suffix`` ('.best-bleu', ...) writes only the params (and their
-    smoothed copy) to the suffixed path, outside the resume files."""
+                    suffix: str = "",
+                    keep_bundles: int = bdl.DEFAULT_KEEP) -> None:
+    """Commit model, optimizer and progress as one bundle, keeping the
+    newest ``keep_bundles``. ``extra_model_suffixes`` writes params +
+    config copies beside the model (the '.iter<N>' files of a save
+    without --overwrite). A ``suffix`` ('.best-bleu', ...) writes only
+    the params (and their smoothed copy) to the suffixed path, outside
+    the resume bundle."""
     if suffix:
         path = suffixed_path(model_path, suffix)
         mio.save_model(path, _host(params), config_yaml)
@@ -61,35 +76,101 @@ def save_checkpoint(model_path: str, params: Dict[str, Any],
         log.info("Saved model to {}", path)
         return
     host_params = _host(params)
-    mio.save_model(model_path, host_params, config_yaml)
+    members: Dict[str, Any] = {}
+    model_name = os.path.basename(model_path)
+    members[model_name] = lambda p: mio.save_model(p, host_params,
+                                                   config_yaml)
     if smooth_params is not None:
         base, ext = os.path.splitext(model_path)
-        mio.save_model(base + ".ema" + ext, _host(smooth_params), config_yaml)
+        host_smooth = _host(smooth_params)
+        members[os.path.basename(base + ".ema" + ext)] = \
+            lambda p: mio.save_model(p, host_smooth, config_yaml)
     if graph_group is not None:
-        opt = model_path + ".optimizer.npz"
-        with open(opt + ".tmp", "wb") as fh:
-            np.savez(fh, **graph_group.optimizer_arrays())
-        os.replace(opt + ".tmp", opt)
+        host_opt = graph_group.optimizer_arrays()
+
+        def _write_opt(p):
+            with open(p, "wb") as fh:
+                np.savez(fh, **host_opt)
+        members[model_name + ".optimizer.npz"] = _write_opt
     if state is not None:
-        state.save(model_path + ".progress.yml")
-    for suffix in extra_model_suffixes:
-        path = suffixed_path(model_path, suffix)
+        members[model_name + ".progress.yml"] = state.save
+    committed = bdl.write_bundle(model_path, members, keep=keep_bundles,
+                                 meta=_bundle_meta(state),
+                                 compat=_compat_from_yaml(config_yaml))
+    for s in extra_model_suffixes:
+        # numbered params + config snapshots OUTSIDE rotation: plain
+        # atomic files
+        path = suffixed_path(model_path, s)
         mio.save_model(path, host_params, config_yaml)
         log.info("Saved model to {}", path)
-    log.info("Saved model to {}", model_path)
+    log.info("Saved model to {} (bundle {})", model_path,
+             os.path.basename(committed))
+
+
+def _bundle_meta(state: Optional[TrainingState]) -> Dict[str, Any]:
+    """The manifest's ``meta``: the update and epoch counts (the
+    reference adds the device geometry of its sharded optimizer, which
+    the single-device port has not)."""
+    meta: Dict[str, Any] = {}
+    if state is not None:
+        meta.update({"batches": state.batches, "epochs": state.epochs})
+    return meta
+
+
+def _compat_from_yaml(config_yaml: str) -> Optional[Dict[str, Any]]:
+    """Manifest v2 compat block from the checkpoint-embedded config text
+    (geometry hash + vocab checksums — what the serving lifecycle checks
+    before accepting a hot-swap). A config that fails to parse degrades
+    to no compat block (a v1-style manifest), never a failed save."""
+    if not config_yaml:
+        return None
+    try:
+        import yaml
+        cfg = yaml.safe_load(config_yaml)
+        if not isinstance(cfg, dict):
+            return None
+        return bdl.compat_block(cfg)
+    except Exception as e:  # noqa: BLE001
+        log.warn("could not derive checkpoint compat block ({}); manifest "
+                 "will carry none", e)
+        return None
+
+
+def _load_flat(base: str, graph_group
+               ) -> Tuple[Dict[str, np.ndarray], Optional[str],
+                          Optional[TrainingState]]:
+    params, config = mio.load_model(base)
+    state = None
+    if os.path.exists(base + ".progress.yml"):
+        state = TrainingState.load(base + ".progress.yml")
+    opt = base + ".optimizer.npz"
+    if graph_group is not None and os.path.exists(opt):
+        with np.load(opt) as z:
+            graph_group.load_optimizer_arrays({k: z[k] for k in z.files})
+    return params, config, state
 
 
 def load_checkpoint(model_path: str, graph_group=None
                     ) -> Tuple[Dict[str, np.ndarray], Optional[str],
                                Optional[TrainingState]]:
     """(params as numpy, embedded config, TrainingState or None); loads
-    the optimizer state into ``graph_group`` when its file exists."""
-    params, config = mio.load_model(model_path)
-    state = None
-    if os.path.exists(model_path + ".progress.yml"):
-        state = TrainingState.load(model_path + ".progress.yml")
-    opt = model_path + ".optimizer.npz"
-    if graph_group is not None and os.path.exists(opt):
-        with np.load(opt) as z:
-            graph_group.load_optimizer_arrays({k: z[k] for k in z.files})
-    return params, config, state
+    the optimizer state into ``graph_group`` when it exists. Prefers the
+    newest bundle under ``<model>.bundles/`` that validates (checksums
+    verified; each damaged newer one is skipped with an error line); the
+    flat layout loads when no bundle exists. When bundles exist and none
+    validates, it raises: the flat files are then the published view of
+    a rejected bundle, not an independent copy."""
+    found = bdl.latest_valid_bundle(model_path)
+    if found is not None:
+        bdir, _ = found
+        return _load_flat(os.path.join(bdir, os.path.basename(model_path)),
+                          graph_group)
+    if bdl.list_bundles(bdl.bundle_root(model_path)):
+        raise bdl.BundleError(
+            f"every checkpoint bundle under "
+            f"{bdl.bundle_root(model_path)} failed validation; the flat "
+            f"layout at {model_path} is the published view of a rejected "
+            f"bundle, not an independent copy — restore a bundle from "
+            f"backup, or remove the .bundles/ directory to force a flat "
+            f"resume")
+    return _load_flat(model_path, graph_group)

@@ -4,7 +4,8 @@
 Builds the vocabs (from the training data when a vocab file is missing),
 the corpus and batch generator, the model and the single-device
 GraphGroup; restores a checkpoint (params, optimizer state, progress and
-corpus position) unless --no-reload; runs the epoch loop, one update a
+corpus position: from the newest valid bundle under <model>.bundles/,
+or the flat files) unless --no-reload; runs the epoch loop, one update a
 group of --optimizer-delay batches, with the display, validation, save
 and stop triggers; saves at the end.
 
@@ -57,6 +58,7 @@ from ..data.vocab import DefaultVocab, create_vocab
 from ..device import resolve_device
 from ..models import transformer as T
 from ..models.encoder_decoder import batch_to_arrays, create_model
+from . import bundle as bdl
 from .checkpoint import load_checkpoint, save_checkpoint
 from .graph_group import GraphGroup, delay_of
 from .scheduler import Scheduler
@@ -161,7 +163,12 @@ class Train:
         model_path = opts.get("model", "model.npz")
         state = TrainingState(seed=seed)
         init_params = None
-        if os.path.exists(model_path) and not opts.get("no-reload", False):
+        # a checkpoint exists if the flat layout OR any committed bundle
+        # does: a save killed between the bundle commit and the top-level
+        # publish leaves only the bundle, and that moment must resume
+        has_checkpoint = (os.path.exists(model_path) or bool(
+            bdl.list_bundles(bdl.bundle_root(model_path))))
+        if has_checkpoint and not opts.get("no-reload", False):
             log.info("Loading model from {}", model_path)
             init_params, _, loaded = load_checkpoint(model_path, gg)
             if loaded is not None:
@@ -212,7 +219,11 @@ class Train:
                      else (f".iter{state.batches}",))
             save_checkpoint(model_path, gg.export_params(), config_yaml, gg,
                             state, smooth_params=smooth,
-                            extra_model_suffixes=extra, suffix=suffix)
+                            extra_model_suffixes=extra, suffix=suffix,
+                            keep_bundles=int(
+                                opts.get("keep-checkpoint-bundles",
+                                         bdl.DEFAULT_KEEP)
+                                or bdl.DEFAULT_KEEP))
 
         def do_validate() -> None:
             params = gg.smoothed() if gg.opt_cfg.smoothing > 0 \

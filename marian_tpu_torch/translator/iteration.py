@@ -84,31 +84,63 @@ FATAL_REASONS = ("src_too_long", "too_large")
 # guard that set the mode last owns it (its token holds the mode to
 # restore), so a serving watchdog that abandons a round inside its guard
 # can take the mode back for the next worker's rounds, and the abandoned
-# guard's late exit then restores nothing
+# guard's late exit then restores nothing. For the same reason a thread
+# that syncs the host while another thread's guard body runs (a model
+# loading or warming on the lifecycle's watcher thread) would raise
+# there: ``sync_exclusive`` bodies and other threads' guard bodies never
+# overlap.
 _SYNC_LOCK = threading.Lock()
+_SYNC_CHANGED = threading.Condition(_SYNC_LOCK)
 _sync_owner: Optional[List[int]] = None     # guarded by _SYNC_LOCK
+# thread id -> nesting depth of the sync_exclusive bodies it is in
+_exclusive: Dict[int, int] = {}             # guarded by _SYNC_LOCK
 
 
 @contextlib.contextmanager
 def sync_guard(mode: Optional[str], device: torch.device):
     """Run the body under ``torch.cuda.set_sync_debug_mode(mode)`` and
     restore the previous mode after it (a no-op when ``mode`` is None or
-    off the card)."""
+    off the card). It waits while another thread is in a
+    ``sync_exclusive`` body."""
     global _sync_owner
     if mode is None or device.type != "cuda":
         yield
         return
-    token = [torch.cuda.get_sync_debug_mode()]
-    with _SYNC_LOCK:
+    me = threading.get_ident()
+    with _SYNC_CHANGED:
+        _SYNC_CHANGED.wait_for(lambda: all(t == me for t in _exclusive))
+        token = [torch.cuda.get_sync_debug_mode()]
         torch.cuda.set_sync_debug_mode(mode)
         _sync_owner = token
     try:
         yield
     finally:
-        with _SYNC_LOCK:
+        with _SYNC_CHANGED:
             if _sync_owner is token:
                 torch.cuda.set_sync_debug_mode(token[0])
                 _sync_owner = None
+            _SYNC_CHANGED.notify_all()
+
+
+@contextlib.contextmanager
+def sync_exclusive():
+    """Run the body with no other thread's ``sync_guard`` body running:
+    it waits for a live guard body to end (or be released), and other
+    threads' guard bodies wait for it. For host work that may sync the
+    card off the serving thread (loading and warming a model)."""
+    me = threading.get_ident()
+    with _SYNC_CHANGED:
+        _SYNC_CHANGED.wait_for(
+            lambda: me in _exclusive or _sync_owner is None)
+        _exclusive[me] = _exclusive.get(me, 0) + 1
+    try:
+        yield
+    finally:
+        with _SYNC_CHANGED:
+            _exclusive[me] -= 1
+            if not _exclusive[me]:
+                del _exclusive[me]
+            _SYNC_CHANGED.notify_all()
 
 
 def release_sync_guard() -> bool:
@@ -116,11 +148,12 @@ def release_sync_guard() -> bool:
     had ended (the serving watchdog abandons such a body); True when a
     guard was live."""
     global _sync_owner
-    with _SYNC_LOCK:
+    with _SYNC_CHANGED:
         if _sync_owner is None:
             return False
         torch.cuda.set_sync_debug_mode(_sync_owner[0])
         _sync_owner = None
+        _SYNC_CHANGED.notify_all()
         return True
 
 
@@ -895,11 +928,15 @@ class PagedDecodeEngine:
 
 class EngineExecutor:
     """An engine as a ``List[str] -> List[str]`` callable
-    (``decode_texts``), with ``.engine`` for whoever re-points a
-    scheduler at it."""
+    (``decode_texts``, the serving lifecycle's warmup), with ``.engine``
+    for whoever re-points a scheduler at it. A call runs outside every
+    other thread's sync-debug guard (``sync_exclusive``): it syncs the
+    host, on the lifecycle's watcher thread, while the live engine may
+    be in a guarded round."""
 
     def __init__(self, engine: PagedDecodeEngine):
         self.engine = engine
 
     def __call__(self, lines: List[str]) -> List[str]:
-        return self.engine.decode_texts(lines)
+        with sync_exclusive():
+            return self.engine.decode_texts(lines)

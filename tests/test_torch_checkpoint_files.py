@@ -4,10 +4,10 @@ of tests/test_torch_train_cli.py:
 - with a save frequency below the last update, the JAX trainer and the
   port's leave the same file names in their model directories, with and
   without --overwrite: without it, both keep a params + config copy
-  ``<model>.iter<N>.npz`` of every periodic save and of the final one.
-  The JAX trainer also commits its checksummed bundle directory
-  (``<model>.npz.bundles``), which the port trims by design; the flat
-  files beside it are the ones both packages read;
+  ``<model>.iter<N>.npz`` of every periodic save and of the final one,
+  and both commit every save as a checksummed bundle under
+  ``<model>.npz.bundles`` (the same bundle names, and in each the same
+  member names, each of which validates);
 - the port's ``.iter<N>.npz`` decodes to identical tokens through both
   packages' marian-decoder;
 - training resumes across the packages: 6 updates of one package
@@ -38,6 +38,7 @@ from marian_tpu_torch.cli import marian_decoder as torch_decoder
 from marian_tpu_torch.cli import marian_train as torch_train
 from marian_tpu_torch.common.io import load_model
 from marian_tpu_torch.data.vocab import DefaultVocab
+from marian_tpu_torch.training.bundle import validate_bundle
 
 torch.set_num_threads(2)
 
@@ -91,13 +92,25 @@ def costs(log):
 @pytest.mark.parametrize("overwrite", [False, True])
 def test_both_packages_leave_the_same_files(work, overwrite):
     flags = ["--save-freq", "2"] + (["--overwrite"] if overwrite else [])
-    names = {}
+    names, bundles = {}, {}
     for pkg in ("jax", "torch"):
         sub = f"files_{pkg}_{int(overwrite)}"
         (work / sub).mkdir()
         train(pkg, work, f"{sub}/m.npz", 5, *flags)
         names[pkg] = sorted(os.listdir(work / sub))
-    assert names["jax"] == sorted(names["torch"] + ["m.npz.bundles"])
+        root = work / sub / "m.npz.bundles"
+        bundles[pkg] = {b: sorted(os.listdir(root / b))
+                        for b in sorted(os.listdir(root))}
+        for b in bundles[pkg]:
+            ok, why, _ = validate_bundle(str(root / b))
+            assert ok, f"{pkg} {b}: {why}"
+    assert names["jax"] == names["torch"]
+    assert "m.npz.bundles" in names["torch"]
+    # saves at 2, 4 and the final 5: three bundles, the default keep
+    assert bundles["jax"] == bundles["torch"] == {
+        f"bundle-0000000{i}": ["MANIFEST.json", "m.npz",
+                               "m.npz.optimizer.npz", "m.npz.progress.yml"]
+        for i in (1, 2, 3)}
     iters = sorted(n for n in names["torch"] if ".iter" in n)
     assert iters == ([] if overwrite else
                      ["m.iter2.npz", "m.iter4.npz", "m.iter5.npz"])

@@ -85,7 +85,14 @@ def test_port_imports_no_jax_and_nothing_of_marian_tpu():
             "marian_tpu_torch/common/signal_handling.py",
             "marian_tpu_torch/translator/metrics.py",
             "marian_tpu_torch/training/validators.py",
-            "marian_tpu_torch/translator/validators.py"} <= copies
+            "marian_tpu_torch/translator/validators.py",
+            "marian_tpu_torch/training/bundle.py",
+            "marian_tpu_torch/serving/metrics.py",
+            "marian_tpu_torch/serving/lifecycle/__init__.py",
+            "marian_tpu_torch/serving/lifecycle/registry.py",
+            "marian_tpu_torch/serving/lifecycle/watcher.py",
+            "marian_tpu_torch/serving/lifecycle/warmup.py",
+            "marian_tpu_torch/serving/lifecycle/controller.py"} <= copies
 
 
 def test_cuda_sources_are_listed_and_plain_c():

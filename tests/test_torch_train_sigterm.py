@@ -9,9 +9,9 @@ the golden corpus (the flags of tests/test_torch_checkpoint_files.py):
   model;
 - both packages' ``marian_train`` in subprocesses get SIGTERM once each
   log shows 5 updates: both exit 0 and leave the same file names (the
-  JAX trainer's bundle directory aside, which the port trims by design;
-  the ``.iter<N>`` number is where each was stopped), and the port's run
-  resumes from its saved state for two more updates.
+  ``.iter<N>`` number is where each was stopped), the same committed
+  bundles under ``m.npz.bundles`` with the same members, and the port's
+  run resumes from its saved state for two more updates.
 
 Every subprocess wait has its own timeout, so no run can hang the suite.
 """
@@ -84,7 +84,7 @@ def test_signal_flag_saves_and_stops(work, handlers_restored):
     done = batches(work / "flag" / "m.npz.progress.yml")
     assert 1 <= done < 1000      # stopped early but saved
     assert sorted(os.listdir(work / "flag")) == [
-        f"m.iter{done}.npz", "m.npz", "m.npz.optimizer.npz",
+        f"m.iter{done}.npz", "m.npz", "m.npz.bundles", "m.npz.optimizer.npz",
         "m.npz.progress.yml"]
 
 
@@ -142,15 +142,23 @@ def test_sigterm_saves_like_the_reference_and_resumes(work):
                 proc.wait()
         for fh in logs:
             fh.close()
-    names = {}
+    names, bundles = {}, {}
     for pkg in runs:
         done = batches(work / pkg / "m.npz.progress.yml")
         assert done >= 5
         names[pkg] = sorted(n.replace(f".iter{done}.", ".iter<N>.")
                             for n in os.listdir(work / pkg))
-    assert names["torch"] == ["m.iter<N>.npz", "m.npz",
+        root = work / pkg / "m.npz.bundles"
+        bundles[pkg] = {b: sorted(os.listdir(root / b))
+                        for b in sorted(os.listdir(root))}
+    assert names["torch"] == ["m.iter<N>.npz", "m.npz", "m.npz.bundles",
                               "m.npz.optimizer.npz", "m.npz.progress.yml"]
-    assert names["jax"] == sorted(names["torch"] + ["m.npz.bundles"])
+    assert names["jax"] == names["torch"]
+    # the SIGTERM save and the save at the end of training: two bundles
+    assert bundles["jax"] == bundles["torch"] == {
+        f"bundle-0000000{i}": ["MANIFEST.json", "m.npz",
+                               "m.npz.optimizer.npz", "m.npz.progress.yml"]
+        for i in (1, 2)}
     # the port resumes from what it saved
     done = batches(work / "torch" / "m.npz.progress.yml")
     resume = subprocess.run(
