@@ -118,7 +118,23 @@ card, and drives the port's main paths on data made from --seed:
   scheduler trips once, the sync-debug mode is back to default, and 16
   following requests are served on a fresh worker (a rebuilt engine
   whose pool audits clean), each equal to Translate.run or the dense
-  greedy or beam decode;
+  greedy or beam decode; the flight recorder armed (--trace-dump), each
+  trip writes one flight file holding the trip's event, the span ring
+  and a /metrics snapshot;
+- the observability plane on the 2+2 cut, request mode and the fused
+  beam merge (4 steps a round, under the sync guard): 128 one-line
+  requests with #trace:<id> headers from 16 clients, with every plane
+  on (--trace, --trace-dump, --metrics-port, --slo-availability 0.999,
+  --slo-p99-ms) and with every plane off (--perf-accounting false),
+  off, on, on, off: each reply its #trace: line (queue_ms + service_ms
+  within the client's latency) over Translate.run's or the dense beam
+  search's text; /tracez holds each id's span tree with the reference's
+  names and parent edges; /metrics passes the port's promlint with its
+  latency exemplars' ids among those sent and the request counters
+  equal to the requests sent; /poolz is consistent with the engine's
+  pool; /sloz reports both objectives; the MFU, busy ratio and headroom
+  gauges read within (0, 1]; the on and off sentences/s and ms per
+  batch or round printed with the card's name and power limit;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
@@ -164,6 +180,7 @@ import gc
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -266,7 +283,8 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 # paths only (a row's "paths"); other rows sum it over every path.
 F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
-             "decode surface", "train", "lifecycle serve",
+             "decode surface", "observability serve", "train",
+             "lifecycle serve",
              "lifecycle iteration", "delay train", "doc train",
              "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
@@ -365,6 +383,10 @@ LIFE_DEPTH = ("--enc-depth", str(SERVE_CUT_DEPTH), "--dec-depth",
 # above a request-mode batch of the following requests), the requests
 # served after the trip, and the longest a wedged call waits
 STALL_TIMEOUT_S, STALL_FOLLOWING, STALL_WAIT_S = 4.0, 16, 120.0
+# the observability serve phase: one-line requests with #trace: headers
+# from SERVE_CLIENTS clients; a p99 objective no run misses, the span
+# ring's capacity (every request's tree and every round's span fit)
+OBS_REQUESTS, OBS_P99_MS, OBS_RING = 128, 60000.0, 16384
 # sentences of the bf16 cuts of the two serve paths
 SERVE_BF16 = 64
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
@@ -3089,7 +3111,11 @@ def phase_watchdog_serve(seed: int) -> None:
     mode left at "error" would fail their host syncs); the wedged call
     is released and returns last. Each server answers two warm-up
     requests first; the fused engine's guard is armed after them (its
-    first round stays outside, as in beam_serve_run)."""
+    first round stays outside, as in beam_serve_run). The flight
+    recorder is armed (--trace-dump, a directory a mode): each trip
+    writes one flight file holding the trip's event, the span ring and
+    a /metrics snapshot (``flight_of``); the iteration modes' files the
+    pool's page map too."""
     from marian_tpu_torch.server.server import ServingApp
     from marian_tpu_torch.translator.greedy import greedy_decode
     stall = serve_sentences(seed + 9, 1)[0]
@@ -3098,8 +3124,14 @@ def phase_watchdog_serve(seed: int) -> None:
     flag = ("--dispatch-stall-timeout", str(STALL_TIMEOUT_S))
     lines = []
 
+    def dump_flags(mode: str):
+        dump = WORK / f"flight_watchdog_{mode}"
+        shutil.rmtree(dump, ignore_errors=True)
+        return ("--trace-dump", str(dump))
+
     # request mode: the translate call of the stalled request's batch
-    app = ServingApp(request_options(*flag, model=SERVE_CUT_MODEL))
+    app = ServingApp(request_options(*flag, *dump_flags("request"),
+                                     model=SERVE_CUT_MODEL))
     sched, tr = app.scheduler, app.service.translator
     wedge = Wedge()
     real = sched.translate_lines
@@ -3108,6 +3140,7 @@ def phase_watchdog_serve(seed: int) -> None:
     stalled, mode, _, replies = stall_traffic(app, warm, stall, following)
     wedge.finish()
     check_stall("request mode", app, stalled, mode, replies)
+    flight_of("request mode", WORK / "flight_watchdog_request")
     ref = tr.run(following, io.StringIO())
     check(replies == ref, "request mode: replies after the trip differ from "
           "Translate.run on the card")
@@ -3116,7 +3149,8 @@ def phase_watchdog_serve(seed: int) -> None:
     del app, sched, tr, real
 
     # iteration greedy: the engine round that joins the stalled request
-    app = ServingApp(serve_options(*flag, model=SERVE_CUT_MODEL))
+    app = ServingApp(serve_options(*flag, *dump_flags("greedy"),
+                                   model=SERVE_CUT_MODEL))
     old = app.scheduler.engine
     wedge = Wedge()
     step = old.admit_and_step
@@ -3128,6 +3162,9 @@ def phase_watchdog_serve(seed: int) -> None:
     engine = app.scheduler.engine
     wedge.finish()
     check_stall("iteration greedy", app, stalled, mode, replies)
+    check("pool" in flight_of("iteration greedy",
+                              WORK / "flight_watchdog_greedy"),
+          "iteration greedy: the flight file lacks the pool's page map")
     check(engine is not old and engine.idle() and engine.pool.free_pages()
           == engine.pool.usable_pages and engine.audit() == [],
           "iteration greedy: the rebuilt engine's pool after the run: "
@@ -3151,7 +3188,8 @@ def phase_watchdog_serve(seed: int) -> None:
 
     # the fused beam merge: the wedge inside the round's sync guard
     app = ServingApp(beam_serve_options("--iteration-steps",
-                                        str(FUSED_STEPS), *flag, merge=None))
+                                        str(FUSED_STEPS), *flag,
+                                        *dump_flags("fused"), merge=None))
     sched = app.scheduler
     old = sched.engine
     wedge = Wedge()
@@ -3177,6 +3215,8 @@ def phase_watchdog_serve(seed: int) -> None:
     engine = sched.engine
     wedge.finish()
     check_stall("fused beam", app, stalled, mode, replies)
+    check("pool" in flight_of("fused beam", WORK / "flight_watchdog_fused"),
+          "fused beam: the flight file lacks the pool's page map")
     check(inside == [2], f"fused beam: the wedged round waited under "
           f"sync-debug modes {inside}, not once under 'error' (2)")
     check(torch.cuda.get_sync_debug_mode() == 0, "fused beam: the "
@@ -3200,16 +3240,340 @@ def phase_watchdog_serve(seed: int) -> None:
                  f"held {abandoned_bytes(alloc) / 2**20:.1f} MiB (a pool of "
                  f"{engine_pool_bytes(engine) / 2**20:.1f} MiB)")
     del app, sched, engine, tr
+    obs_reset()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"watchdog serve: --dispatch-stall-timeout {STALL_TIMEOUT_S}, "
-          f"serve model 6+6 dim 512 vocab {VOCAB}: one request wedged past "
+          f"serve model {SERVE_CUT_DEPTH}+{SERVE_CUT_DEPTH} cut, dim 512, "
+          f"vocab {VOCAB}: one request wedged past "
           f"the timeout got !!SERVER-RETRY, 1 trip, sync-debug mode default "
           f"after it, then {STALL_FOLLOWING} requests served on the fresh "
           f"worker, replies equal Translate.run / the dense greedy / the "
           f"dense beam decode, the rebuilt engines' pools empty and "
-          f"audited clean, the wedged call released and returned: "
+          f"audited clean, the wedged call released and returned, one "
+          f"flight file a trip (the trip's event, the span ring, "
+          f"/metrics): "
           + "; ".join(lines))
+
+
+def flight_of(what: str, dump: Path) -> dict:
+    """The one flight file a trip wrote into ``dump`` (the recorder
+    writes it on a thread of its own: waited for), checked to hold the
+    trip's timeline event, the span ring and a /metrics snapshot."""
+    deadline = time.perf_counter() + 30.0
+    names = []
+    while time.perf_counter() < deadline:
+        names = sorted(n for n in os.listdir(dump) if n.startswith("flight-"))
+        if names:
+            break
+        time.sleep(0.05)
+    check(len(names) == 1 and names[0].endswith("-watchdog.json"),
+          f"{what}: flight files {names}")
+    with open(dump / names[0], encoding="utf-8") as fh:
+        payload = json.load(fh)
+    events = payload["trace"]["traceEvents"]
+    # the process-wide registry's counter, summed over the modes' trips
+    trips = [ln for ln in payload["metrics"].splitlines()
+             if ln.startswith("marian_serving_watchdog_trips_total ")]
+    check(any(e["ph"] == "i" and e["name"] == "serve.watchdog_trip"
+              for e in events)
+          and any(e["ph"] == "X" for e in events)
+          and trips and float(trips[0].split()[1]) >= 1,
+          f"{what}: the flight file lacks the trip's event, the span ring "
+          f"or the watchdog counter")
+    return payload
+
+
+def obs_reset() -> None:
+    """Every plane of the process off: the tracer (its ring freed), the
+    flight recorder, the perf meter (earlier serve paths ran it on, the
+    server's default)."""
+    from marian_tpu_torch import obs
+    obs.TRACER.reset()
+    obs.TRACER.capacity = obs.trace.DEFAULT_RING
+    obs.FLIGHT.disarm()
+    obs.PERF.reset()
+
+
+async def traced_traffic(port: int, sents, clients: int, tag: str):
+    """``serve_traffic`` with a ``#trace:<tag>-<i>`` header on request
+    ``i``: the replies and each request's latency (s), in sentence
+    order."""
+    replies, lat = [None] * len(sents), [None] * len(sents)
+
+    async def request(i):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            payload = f"#trace:{tag}-{i:03d}\n{sents[i]}".encode("utf-8")
+            t0 = time.perf_counter()
+            writer.write(b"MTPU %d\n" % len(payload) + payload)
+            await writer.drain()
+            header = await reader.readline()
+            check(header.startswith(b"MTPU "), f"reply header {header!r}")
+            body = await reader.readexactly(int(header.split()[1]))
+            lat[i] = time.perf_counter() - t0
+            replies[i] = body.decode("utf-8")
+        finally:
+            writer.close()
+
+    async def client(c):
+        await asyncio.gather(*[request(i)
+                               for i in range(c, len(sents), clients)])
+    await asyncio.gather(*[client(c) for c in range(clients)])
+    return replies, lat
+
+
+def gauge(text: str, name: str) -> float:
+    """The value of the one sample of ``name`` in a /metrics text."""
+    vals = [float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+            if ln.startswith(name) and not ln.startswith("#")]
+    check(len(vals) == 1, f"{name}: samples {vals}")
+    return vals[0]
+
+
+def obs_serve_run(what: str, seed: int, flags, sents, refs, on: bool,
+                  iteration: bool) -> dict:
+    """One run of the observability serve phase: ``sents`` as traced
+    requests from SERVE_CLIENTS clients into a ServingApp of ``flags``
+    plus every plane (``on``) or none. Every reply is its #trace: line
+    over ``refs``'s text; with the planes on, /tracez, /metrics,
+    /poolz and /sloz are held as the module docstring says. Returns the
+    run's launch counts and figures."""
+    from marian_tpu_torch.obs import poolz
+    from marian_tpu_torch.server.server import ServingApp, _make_tcp_handler
+    from marian_tpu_torch.serving import metrics as msm
+    from marian_tpu_torch.serving.promlint import lint_metrics_text
+    obs_reset()
+    # the trace-id alphabet: letters, digits, "-" and "_"
+    tag = "".join(c if c.isalnum() else "-" for c in what)
+    mport = free_port()
+    dump = WORK / f"flight_{tag}"
+    shutil.rmtree(dump, ignore_errors=True)
+    planes = (("--trace", "--trace-ring", str(OBS_RING), "--trace-dump",
+               str(dump), "--metrics-port", str(mport),
+               "--slo-availability", "0.999", "--slo-p99-ms",
+               str(OBS_P99_MS)) if on else ("--perf-accounting", "false"))
+    reg = msm.Registry()
+    app = ServingApp(flags(*planes), registry=reg)
+    sched, engine = app.scheduler, app.scheduler.engine
+    tr = app.service.translator
+    if iteration:
+        def stats():
+            return dict(engine.counters)
+    else:
+        def stats():
+            return {**sched.counts, "steps": sum(tr.search.steps)}
+    warm = serve_sentences(seed + 1, 4)
+
+    async def serve():
+        loop = asyncio.get_event_loop()
+        app.start()
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        scrape = {}
+        try:
+            await traced_traffic(port, warm, len(warm), f"{tag}-warm")
+            if iteration:
+                engine.sync_debug = "error"       # the rounds' sync guard
+            before = stats()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            replies, lat = await traced_traffic(port, sents, SERVE_CLIENTS,
+                                                tag)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            after = stats()
+            if iteration:
+                engine.sync_debug = None
+            if on:
+                # an idle second: the busy ratio's window then covers
+                # more wall clock than device time
+                await asyncio.sleep(1.0)
+                for path in ("/metrics", "/metrics?exemplars=1", "/tracez",
+                             "/poolz?check=1", "/sloz"):
+                    scrape[path] = await loop.run_in_executor(
+                        None, http_get, mport, path)
+        finally:
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+        return replies, lat, secs, counts, {
+            k: after[k] - before.get(k, 0) for k in after}, scrape
+    replies, lat, secs, counts, run, scrape = asyncio.run(serve())
+    sent = [f"{tag}-{i:03d}" for i in range(len(sents))]
+    sent_warm = [f"{tag}-warm-{i:03d}" for i in range(len(warm))]
+    for i, (reply, ref) in enumerate(zip(replies, refs)):
+        head, _, body = reply.partition("\n")
+        check(head.startswith(f"#trace:{sent[i]} outcome=ok "),
+              f"{what}: reply {i}'s metadata line {head!r}")
+        fields = dict(kv.split("=", 1) for kv in head.split()[1:])
+        check(fields.get("model_version") == "unversioned",
+              f"{what}: reply {i}'s metadata line {head!r}")
+        check(body == ref, f"{what}: reply {i} differs from the reference "
+              f"without its header")
+        check(float(fields["queue_ms"]) + float(fields["service_ms"])
+              <= 1e3 * lat[i] + 0.2, f"{what}: reply {i}: queue_ms + "
+              f"service_ms over the client's {1e3 * lat[i]:.1f} ms")
+        check(not iteration or int(fields["rounds"]) >= 1,
+              f"{what}: reply {i} rode {fields.get('rounds')} rounds")
+    cfg = tr.model.cfg
+    want = {name: 0 for name in counts}
+    if iteration:
+        want["paged_decode_attention"] = cfg.dec_depth * run["steps"]
+        want["packed_attention"] = cfg.enc_depth * run["encodes"]
+        per = run["rounds"]
+        unit = (f"{run['rounds']} rounds, "
+                f"{1e3 * run['round_s'] / per:.3f} ms per round (engine), "
+                f"{1e3 * secs / per:.3f} ms (wall)")
+    else:
+        want["decode_attention"] = cfg.dec_depth * run["steps"]
+        want["packed_attention"] = cfg.enc_depth * run["batches"]
+        per = run["batches"]
+        unit = (f"{run['batches']} batches, {1e3 * secs / per:.3f} ms per "
+                f"batch (wall), {run['steps']} steps")
+    check(counts == want, f"{what} launches {counts}, expected {want}")
+    out = {"counts": counts, "sentences/s": len(sents) / secs,
+           "ms": 1e3 * secs / per, "unit": unit}
+    lat_ms = np.percentile(np.array(lat) * 1e3, [50, 99])
+    line = (f"{what} ({'every plane on' if on else 'every plane off'}): "
+            f"{len(sents)} traced requests from {SERVE_CLIENTS} clients in "
+            f"{secs:.3f} s: {len(sents) / secs:.2f} sentences/s; {unit}; "
+            f"latency p50 {lat_ms[0]:.1f} ms p99 {lat_ms[1]:.1f} ms")
+    if not on:
+        print(line)
+        return out
+    for path, (code, _) in scrape.items():
+        check(code == 200, f"{what}: GET {path} answered {code}")
+    # /tracez: each sent id's tree, the reference's names and edges
+    events = json.loads(scrape["/tracez"][1])["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    names = {e["args"]["span_id"]: e["name"] for e in spans}
+    trees = {}
+    for e in spans:
+        trees.setdefault(e["args"]["trace_id"], []).append(
+            (e["name"], names.get(e["args"].get("parent_id"), "")))
+    tree = sorted([("reply.write", "request"), ("request", ""),
+                   ("serve.dispatch", "request"), ("serve.queue", "request")]
+                  + ([("serve.row", "request")] if iteration else []))
+    bad = [t for t in sent if sorted(trees.get(t, [])) != tree]
+    check(not bad, f"{what}: /tracez trees of {bad[:4]}: "
+          f"{[sorted(trees.get(t, [])) for t in bad[:2]]}, expected {tree}")
+    own = "serve.round" if iteration else "serve.batch"
+    linked = {t for e in spans if e["name"] == own
+              for t in e["args"]["traces"]}
+    check(set(sent) <= linked, f"{what}: requests no {own} span names")
+    # /metrics: promlint, exemplars of sent ids, the request counters
+    plain, with_ex = scrape["/metrics"][1], scrape["/metrics?exemplars=1"][1]
+    problems = lint_metrics_text(plain) + lint_metrics_text(
+        with_ex, allow_exemplars=True)
+    check(not problems, f"{what}: promlint: {problems[:4]}")
+    ex_ids = {ln.split('trace_id="')[1].split('"')[0]
+              for ln in with_ex.splitlines()
+              if ln.startswith("marian_serving_request_latency_seconds_"
+                               "bucket") and "# {" in ln}
+    check(ex_ids and ex_ids <= set(sent + sent_warm),
+          f"{what}: latency exemplars {sorted(ex_ids)[:4]} not sent")
+    n_sent = len(sent) + len(sent_warm)
+    check(gauge(plain, "marian_serving_requests_total") == n_sent
+          and gauge(plain, 'marian_serving_request_outcomes_total{outcome='
+                    '"ok",model_version="unversioned"}') == n_sent,
+          f"{what}: the request counters differ from the {n_sent} sent")
+    # /poolz and /sloz
+    pz = json.loads(scrape["/poolz?check=1"][1])
+    if iteration:
+        check(pz["enabled"] and pz["consistency"] == []
+              and pz["pool"]["usable_pages"] == engine.pool.usable_pages
+              and pz["pool"]["free_pages"] == engine.pool.free_pages()
+              and poolz.check_consistency(pz) == [],
+              f"{what}: /poolz {pz.get('consistency')}, pool "
+              f"{pz.get('pool', {}).get('free_pages')} free of "
+              f"{pz.get('pool', {}).get('usable_pages')}")
+    else:
+        check(pz["enabled"] is False, f"{what}: /poolz {pz}")
+    slo = json.loads(scrape["/sloz"][1])
+    check(set(slo["slo"]["objectives"]) == {"availability", "latency_p99"}
+          and slo["perf"]["enabled"], f"{what}: /sloz {slo}")
+    # the perf plane's gauges on the card
+    mfu = gauge(plain, 'marian_perf_mfu{model_version="unversioned"}')
+    busy = gauge(plain, "marian_perf_device_busy_ratio")
+    headroom = gauge(plain, "marian_capacity_headroom_ratio")
+    check(all(0 < v <= 1 for v in (mfu, busy, headroom)), f"{what}: perf "
+          f"gauges MFU {mfu}, busy {busy}, headroom {headroom}")
+    out.update(mfu=mfu, busy=busy, headroom=headroom)
+    pool = (f"consistent, {pz['pool']['usable_pages']} pages" if iteration
+            else "enabled: false")
+    dtype = "bf16" if cfg.compute_dtype == torch.bfloat16 else "f32"
+    print(f"{line}; /tracez {len(spans)} spans, every tree the "
+          f"reference's; /metrics lints clean, {len(ex_ids)} exemplars of "
+          f"sent ids, {n_sent} requests counted; /poolz {pool}; /sloz "
+          f"{sorted(slo['slo']['objectives'])}; perf gauges: MFU "
+          f"{mfu:.6g} (against the {dtype} peak), busy ratio {busy:.4f}, "
+          f"headroom {headroom:.4f}")
+    return out
+
+
+def phase_observability_serve(seed: int, smi: str) -> dict:
+    """The observability plane on the 2+2 cut (SERVE_CUT_MODEL) at full
+    width: request mode (beam 12) and the fused beam merge
+    (--iteration-steps FUSED_STEPS, every round's step loop under the
+    sync guard), each run off, on, on, off (every plane off:
+    --perf-accounting false; on: --trace, --trace-dump, --metrics-port,
+    both SLOs), OBS_REQUESTS traced requests a run (obs_serve_run).
+    Replies are held to Translate.run on the card (request mode) and the
+    dense beam search's best hypotheses (iteration). Returns the launch
+    counts of every run."""
+    from marian_tpu_torch.server.server import ServingApp
+    sents = serve_sentences(seed, OBS_REQUESTS)
+    counts, runs = [], {}
+    ref_app = ServingApp(request_options("--perf-accounting", "false",
+                                         model=SERVE_CUT_MODEL))
+    tr = ref_app.service.translator
+    request_refs = tr.run(sents, io.StringIO())
+    del ref_app, tr
+    beam_flags = ("--iteration-steps", str(FUSED_STEPS))
+    ref_app = ServingApp(beam_serve_options(*beam_flags, "--perf-accounting",
+                                            "false", merge=None))
+    engine, tr = ref_app.scheduler.engine, ref_app.service.translator
+    caps = [engine.decode_cap(len(tr.src_vocab.encode(t))) for t in sents]
+    beam_refs = [tr.trg_vocab.decode(d["tokens"], ignore_eos=True)
+                 for d in dense_beam_best(tr, sents, caps, engine)]
+    del ref_app, engine, tr
+    modes = (("request mode",
+              lambda *x: request_options(*x, model=SERVE_CUT_MODEL),
+              request_refs, False),
+             (f"fused beam, {FUSED_STEPS} steps",
+              lambda *x: beam_serve_options(*beam_flags, *x, merge=None),
+              beam_refs, True))
+    try:
+        for what, flags, refs, iteration in modes:
+            for i, on in enumerate((False, True, True, False)):
+                r = obs_serve_run(f"observability {what} {i + 1}", seed,
+                                  flags, sents, refs, on, iteration)
+                counts.append(r.pop("counts"))
+                runs.setdefault((what, on), []).append(r)
+    finally:
+        obs_reset()
+        gc.collect()
+        torch.cuda.empty_cache()
+    for what, _, _, _ in modes:
+        off, on = runs[what, False], runs[what, True]
+        ratio = (sum(r["sentences/s"] for r in on)
+                 / sum(r["sentences/s"] for r in off))
+        print(f"observability serve, {what} ({smi}): every plane off "
+              + ", ".join(f"{r['sentences/s']:.2f}" for r in off)
+              + " sentences/s, on " + ", ".join(f"{r['sentences/s']:.2f}"
+                                                for r in on)
+              + f" (on/off {ratio:.4f}); ms per "
+              + ("round" if "beam" in what else "batch") + " off "
+              + ", ".join(f"{r['ms']:.3f}" for r in off) + ", on "
+              + ", ".join(f"{r['ms']:.3f}" for r in on)
+              + "; gauges on: " + "; ".join(
+                  f"MFU {r['mfu']:.6g}, busy {r['busy']:.4f}, headroom "
+                  f"{r['headroom']:.4f}" for r in on))
+    return add_counts(*counts)
 
 
 def phase_fused_pressure(seed: int) -> dict:
@@ -5467,6 +5831,8 @@ def run_phases(args, smi: str, child) -> int:
     paths["decode surface"] = timed("decode surface", phase_decode_surface,
                                     args.seed)
     timed("watchdog serve", phase_watchdog_serve, args.seed)
+    paths["observability serve"] = timed(
+        "observability serve", phase_observability_serve, args.seed, smi)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
     timed("bundles", phase_train_bundles)

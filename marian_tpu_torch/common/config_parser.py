@@ -5,10 +5,12 @@ Three modes, as in ``marian_tpu/common/config_parser.py``:
 ``translation`` (the decoder's flags), ``server`` (those plus the
 server's) and ``training`` (the trainer's), each with the
 model flags a checkpoint's ``special:model.yml`` carries, under the same
-names and defaults as the reference, the serving lifecycle's and the
-metrics port's among them; the flags of the JAX package's serving planes
-this port does not carry (fleet, brownout, tracing, SLOs) and of its
-mesh machinery are left out. Precedence as
+names and defaults as the reference, the serving lifecycle's, the
+metrics port's and the observability plane's (tracing, the flight
+recorder, the perf plane, SLOs) among them; the flags of the JAX
+package's serving planes this port does not carry yet (fleet, brownout,
+the compile cache, profiling, ``--trace-sync-phases``) and of its mesh
+machinery are left out. Precedence as
 in Marian: defaults < config file(s) < CLI flags. ``--cpu-threads N``
 (N > 0) runs on the CPU.
 
@@ -249,7 +251,15 @@ _SERVER = [
     _f("rollback-p99-factor", float, 0.0, "With --model-watch: auto-rollback a canary whose p99 batch latency exceeds this factor x the live version's p99 (both over a recent-sample window; 0 = latency check off)"),
     _f("canary-min-batches", int, 8, "With --model-watch and --canary-fraction > 0: promote the canary to live after this many canary batches without tripping a rollback threshold"),
     _f("warmup-golden", str, "", "With --model-watch: file of golden source sentences (one per line) each candidate model must translate during off-path warmup before it can serve — proves the checkpoint loads on the card and decodes (empty = a built-in probe set)"),
-    _f("warmup-on-boot", bool, False, "marian-server: golden-decode every serving width bucket of the boot model BEFORE accepting the first request, instead of letting the first request of each bucket pay its first launches inline"),
+    _f("warmup-on-boot", bool, False, "marian-server: golden-decode every serving width bucket of the boot model BEFORE accepting the first request, instead of letting the first request of each bucket pay its first launches inline"),    # the observability plane (obs/)
+    _f("trace", bool, False, "Enable the request-scoped span tracer: every request's path (ingest, admission, queue wait, batch or round, dispatch, translate, reply write) is recorded into a bounded in-memory ring, exported as Chrome trace JSON at /tracez on the metrics port (open in Perfetto). Off = no overhead: no ring allocation, no lock on the hot path"),
+    _f("trace-ring", int, 4096, "With --trace: span ring capacity — how many most-recent spans /tracez and flight-recorder dumps can see"),
+    _f("trace-dump", str, "", "Arm the crash flight recorder (implies --trace): on a dispatch-watchdog trip, a canary/live/manual rollback, a poison-request isolation, an unhealthy quiesce, a failed pool audit or a fast SLO burn, snapshot the span ring + event timeline + /metrics (+ the pool, slo and perf state) to a timestamped JSON file in this directory"),
+    _f("perf-accounting", bool, True, "Live performance & capacity plane (obs/perf.py): per-batch (per-round) chip-seconds/token, tokens/s, device busy ratio, MFU-vs-analytic-roofline and capacity-headroom gauges on /metrics. One counter update per device batch or engine round; `--perf-accounting false` restores the strictly lock-free batch path"),
+    _f("slo-availability", float, 0.0, "Declare an availability SLO (e.g. 0.999): the in-process burn-rate engine (obs/slo.py) evaluates ok-vs-(failure|timeout|stalled) outcomes over fast/slow windows, exports marian_slo_* gauges and GET /sloz, emits timeline events on threshold crossings and fires a flight dump on fast burn (0 = off)"),
+    _f("slo-p99-ms", float, 0.0, "Declare a latency SLO: 99% of requests must resolve under this many milliseconds (evaluated against the request-latency histogram buckets, conservatively rounded DOWN to a bucket edge). Same burn-rate machinery and exports as --slo-availability (0 = off)"),
+    _f("slo-window", float, 60.0, "SLO engine short (fast-burn) window in seconds; the slow window is 10x this"),
+    _f("slo-eval-interval", float, 2.0, "SLO engine evaluation cadence in seconds (its own daemon thread; nothing on the batch path)"),
 ]
 
 FLAGS = _COMMON + _MODEL + _TRANSLATION

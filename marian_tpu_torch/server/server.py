@@ -60,9 +60,35 @@ all joins for its window). A failing canary's batches are re-served on
 live and it is rolled back (``--rollback-error-rate``,
 ``--rollback-p99-factor``, ``--canary-min-batches``); the previous live
 version stays warm as the rollback target, every other version's model
-is released. ``--metrics-port P`` serves ``/metrics``, ``/healthz``,
-``/readyz`` (503 until a live version routes) and, with the lifecycle,
-``/lifecyclez`` and loopback ``POST /admin/{pin,unpin,rollback}``.
+is released. ``--metrics-port P`` serves ``/metrics`` (``?exemplars=1``
+adds the latency histograms' trace-id exemplars), ``/healthz``,
+``/readyz`` (503 until a live version routes), ``/tracez``, ``/sloz``,
+``/poolz`` and, with the lifecycle, ``/lifecyclez`` and loopback
+``POST /admin/{pin,unpin,rollback}``.
+
+The observability plane (obs/): ``--trace`` records every request's
+span tree (``request`` -> ``serve.queue`` -> ``serve.dispatch``, the
+batch's ``serve.batch`` -> ``serve.translate`` or the round's
+``serve.round`` and the sentence's ``serve.row``, then ``reply.write``)
+into a ring that ``/tracez?last=N`` exports as Chrome trace JSON (open
+it in Perfetto); ``--trace-dump DIR`` (implies ``--trace``) arms the
+flight recorder, which writes the ring, the timeline, ``/metrics`` and
+the pool, SLO and perf state to ``DIR/flight-*.json`` at a watchdog
+trip, a rollback, a poison isolation, an unhealthy quiesce, a failed
+pool audit or a fast SLO burn. ``--perf-accounting`` (on by default)
+keeps the perf plane's gauges (chip-seconds per token, tokens/s, busy
+ratio, MFU against the card's peak for the model's compute dtype,
+capacity headroom). ``--slo-availability`` / ``--slo-p99-ms`` start the
+SLO burn-rate engine (``/sloz``, ``marian_slo_*``). ``/poolz`` shows the
+iteration engine's page map (``enabled: false`` in request mode).
+
+Request tracing: a frame whose first line is ``#trace:<id>`` (up to 64
+characters of letters, digits, ``-`` and ``_``; anything else is
+payload) labels the request's span tree with the id, and the reply
+starts with the line ``#trace:<id> outcome=.. queue_ms=.. service_ms=..
+model_version=..`` (iteration mode adds ``rounds= ttfj_ms= prefix_hit=
+evictions=``). Headers stack in the order ``#trace``, ``#model``,
+``#priority``, ``#stream``.
 
 ``--dispatch-stall-timeout S`` (both modes) arms the scheduler's
 dispatch watchdog: a device batch or engine round still running after S
@@ -77,8 +103,7 @@ Refused by name at startup: in iteration mode ``--alignment``,
 ``--word-scores`` and ``--output-approx-knn`` (``ITERATION_DECODE_SURFACE``
 gives the reasons; a decode flag with no verdict there is refused as
 UNCLASSIFIED), ``--shortlist`` with ``--force-decode`` in either mode,
-and ensembles; by an ``!!SERVER-ERROR`` reply, the ``#trace:`` request
-header (not ported yet).
+and ensembles.
 """
 
 from __future__ import annotations
@@ -88,12 +113,16 @@ import contextlib
 import io
 import json
 import os
+import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from .. import obs
 from ..common import logging as log
 from ..data.batching import bucket_length
+from ..obs import poolz as mpoolz
+from ..obs import slo as mslo
 from ..serving import metrics as msm
 from ..serving.admission import AdmissionController, Overloaded
 from ..serving.scheduler import (ContinuousScheduler, DispatchStalled,
@@ -145,13 +174,18 @@ def _priority(raw: str):
         return None
 
 
+def split_trace_header(text: str) -> Tuple[Optional[str], str]:
+    """(trace id | None, body): the reference's ``#trace:`` split; a
+    malformed id is payload, never an error."""
+    return _split_header(text, TRACE_PREFIX, _token("-_", _MAX_TRACE_ID))
+
+
 def split_headers(text: str) -> Tuple[Optional[str], Optional[int],
                                       Optional[bool], str]:
     """(trace id, priority, stream, body) of one request frame. A
     ``#model:`` tag is stripped and ignored, as the reference's
     single-model server does."""
-    trace_id, body = _split_header(text, TRACE_PREFIX,
-                                   _token("-_", _MAX_TRACE_ID))
+    trace_id, body = split_trace_header(text)
     _, body = _split_header(body, MODEL_PREFIX, _token("-_.", _MAX_MODEL_TAG))
     priority, body = _split_header(body, PRIORITY_PREFIX, _priority)
     stream, body = _split_header(
@@ -241,6 +275,10 @@ class ServingApp:
                  executor_factory=None):
         self.options = options
         self._validate_options(options)
+        # the observability plane: --trace enables the span tracer,
+        # --trace-dump arms the flight recorder, --perf-accounting the
+        # perf plane; /tracez, /sloz and /poolz ride the metrics port
+        obs.configure(options)
         self.batching_mode = str(options.get("batching-mode", "request"))
         self.registry = registry if registry is not None else msm.REGISTRY
         self.device = device
@@ -266,7 +304,8 @@ class ServingApp:
                 registry=self.registry)
             # request mode bounds queued sentences only: no pool
             self.admission = AdmissionController(
-                max_queue, self.scheduler.queued_units)
+                max_queue, self.scheduler.queued_units,
+                registry=self.registry)
         else:
             if engine is None:
                 self.service = TranslationService(options, device)
@@ -286,10 +325,40 @@ class ServingApp:
             self.admission = AdmissionController(
                 max_queue, self.scheduler.queued_units,
                 max_queue_pages=self.max_queue_pages,
-                pages_fn=self.scheduler.queued_pages)
+                pages_fn=self.scheduler.queued_pages,
+                registry=self.registry)
+            # every flight dump embeds the KV page map of its moment,
+            # resolved through the scheduler (swaps and rebuilds re-point
+            # its engine)
+            obs.FLIGHT.add_snapshot_provider(
+                "pool", lambda: mpoolz.snapshot(self.scheduler))
+        self._pool_provider = self.batching_mode == "iteration"
         self.request_timeout = float(options.get("request-timeout", 0) or 0)
         self.metrics_server: Optional[msm.MetricsServer] = None
         self._started = False
+        # the perf plane: the headroom gauge's queue pressure (sentences
+        # against --max-queue in request mode, pages against the page
+        # bound in iteration mode) and the MFU gauge's geometry
+        self._perf_wired = obs.PERF.enabled
+        if obs.PERF.enabled:
+            if self.registry is not msm.REGISTRY:
+                # configure() declared the perf series on the global
+                # registry; this app scrapes its own
+                obs.PERF.enable(registry=self.registry)
+            if self.batching_mode == "iteration":
+                obs.PERF.set_capacity_inputs(self.scheduler.queued_pages,
+                                             self.max_queue_pages)
+            else:
+                obs.PERF.set_capacity_inputs(
+                    self.scheduler.queued_units,
+                    self.admission.max_queue_units)
+            self._set_perf_geometry()
+        # the SLO burn-rate engine, only with an objective declared; it
+        # reads the scheduler's series on its own thread
+        self.slo: Optional[mslo.SloEngine] = \
+            mslo.maybe_build_engine(options, self.registry)
+        if self.slo is not None:
+            obs.FLIGHT.add_snapshot_provider("slo", self.slo.state)
         # zero-downtime lifecycle (--model-watch SECONDS): registry +
         # watcher + warmup + swap controller over <model>.bundles/
         self.lifecycle = None
@@ -416,6 +485,30 @@ class ServingApp:
             allow_unk=bool(opts.get("allow-unk", False)),
             merge=str(opts.get("iteration-beam-merge", "fused") or "fused"),
             **kw)
+
+    def _set_perf_geometry(self) -> None:
+        """The MFU gauge's geometry: the served model's widths and
+        depths, the beam, and the peak of its compute dtype on its card
+        (an unknown device, the CPU, reads MFU 0). An injected
+        ``translate_lines`` without a model leaves the geometry unset."""
+        engine = self.scheduler.engine
+        if self.service is not None:
+            tr = self.service.translator
+            model, vocab, device = tr.model, len(tr.trg_vocab), tr.device
+        elif engine is not None and hasattr(engine, "model"):
+            model, vocab, device = (engine.model, len(engine.trg_vocab),
+                                    engine.device)
+        else:
+            return
+        cfg = model.cfg
+        beam = (getattr(engine, "beam_size", 1) if engine is not None
+                else int(self.options.get("beam-size", 12) or 12))
+        kind = (torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "")
+        obs.PERF.set_geometry(
+            emb=cfg.dim_emb, ffn=cfg.dim_ffn, enc_depth=cfg.enc_depth,
+            dec_depth=cfg.dec_depth, vocab=vocab, beam=beam, n_devices=1,
+            device_kind=kind, compute_dtype=str(cfg.compute_dtype))
 
     # -- the model lifecycle (--model-watch) --------------------------------
     def _device_context(self):
@@ -661,12 +754,20 @@ class ServingApp:
 
     def start(self) -> None:
         """Start the scheduler on the RUNNING loop, then the metrics
-        port, the boot warmup and the bundle watcher."""
+        port, the SLO engine, the boot warmup and the bundle watcher."""
         self.scheduler.start()
-        routes = self._admin_routes() if self.lifecycle is not None else {}
+        # /tracez, /sloz and /poolz always answer (a disabled plane says
+        # so rather than 404); the admin verbs exist with the lifecycle
+        routes = obs.trace_routes()
+        routes.update(mslo.slo_routes(lambda: self.slo))
+        routes.update(obs.pool_routes(lambda: self.scheduler))
+        if self.lifecycle is not None:
+            routes.update(self._admin_routes())
         self.metrics_server = msm.maybe_start_metrics_server(
             self.options, ready_fn=self.ready, routes=routes,
             registry=self.registry)
+        if self.slo is not None:
+            self.slo.start()
         if self.options.get("warmup-on-boot", False):
             self._boot_warmup()
         if self.watcher is not None:
@@ -700,42 +801,119 @@ class ServingApp:
         scheduler, reply. ``send_partial`` writes a ``#stream:1``
         request's partial frames (on the event-loop thread, in order,
         before this returns the final reply); without it the header is
-        ignored."""
+        ignored. A ``#trace:<id>`` request's reply starts with its
+        metadata line."""
+        reply, done = await self.serve_frame(text, send_partial)
+        done(0)
+        return reply
+
+    async def serve_frame(self, text: str,
+                          send_partial: Optional[Callable[[str], None]]
+                          = None) -> Tuple[str, Callable[[int], None]]:
+        """``handle_frame`` for a transport: (reply, done), where the
+        transport calls ``done(nbytes)`` once the reply's bytes are
+        written, which records the ``reply.write`` span and ends the
+        request's root span (a no-op with the tracer off)."""
         trace_id, priority, stream, body = split_headers(text)
-        if trace_id is not None:
-            return ("!!SERVER-ERROR the #trace: header (request tracing) is "
-                    "not ported to marian_tpu_torch yet")
+        priority = priority or 0
         on_partial = None
         if stream and send_partial is not None:
             def on_partial(idx: int, partial: str, _ntok: int) -> None:
                 send_partial(f"{PARTIAL_PREFIX}{idx} {partial}")
         lines = body.split("\n")
+        span = None
+        if obs.enabled():
+            span = obs.start_span("request", trace_id=trace_id or None,
+                                  n_sentences=len(lines),
+                                  priority=priority, tenant="")
+        # the queue/service breakdown is collected iff the client asked
+        # for it with a trace header
+        meta: Optional[Dict] = {} if trace_id is not None else None
+
+        def finish(outcome: str, reply: str):
+            return self._finish_frame(trace_id, meta, span, outcome, reply)
+
         engine = self.scheduler.engine
         try:
-            self.admission.admit(
-                len(lines), n_pages=sum(engine.pages_for_text(l)
-                                        for l in lines) if engine else 0)
+            # admitted inside the span's context, so a shed's timeline
+            # event carries the trace id
+            with obs.TRACER.use(span):
+                self.admission.admit(
+                    len(lines), n_pages=sum(engine.pages_for_text(l)
+                                            for l in lines)
+                    if engine else 0)
         except Overloaded as e:
-            return f"!!SERVER-OVERLOADED {e}"
-        fut = self.scheduler.submit(lines, priority=priority or 0,
-                                    timeout=self.request_timeout or None,
-                                    on_partial=on_partial)
+            return finish("shed", f"!!SERVER-OVERLOADED {e}")
+        with obs.TRACER.use(span):
+            fut = self.scheduler.submit(
+                lines, priority=priority,
+                timeout=self.request_timeout or None,
+                on_partial=on_partial, meta=meta, trace_id=trace_id)
         try:
             out = await fut
         except RequestTimeout as e:
-            return f"!!SERVER-TIMEOUT {e}"
-        except (RowEvicted, DispatchStalled) as e:
-            return f"!!SERVER-RETRY {e}"
+            return finish("timeout", f"!!SERVER-TIMEOUT {e}")
+        except DispatchStalled as e:
+            return finish("stalled", f"!!SERVER-RETRY {e}")
+        except RowEvicted as e:
+            return finish("evicted", f"!!SERVER-RETRY {e}")
         except asyncio.CancelledError:
+            # a client abort: the root span is recorded before unwinding
+            obs.end(span, outcome="cancelled")
             raise
         except Exception:  # noqa: BLE001 — logged by the scheduler
-            return ""
-        return "\n".join(out)
+            return finish("failure", "")
+        return finish("ok", "\n".join(out))
+
+    @staticmethod
+    def _finish_frame(trace_id: Optional[str], meta: Optional[Dict],
+                      span, outcome: str, reply: str
+                      ) -> Tuple[str, Callable[[int], None]]:
+        """The reply with its metadata line for a tracing client, and
+        the ``done`` callback that records the write and ends the root
+        span."""
+        if trace_id is not None:
+            m = meta or {}
+            line = (f"{TRACE_PREFIX}{trace_id} "
+                    f"outcome={m.get('outcome', outcome)} "
+                    f"queue_ms={m.get('queue_s', 0.0) * 1e3:.1f} "
+                    f"service_ms={m.get('service_s', 0.0) * 1e3:.1f} "
+                    f"model_version={m.get('model_version', '-')}")
+            if "rounds" in m:
+                # iteration mode's row breakdown: rounds ridden, time to
+                # first join (-1: never joined), a prefix-cache hit,
+                # retriable evictions
+                line += (f" rounds={m['rounds']} "
+                         f"ttfj_ms={m.get('ttfj_ms', -1.0):.1f} "
+                         f"prefix_hit={m.get('prefix_hit', 0)} "
+                         f"evictions={m.get('evictions', 0)}")
+            reply = line + "\n" + reply
+        if span is None:
+            return reply, lambda nbytes=0: None
+        t_reply = time.perf_counter()
+
+        def done(nbytes: int = 0) -> None:
+            obs.TRACER.record("reply.write", t_reply, time.perf_counter(),
+                              parent=span, nbytes=nbytes)
+            obs.end(span, outcome=outcome)
+        return reply, done
 
     def close_nowait(self) -> None:
         """Synchronous cleanup (after a drain, cancelled contexts, test
-        teardown): the bundle watcher and the metrics port stop."""
+        teardown): the perf plane's inputs are unwired, the flight
+        recorder's providers removed, and the SLO engine, the bundle
+        watcher and the metrics port stop."""
         self._started = False
+        if self._perf_wired:
+            # a scrape after close must not sample a dead scheduler
+            obs.PERF.set_capacity_inputs(None, 0)
+            self._perf_wired = False
+        if self._pool_provider:
+            obs.FLIGHT.remove_snapshot_provider("pool")
+            self._pool_provider = False
+        if self.slo is not None:
+            self.slo.stop()
+            obs.FLIGHT.remove_snapshot_provider("slo")
         if self.watcher is not None:
             from ..training import bundle as bdl
             bdl.remove_commit_hook(self._on_bundle_commit)
@@ -814,7 +992,7 @@ def _make_tcp_handler(app: ServingApp):
                     writer.write(b"MTPU %d\n" % len(b) + b)
 
                 reply_t = asyncio.ensure_future(
-                    app.handle_frame(payload.decode("utf-8"), send_partial))
+                    app.serve_frame(payload.decode("utf-8"), send_partial))
                 eof = False
                 while not reply_t.done():
                     if len(buf) >= MAX_READAHEAD:
@@ -845,9 +1023,14 @@ def _make_tcp_handler(app: ServingApp):
                     except (asyncio.CancelledError, Exception):  # noqa: BLE001
                         pass
                     break
-                out = (await reply_t).encode("utf-8")
-                writer.write(b"MTPU %d\n" % len(out) + out)
-                await writer.drain()
+                reply, done = await reply_t
+                out = reply.encode("utf-8")
+                try:
+                    writer.write(b"MTPU %d\n" % len(out) + out)
+                    await writer.drain()
+                finally:
+                    # the root span ends even when the write fails
+                    done(len(out))
         except (asyncio.IncompleteReadError, ConnectionError, ValueError):
             pass                     # client went away / malformed frame
         finally:

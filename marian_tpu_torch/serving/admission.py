@@ -1,6 +1,5 @@
 """Admission control for the serving subsystem, ported from
-``marian_tpu/serving/admission.py`` without the brownout rung and the
-metrics.
+``marian_tpu/serving/admission.py`` without the brownout rung.
 
 A bounded queue with an EXPLICIT cheap rejection (``Overloaded``, which
 the transports turn into ``!!SERVER-OVERLOADED``) instead of a queue that
@@ -8,12 +7,22 @@ grows until the host runs out of memory, and a drain mode that lets
 in-flight work finish while new requests are refused. Units are
 SENTENCES; in iteration mode the queue debt is also priced in KV-pool
 PAGES, since a 500-token sentence owes far more pool than a 5-token one.
+
+Series: ``marian_serving_admitted_sentences_total``,
+``marian_serving_shed_total{reason}`` (draining, queue_full,
+pages_full) and ``marian_serving_queue_limit_sentences``. A shed and the
+start of a drain land on the obs timeline (``admission.shed``,
+``admission.drain_started``); the admitted path records nothing.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, Optional
+
+from .. import obs
+from . import metrics as msm
 
 
 class Overloaded(RuntimeError):
@@ -35,7 +44,8 @@ class AdmissionController:
 
     def __init__(self, max_queue_units: int, depth_fn: Callable[[], int],
                  max_queue_pages: int = 0,
-                 pages_fn: Optional[Callable[[], int]] = None):
+                 pages_fn: Optional[Callable[[], int]] = None,
+                 registry: Optional[msm.Registry] = None):
         self.max_queue_units = int(max_queue_units)
         self.depth_fn = depth_fn
         self.max_queue_pages = int(max_queue_pages)
@@ -44,6 +54,18 @@ class AdmissionController:
         # come from another (a signal handler, an embedding program)
         self._lock = threading.Lock()
         self._draining = False
+        self._drain_started: Optional[float] = None
+        r = registry if registry is not None else msm.REGISTRY
+        self.m_admitted = r.counter(
+            "marian_serving_admitted_sentences_total",
+            "Sentences admitted into the scheduler queue")
+        self.m_shed = r.counter(
+            "marian_serving_shed_total",
+            "Requests rejected by admission control", labels=("reason",))
+        self.m_queue_limit = r.gauge(
+            "marian_serving_queue_limit_sentences",
+            "Configured admission bound in sentences (0 = unbounded)")
+        self.m_queue_limit.set(self.max_queue_units)
 
     @property
     def draining(self) -> bool:
@@ -56,23 +78,38 @@ class AdmissionController:
         be exceeded or the server is draining. All-or-nothing per
         request, so one client's reply never splits across a shed."""
         if self.draining:
+            self.m_shed.labels("draining").inc()
+            obs.event("admission.shed", reason="draining", units=n_units)
             raise Overloaded("server is draining (shutting down); retry "
                              "against another replica", retriable=False)
         if self.max_queue_units > 0:
             depth = int(self.depth_fn())
             if depth + n_units > self.max_queue_units:
+                self.m_shed.labels("queue_full").inc()
+                obs.event("admission.shed", reason="queue_full",
+                          units=n_units, depth=depth)
                 raise Overloaded(
                     f"queue full ({depth}/{self.max_queue_units} sentences "
                     f"queued, request adds {n_units}); retry later")
         if self.max_queue_pages > 0 and self.pages_fn is not None:
             pages = int(self.pages_fn())
             if pages + n_pages > self.max_queue_pages:
+                self.m_shed.labels("pages_full").inc()
+                obs.event("admission.shed", reason="pages_full",
+                          units=n_units, pages=pages)
                 raise Overloaded(
                     f"queue page debt full ({pages}/"
                     f"{self.max_queue_pages} KV-pool pages owed, request "
                     f"adds {n_pages}); retry later")
+        self.m_admitted.inc(n_units)
 
     def begin_drain(self) -> None:
-        """Stop admitting (idempotent)."""
+        """Stop admitting (idempotent); /readyz then answers 503."""
+        fresh = False
         with self._lock:
-            self._draining = True
+            if not self._draining:
+                self._draining = True
+                self._drain_started = time.time()
+                fresh = True
+        if fresh:                       # the timeline event outside the lock
+            obs.event("admission.drain_started")

@@ -45,9 +45,12 @@ Threading: ``route`` (device worker), ``ingest`` (watcher thread),
 is guarded by ``_lock``; executors are only ever CALLED outside the
 lock.
 
-Not carried yet: the reference's timeline events, span attributes and
-flight-recorder dumps (``obs``, the tracing plane) and its fault points
-(the test hooks' plane); the port logs each such event instead.
+Observability: every registry transition and the rejected, warming,
+warmup-failed, canary and swap steps land on the obs timeline
+(``lifecycle.*`` events); ``route`` stamps the routed version onto the
+device call's span (``obs.set_attrs``); a canary, live or manual
+rollback fires the flight recorder. Not carried yet: the reference's
+fault points (the test hooks' plane).
 """
 
 
@@ -59,6 +62,7 @@ import threading
 import time
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+from ... import obs
 from ...common import logging as log
 from ...training import bundle as bdl
 from .. import metrics as msm
@@ -306,18 +310,19 @@ class SwapController:
             self.registry.transition(seq, reg.REJECTED,
                                      "registry pinned by operator")
             self.m_rejects.labels("pinned").inc()
-            # the tracing plane's timeline events (obs.event) come with
-            # it; the registry's transition lines stand for them here
+            obs.event("lifecycle.rejected", version=name, reason="pinned")
             return v
         try:
             check_compat(v.compat, live.compat if live else None, name)
         except CompatMismatch as e:
             self.registry.transition(seq, reg.REJECTED, str(e))
             self.m_rejects.labels("compat").inc()
+            obs.event("lifecycle.rejected", version=name, reason="compat")
             log.error("model lifecycle: REFUSED incompatible bundle: {}", e)
             return v
         self.registry.transition(seq, reg.WARMING)
         self.m_warming.set(1)
+        obs.event("lifecycle.warming", version=name)
         try:
             executor = warm_executor(bundle_dir, manifest,
                                      self.executor_factory,
@@ -326,6 +331,8 @@ class SwapController:
             # ANY warmup error fails the candidate, never the watcher loop
             self.registry.transition(seq, reg.FAILED, str(e))
             self.m_rejects.labels("warmup").inc()
+            obs.event("lifecycle.warmup_failed", version=name,
+                      error=str(e)[:200])
             log.error("model lifecycle: candidate {} failed warmup: {}",
                       name, e)
             return v
@@ -406,12 +413,15 @@ class SwapController:
             if superseded is not None:
                 self._set_info(superseded)
             self._set_info(v)
+            obs.event("lifecycle.canary", version=v.name,
+                      fraction=self.canary_fraction)
             log.info("model lifecycle: {} serving as canary "
                      "({}% of batches; promotes after {} healthy ones)",
                      v.name, round(self.canary_fraction * 100, 1),
                      self.canary_min_batches)
         else:
             self._swap_to_live(v)
+            obs.event("lifecycle.swap", version=v.name)
 
     def _swap_to_live(self, v: reg.ModelVersion) -> None:
         """THE swap: re-point dispatch at ``v`` between batches. The old
@@ -445,8 +455,10 @@ class SwapController:
         ver, fn, is_canary = self._pick()
         if ver is None or fn is None:
             raise RuntimeError("no live model version to dispatch to")
-        # the tracing plane stamps the routing decision onto the batch's
-        # span (obs.set_attrs) here
+        # the routing decision onto the device call's span (this thread's
+        # current span, set by the scheduler before calling us)
+        if obs.enabled():
+            obs.set_attrs(model_version=ver.name, canary=is_canary)
         t0 = time.perf_counter()
         try:
             out = fn(lines)
@@ -495,6 +507,9 @@ class SwapController:
         if live is None or live is failed_canary or fn is None:
             raise RuntimeError("canary batch failed and no live version "
                                "can re-serve it")
+        if obs.enabled():
+            obs.set_attrs(model_version=live.name,
+                          re_served_after=failed_canary.name)
         t0 = time.perf_counter()
         try:
             out = fn(lines)
@@ -571,6 +586,8 @@ class SwapController:
                              "{} batches (failure rate {:.2f}) — "
                              "promoting", canary.name, n, err_rate)
                     self._swap_to_live(canary)
+                obs.event("lifecycle.swap", version=canary.name,
+                          promoted=True)
         except Exception as e:  # noqa: BLE001 — a raced transition or a
             # failed swap/rollback aborts THIS evaluation only;
             # routing stands and the next canary batch re-evaluates
@@ -598,8 +615,12 @@ class SwapController:
         self.m_rollbacks.inc()
         log.error("model lifecycle: ROLLBACK — canary {} failed ({}); "
                   "dispatch stays on the live version", canary.name, reason)
-        # the tracing plane's flight recorder dumps the span ring here
-        # (obs.FLIGHT.trip); the error line above stands for it
+        # the span ring still holds the canary batches that tripped the
+        # threshold: dump them before they rotate out (outside the lock)
+        obs.event("lifecycle.rollback", version=canary.name,
+                  reason=reason, kind="canary")
+        obs.FLIGHT.trip("canary-rollback", detail=reason,
+                        extra={"version": canary.name})
 
     def _maybe_rollback_live(self, live: reg.ModelVersion) -> None:
         """Post-swap safety net: a regressed NEW live rolls back to the
@@ -631,8 +652,13 @@ class SwapController:
             # the quiesce executes over the NEXT rounds). Request mode:
             # no-op, route() reads the flipped _live per batch.
             self._repoint(rolled_to, "rollback", wait=False)
-            # the tracing plane's flight dump (obs.FLIGHT.trip) goes here,
-            # outside the lock; _rollback_to's error line stands for it
+            # the dump after the lock is released: no file IO under a
+            # control-plane lock
+            obs.event("lifecycle.rollback", version=live.name,
+                      to=rolled_to.name, reason=reason, kind="live")
+            obs.FLIGHT.trip("live-rollback", detail=reason,
+                            extra={"from": live.name,
+                                   "to": rolled_to.name})
 
     def _rollback_to(self, prev: reg.ModelVersion,
                      cur: reg.ModelVersion, reason: str,
@@ -681,7 +707,10 @@ class SwapController:
         # iteration mode: blocking re-point is safe here — admin verbs
         # run on the metrics HTTP thread, not the event loop
         self._repoint(prev, "rollback", wait=True)
-        # the tracing plane's flight dump (obs.FLIGHT.trip) goes here
+        obs.event("lifecycle.rollback", version=cur.name, to=prev.name,
+                  kind="manual")
+        obs.FLIGHT.trip("manual-rollback",
+                        detail=f"{cur.name} -> {prev.name} (admin verb)")
         return True
 
     def has_live(self) -> bool:

@@ -39,6 +39,7 @@ import os
 import threading
 from typing import Callable, Dict, List, NamedTuple, Optional
 
+from ... import obs
 from ...common import logging as log
 from ...training import bundle as bdl
 
@@ -170,11 +171,15 @@ class ModelRegistry:
             log.info("model lifecycle: {} (seq {}) {} -> {}{}",
                      v.name, seq, v.state, new_state,
                      f" ({error})" if error else "")
+            old_state = v.state
             v.state = new_state
             if error:
                 v.error = error
-        # the tracing plane's timeline event (obs.event) comes with it;
-        # the transition's log line above stands for it
+        # the state-machine edge on the timeline, so a flight dump shows
+        # the lifecycle history leading up to its trip (callers may hold
+        # the controller's lock here: the tracer's lock nests inside it)
+        obs.event("lifecycle.transition", version=v.name, seq=seq,
+                  frm=old_state, to=new_state, reason=error)
         return v
 
     def in_state(self, *states: str) -> List[ModelVersion]:

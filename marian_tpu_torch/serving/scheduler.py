@@ -1,7 +1,7 @@
 """The serving scheduler, ported from ``marian_tpu/serving/scheduler.py``
 :: ``ContinuousScheduler``, in both batching modes, with the quiesce
-protocol and the lifecycle's and the watchdog's series (without the
-spans, brownout, fleet and the rest of the metrics plane).
+protocol, the reference's serving series, its request span trees and
+its perf-plane accounting (without brownout and fleet).
 
 Requests split into SENTENCE UNITS in priority lanes (highest first,
 FIFO within a lane); units of requests already resolved are swept
@@ -51,6 +51,22 @@ Every resolved request counts once in
 ``marian_serving_request_outcomes_total{outcome,model_version}``, the
 version read from ``version_fn`` (the lifecycle's live version) at
 resolution time.
+
+Observability (obs/): with the span tracer on, every request grows a
+``serve.request`` (or the server's ``request``) -> ``serve.queue`` ->
+``serve.dispatch`` tree, every request-mode device batch a
+``serve.batch`` -> ``serve.translate`` span (the translate span on the
+device worker thread, its parent handed over explicitly) and, in
+iteration mode, every sentence a ``serve.row`` span and every engine
+round a ``serve.round`` span; the batch and round spans cross-link their
+requests' trace ids in ``traces``. Quiesces, watchdog trips and poison
+isolation land on the event timeline, and the trips fire the flight
+recorder. With the tracer off, the per-batch path takes no tracer lock,
+builds no span and allocates no ring. The reply metadata
+(``submit(meta=...)``, the ``#trace:`` reply line) is independent of
+the tracer: plain timestamps. With the perf plane on
+(``obs.PERF.enabled``), every batch and round reports its rows, tokens
+and device seconds to it.
 """
 
 from __future__ import annotations
@@ -59,11 +75,13 @@ import asyncio
 import collections
 import concurrent.futures
 import threading
+import time
 import weakref
 from typing import Callable, Deque, Dict, List, Optional
 
+from .. import obs
 from ..common import logging as log
-from ..data.batching import over_budget, padded_batch_cost
+from ..data.batching import bucket_length, over_budget, padded_batch_cost
 from ..translator.iteration import FATAL_REASONS, release_sync_guard
 from . import metrics as msm
 
@@ -131,7 +149,9 @@ def default_length_fn(line: str) -> int:
 class _Request:
     __slots__ = ("lines", "future", "priority", "arrival", "results",
                  "remaining", "queued", "queued_pages", "timeout_handle",
-                 "dead_accounted", "on_partial")
+                 "dead_accounted", "on_partial", "first_dispatch",
+                 "trace_id", "span", "own_root", "q_span", "d_span",
+                 "meta", "rounds", "prefix_hits", "evictions_n", "ttft")
 
     def __init__(self, lines: List[str], future: "asyncio.Future",
                  priority: int, arrival: float):
@@ -151,13 +171,34 @@ class _Request:
         self.dead_accounted = False
         # streaming: on_partial(sentence idx, text so far, tokens so far)
         self.on_partial: Optional[Callable[[int, str, int], None]] = None
+        # loop time of the request's first device batch or join (the end
+        # of its queue wait)
+        self.first_dispatch: Optional[float] = None
+        # observability: the trace id (client-given or generated), the
+        # span tree's handles (root, queue, dispatch; None with the
+        # tracer off) and the caller's reply-metadata dict, filled at
+        # resolution
+        self.trace_id = ""
+        self.span = None
+        self.own_root = False       # this scheduler opened the root span
+        self.q_span = None
+        self.d_span = None
+        self.meta: Optional[dict] = None
+        # iteration mode's row breakdown for the reply metadata: decode
+        # rounds (the most of any of its rows), prefix-cache hits, rows
+        # evicted retriably; and the time to the first streamed partial
+        self.rounds = 0
+        self.prefix_hits = 0
+        self.evictions_n = 0
+        self.ttft: Optional[float] = None
 
 
 class _Unit:
     """One sentence of one request: the scheduling granule and the
     engine's row key."""
 
-    __slots__ = ("req", "idx", "text", "tokens", "pages")
+    __slots__ = ("req", "idx", "text", "tokens", "pages", "row_span",
+                 "rounds", "evict_reason", "partials_sent")
 
     def __init__(self, req: _Request, idx: int, text: str, tokens: int,
                  pages: int):
@@ -166,6 +207,13 @@ class _Unit:
         self.text = text
         self.tokens = tokens
         self.pages = pages          # KV-pool pages this sentence will claim
+        # iteration mode: the serve.row span opened at join (None with
+        # the tracer off), the rounds the row rode, why it was evicted
+        # (quiesce, pool_exhausted) and the partial frames it streamed
+        self.row_span = None
+        self.rounds = 0
+        self.evict_reason: Optional[str] = None
+        self.partials_sent = 0
 
 
 class ContinuousScheduler:
@@ -249,10 +297,47 @@ class ContinuousScheduler:
         # outcomes and events over the scheduler's life (event-loop-only);
         # request mode adds batches, rows, real and padded tokens
         self.counts: collections.Counter = collections.Counter()
-        # the reference's series that the lifecycle, the quiesce and the
-        # watchdog read (its other scheduler series come with the rest of
-        # the metrics plane)
+        # the reference's serving series (its brownout evictions come
+        # with the brownout ladder)
         r = registry if registry is not None else msm.REGISTRY
+        self._registry = r       # engines declare their series here
+        self.m_requests = r.counter(
+            "marian_serving_requests_total", "Requests submitted")
+        self.m_queue_depth = r.gauge(
+            "marian_serving_queue_depth_sentences",
+            "Sentences currently queued (not yet in a device batch)")
+        self.m_queue_depth.set_function(self.queued_units)
+        self.m_batches = r.counter(
+            "marian_serving_batches_total", "Device batches dispatched")
+        self.m_batch_rows = r.histogram(
+            "marian_serving_batch_rows", "Real sentences per device batch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
+        self.m_fill = r.histogram(
+            "marian_serving_batch_fill_ratio",
+            "Real tokens / padded batch capacity per device batch",
+            buckets=msm.RATIO_BUCKETS)
+        self.m_waste = r.histogram(
+            "marian_serving_padding_waste_ratio",
+            "Padded tokens wasted per device batch (1 - fill ratio)",
+            buckets=msm.RATIO_BUCKETS)
+        self.m_ttfb = r.histogram(
+            "marian_serving_time_to_first_batch_seconds",
+            "Queue wait from request arrival to its first device batch")
+        self.m_latency = r.histogram(
+            "marian_serving_request_latency_seconds",
+            "End-to-end request latency (submit to resolve)")
+        self.m_timeouts = r.counter(
+            "marian_serving_timeouts_total",
+            "Requests failed by --request-timeout deadline expiry")
+        self.m_cancelled = r.counter(
+            "marian_serving_cancelled_total",
+            "Requests cancelled by the client before completion")
+        self.m_failures = r.counter(
+            "marian_serving_failures_total",
+            "Requests failed by translation errors")
+        self.m_bisections = r.counter(
+            "marian_serving_retry_bisections_total",
+            "Failed-batch bisection retries (device calls re-issued)")
         self.m_watchdog = r.counter(
             "marian_serving_watchdog_trips_total",
             "Device batches failed by the dispatch stall watchdog "
@@ -280,6 +365,43 @@ class ContinuousScheduler:
             "while this is > 0; back-to-back lifecycle verbs can queue "
             "more than one)")
         self.m_quiescing.set_function(self._quiesce_depth)
+        # iteration mode: joins, evictions and steps happen per round
+        self.m_joins = r.counter(
+            "marian_serving_joins_total",
+            "Sentences that joined a decode (iteration mode)")
+        self.m_mid_joins = r.counter(
+            "marian_serving_mid_decode_joins_total",
+            "Sentences that joined a RUNNING decode step beside already-"
+            "decoding rows (iteration mode)")
+        self.m_evictions = r.counter(
+            "marian_serving_evictions_total",
+            "Mid-decode row evictions, all causes (request cancelled / "
+            "timed out while decoding, quiesce deadline, brownout — the "
+            "latter two also count in their dedicated series; iteration "
+            "mode)")
+        self.m_steps = r.counter(
+            "marian_serving_decode_steps_total",
+            "Decode steps run by the iteration-mode worker")
+        self.m_step_rows = r.histogram(
+            "marian_serving_step_active_rows",
+            "Active decode rows per iteration-mode step (pre-bucket)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512))
+        self.m_queued_pages = r.gauge(
+            "marian_serving_queue_depth_pages",
+            "KV-pool pages owed by queued sentences (iteration mode's "
+            "admission currency)")
+        self.m_queued_pages.set_function(self.queued_pages)
+        self.m_stream_partials = r.counter(
+            "marian_stream_partials_total",
+            "Partial-token frames delivered to streaming clients "
+            "(#stream: protocol header, iteration mode)")
+        self.m_stream_ttft = r.histogram(
+            "marian_stream_ttft_seconds",
+            "Time from request arrival to its first streamed partial "
+            "token (#stream: clients; the streaming twin of "
+            "time_to_first_batch, which measures join, not delivery)")
+        if engine is not None:
+            self._declare_engine(engine)
 
     # -- lifecycle ----------------------------------------------------------
     def start(self) -> None:
@@ -420,27 +542,64 @@ class ContinuousScheduler:
     def install_engine(self, engine) -> None:
         """Re-point the paged engine (the quiesce install callback is
         the only legitimate caller — loop thread, empty join set, zero
-        active rows)."""
+        active rows); the pool gauges follow it."""
         self.engine = engine
+        self._declare_engine(engine)
+
+    def _declare_engine(self, engine) -> None:
+        """The engine's pool and round series on this scheduler's
+        registry (stub engines in tests may have none)."""
+        decl = getattr(engine, "_declare_metrics", None)
+        if decl is not None:
+            decl(self._registry)
 
     def submit(self, lines: List[str], priority: int = 0,
                timeout: Optional[float] = None,
-               on_partial: Optional[Callable[[int, str, int], None]] = None
-               ) -> "asyncio.Future":
+               on_partial: Optional[Callable[[int, str, int], None]] = None,
+               meta: Optional[dict] = None,
+               trace_id: Optional[str] = None) -> "asyncio.Future":
         """Enqueue one request (a list of sentences); returns a future of
         the translations in input order. Event-loop thread only; cancel
         the future to cancel the request. ``on_partial`` (iteration
         mode) is called as ``on_partial(sentence idx, text so far,
         tokens so far)`` every round a sentence of the request is still
         decoding, never after the future is done; the future stays the
-        final reply."""
+        final reply.
+
+        ``meta`` (a dict) is filled at resolution with the request's
+        queue wait and service time, outcome, model version and trace id
+        (the ``#trace:`` reply line); in iteration mode also its rounds,
+        time to first join, prefix-cache hit and evictions.
+        ``trace_id`` labels the request's span tree; with the tracer on
+        and no id given, one is generated (or inherited from the
+        context's span, the server's ``request`` root)."""
         loop = asyncio.get_event_loop()
         fut = loop.create_future()
         if not lines:
+            # nothing to queue, so nothing would ever complete it
+            self.m_requests.inc()
             fut.set_result([])
+            self._outcome("ok")
             return fut
         req = _Request(lines, fut, priority, loop.time())
         req.on_partial = on_partial
+        req.meta = meta
+        req.trace_id = trace_id or ""
+        if obs.enabled():
+            # the span tree: under the transport's root span when it
+            # opened one (the server's handle_frame), else our own root
+            parent = obs.current()
+            if parent is None:
+                req.span = obs.start_span(
+                    "serve.request", trace_id=trace_id or None,
+                    n_sentences=len(lines), priority=priority)
+                req.own_root = True
+            else:
+                req.span = parent
+            req.trace_id = req.span.trace_id
+            req.q_span = obs.start_span("serve.queue", parent=req.span,
+                                        n_sentences=len(lines))
+        self.m_requests.inc()
         with self._state_lock:
             for i, text in enumerate(lines):
                 pages = (self.engine.pages_for_text(text)
@@ -464,7 +623,8 @@ class ContinuousScheduler:
     def _expire_request(self, req: _Request, loop) -> None:
         if not req.future.done():
             self.counts["timeouts"] += 1
-            self._outcome("timeout")
+            self.m_timeouts.inc()
+            self._outcome("timeout", req, loop.time())
             req.future.set_exception(RequestTimeout(
                 f"request deadline expired after "
                 f"{(loop.time() - req.arrival):.3f}s "
@@ -473,7 +633,8 @@ class ContinuousScheduler:
     def _on_request_done(self, fut: "asyncio.Future", req: _Request) -> None:
         if fut.cancelled():
             self.counts["cancelled"] += 1
-            self._outcome("cancelled")
+            self.m_cancelled.inc()
+            self._outcome("cancelled", req)
         # the request's units still in lanes are dead from now on
         with self._state_lock:
             req.dead_accounted = True
@@ -499,9 +660,14 @@ class ContinuousScheduler:
                 if iteration:
                     await self._iteration_round(loop)
                     continue
+                t_form = time.perf_counter() if obs.enabled() else 0.0
                 batch = self._form_batch()
                 if batch:
-                    await self._dispatch(batch, loop)
+                    # the forming pass runs under the state lock: it is
+                    # timed from out here, onto the batch span
+                    await self._dispatch(
+                        batch, loop,
+                        (time.perf_counter() - t_form) if t_form else 0.0)
             except asyncio.CancelledError:
                 raise
             except Exception as e:  # noqa: BLE001 — supervision: never die
@@ -553,48 +719,169 @@ class ContinuousScheduler:
                 u.req.queued_pages += u.pages
         return batch
 
-    async def _dispatch(self, units: List[_Unit], loop) -> None:
-        """One device batch: its counts, then ``_translate_units``."""
+    async def _dispatch(self, units: List[_Unit], loop,
+                        form_s: float = 0.0) -> None:
+        """One device batch: its counts and series, the end of its
+        requests' queue wait (their serve.queue spans end, serve.dispatch
+        spans begin), then ``_translate_units`` under a serve.batch span
+        and the batch's perf-plane report."""
         self._inflight += 1
         self._inflight_units = list(units)
+        bspan = None
+        # [device seconds, target tokens, source tokens delivered] of the
+        # batch, bisection retries included
+        dev_acc = [0.0, 0.0, 0.0] if obs.PERF.enabled else None
         try:
+            now = loop.time()
+            rows = len(units)
+            real_tokens = sum(u.tokens for u in units)
+            width = max(bucket_length(u.tokens) for u in units)
+            capacity = padded_batch_cost(rows, max(u.tokens for u in units))
+            fill = min(1.0, real_tokens / max(capacity, 1))
             c = self.counts
             c["batches"] += 1
-            c["batch_rows"] += len(units)
-            c["batch_tokens"] += sum(u.tokens for u in units)
-            c["batch_capacity"] += padded_batch_cost(
-                len(units), max(u.tokens for u in units))
-            await self._translate_units(units, loop)
+            c["batch_rows"] += rows
+            c["batch_tokens"] += real_tokens
+            c["batch_capacity"] += capacity
+            self.m_batches.inc()
+            self.m_batch_rows.observe(rows)
+            self.m_fill.observe(fill)
+            self.m_waste.observe(1.0 - fill)
+            if obs.enabled():
+                # the batch's own trace (a batch serves many requests):
+                # its members' trace ids ride as an attribute, and each
+                # member's serve.dispatch span names the batch span
+                bspan = obs.start_span(
+                    "serve.batch", rows=rows, width=width,
+                    fill=round(fill, 4), form_ms=round(form_s * 1e3, 3),
+                    traces=sorted({u.req.trace_id for u in units
+                                   if u.req.trace_id}))
+            seen: set = set()
+            for u in units:
+                if id(u.req) in seen:     # one request, many sentences
+                    continue
+                seen.add(id(u.req))
+                if u.req.first_dispatch is None:
+                    u.req.first_dispatch = now
+                    self.m_ttfb.observe(now - u.req.arrival,
+                                        trace_id=u.req.trace_id or None)
+                    if u.req.q_span is not None:
+                        obs.end(u.req.q_span)
+                        u.req.q_span = None
+                        u.req.d_span = obs.start_span(
+                            "serve.dispatch", parent=u.req.span,
+                            batch_span=bspan.span_id if bspan else "",
+                            rows=rows)
+                elif bspan is not None and u.req.d_span is not None:
+                    # a later batch of a request split across batches
+                    u.req.d_span.attrs["batches"] = \
+                        u.req.d_span.attrs.get("batches", 1) + 1
+            await self._translate_units(units, loop, bspan, dev_acc)
+            if dev_acc is not None:
+                # device seconds measured to the result fence on the
+                # worker thread (translate_lines returns host strings),
+                # retries included: isolating a poison costs real time
+                obs.PERF.record_batch(
+                    self._version_label(), rows=rows, width=width,
+                    src_tokens=int(dev_acc[2]), trg_tokens=int(dev_acc[1]),
+                    device_s=dev_acc[0])
         finally:
+            if bspan is not None:
+                if dev_acc is not None:
+                    bspan.attrs["device_s"] = round(dev_acc[0], 6)
+                obs.end(bspan)
             self._inflight -= 1
             self._inflight_units = []
 
-    async def _translate_units(self, units: List[_Unit], loop) -> None:
+    async def _translate_units(self, units: List[_Unit], loop,
+                               bspan=None, dev_acc=None) -> None:
         """One device call for the batch; on failure, bisect: each half
         is retried, recursively, until single units isolate the poison
         sentence, whose request alone fails (O(log batch) extra calls
         for one poison unit). A call past the stall timeout fails the
-        whole batch with ``DispatchStalled`` instead."""
+        whole batch with ``DispatchStalled`` instead. ``bspan`` is the
+        batch's span (None with the tracer off): the device call's
+        serve.translate span hangs under it. ``dev_acc`` (perf plane on)
+        sums the batch's device seconds, target tokens and delivered
+        source tokens."""
         # requests may die (deadline, cancel, a sibling's failure) while
         # the batch waits, inside bisection retries too
         units = [u for u in units if not u.req.future.done()]
         if not units:
             return
         lines = [u.text for u in units]
+        translate = self.translate_lines
+        # the worker writes into its OWN accumulator, merged into dev_acc
+        # only once the call has provably ended (a finished await): a
+        # watchdog-abandoned worker must not bill its late finish
+        local_acc = [0.0, 0.0] if dev_acc is not None else None
+
+        def _merge_acc():
+            if dev_acc is not None:
+                dev_acc[0] += local_acc[0]
+                dev_acc[1] += local_acc[1]
+                local_acc[0] = local_acc[1] = 0.0
+
+        def _call_translate():
+            # the device-time fence: translate_lines returns host
+            # strings, so the clock read after it is an honest boundary
+            t0 = time.perf_counter()
+            try:
+                out_ = translate(lines)
+            finally:
+                if local_acc is not None:
+                    local_acc[0] += time.perf_counter() - t0
+            if local_acc is not None:
+                local_acc[1] += sum(len(l.split()) for l in out_)
+            return out_
+
+        def _device_call():
+            if bspan is None:
+                return _call_translate()
+            # this runs on the device worker thread, outside the event
+            # loop's context: the parent is handed over explicitly (the
+            # lifecycle stamps model_version onto this span from route())
+            sp = obs.start_span("serve.translate", parent=bspan,
+                                rows=len(lines))
+            with obs.TRACER.use(sp):
+                try:
+                    return _call_translate()
+                except BaseException as e:
+                    sp.attrs.setdefault("error", repr(e))
+                    raise
+                finally:
+                    obs.end(sp)
+
         try:
-            call = loop.run_in_executor(self._executor,
-                                        self.translate_lines, lines)
+            call = loop.run_in_executor(self._executor, _device_call)
             out = await self._guarded(call)
             if out is _STALLED:
+                if dev_acc is not None:
+                    # the card was busy for at least the stall window
+                    dev_acc[0] += self.stall_timeout
                 self._trip_watchdog(call, len(units))
+                victims = sorted({u.req.trace_id for u in units
+                                  if u.req.trace_id})
+                now = loop.time()
                 for u in units:
                     if not u.req.future.done():
                         self.counts["stalled"] += 1
-                        self._outcome("stalled")
+                        self._outcome("stalled", u.req, now)
                         u.req.future.set_exception(DispatchStalled(
                             f"device batch stalled past "
                             f"{self.stall_timeout}s — retry"))
+                # the victims' spans ended above, so the dump holds each
+                # one's whole tree; the dump runs off the event loop
+                obs.event("serve.watchdog_trip", rows=len(units),
+                          stall_timeout=self.stall_timeout,
+                          traces=victims)
+                obs.FLIGHT.trip_async(
+                    "watchdog", trace_id=victims[0] if victims else None,
+                    detail=f"device batch ({len(units)} sentences) "
+                           f"stalled past {self.stall_timeout}s",
+                    extra={"traces": victims})
                 return
+            _merge_acc()
             if len(out) != len(lines):
                 raise RuntimeError(
                     f"translator returned {len(out)} lines for "
@@ -602,23 +889,37 @@ class ContinuousScheduler:
         except asyncio.CancelledError:
             raise
         except Exception as e:  # noqa: BLE001
+            # a raising await still ended the worker's call
+            _merge_acc()
             if len(units) == 1:
                 u = units[0]
                 if not u.req.future.done():
                     self.counts["failures"] += 1
-                    self._outcome("failure")
+                    self.m_failures.inc()
+                    self._outcome("failure", u.req, loop.time())
                     log.error("translation error: {}", e)
                     u.req.future.set_exception(RuntimeError(str(e)))
+                    # the poison request is isolated: record the victim
+                    # and snapshot while the ring still holds its tree
+                    obs.event("serve.poison_isolated",
+                              trace_id=u.req.trace_id, error=str(e)[:200])
+                    obs.FLIGHT.trip_async(
+                        "poison", trace_id=u.req.trace_id or None,
+                        detail=f"request failed in isolation: {e}")
                 return
             self.counts["bisections"] += 1
+            self.m_bisections.inc()
             log.error("batch translation error ({} sentences — bisecting "
                       "to isolate): {}", len(units), e)
             mid = len(units) // 2
-            await self._translate_units(units[:mid], loop)
-            await self._translate_units(units[mid:], loop)
+            await self._translate_units(units[:mid], loop, bspan, dev_acc)
+            await self._translate_units(units[mid:], loop, bspan, dev_acc)
             return
+        if dev_acc is not None:
+            # delivered: these units' tokens were really processed
+            dev_acc[2] += sum(u.tokens for u in units)
         for u, line in zip(units, out):
-            self._complete_unit(u, line)
+            self._complete_unit(u, line, loop)
 
     # -- iteration mode -----------------------------------------------------
 
@@ -686,13 +987,55 @@ class ContinuousScheduler:
                 self._dead += 1
                 self._dead_pages += u.pages
 
-    def _fail_unit(self, u: _Unit, message: str) -> None:
+    def _fail_unit(self, u: _Unit, loop, message: str) -> None:
         if u.req.future.done():
             return
         self.counts["failures"] += 1
-        self._outcome("failure")
+        self.m_failures.inc()
+        self._outcome("failure", u.req, loop.time())
         log.error("iteration admission: {}", message)
         u.req.future.set_exception(RuntimeError(message))
+
+    def _mark_joined(self, u: _Unit, now: float, rows_before: int,
+                     bucket: int = 0) -> None:
+        """A sentence entered the decode. Its request's queue wait stops
+        HERE, at the round it joined, not at a later round's end."""
+        self._active_units[u] = None
+        self.m_joins.inc()
+        if rows_before > 0:
+            self.m_mid_joins.inc()
+        req = u.req
+        if req.first_dispatch is None:
+            req.first_dispatch = now
+            self.m_ttfb.observe(now - req.arrival,
+                                trace_id=req.trace_id or None)
+            if req.q_span is not None:
+                obs.end(req.q_span)
+                req.q_span = None
+                req.d_span = obs.start_span(
+                    "serve.dispatch", parent=req.span,
+                    joined_mid_decode=rows_before > 0)
+        if obs.enabled():
+            # one serve.row span a sentence under the request's root,
+            # from its join to its EOS, eviction or cancel (the rounds'
+            # serve.round spans name it back through `traces`)
+            u.row_span = obs.start_span(
+                "serve.row", parent=req.span,
+                trace_id=req.trace_id or None,
+                sentence=u.idx, bucket=bucket,
+                mid_decode=rows_before > 0,
+                ttfj_ms=round((now - req.arrival) * 1e3, 2))
+
+    def _end_row_span(self, u: _Unit, outcome: str, **attrs) -> None:
+        """A row's end: its rounds fold into its request's (the reply's
+        row breakdown), and its serve.row span ends."""
+        req = u.req
+        if u.rounds > req.rounds:
+            req.rounds = u.rounds
+        sp = u.row_span
+        if sp is not None:
+            u.row_span = None
+            obs.end(sp, outcome=outcome, rounds=u.rounds, **attrs)
 
     async def _iteration_round(self, loop) -> None:
         """One join pass + one engine round on the device worker. With a
@@ -704,12 +1047,15 @@ class ContinuousScheduler:
             # a rebuild after a stall failed with the old engine gone:
             # retry it, at most once a stall timeout
             await asyncio.sleep(self.stall_timeout)
-            self.engine = self.engine_factory()
+            self.install_engine(self.engine_factory())
         engine = self.engine
         q = self._peek_quiesce()
         if q is not None and q.deadline is None:
             q.t0 = loop.time()
             q.deadline = q.t0 + q.deadline_s
+            obs.event("quiesce.begin", reason=q.reason,
+                      rows=len(self._active_units),
+                      deadline_s=q.deadline_s)
             log.info("quiesce ({}): joins paused, draining {} active "
                      "row(s) under a {}s deadline", q.reason,
                      len(self._active_units), q.deadline_s)
@@ -722,16 +1068,29 @@ class ContinuousScheduler:
             for u in list(self._active_units):
                 if u in evicts:
                     continue
+                u.evict_reason = "quiesce"
                 self._evict_with_retry(
-                    u, f"row evicted at the quiesce deadline ({q.reason})")
+                    u, loop,
+                    f"row evicted at the quiesce deadline ({q.reason})")
                 self.m_quiesce_evictions.inc()
                 q.evicted += 1
                 evicts.append(u)
+        rows_before = engine.active_rows()
         if q is not None and not joins and not evicts \
                 and not self._active_units:
             # drained (or never had rows): complete without a round
             self._finish_quiesce(q, loop)
             return
+        # queue waits stop at the round's start, not after its step
+        t_round = loop.time()
+        # one serve.round span a round, its own trace (a round serves
+        # many rows), cross-linked to its rows' traces at its end
+        rspan = None
+        if obs.enabled():
+            rspan = obs.start_span(
+                "serve.round", rows_before=rows_before,
+                joins=len(joins), evicts=len(evicts),
+                quiescing=q is not None)
         self._inflight += 1
         try:
             # per-row join meta: the sentence's index in its request
@@ -744,13 +1103,16 @@ class ContinuousScheduler:
             res = await self._guarded(call)
             if res is _STALLED:
                 del engine          # the rebuild must not find it held
-                self._iteration_stalled(call, joins)
+                self._iteration_stalled(call, joins, loop)
+                obs.end(rspan, outcome="stalled")
                 return
         except asyncio.CancelledError:
+            obs.end(rspan, outcome="cancelled")
             raise
         except Exception as e:  # noqa: BLE001
             # a round computes all rows jointly: no per-sentence retry
-            self._iteration_failed(joins, e)
+            self._iteration_failed(joins, loop, e)
+            obs.end(rspan, outcome="failed", error=str(e)[:200])
             return
         finally:
             self._inflight -= 1
@@ -758,16 +1120,38 @@ class ContinuousScheduler:
             if u in self._active_units:
                 del self._active_units[u]
                 self.counts["evictions"] += 1
+                self.m_evictions.inc()
+                self._end_row_span(u, u.evict_reason or "cancelled",
+                                   retriable=u.evict_reason is not None)
         for u in res.accepted:
-            self._active_units[u] = None
+            self._mark_joined(u, t_round, rows_before, res.bucket)
+        if res.rows:
+            # the round counts for every row that rode it (rows finishing
+            # in it are still active here); the request's count moves now,
+            # since an eviction fills the reply metadata before the row's
+            # span ends
+            for u in self._active_units:
+                u.rounds += 1
+                if u.rounds > u.req.rounds:
+                    u.req.rounds = u.rounds
+        # the engine's per-row instants (prefix-cache replays and forks):
+        # the request's reply counters always, the timeline when tracing
+        for u, name, attrs in res.row_events:
+            if name.startswith("prefix."):
+                u.req.prefix_hits += 1
+            if name == "prefix.fork" and u.row_span is not None:
+                u.row_span.set_attrs(prefix_fork=True, **attrs)
+            if obs.enabled():
+                obs.event(name, trace=u.req.trace_id, **attrs)
         requeue: List[_Unit] = []
         for u, why in res.rejected:
             if why in FATAL_REASONS:
                 detail = res.reject_detail.get(
                     u, "exceeds the engine's source cap or the whole KV "
                        "pool")
-                self._fail_unit(u, f"sentence cannot be admitted ({why}): "
-                                   f"{detail}")
+                self._fail_unit(u, loop,
+                                f"sentence cannot be admitted ({why}): "
+                                f"{detail}")
             else:
                 requeue.append(u)
         # reversed, so the lane keeps FIFO order across rejection rounds
@@ -779,24 +1163,71 @@ class ContinuousScheduler:
                 continue
             del self._active_units[u]
             self.counts["evictions"] += 1
+            self.m_evictions.inc()
+            u.evict_reason = "pool_exhausted"
+            self._end_row_span(u, "pool_exhausted", retriable=True)
             self._evict_with_retry(
-                u, "row evicted: KV pool exhausted mid-decode "
-                   "(copy-on-write beam divergence)")
+                u, loop, "row evicted: KV pool exhausted mid-decode "
+                         "(copy-on-write beam divergence)")
         # streaming fan-out: a still-decoding row of a streaming request
-        # delivers its text so far, once a round, before any final reply
+        # delivers its text so far, once a round, before any final reply;
+        # the first partial stamps the request's time to first token
         for u, text, ntok in res.partials:
             req = u.req
             if req.future.done() or req.on_partial is None:
                 continue
+            now_p = loop.time()
+            if u.partials_sent == 0 and u.row_span is not None:
+                u.row_span.set_attrs(
+                    ttft_ms=round((now_p - req.arrival) * 1e3, 2))
+            if req.ttft is None:
+                req.ttft = now_p - req.arrival
+                self.m_stream_ttft.observe(
+                    req.ttft, trace_id=req.trace_id or None)
+            u.partials_sent += 1
             self.counts["partials"] += 1
+            self.m_stream_partials.inc()
             try:
                 req.on_partial(u.idx, text, ntok)
             except Exception as e:  # noqa: BLE001
                 log.warn("stream partial delivery failed: {}", e)
                 req.on_partial = None     # a stream never kills rounds
+        src_done = 0
         for u, text in res.finished:
             self._active_units.pop(u, None)
-            self._complete_unit(u, text)
+            src_done += u.tokens
+            self._end_row_span(u, "eos")
+            self._complete_unit(u, text, loop)
+        if res.rows:
+            self.m_steps.inc(max(1, res.steps))
+            self.m_step_rows.observe(res.rows)
+            self.m_batches.inc()     # a round IS the device batch here
+            self.m_batch_rows.observe(res.rows)
+            if obs.PERF.enabled:
+                # the round's device seconds over the target tokens it
+                # emitted; source tokens credit at a sentence's finish
+                obs.PERF.record_batch(
+                    self._version_label(), rows=res.rows,
+                    width=res.bucket, src_tokens=src_done,
+                    trg_tokens=res.tokens, device_s=res.device_s)
+        if rspan is not None:
+            # rows that finished this round already left _active_units;
+            # their trace ids still belong on the round's cross-links
+            traces = {u.req.trace_id for u in self._active_units
+                      if u.req.trace_id}
+            traces.update(u.req.trace_id for u, _ in res.finished
+                          if u.req.trace_id)
+            obs.end(
+                rspan, outcome="ok", rows=res.rows, bucket=res.bucket,
+                steps=res.steps, tokens=res.tokens,
+                joined=len(res.accepted), left=len(res.finished),
+                pool_evicted=len(res.pool_evicted),
+                pages_claimed=res.pages_claimed,
+                pages_freed=res.pages_freed,
+                pages_aliased=res.pages_aliased,
+                pages_copied=res.pages_copied,
+                device_s=round(res.device_s, 6),
+                traces=sorted(traces))
         self._notify_round(False, res.device_s)
         if q is not None and not self._active_units:
             self._finish_quiesce(q, loop)
@@ -814,6 +1245,8 @@ class ContinuousScheduler:
             with self._state_lock:
                 if self._quiesce_q and self._quiesce_q[0] is q:
                     self._quiesce_q.popleft()
+            obs.event("quiesce.cancelled", reason=q.reason,
+                      evicted=q.evicted)
             log.info("quiesce ({}): withdrawn by its waiter; joins resume "
                      "on the current engine", q.reason)
             q.event.set()
@@ -839,6 +1272,19 @@ class ContinuousScheduler:
             if self._quiesce_q and self._quiesce_q[0] is q:
                 self._quiesce_q.popleft()
         self.m_quiesces.inc()
+        obs.event("quiesce.complete", reason=q.reason, ok=q.ok,
+                  evicted=q.evicted, install_ok=install_ok,
+                  audit_violations=len(pre) + len(post),
+                  duration_ms=round((loop.time() - q.t0) * 1e3, 1))
+        if not q.ok:
+            # an unhealthy quiesce (a failed install or audit violations)
+            # is a pool incident: the dump's `pool` member holds the page
+            # map of this moment
+            obs.FLIGHT.trip_async(
+                "quiesce",
+                detail=f"quiesce ({q.reason}) completed unhealthily: "
+                       f"install_ok={install_ok}, "
+                       f"{len(pre) + len(post)} audit violation(s)")
         log.info("quiesce ({}): complete in {:.0f}ms — {} row(s) "
                  "evicted with retry, audit {} ({} violation(s))",
                  q.reason, (loop.time() - q.t0) * 1e3, q.evicted,
@@ -859,13 +1305,15 @@ class ContinuousScheduler:
         except TypeError:
             return list(audit())
 
-    def _evict_with_retry(self, u: _Unit, msg: str) -> None:
+    def _evict_with_retry(self, u: _Unit, loop, msg: str) -> None:
         """Fail one decoding row's request with the retriable RowEvicted
         (the server replies !!SERVER-RETRY); the row itself leaves the
         engine through the round's evict list, freeing its pages."""
         if u.req.future.done():
             return
-        self._outcome("evicted")
+        # counted before _outcome fills the reply's row breakdown
+        u.req.evictions_n += 1
+        self._outcome("evicted", u.req, loop.time())
         u.req.future.set_exception(RowEvicted(msg + " — retry"))
 
     def _notify_round(self, error: bool, device_s: float) -> None:
@@ -880,7 +1328,7 @@ class ContinuousScheduler:
         except Exception as e:  # noqa: BLE001 — health accounting must
             log.warn("round observer failed: {}", e)   # never kill rounds
 
-    def _iteration_stalled(self, call, joins: List[_Unit]) -> None:
+    def _iteration_stalled(self, call, joins: List[_Unit], loop) -> None:
         """The engine round ran past the stall timeout: every row of it
         fails retriably, the wedged worker (with the old engine's device
         state) is abandoned, and the engine is rebuilt from the factory.
@@ -890,26 +1338,34 @@ class ContinuousScheduler:
         victims = list(self._active_units) + joins
         self._active_units.clear()
         self._trip_watchdog(call, len(victims))
+        now = loop.time()
         for u in victims:
+            self._end_row_span(u, "stalled", retriable=True)
             if not u.req.future.done():
                 self.counts["stalled"] += 1
-                self._outcome("stalled")
+                self._outcome("stalled", u.req, now)
                 u.req.future.set_exception(DispatchStalled(
                     f"decode step stalled past {self.stall_timeout}s — "
                     f"retry"))
+        obs.event("serve.watchdog_trip", rows=len(victims),
+                  stall_timeout=self.stall_timeout, mode="iteration")
+        obs.FLIGHT.trip_async(
+            "watchdog",
+            detail=f"iteration decode step ({len(victims)} sentences) "
+                   f"stalled past {self.stall_timeout}s")
         self._notify_round(True, self.stall_timeout)
         if self.engine_factory is not None:
             old = weakref.ref(self.engine)
             self.engine = None
             try:
-                self.engine = self.engine_factory()
+                self.install_engine(self.engine_factory())
             except Exception as e:  # noqa: BLE001
                 # back to the old engine, as the reference keeps it: its
                 # next round trips again and retries the rebuild
                 self.engine = old()
                 log.error("engine rebuild after stall failed: {}", e)
 
-    def _iteration_failed(self, joins: List[_Unit], exc) -> None:
+    def _iteration_failed(self, joins: List[_Unit], loop, exc) -> None:
         """The round raised: its rows' requests fail (retriably when the
         engine can be rebuilt or the error says so) and the engine is
         rebuilt from the factory."""
@@ -923,16 +1379,19 @@ class ContinuousScheduler:
         retriable = bool(getattr(exc, "retriable", False)) \
             or self.engine_factory is not None \
             or self.round_observer is not None
+        now = loop.time()
         for u in victims:
+            self._end_row_span(u, "round_failed", retriable=retriable)
             if u.req.future.done():
                 continue
             if retriable:
                 self.counts["evictions"] += 1
                 self._evict_with_retry(
-                    u, f"row evicted: decode round failed ({exc})")
+                    u, loop, f"row evicted: decode round failed ({exc})")
             else:
                 self.counts["failures"] += 1
-                self._outcome("failure")
+                self.m_failures.inc()
+                self._outcome("failure", u.req, now)
                 u.req.future.set_exception(RuntimeError(str(exc)))
         self._notify_round(True, 0.0)
         if self.engine_factory is not None and self._quiesce_depth() == 0:
@@ -1002,7 +1461,7 @@ class ContinuousScheduler:
             except Exception:  # noqa: BLE001
                 pass
 
-    def _complete_unit(self, u: _Unit, line: str) -> None:
+    def _complete_unit(self, u: _Unit, line: str, loop) -> None:
         req = u.req
         if req.future.done():
             return                    # cancelled/timed out while decoding
@@ -1013,7 +1472,12 @@ class ContinuousScheduler:
                 req.timeout_handle.cancel()
             req.future.set_result([r if r is not None else ""
                                    for r in req.results])
-            self._outcome("ok")
+            now = loop.time()
+            # the trace-id exemplar links a latency outlier on
+            # /metrics?exemplars=1 to this request's span tree
+            self.m_latency.observe(now - req.arrival,
+                                   trace_id=req.trace_id or None)
+            self._outcome("ok", req, now)
 
     def _version_label(self) -> str:
         try:
@@ -1021,7 +1485,45 @@ class ContinuousScheduler:
         except Exception:  # noqa: BLE001 — labeling must never fail a reply
             return "unknown"
 
-    def _outcome(self, outcome: str) -> None:
+    def _outcome(self, outcome: str, req: Optional[_Request] = None,
+                 now: Optional[float] = None) -> None:
         """One request resolved: count it under the model version live
-        now, so a swap-correlated outcome shift shows per version."""
-        self.m_outcomes.labels(outcome, self._version_label()).inc()
+        now, so a swap-correlated outcome shift shows per version. With
+        ``req``, also fill its reply metadata (queue wait against
+        service time) and end its span tree."""
+        version = self._version_label()
+        self.m_outcomes.labels(outcome, version).inc()
+        if req is None:
+            return
+        if now is None:
+            try:
+                now = asyncio.get_event_loop().time()
+            except RuntimeError:  # pragma: no cover — loop gone at teardown
+                now = req.arrival
+        fd = req.first_dispatch
+        queue_s = max(0.0, (fd if fd is not None else now) - req.arrival)
+        service_s = max(0.0, now - fd) if fd is not None else 0.0
+        if req.meta is not None:
+            req.meta.update(trace_id=req.trace_id, outcome=outcome,
+                            model_version=version,
+                            queue_s=round(queue_s, 6),
+                            service_s=round(service_s, 6))
+            if self.batching_mode == "iteration":
+                # the row breakdown: rounds ridden (the most of any of
+                # its rows), time to first join (-1: never joined), a
+                # prefix-cache hit, retriable evictions
+                req.meta.update(
+                    rounds=req.rounds,
+                    ttfj_ms=round(queue_s * 1e3, 1) if fd is not None
+                    else -1.0,
+                    prefix_hit=int(req.prefix_hits > 0),
+                    evictions=req.evictions_n)
+        if req.d_span is not None:
+            obs.end(req.d_span, outcome=outcome, model_version=version)
+            req.d_span = None
+        if req.q_span is not None:       # resolved while still queued
+            obs.end(req.q_span, outcome=outcome)
+            req.q_span = None
+        if req.own_root and req.span is not None:
+            obs.end(req.span, outcome=outcome, model_version=version)
+            req.span = None

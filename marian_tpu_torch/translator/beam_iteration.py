@@ -323,7 +323,7 @@ class PagedBeamEngine(PagedDecodeEngine):
         if k > 1:
             self._pending_replicate.append((slots[0], slots[1:]))
         # noise lanes a hypothesis row: the sentence's and k-1 more
-        self._row_admitted(k)
+        self._row_admitted(k, feat)
         return None
 
     def _install(self, joiners) -> None:
@@ -504,6 +504,8 @@ class PagedBeamEngine(PagedDecodeEngine):
             self.counters["copied_pages"] += len(fork_src)
         self._finish_sentences(res, finished)
         res.rows = live_rows
+        res.bucket = rb
+        res.tokens = live_rows
         res.steps += 1
 
     def _fork_pages(self, src: torch.Tensor, dst: torch.Tensor) -> None:
@@ -825,7 +827,7 @@ class PagedBeamEngine(PagedDecodeEngine):
             sent = self._sents[key]
             best = self._replay_round(sent, lanes[:, sent.slots[0] // k],
                                       toks[:, sent.slots[0] // k],
-                                      vals[:, sent.slots[0] // k])
+                                      vals[:, sent.slots[0] // k], res)
             if best is not None:
                 self.pool.release(("roundfresh", key))
                 finished.append((sent, best))
@@ -834,6 +836,7 @@ class PagedBeamEngine(PagedDecodeEngine):
             self.pool.release(("roundfresh", key))
         self._finish_sentences(res, finished)
         res.rows = live_rows
+        res.bucket = rows
         res.steps += steps
 
     def _fused_steps(self, sub, src_mask, prev, pos, score, fin, blk_live,
@@ -935,16 +938,19 @@ class PagedBeamEngine(PagedDecodeEngine):
                 flat[2 * n:3 * n].view(np.float32).reshape(shape),
                 flat[3 * n:].reshape(rows, mp))
 
-    def _replay_round(self, sent: _Sent, lanes, toks, vals) -> Optional[_Hyp]:
+    def _replay_round(self, sent: _Sent, lanes, toks, vals,
+                      res: StepResult) -> Optional[_Hyp]:
         """The host half of a fused round for one sentence: each step's
         [k] (lane, token, value) becomes its children, as the host merge
         makes them (frozen parents stay {EOS: score}; EOS children freeze
-        off the device). Returns the best hypothesis when the sentence
+        off the device); the live rows a step consumed add to
+        ``res.tokens``. Returns the best hypothesis when the sentence
         finished in the round."""
         k = self.beam_size
         base = sent.slots[0]
         for j in range(lanes.shape[0]):
             cur = sent.hyps
+            res.tokens += sum(1 for h in cur if not h.finished)
             next_pos = sent.t + 1
             children: List[_Hyp] = []
             live_lanes: List[int] = []
@@ -1065,7 +1071,28 @@ class PagedBeamEngine(PagedDecodeEngine):
             if owner not in owners:
                 v.append(f"pool claim for {owner!r} matches no sentence "
                          f"slot (pages leaked at exit)")
-        self.counters["audits"] += 1
-        if v:
-            self._report_audit(v, context)
+        self._note_audit(v, context)
         return v
+
+    # -- /poolz -------------------------------------------------------------
+    def _slot_owner(self, slot: int, s):
+        return self._owner(s.key, slot)
+
+    def pool_state(self) -> dict:
+        """The base page and slot maps plus the beam view: each
+        sentence's hypothesis rows and the beam geometry (a slot's
+        ``pos`` is its device row's position; an idled row reads 0)."""
+        state = super().pool_state()
+        sents = [{
+            "key": self._owner_label(s.key),
+            "trace_id": getattr(getattr(s.key, "req", None),
+                                "trace_id", ""),
+            "slots": list(s.slots),
+            "t": int(s.t),
+            "cap": int(s.cap),
+            "live_hyps": sum(1 for h in s.hyps if h.slot is not None),
+            "frozen_hyps": sum(1 for h in s.hyps if h.finished),
+        } for s in list(self._sents.values())]
+        state["beam"] = {"beam_size": self.beam_size, "cow": self.cow,
+                         "sentences": sents}
+        return state

@@ -1,8 +1,9 @@
 """Iteration-level (continuous) greedy decoding over a paged KV pool, the
 port of ``marian_tpu/translator/iteration.py`` (``PagedDecodeEngine``
 with the cross-request prefix cache, translator/prefix_cache.py, and the
-decode-feature plane, translator/decode_features.py; without the metrics
-and the compile witness).
+decode-feature plane, translator/decode_features.py, the pool and round
+series, the ``/poolz`` page map and the ``pool.audit_failed`` flight
+trip; without the compile witness).
 
 Decode rows are SLOTS over one shared paged KV pool
 (ops/kernels/kv_pool.py):
@@ -45,6 +46,13 @@ claims pop a deterministic free list and idle slots write zeros into the
 trash page, so a replayed join/evict schedule gives identical outputs.
 With ``MARIAN_POOL_AUDIT=1`` every round ends with a full pool audit
 that raises :class:`PoolCorruption` on a violation.
+
+Metrics (``_declare_metrics``, called by the serving scheduler with its
+registry): the pool's gauges are sampled at scrape time from the pool
+and the slots; the round, page-traffic and fork counters move once a
+round, at the end of ``admit_and_step``, from the round's pool-counter
+deltas and the engine's ``counters``. Every series reads host-side
+state: none adds a copy from the card to the host.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..common import logging as log
 from ..data.vocab import EOS_ID
 from ..models.transformer import fork_paged_rows
@@ -175,9 +184,23 @@ class StepResult:
     # decoding after the round; a finishing row's text is in ``finished``
     partials: List[Tuple[object, str, int]] = field(default_factory=list)
     rows: int = 0                 # active rows this round (before finishes)
+    bucket: int = 0               # the row bucket the round ran at
+    tokens: int = 0               # target tokens the round consumed
     steps: int = 0                # decode steps the round ran
     device_s: float = 0.0         # admit+step wall time (ends in a sync)
     mid_decode_joins: int = 0     # joins that landed beside running rows
+    # per-row instants of the round: (key, name, attrs), the prefix
+    # cache's replays and forks, which the scheduler turns into timeline
+    # events tagged with the row's trace id and into the #trace reply's
+    # row breakdown
+    row_events: List[Tuple[object, str, dict]] = field(default_factory=list)
+    # the pool's page traffic this round (deltas of KVPool.stats and the
+    # engine's copied pages): the serve.round span's attributes and the
+    # marian_serving_kv_pool_pages_*_total series
+    pages_claimed: int = 0
+    pages_freed: int = 0
+    pages_aliased: int = 0
+    pages_copied: int = 0
 
 
 class _Slot:
@@ -302,8 +325,11 @@ class PagedDecodeEngine:
         self.counters: Dict[str, float] = {
             "rounds": 0, "steps": 0, "rows": 0, "joins": 0,
             "mid_decode_joins": 0, "encodes": 0, "prefix_hits": 0,
-            "replays": 0, "forks": 0, "audits": 0, "audit_failures": 0,
-            "round_s": 0.0}
+            "replays": 0, "forks": 0, "copied_pages": 0, "audits": 0,
+            "audit_failures": 0, "round_s": 0.0}
+        # the verdict of the last audit, for /poolz
+        self._last_audit: Optional[dict] = None
+        self._metrics_declared = False
 
     def _default_pool_pages(self) -> int:
         """The unsized pool (no --kv-pool-bytes): every slot can hold a
@@ -338,6 +364,33 @@ class PagedDecodeEngine:
         if self.prefix is not None:
             free += self.prefix.reclaimable_pages(self.pool)
         return free
+
+    def occupancy(self) -> float:
+        """Claimed / allocatable pages (any thread)."""
+        return self.pool.used_pages() / float(self.pool.usable_pages)
+
+    def cow_alias_ratio(self) -> float:
+        """(references - live pages) / references: the share of page
+        references that alias a page another owner holds too."""
+        st = self.pool.alias_stats()
+        return (st["refs"] - st["live"]) / st["refs"] if st["refs"] \
+            else 0.0
+
+    def used_tokens(self) -> int:
+        """Positions written by the active rows (any thread: a copy of
+        the slot list, then host-side reads)."""
+        return sum(s.pos for s in list(self._slots) if s is not None)
+
+    def fragmentation(self) -> float:
+        """1 - written tokens / (claimed pages x page_len); the prefix
+        cache's held tokens count as written (retention is not waste)."""
+        used_pages = self.pool.used_pages()
+        if used_pages == 0:
+            return 0.0
+        used = self.used_tokens()
+        if self.prefix is not None:
+            used += self.prefix.held_tokens()
+        return max(0.0, 1.0 - used / float(used_pages * self.page_len))
 
     def free_slots(self) -> int:
         """Sentences that can join now."""
@@ -379,6 +432,9 @@ class PagedDecodeEngine:
         ``stream``."""
         t0 = time.perf_counter()
         res = StepResult()
+        stats0 = self.pool.stats()
+        forks0 = self.counters["forks"]
+        copied0 = self.counters["copied_pages"]
         with self._on_device():
             for key in evicts:
                 self._evict(key)
@@ -414,6 +470,13 @@ class PagedDecodeEngine:
         c["joins"] += len(res.accepted)
         c["mid_decode_joins"] += res.mid_decode_joins
         c["round_s"] += res.device_s
+        stats1 = self.pool.stats()
+        res.pages_claimed = stats1["claimed"] - stats0["claimed"]
+        res.pages_freed = stats1["freed"] - stats0["freed"]
+        res.pages_aliased = stats1["aliased"] - stats0["aliased"]
+        res.pages_copied = int(c["copied_pages"] - copied0)
+        if self._metrics_declared:
+            self._round_metrics(res, int(c["forks"] - forks0))
         return res
 
     def _replay(self, key, src_key, res: StepResult) -> bool:
@@ -426,6 +489,9 @@ class PagedDecodeEngine:
         if ent is None:
             return False
         res.finished.append((key, ent.text))
+        res.row_events.append((key, "prefix.hit",
+                               {"kind": "replay",
+                                "tokens": len(ent.tokens)}))
         self.counters["prefix_hits"] += 1
         self.counters["replays"] += 1
         return True
@@ -471,11 +537,17 @@ class PagedDecodeEngine:
             feat = RowFeatures(stream=stream, sid=sid)
         return ids, src_key, cap, feat
 
-    def _row_admitted(self, lanes: int = 1) -> None:
+    def _row_admitted(self, lanes: int = 1,
+                      feat: Optional[RowFeatures] = None) -> None:
         """A row (a beam sentence: ``lanes`` rows) joined: the lane
-        allocator moves on, so a replayed join schedule replays them."""
+        allocator moves on, so a replayed join schedule replays them; a
+        shortlisted row is counted with its width."""
         if self.features is not None:
             self._lane_ctr += lanes
+        if feat is not None and feat.shortlist is not None \
+                and hasattr(self, "m_shortlist_rows"):
+            self.m_shortlist_rows.inc()
+            self.m_shortlist_width.observe(feat.sl_len)
 
     def _try_claim(self, key, text: str, joiners: List,
                    res: StepResult, meta: Optional[dict] = None
@@ -498,10 +570,11 @@ class PagedDecodeEngine:
         if slot is None:
             return "no_slot"
         if self.prefix is not None:
-            forked = self._try_fork(key, src_key, cap, n_pages, slot, feat)
+            forked = self._try_fork(key, src_key, cap, n_pages, slot, feat,
+                                    res)
             if forked is not None:
                 if forked:
-                    self._row_admitted()
+                    self._row_admitted(feat=feat)
                     return None
                 return "no_pages"
             self.prefix.note_miss()
@@ -526,7 +599,7 @@ class PagedDecodeEngine:
         self._table[slot, :] = 0
         self._table[slot, :len(pages)] = pages
         joiners.append((key, ids, slot))
-        self._row_admitted()
+        self._row_admitted(feat=feat)
         return None
 
     def _claim_pages(self, owner, n: int) -> List[int]:
@@ -542,8 +615,8 @@ class PagedDecodeEngine:
             return self.pool.claim(owner, n)
 
     def _try_fork(self, key, src_key, cap: int, n_pages: int,
-                  slot: int, feat: Optional[RowFeatures] = None
-                  ) -> Optional[bool]:
+                  slot: int, feat: Optional[RowFeatures] = None,
+                  res: Optional[StepResult] = None) -> Optional[bool]:
         """Copy-on-write fork into ``slot`` from a LIVE row with the same
         source: alias its full (append-only) pages, copy its partial page
         and its cross-attention rows (no encoder pass), resume at its
@@ -609,6 +682,12 @@ class PagedDecodeEngine:
         self.prefix.note_fork(tokens_saved=pos_l, pages_reused=n_full)
         self.counters["prefix_hits"] += 1
         self.counters["forks"] += 1
+        self.counters["copied_pages"] += int(has_partial)
+        if res is not None:
+            res.row_events.append((key, "prefix.fork",
+                                   {"kind": "live", "pos": pos_l,
+                                    "aliased": n_full,
+                                    "copied": int(has_partial)}))
         return True
 
     def _evict(self, key, adopt_text: Optional[str] = None) -> bool:
@@ -638,6 +717,231 @@ class PagedDecodeEngine:
                 context="row-exit")
         self._table[slot, :] = 0
         return True
+
+    # -- metrics ------------------------------------------------------------
+    def _declare_metrics(self, r) -> None:
+        """The reference engine's series on registry ``r`` (the serving
+        scheduler calls this for every engine it serves, so the gauges
+        follow a swap or a rebuild)."""
+        r.gauge("marian_serving_kv_pool_pages",
+                "Paged KV pool size in allocatable pages (page 0 "
+                "reserved)").set(self.pool.usable_pages)
+        r.gauge("marian_serving_kv_pool_pages_free",
+                "Paged KV pool pages currently free"
+                ).set_function(self.pool.free_pages)
+        r.gauge("marian_serving_kv_pool_fragmentation_ratio",
+                "Internal fragmentation of claimed pages: 1 - written "
+                "tokens / (claimed pages x page_len)"
+                ).set_function(self.fragmentation)
+        r.gauge("marian_serving_active_rows",
+                "Decode slots occupied by live sentences (iteration mode)"
+                ).set_function(self.active_rows)
+        self.m_audits = r.counter(
+            "marian_serving_pool_audits_total",
+            "Pool invariant audits run (quiesce boundaries; every round "
+            "under MARIAN_POOL_AUDIT=1)")
+        self.m_audit_failures = r.counter(
+            "marian_serving_pool_audit_failures_total",
+            "Pool invariant audits that found violations (double-free, "
+            "table/claim mismatch, refcount drift, leaked pages, "
+            "row-exit leak)")
+        r.gauge("marian_serving_kv_pool_occupancy_ratio",
+                "Claimed pages / allocatable pages of the paged KV pool"
+                ).set_function(self.occupancy)
+        r.gauge("marian_serving_kv_pool_pages_shared",
+                "Pages currently COW-aliased (refcount >= 2): held by more "
+                "than one hypothesis/row/cache entry"
+                ).set_function(lambda: self.pool.alias_stats()["shared"])
+        r.gauge("marian_serving_kv_pool_refcount_max",
+                "Highest live page refcount (refcount-distribution "
+                "summary; 1 = no sharing at all right now)"
+                ).set_function(lambda: self.pool.alias_stats()["max"])
+        r.gauge("marian_serving_kv_pool_cow_alias_ratio",
+                "Fraction of live page-table references that are COW "
+                "aliases rather than sole ownership: (refs - live pages) / "
+                "refs. 0 = no sharing; rises with beam forks and prefix "
+                "hits").set_function(self.cow_alias_ratio)
+        self.m_rounds = r.counter(
+            "marian_serving_engine_rounds_total",
+            "Admit+step rounds the paged engine ran — each round is "
+            "one device dispatch covering --iteration-steps decode "
+            "steps (greedy AND fused-merge beam scan; only the "
+            "host-merge beam baseline pins rounds to one step)")
+        self.m_pages_claimed = r.counter(
+            "marian_serving_kv_pool_pages_claimed_total",
+            "Fresh pages claimed off the pool free list (cold joins, "
+            "lazy COW growth, fork partials)")
+        self.m_pages_freed = r.counter(
+            "marian_serving_kv_pool_pages_freed_total",
+            "Pages returned to the pool free list (row exits, beam "
+            "reorders dropping dead lineages, cache evictions)")
+        self.m_pages_aliased = r.counter(
+            "marian_serving_kv_pool_pages_aliased_total",
+            "Copy-on-write references added to already-live pages "
+            "(beam forks, prefix hits, reorder shares) — pages served "
+            "by aliasing instead of recompute or copy")
+        self.m_pages_copied = r.counter(
+            "marian_serving_kv_pool_pages_copied_total",
+            "Partial pages content-copied by pool_fork_partial (the "
+            "one copy a COW fork pays; cow=False replication copies "
+            "full histories here too)")
+        self.m_bytes_copied = r.counter(
+            "marian_serving_kv_pool_bytes_copied_total",
+            "Bytes moved by pool_fork_partial copies "
+            "(pages_copied x the whole-decoder page cost)")
+        self.m_bytes_aliased = r.counter(
+            "marian_serving_kv_pool_bytes_aliased_total",
+            "Bytes served by COW page aliasing instead of being copied "
+            "(pages_aliased x the whole-decoder page cost) — the "
+            "data-movement win the reorder/prefix sharing buys")
+        self.m_forks = r.counter(
+            "marian_serving_cow_forks_total",
+            "Copy-on-write forks performed (prefix-cache live forks + "
+            "beam-reorder child hypotheses that left their parent's "
+            "row)")
+        if self.prefix is not None:
+            self.prefix._declare_metrics(r)
+            r.gauge("marian_prefix_held_pages",
+                    "KV pages currently held by prefix-cache entries "
+                    "(retained decodes an exact repeat replays for free)"
+                    ).set_function(self.prefix.held_pages)
+            r.gauge("marian_prefix_reclaimable_pages",
+                    "Pages evicting the whole prefix cache would free "
+                    "RIGHT NOW (held references with page refcount 1) — "
+                    "the pressure-relief headroom admission already counts"
+                    ).set_function(
+                        lambda: self.prefix.reclaimable_pages(self.pool))
+        if self.features is not None \
+                and self.features.shortlist_gen is not None:
+            self.m_shortlist_rows = r.counter(
+                "marian_shortlist_rows_total",
+                "Decode rows admitted with a per-row lexical shortlist "
+                "(iteration mode)")
+            self.m_shortlist_width = r.histogram(
+                "marian_shortlist_width_tokens",
+                "Per-row shortlist width (the row's true padded index "
+                "count — the output GEMM runs at the engine's static K)",
+                buckets=(128, 256, 384, 512, 768, 1024, 2048, 4096))
+        self._metrics_declared = True
+
+    def _round_metrics(self, res: StepResult, forks: int) -> None:
+        """One round's counters, from its page-traffic deltas and the
+        forks it made (host-side numbers, after the round's sync)."""
+        self.m_rounds.inc()
+        if res.pages_claimed:
+            self.m_pages_claimed.inc(res.pages_claimed)
+        if res.pages_freed:
+            self.m_pages_freed.inc(res.pages_freed)
+        if res.pages_aliased:
+            self.m_pages_aliased.inc(res.pages_aliased)
+            self.m_bytes_aliased.inc(res.pages_aliased * self.page_bytes)
+        if res.pages_copied:
+            self.m_pages_copied.inc(res.pages_copied)
+            self.m_bytes_copied.inc(res.pages_copied * self.page_bytes)
+        if forks:
+            self.m_forks.inc(forks)
+
+    # -- /poolz -------------------------------------------------------------
+    def _slot_owner(self, slot: int, s: _Slot):
+        """The pool-claim owner of an occupied slot (the beam engine's
+        owners are (key, slot) pairs)."""
+        return s.key
+
+    @staticmethod
+    def _owner_label(owner) -> str:
+        """A JSON-safe label for a claim owner: a serving unit carries
+        its request's trace id (a beam row: ``#slot`` after it), a
+        prefix-cache owner reads ``prefix-cache``; other keys fall back
+        to repr."""
+        probe = owner
+        if isinstance(owner, tuple) and len(owner) == 2:
+            probe = owner[0]              # beam (key, slot) pair
+        req = getattr(probe, "req", None)
+        tid = getattr(req, "trace_id", "") if req is not None else ""
+        if tid:
+            base = f"trace:{tid}"
+            return base if probe is owner else f"{base}#{owner[1]}"
+        if isinstance(owner, tuple) and len(owner) == 3 \
+                and owner[0] == "prefix":
+            return "prefix-cache"
+        return repr(owner)[:96]
+
+    def pool_state(self) -> dict:
+        """The ``/poolz`` document and the flight recorder's ``pool``
+        member: the page map (refcount and owners of every live page),
+        the slot table (trace id, position, cap, pages), the engine's
+        counters and the last audit's verdict. Each map is a snapshot of
+        its own (the pool's under its lock): a round committing
+        mid-snapshot can skew adjacent maps by a row, which the auditor,
+        not this inspector, judges."""
+        refs = self.pool.refcounts()
+        claims = self.pool.claims()
+        alias = self.pool.alias_stats()
+        stats = self.pool.stats()
+        slots_snap = list(self._slots)
+        owners_by_page: Dict[int, List[str]] = {}
+        for owner, pages in claims.items():
+            label = self._owner_label(owner)
+            for p in pages:
+                owners_by_page.setdefault(int(p), []).append(label)
+        page_map = {
+            str(p): {"refs": int(rc),
+                     "owners": sorted(owners_by_page.get(p, []))}
+            for p, rc in sorted(refs.items())}
+        slot_rows = []
+        for i, s in enumerate(slots_snap):
+            if s is None:
+                continue
+            owner = self._slot_owner(i, s)
+            slot_rows.append({
+                "slot": i,
+                "owner": self._owner_label(owner),
+                "trace_id": getattr(getattr(s.key, "req", None),
+                                    "trace_id", ""),
+                "pos": int(s.pos),
+                "cap": int(s.cap),
+                "pages": [int(p) for p in self.pool.pages_of(owner)],
+            })
+        state = {
+            "enabled": True,
+            "engine": type(self).__name__,
+            "pool": {
+                "n_pages": self.pool.n_pages,
+                "usable_pages": self.pool.usable_pages,
+                "free_pages": self.pool.free_pages(),
+                "used_pages": self.pool.used_pages(),
+                "occupancy": round(self.occupancy(), 4),
+                "page_len": self.page_len,
+                "page_bytes": self.page_bytes,
+                "max_pages_per_row": self.pool.max_pages_per_row,
+                "live_pages": alias["live"],
+                "shared_pages": alias["shared"],
+                "refs": alias["refs"],
+                "refcount_max": alias["max"],
+                "cow_alias_ratio": round(self.cow_alias_ratio(), 4),
+                "traffic": stats,
+            },
+            "pages": page_map,
+            "rows": {
+                "active": self._n_active,
+                "max_rows": self.max_rows,
+                "used_tokens": self.used_tokens(),
+                "fragmentation": round(self.fragmentation(), 4),
+                "slots": slot_rows,
+            },
+            "counters": dict(self.counters),
+            "last_audit": dict(self._last_audit) if self._last_audit
+            else None,
+        }
+        if self.prefix is not None:
+            state["prefix_cache"] = {
+                "entries": self.prefix.entries(),
+                "held_tokens": self.prefix.held_tokens(),
+                "held_pages": self.prefix.held_pages(),
+                "reclaimable_pages":
+                    self.prefix.reclaimable_pages(self.pool),
+            }
+        return state
 
     # -- pool invariant auditor ---------------------------------------------
     def audit(self, context: str = "quiesce") -> List[str]:
@@ -683,10 +987,19 @@ class PagedDecodeEngine:
                 continue
             v.append(f"pool claim for {owner!r} has no active row "
                      f"(pages leaked at row exit)")
+        self._note_audit(v, context)
+        return v
+
+    def _note_audit(self, v: List[str], context: str) -> None:
+        """Count one audit, keep its verdict for /poolz, report its
+        violations."""
         self.counters["audits"] += 1
+        self._last_audit = {"context": context, "clean": not v,
+                            "violations": list(v[:8]), "ts": time.time()}
+        if hasattr(self, "m_audits"):
+            self.m_audits.inc()
         if v:
             self._report_audit(v, context)
-        return v
 
     def _cache_owners(self) -> set:
         """The pool owners the prefix cache's entries hold."""
@@ -694,9 +1007,17 @@ class PagedDecodeEngine:
                 else set())
 
     def _report_audit(self, violations: List[str], context: str) -> None:
+        """One audit failure: a loud log line, the counter, a timeline
+        event and a flight dump naming the fault."""
         log.error("POOL AUDIT FAILED ({}): {} violation(s): {}", context,
                   len(violations), "; ".join(violations[:4]))
         self.counters["audit_failures"] += 1
+        if hasattr(self, "m_audit_failures"):
+            self.m_audit_failures.inc()
+        obs.event("pool.audit_failed", context=context,
+                  violations=list(violations[:8]))
+        obs.FLIGHT.trip_async(
+            "pool-audit", detail=f"{context}: " + "; ".join(violations[:4]))
 
     # -- device work ----------------------------------------------------------
     def _install(self, joiners: List[Tuple[object, List[int], int]]) -> None:
@@ -859,6 +1180,7 @@ class PagedDecodeEngine:
         # the host between rounds
         toks = torch.stack(toks).cpu().numpy()
         emitted = 0
+        consumed = 0
         finishes: List[_Slot] = []
         for i in range(rb):
             s = self._slots[i]
@@ -869,6 +1191,7 @@ class PagedDecodeEngine:
                 tok = int(toks[j, i])
                 s.pos += 1
                 s.prev = tok
+                consumed += 1
                 if tok != EOS_ID:
                     s.tokens.append(tok)
                 if tok == EOS_ID or s.pos >= s.cap:
@@ -886,6 +1209,8 @@ class PagedDecodeEngine:
                     (s.key, self.trg_vocab.decode(s.tokens, ignore_eos=True),
                      s.pos))
         res.rows = emitted
+        res.bucket = rb
+        res.tokens = consumed
         res.steps += toks.shape[0]
 
     # -- direct (non-serving) decoding --------------------------------------

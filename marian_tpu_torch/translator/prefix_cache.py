@@ -1,7 +1,8 @@
 """Cross-request prefix sharing over the paged KV pool, the port of
 ``marian_tpu/translator/prefix_cache.py`` (``--prefix-cache``), behind a
-plain ``threading.Lock`` and a counters dict in place of the reference's
-lock witness and metrics registry.
+plain ``threading.Lock`` in place of the reference's lock witness. Its
+``counters`` dict moves with the reference's ``marian_prefix_*`` series
+once an engine declares them (``_declare_metrics``).
 
 An exact repeat of a source's token sequence becomes a page-table hit
 instead of repeated compute, through the refcounts copy-on-write beam
@@ -71,16 +72,47 @@ class PrefixCache:
         self.counters: Dict[str, int] = {
             "hits": 0, "misses": 0, "tokens_saved": 0, "pages_reused": 0,
             "evictions": 0}
+        # counter name -> its marian_prefix_* series (_declare_metrics)
+        self._series: Dict[str, object] = {}
+
+    # -- metrics ------------------------------------------------------------
+    def _declare_metrics(self, r) -> None:
+        self._series = {
+            "hits": r.counter(
+                "marian_prefix_hits_total",
+                "Prefix-cache hits (live forks + completed-entry replays)"),
+            "misses": r.counter(
+                "marian_prefix_misses_total",
+                "Prefix-cache lookups that found no shareable source"),
+            "tokens_saved": r.counter(
+                "marian_prefix_tokens_saved_total",
+                "Decode steps NOT recomputed thanks to prefix sharing "
+                "(leader position at fork time; full decode length on a "
+                "completed-entry replay)"),
+            "pages_reused": r.counter(
+                "marian_prefix_pages_reused_total",
+                "KV pages served by table aliasing / cache retention "
+                "instead of being recomputed and rewritten"),
+            "evictions": r.counter(
+                "marian_prefix_evictions_total",
+                "Prefix-cache entries evicted (LRU capacity or pool "
+                "pressure); their page references were dropped"),
+        }
+        r.gauge("marian_prefix_entries",
+                "Completed decodes currently held by the prefix cache"
+                ).set_function(self.entries)
 
     def _count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] += n
+        m = self._series.get(name)
+        if m is not None and n:
+            m.inc(n)
 
     def _note_hit(self, tokens_saved: int, pages_reused: int) -> None:
-        with self._lock:
-            self.counters["hits"] += 1
-            self.counters["tokens_saved"] += tokens_saved
-            self.counters["pages_reused"] += pages_reused
+        self._count("hits")
+        self._count("tokens_saved", tokens_saved)
+        self._count("pages_reused", pages_reused)
 
     def note_miss(self) -> None:
         self._count("misses")

@@ -8,6 +8,12 @@ Loads the model, vocabs and ``--shortlist``, batches the input
 batch on the resolved device (one shortlist a batch, from the union of
 its source words), and writes translations in input order.
 
+Every device batch counts in the reference's decode series on the
+process-wide metrics registry (``marian_translate_batches_total``,
+``marian_translate_sentences_total``, ``marian_translate_batch_fill_ratio``
+over the padded batch), which a request-mode server's ``/metrics``
+shows beside its scheduler's.
+
 ``--force-decode`` reads two ``--input`` files, the source and one
 target prefix a line (an empty line: unconstrained), as the reference
 does; lines given to ``run`` (the request-mode server's) carry the
@@ -31,6 +37,7 @@ from ..data.shortlist import parse_shortlist_options
 from ..data.vocab import create_vocab
 from ..device import resolve_device
 from ..models.encoder_decoder import apply_embedded_config, create_model
+from ..serving import metrics as msm
 from .beam_search import BeamSearch
 from .output_collector import OutputCollector, OutputPrinter
 
@@ -84,6 +91,14 @@ class Translate:
             self.trg_vocab)
         self.force_decode = bool(self.options.get("force-decode", False))
         self.printer = OutputPrinter(self.options, self.trg_vocab)
+        self._m_batches = msm.counter(
+            "marian_translate_batches_total", "Device batches decoded")
+        self._m_sentences = msm.counter(
+            "marian_translate_sentences_total", "Sentences decoded")
+        self._m_fill = msm.histogram(
+            "marian_translate_batch_fill_ratio",
+            "Real source tokens / padded device-batch capacity",
+            buckets=msm.RATIO_BUCKETS)
         log.info("Translating on {} with {}", self.device, model_path)
 
     def _read(self, path: str) -> List[str]:
@@ -165,6 +180,10 @@ class Translate:
                     str(self.options.get("maxi-batch-sort", "src")),
                     int(self.options.get("mini-batch-words", 0) or 0)):
                 shortlist, prefix = self._batch_features(batch, prefixes)
+                self._m_batches.inc()
+                self._m_sentences.inc(batch.size)
+                self._m_fill.observe(float(batch.mask.sum())
+                                     / max(batch.ids.size, 1))
                 nbests = self.search.search(batch.ids, batch.mask,
                                             shortlist=shortlist,
                                             prefix=prefix)

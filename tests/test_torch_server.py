@@ -6,8 +6,9 @@ the port's io.
 - concurrent TCP clients get the replies the JAX engine's
   ``decode_texts`` gives for their lines;
 - ``--max-queue-pages`` sheds with ``!!SERVER-OVERLOADED``, an expired
-  ``--request-timeout`` replies ``!!SERVER-TIMEOUT``, the tracing header
-  replies ``!!SERVER-ERROR``, and a ``#stream:1`` request's final reply
+  ``--request-timeout`` replies ``!!SERVER-TIMEOUT``, a ``#trace:``
+  request's reply is its metadata line and the JAX engine's text, and a
+  ``#stream:1`` request's final reply
   (after its ``#partial:`` frames) is the JAX engine's;
 - a client that disconnects mid-decode cancels its request: its row is
   evicted and its pages freed;
@@ -120,7 +121,9 @@ def test_concurrent_clients_get_the_jax_engine_replies(model):
     *replies, prio, traced, streamed = serve(server_options(model), clients)
     assert "\n".join(replies).split("\n") == want
     assert prio and not prio.startswith("!!")
-    assert traced.startswith("!!SERVER-ERROR") and "#trace:" in traced
+    head, body = traced.split("\n", 1)
+    assert head.startswith("#trace:abc outcome=ok ") and body == want_w3
+    assert "rounds=" in head and "prefix_hit=0" in head
     assert streamed == want_w3
 
 
