@@ -135,6 +135,35 @@ card, and drives the port's main paths on data made from --seed:
   pool; /sloz reports both objectives; the MFU, busy ratio and headroom
   gauges read within (0, 1]; the on and off sentences/s and ms per
   batch or round printed with the card's name and power limit;
+- the brownout ladder on the 2+2 cut, iteration greedy, 64 slots
+  (--brownout --brownout-hold 0.5 --brownout-cool 1, a cap factor of
+  0.25 that cuts the copying replies), the step loop under the sync
+  guard: 128 closed-loop priority-0 clients and 4 priority-2 clients of
+  8 sentences climb the ladder on the card's headroom gauge (the floor
+  set just above the gauge's reading when the flood does not reach the
+  default 0.1, both printed) one rung at a time to 3, counted in
+  /metrics; every joined row's cap is the engine's rule at the scale of
+  its join, every served reply the dense greedy decode at that cap; the
+  priority-0 !!SERVER-RETRY replies equal the brownout evictions and the
+  !!SERVER-OVERLOADED ones the brownout sheds, priority-2 requests are
+  served at level 3; after the traffic the ladder cools to 0 and the cap
+  scale returns to 1; one flight file an escalation with the ladder's
+  state; /sloz shows level 3; the pool ends empty and audited clean;
+  p50/p99 per lane and the ladder's timeline printed;
+- fleet serving through server._serve (the transport it announces:
+  WebSocket where the websockets package is installed, as on the card's
+  machine, else TCP; the client speaks it), request mode at beam
+  12: tenant a the 6+6 serve model, tenant b the 2+2 cut of the copying
+  weights of --seed + 1, --fleet-default-tenant a and a budget between
+  one tenant's estimate and the two estimates' sum; 128 traced requests
+  from 16 clients in waves a, b, a (each wave warms its tenant on demand
+  and evicts the other) and 4 with an unknown tag: every reply
+  Translate.run of its tenant's model with its version in the #trace:
+  line, each tenant's executor decoding exactly its requests, the
+  unknown tags !!SERVER-ERROR, the cold-start and eviction counters
+  equal to /fleetz and /metrics, every eviction giving back the
+  tenant's parameter bytes, the marian_fleet_* series through promlint;
+  each warm's estimate printed beside the bytes the card allocated;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
@@ -283,7 +312,8 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 # paths only (a row's "paths"); other rows sum it over every path.
 F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
-             "decode surface", "observability serve", "train",
+             "decode surface", "observability serve", "brownout serve",
+             "fleet serve", "train",
              "lifecycle serve",
              "lifecycle iteration", "delay train", "doc train",
              "doc decode")
@@ -387,6 +417,25 @@ STALL_TIMEOUT_S, STALL_FOLLOWING, STALL_WAIT_S = 4.0, 16, 120.0
 # from SERVE_CLIENTS clients; a p99 objective no run misses, the span
 # ring's capacity (every request's tree and every round's span fit)
 OBS_REQUESTS, OBS_P99_MS, OBS_RING = 128, 60000.0, 16384
+# the brownout serve phase (greedy, SERVE_ROWS slots, SERVE_CUT_MODEL):
+# BROWNOUT_FLOOD closed-loop priority-0 clients of one sentence a request
+# and BROWNOUT_HIGH priority-2 clients of BROWNOUT_HIGH_LINES sentences a
+# request, each on its own connection; a shed priority-0 client waits
+# BROWNOUT_BACKOFF_S before its next request. The ladder runs at hold
+# 0.5 s, cool 1 s and a cap factor of BROWNOUT_CAP_FACTOR: the copying
+# weights end a reply at 1x its source, under half the 3x cap, so only a
+# factor below 1/3 cuts replies. The traffic stops once the ladder has
+# spent BROWNOUT_TOP_S at level 3 with a shed, an eviction and a served
+# priority-2 request there, or fails after BROWNOUT_TIMEOUT_S
+BROWNOUT_FLOOD, BROWNOUT_HIGH, BROWNOUT_HIGH_LINES = 128, 4, 8
+BROWNOUT_CAP_FACTOR, BROWNOUT_BACKOFF_S = 0.25, 0.2
+BROWNOUT_TOP_S, BROWNOUT_TIMEOUT_S = 2.0, 45.0
+# the fleet serve phase: tenant a the 6+6 serve model, tenant b the
+# 2+2 cut of the copying weights of a second weight set (--seed + 1),
+# request mode at beam 12; FLEET_SENTENCES one-line requests from
+# SERVE_CLIENTS clients in three waves (a, b, a: each tenant warms on
+# demand and evicts the other) and FLEET_UNKNOWN with a tag no tenant has
+FLEET_B_MODEL, FLEET_SENTENCES, FLEET_UNKNOWN = "fleet_b_2x2.npz", 128, 4
 # sentences of the bf16 cuts of the two serve paths
 SERVE_BF16 = 64
 # bf16 flash outputs carry one bf16 rounding (2^-8 relative)
@@ -2186,25 +2235,13 @@ def write_model(seed: int, cuts_only: bool = False):
     from marian_tpu_torch.common.options import Options
     from marian_tpu_torch.models import transformer as T
     write_vocab()
-
-    def random_weights(opts, seed, vocab=VOCAB):
-        cfg = T.config_from_options(opts, vocab, vocab)
-        params = T.init_params(cfg, seed)
-        gen = torch.Generator().manual_seed(seed + 1)
-        params["decoder_ff_logit_out_b"] = 2.0 * torch.randn(1, vocab,
-                                                             generator=gen)
-        return {k: v.numpy() for k, v in params.items()}
     opts = Options(BASE)
     flat = random_weights(opts, seed)
     if not cuts_only:
         mio.save_model(str(WORK / "base.npz"), flat, opts.as_yaml())
         mio.save_model(str(WORK / "serve.npz"), serve_weights(
             flat, T.config_from_options(opts, VOCAB, VOCAB)), opts.as_yaml())
-    small = {k: v for k, v in flat.items()
-             if not k.startswith(("encoder_l", "decoder_l"))
-             or k.split("_")[1] in ("l1", "l2")}
-    cut = opts.with_(**{"enc-depth": SERVE_CUT_DEPTH,
-                        "dec-depth": SERVE_CUT_DEPTH})
+    small, cut = depth_cut(flat, opts)
     mio.save_model(str(WORK / "base_2x2.npz"), small, cut.as_yaml())
     if not cuts_only:
         mio.save_model(str(WORK / SERVE_CUT_MODEL), serve_weights(
@@ -2218,6 +2255,28 @@ def write_model(seed: int, cuts_only: bool = False):
     lines = [" ".join(f"w{i}" for i in rng.randint(2, VOCAB, SRC_LEN - 1))
              for _ in range(BATCH * N_BATCHES)]
     return lines
+
+
+def random_weights(opts, seed: int, vocab: int = VOCAB) -> dict:
+    """Random weights of ``opts``'s model from ``seed``, the output bias
+    drawn wide (std 2)."""
+    from marian_tpu_torch.models import transformer as T
+    cfg = T.config_from_options(opts, vocab, vocab)
+    params = T.init_params(cfg, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    params["decoder_ff_logit_out_b"] = 2.0 * torch.randn(1, vocab,
+                                                         generator=gen)
+    return {k: v.numpy() for k, v in params.items()}
+
+
+def depth_cut(flat: dict, opts):
+    """The SERVE_CUT_DEPTH+SERVE_CUT_DEPTH-layer cut of a model's
+    weights (its first layers, every shared matrix) and its options."""
+    small = {k: v for k, v in flat.items()
+             if not k.startswith(("encoder_l", "decoder_l"))
+             or k.split("_")[1] in ("l1", "l2")}
+    return small, opts.with_(**{"enc-depth": SERVE_CUT_DEPTH,
+                                "dec-depth": SERVE_CUT_DEPTH})
 
 
 def serve_weights(flat: dict, cfg) -> dict:
@@ -3576,6 +3635,613 @@ def phase_observability_serve(seed: int, smi: str) -> dict:
     return add_counts(*counts)
 
 
+def unique_sentences(seed: int, n: int):
+    """``n`` distinct sentences of 8-40 random words of the vocab."""
+    rng = np.random.RandomState(seed)
+    out, seen = [], set()
+    while len(out) < n:
+        s = " ".join(f"w{i}"
+                     for i in rng.randint(2, VOCAB, rng.randint(8, 41)))
+        if s not in seen:
+            seen.add(s)
+            out.append(s)
+    return out
+
+
+def phase_brownout_serve(seed: int, smi: str) -> dict:
+    """The brownout ladder on the card's own headroom gauge: iteration
+    greedy, SERVE_ROWS slots, the copying weights of the 2+2 cut at full
+    width, ``--brownout --brownout-hold 0.5 --brownout-cool 1`` (and
+    ``--brownout-cap-factor`` BROWNOUT_CAP_FACTOR, ``--trace-dump``,
+    ``--metrics-port``), every round's step loop under the sync guard.
+    BROWNOUT_FLOOD closed-loop priority-0 clients and BROWNOUT_HIGH
+    priority-2 clients drive the ladder 0 -> 1 -> 2 -> 3; if the flood
+    does not bring the headroom gauge to the default floor of 0.1, the
+    floor is set just above what the gauge reads (both printed). Held:
+    one rung at a time, counted in /metrics; every joined row's cap the
+    engine's rule at the scale live at its join, some scaled; every
+    served reply the dense greedy decode at its row's cap; the
+    priority-0 !!SERVER-RETRY replies equal to the brownout evictions
+    (at least one) and the !!SERVER-OVERLOADED ones to the brownout
+    sheds (at least one), priority-2 requests served at level 3; the
+    ladder back at 0 and the cap scale at 1 after the traffic; one
+    flight file an escalation with the ladder's state in it; /sloz with
+    the ladder's state at level 3; the pool empty and audited clean."""
+    from marian_tpu_torch import obs
+    from marian_tpu_torch.server.server import ServingApp, _make_tcp_handler
+    from marian_tpu_torch.serving import metrics as msm
+    obs_reset()
+    mport = free_port()
+    dump = WORK / "flight_brownout"
+    shutil.rmtree(dump, ignore_errors=True)
+    reg = msm.Registry()
+    app = ServingApp(serve_options(
+        "--brownout", "--brownout-hold", "0.5", "--brownout-cool", "1",
+        "--brownout-cap-factor", str(BROWNOUT_CAP_FACTOR), "--trace-dump",
+        str(dump), "--metrics-port", str(mport), model=SERVE_CUT_MODEL),
+        registry=reg)
+    sched, engine, ladder = app.scheduler, app.scheduler.engine, app.brownout
+    tr = app.service.translator
+    check(engine.device.type == "cuda" and ladder is not None
+          and ladder.headroom_fn is not None,
+          f"brownout serve: engine on {engine.device}, ladder {ladder}")
+    default_floor = ladder.headroom_floor
+    # the cap each row joined with, and the scale live at its join
+    joined = {}
+    join_features = engine._join_features
+
+    def record_join(key, text, res, meta):
+        got = join_features(key, text, res, meta)
+        if not isinstance(got, str):
+            joined[text] = (got[2], engine._cap_scale)
+        return got
+    engine._join_features = record_join
+    sents = iter(unique_sentences(seed + 11, 40000))
+    done = []           # (lane, texts, reply, t_send, t_reply, level)
+    timeline = []       # (t, level, headroom)
+    stop = asyncio.Event()
+
+    async def client(port, lane: int, lines: int, warm: bool = False):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        try:
+            while not stop.is_set():
+                texts = [next(sents) for _ in range(lines)]
+                body = f"#priority:{lane}\n" + "\n".join(texts)
+                payload = body.encode("utf-8")
+                t0 = time.perf_counter()
+                writer.write(b"MTPU %d\n" % len(payload) + payload)
+                await writer.drain()
+                header = await reader.readline()
+                check(header.startswith(b"MTPU "), f"reply header {header!r}")
+                reply = (await reader.readexactly(
+                    int(header.split()[1]))).decode("utf-8")
+                done.append((lane, texts, reply, t0, time.perf_counter(),
+                             ladder.level(), warm))
+                if warm:
+                    return
+                if reply.startswith("!!SERVER-OVERLOADED"):
+                    await asyncio.sleep(BROWNOUT_BACKOFF_S)
+        finally:
+            writer.close()
+
+    async def sampler(t0: float):
+        while True:
+            level = ladder.level()
+            timeline.append((time.perf_counter() - t0, level,
+                             obs.PERF.headroom()))
+            if stop.is_set() and level == 0:
+                return
+            await asyncio.sleep(0.05)
+
+    async def serve():
+        loop = asyncio.get_event_loop()
+        app.start()
+        server = await asyncio.start_server(_make_tcp_handler(app),
+                                            "127.0.0.1", 0)
+        port = server.sockets[0].getsockname()[1]
+        got = {}
+        try:
+            await asyncio.gather(*[client(port, 2, 1, warm=True)
+                                   for _ in range(4)])
+            before = dict(engine.counters)
+            ev0 = sched.m_brownout_evictions.value
+            engine.sync_debug = "error"            # the rounds' sync guard
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            watch = asyncio.ensure_future(sampler(t0))
+            clients = [asyncio.ensure_future(client(port, 0, 1))
+                       for _ in range(BROWNOUT_FLOOD)]
+            clients += [asyncio.ensure_future(
+                client(port, 2, BROWNOUT_HIGH_LINES))
+                for _ in range(BROWNOUT_HIGH)]
+            top_s, t_prev, calibrated = 0.0, t0, None
+            while True:
+                await asyncio.sleep(0.05)
+                now = time.perf_counter()
+                level = ladder.level()
+                if level == 3:
+                    top_s += now - t_prev
+                    if "sloz" not in got:
+                        got["sloz"] = await loop.run_in_executor(
+                            None, http_get, mport, "/sloz")
+                t_prev = now
+                if calibrated is None and level == 0 and now - t0 > 3.0:
+                    # the flood did not bring the gauge to the floor: set
+                    # it just above what the gauge reads under the flood
+                    reads = [h for t, _, h in timeline if t > 1.0]
+                    calibrated = (min(reads), max(reads))
+                    ladder.headroom_floor = round(max(reads) + 0.05, 3)
+                at_top = [d for d in done if d[5] == 3 and not d[6]]
+                high = sum(d[0] == 2 and not d[2].startswith("!!")
+                           for d in at_top)
+                sheds = sum(d[2].startswith("!!SERVER-OVERLOADED")
+                            for d in at_top)
+                evicted = sched.m_brownout_evictions.value - ev0
+                if top_s >= BROWNOUT_TOP_S and high and sheds and evicted:
+                    break
+                check(now - t0 < BROWNOUT_TIMEOUT_S,
+                      f"brownout serve: the ladder did not hold level 3 "
+                      f"with a shed, an eviction and a served priority-2 "
+                      f"request within {BROWNOUT_TIMEOUT_S} s (level "
+                      f"{level}, {top_s:.1f} s at 3, {sheds} sheds and "
+                      f"{high} priority-2 replies there, {evicted} "
+                      f"evictions, floor {ladder.headroom_floor}, last "
+                      f"headroom {timeline[-1][2]:.4f})")
+            t_stop = time.perf_counter() - t0
+            stop.set()
+            await asyncio.gather(*clients)
+            while engine.active_rows():
+                await asyncio.sleep(0.01)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            after = dict(engine.counters)
+            engine.sync_debug = None
+            # the ladder cools back to 0 once the traffic is gone
+            dl = time.perf_counter() + 30.0
+            while ladder.level() > 0:
+                check(time.perf_counter() < dl, "brownout serve: the "
+                      "ladder did not cool to 0 within 30 s")
+                await asyncio.sleep(0.05)
+            await watch
+            got["scale_after"] = engine._cap_scale
+            got["metrics"] = await loop.run_in_executor(
+                None, http_get, mport, "/metrics")
+        finally:
+            stop.set()
+            server.close()
+            await server.wait_closed()
+            await app.shutdown()
+        return got, counts, {k: after[k] - before.get(k, 0)
+                             for k in after}, t_stop, calibrated
+    t_phase = time.perf_counter()
+    got, counts, run, t_stop, calibrated = asyncio.run(serve())
+    engine._join_features = join_features
+    traffic = [d for d in done if not d[6]]
+    # the ladder: one rung at a time, up to 3 and back to 0
+    moves = [lvl for i, (_, lvl, _) in enumerate(timeline)
+             if i == 0 or lvl != timeline[i - 1][1]]
+    check(moves[0] == 0 and moves[-1] == 0 and max(moves) == 3
+          and all(abs(a - b) == 1 for a, b in zip(moves, moves[1:])),
+          f"brownout serve: ladder moves {moves}")
+    ups = sum(b > a for a, b in zip(moves, moves[1:]))
+    downs = len(moves) - 1 - ups
+    m = got["metrics"][1]
+    check(gauge(m, 'marian_brownout_transitions_total{direction="up"}')
+          == ups and gauge(m, 'marian_brownout_transitions_total'
+                              '{direction="down"}') == downs
+          and gauge(m, "marian_brownout_level") == 0,
+          f"brownout serve: /metrics transitions, {ups} up and {downs} "
+          f"down seen")
+    check(got["scale_after"] == 1.0, f"brownout serve: cap scale "
+          f"{got['scale_after']} after the ladder cooled")
+    sloz = json.loads(got["sloz"][1])["brownout"]
+    check(sloz["enabled"] and sloz["level"] == 3 and sloz["name"] == "shed",
+          f"brownout serve: /sloz at level 3 read {sloz}")
+    # the replies
+    retry = [d for d in traffic if d[2].startswith("!!SERVER-RETRY")]
+    shed = [d for d in traffic if d[2].startswith("!!SERVER-OVERLOADED")]
+    ok = [d for d in done if not d[2].startswith("!!")]
+    check(len(ok) + len(retry) + len(shed) == len(done),
+          "brownout serve: replies " + str(sorted(
+              {d[2][:40] for d in done if d[2].startswith("!!")})))
+    evictions = sched.m_brownout_evictions.value
+    check(retry and all(d[0] == 0 and "under brownout" in d[2]
+                        for d in retry) and len(retry) == evictions,
+          f"brownout serve: {len(retry)} !!SERVER-RETRY replies, "
+          f"{evictions} brownout evictions")
+    n_shed = reg.get("marian_serving_shed_total").labels("brownout").value
+    check(shed and all(d[0] == 0 and "brownout level 3" in d[2]
+                       for d in shed) and len(shed) == n_shed,
+          f"brownout serve: {len(shed)} !!SERVER-OVERLOADED replies, "
+          f"{n_shed} brownout sheds")
+    high_top = [d for d in ok if d[0] == 2 and d[5] == 3]
+    check(high_top, "brownout serve: no priority-2 request served at "
+          "level 3")
+    # every joined row's cap: the engine's rule at the scale of its join
+    engine.set_cap_scale(1.0)
+    scaled = 0
+    for text, (cap, scale) in joined.items():
+        base = engine.decode_cap(len(tr.src_vocab.encode(text)))
+        check(scale in (1.0, BROWNOUT_CAP_FACTOR)
+              and cap == max(8, round(base * scale)),
+              f"brownout serve: a row joined with cap {cap} at scale "
+              f"{scale} (base {base})")
+        scaled += scale < 1.0
+    check(scaled > 0, "brownout serve: no row joined at a scaled cap")
+    texts = [t for d in ok for t in d[1]]
+    lines = [ln for d in ok for ln in d[2].split("\n")]
+    check(len(texts) == len(lines) and all(t in joined for t in texts),
+          "brownout serve: a served sentence never joined")
+    caps = [joined[t][0] for t in texts]
+    dense = dense_greedy_texts(tr, engine, texts, caps)
+    bad = [i for i, (a, b) in enumerate(zip(lines, dense)) if a != b]
+    check(not bad, f"brownout serve: {len(bad)} of {len(lines)} replies "
+          f"differ from the dense greedy decode at their caps (first "
+          f"{texts[bad[0]][:40] if bad else ''!r})")
+    cut = sum(len(ln.split()) < len(t.split()) for t, ln in zip(texts, lines))
+    # the launches: every step's paged read, every encode's packed one
+    depth = engine.model.cfg.dec_depth
+    want = {name: 0 for name in counts}
+    want["paged_decode_attention"] = depth * run["steps"]
+    want["packed_attention"] = engine.model.cfg.enc_depth * run["encodes"]
+    check(counts == want, f"brownout serve launches {counts}, expected "
+          f"{want}")
+    check(engine.idle() and engine.pool.claims() == {}
+          and engine.pool.free_pages() == engine.pool.usable_pages
+          and engine.audit() == [],
+          f"brownout serve: pool after the run {engine.pool.claims()}")
+    # one flight file an escalation, each with the ladder's state
+    wait_until(lambda: len([n for n in os.listdir(dump)
+                            if n.endswith("-brownout.json")]) >= ups,
+               "brownout flight files", timeout=30.0)
+    files = sorted(n for n in os.listdir(dump) if n.endswith("-brownout.json"))
+    levels = []
+    for n in files:
+        with open(dump / n, encoding="utf-8") as fh:
+            payload = json.load(fh)
+        check(payload["reason"] == "brownout"
+              and payload["brownout"]["enabled"], f"flight file {n}")
+        levels.append(payload["brownout"]["level"])
+    check(len(files) == ups and min(levels) >= 1,
+          f"brownout serve: flight files {files} for {ups} escalations")
+    obs_reset()
+    lat = {lane: np.percentile(
+        np.array([d[4] - d[3] for d in ok if d[0] == lane and not d[6]])
+        * 1e3, [50, 99]) for lane in (0, 2)}
+    steps = [f"{t:.2f} s -> {lvl}" for i, (t, lvl, _) in enumerate(timeline)
+             if i and lvl != timeline[i - 1][1]]
+    heads = [h for t, _, h in timeline if t < t_stop]
+    cfg = engine.model.cfg
+    print(f"brownout serve ({smi}): transformer {cfg.enc_depth}+"
+          f"{cfg.dec_depth}, dim {cfg.dim_emb}, copying weights, greedy, "
+          f"{SERVE_ROWS} slots, {BROWNOUT_FLOOD} priority-0 clients and "
+          f"{BROWNOUT_HIGH} priority-2 clients of {BROWNOUT_HIGH_LINES} "
+          f"sentences for {t_stop:.2f} s; headroom gauge under the traffic "
+          f"min {min(heads):.4f} max {max(heads):.4f}; floor "
+          + (f"{default_floor} (the default) reached by the gauge"
+             if calibrated is None else
+             f"{default_floor} (the default) never reached (the gauge read "
+             f"{calibrated[0]:.4f}-{calibrated[1]:.4f} under the flood): "
+             f"--brownout-headroom set to {ladder.headroom_floor}")
+          + f"; ladder {' '.join(steps)} ({ups} up, {downs} down, counted "
+          f"in /metrics; /sloz at level 3 {sloz['name']}); "
+          f"{len(joined)} rows joined, {scaled} at cap factor "
+          f"{BROWNOUT_CAP_FACTOR}, {cut} served replies cut by it; "
+          f"{len(retry)} brownout evictions = {len(retry)} priority-0 "
+          f"!!SERVER-RETRY; {len(shed)} brownout sheds = {len(shed)} "
+          f"priority-0 !!SERVER-OVERLOADED; {len(high_top)} priority-2 "
+          f"requests served at level 3")
+    print(f"brownout serve: latency p50/p99 priority 0 {lat[0][0]:.1f}/"
+          f"{lat[0][1]:.1f} ms, priority 2 {lat[2][0]:.1f}/{lat[2][1]:.1f} "
+          f"ms over {len(ok)} served requests ({len(lines)} sentences, each "
+          f"the dense greedy decode at its cap); {len(files)} flight files; "
+          f"cap scale back to 1.0; pool empty, audit clean; "
+          f"{run['rounds']} rounds, {run['steps']} steps; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts
+
+
+def phase_fleet_serve(seed: int, smi: str) -> dict:
+    """Multi-tenant fleet serving through ``server._serve``, the
+    reference's transport choice (``HAVE_WS``: WebSocket where the
+    ``websockets`` package is installed, else TCP; the clients speak the
+    one ``_serve`` announced), request mode at beam 12: tenant ``a`` the
+    6+6 serve model, tenant ``b`` the 2+2 cut of a second weight set
+    (--seed + 1), ``--fleet-default-tenant a`` and a
+    ``--fleet-hbm-budget-mb`` halfway between the larger tenant's
+    estimate and the two estimates' sum, so every warm of one tenant
+    evicts the other. FLEET_SENTENCES traced one-line requests from
+    SERVE_CLIENTS clients in three waves (a tagged and untagged, then b,
+    then a) and FLEET_UNKNOWN with an unknown tag. Held: every reply
+    Translate.run of its tenant's model on the card, its #trace: line
+    naming the tenant's version (an untagged request's ``a``), each
+    tenant's executor decoding exactly its requests; the unknown tags
+    answered !!SERVER-ERROR; the fleet's cold-start and eviction counters
+    equal to /fleetz, /metrics and the warms and evictions seen; at least
+    one warm on demand and one eviction; every eviction giving back the
+    tenant's parameter bytes on the card; the marian_fleet_* series
+    through promlint; decode_attention dec_depth x steps and
+    packed_attention enc_depth x searches of the tenants' searches.
+    Prints each warm's estimate beside the bytes the card allocated."""
+    from marian_tpu_torch.common import io as mio
+    from marian_tpu_torch.common.config_parser import parse_options
+    from marian_tpu_torch.common.options import Options
+    from marian_tpu_torch.models import transformer as T
+    from marian_tpu_torch.server import server as srv
+    from marian_tpu_torch.server.server import ServingApp
+    from marian_tpu_torch.serving.fleet import HBM_OVERHEAD
+    from marian_tpu_torch.serving.promlint import lint_metrics_text
+    obs_reset()
+    t_phase = time.perf_counter()
+    opts = Options(BASE)
+    small, cut = depth_cut(random_weights(opts, seed + 1), opts)
+    mio.save_model(str(WORK / FLEET_B_MODEL), serve_weights(
+        small, T.config_from_options(cut, VOCAB, VOCAB)), cut.as_yaml())
+    del small
+    models = {"a": "serve.npz", "b": FLEET_B_MODEL}
+    est = {t: int(os.path.getsize(WORK / m) * HBM_OVERHEAD)
+           for t, m in models.items()}
+    budget_mb = (max(est.values()) + sum(est.values())) / 2 / (1 << 20)
+    sents = serve_sentences(seed + 13, FLEET_SENTENCES)
+    # three waves: a (two tagged to one untagged), b, a (every fourth
+    # untagged), and the unknown tags in the first
+    cut1, cut2 = FLEET_SENTENCES * 3 // 8, FLEET_SENTENCES * 11 // 16
+    waves, tenant_of = [], []
+    for w, (lo, hi) in enumerate(((0, cut1), (cut1, cut2),
+                                  (cut2, FLEET_SENTENCES))):
+        wave = []
+        for i in range(lo, hi):
+            tag = "b" if w == 1 else "a"
+            untagged = tag == "a" and i % (3 if w == 0 else 4) == 0
+            tenant_of.append(tag)
+            head = f"#trace:fleet-{i:03d}\n" + ("" if untagged
+                                                else f"#model:{tag}\n")
+            wave.append((i, head + sents[i]))
+        if w == 0:
+            wave += [(-1 - k, f"#trace:fleet-x{k}\n#model:zz\n{sents[k]}")
+                     for k in range(FLEET_UNKNOWN)]
+        waves.append(wave)
+    # the references: Translate.run of each tenant's model on the card
+    refs = {}
+    for tag, name in models.items():
+        ref_app = ServingApp(request_options("--perf-accounting", "false",
+                                             model=name))
+        idx = [i for i, t in enumerate(tenant_of) if t == tag]
+        ref = ref_app.service.translator.run([sents[i] for i in idx],
+                                             io.StringIO())
+        refs.update(zip(idx, ref))
+        ref_app.close_nowait()
+        del ref_app
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = sum(refs[i] == sents[i] for i in range(FLEET_SENTENCES))
+    mport = free_port()
+    options = parse_options(
+        ["--vocabs", str(WORK / "vocab.yml"), str(WORK / "vocab.yml"),
+         "--fleet", f"a={WORK / models['a']},b={WORK / models['b']}",
+         "--fleet-default-tenant", "a", "--fleet-hbm-budget-mb",
+         repr(budget_mb), "--mini-batch", str(REQUEST_MINI_BATCH),
+         "--max-length", "128", "--max-length-factor-translate", "3",
+         "--metrics-port", str(mport), "--port", "0", "--quiet"],
+        mode="server")
+    apps, warms, evicts, searches, served = [], [], [], [], {}
+    state = {"room": 0, "boot": True}
+
+    class Instrumented(ServingApp):
+        """The server _serve builds, with the fleet's warms, evictions
+        and executors observed (allocated bytes around each, the
+        executors' searches and lines)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            apps.append(self)
+            fleet = self.fleet
+            state["golden"] = set(fleet.golden)
+            warm, room, evict = fleet._warm, fleet._make_room, fleet.evict
+            factory = fleet.executor_factory
+
+            def _make_room(need, exclude):
+                room(need, exclude)
+                torch.cuda.synchronize()
+                state["room"] = torch.cuda.memory_allocated()
+
+            def _warm(t):
+                t0 = time.perf_counter()
+                warm(t)
+                torch.cuda.synchronize()
+                warms.append((t.spec.tag, t.resident_bytes,
+                              torch.cuda.memory_allocated() - state["room"],
+                              time.perf_counter() - t0, state["boot"]))
+
+            def _evict(tag, reason="admin"):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                ok = evict(tag, reason)
+                torch.cuda.synchronize()
+                evicts.append((tag, reason, before
+                               - torch.cuda.memory_allocated()))
+                return ok
+
+            def _factory(bundle_dir, manifest):
+                ex = factory(bundle_dir, manifest)
+                tr = ex.__self__.translator
+                tag = "a" if os.path.basename(bundle_dir) == models["a"] \
+                    else "b"
+                lines = served.setdefault(tag, [])
+                cfg = tr.model.cfg
+                params = sum(v.numel() * v.element_size()
+                             for v in tr.params.values())
+                searches.append((tag, cfg.enc_depth, cfg.dec_depth,
+                                 tr.search.steps, params))
+
+                def translate(batch):
+                    lines.extend(batch)
+                    return ex(batch)
+                return translate
+            fleet._warm, fleet._make_room = _warm, _make_room
+            fleet.evict, fleet.executor_factory = _evict, _factory
+
+    announced = []
+
+    def info(msg, *a):
+        announced.append(msg.format(*a))
+        log_info(msg, *a)
+
+    async def wave_traffic(port, wave, transport):
+        replies = {}
+
+        async def request(i, text):
+            if transport == "websocket":
+                import websockets
+                async with websockets.connect(
+                        f"ws://127.0.0.1:{port}") as ws:
+                    await ws.send(text)
+                    replies[i] = await ws.recv()
+                return
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           port)
+            try:
+                payload = text.encode("utf-8")
+                writer.write(b"MTPU %d\n" % len(payload) + payload)
+                await writer.drain()
+                header = await reader.readline()
+                check(header.startswith(b"MTPU "), f"reply {header!r}")
+                replies[i] = (await reader.readexactly(
+                    int(header.split()[1]))).decode("utf-8")
+            finally:
+                writer.close()
+
+        async def client(c):
+            for i, text in wave[c::SERVE_CLIENTS]:
+                await request(i, text)
+        await asyncio.gather(*[client(c) for c in range(SERVE_CLIENTS)])
+        return replies
+
+    async def main():
+        loop = asyncio.get_event_loop()
+        ready = loop.create_future()
+        task = asyncio.ensure_future(srv._serve(options, ready=ready))
+        port = await asyncio.wait_for(ready, 300)
+        transport = "websocket" if srv.HAVE_WS else "tcp"
+        try:
+            state["boot"] = False
+            marks = {id(s): len(s[3]) for s in searches}
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            replies = {}
+            for wave in waves:
+                replies.update(await wave_traffic(port, wave, transport))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            scrape = {p: await loop.run_in_executor(None, http_get, mport, p)
+                      for p in ("/fleetz", "/metrics")}
+        finally:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+        return replies, secs, counts, scrape, marks, transport
+
+    log_info = srv.log.info
+    srv.ServingApp, srv.log.info = Instrumented, info
+    try:
+        replies, secs, counts, scrape, marks, transport = asyncio.run(main())
+    finally:
+        srv.ServingApp, srv.log.info = ServingApp, log_info
+    app = apps[0]
+    heard = [a for a in announced if "listening on port" in a]
+    check(len(heard) == 1 and f"({transport}" in heard[0],
+          f"fleet serve: _serve announced {heard} ({transport})")
+    # replies: the tenant's Translate.run, its version in the #trace line
+    for i in range(FLEET_SENTENCES):
+        head, _, body = replies[i].partition("\n")
+        tag = tenant_of[i]
+        check(head.startswith(f"#trace:fleet-{i:03d} outcome=ok ")
+              and head.endswith(f" model_version={tag}:{tag}:boot")
+              and body == refs[i],
+              f"fleet serve: request {i} (tenant {tag}) got {replies[i]!r}, "
+              f"Translate.run {refs[i]!r}")
+    for k in range(FLEET_UNKNOWN):
+        body = replies[-1 - k].partition("\n")[2]
+        check(body.startswith("!!SERVER-ERROR unknown model tag 'zz'"),
+              f"fleet serve: unknown tag answered {body!r}")
+    for tag in models:
+        mine = sorted(sents[i] for i, t in enumerate(tenant_of) if t == tag)
+        got = sorted(ln for ln in served.get(tag, [])
+                     if ln not in state["golden"])
+        check(got == mine, f"fleet serve: tenant {tag}'s executors decoded "
+              f"{len(got)} lines, its requests hold {len(mine)}")
+    # the counters: the fleet's own, /fleetz, /metrics and the warms seen
+    fleetz = json.loads(scrape["/fleetz"][1])
+    metrics = scrape["/metrics"][1]
+    rows = {r["tenant"]: r for r in fleetz["tenants"]}
+    for tag in models:
+        n = sum(w[0] == tag for w in warms)
+        check(rows[tag]["cold_starts"] == n
+              == gauge(metrics,
+                       f'marian_fleet_cold_starts_total{{tenant="{tag}"}}'),
+              f"fleet serve: tenant {tag} cold starts /fleetz "
+              f"{rows[tag]['cold_starts']}, warms seen {n}")
+    n_ev = gauge(metrics,
+                 'marian_fleet_evictions_total{reason="hbm_pressure"}')
+    on_demand = [w for w in warms if not w[4]]
+    check(n_ev == len(evicts) >= 1 and on_demand,
+          f"fleet serve: {n_ev} evictions counted, {len(evicts)} seen, "
+          f"{len(on_demand)} warms on demand")
+    check(fleetz["hbm_resident_bytes"] <= fleetz["hbm_budget_bytes"]
+          and sum(r["resident"] for r in rows.values()) == 1,
+          f"fleet serve: /fleetz {fleetz}")
+    params = {s[0]: s[4] for s in searches}
+    for tag, _, freed in evicts:
+        check(freed >= params[tag], f"fleet serve: evicting {tag} gave "
+              f"back {freed} bytes, its parameters hold {params[tag]}")
+    fleet_text = "\n".join(ln for ln in metrics.splitlines()
+                           if "marian_fleet_" in ln) + "\n"
+    problems = lint_metrics_text(fleet_text)
+    check(not problems, f"fleet serve: promlint {problems[:4]}")
+    # the launches: every tenant search since the counts were reset
+    want = {name: 0 for name in counts}
+    for s in searches:
+        start = marks.get(id(s), 0)
+        want["decode_attention"] += s[2] * sum(s[3][start:])
+        want["packed_attention"] += s[1] * (len(s[3]) - start)
+    check(counts == want, f"fleet serve launches {counts}, expected {want}")
+    obs_reset()
+    del app, apps
+    gc.collect()
+    torch.cuda.empty_cache()
+    if transport == "websocket":
+        import websockets
+        heard[0] += f" (websockets {websockets.__version__})"
+    print(f"fleet serve ({smi}): _serve announced {heard[0]!r}; tenants a "
+          f"(transformer 6+6, {models['a']}) and b (2+2 cut of --seed + 1, "
+          f"{FLEET_B_MODEL}), copying weights, request mode, beam 12; budget "
+          f"{budget_mb:.1f} MB between the estimates a {est['a']} and b "
+          f"{est['b']} bytes (file x {HBM_OVERHEAD}); {FLEET_SENTENCES} "
+          f"traced requests in three waves (a, b, a) and {FLEET_UNKNOWN} "
+          f"unknown tags from {SERVE_CLIENTS} clients in {secs:.3f} s; "
+          f"replies equal each tenant's Translate.run ({same} of "
+          f"{FLEET_SENTENCES} equal their source), untagged ones on a")
+    for tag, est_b, alloc, dt, boot in warms:
+        print(f"fleet serve ({smi}): warm of {tag} "
+              f"({'boot' if boot else 'on demand'}) {dt:.2f} s: estimate "
+              f"{est_b} bytes, allocated on the card {alloc} bytes "
+              f"(estimate / allocated {est_b / max(alloc, 1):.3f}; the "
+              f"parameters {params[tag]} bytes)")
+    print(f"fleet serve: evictions "
+          + ", ".join(f"{tag} ({why}) gave back {freed} bytes"
+                      for tag, why, freed in evicts)
+          + f"; /fleetz cold starts a {rows['a']['cold_starts']}, b "
+          f"{rows['b']['cold_starts']}, evictions {n_ev}; marian_fleet_* "
+          f"pass promlint; phase {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {counts}")
+    return counts
+
+
 def phase_fused_pressure(seed: int) -> dict:
     """The fused merge on a pool that holds its rows at their caps but not
     the rounds' worst-case preclaim: PRESSURE_ROWS slots (two sentences),
@@ -4617,18 +5283,23 @@ def phase_lifecycle_serve(seed: int) -> dict:
     return counts
 
 
-def dense_greedy_texts(tr, engine, sents) -> list:
+def dense_greedy_texts(tr, engine, sents, caps=None) -> list:
     """The dense greedy decode of each of ``sents`` on ``tr``'s model,
-    cut at its ``engine`` cap and EOS."""
+    cut at its cap (``caps``, else its ``engine`` cap) and EOS, 256
+    sentences a batch."""
     from marian_tpu_torch.translator.greedy import greedy_decode
-    ids, src, mask = source_batch(tr, sents, engine.device)
-    caps = [engine.decode_cap(len(x)) for x in ids]
-    dense = greedy_decode(tr.model, tr.params, src, mask, max(caps))
+    if caps is None:
+        caps = [engine.decode_cap(len(tr.src_vocab.encode(t)))
+                for t in sents]
     out = []
-    for i, cap in enumerate(caps):
-        toks = list(dense[i, :cap])
-        toks = toks[:toks.index(0)] if 0 in toks else toks
-        out.append(tr.trg_vocab.decode(toks))
+    for i in range(0, len(sents), 256):
+        chunk, ccaps = sents[i:i + 256], caps[i:i + 256]
+        _, src, mask = source_batch(tr, chunk, engine.device)
+        dense = greedy_decode(tr.model, tr.params, src, mask, max(ccaps))
+        for j, cap in enumerate(ccaps):
+            toks = list(dense[j, :cap])
+            toks = toks[:toks.index(0)] if 0 in toks else toks
+            out.append(tr.trg_vocab.decode(toks))
     return out
 
 
@@ -5833,6 +6504,10 @@ def run_phases(args, smi: str, child) -> int:
     timed("watchdog serve", phase_watchdog_serve, args.seed)
     paths["observability serve"] = timed(
         "observability serve", phase_observability_serve, args.seed, smi)
+    paths["brownout serve"] = timed("brownout serve", phase_brownout_serve,
+                                    args.seed, smi)
+    paths["fleet serve"] = timed("fleet serve", phase_fleet_serve, args.seed,
+                                 smi)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
     timed("bundles", phase_train_bundles)

@@ -7,10 +7,11 @@ server's) and ``training`` (the trainer's), each with the
 model flags a checkpoint's ``special:model.yml`` carries, under the same
 names and defaults as the reference, the serving lifecycle's, the
 metrics port's and the observability plane's (tracing, the flight
-recorder, the perf plane, SLOs) among them; the flags of the JAX
-package's serving planes this port does not carry yet (fleet, brownout,
-the compile cache, profiling, ``--trace-sync-phases``) and of its mesh
-machinery are left out. Precedence as
+recorder, the perf plane, SLOs), the brownout ladder's and fleet
+serving's among them; the flags of the JAX package's serving planes this
+port does not carry yet (the compile cache, profiling,
+``--trace-sync-phases``) and of its mesh machinery are left out.
+Precedence as
 in Marian: defaults < config file(s) < CLI flags. ``--cpu-threads N``
 (N > 0) runs on the CPU.
 
@@ -251,7 +252,8 @@ _SERVER = [
     _f("rollback-p99-factor", float, 0.0, "With --model-watch: auto-rollback a canary whose p99 batch latency exceeds this factor x the live version's p99 (both over a recent-sample window; 0 = latency check off)"),
     _f("canary-min-batches", int, 8, "With --model-watch and --canary-fraction > 0: promote the canary to live after this many canary batches without tripping a rollback threshold"),
     _f("warmup-golden", str, "", "With --model-watch: file of golden source sentences (one per line) each candidate model must translate during off-path warmup before it can serve — proves the checkpoint loads on the card and decodes (empty = a built-in probe set)"),
-    _f("warmup-on-boot", bool, False, "marian-server: golden-decode every serving width bucket of the boot model BEFORE accepting the first request, instead of letting the first request of each bucket pay its first launches inline"),    # the observability plane (obs/)
+    _f("warmup-on-boot", bool, False, "marian-server: golden-decode every serving width bucket of the boot model BEFORE accepting the first request, instead of letting the first request of each bucket pay its first launches inline"),
+    # the observability plane (obs/)
     _f("trace", bool, False, "Enable the request-scoped span tracer: every request's path (ingest, admission, queue wait, batch or round, dispatch, translate, reply write) is recorded into a bounded in-memory ring, exported as Chrome trace JSON at /tracez on the metrics port (open in Perfetto). Off = no overhead: no ring allocation, no lock on the hot path"),
     _f("trace-ring", int, 4096, "With --trace: span ring capacity — how many most-recent spans /tracez and flight-recorder dumps can see"),
     _f("trace-dump", str, "", "Arm the crash flight recorder (implies --trace): on a dispatch-watchdog trip, a canary/live/manual rollback, a poison-request isolation, an unhealthy quiesce, a failed pool audit or a fast SLO burn, snapshot the span ring + event timeline + /metrics (+ the pool, slo and perf state) to a timestamped JSON file in this directory"),
@@ -260,6 +262,19 @@ _SERVER = [
     _f("slo-p99-ms", float, 0.0, "Declare a latency SLO: 99% of requests must resolve under this many milliseconds (evaluated against the request-latency histogram buckets, conservatively rounded DOWN to a bucket edge). Same burn-rate machinery and exports as --slo-availability (0 = off)"),
     _f("slo-window", float, 60.0, "SLO engine short (fast-burn) window in seconds; the slow window is 10x this"),
     _f("slo-eval-interval", float, 2.0, "SLO engine evaluation cadence in seconds (its own daemon thread; nothing on the batch path)"),
+    # the brownout ladder (serving/brownout.py)
+    _f("brownout", bool, False, "marian-server brownout ladder: under sustained overload (capacity headroom at/below --brownout-headroom, or the SLO fast-burn threshold) step through explicit degradation levels — 1 tighten per-row decode caps, 2 evict lowest-priority/longest-remaining rows with retriable !!SERVER-RETRY, 3 shed admissions below --brownout-min-priority — so high-priority traffic keeps a bounded p99 while low lanes degrade predictably; every transition is a timeline event + marian_brownout_level move"),
+    _f("brownout-headroom", float, 0.1, "Brownout overload signal: escalate while marian_capacity_headroom_ratio stays at or below this floor"),
+    _f("brownout-burn", float, 0.0, "Brownout overload signal: escalate while the SLO engine's fast-window burn rate stays at or above this (0 = use the SLO fast-burn factor when an SLO is declared, else the burn signal is off and headroom drives the ladder alone)"),
+    _f("brownout-hold", float, 5.0, "Seconds the overload signal must persist before the ladder escalates one level (each rung needs its own sustained hold)"),
+    _f("brownout-cool", float, 15.0, "Seconds of continuous health before the ladder de-escalates one level"),
+    _f("brownout-cap-factor", float, 0.5, "Brownout level 1: scale factor applied to NEW rows' decode caps (shorter rows claim fewer KV pages and leave sooner; possible truncation of the longest outputs is the explicit trade)"),
+    _f("brownout-min-priority", int, 1, "Brownout level 3: admission sheds requests whose priority lane is below this (clients set a lane with the '#priority:N' protocol header; default lane is 0)"),
+    # multi-tenant fleet serving (serving/fleet/)
+    _f("fleet", str, "", "marian-server multi-tenant fleet serving: comma-separated <tag>=<model-path> tenants (e.g. 'en-de=/m/ende.npz,en-fr=/m/enfr.npz') served concurrently by ONE process — per-tenant lifecycle stacks (bundle watcher, canary, rollback) under the shared --fleet-hbm-budget-mb with evict-coldest + warm-on-demand; clients pick a tenant with the '#model:<tag>' protocol header. Request batching mode only; mutually exclusive with --model-watch"),
+    _f("fleet-hbm-budget-mb", float, 0.0, "With --fleet: shared HBM budget in MB for resident tenant executors (estimated as bundle member bytes x an overhead factor); warming a tenant past the budget evicts the coldest idle tenant's executors first (never one with in-flight batches). 0 = unbudgeted — every tenant stays resident"),
+    _f("fleet-default-tenant", str, "", "With --fleet: tenant tag for requests that send no '#model:' header (must name a configured tenant); empty = un-tagged requests are rejected with !!SERVER-ERROR"),
+    _f("fleet-watch", float, 0.0, "With --fleet: poll each RESIDENT tenant's <model>.bundles/ every N seconds and hot-swap new committed bundles through that tenant's own canary/rollback lifecycle (the per-tenant --model-watch; 0 = off, tenants still warm-on-demand)"),
 ]
 
 FLAGS = _COMMON + _MODEL + _TRANSLATION

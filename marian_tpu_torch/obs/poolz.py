@@ -1,8 +1,9 @@
 """``/poolz`` — the paged-serving live inspector, ported from
 ``marian_tpu/obs/poolz.py``.
 
-The KV pool's gauges say HOW FULL it is; when a pool audit fails or a
-quiesce drags, the operator needs WHAT IS IN IT: which page belongs to
+The KV pool's gauges say HOW FULL it is; when a pool audit fails, a
+quiesce drags or a brownout starts evicting, the operator needs WHAT IS
+IN IT: which page belongs to
 which row or cache entry, at what refcount, which slots decode at what
 position, and what the last audit said. This module exposes the paged
 engines' :meth:`pool_state` page map two ways:
@@ -16,8 +17,10 @@ engines' :meth:`pool_state` page map two ways:
 
 :func:`check_consistency` recomputes the auditor's page-accounting
 invariants from the exported document, so a flight dump of a dead
-process can still be checked. (The reference's per-tenant page sums of
-its fleet mode are not carried.)
+process can still be checked. The document records the per-tenant page
+sums (``tenants``, serving/fleet/accounting.py) re-derived from its own
+owner labels, and the check re-derives them again and proves tenant
+isolation from the document alone.
 """
 
 from __future__ import annotations
@@ -48,7 +51,14 @@ def snapshot(scheduler) -> Dict:
         "queued_units": scheduler.queued_units(),
         "queued_pages": scheduler.queued_pages(),
         "quiescing": scheduler._quiesce_depth(),
+        "brownout_level": scheduler._brownout_level,
     }
+    # per-tenant page sums, recorded IN the document so a checker can
+    # re-derive them from the page map and compare: a divergence is how
+    # a corrupted claims plane looks from outside (lazy import: obs
+    # loads before serving)
+    from ..serving.fleet import accounting as _facc
+    state["tenants"] = _facc.tenant_sums_from_state(state)
     return state
 
 
@@ -61,7 +71,10 @@ def check_consistency(state: Dict) -> List[str]:
       naming it;
     - free + live pages account for every allocatable page;
     - every occupied slot's held pages appear in the page map;
-    - no slot decodes past its cap.
+    - no slot decodes past its cap;
+    - tenant isolation (serving/fleet/accounting.py): the recorded
+      ``tenants`` block equals the page map's sums, no page's owners
+      span two tenants, and every slot's pages are its tenant's.
     """
     if not state.get("enabled"):
         return []
@@ -86,6 +99,8 @@ def check_consistency(state: Dict) -> List[str]:
         if row["pos"] > row["cap"]:
             v.append(f"slot {row['slot']} position {row['pos']} past "
                      f"its cap {row['cap']}")
+    from ..serving.fleet import accounting as _facc
+    v.extend(_facc.check_tenant_isolation(state))
     return v
 
 

@@ -32,8 +32,12 @@ registers the engine as a flight-dump snapshot provider.
 
 The engine touches nothing on the batch path: it reads counters the
 scheduler already keeps, on its own thread. With no ``--slo-*`` flag it
-is never constructed. (The reference's per-tenant sources of its fleet
-mode are not carried.)
+is never constructed. :meth:`SloEngine.fast_burn` is the newest tick's
+largest fast-window burn, the brownout ladder's signal. Fleet mode
+builds one engine a tenant over the fleet's tenant-labeled series
+(``outcomes_metric``, ``latency_metric``, ``label_filter``,
+``latency_labels``, ``objective_prefix``; the defaults are the
+single-model engine).
 """
 
 from __future__ import annotations
@@ -83,7 +87,12 @@ class SloEngine:
                  fast_factor: float = DEFAULT_FAST_FACTOR,
                  slow_factor: float = DEFAULT_SLOW_FACTOR,
                  eval_interval: float = DEFAULT_EVAL_INTERVAL_S,
-                 clock: Callable[[], float] = time.monotonic):
+                 clock: Callable[[], float] = time.monotonic,
+                 outcomes_metric: str = OUTCOMES_METRIC,
+                 latency_metric: str = LATENCY_METRIC,
+                 label_filter: Optional[Tuple[int, str]] = None,
+                 latency_labels: Tuple[str, ...] = (),
+                 objective_prefix: str = ""):
         from ..serving import metrics as msm    # lazy: no import cycle
         self.registry = registry if registry is not None else msm.REGISTRY
         self.window_s = float(window_s)
@@ -92,17 +101,28 @@ class SloEngine:
         self.slow_factor = float(slow_factor)
         self.eval_interval = max(0.05, float(eval_interval))
         self.clock = clock
+        # fleet mode: a tenant's engine reads the fleet's tenant-labeled
+        # series — outcomes_metric / latency_metric re-point the sources,
+        # label_filter (label index, value) keeps one tenant's outcome
+        # children, latency_labels selects its latency child, and
+        # objective_prefix ("A:") keeps the shared marian_slo_* objective
+        # labels apart. The defaults are the single-model engine.
+        self.outcomes_metric = outcomes_metric
+        self.latency_metric = latency_metric
+        self.label_filter = label_filter
+        self.latency_labels = tuple(latency_labels)
+        self.objective_prefix = objective_prefix
         self.objectives: List[_Objective] = []
         if availability:
             self.objectives.append(_Objective(
-                "availability", float(availability),
+                objective_prefix + "availability", float(availability),
                 f"{float(availability):.6g} of resolved requests ok "
                 f"(bad = {'|'.join(BAD_OUTCOMES)})",
                 self._availability_source))
         if p99_ms:
             self.p99_target_s = float(p99_ms) / 1e3
             self.objectives.append(_Objective(
-                "latency_p99", 0.99,
+                objective_prefix + "latency_p99", 0.99,
                 f"99% of requests under {float(p99_ms):g} ms",
                 self._latency_source))
         if not self.objectives:
@@ -116,6 +136,8 @@ class SloEngine:
         self._t0: Optional[float] = None        # guarded-by: _lock
         self._base: Dict[str, Tuple[float, float]] = {}  # guarded-by: _lock
         self._alerting: Dict[Tuple[str, str], bool] = {}  # guarded-by: _lock
+        # the newest tick's largest fast-window burn over the objectives
+        self._last_fast_burn = 0.0              # guarded-by: _lock
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
@@ -143,11 +165,15 @@ class SloEngine:
 
     # -- SLI sources --------------------------------------------------------
     def _availability_source(self) -> Tuple[float, float]:
-        m = self.registry.get(OUTCOMES_METRIC)
+        m = self.registry.get(self.outcomes_metric)
         if m is None:
             return 0.0, 0.0
         good = bad = 0.0
         for key, child in m.children().items():
+            if self.label_filter is not None:
+                idx, want = self.label_filter
+                if len(key) <= idx or key[idx] != want:
+                    continue
             outcome = key[0] if key else ""
             if outcome == "ok":
                 good += child.value
@@ -156,9 +182,13 @@ class SloEngine:
         return good, good + bad
 
     def _latency_source(self) -> Tuple[float, float]:
-        h = self.registry.get(LATENCY_METRIC)
+        h = self.registry.get(self.latency_metric)
         if h is None:
             return 0.0, 0.0
+        if self.latency_labels:
+            # the tenant's child (made on first read: a tenant that has
+            # not served yet reads (0, 0))
+            h = h.labels(*self.latency_labels)
         buckets, counts, total, _sum = h.snapshot()
         good = 0.0
         for edge, c in zip(buckets, counts):
@@ -187,6 +217,9 @@ class SloEngine:
             while self._samples and now - self._samples[0][0] > horizon:
                 self._samples.popleft()
             state = self._evaluate(now, cum)
+            self._last_fast_burn = max(
+                (st["burn"][self._wl(False)]
+                 for st in state["objectives"].values()), default=0.0)
             # rising/falling edges, recorded under the lock so two racing
             # ticks cannot double-fire; the events/dump emit OUTSIDE it
             for o in self.objectives:
@@ -296,6 +329,13 @@ class SloEngine:
                           for (o, s), v in sorted(self._alerting.items())}
         return st
 
+    def fast_burn(self) -> float:
+        """The largest fast-window burn rate over the objectives as of
+        the last tick: the brownout ladder's overload signal (any
+        thread)."""
+        with self._lock:
+            return self._last_fast_burn
+
     # -- evaluator thread ---------------------------------------------------
     def start(self) -> "SloEngine":
         if self._thread is None:
@@ -340,20 +380,24 @@ def maybe_build_engine(options, registry=None) -> Optional[SloEngine]:
         or DEFAULT_EVAL_INTERVAL_S)
 
 
-def slo_routes(engine_fn: Callable[[], Optional[SloEngine]]) -> Dict:
+def slo_routes(engine_fn: Callable[[], Optional[SloEngine]],
+               brownout_fn: Optional[Callable[[], object]] = None) -> Dict:
     """``GET /sloz`` for serving/metrics.py's MetricsServer: the SLO
-    state, the perf plane's snapshot and the brownout ladder's state
-    (``enabled: false`` until the ladder is ported and armed). Like
-    /tracez, the route always answers — a disabled engine reports
-    ``enabled: false`` rather than 404."""
+    state, the perf plane's snapshot and, when the ladder is armed, the
+    brownout level (an on-call reading /sloz during an incident sees
+    which rung they are on). Like /tracez, the route always answers — a
+    disabled engine or ladder reports ``enabled: false`` rather than
+    404."""
 
     def _sloz(method: str, query: str):
         engine = engine_fn()
+        brownout = brownout_fn() if brownout_fn is not None else None
         body = {
             "slo": engine.state() if engine is not None
             else {"enabled": False},
             "perf": PERF.state(),
-            "brownout": {"enabled": False},
+            "brownout": brownout.state() if brownout is not None
+            else {"enabled": False},
         }
         return (200, json.dumps(body, indent=1).encode() + b"\n",
                 "application/json")

@@ -6,10 +6,13 @@ merge), with the cross-request prefix cache (``--prefix-cache``) and
 the decode surface (``--shortlist``, ``--output-sampling``,
 ``--force-decode``, ``--n-best``; in request mode ``--word-scores`` too).
 
-Protocol as the reference's dependency-free transport: length-prefixed
-TCP frames ``MTPU <nbytes>\\n`` + UTF-8 payload in both directions; a
-request frame holds newline-joined source sentences, the reply the
-newline-joined translations. The WebSocket transport is not ported yet.
+Protocol kept Marian-compatible: a request frame holds newline-joined
+source sentences, the reply the newline-joined translations. Transports,
+the reference's choice: WebSocket text frames (the Marian protocol)
+through the ``websockets`` package where it is installed (``HAVE_WS``);
+otherwise, with a warning, the dependency-free length-prefixed TCP
+framing, ``MTPU <nbytes>\\n`` + UTF-8 payload in both directions. Both
+share one ServingApp, so admission, scheduling and metrics behave alike.
 
 All requests flow through ONE scheduler (serving/scheduler.py) behind
 bounded admission (serving/admission.py):
@@ -90,6 +93,29 @@ model_version=..`` (iteration mode adds ``rounds= ttfj_ms= prefix_hit=
 evictions=``). Headers stack in the order ``#trace``, ``#model``,
 ``#priority``, ``#stream``.
 
+The brownout ladder (``--brownout``, serving/brownout.py): while the perf
+plane's capacity headroom stays at or below ``--brownout-headroom`` (or
+the SLO engine's fast burn at or above ``--brownout-burn``) for
+``--brownout-hold`` seconds, the ladder climbs one level: 1 scales new
+rows' decode caps by ``--brownout-cap-factor``, 2 evicts one
+lower-priority decoding row a round when higher-priority work waits
+(``!!SERVER-RETRY``), 3 sheds requests below ``--brownout-min-priority``
+at admission (``!!SERVER-OVERLOADED``); ``--brownout-cool`` healthy
+seconds step it down. A request picks its lane with ``#priority:N``.
+``/sloz`` shows the ladder's state, and every escalation writes a flight
+dump.
+
+Fleet serving (``--fleet tag=model.npz,...``, request mode only;
+serving/fleet/): one process serves several models, each a tenant with
+its own lifecycle stack, warmed on demand (the newest committed bundle,
+or the flat model) under ``--fleet-hbm-budget-mb`` (the coldest idle
+tenant is evicted to make room; ``--fleet-watch`` hot-swaps each
+resident tenant's new bundles). A request picks its tenant with
+``#model:<tag>`` (or ``--fleet-default-tenant``); a well-formed tag
+naming no tenant gets ``!!SERVER-ERROR``. With ``--slo-*`` each tenant
+has its own SLO engine, and a tenant in fast burn sheds its own
+low-priority requests. ``/fleetz`` shows the fleet's table.
+
 ``--dispatch-stall-timeout S`` (both modes) arms the scheduler's
 dispatch watchdog: a device batch or engine round still running after S
 seconds fails its requests with ``!!SERVER-RETRY`` and serving goes on
@@ -103,7 +129,7 @@ Refused by name at startup: in iteration mode ``--alignment``,
 ``--word-scores`` and ``--output-approx-knn`` (``ITERATION_DECODE_SURFACE``
 gives the reasons; a decode flag with no verdict there is refused as
 UNCLASSIFIED), ``--shortlist`` with ``--force-decode`` in either mode,
-and ensembles.
+ensembles, and ``--fleet`` with iteration mode or ``--model-watch``.
 """
 
 from __future__ import annotations
@@ -127,6 +153,12 @@ from ..serving import metrics as msm
 from ..serving.admission import AdmissionController, Overloaded
 from ..serving.scheduler import (ContinuousScheduler, DispatchStalled,
                                  RequestTimeout, RowEvicted)
+
+try:
+    import websockets
+    HAVE_WS = True
+except ImportError:  # pragma: no cover — TCP where it is missing
+    HAVE_WS = False
 
 # graceful-drain budget on shutdown
 DRAIN_TIMEOUT_S = 30.0
@@ -180,18 +212,36 @@ def split_trace_header(text: str) -> Tuple[Optional[str], str]:
     return _split_header(text, TRACE_PREFIX, _token("-_", _MAX_TRACE_ID))
 
 
-def split_headers(text: str) -> Tuple[Optional[str], Optional[int],
-                                      Optional[bool], str]:
-    """(trace id, priority, stream, body) of one request frame. A
-    ``#model:`` tag is stripped and ignored, as the reference's
-    single-model server does."""
+def split_model_header(text: str) -> Tuple[Optional[str], str]:
+    """(tenant tag | None, body): the reference's ``#model:`` split. Tags
+    share the trace-id alphabet plus ``.``, so the first ``/`` of a pool
+    owner label is an unambiguous tenant prefix; a malformed tag is
+    payload, never an error."""
+    return _split_header(text, MODEL_PREFIX, _token("-_.", _MAX_MODEL_TAG))
+
+
+def split_headers(text: str) -> Tuple[Optional[str], Optional[str],
+                                      Optional[int], Optional[bool], str]:
+    """(trace id, model tag, priority, stream, body) of one request
+    frame. Without ``--fleet`` the model tag is ignored, as the
+    reference's single-model server does."""
     trace_id, body = split_trace_header(text)
-    _, body = _split_header(body, MODEL_PREFIX, _token("-_.", _MAX_MODEL_TAG))
+    model_tag, body = split_model_header(body)
     priority, body = _split_header(body, PRIORITY_PREFIX, _priority)
     stream, body = _split_header(
         body, STREAM_PREFIX,
         lambda raw: raw == "1" if raw in ("0", "1") else None)
-    return trace_id, priority, stream, body
+    return trace_id, model_tag, priority, stream, body
+
+
+def _fleet_unrouted(lines: List[str]) -> List[str]:
+    """The fleet scheduler's translate_lines: every request resolves
+    through the tenant router, so reaching this is a routing bug (the
+    server refuses an untagged request without a default tenant before
+    it queues), never a client error."""
+    raise RuntimeError(
+        "fleet-mode batch reached the un-routed translate path — a "
+        "request was queued without a tenant tag")
 
 
 class TranslationService:
@@ -241,11 +291,13 @@ class ServingApp:
     """One serving stack: the model (TranslationService), the scheduler
     in the configured batching mode (with the paged engine in iteration
     mode), admission control, the metrics port and, with
-    ``--model-watch``, the model lifecycle. ``translate_lines`` (request
-    mode) and ``engine`` (iteration mode) inject what would otherwise be
-    built from the options, ``executor_factory`` the lifecycle's loader
-    of a bundle and ``registry`` the metrics registry; ``device``
-    overrides the device the options resolve."""
+    ``--model-watch``, the model lifecycle, with ``--brownout`` the
+    ladder, with ``--fleet`` the tenants instead of one boot model.
+    ``translate_lines`` (request mode) and ``engine`` (iteration mode)
+    inject what would otherwise be built from the options,
+    ``executor_factory`` the lifecycle's (or each tenant's) loader of a
+    bundle and ``registry`` the metrics registry; ``device`` overrides
+    the device the options resolve."""
 
     # The decode-output flags iteration mode must take a position on, and
     # that position: True = carried by the engines' feature plane, a
@@ -275,6 +327,9 @@ class ServingApp:
                  executor_factory=None):
         self.options = options
         self._validate_options(options)
+        # --fleet: the tenants replace the one boot model; a bad spec or
+        # default tenant fails here, before anything is built
+        fleet_specs = self._fleet_specs(options)
         # the observability plane: --trace enables the span tracer,
         # --trace-dump arms the flight recorder, --perf-accounting the
         # perf plane; /tracez, /sloz and /poolz ride the metrics port
@@ -287,6 +342,13 @@ class ServingApp:
         budget = resolve_token_budget(options)
         max_queue = int(options.get("max-queue", 512) or 0)
         if self.batching_mode == "request":
+            if translate_lines is None and fleet_specs:
+                # no boot model: every batch resolves through the tenant
+                # router; the tenants' decoders cut batches by the budget
+                options.set("mini-batch-words", budget)
+                options.set("mini-batch", budget)
+                options.set("maxi-batch", 1)
+                translate_lines = _fleet_unrouted
             if translate_lines is None:
                 # one scheduler batch is one device batch: the decoder
                 # cuts by the same budget, and its window (maxi-batch x
@@ -359,6 +421,15 @@ class ServingApp:
             mslo.maybe_build_engine(options, self.registry)
         if self.slo is not None:
             obs.FLIGHT.add_snapshot_provider("slo", self.slo.state)
+        # the brownout ladder (--brownout): degradation levels over the
+        # perf plane's headroom and the SLO engine's fast burn
+        self.brownout = None
+        self._brownout_cap_factor = float(
+            options.get("brownout-cap-factor", 0.5) or 0.5)
+        self._brownout_min_priority = int(
+            options.get("brownout-min-priority", 1) or 1)
+        if options.get("brownout", False):
+            self._init_brownout(options)
         # zero-downtime lifecycle (--model-watch SECONDS): registry +
         # watcher + warmup + swap controller over <model>.bundles/
         self.lifecycle = None
@@ -366,6 +437,37 @@ class ServingApp:
         watch_s = float(options.get("model-watch", 0) or 0)
         if watch_s > 0:
             self._init_lifecycle(watch_s, translate_lines, executor_factory)
+        self.fleet = None
+        if fleet_specs:
+            self._init_fleet(fleet_specs, executor_factory)
+
+    def _fleet_specs(self, options):
+        """The parsed ``--fleet`` tenants ([] without a fleet), with the
+        reference's refusals: iteration mode, ``--model-watch`` and a
+        ``--fleet-default-tenant`` that names no tenant."""
+        self._fleet_default = str(
+            options.get("fleet-default-tenant", "") or "")
+        spec = str(options.get("fleet", "") or "")
+        if not spec:
+            return []
+        if str(options.get("batching-mode", "request")) == "iteration":
+            raise ValueError(
+                "--fleet serves --batching-mode request only: the "
+                "paged iteration engine is single-model (route "
+                "iteration tenants to dedicated replicas)")
+        if float(options.get("model-watch", 0) or 0) > 0:
+            raise ValueError(
+                "--fleet and --model-watch are mutually exclusive: "
+                "the fleet already runs one bundle watcher per "
+                "tenant (--fleet-watch)")
+        from ..serving import fleet as mfleet
+        specs = mfleet.parse_fleet_spec(spec)
+        tags = {sp.tag for sp in specs}
+        if self._fleet_default and self._fleet_default not in tags:
+            raise ValueError(
+                f"--fleet-default-tenant '{self._fleet_default}' is not "
+                f"a configured tenant (have: {', '.join(sorted(tags))})")
+        return specs
 
     @classmethod
     def _validate_options(cls, options) -> None:
@@ -509,6 +611,111 @@ class ServingApp:
             emb=cfg.dim_emb, ffn=cfg.dim_ffn, enc_depth=cfg.enc_depth,
             dec_depth=cfg.dec_depth, vocab=vocab, beam=beam, n_devices=1,
             device_kind=kind, compute_dtype=str(cfg.compute_dtype))
+
+    # -- the brownout ladder (--brownout) -----------------------------------
+    def _init_brownout(self, options) -> None:
+        """The ladder over the perf plane's headroom and the SLO engine's
+        fast burn (its own accounting: none), its level applied to the
+        scheduler and admission, its state a flight-dump member."""
+        from ..serving.brownout import BrownoutController
+        burn_thr = float(options.get("brownout-burn", 0) or 0)
+        if burn_thr <= 0:
+            # the SLO engine's fast-burn factor; with no SLO declared the
+            # burn signal is off and headroom drives the ladder alone
+            burn_thr = self.slo.fast_factor if self.slo is not None \
+                else 0.0
+        self.brownout = BrownoutController(
+            apply_fn=self._apply_brownout,
+            headroom_fn=obs.PERF.headroom if obs.PERF.enabled else None,
+            burn_fn=self.slo.fast_burn if self.slo is not None else None,
+            registry=self.registry,
+            headroom_floor=float(
+                options.get("brownout-headroom", 0.1) or 0.1),
+            burn_threshold=burn_thr,
+            hold_s=float(options.get("brownout-hold", 5.0) or 5.0),
+            cool_s=float(options.get("brownout-cool", 15.0) or 15.0))
+        obs.FLIGHT.add_snapshot_provider("brownout", self.brownout.state)
+        if not obs.PERF.enabled and burn_thr <= 0:
+            # both signals dead: the ladder would tick forever without
+            # escalating while the operator believes it protects them
+            log.warn("--brownout is armed but BOTH of its signals "
+                     "are disabled (--perf-accounting off and no "
+                     "--slo-* objective declared): the ladder will "
+                     "never escalate. Enable --perf-accounting or "
+                     "declare an SLO (or set --brownout-burn > 0).")
+
+    def _apply_brownout(self, level: int) -> None:
+        """The ladder's effect: the level into the scheduler (cap scale,
+        row eviction) and admission (lane shedding)."""
+        self.scheduler.set_brownout_level(
+            level, cap_factor=self._brownout_cap_factor)
+        self.admission.set_brownout(level, self._brownout_min_priority)
+
+    # -- fleet serving (--fleet) --------------------------------------------
+    def _init_fleet(self, specs, executor_factory) -> None:
+        """The FleetManager (per-tenant lifecycle stacks under a shared
+        budget), wired into the scheduler's tenant router and per-tenant
+        version labels, with per-tenant SLO engines under ``--slo-*``
+        and the fleet's table as a flight-dump member."""
+        from ..device import resolve_device
+        from ..serving import fleet as mfleet
+        from ..serving.lifecycle import load_golden
+        opts = self.options
+        # the tenants' models land on the card resolved now: warms run
+        # on the device worker thread, whose current device is its own
+        dev = resolve_device(self.device,
+                             int(opts.get("cpu-threads", 0) or 0))
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._fleet_device = dev
+        self.fleet = mfleet.FleetManager(
+            specs,
+            executor_factory or self._fleet_executor_factory,
+            metrics_registry=self.registry,
+            hbm_budget_bytes=int(
+                float(opts.get("fleet-hbm-budget-mb", 0) or 0) * (1 << 20)),
+            watch_interval=float(opts.get("fleet-watch", 0) or 0),
+            golden=load_golden(opts.get("warmup-golden", "") or None),
+            canary_fraction=float(opts.get("canary-fraction", 0) or 0),
+            rollback_error_rate=float(
+                opts.get("rollback-error-rate", 0.5) or 0.5),
+            rollback_p99_factor=float(
+                opts.get("rollback-p99-factor", 0) or 0),
+            canary_min_batches=int(
+                opts.get("canary-min-batches", 8) or 8),
+            brownout_min_priority=self._brownout_min_priority)
+        n = self.fleet.build_slos(
+            availability=float(opts.get("slo-availability", 0) or 0),
+            p99_ms=float(opts.get("slo-p99-ms", 0) or 0))
+        if n:
+            log.info("fleet: per-tenant SLO engines armed for {} "
+                     "tenant(s)", n)
+        self.scheduler.tenant_router = self.fleet.executor_for
+        self.scheduler.tenant_version_fn = self.fleet.live_version_name
+        obs.FLIGHT.add_snapshot_provider("fleet", self.fleet.status)
+
+    def _fleet_executor_factory(self, bundle_dir: str, manifest):
+        """A tenant's executor: a TranslationService over the bundle's
+        model member, or over ``bundle_dir`` itself when the tenant warms
+        from its flat model (no bundle committed yet), loaded on the
+        fleet's card."""
+        if os.path.isfile(bundle_dir):
+            model = bundle_dir
+        else:
+            members = (manifest or {}).get("members", {}) or {}
+            model = next(
+                (os.path.join(bundle_dir, rel) for rel in sorted(members)
+                 if rel.endswith(".npz") and "optimizer" not in rel),
+                None)
+            if model is None:
+                raise ValueError(
+                    f"fleet: bundle {bundle_dir} carries no model "
+                    f"member (members: {sorted(members) or 'none'})")
+        dev = self._fleet_device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            return TranslationService(self.options.with_(models=[model]),
+                                      dev).translate_lines
 
     # -- the model lifecycle (--model-watch) --------------------------------
     def _device_context(self):
@@ -759,19 +966,33 @@ class ServingApp:
         # /tracez, /sloz and /poolz always answer (a disabled plane says
         # so rather than 404); the admin verbs exist with the lifecycle
         routes = obs.trace_routes()
-        routes.update(mslo.slo_routes(lambda: self.slo))
+        routes.update(mslo.slo_routes(lambda: self.slo,
+                                      lambda: self.brownout))
         routes.update(obs.pool_routes(lambda: self.scheduler))
         if self.lifecycle is not None:
             routes.update(self._admin_routes())
+        if self.fleet is not None:
+            # /fleetz: per-tenant residency, live version, batches in
+            # flight, cold starts, SLO burn and page sums
+            routes["/fleetz"] = lambda method, query: (
+                200, json.dumps(self.fleet.status(), indent=1).encode()
+                + b"\n", "application/json")
         self.metrics_server = msm.maybe_start_metrics_server(
             self.options, ready_fn=self.ready, routes=routes,
             registry=self.registry)
         if self.slo is not None:
             self.slo.start()
+        if self.brownout is not None:
+            self.brownout.start()
         if self.options.get("warmup-on-boot", False):
             self._boot_warmup()
         if self.watcher is not None:
             self.watcher.start()
+        if self.fleet is not None:
+            # pre-warm every tenant the budget allows (in tag order, so
+            # the earliest are the first victims) and start the
+            # per-tenant SLO evaluator and bundle watchers
+            self.fleet.start()
         self._started = True
         timeout = (f"{self.request_timeout}s" if self.request_timeout
                    else "none")
@@ -814,41 +1035,69 @@ class ServingApp:
         transport calls ``done(nbytes)`` once the reply's bytes are
         written, which records the ``reply.write`` span and ends the
         request's root span (a no-op with the tracer off)."""
-        trace_id, priority, stream, body = split_headers(text)
+        t0 = time.perf_counter()
+        trace_id, model_tag, priority, stream, body = split_headers(text)
         priority = priority or 0
         on_partial = None
         if stream and send_partial is not None:
             def on_partial(idx: int, partial: str, _ntok: int) -> None:
                 send_partial(f"{PARTIAL_PREFIX}{idx} {partial}")
         lines = body.split("\n")
+        # fleet mode: the #model: tag picks the tenant (or the default);
+        # without a fleet the header is ignored
+        tenant = ""
+        if self.fleet is not None:
+            tenant = model_tag or self._fleet_default
         span = None
         if obs.enabled():
             span = obs.start_span("request", trace_id=trace_id or None,
                                   n_sentences=len(lines),
-                                  priority=priority, tenant="")
+                                  priority=priority, tenant=tenant)
         # the queue/service breakdown is collected iff the client asked
         # for it with a trace header
         meta: Optional[Dict] = {} if trace_id is not None else None
 
         def finish(outcome: str, reply: str):
+            if self.fleet is not None and tenant:
+                # the tenant-labeled series its SLO engine burns against
+                self.fleet.note_outcome(tenant, outcome,
+                                        time.perf_counter() - t0)
             return self._finish_frame(trace_id, meta, span, outcome, reply)
 
+        if self.fleet is not None and not self.fleet.has_tenant(tenant):
+            # a well-formed tag naming no tenant (or no tag and no
+            # default) is an explicit error: translating with the wrong
+            # model is the one thing a fleet must never do. The shed
+            # label is "?": a client-controlled label value would be
+            # unbounded
+            self.fleet.note_shed("?", "unknown_tenant")
+            tenant = ""     # the unknown tag bills no outcome
+            return finish(
+                "failure",
+                f"!!SERVER-ERROR unknown model tag "
+                f"'{model_tag or self._fleet_default or '(none)'}' — "
+                f"send #model:<tag> "
+                f"(configured: {', '.join(self.fleet.tags())})")
         engine = self.scheduler.engine
         try:
             # admitted inside the span's context, so a shed's timeline
-            # event carries the trace id
+            # event carries the trace id; a tenant burning its own error
+            # budget sheds before it costs global queue space
             with obs.TRACER.use(span):
+                if self.fleet is not None:
+                    self.fleet.gate(tenant, priority)
                 self.admission.admit(
                     len(lines), n_pages=sum(engine.pages_for_text(l)
                                             for l in lines)
-                    if engine else 0)
+                    if engine else 0, priority=priority)
         except Overloaded as e:
             return finish("shed", f"!!SERVER-OVERLOADED {e}")
         with obs.TRACER.use(span):
             fut = self.scheduler.submit(
                 lines, priority=priority,
                 timeout=self.request_timeout or None,
-                on_partial=on_partial, meta=meta, trace_id=trace_id)
+                on_partial=on_partial, meta=meta, trace_id=trace_id,
+                tenant=tenant)
         try:
             out = await fut
         except RequestTimeout as e:
@@ -859,6 +1108,9 @@ class ServingApp:
             return finish("evicted", f"!!SERVER-RETRY {e}")
         except asyncio.CancelledError:
             # a client abort: the root span is recorded before unwinding
+            if self.fleet is not None and tenant:
+                self.fleet.note_outcome(tenant, "cancelled",
+                                        time.perf_counter() - t0)
             obs.end(span, outcome="cancelled")
             raise
         except Exception:  # noqa: BLE001 — logged by the scheduler
@@ -901,8 +1153,9 @@ class ServingApp:
     def close_nowait(self) -> None:
         """Synchronous cleanup (after a drain, cancelled contexts, test
         teardown): the perf plane's inputs are unwired, the flight
-        recorder's providers removed, and the SLO engine, the bundle
-        watcher and the metrics port stop."""
+        recorder's providers removed, and the SLO engine, the brownout
+        ladder (back at level 0), the bundle watcher, the fleet's
+        watchers and the metrics port stop."""
         self._started = False
         if self._perf_wired:
             # a scrape after close must not sample a dead scheduler
@@ -914,11 +1167,19 @@ class ServingApp:
         if self.slo is not None:
             self.slo.stop()
             obs.FLIGHT.remove_snapshot_provider("slo")
+        if self.brownout is not None:
+            self.brownout.stop()
+            obs.FLIGHT.remove_snapshot_provider("brownout")
+            self.brownout = None
         if self.watcher is not None:
             from ..training import bundle as bdl
             bdl.remove_commit_hook(self._on_bundle_commit)
             self.watcher.stop()
             self.watcher = None
+        if self.fleet is not None:
+            obs.FLIGHT.remove_snapshot_provider("fleet")
+            self.fleet.stop()
+            self.fleet = None
         if self.metrics_server is not None:
             self.metrics_server.close()
             self.metrics_server = None
@@ -940,6 +1201,51 @@ class ServingApp:
         await asyncio.sleep(0.2)
         self.close_nowait()
         return ok
+
+
+def _make_ws_handler(app: ServingApp):
+    """The per-connection WebSocket protocol: one text frame in, one
+    reply frame out. A dropped connection cancels the handler task
+    mid-await, which cancels the request, so its queued sentences are
+    dropped and its decoding rows evicted. A ``#stream:1`` request's
+    partial frames and then its final reply go through ONE per-connection
+    queue drained in order, so a client never sees the reply before (or
+    between) its partials; ``done(nbytes)`` always ends the request's
+    root span, also when the send fails."""
+    async def handler(ws):
+        q: "asyncio.Queue[str]" = asyncio.Queue()
+
+        async def _drain():
+            while True:
+                frame = await q.get()
+                try:
+                    await ws.send(frame)
+                finally:
+                    q.task_done()
+
+        drainer = asyncio.ensure_future(_drain())
+        try:
+            async for message in ws:
+                reply, done = await app.serve_frame(message, q.put_nowait)
+                nbytes = 0
+                try:
+                    q.put_nowait(reply)
+                    flushed = asyncio.ensure_future(q.join())
+                    # a dead drainer (a failed send: the client is gone)
+                    # leaves items unacknowledged: never await the join
+                    # unguarded
+                    await asyncio.wait({flushed, drainer},
+                                       return_when=asyncio.FIRST_COMPLETED)
+                    if not flushed.done():
+                        flushed.cancel()
+                        drainer.result()     # raises the send's error
+                    # UTF-8 bytes, as the TCP transport counts them
+                    nbytes = len(reply.encode("utf-8"))
+                finally:
+                    done(nbytes)
+        finally:
+            drainer.cancel()
+    return handler
 
 
 def _make_tcp_handler(app: ServingApp):
@@ -1042,24 +1348,49 @@ def _make_tcp_handler(app: ServingApp):
 
 
 async def _serve(options, ready: Optional[asyncio.Future] = None) -> None:
-    """Serve until cancelled, then drain. ``ready`` is resolved with the
-    bound port once listening (``--port 0`` binds an ephemeral one)."""
+    """Serve until cancelled, then drain. The transport is the
+    reference's choice: WebSocket when the ``websockets`` package is
+    there (``HAVE_WS``), else the MTPU-framed TCP, with a warning.
+    ``ready`` is resolved with the bound port once listening (``--port
+    0`` binds an ephemeral one)."""
     app = ServingApp(options)
     app.start()
-    server = await asyncio.start_server(_make_tcp_handler(app), "0.0.0.0",
-                                        int(options.get("port", 8080)))
-    async with server:
-        bound = server.sockets[0].getsockname()[1]
-        log.info("Server is listening on port {} (tcp, MTPU framing)", bound)
+    port = int(options.get("port", 8080))
+
+    def _announce(bound: int, transport: str) -> None:
+        log.info("Server is listening on port {} ({})", bound, transport)
         if ready is not None and not ready.cancelled():
             ready.set_result(bound)
+
+    async def _serve_until_cancelled() -> None:
+        # runs inside the transport's serve context, so the drain ends
+        # while client connections are still open: in-flight clients get
+        # their replies before the listener goes down
         try:
             await asyncio.Future()
         except asyncio.CancelledError:
-            # drain while client connections are still open, so in-flight
-            # clients get their replies before the listener goes down
             await asyncio.shield(app.shutdown())
             raise
+
+    try:
+        if HAVE_WS:
+            async with websockets.serve(_make_ws_handler(app), "0.0.0.0",
+                                        port) as server:
+                _announce(next(iter(server.sockets)).getsockname()[1],
+                          "websocket")
+                await _serve_until_cancelled()
+        else:
+            log.warn("the 'websockets' package is unavailable — serving "
+                     "the length-prefixed TCP framing instead (Marian ws "
+                     "clients cannot connect)")
+            server = await asyncio.start_server(_make_tcp_handler(app),
+                                                "0.0.0.0", port)
+            async with server:
+                _announce(server.sockets[0].getsockname()[1],
+                          "tcp, MTPU framing")
+                await _serve_until_cancelled()
+    finally:
+        app.close_nowait()
 
 
 def serve_main(options) -> None:

@@ -1,5 +1,5 @@
 """Admission control for the serving subsystem, ported from
-``marian_tpu/serving/admission.py`` without the brownout rung.
+``marian_tpu/serving/admission.py``.
 
 A bounded queue with an EXPLICIT cheap rejection (``Overloaded``, which
 the transports turn into ``!!SERVER-OVERLOADED``) instead of a queue that
@@ -7,9 +7,11 @@ grows until the host runs out of memory, and a drain mode that lets
 in-flight work finish while new requests are refused. Units are
 SENTENCES; in iteration mode the queue debt is also priced in KV-pool
 PAGES, since a 500-token sentence owes far more pool than a 5-token one.
+The brownout ladder's top rung (serving/brownout.py, level 3) sheds
+requests whose priority lane is below ``--brownout-min-priority``.
 
 Series: ``marian_serving_admitted_sentences_total``,
-``marian_serving_shed_total{reason}`` (draining, queue_full,
+``marian_serving_shed_total{reason}`` (draining, brownout, queue_full,
 pages_full) and ``marian_serving_queue_limit_sentences``. A shed and the
 start of a drain land on the obs timeline (``admission.shed``,
 ``admission.drain_started``); the admitted path records nothing.
@@ -55,6 +57,10 @@ class AdmissionController:
         self._lock = threading.Lock()
         self._draining = False
         self._drain_started: Optional[float] = None
+        # the brownout ladder's rung: written by its evaluator thread,
+        # read at every admit
+        self._brownout_level = 0
+        self._brownout_min_priority = 1
         r = registry if registry is not None else msm.REGISTRY
         self.m_admitted = r.counter(
             "marian_serving_admitted_sentences_total",
@@ -72,16 +78,40 @@ class AdmissionController:
         with self._lock:
             return self._draining
 
-    def admit(self, n_units: int, n_pages: int = 0) -> None:
+    def set_brownout(self, level: int, min_priority: int = 1) -> None:
+        """Arm or disarm the ladder's admission rung (the brownout
+        evaluator thread): at ``level >= 3`` requests with priority below
+        ``min_priority`` are shed with a retriable !!SERVER-OVERLOADED."""
+        with self._lock:
+            self._brownout_level = max(0, int(level))
+            self._brownout_min_priority = int(min_priority)
+
+    def _gate_state(self):
+        with self._lock:
+            return (self._draining, self._brownout_level,
+                    self._brownout_min_priority)
+
+    def admit(self, n_units: int, n_pages: int = 0,
+              priority: int = 0) -> None:
         """Gate one request of ``n_units`` sentences owing ``n_pages``
         pages: raises Overloaded instead of queueing when a bound would
-        be exceeded or the server is draining. All-or-nothing per
-        request, so one client's reply never splits across a shed."""
-        if self.draining:
+        be exceeded, the server is draining, or the brownout ladder sheds
+        the request's priority lane. All-or-nothing per request, so one
+        client's reply never splits across a shed."""
+        draining, b_level, b_minp = self._gate_state()
+        if draining:
             self.m_shed.labels("draining").inc()
             obs.event("admission.shed", reason="draining", units=n_units)
             raise Overloaded("server is draining (shutting down); retry "
                              "against another replica", retriable=False)
+        if b_level >= 3 and priority < b_minp:
+            self.m_shed.labels("brownout").inc()
+            obs.event("admission.shed", reason="brownout", units=n_units,
+                      priority=priority, level=b_level)
+            raise Overloaded(
+                f"brownout level {b_level}: priority-{priority} lane is "
+                f"shed under sustained overload (lanes >= {b_minp} keep "
+                f"serving); retry later or against another replica")
         if self.max_queue_units > 0:
             depth = int(self.depth_fn())
             if depth + n_units > self.max_queue_units:

@@ -713,6 +713,18 @@ class SwapController:
                         detail=f"{cur.name} -> {prev.name} (admin verb)")
         return True
 
+    def release_all(self) -> None:
+        """Drop every warmed executor the controller holds — live,
+        canary and the rollback target — and their health windows (a
+        fleet eviction: the tenant's models leave the card). The
+        controller routes nothing afterwards."""
+        with self._lock:
+            held = [v for v in (self._live, self._canary, self._previous)
+                    if v is not None]
+            self._live = self._canary = self._previous = None
+        for v in held:
+            self._release(v)
+
     def has_live(self) -> bool:
         with self._lock:
             return self._live is not None

@@ -1,7 +1,8 @@
 """The serving scheduler, ported from ``marian_tpu/serving/scheduler.py``
 :: ``ContinuousScheduler``, in both batching modes, with the quiesce
-protocol, the reference's serving series, its request span trees and
-its perf-plane accounting (without brownout and fleet).
+protocol, the brownout ladder's effects, fleet mode's single-tenant
+batches, the reference's serving series, its request span trees and
+its perf-plane accounting.
 
 Requests split into SENTENCE UNITS in priority lanes (highest first,
 FIFO within a lane); units of requests already resolved are swept
@@ -47,10 +48,26 @@ runs, and ``install()`` runs at a step boundary with an empty join set;
 then the incoming engine's audit, and joins resume. Request mode needs
 none: the lifecycle re-points ``translate_lines`` between batches.
 
+The brownout ladder (serving/brownout.py) reaches the scheduler through
+``set_brownout_level``, on its evaluator thread: at level >= 1 the
+engine's decode cap of NEW joins is scaled by the cap factor (rows
+decoding keep theirs; ``install_engine`` re-applies the scale, so a
+swap or a rebuild does not reset a brownout); at level >= 2 each join
+pass that leaves queued work above a decoding row's priority evicts one
+row, the lowest priority and then the longest decode left, with the
+retriable ``RowEvicted`` (counted in
+``marian_serving_brownout_evictions_total``), before the round, so no
+eviction runs inside a round. Level 3 is admission's.
+
+Fleet mode (request mode; ``submit(tenant=...)``, the server's
+``#model:`` header): batches are formed single-tenant, and a tenanted
+batch resolves its executor through ``tenant_router(tag)`` on the device
+worker thread (a warm-on-demand cold start blocks only that batch).
+
 Every resolved request counts once in
 ``marian_serving_request_outcomes_total{outcome,model_version}``, the
 version read from ``version_fn`` (the lifecycle's live version) at
-resolution time.
+resolution time, or in fleet mode from ``tenant_version_fn(tenant)``.
 
 Observability (obs/): with the span tracer on, every request grows a
 ``serve.request`` (or the server's ``request``) -> ``serve.queue`` ->
@@ -151,7 +168,8 @@ class _Request:
                  "remaining", "queued", "queued_pages", "timeout_handle",
                  "dead_accounted", "on_partial", "first_dispatch",
                  "trace_id", "span", "own_root", "q_span", "d_span",
-                 "meta", "rounds", "prefix_hits", "evictions_n", "ttft")
+                 "meta", "rounds", "prefix_hits", "evictions_n", "ttft",
+                 "tenant")
 
     def __init__(self, lines: List[str], future: "asyncio.Future",
                  priority: int, arrival: float):
@@ -191,6 +209,9 @@ class _Request:
         self.prefix_hits = 0
         self.evictions_n = 0
         self.ttft: Optional[float] = None
+        # fleet mode: the #model: tag ("" in single-model serving);
+        # fleet/accounting.py attributes page owners through it
+        self.tenant = ""
 
 
 class _Unit:
@@ -209,7 +230,8 @@ class _Unit:
         self.pages = pages          # KV-pool pages this sentence will claim
         # iteration mode: the serve.row span opened at join (None with
         # the tracer off), the rounds the row rode, why it was evicted
-        # (quiesce, pool_exhausted) and the partial frames it streamed
+        # (quiesce, brownout, pool_exhausted) and the partial frames it
+        # streamed
         self.row_span = None
         self.rounds = 0
         self.evict_reason: Optional[str] = None
@@ -255,6 +277,16 @@ class ContinuousScheduler:
         self.round_observer: Optional[Callable[[bool, float], None]] = None
         # liveness watchdog over each device call, seconds (0 = off)
         self.stall_timeout = max(0.0, float(stall_timeout))
+        # fleet mode, set by the server: tenant_router(tag) resolves
+        # (warming on demand) a tenant's route for one batch, on the
+        # device worker thread; tenant_version_fn(tag) labels outcomes
+        self.tenant_router: Optional[
+            Callable[[str], Callable[[List[str]], List[str]]]] = None
+        self.tenant_version_fn: Optional[Callable[[str], str]] = None
+        # the brownout ladder's effects: written by its evaluator thread,
+        # read at join time; plain values coupled to nothing
+        self._brownout_level = 0
+        self._brownout_cap_factor = 0.5
         # coalescing pause at the edge of an idle period, so a burst of
         # concurrent clients lands in one round
         self.window_s = window_s
@@ -297,8 +329,7 @@ class ContinuousScheduler:
         # outcomes and events over the scheduler's life (event-loop-only);
         # request mode adds batches, rows, real and padded tokens
         self.counts: collections.Counter = collections.Counter()
-        # the reference's serving series (its brownout evictions come
-        # with the brownout ladder)
+        # the reference's serving series
         r = registry if registry is not None else msm.REGISTRY
         self._registry = r       # engines declare their series here
         self.m_requests = r.counter(
@@ -365,6 +396,11 @@ class ContinuousScheduler:
             "while this is > 0; back-to-back lifecycle verbs can queue "
             "more than one)")
         self.m_quiescing.set_function(self._quiesce_depth)
+        self.m_brownout_evictions = r.counter(
+            "marian_serving_brownout_evictions_total",
+            "Rows evicted with retriable !!SERVER-RETRY by the brownout "
+            "ladder (level >= 2) to free capacity for a higher-priority "
+            "lane")
         # iteration mode: joins, evictions and steps happen per round
         self.m_joins = r.counter(
             "marian_serving_joins_total",
@@ -542,9 +578,29 @@ class ContinuousScheduler:
     def install_engine(self, engine) -> None:
         """Re-point the paged engine (the quiesce install callback is
         the only legitimate caller — loop thread, empty join set, zero
-        active rows); the pool gauges follow it."""
+        active rows); the pool gauges follow it, and the current brownout
+        cap scale is applied again (a swap must not reset a brownout)."""
         self.engine = engine
         self._declare_engine(engine)
+        self._apply_cap_scale(engine)
+
+    def _apply_cap_scale(self, engine) -> None:
+        scale_fn = getattr(engine, "set_cap_scale", None) \
+            if engine is not None else None
+        if scale_fn is not None:
+            scale_fn(self._brownout_cap_factor
+                     if self._brownout_level >= 1 else 1.0)
+
+    def set_brownout_level(self, level: int,
+                           cap_factor: Optional[float] = None) -> None:
+        """Apply one brownout level (the ladder's evaluator thread): >= 1
+        scales the decode cap of future joins, >= 2 arms the join pass's
+        priority eviction, >= 3 is admission's
+        (``AdmissionController.set_brownout``)."""
+        if cap_factor is not None:
+            self._brownout_cap_factor = float(cap_factor)
+        self._brownout_level = max(0, int(level))
+        self._apply_cap_scale(self.engine)
 
     def _declare_engine(self, engine) -> None:
         """The engine's pool and round series on this scheduler's
@@ -557,7 +613,8 @@ class ContinuousScheduler:
                timeout: Optional[float] = None,
                on_partial: Optional[Callable[[int, str, int], None]] = None,
                meta: Optional[dict] = None,
-               trace_id: Optional[str] = None) -> "asyncio.Future":
+               trace_id: Optional[str] = None,
+               tenant: str = "") -> "asyncio.Future":
         """Enqueue one request (a list of sentences); returns a future of
         the translations in input order. Event-loop thread only; cancel
         the future to cancel the request. ``on_partial`` (iteration
@@ -572,7 +629,9 @@ class ContinuousScheduler:
         time to first join, prefix-cache hit and evictions.
         ``trace_id`` labels the request's span tree; with the tracer on
         and no id given, one is generated (or inherited from the
-        context's span, the server's ``request`` root)."""
+        context's span, the server's ``request`` root). ``tenant`` (fleet
+        mode) is the request's #model: tag: its batches run on that
+        tenant's executor."""
         loop = asyncio.get_event_loop()
         fut = loop.create_future()
         if not lines:
@@ -585,6 +644,7 @@ class ContinuousScheduler:
         req.on_partial = on_partial
         req.meta = meta
         req.trace_id = trace_id or ""
+        req.tenant = tenant or ""
         if obs.enabled():
             # the span tree: under the transport's root span when it
             # opened one (the server's handle_frame), else our own root
@@ -683,6 +743,7 @@ class ContinuousScheduler:
         batch: List[_Unit] = []
         longest = 0
         scanned = 0
+        tenant: Optional[str] = None
         skipped: List[_Unit] = []
         with self._state_lock:
             for prio in sorted(self._lanes.keys(), reverse=True):
@@ -698,6 +759,14 @@ class ContinuousScheduler:
                         if u.req.dead_accounted:
                             self._dead -= 1
                             self._dead_pages -= u.pages
+                        continue
+                    # fleet mode: one device call serves one model, so
+                    # the first live unit seeds the batch's tenant and
+                    # other tenants' units wait for a later pass
+                    if tenant is None:
+                        tenant = u.req.tenant
+                    elif u.req.tenant != tenant:
+                        skipped.append(u)
                         continue
                     # the decoder's budget rule, so one batch here is
                     # one device batch; a shorter unit further back may
@@ -811,6 +880,11 @@ class ContinuousScheduler:
             return
         lines = [u.text for u in units]
         translate = self.translate_lines
+        # fleet mode: a tenanted batch (single-tenant by _form_batch)
+        # resolves its route through the tenant router on the worker
+        # thread, so a warm-on-demand cold start blocks only this batch
+        tenant = units[0].req.tenant
+        router = self.tenant_router
         # the worker writes into its OWN accumulator, merged into dev_acc
         # only once the call has provably ended (a finished await): a
         # watchdog-abandoned worker must not bill its late finish
@@ -823,11 +897,16 @@ class ContinuousScheduler:
                 local_acc[0] = local_acc[1] = 0.0
 
         def _call_translate():
+            run = translate
+            if router is not None and tenant:
+                # resolved before the device-time fence: a cold start is
+                # warmup, not this batch's service time
+                run = router(tenant)
             # the device-time fence: translate_lines returns host
             # strings, so the clock read after it is an honest boundary
             t0 = time.perf_counter()
             try:
-                out_ = translate(lines)
+                out_ = run(lines)
             finally:
                 if local_acc is not None:
                     local_acc[0] += time.perf_counter() - t0
@@ -1061,6 +1140,8 @@ class ContinuousScheduler:
                      len(self._active_units), q.deadline_s)
         joins = [] if q is not None else self._form_join_set()
         evicts = [u for u in self._active_units if u.req.future.done()]
+        if q is None and self._brownout_level >= 2:
+            evicts.extend(self._brownout_victims(loop, evicts))
         if q is not None and loop.time() >= q.deadline:
             # the deadline expired: rows still decoding leave NOW with a
             # retriable error (the engine frees their pages this round),
@@ -1328,6 +1409,43 @@ class ContinuousScheduler:
         except Exception as e:  # noqa: BLE001 — health accounting must
             log.warn("round observer failed: {}", e)   # never kill rounds
 
+    def _brownout_victims(self, loop, exclude: List[_Unit]) -> List[_Unit]:
+        """Brownout level >= 2: when queued work outranks a decoding row
+        and could not join this round, evict the lowest-priority active
+        row (ties: the longest decode left) with a retriable error, one
+        a round, so the ladder degrades gradually. Host state only: it
+        runs in the join pass, before the round."""
+        if self.queued_units() <= 0:
+            return []
+        with self._state_lock:
+            top = max((p for p, lane in self._lanes.items() if lane),
+                      default=None)
+        if top is None:
+            return []
+        victims = [u for u in self._active_units
+                   if u not in exclude and not u.req.future.done()
+                   and u.req.priority < top]
+        if not victims:
+            return []
+        progress = getattr(self.engine, "row_progress", None)
+
+        def score(u: _Unit):
+            prog = progress(u) if progress is not None else None
+            remaining = (prog[1] - prog[0]) if prog else 0
+            return (u.req.priority, -remaining)
+
+        worst = min(victims, key=score)
+        worst.evict_reason = "brownout"
+        self._evict_with_retry(
+            worst, loop,
+            f"row evicted under brownout (level "
+            f"{self._brownout_level}) to free capacity for priority "
+            f"{top} traffic")
+        self.m_brownout_evictions.inc()
+        obs.event("brownout.evict", victim_priority=worst.req.priority,
+                  queued_priority=top)
+        return [worst]
+
     def _iteration_stalled(self, call, joins: List[_Unit], loop) -> None:
         """The engine round ran past the stall timeout: every row of it
         fails retriably, the wedged worker (with the old engine's device
@@ -1479,8 +1597,13 @@ class ContinuousScheduler:
                                    trace_id=req.trace_id or None)
             self._outcome("ok", req, now)
 
-    def _version_label(self) -> str:
+    def _version_label(self, req: Optional[_Request] = None) -> str:
         try:
+            # fleet mode: a tenanted request labels with ITS tenant's
+            # live version ("<tag>:<bundle>"), not the global one
+            if req is not None and req.tenant \
+                    and self.tenant_version_fn is not None:
+                return str(self.tenant_version_fn(req.tenant))
             return str(self.version_fn())
         except Exception:  # noqa: BLE001 — labeling must never fail a reply
             return "unknown"
@@ -1491,7 +1614,7 @@ class ContinuousScheduler:
         now, so a swap-correlated outcome shift shows per version. With
         ``req``, also fill its reply metadata (queue wait against
         service time) and end its span tree."""
-        version = self._version_label()
+        version = self._version_label(req)
         self.m_outcomes.labels(outcome, version).inc()
         if req is None:
             return

@@ -252,6 +252,11 @@ class PagedBeamEngine(PagedDecodeEngine):
         own pages lazily, and a dry pool evicts the sentence retriably."""
         return super().pages_for_text(text) + (self.beam_size - 1)
 
+    def row_progress(self, key) -> Optional[Tuple[int, int]]:
+        """(steps taken, cap) of an active sentence, or None."""
+        s = self._sents.get(key)
+        return (s.t, s.cap) if s is not None else None
+
     @staticmethod
     def _owner(key, slot: int):
         return (key, slot)

@@ -295,6 +295,10 @@ class PagedDecodeEngine:
         self._slots: List[Optional[_Slot]] = [None] * self.max_rows
         self._by_key: Dict[object, int] = {}
         self._n_active = 0
+        # brownout level 1 (serving/brownout.py): NEW joins claim a
+        # scaled-down decode cap. Written by the brownout thread, read at
+        # join time on the worker thread: one float, coupled to nothing
+        self._cap_scale = 1.0
         self._audit_always = os.environ.get(ENV_POOL_AUDIT, "") == "1"
         # the decode-feature plane (None: the plain step)
         self.features = features
@@ -409,10 +413,26 @@ class PagedDecodeEngine:
 
     def decode_cap(self, n_src_tokens: int) -> int:
         """Decode cap for a sentence: the beam search's max-length-factor
-        rule, so both modes price work the same."""
-        return min(self.max_length_cap,
+        rule, so both modes price work the same. Brownout level >= 1
+        scales it down for NEW joins: shorter rows claim fewer pages and
+        leave sooner."""
+        base = min(self.max_length_cap,
                    max(8, round(self.max_length_factor
                                 * max(1, n_src_tokens))))
+        return int(max(8, round(base * self._cap_scale)))
+
+    def set_cap_scale(self, scale: float) -> None:
+        """Brownout level 1: scale the decode cap of FUTURE joins (rows
+        already decoding keep the cap they claimed pages for), clamped
+        to [0.05, 1]."""
+        self._cap_scale = min(1.0, max(0.05, float(scale)))
+
+    def row_progress(self, key) -> Optional[Tuple[int, int]]:
+        """(pos, cap) of an active row, or None: the brownout eviction's
+        longest-remaining tie-break. Host state only (any thread)."""
+        slot = self._by_key.get(key)
+        s = self._slots[slot] if slot is not None else None
+        return (s.pos, s.cap) if s is not None else None
 
     def pages_for_text(self, text: str) -> int:
         """Pages one sentence will claim (admission prices queue debt in
@@ -852,19 +872,24 @@ class PagedDecodeEngine:
         """A JSON-safe label for a claim owner: a serving unit carries
         its request's trace id (a beam row: ``#slot`` after it), a
         prefix-cache owner reads ``prefix-cache``; other keys fall back
-        to repr."""
+        to repr. A tenanted owner's label starts ``<tenant>/``, the
+        convention serving/fleet/accounting.py re-derives per-tenant page
+        sums from (the shared prefix cache stays untenanted)."""
         probe = owner
         if isinstance(owner, tuple) and len(owner) == 2:
             probe = owner[0]              # beam (key, slot) pair
         req = getattr(probe, "req", None)
+        tenant = getattr(req, "tenant", "") if req is not None \
+            else getattr(probe, "tenant", "") or ""
+        prefix = f"{tenant}/" if tenant else ""
         tid = getattr(req, "trace_id", "") if req is not None else ""
         if tid:
-            base = f"trace:{tid}"
+            base = f"{prefix}trace:{tid}"
             return base if probe is owner else f"{base}#{owner[1]}"
         if isinstance(owner, tuple) and len(owner) == 3 \
                 and owner[0] == "prefix":
             return "prefix-cache"
-        return repr(owner)[:96]
+        return (prefix + repr(owner))[:96]
 
     def pool_state(self) -> dict:
         """The ``/poolz`` document and the flight recorder's ``pool``

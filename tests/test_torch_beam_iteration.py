@@ -258,7 +258,8 @@ def test_fork_copies_match_jax(pairs):
         assert np.array_equal(tst[k].numpy(), np.asarray(jst[k])), k
 
 
-def test_server_replies_equal_the_jax_beam_engine(tiny, tmp_path):
+def test_server_replies_equal_the_jax_beam_engine(tiny, tmp_path,
+                                                  monkeypatch):
     """marian-server in iteration mode at beam 3 with the host merge: the
     real ``_serve`` (TCP framing, admission, scheduler, beam engine)
     answers concurrent clients with the JAX host-merge engine's texts."""
@@ -267,6 +268,7 @@ def test_server_replies_equal_the_jax_beam_engine(tiny, tmp_path):
     from marian_tpu_torch.common import io as mio
     from marian_tpu_torch.common.config_parser import parse_options
     from marian_tpu_torch.server import server as srv
+    monkeypatch.setattr(srv, "HAVE_WS", False)    # the TCP transport
     jm, jp, _, _, jv, _ = tiny
     jv.save(str(tmp_path / "v.yml"))
     _, _, _, _, opts = tiny_pair(vocab=len(jv), seed=4, **{"dim-emb": 32})

@@ -537,10 +537,11 @@ def _serve(options, client_fn):
     return asyncio.run(main())
 
 
-def test_tcp_stream_partials_then_the_final_reply(model_file):
+def test_tcp_stream_partials_then_the_final_reply(model_file, monkeypatch):
     """#stream:1 over TCP: ``#partial:<idx> <text>`` frames, then the
     final reply, equal to the unstreamed one; greedy partials are
     prefixes of it."""
+    monkeypatch.setattr(srv, "HAVE_WS", False)    # the TCP transport
     text = "w3 w4 w5 w6 w7\nw8 w9"
 
     async def clients(port):
@@ -556,9 +557,11 @@ def test_tcp_stream_partials_then_the_final_reply(model_file):
         assert lines[int(idx)].startswith(body)
 
 
-def test_server_nbest_runs_the_beam_engine_without_the_cache(model_file):
+def test_server_nbest_runs_the_beam_engine_without_the_cache(model_file,
+                                                             monkeypatch):
     """--n-best at beam 1 builds the beam engine with the plane's printer
     and drops --prefix-cache; the reply is the n-best block."""
+    monkeypatch.setattr(srv, "HAVE_WS", False)    # the TCP transport
     app = srv.ServingApp(_server_options(model_file, "--n-best",
                                          "--prefix-cache"))
     eng = app.scheduler.engine

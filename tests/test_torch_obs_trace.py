@@ -294,10 +294,11 @@ def test_header_split_matches_jax(frame):
 
 def test_headers_stack_in_the_reference_order():
     assert srv.split_headers("#trace:t1\n#model:m.1\n#priority:12\n"
-                             "#stream:1\na\nb") == ("t1", 9, True, "a\nb")
+                             "#stream:1\na\nb") \
+        == ("t1", "m.1", 9, True, "a\nb")
     # out of order, a later header is payload
     assert srv.split_headers("#priority:1\n#trace:t1\nx") \
-        == (None, 1, None, "#trace:t1\nx")
+        == (None, None, 1, None, "#trace:t1\nx")
 
 
 def get(url):

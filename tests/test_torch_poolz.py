@@ -78,12 +78,11 @@ def sched_of(engine):
 
 def comparable(doc):
     """A /poolz document without what differs by design: the reference's
-    fleet tenant sums, brownout level and per-slot source lengths, the
-    engines' own counter sets, and the audit's timestamp."""
+    per-slot source lengths, the engines' own counter sets, and the
+    audit's timestamp (the fleet tenant sums and the brownout level are
+    compared)."""
     doc = copy.deepcopy(doc)
-    doc.pop("tenants", None)
     doc.pop("counters", None)
-    doc.get("scheduler", {}).pop("brownout_level", None)
     for row in doc.get("rows", {}).get("slots", []):
         row.pop("src_tokens", None)
     if doc.get("last_audit"):

@@ -82,6 +82,13 @@ async def request(port: int, text: str) -> str:
     return reply
 
 
+@pytest.fixture(autouse=True)
+def _tcp_transport(monkeypatch):
+    """These tests speak the MTPU framing: ``_serve`` serves TCP, as it
+    does where the ``websockets`` package is missing."""
+    monkeypatch.setattr(srv, "HAVE_WS", False)
+
+
 def serve(options, client_fn):
     """Start the real _serve on an ephemeral port, run client_fn(port),
     tear down (the drain path)."""

@@ -240,6 +240,7 @@ def serve(serve_fn, options):
 def test_tcp_replies_equal_the_jax_server(model, monkeypatch):
     from marian_tpu.server import server as jsrv
     monkeypatch.setattr(jsrv, "HAVE_WS", False)
+    monkeypatch.setattr(srv, "HAVE_WS", False)    # the TCP transport
     path, vocab = model
     argv = ["--models", path, "--vocabs", vocab, vocab, "--beam-size", "3",
             "--normalize", "0.6", "--mini-batch", "4", "--max-length", "16",
