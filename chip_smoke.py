@@ -99,8 +99,11 @@ card, and drives the port's main paths on data made from --seed:
   the greedy engine forks repeats from live rows, both replay finished
   ones, and after the cache's drop_all the pool is empty;
 - the decode surface, with a lex table from --seed
-  (each word's own copy and 19 random targets; --shortlist lex.s2t 100
-  20): the dense beam-6 search with the shortlist (card against CPU, and
+  (each word's own copy and 19 random targets; parsed once from its
+  text, lex.s2t, and read by the phase's decoders and servers as the
+  port's binary table, --shortlist lex.npz 100 20, with vocab.json, the
+  same map as vocab.yml: host parsing cut for the run's time): the
+  dense beam-6 search with the shortlist (card against CPU, and
   --word-scores summing to the raw scores); greedy with the shortlist
   equal to the full-vocabulary decode (the smallest top-1 margin
   printed); iteration greedy and the fused beam (4 steps a round, under
@@ -164,6 +167,33 @@ card, and drives the port's main paths on data made from --seed:
   equal to /fleetz and /metrics, every eviction giving back the
   tenant's parameter bytes, the marian_fleet_* series through promlint;
   each warm's estimate printed beside the bytes the card allocated;
+- the test hooks on the 2+2 cut with MARIAN_OWNWIT=1 and
+  MARIAN_LOCKDEP=1 (set for the phase only): each corruption drill armed
+  once on an engine serving rows that an unarmed round audited clean
+  (pool.double_free, pool.table_corrupt, pool.release_drop on the greedy
+  engine; pool.refcount_corrupt, beam.diff_corrupt on the fused beam
+  engine at 4 steps a round under the sync guard; tenant.page_leak on a
+  greedy engine serving two tenants' rows), each named by its auditor
+  (the engine's audit; the tenant leak by audit_tenants alone, the
+  pool's audit clean), the dropped release by the ownership witness;
+  serving.translate=hang at twice --dispatch-stall-timeout trips the
+  iteration watchdog once and 16 following requests are served; the
+  witnessed locks show no acquisition-order cycle;
+- crash safety of the base train path (one batch a corpus window):
+  marian_train in a process of its own with
+  MARIAN_FAULTS=ckpt.commit=kill@2 exits 117, its committed bundle
+  validates and no staging directory is listed as one, its flight file
+  holds the fault plane; a restart resumes to an uninterrupted run's
+  (another process) progress and Adam step exactly and its parameters
+  byte for byte (or within the card's run-to-run spread, then printed);
+  both processes run beside the doc card-vs-CPU phase;
+- the trainer's observability plane on the base train path, without
+  and with --trace-sync-phases: /metrics at a display linted clean with
+  the six trainer series, the phase gauge and the two train gauges,
+  marian_train_mfu in (0, 1], chip-seconds per token x labels the
+  window's logged time within 5%, /tracez's train spans, the profiler
+  window's trace naming the port's kernels of rows 2, 3 and 7-9; the
+  MFU, the phase shares and ms/update printed;
 - mixed precision (--precision bfloat16 float32): the fused CE's bf16
   instantiations (its forward and backward on the tensor cores at E % 8
   == 0) and the attention kernels' bf16 instantiations (at the bf16
@@ -313,8 +343,8 @@ PER_UPDATE_BF16 = {**PER_UPDATE, "fused_ce_fwd": 0, "fused_ce_dx": 0,
 F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
              "decode surface", "observability serve", "brownout serve",
-             "fleet serve", "train",
-             "lifecycle serve",
+             "fleet serve", "pool drills", "train", "crash resume",
+             "train obs", "lifecycle serve",
              "lifecycle iteration", "delay train", "doc train",
              "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
@@ -446,6 +476,28 @@ BF16_REL_TOL = 1e-2
 BF16_SPACING = 2.0 ** -7
 # the flash lse (f32, of order log Tk) on rows with a live key, absolute
 LSE_TOL = 1e-5
+# the pool drills' watchdog: --dispatch-stall-timeout (seconds); the
+# armed serving.translate hang is twice it
+DRILL_STALL_S = 2.0
+# the crash-resume phase: the base train path for CRASH_UPDATES updates,
+# a save every CRASH_SAVE_FREQ in the killed run (ckpt.commit=kill@2: the
+# second save dies before its rename)
+CRASH_UPDATES, CRASH_SAVE_FREQ = 4, 2
+# the train observability phase: OBS_TRAIN_UPDATES updates of the base
+# train path a run, a display every OBS_DISP: four windows, the profiler
+# on in the second (updates 3-4), its trace written in the third, the
+# fourth clean
+OBS_TRAIN_UPDATES, OBS_DISP = 8, 2
+# the port's kernels of rows 2, 3 and 7-9 (by their kernel-line names)
+# as the profiler trace names them: substrings of the CUDA kernels each
+# row's wrapper launches on the f32 base update
+TRACE_KERNELS = {
+    "packed_attention": ("packed_attention_fwd_kernel",
+                         "packed_attention_generic_kernel"),
+    "packed_attention_bwd": ("packed_attention_bwd",),
+    "fused_ce_fwd": ("fce_fwd_kernel",),
+    "fused_ce_dx": ("fce_bwd_dx_kernel",),
+    "fused_ce_dw": ("fce_bwd_dw_kernel",)}
 
 
 def fail(msg: str) -> None:
@@ -2212,15 +2264,17 @@ def paged_times(q, pk, pv, table, pos, peak: float = F32_FLOPS):
     return ms, plain_ms, library_ms, bound_ms, bound_by, mb
 
 
+def vocab_map(size: int) -> dict:
+    return {"</s>": 0, "<unk>": 1, **{f"w{i}": i for i in range(2, size)}}
+
+
 def write_vocab() -> None:
     """The 32,000-word vocabulary w2 .. w31999 of the synthetic data
     (vocab.yml), and its first VOCAB_CUT words (vocab_cut.yml)."""
     from marian_tpu_torch.data.vocab import DefaultVocab
     WORK.mkdir(parents=True, exist_ok=True)
     for name, size in (("vocab.yml", VOCAB), ("vocab_cut.yml", VOCAB_CUT)):
-        vocab = DefaultVocab({"</s>": 0, "<unk>": 1,
-                              **{f"w{i}": i for i in range(2, size)}})
-        vocab.save(str(WORK / name))
+        DefaultVocab(vocab_map(size)).save(str(WORK / name))
 
 
 def write_model(seed: int, cuts_only: bool = False):
@@ -2378,14 +2432,14 @@ def read_counts() -> dict:
             for name, (fn, attr) in kernel_counters().items()}
 
 
-def decode_run(model: str, lines, *extra: str):
+def decode_run(model: str, lines, *extra: str, vocab: str = "vocab.yml"):
     """The counted run of a decode main path: the decoder object
     marian_decoder.main drives, built from the same flags (model loading
     stays out of the timing), with every launch count set to 0 just
     before it and read just after. Returns (translator, n-best fields,
     seconds, counts)."""
     from marian_tpu_torch.translator.translator import Translate
-    tr = Translate(decoder_options(model, "--n-best", *extra))
+    tr = Translate(decoder_options(model, "--n-best", *extra, vocab=vocab))
     check(tr.device.type == "cuda", f"decoder resolved {tr.device}")
     out = io.StringIO()
     torch.cuda.synchronize()
@@ -2473,7 +2527,8 @@ def phase_card_vs_cpu(lines) -> None:
                        "base_2x2.npz", lines[:8])
 
 
-def serve_options(*extra: str, model: str = "serve.npz"):
+def serve_options(*extra: str, model: str = "serve.npz",
+                  vocab: str = "vocab.yml"):
     """marian-server flags of the serve main path: transformer-base (the
     copying serve checkpoint, ``serve_weights``; ``model``, its 2+2 cut
     for the decode surface) at --beam-size 1 in iteration mode, 64
@@ -2482,7 +2537,7 @@ def serve_options(*extra: str, model: str = "serve.npz"):
     from marian_tpu_torch.common.config_parser import parse_options
     return parse_options(
         ["--models", str(WORK / model), "--vocabs",
-         str(WORK / "vocab.yml"), str(WORK / "vocab.yml"),
+         str(WORK / vocab), str(WORK / vocab),
          "--batching-mode", "iteration", "--beam-size", "1",
          "--iteration-rows", str(SERVE_ROWS), "--kv-page-len", "16",
          "--max-length", "128", "--max-length-factor-translate", "3",
@@ -2849,7 +2904,8 @@ def phase_request_serve_main_path(seed: int, *extra: str,
 
 
 def beam_serve_options(*extra: str, merge: Optional[str] = "host",
-                       model: str = SERVE_CUT_MODEL):
+                       model: str = SERVE_CUT_MODEL,
+                       vocab: str = "vocab.yml"):
     """The serve path's flags at --beam-size SERVE_BEAM, with
     ``--iteration-beam-merge merge`` (None: no merge flag, the server's
     default, the fused merge). Every sentence of the traffic queues at
@@ -2858,7 +2914,8 @@ def beam_serve_options(*extra: str, merge: Optional[str] = "host",
     the pool."""
     merge_flags = ("--iteration-beam-merge", merge) if merge else ()
     return serve_options("--beam-size", str(SERVE_BEAM), *merge_flags,
-                         "--max-queue-pages", "8192", *extra, model=model)
+                         "--max-queue-pages", "8192", *extra, model=model,
+                         vocab=vocab)
 
 
 def record_beam_rounds(engine) -> dict:
@@ -4585,15 +4642,52 @@ def phase_decode_surface(seed: int) -> dict:
     --n-best, --word-scores and #stream:1 (see each check's line).
     Counted: the dense shortlisted beam-6 decode (decode_attention, the
     packed encoder) and the greedy and fused beam serves with the
-    shortlist (paged_decode_attention, the packed encoder)."""
+    shortlist (paged_decode_attention, the packed encoder).
+
+    Host parsing is cut for the run's time: the text lex table is parsed
+    once and written with the port's ``save_binary`` (its shortlists
+    held equal to the text's for the phase's sentences), and the phase's
+    decoders and servers read that binary table and ``vocab.json``, the
+    same map as vocab.yml (every other phase keeps reading the YAML)."""
+    from marian_tpu_torch.data.shortlist import LexicalShortlistGenerator
+    from marian_tpu_torch.data.vocab import DefaultVocab
     from marian_tpu_torch.server.server import ServingApp
     from marian_tpu_torch.translator.beam_search import (gumbel_noise,
                                                          noise_bits)
     from marian_tpu_torch.translator.translator import Translate
-    lex = write_lex(seed)
+    t_host = time.perf_counter()
+    (WORK / "vocab.json").write_text(json.dumps(vocab_map(VOCAB)))
+    vocab = DefaultVocab.load(str(WORK / "vocab.json"))
+    text_gen = LexicalShortlistGenerator(write_lex(seed), vocab, vocab,
+                                         first=100, best=20)
+    lex = str(WORK / "lex.npz")
+    text_gen.save_binary(lex)
+    bin_gen = LexicalShortlistGenerator(lex, vocab, vocab, first=100,
+                                        best=20)
     sl = ("--shortlist", lex, "100", "20")
     sents = serve_sentences(seed, SURFACE_SENTENCES)
     cut = sents[:SURFACE_CUT]
+    for text in sents:
+        ids = np.unique(vocab.encode(text))
+        check(np.array_equal(text_gen.generate(ids).indices,
+                             bin_gen.generate(ids).indices),
+              "the binary lex table's shortlist differs from the text's")
+    print(f"decode surface: lex table parsed once from text, written and "
+          f"reloaded as {Path(lex).name} (equal shortlists for "
+          f"{len(sents)} sentences); vocab.json beside vocab.yml: "
+          f"{time.perf_counter() - t_host:.2f} s")
+    del text_gen, bin_gen
+    V = "vocab.json"
+
+    def dec(*flags):
+        return decoder_options(SERVE_CUT_MODEL, *flags, vocab=V)
+
+    def srv(*flags):
+        return serve_options(*flags, model=SERVE_CUT_MODEL, vocab=V)
+
+    def bsrv(*flags):
+        return beam_serve_options(*flags, merge=None, model=SERVE_CUT_MODEL,
+                                  vocab=V)
     all_counts = []
 
     # the noise: bits equal on the card and the CPU, values within 1 ulp
@@ -4612,7 +4706,7 @@ def phase_decode_surface(seed: int) -> dict:
     # the dense search, beam 6, the shortlist (one a batch): counted, and
     # equal to the CPU's; --word-scores sum to the raw scores
     tr, hyps, secs, counts = decode_run(SERVE_CUT_MODEL, cut, *sl,
-                                        "--word-scores")
+                                        "--word-scores", vocab=V)
     check_decode_counts(tr, counts, 1, "packed_attention")
     all_counts.append(counts)
     worst = 0.0
@@ -4621,8 +4715,8 @@ def phase_decode_surface(seed: int) -> dict:
         worst = max(worst, abs(sum(ws) - float(h[3].split()[1])))
     check(worst < 1e-3, f"word scores sum off their raw score by {worst}")
     decode_card_vs_cpu(f"{len(cut)} sentences, serve model, --shortlist "
-                       f"100 20", SERVE_CUT_MODEL, cut, *sl)
-    print(f"decode surface: dense beam {BEAM} with --shortlist lex.s2t 100 "
+                       f"100 20", SERVE_CUT_MODEL, cut, *sl, vocab=V)
+    print(f"decode surface: dense beam {BEAM} with --shortlist lex.npz 100 "
           f"20 on {len(cut)} sentences: {secs:.3f} s, steps "
           f"{tr.search.steps}; --word-scores sum to the raw score within "
           f"{worst:.2g}")
@@ -4631,8 +4725,7 @@ def phase_decode_surface(seed: int) -> dict:
     # it; the copy head's top-1 margin over the full vocabulary (a lower
     # bound of the shortlisted margin)
     def dense_lines(*flags):
-        t = Translate(decoder_options(SERVE_CUT_MODEL, "--beam-size", "1",
-                                      *flags))
+        t = Translate(dec("--beam-size", "1", *flags))
         return t, t.run(sents, io.StringIO())
     tr1, with_sl = dense_lines(*sl)
     _, without = dense_lines()
@@ -4660,12 +4753,9 @@ def phase_decode_surface(seed: int) -> dict:
     # sync guard) with the shortlist: each reply the dense shortlisted
     # decode of its sentence alone
     for what, flags, beam in (
-            ("iteration greedy", serve_options(*sl, "--iteration-steps",
-                                               str(FUSED_STEPS),
-                                               model=SERVE_CUT_MODEL), 1),
-            ("fused beam", beam_serve_options(*sl, "--iteration-steps",
-                                              str(FUSED_STEPS), merge=None,
-                                              model=SERVE_CUT_MODEL),
+            ("iteration greedy", srv(*sl, "--iteration-steps",
+                                     str(FUSED_STEPS)), 1),
+            ("fused beam", bsrv(*sl, "--iteration-steps", str(FUSED_STEPS)),
              SERVE_BEAM)):
         app, replies, counts = surface_serve(what, seed, sents, flags,
                                              guard=True)
@@ -4689,15 +4779,13 @@ def phase_decode_surface(seed: int) -> dict:
               for i in range(len(cut))]
     (WORK / "fd.src").write_text("\n".join(cut) + "\n")
     (WORK / "fd.pfx").write_text("\n".join(trunks) + "\n")
-    trf = Translate(decoder_options(SERVE_CUT_MODEL, "--force-decode", "--input",
-                                    str(WORK / "fd.src"),
-                                    str(WORK / "fd.pfx")))
+    trf = Translate(dec("--force-decode", "--input", str(WORK / "fd.src"),
+                        str(WORK / "fd.pfx")))
     out = io.StringIO()
     trf.run(stream=out)
     request_replies = out.getvalue().splitlines()
-    app = ServingApp(beam_serve_options("--force-decode", "--iteration-steps",
-                                        str(FUSED_STEPS), merge=None,
-                                        model=SERVE_CUT_MODEL))
+    app = ServingApp(bsrv("--force-decode", "--iteration-steps",
+                          str(FUSED_STEPS)))
     engine = app.scheduler.engine
     iteration_replies, _, _, _, _ = serve_counted(
         app, [f"{s}\t{p}" for s, p in zip(cut, trunks)], [], dict)
@@ -4717,22 +4805,21 @@ def phase_decode_surface(seed: int) -> dict:
 
     # sampling: topk 1 is the unsampled decode; topk 10 0.8 replays at one
     # seed (a fresh engine, a fresh search)
-    stream_app = ServingApp(serve_options(model=SERVE_CUT_MODEL))
+    stream_app = ServingApp(srv())
     plain = stream_app.scheduler.engine.decode_texts(sents)
-    app = ServingApp(serve_options("--output-sampling", "topk", "1",
-                                   model=SERVE_CUT_MODEL))
+    app = ServingApp(srv("--output-sampling", "topk", "1"))
     check(app.scheduler.engine.decode_texts(sents) == plain,
           "iteration greedy at --output-sampling topk 1 differs from the "
           "unsampled decode")
-    trs = Translate(decoder_options(SERVE_CUT_MODEL, "--beam-size", "1",
-                                    "--output-sampling", "topk", "1"))
+    trs = Translate(dec("--beam-size", "1", "--output-sampling", "topk",
+                        "1"))
     check(trs.run(sents, io.StringIO()) == without, "the dense search at "
           "--output-sampling topk 1 differs from the unsampled decode")
-    app = ServingApp(serve_options("--output-sampling", "topk", "10", "0.8",
-                                   "--seed", "5", model=SERVE_CUT_MODEL))
+    app = ServingApp(srv("--output-sampling", "topk", "10", "0.8", "--seed",
+                         "5"))
     runs = [app._build_engine().decode_texts(cut) for _ in range(2)]
-    trs = Translate(decoder_options(SERVE_CUT_MODEL, "--output-sampling", "topk",
-                                    "10", "0.8", "--seed", "5"))
+    trs = Translate(dec("--output-sampling", "topk", "10", "0.8", "--seed",
+                        "5"))
     dense_runs = []
     for _ in range(2):
         trs.search._sample_calls = 0
@@ -4748,9 +4835,7 @@ def phase_decode_surface(seed: int) -> dict:
 
     # iteration n-best (the fused beam at beam SERVE_BEAM) against request
     # mode's n-best block of each sentence at the engine's cap
-    app = ServingApp(beam_serve_options("--n-best", "--iteration-steps",
-                                        str(FUSED_STEPS), merge=None,
-                                        model=SERVE_CUT_MODEL))
+    app = ServingApp(bsrv("--n-best", "--iteration-steps", str(FUSED_STEPS)))
     engine = app.scheduler.engine
     check(engine.prefix is None and engine.features.n_best, "n-best engine")
     blocks, _, _, _, _ = serve_counted(app, cut, [], dict)
@@ -6421,6 +6506,521 @@ def phase_bf16_card_vs_cpu(lines, seed: int, ref: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the test hooks (fault points, the lock-order and ownership witnesses)
+# and the trainer's observability plane
+# ---------------------------------------------------------------------------
+
+def drill_rounds(engine, pending, until=None, rounds: int = 1) -> None:
+    """Up to ``rounds`` admit+step rounds of ``engine`` joining what fits
+    of ``pending`` [(key, text)] (taken off the list), or until
+    ``until()``."""
+    for _ in range(rounds):
+        joins = [(k, t, {"sid": 0, "stream": False})
+                 for k, t in pending[:engine.free_slots()]]
+        taken = set(engine.admit_and_step(joins).accepted)
+        pending[:] = [(k, t) for k, t in pending if k not in taken]
+        if until is not None and until():
+            break
+
+
+def drill(what: str, engine, spec: str, needles, pending,
+          rounds: int = 1, settle: bool = False) -> str:
+    """One armed drill on a serving ``engine``: ``spec`` armed for the
+    next rounds (up to ``rounds``, or until the point fired), disarmed
+    (with ``settle``, rounds until the engine is idle), then the
+    engine's audit must name one of ``needles``. Returns the audit line
+    printed."""
+    from marian_tpu_torch.common import faultpoints as fp
+    name = spec.split("=")[0]
+    fp.activate(spec)
+    try:
+        drill_rounds(engine, pending, until=lambda: fp.hits(name) >= 1,
+                     rounds=rounds)
+        fired = fp.hits(name)
+    finally:
+        fp.deactivate()
+    check(fired >= 1, f"{what}: {name} was never crossed")
+    if settle:
+        drill_rounds(engine, pending, until=engine.idle, rounds=256)
+    v = engine.audit()
+    check(any(n in x for x in v for n in needles), f"{what}: the audit did "
+          f"not name the corruption ({needles}): {v[:4]}")
+    line = f"{what} ({spec}): {v[0]}" + (f" (+{len(v) - 1} more)"
+                                         if len(v) > 1 else "")
+    print(f"pool drills: {line}")
+    return line
+
+
+def phase_pool_drills(seed: int, smi: str) -> dict:
+    """The corruption drills and the witnesses on the 2+2 cut at full
+    width (SERVE_CUT_MODEL), with MARIAN_OWNWIT=1 and MARIAN_LOCKDEP=1
+    set before its engines and pools are made (removed after, so no
+    later phase pays for them). Each drill is armed once, in turn, on an
+    engine serving rows that an unarmed round left audit-clean:
+    pool.double_free, pool.table_corrupt and pool.release_drop on the
+    greedy engine; pool.refcount_corrupt and beam.diff_corrupt on the
+    fused beam engine at FUSED_STEPS steps a round, the step loop under
+    the sync guard (a drill that synced the card there would raise);
+    tenant.page_leak on a greedy engine serving two tenants' rows. Each
+    corruption is named by the auditor the JAX package proves it
+    against: the engine's audit, KVPool.audit() and, for the tenant
+    leak, audit_tenants alone (the pool's audit stays clean); the
+    ownership witness names the dropped release. Then
+    serving.translate=hang:S at S = 2x --dispatch-stall-timeout trips the
+    iteration-mode watchdog once, and the following requests are served.
+    The witnessed locks show no acquisition-order cycle."""
+    from marian_tpu_torch.common import faultpoints as fp
+    from marian_tpu_torch.common import lockdep, ownwit
+    from marian_tpu_torch.server.server import ServingApp
+    from marian_tpu_torch.serving.fleet import accounting as acc
+    os.environ[ownwit.ENV_VAR] = "1"
+    os.environ[lockdep.ENV_VAR] = "1"
+    lockdep.reset()
+    ownwit.reset()
+    torch.cuda.synchronize()
+    reset_counts()
+    lines = []
+    sents = serve_sentences(seed + 12, 12)
+    try:
+        greedy = ServingApp(serve_options("--iteration-steps",
+                                          str(FUSED_STEPS),
+                                          model=SERVE_CUT_MODEL))
+        check(greedy.scheduler.engine.pool._ownwit, "the pool is not "
+              "witnessed")
+
+        def serving(app, n: int = 8):
+            """A fresh engine of ``app`` with ``n`` rows decoding after an
+            unarmed round that audits clean."""
+            engine = app._build_engine()
+            pending = [(f"r{i}", t) for i, t in enumerate(sents[:n])]
+            drill_rounds(engine, pending)
+            check(engine.active_rows() > 0 and engine.audit() == []
+                  and engine.pool.audit() == [],
+                  f"an unarmed round audits {engine.audit()}")
+            return engine, [(f"j{i}", t) for i, t in enumerate(sents[n:])]
+
+        eng, more = serving(greedy)
+        # the re-freed pages go back out to the round's joins
+        lines.append(drill("greedy", eng, "pool.double_free=fail@1",
+                           ("double-free", "refcount drift"), more))
+        eng, more = serving(greedy)
+        lines.append(drill("greedy", eng, "pool.table_corrupt=fail@1",
+                           ("does not match its claim",), more))
+        # the dropped release: a fresh witness, rows until one leaves,
+        # then until every row has left
+        ownwit.reset()
+        eng, _ = serving(greedy, 4)
+        lines.append(drill(
+            "greedy", eng, "pool.release_drop=fail@1",
+            ("has no active row",), [], rounds=64, settle=True))
+        leaks = ownwit.check_balanced("kv-pages")
+        check(len(leaks) == 1 and "iteration.py::_claim_pages" in leaks[0],
+              f"the ownership witness: {leaks}")
+        print(f"pool drills: ownership witness: {leaks[0]}")
+        lines.append(f"witness: {leaks[0]}")
+
+        beam = ServingApp(beam_serve_options("--iteration-steps",
+                                             str(FUSED_STEPS), merge=None))
+        for spec, needle, rounds in (
+                ("pool.refcount_corrupt=fail@1", ("refcount",), 1),
+                ("beam.diff_corrupt=fail@1", ("does not match its claim",),
+                 16)):
+            eng, more = serving(beam, 2)
+            eng.sync_debug = "error"
+            lines.append(drill(f"fused beam, {FUSED_STEPS} steps a round, "
+                               f"sync guard", eng, spec, needle, more,
+                               rounds=rounds))
+            eng.sync_debug = None
+
+        eng = greedy._build_engine()
+        pending = [(f"{'ab'[i % 2]}/{i}", t) for i, t in enumerate(sents[:8])]
+        drill_rounds(eng, pending)
+        expected = {t: row["refs"] for t, row in
+                    acc.tenant_page_sums(eng.pool.claims()).items()}
+        check(set(expected) == {"a", "b"} and acc.audit_tenants(
+            eng.pool, expected) == [], f"two tenants' rows: {expected}")
+        lines.append(tenant_leak(eng, expected))
+        del eng, greedy, beam
+        gc.collect()
+
+        # serving.translate=hang: the iteration watchdog trips once
+        app = ServingApp(serve_options("--dispatch-stall-timeout",
+                                       str(DRILL_STALL_S),
+                                       model=SERVE_CUT_MODEL))
+        spec = f"serving.translate=hang:{2 * DRILL_STALL_S}@1"
+        t0 = time.perf_counter()
+        stalled, mode, _, replies = stall_traffic(
+            app, serve_sentences(seed + 1, 2), serve_sentences(seed + 9, 1)[0],
+            serve_sentences(seed + 10, STALL_FOLLOWING),
+            on_warm=lambda: fp.activate(spec))
+        fp.deactivate()
+        check_stall("pool drills: serving.translate hang", app, stalled,
+                    mode, replies)
+        line = (f"{spec} at --dispatch-stall-timeout {DRILL_STALL_S}: one "
+                f"!!SERVER-RETRY, 1 watchdog trip, {len(replies)} following "
+                f"requests served ({time.perf_counter() - t0:.2f} s)")
+        print(f"pool drills: {line}")
+        lines.append(line)
+        del app
+        cycles = lockdep.observed_cycles()
+        nodes, edges = lockdep.observed_nodes(), lockdep.observed_edges()
+        check(cycles == [], f"lock-order cycles: {cycles}")
+        check(nodes <= lockdep.declared_names(), f"undeclared lock names "
+              f"{nodes - lockdep.declared_names()}")
+    finally:
+        fp.reset_for_tests()
+        os.environ.pop(ownwit.ENV_VAR, None)
+        os.environ.pop(lockdep.ENV_VAR, None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["paged_decode_attention"] > 0
+          and counts["packed_attention"] > 0, f"drill launches {counts}")
+    print(f"pool drills: lockdep witnessed {len(nodes)} locks "
+          f"({', '.join(sorted(nodes))}), {len(edges)} acquisition edges, "
+          f"no cycle; serve model {SERVE_CUT_DEPTH}+{SERVE_CUT_DEPTH} cut, "
+          f"dim 512, vocab {VOCAB}; launches paged "
+          f"{counts['paged_decode_attention']}, packed "
+          f"{counts['packed_attention']}; {smi}")
+    obs_reset()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tenant_leak(engine, expected: dict) -> str:
+    """The tenant.page_leak drill on ``engine``'s pool (two tenants'
+    rows): KVPool.audit() stays clean, audit_tenants names the leak."""
+    from marian_tpu_torch.common import faultpoints as fp
+    from marian_tpu_torch.serving.fleet import accounting as acc
+    with fp.active("tenant.page_leak=fail@1"):
+        engine.pool.chaos_tenant_leak()
+    pool_v = engine.pool.audit()
+    bad = acc.audit_tenants(engine.pool, expected)
+    check(pool_v == [] and any("under by 1" in b for b in bad)
+          and any("over by 1" in b for b in bad),
+          f"tenant leak: KVPool.audit() {pool_v}, audit_tenants {bad}")
+    line = (f"two tenants (tenant.page_leak=fail@1): KVPool.audit() clean; "
+            f"audit_tenants: {'; '.join(bad)}")
+    print(f"pool drills: {line}")
+    return line
+
+
+def saved_state(model: str):
+    """(parameters, optimizer arrays, progress) a trainer saved at
+    ``model``."""
+    import yaml
+    from marian_tpu_torch.common.io import load_model
+    params, _ = load_model(str(WORK / model))
+    with np.load(str(WORK / f"{model}.optimizer.npz")) as z:
+        opt = {k: z[k] for k in z.files}
+    with open(WORK / f"{model}.progress.yml") as fh:
+        prog = yaml.safe_load(fh)
+    return params, opt, prog
+
+
+def run_trainer(argv):
+    """The trainer object marian_train.main drives, in this process."""
+    from marian_tpu_torch.common.config_parser import parse_options
+    from marian_tpu_torch.training.train import Train
+    tr = Train(parse_options(argv, mode="training"))
+    check(tr.device.type == "cuda", f"trainer resolved {tr.device}")
+    tr.run()
+    return tr
+
+
+def max_rel_diff(a: dict, b: dict) -> float:
+    """The largest difference of two parameter sets, relative to each
+    tensor's largest magnitude."""
+    return max(float(np.abs(a[k] - b[k]).max())
+               / max(float(np.abs(b[k]).max()), 1e-30) for k in b)
+
+
+def crash_argv(model: str, *extra: str):
+    """The base train path's flags with one batch a corpus window
+    (--maxi-batch 1 --mini-batch 192: 192 sentences fill the 12,288-word
+    budget at the 64-token width), where a save's resume point is
+    exact: with the path's 100 x 512-sentence windows a save between two
+    window ends resumes at the next window, as the reference does."""
+    return train_argv(model, CRASH_UPDATES, "--maxi-batch", "1",
+                      "--mini-batch", "192", "--overwrite", *extra)
+
+
+# the processes this script starts beside its phases (stopped at exit)
+STARTED = []
+
+
+def start_crash_runs() -> dict:
+    """The crash-resume phase's two trainers, each a marian_train process
+    of its own on the card, started to run beside the doc card-vs-CPU
+    phase (its readings are no timing; each trainer spends most of its
+    time starting up and saving), on the corpus the train main path
+    wrote: the killed one, MARIAN_FAULTS=ckpt.commit=kill@2 with a save
+    every CRASH_SAVE_FREQ updates and --trace-dump, and an uninterrupted
+    one of the same config (no intermediate saves, which change no
+    arithmetic)."""
+    from marian_tpu_torch.common import faultpoints as fp
+    for f in WORK.glob("crash*"):
+        shutil.rmtree(f) if f.is_dir() else f.unlink()
+    dump = WORK / "flight_crash"
+    shutil.rmtree(dump, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    runs = {"t0": time.perf_counter(), "dump": dump}
+    for name, extra, faults in (
+            ("crash", ("--save-freq", str(CRASH_SAVE_FREQ), "--trace-dump",
+                       str(dump)), {fp.ENV_SPEC: "ckpt.commit=kill@2"}),
+            ("crash_ref", (), {})):
+        with open(WORK / f"{name}.log", "w") as fh:
+            runs[name] = subprocess.Popen(
+                [sys.executable, "-m", "marian_tpu_torch.cli.marian_train",
+                 *crash_argv(f"{name}.npz", *extra)],
+                env={**env, **faults}, cwd=str(ROOT), stdout=fh,
+                stderr=subprocess.STDOUT)
+        STARTED.append(runs[name])
+    return runs
+
+
+def phase_crash_resume(runs: dict, smi: str) -> dict:
+    """Crash safety of the base train path (``crash_argv``: 6+6, dim 512,
+    vocab 32,000, dropout 0.1) on the card, after the two trainers
+    ``start_crash_runs`` started: the killed one exits 117 at the second
+    commit; every committed bundle validates and no staging directory is
+    listed as one; the flight file of the kill holds the faultpoints
+    member and the fault.fire event of ckpt.commit; a restart in this
+    process resumes from the newest valid bundle and ends where the
+    uninterrupted run ends: the progress (batches, corpus position) and
+    Adam's step exactly, the parameters byte for byte or, where the
+    card's run-to-run spread (a second uninterrupted run, then in this
+    process) is not zero, within it."""
+    from marian_tpu_torch.common import faultpoints as fp
+    from marian_tpu_torch.training import bundle as bdl
+    rcs = {}
+    for name in ("crash", "crash_ref"):
+        proc = runs[name]
+        try:
+            rcs[name] = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    both_s = time.perf_counter() - runs["t0"]
+    stderr = (WORK / "crash.log").read_text()
+    check(rcs["crash"] == fp.FAULT_EXIT_CODE, f"the killed trainer exited "
+          f"{rcs['crash']}: {stderr[-2000:]}")
+    check("FAULTPOINT ckpt.commit hit 2: killing process" in stderr,
+          "the kill's line is missing")
+    check(rcs["crash_ref"] == 0, f"the uninterrupted trainer exited "
+          f"{rcs['crash_ref']}: {(WORK / 'crash_ref.log').read_text()[-2000:]}")
+    root = bdl.bundle_root(str(WORK / "crash.npz"))
+    names = bdl.list_bundles(root)
+    check(len(names) == 1, f"committed bundles after the kill: {names}")
+    for n in names:
+        ok, why, _ = bdl.validate_bundle(os.path.join(root, n))
+        check(ok, f"bundle {n}: {why}")
+    stray = sorted(n for n in os.listdir(root) if n not in names)
+    check(all(n.startswith(".staging-") for n in stray),
+          f"the bundle directory holds {stray}")
+    flights = sorted(runs["dump"].glob("flight-*fault-kill.json"))
+    check(len(flights) == 1, f"flight files of the kill: {flights}")
+    payload = json.loads(flights[0].read_text())
+    fires = [e["args"]["point"] for e in payload["trace"]["traceEvents"]
+             if e.get("name") == "fault.fire"]
+    check(payload["faultpoints"]["spec"] == "ckpt.commit=kill@2"
+          and payload["faultpoints"]["hits"].get("ckpt.commit") == 2
+          and fires == ["ckpt.commit"], f"the flight file's fault plane: "
+          f"{payload.get('faultpoints')}, fault.fire {fires}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t1 = time.perf_counter()
+    resumed = run_trainer(crash_argv("crash.npz"))
+    resume_s = time.perf_counter() - t1
+    check(resumed.state.batches == CRASH_UPDATES, "the resumed run ended at "
+          f"update {resumed.state.batches}")
+    del resumed
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: PER_UPDATE.get(k, 0) * (CRASH_UPDATES - CRASH_SAVE_FREQ)
+            for k in counts}
+    check(counts == want, f"crash resume launches {counts}, expected {want}")
+    got_p, got_o, got_g = saved_state("crash.npz")
+    ref_p, ref_o, ref_g = saved_state("crash_ref.npz")
+    check(got_g == ref_g, f"progress after the resume {got_g} != the "
+          f"uninterrupted run's {ref_g}")
+    check(float(got_o["t"]) == float(ref_o["t"]) == CRASH_UPDATES,
+          f"Adam's step {got_o['t']} / {ref_o['t']}")
+    equal = all(np.array_equal(got_p[k], ref_p[k]) for k in ref_p) \
+        and all(np.array_equal(got_o[k], ref_o[k]) for k in ref_o)
+    if equal:
+        spread_line = ("parameters and optimizer state byte-equal to the "
+                       "uninterrupted run's")
+    else:
+        run_trainer(crash_argv("crash_ref2.npz"))
+        spread = max_rel_diff(saved_state("crash_ref2.npz")[0], ref_p)
+        diff = max_rel_diff(got_p, ref_p)
+        check(diff <= spread, f"the resumed parameters differ from the "
+              f"uninterrupted run's by {diff:.3g}, past the card's "
+              f"run-to-run spread {spread:.3g}")
+        spread_line = (f"parameters not byte-equal: largest relative "
+                       f"difference {diff:.3g} against the card's "
+                       f"run-to-run spread {spread:.3g} (two uninterrupted "
+                       f"runs)")
+    print(f"crash resume: transformer-base 6+6, dim 512, vocab {VOCAB}, "
+          f"f32, dropout 0.1, {CRASH_UPDATES} updates, a save every "
+          f"{CRASH_SAVE_FREQ}: ckpt.commit=kill@2 exited 117 (the killed "
+          f"and the uninterrupted process both ended {both_s:.2f} s after "
+          f"their start, beside the doc card-vs-CPU phase), "
+          f"{len(names)} committed bundle(s) valid, {len(stray)} staging "
+          f"director{'y' if len(stray) == 1 else 'ies'} left unlisted, a "
+          f"flight file with the fault plane; resumed in {resume_s:.2f} s "
+          f"to the uninterrupted run's progress and Adam step exactly; "
+          f"{spread_line}; {smi}")
+    obs_reset()
+    return counts
+
+
+def phase_train_obs(seed: int, smi: str) -> dict:
+    """The trainer's observability plane on the base train path, twice:
+    without and with --trace-sync-phases, each OBS_TRAIN_UPDATES updates
+    with --disp-freq OBS_DISP (four display windows), --metrics-port,
+    --trace, --perf-accounting and a profiler window over updates 3 and
+    4. A scrape of /metrics at the second display passes promlint and
+    holds the six trainer series, the phase gauge and the two train
+    gauges; marian_train_mfu lies in (0, 1] (f32, against the card's
+    67 TFLOP/s f32 peak); chip-seconds per token x each window's labels
+    is the window's logged time within 5%; /tracez holds the
+    train.data, train.dispatch and train.host spans; the profiler trace
+    names the port's own kernels of the packed attention and the fused
+    CE. Prints the MFU and the ms per update of the last window (clean
+    of the profiler) and the phase shares of each run, over the run and
+    over the last window (its train.* spans)."""
+    import re
+    from marian_tpu_torch import obs
+    from marian_tpu_torch.common import logging as mlog
+    from marian_tpu_torch.serving import metrics as msm
+    from marian_tpu_torch.serving.promlint import lint_metrics_text
+    from marian_tpu_torch.training.scheduler import Scheduler
+    series = ("marian_train_cost", "marian_train_words_per_second",
+              "marian_train_learn_rate", "marian_train_updates_total",
+              "marian_train_labels_total",
+              "marian_train_updates_skipped_total",
+              "marian_train_chip_seconds_per_token", "marian_train_mfu",
+              "marian_step_phase_seconds")
+    time_re = re.compile(r": Time ([0-9.]+)s :")
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = {}
+    for sync in (False, True):
+        obs_reset()
+        for f in WORK.glob("obs.npz*"):
+            shutil.rmtree(f) if f.is_dir() else f.unlink()
+        prof = WORK / f"train_profile_{'sync' if sync else 'async'}"
+        shutil.rmtree(prof, ignore_errors=True)
+        port = free_port()
+        windows, scraped = [], {}
+        display, info = Scheduler._display, mlog.info
+
+        def logged(msg, *args):
+            line = msg.format(*args) if args else msg
+            m = time_re.search(line)
+            if m and windows and "time" not in windows[-1]:
+                windows[-1]["time"] = float(m.group(1))
+            return info(msg, *args)
+
+        def displayed(sched):
+            windows.append({"labels": sched._label_sum})
+            display(sched)
+            windows[-1]["at"] = time.perf_counter()
+            windows[-1]["cspt"] = msm.REGISTRY.get(
+                "marian_train_chip_seconds_per_token").value
+            windows[-1]["mfu"] = msm.REGISTRY.get("marian_train_mfu").value
+            if len(windows) == 2:
+                t = time.perf_counter()
+                scraped["metrics"] = http_get(port, "/metrics")[1]
+                scraped["tracez"] = json.loads(http_get(port, "/tracez")[1])
+                # the scrape is this check's, not the next window's
+                sched._timer += time.perf_counter() - t
+
+        Scheduler._display = displayed
+        mlog.info = logged
+        try:
+            tr = run_trainer(train_argv(
+                "obs.npz", OBS_TRAIN_UPDATES, "--disp-freq", str(OBS_DISP),
+                "--metrics-port", str(port), "--trace", "--perf-accounting",
+                "--profile", str(prof), "--profile-start", "3",
+                "--profile-updates", "2", "--overwrite",
+                *(["--trace-sync-phases"] if sync else [])))
+        finally:
+            Scheduler._display = display
+            mlog.info = info
+        if tr.metrics_server is not None:
+            tr.metrics_server.close()
+        what = "with" if sync else "without"
+        text = scraped.get("metrics", "")
+        check(lint_metrics_text(text) == [], f"{what} sync: promlint "
+              f"{lint_metrics_text(text)[:3]}")
+        missing = [n for n in series if f"\n{n}" not in "\n" + text]
+        check(not missing, f"{what} sync: /metrics lacks {missing}")
+        names = {e["name"] for e in scraped["tracez"]["traceEvents"]}
+        check({"train.data", "train.dispatch", "train.host"} <= names,
+              f"{what} sync: /tracez spans {sorted(names)[:12]}")
+        check(len(windows) == OBS_TRAIN_UPDATES // OBS_DISP
+              and all("time" in w for w in windows), f"{what} sync: "
+              f"display windows {windows}")
+        for w in windows:
+            check(abs(w["cspt"] * w["labels"] - w["time"])
+                  <= 0.05 * w["time"], f"{what} sync: chip-seconds/token "
+                  f"{w['cspt']:.4g} x {w['labels']:.0f} labels against the "
+                  f"logged {w['time']} s")
+        mfu = windows[-1]["mfu"]
+        check(0.0 < mfu <= 1.0, f"{what} sync: marian_train_mfu {mfu}")
+        traces = sorted(prof.glob("*.json"))
+        check(len(traces) == 1, f"{what} sync: profiler traces {traces}")
+        kernels = {e["name"] for e in json.loads(traces[0].read_text())
+                   ["traceEvents"] if e.get("cat") == "kernel"}
+        absent = [row for row, subs in TRACE_KERNELS.items()
+                  if not any(sub in k for k in kernels for sub in subs)]
+        check(not absent, f"{what} sync: the profiler trace lacks the "
+              f"kernels of rows {absent}")
+        # the whole run's shares start with the first update's one-time
+        # costs (the first run's the process's first); the last window's
+        # come from its train.* spans, clean of them and of the profiler
+        last = {}
+        for sp in obs.TRACER.snapshot()[0]:
+            if sp.name.startswith("train.") and sp.start >= windows[-2]["at"]:
+                last[sp.name[6:]] = last.get(sp.name[6:], 0.0) \
+                    + sp.duration()
+        phases = tr.step_phases
+        total, last_total = sum(phases.values()), sum(last.values())
+        # the window's seconds unrounded: the gauge x its labels
+        runs[what] = (mfu, {k: v / total for k, v in phases.items()},
+                      {k: v / last_total for k, v in last.items()},
+                      1e3 * windows[-1]["cspt"] * windows[-1]["labels"]
+                      / OBS_DISP)
+        del tr
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: PER_UPDATE.get(k, 0) * 2 * OBS_TRAIN_UPDATES for k in counts}
+    check(counts == want, f"train observability launches {counts}, "
+          f"expected {want}")
+    for what, (mfu, shares, last, ms) in runs.items():
+        print(f"train observability: transformer-base 6+6, dim 512, vocab "
+              f"{VOCAB}, f32, {what} --trace-sync-phases: marian_train_mfu "
+              f"{mfu:.4f} (f32, 67 TFLOP/s peak, TF32 off); phase shares "
+              f"of the run "
+              + ", ".join(f"{k} {100 * v:.1f}%" for k, v in
+                          sorted(shares.items()))
+              + ", of the last window "
+              + ", ".join(f"{k} {100 * v:.1f}%" for k, v in
+                          sorted(last.items()))
+              + f"; {ms:.2f} ms/update (the last window); {smi}")
+    print(f"train observability: /metrics at the second display linted "
+          f"clean with the trainer series, the phase gauge and the train "
+          f"gauges; chip-seconds/token x labels within 5% of each window's "
+          f"logged time; /tracez with train.data/dispatch/host; the "
+          f"profiler trace names {', '.join(TRACE_KERNELS)}")
+    obs_reset()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -6442,9 +7042,10 @@ def main(argv=None) -> int:
     try:
         return run_phases(args, smi, child)
     finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+        for proc in (child, *STARTED):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def run_phases(args, smi: str, child) -> int:
@@ -6508,8 +7109,12 @@ def run_phases(args, smi: str, child) -> int:
                                     args.seed, smi)
     paths["fleet serve"] = timed("fleet serve", phase_fleet_serve, args.seed,
                                  smi)
+    paths["pool drills"] = timed("pool drills", phase_pool_drills,
+                                 args.seed, smi)
     paths["train"] = timed("train main path", phase_train_main_path,
                            args.seed)
+    paths["train obs"] = timed("train observability", phase_train_obs,
+                               args.seed, smi)
     timed("bundles", phase_train_bundles)
     paths["lifecycle serve"] = timed("lifecycle serve main path",
                                      phase_lifecycle_serve, args.seed)
@@ -6523,7 +7128,12 @@ def run_phases(args, smi: str, child) -> int:
                                phase_doc_train_main_path, args.seed)
     paths["doc decode"] = timed("doc decode main path",
                                 phase_doc_decode_main_path)
+    # the crash-resume phase's two trainers run beside the doc card-vs-CPU
+    # phase, whose readings are no timing
+    crash = timed("crash resume: its trainers started", start_crash_runs)
     timed("doc card vs cpu", phase_doc_card_vs_cpu, args.seed)
+    paths["crash resume"] = timed("crash resume", phase_crash_resume, crash,
+                                  smi)
     paths["bf16 train"] = timed("bf16 train main path",
                                 phase_bf16_train_main_path)
     paths["bf16 decode"] = timed("bf16 decode main path",

@@ -8,9 +8,14 @@ model flags a checkpoint's ``special:model.yml`` carries, under the same
 names and defaults as the reference, the serving lifecycle's, the
 metrics port's and the observability plane's (tracing, the flight
 recorder, the perf plane, SLOs), the brownout ladder's and fleet
-serving's among them; the flags of the JAX package's serving planes this
-port does not carry yet (the compile cache, profiling,
-``--trace-sync-phases``) and of its mesh machinery are left out.
+serving's among them. The trainer has its side of the plane
+(``--metrics-port``, ``--trace``, ``--trace-ring``, ``--trace-dump``,
+``--perf-accounting``, ``--trace-sync-phases``, ``--tensorboard``) and
+the profiler window (``--profile``, ``--profile-start``,
+``--profile-updates``, on ``torch.profiler``); ``--profile-server``
+parses and the trainer refuses it (the live ``jax.profiler`` server has
+no ``torch.profiler`` counterpart). The flags of the JAX package's
+compile cache and of its mesh machinery are left out.
 Precedence as
 in Marian: defaults < config file(s) < CLI flags. ``--cpu-threads N``
 (N > 0) runs on the CPU.
@@ -277,11 +282,28 @@ _SERVER = [
     _f("fleet-watch", float, 0.0, "With --fleet: poll each RESIDENT tenant's <model>.bundles/ every N seconds and hot-swap new committed bundles through that tenant's own canary/rollback lifecycle (the per-tenant --model-watch; 0 = off, tenants still warm-on-demand)"),
 ]
 
+# the trainer's side of the observability plane and the profiler window
+# (reference: the general group's profile flags and the translate
+# group's, which the reference's training mode includes)
+_TRAIN_OBS = [
+    _f("profile", str, None, "Capture a torch.profiler device trace to this directory around a training-update window (Chrome trace JSON; open it in Perfetto)", "?"),
+    _f("profile-server", int, 0, "Start a live jax.profiler server on this port (0 = off); the port's trainer refuses it: torch.profiler has no live server to attach to"),
+    _f("profile-start", int, 10, "First update of the profiler trace window"),
+    _f("profile-updates", int, 5, "Number of updates to trace"),
+    _f("tensorboard", str, None, "Write train scalars (cost, words/s, learn rate, epoch) as TensorBoard events to this directory (beyond the reference, which logs text only)", "?"),
+    _f("metrics-port", int, 0, "Serve Prometheus /metrics + /healthz + /readyz on this port (0 = off): train emits its cost, throughput, learning rate, update, label and skip series, the step phase gauge and the train MFU gauges into the same registry as the server, with /tracez"),
+    _f("trace", bool, False, "Enable the span tracer: the train-loop phases (train.data, train.dispatch, train.host) are recorded into a bounded in-memory ring, exported as Chrome trace JSON at /tracez on the metrics port (open in Perfetto). Off = no overhead"),
+    _f("trace-ring", int, 4096, "With --trace: span ring capacity — how many most-recent spans /tracez and flight-recorder dumps can see"),
+    _f("trace-dump", str, "", "Arm the crash flight recorder (implies --trace): on an injected MARIAN_FAULTS kill, and at exit, snapshot the span ring + event timeline + /metrics + the fault points' hit counters to a timestamped JSON file in this directory"),
+    _f("trace-sync-phases", bool, False, "Honest train-loop phase timing: drain the device (torch.cuda.synchronize) at every StepTimer phase boundary so asynchronous launches cannot shift device seconds into whichever later phase waits first. Serializes host and device — a diagnosis mode, not a throughput config"),
+    _f("perf-accounting", bool, True, "Live performance plane (obs/perf.py): each display window's chip-seconds per target label and MFU against the analytic roofline of the card's peak for the compute dtype, on /metrics"),
+]
+
 FLAGS = _COMMON + _MODEL + _TRANSLATION
 MODES = {"translation": FLAGS,
          "server": FLAGS + _SERVER,
          "training": _COMMON + _MODEL + _MODEL_TRAINING + _TRAINING
-         + _VALIDATION}
+         + _VALIDATION + _TRAIN_OBS}
 
 # mode-suffixed duplicates and synonyms → (the canonical key runtime code
 # reads, a value map or None for identity)

@@ -14,8 +14,9 @@ to this slice:
   batches are the reference's batches, and so the CUDA kernels see few
   distinct shapes.
 
-It runs without the reference's prefetch thread. Batch layout is
-batch-major [batch, time].
+It runs without the reference's prefetch thread. Every batch crosses
+the ``data.batch.next`` fault point before it is yielded, as in the
+reference. Batch layout is batch-major [batch, time].
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from ..common import faultpoints as fp
 from .batching import (DEFAULT_LENGTH_BUCKETS, bucket_batch_size,
                        bucket_length, budget_groups, budget_rows)
 from .corpus import Corpus, SentenceTuple
@@ -189,6 +191,12 @@ class BatchGenerator:
             if len(buf) >= cap:
                 # the corpus position once this whole window is consumed:
                 # a save after its batches are applied resumes here
-                yield from self._split_maxi(buf, self.corpus.state.as_dict())
+                for b in self._split_maxi(buf, self.corpus.state.as_dict()):
+                    # a pipeline failure (bad shard, file system hiccup)
+                    # surfaces here, mid-epoch: crash-resume covers it
+                    fp.fault_point("data.batch.next")
+                    yield b
                 buf = []
-        yield from self._split_maxi(buf, self.corpus.state.as_dict())
+        for b in self._split_maxi(buf, self.corpus.state.as_dict()):
+            fp.fault_point("data.batch.next")
+            yield b

@@ -1,16 +1,19 @@
-"""marian_tpu_torch.obs — the serving observability plane, ported from
-``marian_tpu/obs/`` (the port imports nothing of the JAX package):
-request-scoped span tracing with an event timeline (trace.py), the
-crash flight recorder (flight.py), the live perf and capacity gauges
-(perf.py), the SLO burn-rate engine (slo.py) and the KV-pool inspector
-(poolz.py).
+"""marian_tpu_torch.obs — the observability plane of the server and the
+trainer, ported from ``marian_tpu/obs/`` (the port imports nothing of
+the JAX package): request-scoped span tracing with an event timeline
+(trace.py), the crash flight recorder (flight.py), the live perf and
+capacity gauges (perf.py), the SLO burn-rate engine (slo.py), the
+KV-pool inspector (poolz.py) and the training loop's phase timer and
+profiler window (profiling.py).
 
 One process-wide :data:`TRACER` records named spans and instant events
 into bounded in-memory rings; one :data:`FLIGHT` recorder snapshots them
 (with /metrics and the registered state providers) to disk when a
 watchdog trip, a rollback, an unhealthy quiesce, a failed pool audit or
-a fast SLO burn fires. Exports are Chrome trace-event JSON — ``/tracez``
-on the metrics port and the flight dumps, both loadable in Perfetto.
+a fast SLO burn fires, and before an armed fault point's ``kill``; every
+fault-point firing lands on the timeline as a ``fault.fire`` event.
+Exports are Chrome trace-event JSON — ``/tracez`` on the metrics port
+and the flight dumps, both loadable in Perfetto.
 
 Everything is stdlib only and off by default at no cost (no ring, no
 lock on the serving hot path). ``--trace`` (or ``MARIAN_TRACE=1``)
@@ -34,11 +37,28 @@ ENV_TRACE = "MARIAN_TRACE"
 ENV_DUMP = "MARIAN_TRACE_DUMP"
 ENV_PERF = "MARIAN_PERF"
 
+_FIRE_HOOKED = False
+
+
+def _hook_faultpoints() -> None:
+    """Record every armed fault-point firing on the event timeline, so a
+    flight dump shows the injected failure next to its victims."""
+    global _FIRE_HOOKED
+    if _FIRE_HOOKED:
+        return
+    _FIRE_HOOKED = True
+    from ..common import faultpoints as fp
+
+    def _on_fire(name: str, mode: str, hit: int) -> None:
+        TRACER.event("fault.fire", point=name, mode=mode, hit=hit)
+
+    fp.add_fire_hook(_on_fire)
+
 
 def configure(options=None) -> bool:
     """Read the tracing knobs and enable/arm accordingly; returns
-    whether the tracer ended up enabled. Called by the server; safe to
-    call more than once.
+    whether the tracer ended up enabled. Called by the server and the
+    trainer; safe to call more than once.
 
     - ``--trace`` / ``MARIAN_TRACE=1``: enable span recording.
     - ``--trace-ring N``: span ring capacity (default 4096).
@@ -57,6 +77,7 @@ def configure(options=None) -> bool:
         or os.environ.get(ENV_TRACE, "") == "1" or bool(dump)
     if on:
         TRACER.enable(capacity=ring or None)
+        _hook_faultpoints()
     if dump:
         FLIGHT.arm(dump)
     if bool(get("perf-accounting", False)) \

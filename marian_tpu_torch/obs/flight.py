@@ -2,10 +2,11 @@
 
 When something goes wrong in production (the dispatch watchdog trips, a
 canary or live version is rolled back, a quiesce ends unhealthy, a pool
-audit fails, an SLO burns fast) the span ring and the event timeline
-hold the evidence an operator needs, and they live in process memory.
-The flight recorder snapshots them, with the current ``/metrics`` text
-and the registered state providers (pool, slo, perf), to a timestamped
+audit fails, an SLO burns fast, a fault point kills the process) the
+span ring and the event timeline hold the evidence an operator needs,
+and they live in process memory. The flight recorder snapshots them,
+with the current ``/metrics`` text, the registered state providers
+(pool, slo, perf) and the fault points' hit counters, to a timestamped
 JSON file the moment the trigger fires.
 
 Armed by ``--trace-dump DIR`` (or ``MARIAN_TRACE_DUMP=DIR``); disarmed,
@@ -16,16 +17,16 @@ every trip is a cheap no-op. Trigger sites:
 - serving/lifecycle/controller.py: canary, live and manual rollback;
 - translator/iteration.py: a failed pool audit;
 - obs/slo.py: a fast burn;
+- common/faultpoints.py's ``kill``: a hook registered when the recorder
+  is armed dumps before the simulated SIGKILL (``os._exit``) lands;
 - interpreter exit with anything recorded (``atexit``).
 
 Dump shape::
 
     {"reason", "detail", "trace_id", "ts", "pid", "thread", "seq",
      "trace": <Chrome trace JSON — open in Perfetto>,
-     "metrics": <prometheus text>, <provider key>: <its state>, ...}
-
-The reference's ``faultpoints`` member (the fault-injection hooks' hit
-counters) waits for those hooks to be ported.
+     "metrics": <prometheus text>, "faultpoints": {"spec", "hits"},
+     <provider key>: <its state>, ...}
 
 Locking: ``FlightRecorder._lock`` guards only the armed directory, the
 sequence number and the provider table; the file write and every
@@ -42,6 +43,8 @@ import re
 import threading
 from typing import Dict, Optional
 
+from ..common import faultpoints as fp
+from ..common import lockdep
 from ..common import logging as log
 from .trace import TRACER
 
@@ -54,10 +57,10 @@ def _slug(reason: str) -> str:
 
 class FlightRecorder:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("FlightRecorder._lock")
         self._dir: Optional[str] = None     # guarded-by: _lock
         self._seq = 0                       # guarded-by: _lock
-        self._exit_hooked = False           # guarded-by: _lock
+        self._hooked = False                # guarded-by: _lock
         # extra state snapshotted into every dump (the SLO engine, the
         # perf meter and the KV pool register here, so a post-mortem
         # shows the burn rates, headroom and page map, not just the
@@ -77,16 +80,18 @@ class FlightRecorder:
 
     def arm(self, dump_dir: str) -> None:
         """Point dumps at ``dump_dir`` (created if missing); the first
-        arm also registers a final snapshot at interpreter exit."""
+        arm hooks the fault points' kill path, so an injected crash dumps
+        before it dies, and a final snapshot at interpreter exit."""
         dump_dir = os.path.abspath(dump_dir)
         os.makedirs(dump_dir, exist_ok=True)
         hook = False
         with self._lock:
             self._dir = dump_dir
-            if not self._exit_hooked:
-                self._exit_hooked = True
+            if not self._hooked:
+                self._hooked = True
                 hook = True
         if hook:
+            fp.add_kill_hook(self._on_kill)
             atexit.register(self._on_exit)
         log.info("Flight recorder armed: dumps to {}", dump_dir)
 
@@ -114,8 +119,15 @@ class FlightRecorder:
             return
         threading.Thread(
             target=self.trip, args=(reason,),
-            kwargs={"trace_id": trace_id, "detail": detail, "extra": extra},
+            kwargs={"trace_id": trace_id, "detail": detail, "extra": extra,
+                    # the counters at the incident: a drill may disarm
+                    # before the dump thread runs
+                    "fault_hits": fp.hit_counts()},
             name="flight-dump", daemon=True).start()
+
+    def _on_kill(self, name: str, hit: int) -> None:
+        self.trip("fault-kill", detail=f"fault point {name} (hit {hit}) "
+                  f"is killing the process")
 
     def _on_exit(self) -> None:  # pragma: no cover — atexit timing
         spans, events = TRACER.snapshot()
@@ -124,8 +136,8 @@ class FlightRecorder:
                       "snapshot (atexit)")
 
     def trip(self, reason: str, trace_id: Optional[str] = None,
-             detail: str = "", extra: Optional[Dict] = None
-             ) -> Optional[str]:
+             detail: str = "", extra: Optional[Dict] = None,
+             fault_hits: Optional[Dict] = None) -> Optional[str]:
         """Snapshot everything to a new dump file; returns its path, or
         None when disarmed (the cheap common case). Never raises — a
         failing dump must not worsen the incident being recorded."""
@@ -136,14 +148,16 @@ class FlightRecorder:
             self._seq += 1
             seq = self._seq
         try:
-            return self._write(d, seq, reason, trace_id, detail, extra)
+            return self._write(d, seq, reason, trace_id, detail, extra,
+                               fault_hits)
         except Exception as e:  # noqa: BLE001 — post-mortem best effort
             log.warn("flight recorder: dump for {!r} failed: {}", reason, e)
             return None
 
     def _write(self, d: str, seq: int, reason: str,
                trace_id: Optional[str], detail: str,
-               extra: Optional[Dict]) -> str:
+               extra: Optional[Dict],
+               fault_hits: Optional[Dict] = None) -> str:
         now = datetime.datetime.now(datetime.timezone.utc)
         payload: Dict = {
             "reason": reason,
@@ -169,6 +183,11 @@ class FlightRecorder:
             payload["metrics"] = msm.REGISTRY.render()
         except Exception as e:  # noqa: BLE001 — metrics are best effort
             payload["metrics"] = f"unavailable: {e}"
+        payload["faultpoints"] = {
+            "spec": os.environ.get(fp.ENV_SPEC, ""),
+            "hits": fault_hits if fault_hits is not None
+            else fp.hit_counts(),
+        }
         fname = (f"flight-{now.strftime('%Y%m%dT%H%M%S')}-"
                  f"{os.getpid()}-{seq:03d}-{_slug(reason)}.json")
         path = os.path.join(d, fname)

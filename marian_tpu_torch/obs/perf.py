@@ -28,13 +28,18 @@ Exported series:
   at 0 here, because the port compiles nothing per shape (eager
   PyTorch, hand-built kernels). CUDA graph captures will give them
   something to count. The reference's jax.monitoring series
-  (``marian_compile_backend_seconds_total``) has no counterpart.
+  (``marian_compile_backend_seconds_total``) has no counterpart;
+- ``marian_train_chip_seconds_per_token`` and ``marian_train_mfu`` — the
+  trainer's display window (``record_train_window``, fed by
+  training/scheduler.py with the window's seconds clocked after its one
+  host sync).
 
 Off by default and free on the scheduler's batch path: ``PERF.enabled``
 is one attribute read, and nothing below it runs. ``--perf-accounting``
 (on by default for the server) or ``PERF.enable()`` turns it on.
 
-Threading: ``record_batch`` runs on the event loop, ``headroom`` on the
+Threading: ``record_batch`` runs on the event loop,
+``record_train_window`` on the training thread, ``headroom`` on the
 metrics scrape thread; the rolling window lives under
 ``PerfMeter._lock``, and metric emission happens outside it.
 """
@@ -42,9 +47,10 @@ metrics scrape thread; the rolling window lives under
 from __future__ import annotations
 
 import collections
-import threading
 import time
 from typing import Callable, Deque, Dict, Optional, Tuple
+
+from ..common import lockdep
 
 # rolling-window horizon for the rate gauges (seconds): long enough to
 # smooth batch-to-batch jitter, short enough that an autoscaler acting
@@ -75,7 +81,7 @@ class PerfMeter:
     def __init__(self, window_s: float = DEFAULT_WINDOW_S):
         self.enabled = False
         self.window_s = float(window_s)
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("PerfMeter._lock")
         # rolling (ts, version, device_s, src_tokens, trg_tokens, flops,
         # rows) samples, newest right; pruned to window_s on every
         # append/read, with RUNNING sums kept alongside (global + per
@@ -197,6 +203,16 @@ class PerfMeter:
             "steady-state: the first batch's device seconds, an upper "
             "bound — compile and run are fused)",
             labels=("trigger", "bucket"))
+        self.m_train_cspt = r.gauge(
+            "marian_train_chip_seconds_per_token",
+            "Training: wall seconds x device count per target label over "
+            "the last display window (window duration is clocked after "
+            "the window's deferred device sync — honest)")
+        self.m_train_mfu = r.gauge(
+            "marian_train_mfu",
+            "Training: rolling model-FLOPs utilization of the last "
+            "display window vs the analytic roofline (0 = unknown chip "
+            "/ no geometry)")
 
     # -- configuration ------------------------------------------------------
     def set_geometry(self, emb: int, ffn: int, enc_depth: int,
@@ -233,6 +249,36 @@ class PerfMeter:
         gauge sampling a dead scheduler)."""
         self._depth_fn = depth_fn
         self._max_queue = int(max_queue_units)
+
+    # -- training window (training thread) ----------------------------------
+    def record_train_window(self, labels: float, src_words: float,
+                            sentences: int, dt: float) -> None:
+        """One training display window: ``dt`` its wall seconds, clocked
+        after the window's one host sync (training/scheduler.py), and
+        ``labels`` its real target labels. Chip-seconds per token is
+        wall x devices: the card is held for the whole window, which is
+        what a capacity planner pays for."""
+        if not self.enabled or labels <= 0 or dt <= 0:
+            return
+        with self._lock:
+            geo = self._geo
+        n_dev = geo.n_devices if geo is not None else 1
+        self.m_train_cspt.set(dt * n_dev / labels)
+        mfu = 0.0
+        if geo is not None and geo.peak_flops:
+            from ..common.flops import transformer_train_flops
+            sents = max(1, int(sentences))
+            src_w = max(1, int(round((src_words or labels) / sents)))
+            trg_w = max(1, int(round(labels / sents)))
+            # unpadded average widths understate the attention a padded
+            # batch pays, so this MFU reads slightly high
+            flops = transformer_train_flops(
+                geo.emb, geo.ffn, geo.enc_depth, geo.dec_depth, geo.vocab,
+                src_tokens=float(src_words or labels),
+                trg_tokens=float(labels),
+                src_width=src_w, trg_width=trg_w)
+            mfu = flops / (dt * geo.peak_flops * n_dev)
+        self.m_train_mfu.set(mfu)
 
     # -- serving batch accounting (event-loop thread) -----------------------
     def record_batch(self, model_version: str, rows: int, width: int,

@@ -48,6 +48,7 @@ import threading
 import time
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+from ..common import lockdep
 from ..common import logging as log
 from .flight import FLIGHT
 from .perf import PERF
@@ -128,7 +129,7 @@ class SloEngine:
         if not self.objectives:
             raise ValueError("SloEngine needs at least one objective "
                              "(--slo-availability / --slo-p99-ms)")
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("SloEngine._lock")
         # (ts, {objective: (good, total)}) samples, oldest left, pruned
         # past the slow window (+ one interval of slack)
         self._samples: Deque[Tuple[float, Dict[str, Tuple[float, float]]]] \

@@ -11,7 +11,7 @@ chrome://tracing) and through the flight recorder (obs/flight.py).
   allocated, no lock is taken, no dict is built. The overhead-guard test
   asserts this on the scheduler's per-batch path.
 - **When on**, a span is recorded once, at its end, by one bounded-deque
-  append under ``Tracer._lock`` (a plain ``threading.Lock``); exports
+  append under ``Tracer._lock`` (``lockdep.make_lock``); exports
   snapshot under the same lock.
 - **Context** follows ``contextvars`` (asyncio tasks on the event loop);
   where the request path crosses threads (scheduler -> device worker)
@@ -36,6 +36,8 @@ import random
 import threading
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
+
+from ..common import lockdep
 
 # wall-clock anchor: spans timestamp with the monotonic perf_counter;
 # exports shift onto the epoch so dumps from different processes align
@@ -127,7 +129,7 @@ class Tracer:
         # no ring allocation, not an empty ring (the overhead guard)
         self._ring: Optional[collections.deque] = None   # guarded-by: _lock
         self._events: Optional[collections.deque] = None  # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("Tracer._lock")
         self._seq = itertools.count(1)   # span ids; count() is GIL-atomic
 
     # -- lifecycle ----------------------------------------------------------

@@ -27,10 +27,11 @@ import os
 import re
 import shutil
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Sequence
+
+from ...common import lockdep
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "marian_tpu_torch"
@@ -47,7 +48,7 @@ for _src in ("fused_ce", "flash_attention", "packed_attention"):
 # the sources the libraries are built from
 SOURCES = tuple(dict.fromkeys(src for src, _ in LIBRARIES.values()))
 
-_lock = threading.Lock()
+_lock = lockdep.make_lock("marian_tpu_torch.ops.kernels._build._lock")
 _libs: Dict[str, ctypes.CDLL] = {}
 # library -> "<kernel>: <registers, shared memory, spills>" lines of its
 # last build here with -Xptxas -v

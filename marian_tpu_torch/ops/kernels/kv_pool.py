@@ -17,7 +17,13 @@ table entries of unclaimed slots point at it, and idle rows write zeros
 into it, so their writes collide deterministically.
 
 ``KVPool`` is the host-side refcounted allocator (a copy of the
-reference's, behind a plain ``threading.Lock``). ``pool_fork_partial``
+reference's, behind ``KVPool._lock``), with the reference's ownership
+witness hooks (``common/ownwit.py``, under ``MARIAN_OWNWIT=1``) and its
+corruption drills: ``chaos_double_free``, ``chaos_refcount_corrupt``,
+``chaos_tenant_leak`` and the ``pool.release_drop`` point in
+``release``, each a no-op unless its fault point is armed, each
+corrupting the host state (claims, refcounts, free list) that
+``audit()`` or ``audit_tenants`` must catch. ``pool_fork_partial``
 copies the partial pages a beam fork diverges on, and
 ``beam_table_reorder`` is the fused beam round's page-table reorder
 (int32 table math on the device). ``pool_insert`` writes
@@ -46,11 +52,12 @@ from __future__ import annotations
 import bisect
 import ctypes
 import functools
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ...common import faultpoints as fp
+from ...common import lockdep, ownwit
 from ..ops import NEG_INF
 from . import _build
 from .decode_attention import vector_layout, vector_path
@@ -127,6 +134,10 @@ class KVPool:
     The lock guards the free list, the claims and the refcounts against
     readers on other threads (the server's admission reads free pages
     while the device worker claims).
+
+    Under ``MARIAN_OWNWIT=1`` (read once, here) every verb records its
+    call site with the ownership witness; the pool's one token names it
+    there.
     """
 
     def __init__(self, n_pages: int, page_len: int = DEFAULT_PAGE_LEN,
@@ -137,7 +148,9 @@ class KVPool:
         self.n_pages = int(n_pages)
         self.page_len = int(page_len)
         self.max_pages_per_row = int(max_pages_per_row) or (n_pages - 1)
-        self._lock = threading.Lock()
+        self._ownwit = ownwit.enabled()
+        self._ownwit_tok = ownwit.new_token() if self._ownwit else 0
+        self._lock = lockdep.make_lock("KVPool._lock")
         # LIFO free list, low pages first out: replays are deterministic
         self._free: List[int] = list(range(self.n_pages - 1, 0, -1))
         self._claims: Dict[object, List[int]] = {}
@@ -191,6 +204,8 @@ class KVPool:
                 self._refs[p] = 1
             self._claims[owner] = pages
             self._stats["claimed"] += n
+        if self._ownwit:
+            ownwit.note_acquire("kv-pages", self._ownwit_tok, owner)
         return list(pages)
 
     def claim_extra(self, owner, n: int = 1,
@@ -216,6 +231,8 @@ class KVPool:
                 self._refs[p] = 1
             held.extend(pages)
             self._stats["claimed"] += n
+        if self._ownwit:
+            ownwit.note_acquire("kv-pages", self._ownwit_tok, owner)
         return list(pages)
 
     def share(self, owner, pages: Sequence[int],
@@ -239,6 +256,8 @@ class KVPool:
                 self._refs[int(p)] += 1
                 held.append(int(p))
             self._stats["aliased"] += len(pages)
+        if self._ownwit:
+            ownwit.note_acquire("kv-pages", self._ownwit_tok, owner)
 
     def retable(self, owner, new_pages: Sequence[int]) -> int:
         """Rewrite ``owner``'s reference list to ``new_pages`` (all of
@@ -246,6 +265,7 @@ class KVPool:
         An empty list drops the owner."""
         new_list = [int(p) for p in new_pages]
         with self._lock:
+            owner_existed = owner in self._claims
             old_list = self._claims.get(owner, [])
             if len(new_list) > self.max_pages_per_row:
                 raise PoolExhausted(
@@ -273,6 +293,13 @@ class KVPool:
                 self._claims[owner] = new_list
             else:
                 self._claims.pop(owner, None)
+        if self._ownwit:
+            if new_list:
+                # kept or made: the retable site holds references now
+                ownwit.note_acquire("kv-pages", self._ownwit_tok, owner)
+            elif owner_existed:
+                # a retable to empty is the beam engine's release
+                ownwit.note_release("kv-pages", self._ownwit_tok, owner)
         return freed
 
     def transfer(self, src_owner, dst_owner) -> List[int]:
@@ -286,13 +313,24 @@ class KVPool:
             if not pages:
                 return []
             self._claims[dst_owner] = pages
+        if self._ownwit:
+            ownwit.note_transfer("kv-pages", self._ownwit_tok, src_owner,
+                                 dst_owner)
         return list(pages)
 
     def release(self, owner) -> int:
         """Drop every reference ``owner`` holds (freeing pages whose last
         reference drops); returns the references dropped. An owner that
         holds nothing (released twice, or after a transfer) raises
-        ``ValueError``: the caller's bookkeeping has diverged."""
+        ``ValueError``: the caller's bookkeeping has diverged.
+
+        The ``pool.release_drop`` drill: an armed 'fail' makes this
+        release do nothing, the suppressed-release leak, so the ownership
+        witness and the auditors are held against a real one."""
+        try:
+            fp.fault_point("pool.release_drop")
+        except fp.InjectedFault:
+            return 0
         with self._lock:
             pages = self._claims.pop(owner, None)
             if pages is None:
@@ -308,6 +346,8 @@ class KVPool:
                     del self._refs[p]
                     self._free.append(p)
                     self._stats["freed"] += 1
+        if self._ownwit:
+            ownwit.note_release("kv-pages", self._ownwit_tok, owner)
         return len(pages)
 
     def pages_of(self, owner) -> List[int]:
@@ -395,6 +435,61 @@ class KVPool:
                          f"{len(free)} free + {len(refs)} live of "
                          f"{self.usable_pages} allocatable")
         return v
+
+    # -- corruption drills: no-ops unless their fault point is armed ---------
+    def chaos_double_free(self) -> None:
+        """The ``pool.double_free`` drill: an armed 'fail' re-frees one
+        still-claimed owner's pages, the real double-free state, so the
+        auditor is held against corruption, not a mocked report. Kill
+        and hang act as at any other crossing."""
+        try:
+            fp.fault_point("pool.double_free")
+        except fp.InjectedFault:
+            with self._lock:
+                for pages in self._claims.values():
+                    if pages:
+                        self._free.extend(reversed(pages))
+                        break
+
+    def chaos_refcount_corrupt(self) -> None:
+        """The ``pool.refcount_corrupt`` drill: an armed 'fail' bumps one
+        live page's refcount without a table reference (the
+        lost-decref/phantom-incref class of the copy-on-write verbs)."""
+        try:
+            fp.fault_point("pool.refcount_corrupt")
+        except fp.InjectedFault:
+            with self._lock:
+                for p in sorted(self._refs):
+                    self._refs[p] += 1
+                    break
+
+    def chaos_tenant_leak(self) -> None:
+        """The ``tenant.page_leak`` drill: an armed 'fail' moves one page
+        reference from a claim list of one tenant into one of another.
+        No refcount changes, so :meth:`audit` stays clean by
+        construction and only ``serving/fleet/accounting.py::
+        audit_tenants`` can catch it. A no-op on a pool holding claims
+        of fewer than two tenants."""
+        try:
+            fp.fault_point("tenant.page_leak")
+        except fp.InjectedFault:
+            from ...serving.fleet import accounting as acc   # lazy: leaf
+            with self._lock:
+                by_tenant: Dict[str, List[object]] = {}
+                for owner in self._claims:
+                    t = acc.tenant_of_owner(owner)
+                    if t:
+                        by_tenant.setdefault(t, []).append(owner)
+                tenants = sorted(by_tenant)
+                for src_t in tenants:
+                    src = next((o for o in by_tenant[src_t]
+                                if self._claims[o]), None)
+                    dst_t = next((t for t in tenants if t != src_t), None)
+                    if src is None or dst_t is None:
+                        continue
+                    dst = by_tenant[dst_t][0]
+                    self._claims[dst].append(self._claims[src].pop())
+                    return
 
 
 # ---------------------------------------------------------------------------

@@ -185,9 +185,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """L2 norm over a dict of gradients, in f32."""
+    """L2 norm over a dict of gradients, in f32, summed in key order (the
+    order of JAX's ``tree_leaves``): a dict built from a checkpoint lists
+    its names sorted, a fresh init in creation order, and the sum must
+    not depend on which, or a resumed run drifts from an uninterrupted
+    one in the last bits."""
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+                          for _, g in sorted(tree.items())))
 
 
 def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float,

@@ -19,11 +19,11 @@ start of a drain land on the obs timeline (``admission.shed``,
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Optional
 
 from .. import obs
+from ..common import lockdep
 from . import metrics as msm
 
 
@@ -54,7 +54,7 @@ class AdmissionController:
         self.pages_fn = pages_fn
         # the transports admit on the event-loop thread; begin_drain may
         # come from another (a signal handler, an embedding program)
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("AdmissionController._lock")
         self._draining = False
         self._drain_started: Optional[float] = None
         # the brownout ladder's rung: written by its evaluator thread,

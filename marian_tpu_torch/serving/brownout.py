@@ -37,8 +37,8 @@ a flight-recorder dump, so the incident is captured while it unfolds.
 The evaluator runs on its own daemon thread (like the SLO engine);
 nothing here touches the batch path. Effects go through ``apply_fn``
 (the server wires the scheduler's and admission's level setters), called
-outside the controller's lock. The lock is a plain ``threading.Lock``:
-the port has no lock-order witness yet (ROADMAP A6b-2, the test hooks).
+outside the controller's lock, ``BrownoutController._lock``
+(``lockdep.make_lock``).
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ import time
 from typing import Callable, Dict, Optional
 
 from .. import obs
+from ..common import lockdep
 from ..common import logging as log
 
 LEVEL_NAMES = ("normal", "tighten", "evict", "shed")
@@ -83,7 +84,7 @@ class BrownoutController:
         self.interval = max(0.05, float(interval))
         self.max_level = max(1, min(3, int(max_level)))
         self.clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("BrownoutController._lock")
         self._level = 0                                 # guarded by _lock
         self._pressure_since: Optional[float] = None    # guarded by _lock
         self._healthy_since: Optional[float] = None     # guarded by _lock

@@ -40,8 +40,9 @@ Requests pick their tenant with the ``#model:<tag>`` protocol header
 resolves the executor through :meth:`FleetManager.executor_for` a batch,
 so a hot swap inside one tenant stays atomic at batch granularity.
 
-The fleet's lock is a plain ``threading.Lock`` (the port has no
-lock-order witness yet).
+The fleet's lock is ``FleetManager._lock`` (``lockdep.make_lock``); a
+tenant's ``warm_lock`` stays a plain ``threading.Lock``, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from ... import obs
+from ...common import lockdep
 from ...common import logging as log
 from ...obs import slo as mslo
 from ...training import bundle as bdl
@@ -172,7 +174,7 @@ class FleetManager:
         # tenant's claims through the per-tenant grouping, nothing else
         self.kv_pool = kv_pool
         self.clock = clock
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("FleetManager._lock")
         self._tenants: Dict[str, _Tenant] = {
             s.tag: _Tenant(s) for s in specs}
         self._slos: Dict[str, mslo.SloEngine] = {}

@@ -49,8 +49,9 @@ Observability: every registry transition and the rejected, warming,
 warmup-failed, canary and swap steps land on the obs timeline
 (``lifecycle.*`` events); ``route`` stamps the routed version onto the
 device call's span (``obs.set_attrs``); a canary, live or manual
-rollback fires the flight recorder. Not carried yet: the reference's
-fault points (the test hooks' plane).
+rollback fires the flight recorder. The reference's fault points sit
+where it has them: ``lifecycle.swap`` before the swap,
+``lifecycle.rollback`` before a canary or live rollback.
 """
 
 
@@ -58,11 +59,12 @@ from __future__ import annotations
 
 import collections
 import os
-import threading
 import time
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 from ... import obs
+from ...common import faultpoints as fp
+from ...common import lockdep
 from ...common import logging as log
 from ...training import bundle as bdl
 from .. import metrics as msm
@@ -132,7 +134,7 @@ class SwapController:
         # rollback) holds it end-to-end — decision AND registry
         # transition — so a promotion racing a supersede cannot
         # interleave; readers still take it only for snapshots.
-        self._lock = threading.RLock()
+        self._lock = lockdep.make_rlock("SwapController._lock")
         self._live: Optional[reg.ModelVersion] = None      # guarded-by: _lock
         self._canary: Optional[reg.ModelVersion] = None    # guarded-by: _lock
         # the newest retired version, kept warm as the rollback target
@@ -426,7 +428,7 @@ class SwapController:
     def _swap_to_live(self, v: reg.ModelVersion) -> None:
         """THE swap: re-point dispatch at ``v`` between batches. The old
         live version retires into the rollback slot (kept warm)."""
-        # the test hooks' plane brings the lifecycle.swap fault point
+        fp.fault_point("lifecycle.swap")
         with self._lock:
             self.registry.transition(v.seq, reg.LIVE)
             old = self._live
@@ -596,7 +598,7 @@ class SwapController:
 
     def _rollback_canary(self, canary: reg.ModelVersion,
                          reason: str) -> None:
-        # the test hooks' plane brings the lifecycle.rollback fault point
+        fp.fault_point("lifecycle.rollback")
         with self._lock:
             live = self._live
             self.registry.transition(canary.seq, reg.FAILED, reason)
@@ -663,6 +665,7 @@ class SwapController:
     def _rollback_to(self, prev: reg.ModelVersion,
                      cur: reg.ModelVersion, reason: str,
                      auto: bool) -> None:
+        fp.fault_point("lifecycle.rollback")
         with self._lock:
             self.registry.transition(cur.seq,
                                      reg.FAILED if auto else reg.RETIRED,

@@ -36,10 +36,10 @@ side would refuse to resume from.
 from __future__ import annotations
 
 import os
-import threading
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 from ... import obs
+from ...common import lockdep
 from ...common import logging as log
 from ...training import bundle as bdl
 
@@ -127,7 +127,7 @@ class ModelRegistry:
     HTTP thread all read it; only controller code transitions it."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("ModelRegistry._lock")
         self._versions: Dict[int, ModelVersion] = {}   # guarded-by: _lock
 
     def register(self, seq: int, name: str, bundle_dir: str = "",

@@ -39,6 +39,7 @@ import collections
 import time
 from typing import Callable, Dict, List, Optional
 
+from ...common import faultpoints as fp
 from ...common import logging as log
 from ...data.batching import DEFAULT_LENGTH_BUCKETS, bucket_length
 from ...training import bundle as bdl
@@ -164,8 +165,7 @@ def warm_executor(bundle_dir: str, manifest: Optional[Dict],
                   golden: List[str]) -> Callable[[List[str]], List[str]]:
     """Steps 2+3: build the executor and golden-smoke it. Returns the
     warmed ``translate_lines``; raises WarmupError on any failure."""
-    # the test hooks' plane brings the reference's lifecycle.warmup
-    # fault point
+    fp.fault_point("lifecycle.warmup")
     t0 = time.perf_counter()
     try:
         executor = executor_factory(bundle_dir, manifest)

@@ -32,6 +32,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from ...common import faultpoints as fp
 from ...common import logging as log
 from ...training import bundle as bdl
 
@@ -123,6 +124,7 @@ class BundleWatcher:
         if not fresh:
             self._last_mtime_ns = mtime_ns
             return None
+        fp.fault_point("lifecycle.watch")
         # newest VALID wins: a damaged newest bundle (immutable — it
         # will not heal) is skipped loudly but must not shadow a valid
         # bundle committed just below it

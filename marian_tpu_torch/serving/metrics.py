@@ -3,9 +3,9 @@ copy of ``marian_tpu/serving/metrics.py`` (the port imports nothing of
 the JAX package): the same series names, help texts, labels and text,
 so one dashboard reads either package's server.
 
-Stdlib only — ``http.server`` for the endpoint, ``threading.Lock`` for
-safety across the asyncio loop, the device worker thread, the bundle
-watcher and the scraping thread.
+Stdlib only — ``http.server`` for the endpoint, ``lockdep.make_lock``
+locks for safety across the asyncio loop, the device worker thread, the
+bundle watcher and the scraping thread.
 
 Exposition format: https://prometheus.io/docs/instrumenting/exposition_formats/
 (text format 0.0.4 — the stable plain-text one).
@@ -20,6 +20,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..common import lockdep
 from ..common import logging as log
 
 # Default histogram buckets: latency-shaped (seconds), 1ms..60s. Chosen so
@@ -61,7 +62,7 @@ class _Metric:
         self.name = name
         self.help = help_
         self.label_names = tuple(labels)
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("_Metric._lock")
         self._children: Dict[Tuple[str, ...], "_Metric"] = {}
 
     def labels(self, *values: str) -> "_Metric":
@@ -275,7 +276,7 @@ class Registry:
     Translate in one process must not collide)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("Registry._lock")
         self._metrics: Dict[str, _Metric] = {}
 
     def _get_or_create(self, cls, name: str, help_: str, **kw) -> _Metric:

@@ -97,6 +97,8 @@ import weakref
 from typing import Callable, Deque, Dict, List, Optional
 
 from .. import obs
+from ..common import faultpoints as fp
+from ..common import lockdep
 from ..common import logging as log
 from ..data.batching import bucket_length, over_budget, padded_batch_cost
 from ..translator.iteration import FATAL_REASONS, release_sync_guard
@@ -302,7 +304,8 @@ class ContinuousScheduler:
         # admission from other threads, hence the lock
         self._lanes: Dict[int, Deque[_Unit]] = collections.defaultdict(
             collections.deque)
-        self._state_lock = threading.Lock()
+        self._state_lock = lockdep.make_lock(
+            "ContinuousScheduler._state_lock")
         self._queued = 0                  # guarded by _state_lock
         self._queued_pages = 0            # guarded by _state_lock
         # units in lanes whose request already resolved: still queued
@@ -915,6 +918,7 @@ class ContinuousScheduler:
             return out_
 
         def _device_call():
+            fp.fault_point("serving.translate")
             if bspan is None:
                 return _call_translate()
             # this runs on the device worker thread, outside the event
@@ -932,6 +936,9 @@ class ContinuousScheduler:
                     obs.end(sp)
 
         try:
+            # inside the try: an injected dispatch failure takes the
+            # normal failure path (the futures fail, none hangs)
+            fp.fault_point("serving.dispatch")
             call = loop.run_in_executor(self._executor, _device_call)
             out = await self._guarded(call)
             if out is _STALLED:
@@ -1174,13 +1181,18 @@ class ContinuousScheduler:
                 quiescing=q is not None)
         self._inflight += 1
         try:
+            fp.fault_point("serving.dispatch")
             # per-row join meta: the sentence's index in its request
             # (n-best numbering) and whether the request streams
-            call = loop.run_in_executor(
-                self._executor, engine.admit_and_step,
-                [(u, u.text, {"sid": u.idx,
-                              "stream": u.req.on_partial is not None})
-                 for u in joins], evicts)
+            payload = [(u, u.text, {"sid": u.idx,
+                                    "stream": u.req.on_partial is not None})
+                       for u in joins]
+
+            def _round():
+                fp.fault_point("serving.translate")
+                return engine.admit_and_step(payload, evicts)
+
+            call = loop.run_in_executor(self._executor, _round)
             res = await self._guarded(call)
             if res is _STALLED:
                 del engine          # the rebuild must not find it held
@@ -1317,9 +1329,9 @@ class ContinuousScheduler:
         """The engine reached an empty join set with zero active rows:
         audit the outgoing engine (zero leaked pages is the contract),
         run the install (which may re-point self.engine), audit the
-        incoming engine, resume joins."""
-        # the test hooks' plane brings the reference's serving.quiesce
-        # fault point here
+        incoming engine, resume joins. The serving.quiesce fault point
+        sits before the install: its kill is the kill-mid-quiesce drill."""
+        fp.fault_point("serving.quiesce")
         if q.cancelled:
             # the waiter gave up and withdrew the op mid-drain: do NOT
             # install (the target may already be released); just resume

@@ -38,9 +38,11 @@ unknown. ``add_commit_hook`` lets an in-process consumer (a serving
 lifecycle sharing the trainer's process) be notified of each committed
 bundle without polling the directory.
 
-Not carried: the reference's compiled-program cache member
-(``xla_cache.zip``, XLA machinery) and its fault points (the test hooks'
-plane; the port's tests inject the same failures with stubs).
+The reference's fault points sit where it has them:
+``ckpt.write.<member>`` before each member, ``ckpt.write.manifest``,
+``ckpt.commit`` before the rename and ``ckpt.publish`` after it. Not
+carried: the reference's compiled-program cache member
+(``xla_cache.zip``, XLA machinery).
 """
 
 
@@ -53,6 +55,7 @@ import re
 import shutil
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..common import faultpoints as fp
 from ..common import logging as log
 
 BUNDLE_SUFFIX = ".bundles"
@@ -258,6 +261,7 @@ def write_bundle(model_path: str,
         manifest["compat"] = compat
     try:
         for rel, write in members.items():
+            fp.fault_point(_member_fault_name(rel))
             abs_path = os.path.join(stage, rel)
             write(abs_path)
             _fsync_file(abs_path)
@@ -272,18 +276,21 @@ def write_bundle(model_path: str,
             # REPLACE the top-level file (numpy/save_items temp+rename)
             # are unaffected — they mint a new inode.
             os.chmod(abs_path, 0o444)
+        fp.fault_point("ckpt.write.manifest")
         mpath = os.path.join(stage, MANIFEST_NAME)
         with open(mpath, "w", encoding="utf-8") as fh:
             json.dump(manifest, fh, indent=1, sort_keys=True)
             fh.flush()
             os.fsync(fh.fileno())
         _fsync_dir(stage)
+        fp.fault_point("ckpt.commit")
         final = os.path.join(root, f"bundle-{seq:08d}")
         os.replace(stage, final)              # THE commit point
         _fsync_dir(root)
     except BaseException:
         shutil.rmtree(stage, ignore_errors=True)
         raise
+    fp.fault_point("ckpt.publish")
     _publish(model_path, final, manifest)
     rotate(root, keep)
     for hook in list(_COMMIT_HOOKS):
@@ -293,6 +300,15 @@ def write_bundle(model_path: str,
             log.warn("bundle commit hook {} failed: {}",
                      getattr(hook, "__name__", hook), e)
     return final
+
+
+def _member_fault_name(rel: str) -> str:
+    """A member file's catalog fault point."""
+    if rel.endswith(".optimizer.npz"):
+        return "ckpt.write.optimizer"
+    if rel.endswith(".progress.yml"):
+        return "ckpt.write.progress"
+    return "ckpt.write.model"
 
 
 def _publish(model_path: str, bundle_dir: str, manifest: Dict) -> None:

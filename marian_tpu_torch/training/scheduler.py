@@ -7,15 +7,26 @@ line keeps Marian's greppable format:
 
 Ep. 1 : Up. 1000 : Sen. 12,345 : Cost 4.52 : Time 12.3s : 45000.0 words/s
 
-Trimmed: logical epochs, TensorBoard and divergence handling.
+The trainer emits into the process-wide metrics registry the server
+scrapes, under the reference's names: ``marian_train_cost``,
+``marian_train_words_per_second``, ``marian_train_learn_rate``,
+``marian_train_updates_total``, ``marian_train_labels_total`` and
+``marian_train_updates_skipped_total`` (updates --check-gradient-nan
+skipped, read at the display boundary's sync), and each display window
+feeds ``obs.PERF.record_train_window``. ``--tensorboard DIR`` writes
+the display's scalars through ``torch.utils.tensorboard``.
+
+Trimmed: logical epochs and the divergence policies (--on-divergence,
+--divergence-skip-window).
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import Optional
+from typing import List, Optional
 
+from .. import obs
 from ..common import logging as log
 from ..common.scheduling_parameter import SchedulingParameter, SchedulingUnit
 from .training_state import TrainingState
@@ -44,6 +55,61 @@ class Scheduler:
         self.disp_label_counts = bool(options.get("disp-label-counts", False))
         self.cost_type = options.get("cost-type", "ce-sum")
         self._reset_window()
+        # the trainer's series in the registry the server scrapes too;
+        # get-or-create, so a second Scheduler in one process is safe
+        from ..serving import metrics as msm
+        self._m_cost = msm.gauge(
+            "marian_train_cost", "Displayed training cost (per cost-type)")
+        self._m_wps = msm.gauge(
+            "marian_train_words_per_second",
+            "Training throughput over the last display window")
+        self._m_lr = msm.gauge(
+            "marian_train_learn_rate", "Current learning rate")
+        self._m_updates = msm.counter(
+            "marian_train_updates_total", "Optimizer updates applied")
+        self._m_labels = msm.counter(
+            "marian_train_labels_total", "Target labels consumed")
+        self._m_skipped = msm.counter(
+            "marian_train_updates_skipped_total",
+            "Updates skipped by --check-gradient-nan (params and optimizer "
+            "state reverted; non-finite gradient)")
+        # (update number, device 0/1 flag) of --check-gradient-nan, read
+        # at the display boundary, never with a sync of its own
+        self._pending_skips: List = []
+        self._skip_warned = False
+        # --tensorboard DIR: the display's scalars through torch's
+        # SummaryWriter; an unavailable writer degrades to a warning
+        self._tb = None
+        tb_dir = options.get("tensorboard", None)
+        if tb_dir is not None:
+            if not tb_dir:
+                # a bare --tensorboard is on (as --profile): beside the model
+                tb_dir = str(options.get("model", "model.npz")) + ".tb"
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(log_dir=str(tb_dir))
+            except Exception as e:  # noqa: BLE001 — optional extra
+                log.warn("--tensorboard unavailable ({}); scalars "
+                         "disabled", e)
+
+    def _tb_scalar(self, tag: str, value: float, step: int) -> None:
+        if self._tb is not None:
+            try:
+                self._tb.add_scalar(tag, value, step)
+            except Exception:  # noqa: BLE001 — never kill training for TB
+                pass
+
+    def close(self) -> None:
+        """Resolve the last skip flags, then flush and close the
+        TensorBoard writer (its event thread buffers scalars, which
+        would be lost at exit)."""
+        self.drain_skips()
+        if self._tb is not None:
+            try:
+                self._tb.close()
+            except Exception:  # noqa: BLE001
+                pass
+            self._tb = None
 
     def _reset_window(self) -> None:
         self._cost_sum = 0.0
@@ -78,17 +144,24 @@ class Scheduler:
 
     # -- per-update bookkeeping (reference: Scheduler::update) ---------------
     def update(self, loss_sum, labels: float, sentences: int,
-               src_words: float = 0.0, lr: Optional[float] = None) -> None:
+               src_words: float = 0.0, lr: Optional[float] = None,
+               skipped=None) -> None:
         """``loss_sum`` may be a device scalar: it is only accumulated
         here and read at the display boundary, so the loop does not wait
-        for the device every update."""
+        for the device every update. ``skipped`` is the update's 0/1
+        --check-gradient-nan flag (None with the guard off), queued and
+        read at that boundary too."""
         s = self.state
         s.batches += 1
         s.batches_epoch += 1
         s.samples_epoch += sentences
         s.labels_total += int(labels)
+        self._m_updates.inc()
+        self._m_labels.inc(int(labels))
         if lr is not None:
             s.eta = float(lr)
+        if skipped is not None:
+            self._pending_skips.append((s.batches, skipped))
         self._cost_sum = self._cost_sum + loss_sum
         self._label_sum += labels
         self._words_sum += (src_words or labels)
@@ -110,10 +183,30 @@ class Scheduler:
                 (s.labels_total - self._label_sum) // freq.n)
         return False  # epoch-based: new_epoch
 
+    def drain_skips(self) -> None:
+        """Read the queued --check-gradient-nan flags into
+        ``marian_train_updates_skipped_total``; the first skip also
+        logs a warning."""
+        pending, self._pending_skips = self._pending_skips, []
+        for batch, flag in pending:
+            if float(flag) <= 0.5:
+                continue
+            self._m_skipped.inc()
+            if not self._skip_warned:
+                self._skip_warned = True
+                log.warn("Update {} skipped: non-finite gradient "
+                         "(--check-gradient-nan kept params and optimizer "
+                         "state; counted in "
+                         "marian_train_updates_skipped_total)", batch)
+
     def _display(self) -> None:
         s = self.state
         cost_sum = float(self._cost_sum)       # the one deferred device read
+        # the clock is read AFTER that read: it waited for every update
+        # of the window, so words/s and the perf window divide by the
+        # time the card really took, not by the time to queue the work
         dt = max(time.perf_counter() - self._timer, 1e-9)
+        self.drain_skips()                     # the read above fenced them
         if self.cost_type in ("ce-mean-words", "ce-sum"):
             cost = cost_sum / max(self._label_sum, 1.0)
         elif self.cost_type == "perplexity":
@@ -131,6 +224,16 @@ class Scheduler:
         if self.lr_report:
             line += f" : L.r. {s.eta:.4e}"
         log.info("{}", line)
+        self._tb_scalar("train/cost", cost, s.batches)
+        self._tb_scalar("train/words_per_sec", wps, s.batches)
+        self._tb_scalar("train/learn_rate", s.eta, s.batches)
+        self._tb_scalar("train/epoch", s.epochs + 1, s.batches)
+        self._m_cost.set(cost)
+        self._m_wps.set(wps)
+        self._m_lr.set(s.eta)
+        obs.PERF.record_train_window(labels=self._label_sum,
+                                     src_words=self._words_sum,
+                                     sentences=self._sent_sum, dt=dt)
         self._reset_window()
 
     # -- triggers ------------------------------------------------------------

@@ -38,6 +38,17 @@ Mixed precision as the reference runs it: --precision bfloat16 (or
 weights, which the optimizer updates and the checkpoint saves in f32;
 --precision's second value is accepted and not acted on.
 
+Observability, as the reference wires it: ``obs.configure`` (--trace,
+--trace-dump, --perf-accounting), the perf plane's geometry for the
+train MFU gauge (the card's peak for the compute dtype; 0 on the CPU),
+``--metrics-port`` serving the trainer's series and ``/tracez``, a
+``StepTimer`` over the phases ``data``, ``dispatch`` and ``host`` (with
+--trace-sync-phases it synchronizes the card at every boundary), a
+``TraceWindow`` (--profile) and the phase report at the end. The
+``train.nan_grad`` fault point is crossed for every batch: armed 'fail'
+poisons that batch's target mask with NaN through the full backward,
+which --check-gradient-nan must skip.
+
 Runs on the card unless the CPU is asked for (--cpu-threads N, or
 device="cpu" from Python); without a card it raises.
 """
@@ -49,6 +60,8 @@ from typing import Optional, Union
 
 import torch
 
+from .. import obs
+from ..common import faultpoints as fp
 from ..common import io as mio
 from ..common import logging as log
 from ..common import signal_handling
@@ -58,6 +71,8 @@ from ..data.vocab import DefaultVocab, create_vocab
 from ..device import resolve_device
 from ..models import transformer as T
 from ..models.encoder_decoder import batch_to_arrays, create_model
+from ..obs.profiling import StepTimer, TraceWindow
+from ..serving.metrics import maybe_start_metrics_server
 from . import bundle as bdl
 from .checkpoint import load_checkpoint, save_checkpoint
 from .graph_group import GraphGroup, delay_of
@@ -85,6 +100,8 @@ _UNPORTED = {
     "output-omit-bias": False,
     "transformer-depth-scaling": False,
     "auto-tune": False,
+    # a live jax.profiler server: torch.profiler has no counterpart
+    "profile-server": 0,
 }
 
 
@@ -141,6 +158,8 @@ class Train:
             device, int(options.get("cpu-threads", 0) or 0))
         self.graph_group: Optional[GraphGroup] = None
         self.state: Optional[TrainingState] = None
+        self.metrics_server = None      # --metrics-port; lives to exit
+        self.step_phases = {}           # StepTimer.report() at the end
 
     def run(self) -> None:
         opts = self.options
@@ -243,6 +262,45 @@ class Train:
                     do_save(suffix=".best-" + v.name)
             scheduler.maybe_decay_lr(gg.schedule, gg)
 
+        # observability: --trace records the loop's phase spans into the
+        # tracer serving uses, --trace-dump arms the flight recorder (an
+        # armed fault point's kill dumps the ring first)
+        obs.configure(opts)
+        if obs.PERF.enabled:
+            precision = opts.get("precision", ["float32"]) or ["float32"]
+            obs.PERF.set_geometry(
+                emb=int(opts.get("dim-emb", 512)),
+                ffn=int(opts.get("transformer-dim-ffn", 2048)),
+                enc_depth=int(opts.get("enc-depth", 6)),
+                dec_depth=int(opts.get("dec-depth", 6)),
+                vocab=len(vocabs[-1]),
+                device_kind=(torch.cuda.get_device_name(self.device)
+                             if self.device.type == "cuda" else None),
+                compute_dtype=str(precision[0]))
+        self.metrics_server = maybe_start_metrics_server(
+            opts, routes=obs.trace_routes())
+        # --trace-sync-phases: drain the card at every phase boundary, so
+        # each phase holds the device time it caused (obs/profiling.py)
+        sync = bool(opts.get("trace-sync-phases", False)) \
+            and self.device.type == "cuda"
+        stimer = StepTimer(
+            sync_fn=(lambda: torch.cuda.synchronize(self.device))
+            if sync else None)
+        trace = TraceWindow(opts, self.device)
+
+        def arrays(batch):
+            """The batch on the device, crossing ``train.nan_grad``: an
+            armed 'fail' poisons its target mask with NaN, a real
+            non-finite gradient through the full backward."""
+            a = batch_to_arrays(batch, self.device)
+            try:
+                fp.fault_point("train.nan_grad")
+            except fp.InjectedFault:
+                a["trg_mask"] = a["trg_mask"] * float("nan")
+                log.warn("FAULT train.nan_grad: target mask poisoned with "
+                         "NaN for update {}", state.batches + 1)
+            return a
+
         log.info("Training started")
         stop = False
         while scheduler.keep_going() and not stop:
@@ -250,30 +308,37 @@ class Train:
             # the reference's micro list starts empty each epoch: a group
             # short of --optimizer-delay at the epoch's end is dropped
             group = []
+            stimer.phase("data")
             for batch in BatchGenerator(corpus, opts):
                 n_batches += 1
                 group.append(batch)
                 if len(group) < gg.delay:
                     continue
                 step = state.batches + 1
-                out = gg.update([batch_to_arrays(b, self.device)
-                                 for b in group], step, generator, seed)
+                stimer.phase("dispatch")
+                trace.tick(step)
+                out = gg.update([arrays(b) for b in group], step,
+                                generator, seed)
+                stimer.phase("host")
                 if group[-1].corpus_state is not None:
                     last_corpus_state[0] = group[-1].corpus_state
                 scheduler.update(out.loss_sum, sum(b.words for b in group),
                                  sum(b.size for b in group),
                                  src_words=sum(b.src_words for b in group),
-                                 lr=gg.schedule(step))
+                                 lr=gg.schedule(step), skipped=out.skipped)
                 group = []
                 if scheduler.should_validate():
                     do_validate()
                 if scheduler.should_save():
                     do_save()
+                stimer.phase("data")
                 if signal_handling.signal_flag():
                     if opts.get("sigterm", "save-and-exit") == \
                             "exit-immediately":
                         log.info("Caught termination signal; exiting "
                                  "immediately (--sigterm exit-immediately)")
+                        trace.close()
+                        scheduler.close()
                         return
                     log.info("Caught termination signal; saving and exiting")
                     do_save()
@@ -288,6 +353,10 @@ class Train:
                                      "no batch (every sentence is longer "
                                      "than --max-length?)")
                 scheduler.new_epoch()
+        trace.close()
+        stimer.stop()
+        self.step_phases = stimer.report()   # the log line and the gauge
+        scheduler.close()        # the last skip flags, the TensorBoard flush
         log.info("Training finished")
         do_save()
 

@@ -81,6 +81,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import faultpoints as fp
 from ..data.vocab import EOS_ID, UNK_ID
 from ..models.transformer import fork_paged_rows
 from ..ops.kernels.kv_pool import (PoolExhausted, beam_table_reorder,
@@ -992,20 +993,38 @@ class PagedBeamEngine(PagedDecodeEngine):
         """Apply the device's final table to a continuing sentence as
         retable diffs: every page an old row references is held first
         (``("cow", key)``), so no retable frees a page before the row
-        that moves onto it takes its reference."""
+        that moves onto it takes its reference.
+
+        The ``beam.diff_corrupt`` drill: an armed 'fail' applies one live
+        slot's diff truncated by its last page to the pool while the
+        table mirror keeps the full row, the bad-device-diff class the
+        audit's table/claim check must catch this round."""
         key = sent.key
         tmp = ("cow", key)
         self.pool.share(tmp, list(dict.fromkeys(
             p for slot in sent.slots
             for p in self.pool.pages_of(self._owner(key, slot)))),
             row_cap=False)
+        corrupt = False
+        try:
+            fp.fault_point("beam.diff_corrupt")
+        except fp.InjectedFault:
+            corrupt = True
         for slot, h in zip(sent.slots, sent.hyps):
             if h.slot is None:
                 self._release_row(key, slot)
                 continue
             row = [int(p) for p in table[slot]]
             row = row[:row.index(0)] if 0 in row else row
-            self._retable_row(key, slot, row)
+            if corrupt and row:
+                # the pool takes the row short of its last page, the
+                # table mirror keeps the whole row
+                self.pool.retable(self._owner(key, slot), row[:-1])
+                self._table[slot, :] = 0
+                self._table[slot, :len(row)] = row
+                corrupt = False
+            else:
+                self._retable_row(key, slot, row)
             st = self._slots[slot]
             st.pos = sent.t
             st.expected_refs = len(row)

@@ -37,7 +37,10 @@ Decode rows are SLOTS over one shared paged KV pool
 Threading: ``admit_and_step`` runs on the serving scheduler's single
 device worker thread, and the event loop touches the engine only
 between rounds, so engine state has one thread at a time (the pool's
-own lock covers its readers). The grad mode and the current CUDA device
+own lock covers its readers). The reference's engine has a lock of its
+own (``PagedDecodeEngine._lock``) for the readers of its slots; the
+port's readers read the slot list without one, and the module's
+``_SYNC_LOCK`` is the only lock here. The grad mode and the current CUDA device
 are per thread, so ``admit_and_step`` enters ``torch.inference_mode``
 and the engine's device itself.
 
@@ -45,7 +48,11 @@ Determinism: joins take the LOWEST free slot in caller order, page
 claims pop a deterministic free list and idle slots write zeros into the
 trash page, so a replayed join/evict schedule gives identical outputs.
 With ``MARIAN_POOL_AUDIT=1`` every round ends with a full pool audit
-that raises :class:`PoolCorruption` on a violation.
+that raises :class:`PoolCorruption` on a violation. Every round starts
+by crossing the corruption drills (``pool.double_free``,
+``pool.refcount_corrupt``, ``pool.table_corrupt``): no-ops unless armed,
+armed they corrupt the pool's host state or the page table the round
+uploads to the card, so the audit is held against real corruption.
 
 Metrics (``_declare_metrics``, called by the serving scheduler with its
 registry): the pool's gauges are sampled at scrape time from the pool
@@ -68,6 +75,8 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..common import faultpoints as fp
+from ..common import lockdep
 from ..common import logging as log
 from ..data.vocab import EOS_ID
 from ..models.transformer import fork_paged_rows
@@ -98,7 +107,8 @@ FATAL_REASONS = ("src_too_long", "too_large")
 # loading or warming on the lifecycle's watcher thread) would raise
 # there: ``sync_exclusive`` bodies and other threads' guard bodies never
 # overlap.
-_SYNC_LOCK = threading.Lock()
+_SYNC_LOCK = lockdep.make_lock(
+    "marian_tpu_torch.translator.iteration._SYNC_LOCK")
 _SYNC_CHANGED = threading.Condition(_SYNC_LOCK)
 _sync_owner: Optional[List[int]] = None     # guarded by _SYNC_LOCK
 # thread id -> nesting depth of the sync_exclusive bodies it is in
@@ -455,6 +465,11 @@ class PagedDecodeEngine:
         stats0 = self.pool.stats()
         forks0 = self.counters["forks"]
         copied0 = self.counters["copied_pages"]
+        # the corruption drills (no-ops unless armed): real corrupt
+        # state for the audit below to catch
+        self.pool.chaos_double_free()
+        self.pool.chaos_refcount_corrupt()
+        self._chaos_table_corrupt()
         with self._on_device():
             for key in evicts:
                 self._evict(key)
@@ -1014,6 +1029,20 @@ class PagedDecodeEngine:
                      f"(pages leaked at row exit)")
         self._note_audit(v, context)
         return v
+
+    def _chaos_table_corrupt(self) -> None:
+        """The ``pool.table_corrupt`` drill: an armed 'fail' points one
+        active row's first page-table entry at the trash page while its
+        claim still names the real page. The host table is what the next
+        step uploads as the card's page table, so the kernel reads the
+        wrong page, and the audit's table/claim check must catch it."""
+        try:
+            fp.fault_point("pool.table_corrupt")
+        except fp.InjectedFault:
+            slot = next((i for i, s in enumerate(self._slots)
+                         if s is not None), None)
+            if slot is not None:
+                self._table[slot, 0] = 0
 
     def _note_audit(self, v: List[str], context: str) -> None:
         """Count one audit, keep its verdict for /poolz, report its

@@ -1,6 +1,6 @@
 """Cross-request prefix sharing over the paged KV pool, the port of
-``marian_tpu/translator/prefix_cache.py`` (``--prefix-cache``), behind a
-plain ``threading.Lock`` in place of the reference's lock witness. Its
+``marian_tpu/translator/prefix_cache.py`` (``--prefix-cache``), behind
+``PrefixCache._lock`` (``lockdep.make_lock``, as in the reference). Its
 ``counters`` dict moves with the reference's ``marian_prefix_*`` series
 once an engine declares them (``_declare_metrics``).
 
@@ -37,8 +37,9 @@ across a pool call.
 from __future__ import annotations
 
 import collections
-import threading
 from typing import Dict, List, Optional
+
+from ..common import lockdep
 
 
 class PrefixEntry:
@@ -60,7 +61,7 @@ class PrefixCache:
     def __init__(self, max_entries: int = 64, version: str = "unversioned"):
         self.max_entries = max(1, int(max_entries))
         self.version = str(version)
-        self._lock = threading.Lock()
+        self._lock = lockdep.make_lock("PrefixCache._lock")
         # insertion-ordered: move_to_end on a hit makes it the LRU list
         self._done: "collections.OrderedDict[tuple, PrefixEntry]" = \
             collections.OrderedDict()

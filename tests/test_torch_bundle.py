@@ -354,3 +354,15 @@ def test_trainer_flag_keeps_two(work):
     assert sorted(os.listdir(work / "keep2" / "m.npz.bundles")) == [
         "bundle-00000004", "bundle-00000005"]
     shutil.rmtree(work / "keep2")
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    trainer run in this process enables the port's perf plane (the
+    parser defaults --perf-accounting on), which would change what later
+    tests in the process see; disable it again after every test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()

@@ -165,3 +165,15 @@ def test_resume_across_packages(work, first, second):
         if not k.endswith("_bk"):
             np.testing.assert_allclose(b[k], a[k], rtol=PARAM_RTOL,
                                        atol=PARAM_ATOL, err_msg=k)
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    trainer run in this process enables the port's perf plane (the
+    parser defaults --perf-accounting on), which would change what later
+    tests in the process see; disable it again after every test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()

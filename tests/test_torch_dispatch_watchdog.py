@@ -301,3 +301,15 @@ def test_sync_debug_mode_is_handed_back_after_a_trip(monkeypatch):
     # the abandoned guard's late exit changed nothing
     assert modes[-1] == 0 and len(modes) == 3
     assert iteration.release_sync_guard() is False
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lock_witness():
+    """At the module's end: the port's witnessed locks (MARIAN_LOCKDEP=1,
+    tests/conftest.py) show no acquisition-order cycle, and every lock
+    name observed is one a ``make_lock``/``make_rlock`` literal declares."""
+    yield
+    from marian_tpu_torch.common import lockdep
+    if lockdep.enabled():
+        assert lockdep.observed_cycles() == []
+        assert lockdep.observed_nodes() <= lockdep.declared_names()

@@ -990,3 +990,15 @@ class TestOutcomeLabels:
         out = reg.get("marian_serving_request_outcomes_total")
         got = {k: c.value for k, c in out.children().items()}
         assert got[("timeout", "v")] == 1 and got[("cancelled", "v")] == 1
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lock_witness():
+    """At the module's end: the port's witnessed locks (MARIAN_LOCKDEP=1,
+    tests/conftest.py) show no acquisition-order cycle, and every lock
+    name observed is one a ``make_lock``/``make_rlock`` literal declares."""
+    yield
+    from marian_tpu_torch.common import lockdep
+    if lockdep.enabled():
+        assert lockdep.observed_cycles() == []
+        assert lockdep.observed_nodes() <= lockdep.declared_names()

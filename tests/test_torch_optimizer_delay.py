@@ -240,3 +240,15 @@ def test_short_group_at_epoch_end_is_dropped(tmp_path):
     assert tr.state.epochs == jstate["epochs"] == 1
     assert tr.state.batches == jstate["batches"] == 2
     assert tr.state.labels_total == jstate["labels_total"]
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    trainer run in this process enables the port's perf plane (the
+    parser defaults --perf-accounting on), which would change what later
+    tests in the process see; disable it again after every test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()

@@ -573,3 +573,15 @@ class TestServerSurface:
             ServingApp._validate_options(Options({
                 "batching-mode": "iteration", "beam-size": 8,
                 "iteration-rows": 4}))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lock_witness():
+    """At the module's end: the port's witnessed locks (MARIAN_LOCKDEP=1,
+    tests/conftest.py) show no acquisition-order cycle, and every lock
+    name observed is one a ``make_lock``/``make_rlock`` literal declares."""
+    yield
+    from marian_tpu_torch.common import lockdep
+    if lockdep.enabled():
+        assert lockdep.observed_cycles() == []
+        assert lockdep.observed_nodes() <= lockdep.declared_names()

@@ -258,3 +258,15 @@ def test_entry_point_raises_without_a_card(model, monkeypatch):
             "iteration", "--beam-size", "1", "--port", "0", "--quiet"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         marian_server.main(argv)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lock_witness():
+    """At the module's end: the port's witnessed locks (MARIAN_LOCKDEP=1,
+    tests/conftest.py) show no acquisition-order cycle, and every lock
+    name observed is one a ``make_lock``/``make_rlock`` literal declares."""
+    yield
+    from marian_tpu_torch.common import lockdep
+    if lockdep.enabled():
+        assert lockdep.observed_cycles() == []
+        assert lockdep.observed_nodes() <= lockdep.declared_names()

@@ -251,3 +251,15 @@ def test_tcp_replies_equal_the_jax_server(model, monkeypatch):
     assert got == want
     assert all(r and not r.startswith("!!") for r in got)
     assert [r.count("\n") for r in got] == [0, 1, 0, 2, 0, 0]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def lock_witness():
+    """At the module's end: the port's witnessed locks (MARIAN_LOCKDEP=1,
+    tests/conftest.py) show no acquisition-order cycle, and every lock
+    name observed is one a ``make_lock``/``make_rlock`` literal declares."""
+    yield
+    from marian_tpu_torch.common import lockdep
+    if lockdep.enabled():
+        assert lockdep.observed_cycles() == []
+        assert lockdep.observed_nodes() <= lockdep.declared_names()

@@ -172,3 +172,15 @@ def test_sigterm_saves_like_the_reference_and_resumes(work):
     ups = [int(u) for u in UPDATE.findall(
         (work / "resume.log").read_text())]
     assert ups == [done + 1, done + 2]
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    trainer run in this process enables the port's perf plane (the
+    parser defaults --perf-accounting on), which would change what later
+    tests in the process see; disable it again after every test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()

@@ -337,3 +337,15 @@ def test_trainers_validate_keep_best_and_stop_alike(dev, tmp_path):
     assert best == sorted(p.name.replace("jax", "X") for p in
                           tmp_path.glob("jax.best-*.npz"))
     assert best == ["X.best-cross-entropy.npz", "X.best-perplexity.npz"]
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    trainer run in this process enables the port's perf plane (the
+    parser defaults --perf-accounting on), which would change what later
+    tests in the process see; disable it again after every test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()
