@@ -19,8 +19,8 @@ card, and drives the port's main paths on data made from --seed:
   parameter changes; every save is a committed checkpoint bundle
   (train.npz.bundles: one a save, each validates, train.npz the newest
   one's model member byte for byte; a copy with that member truncated
-  restores from the bundle before it), and one save of a trained state
-  is timed as a bundle commit beside the same files written flat;
+  restores from the bundle before it; both runs --overwrite: no
+  iteration-numbered copies);
 - the model lifecycle (marian-server --model-watch 0.2, --metrics-port)
   in request mode on the copying weights' 2+2-layer cut (full width),
   committed as a bundle:
@@ -43,8 +43,9 @@ card, and drives the port's main paths on data made from --seed:
   sentences with the live engine's rounds under the sync guard (the
   candidate's load and golden decode on the watcher thread never
   overlap a guarded round);
-- the same training at --optimizer-delay 2 (two micro-batches of half
-  the words an update: twice the kernel launches), validated every 5
+- the same training on the 2+2 cut at full width (its warm-up in the
+  same run) at --optimizer-delay 2 (two micro-batches of half the words
+  an update: twice the kernel launches), validated every 5
   updates on a 64-line dev set from the seed (cross-entropy, bleu, chrf,
   translation: the validators decode through the beam search), with
   --keep-best and stall-driven --lr-decay: the validations fire where
@@ -53,9 +54,10 @@ card, and drives the port's main paths on data made from --seed:
   .best checkpoints, the .best files are written where a metric
   improved and the lr factor follows the stalls; the 2+2 cut at delay 2
   on the card and on the CPU within the f32 limits;
-- doc-level marian-train, transformer-big: documents of 1,023-2,047
-  words, 2 + 8 updates the same way, every attention through the flash
-  kernels; the trained checkpoint then decodes 4 documents at beam 6
+- doc-level marian-train, the 2+2 cut of transformer-big at full width:
+  documents of 1,023-2,047 words, 2 + 8 updates in one run (its save the
+  model file, which the decode reads), every attention through the
+  flash kernels; the trained checkpoint then decodes 4 documents at beam 6
   with a 1,024-position cache (doc-level marian-decoder); a 2+2-layer,
   dim-256 cut trains on documents past 1,024 tokens on the card and on
   the CPU (held as above) and decodes one with a cache past 442
@@ -179,14 +181,26 @@ card, and drives the port's main paths on data made from --seed:
   serving.translate=hang at twice --dispatch-stall-timeout trips the
   iteration watchdog once and 16 following requests are served; the
   witnessed locks show no acquisition-order cycle;
-- crash safety of the base train path (one batch a corpus window):
-  marian_train in a process of its own with
+- the chaos harness (scripts/torch_chaos.py) on the card, its processes
+  beside the doc card-vs-CPU phase: the fixed round on the harness's
+  kill-schedule config (the 2+2 cut of transformer-base at full width, 4
+  updates, a save every 2, one batch a corpus window): marian_train with
   MARIAN_FAULTS=ckpt.commit=kill@2 exits 117, its committed bundle
   validates and no staging directory is listed as one, its flight file
-  holds the fault plane; a restart resumes to an uninterrupted run's
-  (another process) progress and Adam step exactly and its parameters
-  byte for byte (or within the card's run-to-run spread, then printed);
-  both processes run beside the doc card-vs-CPU phase;
+  holds the fault plane; a restart in this process resumes to the
+  harness's uninterrupted run, parameters, optimizer state and progress
+  bit for bit; then the harness's seeded kill round (ckpt.async.worker
+  under --async-save), one --swap and one --swap --iteration round
+  (tiny model, iteration mode over a two-row pool under traffic), each
+  reported and each held to the harness's contract;
+- the transformer-base recipe: marian-train --task transformer-base
+  (6+6, dim 512, max-length 100, --mini-batch-fit) on lines of 1-99
+  words, the fit searching under a 24 GiB memory fraction (an
+  out-of-memory probe crossed, the card's allocated bytes back where
+  they were), then 6 updates with --mini-batch-warmup 4 (the budget
+  ramping), --mini-batch-track-lr and --dynamic-gradient-scaling 2 log:
+  losses and gradient norms finite, gstat:n saved equal to 6, the tiled
+  packed backward and the fused CE past 16,384 tokens counted;
 - the trainer's observability plane on the base train path, without
   and with --trace-sync-phases: /metrics at a display linted clean with
   the six trainer series, the phase gauge and the two train gauges,
@@ -202,7 +216,8 @@ card, and drives the port's main paths on data made from --seed:
   there at every length and the packed backward up to 64 tokens) held
   against their plain versions on the same
   bf16 operands;
-  transformer-base trained 2 + 10 updates and decoded (beam 6,
+  transformer-base trained 2 + 10 updates in one run (nothing saved:
+  no check reads it) and decoded (beam 6,
   the same sentences) in bf16; and bf16 on the card against bf16 on the
   CPU within PARITY_LIMITS_BF16: the 2+2 base and doc-level training
   cuts, and the 2+2 base decode by its step logits on the card's own
@@ -223,7 +238,9 @@ instantiations share a counter, over the paths of the row's type; the
 tensor-core kernels count on their wrappers' ``launches_bf16_tc``). The
 flash phase also runs head sizes the flash kernels are not built for
 (Dh 48, 80: zero-padded to 64, 128).
-Phases print their own lines; any failure ends the run with a non-zero
+Phases print their own lines, each with its seconds and the bytes the
+script and every process it started wrote meanwhile (WriteMeter), and a
+total before the kernel line; any failure ends the run with a non-zero
 exit and no result. The last line is
 {"ok": true, "device": {...}}; the line before it lists every kernel.
 
@@ -316,6 +333,10 @@ PER_UPDATE = {"packed_attention": 18, "packed_attention_bwd": 18,
               "flash_attention_fwd": 0, "flash_attention_dq": 0,
               "flash_attention_dkv": 0,
               "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
+# the 2+2 cut at full width (the delay path, the chaos harness's fixed
+# round): 2 encoder self + 2 decoder causal self + 2 cross attentions
+PER_UPDATE_2X2 = {**PER_UPDATE, "packed_attention": 6,
+                  "packed_attention_bwd": 6}
 # mixed precision (--precision bfloat16 float32, bench.py's presets'
 # precision): the same base training and decode in bf16 from f32 master
 # weights, the fused CE through its bf16 instantiations
@@ -344,7 +365,7 @@ F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
              "decode surface", "observability serve", "brownout serve",
              "fleet serve", "pool drills", "train", "crash resume",
-             "train obs", "lifecycle serve",
+             "train obs", "recipe train", "lifecycle serve",
              "lifecycle iteration", "delay train", "doc train",
              "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
@@ -382,6 +403,12 @@ DOC_PER_UPDATE = {"packed_attention": 0, "packed_attention_bwd": 0,
                   "flash_attention_fwd": 18, "flash_attention_dq": 18,
                   "flash_attention_dkv": 18,
                   "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
+# the doc train main path trains the 2+2 cut of transformer-big at full
+# width (a depth cut for the run's writes: its save, the model file the
+# doc decode reads, is a third of the 6+6's): 6 attentions an update
+DOC_DEPTH = ("--enc-depth", "2", "--dec-depth", "2")
+DOC_PER_UPDATE_2X2 = {**DOC_PER_UPDATE, "flash_attention_fwd": 6,
+                      "flash_attention_dq": 6, "flash_attention_dkv": 6}
 # the doc-level card-vs-CPU cut: 2+2 layers, dim 256, 4 heads (Dh 64)
 # (a gradient pass and 2 updates, 6 attentions each, all through flash:
 # in bf16 the forward, dq and dkv on the tensor cores)
@@ -479,15 +506,43 @@ LSE_TOL = 1e-5
 # the pool drills' watchdog: --dispatch-stall-timeout (seconds); the
 # armed serving.translate hang is twice it
 DRILL_STALL_S = 2.0
-# the crash-resume phase: the base train path for CRASH_UPDATES updates,
-# a save every CRASH_SAVE_FREQ in the killed run (ckpt.commit=kill@2: the
-# second save dies before its rename)
-CRASH_UPDATES, CRASH_SAVE_FREQ = 4, 2
+# the chaos harness phase (scripts/torch_chaos.py's kill-schedule
+# config, make_config: 4 updates, a save every 2, one batch a corpus
+# window, on the 2+2 cut of transformer-base at full width): the fixed
+# round first (ckpt.commit=kill@2, sync: the second save dies before its
+# rename), then CHAOS_KILL_ROUNDS seeded rounds of the harness at
+# CHAOS_KILL_SEED (its first: ckpt.async.worker=kill@1 under
+# --async-save), one --swap and one --swap --iteration round at
+# CHAOS_SWAP_SEED (lifecycle.warmup; serving.quiesce) on the reference's
+# tiny model
+CHAOS_UPDATES, CHAOS_SAVE_FREQ, CHAOS_FIXED = 4, 2, "ckpt.commit=kill@2"
+CHAOS_KILL_SEED, CHAOS_KILL_ROUNDS, CHAOS_SWAP_SEED = 159, 1, 0
+CHAOS_WAIT_S = 900
 # the train observability phase: OBS_TRAIN_UPDATES updates of the base
 # train path a run, a display every OBS_DISP: four windows, the profiler
 # on in the second (updates 3-4), its trace written in the third, the
 # fourth clean
 OBS_TRAIN_UPDATES, OBS_DISP = 8, 2
+# the recipe phase: marian-train --task transformer-base (6+6, dim 512,
+# max-length 100, --mini-batch-fit) for RECIPE_UPDATES updates on
+# RECIPE_LINES synthetic lines of 1-99 words, the batch ramped over
+# RECIPE_WARMUP updates; the fit searches within RECIPE_HBM_GIB of the
+# card's memory (torch.cuda.set_per_process_memory_fraction), where the
+# worst-case batch of the 131,072-word cap cannot fit, so the search
+# crosses an out-of-memory probe. --maxi-batch 1 --mini-batch
+# RECIPE_WINDOW: a window of that many sentences, so the ramp (read once
+# a window) reaches the full budget within the run
+RECIPE_UPDATES, RECIPE_WARMUP, RECIPE_LINES = 6, 4, 2000
+RECIPE_HBM_GIB, RECIPE_WINDOW = 24, 200
+RECIPE_FLAGS = ["--task", "transformer-base", "--after-batches",
+                str(RECIPE_UPDATES), "--mini-batch-warmup",
+                str(RECIPE_WARMUP), "--mini-batch-track-lr",
+                "--dynamic-gradient-scaling", "2", "log",
+                "--gradient-norm-average-window", "4", "--maxi-batch", "1",
+                "--mini-batch", str(RECIPE_WINDOW), "--overwrite",
+                "--seed", "1111", "--disp-freq", "1", "--quiet"]
+# memory_allocated before and after the fit's search, at most apart
+RECIPE_MEM_SLACK = 8 << 20
 # the port's kernels of rows 2, 3 and 7-9 (by their kernel-line names)
 # as the profiler trace names them: substrings of the CUDA kernels each
 # row's wrapper launches on the f32 base update
@@ -4889,14 +4944,11 @@ def model_bytes(params) -> int:
 
 
 class _OptimizerArrays:
-    """Stands in for a GraphGroup at a save or a restore: hands over (or
-    records) the optimizer arrays."""
+    """Stands in for a GraphGroup at a restore: records the optimizer
+    arrays."""
 
-    def __init__(self, arrays=None):
-        self.arrays = arrays
-
-    def optimizer_arrays(self):
-        return self.arrays
+    def __init__(self):
+        self.arrays = None
 
     def load_optimizer_arrays(self, arrays):
         self.arrays = {k: np.asarray(v) for k, v in arrays.items()}
@@ -4908,10 +4960,9 @@ def phase_train_bundles() -> None:
     counted run's, under the default keep of 3), each validates, the
     top-level ``train.npz`` is the newest bundle's model member byte for
     byte; a copy whose newest model member is truncated restores (what
-    a resume loads) from the bundle before it; and one save of that
-    state (model, EMA, Adam moments, progress) timed as a bundle commit
-    (stage, fsync, sha256, rename, publish) beside the same files
-    written flat."""
+    a resume loads) from the bundle before it. (The timing of one such
+    commit beside the same files written flat, 3.2-4.5 s against
+    1.1-1.5 in PERF.md, is no longer repeated: it wrote 2.4 GB a run.)"""
     import filecmp
     import shutil
     from marian_tpu_torch.common import io as mio
@@ -4931,15 +4982,17 @@ def phase_train_bundles() -> None:
     check(filecmp.cmp(newest / "train.npz", model, shallow=False),
           "the top-level train.npz differs from the newest bundle's member")
     members = sorted(manifest["members"])
-    # a crash copy (hardlinks; the newest model member a truncated copy)
+    # a crash copy (hardlinks; the newest model member cut to its first
+    # 4 KiB)
     crash = WORK / "crash"
     shutil.rmtree(crash, ignore_errors=True)
     crash.mkdir()
     shutil.copytree(root, crash / root.name, copy_function=os.link)
     victim = crash / root.name / names[-1] / "train.npz"
-    data = victim.read_bytes()
+    with open(victim, "rb") as fh:
+        head = fh.read(4096)
     victim.unlink()
-    victim.write_bytes(data[:len(data) // 2])
+    victim.write_bytes(head)
     opt = _OptimizerArrays()
     params, config, state = ckpt.load_checkpoint(str(crash / "train.npz"),
                                                  opt)
@@ -4950,37 +5003,13 @@ def phase_train_bundles() -> None:
           and opt.arrays is not None,
           f"the crash copy restored update {state.batches}, not the bundle "
           f"before the truncated one")
-    # one save of that state: flat, then committed as a bundle
-    smooth, _ = mio.load_model(str(root / names[-2] / "train.ema.npz"))
     shutil.rmtree(crash)
-    probe = WORK / "probe"
-    shutil.rmtree(probe, ignore_errors=True)
-    probe.mkdir()
-    t0 = time.perf_counter()
-    mio.save_model(str(probe / "flat.npz"), params, config)
-    mio.save_model(str(probe / "flat.ema.npz"), smooth, config)
-    with open(probe / "flat.npz.optimizer.npz", "wb") as fh:
-        np.savez(fh, **opt.arrays)
-    state.save(str(probe / "flat.npz.progress.yml"))
-    flat_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ckpt.save_checkpoint(str(probe / "b.npz"), params, config, opt, state,
-                         smooth_params=smooth)
-    commit_s = time.perf_counter() - t0
-    with open(os.path.join(bdl.bundle_root(str(probe / "b.npz")),
-                           "bundle-00000001", bdl.MANIFEST_NAME)) as fh:
-        hashed = sum(info["bytes"]
-                     for info in json.load(fh)["members"].values())
-    shutil.rmtree(probe)
     print(f"bundles: train.npz.bundles holds {names} after {saves} saves, "
           f"each validates ({len(members)} members: {members}; the older "
           f"one in the restore); train.npz is "
           f"{names[-1]}'s member byte for byte; with its model member "
           f"truncated the restore falls back to {names[-2]} (update "
-          f"{WARM_UPDATES}, parameters equal); one save of that "
-          f"state: flat {flat_s:.3f} s, bundle commit {commit_s:.3f} s "
-          f"({hashed / 1e9:.3f} GB written, fsync'd and hashed; "
-          f"+{commit_s - flat_s:.3f} s)")
+          f"{WARM_UPDATES}, parameters equal)")
 
 
 def free_port() -> int:
@@ -5159,7 +5188,11 @@ def phase_lifecycle_serve(seed: int) -> dict:
 
     def train_b():
         try:
+            # no EMA: B's commit holds what the server loads (the model
+            # member) and the optimizer state, not a smoothed copy that
+            # no check reads
             Train(parse_options(train_argv("life.npz", 2, "--overwrite",
+                                           "--exponential-smoothing", "0",
                                            *LIFE_DEPTH),
                                 mode="training")).run()
         except BaseException as e:  # noqa: BLE001
@@ -5681,29 +5714,67 @@ def recording_validators(valid: list):
     return wrapped
 
 
+def model_only_save(path, params, config_yaml, *args, suffix: str = "",
+                    **kw) -> None:
+    """A stand-in for the trainer's ``save_checkpoint`` that writes the
+    parameters and their config only (what a later decode reads), for
+    the paths whose bundles no check reads."""
+    from marian_tpu_torch.common import io as mio
+    from marian_tpu_torch.training.checkpoint import suffixed_path
+    mio.save_model(suffixed_path(path, suffix) if suffix else path,
+                   {k: v.detach().cpu().numpy() for k, v in params.items()},
+                   config_yaml)
+
+
+@contextlib.contextmanager
+def trainer_saves(writer):
+    """The trainer's checkpoint writes through ``writer`` (None: the
+    trainer's own), each call recorded in the list this yields."""
+    from marian_tpu_torch.training import train as train_mod
+    calls, save = [], train_mod.save_checkpoint
+
+    def recorded(path, *args, **kw):
+        calls.append((path, kw.get("suffix", "")))
+        return (writer or save)(path, *args, **kw)
+    train_mod.save_checkpoint = recorded
+    try:
+        yield calls
+    finally:
+        train_mod.save_checkpoint = save
+
+
 def train_main_path(what: str, argv, model: str, warm: int, counted: int,
-                    per_update: dict, valid: Optional[list] = None) -> dict:
+                    per_update: dict, valid: Optional[list] = None,
+                    warm_in_run: bool = False, saves="bundle") -> dict:
     """``warm`` updates through ``marian_train.main`` (which write the
     checkpoint), then ``counted`` updates through the trainer object
     ``main`` drives, resuming from it, with every launch count set to 0
     just before and read just after; prints the path's line and returns
-    the counts. An update may take a list of micro-batches
-    (--optimizer-delay). ``valid``: the counted run's validations are
-    recorded there (``recording_validators``), and their launches and
-    their time between the first and the last update (with what a caller
-    adds to a record's seconds, as the keep-best saves) are not the
-    updates'."""
+    the counts. With ``warm_in_run`` the trainer object runs all
+    ``warm + counted`` updates and the count starts at update ``warm +
+    1``. ``saves``: "bundle" the trainer's checkpoints, "model" the
+    parameters only (``model_only_save``: what a later decode reads),
+    "none" nothing written (the trainer's save still reached). An update
+    may take a list of micro-batches (--optimizer-delay). ``valid``: the
+    counted run's validations are recorded there
+    (``recording_validators``), and their launches and their time
+    between the first and the last update (with what a caller adds to a
+    record's seconds, as the keep-best saves) are not the updates'."""
     from marian_tpu_torch.cli import marian_train
     from marian_tpu_torch.common.config_parser import parse_options
     from marian_tpu_torch.training import train as train_mod
     from marian_tpu_torch.training.graph_group import GraphGroup
     from marian_tpu_torch.training.train import Train
     for f in WORK.glob(f"{model}*"):
-        f.unlink()
+        shutil.rmtree(f) if f.is_dir() else f.unlink()
+    writer = {"bundle": None, "model": model_only_save,
+              "none": lambda *a, **kw: None}[saves]
     t0 = time.perf_counter()
-    marian_train.main(argv(model, warm))
+    if not warm_in_run:
+        marian_train.main(argv(model, warm))
+        check((WORK / f"{model}.optimizer.npz").exists(),
+              "warm-up checkpoint")
     warm_s = time.perf_counter() - t0
-    check((WORK / f"{model}.optimizer.npz").exists(), "warm-up checkpoint")
     total = warm + counted
     tr = Train(parse_options(argv(model, total), mode="training"))
     check(tr.device.type == "cuda", f"trainer resolved {tr.device}")
@@ -5715,6 +5786,13 @@ def train_main_path(what: str, argv, model: str, warm: int, counted: int,
     create = train_mod.create_validators
 
     def recorded(gg, batches, step, *args, **kw):
+        if step <= warm:            # a warm-up update of this run
+            out = update(gg, batches, step, *args, **kw)
+            if step == warm:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+            return out
         if not outs:
             torch.cuda.synchronize()
             clock["start"] = time.perf_counter()
@@ -5735,10 +5813,13 @@ def train_main_path(what: str, argv, model: str, warm: int, counted: int,
     if valid is not None:
         train_mod.create_validators = recording_validators(valid)
     try:
-        tr.run()
+        with trainer_saves(writer) as written:
+            tr.run()
     finally:
         GraphGroup.update = update
         train_mod.create_validators = create
+    check(any(not sfx for _, sfx in written), f"{what}: the trainer's "
+          f"final save was not reached: {written}")
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     updates = len(outs)
@@ -5764,8 +5845,11 @@ def train_main_path(what: str, argv, model: str, warm: int, counted: int,
     TRAIN_RUNS[model] = {"ms": 1e3 * secs / updates, "peak_gb": peak_gb}
     if valid is not None:
         TRAIN_RUNS[model]["trainer"] = tr     # the validation checks' own
-    print(f"train main path: {what}: warm-up {warm} updates through "
-          f"marian_train.main in {warm_s:.2f} s; counted {updates} updates "
+    warm_line = (f"warm-up {warm} updates in the same run" if warm_in_run
+                 else f"warm-up {warm} updates through marian_train.main in "
+                 f"{warm_s:.2f} s")
+    print(f"train main path: {what}: {warm_line}; saves: {saves}; "
+          f"counted {updates} updates "
           f"in {secs:.3f} s, {1e3 * secs / updates:.2f} ms/update, "
           f"{src_tokens.sum() / secs:.1f} source tokens/s, "
           f"{trg_tokens.sum() / secs:.1f} target tokens/s; "
@@ -5779,7 +5863,8 @@ def phase_train_main_path(seed: int) -> dict:
     write_corpus(seed)
     counts = train_main_path(
         f"transformer-base 6+6, dim 512, ffn 2048, 8 heads, vocab {VOCAB}, "
-        f"f32, dropout 0.1, {TRAIN_WORDS} target words a batch", train_argv,
+        f"f32, dropout 0.1, {TRAIN_WORDS} target words a batch",
+        lambda model, updates: train_argv(model, updates, "--overwrite"),
         "train.npz", WARM_UPDATES, COUNTED_UPDATES, PER_UPDATE)
     # decode a few sentences on the card from the checkpoint just written
     from marian_tpu_torch.translator.translator import Translate
@@ -5805,7 +5890,8 @@ def delay_argv(model: str, updates: int, *extra: str):
         "--valid-freq", f"{VALID_FREQ}u", "--valid-metrics", *DELAY_METRICS,
         "--valid-mini-batch", str(DEV_LINES), "--beam-size", str(BEAM),
         "--keep-best", "--lr-decay", "0.5", "--lr-decay-strategy",
-        "stalled", "--lr-decay-start", "1", *extra)
+        "stalled", "--lr-decay-start", "1", *LIFE_DEPTH, "--overwrite",
+        *extra)
 
 
 def expected_bests(valid: list) -> dict:
@@ -5843,9 +5929,10 @@ def dev_ce_recomputed(gg, params, vocab) -> float:
 
 
 def phase_delay_train_main_path(seed: int) -> dict:
-    """The delay + validation train main path: transformer-base at
-    --optimizer-delay 2 (two micro-batches of TRAIN_WORDS / 2 words an
-    update), validated every VALID_FREQ updates on the dev set
+    """The delay + validation train main path: the 2+2 cut of
+    transformer-base at full width (a depth cut for the run's writes and
+    time) at --optimizer-delay 2 (two micro-batches of TRAIN_WORDS / 2
+    words an update, the warm-up updates in the same run), validated every VALID_FREQ updates on the dev set
     (cross-entropy, bleu, chrf, translation: the packed encoder and
     decode_attention through the port's beam search), with --keep-best
     and stall-driven --lr-decay. Checks: twice PER_UPDATE's launches an
@@ -5878,12 +5965,13 @@ def phase_delay_train_main_path(seed: int) -> dict:
     train_mod.save_checkpoint = recorded_save
     try:
         counts = train_main_path(
-            f"transformer-base 6+6, dim 512, ffn 2048, 8 heads, vocab "
-            f"{VOCAB}, f32, dropout 0.1, --optimizer-delay {DELAY} x "
-            f"{TRAIN_WORDS // DELAY} target words, validated every "
-            f"{VALID_FREQ} updates", delay_argv, "train_delay.npz",
+            f"transformer-base 2+2 (full width), dim 512, ffn 2048, 8 "
+            f"heads, vocab {VOCAB}, f32, dropout 0.1, --optimizer-delay "
+            f"{DELAY} x {TRAIN_WORDS // DELAY} target words, validated "
+            f"every {VALID_FREQ} updates", delay_argv, "train_delay.npz",
             WARM_UPDATES, COUNTED_UPDATES,
-            {k: DELAY * v for k, v in PER_UPDATE.items()}, valid)
+            {k: DELAY * v for k, v in PER_UPDATE_2X2.items()}, valid,
+            warm_in_run=True)
     finally:
         train_mod.save_checkpoint = save
     total = WARM_UPDATES + COUNTED_UPDATES
@@ -5933,7 +6021,6 @@ def phase_delay_train_main_path(seed: int) -> dict:
           f"lr decay factor {state.factor} (schedule "
           f"{tr.graph_group.schedule.decay_factor}), stalls {stalls}: "
           f"expected {factor}")
-    base = TRAIN_RUNS.get("train.npz", {})
     n_params = sum(p.numel() for p in tr.graph_group.params.values())
     per_val = {v["metric"]: round(v["seconds"], 3) for v in valid[-4:]}
     print(f"delay train main path: validations at updates {fired}: "
@@ -5946,11 +6033,9 @@ def phase_delay_train_main_path(seed: int) -> dict:
           f"{CE_REL_TOL}); {', '.join(metric_checks)} equal Translate.run "
           f"of their .best checkpoint; .best saves {sorted(saves)}; stalls "
           f"of cross-entropy {stalls}, lr factor {state.factor}; "
-          f"ms/update {TRAIN_RUNS['train_delay.npz']['ms']:.2f} against "
-          f"the base path's {base.get('ms', float('nan')):.2f}, peak "
-          f"{TRAIN_RUNS['train_delay.npz']['peak_gb']:.2f} GB against "
-          f"{base.get('peak_gb', float('nan')):.2f} + "
-          f"{4 * n_params / 1e9:.2f} (one f32 copy of the parameters)")
+          f"ms/update {TRAIN_RUNS['train_delay.npz']['ms']:.2f}, peak "
+          f"{TRAIN_RUNS['train_delay.npz']['peak_gb']:.2f} GB "
+          f"({n_params} parameters, the 2+2 cut)")
     return counts
 
 
@@ -5975,14 +6060,18 @@ def write_doc_train_corpus(seed: int) -> None:
 
 
 def phase_doc_train_main_path(seed: int) -> dict:
-    """The doc-level training main path: transformer-big on the
-    2,048-token corpus, every attention through flash."""
+    """The doc-level training main path: the 2+2 cut of transformer-big
+    at full width on the 2,048-token corpus, every attention through
+    flash; the warm-up updates in the same run, its save the model file
+    the doc decode reads."""
     write_doc_train_corpus(seed)
     return train_main_path(
-        f"doc-level transformer-big 6+6, dim 1024, ffn 4096, 16 heads, "
-        f"vocab {VOCAB}, f32, dropout 0.1, lines of 1,023-2,047 words, "
-        f"{DOC_WORDS} target words a batch", doc_argv, "doc.npz", DOC_WARM,
-        DOC_COUNTED, DOC_PER_UPDATE)
+        f"doc-level transformer-big 2+2 (full width), dim 1024, ffn 4096, "
+        f"16 heads, vocab {VOCAB}, f32, dropout 0.1, lines of 1,023-2,047 "
+        f"words, {DOC_WORDS} target words a batch",
+        lambda model, updates: doc_argv(model, updates, *DOC_DEPTH),
+        "doc.npz", DOC_WARM, DOC_COUNTED, DOC_PER_UPDATE_2X2,
+        warm_in_run=True, saves="model")
 
 
 def phase_doc_decode_main_path() -> dict:
@@ -5997,7 +6086,8 @@ def phase_doc_decode_main_path() -> dict:
     check_decode_counts(tr, counts, 1, "flash_attention_fwd")
     steps = list(tr.search.steps)
     scores = np.array([float(h[2].split()[1]) for h in hyps])
-    print(f"doc decode main path: the trained doc-level transformer-big, "
+    print(f"doc decode main path: the trained doc-level transformer-big "
+          f"2+2, "
           f"{len(docs)} documents of {[len(d.split()) for d in docs]} words "
           f"in 1 batch, beam {BEAM}, cache {tr.search.max_length_factor} x "
           f"width: steps {steps}, {secs:.3f} s, {len(docs) / secs:.3f} "
@@ -6180,7 +6270,7 @@ def train_card_vs_cpu(what: str, setup, limits: dict = PARITY_LIMITS,
         if name == "cpu" and cpu is not None:
             check(cpu["words"] == batch_words(setup[2]), f"{what}: the "
                   f"child's batches {cpu['words']} are not the card's")
-            res[name] = cpu["run"]
+            res[name] = loaded_run(cpu["run"], setup[3])
             took = f"{cpu['seconds']:.2f} s in the child process"
         else:
             res[name] = parity_run(*setup, name)
@@ -6245,7 +6335,8 @@ def phase_bf16_train_main_path() -> dict:
         f"bf16 compute from f32 master weights, dropout 0.1, {TRAIN_WORDS} "
         f"target words a batch",
         lambda model, updates: train_argv(model, updates, *BF16_FLAGS),
-        "train_bf16.npz", BF16_WARM, BF16_COUNTED, PER_UPDATE_BF16)
+        "train_bf16.npz", BF16_WARM, BF16_COUNTED, PER_UPDATE_BF16,
+        warm_in_run=True, saves="none")
 
 
 def phase_bf16_decode_main_path(lines) -> dict:
@@ -6371,10 +6462,26 @@ def cpu_references(seed: int) -> None:
                        ("delay", delay_parity_setup)):
         args = setup()
         t0 = time.perf_counter()
-        out[cut] = {"run": parity_run(*args, "cpu"),
+        out[cut] = {"run": stored_run(parity_run(*args, "cpu"), args[3]),
                     "seconds": time.perf_counter() - t0,
                     "words": batch_words(args[2])}
     torch.save(out, CPU_WORK / "cpu_references.pt")
+
+
+def stored_run(run: dict, init) -> dict:
+    """A ``parity_run`` result in half the bytes, for the child's file:
+    its gradients (f32 values) as f32, and its update as the f32
+    parameters it ended at (``loaded_run`` restores both exactly)."""
+    return {**run, "grad": {k: v.float() for k, v in run["grad"].items()},
+            "update": {k: (v + torch.as_tensor(init[k]).double()).float()
+                       for k, v in run["update"].items()}}
+
+
+def loaded_run(run: dict, init) -> dict:
+    """``stored_run`` undone: the float64 gradients and update."""
+    return {**run, "grad": {k: v.double() for k, v in run["grad"].items()},
+            "update": {k: v.double() - torch.as_tensor(init[k]).double()
+                       for k, v in run["update"].items()}}
 
 
 def start_cpu_references(seed: int):
@@ -6705,19 +6812,6 @@ def tenant_leak(engine, expected: dict) -> str:
     return line
 
 
-def saved_state(model: str):
-    """(parameters, optimizer arrays, progress) a trainer saved at
-    ``model``."""
-    import yaml
-    from marian_tpu_torch.common.io import load_model
-    params, _ = load_model(str(WORK / model))
-    with np.load(str(WORK / f"{model}.optimizer.npz")) as z:
-        opt = {k: z[k] for k in z.files}
-    with open(WORK / f"{model}.progress.yml") as fh:
-        prog = yaml.safe_load(fh)
-    return params, opt, prog
-
-
 def run_trainer(argv):
     """The trainer object marian_train.main drives, in this process."""
     from marian_tpu_torch.common.config_parser import parse_options
@@ -6728,94 +6822,128 @@ def run_trainer(argv):
     return tr
 
 
-def max_rel_diff(a: dict, b: dict) -> float:
-    """The largest difference of two parameter sets, relative to each
-    tensor's largest magnitude."""
-    return max(float(np.abs(a[k] - b[k]).max())
-               / max(float(np.abs(b[k]).max()), 1e-30) for k in b)
-
-
-def crash_argv(model: str, *extra: str):
-    """The base train path's flags with one batch a corpus window
-    (--maxi-batch 1 --mini-batch 192: 192 sentences fill the 12,288-word
-    budget at the 64-token width), where a save's resume point is
-    exact: with the path's 100 x 512-sentence windows a save between two
-    window ends resumes at the next window, as the reference does."""
-    return train_argv(model, CRASH_UPDATES, "--maxi-batch", "1",
-                      "--mini-batch", "192", "--overwrite", *extra)
+def chaos_harness():
+    """scripts/torch_chaos.py as a module (stdlib and numpy only)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_chaos", ROOT / "scripts" / "torch_chaos.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 # the processes this script starts beside its phases (stopped at exit)
 STARTED = []
 
 
-def start_crash_runs() -> dict:
-    """The crash-resume phase's two trainers, each a marian_train process
-    of its own on the card, started to run beside the doc card-vs-CPU
-    phase (its readings are no timing; each trainer spends most of its
-    time starting up and saving), on the corpus the train main path
-    wrote: the killed one, MARIAN_FAULTS=ckpt.commit=kill@2 with a save
-    every CRASH_SAVE_FREQ updates and --trace-dump, and an uninterrupted
-    one of the same config (no intermediate saves, which change no
-    arithmetic)."""
+def start_chaos_runs() -> dict:
+    """The chaos phase's processes, on the card, started to run beside
+    the doc card-vs-CPU phase (its readings are no timing): the fixed
+    round's killed trainer (CHAOS_FIXED, with --trace-dump), a
+    ``marian_train`` process of the harness's config on a copy of its
+    corpus, and the harness itself for its kill schedule (whose
+    uninterrupted run, the same config on the same data, is the fixed
+    round's reference too), --swap and --swap --iteration, each writing
+    its report to a log."""
+    chaos = chaos_harness()
     from marian_tpu_torch.common import faultpoints as fp
-    for f in WORK.glob("crash*"):
-        shutil.rmtree(f) if f.is_dir() else f.unlink()
-    dump = WORK / "flight_crash"
-    shutil.rmtree(dump, ignore_errors=True)
+    root = WORK / "chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    fixed = root / "fixed"
+    (fixed / "kill").mkdir(parents=True)
+    src, vocab = chaos.write_data(str(fixed), "base")
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
-    runs = {"t0": time.perf_counter(), "dump": dump}
-    for name, extra, faults in (
-            ("crash", ("--save-freq", str(CRASH_SAVE_FREQ), "--trace-dump",
-                       str(dump)), {fp.ENV_SPEC: "ckpt.commit=kill@2"}),
-            ("crash_ref", (), {})):
-        with open(WORK / f"{name}.log", "w") as fh:
+    env.pop(fp.ENV_SPEC, None)
+    runs = {"t0": time.perf_counter(), "root": root, "chaos": chaos,
+            "dump": fixed / "flight"}
+    cfg = chaos.make_config(str(fixed / "kill"), src, vocab, False, "base",
+                            cpu=False)
+    runs["cfg"] = cfg
+    with open(fixed / "kill.log", "w") as fh:
+        runs["kill"] = subprocess.Popen(
+            chaos._module_argv("marian_train",
+                               {**cfg, "trace-dump": str(runs["dump"])}),
+            env={**env, fp.ENV_SPEC: CHAOS_FIXED}, cwd=str(ROOT), stdout=fh,
+            stderr=subprocess.STDOUT, start_new_session=True)
+    STARTED.append(runs["kill"])
+    script = str(ROOT / "scripts" / "torch_chaos.py")
+    for name, work, extra in (
+            ("kill schedule", "kill", ["--width", "base", "--rounds",
+                                       str(CHAOS_KILL_ROUNDS), "--seed",
+                                       str(CHAOS_KILL_SEED)]),
+            ("--swap", "swap", ["--swap", "--rounds", "1", "--seed",
+                                str(CHAOS_SWAP_SEED)]),
+            ("--swap --iteration", "swap_iteration",
+             ["--swap", "--iteration", "--rounds", "1", "--seed",
+              str(CHAOS_SWAP_SEED)])):
+        with open(root / f"{work}.log", "w") as fh:
+            # a session of its own: stopping it stops its trainers and
+            # servers too
             runs[name] = subprocess.Popen(
-                [sys.executable, "-m", "marian_tpu_torch.cli.marian_train",
-                 *crash_argv(f"{name}.npz", *extra)],
-                env={**env, **faults}, cwd=str(ROOT), stdout=fh,
-                stderr=subprocess.STDOUT)
+                [sys.executable, script, "--workdir", str(root / work),
+                 *extra], env=env, cwd=str(ROOT), stdout=fh,
+                stderr=subprocess.STDOUT, start_new_session=True)
+        runs[f"{name} log"] = root / f"{work}.log"
         STARTED.append(runs[name])
     return runs
 
 
-def phase_crash_resume(runs: dict, smi: str) -> dict:
-    """Crash safety of the base train path (``crash_argv``: 6+6, dim 512,
-    vocab 32,000, dropout 0.1) on the card, after the two trainers
-    ``start_crash_runs`` started: the killed one exits 117 at the second
-    commit; every committed bundle validates and no staging directory is
-    listed as one; the flight file of the kill holds the faultpoints
-    member and the fault.fire event of ckpt.commit; a restart in this
-    process resumes from the newest valid bundle and ends where the
-    uninterrupted run ends: the progress (batches, corpus position) and
-    Adam's step exactly, the parameters byte for byte or, where the
-    card's run-to-run spread (a second uninterrupted run, then in this
-    process) is not zero, within it."""
+def stop(proc) -> None:
+    """Kill ``proc`` and, when it leads a session of its own, every
+    process of that session."""
+    import signal
+    try:
+        if os.getpgid(proc.pid) == proc.pid:
+            os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def _waited(proc, timeout: float) -> int:
+    try:
+        return proc.wait(timeout=timeout)
+    finally:
+        stop(proc)
+
+
+def phase_chaos_harness(runs: dict, smi: str) -> dict:
+    """Crash safety on the card, the harness's contract: never torn,
+    resumable, bit-exact.
+
+    The fixed round (``start_chaos_runs``): the killed trainer exits 117
+    at the second commit; one committed bundle, valid, and no staging
+    directory listed as one; the kill's flight file holds the
+    faultpoints member and the fault.fire event of ckpt.commit; a
+    restart in this process (counted: the phase's launches) resumes from
+    the bundle and ends with the uninterrupted run's parameters,
+    optimizer state and progress, by the harness's digest, bit for bit.
+    Then the harness's own reports: each kill round exits 117, validates
+    every bundle and resumes bit-exact (an async round and a
+    ckpt.async.worker round among them); the swap rounds' servers die at
+    their armed point and restart clean on the newest bundle, iteration
+    mode with no leaked page and no audit failure."""
     from marian_tpu_torch.common import faultpoints as fp
     from marian_tpu_torch.training import bundle as bdl
-    rcs = {}
-    for name in ("crash", "crash_ref"):
-        proc = runs[name]
-        try:
-            rcs[name] = proc.wait(timeout=600)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    both_s = time.perf_counter() - runs["t0"]
-    stderr = (WORK / "crash.log").read_text()
-    check(rcs["crash"] == fp.FAULT_EXIT_CODE, f"the killed trainer exited "
-          f"{rcs['crash']}: {stderr[-2000:]}")
-    check("FAULTPOINT ckpt.commit hit 2: killing process" in stderr,
+    chaos = runs["chaos"]
+    fixed = runs["root"] / "fixed"
+    rc = _waited(runs["kill"], 600)
+    kill_s = time.perf_counter() - runs["t0"]
+    log = (fixed / "kill.log").read_text()
+    check(rc == fp.FAULT_EXIT_CODE, f"the killed trainer exited {rc}: "
+          f"{log[-2000:]}")
+    check("FAULTPOINT ckpt.commit hit 2: killing process" in log,
           "the kill's line is missing")
-    check(rcs["crash_ref"] == 0, f"the uninterrupted trainer exited "
-          f"{rcs['crash_ref']}: {(WORK / 'crash_ref.log').read_text()[-2000:]}")
-    root = bdl.bundle_root(str(WORK / "crash.npz"))
+    model = fixed / "kill" / "model.npz"
+    root = bdl.bundle_root(str(model))
     names = bdl.list_bundles(root)
     check(len(names) == 1, f"committed bundles after the kill: {names}")
+    torn = chaos.validate_bundles(str(model))
     for n in names:
         ok, why, _ = bdl.validate_bundle(os.path.join(root, n))
-        check(ok, f"bundle {n}: {why}")
+        check(ok and not torn, f"bundle {n}: {why}; {torn}")
     stray = sorted(n for n in os.listdir(root) if n not in names)
     check(all(n.startswith(".staging-") for n in stray),
           f"the bundle directory holds {stray}")
@@ -6824,56 +6952,66 @@ def phase_crash_resume(runs: dict, smi: str) -> dict:
     payload = json.loads(flights[0].read_text())
     fires = [e["args"]["point"] for e in payload["trace"]["traceEvents"]
              if e.get("name") == "fault.fire"]
-    check(payload["faultpoints"]["spec"] == "ckpt.commit=kill@2"
+    check(payload["faultpoints"]["spec"] == CHAOS_FIXED
           and payload["faultpoints"]["hits"].get("ckpt.commit") == 2
           and fires == ["ckpt.commit"], f"the flight file's fault plane: "
           f"{payload.get('faultpoints')}, fault.fire {fires}")
     torch.cuda.synchronize()
     reset_counts()
     t1 = time.perf_counter()
-    resumed = run_trainer(crash_argv("crash.npz"))
+    argv = chaos._module_argv("marian_train", runs["cfg"])[3:]
+    resumed = run_trainer(argv)
     resume_s = time.perf_counter() - t1
-    check(resumed.state.batches == CRASH_UPDATES, "the resumed run ended at "
+    check(resumed.state.batches == CHAOS_UPDATES, "the resumed run ended at "
           f"update {resumed.state.batches}")
     del resumed
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {k: PER_UPDATE.get(k, 0) * (CRASH_UPDATES - CRASH_SAVE_FREQ)
+    want = {k: PER_UPDATE_2X2.get(k, 0) * (CHAOS_UPDATES - CHAOS_SAVE_FREQ)
             for k in counts}
-    check(counts == want, f"crash resume launches {counts}, expected {want}")
-    got_p, got_o, got_g = saved_state("crash.npz")
-    ref_p, ref_o, ref_g = saved_state("crash_ref.npz")
-    check(got_g == ref_g, f"progress after the resume {got_g} != the "
-          f"uninterrupted run's {ref_g}")
-    check(float(got_o["t"]) == float(ref_o["t"]) == CRASH_UPDATES,
-          f"Adam's step {got_o['t']} / {ref_o['t']}")
-    equal = all(np.array_equal(got_p[k], ref_p[k]) for k in ref_p) \
-        and all(np.array_equal(got_o[k], ref_o[k]) for k in ref_o)
-    if equal:
-        spread_line = ("parameters and optimizer state byte-equal to the "
-                       "uninterrupted run's")
-    else:
-        run_trainer(crash_argv("crash_ref2.npz"))
-        spread = max_rel_diff(saved_state("crash_ref2.npz")[0], ref_p)
-        diff = max_rel_diff(got_p, ref_p)
-        check(diff <= spread, f"the resumed parameters differ from the "
-              f"uninterrupted run's by {diff:.3g}, past the card's "
-              f"run-to-run spread {spread:.3g}")
-        spread_line = (f"parameters not byte-equal: largest relative "
-                       f"difference {diff:.3g} against the card's "
-                       f"run-to-run spread {spread:.3g} (two uninterrupted "
-                       f"runs)")
-    print(f"crash resume: transformer-base 6+6, dim 512, vocab {VOCAB}, "
-          f"f32, dropout 0.1, {CRASH_UPDATES} updates, a save every "
-          f"{CRASH_SAVE_FREQ}: ckpt.commit=kill@2 exited 117 (the killed "
-          f"and the uninterrupted process both ended {both_s:.2f} s after "
-          f"their start, beside the doc card-vs-CPU phase), "
-          f"{len(names)} committed bundle(s) valid, {len(stray)} staging "
-          f"director{'y' if len(stray) == 1 else 'ies'} left unlisted, a "
-          f"flight file with the fault plane; resumed in {resume_s:.2f} s "
-          f"to the uninterrupted run's progress and Adam step exactly; "
-          f"{spread_line}; {smi}")
-    obs_reset()
+    check(counts == want, f"the fixed round's resume launched {counts}, "
+          f"expected {want}")
+    # the harness's schedules; its kill schedule's uninterrupted run is
+    # the fixed round's reference
+    reports = {}
+    for name in ("kill schedule", "--swap", "--swap --iteration"):
+        reports[name] = _waited(runs[name], CHAOS_WAIT_S)
+    bad = chaos.digest_violations(
+        chaos.final_digest(str(model)),
+        chaos.final_digest(str(runs["root"] / "kill" / "ref" / "model.npz")))
+    check(not bad, f"the fixed round's resume: {bad}")
+    print(f"chaos harness: [fixed] {CHAOS_FIXED} async=False: the 2+2 cut of "
+          f"transformer-base (dim 512, vocab {VOCAB}, f32), "
+          f"{CHAOS_UPDATES} updates, a save every {CHAOS_SAVE_FREQ}: kill run "
+          f"exit {rc} ({kill_s:.2f} s after its start, beside the doc "
+          f"card-vs-CPU phase), {len(names)} committed bundle(s) valid, "
+          f"{len(stray)} staging director{'y' if len(stray) == 1 else 'ies'} "
+          f"left unlisted, a flight file with the fault plane; resumed in "
+          f"this process in {resume_s:.2f} s; digest BIT-EXACT against the "
+          f"harness's uninterrupted run (parameters, optimizer state, "
+          f"progress)")
+    for name, rc in reports.items():
+        text = runs[f"{name} log"].read_text()
+        check(rc == 0, f"torch_chaos.py {name} exited {rc}: {text[-3000:]}")
+        for line in text.splitlines():
+            line = line.strip()
+            if line.startswith("[") or line.startswith(("kill run exit",
+                                                         "ok:")) \
+                    or "committed bundle(s)" in line \
+                    or line.startswith(("restart live", "chaos")):
+                print(f"chaos harness: {name}: {line}")
+    kill = runs["kill schedule log"].read_text()
+    check("async=True" in kill and "ckpt.async.worker=kill@" in kill
+          and kill.count("ok: never torn, resumed bit-exact")
+          == CHAOS_KILL_ROUNDS, f"the kill schedule's rounds: {kill[-2000:]}")
+    check("restart live on bundle seq 2 (newest)" in
+          runs["--swap log"].read_text()
+          and "pool clean" in runs["--swap --iteration log"].read_text(),
+          "the swap rounds' restarts")
+    print(f"chaos harness: every round killed as armed, never torn, resumed "
+          f"bit-exact or restarted clean on the newest bundle, "
+          f"{time.perf_counter() - runs['t0']:.2f} s from the start of its "
+          f"processes; {smi}")
     return counts
 
 
@@ -6942,15 +7080,20 @@ def phase_train_obs(seed: int, smi: str) -> dict:
         Scheduler._display = displayed
         mlog.info = logged
         try:
-            tr = run_trainer(train_argv(
-                "obs.npz", OBS_TRAIN_UPDATES, "--disp-freq", str(OBS_DISP),
-                "--metrics-port", str(port), "--trace", "--perf-accounting",
-                "--profile", str(prof), "--profile-start", "3",
-                "--profile-updates", "2", "--overwrite",
-                *(["--trace-sync-phases"] if sync else [])))
+            # the run's save is reached and writes nothing: no check
+            # reads it
+            with trainer_saves(lambda *a, **kw: None) as saved:
+                tr = run_trainer(train_argv(
+                    "obs.npz", OBS_TRAIN_UPDATES, "--disp-freq",
+                    str(OBS_DISP), "--metrics-port", str(port), "--trace",
+                    "--perf-accounting", "--profile", str(prof),
+                    "--profile-start", "3", "--profile-updates", "2",
+                    "--overwrite",
+                    *(["--trace-sync-phases"] if sync else [])))
         finally:
             Scheduler._display = display
             mlog.info = info
+        check(len(saved) == 1, f"the observability run's saves: {saved}")
         if tr.metrics_server is not None:
             tr.metrics_server.close()
         what = "with" if sync else "without"
@@ -6979,7 +7122,9 @@ def phase_train_obs(seed: int, smi: str) -> dict:
         absent = [row for row, subs in TRACE_KERNELS.items()
                   if not any(sub in k for k in kernels for sub in subs)]
         check(not absent, f"{what} sync: the profiler trace lacks the "
-              f"kernels of rows {absent}")
+              f"kernels of rows {absent}; its kernels of the port: "
+              f"{sorted(k for k in kernels if 'packed' in k or 'fce' in k)}; "
+              f"{len(kernels)} kernel names in all")
         # the whole run's shares start with the first update's one-time
         # costs (the first run's the process's first); the last window's
         # come from its train.* spans, clean of them and of the profiler
@@ -7021,6 +7166,178 @@ def phase_train_obs(seed: int, smi: str) -> dict:
     return counts
 
 
+def phase_recipe_train(seed: int, smi: str) -> dict:
+    """Marian's standard recipe, ``--task transformer-base`` (RECIPE_FLAGS:
+    the bundle's 6+6, dim 512, tied 32,000-word vocabulary, max-length
+    100, --mini-batch-fit, dropout 0.1, label smoothing, the inverse-sqrt
+    schedule and the EMA), in this process on a synthetic corpus of 1-99
+    words a line. The fit searches under a memory fraction of
+    RECIPE_HBM_GIB: every probe and its verdict, at least one out of
+    memory, the card's allocated bytes back where they were (the
+    parameters and optimizer state restored); then RECIPE_UPDATES updates
+    with --mini-batch-warmup (each batch within the budget in force when
+    its window was read, the budget ramping from a quarter to the whole),
+    --mini-batch-track-lr (the lr's reference at the fitted budget) and
+    --dynamic-gradient-scaling 2 log: every loss and gradient norm
+    finite, ``gstat:n`` in the saved optimizer state equal to the update
+    count. Counts the tiled packed backward (past 64 tokens) and the
+    fused CE at its token counts."""
+    from marian_tpu_torch.common.config_parser import parse_options
+    from marian_tpu_torch.data.batch_generator import BatchGenerator
+    from marian_tpu_torch.ops.kernels import packed_attention as pa
+    from marian_tpu_torch.training import batch_fit
+    from marian_tpu_torch.training.graph_group import GraphGroup
+    from marian_tpu_torch.training.train import Train
+    rng = np.random.RandomState(seed + 5)
+    for side in ("src", "trg"):
+        write_lines(f"recipe.{side}", rng.randint(1, 100, RECIPE_LINES), rng)
+    for f in WORK.glob("recipe.npz*"):
+        shutil.rmtree(f) if f.is_dir() else f.unlink()
+    vocab = str(WORK / "vocab.yml")
+    argv = [*RECIPE_FLAGS, "--train-sets", str(WORK / "recipe.src"),
+            str(WORK / "recipe.trg"), "--vocabs", vocab, vocab, "--model",
+            str(WORK / "recipe.npz")]
+    probes, fit, windows, outs = [], {}, [], []
+    try_budget, fit_words = batch_fit._try_budget, batch_fit.fit_mini_batch_words
+    split, update = BatchGenerator._split_maxi, GraphGroup.update
+
+    def probed(gg, words, max_len, vocab_size):
+        t = time.perf_counter()
+        ok = try_budget(gg, words, max_len, vocab_size)
+        probes.append((words, ok, time.perf_counter() - t))
+        return ok
+
+    def allocated() -> int:
+        """The card's allocated bytes without the cuBLAS workspaces, which
+        a thread's first product allocates and keeps (the backward's
+        thread makes its first in the fit when no training ran before)."""
+        torch.cuda.synchronize()
+        gc.collect()
+        getattr(torch._C, "_cuda_clearCublasWorkspaces", lambda: None)()
+        return torch.cuda.memory_allocated()
+
+    def fitted(gg, opts, vocab_size, cap=None):
+        fit["before"] = allocated()
+        t = time.perf_counter()
+        words = fit_words(gg, opts, vocab_size, cap)
+        fit.update(after=allocated(), words=words,
+                   seconds=time.perf_counter() - t, counts=read_counts(),
+                   tiled=pa.packed_attention_bwd.launches_tiled)
+        return words
+
+    def windowed(bg, buf, state):
+        batches = split(bg, buf, state)
+        windows.append((float(bg.budget_scale()), len(batches)))
+        return batches
+
+    def recorded(gg, batches, step, *args, **kw):
+        if "words" not in fit:          # a probe of the fit
+            return update(gg, batches, step, *args, **kw)
+        if not outs:
+            torch.cuda.synchronize()
+            fit["start"] = time.perf_counter()
+        out = update(gg, batches, step, *args, **kw)
+        trg = batches[0]["trg_ids"] if isinstance(batches, list) \
+            else batches["trg_ids"]
+        outs.append((tuple(trg.shape), out.loss_sum, out.labels,
+                     out.grad_norm))
+        if len(outs) == RECIPE_UPDATES:
+            torch.cuda.synchronize()
+            fit["end"] = time.perf_counter()
+        return out
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(
+        min(1.0, RECIPE_HBM_GIB * 2**30 / total))
+    batch_fit._try_budget, batch_fit.fit_mini_batch_words = probed, fitted
+    BatchGenerator._split_maxi, GraphGroup.update = windowed, recorded
+    reset_counts()
+    pa.packed_attention_bwd.launches_tiled = 0
+    try:
+        tr = Train(parse_options(argv, mode="training"))
+        check(tr.device.type == "cuda", f"trainer resolved {tr.device}")
+        tr.run()
+    finally:
+        batch_fit._try_budget, batch_fit.fit_mini_batch_words = \
+            try_budget, fit_words
+        BatchGenerator._split_maxi, GraphGroup.update = split, update
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # the updates' launches: the run's less the fit's probes'
+    trained = {k: v - fit["counts"][k] for k, v in counts.items()}
+    tiled = pa.packed_attention_bwd.launches_tiled - fit["tiled"]
+    opts = tr.options
+    words = fit["words"]
+    check(any(not ok for _, ok, _ in probes) and words > 0,
+          f"the fit crossed no out-of-memory probe: {probes}")
+    check(abs(fit["after"] - fit["before"]) <= RECIPE_MEM_SLACK,
+          f"allocated {fit['before']} bytes before the fit, "
+          f"{fit['after']} after; probes {probes}")
+    check(int(opts.get("max-length")) == 100
+          and int(opts.get("mini-batch-words")) == words
+          and int(opts.get("mini-batch-words-ref")) == words
+          and tr.graph_group.opt_cfg.ref_mb_words == words,
+          f"the recipe's options: max-length {opts.get('max-length')}, "
+          f"mini-batch-words {opts.get('mini-batch-words')}, "
+          f"mini-batch-words-ref {opts.get('mini-batch-words-ref')}")
+    check(len(outs) == RECIPE_UPDATES == tr.state.batches,
+          f"{len(outs)} updates recorded, state at {tr.state.batches}")
+    # each update's batch came from a window; its budget was the fitted
+    # one times the window's scale
+    budgets = [int(words * sc) for sc, n in windows for _ in range(n)]
+    shapes = [o[0] for o in outs]
+    check(all(r <= max(8, b // w // 8 * 8)
+              for (r, w), b in zip(shapes, budgets)),
+          f"batches {shapes} past their budgets {budgets[:len(shapes)]}")
+    check(budgets[0] == int(words / RECIPE_WARMUP)
+          and budgets[:RECIPE_UPDATES] == sorted(budgets[:RECIPE_UPDATES])
+          and words in budgets[:RECIPE_UPDATES],
+          f"the budgets of updates 1-{RECIPE_UPDATES} {budgets} do not ramp "
+          f"from a quarter of {words} to it")
+    losses = np.array([float(o[1]) / float(o[2]) for o in outs])
+    norms = np.array([float(o[3]) for o in outs])
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"losses {losses}, gradient norms {norms}")
+    with np.load(str(WORK / "recipe.npz.optimizer.npz")) as z:
+        gstat = (float(z["gstat:n"]), float(z["gstat:avg"]), float(z["t"]))
+    check(gstat[0] == RECIPE_UPDATES == gstat[2] and np.isfinite(gstat[1]),
+          f"gstat:n {gstat[0]}, gstat:avg {gstat[1]}, t {gstat[2]}")
+    want = {k: PER_UPDATE.get(k, 0) * RECIPE_UPDATES for k in counts}
+    check(trained == want, f"the recipe's updates launched {trained}, "
+          f"expected {want}")
+    tokens = [r * w for r, w in shapes]
+    check(tiled > 0 and max(tokens) > 16384, f"tiled backward launches "
+          f"{tiled}, fused CE tokens {tokens}")
+    ms = 1e3 * (fit["end"] - fit["start"]) / RECIPE_UPDATES
+    print("recipe train: --task transformer-base (6+6, dim 512, vocab "
+          f"{VOCAB}, f32, max-length 100): the fit under "
+          f"{RECIPE_HBM_GIB} GiB of the card's memory: probes "
+          + ", ".join(f"{w} {'fits' if ok else 'OOM'} ({s:.2f} s)"
+                      for w, ok, s in probes)
+          + f"; fitted mini-batch-words={words} in {fit['seconds']:.2f} s; "
+          f"allocated {fit['before']} bytes before the search, "
+          f"{fit['after']} after; the probes' launches "
+          f"{ {k: v for k, v in fit['counts'].items() if v} }, "
+          f"{fit['tiled']} of them the tiled packed backward")
+    print(f"recipe train: {RECIPE_UPDATES} updates, "
+          f"--mini-batch-warmup {RECIPE_WARMUP} (budgets "
+          f"{budgets[:RECIPE_UPDATES]}; windows read at scales "
+          f"{[sc for sc, _ in windows]}), rows x width "
+          + ", ".join(f"{r}x{w}" for r, w in shapes)
+          + f"; mean CE {', '.join(f'{x:.4f}' for x in losses)}; gradient "
+          f"norms {', '.join(f'{x:.4f}' for x in norms)}; gstat:n "
+          f"{gstat[0]:.0f}, gstat:avg {gstat[1]:.4f}; {ms:.2f} ms/update; "
+          f"the updates' launches "
+          f"{ {k: v for k, v in trained.items() if v} }, of them {tiled} of "
+          f"the tiled packed backward (past 64 tokens) and "
+          f"{trained['fused_ce_fwd']} of the fused CE forward at "
+          f"{min(tokens)}-{max(tokens)} tokens; {smi}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -7043,19 +7360,109 @@ def main(argv=None) -> int:
         return run_phases(args, smi, child)
     finally:
         for proc in (child, *STARTED):
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+            stop(proc)
+
+
+class WriteMeter:
+    """Bytes written by this process and every process it started, for
+    the phase lines. Two counts from /proc/<pid>/io: ``wchar``, the
+    bytes passed to write calls, and ``write_bytes``, what reached the
+    block layer (counted when a page is dirtied). A kernel without
+    block-layer accounting (an application kernel may read 0 for
+    write_bytes) leaves only the first. A thread samples the
+    descendants' counts every ``interval`` seconds, keyed by pid and
+    start time, so a process's count is its last sample before it
+    ended. Where the kernel folds a reaped child's counts into its
+    parent's (Linux does, at the wait: tested once at start), only the
+    live descendants are added to this process's own counts; where it
+    does not, every descendant ever seen is."""
+
+    def __init__(self, interval: float = 0.05):
+        self.interval = interval
+        self.seen = {}          # (pid, start time) -> (wchar, write_bytes)
+        self.lock = threading.Lock()
+        before = self._io("self")[0]
+        subprocess.run([sys.executable, "-c",
+                        "import os; os.write(1, bytes(1 << 20))"],
+                       stdout=subprocess.DEVNULL, check=True)
+        self.folds = self._io("self")[0] - before >= 1 << 20
+        threading.Thread(target=self._run, daemon=True,
+                         name="write-meter").start()
+
+    @staticmethod
+    def _io(pid) -> tuple:
+        with open(f"/proc/{pid}/io") as fh:
+            f = dict(line.split(": ") for line in fh.read().splitlines())
+        return int(f["wchar"]), int(f["write_bytes"])
+
+    @staticmethod
+    def _descendants():
+        parent = {}
+        for name in os.listdir("/proc"):
+            if not name.isdigit():
+                continue
+            try:
+                with open(f"/proc/{name}/stat") as fh:
+                    fields = fh.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            parent[(int(name), fields[19])] = int(fields[1])
+        pids, out = {os.getpid()}, set()
+        grew = True
+        while grew:
+            grew = False
+            for key, ppid in parent.items():
+                if ppid in pids and key[0] not in pids:
+                    pids.add(key[0])
+                    out.add(key)
+                    grew = True
+        return out
+
+    def sample(self) -> None:
+        alive = {}
+        for key in self._descendants():
+            try:
+                alive[key] = self._io(key[0])
+            except (OSError, KeyError, ValueError):
+                continue
+        with self.lock:
+            if self.folds:
+                self.seen = alive
+            else:
+                self.seen.update(alive)
+
+    def _run(self) -> None:
+        while True:
+            time.sleep(self.interval)
+            self.sample()
+
+    def read(self) -> tuple:
+        """(wchar, write_bytes) of this process and its descendants."""
+        self.sample()
+        wchar, blocks = self._io("self")
+        with self.lock:
+            wchar += sum(w for w, _ in self.seen.values())
+            blocks += sum(b for _, b in self.seen.values())
+        return wchar, blocks
+
+
+def gib_written(meter: WriteMeter, since: tuple) -> str:
+    wchar, blocks = meter.read()
+    return (f"{(wchar - since[0]) / 2**30:.3f} GiB written "
+            f"({(blocks - since[1]) / 2**30:.3f} GiB to storage)")
 
 
 def run_phases(args, smi: str, child) -> int:
     t0 = time.perf_counter()
+    meter = WriteMeter()
+    w0 = meter.read()
 
     def timed(name, fn, *args):
-        t = time.perf_counter()
+        t, w = time.perf_counter(), meter.read()
         out = fn(*args)
         print(f"phase {name}: {time.perf_counter() - t:.1f} s "
-              f"({time.perf_counter() - t0:.1f} s in all)")
+              f"({time.perf_counter() - t0:.1f} s in all), "
+              f"{gib_written(meter, w)}")
         return out
     timed("build", phase_build)
     gen = torch.Generator().manual_seed(args.seed)
@@ -7115,6 +7522,8 @@ def run_phases(args, smi: str, child) -> int:
                            args.seed)
     paths["train obs"] = timed("train observability", phase_train_obs,
                                args.seed, smi)
+    paths["recipe train"] = timed("recipe train", phase_recipe_train,
+                                  args.seed, smi)
     timed("bundles", phase_train_bundles)
     paths["lifecycle serve"] = timed("lifecycle serve main path",
                                      phase_lifecycle_serve, args.seed)
@@ -7128,12 +7537,12 @@ def run_phases(args, smi: str, child) -> int:
                                phase_doc_train_main_path, args.seed)
     paths["doc decode"] = timed("doc decode main path",
                                 phase_doc_decode_main_path)
-    # the crash-resume phase's two trainers run beside the doc card-vs-CPU
-    # phase, whose readings are no timing
-    crash = timed("crash resume: its trainers started", start_crash_runs)
+    # the chaos phase's processes run beside the doc card-vs-CPU phase,
+    # whose readings are no timing
+    chaos = timed("chaos harness: its processes started", start_chaos_runs)
     timed("doc card vs cpu", phase_doc_card_vs_cpu, args.seed)
-    paths["crash resume"] = timed("crash resume", phase_crash_resume, crash,
-                                  smi)
+    paths["crash resume"] = timed("chaos harness", phase_chaos_harness,
+                                  chaos, smi)
     paths["bf16 train"] = timed("bf16 train main path",
                                 phase_bf16_train_main_path)
     paths["bf16 decode"] = timed("bf16 decode main path",
@@ -7176,6 +7585,8 @@ def run_phases(args, smi: str, child) -> int:
                     for name in cuda_cores)
         + " launches on the main paths (their shapes: E % 8 != 0 or "
           "unaligned operands)")
+    print(f"phases: {time.perf_counter() - t0:.1f} s, "
+          f"{gib_written(meter, w0)} in all")
     print(smi)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -17,8 +17,9 @@ parses and the trainer refuses it (the live ``jax.profiler`` server has
 no ``torch.profiler`` counterpart). The flags of the JAX package's
 compile cache and of its mesh machinery are left out.
 Precedence as
-in Marian: defaults < config file(s) < CLI flags. ``--cpu-threads N``
-(N > 0) runs on the CPU.
+in Marian: defaults < config file(s) < the ``--task`` bundle
+(``common/aliases.py``) < CLI flags. ``--cpu-threads N`` (N > 0) runs on
+the CPU.
 
 A flag that parses but whose feature this slice does not carry yet is
 refused at startup (``translator.translator``, ``server.server``,
@@ -35,6 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import yaml
 
 from . import logging as log
+from .aliases import expand_aliases
 from .config_validator import validate_options
 from .options import Options
 
@@ -132,7 +134,7 @@ _MODEL_TRAINING = [
     _f("max-length-crop", bool, False, "Crop instead of skipping over-long sentences"),
     _f("fused-ce", str, "auto", "Fused output projection + cross-entropy kernels (CUDA): auto (on the card), on, off"),
     _f("gradient-checkpointing", bool, False, "Rematerialization to save memory (not ported yet)"),
-    _f("task", str, None, "Predefined hyperparameter bundle (not ported yet)", "?"),
+    _f("task", str, None, "Shortcut for a predefined hyperparameter bundle: transformer-base, transformer-big, transformer-base-prenorm, transformer-big-prenorm", "?"),
     _f("auto-tune", bool, False, "Time dense against flash attention and bind the crossover (not ported yet)"),
 ]
 
@@ -153,10 +155,11 @@ _TRAINING = [
     _f("save-freq", str, "10000u", "Save model every N updates/labels"),
     _f("normalize-gradient", bool, False, "Additionally divide the gradient by the batch's target-word count"),
     _f("check-gradient-nan", bool, False, "Skip the whole update when the gradient norm is non-finite"),
-    _f("dynamic-gradient-scaling", str, [], "Outlier gradient scaling (not ported yet)", "*"),
+    _f("dynamic-gradient-scaling", str, [], "FACTOR ['log']: scale outlier gradients down to FACTOR x the windowed average (log-)norm", "*"),
+    _f("gradient-norm-average-window", int, 100, "Window for the running gradient-norm average used by --dynamic-gradient-scaling"),
     _f("optimizer-state-dtype", str, "float32", "Storage dtype for Adam's first moment: float32 | bfloat16 (halves m's memory and per-step traffic; math stays f32, v stays f32; beyond the reference)"),
     _f("gradient-dtype", str, "float32", "Dtype gradients are produced and stored in until the optimizer's f32 upcast: float32 | bfloat16 (requires matching bfloat16 compute --precision, otherwise ignored with a warning). Note: the logits backward always rounds its cotangent through the COMPUTE dtype (ops/ops.py logits_matmul), so float32 here does NOT make bf16-compute backward passes fully f32"),
-    _f("async-save", bool, False, "Overlap checkpoint writes with training (not ported yet)"),
+    _f("async-save", bool, False, "Overlap checkpoint writes with training: copies of the saved tensors on the card, taken on the training thread, then the host fetch and the disk writes on a background worker. Needs card memory for one copy of params+EMA+optimizer state at save time"),
     _f("keep-checkpoint-bundles", int, 3, "Crash-safe checkpointing: keep the last N committed checkpoint bundles under <model>.bundles/ (each bundle is the atomic, checksummed model+optimizer+progress unit restore validates and falls back across). Disk cost is ~N x checkpoint size; minimum 1"),
     _f("shuffle", str, "data", "data, batches, none"),
     _f("no-shuffle", bool, False, "Disable shuffling (= --shuffle none)"),
@@ -164,12 +167,14 @@ _TRAINING = [
     _f("tsv", bool, False, "Tab-separated train sets (not ported yet)"),
     _f("mini-batch", int, 64, "Minibatch size (sentences)"),
     _f("mini-batch-words", int, 0, "Minibatch size in target labels (token budget)"),
-    _f("mini-batch-fit", bool, False, "Determine minibatch automatically (not ported yet)"),
+    _f("mini-batch-fit", bool, False, "Determine the token budget (mini-batch-words) automatically: the largest whose worst-case batch trains within the card's memory"),
+    _f("mini-batch-fit-step", int, 10, "Step for mini-batch-fit search"),
     _f("maxi-batch", int, 100, "Number of minibatches to preload and sort"),
     _f("maxi-batch-sort", str, "trg", "Sorting within maxi-batch: trg, src, none"),
     _f("data-threads", int, 8, "Host threads for data pipeline"),
     _f("mini-batch-words-ref", int, 0, "Reference batch size in words for LR auto-adjustment"),
-    _f("mini-batch-warmup", str, "0", "Linear batch-size warmup period (not ported yet)"),
+    _f("mini-batch-warmup", str, "0", "Linear batch-size warmup period (in updates)"),
+    _f("mini-batch-track-lr", bool, False, "Adjust LR for tracked batch-size ramp"),
     _f("optimizer", str, "adam", "adam, adagrad, sgd"),
     _f("optimizer-params", float, [], "Optimizer hyperparameters (Adam: beta1 beta2 eps)", "*"),
     _f("optimizer-delay", float, 1.0, "SGD update delay (gradient accumulation): N updates or fractional"),
@@ -359,6 +364,12 @@ class ConfigParser:
             for k, v in loaded.items():
                 merged[str(k)] = v
                 explicit.add(str(k))
+        # the --task bundle (from the command line or a config file)
+        # over the config files' values, under the command line's
+        task = cli.get("task", merged.get("task"))
+        if task:
+            merged = expand_aliases(task, merged)
+            merged["task"] = task
         for k, v in cli.items():
             if k != "config":
                 merged[k] = v
@@ -377,6 +388,11 @@ class ConfigParser:
         # bare `--output-sampling` (Marian shorthand) = full sampling, temp 1
         if cli.get("output-sampling") == []:
             merged["output-sampling"] = ["full"]
+        # bare `--dynamic-gradient-scaling` = factor 2 (the YAML `true`
+        # spelling too)
+        if cli.get("dynamic-gradient-scaling") == [] \
+                or merged.get("dynamic-gradient-scaling") is True:
+            merged["dynamic-gradient-scaling"] = ["2"]
         for alias, (canon, vmap) in _CANONICAL.items():
             if alias in explicit and canon not in explicit:
                 val = merged[alias]
@@ -426,6 +442,10 @@ def parse_options(argv: Optional[Sequence[str]] = None,
     if opts.get("no-shuffle", False):
         opts.set("shuffle", "none")
     validate_options(opts, mode)
+    if int(opts.get("mini-batch-fit-step", 10) or 10) != 10:
+        # the reference's audit of a flag it parses and does not read
+        log.warn("--mini-batch-fit-step has no effect: bucketed static "
+                 "shapes replace the binary batch-fitting search")
     threads = opts.get("cpu-threads", 0)
     if isinstance(threads, (str, bool)) or threads is None:
         raise ValueError("--cpu-threads needs a thread count N > 0")

@@ -39,8 +39,8 @@ the lifecycle's watcher and the training thread all cross fault points).
 
 Every fault point is declared in CATALOG, and an undeclared name raises
 ``FaultSpecError`` when it is armed or crossed. The reference's
-``ckpt.async.worker``, ``jit.closure_vary``, ``train.hang`` and
-``train.diverge_cost`` wait for the code they sit in (ROADMAP). Stdlib
+``jit.closure_vary``, ``train.hang`` and ``train.diverge_cost`` wait for
+the code they sit in (ROADMAP). Stdlib
 only, so any layer and any subprocess driver may import it.
 """
 
@@ -77,6 +77,7 @@ CATALOG: Dict[str, str] = {
     "ckpt.publish":
         "after commit, before the legacy top-level view (model.npz etc.) "
         "is republished",
+    "ckpt.async.worker": "at the start of the AsyncSaver background job",
     "data.batch.next":
         "in the batch pipeline, before a batch is yielded",
     "serving.dispatch":

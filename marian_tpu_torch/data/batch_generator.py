@@ -12,7 +12,9 @@ to this slice:
   length bucket, rows to a multiple of 8, and under a token budget to
   one canonical row count per width. The port keeps the table so its
   batches are the reference's batches, and so the CUDA kernels see few
-  distinct shapes.
+  distinct shapes;
+- under --mini-batch-warmup, scale both budgets by ``budget_scale()``
+  (in (0, 1]), read once a maxi window, as the reference does.
 
 It runs without the reference's prefetch thread. Every batch crosses
 the ``data.batch.next`` fault point before it is yielded, as in the
@@ -129,7 +131,8 @@ class BatchGenerator:
                  maxi_batch: int = 100, maxi_batch_sort: str = "trg",
                  shuffle_batches: Optional[bool] = None,
                  batch_multiple: int = 8,
-                 length_buckets=DEFAULT_LENGTH_BUCKETS, seed: int = 1):
+                 length_buckets=DEFAULT_LENGTH_BUCKETS, seed: int = 1,
+                 budget_scale=None):
         self.corpus = corpus
         if options is not None:
             mini_batch = int(options.get("mini-batch", mini_batch)
@@ -154,6 +157,9 @@ class BatchGenerator:
         self.shuffle_batches = bool(shuffle_batches)
         self.batch_multiple = batch_multiple
         self.length_buckets = length_buckets
+        # --mini-batch-warmup: a callable returning a scale in (0, 1] that
+        # shrinks the batch early in training (read once a maxi window)
+        self.budget_scale = budget_scale
         self._rs = np.random.RandomState(seed % (2**31))
         self.n_streams = len(corpus.vocabs)
 
@@ -165,11 +171,16 @@ class BatchGenerator:
             buf = sorted(buf, key=lambda t: (len(t.trg), len(t.src)))
         elif self.sort_key == "src":
             buf = sorted(buf, key=lambda t: (len(t.src), len(t.trg)))
-        words_budget = self.mini_batch_words
+        scale = 1.0
+        if self.budget_scale is not None:
+            scale = max(min(float(self.budget_scale()), 1.0), 1e-3)
+        words_budget = max(int(self.mini_batch_words * scale), 1) \
+            if self.mini_batch_words > 0 else 0
+        rows_budget = max(int(self.mini_batch * scale), 1)
         batches: List[CorpusBatch] = []
         # the budget counts the padded target size (Marian counts labels);
         # one canonical row count per width under it
-        for group in budget_groups(buf, lambda t: len(t.trg), self.mini_batch,
+        for group in budget_groups(buf, lambda t: len(t.trg), rows_budget,
                                    words_budget, self.length_buckets):
             width = bucket_length(max(len(t.trg) for t in group),
                                   self.length_buckets)

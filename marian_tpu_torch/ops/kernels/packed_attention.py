@@ -20,7 +20,8 @@ reference takes it, and inside the bf16 tensor-core one. On the CPU the
 gradient is autograd through the plain forward.
 ``packed_attention.launches`` and ``packed_attention_bwd.launches`` count
 kernel launches on the CUDA cores, ``.launches_bf16_tc`` of each those
-on the tensor cores.
+on the tensor cores; ``packed_attention_bwd.launches_tiled`` counts
+those of its ``.launches`` that took the tiled kernel (past 64 tokens).
 
 The float32 forward kernel works on 64 x 64 tiles of queries and keys
 too: a block per (batch, head) and 64 queries (32 up to 32 queries:
@@ -550,10 +551,13 @@ def packed_attention_bwd(q, k, v, kv_mask, do, out, causal: bool = False,
         _stream(q))
     _build.check(err, "packed_attention_bwd")
     packed_attention_bwd.launches += 1
+    if max(tq, tk) > _TILE:
+        packed_attention_bwd.launches_tiled += 1    # of .launches
     return dq, dk, dv
 
 
 packed_attention.launches = 0
 packed_attention.launches_bf16_tc = 0
 packed_attention_bwd.launches = 0
+packed_attention_bwd.launches_tiled = 0
 packed_attention_bwd.launches_bf16_tc = 0

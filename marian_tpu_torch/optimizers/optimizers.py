@@ -6,7 +6,11 @@ src/optimizers/exponential_smoothing.h), ported from
 - Adam with bias correction (denominators 1-beta^t), epsilon added to the
   square root of the corrected second moment, and optional
   --mini-batch-words-ref scaling of lr and eps;
-- exponential smoothing of params (EMA swapped in for saving).
+- exponential smoothing of params (EMA swapped in for saving);
+- the statistics of --dynamic-gradient-scaling ('gstat': the windowed
+  average of the (log-)gradient norm and its count), which the update
+  tail ``training/graph_group.finalize_update`` keeps, as the
+  reference's ``parallel/zero.py`` does.
 
 State is f32 whatever the compute dtype, except Adam's first moment m
 under --optimizer-state-dtype bfloat16: it is stored in bf16, upcast for
@@ -15,9 +19,8 @@ Gradients of any dtype are upcast to f32 here. Unlike the reference's
 pure (state, grads) → (state, params) functions, ``apply_update``
 updates the parameters and the state IN PLACE (under no_grad), which
 saves a second copy of every tensor; it returns the same dicts for the
-reference's call shape. Not ported yet: train-time quantization,
-gradient dropping and dynamic gradient scaling; ``from_options`` refuses
-their flags.
+reference's call shape. Not ported yet: train-time quantization and
+gradient dropping; ``from_options`` refuses their flags.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ Params = Dict[str, torch.Tensor]
 _UNPORTED = {
     "quantize-bits": 0,
     "gradient-dropping-rate": 0.0,
-    "dynamic-gradient-scaling": [],
 }
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -51,6 +53,11 @@ class OptimizerConfig:
     normalize_gradient: bool = False   # --normalize-gradient
     check_gradient_nan: bool = False   # --check-gradient-nan
     state_dtype: str = "float32"       # --optimizer-state-dtype (Adam's m)
+    # --dynamic-gradient-scaling FACTOR [log]: a step whose (log-)norm
+    # passes FACTOR x its windowed average is scaled down to it
+    dyn_scale_factor: float = 0.0      # 0 = off
+    dyn_scale_log: bool = False
+    norm_window: int = 100             # --gradient-norm-average-window
 
     @classmethod
     def from_options(cls, options) -> "OptimizerConfig":
@@ -75,7 +82,19 @@ class OptimizerConfig:
                   check_gradient_nan=bool(
                       options.get("check-gradient-nan", False)),
                   state_dtype=str(options.get("optimizer-state-dtype",
-                                              "float32") or "float32"))
+                                              "float32") or "float32"),
+                  norm_window=int(
+                      options.get("gradient-norm-average-window", 100)
+                      or 100))
+        dyn = options.get("dynamic-gradient-scaling", []) or []
+        if dyn is True:
+            dyn = ["2"]
+        if isinstance(dyn, (str, int, float)):
+            dyn = [dyn]
+        if dyn:
+            cfg.dyn_scale_factor = float(dyn[0])
+            cfg.dyn_scale_log = any(str(v).lower() == "log"
+                                    for v in dyn[1:])
         if cfg.state_dtype not in STATE_DTYPES:
             raise ValueError(
                 f"--optimizer-state-dtype {cfg.state_dtype}: expected "
@@ -106,6 +125,10 @@ def init_state(cfg: OptimizerConfig, params: Params) -> Dict[str, Any]:
         st["gt"] = zeros()
     if cfg.smoothing > 0:
         st["avg"] = {k: v.detach().float().clone() for k, v in params.items()}
+    if cfg.dyn_scale_factor > 0:
+        st["gstat"] = {"avg": torch.zeros((), dtype=torch.float32,
+                                          device=dev),
+                       "n": torch.zeros((), dtype=torch.float32, device=dev)}
     return st
 
 

@@ -8,7 +8,8 @@ over one batch, or over the ``--optimizer-delay`` micro-batches of one
 update with their gradients summed into f32 accumulators (the
 reference's split path, graph_group.py ``update``), then cost-type
 normalisation of the gradient, --normalize-gradient,
-global-norm clipping (--clip-norm), the optimizer step, and
+--dynamic-gradient-scaling, global-norm clipping (--clip-norm), the
+optimizer step, and
 --check-gradient-nan (a non-finite gradient norm skips the whole update,
 params and optimizer state untouched). Parameters are f32 leaf tensors
 on the device (the master weights, whatever --precision computes in)
@@ -108,18 +109,53 @@ def finalize_update(opt_cfg: OptimizerConfig, opt_state, params: Params,
                     grads: Params, lr: float, labels: torch.Tensor,
                     denom: torch.Tensor):
     """The update tail (reference: parallel/zero.py :: finalize_update):
-    cost normalisation → --normalize-gradient → --clip-norm → optimizer
-    step → --check-gradient-nan. Returns (raw gradient norm, skipped)."""
+    cost normalisation → --normalize-gradient → --dynamic-gradient-scaling
+    (statistics in opt_state['gstat']; an outlier scaled down to factor
+    x the windowed average) → --clip-norm (of the scaled norm, so the
+    two caps compose as a min) → optimizer step → --check-gradient-nan.
+    Returns (raw gradient norm, skipped)."""
     if opt_cfg.normalize_gradient:
         denom = denom * torch.clamp(labels, min=1.0)
     grads = {k: g.float() / denom for k, g in grads.items()}
     gnorm = global_norm(grads)
     if opt_cfg.check_gradient_nan and not bool(torch.isfinite(gnorm)):
+        # the reference reverts the whole state, gstat too; a non-finite
+        # norm leaves gstat as it was in any case
         return gnorm, torch.ones((), device=gnorm.device)
+    post_dyn_norm = gnorm
+    if opt_cfg.dyn_scale_factor > 0:
+        grads, post_dyn_norm = _dynamic_scaling(opt_cfg, opt_state["gstat"],
+                                                grads, gnorm)
     if opt_cfg.clip_norm > 0:
-        grads = clip_by_global_norm(grads, opt_cfg.clip_norm, gnorm)
+        grads = clip_by_global_norm(grads, opt_cfg.clip_norm, post_dyn_norm)
     apply_update(opt_cfg, opt_state, params, grads, lr, labels)
     return gnorm, torch.zeros((), device=gnorm.device)
+
+
+def _dynamic_scaling(opt_cfg: OptimizerConfig, gstat: Dict[str, Any],
+                     grads: Params, gnorm: torch.Tensor):
+    """--dynamic-gradient-scaling in the reference's op order: the
+    windowed running average of the (log-)norm takes finite norms only
+    (one NaN must not poison it), is warm after min(10, window) of them,
+    and scales a step whose norm passes factor x average down to that
+    threshold. Updates ``gstat`` in place; returns (grads, scaled
+    norm)."""
+    finite = torch.isfinite(gnorm)
+    x = torch.log(torch.clamp(gnorm, min=1e-30)) \
+        if opt_cfg.dyn_scale_log else gnorm
+    n = gstat["n"] + torch.where(finite, 1.0, 0.0)
+    w = torch.clamp(torch.clamp(n, min=1.0), max=float(opt_cfg.norm_window))
+    avg = torch.where(finite, gstat["avg"] + (x - gstat["avg"]) / w,
+                      gstat["avg"])
+    thresh = (torch.exp(avg) * opt_cfg.dyn_scale_factor
+              if opt_cfg.dyn_scale_log
+              else avg * opt_cfg.dyn_scale_factor)
+    warm = n >= min(10.0, float(opt_cfg.norm_window))
+    scale = torch.where(warm & finite & (gnorm > thresh),
+                        thresh / torch.clamp(gnorm, min=1e-30), 1.0)
+    gstat["avg"].copy_(avg)
+    gstat["n"].copy_(n)
+    return {k: g * scale for k, g in grads.items()}, gnorm * scale
 
 
 class GraphGroup:
@@ -227,16 +263,22 @@ class GraphGroup:
     def export_params(self) -> Params:
         return {k: p.detach() for k, p in self.params.items()}
 
-    def optimizer_arrays(self) -> Dict[str, np.ndarray]:
-        """Flat-named optimizer state as numpy, the reference's
-        ``.optimizer.npz`` layout ('t', 'm:<name>', 'v:<name>', ...); a
-        bf16 m is saved as f32, as the reference saves it (numpy has no
-        bfloat16, and the file resumes under either state dtype)."""
-        flat = {"t": self.opt_state["t"].cpu().numpy()}
-        for part in ("m", "v", "gt", "avg"):
+    def optimizer_tensors(self) -> Dict[str, torch.Tensor]:
+        """Flat-named optimizer state, the reference's ``.optimizer.npz``
+        layout ('t', 'm:<name>', 'v:<name>', ..., 'gstat:avg',
+        'gstat:n'), as the live tensors on the device."""
+        flat = {"t": self.opt_state["t"]}
+        for part in ("m", "v", "gt", "avg", "gstat"):
             for k, v in self.opt_state.get(part, {}).items():
-                flat[f"{part}:{k}"] = v.detach().float().cpu().numpy()
+                flat[f"{part}:{k}"] = v.detach()
         return flat
+
+    def optimizer_arrays(self) -> Dict[str, np.ndarray]:
+        """``optimizer_tensors`` as numpy; a bf16 m is saved as f32, as
+        the reference saves it (numpy has no bfloat16, and the file
+        resumes under either state dtype)."""
+        return {k: v.float().cpu().numpy()
+                for k, v in self.optimizer_tensors().items()}
 
     def load_optimizer_arrays(self, flat: Dict[str, np.ndarray]) -> None:
         """Optimizer state from ``optimizer_arrays``' layout; m takes

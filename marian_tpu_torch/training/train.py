@@ -25,6 +25,15 @@ reads after every update, as the reference's ``_check_stop`` does: under
 checkpoint is saved and training ends normally; under
 ``exit-immediately`` it ends without a save.
 
+Batch size, as the reference sets it: --mini-batch-fit searches the
+largest token budget whose worst-case batch trains on the card
+(``training/batch_fit.py``); --mini-batch-track-lr anchors
+--mini-batch-words-ref at that budget, so the lr follows each batch's
+labels; --mini-batch-warmup N ramps the batch linearly over the first N
+updates. --async-save writes the checkpoints on a background worker
+(``training/checkpoint.py``); the trainer waits for the save in flight
+before a validation and at every exit.
+
 Randomness is explicit and seeded from --seed: corpus and batch
 shuffling draw from numpy's RandomState as the reference does, and
 dropout draws from a ``torch.Generator`` on the training device that is
@@ -65,6 +74,8 @@ from ..common import faultpoints as fp
 from ..common import io as mio
 from ..common import logging as log
 from ..common import signal_handling
+from ..common.scheduling_parameter import (SchedulingParameter,
+                                           SchedulingUnit)
 from ..data.batch_generator import BatchGenerator
 from ..data.corpus import Corpus
 from ..data.vocab import DefaultVocab, create_vocab
@@ -74,7 +85,7 @@ from ..models.encoder_decoder import batch_to_arrays, create_model
 from ..obs.profiling import StepTimer, TraceWindow
 from ..serving.metrics import maybe_start_metrics_server
 from . import bundle as bdl
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import AsyncSaver, load_checkpoint, save_checkpoint
 from .graph_group import GraphGroup, delay_of
 from .scheduler import Scheduler
 from .training_state import TrainingState
@@ -86,9 +97,6 @@ _UNPORTED = {
     "dispatch-window": 1,
     "guided-alignment": "none",
     "unlikelihood-loss": False,
-    "mini-batch-fit": False,
-    "mini-batch-warmup": "0",
-    "async-save": False,
     "tsv": False,
     "right-left": False,
     "embedding-vectors": [],
@@ -96,7 +104,6 @@ _UNPORTED = {
     "embedding-fix-trg": False,
     "gradient-checkpointing": False,
     "mesh": [],
-    "task": None,
     "output-omit-bias": False,
     "transformer-depth-scaling": False,
     "auto-tune": False,
@@ -225,6 +232,8 @@ class Train:
             v.training_state = state
         config_yaml = opts.as_yaml()
         generator = torch.Generator(device=self.device)
+        # --async-save: the writes overlap training (checkpoint.py)
+        saver = AsyncSaver() if opts.get("async-save", False) else None
         # resume point of the last APPLIED batch: the corpus runs a whole
         # maxi window ahead of training
         last_corpus_state = [corpus.state.as_dict()]
@@ -242,9 +251,14 @@ class Train:
                             keep_bundles=int(
                                 opts.get("keep-checkpoint-bundles",
                                          bdl.DEFAULT_KEEP)
-                                or bdl.DEFAULT_KEEP))
+                                or bdl.DEFAULT_KEEP),
+                            async_saver=saver)
 
         def do_validate() -> None:
+            if saver is not None:
+                # a validator that reads files sees this moment's
+                # checkpoint, not one half written
+                saver.wait()
             params = gg.smoothed() if gg.opt_cfg.smoothing > 0 \
                 else gg.export_params()
             for v in validators:
@@ -261,6 +275,33 @@ class Train:
                 if improved and opts.get("keep-best", False):
                     do_save(suffix=".best-" + v.name)
             scheduler.maybe_decay_lr(gg.schedule, gg)
+
+        if opts.get("mini-batch-fit", False):
+            # the largest token budget whose worst-case batch trains on
+            # this device (batch_fit.py); the batch generator reads it
+            from .batch_fit import fit_mini_batch_words
+            opts.set("mini-batch-words",
+                     fit_mini_batch_words(gg, opts, len(vocabs[-1])))
+        # --mini-batch-track-lr: the lr (and Adam's eps) follow the batch's
+        # labels over the full (possibly fitted) budget, through
+        # --mini-batch-words-ref, which the optimizer step applies
+        if opts.get("mini-batch-track-lr", False) \
+                and not int(opts.get("mini-batch-words-ref", 0) or 0):
+            ref = int(opts.get("mini-batch-words", 0) or 0)
+            if ref > 0:
+                opts.set("mini-batch-words-ref", ref)
+                gg.opt_cfg.ref_mb_words = ref
+                log.info("mini-batch-track-lr: LR tracks batch size "
+                         "(reference {} words)", ref)
+        # --mini-batch-warmup: the batch (rows and token budget) ramps
+        # linearly over the first N updates
+        wu_n = warmup_updates(opts)
+        budget_scale = None
+        if wu_n > 0:
+            budget_scale = lambda: min(  # noqa: E731
+                (state.batches + 1) / float(wu_n), 1.0)
+            log.info("mini-batch-warmup: ramping batch size over the "
+                     "first {} updates", wu_n)
 
         # observability: --trace records the loop's phase spans into the
         # tracer serving uses, --trace-dump arms the flight recorder (an
@@ -309,7 +350,8 @@ class Train:
             # short of --optimizer-delay at the epoch's end is dropped
             group = []
             stimer.phase("data")
-            for batch in BatchGenerator(corpus, opts):
+            for batch in BatchGenerator(corpus, opts,
+                                        budget_scale=budget_scale):
                 n_batches += 1
                 group.append(batch)
                 if len(group) < gg.delay:
@@ -339,6 +381,8 @@ class Train:
                                  "immediately (--sigterm exit-immediately)")
                         trace.close()
                         scheduler.close()
+                        if saver is not None:
+                            saver.close()   # a save already in flight ends
                         return
                     log.info("Caught termination signal; saving and exiting")
                     do_save()
@@ -359,6 +403,20 @@ class Train:
         scheduler.close()        # the last skip flags, the TensorBoard flush
         log.info("Training finished")
         do_save()
+        if saver is not None:
+            saver.close()       # the last checkpoint is on disk at exit
+
+
+def warmup_updates(opts) -> int:
+    """--mini-batch-warmup as an update count; only the update unit means
+    something for a ramp by update, so other units are refused."""
+    raw = str(opts.get("mini-batch-warmup", "0") or "0")
+    wu = SchedulingParameter.parse(raw)
+    if wu.n > 0 and wu.unit != SchedulingUnit.UPDATES:
+        raise ValueError(
+            f"--mini-batch-warmup {raw}: only update-counted warmup "
+            f"(e.g. 4000 or 4000u) is supported")
+    return wu.n
 
 
 def train_main(options) -> None:

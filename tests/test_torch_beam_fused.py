@@ -115,6 +115,19 @@ def fused_engines(tiny, steps, **kw):
             JBeam(jm, jp, jv, jv, merge="fused", **args))
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    ``ServingApp`` built from ``parse_options`` enables the port's perf
+    plane (the parser defaults --perf-accounting on), which would change
+    what later tests in the process see; disable it again after every
+    test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()
+
+
 @pytest.fixture(scope="module")
 def host_run(tiny):
     """The port's host-merge engine over TEXTS: the baseline."""

@@ -69,6 +69,19 @@ BEAM = dict(beam_size=K, normalize=0.6, max_rows=2 * K, **ARGS)
 SCORE_TOL = 2e-5
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    ``ServingApp`` built from ``parse_options`` enables the port's perf
+    plane (the parser defaults --perf-accounting on), which would change
+    what later tests in the process see; disable it again after every
+    test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """(JAX model, JAX params, port model, port params, JAX vocab, port

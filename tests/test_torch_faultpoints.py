@@ -4,7 +4,7 @@ CPU:
 
 - the spec grammar: good specs parse to the same fields in both, bad
   ones raise ``FaultSpecError`` in both (the catalog listing in the
-  unknown-name message differs by the four names the port leaves out,
+  unknown-name message differs by the three names the port leaves out,
   which the port refuses and the reference takes);
 - ``prob`` fires at the same hits for one (spec, seed) in both;
 - hit counters, the fire and kill hooks, ``active`` and the arming
@@ -30,8 +30,7 @@ from marian_tpu.common import faultpoints as jfp
 from marian_tpu_torch.common import faultpoints as tfp
 
 ROOT = Path(__file__).resolve().parents[1]
-WAITING = ("ckpt.async.worker", "jit.closure_vary", "train.hang",
-           "train.diverge_cost")
+WAITING = ("jit.closure_vary", "train.hang", "train.diverge_cost")
 
 
 @pytest.fixture(autouse=True)

@@ -1,7 +1,8 @@
 """Rules of the port that hold without a card.
 
 - marian_tpu_torch/ (every subpackage: layers/, optimizers/, training/
-  included), chip_smoke.py and the port's scripts import neither
+  included), chip_smoke.py and the port's scripts (``scripts/torch_*.py``,
+  the chaos harness among them) import neither
   jax nor anything of marian_tpu (AST scan), and every CUDA source the
   build lists exists and includes only CUDA and C headers (a plain C
   interface: no PyTorch, Python or XLA headers);
@@ -46,16 +47,11 @@ FORBIDDEN = ("jax", "jaxlib", "marian_tpu")
 
 
 def _port_files():
+    """The package, chip_smoke.py and every script of the port
+    (``scripts/torch_*.py``, later ones too)."""
     files = sorted((ROOT / "marian_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "scripts" / "torch_decode_profile.py",
-                    ROOT / "scripts" / "torch_train_profile.py",
-                    ROOT / "scripts" / "torch_train_parity.py",
-                    ROOT / "scripts" / "torch_serve_profile.py",
-                    ROOT / "scripts" / "torch_fused_ce_tc_check.py",
-                    ROOT / "scripts" / "torch_fused_ce_fwd_ab.py",
-                    ROOT / "scripts" / "torch_attention_ab.py",
-                    ROOT / "scripts" / "torch_flash_bwd_ab.py"]
+                    *sorted((ROOT / "scripts").glob("torch_*.py"))]
 
 
 def _imported_modules(path):
@@ -92,7 +88,11 @@ def test_port_imports_no_jax_and_nothing_of_marian_tpu():
             "marian_tpu_torch/serving/lifecycle/registry.py",
             "marian_tpu_torch/serving/lifecycle/watcher.py",
             "marian_tpu_torch/serving/lifecycle/warmup.py",
-            "marian_tpu_torch/serving/lifecycle/controller.py"} <= copies
+            "marian_tpu_torch/serving/lifecycle/controller.py",
+            "marian_tpu_torch/common/aliases.py",
+            "marian_tpu_torch/training/batch_fit.py",
+            "scripts/torch_chaos.py", "scripts/torch_train_profile.py",
+            "scripts/torch_flash_bwd_ab.py"} <= copies
 
 
 def test_cuda_sources_are_listed_and_plain_c():

@@ -57,6 +57,19 @@ TEXTS = [A, B, A, A, B, C, A, B, C]
 SCHEDULE = {0: [0, 1], 2: [2], 4: [3, 4, 5], 16: [6, 7, 8]}
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    ``ServingApp`` built from ``parse_options`` enables the port's perf
+    plane (the parser defaults --perf-accounting on), which would change
+    what later tests in the process see; disable it again after every
+    test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()
+
+
 @pytest.fixture(scope="module")
 def tiny():
     jm, jp, tm, tp, _ = tiny_pair(vocab=len(DefaultVocab.build(WORDS)),

@@ -42,6 +42,19 @@ WORDS = [" ".join(f"w{i}" for i in range(35))]
 MAX_LENGTH = 16
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    ``ServingApp`` built from ``parse_options`` enables the port's perf
+    plane (the parser defaults --perf-accounting on), which would change
+    what later tests in the process see; disable it again after every
+    test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()
+
+
 @pytest.fixture(scope="module")
 def model(tmp_path_factory):
     """(model path, vocab path, JAX model, JAX params): one seeded JAX

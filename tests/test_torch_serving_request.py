@@ -190,6 +190,19 @@ def test_decoder_batches_by_token_budget_as_jax(budget):
         assert not g.mask[n:].any() and (g.sentence_ids[n:] == -1).all()
 
 
+@pytest.fixture(autouse=True)
+def _reset_port_perf_plane():
+    """The port's counterpart of tests/conftest.py's _reset_perf_plane: a
+    ``ServingApp`` built from ``parse_options`` enables the port's perf
+    plane (the parser defaults --perf-accounting on), which would change
+    what later tests in the process see; disable it again after every
+    test."""
+    yield
+    from marian_tpu_torch import obs
+    if obs.PERF.enabled:
+        obs.PERF.reset()
+
+
 @pytest.fixture(scope="module")
 def model(tmp_path_factory):
     """(model path, vocab path): one seeded JAX init saved with the

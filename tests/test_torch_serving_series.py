@@ -31,6 +31,7 @@ Every wait has a deadline.
 """
 
 import asyncio
+import contextlib
 import json
 import os
 import threading
@@ -72,13 +73,31 @@ REQUESTS = [("r1", ["a b c", "d e"]), ("r2", ["f g h i"]),
             ("r3", ["j", "k l m", "n o"]), ("r4", ["p q r s t"])]
 
 
-@pytest.fixture(autouse=True)
-def _reset_obs():
-    yield
+def _reset_planes():
     for p in PKGS.values():
         p.obs.TRACER.reset()
         p.obs.FLIGHT.disarm()
         p.obs.PERF.reset()
+
+
+@contextlib.contextmanager
+def planes_reset():
+    """Both packages' planes off on entry as well as on exit: a test file
+    that ran earlier in this worker may have left a plane on (a port
+    ``ServingApp`` built from ``parse_options`` turns the perf plane on,
+    since the parser defaults --perf-accounting on), and the request-mode
+    span tree differs with it (``serve.batch`` gains ``device_s``)."""
+    _reset_planes()
+    try:
+        yield
+    finally:
+        _reset_planes()
+
+
+@pytest.fixture(autouse=True)
+def _reset_obs():
+    with planes_reset():
+        yield
 
 
 def translate(lines):

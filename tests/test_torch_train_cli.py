@@ -142,10 +142,10 @@ def test_train_entry_point_raises_without_card(work, monkeypatch):
     assert not (work / "none.npz").exists()
 
 
-@pytest.mark.parametrize("flag", [["--dynamic-gradient-scaling", "2"],
+@pytest.mark.parametrize("flag", [["--transformer-depth-scaling"],
                                   ["--dispatch-window", "4"],
                                   ["--guided-alignment", "a.txt"],
-                                  ["--mini-batch-fit"]])
+                                  ["--gradient-checkpointing"]])
 def test_unported_training_flags_raise(work, flag):
     with pytest.raises(NotImplementedError):
         marian_train.main(train_args(work, "x.npz", "--cpu-threads", "1",
@@ -154,12 +154,19 @@ def test_unported_training_flags_raise(work, flag):
 
 @pytest.mark.parametrize("flag,progress", [
     (["--optimizer-delay", "2"], "batches: 3"),
+    (["--dynamic-gradient-scaling", "2"], "batches: 3"),
+    (["--async-save", "--save-freq", "1"], "batches: 3"),
+    (["--mini-batch-warmup", "2", "--mini-batch-track-lr"], "batches: 3"),
+    (["--mini-batch-fit", "--max-length", "12", "--max-length-crop"],
+     "batches: 3"),
     (["--lr-decay", "0.5", "--lr-decay-strategy", "batches",
       "--lr-decay-freq", "1", "--valid-sets", str(DATA / "train.src"),
       str(DATA / "train.trg"), "--valid-freq", "1u"], "factor: 0.125")])
 def test_ported_training_flags_run(work, flag, progress):
-    """--optimizer-delay and --lr-decay, once refused, now train: 3
-    updates of 2 batches each; a decay by half after each of 3
+    """--optimizer-delay, --lr-decay, --dynamic-gradient-scaling,
+    --async-save, --mini-batch-warmup with --mini-batch-track-lr and
+    --mini-batch-fit, once refused, now train: 3 updates (of 2 batches
+    each under the delay); a decay by half after each of 3
     validations."""
     marian_train.main(train_args(work, "ported.npz", "--after-batches", "3",
                                  "--cpu-threads", "1", "--no-reload",
