@@ -201,6 +201,19 @@ card, and drives the port's main paths on data made from --seed:
   ramping), --mini-batch-track-lr and --dynamic-gradient-scaling 2 log:
   losses and gradient norms finite, gstat:n saved equal to 6, the tiled
   packed backward and the fused CE past 16,384 tokens counted;
+- the rest of the training slice at the base width (6+6), through
+  marian_train: --tsv with guided alignment, gradient checkpointing,
+  --output-omit-bias, depth scaling and pretrained vectors with the
+  source table fixed (costs and guided costs finite, the fixed table
+  byte-equal to the vectors loaded, no bias key saved, every update's
+  launches counted, the model decoded); --right-left with --quantize-bits
+  8 and --gradient-dropping-rate 0.9 (at most 255 values a quantized
+  matrix, the checkpoint's decode equal on the card and the CPU); the
+  2+2 cut card against CPU for guided alignment with checkpointing, for
+  compression and for the unlikelihood loss (no fused CE launch); and
+  checkpointing against none at the base width, loss, gradients and
+  updated parameters bit-identical, with peak memory, ms/update and the
+  packed forward's recomputed launches;
 - the trainer's observability plane on the base train path, without
   and with --trace-sync-phases: /metrics at a display linted clean with
   the six trainer series, the phase gauge and the two train gauges,
@@ -365,9 +378,9 @@ F32_PATHS = ("decode", "serve", "request serve", "beam serve",
              "fused beam serve", "fused beam pressure", "prefix serve",
              "decode surface", "observability serve", "brownout serve",
              "fleet serve", "pool drills", "train", "crash resume",
-             "train obs", "recipe train", "lifecycle serve",
-             "lifecycle iteration", "delay train", "doc train",
-             "doc decode")
+             "train obs", "recipe train", "train extras",
+             "lifecycle serve", "lifecycle iteration", "delay train",
+             "doc train", "doc decode")
 BF16_PATHS = ("bf16 train", "bf16 decode", "bf16 doc cut",
               "bf16 request serve", "bf16 beam serve",
               "bf16 fused beam serve", "bf16 decode surface")
@@ -543,6 +556,23 @@ RECIPE_FLAGS = ["--task", "transformer-base", "--after-batches",
                 "--seed", "1111", "--disp-freq", "1", "--quiet"]
 # memory_allocated before and after the fit's search, at most apart
 RECIPE_MEM_SLACK = 8 << 20
+# the train extras phase (the rest of the training slice): two runs of
+# marian_train at the base width (6+6), EXTRAS_UPDATES updates each and
+# one save (the model file only), on the training corpus's side files
+# (write_extras_data: its TSV copy, Pharaoh alignments, word weights of
+# both signs, word2vec vectors of the first EXTRAS_VEC_WORDS words):
+# run A with --tsv, guided alignment, gradient checkpointing,
+# --output-omit-bias, depth scaling and pretrained vectors with the
+# source table fixed (untied, so that each side has its table); run B
+# with --right-left and train-time compression. Then the 2+2 base cut
+# on the card against the CPU (the child process) for each group of
+# flags in EXTRAS_CUTS, and the checkpointing A/B at the base width:
+# one gradient pass and EXTRAS_AB_UPDATES timed updates each way
+EXTRAS_UPDATES, EXTRAS_VEC_WORDS, EXTRAS_AB_UPDATES = 4, 2000, 3
+# the base update's packed forward launches that checkpointing repeats:
+# 6 encoder self, 6 decoder self and 6 cross attentions, each
+# checkpointed layer's forward once more in the backward
+EXTRAS_RECOMPUTED = 18
 # the port's kernels of rows 2, 3 and 7-9 (by their kernel-line names)
 # as the profiler trace names them: substrings of the CUDA kernels each
 # row's wrapper launches on the f32 base update
@@ -6447,6 +6477,7 @@ def cpu_references(seed: int) -> None:
     torch.set_num_threads(CPU_REF_THREADS)
     lines = write_model(seed, cuts_only=True)
     write_corpus(seed)
+    write_extras_data(seed, vectors=False)
     t0 = time.perf_counter()
     tr = bf16_translator("cpu", "base_2x2.npz", threads=CPU_REF_THREADS)
     out = {"decode_best": best_hypotheses(tr, lines[:8]),
@@ -6457,9 +6488,13 @@ def cpu_references(seed: int) -> None:
                              threads=CPU_REF_THREADS)
         out[f"surface_{name}"] = best_hypotheses(tr, sents)
     out["decode_seconds"] = time.perf_counter() - t0
-    for cut, setup in (("base", lambda: base_parity_setup(*BF16_FLAGS)),
-                       ("doc", lambda: doc_parity_setup(seed, *BF16_FLAGS)),
-                       ("delay", delay_parity_setup)):
+    cuts = [("base", lambda: base_parity_setup(*BF16_FLAGS)),
+            ("doc", lambda: doc_parity_setup(seed, *BF16_FLAGS)),
+            ("delay", delay_parity_setup)]
+    cuts += [(f"extras_{name}",
+              lambda name=name: base_parity_setup(*extras_cut_flags(name)))
+             for name in EXTRAS_CUTS]
+    for cut, setup in cuts:
         args = setup()
         t0 = time.perf_counter()
         out[cut] = {"run": stored_run(parity_run(*args, "cpu"), args[3]),
@@ -6508,7 +6543,9 @@ def collect_cpu_references(child) -> dict:
           f"{ref['decode_seconds']:.2f} s, base cut "
           f"{ref['base']['seconds']:.2f} s, doc cut "
           f"{ref['doc']['seconds']:.2f} s, f32 delay cut "
-          f"{ref['delay']['seconds']:.2f} s")
+          f"{ref['delay']['seconds']:.2f} s, train extras cuts "
+          + ", ".join(f"{name} {ref[f'extras_{name}']['seconds']:.2f} s"
+                      for name in EXTRAS_CUTS))
     return ref
 
 
@@ -7338,6 +7375,332 @@ def phase_recipe_train(seed: int, smi: str) -> dict:
     return counts
 
 
+# -- the rest of the training slice ------------------------------------------
+
+def write_extras_data(seed: int, vectors: bool = True) -> None:
+    """The side files of the train extras phase beside the training
+    corpus (``write_corpus``): ``train.tsv``, the corpus as one
+    tab-separated file; ``train.align``, each target word aligned to a
+    random source word with probability 0.8 (Pharaoh format);
+    ``train.weights``, a word weight for each target token and its EOS
+    from {1, 0.5, -0.5, -1}; and with ``vectors``, ``src.vec`` and
+    ``trg.vec``, word2vec text vectors (with the 'n dim' header) of the
+    vocabulary's first EXTRAS_VEC_WORDS words."""
+    rng = np.random.RandomState(seed + 9)
+    src = (WORK / "train.src").read_text().splitlines()
+    trg = (WORK / "train.trg").read_text().splitlines()
+    (WORK / "train.tsv").write_text(
+        "".join(f"{a}\t{b}\n" for a, b in zip(src, trg)))
+    align, weights = [], []
+    for a, b in zip(src, trg):
+        n, m = len(a.split()), len(b.split())
+        pts = rng.randint(0, n, m)
+        keep = rng.rand(m) < 0.8
+        align.append(" ".join(f"{s}-{t}" for t, s in enumerate(pts)
+                              if keep[t]))
+        weights.append(" ".join(
+            str(w) for w in rng.choice([1.0, 0.5, -0.5, -1.0], m + 1)))
+    (WORK / "train.align").write_text("\n".join(align) + "\n")
+    (WORK / "train.weights").write_text("\n".join(weights) + "\n")
+    if not vectors:
+        return
+    dim = int(BASE["dim-emb"])
+    for name in ("src.vec", "trg.vec"):
+        vecs = rng.randn(EXTRAS_VEC_WORDS, dim).astype(np.float32) * 0.05
+        (WORK / name).write_text(
+            f"{EXTRAS_VEC_WORDS} {dim}\n" + "".join(
+                f"w{i + 2} " + " ".join(f"{x:.6f}" for x in row) + "\n"
+                for i, row in enumerate(vecs)))
+
+
+def extras_cut_flags(name: str) -> tuple:
+    """The flags of a card-vs-CPU cut of the train extras phase, on the
+    base cut's flags (``base_parity_setup``), with this process's WORK."""
+    return {"guided": ("--guided-alignment", str(WORK / "train.align"),
+                       "--gradient-checkpointing", "--output-omit-bias",
+                       "--transformer-depth-scaling"),
+            "compress": ("--quantize-bits", "8",
+                         "--gradient-dropping-rate", "0.9"),
+            "unlikelihood": ("--unlikelihood-loss", "--data-weighting",
+                             str(WORK / "train.weights"),
+                             "--data-weighting-type", "word")}[name]
+
+
+EXTRAS_CUTS = ("guided", "compress", "unlikelihood")
+
+
+def extras_run(what: str, model: str, *extra: str, loaded=None) -> tuple:
+    """marian_train.main (the command line's entry point) on the training
+    corpus at the base width for EXTRAS_UPDATES updates with ``extra``
+    flags, its one save the model file only (``model_only_save``), every
+    launch count set to 0 just before and read just after. Returns
+    (counts, the updates' outputs, seconds). ``loaded``: a dict that
+    gets the embedding tables as the trainer loaded them."""
+    from marian_tpu_torch.cli import marian_train
+    from marian_tpu_torch.training import train as train_mod
+    from marian_tpu_torch.training.graph_group import GraphGroup
+    for f in WORK.glob(f"{model}*"):
+        shutil.rmtree(f) if f.is_dir() else f.unlink()
+    outs = []
+    update, load = GraphGroup.update, train_mod.load_embedding_vectors
+
+    def recorded(gg, batches, step, *args, **kw):
+        out = update(gg, batches, step, *args, **kw)
+        outs.append(out)
+        return out
+
+    def loading(opts, params, vocabs):
+        load(opts, params, vocabs)
+        if loaded is not None:
+            loaded.update({k: v.clone() for k, v in params.items()
+                           if k.endswith("Wemb")})
+    argv = train_argv(model, EXTRAS_UPDATES, "--overwrite", *extra)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    GraphGroup.update = recorded
+    train_mod.load_embedding_vectors = loading
+    try:
+        with trainer_saves(model_only_save) as written:
+            marian_train.main(argv)
+    finally:
+        GraphGroup.update = update
+        train_mod.load_embedding_vectors = load
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    check(len(outs) == EXTRAS_UPDATES and len(written) == 1,
+          f"{what}: {len(outs)} updates, saves {written}")
+    costs = np.array([float(o.loss_sum) / float(o.labels) for o in outs])
+    check(bool(np.isfinite(costs).all()), f"{what}: costs {costs}")
+    return counts, outs, secs
+
+
+def mean_ces(outs) -> str:
+    return ", ".join(f"{float(o.loss_sum) / float(o.labels):.4f}"
+                     for o in outs)
+
+
+def phase_train_extras(seed: int, smi: str, cpu: dict) -> dict:
+    """The rest of the training slice on the card:
+
+    - run A, ``marian_train`` at the base width (6+6, untied) from the
+      corpus's TSV copy with --guided-alignment, --gradient-checkpointing,
+      --output-omit-bias, --transformer-depth-scaling and
+      --embedding-vectors src.vec trg.vec with --embedding-fix-src, f32,
+      dropout 0.1: finite costs and guided costs; the saved source table
+      byte-equal to the table as loaded, its vector rows the file's;
+      no output bias in the saved model; the launches of every update:
+      the packed forward 12 for the encoder (6 layers, each recomputed),
+      11 for the decoder's self-attention and 10 for its cross-attention
+      (the last layer, guided alignment's, neither recomputed nor, for
+      its cross-attention, on the kernel), the packed backward 17, the
+      fused CE 1 each; the saved model decodes on the card;
+    - run B, the tied base model with --right-left, --quantize-bits 8 and
+      --gradient-dropping-rate 0.9: at most 255 values in each quantized
+      matrix of the saved model (biases and norms are not quantized);
+      the checkpoint decodes on the card to the CPU's n-best tokens;
+    - the 2+2 base cut on the card against the CPU (the child process's
+      run in ``cpu``; a cut it lacks runs on the CPU here) within the
+      unchanged PARITY_LIMITS, for guided alignment with
+      checkpointing, omit-bias and depth scaling; for compression; and
+      for the unlikelihood loss on word weights of both signs, with no
+      fused CE launch (the dense logits, as the reference);
+    - --gradient-checkpointing at the base width: one gradient pass at
+      dropout 0.1 with and without, the loss and every gradient
+      bit-identical and the dropout generator left in one state; then
+      EXTRAS_AB_UPDATES updates each way on the same batch: the
+      parameters after them bit-identical, the peak memory, ms/update and
+      the packed forward's launches (those without plus
+      EXTRAS_RECOMPUTED an update) printed beside ``smi``.
+
+    Returns the launch counts of runs A and B, the phase's main path."""
+    from marian_tpu_torch.common import io as mio
+    write_extras_data(seed)
+    vocab = str(WORK / "vocab.yml")
+    untied = ("--tied-embeddings-all", "false")
+    loaded = {}
+    a_counts, a_outs, a_secs = extras_run(
+        "run A", "extras_a.npz", *untied, "--tsv", "--train-sets",
+        str(WORK / "train.tsv"), "--vocabs", vocab, vocab,
+        "--guided-alignment", str(WORK / "train.align"),
+        "--gradient-checkpointing", "--output-omit-bias",
+        "--transformer-depth-scaling", "--embedding-vectors",
+        str(WORK / "src.vec"), str(WORK / "trg.vec"), "--embedding-fix-src",
+        loaded=loaded)
+    guided = np.array([float(o.guided) for o in a_outs])
+    check(bool(np.isfinite(guided).all() and (guided > 0).all()),
+          f"run A: guided costs {guided}")
+    params, _ = mio.load_model(str(WORK / "extras_a.npz"))
+    check("decoder_ff_logit_out_b" not in params
+          and "decoder_ff_logit_out_W" in params,
+          f"run A: output layer keys "
+          f"{sorted(k for k in params if 'logit' in k)}")
+    start = loaded["encoder_Wemb"].numpy()
+    file_rows = np.array([l.split()[1:] for l in (WORK / "src.vec")
+                          .read_text().splitlines()[1:]], np.float32)
+    check(np.array_equal(params["encoder_Wemb"], start)
+          and np.array_equal(start[2:2 + EXTRAS_VEC_WORDS], file_rows)
+          and not np.array_equal(params["decoder_Wemb"],
+                                 loaded["decoder_Wemb"].numpy()),
+          "run A: the fixed source table moved, or was not the vectors "
+          "loaded, or the target table did not train")
+    per_update = {"packed_attention": 33, "packed_attention_bwd": 17,
+                  "fused_ce_fwd": 1, "fused_ce_dx": 1, "fused_ce_dw": 1}
+    want = {k: per_update.get(k, 0) * EXTRAS_UPDATES for k in a_counts}
+    check(a_counts == want, f"run A launches {a_counts}, expected {want}")
+    src = (WORK / "train.src").read_text().splitlines()[:4]
+    tr, hyps, _, dec_counts = decode_run("extras_a.npz", src)
+    check(dec_counts["decode_attention"] > 0
+          and dec_counts["packed_attention"] > 0,
+          f"run A's model decode launches {dec_counts}")
+    print(f"train extras: run A (6+6 base width, untied, f32, dropout 0.1, "
+          f"--tsv, --guided-alignment, --gradient-checkpointing, "
+          f"--output-omit-bias, --transformer-depth-scaling, "
+          f"--embedding-vectors with --embedding-fix-src): "
+          f"{EXTRAS_UPDATES} updates and one save in {a_secs:.2f} s; mean "
+          f"CE {mean_ces(a_outs)}; "
+          f"guided cost {', '.join(f'{g:.4f}' for g in guided)}; source "
+          f"table byte-equal to the {EXTRAS_VEC_WORDS} loaded vectors and "
+          f"the init; no output bias; launches "
+          f"{ {k: v for k, v in a_counts.items() if v} }; decoded "
+          f"{len(src)} sentences on the card, {len(hyps)} hypotheses")
+
+    b_counts, b_outs, b_secs = extras_run(
+        "run B", "extras_b.npz", "--right-left", "--quantize-bits", "8",
+        "--gradient-dropping-rate", "0.9")
+    params, _ = mio.load_model(str(WORK / "extras_b.npz"))
+    levels = {k: len(np.unique(v)) for k, v in params.items()
+              if v.ndim >= 2 and v.shape[0] > 1}
+    check(levels and max(levels.values()) <= 255,
+          f"run B: distinct values {levels}")
+    want = {k: PER_UPDATE.get(k, 0) * EXTRAS_UPDATES for k in b_counts}
+    check(b_counts == want, f"run B launches {b_counts}, expected {want}")
+    decode_card_vs_cpu("run B's checkpoint (--right-left, 8-bit)",
+                       "extras_b.npz", src[:2])
+    print(f"train extras: run B (6+6 base width, tied, --right-left, "
+          f"--quantize-bits 8, --gradient-dropping-rate 0.9): "
+          f"{EXTRAS_UPDATES} updates and one save in {b_secs:.2f} s; mean "
+          f"CE {mean_ces(b_outs)}; "
+          f"distinct values a quantized matrix {min(levels.values())}-"
+          f"{max(levels.values())} over {len(levels)} matrices; launches "
+          f"{ {k: v for k, v in b_counts.items() if v} }")
+
+    for name in EXTRAS_CUTS:
+        flags = " ".join(Path(f).name for f in extras_cut_flags(name))
+        reset_counts()
+        train_card_vs_cpu(f"2+2 cut of transformer-base, {flags}",
+                          base_parity_setup(*extras_cut_flags(name)),
+                          PARITY_LIMITS, cpu.get(f"extras_{name}"))
+        counts = read_counts()
+        fce = sum(v for k, v in counts.items() if k.startswith("fused_ce"))
+        check(counts["packed_attention"] > 0
+              and (fce == 0) == (name == "unlikelihood"),
+              f"card vs cpu, {name}: launches {counts}")
+    checkpointing_ab(smi)
+    return {k: a_counts[k] + b_counts[k] for k in a_counts}
+
+
+def checkpointing_ab(smi: str) -> None:
+    """--gradient-checkpointing against none at the base width on one
+    batch of the training corpus (TRAIN_FLAGS: dropout 0.1): see
+    ``phase_train_extras``."""
+    from marian_tpu_torch.common.config_parser import parse_options
+    from marian_tpu_torch.data.batch_generator import BatchGenerator
+    from marian_tpu_torch.data.corpus import Corpus
+    from marian_tpu_torch.data.vocab import create_vocab
+    from marian_tpu_torch.models import transformer as T
+    from marian_tpu_torch.models.encoder_decoder import (batch_to_arrays,
+                                                         create_model)
+    from marian_tpu_torch.training.graph_group import (GraphGroup,
+                                                       dropout_seed)
+    dev = torch.device("cuda")
+    argv = train_argv("extras_ab.npz", 1)
+    opts = {"off": parse_options(argv, mode="training"),
+            "on": parse_options(argv + ["--gradient-checkpointing"],
+                                mode="training")}
+    vocab = create_vocab(str(WORK / "vocab.yml"))
+    batch = next(iter(BatchGenerator(Corpus(
+        [str(WORK / "train.src"), str(WORK / "train.trg")], [vocab, vocab],
+        opts["off"]), opts["off"])))
+    arrays = batch_to_arrays(batch, dev)
+    init = None
+
+    def graph_group(o):
+        nonlocal init
+        gg = GraphGroup(create_model(o, len(vocab), len(vocab)), o, dev)
+        if init is None:
+            init = T.init_params(gg.model.cfg, 5)
+        gg.initialize(init)
+        return gg
+    ref = {}
+    for name in ("off", "on"):
+        gg = graph_group(opts[name])
+        names = list(gg.params)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(dropout_seed(1111, 1))
+        total, _ = gg.model.loss(gg.params, arrays, gen, train=True)
+        grads = torch.autograd.grad(total, [gg.params[k] for k in names])
+        if name == "off":
+            ref = {"loss": total.detach(), "gen": gen.get_state(),
+                   "grads": dict(zip(names, (g.detach() for g in grads)))}
+        else:
+            same = [k for k, g in zip(names, grads)
+                    if torch.equal(g, ref["grads"][k])]
+            check(torch.equal(total.detach(), ref["loss"])
+                  and torch.equal(gen.get_state(), ref["gen"])
+                  and len(same) == len(names),
+                  f"checkpointing A/B: loss {float(total.detach())} against "
+                  f"{float(ref['loss'])}; gradients bit-identical for "
+                  f"{len(same)} of {len(names)} leaves")
+        del gg, grads, total
+    ref.clear()
+    torch.cuda.empty_cache()
+    res = {}
+    for name in ("off", "on"):
+        gg = graph_group(opts[name])
+        gen = torch.Generator(device=dev)
+        gg.update(arrays, 1, gen, 1111)             # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for step in range(2, EXTRAS_AB_UPDATES + 2):
+            gg.update(arrays, step, gen, 1111)
+        torch.cuda.synchronize()
+        res[name] = {"ms": 1e3 * (time.perf_counter() - t0)
+                     / EXTRAS_AB_UPDATES,
+                     "peak": torch.cuda.max_memory_allocated() / 2**30,
+                     "counts": read_counts(),
+                     "params": {k: v.detach().clone()
+                                for k, v in gg.params.items()}}
+        del gg
+        torch.cuda.empty_cache()
+    on, off = res["on"], res["off"]
+    check(all(torch.equal(on["params"][k], off["params"][k])
+              for k in off["params"]),
+          "checkpointing A/B: parameters differ after the updates")
+    fwd = {k: res[k]["counts"]["packed_attention"] for k in res}
+    want = {**off["counts"], "packed_attention": fwd["off"]
+            + EXTRAS_RECOMPUTED * EXTRAS_AB_UPDATES}
+    check(fwd["off"] == PER_UPDATE["packed_attention"] * EXTRAS_AB_UPDATES
+          and on["counts"] == want,
+          f"checkpointing A/B launches: without {off['counts']}, with "
+          f"{on['counts']}")
+    rows, width = batch.trg.ids.shape
+    print(f"train extras: --gradient-checkpointing A/B at the base width "
+          f"(6+6, f32, dropout 0.1, one batch of {rows} x {width} target "
+          f"tokens): loss and all {len(on['params'])} gradients "
+          f"bit-identical, parameters bit-identical after "
+          f"{EXTRAS_AB_UPDATES} updates; without: {off['ms']:.2f} "
+          f"ms/update, peak {off['peak']:.2f} GiB, packed forward "
+          f"{fwd['off']} launches; with: {on['ms']:.2f} ms/update "
+          f"({on['ms'] / off['ms']:.3f}x), peak {on['peak']:.2f} GiB "
+          f"({on['peak'] / off['peak']:.3f}x), packed forward {fwd['on']} "
+          f"launches ({fwd['off']} + {EXTRAS_RECOMPUTED} x "
+          f"{EXTRAS_AB_UPDATES}); {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=17)
@@ -7530,6 +7893,8 @@ def run_phases(args, smi: str, child) -> int:
     paths["lifecycle iteration"] = timed("lifecycle iteration main path",
                                          phase_lifecycle_iteration, args.seed)
     timed("train card vs cpu", phase_train_card_vs_cpu)
+    paths["train extras"] = timed("train extras", phase_train_extras,
+                                  args.seed, smi, cpu_ref)
     paths["delay train"] = timed("delay train main path",
                                  phase_delay_train_main_path, args.seed)
     timed("delay card vs cpu", phase_delay_card_vs_cpu, cpu_ref)

@@ -93,6 +93,7 @@ _MODEL = [
     _f("transformer-postprocess-top", str, "", "Final decoder-top postprocess ops"),
     _f("transformer-train-position-embeddings", bool, False, "Learned positional embeddings"),
     _f("transformer-depth-scaling", bool, False, "Depth-scaled parameter initialization"),
+    _f("transformer-guided-alignment-layer", str, "last", "Decoder layer for guided alignment"),
     _f("max-length", int, 50, "Maximum sentence length (decode cap)"),
     _f("precision", str, ["float32", "float32"], "Precisions: compute, optimizer accumulation (float16 is mapped to bfloat16; the second is accepted and not acted on)", "+"),
     _f("fp16", bool, False, "Half-precision shortcut: --precision bfloat16 float32 unless --precision is given (fp16's narrow exponent needs loss scaling; bf16 keeps the f32 range)"),
@@ -133,7 +134,7 @@ _MODEL_TRAINING = [
     _f("pretrained-model", str, None, "Initialize weights from this model"),
     _f("max-length-crop", bool, False, "Crop instead of skipping over-long sentences"),
     _f("fused-ce", str, "auto", "Fused output projection + cross-entropy kernels (CUDA): auto (on the card), on, off"),
-    _f("gradient-checkpointing", bool, False, "Rematerialization to save memory (not ported yet)"),
+    _f("gradient-checkpointing", bool, False, "Rematerialization to save memory: each layer's activations are recomputed in the backward"),
     _f("task", str, None, "Shortcut for a predefined hyperparameter bundle: transformer-base, transformer-big, transformer-base-prenorm, transformer-big-prenorm", "?"),
     _f("auto-tune", bool, False, "Time dense against flash attention and bind the crossover (not ported yet)"),
 ]
@@ -141,7 +142,8 @@ _MODEL_TRAINING = [
 _TRAINING = [
     _f("cost-type", str, "ce-sum", "ce-mean, ce-mean-words, ce-sum, perplexity"),
     _f("sigterm", str, "save-and-exit", "SIGTERM behavior: save-and-exit or exit-immediately"),
-    _f("unlikelihood-loss", bool, False, "Word-level weights as unlikelihood indicators (not ported yet)"),
+    _f("multi-loss-type", str, "sum", "sum, scaled, mean"),
+    _f("unlikelihood-loss", bool, False, "Use word-level weights as indicators for unlikelihood loss"),
     _f("overwrite", bool, False, "Do not create checkpoints per save, overwrite model file"),
     _f("no-reload", bool, False, "Do not load existing model file before training"),
     _f("train-sets", str, [], "Paths to training corpora (source target)", "*"),
@@ -164,7 +166,8 @@ _TRAINING = [
     _f("shuffle", str, "data", "data, batches, none"),
     _f("no-shuffle", bool, False, "Disable shuffling (= --shuffle none)"),
     _f("no-restore-corpus", bool, False, "Do not restore corpus position on resume"),
-    _f("tsv", bool, False, "Tab-separated train sets (not ported yet)"),
+    _f("tsv", bool, False, "Train sets are tab-separated files (one line carries all streams)"),
+    _f("tsv-fields", int, 0, "Number of TSV columns (0 = infer from --vocabs count)"),
     _f("mini-batch", int, 64, "Minibatch size (sentences)"),
     _f("mini-batch-words", int, 0, "Minibatch size in target labels (token budget)"),
     _f("mini-batch-fit", bool, False, "Determine the token budget (mini-batch-words) automatically: the largest whose worst-case batch trains within the card's memory"),
@@ -196,12 +199,20 @@ _TRAINING = [
     _f("label-smoothing", float, 0.0, "Label smoothing epsilon"),
     _f("clip-norm", float, 1.0, "Global gradient-norm clipping (0 = off)"),
     _f("exponential-smoothing", float, 0.0, "EMA decay of parameters, e.g. 1e-4 (0 = off)"),
-    _f("guided-alignment", str, "none", "Path to alignments or 'none' (not ported yet)"),
+    _f("guided-alignment", str, "none", "Path to alignments or 'none'"),
+    _f("guided-alignment-cost", str, "ce", "ce, mse, mult"),
+    _f("guided-alignment-weight", float, 0.1, "Weight for guided-alignment cost"),
     _f("data-weighting", str, None, "Path to per-sentence/word weight file"),
     _f("data-weighting-type", str, "sentence", "sentence or word"),
-    _f("embedding-vectors", str, [], "Pretrained embedding vectors (not ported yet)", "*"),
-    _f("embedding-fix-src", bool, False, "Fix source embeddings (not ported yet)"),
-    _f("embedding-fix-trg", bool, False, "Fix target embeddings (not ported yet)"),
+    _f("embedding-vectors", str, [], "Paths to pretrained embedding vectors", "*"),
+    _f("embedding-normalization", bool, False, "Normalize pretrained embedding vectors"),
+    _f("embedding-fix-src", bool, False, "Fix source embeddings"),
+    _f("embedding-fix-trg", bool, False, "Fix target embeddings"),
+    _f("quantize-bits", int, 0, "Train-time model quantization bits (0 = off)"),
+    _f("gradient-dropping-rate", float, 0.0, "Drop this fraction of each gradient tensor (DGC-style, with error feedback); 0 = off"),
+    _f("quantize-optimization-steps", int, 0, "Scale-optimization steps for quantization"),
+    _f("quantize-log-based", bool, False, "Log-based quantization"),
+    _f("quantize-biases", bool, False, "Quantize biases too"),
     _f("dropout-src", float, 0.0, "Source word dropout"),
     _f("dropout-trg", float, 0.0, "Target word dropout"),
     _f("transformer-dropout", float, 0.0, "Dropout between transformer layers"),

@@ -50,6 +50,8 @@ class CorpusBatch:
     """A training batch across streams (reference: CorpusBatch)."""
     sub: List[SubBatch]               # [src, trg]
     sentence_ids: np.ndarray          # [batch] corpus line numbers (-1 = pad)
+    # --guided-alignment: [batch, trg_len, src_len], rows normalised
+    guided_alignment: Optional[np.ndarray] = None
     data_weights: Optional[np.ndarray] = None   # [batch, trg_len] or [batch, 1]
     corpus_state: Optional[dict] = None   # resume point once this batch's
     # whole maxi window has been applied
@@ -101,6 +103,14 @@ def make_batch(tuples: Sequence[SentenceTuple], n_streams: int,
     for b, t in enumerate(tuples):
         sent_ids[b] = t.idx
 
+    guided = None
+    if any(t.alignment is not None for t in tuples):
+        tw, sw = subs[-1].ids.shape[1], subs[0].ids.shape[1]
+        guided = np.zeros((bsz, tw, sw), dtype=np.float32)
+        for b, t in enumerate(tuples):
+            if t.alignment is not None:
+                t.alignment.fill_dense(guided[b])
+
     weights = None
     if any(t.weights is not None for t in tuples):
         tw = subs[-1].ids.shape[1]
@@ -120,7 +130,7 @@ def make_batch(tuples: Sequence[SentenceTuple], n_streams: int,
             for b, t in enumerate(tuples):
                 if t.weights is not None:
                     weights[b, 0] = t.weights[0]
-    return CorpusBatch(subs, sent_ids, weights, corpus_state)
+    return CorpusBatch(subs, sent_ids, guided, weights, corpus_state)
 
 
 class BatchGenerator:

@@ -7,7 +7,13 @@ in on every call, as in the reference.
 The loss takes the fused CE (``ops/kernels/fused_ce.py``) under
 ``--fused-ce``: ``auto`` engages it on the card, where the CUDA kernels
 run; on the CPU ``auto`` stays dense, as the reference's does off the
-TPU, and ``on`` runs the kernels' plain versions.
+TPU, and ``on`` runs the kernels' plain versions. As in the reference,
+the fused CE is skipped when --unlikelihood-loss meets data weights: the
+dense logits then go through ``layers/loss.py``. Under
+--guided-alignment a batch that carries the alignment matrix adds the
+guided cost (``layers/loss.guided_alignment_loss``) of the alignment
+layer's cross-attention weights, at label scale for --multi-loss-type
+sum and scaled, per label for mean.
 """
 
 from __future__ import annotations
@@ -18,7 +24,8 @@ import numpy as np
 import torch
 import yaml
 
-from ..layers.loss import RationalLoss, cross_entropy_loss, weighted_loss
+from ..layers.loss import (RationalLoss, cross_entropy_loss,
+                           guided_alignment_loss, weighted_loss)
 from ..ops.kernels.fused_ce import fused_softmax_xent
 from . import transformer as T
 
@@ -38,28 +45,60 @@ class EncoderDecoder:
         if self.fused_ce_mode not in ("auto", "on", "off"):
             raise ValueError(f"--fused-ce {self.fused_ce_mode}: auto, on or "
                              f"off")
+        self.guided_weight = float(options.get("guided-alignment-weight",
+                                               0.1))
+        self.multi_loss_type = str(options.get("multi-loss-type", "sum")
+                                   or "sum")
+        self.unlikelihood = bool(options.get("unlikelihood-loss", False))
+        self.guided_cost = str(options.get("guided-alignment-cost", "ce"))
+        ga = options.get("guided-alignment", "none")
+        self.use_guided = bool(ga and ga != "none")
 
     # -- training graph (reference: EncoderDecoder::build + costs.h) --------
     def loss(self, params, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              train: bool = True):
-        """(summed CE, aux dict with ce_sum / labels) of one batch;
-        dropout masks come from ``generator``."""
+        """(summed CE plus the guided cost, aux dict with ce_sum / labels,
+        and ``guided`` when it was added) of one batch; dropout masks come
+        from ``generator``."""
         cparams = T.cast_params(params, self.cfg.compute_dtype)
         src_mask = batch["src_mask"]
         enc_out = T.encode(self.cfg, cparams, batch["src_ids"], src_mask,
                            train, generator)
+        want_align = self.use_guided and "guided" in batch
         table = self._fused_ce_table(cparams, enc_out.device)
         hidden = T.decode_train(self.cfg, cparams, enc_out, src_mask,
                                 batch["trg_ids"], batch["trg_mask"], train,
-                                generator, return_hidden=table is not None)
-        if table is not None:
+                                generator, return_hidden=table is not None,
+                                return_alignment=want_align)
+        align = None
+        if want_align:
+            hidden, align = hidden
+        if table is not None and not (self.unlikelihood
+                                      and "data_weights" in batch):
             rl = self._fused_ce_loss(cparams, table, hidden, batch)
         else:
+            if table is not None:      # the fused CE skipped: unlikelihood
+                hidden = T.output_logits(self.cfg, cparams, hidden)
             rl = cross_entropy_loss(hidden, batch["trg_ids"],
                                     batch["trg_mask"], self.label_smoothing,
-                                    batch.get("data_weights"))
-        return rl.loss_sum, {"ce_sum": rl.loss_sum, "labels": rl.labels}
+                                    batch.get("data_weights"),
+                                    unlikelihood=self.unlikelihood)
+        total = rl.loss_sum
+        aux = {"ce_sum": rl.loss_sum, "labels": rl.labels}
+        if align is not None:
+            ga = guided_alignment_loss(align, batch["guided"],
+                                       batch["trg_mask"], self.guided_cost)
+            # --multi-loss-type (reference: MultiRationalLoss): sum and
+            # scaled add the guided cost at the CE's label count (both
+            # counts are the target labels, so scaled's factor is 1);
+            # mean adds the per-label mean
+            if self.multi_loss_type == "mean":
+                total = total + self.guided_weight * ga
+            else:
+                total = total + self.guided_weight * ga * rl.labels
+            aux["guided"] = ga
+        return total, aux
 
     def _fused_ce_table(self, cparams, device: torch.device):
         """[V, E] output table when the fused CE applies, else None (dense
@@ -144,7 +183,8 @@ def apply_embedded_config(options, config_yaml: Optional[str]):
 
 def batch_to_arrays(batch, device) -> Dict[str, torch.Tensor]:
     """CorpusBatch → dict of tensors on ``device`` for ``loss``: int64 ids
-    and f32 masks per stream, plus data weights when present."""
+    and f32 masks per stream, plus the guided-alignment matrix
+    (``guided``) and the data weights when present."""
     def put(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=device, dtype=dtype, non_blocking=True)
@@ -153,6 +193,8 @@ def batch_to_arrays(batch, device) -> Dict[str, torch.Tensor]:
            "src_mask": put(batch.src.mask, torch.float32),
            "trg_ids": put(batch.trg.ids, torch.long),
            "trg_mask": put(batch.trg.mask, torch.float32)}
+    if batch.guided_alignment is not None:
+        out["guided"] = put(batch.guided_alignment, torch.float32)
     if batch.data_weights is not None:
         out["data_weights"] = put(batch.data_weights, torch.float32)
     return out

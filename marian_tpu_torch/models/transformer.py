@@ -17,6 +17,19 @@ over a flat parameter dict, ported from the default-config part of
   mask as key mask, and cross-attention with the source mask as key mask:
   the structured masks the flash and packed attention kernels take.
 - A Python loop over layers stands in for the reference's --scan-layers.
+  Under --gradient-checkpointing each layer runs in training under
+  ``torch.utils.checkpoint`` (non-reentrant), its activations recomputed
+  in the backward; the recompute draws its dropout masks from a copy of
+  the layer's generator state at entry, so its masks are the forward's
+  and the gradients are those of a run without checkpointing, bit for
+  bit (``_layer``). Guided alignment's layer is not checkpointed.
+- ``decode_train(..., return_alignment=True)`` also returns the
+  head-averaged cross-attention weights [B, Tt, Ts] of the
+  --transformer-guided-alignment-layer (``last`` or a 1-based number):
+  that one cross-attention takes the dense path, since no kernel returns
+  weights; every other attention keeps its kernel.
+- --transformer-depth-scaling scales layer l's Glorot bound by
+  1/sqrt(l); --output-omit-bias leaves out ``decoder_ff_logit_out_b``.
 - Incremental decoding keeps fixed-size [B, H, L, Dh] self-attention
   caches. With the fused decode kernel the beam reorder is folded into
   the kernel's cache read (``beam_src``) and the kernel writes the next
@@ -37,9 +50,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention
 from ..ops.kernels.decode_attention import decode_attention
@@ -89,6 +103,10 @@ class TransformerConfig:
     ffn_dropout: float = 0.0
     dropout_src: float = 0.0                # whole-word dropout
     dropout_trg: float = 0.0
+    depth_scaling: bool = False             # --transformer-depth-scaling
+    output_omit_bias: bool = False          # --output-omit-bias
+    gradient_checkpointing: bool = False    # recompute layers in backward
+    guided_alignment_layer: str = "last"    # 'last' or a 1-based layer
 
     @property
     def dim_head(self) -> int:
@@ -163,6 +181,11 @@ def config_from_options(options, src_vocab: int,
         ffn_dropout=float(g("transformer-dropout-ffn", 0.0) or 0.0),
         dropout_src=float(g("dropout-src", 0.0) or 0.0),
         dropout_trg=float(g("dropout-trg", 0.0) or 0.0),
+        depth_scaling=bool(g("transformer-depth-scaling", False)),
+        output_omit_bias=bool(g("output-omit-bias", False)),
+        gradient_checkpointing=bool(g("gradient-checkpointing", False)),
+        guided_alignment_layer=str(
+            g("transformer-guided-alignment-layer", "last")),
     )
     # the flash kernels are built up to MAX_HEAD_SIZE (smaller head sizes
     # run zero-padded to a built one); 'auto' routes larger ones dense
@@ -182,13 +205,17 @@ def config_from_options(options, src_vocab: int,
 
 def init_params(cfg: TransformerConfig, seed: int) -> Params:
     """Glorot-uniform weights, zero biases, unit layer-norm scales, made
-    on the CPU from ``seed`` with an explicit torch.Generator (f32)."""
+    on the CPU from ``seed`` with an explicit torch.Generator (f32).
+    Under --transformer-depth-scaling layer l's attention and FFN bounds
+    are scaled by 1/sqrt(l), as the reference scales them."""
     gen = torch.Generator().manual_seed(int(seed))
     d = cfg.dim_emb
     p: Params = {}
 
-    def glorot(shape):
-        limit = math.sqrt(6.0 / (shape[0] + shape[-1]))
+    def glorot(shape, layer: int = 0):
+        scale = 1.0 / math.sqrt(layer) if (cfg.depth_scaling and layer) \
+            else 1.0
+        limit = scale * math.sqrt(6.0 / (shape[0] + shape[-1]))
         return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
 
     def ln(prefix):
@@ -196,16 +223,16 @@ def init_params(cfg: TransformerConfig, seed: int) -> Params:
             p[f"{prefix}_ln_scale"] = torch.ones(1, d)
             p[f"{prefix}_ln_bias"] = torch.zeros(1, d)
 
-    def attn_block(prefix):
+    def attn_block(prefix, layer):
         for n in ("q", "k", "v") + (() if cfg.no_projection else ("o",)):
-            p[f"{prefix}_W{n}"] = glorot((d, d))
+            p[f"{prefix}_W{n}"] = glorot((d, d), layer)
             p[f"{prefix}_b{n}"] = torch.zeros(1, d)
         ln(f"{prefix}_Wo")
 
-    def ffn_block(prefix, dim_ffn, depth):
+    def ffn_block(prefix, dim_ffn, depth, layer):
         dims = [d] + [dim_ffn] * (depth - 1) + [d]
         for i in range(depth):
-            p[f"{prefix}_W{i + 1}"] = glorot((dims[i], dims[i + 1]))
+            p[f"{prefix}_W{i + 1}"] = glorot((dims[i], dims[i + 1]), layer)
             p[f"{prefix}_b{i + 1}"] = torch.zeros(1, dims[i + 1])
         ln(f"{prefix}_ffn")
 
@@ -221,19 +248,20 @@ def init_params(cfg: TransformerConfig, seed: int) -> Params:
             p[f"{side}_emb_ln_scale"] = torch.ones(1, d)
             p[f"{side}_emb_ln_bias"] = torch.zeros(1, d)
     for l in range(1, cfg.enc_depth + 1):
-        attn_block(f"encoder_l{l}_self")
-        ffn_block(f"encoder_l{l}_ffn", cfg.dim_ffn, cfg.ffn_depth)
+        attn_block(f"encoder_l{l}_self", l)
+        ffn_block(f"encoder_l{l}_ffn", cfg.dim_ffn, cfg.ffn_depth, l)
     for l in range(1, cfg.dec_depth + 1):
-        attn_block(f"decoder_l{l}_self")
-        attn_block(f"decoder_l{l}_context")
-        ffn_block(f"decoder_l{l}_ffn", cfg.dec_ffn, cfg.dec_ffn_d)
+        attn_block(f"decoder_l{l}_self", l)
+        attn_block(f"decoder_l{l}_context", l)
+        ffn_block(f"decoder_l{l}_ffn", cfg.dec_ffn, cfg.dec_ffn_d, l)
     if "n" in cfg.postprocess_top or "n" in cfg.preprocess:
         for side in ("encoder", "decoder"):
             p[f"{side}_top_ln_scale"] = torch.ones(1, d)
             p[f"{side}_top_ln_bias"] = torch.zeros(1, d)
     if not (cfg.tied_embeddings_all or cfg.tied_embeddings):
         p["decoder_ff_logit_out_W"] = glorot((d, cfg.trg_vocab))
-    p["decoder_ff_logit_out_b"] = torch.zeros(1, cfg.trg_vocab)
+    if not cfg.output_omit_bias:
+        p["decoder_ff_logit_out_b"] = torch.zeros(1, cfg.trg_vocab)
     return p
 
 
@@ -286,8 +314,11 @@ def _mha(cfg: TransformerConfig, params: Params, prefix: str,
          kv_mask: Optional[torch.Tensor] = None, causal: bool = False,
          beam_src: Optional[torch.Tensor] = None, train: bool = False,
          generator=None,
-         page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head attention with an optional decode cache.
+         page_table: Optional[torch.Tensor] = None,
+         return_weights: bool = False):
+    """Multi-head attention with an optional decode cache; with
+    ``return_weights`` it returns (output, the head-averaged [B, Tq, Tk]
+    attention weights), from the dense path.
 
     cache (self-attention): 'k','v' [B,H,L,Dh] (+ 'spare_k','spare_v',
     the fused kernel's second buffers); this step's k/v land at
@@ -330,17 +361,23 @@ def _mha(cfg: TransformerConfig, params: Params, prefix: str,
             cache["k"][:, :, cache_pos] = k_[:, :, 0].to(cache["k"].dtype)
             cache["v"][:, :, cache_pos] = v_[:, :, 0].to(cache["v"].dtype)
             k_, v_ = cache["k"], cache["v"]
+    weights = None
     if out is None:
-        out, _ = attention(q, k_, v_, mask, kv_mask=kv_mask, causal=causal,
-                           flash=cfg.flash_attention,
-                           packed=cfg.packed_attention,
-                           dropout_rate=(cfg.attention_dropout if train
-                                         else 0.0),
-                           generator=generator)
+        out, weights = attention(q, k_, v_, mask, kv_mask=kv_mask,
+                                 causal=causal, return_weights=return_weights,
+                                 flash=cfg.flash_attention,
+                                 packed=cfg.packed_attention,
+                                 dropout_rate=(cfg.attention_dropout if train
+                                               else 0.0),
+                                 generator=generator)
     if cfg.no_projection:
-        return _merge_heads(out)
-    return affine(_merge_heads(out), params[f"{prefix}_Wo"],
-                  params[f"{prefix}_bo"])
+        out = _merge_heads(out)
+    else:
+        out = affine(_merge_heads(out), params[f"{prefix}_Wo"],
+                     params[f"{prefix}_bo"])
+    if return_weights:
+        return out, weights.mean(dim=1)
+    return out
 
 
 def _ffn(cfg: TransformerConfig, params: Params, prefix: str,
@@ -434,8 +471,9 @@ def encode(cfg: TransformerConfig, params: Params, src_ids: torch.Tensor,
     x = _pre_post(cfg, cfg.postprocess_emb, x, None, "encoder_emb", params,
                   **kw)
     attn_mask = src_mask[:, None, None, :]
-    for l in range(1, cfg.enc_depth + 1):
-        lp = f"encoder_l{l}"
+
+    def enc_layer(x, lp, gen):
+        kw = {"train": train, "generator": gen}
         pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_self_Wo",
                         params, **kw)
         out = _mha(cfg, params, f"{lp}_self", pre, pre, attn_mask,
@@ -446,8 +484,12 @@ def encode(cfg: TransformerConfig, params: Params, src_ids: torch.Tensor,
                         params, **kw)
         out = _ffn(cfg, params, f"{lp}_ffn", pre, cfg.dim_ffn, cfg.ffn_depth,
                    **kw)
-        x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_ffn_ffn", params,
-                      **kw)
+        return _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_ffn_ffn",
+                         params, **kw)
+
+    for l in range(1, cfg.enc_depth + 1):
+        x = _layer(cfg, lambda x, gen, lp=f"encoder_l{l}": enc_layer(
+            x, lp, gen), x, train, generator)
     return _pre_post(cfg, cfg.postprocess_top, x, None, "encoder_top",
                      params, **kw)
 
@@ -462,14 +504,49 @@ def shift_right_embeddings(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1, :]
 
 
+def _layer(cfg: TransformerConfig, fn: Callable, x: torch.Tensor,
+           train: bool, generator) -> torch.Tensor:
+    """One layer, ``fn(x, generator)``. Under --gradient-checkpointing in
+    training it runs through ``torch.utils.checkpoint``: only x is kept,
+    and the backward recomputes the layer. ``preserve_rng_state`` covers
+    the global generators only, and every dropout mask here comes from
+    ``generator``; so its state is taken at entry, the forward advances
+    ``generator`` as it would without checkpointing, and the recompute
+    draws from a fresh generator set to that state: the same masks."""
+    if not (cfg.gradient_checkpointing and train):
+        return fn(x, generator)
+    state = generator.get_state() if generator is not None else None
+    calls = []
+
+    def body(x):
+        gen = generator
+        if calls and generator is not None:         # the recompute
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        calls.append(1)
+        return fn(x, gen)
+    return checkpoint(body, x, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _is_alignment_layer(cfg: TransformerConfig, l: int) -> bool:
+    gal = cfg.guided_alignment_layer
+    if gal == "last":
+        return l == cfg.dec_depth
+    return l == int(gal)
+
+
 def decode_train(cfg: TransformerConfig, params: Params,
                  enc_out: torch.Tensor, src_mask: torch.Tensor,
                  trg_ids: torch.Tensor, trg_mask: torch.Tensor,
                  train: bool = True, generator=None,
-                 return_hidden: bool = False) -> torch.Tensor:
+                 return_hidden: bool = False,
+                 return_alignment: bool = False):
     """Teacher-forced decoder: [B, Tt] gold target ids → [B, Tt, V] f32
     logits, or the pre-logits hidden states when ``return_hidden`` (the
-    fused CE computes the output projection itself)."""
+    fused CE computes the output projection itself). With
+    ``return_alignment`` it returns (that, the alignment layer's
+    head-averaged cross-attention weights [B, Tt, Ts])."""
     kw = {"train": train, "generator": generator}
     we = shift_right_embeddings(_embed_words(cfg, params, trg_ids, "trg"))
     we = _word_dropout(we, cfg.dropout_trg, train, generator)
@@ -481,8 +558,10 @@ def decode_train(cfg: TransformerConfig, params: Params,
                                    device=trg_mask.device))
     self_mask = causal[None, None] * trg_mask[:, None, None, :]
     cross_mask = src_mask[:, None, None, :]
-    for l in range(1, cfg.dec_depth + 1):
-        lp = f"decoder_l{l}"
+    align = None
+
+    def dec_layer(x, lp, gen, want_align=False):
+        kw = {"train": train, "generator": gen}
         pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_self_Wo",
                         params, **kw)
         out = _mha(cfg, params, f"{lp}_self", pre, pre, self_mask,
@@ -493,7 +572,10 @@ def decode_train(cfg: TransformerConfig, params: Params,
         pre = _pre_post(cfg, cfg.preprocess, x, None, f"{cname}_Wo", params,
                         **kw)
         out = _mha(cfg, params, cname, pre, enc_out, cross_mask,
-                   kv_mask=src_mask, **kw)
+                   kv_mask=src_mask, return_weights=want_align, **kw)
+        align_l = None
+        if want_align:
+            out, align_l = out
         x = _pre_post(cfg, cfg.postprocess, out, x, f"{cname}_Wo", params,
                       **kw)
         pre = _pre_post(cfg, cfg.preprocess, x, None, f"{lp}_ffn_ffn",
@@ -502,9 +584,19 @@ def decode_train(cfg: TransformerConfig, params: Params,
                    **kw)
         x = _pre_post(cfg, cfg.postprocess, out, x, f"{lp}_ffn_ffn", params,
                       **kw)
+        return (x, align_l) if want_align else x
+
+    for l in range(1, cfg.dec_depth + 1):
+        if return_alignment and _is_alignment_layer(cfg, l):
+            # the alignment layer runs as is: its weights leave the layer
+            x, align = dec_layer(x, f"decoder_l{l}", generator, True)
+        else:
+            x = _layer(cfg, lambda x, gen, lp=f"decoder_l{l}": dec_layer(
+                x, lp, gen), x, train, generator)
     x = _pre_post(cfg, cfg.postprocess_top, x, None, "decoder_top", params,
                   **kw)
-    return x if return_hidden else output_logits(cfg, params, x)
+    out = x if return_hidden else output_logits(cfg, params, x)
+    return (out, align) if return_alignment else out
 
 
 def cast_params(params: Params, dtype: torch.dtype) -> Params:

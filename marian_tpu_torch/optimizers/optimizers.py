@@ -10,7 +10,13 @@ src/optimizers/exponential_smoothing.h), ported from
 - the statistics of --dynamic-gradient-scaling ('gstat': the windowed
   average of the (log-)gradient norm and its count), which the update
   tail ``training/graph_group.finalize_update`` keeps, as the
-  reference's ``parallel/zero.py`` does.
+  reference's ``parallel/zero.py`` does;
+- train-time compression (``compression.py``) in the reference's order:
+  --gradient-dropping-rate sparsifies the (scaled, clipped) gradients
+  before the step, with its residual in 'gerr'; --quantize-bits snaps
+  the updated f32 master parameters to their grid after it, with the
+  error in 'qerr', and before the EMA, so the smoothed parameters track
+  the quantized model.
 
 State is f32 whatever the compute dtype, except Adam's first moment m
 under --optimizer-state-dtype bfloat16: it is stored in bf16, upcast for
@@ -19,8 +25,16 @@ Gradients of any dtype are upcast to f32 here. Unlike the reference's
 pure (state, grads) → (state, params) functions, ``apply_update``
 updates the parameters and the state IN PLACE (under no_grad), which
 saves a second copy of every tensor; it returns the same dicts for the
-reference's call shape. Not ported yet: train-time quantization and
-gradient dropping; ``from_options`` refuses their flags.
+reference's call shape.
+
+Adam's bias corrections 1 - beta^t are computed in f64 and rounded to
+f32, and the square roots of Adam and Adagrad are taken in f64 and
+rounded to f32, the correctly rounded f32 root. PyTorch's f32 pow and
+sqrt are not correctly rounded for some inputs, on the card (0.7% of a
+sqrt's elements on an H100) and on some CPU builds, so the two devices
+differed in the last bit, and a quantized update (--quantize-bits) turns
+such a bit into a whole step of its grid. So the optimizer step is the
+same, bit for bit, on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -30,13 +44,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from .compression import drop_gradients, quantize_model
+
 Params = Dict[str, torch.Tensor]
 
-# option → value at which the feature is off
-_UNPORTED = {
-    "quantize-bits": 0,
-    "gradient-dropping-rate": 0.0,
-}
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root on every device: the f64
+    root rounded to f32 (53 bits hold the f32 root's rounding exactly)."""
+    return torch.sqrt(x.double()).float()
+
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -58,15 +75,16 @@ class OptimizerConfig:
     dyn_scale_factor: float = 0.0      # 0 = off
     dyn_scale_log: bool = False
     norm_window: int = 100             # --gradient-norm-average-window
+    # train-time compression (compression.py)
+    quantize_bits: int = 0             # --quantize-bits (0 = off)
+    quantize_log: bool = False         # --quantize-log-based
+    quantize_biases: bool = False      # --quantize-biases
+    quantize_opt_steps: int = 0        # --quantize-optimization-steps
+    quantize_range: float = 0.0        # --quantize-range (N stddevs)
+    grad_drop_rate: float = 0.0        # --gradient-dropping-rate (0 = off)
 
     @classmethod
     def from_options(cls, options) -> "OptimizerConfig":
-        for name, off in _UNPORTED.items():
-            val = options.get(name, off)
-            if val not in (off, None, 0, 0.0, [], ""):
-                raise NotImplementedError(
-                    f"--{name} {val} is not ported to marian_tpu_torch yet "
-                    f"(ROADMAP)")
         params = [float(x) for x in options.get("optimizer-params", []) or []]
         name = options.get("optimizer", "adam")
         if name not in ("adam", "adagrad", "sgd"):
@@ -85,7 +103,18 @@ class OptimizerConfig:
                                               "float32") or "float32"),
                   norm_window=int(
                       options.get("gradient-norm-average-window", 100)
-                      or 100))
+                      or 100),
+                  quantize_bits=int(options.get("quantize-bits", 0) or 0),
+                  quantize_log=bool(options.get("quantize-log-based",
+                                                False)),
+                  quantize_biases=bool(options.get("quantize-biases",
+                                                   False)),
+                  quantize_opt_steps=int(
+                      options.get("quantize-optimization-steps", 0) or 0),
+                  quantize_range=float(
+                      options.get("quantize-range", 0.0) or 0.0),
+                  grad_drop_rate=float(
+                      options.get("gradient-dropping-rate", 0.0) or 0.0))
         dyn = options.get("dynamic-gradient-scaling", []) or []
         if dyn is True:
             dyn = ["2"]
@@ -125,6 +154,10 @@ def init_state(cfg: OptimizerConfig, params: Params) -> Dict[str, Any]:
         st["gt"] = zeros()
     if cfg.smoothing > 0:
         st["avg"] = {k: v.detach().float().clone() for k, v in params.items()}
+    if cfg.quantize_bits > 0:     # quantization error feedback
+        st["qerr"] = zeros()
+    if cfg.grad_drop_rate > 0:    # gradient-dropping residual
+        st["gerr"] = zeros()
     if cfg.dyn_scale_factor > 0:
         st["gstat"] = {"avg": torch.zeros((), dtype=torch.float32,
                                           device=dev),
@@ -146,11 +179,16 @@ def apply_update(cfg: OptimizerConfig, state: Dict[str, Any], params: Params,
     if cfg.ref_mb_words and mb_words is not None:
         ratio = mb_words.float() / float(cfg.ref_mb_words)
         lr, eps = lr * ratio, eps * ratio
+    if cfg.grad_drop_rate > 0:
+        grads, gerr = drop_gradients(grads, state["gerr"], cfg.grad_drop_rate)
+        for k, r in gerr.items():
+            state["gerr"][k].copy_(r)
     if cfg.name == "adam":
-        bc1 = 1.0 - torch.pow(torch.tensor(cfg.beta1, dtype=torch.float32,
-                                           device=t.device), t)
-        bc2 = 1.0 - torch.pow(torch.tensor(cfg.beta2, dtype=torch.float32,
-                                           device=t.device), t)
+        t64 = t.double()
+        bc1 = (1.0 - torch.pow(torch.tensor(cfg.beta1, dtype=torch.float64,
+                                            device=t.device), t64)).float()
+        bc2 = (1.0 - torch.pow(torch.tensor(cfg.beta2, dtype=torch.float64,
+                                            device=t.device), t64)).float()
         for k, p in params.items():
             g = grads[k].float()
             m, v = state["m"][k], state["v"][k]
@@ -162,17 +200,25 @@ def apply_update(cfg: OptimizerConfig, state: Dict[str, Any], params: Params,
                 m.copy_(m32)
                 m = m32
             v.mul_(cfg.beta2).add_((1.0 - cfg.beta2) * torch.square(g))
-            step = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            step = lr * (m / bc1) / (_sqrt(v / bc2) + eps)
             p.copy_((p.float() - step).to(p.dtype))
     elif cfg.name == "adagrad":
         for k, p in params.items():
             g = grads[k].float()
             gt = state["gt"][k]
             gt.add_(torch.square(g))
-            p.copy_((p.float() - lr * g / (torch.sqrt(gt) + eps)).to(p.dtype))
+            p.copy_((p.float() - lr * g / (_sqrt(gt) + eps)).to(p.dtype))
     else:
         for k, p in params.items():
             p.copy_((p.float() - lr * grads[k].float()).to(p.dtype))
+    if cfg.quantize_bits > 0:
+        qp, qerr = quantize_model(
+            params, state["qerr"], cfg.quantize_bits, cfg.quantize_log,
+            cfg.quantize_opt_steps, cfg.quantize_biases,
+            qrange=cfg.quantize_range)
+        for k, p in params.items():
+            p.copy_(qp[k])
+            state["qerr"][k].copy_(qerr[k])
     if cfg.smoothing > 0:
         for k, p in params.items():
             avg = state["avg"][k]

@@ -9,7 +9,8 @@ update with their gradients summed into f32 accumulators (the
 reference's split path, graph_group.py ``update``), then cost-type
 normalisation of the gradient, --normalize-gradient,
 --dynamic-gradient-scaling, global-norm clipping (--clip-norm), the
-optimizer step, and
+optimizer step (with --gradient-dropping-rate and --quantize-bits,
+``optimizers/compression.py``), and
 --check-gradient-nan (a non-finite gradient norm skips the whole update,
 params and optimizer state untouched). Parameters are f32 leaf tensors
 on the device (the master weights, whatever --precision computes in)
@@ -19,8 +20,13 @@ with bf16 compute, in bf16 from a bf16 copy of the parameters; the cost
 normalisation upcasts them to f32, as the reference's division by its
 f32 denominator does.
 
-Not ported yet: meshes and ZeRO sharding, --dispatch-window, embedding
-freezing; the trainer refuses their flags.
+--embedding-fix-src/-trg freeze their tables (``frozen_names``): the
+gradients of those tables are zeroed before the global norm, so
+--clip-norm and --dynamic-gradient-scaling see the reference's norm, and
+Adam then leaves them byte-equal.
+
+Not ported yet: meshes and ZeRO sharding, --dispatch-window; the trainer
+refuses their flags.
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ class TrainOutput:
     labels: Any
     grad_norm: Any
     skipped: Any = None          # 0/1 under --check-gradient-nan
+    guided: Any = None           # the guided-alignment cost, mean over
+    # the micro-batches that carried an alignment matrix
 
 
 def delay_of(options) -> int:
@@ -62,6 +70,25 @@ def delay_of(options) -> int:
                          "(in-jit windowing and in-jit accumulation do "
                          "not compose; pick one)")
     return delay
+
+
+def frozen_names(names, fix_src: bool, fix_trg: bool) -> frozenset:
+    """The parameters --embedding-fix-src/-trg exclude from updates
+    (reference: graph_group.py ``_frozen_names``); with tied embeddings
+    the shared table freezes if either side is fixed."""
+    out = set()
+    if fix_src or fix_trg:
+        for k in names:
+            is_src = ((k.endswith("_Wemb") or k.endswith("_Wemb_factors"))
+                      and not k.startswith("decoder")) or (k == "Wemb")
+            is_trg = k in ("decoder_Wemb", "decoder_Wemb_factors",
+                           "Wemb_dec") or (
+                k == "Wemb" and not any(o in names
+                                        for o in ("decoder_Wemb",
+                                                  "Wemb_dec")))
+            if (fix_src and is_src) or (fix_trg and is_trg):
+                out.add(k)
+    return frozenset(out)
 
 
 def dropout_seed(seed: int, update: int, micro: int = 0) -> int:
@@ -174,6 +201,7 @@ class GraphGroup:
                                       model.cfg.compute_dtype)
         self.params: Optional[Params] = None
         self.opt_state: Optional[Dict[str, Any]] = None
+        self.frozen: frozenset = frozenset()
 
     # -- init / load --------------------------------------------------------
     def initialize(self, init_params: Dict[str, Any]) -> None:
@@ -186,6 +214,10 @@ class GraphGroup:
             self.params[k] = t.detach().to(
                 device=self.device, dtype=torch.float32).clone(
                 ).requires_grad_(True)
+        self.frozen = frozen_names(
+            list(self.params),
+            bool(self.options.get("embedding-fix-src", False)),
+            bool(self.options.get("embedding-fix-trg", False)))
         if self.opt_state is None:
             self.opt_state = init_state(self.opt_cfg, self.params)
         else:
@@ -216,6 +248,7 @@ class GraphGroup:
         names = list(self.params)
         acc: Optional[List[torch.Tensor]] = None
         ce_sum = labels = None
+        guided = []
         rows = 0
         for i, batch in enumerate(batches):
             if generator is not None and seed is not None:
@@ -242,18 +275,25 @@ class GraphGroup:
                 for a, g in zip(acc, grads):
                     a.add_(g)
             del grads           # freed before the next micro-batch's forward
+            if "guided" in aux:
+                guided.append(aux["guided"].detach())
             ce = aux["ce_sum"].detach()
             lab = aux["labels"].detach()
             ce_sum = ce if ce_sum is None else ce_sum + ce
             labels = lab if labels is None else labels + lab
             rows += int(batch["trg_ids"].shape[0])
+        if self.frozen:
+            # fixed tables: no update and no share of the global norm
+            acc = [torch.zeros_like(g) if k in self.frozen else g
+                   for k, g in zip(names, acc)]
         denom = cost_denominator(self.cost_type, labels, rows)
         gnorm, skipped = finalize_update(
             self.opt_cfg, self.opt_state, self.params,
             dict(zip(names, acc)), self.schedule(step), labels, denom)
         return TrainOutput(ce_sum, labels, gnorm,
                            skipped if self.opt_cfg.check_gradient_nan
-                           else None)
+                           else None,
+                           sum(guided) / len(guided) if guided else None)
 
     # -- EMA access and checkpoint glue ---------------------------------------
     def smoothed(self) -> Params:
@@ -265,10 +305,11 @@ class GraphGroup:
 
     def optimizer_tensors(self) -> Dict[str, torch.Tensor]:
         """Flat-named optimizer state, the reference's ``.optimizer.npz``
-        layout ('t', 'm:<name>', 'v:<name>', ..., 'gstat:avg',
-        'gstat:n'), as the live tensors on the device."""
+        layout ('t', 'm:<name>', 'v:<name>', ..., 'qerr:<name>',
+        'gerr:<name>', 'gstat:avg', 'gstat:n'), as the live tensors on the
+        device."""
         flat = {"t": self.opt_state["t"]}
-        for part in ("m", "v", "gt", "avg", "gstat"):
+        for part in ("m", "v", "gt", "avg", "qerr", "gerr", "gstat"):
             for k, v in self.opt_state.get(part, {}).items():
                 flat[f"{part}:{k}"] = v.detach()
         return flat
@@ -282,7 +323,10 @@ class GraphGroup:
 
     def load_optimizer_arrays(self, flat: Dict[str, np.ndarray]) -> None:
         """Optimizer state from ``optimizer_arrays``' layout; m takes
-        this run's --optimizer-state-dtype."""
+        this run's --optimizer-state-dtype. Once the parameters exist, a
+        group the arrays lack (a checkpoint from before --quantize-bits,
+        --gradient-dropping-rate or EMA was turned on) is backfilled with
+        fresh state, as the reference's ``initialize`` does."""
         m_dtype = STATE_DTYPES[self.opt_cfg.state_dtype]
         st: Dict[str, Any] = {"t": torch.as_tensor(
             np.asarray(flat["t"], dtype=np.float32)).to(self.device)}
@@ -293,4 +337,7 @@ class GraphGroup:
                     np.asarray(v, dtype=np.float32)).to(
                         self.device, m_dtype if part == "m"
                         else torch.float32)
+        if self.params is not None:
+            for k, v in init_state(self.opt_cfg, self.params).items():
+                st.setdefault(k, v)
         self.opt_state = st

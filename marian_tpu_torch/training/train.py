@@ -42,6 +42,14 @@ micro-batch, so a resumed run draws the same masks as an uninterrupted
 one (the reference folds its dropout key by the update number and the
 micro-batch index for the same reason).
 
+The training data and init flags, as the reference reads them: --tsv
+takes one tab-separated file for every stream, and a vocabulary built
+from it sees all its columns; --right-left reverses the target; the
+--guided-alignment side stream feeds the guided cost; --embedding-vectors
+(with --embedding-normalization) load word2vec tables into a fresh
+init only (a resumed or --pretrained-model run keeps its tables), and
+--embedding-fix-src/-trg freeze them (``graph_group.frozen_names``).
+
 Mixed precision as the reference runs it: --precision bfloat16 (or
 --fp16) computes the forward and backward in bf16 from f32 master
 weights, which the optimizer updates and the checkpoint saves in f32;
@@ -67,6 +75,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from .. import obs
@@ -94,18 +103,9 @@ from .validators import create_validators
 # option → value at which the feature is off; set to anything else the
 # trainer refuses to start instead of ignoring it
 _UNPORTED = {
+    # the multi-update dispatch: with CUDA graphs (ROADMAP A10)
     "dispatch-window": 1,
-    "guided-alignment": "none",
-    "unlikelihood-loss": False,
-    "tsv": False,
-    "right-left": False,
-    "embedding-vectors": [],
-    "embedding-fix-src": False,
-    "embedding-fix-trg": False,
-    "gradient-checkpointing": False,
     "mesh": [],
-    "output-omit-bias": False,
-    "transformer-depth-scaling": False,
     "auto-tune": False,
     # a live jax.profiler server: torch.profiler has no counterpart
     "profile-server": 0,
@@ -172,14 +172,21 @@ class Train:
         opts = self.options
         seed = int(opts.get("seed", 0)) or 1234
         train_sets = list(opts.get("train-sets"))
-        if len(train_sets) != 2:
+        tsv = bool(opts.get("tsv", False)) and len(train_sets) == 1
+        if len(train_sets) != (1 if tsv else 2):
             raise NotImplementedError("this slice trains one source and one "
-                                      "target stream (--train-sets src trg)")
+                                      "target stream (--train-sets src trg, "
+                                      "or one file under --tsv)")
         vocab_paths = list(opts.get("vocabs", [])) or \
             [p + ".yml" for p in train_sets]
+        # --tsv: the one file feeds every vocabulary (a vocabulary built
+        # from it sees all its columns)
+        train_per_vocab = (train_sets * len(vocab_paths) if tsv
+                           else train_sets)
         dim_vocabs = list(opts.get("dim-vocabs", [0, 0]))
         vocabs = [_vocab(vp, tp, dim_vocabs[i] if i < len(dim_vocabs) else 0)
-                  for i, (vp, tp) in enumerate(zip(vocab_paths, train_sets))]
+                  for i, (vp, tp) in enumerate(zip(vocab_paths,
+                                                   train_per_vocab))]
         log.info("Vocabulary sizes: {}",
                  " ".join(str(len(v)) for v in vocabs))
         corpus = Corpus(train_sets, vocabs, opts)
@@ -208,6 +215,8 @@ class Train:
             init_params, _ = mio.load_model(opts.get("pretrained-model"))
         if init_params is None:
             init_params = T.init_params(model.cfg, seed)
+            if opts.get("embedding-vectors", []):
+                load_embedding_vectors(opts, init_params, vocabs)
         # the schedule's decay factor and warmup restart resume with it
         gg.schedule.decay_factor = state.factor
         if state.batches > 0 and opts.get("lr-warmup-at-reload", False):
@@ -405,6 +414,33 @@ class Train:
         do_save()
         if saver is not None:
             saver.close()       # the last checkpoint is on disk at exit
+
+
+def load_embedding_vectors(opts, params, vocabs) -> None:
+    """--embedding-vectors src.vec [trg.vec]: word2vec text tables into
+    the fresh init's embedding tables (``Wemb`` or ``encoder_Wemb`` for
+    the source, ``decoder_Wemb`` or the tied ``Wemb`` for the target),
+    unit rows under --embedding-normalization; words a file lacks keep
+    their init rows (reference: train.py, Embedding with embFile)."""
+    from ..layers.embedding_io import load_word2vec, normalize_rows
+    files = list(opts.get("embedding-vectors", []) or [])
+    dim = int(opts.get("dim-emb", 512))
+    norm = bool(opts.get("embedding-normalization", False))
+
+    def load_into(name, path, vocab):
+        if name not in params:
+            return
+        tab = load_word2vec(path, vocab, dim,
+                            init=params[name].detach().cpu().numpy())
+        if norm:
+            tab = normalize_rows(tab)
+        params[name] = torch.from_numpy(np.ascontiguousarray(tab))
+
+    load_into("Wemb" if "Wemb" in params else "encoder_Wemb", files[0],
+              vocabs[0])
+    if len(files) > 1:
+        load_into("decoder_Wemb" if "decoder_Wemb" in params else "Wemb",
+                  files[1], vocabs[-1])
 
 
 def warmup_updates(opts) -> int:

@@ -32,11 +32,16 @@ class Validator:
 
 def dev_corpus(options, vocabs) -> Corpus:
     """The --valid-sets corpus as the reference reads it: cropped at
-    --valid-max-length, never shuffled."""
+    --valid-max-length, never shuffled. The training corpus's side
+    streams (--guided-alignment, --data-weighting) are not read for it:
+    their files are line-parallel to the training set, and the
+    reference, which reads them here too, fails on the length mismatch
+    (ROADMAP §C)."""
     return Corpus(list(options.get("valid-sets", [])), vocabs,
                   options.with_(**{"max-length": options.get(
                       "valid-max-length", 1000),
-                      "max-length-crop": True, "shuffle": "none"}))
+                      "max-length-crop": True, "shuffle": "none",
+                      "guided-alignment": "none", "data-weighting": None}))
 
 
 class CrossEntropyValidator(Validator):

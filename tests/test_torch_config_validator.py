@@ -109,18 +109,32 @@ def test_accepted_like_the_reference(mode, argv):
     assert _outcome(torch_parse, argv, mode) is None
 
 
-@pytest.mark.parametrize("flags", [["--tsv", "--train-sets", "a.tsv"],
-                                   ["--right-left"],
-                                   ["--guided-alignment", "a.txt"]])
+@pytest.mark.parametrize("flags", [["--dispatch-window", "4"],
+                                   ["--auto-tune"],
+                                   ["--mesh", "data:2"]])
 def test_parsed_but_unported_features_are_refused_by_the_trainer(flags):
     """Both parsers take these argv; the port's trainer refuses the
-    feature by name before anything is built."""
+    feature by name before anything is built. --tsv, --right-left and
+    --guided-alignment, once refused here, now pass the trainer's check
+    (test_ported_training_features_pass_the_trainers_check)."""
     argv = ["--type", "transformer", "--train-sets", "a.src", "a.trg",
             *flags]
     assert _outcome(jax_parse, argv, "training") is None
     opts = torch_parse(argv, mode="training")
     with pytest.raises(NotImplementedError, match=flags[0]):
         _refuse_unported(opts)
+
+
+@pytest.mark.parametrize("flags", [["--tsv", "--train-sets", "a.tsv"],
+                                   ["--right-left"],
+                                   ["--guided-alignment", "a.txt"]])
+def test_ported_training_features_pass_the_trainers_check(flags):
+    """Features the trainer refused until this slice ported them: both
+    parsers take the argv and the port's trainer lets it through."""
+    argv = ["--type", "transformer", "--train-sets", "a.src", "a.trg",
+            *flags]
+    assert _outcome(jax_parse, argv, "training") is None
+    _refuse_unported(torch_parse(argv, mode="training"))
 
 
 def test_train_cli_refuses_unknown_cost_type(tmp_path):

@@ -119,15 +119,18 @@ def test_check_gradient_nan_skips_the_whole_update():
     ("quantize-bits", 8), ("gradient-dropping-rate", 0.9),
     ("dynamic-gradient-scaling", ["2"])])
 def test_unported_optimizer_flags_raise(flag, value):
-    """The flags the port leaves out raise by name. --dynamic-gradient-
-    scaling, refused until it was ported, now configures the update tail
-    (held to the reference in tests/test_torch_recipe.py)."""
-    if flag not in topt._UNPORTED:
-        cfg = topt.OptimizerConfig.from_options(TOptions({flag: value}))
-        assert (cfg.dyn_scale_factor, cfg.dyn_scale_log) == (2.0, False)
-        return
-    with pytest.raises(NotImplementedError, match=flag):
-        topt.OptimizerConfig.from_options(TOptions({flag: value}))
+    """Each flag was refused until it was ported; each now configures the
+    update as the reference's OptimizerConfig does: the compression
+    flags (held to the reference in tests/test_torch_compression.py) and
+    --dynamic-gradient-scaling (tests/test_torch_recipe.py)."""
+    fields = ("quantize_bits", "grad_drop_rate", "dyn_scale_factor",
+              "dyn_scale_log")
+    got = topt.OptimizerConfig.from_options(TOptions({flag: value}))
+    ref = jopt.OptimizerConfig.from_options(Options({flag: value}))
+    assert [getattr(got, f) for f in fields] == \
+        [getattr(ref, f) for f in fields]
+    assert [getattr(got, f) for f in fields] != \
+        [getattr(topt.OptimizerConfig(), f) for f in fields]
 
 
 def test_optimizer_state_dtype_other_than_f32_or_bf16_raises_as_reference():

@@ -54,6 +54,25 @@ def work(tmp_path_factory):
     DefaultVocab.build(lines).save(str(d / "v.yml"))
     (d / "in.txt").write_text("\n".join(
         (DATA / "train.src").read_text().splitlines()[:8]) + "\n")
+    # the side files of the ported training flags: a tab-separated copy
+    # of the corpus, diagonal Pharaoh alignments, word weights of both
+    # signs and word2vec vectors of the first source words
+    src = (DATA / "train.src").read_text().splitlines()
+    trg = (DATA / "train.trg").read_text().splitlines()
+    (d / "train.tsv").write_text(
+        "".join(f"{a}\t{b}\n" for a, b in zip(src, trg)))
+    (d / "align.txt").write_text("".join(
+        " ".join(f"{min(i, len(a.split()) - 1)}-{i}"
+                 for i in range(len(b.split()))) + "\n"
+        for a, b in zip(src, trg)))
+    (d / "weights.txt").write_text("".join(
+        " ".join(("-0.5" if i % 3 == 1 else "1")
+                 for i in range(len(b.split()) + 1)) + "\n" for b in trg))
+    words = sorted({w for l in src for w in l.split()})[:5]
+    rng = np.random.RandomState(3)
+    (d / "src.vec").write_text(f"{len(words)} 32\n" + "".join(
+        w + " " + " ".join(f"{x:.5f}" for x in rng.randn(32)) + "\n"
+        for w in words))
     return d
 
 
@@ -142,12 +161,15 @@ def test_train_entry_point_raises_without_card(work, monkeypatch):
     assert not (work / "none.npz").exists()
 
 
-@pytest.mark.parametrize("flag", [["--transformer-depth-scaling"],
+@pytest.mark.parametrize("flag", [["--mesh", "data:2"],
                                   ["--dispatch-window", "4"],
-                                  ["--guided-alignment", "a.txt"],
-                                  ["--gradient-checkpointing"]])
+                                  ["--auto-tune"],
+                                  ["--profile-server", "6009"]])
 def test_unported_training_flags_raise(work, flag):
-    with pytest.raises(NotImplementedError):
+    """What the port still refuses by name. --transformer-depth-scaling,
+    --guided-alignment and --gradient-checkpointing, once refused here,
+    now train (test_ported_training_flags_run)."""
+    with pytest.raises(NotImplementedError, match=flag[0][2:]):
         marian_train.main(train_args(work, "x.npz", "--cpu-threads", "1",
                                      *flag))
 
@@ -161,13 +183,34 @@ def test_unported_training_flags_raise(work, flag):
      "batches: 3"),
     (["--lr-decay", "0.5", "--lr-decay-strategy", "batches",
       "--lr-decay-freq", "1", "--valid-sets", str(DATA / "train.src"),
-      str(DATA / "train.trg"), "--valid-freq", "1u"], "factor: 0.125")])
+      str(DATA / "train.trg"), "--valid-freq", "1u"], "factor: 0.125"),
+    (["--transformer-depth-scaling"], "batches: 3"),
+    (["--guided-alignment", "{work}/align.txt", "--guided-alignment-cost",
+      "mse", "--transformer-guided-alignment-layer", "1",
+      "--multi-loss-type", "mean"], "batches: 3"),
+    (["--gradient-checkpointing", "--transformer-dropout", "0.1"],
+     "batches: 3"),
+    (["--tsv", "--train-sets", "{work}/train.tsv", "--tsv-fields", "2"],
+     "batches: 3"),
+    (["--right-left"], "batches: 3"),
+    (["--unlikelihood-loss", "--data-weighting", "{work}/weights.txt",
+      "--data-weighting-type", "word"], "batches: 3"),
+    (["--embedding-vectors", "{work}/src.vec", "--embedding-normalization",
+      "--embedding-fix-src"], "batches: 3"),
+    (["--output-omit-bias"], "batches: 3"),
+    (["--quantize-bits", "4", "--quantize-log-based", "--quantize-biases",
+      "--quantize-optimization-steps", "1"], "batches: 3"),
+    (["--gradient-dropping-rate", "0.9"], "batches: 3")])
 def test_ported_training_flags_run(work, flag, progress):
     """--optimizer-delay, --lr-decay, --dynamic-gradient-scaling,
     --async-save, --mini-batch-warmup with --mini-batch-track-lr and
-    --mini-batch-fit, once refused, now train: 3 updates (of 2 batches
-    each under the delay); a decay by half after each of 3
-    validations."""
+    --mini-batch-fit, and the rest of the training slice (depth scaling,
+    guided alignment, gradient checkpointing, --tsv, --right-left, the
+    unlikelihood loss, pretrained and fixed embeddings, --output-omit-bias,
+    train-time quantization and gradient dropping), once refused, now
+    train: 3 updates (of 2 batches each under the delay); a decay by half
+    after each of 3 validations."""
+    flag = [f.format(work=work) for f in flag]
     marian_train.main(train_args(work, "ported.npz", "--after-batches", "3",
                                  "--cpu-threads", "1", "--no-reload",
                                  *flag))
